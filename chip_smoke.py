@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on a CUDA card.
+"""Drive the PyTorch port's serving and training paths once on a CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,19 +7,33 @@ Phases, one line each (the kernel checks one line per kernel):
   1. environment: torch, CUDA and nvcc versions, the card's name and power
      limit as nvidia-smi gives them;
   2. build of the CUDA kernels (conductor_tpu_torch/csrc), and its time;
-  3. each kernel against its plain PyTorch version on the card, at the
-     serving path's shapes (B = 2 clips of 60 s: T = 5400 mel frames, 1800
-     motion frames, D = 128, E = 512, 8 layers), bf16 operands on both
-     sides; each must agree within 2 % of the plain output's largest value;
+  3. each serving kernel (K1-K4) against its plain PyTorch version on the
+     card, at the serving path's shapes (B = 2 clips of 60 s: T = 5400 mel
+     frames, 1800 motion frames, D = 128, E = 512, 8 layers), and the
+     training layer kernels K5 (forward) and K6 (backward, seven gradients)
+     on layer 0 of a training forward at B = 4 windows of 30 s (T = 900,
+     padded to 960), bf16 operands on both sides; each output must agree
+     within 2 % of the plain output's largest value;
   4. `DDPMTrainer.generate` on the kernel path, ddim50, on synthetic flagship
      weights and a seeded mel: a finite (2, 1800, 26) motion within 3 % of
-     the plain path's on the card, with every kernel launched;
+     the plain path's on the card, with every serving kernel launched;
   5. timings: the ddim50 latency of one clip, and a 1000-step ladder over
-     8 clips (bench.py's shape) timed up to the host readback.
+     8 clips (bench.py's shape) timed up to the host readback;
+  6. training: 4 `DDPMTrainer.train_step`s on the kernel path (K5 / K6,
+     bf16) and 4 on the plain path (float32 modules and autograd), both from
+     the same synthetic flagship weights and synthetic ST-GCN, on the same
+     seeded mel, motion, t, noise and condition keep masks at the training
+     default B = 32 windows of 30 s (T = 900 motion, 2700 mel frames); each
+     kernel-path loss must be finite and within 3e-2 relative of the plain
+     path's (the bf16 bound of tests/test_fused_train_path.py), K5 and K6
+     must have launched, and the median ms per step of both paths is printed.
 
-Then one JSON line of per-kernel results, the nvidia-smi line again, and as
-the last line {"ok": true, "device": {...}}.  Exits non-zero, printing no
-result, when there is no CUDA device or any phase fails.
+Every path runs at full depth; the run takes a few minutes of its 1200-s
+limit, so no path is cut.  Then one JSON line of per-kernel results (the
+launch counts of K1-K4 from phase 4, of K5 / K6 from phase 6), the
+nvidia-smi line again, and as the last line {"ok": true, "device": {...}}.
+Exits non-zero, printing no result, when there is no CUDA device or any
+phase fails.
 """
 
 from __future__ import annotations
@@ -41,8 +55,16 @@ KERNEL_SOURCES = {
                          "conductor_tpu/ops/pallas_sampler.py:143"),
     "conv_block": ("conductor_tpu_torch/csrc/conv_block.cu",
                    "conductor_tpu/ops/pallas_conv.py:198"),
+    "decoder_layer": ("conductor_tpu_torch/csrc/decoder_stack.cu",
+                      "conductor_tpu/ops/pallas_layer.py:210"),
+    "decoder_layer_bwd": ("conductor_tpu_torch/csrc/decoder_layer_bwd.cu",
+                          "conductor_tpu/ops/pallas_layer_bwd.py:353"),
 }
+SERVING_KERNELS = ("decoder_stack", "sampler_prologue", "sampler_epilogue", "conv_block")
+TRAIN_KERNELS = ("decoder_layer", "decoder_layer_bwd")
 GENERATE_REL_TOL = 0.03  # ladder drift bound of tests/test_fused_denoiser.py
+TRAIN_LOSS_REL_TOL = 3e-2  # bf16 loss bound of tests/test_fused_train_path.py
+TRAIN_STEPS = 4
 
 
 def _run(cmd: list[str]) -> str:
@@ -65,8 +87,8 @@ def main() -> int:
         return 2
     from conductor_tpu_torch import DDPMTrainer
     from conductor_tpu_torch.config import Config, DenoiserConfig
-    from conductor_tpu_torch.interop import synthetic_state_dict
-    from conductor_tpu_torch.kernel_checks import check_kernels, time_ms
+    from conductor_tpu_torch.interop import synthetic_motion_encoder_state_dict, synthetic_state_dict
+    from conductor_tpu_torch.kernel_checks import check_kernels, check_train_kernels, time_ms
     from conductor_tpu_torch.ops import _build, launch_counts, reset_launch_counts
 
     # the plain references run in full float32
@@ -92,22 +114,43 @@ def main() -> int:
     kernel_tr = DDPMTrainer(cfg, device="cuda")  # "auto" on CUDA: the kernel path
     if kernel_tr.fused is None or kernel_tr.fused_encoder is None:
         raise SystemExit("chip_smoke: 'auto' did not select the kernel path on CUDA")
+    if kernel_tr.cfg.denoiser.train_layer_impl != "pallas_fused":
+        raise SystemExit("chip_smoke: 'auto' did not select the training kernels on CUDA")
     plain_cfg = cfg.replace(denoiser=DenoiserConfig(
-        layer_impl="flax", music_encoder_impl="flax", compute_dtype="float32"))
+        layer_impl="flax", music_encoder_impl="flax", train_layer_impl="flax",
+        compute_dtype="float32"))
     plain_tr = DDPMTrainer(plain_cfg, device="cuda")
     sd = synthetic_state_dict(kernel_tr.model, seed=0)
-    kernel_tr.load_reference_state_dict(sd)
-    plain_tr.load_reference_state_dict(sd)
+    feat_sd = synthetic_motion_encoder_state_dict(kernel_tr.feat_model, seed=0)
+    kernel_tr.load_reference_state_dict(sd, motion_encoder=feat_sd)
+    plain_tr.load_reference_state_dict(sd, motion_encoder=feat_sd)
     rng = np.random.RandomState(0)
     mel = torch.from_numpy(rng.uniform(0, 1, size=(2, 5400, 128)).astype(np.float32)).cuda()
     noise = torch.from_numpy(rng.normal(size=(2, 1800, 26)).astype(np.float32)).cuda()
 
-    # 3. every kernel against its plain version, at the main path's shapes
+    # the training batch: B = 32 windows of 30 s, and each step's random
+    # numbers, made on the host from the seed
+    n_train, t_train = cfg.train.batch_size, cfg.train.sample_length * cfg.dataset.motion_hz
+    mel_train = torch.from_numpy(rng.uniform(
+        0, 1, size=(n_train, 3 * t_train, 128)).astype(np.float32)).cuda()
+    motion_train = torch.from_numpy(rng.uniform(
+        0, 1, size=(n_train, t_train, 13, 2)).astype(np.float32)).cuda()
+    drawn = [{"t": rng.randint(0, cfg.diffusion.steps, size=n_train),
+              "noise": rng.normal(size=(n_train, t_train, 26)).astype(np.float32),
+              "cond_keep": (rng.uniform(size=(n_train, t_train)) >= 0.1).astype(np.float32)}
+             for _ in range(TRAIN_STEPS)]
+
+    # 3. every kernel against its plain version, at the main paths' shapes
     results = check_kernels(kernel_tr, mel, noise)
+    results += check_train_kernels(kernel_tr, mel_train[:4], motion_train[:4])
     for r in results:
         print(f"[kernel] {r['name']}: max_abs_err {r['max_abs_err']:.6g} "
               f"(plain max {r['ref_max_abs']:.6g}, {'ok' if r['ok'] else 'FAIL'}) "
               f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms")
+        if r["name"] == "decoder_layer_bwd":
+            for name, (e, m) in zip(("dx", "demb", "dkvc", "dmats", "dvecs", "daw", "dab"),
+                                    r["parts"]):
+                print(f"[kernel]   decoder_layer_bwd {name}: err {e:.6g} (max {m:.6g})")
         for blk in r.get("blocks", []):
             print(f"[kernel]   conv_block {blk['shape']}: err {blk['max_abs_err']:.6g} "
                   f"(max {blk['ref_max_abs']:.6g}) kernel {blk['ms']:.4f} ms "
@@ -128,7 +171,7 @@ def main() -> int:
           f"max_abs_err vs plain {err:.6g} (plain max {scale:.6g}) launches {counts}")
     if tuple(out.shape) != (2, 1800, 26) or not finite or not err <= GENERATE_REL_TOL * scale:
         raise SystemExit("chip_smoke: generate on the kernel path is wrong")
-    if min(counts.values()) == 0:
+    if min(counts[k] for k in SERVING_KERNELS) == 0:
         raise SystemExit(f"chip_smoke: a kernel of the path was never launched: {counts}")
 
     # 5. timings on the kernel path
@@ -148,6 +191,34 @@ def main() -> int:
     fps = 8 * 1800 / t1000
     print(f"[time] ddim1000 B=8: {t1000:.3f} s, {fps:.1f} motion frames/s "
           f"(encoder {enc_ms:.2f} ms of it) on {smi}")
+
+    # 6. training: kernel path, then the plain path, same weights and numbers
+    def train(tr):
+        losses, times = [], []
+        for d in drawn:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = tr.train_step(mel_train, motion_train, **d)
+            losses.append(float(m["loss"]))  # host readback ends the step
+            times.append(time.perf_counter() - t0)
+        return losses, times
+
+    reset_launch_counts()
+    losses_k, times_k = train(kernel_tr)
+    train_counts = launch_counts()
+    losses_p, times_p = train(plain_tr)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p)]
+    print(f"[train] B={n_train} T={t_train} losses kernel {losses_k} plain {losses_p} "
+          f"max rel diff {max(rel):.3g} launches {dict((k, train_counts[k]) for k in TRAIN_KERNELS)}")
+    print(f"[time] train step B={n_train} T={t_train}: kernel path median "
+          f"{np.median(times_k) * 1e3:.1f} ms, plain path median {np.median(times_p) * 1e3:.1f} ms "
+          f"(per step: kernel {[round(x * 1e3, 1) for x in times_k]}, plain "
+          f"{[round(x * 1e3, 1) for x in times_p]}) on {smi}")
+    if not all(np.isfinite(losses_k)) or max(rel) > TRAIN_LOSS_REL_TOL:
+        raise SystemExit("chip_smoke: training on the kernel path disagrees with the plain path")
+    if min(train_counts[k] for k in TRAIN_KERNELS) == 0:
+        raise SystemExit(f"chip_smoke: a training kernel was never launched: {train_counts}")
+    counts.update({k: train_counts[k] for k in TRAIN_KERNELS})
 
     kernels = []
     for r in results:

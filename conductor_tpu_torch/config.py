@@ -25,23 +25,31 @@ from conductor_tpu.config import (  # noqa: F401  (re-exported)
 )
 
 # (denoiser field) -> (value on a CUDA device, value elsewhere), for the
-# "auto" knobs the serving path reads.  The names are the shared config's:
+# "auto" knobs the port reads.  The names are the shared config's:
 # "pallas_fused" / "pallas" mean "the kernel path", which in this package is
 # CUDA C++ (`conductor_tpu_torch/csrc/`).
 _AUTO_FIELDS = {
     "compute_dtype": ("bfloat16", "float32"),
     "layer_impl": ("pallas_fused", "flax"),
+    "train_layer_impl": ("pallas_fused", "flax"),
     "music_encoder_impl": ("pallas", "flax"),
 }
 
 
 def resolve_auto(cfg: Config, device: torch.device | str) -> Config:
-    """Resolve the serving path's "auto" implementation knobs for
-    ``device``.  Explicit values are kept as given.  Idempotent."""
+    """Resolve the "auto" implementation knobs for ``device``.  Explicit
+    values are kept as given.  As in the JAX package, "auto" training layers
+    fall back to the plain modules when dropout is on or the reference mask
+    is replicated; ``feat_impl`` "auto" is the plain ST-GCN on every device
+    (its kernel, K7, is not ported).  Idempotent."""
     cuda = torch.device(device).type == "cuda"
     d = cfg.denoiser
     resolved = {
         k: (cuda_v if cuda else plain_v) if getattr(d, k) == "auto" else getattr(d, k)
         for k, (cuda_v, plain_v) in _AUTO_FIELDS.items()
     }
-    return cfg.replace(denoiser=dataclasses.replace(d, **resolved))
+    if d.train_layer_impl == "auto" and (d.dropout != 0.0 or cfg.train.replicate_reference_mask):
+        resolved["train_layer_impl"] = "flax"
+    feat = "flax" if cfg.train.feat_impl == "auto" else cfg.train.feat_impl
+    return cfg.replace(denoiser=dataclasses.replace(d, **resolved),
+                       train=dataclasses.replace(cfg.train, feat_impl=feat))

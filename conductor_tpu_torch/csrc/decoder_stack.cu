@@ -1,8 +1,9 @@
-// K1: all decoder layers of one denoiser step.
+// K1: all decoder layers of one denoiser step, and K5: one decoder layer.
 //
-// Replaces conductor_tpu/ops/pallas_layer.py::fused_decoder_stack (layer
+// K1 replaces conductor_tpu/ops/pallas_layer.py::fused_decoder_stack (layer
 // body `_layer_body` :60-160, `_stack_kernel` :177-207, pallas_call at
-// :317).  Per layer: AdaLN modulation mod = emb_act @ W_adaln + b -> LN ->
+// :317); K5 replaces ::fused_decoder_layer (`_layer_kernel` :163-174,
+// pallas_call at :233), the forward of the training layer.  Per layer: AdaLN modulation mod = emb_act @ W_adaln + b -> LN ->
 // q, k, v -> q feature-softmax per head, k softmax over the whole clip,
 // KV = k_sm^T v (float32, block-diagonal) -> q_sm @ KV -> StylizationBlock +
 // residual -> cross-attention q_sm @ KV_cross -> StylizationBlock + residual
@@ -39,199 +40,29 @@
 // warps to issue from.  Row-wise work (LayerNorm, softmax, AdaLN, GELU,
 // residual) runs one warp per 16 (pass A) or 8 (pass C) rows.  The residual
 // stream lives in device memory between launches (in place after layer 0).
-// Plain WMMA, no wgmma/TMA yet.
+// Plain WMMA, no wgmma/TMA yet.  The tile helpers live in layer_common.cuh,
+// shared with K6.
+//
+// K5 is one layer of the same three launches (`decoder_layer_forward`),
+// with the residual read and written in bf16 (the training path carries it
+// in the compute dtype between layers, JAX `train/fused_denoiser.py:
+// 304-323`) and float32 inside.  Its input is padded to whole 64-row tiles;
+// rows at or past t_valid are left out of the KV pass, as the TPU kernel
+// masks them, and still computed by the row pass.
 
-#include <mma.h>
+#include "layer_common.cuh"
 
-#include "common.cuh"
-
-using namespace nvcuda;
+using namespace layer;
 
 namespace {
 
-constexpr int D = 128;          // latent width the kernel is built for
-constexpr int kTileRows = 64;   // rows per block (ops/decoder_stack.py ROWS_PER_TILE)
-constexpr int kThreadsA = 128;  // kv_partials: 4 warps
-constexpr int kThreadsC = 256;  // layer_rows: 8 warps
-constexpr int kRowsA = kTileRows * 32 / kThreadsA;  // rows per warp in the row-wise phases
-constexpr int kRowsC = kTileRows * 32 / kThreadsC;
-static_assert(kThreadsA == D, "kv_partials_kernel gives each thread one column");
-constexpr int kLdF = D + 4;       // row stride of the (64, D) float32 tiles
-constexpr int kLdM = 2 * D + 4;   // row stride of the (64, 2D) AdaLN slice
-constexpr int kLdA = D + 8;       // row stride of the (64, D) bf16 operand
-constexpr int kPadE = 8;          // emb_act rows: E + kPadE bf16
-constexpr int kPrefetch = 4;      // k-steps of weight fragments in flight
-
-// vector rows of the (24, D) bank (train/fused_denoiser.pack_layer_weights)
-enum Vec {
-  kLnSelfG = 0, kLnSelfB, kBq, kBk, kBv, kStylSelfG, kStylSelfB, kStylSelfOut,
-  kLnCrossG, kLnCrossB, kBqCross, kStylCrossG, kStylCrossB, kStylCrossOut,
-  kB1, kB2, kStylFfnG, kStylFfnB, kStylFfnOut,
-};
-// matrices of the (9, D, D) bank
-enum Mat { kWq = 0, kWk, kWv, kWStylSelf, kWqCross, kWStylCross, kW1, kW2, kWStylFfn };
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// C (64 x N) = A (64 x K) @ B (K x N) for the whole block: A and C in shared
-// memory, B in global memory, N a multiple of 32, K of 16; float32
-// accumulation.  The warps share C out as jobs of 32 columns by 16 * MI
-// rows.  Callers put a __syncthreads() before (A written) and after (C read
-// by other warps).
-template <int MI>
-__device__ void block_gemm_jobs(const bf16* A, int lda, const bf16* B, int ldb, int K, int N,
-                                float* C, int ldc) {
-  constexpr int kGroups = kTileRows / (16 * MI);
-  const int n_warps = blockDim.x >> 5;
-  for (int job = threadIdx.x >> 5; job < kGroups * (N / 32); job += n_warps) {
-    const int r0 = (job % kGroups) * 16 * MI, n0 = (job / kGroups) * 32;
-    FragC acc[MI][2];
-#pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      wmma::fill_fragment(acc[i][0], 0.f);
-      wmma::fill_fragment(acc[i][1], 0.f);
-    }
-    // a ring of weight fragments kPrefetch k-steps deep
-    FragB b[kPrefetch][2];
-#pragma unroll
-    for (int s = 0; s < kPrefetch; ++s)
-      if (s * 16 < K) {
-        wmma::load_matrix_sync(b[s][0], B + (size_t)s * 16 * ldb + n0, ldb);
-        wmma::load_matrix_sync(b[s][1], B + (size_t)s * 16 * ldb + n0 + 16, ldb);
-      }
-    for (int k0 = 0; k0 < K; k0 += 16 * kPrefetch) {
-#pragma unroll
-      for (int s = 0; s < kPrefetch; ++s) {
-        const int k = k0 + 16 * s;
-        if (k < K) {
-#pragma unroll
-          for (int i = 0; i < MI; ++i) {
-            FragA a;
-            wmma::load_matrix_sync(a, A + (r0 + i * 16) * lda + k, lda);
-            wmma::mma_sync(acc[i][0], a, b[s][0], acc[i][0]);
-            wmma::mma_sync(acc[i][1], a, b[s][1], acc[i][1]);
-          }
-          const int kn = k + 16 * kPrefetch;
-          if (kn < K) {
-            wmma::load_matrix_sync(b[s][0], B + (size_t)kn * ldb + n0, ldb);
-            wmma::load_matrix_sync(b[s][1], B + (size_t)kn * ldb + n0 + 16, ldb);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      float* c = C + (r0 + i * 16) * ldc + n0;
-      wmma::store_matrix_sync(c, acc[i][0], ldc, wmma::mem_row_major);
-      wmma::store_matrix_sync(c + 16, acc[i][1], ldc, wmma::mem_row_major);
-    }
-  }
-}
-
-// Whole 64-row column slices while there is one for every warp, else halves.
-__device__ void block_gemm(const bf16* A, int lda, const bf16* B, int ldb, int K, int N,
-                           float* C, int ldc) {
-  if (N / 32 >= (int)(blockDim.x >> 5))
-    block_gemm_jobs<4>(A, lda, B, ldb, K, N, C, ldc);
-  else
-    block_gemm_jobs<2>(A, lda, B, ldb, K, N, C, ldc);
-}
-
-// Row-wise helpers, one warp over its ROWS rows (float32 rows at stride
-// kLdF, bf16 rows at kLdA): lane owns columns lane + 32 * i, i < 4.
-
-// dst = bf16(LN(src) * g + b).
-template <int ROWS>
-__device__ void warp_ln_bf16(const float* src, const float* g, const float* b, bf16* dst) {
-  const int lane = threadIdx.x & 31;
-  for (int r = 0; r < ROWS; ++r) {
-    float v[4], s = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s += (v[i] = src[r * kLdF + lane + 32 * i]);
-    const float mu = warp_sum(s) * (1.f / D);
-    float q = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) q += (v[i] - mu) * (v[i] - mu);
-    const float rstd = rsqrtf(warp_sum(q) * (1.f / D) + 1e-5f);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = lane + 32 * i;
-      dst[r * kLdA + c] = __float2bfloat16((v[i] - mu) * rstd * g[c] + b[c]);
-    }
-  }
-}
-
-// dst = bf16(softmax within each head of (src + bias)): exp(q - rowmax) over
-// the denominators sum_head bf16(exp(..)), as the JAX kernel's seg matmul.
-template <int ROWS>
-__device__ void warp_head_softmax_bf16(const float* src, const float* bias, int dh, bf16* dst) {
-  const int lane = threadIdx.x & 31;
-  for (int r = 0; r < ROWS; ++r) {
-    float v[4], m = -CUDART_INF_F;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      v[i] = src[r * kLdF + lane + 32 * i] + bias[lane + 32 * i];
-      m = fmaxf(m, v[i]);
-    }
-    m = warp_max(m);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      v[i] = expf(v[i] - m);
-      float s = round_bf16(v[i]);
-      for (int o = dh >> 1; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      dst[r * kLdA + lane + 32 * i] = __float2bfloat16(v[i] / s);
-    }
-  }
-}
-
-// dst = bf16(silu(LN(y + ybias) * (1 + scale) + shift)) with (scale, shift)
-// = mod (ROWS x 2D, row stride kLdM) + ab: the StylizationBlock's input.
-template <int ROWS>
-__device__ void warp_adaln_bf16(const float* y, const float* ybias, const float* mod,
-                                const float* ab, const float* g, const float* gb, bf16* dst) {
-  const int lane = threadIdx.x & 31;
-  for (int r = 0; r < ROWS; ++r) {
-    float v[4], s = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = lane + 32 * i;
-      v[i] = y[r * kLdF + c] + (ybias ? ybias[c] : 0.f);
-      s += v[i];
-    }
-    const float mu = warp_sum(s) * (1.f / D);
-    float q = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) q += (v[i] - mu) * (v[i] - mu);
-    const float rstd = rsqrtf(warp_sum(q) * (1.f / D) + 1e-5f);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = lane + 32 * i;
-      const float scale = mod[r * kLdM + c] + ab[c];
-      const float shift = mod[r * kLdM + D + c] + ab[D + c];
-      const float h = ((v[i] - mu) * rstd * g[c] + gb[c]) * (1.f + scale) + shift;
-      dst[r * kLdA + c] = __float2bfloat16(silu(h));
-    }
-  }
-}
-
 // ---------------------------------------------------------------- pass A
+// XT: the residual's storage type (float for K1, bf16 for K5 / K6).  With
+// kKvr (K6) each tile also gives exp(k - m)^T bf16(v), block-diagonal.
+template <typename XT, bool kKvr>
 __global__ void __launch_bounds__(kThreadsA)
-kv_partials_kernel(const float* x, const bf16* __restrict__ mats, const float* __restrict__ vecs,
-                   float* __restrict__ partials, int T, int dh, int n_tiles) {
+kv_partials_kernel(const XT* x, const bf16* __restrict__ mats, const float* __restrict__ vecs,
+                   float* __restrict__ partials, int T, int t_valid, int dh, int n_tiles) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* a_s = reinterpret_cast<bf16*>(smem);                          // (64, kLdA)
   float* k_s = reinterpret_cast<float*>(smem + kTileRows * kLdA * 2); // (64, kLdF)
@@ -239,14 +70,14 @@ kv_partials_kernel(const float* x, const bf16* __restrict__ mats, const float* _
   const int b = blockIdx.y, tile = blockIdx.x;
   const int wid = threadIdx.x >> 5;
   const int row0 = tile * kTileRows;
-  const int n_rows = min(kTileRows, T - row0);
+  const int n_rows = min(kTileRows, t_valid - row0);
   const float* vec = vecs;
 
-  // the tile's rows (zeros past T), staged in k_s, then LN into a_s
+  // the tile's rows (zeros past t_valid), staged in k_s, then LN into a_s
   for (int i = threadIdx.x; i < kTileRows * D / 4; i += kThreadsA) {
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (i / (D / 4) < n_rows) v = reinterpret_cast<const float4*>(x + ((size_t)b * T + row0) * D)[i];
-    *reinterpret_cast<float4*>(k_s + (i / (D / 4)) * kLdF + (i % (D / 4)) * 4) = v;
+    if (i / (D / 4) < n_rows) v = load4(x + ((size_t)b * T + row0) * D + 4 * i);
+    store4(k_s + (i / (D / 4)) * kLdF + (i % (D / 4)) * 4, v);
   }
   __syncthreads();
   warp_ln_bf16<kRowsA>(k_s + wid * kRowsA * kLdF, vec + kLnSelfG * D, vec + kLnSelfB * D,
@@ -256,7 +87,8 @@ kv_partials_kernel(const float* x, const bf16* __restrict__ mats, const float* _
   block_gemm(a_s, kLdA, mats + kWv * D * D, D, D, D, v_s, kLdF);
   __syncthreads();
 
-  float* part = partials + ((size_t)b * n_tiles + tile) * (2 * D + D * dh);
+  const int stride = 2 * D + (kKvr ? 2 : 1) * D * dh;
+  float* part = partials + ((size_t)b * n_tiles + tile) * stride;
   {
     const int c = threadIdx.x;  // one column per thread (kThreadsA == D)
     const float bk = vec[kBk * D + c], bv = vec[kBv * D + c];
@@ -276,14 +108,20 @@ kv_partials_kernel(const float* x, const bf16* __restrict__ mats, const float* _
   __syncthreads();
   for (int i = threadIdx.x; i < D * dh; i += blockDim.x) {
     const int d = i / dh, l = (d / dh) * dh + i % dh;
-    float acc = 0.f;
-    for (int r = 0; r < n_rows; ++r) acc = fmaf(k_s[r * kLdF + d], v_s[r * kLdF + l], acc);
+    float acc = 0.f, acc_r = 0.f;
+    for (int r = 0; r < n_rows; ++r) {
+      acc = fmaf(k_s[r * kLdF + d], v_s[r * kLdF + l], acc);
+      if (kKvr) acc_r = fmaf(k_s[r * kLdF + d], round_bf16(v_s[r * kLdF + l]), acc_r);
+    }
     part[2 * D + i] = acc;
+    if (kKvr) part[2 * D + D * dh + i] = acc_r;
   }
 }
 
 // ---------------------------------------------------------------- pass B
+template <bool kKvr>
 __global__ void kv_combine_kernel(const float* __restrict__ partials, bf16* __restrict__ kv,
+                                  float* __restrict__ stats, float* __restrict__ kvr,
                                   int n_tiles, int dh) {
   const int b = blockIdx.y, d = blockIdx.x, l = threadIdx.x;
   bf16* out = kv + ((size_t)b * D + d) * D + l;
@@ -291,22 +129,31 @@ __global__ void kv_combine_kernel(const float* __restrict__ partials, bf16* __re
     *out = __float2bfloat16(0.f);
     return;
   }
-  const int stride = 2 * D + D * dh;
+  const int stride = 2 * D + (kKvr ? 2 : 1) * D * dh;
   const float* p = partials + (size_t)b * n_tiles * stride;
   float m = -CUDART_INF_F;
   for (int t = 0; t < n_tiles; ++t) m = fmaxf(m, p[t * stride + d]);
-  float s = 0.f, acc = 0.f;
+  float s = 0.f, acc = 0.f, acc_r = 0.f;
   for (int t = 0; t < n_tiles; ++t) {
     const float w = expf(p[t * stride + d] - m);
     s = fmaf(p[t * stride + D + d], w, s);
     acc = fmaf(p[t * stride + 2 * D + d * dh + l % dh], w, acc);
+    if (kKvr) acc_r = fmaf(p[t * stride + 2 * D + D * dh + d * dh + l % dh], w, acc_r);
   }
   *out = __float2bfloat16(acc / s);
+  if (kKvr) {
+    kvr[((size_t)b * D + d) * dh + l % dh] = acc_r / s;
+    if (l == d) {
+      stats[(size_t)b * 2 * D + d] = m;
+      stats[(size_t)b * 2 * D + D + d] = s;
+    }
+  }
 }
 
 // ---------------------------------------------------------------- pass C
+template <typename XT>
 __global__ void __launch_bounds__(kThreadsC)
-layer_rows_kernel(const float* x_in, float* x_out, const bf16* __restrict__ emb,
+layer_rows_kernel(const XT* x_in, XT* x_out, const bf16* __restrict__ emb,
                   const bf16* __restrict__ kv_self, const bf16* __restrict__ kv_cross,
                   const bf16* __restrict__ mats, const float* __restrict__ vecs,
                   const bf16* __restrict__ adaln_w, const float* __restrict__ adaln_b,
@@ -329,8 +176,8 @@ layer_rows_kernel(const float* x_in, float* x_out, const bf16* __restrict__ emb,
 
   for (int i = threadIdx.x; i < kTileRows * D / 4; i += kThreadsC) {
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (i / (D / 4) < n_rows) v = reinterpret_cast<const float4*>(x_in + ((size_t)b * T + row0) * D)[i];
-    *reinterpret_cast<float4*>(xs + (i / (D / 4)) * kLdF + (i % (D / 4)) * 4) = v;
+    if (i / (D / 4) < n_rows) v = load4(x_in + ((size_t)b * T + row0) * D + 4 * i);
+    store4(xs + (i / (D / 4)) * kLdF + (i % (D / 4)) * 4, v);
   }
   for (int i = threadIdx.x; i < kTileRows * E / 8; i += kThreadsC) {
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
@@ -383,8 +230,7 @@ layer_rows_kernel(const float* x_in, float* x_out, const bf16* __restrict__ emb,
   __syncthreads();
   for (int i = lane; i < kRowsC * D; i += 32) {
     const float u = yw[(i / D) * kLdF + i % D] + vec[kB1 * D + i % D];
-    const float gl = 0.5f * u * (1.f + tanhf(0.7978845608028654f * (u + 0.044715f * u * u * u)));
-    aw[(i / D) * kLdA + i % D] = __float2bfloat16(gl);
+    aw[(i / D) * kLdA + i % D] = __float2bfloat16(gelu_tanh(u));
   }
   __syncthreads();
   block_gemm(as, kLdA, W(kW2), D, D, D, ys, kLdF);
@@ -392,39 +238,75 @@ layer_rows_kernel(const float* x_in, float* x_out, const bf16* __restrict__ emb,
   __syncthreads();
 
   for (int i = threadIdx.x; i < n_rows * D / 4; i += kThreadsC)
-    reinterpret_cast<float4*>(x_out + ((size_t)b * T + row0) * D)[i] =
-        *reinterpret_cast<const float4*>(xs + (i / (D / 4)) * kLdF + (i % (D / 4)) * 4);
+    store4(x_out + ((size_t)b * T + row0) * D + 4 * i,
+           load4(xs + (i / (D / 4)) * kLdF + (i % (D / 4)) * 4));
+}
+
+constexpr size_t kSmemA = (size_t)kTileRows * (kLdA * 2 + 2 * kLdF * 4);
+size_t smem_rows(int E) {
+  return (size_t)kTileRows * (2 * kLdF * 4 + kLdM * 4 + kLdA * 2 + (E + kPadE) * 2);
+}
+
+template <typename XT, bool kKvr>
+cudaError_t kv_pass(const XT* x, const bf16* mats, const float* vecs, float* partials, bf16* kv,
+                    float* stats, float* kvr, int B, int T, int t_valid, int dh,
+                    cudaStream_t s) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kv_partials_kernel<XT, kKvr>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemA);
+  if (attr != cudaSuccess) return attr;
+  const int n_tiles = ceil_div(t_valid, kTileRows);
+  kv_partials_kernel<XT, kKvr><<<dim3(n_tiles, B), kThreadsA, kSmemA, s>>>(
+      x, mats, vecs, partials, T, t_valid, dh, n_tiles);
+  kv_combine_kernel<kKvr><<<dim3(D, B), D, 0, s>>>(partials, kv, stats, kvr, n_tiles, dh);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int d, int E, int H) {
+  const int dh = d / H;
+  return d != D || E % 16 != 0 || dh * H != d || 32 % dh != 0;
 }
 
 }  // namespace
+
+cudaError_t launch_kv_pass(const void* x, bool x_bf16, const bf16* mats, const float* vecs,
+                           float* partials, bf16* kv, float* stats, float* kvr, int B, int T,
+                           int t_valid, int dh, cudaStream_t stream) {
+  if (kvr != nullptr)
+    return x_bf16 ? kv_pass<bf16, true>(static_cast<const bf16*>(x), mats, vecs, partials, kv,
+                                        stats, kvr, B, T, t_valid, dh, stream)
+                  : kv_pass<float, true>(static_cast<const float*>(x), mats, vecs, partials, kv,
+                                         stats, kvr, B, T, t_valid, dh, stream);
+  return x_bf16 ? kv_pass<bf16, false>(static_cast<const bf16*>(x), mats, vecs, partials, kv,
+                                       stats, kvr, B, T, t_valid, dh, stream)
+                : kv_pass<float, false>(static_cast<const float*>(x), mats, vecs, partials, kv,
+                                        stats, kvr, B, T, t_valid, dh, stream);
+}
+
+size_t kv_pass_partials_bytes(int B, int t_valid, int dh, bool with_kvr) {
+  return (size_t)B * ceil_div(t_valid, kTileRows) * (2 * D + (with_kvr ? 2 : 1) * D * dh) * 4;
+}
 
 CT_EXPORT int decoder_stack_forward(const void* x, const void* emb, const void* kv_cross,
                                     const void* mats, const void* vecs, const void* adaln_w,
                                     const void* adaln_b, void* out, void* partials,
                                     void* kv_self, int B, int T, int d, int E, int H, int L,
                                     void* stream) {
+  if (bad_shape(d, E, H)) return (int)cudaErrorInvalidValue;
   const int dh = d / H;
-  if (d != D || E % 16 != 0 || dh * H != d || 32 % dh != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_tiles = ceil_div(T, kTileRows);
-  const size_t smem_a = (size_t)kTileRows * (kLdA * 2 + 2 * kLdF * 4);
-  const size_t smem_c = (size_t)kTileRows * (2 * kLdF * 4 + kLdM * 4 + kLdA * 2 + (E + kPadE) * 2);
-  cudaError_t err = cudaFuncSetAttribute(kv_partials_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(layer_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_c);
+  const size_t smem_c = smem_rows(E);
+  cudaError_t err = cudaFuncSetAttribute(layer_rows_kernel<float>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_c);
   if (err != cudaSuccess) return (int)err;
-  const dim3 tiles(n_tiles, B);
+  const dim3 tiles(ceil_div(T, kTileRows), B);
   for (int l = 0; l < L; ++l) {
     const float* x_l = l == 0 ? static_cast<const float*>(x) : static_cast<const float*>(out);
     const bf16* mats_l = static_cast<const bf16*>(mats) + (size_t)l * 9 * D * D;
     const float* vecs_l = static_cast<const float*>(vecs) + (size_t)l * 24 * D;
-    kv_partials_kernel<<<tiles, kThreadsA, smem_a, s>>>(
-        x_l, mats_l, vecs_l, static_cast<float*>(partials), T, dh, n_tiles);
-    kv_combine_kernel<<<dim3(D, B), D, 0, s>>>(static_cast<const float*>(partials),
-                                                static_cast<bf16*>(kv_self), n_tiles, dh);
-    layer_rows_kernel<<<tiles, kThreadsC, smem_c, s>>>(
+    err = kv_pass<float, false>(x_l, mats_l, vecs_l, static_cast<float*>(partials),
+                                static_cast<bf16*>(kv_self), nullptr, nullptr, B, T, T, dh, s);
+    if (err != cudaSuccess) return (int)err;
+    layer_rows_kernel<float><<<tiles, kThreadsC, smem_c, s>>>(
         x_l, static_cast<float*>(out), static_cast<const bf16*>(emb),
         static_cast<const bf16*>(kv_self),
         static_cast<const bf16*>(kv_cross) + (size_t)l * B * D * D, mats_l, vecs_l,
@@ -433,5 +315,30 @@ CT_EXPORT int decoder_stack_forward(const void* x, const void* emb, const void* 
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
+  return (int)cudaGetLastError();
+}
+
+CT_EXPORT int decoder_layer_forward(const void* x, const void* emb, const void* kv_cross,
+                                    const void* mats, const void* vecs, const void* adaln_w,
+                                    const void* adaln_b, void* out, void* partials,
+                                    void* kv_self, int B, int T, int t_valid, int d, int E, int H,
+                                    void* stream) {
+  if (bad_shape(d, E, H) || t_valid < 1 || t_valid > T) return (int)cudaErrorInvalidValue;
+  const int dh = d / H;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem_c = smem_rows(E);
+  cudaError_t err = cudaFuncSetAttribute(layer_rows_kernel<bf16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_c);
+  if (err != cudaSuccess) return (int)err;
+  const bf16* xb = static_cast<const bf16*>(x);
+  err = kv_pass<bf16, false>(xb, static_cast<const bf16*>(mats), static_cast<const float*>(vecs),
+                             static_cast<float*>(partials), static_cast<bf16*>(kv_self), nullptr,
+                             nullptr, B, T, t_valid, dh, s);
+  if (err != cudaSuccess) return (int)err;
+  layer_rows_kernel<bf16><<<dim3(ceil_div(T, kTileRows), B), kThreadsC, smem_c, s>>>(
+      xb, static_cast<bf16*>(out), static_cast<const bf16*>(emb),
+      static_cast<const bf16*>(kv_self), static_cast<const bf16*>(kv_cross),
+      static_cast<const bf16*>(mats), static_cast<const float*>(vecs),
+      static_cast<const bf16*>(adaln_w), static_cast<const float*>(adaln_b), T, E, dh);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,248 @@
+// Device code shared by the decoder-layer kernels: K1 / K5
+// (decoder_stack.cu) and K6 (decoder_layer_bwd.cu).  Everything here works
+// on one 64-row tile of one clip, D = 128 wide, in a block's shared memory;
+// see decoder_stack.cu for the design.
+#pragma once
+
+#include <mma.h>
+
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace layer {
+
+using namespace nvcuda;
+
+constexpr int D = 128;          // latent width the kernels are built for
+constexpr int kTileRows = 64;   // rows per block (ops/decoder_stack.py ROWS_PER_TILE)
+constexpr int kThreadsA = 128;  // kv_partials: 4 warps
+constexpr int kThreadsC = 256;  // row passes: 8 warps
+constexpr int kRowsA = kTileRows * 32 / kThreadsA;  // rows per warp in the row-wise phases
+constexpr int kRowsC = kTileRows * 32 / kThreadsC;
+static_assert(kThreadsA == D, "kv_partials_kernel gives each thread one column");
+constexpr int kLdF = D + 4;       // row stride of the (64, D) float32 tiles
+constexpr int kLdM = 2 * D + 4;   // row stride of the (64, 2D) AdaLN slice
+constexpr int kLdA = D + 8;       // row stride of the (64, D) bf16 operand
+constexpr int kPadE = 8;          // emb_act rows: E + kPadE bf16
+constexpr int kPrefetch = 4;      // k-steps of weight fragments in flight
+
+// vector rows of the (24, D) bank (train/fused_denoiser.pack_layer_weights)
+enum Vec {
+  kLnSelfG = 0, kLnSelfB, kBq, kBk, kBv, kStylSelfG, kStylSelfB, kStylSelfOut,
+  kLnCrossG, kLnCrossB, kBqCross, kStylCrossG, kStylCrossB, kStylCrossOut,
+  kB1, kB2, kStylFfnG, kStylFfnB, kStylFfnOut,
+};
+// matrices of the (9, D, D) bank
+enum Mat { kWq = 0, kWk, kWv, kWStylSelf, kWqCross, kWStylCross, kW1, kW2, kWStylFfn };
+
+typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
+typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Sum within each aligned group of dh lanes (a head's columns lane + 32 i).
+__device__ __forceinline__ float head_sum(float v, int dh) {
+  for (int o = dh >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Four consecutive values of a float32 or bf16 row, as float4.
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
+  const float2 a = __bfloat1622float2(q[0]), b = __bfloat1622float2(q[1]);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
+  q[0] = __floats2bfloat162_rn(v.x, v.y);
+  q[1] = __floats2bfloat162_rn(v.z, v.w);
+}
+
+// C (64 x N) = A (64 x K) @ op(B) (K x N) for the whole block, float32
+// accumulation; with `accumulate`, C += instead.  A in shared or global
+// memory, row-major; B in global memory (L2), row-major (K x N) or, with
+// kTransB, the transpose of a row-major (N x K) matrix; N a multiple of 32,
+// K of 16.  The warps share C out as jobs of 32 columns by 16 * MI rows, so
+// one B fragment feeds MI MMAs, and the B fragments of the next kPrefetch
+// k-steps are in flight while this one's MMAs issue.  Callers put a
+// __syncthreads() before (A written) and after (C read by other warps).
+template <int MI, bool kTransB>
+__device__ void block_gemm_jobs(const bf16* A, int lda, const bf16* B, int ldb, int K, int N,
+                                float* C, int ldc, bool accumulate) {
+  using LayoutB = typename std::conditional<kTransB, wmma::col_major, wmma::row_major>::type;
+  typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> FragB;
+  auto bp = [&](int k, int n) {
+    return kTransB ? B + (size_t)n * ldb + k : B + (size_t)k * ldb + n;
+  };
+  constexpr int kGroups = kTileRows / (16 * MI);
+  const int n_warps = blockDim.x >> 5;
+  for (int job = threadIdx.x >> 5; job < kGroups * (N / 32); job += n_warps) {
+    const int r0 = (job % kGroups) * 16 * MI, n0 = (job / kGroups) * 32;
+    FragC acc[MI][2];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      if (accumulate) {
+        float* c = C + (r0 + i * 16) * ldc + n0;
+        wmma::load_matrix_sync(acc[i][0], c, ldc, wmma::mem_row_major);
+        wmma::load_matrix_sync(acc[i][1], c + 16, ldc, wmma::mem_row_major);
+      } else {
+        wmma::fill_fragment(acc[i][0], 0.f);
+        wmma::fill_fragment(acc[i][1], 0.f);
+      }
+    }
+    FragB b[kPrefetch][2];
+#pragma unroll
+    for (int s = 0; s < kPrefetch; ++s)
+      if (s * 16 < K) {
+        wmma::load_matrix_sync(b[s][0], bp(s * 16, n0), ldb);
+        wmma::load_matrix_sync(b[s][1], bp(s * 16, n0 + 16), ldb);
+      }
+    for (int k0 = 0; k0 < K; k0 += 16 * kPrefetch) {
+#pragma unroll
+      for (int s = 0; s < kPrefetch; ++s) {
+        const int k = k0 + 16 * s;
+        if (k < K) {
+#pragma unroll
+          for (int i = 0; i < MI; ++i) {
+            FragA a;
+            wmma::load_matrix_sync(a, A + (size_t)(r0 + i * 16) * lda + k, lda);
+            wmma::mma_sync(acc[i][0], a, b[s][0], acc[i][0]);
+            wmma::mma_sync(acc[i][1], a, b[s][1], acc[i][1]);
+          }
+          const int kn = k + 16 * kPrefetch;
+          if (kn < K) {
+            wmma::load_matrix_sync(b[s][0], bp(kn, n0), ldb);
+            wmma::load_matrix_sync(b[s][1], bp(kn, n0 + 16), ldb);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      float* c = C + (r0 + i * 16) * ldc + n0;
+      wmma::store_matrix_sync(c, acc[i][0], ldc, wmma::mem_row_major);
+      wmma::store_matrix_sync(c + 16, acc[i][1], ldc, wmma::mem_row_major);
+    }
+  }
+}
+
+// Whole 64-row column slices while there is one for every warp, else halves.
+template <bool kTransB = false>
+__device__ void block_gemm(const bf16* A, int lda, const bf16* B, int ldb, int K, int N,
+                           float* C, int ldc, bool accumulate = false) {
+  if (N / 32 >= (int)(blockDim.x >> 5))
+    block_gemm_jobs<4, kTransB>(A, lda, B, ldb, K, N, C, ldc, accumulate);
+  else
+    block_gemm_jobs<2, kTransB>(A, lda, B, ldb, K, N, C, ldc, accumulate);
+}
+
+// Row-wise helpers, one warp over its ROWS rows (float32 rows at stride
+// kLdF, bf16 rows at kLdA): lane owns columns lane + 32 * i, i < 4.
+
+// LayerNorm statistics of one row held as v[4] per lane: (mean, rstd).
+__device__ __forceinline__ float2 ln_stats(const float v[4]) {
+  const float mu = warp_sum(v[0] + v[1] + v[2] + v[3]) * (1.f / D);
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) q += (v[i] - mu) * (v[i] - mu);
+  return make_float2(mu, rsqrtf(warp_sum(q) * (1.f / D) + 1e-5f));
+}
+
+// dst = bf16(LN(src) * g + b).
+template <int ROWS>
+__device__ void warp_ln_bf16(const float* src, const float* g, const float* b, bf16* dst) {
+  const int lane = threadIdx.x & 31;
+  for (int r = 0; r < ROWS; ++r) {
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = src[r * kLdF + lane + 32 * i];
+    const float2 st = ln_stats(v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = lane + 32 * i;
+      dst[r * kLdA + c] = __float2bfloat16((v[i] - st.x) * st.y * g[c] + b[c]);
+    }
+  }
+}
+
+// softmax within each head of (q + bias): exp(q - rowmax) over the
+// denominators sum_head bf16(exp(..)), as the JAX kernel's seg matmul.
+__device__ __forceinline__ void head_softmax_row(float v[4], int dh) {
+  float m = fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3]));
+  m = warp_max(m);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[i] = expf(v[i] - m);
+    v[i] /= head_sum(round_bf16(v[i]), dh);
+  }
+}
+
+// dst = bf16(softmax within each head of (src + bias)).
+template <int ROWS>
+__device__ void warp_head_softmax_bf16(const float* src, const float* bias, int dh, bf16* dst) {
+  const int lane = threadIdx.x & 31;
+  for (int r = 0; r < ROWS; ++r) {
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = src[r * kLdF + lane + 32 * i] + bias[lane + 32 * i];
+    head_softmax_row(v, dh);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dst[r * kLdA + lane + 32 * i] = __float2bfloat16(v[i]);
+  }
+}
+
+// dst = bf16(silu(LN(y + ybias) * (1 + scale) + shift)) with (scale, shift)
+// = mod (ROWS x 2D, row stride kLdM) + ab: the StylizationBlock's input.
+template <int ROWS>
+__device__ void warp_adaln_bf16(const float* y, const float* ybias, const float* mod,
+                                const float* ab, const float* g, const float* gb, bf16* dst) {
+  const int lane = threadIdx.x & 31;
+  for (int r = 0; r < ROWS; ++r) {
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = lane + 32 * i;
+      v[i] = y[r * kLdF + c] + (ybias ? ybias[c] : 0.f);
+    }
+    const float2 st = ln_stats(v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = lane + 32 * i;
+      const float scale = mod[r * kLdM + c] + ab[c];
+      const float shift = mod[r * kLdM + D + c] + ab[D + c];
+      const float h = ((v[i] - st.x) * st.y * g[c] + gb[c]) * (1.f + scale) + shift;
+      dst[r * kLdA + c] = __float2bfloat16(silu(h));
+    }
+  }
+}
+
+__device__ __forceinline__ float gelu_tanh(float u) {
+  return 0.5f * u * (1.f + tanhf(0.7978845608028654f * (u + 0.044715f * u * u * u)));
+}
+
+}  // namespace layer
+
+// The KV pass of one layer (decoder_stack.cu): per-tile partials over the
+// first t_valid rows of x (float32 or, with x_bf16, bf16; rows of stride D,
+// T rows a clip), then the combine into the bf16 block-diagonal KV.  With
+// `stats` and `kvr` (K6), it also writes each column's softmax max and sum
+// of exp (B, 2, D), and KVr = k_sm^T bf16(v) in float32 (B, D, dh).
+cudaError_t launch_kv_pass(const void* x, bool x_bf16, const bf16* mats, const float* vecs,
+                           float* partials, bf16* kv, float* stats, float* kvr, int B, int T,
+                           int t_valid, int dh, cudaStream_t stream);
+
+// Bytes of the `partials` scratch that launch_kv_pass needs.
+size_t kv_pass_partials_bytes(int B, int t_valid, int dh, bool with_kvr);

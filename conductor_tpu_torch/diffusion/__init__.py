@@ -1,6 +1,14 @@
-"""Diffusion engine (serving subset): schedules, Gaussian math, DDIM."""
+"""Diffusion engine: schedules, Gaussian math and training losses, DDIM."""
 
-from .gaussian import extract, p_mean_variance, predict_eps_from_xstart  # noqa: F401
+from .gaussian import (  # noqa: F401
+    extract,
+    mean_flat,
+    model_timesteps,
+    p_mean_variance,
+    predict_eps_from_xstart,
+    q_sample,
+    training_losses,
+)
 from .sampling import ddim_sample_loop, ddim_step  # noqa: F401
 from .schedule import (  # noqa: F401
     DiffusionSchedule,
@@ -10,3 +18,4 @@ from .schedule import (  # noqa: F401
     schedule_from_betas,
     space_timesteps,
 )
+from .timestep_samplers import uniform_sample  # noqa: F401

@@ -7,7 +7,10 @@ flax tree, or `conductor_tpu.interop.synth.synth_state_dict` weights.  Load
 is strict.  The DataParallel ``module.`` prefix is stripped and a stage-2
 ``latest.tar`` dict (`Diffusion_Stage/trainers/ddpm_trainer.py:290-319`)
 contributes its ``encoder`` entry, as `conductor_tpu.interop.torch_import`
-does for the JAX package.
+does for the JAX package.  The frozen ST-GCN of the perceptual loss loads
+from its own subtree or from a whole stage-1 M2SNet state dict
+(`load_motion_encoder_state_dict`); the checkpoint's adjacency buffer must
+equal the port's graph.
 """
 
 from __future__ import annotations
@@ -41,6 +44,26 @@ def load_reference_state_dict(module: nn.Module, sd) -> None:
     module.load_state_dict(reference_state_dict(sd), strict=True)
 
 
+def load_motion_encoder_state_dict(module: nn.Module, sd) -> None:
+    """Load a reference ``MotionEncoder_STGCN`` state dict into the port's
+    `MotionEncoderSTGCN`, strictly: either the bare subtree or an M2SNet
+    state dict, whose ``motion_encoder.*`` keys are taken.  Raises if the
+    checkpoint's adjacency differs from the port's (`check_adjacency` in
+    `conductor_tpu/interop/torch_import.py`)."""
+    sd = reference_state_dict(sd)
+    prefix = "motion_encoder."
+    if any(k.startswith(prefix) for k in sd):
+        sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    ours = module.st_gcn.A
+    theirs = sd.get("st_gcn.A")
+    if theirs is not None and (
+        theirs.shape != ours.shape or not torch.allclose(theirs.float().cpu(), ours.cpu(), atol=1e-5)
+    ):
+        raise ValueError("the checkpoint's ST-GCN adjacency does not match "
+                         "build_adjacency('ConductorMotionX', 'uniform')")
+    module.load_state_dict(sd, strict=True)
+
+
 def manifest(module: nn.Module) -> dict[str, tuple[int, ...]]:
     """The module's state-dict key -> shape manifest (the input of
     `conductor_tpu.interop.synth.synth_state_dict`)."""
@@ -50,5 +73,27 @@ def manifest(module: nn.Module) -> dict[str, tuple[int, ...]]:
 def synthetic_state_dict(module: nn.Module, seed: int = 0) -> dict[str, np.ndarray]:
     """Deterministic non-zero reference-format weights for ``module``:
     `synth_state_dict` over the module's own manifest (normal with std
-    0.05, BN scales and variances from U(0.5, 1.5))."""
-    return synth_state_dict(manifest(module), seed=seed)
+    0.05, BN scales and variances from U(0.5, 1.5)).  Adjacency buffers
+    (keys ending in ``.A``) draw nothing there and keep the module's own
+    value here, so the JAX package's graph module is never imported."""
+    man = manifest(module)
+    sd = synth_state_dict({k: v for k, v in man.items() if not k.endswith(".A")}, seed=seed)
+    state = module.state_dict()
+    sd.update({k: state[k].cpu().numpy() for k in man if k.endswith(".A")})
+    return sd
+
+
+def synthetic_motion_encoder_state_dict(module: nn.Module, seed: int = 0) -> dict[str, np.ndarray]:
+    """Synthetic weights for the frozen ST-GCN (`models.stgcn`) whose
+    latents depend on the motion: `synthetic_state_dict`, then BN scales and
+    edge importances moved to 1 + N(0, 0.05) and the conv weights doubled.
+    `synth_state_dict` alone draws the ST-GCN's BN scales (``data_bn``,
+    ``tcn.0``, ``tcn.3``) and edge importances around 0, which shrinks the
+    signal ~400x per block and leaves features that do not see the input."""
+    sd = synthetic_state_dict(module, seed=seed)
+    for k, v in sd.items():
+        if ".edge_importance." in k or k.endswith(("data_bn.weight", "tcn.0.weight", "tcn.3.weight")):
+            sd[k] = v + np.float32(1.0)
+        elif k.endswith(("gcn.conv.weight", "tcn.2.weight", "fc.0.weight")):
+            sd[k] = v * np.float32(2.0)
+    return sd

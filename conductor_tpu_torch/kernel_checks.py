@@ -1,21 +1,28 @@
-"""Each CUDA kernel of the serving path against its plain PyTorch version,
-on the card, on the inputs a serving call gives it.
+"""Each CUDA kernel against its plain PyTorch version, on the card, on the
+inputs the main paths give it.
 
 `check_kernels` takes a `DDPMTrainer` on the kernel path, a mel and an x_T
 on the card, rebuilds the first ladder step's kernel inputs from them
-(the real conditioning, the real encoder activations), and runs every kernel
-and its plain version on the same inputs.  For each kernel it reports the
-largest absolute difference, the largest absolute plain value, whether the
-difference is within ``rel_tol`` of that value, and the time per call of
-both (CUDA events, after a warm-up call).  Used by ``chip_smoke.py`` at the
-flagship shapes and by ``tests/test_torch_port_cuda.py`` at small ones.
+(the real conditioning, the real encoder activations), and runs every
+serving kernel (K1-K4) and its plain version on the same inputs.
+`check_train_kernels` does the same for the training layer kernels (K5,
+K6) on layer 0 of a training forward.  For each kernel it reports the
+largest absolute difference, the largest absolute plain value (for a
+kernel with several outputs, those of the output worst relative to its own
+scale, and every output's pair in ``parts``), whether the difference is
+within ``rel_tol`` of that value, and the time per call of both (CUDA
+events, after a warm-up call).  Used by ``chip_smoke.py`` at the flagship
+shapes and by ``tests/test_torch_port_cuda.py`` at small ones.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .diffusion import q_sample
 from .ops.conv_block import conv_block_plain, fused_conv_block
+from .ops.decoder_layer import decoder_layer_plain, fused_decoder_layer
+from .ops.decoder_layer_bwd import decoder_layer_bwd, decoder_layer_bwd_plain
 from .ops.decoder_stack import decoder_stack_plain, fused_decoder_stack
 from .ops.sampler_glue import (
     ddim_affine_tables,
@@ -24,6 +31,7 @@ from .ops.sampler_glue import (
     sampler_prologue,
     sampler_prologue_plain,
 )
+from .train.fused_denoiser import cross_kv_state, pack_layer_weights, train_layer_inputs
 
 REL_TOL = 0.02  # the bound the JAX package holds its reduced-precision modes to
 
@@ -40,25 +48,22 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _errors(got, want) -> tuple[float, float]:
-    """(max |got - want|, max |want|) over one tensor or a tuple of them,
-    taken on the output with the largest error relative to its scale."""
-    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
-    worst = (0.0, 1.0)
-    for g, w in pairs:
-        err, ref = float((g.float() - w.float()).abs().max()), float(w.float().abs().max())
-        if err / max(ref, 1e-30) >= worst[0] / max(worst[1], 1e-30):
-            worst = (err, ref)
-    return worst
+def _errors(got, want) -> list[tuple[float, float]]:
+    """(max |got - want|, max |want|) of each output."""
+    pairs = zip(got, want) if isinstance(got, (tuple, list)) else [(got, want)]
+    return [(float((g.float() - w.float()).abs().max()), float(w.float().abs().max()))
+            for g, w in pairs]
 
 
 def _compare(name, kernel_fn, plain_fn, reps, rel_tol):
-    err, ref = _errors(kernel_fn(), plain_fn())
+    parts = _errors(kernel_fn(), plain_fn())
     torch.cuda.synchronize()
+    err, ref = max(parts, key=lambda p: p[0] / max(p[1], 1e-30))
     return {
         "name": name, "max_abs_err": err, "ref_max_abs": ref,
-        "ok": bool(err <= rel_tol * ref) and ref > 0,
+        "ok": all(e <= rel_tol * r and r > 0 for e, r in parts),
         "ms": time_ms(kernel_fn, reps), "plain_ms": time_ms(plain_fn, reps),
+        "parts": parts,
     }
 
 
@@ -113,4 +118,39 @@ def check_kernels(trainer, mel, noise, *, reps: int = 5, rel_tol: float = REL_TO
                             lambda: sampler_epilogue_plain(*epi_args, mxu_dtype=mxu),
                             reps, rel_tol))
     results.append(conv)
+    return results
+
+
+@torch.no_grad()
+def check_train_kernels(trainer, cond, motion, *, reps: int = 5, rel_tol: float = REL_TOL,
+                        seed: int = 0) -> list[dict]:
+    """K5 and K6 against their plain versions on the inputs of layer 0 of a
+    training forward: ``cond`` (mel, or features with ``cached_features``)
+    and ``motion`` (B, T, J, 2) on the card, seeded t and noise, the
+    denoiser's packed weights, and a seeded bf16 cotangent (zero on the pad
+    rows, as the training path gives it)."""
+    cfg, model = trainer.cfg, trainer.model
+    mxu = getattr(torch, cfg.denoiser.compute_dtype)
+    dev = motion.device
+    b, n = motion.shape[0], motion.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.randint(0, trainer.sched.num_timesteps, (b,), generator=gen, device=dev)
+    x0 = motion.reshape(b, n, -1)
+    x_t = q_sample(trainer.train_sched, x0, t, torch.randn(x0.shape, generator=gen, device=dev))
+    encode = model.cond_from_features if cfg.train.cached_features else model.encode_music
+    xf_proj, xf_out = encode(cond)
+    h, emb_act, xf_o = train_layer_inputs(model, cfg, x_t, t, xf_proj, xf_out)
+    kvb = cross_kv_state(model.temporal_decoder_blocks[0].ca_block, xf_o).to(mxu)
+    args = (h, emb_act, kvb, *pack_layer_weights(model, 0))
+    kw = dict(mxu_dtype=mxu, t_valid=n)
+    heads = cfg.denoiser.num_heads
+    results = [_compare("decoder_layer", lambda: fused_decoder_layer(*args, heads, **kw),
+                        lambda: decoder_layer_plain(*args, heads, **kw), reps, rel_tol)]
+    dy = torch.randn(h.shape, generator=gen, device=dev) * 1e-2
+    dy[:, n:] = 0
+    dy = dy.to(h.dtype)
+    results.append(_compare("decoder_layer_bwd",
+                            lambda: decoder_layer_bwd(*args, dy, heads, **kw),
+                            lambda: decoder_layer_bwd_plain(*args, dy, heads, **kw),
+                            reps, rel_tol))
     return results

@@ -1,1 +1,1 @@
-"""MotionTransformer and MusicEncoder (serving surface)."""
+"""MotionTransformer, MusicEncoder and the frozen ST-GCN motion encoder."""

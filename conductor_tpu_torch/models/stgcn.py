@@ -1,0 +1,108 @@
+"""The frozen ST-GCN motion encoder of the stage-2 perceptual loss.
+
+Port of `conductor_tpu/models/stgcn.py:150-247` (`MotionEncoderSTGCN` in
+M2S mode, eval only): data BatchNorm over the flattened (V*C) frame, ten
+st_gcn blocks (graph conv with a learnable edge-importance mask on the
+adjacency, then BN -> ReLU -> 3x1 temporal conv -> BN, plus a residual that
+is none in block 0 and the identity after), and a 1x1 projection of the
+channel-major (C, V) flatten to 64 channels with BN.
+
+Plain PyTorch modules in the reference's own NCTV layout and key names
+(`st_gcn.st_gcn_networks.{i}.gcn.conv`, `.tcn.{0,2,3}`,
+`st_gcn.edge_importance.{i}`, `st_gcn.data_bn`, `fc.{0,1}`, and the
+adjacency buffer `st_gcn.A`), so a reference ``motion_encoder.*`` subtree
+loads strictly.  `st_gcn.fcn` is the reference's classifier head, which the
+encoder never runs; it is kept so that the keys match.  The stage-2 trainer
+keeps this network frozen: eval BatchNorm, no parameter gradients, gradients
+to its input only.  Its fused kernel (K7, `conductor_tpu/ops/pallas_stgcn.py`)
+is not ported yet; this module will be that kernel's plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .graph import build_adjacency
+
+# (out channels, temporal stride, residual) per block, M2S mode
+# (`conductor_tpu/models/stgcn.py:141-147`)
+M2S_BLOCKS = [(32, 1, False)] + [(32, 1, True)] * 9
+
+
+class ConvTemporalGraphical(nn.Module):
+    """1x1 conv to K*C channels, then the adjacency contraction over joints."""
+
+    def __init__(self, cin: int, cout: int, k: int):
+        super().__init__()
+        self.k = k
+        self.conv = nn.Conv2d(cin, cout * k, 1)
+
+    def forward(self, x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+        y = self.conv(x)
+        b, kc, t, v = y.shape
+        return torch.einsum("nkctv,kvw->nctw", y.reshape(b, self.k, kc // self.k, t, v), a)
+
+
+class STGCNBlock(nn.Module):
+    def __init__(self, cin: int, cout: int, k: int, stride: int, residual: bool):
+        super().__init__()
+        if residual and (cin != cout or stride != 1):
+            raise NotImplementedError("only the M2S blocks (no or identity residual) are ported")
+        self.residual = residual
+        self.gcn = ConvTemporalGraphical(cin, cout, k)
+        self.tcn = nn.Sequential(
+            nn.BatchNorm2d(cout), nn.ReLU(),
+            nn.Conv2d(cout, cout, (3, 1), (stride, 1), (1, 0)),
+            nn.BatchNorm2d(cout), nn.Dropout(0.0),
+        )
+
+    def forward(self, x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+        y = self.tcn(self.gcn(x, a))
+        return torch.relu(y + x if self.residual else y)
+
+
+class STGCN(nn.Module):
+    def __init__(self, in_channels: int = 2, layout: str = "ConductorMotionX"):
+        super().__init__()
+        a = torch.from_numpy(build_adjacency(layout, "uniform"))
+        self.register_buffer("A", a)
+        k, v = a.shape[0], a.shape[1]
+        self.data_bn = nn.BatchNorm1d(in_channels * v)
+        cin, blocks = in_channels, []
+        for cout, stride, residual in M2S_BLOCKS:
+            blocks.append(STGCNBlock(cin, cout, k, stride, residual))
+            cin = cout
+        self.st_gcn_networks = nn.ModuleList(blocks)
+        self.edge_importance = nn.ParameterList(nn.Parameter(torch.ones_like(a)) for _ in blocks)
+        self.fcn = nn.Conv2d(256, cin, 1)  # the reference's unused classifier head
+
+    def forward(self, motion: torch.Tensor) -> torch.Tensor:
+        """motion (B, T, V, C) -> (B, C_out, T, V)."""
+        b, t, v, c = motion.shape
+        x = self.data_bn(motion.reshape(b, t, v * c).transpose(1, 2))
+        x = x.reshape(b, v, c, t).permute(0, 2, 3, 1)
+        for blk, imp in zip(self.st_gcn_networks, self.edge_importance):
+            x = blk(x, self.A * imp)
+        return x
+
+
+class MotionEncoderSTGCN(nn.Module):
+    """(B, T, 13, 2) motion -> (B, T, 64) latents, eval mode."""
+
+    def __init__(self, out_dim: int = 64, n_joints: int = 13):
+        super().__init__()
+        self.st_gcn = STGCN()
+        width = M2S_BLOCKS[-1][0] * n_joints
+        self.fc = nn.Sequential(nn.Conv1d(width, out_dim, 1), nn.BatchNorm1d(out_dim))
+
+    def forward(self, motion: torch.Tensor) -> torch.Tensor:
+        h = self.st_gcn(motion)  # (B, C, T, V)
+        b, c, t, v = h.shape
+        # channel-major (C, V) flatten, as the reference's NCTV flatten
+        return self.fc(h.transpose(2, 3).reshape(b, c * v, t)).transpose(1, 2)
+
+    def freeze(self) -> "MotionEncoderSTGCN":
+        """Eval BatchNorm and no parameter gradients."""
+        self.requires_grad_(False)
+        return self.eval()

@@ -3,8 +3,10 @@
 Port of `conductor_tpu/models/transformer.py:44-467` (`timestep_embedding`,
 `StylizationBlock`, `LinearSelfAttention`, `LinearCrossAttention` with its
 step-invariant `kv_state`, `FFN`, `DecoderLayer`, and `MotionTransformer`'s
-`encode_music`, `cond_from_features`, `precompute_cond`, `time_embed_table`
-and `denoise`), linear attention only.
+`encode_music`, `cond_from_features` with the training-time condition
+dropout, `precompute_cond`, `time_embed_table` and `denoise`), linear
+attention only.  The music encoder is frozen: it runs without gradients and
+in eval mode.
 
 Parameter names are the reference state-dict keys
 (`Diffusion_Stage/models/transformer.py`), so a reference checkpoint loads
@@ -42,6 +44,14 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10
     if dim % 2:
         emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
     return emb
+
+
+def cond_keep_mask(shape, prob: float, generator: torch.Generator | None,
+                   device: torch.device | str) -> torch.Tensor:
+    """A float 0/1 mask that keeps each entry with probability 1 - prob."""
+    gen_device = generator.device if generator is not None else device
+    u = torch.rand(tuple(shape), generator=generator, device=gen_device)
+    return (u >= prob).float().to(device)
 
 
 class StylizationBlock(nn.Module):
@@ -155,10 +165,12 @@ class MotionTransformer(nn.Module):
         num_layers: int = 8,
         num_heads: int = 8,
         music_latent_dim: int = 64,
+        cond_mask_prob: float = 0.1,
     ):
         super().__init__()
         self.latent_dim = latent_dim
         self.num_heads = num_heads
+        self.cond_mask_prob = cond_mask_prob
         time_embed_dim = latent_dim * 4
         self.music_encoder = MusicEncoder(out_dim=music_latent_dim)
         self.proj = nn.Linear(music_latent_dim, music_latent_dim)
@@ -185,17 +197,32 @@ class MotionTransformer(nn.Module):
         return cls(
             input_feats=d.input_feats, num_frames=d.num_frames, latent_dim=d.latent_dim,
             ff_size=d.ff_size, num_layers=d.num_layers, num_heads=d.num_heads,
-            music_latent_dim=d.music_latent_dim,
+            music_latent_dim=d.music_latent_dim, cond_mask_prob=d.cond_mask_prob,
         )
 
-    def encode_music(self, mel: torch.Tensor):
+    def encode_music(self, mel: torch.Tensor, train: bool = False, *,
+                     keep: torch.Tensor | None = None, generator: torch.Generator | None = None):
         """mel (B, T90, 128) -> (xf_proj, xf_out), both (B, T30, 64), with
-        the frozen encoder in eval mode."""
-        return self.cond_from_features(self.music_encoder(mel))
+        the frozen encoder in eval mode and without gradients."""
+        self.music_encoder.eval()
+        with torch.no_grad():
+            feats = self.music_encoder(mel)
+        return self.cond_from_features(feats, train, keep=keep, generator=generator)
 
-    def cond_from_features(self, feats: torch.Tensor):
-        """Frozen-encoder features (B, T30, 64) -> (xf_proj, xf_out)."""
-        return self.proj(feats), feats
+    def cond_from_features(self, feats: torch.Tensor, train: bool = False, *,
+                           keep: torch.Tensor | None = None,
+                           generator: torch.Generator | None = None):
+        """Frozen-encoder features (B, T30, 64) -> (xf_proj, xf_out).  With
+        ``train`` and ``cond_mask_prob > 0`` each (b, t) token is zeroed
+        with probability ``cond_mask_prob`` (JAX `transformer.py:355-385`):
+        by the (B, T30) 0/1 mask ``keep`` if given, else by one drawn from
+        ``generator``."""
+        x = feats.detach()
+        if train and self.cond_mask_prob > 0:
+            if keep is None:
+                keep = cond_keep_mask(x.shape[:2], self.cond_mask_prob, generator, x.device)
+            x = x * keep.to(x)[..., None]
+        return self.proj(x), x
 
     def precompute_cond(self, xf_proj: torch.Tensor, xf_out: torch.Tensor) -> dict:
         """The step-invariant conditioning: the music projection added to

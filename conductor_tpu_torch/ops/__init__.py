@@ -6,6 +6,12 @@ path).  `launch_counts` / `reset_launch_counts` read and clear them.
 """
 
 from .conv_block import fold_bn, fused_conv_block  # noqa: F401
+from .decoder_layer import decoder_layer_plain, fused_decoder_layer  # noqa: F401
+from .decoder_layer_bwd import (  # noqa: F401
+    decoder_layer_bwd,
+    decoder_layer_bwd_plain,
+    fused_decoder_layer_train,
+)
 from .decoder_stack import fused_decoder_stack  # noqa: F401
 from .linear_attention import linear_attention, qk_softmax, temporal_linear_attention  # noqa: F401
 from .sampler_glue import ddim_affine_tables, sampler_epilogue, sampler_prologue  # noqa: F401
@@ -15,6 +21,8 @@ KERNELS = {
     "sampler_prologue": sampler_prologue,
     "sampler_epilogue": sampler_epilogue,
     "conv_block": fused_conv_block,
+    "decoder_layer": fused_decoder_layer,
+    "decoder_layer_bwd": decoder_layer_bwd,
 }
 
 

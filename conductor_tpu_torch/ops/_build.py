@@ -30,17 +30,26 @@ NVCC_FLAGS = [
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# name -> (argument types, return type)
 SIGNATURES = {
     # x, w, scale, bias, resw, rscale, rbias, conv_out, pool_out,
     # B, T, F, Cin, Cout, res_mode, wt, wf, st, sf, pt, pf, To, Fo, stream
-    "conv_block_forward": [_P] * 9 + [_I] * 14 + [_P],
+    "conv_block_forward": ([_P] * 9 + [_I] * 14 + [_P], _I),
     # x, temb, emb_base, w_joint, seq_bias, h, emb_act, B, T, C, D, E, round_bf16, stream
-    "sampler_prologue_forward": [_P] * 7 + [_I] * 6 + [_P],
+    "sampler_prologue_forward": ([_P] * 7 + [_I] * 6 + [_P], _I),
     # h, x_t, w_out, b_out, out, alpha, beta, B, T, D, C, round_bf16, stream
-    "sampler_epilogue_forward": [_P] * 5 + [_F, _F] + [_I] * 5 + [_P],
+    "sampler_epilogue_forward": ([_P] * 5 + [_F, _F] + [_I] * 5 + [_P], _I),
     # x, emb, kv_cross, mats, vecs, adaln_w, adaln_b, out, partials, kv_self,
     # B, T, D, E, H, L, stream
-    "decoder_stack_forward": [_P] * 10 + [_I] * 6 + [_P],
+    "decoder_stack_forward": ([_P] * 10 + [_I] * 6 + [_P], _I),
+    # x, emb, kv_cross, mats, vecs, adaln_w, adaln_b, out, partials, kv_self,
+    # B, T, t_valid, D, E, H, stream
+    "decoder_layer_forward": ([_P] * 10 + [_I] * 6 + [_P], _I),
+    # B, T, D, E, H -> workspace bytes of decoder_layer_backward
+    "decoder_layer_backward_workspace": ([_I] * 5, ctypes.c_longlong),
+    # x, emb, kv_cross, mats, vecs, adaln_w, adaln_b, dy, dx, demb, dkv_cross,
+    # dmats, dvecs, dadaln_w, dadaln_b, workspace, B, T, t_valid, D, E, H, stream
+    "decoder_layer_backward": ([_P] * 16 + [_I] * 6 + [_P], _I),
 }
 
 
@@ -77,10 +86,10 @@ def library() -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-6000:]}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    for name, argtypes in SIGNATURES.items():
+    for name, (argtypes, restype) in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     return lib
 
 

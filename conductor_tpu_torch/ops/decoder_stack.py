@@ -41,9 +41,15 @@ def _ln(x, g, b, eps=1e-5):
 
 
 def decoder_stack_plain(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_heads, *,
-                        mxu_dtype=torch.float32):
-    """The plain version of the kernel: same arguments, same result."""
+                        mxu_dtype=torch.float32, t_valid: int | None = None):
+    """The plain version of the kernel: same arguments, same result.  Rows
+    at or past ``t_valid`` (default: all rows valid) get the TPU kernel's
+    mask: a -1e6 key and a zero value, so they drop out of the time
+    softmax and KV."""
     d = x.shape[-1]
+    valid = None
+    if t_valid is not None and t_valid < x.shape[1]:
+        valid = (torch.arange(x.shape[1], device=x.device) < t_valid)[None, :, None]
     head = torch.arange(d, device=x.device) // (d // num_heads)
     seg = (head[:, None] == head[None, :]).float()
 
@@ -67,6 +73,9 @@ def decoder_stack_plain(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_
         # self attention; the time softmax and KV stay float32
         xn = _ln(x, v[0], v[1])
         q, k, val = md(xn, m[0]) + v[2], md(xn, m[1]) + v[3], md(xn, m[2]) + v[4]
+        if valid is not None:
+            k = torch.where(valid, k, -1e6)
+            val = torch.where(valid, val, 0.0)
         ke = torch.exp(k - k.amax(1, keepdim=True))
         kv = torch.einsum("btd,btl->bdl", ke / ke.sum(1, keepdim=True), val) * seg
         x = x + styl(md(seg_softmax(q), kv), mod, 0, v, m[3], 5)

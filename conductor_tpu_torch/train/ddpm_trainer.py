@@ -1,31 +1,55 @@
-"""The serving surface of the stage-2 trainer: mel -> motion.
+"""The stage-2 trainer: one optimizer step, and serving (mel -> motion).
 
-Port of `DDPMTrainer.generate` (`conductor_tpu/train/ddpm_trainer.py:
-401-531`): encode the music once, precompute the step-invariant condition
-and the time-embedding table, then run the (optionally respaced) eta=0 DDIM
-ladder.  With ``layer_impl == "pallas_fused"`` (the port's "auto" on CUDA)
-the encoder runs on the conv-block kernel and the ladder on the sampler and
-decoder-stack kernels (`FusedDenoiser.ddim_sample`); otherwise the plain
-modules run through the generic `ddim_sample_loop`.
+Port of `DDPMTrainer` (`conductor_tpu/train/ddpm_trainer.py`).
 
-Training, classifier-free guidance, the ancestral sampler and the int8 /
-bf16-VPU sampler modes are not ported yet and raise NotImplementedError.
+`train_step` is one step of `_train_step_impl` / `_losses` (`:190-330`):
+the 5-term objective ``1 * masked MSE + 1e-6 * L1(frozen ST-GCN latents) +
+0.1 * velocity - 0.1 * clamp(elbow, +-2e-4) + 0.1 * head`` (full-window
+mask), uniform timesteps, condition dropout, then optax's global-norm clip
+and Adam (`train/optim.py`).  With ``train_layer_impl == "pallas_fused"``
+(the port's "auto" on CUDA) the denoiser's layers run through
+`fused_train_denoise`: K5 forward, K6 backward; otherwise the plain
+modules and autograd.  The perceptual term runs the plain frozen ST-GCN
+(`feat_impl="flax"`); its kernel K7 is not ported, and ``"pallas"``
+raises.
+
+`generate` (`:401-531`) encodes the music once, precomputes the
+step-invariant condition and the time-embedding table, then runs the
+(optionally respaced) eta=0 DDIM ladder.  With ``layer_impl ==
+"pallas_fused"`` the encoder runs on the conv-block kernel and the ladder
+on the sampler and decoder-stack kernels (`FusedDenoiser.ddim_sample`);
+otherwise the plain modules run through the generic `ddim_sample_loop`.
+
+Not ported yet, raising NotImplementedError: the loss-second-moment
+timestep sampler, `replicate_reference_mask`, checkpoints, classifier-free
+guidance, the ancestral sampler and the int8 / bf16-VPU sampler modes.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..config import Config, resolve_auto
-from ..diffusion import ddim_sample_loop, make_schedule, respaced_schedule, space_timesteps
-from ..interop.weights import load_reference_state_dict
+from ..diffusion import (
+    ddim_sample_loop,
+    make_schedule,
+    respaced_schedule,
+    space_timesteps,
+    training_losses,
+    uniform_sample,
+)
+from ..interop.weights import load_motion_encoder_state_dict, load_reference_state_dict
 from ..models.music_encoder import FusedMusicEncoder
+from ..models.stgcn import MotionEncoderSTGCN
 from ..models.transformer import MotionTransformer
-from .fused_denoiser import FusedDenoiser
+from .fused_denoiser import FusedDenoiser, fused_train_denoise
+from .optim import ClippedAdam
 
 
 class DDPMTrainer:
-    """Owns the denoiser on ``device`` and serves `generate`."""
+    """Owns the denoiser, the frozen perceptual ST-GCN and the optimizer on
+    ``device``; serves `train_step` and `generate`."""
 
     def __init__(self, cfg: Config, device: torch.device | str = "cpu"):
         device = torch.device(device)
@@ -44,17 +68,32 @@ class DDPMTrainer:
             raise NotImplementedError("the plain module path runs float32 only")
         if (cfg.diffusion.mean_type, cfg.diffusion.var_type) != ("start_x", "fixed_small"):
             raise NotImplementedError("the port serves START_X / FIXED_SMALL only")
+        _check_training_config(cfg)
         self.cfg = cfg
         self.device = device
         self.model = MotionTransformer.from_config(d).to(device).eval()
+        self.model.music_encoder.requires_grad_(False)  # frozen, as in the JAX package
+        self.feat_model = MotionEncoderSTGCN(n_joints=cfg.dataset.n_joints).to(device).freeze()
         self.sched = make_schedule(cfg.diffusion.schedule, cfg.diffusion.steps)
+        self.train_sched = self.sched.to(device)
+        self._new_optimizer()
         self._build_sampling_pack()
 
-    def load_reference_state_dict(self, sd) -> None:
-        """Load reference-format weights (see `interop.weights`) and rebuild
-        the derived sampling pack."""
-        load_reference_state_dict(self.model, sd)
-        self._build_sampling_pack()
+    def _new_optimizer(self) -> None:
+        tc = self.cfg.train
+        self.optimizer = ClippedAdam(self.model.parameters(), lr=tc.lr, max_norm=tc.grad_clip)
+
+    def load_reference_state_dict(self, sd=None, *, motion_encoder=None) -> None:
+        """Load reference-format weights (see `interop.weights`): ``sd``
+        into the denoiser, ``motion_encoder`` (a MotionEncoder_STGCN subtree
+        or a whole M2SNet state dict) into the frozen perceptual ST-GCN.
+        Rebuilds the sampling pack and starts a fresh optimizer."""
+        if sd is not None:
+            load_reference_state_dict(self.model, sd)
+            self._new_optimizer()
+            self._build_sampling_pack()
+        if motion_encoder is not None:
+            load_motion_encoder_state_dict(self.feat_model, motion_encoder)
 
     @torch.no_grad()
     def _build_sampling_pack(self) -> None:
@@ -67,6 +106,7 @@ class DDPMTrainer:
             FusedMusicEncoder(self.model.music_encoder, getattr(torch, d.compute_dtype))
             if d.music_encoder_impl == "pallas" else None
         )
+        self._pack_stale = False
 
     @torch.no_grad()
     def generate(
@@ -83,6 +123,8 @@ class DDPMTrainer:
         given, else drawn from ``generator``."""
         if guidance_scale != 1.0:
             raise NotImplementedError("classifier-free guidance is not ported yet")
+        if self._pack_stale:  # the weights moved since the pack was built
+            self._build_sampling_pack()
         if sampler != "ddim":
             raise NotImplementedError(f"sampler {sampler!r} is not ported yet (ddim only)")
         ds = self.cfg.dataset
@@ -121,3 +163,109 @@ class DDPMTrainer:
             return self.model.denoise(x, t, cond)
 
         return ddim_sample_loop(sched, model_fn, noise)
+
+    # ------------------------------------------------------------ training
+
+    def _losses(self, cond, motion, t, noise, cond_keep, generator):
+        """The 5-term objective (`conductor_tpu/train/ddpm_trainer.py:
+        190-298`) and its metrics."""
+        b, n = motion.shape[0], motion.shape[1]
+        tc = self.cfg.train
+        encode = self.model.cond_from_features if tc.cached_features else self.model.encode_music
+        xf_proj, xf_out = encode(cond, True, keep=cond_keep, generator=generator)
+        if self.cfg.denoiser.train_layer_impl == "pallas_fused":
+            def model_fn(x, tt):
+                return fused_train_denoise(self.model, self.cfg, x, tt, xf_proj, xf_out)
+        else:
+            def model_fn(x, tt):
+                return self.model(x, tt, xf_proj, xf_out)
+        d = self.cfg.diffusion
+        terms = training_losses(self.train_sched, model_fn, motion, t, noise.reshape(motion.shape),
+                                mean_type=d.mean_type, var_type=d.var_type, loss_type=d.loss_type)
+        target, pred = terms["target"], terms["pred"]
+        # the full-window mask (replicate_reference_mask off): a plain mean
+        loss_rec = ((pred - target) ** 2).mean()
+        if tc.lambda_feat == 0.0:
+            loss_feat = torch.zeros((), device=pred.device)
+        else:
+            j = self.cfg.dataset.n_joints
+            feat_fake = self.feat_model(pred.reshape(b, n, j, -1))
+            feat_real = self.feat_model(target.reshape(b, n, j, -1))
+            loss_feat = (feat_fake - feat_real).abs().mean()
+        loss_elbow = terms["velocity_elbow"].clamp(-tc.elbow_clamp, tc.elbow_clamp)
+        loss = (tc.lambda_rec * loss_rec + tc.lambda_feat * loss_feat
+                + tc.lambda_velocity * terms["velocity"] - tc.lambda_elbow * loss_elbow
+                + tc.lambda_head * terms["velocity_head"])
+        metrics = {
+            "loss": loss,
+            "loss_mot_rec": loss_rec,
+            # NaN, not a fake 0, when the term is skipped (as in JAX)
+            "loss_mot_feat": torch.full((), float("nan")) if tc.lambda_feat == 0.0 else loss_feat,
+            "loss_velocity": terms["velocity"],
+            "loss_elbow": loss_elbow,
+            "loss_head": terms["velocity_head"],
+            "loss_body": terms["velocity_body"],
+        }
+        return loss, metrics
+
+    def train_step(self, mel_or_feats, motion, m_lens=None, *, t=None, noise=None, cond_keep=None,
+                   generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+        """One optimizer step on a batch: ``mel_or_feats`` is mel (B, T90,
+        128), or frozen-encoder features (B, T30, 64) with
+        ``cached_features``; ``motion`` (B, T30, J, 2).  ``m_lens`` is
+        accepted for the JAX signature; the full-window mask ignores it.
+        The timesteps ``t`` (B,), the noise (B, T30, J * 2) and the (B, T30)
+        condition keep mask are drawn from ``generator`` unless given.
+        Returns the JAX metrics as 0-d tensors (no host sync)."""
+        d = self.cfg.denoiser
+        if d.train_layer_impl == "flax" and d.compute_dtype != "float32":
+            raise NotImplementedError("the plain module path runs float32 only")
+        dev = self.device
+
+        def on_device(a, dtype):  # a copy of host arrays, which may be read-only
+            return (a if torch.is_tensor(a) else torch.tensor(np.asarray(a))).to(dev, dtype)
+
+        motion = on_device(motion, torch.float32)
+        cond = on_device(mel_or_feats, torch.float32)
+        b, n = motion.shape[0], motion.shape[1]
+        if t is None:
+            t, _ = uniform_sample(self.sched.num_timesteps, b, generator=generator)
+        if noise is None:
+            gen_device = generator.device if generator is not None else dev
+            noise = torch.randn((b, n, motion[0, 0].numel()), generator=generator, device=gen_device)
+        t = on_device(t, torch.long)
+        noise = on_device(noise, torch.float32)
+        if cond_keep is not None:
+            cond_keep = on_device(cond_keep, torch.float32)
+        loss, metrics = self._losses(cond, motion, t, noise, cond_keep, generator)
+        loss.backward()
+        metrics["grad_norm"] = self.optimizer.step()
+        self._pack_stale = True
+        return {k: v.detach() for k, v in metrics.items()}
+
+
+def _check_training_config(cfg: Config) -> None:
+    """Raise on the training options the port does not run: the gating of
+    the fused layers (`conductor_tpu/train/ddpm_trainer.py:119-125`) and the
+    modes not ported yet."""
+    d, tc = cfg.denoiser, cfg.train
+    if d.train_layer_impl not in ("flax", "pallas_fused"):
+        raise ValueError(f"unknown train_layer_impl: {d.train_layer_impl}")
+    if d.train_layer_impl == "pallas_fused" and (
+        not d.efficient_attention or d.dropout != 0.0 or tc.replicate_reference_mask
+    ):
+        raise ValueError("train_layer_impl='pallas_fused' needs linear attention, dropout 0 and "
+                         "the full src_mask (replicate_reference_mask off)")
+    if tc.feat_impl == "pallas":
+        raise NotImplementedError("feat_impl='pallas' needs the fused frozen ST-GCN kernel K7 "
+                                  "(conductor_tpu/ops/pallas_stgcn.py), not ported yet")
+    if tc.feat_impl != "flax":
+        raise ValueError(f"unknown feat_impl: {tc.feat_impl}")
+    if tc.replicate_reference_mask:
+        raise NotImplementedError("replicate_reference_mask is not ported yet")
+    if tc.timestep_sampler != "uniform":
+        raise NotImplementedError(f"timestep sampler {tc.timestep_sampler!r} is not ported yet")
+    if d.dropout != 0.0:
+        raise NotImplementedError("denoiser dropout is not ported (the default is 0)")
+    if cfg.diffusion.loss_type not in ("mse", "rescaled_mse"):
+        raise NotImplementedError(f"loss_type {cfg.diffusion.loss_type!r} is not ported")

@@ -1,16 +1,20 @@
-"""Packed-weight fused sampling path for the MotionTransformer.
+"""Packed-weight fused paths for the MotionTransformer: serving and training.
 
-Port of the serving parts of `conductor_tpu/train/fused_denoiser.py:30-248`:
-`pack_layer_weights` (one layer's weights -> the (9, D, D) matrix bank, the
-(24, D) vector bank and the (E, 6D) AdaLN slice that the decoder-stack kernel
-reads), `expand_block_diag`, and `FusedDenoiser` (`__init__`,
-`prepare_cond`, `__call__`, `ddim_sample`).  The banks are built from the
+Port of `conductor_tpu/train/fused_denoiser.py`: `pack_layer_weights` (one
+layer's weights -> the (9, D, D) matrix bank, the (24, D) vector bank and
+the (E, 6D) AdaLN slice that the decoder kernels read), `expand_block_diag`,
+`FusedDenoiser` (`__init__`, `prepare_cond`, `__call__`, `ddim_sample`),
+`cross_kv_state` and `fused_train_denoise`.  The banks are built from the
 port's `MotionTransformer`, whose per-sublayer AdaLN Linears
 (`...{sa_block,ca_block,ffn}.proj_out.emb_layers.1`) are concatenated per
 layer the way `conductor_tpu/interop/torch_import.py` packs them for flax.
+The packing is differentiable (stack, pad and slice are linear), so the
+training path's gradients reach the module's own parameters.
 
 `ddim_sample` is the kernel path of a serving call: per ladder step the
 prologue (K2), the decoder stack (K1) and the epilogue (K3).
+`fused_train_denoise` is the training forward: every layer through
+`fused_decoder_layer_train`, K5 forward and K6 backward.
 """
 
 from __future__ import annotations
@@ -20,20 +24,21 @@ import torch.nn.functional as F
 
 from ..config import Config
 from ..models.transformer import MotionTransformer, timestep_embedding
-from ..ops.decoder_stack import fused_decoder_stack
+from ..ops.decoder_layer_bwd import fused_decoder_layer_train
+from ..ops.decoder_stack import ROWS_PER_TILE, fused_decoder_stack
 from ..ops.sampler_glue import ddim_affine_tables, sampler_epilogue, sampler_prologue
 
 
 def _wt(linear: torch.nn.Linear) -> torch.Tensor:
     """torch Linear weight (out, in) -> (in, out) float32."""
-    return linear.weight.detach().float().t()
+    return linear.weight.float().t()
 
 
-@torch.no_grad()
 def pack_layer_weights(model: MotionTransformer, layer: int):
     """Layer ``layer`` -> (mats (9, D, D), vecs (24, D), adaln_w (E, 6D),
     adaln_b (6D,)), all float32, in the bank order of
-    `ops/decoder_stack.py`."""
+    `ops/decoder_stack.py`.  Differentiable; serving calls it under
+    `torch.no_grad`."""
     d = model.latent_dim
     blk = model.temporal_decoder_blocks[layer]
     sa, ca, ff = blk.sa_block, blk.ca_block, blk.ffn
@@ -56,10 +61,10 @@ def pack_layer_weights(model: MotionTransformer, layer: int):
         pad_to(ff.linear1.bias, (d,)), ff.linear2.bias,
         ff.proj_out.norm.weight, ff.proj_out.norm.bias, ff.proj_out.out_layers[2].bias,
     ]
-    vecs = torch.zeros((24, d), device=mats.device)
-    vecs[: len(rows)] = torch.stack([r.detach().float() for r in rows])
+    vecs = torch.cat([torch.stack([r.float() for r in rows]),
+                      torch.zeros((24 - len(rows), d), device=mats.device)])
     adaln_w = torch.cat([_wt(s.emb_layers[1]) for s in styls], dim=1)
-    adaln_b = torch.cat([s.emb_layers[1].bias.detach().float() for s in styls])
+    adaln_b = torch.cat([s.emb_layers[1].bias.float() for s in styls])
     return mats, vecs, adaln_w, adaln_b
 
 
@@ -145,3 +150,48 @@ class FusedDenoiser:
             x = sampler_epilogue(h, x, self.w_out, self.b_out, alpha[t], beta[t],
                                  mxu_dtype=self.mxu_dtype)
         return x
+
+
+def cross_kv_state(ca_block, xf_o: torch.Tensor) -> torch.Tensor:
+    """One layer's cross-attention state `LinearCrossAttention.kv_state`
+    as the (B, D, D) block-diagonal matrix the layer kernels read; plain
+    torch and differentiable in the block's norm / key / value weights."""
+    return expand_block_diag(ca_block.kv_state(xf_o))
+
+
+def train_layer_inputs(model: MotionTransformer, cfg: Config, x: torch.Tensor, t: torch.Tensor,
+                       xf_proj: torch.Tensor, xf_out: torch.Tensor):
+    """The inputs of the training layer stack: (h, emb_act, xf_o), with
+    ``h`` (B, Tp, D) and ``emb_act`` (B, Tp, E) in the compute dtype and
+    padded once to the kernel's row tile (Tp = T rounded up to 64), and
+    ``xf_o`` the projected music tokens of the cross-attention states."""
+    d = cfg.denoiser
+    mxu = getattr(torch, d.compute_dtype)
+    b, n = x.shape[0], x.shape[1]
+    x = x.reshape(b, n, -1)
+    emb_base, xf_o = model.linear(xf_proj), model.linear(xf_out)
+    temb = model.time_embed(timestep_embedding(t, d.latent_dim))
+    emb_act = F.silu(temb[:, None, :] + emb_base).to(mxu)
+    h = (model.joint_embed(x) + model.sequence_embedding[None, :n]).to(mxu)
+    pad = -(-n // ROWS_PER_TILE) * ROWS_PER_TILE - n
+    return F.pad(h, (0, 0, 0, pad)), F.pad(emb_act, (0, 0, 0, pad)), xf_o
+
+
+def fused_train_denoise(model: MotionTransformer, cfg: Config, x: torch.Tensor, t: torch.Tensor,
+                        xf_proj: torch.Tensor, xf_out: torch.Tensor) -> torch.Tensor:
+    """The denoiser's training forward over the packed layers, mirroring
+    `MotionTransformer.forward` for the default training configuration
+    (linear attention, dropout 0, full mask).  ``h`` and ``emb_act`` go to
+    the compute dtype before the layers, and T is padded once to the
+    kernel's row tile with ``t_valid = T``, as in JAX
+    `fused_train_denoise`."""
+    d = cfg.denoiser
+    mxu = getattr(torch, d.compute_dtype)
+    n = x.shape[1]
+    h, emb_act, xf_o = train_layer_inputs(model, cfg, x, t, xf_proj, xf_out)
+    for i, blk in enumerate(model.temporal_decoder_blocks):
+        mats, vecs, aw, ab = pack_layer_weights(model, i)
+        kvb = cross_kv_state(blk.ca_block, xf_o).to(mxu)
+        h = fused_decoder_layer_train(h, emb_act, kvb, mats, vecs, aw, ab, d.num_heads,
+                                      mxu_dtype=mxu, t_valid=n)
+    return model.out(h[:, :n].float())

@@ -1,0 +1,49 @@
+"""The stage-2 optimizer: optax's ``chain(clip_by_global_norm(c), adam(lr))``.
+
+`clip_by_global_norm` is optax's own rule: the gradients are scaled by
+``c / norm`` only when ``norm >= c``, with no ``+ 1e-6`` on the norm
+(`torch.nn.utils.clip_grad_norm_` adds one).  The Adam step is
+`torch.optim.Adam` with its defaults (betas 0.9 / 0.999, eps 1e-8), whose
+update equals optax's `adam` (`tests/test_torch_import.py:472`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares over every gradient, float32 (optax
+    `global_norm`)."""
+    return torch.sqrt(sum((g.float() * g.float()).sum() for g in grads))
+
+
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> tuple[list, torch.Tensor]:
+    """(grads, their global norm before clipping); where the norm is at
+    least ``max_norm`` each gradient becomes ``g / norm * max_norm``."""
+    norm = global_norm(grads)
+    keep = norm < max_norm
+    return [torch.where(keep, g, g / norm * max_norm) for g in grads], norm
+
+
+class ClippedAdam:
+    """Adam over ``params`` after global-norm clipping of their gradients."""
+
+    def __init__(self, params, lr: float, max_norm: float):
+        self.params = [p for p in params if p.requires_grad]
+        self.max_norm = max_norm
+        self.adam = torch.optim.Adam(self.params, lr=lr)
+
+    def step(self) -> torch.Tensor:
+        """Clip the parameters' ``.grad`` in place and take one Adam step;
+        returns the unclipped global norm.  A parameter without a gradient
+        counts as a zero gradient, as in optax."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        clipped, norm = clip_by_global_norm([p.grad for p in self.params], self.max_norm)
+        for p, g in zip(self.params, clipped):
+            p.grad = g
+        self.adam.step()
+        self.adam.zero_grad(set_to_none=True)
+        return norm

@@ -49,7 +49,8 @@ def models():
 def test_pack_layer_weights_match_jax(models):
     model, variables = models
     for layer in range(CFG.denoiser.num_layers):
-        got = pack_layer_weights(model, layer)
+        with torch.no_grad():  # as serving packs
+            got = pack_layer_weights(model, layer)
         want = jfd.pack_layer_weights(variables["params"], layer, CFG)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))

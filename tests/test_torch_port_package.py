@@ -15,7 +15,9 @@ from conductor_tpu_torch import DDPMTrainer
 from conductor_tpu_torch.config import Config, DenoiserConfig, DiffusionConfig, resolve_auto
 from conductor_tpu_torch.interop import reference_state_dict, synthetic_state_dict
 from conductor_tpu_torch.ops import (
+    decoder_layer_bwd,
     fused_conv_block,
+    fused_decoder_layer,
     fused_decoder_stack,
     launch_counts,
     reset_launch_counts,
@@ -33,7 +35,7 @@ TINY = Config(
 )
 
 _NO_JAX = """
-import importlib.abc, sys
+import dataclasses, importlib.abc, sys
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
@@ -54,6 +56,11 @@ tr = DDPMTrainer(cfg)
 tr.load_reference_state_dict(synthetic_state_dict(tr.model))
 out = tr.generate(torch.rand(1, 96, 128), generator=torch.Generator().manual_seed(0))
 assert out.shape == (1, 32, 26), out.shape
+cfg = cfg.replace(denoiser=dataclasses.replace(cfg.denoiser, train_layer_impl="pallas_fused"))
+tr = DDPMTrainer(cfg)
+m = tr.train_step(torch.rand(2, 96, 128), torch.rand(2, 32, 13, 2),
+                  generator=torch.Generator().manual_seed(0))
+assert torch.isfinite(m["loss"]), m
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
 assert not bad, bad
 print("no-jax-ok")
@@ -61,8 +68,8 @@ print("no-jax-ok")
 
 
 def test_package_never_imports_jax():
-    """In a fresh interpreter, with jax and flax blocked, the package imports
-    and serves a clip on the CPU."""
+    """In a fresh interpreter, with jax and flax blocked, the package imports,
+    serves a clip and takes a training step (K5 / K6 path) on the CPU."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], capture_output=True, text=True,
                           cwd=REPO, env=env, timeout=300)
@@ -84,8 +91,12 @@ def test_wrappers_take_the_plain_path_on_cpu():
                         t(1, 24, 32), t(1, 64, 192), t(1, 192), 4)
     h, _ = sampler_prologue(t(1, 5, 26), t(64), t(1, 5, 64), t(26, 32), t(5, 32))
     sampler_epilogue(h, t(1, 5, 26), t(32, 26), t(26), 0.5, 0.5)
+    layer = (t(1, 5, 32), t(1, 5, 64), t(1, 32, 32), t(9, 32, 32), t(24, 32), t(64, 192), t(192))
+    fused_decoder_layer(*layer, 4)
+    decoder_layer_bwd(*layer, t(1, 5, 32), 4)
     assert launch_counts() == {"decoder_stack": 0, "sampler_prologue": 0,
-                               "sampler_epilogue": 0, "conv_block": 0}
+                               "sampler_epilogue": 0, "conv_block": 0,
+                               "decoder_layer": 0, "decoder_layer_bwd": 0}
 
 
 def test_auto_resolution():
@@ -98,6 +109,14 @@ def test_auto_resolution():
     assert resolve_auto(resolve_auto(cfg, "cuda"), "cpu") == resolve_auto(cfg, "cuda")
     pinned = cfg.replace(denoiser=dataclasses.replace(cfg.denoiser, layer_impl="flax"))
     assert resolve_auto(pinned, "cuda").denoiser.layer_impl == "flax"
+    # the training knobs: kernels on CUDA unless dropout or the reference
+    # mask rule them out; the perceptual ST-GCN is plain everywhere
+    assert resolve_auto(cfg, "cuda").denoiser.train_layer_impl == "pallas_fused"
+    assert resolve_auto(cfg, "cpu").denoiser.train_layer_impl == "flax"
+    assert resolve_auto(cfg, "cuda").train.feat_impl == resolve_auto(cfg, "cpu").train.feat_impl == "flax"
+    for change in (dict(denoiser=dataclasses.replace(cfg.denoiser, dropout=0.1)),
+                   dict(train=dataclasses.replace(cfg.train, replicate_reference_mask=True))):
+        assert resolve_auto(cfg.replace(**change), "cuda").denoiser.train_layer_impl == "flax"
 
 
 def test_cuda_trainer_without_a_card_raises():
