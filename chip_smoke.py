@@ -12,25 +12,30 @@ Phases, one line each (the kernel checks one line per kernel):
      frames, 1800 motion frames, D = 128, E = 512, 8 layers), and the
      training layer kernels K5 (forward) and K6 (backward, seven gradients)
      on layer 0 of a training forward at B = 4 windows of 30 s (T = 900,
-     padded to 960), bf16 operands on both sides; each output must agree
-     within 2 % of the plain output's largest value;
+     padded to 960), and K7, the frozen ST-GCN of the perceptual loss
+     (forward on pred and target, d(pred) backward), on pred and target of
+     one training forward at B = 32, T = 900, bf16 operands on both sides;
+     each output must agree within 2 % of the plain output's largest value;
   4. `DDPMTrainer.generate` on the kernel path, ddim50, on synthetic flagship
      weights and a seeded mel: a finite (2, 1800, 26) motion within 3 % of
      the plain path's on the card, with every serving kernel launched;
   5. timings: the ddim50 latency of one clip, and a 1000-step ladder over
      8 clips (bench.py's shape) timed up to the host readback;
-  6. training: 4 `DDPMTrainer.train_step`s on the kernel path (K5 / K6,
-     bf16) and 4 on the plain path (float32 modules and autograd), both from
+  6. training: 4 `DDPMTrainer.train_step`s on the kernel path (K5 / K6 /
+     K7, bf16) and 4 on the plain path (float32 modules and autograd), both from
      the same synthetic flagship weights and synthetic ST-GCN, on the same
      seeded mel, motion, t, noise and condition keep masks at the training
      default B = 32 windows of 30 s (T = 900 motion, 2700 mel frames); each
-     kernel-path loss must be finite and within 3e-2 relative of the plain
-     path's (the bf16 bound of tests/test_fused_train_path.py), K5 and K6
-     must have launched, and the median ms per step of both paths is printed.
+     kernel-path loss, and its perceptual term `loss_mot_feat` (weighted
+     1e-6 in the loss, so the loss alone would not see a wrong K7), must be
+     finite and within 3e-2 relative of the plain path's (the bf16 bound of
+     tests/test_fused_train_path.py), K5, K6 and K7 (forward and backward)
+     must have launched in every step, and the median ms per step of both
+     paths is printed.
 
 Every path runs at full depth; the run takes a few minutes of its 1200-s
 limit, so no path is cut.  Then one JSON line of per-kernel results (the
-launch counts of K1-K4 from phase 4, of K5 / K6 from phase 6), the
+launch counts of K1-K4 from phase 4, of K5 / K6 / K7 from phase 6), the
 nvidia-smi line again, and as the last line {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -59,9 +64,11 @@ KERNEL_SOURCES = {
                       "conductor_tpu/ops/pallas_layer.py:210"),
     "decoder_layer_bwd": ("conductor_tpu_torch/csrc/decoder_layer_bwd.cu",
                           "conductor_tpu/ops/pallas_layer_bwd.py:353"),
+    "stgcn_forward": ("conductor_tpu_torch/csrc/stgcn.cu", "conductor_tpu/ops/pallas_stgcn.py:252"),
+    "stgcn_backward": ("conductor_tpu_torch/csrc/stgcn.cu", "conductor_tpu/ops/pallas_stgcn.py:280"),
 }
 SERVING_KERNELS = ("decoder_stack", "sampler_prologue", "sampler_epilogue", "conv_block")
-TRAIN_KERNELS = ("decoder_layer", "decoder_layer_bwd")
+TRAIN_KERNELS = ("decoder_layer", "decoder_layer_bwd", "stgcn_forward", "stgcn_backward")
 GENERATE_REL_TOL = 0.03  # ladder drift bound of tests/test_fused_denoiser.py
 TRAIN_LOSS_REL_TOL = 3e-2  # bf16 loss bound of tests/test_fused_train_path.py
 TRAIN_STEPS = 4
@@ -86,9 +93,15 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
     from conductor_tpu_torch import DDPMTrainer
-    from conductor_tpu_torch.config import Config, DenoiserConfig
+    from conductor_tpu_torch.config import Config, DenoiserConfig, TrainConfig
     from conductor_tpu_torch.interop import synthetic_motion_encoder_state_dict, synthetic_state_dict
-    from conductor_tpu_torch.kernel_checks import check_kernels, check_train_kernels, time_ms
+    from conductor_tpu_torch.kernel_checks import (
+        check_kernels,
+        check_stgcn_kernels,
+        check_train_kernels,
+        perceptual_inputs,
+        time_ms,
+    )
     from conductor_tpu_torch.ops import _build, launch_counts, reset_launch_counts
 
     # the plain references run in full float32
@@ -114,11 +127,12 @@ def main() -> int:
     kernel_tr = DDPMTrainer(cfg, device="cuda")  # "auto" on CUDA: the kernel path
     if kernel_tr.fused is None or kernel_tr.fused_encoder is None:
         raise SystemExit("chip_smoke: 'auto' did not select the kernel path on CUDA")
-    if kernel_tr.cfg.denoiser.train_layer_impl != "pallas_fused":
+    if (kernel_tr.cfg.denoiser.train_layer_impl, kernel_tr.cfg.train.feat_impl) != (
+            "pallas_fused", "pallas"):
         raise SystemExit("chip_smoke: 'auto' did not select the training kernels on CUDA")
     plain_cfg = cfg.replace(denoiser=DenoiserConfig(
         layer_impl="flax", music_encoder_impl="flax", train_layer_impl="flax",
-        compute_dtype="float32"))
+        compute_dtype="float32"), train=TrainConfig(feat_impl="flax"))
     plain_tr = DDPMTrainer(plain_cfg, device="cuda")
     sd = synthetic_state_dict(kernel_tr.model, seed=0)
     feat_sd = synthetic_motion_encoder_state_dict(kernel_tr.feat_model, seed=0)
@@ -143,6 +157,7 @@ def main() -> int:
     # 3. every kernel against its plain version, at the main paths' shapes
     results = check_kernels(kernel_tr, mel, noise)
     results += check_train_kernels(kernel_tr, mel_train[:4], motion_train[:4])
+    results += check_stgcn_kernels(kernel_tr, *perceptual_inputs(kernel_tr, mel_train, motion_train))
     for r in results:
         print(f"[kernel] {r['name']}: max_abs_err {r['max_abs_err']:.6g} "
               f"(plain max {r['ref_max_abs']:.6g}, {'ok' if r['ok'] else 'FAIL'}) "
@@ -151,6 +166,9 @@ def main() -> int:
             for name, (e, m) in zip(("dx", "demb", "dkvc", "dmats", "dvecs", "daw", "dab"),
                                     r["parts"]):
                 print(f"[kernel]   decoder_layer_bwd {name}: err {e:.6g} (max {m:.6g})")
+        if r["name"] == "stgcn_backward":
+            print(f"[kernel]   stgcn_backward after the kernel's own forward (ReLU masks of "
+                  f"another summation order): err {r['e2e_err']:.6g}, not bounded")
         for blk in r.get("blocks", []):
             print(f"[kernel]   conv_block {blk['shape']}: err {blk['max_abs_err']:.6g} "
                   f"(max {blk['ref_max_abs']:.6g}) kernel {blk['ms']:.4f} ms "
@@ -194,30 +212,38 @@ def main() -> int:
 
     # 6. training: kernel path, then the plain path, same weights and numbers
     def train(tr):
-        losses, times = [], []
+        losses, feats, times, counts = [], [], [], []
         for d in drawn:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             m = tr.train_step(mel_train, motion_train, **d)
             losses.append(float(m["loss"]))  # host readback ends the step
             times.append(time.perf_counter() - t0)
-        return losses, times
+            feats.append(float(m["loss_mot_feat"]))
+            counts.append(launch_counts())
+        return losses, feats, times, counts
 
     reset_launch_counts()
-    losses_k, times_k = train(kernel_tr)
-    train_counts = launch_counts()
-    losses_p, times_p = train(plain_tr)
+    losses_k, feats_k, times_k, step_counts = train(kernel_tr)
+    train_counts = step_counts[-1]
+    losses_p, feats_p, times_p, _ = train(plain_tr)
     rel = [abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p)]
+    rel_feat = [abs(a - b) / abs(b) for a, b in zip(feats_k, feats_p)]
+    per_step = [{k: c[k] - (step_counts[i - 1][k] if i else 0) for k in TRAIN_KERNELS}
+                for i, c in enumerate(step_counts)]
     print(f"[train] B={n_train} T={t_train} losses kernel {losses_k} plain {losses_p} "
           f"max rel diff {max(rel):.3g} launches {dict((k, train_counts[k]) for k in TRAIN_KERNELS)}")
+    print(f"[train] loss_mot_feat kernel {feats_k} plain {feats_p} max rel diff "
+          f"{max(rel_feat):.3g}; launches per step {per_step}")
     print(f"[time] train step B={n_train} T={t_train}: kernel path median "
           f"{np.median(times_k) * 1e3:.1f} ms, plain path median {np.median(times_p) * 1e3:.1f} ms "
           f"(per step: kernel {[round(x * 1e3, 1) for x in times_k]}, plain "
           f"{[round(x * 1e3, 1) for x in times_p]}) on {smi}")
-    if not all(np.isfinite(losses_k)) or max(rel) > TRAIN_LOSS_REL_TOL:
+    if (not all(np.isfinite(losses_k + feats_k)) or max(rel) > TRAIN_LOSS_REL_TOL
+            or max(rel_feat) > TRAIN_LOSS_REL_TOL):
         raise SystemExit("chip_smoke: training on the kernel path disagrees with the plain path")
-    if min(train_counts[k] for k in TRAIN_KERNELS) == 0:
-        raise SystemExit(f"chip_smoke: a training kernel was never launched: {train_counts}")
+    if min(c[k] for c in per_step for k in TRAIN_KERNELS) == 0:
+        raise SystemExit(f"chip_smoke: a training kernel was not launched in every step: {per_step}")
     counts.update({k: train_counts[k] for k in TRAIN_KERNELS})
 
     kernels = []

@@ -40,8 +40,10 @@ def resolve_auto(cfg: Config, device: torch.device | str) -> Config:
     """Resolve the "auto" implementation knobs for ``device``.  Explicit
     values are kept as given.  As in the JAX package, "auto" training layers
     fall back to the plain modules when dropout is on or the reference mask
-    is replicated; ``feat_impl`` "auto" is the plain ST-GCN on every device
-    (its kernel, K7, is not ported).  Idempotent."""
+    is replicated, and "auto" falls back where a kernel's gate fails:
+    ``feat_impl`` "auto" is the ST-GCN kernel (K7, "pallas") on a CUDA
+    device when the compute dtype resolves to bfloat16, the kernel's
+    operands, and the plain module ("flax") otherwise.  Idempotent."""
     cuda = torch.device(device).type == "cuda"
     d = cfg.denoiser
     resolved = {
@@ -50,6 +52,8 @@ def resolve_auto(cfg: Config, device: torch.device | str) -> Config:
     }
     if d.train_layer_impl == "auto" and (d.dropout != 0.0 or cfg.train.replicate_reference_mask):
         resolved["train_layer_impl"] = "flax"
-    feat = "flax" if cfg.train.feat_impl == "auto" else cfg.train.feat_impl
+    feat = cfg.train.feat_impl
+    if feat == "auto":
+        feat = "pallas" if cuda and resolved["compute_dtype"] == "bfloat16" else "flax"
     return cfg.replace(denoiser=dataclasses.replace(d, **resolved),
                        train=dataclasses.replace(cfg.train, feat_impl=feat))

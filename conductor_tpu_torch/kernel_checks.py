@@ -6,7 +6,8 @@ on the card, rebuilds the first ladder step's kernel inputs from them
 (the real conditioning, the real encoder activations), and runs every
 serving kernel (K1-K4) and its plain version on the same inputs.
 `check_train_kernels` does the same for the training layer kernels (K5,
-K6) on layer 0 of a training forward.  For each kernel it reports the
+K6) on layer 0 of a training forward, and `check_stgcn_kernels` for K7 on
+the perceptual term's inputs (`perceptual_inputs`).  For each kernel it reports the
 largest absolute difference, the largest absolute plain value (for a
 kernel with several outputs, those of the output worst relative to its own
 scale, and every output's pair in ``parts``), whether the difference is
@@ -31,6 +32,7 @@ from .ops.sampler_glue import (
     sampler_prologue,
     sampler_prologue_plain,
 )
+from .ops.stgcn import frozen_stgcn_plain, stgcn_backward, stgcn_forward
 from .train.fused_denoiser import cross_kv_state, pack_layer_weights, train_layer_inputs
 
 REL_TOL = 0.02  # the bound the JAX package holds its reduced-precision modes to
@@ -154,3 +156,55 @@ def check_train_kernels(trainer, cond, motion, *, reps: int = 5, rel_tol: float 
                             lambda: decoder_layer_bwd_plain(*args, dy, heads, **kw),
                             reps, rel_tol))
     return results
+
+
+@torch.no_grad()
+def perceptual_inputs(trainer, cond, motion, *, seed: int = 0):
+    """The perceptual term's inputs in one training forward of ``trainer``
+    on ``cond`` and ``motion`` (B, T, J, 2), with seeded t and noise: pred
+    and target (B, T, J, 2), and dy, the cotangent that the loss's L1 mean
+    gives pred's latents, sign(f(pred) - f(target)) / numel, with f the
+    plain float32 module."""
+    dev = motion.device
+    b, n = motion.shape[0], motion.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t = torch.randint(0, trainer.sched.num_timesteps, (b,), generator=gen, device=dev)
+    noise = torch.randn((b, n, motion[0, 0].numel()), generator=gen, device=dev)
+    model = trainer.model
+    encode = model.cond_from_features if trainer.cfg.train.cached_features else model.encode_music
+    terms = trainer.training_terms(*encode(cond), motion, t, noise)
+    pred, target = terms["pred"].reshape(motion.shape), terms["target"].reshape(motion.shape)
+    diff = trainer.feat_model(pred) - trainer.feat_model(target)
+    return pred, target, torch.sign(diff) / diff.numel()
+
+
+@torch.no_grad()
+def check_stgcn_kernels(trainer, pred, target, dy, *, reps: int = 5,
+                        rel_tol: float = REL_TOL) -> list[dict]:
+    """K7 against its plain versions on the perceptual term's inputs
+    (`perceptual_inputs`), over the trainer's packed ST-GCN.
+
+    stgcn_forward: the latents of pred (with the activations kept for the
+    backward, as the training path runs it) and of target; ms per call is
+    the mean of the two.  stgcn_backward: d(pred) from ``dy``, against
+    autograd through the plain version, the kernel reading the plain
+    forward's activations: the same ReLU masks.  Two bf16 forwards that sum
+    in another order flip a few masks, and a flip moves single elements of
+    the gradient by several percent of its maximum; ``e2e_err`` is the
+    difference with the kernel's own forward, reported and not bounded."""
+    pack, mxu = trainer.feat_pack, getattr(torch, trainer.cfg.denoiser.compute_dtype)
+    fwd = _compare(
+        "stgcn_forward",
+        lambda: (stgcn_forward(pred, pack, save=True)[0], stgcn_forward(target, pack)),
+        lambda: (frozen_stgcn_plain(pred, pack, mxu), frozen_stgcn_plain(target, pack, mxu)),
+        reps, rel_tol)
+    fwd["ms"], fwd["plain_ms"] = fwd["ms"] / 2, fwd["plain_ms"] / 2
+    with torch.enable_grad():
+        x = pred.detach().requires_grad_(True)
+        out, saved = frozen_stgcn_plain(x, pack, mxu, save=True)
+    saved = tuple(a.detach() for a in saved)
+    bwd = _compare("stgcn_backward", lambda: stgcn_backward(dy, saved, pack),
+                   lambda: torch.autograd.grad(out, x, dy, retain_graph=True)[0], reps, rel_tol)
+    own = stgcn_backward(dy, stgcn_forward(pred, pack, save=True)[1], pack)
+    bwd["e2e_err"] = _errors(own, torch.autograd.grad(out, x, dy)[0])[0][0]
+    return [fwd, bwd]

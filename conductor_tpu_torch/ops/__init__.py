@@ -15,6 +15,13 @@ from .decoder_layer_bwd import (  # noqa: F401
 from .decoder_stack import fused_decoder_stack  # noqa: F401
 from .linear_attention import linear_attention, qk_softmax, temporal_linear_attention  # noqa: F401
 from .sampler_glue import ddim_affine_tables, sampler_epilogue, sampler_prologue  # noqa: F401
+from .stgcn import (  # noqa: F401
+    frozen_stgcn_plain,
+    fused_frozen_stgcn,
+    pack_frozen_stgcn,
+    stgcn_backward,
+    stgcn_forward,
+)
 
 KERNELS = {
     "decoder_stack": fused_decoder_stack,
@@ -23,6 +30,8 @@ KERNELS = {
     "conv_block": fused_conv_block,
     "decoder_layer": fused_decoder_layer,
     "decoder_layer_bwd": decoder_layer_bwd,
+    "stgcn_forward": stgcn_forward,
+    "stgcn_backward": stgcn_backward,
 }
 
 

@@ -9,9 +9,11 @@ mask), uniform timesteps, condition dropout, then optax's global-norm clip
 and Adam (`train/optim.py`).  With ``train_layer_impl == "pallas_fused"``
 (the port's "auto" on CUDA) the denoiser's layers run through
 `fused_train_denoise`: K5 forward, K6 backward; otherwise the plain
-modules and autograd.  The perceptual term runs the plain frozen ST-GCN
-(`feat_impl="flax"`); its kernel K7 is not ported, and ``"pallas"``
-raises.
+modules and autograd.  The perceptual term runs the frozen ST-GCN: with
+``feat_impl == "pallas"`` (the port's "auto" on CUDA with bf16 operands) on
+`ops.stgcn.fused_frozen_stgcn`, K7 forward on pred and target and K7
+backward to pred, over weights packed once outside the step; otherwise the
+plain `MotionEncoderSTGCN` and autograd.
 
 `generate` (`:401-531`) encodes the music once, precomputes the
 step-invariant condition and the time-embedding table, then runs the
@@ -43,6 +45,7 @@ from ..interop.weights import load_motion_encoder_state_dict, load_reference_sta
 from ..models.music_encoder import FusedMusicEncoder
 from ..models.stgcn import MotionEncoderSTGCN
 from ..models.transformer import MotionTransformer
+from ..ops.stgcn import fused_frozen_stgcn, pack_frozen_stgcn
 from .fused_denoiser import FusedDenoiser, fused_train_denoise
 from .optim import ClippedAdam
 
@@ -68,12 +71,13 @@ class DDPMTrainer:
             raise NotImplementedError("the plain module path runs float32 only")
         if (cfg.diffusion.mean_type, cfg.diffusion.var_type) != ("start_x", "fixed_small"):
             raise NotImplementedError("the port serves START_X / FIXED_SMALL only")
-        _check_training_config(cfg)
+        _check_training_config(cfg, device)
         self.cfg = cfg
         self.device = device
         self.model = MotionTransformer.from_config(d).to(device).eval()
         self.model.music_encoder.requires_grad_(False)  # frozen, as in the JAX package
         self.feat_model = MotionEncoderSTGCN(n_joints=cfg.dataset.n_joints).to(device).freeze()
+        self._build_feat_pack()
         self.sched = make_schedule(cfg.diffusion.schedule, cfg.diffusion.steps)
         self.train_sched = self.sched.to(device)
         self._new_optimizer()
@@ -87,13 +91,26 @@ class DDPMTrainer:
         """Load reference-format weights (see `interop.weights`): ``sd``
         into the denoiser, ``motion_encoder`` (a MotionEncoder_STGCN subtree
         or a whole M2SNet state dict) into the frozen perceptual ST-GCN.
-        Rebuilds the sampling pack and starts a fresh optimizer."""
+        Rebuilds the sampling pack and starts a fresh optimizer, or
+        rebuilds the ST-GCN's packed weights."""
         if sd is not None:
             load_reference_state_dict(self.model, sd)
             self._new_optimizer()
             self._build_sampling_pack()
         if motion_encoder is not None:
             load_motion_encoder_state_dict(self.feat_model, motion_encoder)
+            self._build_feat_pack()
+
+    @torch.no_grad()
+    def _build_feat_pack(self) -> None:
+        """The frozen ST-GCN's packed weights for K7, built outside the step
+        as JAX `_feat_pack` does, and again when new ST-GCN weights load
+        (JAX `reset_caches`); None on the plain path."""
+        tc = self.cfg.train
+        self.feat_pack = (
+            pack_frozen_stgcn(self.feat_model, getattr(torch, self.cfg.denoiser.compute_dtype))
+            if tc.feat_impl == "pallas" and tc.lambda_feat != 0.0 else None
+        )
 
     @torch.no_grad()
     def _build_sampling_pack(self) -> None:
@@ -166,13 +183,10 @@ class DDPMTrainer:
 
     # ------------------------------------------------------------ training
 
-    def _losses(self, cond, motion, t, noise, cond_keep, generator):
-        """The 5-term objective (`conductor_tpu/train/ddpm_trainer.py:
-        190-298`) and its metrics."""
-        b, n = motion.shape[0], motion.shape[1]
-        tc = self.cfg.train
-        encode = self.model.cond_from_features if tc.cached_features else self.model.encode_music
-        xf_proj, xf_out = encode(cond, True, keep=cond_keep, generator=generator)
+    def training_terms(self, xf_proj, xf_out, motion, t, noise) -> dict[str, torch.Tensor]:
+        """`training_losses` of the denoiser on this trainer's layer path,
+        given the music condition: the loss terms and the flat ``pred`` /
+        ``target`` (B, T, 26) that the perceptual term takes."""
         if self.cfg.denoiser.train_layer_impl == "pallas_fused":
             def model_fn(x, tt):
                 return fused_train_denoise(self.model, self.cfg, x, tt, xf_proj, xf_out)
@@ -180,8 +194,30 @@ class DDPMTrainer:
             def model_fn(x, tt):
                 return self.model(x, tt, xf_proj, xf_out)
         d = self.cfg.diffusion
-        terms = training_losses(self.train_sched, model_fn, motion, t, noise.reshape(motion.shape),
-                                mean_type=d.mean_type, var_type=d.var_type, loss_type=d.loss_type)
+        return training_losses(self.train_sched, model_fn, motion, t, noise.reshape(motion.shape),
+                               mean_type=d.mean_type, var_type=d.var_type, loss_type=d.loss_type)
+
+    def perceptual_loss(self, pred, target) -> torch.Tensor:
+        """Mean |ST-GCN(pred) - ST-GCN(target)| over the frozen encoder's
+        latents, for motion (B, T, J, 2): on K7 with ``feat_impl ==
+        "pallas"`` (the target takes no gradient, as in JAX), else on the
+        plain module."""
+        if self.cfg.train.feat_impl == "pallas":
+            mxu = getattr(torch, self.cfg.denoiser.compute_dtype)
+            feat_fake = fused_frozen_stgcn(pred, self.feat_pack, mxu)
+            feat_real = fused_frozen_stgcn(target.detach(), self.feat_pack, mxu)
+        else:
+            feat_fake, feat_real = self.feat_model(pred), self.feat_model(target)
+        return (feat_fake - feat_real).abs().mean()
+
+    def _losses(self, cond, motion, t, noise, cond_keep, generator):
+        """The 5-term objective (`conductor_tpu/train/ddpm_trainer.py:
+        190-298`) and its metrics."""
+        b, n = motion.shape[0], motion.shape[1]
+        tc = self.cfg.train
+        encode = self.model.cond_from_features if tc.cached_features else self.model.encode_music
+        xf_proj, xf_out = encode(cond, True, keep=cond_keep, generator=generator)
+        terms = self.training_terms(xf_proj, xf_out, motion, t, noise)
         target, pred = terms["target"], terms["pred"]
         # the full-window mask (replicate_reference_mask off): a plain mean
         loss_rec = ((pred - target) ** 2).mean()
@@ -189,9 +225,7 @@ class DDPMTrainer:
             loss_feat = torch.zeros((), device=pred.device)
         else:
             j = self.cfg.dataset.n_joints
-            feat_fake = self.feat_model(pred.reshape(b, n, j, -1))
-            feat_real = self.feat_model(target.reshape(b, n, j, -1))
-            loss_feat = (feat_fake - feat_real).abs().mean()
+            loss_feat = self.perceptual_loss(pred.reshape(b, n, j, -1), target.reshape(b, n, j, -1))
         loss_elbow = terms["velocity_elbow"].clamp(-tc.elbow_clamp, tc.elbow_clamp)
         loss = (tc.lambda_rec * loss_rec + tc.lambda_feat * loss_feat
                 + tc.lambda_velocity * terms["velocity"] - tc.lambda_elbow * loss_elbow
@@ -244,10 +278,11 @@ class DDPMTrainer:
         return {k: v.detach() for k, v in metrics.items()}
 
 
-def _check_training_config(cfg: Config) -> None:
-    """Raise on the training options the port does not run: the gating of
-    the fused layers (`conductor_tpu/train/ddpm_trainer.py:119-125`) and the
-    modes not ported yet."""
+def _check_training_config(cfg: Config, device: torch.device | str = "cpu") -> None:
+    """Raise on the training options the port does not run on ``device``:
+    the gating of the fused layers (`conductor_tpu/train/ddpm_trainer.py:
+    119-125`), the ST-GCN kernel's bf16 operands on CUDA, and the modes not
+    ported yet."""
     d, tc = cfg.denoiser, cfg.train
     if d.train_layer_impl not in ("flax", "pallas_fused"):
         raise ValueError(f"unknown train_layer_impl: {d.train_layer_impl}")
@@ -256,11 +291,12 @@ def _check_training_config(cfg: Config) -> None:
     ):
         raise ValueError("train_layer_impl='pallas_fused' needs linear attention, dropout 0 and "
                          "the full src_mask (replicate_reference_mask off)")
-    if tc.feat_impl == "pallas":
-        raise NotImplementedError("feat_impl='pallas' needs the fused frozen ST-GCN kernel K7 "
-                                  "(conductor_tpu/ops/pallas_stgcn.py), not ported yet")
-    if tc.feat_impl != "flax":
+    if tc.feat_impl not in ("flax", "pallas"):
         raise ValueError(f"unknown feat_impl: {tc.feat_impl}")
+    if (tc.feat_impl == "pallas" and torch.device(device).type == "cuda"
+            and d.compute_dtype != "bfloat16"):
+        raise ValueError("feat_impl='pallas' on CUDA runs the ST-GCN kernel, which takes bf16 "
+                         f"operands; compute_dtype is {d.compute_dtype}")
     if tc.replicate_reference_mask:
         raise NotImplementedError("replicate_reference_mask is not ported yet")
     if tc.timestep_sampler != "uniform":

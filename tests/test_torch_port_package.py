@@ -14,12 +14,15 @@ import torch
 from conductor_tpu_torch import DDPMTrainer
 from conductor_tpu_torch.config import Config, DenoiserConfig, DiffusionConfig, resolve_auto
 from conductor_tpu_torch.interop import reference_state_dict, synthetic_state_dict
+from conductor_tpu_torch.models.stgcn import MotionEncoderSTGCN
 from conductor_tpu_torch.ops import (
     decoder_layer_bwd,
     fused_conv_block,
     fused_decoder_layer,
     fused_decoder_stack,
+    fused_frozen_stgcn,
     launch_counts,
+    pack_frozen_stgcn,
     reset_launch_counts,
     sampler_epilogue,
     sampler_prologue,
@@ -46,7 +49,7 @@ sys.meta_path.insert(0, Block())
 import torch
 import conductor_tpu_torch
 from conductor_tpu_torch import DDPMTrainer
-from conductor_tpu_torch.config import Config, DenoiserConfig, DiffusionConfig
+from conductor_tpu_torch.config import Config, DenoiserConfig, DiffusionConfig, TrainConfig
 from conductor_tpu_torch.interop import synthetic_state_dict
 cfg = Config(denoiser=DenoiserConfig(num_frames=32, latent_dim=32, ff_size=16, num_layers=2,
                                      num_heads=4, layer_impl="pallas_fused",
@@ -56,8 +59,10 @@ tr = DDPMTrainer(cfg)
 tr.load_reference_state_dict(synthetic_state_dict(tr.model))
 out = tr.generate(torch.rand(1, 96, 128), generator=torch.Generator().manual_seed(0))
 assert out.shape == (1, 32, 26), out.shape
-cfg = cfg.replace(denoiser=dataclasses.replace(cfg.denoiser, train_layer_impl="pallas_fused"))
+cfg = cfg.replace(denoiser=dataclasses.replace(cfg.denoiser, train_layer_impl="pallas_fused"),
+                  train=TrainConfig(feat_impl="pallas"))
 tr = DDPMTrainer(cfg)
+assert tr.feat_pack is not None
 m = tr.train_step(torch.rand(2, 96, 128), torch.rand(2, 32, 13, 2),
                   generator=torch.Generator().manual_seed(0))
 assert torch.isfinite(m["loss"]), m
@@ -69,7 +74,7 @@ print("no-jax-ok")
 
 def test_package_never_imports_jax():
     """In a fresh interpreter, with jax and flax blocked, the package imports,
-    serves a clip and takes a training step (K5 / K6 path) on the CPU."""
+    serves a clip and takes a training step (K5 / K6 / K7 path) on the CPU."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], capture_output=True, text=True,
                           cwd=REPO, env=env, timeout=300)
@@ -94,9 +99,13 @@ def test_wrappers_take_the_plain_path_on_cpu():
     layer = (t(1, 5, 32), t(1, 5, 64), t(1, 32, 32), t(9, 32, 32), t(24, 32), t(64, 192), t(192))
     fused_decoder_layer(*layer, 4)
     decoder_layer_bwd(*layer, t(1, 5, 32), 4)
+    motion = t(1, 5, 13, 2).requires_grad_(True)
+    fused_frozen_stgcn(motion, pack_frozen_stgcn(MotionEncoderSTGCN().eval())).sum().backward()
+    assert motion.grad is not None
     assert launch_counts() == {"decoder_stack": 0, "sampler_prologue": 0,
                                "sampler_epilogue": 0, "conv_block": 0,
-                               "decoder_layer": 0, "decoder_layer_bwd": 0}
+                               "decoder_layer": 0, "decoder_layer_bwd": 0,
+                               "stgcn_forward": 0, "stgcn_backward": 0}
 
 
 def test_auto_resolution():
@@ -110,10 +119,14 @@ def test_auto_resolution():
     pinned = cfg.replace(denoiser=dataclasses.replace(cfg.denoiser, layer_impl="flax"))
     assert resolve_auto(pinned, "cuda").denoiser.layer_impl == "flax"
     # the training knobs: kernels on CUDA unless dropout or the reference
-    # mask rule them out; the perceptual ST-GCN is plain everywhere
+    # mask rule them out; the perceptual ST-GCN on its kernel (K7) on CUDA
+    # when the operands resolve to bf16, plain otherwise
     assert resolve_auto(cfg, "cuda").denoiser.train_layer_impl == "pallas_fused"
     assert resolve_auto(cfg, "cpu").denoiser.train_layer_impl == "flax"
-    assert resolve_auto(cfg, "cuda").train.feat_impl == resolve_auto(cfg, "cpu").train.feat_impl == "flax"
+    assert resolve_auto(cfg, "cuda").train.feat_impl == "pallas"
+    assert resolve_auto(cfg, "cpu").train.feat_impl == "flax"
+    f32 = cfg.replace(denoiser=dataclasses.replace(cfg.denoiser, compute_dtype="float32"))
+    assert resolve_auto(f32, "cuda").train.feat_impl == "flax"
     for change in (dict(denoiser=dataclasses.replace(cfg.denoiser, dropout=0.1)),
                    dict(train=dataclasses.replace(cfg.train, replicate_reference_mask=True))):
         assert resolve_auto(cfg.replace(**change), "cuda").denoiser.train_layer_impl == "flax"

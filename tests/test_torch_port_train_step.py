@@ -5,9 +5,14 @@ T = 60, cached features), on synthetic reference-format weights.
 (a) the port's plain path against JAX ``train_layer_impl="flax"``;
 (b) the port's ``"pallas_fused"`` path on the CPU (the plain versions of
     K5 / K6 through the autograd Function) against the JAX
-    ``"pallas_fused"`` step in interpret mode.
+    ``"pallas_fused"`` step in interpret mode;
+(c) that path with ``feat_impl="pallas"``, the JAX accelerator
+    configuration: the perceptual term on the plain version of K7 through
+    its autograd Function, against JAX's K7 in interpret mode.  At T = 64:
+    the JAX kernel departs from its module on a T that is not a multiple
+    of 8 (see tests/test_torch_port_stgcn_kernel.py).
 
-Both with ``feat_impl="flax"``.  JAX's random numbers are reproduced and
+(a) and (b) with ``feat_impl="flax"``.  JAX's random numbers are reproduced and
 handed to the port: t and the noise from ``split(fold_in(rng, step))`` as
 in `_train_step_impl` / `_losses`, and the condition keep mask read from
 JAX by calling `cond_from_features` on all-ones features with the same
@@ -29,7 +34,9 @@ from conductor_tpu.interop import import_motion_transformer
 from conductor_tpu.interop.torch_import import import_motion_encoder
 from conductor_tpu.train.ddpm_trainer import DDPMTrainer as JaxTrainer
 from conductor_tpu_torch import DDPMTrainer
+from conductor_tpu_torch.config import resolve_auto
 from conductor_tpu_torch.interop import synthetic_motion_encoder_state_dict, synthetic_state_dict
+from conductor_tpu_torch.train.ddpm_trainer import _check_training_config
 from conductor_tpu_torch.train.fused_denoiser import pack_layer_weights
 
 torch.set_num_threads(2)
@@ -39,12 +46,21 @@ METRICS = ("loss", "loss_mot_rec", "loss_mot_feat", "loss_velocity", "loss_elbow
            "loss_body", "grad_norm")
 
 
-def make_cfg(train_layer_impl, cached=True):
+def make_cfg(train_layer_impl, cached=True, feat_impl="flax"):
     return Config(
         denoiser=DenoiserConfig(num_layers=2, num_frames=64, train_layer_impl=train_layer_impl),
         diffusion=DiffusionConfig(steps=8, schedule="cosine"),
-        train=TrainConfig(cached_features=cached, sample_length=2, batch_size=2, feat_impl="flax"),
+        train=TrainConfig(cached_features=cached, sample_length=2, batch_size=2,
+                          feat_impl=feat_impl),
     )
+
+
+def _batch(t):
+    """Cached features (B, t, 64) and motion (B, t, 13, 2), seeded."""
+    rng = np.random.RandomState(0)
+    feats = rng.normal(size=(B, t, 64)).astype(np.float32)
+    motion = rng.uniform(0, 1, size=(B, t, 13, 2)).astype(np.float32)
+    return feats, motion
 
 
 @pytest.fixture(scope="module")
@@ -52,10 +68,7 @@ def weights():
     probe = DDPMTrainer(make_cfg("flax"))
     sd = synthetic_state_dict(probe.model, seed=1)
     feat_sd = synthetic_motion_encoder_state_dict(probe.feat_model, seed=2)
-    rng = np.random.RandomState(0)
-    feats = rng.normal(size=(B, T, 64)).astype(np.float32)
-    motion = rng.uniform(0, 1, size=(B, T, 13, 2)).astype(np.float32)
-    return sd, feat_sd, feats, motion
+    return (sd, feat_sd, *_batch(T))
 
 
 def _port_trainer(cfg, weights):
@@ -65,11 +78,13 @@ def _port_trainer(cfg, weights):
     return tr
 
 
-def _jax_step(impl, weights):
-    """One JAX train step on the imported weights; returns the step's
-    metrics, its updated params and the random numbers it drew."""
+def _jax_step(cfg, weights):
+    """One JAX train step on the imported weights and the batch in
+    ``weights``; returns the step's metrics, its updated params and the
+    random numbers it drew."""
     sd, feat_sd, feats, motion = weights
-    tr = JaxTrainer(make_cfg(impl))
+    B, T = motion.shape[:2]
+    tr = JaxTrainer(cfg)
     rng = jax.random.PRNGKey(0)
     state = tr.init_state(rng)
     variables = jax.tree.map(jnp.asarray, import_motion_transformer(sd))
@@ -110,13 +125,18 @@ def _compare(port_tr, port_metrics, jax_metrics, jax_params):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("impl", ["flax", "pallas_fused"])
-def test_train_step_matches_jax(impl, weights):
-    jax_metrics, jax_params, drawn = _jax_step(impl, weights)
+@pytest.mark.parametrize("impl,feat_impl,t", [("flax", "flax", T), ("pallas_fused", "flax", T),
+                                              ("pallas_fused", "pallas", 64)],
+                         ids=["flax", "pallas_fused", "pallas_fused-feat_pallas"])
+def test_train_step_matches_jax(impl, feat_impl, t, weights):
+    weights = (*weights[:2], *_batch(t))
+    cfg = make_cfg(impl, feat_impl=feat_impl)
+    jax_metrics, jax_params, drawn = _jax_step(cfg, weights)
     _, _, feats, motion = weights
-    port = _port_trainer(make_cfg(impl), weights)
-    assert port.cfg.denoiser.train_layer_impl == impl
-    metrics = port.train_step(feats, motion, np.full((B,), T), **drawn)
+    port = _port_trainer(cfg, weights)
+    assert (port.cfg.denoiser.train_layer_impl, port.cfg.train.feat_impl) == (impl, feat_impl)
+    assert (port.feat_pack is not None) == (feat_impl == "pallas")
+    metrics = port.train_step(feats, motion, np.full((B,), t), **drawn)
     _compare(port, metrics, jax_metrics, jax_params)
 
 
@@ -167,7 +187,7 @@ def test_drawn_randomness_and_sampling_pack_refresh(weights):
     (dict(train=dict(replicate_reference_mask=True)), NotImplementedError, "reference_mask"),
     (dict(denoiser=dict(train_layer_impl="pallas_fused"),
           train=dict(replicate_reference_mask=True)), ValueError, "src_mask"),
-    (dict(train=dict(feat_impl="pallas")), NotImplementedError, "K7"),
+    (dict(train=dict(feat_impl="bogus")), ValueError, "feat_impl"),
     (dict(train=dict(timestep_sampler="loss-second-moment")), NotImplementedError, "sampler"),
     (dict(diffusion=dict(loss_type="kl")), NotImplementedError, "loss_type"),
 ])
@@ -177,6 +197,22 @@ def test_training_gating(change, error, match):
                          for sec, kw in change.items()})
     with pytest.raises(error, match=match):
         DDPMTrainer(cfg)
+
+
+def test_explicit_pallas_features_need_bf16_operands_on_cuda():
+    """K7 takes bf16 operands: an explicit ``feat_impl="pallas"`` with
+    float32 is refused for a CUDA device (checked where no card is needed;
+    ``DDPMTrainer(cfg, "cuda")`` raises first for the missing card), and
+    runs the plain version on the CPU."""
+    cfg = make_cfg("flax", feat_impl="pallas")
+    f32 = cfg.replace(denoiser=dataclasses.replace(cfg.denoiser, compute_dtype="float32"))
+    with pytest.raises(ValueError, match="bf16"):
+        _check_training_config(resolve_auto(f32, "cuda"), torch.device("cuda"))
+    bf16 = cfg.replace(denoiser=dataclasses.replace(
+        cfg.denoiser, compute_dtype="bfloat16", train_layer_impl="pallas_fused"))
+    _check_training_config(resolve_auto(bf16, "cuda"), torch.device("cuda"))
+    _check_training_config(resolve_auto(f32, "cpu"), torch.device("cpu"))
+    assert DDPMTrainer(f32).feat_pack["m"].dtype == torch.float32
 
 
 def test_bf16_plain_training_raises_but_serving_builds(weights):
