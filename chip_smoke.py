@@ -15,7 +15,14 @@ Phases, one line each (the kernel checks one line per kernel):
      padded to 960), and K7, the frozen ST-GCN of the perceptual loss
      (forward on pred and target, d(pred) backward), on pred and target of
      one training forward at B = 32, T = 900, bf16 operands on both sides;
-     each output must agree within 2 % of the plain output's largest value;
+     and the stage-1 music encoder's kernels, K9 (each 3x3 conv's
+     d(kernel)), K10 and K11 (each pool's forward and first-max backward)
+     and K4 in its training modes, on the inputs and cotangents of their
+     calls in one train-mode forward and backward of a stage-1 step at
+     B = 10 with 10-s crops (900 mel, 300 motion frames), bf16 on both
+     sides; each output must agree within 2 % of the plain output's largest
+     value, and K11 must follow the first-max tie rule exactly (error 0 on
+     tied inputs with a cotangent whose sums are exact);
   4. `DDPMTrainer.generate` on the kernel path, ddim50, on synthetic flagship
      weights and a seeded mel: a finite (2, 1800, 26) motion within 3 % of
      the plain path's on the card, with every serving kernel launched;
@@ -31,12 +38,24 @@ Phases, one line each (the kernel checks one line per kernel):
      finite and within 3e-2 relative of the plain path's (the bf16 bound of
      tests/test_fused_train_path.py), K5, K6 and K7 (forward and backward)
      must have launched in every step, and the median ms per step of both
-     paths is printed.
+     paths is printed;
+  7. stage 1: 4 `M2SNetTrainer.train_step`s on the kernel path ("auto" on
+     CUDA: bf16, music_conv_impl "pallas_train") and 4 on the plain path
+     (float32, "lax", cuDNN without TF32), from the same synthetic M2SNet
+     weights, on the same seeded music (10, 2700, 128) and motion
+     (10, 900, 13, 2), strategy "hard", the same starts drawn with numpy;
+     each kernel-path loss must be finite and within 3e-2 relative of the
+     plain path's, K4, K9, K10 and K11 must have launched in every step,
+     and the median ms per step of both paths is printed, with that of the
+     ``share_encodes=True`` kernel-path step.
 
 Every path runs at full depth; the run takes a few minutes of its 1200-s
 limit, so no path is cut.  Then one JSON line of per-kernel results (the
-launch counts of K1-K4 from phase 4, of K5 / K6 / K7 from phase 6), the
-nvidia-smi line again, and as the last line {"ok": true, "device": {...}}.
+launch counts of K1-K4 from phase 4, of K5 / K6 / K7 from phase 6, of K9,
+K10 and K11 from phase 7; each kernel's time, its plain version's, its
+bound and, where one PyTorch call computes the same function, that call's
+time), the nvidia-smi line again, and as the last line
+{"ok": true, "device": {...}}.
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
 """
@@ -66,9 +85,16 @@ KERNEL_SOURCES = {
                           "conductor_tpu/ops/pallas_layer_bwd.py:353"),
     "stgcn_forward": ("conductor_tpu_torch/csrc/stgcn.cu", "conductor_tpu/ops/pallas_stgcn.py:252"),
     "stgcn_backward": ("conductor_tpu_torch/csrc/stgcn.cu", "conductor_tpu/ops/pallas_stgcn.py:280"),
+    "conv3x3_dkernel": ("conductor_tpu_torch/csrc/conv_train.cu",
+                        "conductor_tpu/ops/conv_train.py:104"),
+    "max_pool": ("conductor_tpu_torch/csrc/conv_block.cu", "conductor_tpu/ops/pallas_pool.py:163"),
+    "max_pool_bwd": ("conductor_tpu_torch/csrc/max_pool.cu", "conductor_tpu/ops/pallas_pool.py:352"),
 }
 SERVING_KERNELS = ("decoder_stack", "sampler_prologue", "sampler_epilogue", "conv_block")
 TRAIN_KERNELS = ("decoder_layer", "decoder_layer_bwd", "stgcn_forward", "stgcn_backward")
+STAGE1_KERNELS = ("conv_block", "conv3x3_dkernel", "max_pool", "max_pool_bwd")
+# stage 1's batch, sample and crop seconds (conductor_tpu/cli/train_m2snet.py)
+STAGE1_B, STAGE1_S, STAGE1_C = 10, 30, 10
 GENERATE_REL_TOL = 0.03  # ladder drift bound of tests/test_fused_denoiser.py
 TRAIN_LOSS_REL_TOL = 3e-2  # bf16 loss bound of tests/test_fused_train_path.py
 TRAIN_STEPS = 4
@@ -92,14 +118,20 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
-    from conductor_tpu_torch import DDPMTrainer
+    from conductor_tpu_torch import DDPMTrainer, M2SNetTrainer
     from conductor_tpu_torch.config import Config, DenoiserConfig, TrainConfig
-    from conductor_tpu_torch.interop import synthetic_motion_encoder_state_dict, synthetic_state_dict
+    from conductor_tpu_torch.interop import (
+        synthetic_m2snet_state_dict,
+        synthetic_motion_encoder_state_dict,
+        synthetic_state_dict,
+    )
     from conductor_tpu_torch.kernel_checks import (
         check_kernels,
+        check_stage1_kernels,
         check_stgcn_kernels,
         check_train_kernels,
         perceptual_inputs,
+        stage1_kernel_inputs,
         time_ms,
     )
     from conductor_tpu_torch.ops import _build, launch_counts, reset_launch_counts
@@ -154,14 +186,37 @@ def main() -> int:
               "cond_keep": (rng.uniform(size=(n_train, t_train)) >= 0.1).astype(np.float32)}
              for _ in range(TRAIN_STEPS)]
 
+    # stage 1: the kernel and plain trainers on one synthetic M2SNet, a
+    # seeded batch of 30-s samples and the "hard" starts of each step
+    m2s_kernel = M2SNetTrainer(sample_length=STAGE1_S, clip_length=STAGE1_C, device="cuda")
+    if (m2s_kernel.compute_dtype, m2s_kernel.music_conv_impl) != ("bfloat16", "pallas_train"):
+        raise SystemExit("chip_smoke: 'auto' did not select the stage-1 kernels on CUDA")
+    m2s_plain = M2SNetTrainer(sample_length=STAGE1_S, clip_length=STAGE1_C, compute_dtype="float32",
+                              music_conv_impl="lax", device="cuda")
+    m2s_sd = synthetic_m2snet_state_dict(m2s_kernel.model, seed=0)
+    music = torch.from_numpy(rng.uniform(
+        0, 1, size=(STAGE1_B, STAGE1_S * 90, 128)).astype(np.float32)).cuda()
+    motion_s1 = torch.from_numpy(rng.uniform(
+        0, 1, size=(STAGE1_B, STAGE1_S * 30, 13, 2)).astype(np.float32)).cuda()
+    span = (STAGE1_S - STAGE1_C) * 30  # the "hard" ranges of data/pairs.py
+    starts = []
+    for _ in range(TRAIN_STEPS):
+        s1 = int(rng.randint(0, span - 300))
+        starts.append((s1, int(rng.randint(s1 + 300, span))))
+
     # 3. every kernel against its plain version, at the main paths' shapes
     results = check_kernels(kernel_tr, mel, noise)
     results += check_train_kernels(kernel_tr, mel_train[:4], motion_train[:4])
     results += check_stgcn_kernels(kernel_tr, *perceptual_inputs(kernel_tr, mel_train, motion_train))
+    m2s_kernel.load_reference_state_dict(m2s_sd)
+    results += check_stage1_kernels(*stage1_kernel_inputs(m2s_kernel, music, motion_s1, starts[0]))
+    m2s_kernel.load_reference_state_dict(m2s_sd)  # undo the check's BN statistics
     for r in results:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"[kernel] {r['name']}: max_abs_err {r['max_abs_err']:.6g} "
               f"(plain max {r['ref_max_abs']:.6g}, {'ok' if r['ok'] else 'FAIL'}) "
-              f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms")
+              f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
+              f"library {lib}")
         if r["name"] == "decoder_layer_bwd":
             for name, (e, m) in zip(("dx", "demb", "dkvc", "dmats", "dvecs", "daw", "dab"),
                                     r["parts"]):
@@ -169,10 +224,12 @@ def main() -> int:
         if r["name"] == "stgcn_backward":
             print(f"[kernel]   stgcn_backward after the kernel's own forward (ReLU masks of "
                   f"another summation order): err {r['e2e_err']:.6g}, not bounded")
-        for blk in r.get("blocks", []):
-            print(f"[kernel]   conv_block {blk['shape']}: err {blk['max_abs_err']:.6g} "
-                  f"(max {blk['ref_max_abs']:.6g}) kernel {blk['ms']:.4f} ms "
-                  f"plain {blk['plain_ms']:.4f} ms")
+        if "tie_err" in r:
+            print(f"[kernel]   max_pool_bwd on tied inputs: err {r['tie_err']:.6g} (must be 0)")
+        for c in r.get("calls", []):
+            print(f"[kernel]   {r['name']} {c.get('shape', '')}: err {c['max_abs_err']:.6g} "
+                  f"(max {c['ref_max_abs']:.6g}) kernel {c['ms']:.4f} ms "
+                  f"plain {c['plain_ms']:.4f} ms bound {c['bound_ms']:.4f} ms")
     failed = [r["name"] for r in results if not r["ok"]]
     if failed:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failed}")
@@ -246,13 +303,51 @@ def main() -> int:
         raise SystemExit(f"chip_smoke: a training kernel was not launched in every step: {per_step}")
     counts.update({k: train_counts[k] for k in TRAIN_KERNELS})
 
+    # 7. stage 1: kernel path, then the plain path, same weights and starts
+    def train_s1(tr):
+        losses, times, step_counts = [], [], []
+        for st in starts:
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = tr.train_step(music, motion_s1, "hard", starts=st)
+            losses.append(float(m["loss"]))  # host readback ends the step
+            times.append(time.perf_counter() - t0)
+            step_counts.append({k: v for k, v in launch_counts().items() if k in STAGE1_KERNELS})
+        return losses, times, step_counts
+
+    m2s_plain.load_reference_state_dict(m2s_sd)
+    losses_k1, times_k1, counts_s1 = train_s1(m2s_kernel)
+    losses_p1, times_p1, _ = train_s1(m2s_plain)
+    m2s_share = M2SNetTrainer(sample_length=STAGE1_S, clip_length=STAGE1_C, share_encodes=True,
+                              device="cuda")
+    m2s_share.load_reference_state_dict(m2s_sd)
+    losses_s1, times_s1, _ = train_s1(m2s_share)
+    rel1 = [abs(a - b) / abs(b) for a, b in zip(losses_k1, losses_p1)]
+    print(f"[stage1] B={STAGE1_B} crops {STAGE1_C} s, hard, starts {starts}: losses kernel "
+          f"{losses_k1} plain {losses_p1} max rel diff {max(rel1):.3g}; share_encodes kernel "
+          f"losses {losses_s1}; launches per step {counts_s1}")
+    print(f"[time] stage-1 step B={STAGE1_B}: kernel path median {np.median(times_k1) * 1e3:.1f} ms, "
+          f"plain path median {np.median(times_p1) * 1e3:.1f} ms, share_encodes kernel path median "
+          f"{np.median(times_s1) * 1e3:.1f} ms (per step: kernel "
+          f"{[round(x * 1e3, 1) for x in times_k1]}, plain {[round(x * 1e3, 1) for x in times_p1]}, "
+          f"share {[round(x * 1e3, 1) for x in times_s1]}) on {smi}")
+    if not all(np.isfinite(losses_k1 + losses_s1)) or max(rel1) > TRAIN_LOSS_REL_TOL:
+        raise SystemExit("chip_smoke: stage 1 on the kernel path disagrees with the plain path")
+    if min(c[k] for c in counts_s1 for k in STAGE1_KERNELS) == 0:
+        raise SystemExit(f"chip_smoke: a stage-1 kernel was not launched in every step: {counts_s1}")
+    counts.update({k: sum(c[k] for c in counts_s1) for k in STAGE1_KERNELS if k != "conv_block"})
+
     kernels = []
     for r in results:
+        if r["name"] not in KERNEL_SOURCES:  # conv_block_train: K4's modes, reported above
+            continue
         source, replaces = KERNEL_SOURCES[r["name"]]
         kernels.append({
             "name": r["name"], "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[r["name"]], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -6,6 +6,13 @@
 // the optional max-pool epilogue (time stride 1 or 3, freq stride 2, -inf
 // padding) as a second launch over the block's bf16 output.
 //
+// Two modes of the JAX kernel's signature (`relu`, `edge`, :212-213) serve
+// the trainable conv (`ops/conv_train.py`, K9's forward and d(input)): with
+// scale 1, bias 0, no residual and relu off it is the bare reflect-padded
+// conv, and with edge "zero" (0 loaded outside the clip) the interior of the
+// transposed conv.  `max_pool_forward` runs the pool pass on its own (K10,
+// `ops/max_pool.py`), for the trainable path's pool after the residual add.
+//
 // Layout: NHWC (B, T, F, C) bf16 activations; weights (3, 3, Cin, Cout) and
 // (Cin, Cout) float32, rounded to bf16 on load (bf16 operands, float32
 // accumulation, as the JAX kernel).
@@ -41,7 +48,7 @@ conv3x3_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
                const float* __restrict__ scale, const float* __restrict__ bias,
                const float* __restrict__ resw, const float* __restrict__ rscale,
                const float* __restrict__ rbias, bf16* __restrict__ out,
-               int T, int F, int cin, int res_mode, int tile_t) {
+               int T, int F, int cin, int res_mode, int relu, int zero_edge, int tile_t) {
   extern __shared__ float smem[];
   const int cs = cin | 1;  // padded pixel stride (odd: no bank conflicts)
   const int cols = F + 2;
@@ -59,9 +66,13 @@ conv3x3_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
     const int ci = i % cin;
     const int j = (i / cin) % cols;
     const int r = i / (cin * cols);
-    const int t = reflect_index(t0 - 1 + r, T);
-    const int f = reflect_index(j - 1, F);
-    xs[(r * cols + j) * cs + ci] = __bfloat162float(x[(((size_t)b * T + t) * F + f) * cin + ci]);
+    const int tr = t0 - 1 + r, fr = j - 1;
+    float v = 0.f;
+    if (!zero_edge || (tr >= 0 && tr < T && fr >= 0 && fr < F)) {
+      const int t = reflect_index(tr, T), f = reflect_index(fr, F);
+      v = __bfloat162float(x[(((size_t)b * T + t) * F + f) * cin + ci]);
+    }
+    xs[(r * cols + j) * cs + ci] = v;
   }
   __syncthreads();
 
@@ -94,13 +105,15 @@ conv3x3_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
       }
 #pragma unroll
       for (int co = 0; co < COUT; ++co) {
-        const float y = fmaxf(fmaf(acc[co], scale[co], bias[co]), 0.f);
+        float y = fmaf(acc[co], scale[co], bias[co]);
+        if (relu) y = fmaxf(y, 0.f);
         op[co] = __float2bfloat16(y + fmaf(r[co], rscale[co], rbias[co]));
       }
     } else {
 #pragma unroll
       for (int co = 0; co < COUT; ++co) {
-        float y = fmaxf(fmaf(acc[co], scale[co], bias[co]), 0.f);
+        float y = fmaf(acc[co], scale[co], bias[co]);
+        if (relu) y = fmaxf(y, 0.f);
         if (res_mode == 1) y += xc[co];
         op[co] = __float2bfloat16(y);
       }
@@ -136,8 +149,8 @@ __global__ void max_pool_kernel(const bf16* __restrict__ y, bf16* __restrict__ o
 template <int COUT>
 cudaError_t launch_conv(const bf16* x, const float* w, const float* scale, const float* bias,
                         const float* resw, const float* rscale, const float* rbias,
-                        bf16* out, int B, int T, int F, int cin, int res_mode,
-                        cudaStream_t stream) {
+                        bf16* out, int B, int T, int F, int cin, int res_mode, int relu,
+                        int zero_edge, cudaStream_t stream) {
   const int row_bytes = (F + 2) * (cin | 1) * 4;
   int tile_t = kMaxTileBytes / row_bytes - 2;
   tile_t = tile_t < 1 ? 1 : (tile_t > 64 ? 64 : tile_t);
@@ -147,8 +160,15 @@ cudaError_t launch_conv(const bf16* x, const float* w, const float* scale, const
   if (err != cudaSuccess) return err;
   dim3 grid(ceil_div(T, tile_t), B);
   conv3x3_kernel<COUT><<<grid, kThreads, smem, stream>>>(
-      x, w, scale, bias, resw, rscale, rbias, out, T, F, cin, res_mode, tile_t);
+      x, w, scale, bias, resw, rscale, rbias, out, T, F, cin, res_mode, relu, zero_edge, tile_t);
   return cudaGetLastError();
+}
+
+void launch_pool(const bf16* y, bf16* out, int B, int T, int F, int C, int To, int Fo, int wt,
+                 int wf, int st, int sf, int pt, int pf, cudaStream_t s) {
+  const size_t n = (size_t)B * To * Fo * C;
+  const int blocks = (int)((n + 255) / 256 < 65535 * 8 ? (n + 255) / 256 : 65535 * 8);
+  max_pool_kernel<<<blocks, 256, 0, s>>>(y, out, B, T, F, C, To, Fo, wt, wf, st, sf, pt, pf);
 }
 
 }  // namespace
@@ -157,8 +177,8 @@ CT_EXPORT int conv_block_forward(const void* x, const void* w, const void* scale
                                  const void* bias, const void* resw, const void* rscale,
                                  const void* rbias, void* conv_out, void* pool_out,
                                  int B, int T, int F, int cin, int cout, int res_mode,
-                                 int wt, int wf, int st, int sf, int pt, int pf, int To, int Fo,
-                                 void* stream) {
+                                 int relu, int zero_edge, int wt, int wf, int st, int sf, int pt,
+                                 int pf, int To, int Fo, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto xb = static_cast<const bf16*>(x);
   auto yb = static_cast<bf16*>(conv_out);
@@ -166,18 +186,23 @@ CT_EXPORT int conv_block_forward(const void* x, const void* w, const void* scale
   cudaError_t err;
   if (cout == 16)
     err = launch_conv<16>(xb, f(w), f(scale), f(bias), f(resw), f(rscale), f(rbias), yb,
-                          B, T, F, cin, res_mode, s);
+                          B, T, F, cin, res_mode, relu, zero_edge, s);
   else if (cout == 32)
     err = launch_conv<32>(xb, f(w), f(scale), f(bias), f(resw), f(rscale), f(rbias), yb,
-                          B, T, F, cin, res_mode, s);
+                          B, T, F, cin, res_mode, relu, zero_edge, s);
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess) return (int)err;
-  if (pool_out != nullptr) {
-    const size_t n = (size_t)B * To * Fo * cout;
-    const int blocks = (int)((n + 255) / 256 < 65535 * 8 ? (n + 255) / 256 : 65535 * 8);
-    max_pool_kernel<<<blocks, 256, 0, s>>>(yb, static_cast<bf16*>(pool_out), B, T, F, cout,
-                                           To, Fo, wt, wf, st, sf, pt, pf);
-  }
+  if (pool_out != nullptr)
+    launch_pool(yb, static_cast<bf16*>(pool_out), B, T, F, cout, To, Fo, wt, wf, st, sf, pt, pf, s);
+  return (int)cudaGetLastError();
+}
+
+// K10: the pool pass alone, on a bf16 NHWC input.
+CT_EXPORT int max_pool_forward(const void* y, void* out, int B, int T, int F, int C, int To,
+                               int Fo, int wt, int wf, int st, int sf, int pt, int pf,
+                               void* stream) {
+  launch_pool(static_cast<const bf16*>(y), static_cast<bf16*>(out), B, T, F, C, To, Fo, wt, wf,
+              st, sf, pt, pf, static_cast<cudaStream_t>(stream));
   return (int)cudaGetLastError();
 }

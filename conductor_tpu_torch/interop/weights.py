@@ -1,16 +1,16 @@
 """Reference-format weights into the port's modules.
 
 The port's modules carry the reference state-dict key names, so weights
-cross over without a mapping: a reference checkpoint, a state dict that
-`conductor_tpu.interop.torch_export.export_motion_transformer` made from a
-flax tree, or `conductor_tpu.interop.synth.synth_state_dict` weights.  Load
-is strict.  The DataParallel ``module.`` prefix is stripped and a stage-2
-``latest.tar`` dict (`Diffusion_Stage/trainers/ddpm_trainer.py:290-319`)
+cross over without a mapping: a reference checkpoint, a state dict that the
+JAX package's exporter (`conductor_tpu/interop/torch_export.py`) made from a
+flax tree, or `synth.synth_state_dict` weights.  Load is strict.  The
+DataParallel ``module.`` prefix is stripped and a stage-2 ``latest.tar`` dict (`Diffusion_Stage/trainers/ddpm_trainer.py:290-319`)
 contributes its ``encoder`` entry, as `conductor_tpu.interop.torch_import`
 does for the JAX package.  The frozen ST-GCN of the perceptual loss loads
 from its own subtree or from a whole stage-1 M2SNet state dict
-(`load_motion_encoder_state_dict`); the checkpoint's adjacency buffer must
-equal the port's graph.
+(`load_motion_encoder_state_dict`), and a whole M2SNet from its state dict
+(`load_m2snet_state_dict`); the checkpoint's adjacency buffer must equal
+the port's graph.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from conductor_tpu.interop.synth import synth_state_dict
+from .synth import synth_state_dict
 
 
 def reference_state_dict(obj) -> dict[str, torch.Tensor]:
@@ -54,33 +54,39 @@ def load_motion_encoder_state_dict(module: nn.Module, sd) -> None:
     prefix = "motion_encoder."
     if any(k.startswith(prefix) for k in sd):
         sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
-    ours = module.st_gcn.A
-    theirs = sd.get("st_gcn.A")
+    _check_adjacency(module.st_gcn.A, sd.get("st_gcn.A"))
+    module.load_state_dict(sd, strict=True)
+
+
+def load_m2snet_state_dict(module: nn.Module, sd) -> None:
+    """Load a reference M2SNet state dict (bare or ``module.``-prefixed, or a
+    path) into the port's `models.m2snet.M2SNet`, strictly, after the same
+    adjacency check as `load_motion_encoder_state_dict`."""
+    sd = reference_state_dict(sd)
+    _check_adjacency(module.motion_encoder.st_gcn.A, sd.get("motion_encoder.st_gcn.A"))
+    module.load_state_dict(sd, strict=True)
+
+
+def _check_adjacency(ours: torch.Tensor, theirs: torch.Tensor | None) -> None:
     if theirs is not None and (
         theirs.shape != ours.shape or not torch.allclose(theirs.float().cpu(), ours.cpu(), atol=1e-5)
     ):
         raise ValueError("the checkpoint's ST-GCN adjacency does not match "
                          "build_adjacency('ConductorMotionX', 'uniform')")
-    module.load_state_dict(sd, strict=True)
 
 
 def manifest(module: nn.Module) -> dict[str, tuple[int, ...]]:
     """The module's state-dict key -> shape manifest (the input of
-    `conductor_tpu.interop.synth.synth_state_dict`)."""
+    `synth_state_dict`)."""
     return {k: tuple(v.shape) for k, v in module.state_dict().items()}
 
 
 def synthetic_state_dict(module: nn.Module, seed: int = 0) -> dict[str, np.ndarray]:
     """Deterministic non-zero reference-format weights for ``module``:
     `synth_state_dict` over the module's own manifest (normal with std
-    0.05, BN scales and variances from U(0.5, 1.5)).  Adjacency buffers
-    (keys ending in ``.A``) draw nothing there and keep the module's own
-    value here, so the JAX package's graph module is never imported."""
-    man = manifest(module)
-    sd = synth_state_dict({k: v for k, v in man.items() if not k.endswith(".A")}, seed=seed)
-    state = module.state_dict()
-    sd.update({k: state[k].cpu().numpy() for k in man if k.endswith(".A")})
-    return sd
+    0.05, BN scales and variances from U(0.5, 1.5), the adjacency of
+    `models.graph`)."""
+    return synth_state_dict(manifest(module), seed=seed)
 
 
 def synthetic_motion_encoder_state_dict(module: nn.Module, seed: int = 0) -> dict[str, np.ndarray]:
@@ -90,8 +96,21 @@ def synthetic_motion_encoder_state_dict(module: nn.Module, seed: int = 0) -> dic
     `synth_state_dict` alone draws the ST-GCN's BN scales (``data_bn``,
     ``tcn.0``, ``tcn.3``) and edge importances around 0, which shrinks the
     signal ~400x per block and leaves features that do not see the input."""
-    sd = synthetic_state_dict(module, seed=seed)
+    return _see_the_motion(synthetic_state_dict(module, seed=seed), "")
+
+
+def synthetic_m2snet_state_dict(module: nn.Module, seed: int = 0) -> dict[str, np.ndarray]:
+    """Synthetic weights for a whole `models.m2snet.M2SNet`:
+    `synthetic_state_dict`, with the ``motion_encoder.*`` subtree adjusted
+    as in `synthetic_motion_encoder_state_dict`, so that its latents see the
+    motion."""
+    return _see_the_motion(synthetic_state_dict(module, seed=seed), "motion_encoder.")
+
+
+def _see_the_motion(sd: dict[str, np.ndarray], prefix: str) -> dict[str, np.ndarray]:
     for k, v in sd.items():
+        if not k.startswith(prefix):
+            continue
         if ".edge_importance." in k or k.endswith(("data_bn.weight", "tcn.0.weight", "tcn.3.weight")):
             sd[k] = v + np.float32(1.0)
         elif k.endswith(("gcn.conv.weight", "tcn.2.weight", "fc.0.weight")):

@@ -6,22 +6,33 @@ on the card, rebuilds the first ladder step's kernel inputs from them
 (the real conditioning, the real encoder activations), and runs every
 serving kernel (K1-K4) and its plain version on the same inputs.
 `check_train_kernels` does the same for the training layer kernels (K5,
-K6) on layer 0 of a training forward, and `check_stgcn_kernels` for K7 on
-the perceptual term's inputs (`perceptual_inputs`).  For each kernel it reports the
-largest absolute difference, the largest absolute plain value (for a
-kernel with several outputs, those of the output worst relative to its own
-scale, and every output's pair in ``parts``), whether the difference is
-within ``rel_tol`` of that value, and the time per call of both (CUDA
-events, after a warm-up call).  Used by ``chip_smoke.py`` at the flagship
-shapes and by ``tests/test_torch_port_cuda.py`` at small ones.
+K6) on layer 0 of a training forward, `check_stgcn_kernels` for K7 on
+the perceptual term's inputs (`perceptual_inputs`), and
+`check_stage1_kernels` for the stage-1 music encoder's kernels (K9, K10,
+K11, and K4 in its training modes) on the inputs and cotangents of its
+calls in one train-mode forward and backward (`stage1_kernel_inputs`).  For
+each kernel it reports the largest absolute difference, the largest
+absolute plain value (for a kernel with several outputs, those of the
+output worst relative to its own scale, and every output's pair in
+``parts``), whether the difference is within ``rel_tol`` of that value, the
+time per call of both (CUDA events, after a warm-up call), ``bound_ms``,
+the least time an H100 could take for the same work (`bound`), and
+``library_ms``, the time of one PyTorch call computing the same function
+where there is one (None otherwise; timed here, never called by the port).
+Used by ``chip_smoke.py`` at the flagship shapes and by
+``tests/test_torch_port_cuda.py`` at small ones.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.flop_counter import FlopCounterMode
 
 from .diffusion import q_sample
 from .ops.conv_block import conv_block_plain, fused_conv_block
+from .ops.conv_train import conv3x3_dkernel, conv3x3_dkernel_plain
+from .ops.max_pool import fused_max_pool, max_pool_bwd, max_pool_bwd_plain, max_pool_plain
 from .ops.decoder_layer import decoder_layer_plain, fused_decoder_layer
 from .ops.decoder_layer_bwd import decoder_layer_bwd, decoder_layer_bwd_plain
 from .ops.decoder_stack import decoder_stack_plain, fused_decoder_stack
@@ -36,6 +47,10 @@ from .ops.stgcn import frozen_stgcn_plain, stgcn_backward, stgcn_forward
 from .train.fused_denoiser import cross_kv_state, pack_layer_weights, train_layer_inputs
 
 REL_TOL = 0.02  # the bound the JAX package holds its reduced-precision modes to
+# an H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bytes/s, dense
+# bf16 tensor-core FLOP/s; every kernel here takes bf16 operands
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
 
 
 def time_ms(fn, reps: int) -> float:
@@ -50,6 +65,39 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _tensors(obj):
+    if torch.is_tensor(obj):
+        yield obj
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _tensors(v)
+    elif isinstance(obj, (tuple, list)):
+        for v in obj:
+            yield from _tensors(v)
+
+
+def flops(fn) -> int:
+    """The matrix-product and convolution FLOPs of one call of ``fn``."""
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return counter.get_total_flops()
+
+
+def bound(inputs, outputs, n_flops: int) -> dict:
+    """The least time an H100 could take for a function of these inputs
+    and outputs doing ``n_flops``: ``bound_ms``, the larger of its bytes
+    (each input read once, each output written once) over the memory rate
+    (``bytes_ms``) and its FLOPs over the bf16 tensor-core rate
+    (``ops_ms``), and ``bound_by``, which of the two it is."""
+    n_bytes = sum(t.numel() * t.element_size() for t in _tensors((inputs, outputs)))
+    return _bound(n_bytes / HBM_BYTES_PER_S * 1e3, n_flops / BF16_FLOPS * 1e3)
+
+
+def _bound(bytes_ms: float, ops_ms: float) -> dict:
+    return {"bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes"}
+
+
 def _errors(got, want) -> list[tuple[float, float]]:
     """(max |got - want|, max |want|) of each output."""
     pairs = zip(got, want) if isinstance(got, (tuple, list)) else [(got, want)]
@@ -57,15 +105,35 @@ def _errors(got, want) -> list[tuple[float, float]]:
             for g, w in pairs]
 
 
-def _compare(name, kernel_fn, plain_fn, reps, rel_tol):
-    parts = _errors(kernel_fn(), plain_fn())
+def _compare(name, kernel_fn, plain_fn, reps, rel_tol, inputs, library_fn=None, n_flops=None):
+    """``kernel_fn`` against ``plain_fn`` (no arguments, same inputs).  The
+    bound counts ``n_flops``, by default those of ``plain_fn``."""
+    out = kernel_fn()
+    parts = _errors(out, plain_fn())
     torch.cuda.synchronize()
     err, ref = max(parts, key=lambda p: p[0] / max(p[1], 1e-30))
     return {
         "name": name, "max_abs_err": err, "ref_max_abs": ref,
         "ok": all(e <= rel_tol * r and r > 0 for e, r in parts),
         "ms": time_ms(kernel_fn, reps), "plain_ms": time_ms(plain_fn, reps),
+        **bound(inputs, out, flops(plain_fn) if n_flops is None else n_flops),
+        "library_ms": None if library_fn is None else time_ms(library_fn, reps),
         "parts": parts,
+    }
+
+
+def _merge(name: str, calls: list[dict]) -> dict:
+    """One kernel's calls on the main path as one result: times and bounds
+    summed, the error of the call worst relative to its scale."""
+    worst = max(calls, key=lambda r: r["max_abs_err"] / max(r["ref_max_abs"], 1e-30))
+    lib = [r["library_ms"] for r in calls]
+    return {
+        "name": name, "max_abs_err": worst["max_abs_err"], "ref_max_abs": worst["ref_max_abs"],
+        "ok": all(r["ok"] for r in calls),
+        "ms": sum(r["ms"] for r in calls), "plain_ms": sum(r["plain_ms"] for r in calls),
+        **_bound(sum(r["bytes_ms"] for r in calls), sum(r["ops_ms"] for r in calls)),
+        "library_ms": None if None in lib else sum(lib),
+        "calls": calls,
     }
 
 
@@ -77,19 +145,13 @@ def check_kernels(trainer, mel, noise, *, reps: int = 5, rel_tol: float = REL_TO
 
     # K4: every encoder block on the activations the plain chain gives it
     x = mel.to(encoder.mxu_dtype)[..., None]
-    conv = {"name": "conv_block", "max_abs_err": 0.0, "ref_max_abs": 1.0, "ok": True,
-            "ms": 0.0, "plain_ms": 0.0, "blocks": []}
+    blocks = []
     for kw in encoder.block_args:
-        r = _compare("conv_block", lambda: fused_conv_block(x, mxu_dtype=mxu, **kw),
-                     lambda: conv_block_plain(x, mxu_dtype=mxu, **kw), reps, rel_tol)
-        conv["blocks"].append({k: r[k] for k in ("max_abs_err", "ref_max_abs", "ms", "plain_ms")}
-                              | {"shape": list(x.shape)})
-        conv["ok"] &= r["ok"]
-        conv["ms"] += r["ms"]
-        conv["plain_ms"] += r["plain_ms"]
-        if r["max_abs_err"] / r["ref_max_abs"] >= conv["max_abs_err"] / conv["ref_max_abs"]:
-            conv["max_abs_err"], conv["ref_max_abs"] = r["max_abs_err"], r["ref_max_abs"]
+        blocks.append(_compare("conv_block", lambda: fused_conv_block(x, mxu_dtype=mxu, **kw),
+                               lambda: conv_block_plain(x, mxu_dtype=mxu, **kw), reps, rel_tol,
+                               (x, kw)) | {"shape": list(x.shape)})
         x = conv_block_plain(x, mxu_dtype=mxu, **kw)
+    conv = _merge("conv_block", blocks)
 
     # the first ladder step's inputs, from the real conditioning
     t = x.shape[1]
@@ -102,7 +164,8 @@ def check_kernels(trainer, mel, noise, *, reps: int = 5, rel_tol: float = REL_TO
     pro_args = (noise, temb, cond["emb_base"], fused.w_joint, seq_bias)
     pro_kw = dict(mxu_dtype=mxu, emb_dtype=mxu)
     results.append(_compare("sampler_prologue", lambda: sampler_prologue(*pro_args, **pro_kw),
-                            lambda: sampler_prologue_plain(*pro_args, **pro_kw), reps, rel_tol))
+                            lambda: sampler_prologue_plain(*pro_args, **pro_kw), reps, rel_tol,
+                            pro_args))
 
     h, emb_act = sampler_prologue_plain(*pro_args, **pro_kw)
     stack_args = (h, emb_act, cond["kv_stack"], fused.mats, fused.vecs, fused.adaln_w,
@@ -110,7 +173,7 @@ def check_kernels(trainer, mel, noise, *, reps: int = 5, rel_tol: float = REL_TO
     results.append(_compare("decoder_stack",
                             lambda: fused_decoder_stack(*stack_args, mxu_dtype=mxu),
                             lambda: decoder_stack_plain(*stack_args, mxu_dtype=mxu),
-                            reps, rel_tol))
+                            reps, rel_tol, stack_args))
 
     h = decoder_stack_plain(*stack_args, mxu_dtype=mxu)
     alpha, beta = ddim_affine_tables(trainer.sched)
@@ -118,7 +181,7 @@ def check_kernels(trainer, mel, noise, *, reps: int = 5, rel_tol: float = REL_TO
     results.append(_compare("sampler_epilogue",
                             lambda: sampler_epilogue(*epi_args, mxu_dtype=mxu),
                             lambda: sampler_epilogue_plain(*epi_args, mxu_dtype=mxu),
-                            reps, rel_tol))
+                            reps, rel_tol, epi_args))
     results.append(conv)
     return results
 
@@ -147,14 +210,14 @@ def check_train_kernels(trainer, cond, motion, *, reps: int = 5, rel_tol: float 
     kw = dict(mxu_dtype=mxu, t_valid=n)
     heads = cfg.denoiser.num_heads
     results = [_compare("decoder_layer", lambda: fused_decoder_layer(*args, heads, **kw),
-                        lambda: decoder_layer_plain(*args, heads, **kw), reps, rel_tol)]
+                        lambda: decoder_layer_plain(*args, heads, **kw), reps, rel_tol, args)]
     dy = torch.randn(h.shape, generator=gen, device=dev) * 1e-2
     dy[:, n:] = 0
     dy = dy.to(h.dtype)
     results.append(_compare("decoder_layer_bwd",
                             lambda: decoder_layer_bwd(*args, dy, heads, **kw),
                             lambda: decoder_layer_bwd_plain(*args, dy, heads, **kw),
-                            reps, rel_tol))
+                            reps, rel_tol, (args, dy)))
     return results
 
 
@@ -191,20 +254,130 @@ def check_stgcn_kernels(trainer, pred, target, dy, *, reps: int = 5,
     forward's activations: the same ReLU masks.  Two bf16 forwards that sum
     in another order flip a few masks, and a flip moves single elements of
     the gradient by several percent of its maximum; ``e2e_err`` is the
-    difference with the kernel's own forward, reported and not bounded."""
+    difference with the kernel's own forward, reported and not bounded.
+
+    The bounds count the work of the function, not of the pack: the FLOPs
+    of the ST-GCN module (`trainer.feat_model`) on the same inputs, whose
+    joint contraction is one (13, 13) matrix per partition where the pack
+    holds it as a dense (416, 416) one, and the module's weights in place
+    of the pack's bytes."""
     pack, mxu = trainer.feat_pack, getattr(torch, trainer.cfg.denoiser.compute_dtype)
+    module = trainer.feat_model
+    weights = list(module.state_dict().values())
     fwd = _compare(
         "stgcn_forward",
         lambda: (stgcn_forward(pred, pack, save=True)[0], stgcn_forward(target, pack)),
         lambda: (frozen_stgcn_plain(pred, pack, mxu), frozen_stgcn_plain(target, pack, mxu)),
-        reps, rel_tol)
-    fwd["ms"], fwd["plain_ms"] = fwd["ms"] / 2, fwd["plain_ms"] / 2
+        reps, rel_tol, (pred, target, weights, weights),
+        n_flops=flops(lambda: (module(pred), module(target))))
+    fwd.update(_bound(fwd["bytes_ms"] / 2, fwd["ops_ms"] / 2), ms=fwd["ms"] / 2,
+               plain_ms=fwd["plain_ms"] / 2)
     with torch.enable_grad():
         x = pred.detach().requires_grad_(True)
         out, saved = frozen_stgcn_plain(x, pack, mxu, save=True)
+        xm = pred.detach().requires_grad_(True)
+        out_m = module(xm)
     saved = tuple(a.detach() for a in saved)
     bwd = _compare("stgcn_backward", lambda: stgcn_backward(dy, saved, pack),
-                   lambda: torch.autograd.grad(out, x, dy, retain_graph=True)[0], reps, rel_tol)
+                   lambda: torch.autograd.grad(out, x, dy, retain_graph=True)[0], reps, rel_tol,
+                   (dy, saved, weights),
+                   n_flops=flops(lambda: torch.autograd.grad(out_m, xm, dy)))
     own = stgcn_backward(dy, stgcn_forward(pred, pack, save=True)[1], pack)
     bwd["e2e_err"] = _errors(own, torch.autograd.grad(out, x, dy)[0])[0][0]
     return [fwd, bwd]
+
+
+def stage1_kernel_inputs(trainer, music, motion, starts) -> tuple[list, list]:
+    """The inputs of the music encoder's kernels in one train-mode forward
+    and backward of a stage-1 step's first pair, (m1, p1) of the "hard"
+    strategy at ``starts``, under the first BCE term: per 3x3 conv
+    ``(x, kernel, dy)``, per pool ``(x, dy, pool)``, in backward order.
+    Moves the BatchNorm running statistics and leaves no gradients."""
+    from .train.m2snet_trainer import _bce
+
+    m1, _, p1, _ = trainer._pairs(music, motion, "hard", starts, None)
+    convs, pools = [], []
+    trainer.model.train()
+    with trainer._autocast():
+        prob = trainer.model(m1, p1)
+    loss = _bce(prob, 1.0)
+    seen, stack = set(), [loss.grad_fn]
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        name = type(node).__name__
+        if name == "_Conv3x3TrainBackward":
+            node.register_prehook(lambda g, n=node: convs.append((*n.saved_tensors, g[0])))
+        elif name == "_MaxPoolTrainBackward":
+            node.register_prehook(lambda g, n=node: pools.append((*n.saved_tensors, g[0], n.pool)))
+        stack.extend(fn for fn, _ in node.next_functions)
+    loss.backward()
+    trainer.model.zero_grad(set_to_none=True)
+    detach = lambda items: [tuple(a.detach().contiguous() if torch.is_tensor(a) else a  # noqa: E731
+                                  for a in item) for item in items]
+    return detach(convs), detach(pools)
+
+
+def _library_dkernel(x, dy):
+    """cuDNN's weight gradient of the same conv, on the reflect-padded input
+    made outside the timed call."""
+    xe = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+    dyn = dy.permute(0, 3, 1, 2)
+    shape = (dy.shape[-1], x.shape[-1], 3, 3)
+    return lambda: torch.nn.grad.conv2d_weight(xe, shape, dyn)
+
+
+@torch.no_grad()
+def check_stage1_kernels(convs, pools, *, reps: int = 5, rel_tol: float = REL_TOL,
+                         seed: int = 0) -> list[dict]:
+    """K9 (each conv's d(kernel)), K10 and K11 (each pool's forward and
+    backward) and K4's training modes (each conv's forward, relu off and
+    reflect edge, and the zero-edge interior of its transposed conv) against
+    their plain versions on `stage1_kernel_inputs`; bf16 on both sides.
+    K11 is also held to the tie rule exactly (``tie_err`` must be 0): on
+    each pool's input rounded to a coarse grid after a ReLU (plateaus of
+    equal values, zeros included) with a cotangent of quarter-integers,
+    whose sums are exact in float32 and bf16 in any order."""
+    dkernel, conv_fwd, conv_dx, pool_fwd, pool_bwd = [], [], [], [], []
+    for x, kernel, dy in convs:
+        dkernel.append(_compare("conv3x3_dkernel", lambda: conv3x3_dkernel(x, dy),
+                                lambda: conv3x3_dkernel_plain(x, dy), reps, rel_tol, (x, dy),
+                                _library_dkernel(x, dy)) | {"shape": list(x.shape)})
+        cout, cin = kernel.shape[-1], kernel.shape[2]
+        one = torch.ones(cout, device=x.device)
+        fwd = (x, kernel, one, torch.zeros_like(one))
+        conv_fwd.append(_compare(
+            "conv_block", lambda: fused_conv_block(*fwd, relu=False),
+            lambda: conv_block_plain(*fwd, relu=False), reps, rel_tol, fwd))
+        if cin > 1:  # the first block's input (the mel) takes no gradient
+            wflip = kernel.flip(0, 1).transpose(2, 3).contiguous()
+            one = torch.ones(cin, device=x.device)
+            bwd = (dy, wflip, one, torch.zeros_like(one))
+            conv_dx.append(_compare(
+                "conv_block", lambda: fused_conv_block(*bwd, relu=False, edge="zero"),
+                lambda: conv_block_plain(*bwd, relu=False, edge="zero"), reps, rel_tol, bwd))
+    gen = torch.Generator(device=pools[0][0].device).manual_seed(seed)
+    tie_err = 0.0
+    for x, dy, pool in pools:
+        window, strides, padding = pool
+        nchw = x.permute(0, 3, 1, 2)
+        pool_fwd.append(_compare(
+            "max_pool", lambda: fused_max_pool(x, pool), lambda: max_pool_plain(x, pool),
+            reps, rel_tol, x,
+            lambda: F.max_pool2d(nchw, window, strides, (padding[0][0], padding[1][0])))
+            | {"shape": list(x.shape)})
+        pool_bwd.append(_compare(
+            "max_pool_bwd", lambda: max_pool_bwd(x, dy, pool),
+            lambda: max_pool_bwd_plain(x, dy, pool), reps, rel_tol, (x, dy))
+            | {"shape": list(x.shape)})
+        tied = (torch.relu(x.float()) * 2).round().div(2).to(x.dtype)
+        dy_q = (torch.randint(-8, 9, dy.shape, generator=gen, device=dy.device) / 4).to(dy.dtype)
+        got, want = max_pool_bwd(tied, dy_q, pool), max_pool_bwd_plain(tied, dy_q, pool)
+        tie_err = max(tie_err, float((got.float() - want.float()).abs().max()))
+    k11 = _merge("max_pool_bwd", pool_bwd) | {"tie_err": tie_err}
+    k11["ok"] &= tie_err == 0.0
+    k4 = _merge("conv_block", conv_fwd + conv_dx)
+    return [_merge("conv3x3_dkernel", dkernel), _merge("max_pool", pool_fwd), k11,
+            k4 | {"name": "conv_block_train"}]

@@ -1,17 +1,25 @@
 """Mel-spectrogram music encoder (90 Hz mel -> 30 Hz frame features).
 
-Port of `conductor_tpu/models/music_encoder.py`: `MusicEncoder` in eval mode
-(`:115-268`, the lax path) as plain PyTorch modules with the reference key
-names (`music_encoder.conv1.0.conv2d_layer.0.weight`, ...), and
-`FusedMusicEncoder` (`:271-344`), which runs each Conv2dResBlock as one
+Port of `conductor_tpu/models/music_encoder.py`: `MusicEncoder` (`:115-268`)
+as plain PyTorch modules with the reference key names
+(`music_encoder.conv1.0.conv2d_layer.0.weight`, ...), and
+`FusedMusicEncoder` (`:271-344`), which serves: each Conv2dResBlock as one
 `ops.conv_block.fused_conv_block` call with BN folded in
 (`ops/pallas_conv.py:68-72`) and the stage pools as its epilogue.
 
+`MusicEncoder` trains in either of the JAX package's two paths, on the same
+parameters: ``conv_impl="lax"``, plain NCHW modules with T as height, and
+``conv_impl="pallas_train"`` (`:22-112, 158-181, 231-254`), NHWC (B, T, F,
+C) activations in the compute dtype, each 3x3 conv on
+`ops.conv_train.conv3x3_train` (K4 forward and d(input), K9 d(kernel)),
+then the bias, BatchNorm in float32 from the activations, ReLU and the
+residual (identity, or a 1x1 conv as one matmul + BN) in plain PyTorch, and
+each stage's pool on `ops.max_pool.max_pool_train` (K10, K11).  The
+BatchNorms (`models.bn`) follow flax's rule in train mode.
+
 Numerics copied from the JAX package: convs pad by reflection (edge value
 excluded), pools pad with -inf, and the flatten before the projection is
-channel-major (C, F).  The plain module runs NCHW with T as height; the
-fused path keeps the JAX package's NHWC (B, T, F, C) layout and, as there,
-stores the activations between blocks in ``mxu_dtype``.
+channel-major (C, F).
 """
 
 from __future__ import annotations
@@ -21,6 +29,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.conv_block import fold_bn, fused_conv_block
+from ..ops.conv_train import conv3x3_train
+from ..ops.max_pool import max_pool_train
+from .bn import BatchNorm
+
+CONV_IMPLS = ("lax", "pallas_train")
 
 
 class Conv2dResBlock(nn.Module):
@@ -29,17 +42,32 @@ class Conv2dResBlock(nn.Module):
 
     def __init__(self, cin: int, cout: int, residual: bool = True):
         super().__init__()
-        self.conv2d_layer = nn.Sequential(nn.Conv2d(cin, cout, 3), nn.BatchNorm2d(cout), nn.ReLU())
+        self.conv2d_layer = nn.Sequential(nn.Conv2d(cin, cout, 3), BatchNorm(cout), nn.ReLU())
         self.res_mode = 0 if not residual else (1 if cin == cout else 2)
         if self.res_mode == 2:
-            self.residual = nn.Sequential(nn.Conv2d(cin, cout, 1), nn.BatchNorm2d(cout))
+            self.residual = nn.Sequential(nn.Conv2d(cin, cout, 1), BatchNorm(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, Cin, T, F) -> (B, Cout, T, F)."""
         y = self.conv2d_layer(F.pad(x, (1, 1, 1, 1), mode="reflect"))
         if self.res_mode == 1:
             return y + x
         if self.res_mode == 2:
             return y + self.residual(x)
+        return y
+
+    def forward_packed(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, T, F, Cin) -> (B, T, F, Cout) in x's dtype, the conv on
+        `conv3x3_train` over a differentiable view of the same weights."""
+        conv, bn = self.conv2d_layer[0], self.conv2d_layer[1]
+        y = conv3x3_train(x, conv.weight.permute(2, 3, 1, 0)) + conv.bias.to(x.dtype)
+        y = torch.relu(bn(y, channel_dim=-1))
+        if self.res_mode == 1:
+            return y + x
+        if self.res_mode == 2:
+            rconv, rbn = self.residual
+            r = torch.matmul(x, rconv.weight[:, :, 0, 0].t().to(x.dtype)) + rconv.bias.to(x.dtype)
+            return y + rbn(r, channel_dim=-1)
         return y
 
 
@@ -58,24 +86,47 @@ def max_pool(x: torch.Tensor, pool) -> torch.Tensor:
 
 
 class MusicEncoder(nn.Module):
-    """(B, T90, 128) mel -> (B, T30, out_dim) frame features."""
+    """(B, T90, 128) mel -> (B, T30, out_dim) frame features.
 
-    def __init__(self, out_dim: int = 64):
+    ``conv_impl`` picks the conv-stage path ("lax": plain float32 modules;
+    "pallas_train": the packed NHWC path on the kernels, activations in
+    ``dtype``).  Train mode normalises with batch statistics and moves the
+    running ones (`models.bn`)."""
+
+    def __init__(self, out_dim: int = 64, conv_impl: str = "lax",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        if conv_impl not in CONV_IMPLS:
+            raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, got {conv_impl!r}")
+        self.conv_impl, self.dtype = conv_impl, dtype
         self.conv1 = nn.Sequential(
             Conv2dResBlock(1, 16, residual=False), Conv2dResBlock(16, 16), Conv2dResBlock(16, 16)
         )
         self.conv2 = nn.Sequential(Conv2dResBlock(16, 32), Conv2dResBlock(32, 32))
         self.conv3 = nn.Sequential(Conv2dResBlock(32, 32), Conv2dResBlock(32, 32))
-        self.conv4 = nn.Sequential(nn.Conv1d(512, out_dim, 1), nn.BatchNorm1d(out_dim))
+        self.conv4 = nn.Sequential(nn.Conv1d(512, out_dim, 1), BatchNorm(out_dim))
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        if self.conv_impl == "pallas_train":
+            return self._forward_packed(mel)
         x = mel[:, None]  # (B, 1, T90, 128)
         for name in ("conv1", "conv2", "conv3"):
             x = max_pool(getattr(self, name)(x), POOLS[name])
         b, c, t, f = x.shape
         h = x.permute(0, 2, 1, 3).reshape(b, t, c * f)  # channel-major (C, F)
         return self.conv4(h.transpose(1, 2)).transpose(1, 2)
+
+    def _forward_packed(self, mel: torch.Tensor) -> torch.Tensor:
+        x = mel.to(self.dtype)[..., None]  # (B, T90, 128, 1)
+        for name in ("conv1", "conv2", "conv3"):
+            for blk in getattr(self, name):
+                x = blk.forward_packed(x)
+            x = max_pool_train(x, POOLS[name])
+        b, t, f, c = x.shape
+        h = x.permute(0, 1, 3, 2).reshape(b, t, c * f)  # channel-major (C, F)
+        proj, bn = self.conv4
+        return bn(F.linear(h, proj.weight[:, :, 0].to(h.dtype), proj.bias.to(h.dtype)),
+                  channel_dim=-1)
 
 
 class FusedMusicEncoder:

@@ -1,7 +1,8 @@
-"""The frozen ST-GCN motion encoder of the stage-2 perceptual loss.
+"""The ST-GCN motion encoder: trained in stage 1, frozen in stage 2's
+perceptual loss.
 
-Port of `conductor_tpu/models/stgcn.py:150-247` (`MotionEncoderSTGCN` in
-M2S mode, eval only): data BatchNorm over the flattened (V*C) frame, ten
+Port of `conductor_tpu/models/stgcn.py:103-247` (`MotionEncoderSTGCN` in
+M2S mode): data BatchNorm over the flattened (V*C) frame, ten
 st_gcn blocks (graph conv with a learnable edge-importance mask on the
 adjacency, then BN -> ReLU -> 3x1 temporal conv -> BN, plus a residual that
 is none in block 0 and the identity after), and a 1x1 projection of the
@@ -12,10 +13,11 @@ Plain PyTorch modules in the reference's own NCTV layout and key names
 `st_gcn.edge_importance.{i}`, `st_gcn.data_bn`, `fc.{0,1}`, and the
 adjacency buffer `st_gcn.A`), so a reference ``motion_encoder.*`` subtree
 loads strictly.  `st_gcn.fcn` is the reference's classifier head, which the
-encoder never runs; it is kept so that the keys match.  The stage-2 trainer
-keeps this network frozen: eval BatchNorm, no parameter gradients, gradients
-to its input only.  Its fused kernel (K7, `conductor_tpu/ops/pallas_stgcn.py`)
-is not ported yet; this module will be that kernel's plain version.
+encoder never runs; it is kept so that the keys match.  The BatchNorms
+(`models.bn`) follow flax's rule in train mode.  Stage 1 trains the module
+as it is (plain, as the JAX package runs it); the stage-2 trainer keeps it
+frozen (`freeze`: eval BatchNorm, no parameter gradients, gradients to its
+input only) and runs it on K7 (`ops.stgcn`), packed from these weights.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .bn import BatchNorm
 from .graph import build_adjacency
 
 # (out channels, temporal stride, residual) per block, M2S mode
@@ -52,9 +55,9 @@ class STGCNBlock(nn.Module):
         self.residual = residual
         self.gcn = ConvTemporalGraphical(cin, cout, k)
         self.tcn = nn.Sequential(
-            nn.BatchNorm2d(cout), nn.ReLU(),
+            BatchNorm(cout), nn.ReLU(),
             nn.Conv2d(cout, cout, (3, 1), (stride, 1), (1, 0)),
-            nn.BatchNorm2d(cout), nn.Dropout(0.0),
+            BatchNorm(cout), nn.Dropout(0.0),
         )
 
     def forward(self, x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
@@ -68,7 +71,7 @@ class STGCN(nn.Module):
         a = torch.from_numpy(build_adjacency(layout, "uniform"))
         self.register_buffer("A", a)
         k, v = a.shape[0], a.shape[1]
-        self.data_bn = nn.BatchNorm1d(in_channels * v)
+        self.data_bn = BatchNorm(in_channels * v)
         cin, blocks = in_channels, []
         for cout, stride, residual in M2S_BLOCKS:
             blocks.append(STGCNBlock(cin, cout, k, stride, residual))
@@ -88,13 +91,13 @@ class STGCN(nn.Module):
 
 
 class MotionEncoderSTGCN(nn.Module):
-    """(B, T, 13, 2) motion -> (B, T, 64) latents, eval mode."""
+    """(B, T, 13, 2) motion -> (B, T, 64) latents."""
 
     def __init__(self, out_dim: int = 64, n_joints: int = 13):
         super().__init__()
         self.st_gcn = STGCN()
         width = M2S_BLOCKS[-1][0] * n_joints
-        self.fc = nn.Sequential(nn.Conv1d(width, out_dim, 1), nn.BatchNorm1d(out_dim))
+        self.fc = nn.Sequential(nn.Conv1d(width, out_dim, 1), BatchNorm(out_dim))
 
     def forward(self, motion: torch.Tensor) -> torch.Tensor:
         h = self.st_gcn(motion)  # (B, C, T, V)

@@ -6,6 +6,7 @@ path).  `launch_counts` / `reset_launch_counts` read and clear them.
 """
 
 from .conv_block import fold_bn, fused_conv_block  # noqa: F401
+from .conv_train import conv3x3_dkernel, conv3x3_train  # noqa: F401
 from .decoder_layer import decoder_layer_plain, fused_decoder_layer  # noqa: F401
 from .decoder_layer_bwd import (  # noqa: F401
     decoder_layer_bwd,
@@ -14,6 +15,7 @@ from .decoder_layer_bwd import (  # noqa: F401
 )
 from .decoder_stack import fused_decoder_stack  # noqa: F401
 from .linear_attention import linear_attention, qk_softmax, temporal_linear_attention  # noqa: F401
+from .max_pool import fused_max_pool, max_pool_bwd, max_pool_train  # noqa: F401
 from .sampler_glue import ddim_affine_tables, sampler_epilogue, sampler_prologue  # noqa: F401
 from .stgcn import (  # noqa: F401
     frozen_stgcn_plain,
@@ -32,6 +34,9 @@ KERNELS = {
     "decoder_layer_bwd": decoder_layer_bwd,
     "stgcn_forward": stgcn_forward,
     "stgcn_backward": stgcn_backward,
+    "conv3x3_dkernel": conv3x3_dkernel,
+    "max_pool": fused_max_pool,
+    "max_pool_bwd": max_pool_bwd,
 }
 
 

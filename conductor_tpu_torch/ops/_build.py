@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every `conductor_tpu_torch/csrc/*.cu` is compiled by ``nvcc`` for sm_90a
-into ONE shared library with a plain C interface, at first use, under
+Every `conductor_tpu_torch/csrc/*.cu` is compiled by ``nvcc`` for sm_90a,
+one ``nvcc`` process per source, all started together, and the objects are
+linked into ONE shared library with a plain C interface, at first use, under
 ``build/conductor_tpu_torch/`` in the checkout.  The file name carries a
 hash of the sources and flags, so an edit rebuilds and an unchanged tree
 reuses the library.  It is loaded with `ctypes`; every pointer and the
@@ -24,17 +25,23 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "conductor_tpu_torch"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> (argument types, return type)
 SIGNATURES = {
     # x, w, scale, bias, resw, rscale, rbias, conv_out, pool_out,
-    # B, T, F, Cin, Cout, res_mode, wt, wf, st, sf, pt, pf, To, Fo, stream
-    "conv_block_forward": ([_P] * 9 + [_I] * 14 + [_P], _I),
+    # B, T, F, Cin, Cout, res_mode, relu, zero_edge, wt, wf, st, sf, pt, pf, To, Fo, stream
+    "conv_block_forward": ([_P] * 9 + [_I] * 16 + [_P], _I),
+    # y, out, B, T, F, C, To, Fo, wt, wf, st, sf, pt, pf, stream
+    "max_pool_forward": ([_P] * 2 + [_I] * 12 + [_P], _I),
+    # x, dy, winner, dx, B, T, F, C, To, Fo, wt, wf, st, sf, pt, pf, stream
+    "max_pool_backward": ([_P] * 4 + [_I] * 12 + [_P], _I),
+    # B, T, F, Cin, Cout -> workspace bytes of conv3x3_dkernel
+    "conv3x3_dkernel_workspace": ([_I] * 5, ctypes.c_longlong),
+    # x, dy, workspace, dw, B, T, F, Cin, Cout, stream
+    "conv3x3_dkernel": ([_P] * 4 + [_I] * 5 + [_P], _I),
     # x, temb, emb_base, w_joint, seq_bias, h, emb_act, B, T, C, D, E, round_bf16, stream
     "sampler_prologue_forward": ([_P] * 7 + [_I] * 6 + [_P], _I),
     # h, x_t, w_out, b_out, out, alpha, beta, B, T, D, C, round_bf16, stream
@@ -81,13 +88,21 @@ def library() -> ctypes.CDLL:
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-            capture_output=True, text=True,
-        )
-        build_log().write_text(proc.stdout + proc.stderr)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-6000:]}")
+        objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        link = None
+        if not any(proc.returncode for proc in procs):
+            link = subprocess.run([_nvcc(), *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+        build_log().write_text("".join(logs))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if link is None or link.returncode:
+            raise RuntimeError(f"nvcc failed:\n{''.join(logs)[-6000:]}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, (argtypes, restype) in SIGNATURES.items():

@@ -4,7 +4,10 @@ PyTorch version.
 Port of `conductor_tpu/ops/pallas_conv.py::fused_conv_block` (and
 `fold_bn`, `:68-72`): 3x3 conv with reflection padding -> folded-BN affine
 -> ReLU -> residual (none / identity / 1x1 conv + folded BN) -> optional
-max-pool epilogue (time stride 1 or 3, freq stride 2, -inf padding).  Layout
+max-pool epilogue (time stride 1 or 3, freq stride 2, -inf padding).  As
+there, ``relu=False`` drops the ReLU and ``edge="zero"`` pads the conv with
+zeros: the trainable conv (`conv_train.py`) runs its forward and the
+interior of its transposed conv through these two modes.  Layout
 is the JAX package's NHWC (B, T, F, C); the kernel weights are (3, 3, Cin,
 Cout) and the residual 1x1 weights (Cin, Cout).
 
@@ -33,19 +36,21 @@ def _q(a: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return a.to(dtype).float()
 
 
-def _pool_out(n: int, window: int, stride: int, pad: int) -> int:
+def pooled_size(n: int, window: int, stride: int, pad: int) -> int:
     return (n + 2 * pad - window) // stride + 1
 
 
 def conv_block_plain(
     x, kernel, scale, bias, *, res_mode=0, res_kernel=None, res_scale=None,
-    res_bias=None, pool=None, mxu_dtype=torch.bfloat16,
+    res_bias=None, pool=None, mxu_dtype=torch.bfloat16, relu=True, edge="reflect",
 ):
     """The plain version of the kernel: same arguments, same result."""
     xn = _q(x, mxu_dtype).permute(0, 3, 1, 2)  # (B, Cin, T, F)
     w = _q(kernel, mxu_dtype).permute(3, 2, 0, 1)  # (Cout, Cin, 3, 3)
-    y = F.conv2d(F.pad(xn, (1, 1, 1, 1), mode="reflect"), w)
-    y = torch.relu(y * scale[:, None, None] + bias[:, None, None])
+    y = F.conv2d(F.pad(xn, (1, 1, 1, 1), mode="reflect" if edge == "reflect" else "constant"), w)
+    y = y * scale[:, None, None] + bias[:, None, None]
+    if relu:
+        y = torch.relu(y)
     if res_mode == 1:
         y = y + x.float().permute(0, 3, 1, 2)
     elif res_mode == 2:
@@ -59,11 +64,13 @@ def conv_block_plain(
 
 def fused_conv_block(
     x, kernel, scale, bias, *, res_mode=0, res_kernel=None, res_scale=None,
-    res_bias=None, pool=None, mxu_dtype=torch.bfloat16,
+    res_bias=None, pool=None, mxu_dtype=torch.bfloat16, relu=True, edge="reflect",
 ):
     """x (B, T, F, Cin) -> (B, T, F, Cout), or the pooled (B, T', F', Cout)."""
+    if edge not in ("reflect", "zero"):
+        raise ValueError(f"edge must be 'reflect' or 'zero', got {edge!r}")
     args = dict(res_mode=res_mode, res_kernel=res_kernel, res_scale=res_scale,
-                res_bias=res_bias, pool=pool, mxu_dtype=mxu_dtype)
+                res_bias=res_bias, pool=pool, mxu_dtype=mxu_dtype, relu=relu, edge=edge)
     if not x.is_cuda:
         return conv_block_plain(x, kernel, scale, bias, **args)
     b, t, f, cin = x.shape
@@ -90,13 +97,13 @@ def fused_conv_block(
     pool_out = None
     if pool is not None:
         (wt, wf), (st, sf), ((pt, _), (pf, _)) = pool
-        to, fo = _pool_out(t, wt, st, pt), _pool_out(f, wf, sf, pf)
+        to, fo = pooled_size(t, wt, st, pt), pooled_size(f, wf, sf, pf)
         pool_out = torch.empty((b, to, fo, cout), dtype=torch.bfloat16, device=x.device)
     ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
     err = _build.library().conv_block_forward(
         ptr(x), ptr(kernel), ptr(scale), ptr(bias), *map(ptr, res),
-        ptr(conv_out), ptr(pool_out), b, t, f, cin, cout, res_mode,
-        wt, wf, st, sf, pt, pf, to, fo, _build.stream(),
+        ptr(conv_out), ptr(pool_out), b, t, f, cin, cout, res_mode, int(relu),
+        int(edge == "zero"), wt, wf, st, sf, pt, pf, to, fo, _build.stream(),
     )
     _build.check(err, "conv_block_forward")
     fused_conv_block.launches += 1

@@ -52,12 +52,11 @@ from .optim import ClippedAdam
 
 class DDPMTrainer:
     """Owns the denoiser, the frozen perceptual ST-GCN and the optimizer on
-    ``device``; serves `train_step` and `generate`."""
+    ``device`` (the card unless the caller asks for the CPU; raises without
+    one); serves `train_step` and `generate`."""
 
-    def __init__(self, cfg: Config, device: torch.device | str = "cpu"):
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("a CUDA device was asked for but torch.cuda.is_available() is False")
+    def __init__(self, cfg: Config, device: torch.device | str = "cuda"):
+        device = require_device(device)
         cfg = resolve_auto(cfg, device)
         d = cfg.denoiser
         if d.sampler_adaln_int8:
@@ -278,7 +277,16 @@ class DDPMTrainer:
         return {k: v.detach() for k, v in metrics.items()}
 
 
-def _check_training_config(cfg: Config, device: torch.device | str = "cpu") -> None:
+def require_device(device: torch.device | str) -> torch.device:
+    """``device`` as a `torch.device`; raises for CUDA without a card (no
+    silent fallback to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("a CUDA device was asked for but torch.cuda.is_available() is False")
+    return device
+
+
+def _check_training_config(cfg: Config, device: torch.device | str) -> None:
     """Raise on the training options the port does not run on ``device``:
     the gating of the fused layers (`conductor_tpu/train/ddpm_trainer.py:
     119-125`), the ST-GCN kernel's bf16 operands on CUDA, and the modes not

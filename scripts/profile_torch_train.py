@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Where a stage-2 training step of the PyTorch port spends its time on a
-CUDA card.
+"""Where a training step of the PyTorch port spends its time on a CUDA
+card: stage 2's `DDPMTrainer.train_step`, or with ``--m2snet`` stage 1's
+`M2SNetTrainer.train_step`.
 
     python3 scripts/profile_torch_train.py [--impl pallas_fused|flax] [--feat auto|flax|pallas]
                                            [--cached]
+    python3 scripts/profile_torch_train.py --m2snet [--impl pallas_fused|flax] [--share]
 
 Flagship configuration (D = 128, 8 layers, E = 512) on synthetic weights,
 B = 32 windows of 30 s (T = 900 motion / 2700 mel frames), seeded data; with
@@ -17,6 +19,14 @@ sum of the kernels' times), the device's busy share of the wall time under
 the profiler, the perceptual term alone (its latents of pred and target and
 its backward to pred, CUDA events, on pred and target of a training
 forward), and the kernels by total device time.
+
+``--m2snet``: the stage-1 step at the reference batch, B = 10 samples of
+30 s (2700 mel / 900 motion frames), 10-s crops, strategy "hard", starts
+drawn with numpy, on synthetic M2SNet weights (`synthetic_m2snet_state_dict`);
+"pallas_fused" (the default) means "auto" on CUDA, the kernel path (bf16,
+music_conv_impl "pallas_train"), "flax" the plain float32 "lax" path;
+``--share`` sets ``share_encodes``.  The same timings and table, without
+the perceptual term.
 """
 
 from __future__ import annotations
@@ -35,24 +45,90 @@ REPO = Path(__file__).resolve().parents[1]
 STEPS = 2  # profiled steps, after two warm-up steps
 
 
+def profile_steps(step) -> tuple[float, float, float, str]:
+    """Two warm-up calls of ``step``, then STEPS timed, then STEPS under
+    `torch.profiler`: (wall ms per step without the profiler, under it,
+    device ms per step, the kernels table)."""
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        step()
+    torch.cuda.synchronize()
+    wall_plain = (time.perf_counter() - t0) / STEPS
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / STEPS
+    # device time: the kernels themselves (the CPU-side ops that launched
+    # them carry the same time again)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / STEPS
+    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=30)
+    return wall_plain * 1e3, wall * 1e3, device, table
+
+
+def _smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+
+def _times(wall_plain: float, wall: float, device: float) -> str:
+    return (f"wall {wall_plain:.2f} ms/step without the profiler, {wall:.2f} ms/step under it; "
+            f"device {device:.2f} ms/step, busy {100 * device / wall:.1f} % of the wall under "
+            f"the profiler")
+
+
+def main_m2snet(args) -> None:
+    from conductor_tpu_torch import M2SNetTrainer
+    from conductor_tpu_torch.interop import synthetic_m2snet_state_dict
+
+    b, s, c = 10, 30, 10  # the reference batch (cli/train_m2snet.py), 30-s samples, 10-s crops
+    kw = {} if args.impl == "pallas_fused" else dict(compute_dtype="float32", music_conv_impl="lax")
+    tr = M2SNetTrainer(sample_length=s, clip_length=c, share_encodes=args.share, device="cuda", **kw)
+    tr.load_reference_state_dict(synthetic_m2snet_state_dict(tr.model, seed=0))
+    rng = np.random.RandomState(0)
+    music = torch.from_numpy(rng.uniform(0, 1, size=(b, s * 90, 128)).astype(np.float32)).cuda()
+    motion = torch.from_numpy(rng.uniform(0, 1, size=(b, s * 30, 13, 2)).astype(np.float32)).cuda()
+
+    def step():
+        s1 = int(rng.randint(0, (s - c - 10) * 30))
+        return float(tr.train_step(music, motion, "hard",
+                                   starts=(s1, int(rng.randint(s1 + 300, (s - c) * 30))))["loss"])
+
+    wall_plain, wall, device, table = profile_steps(step)
+    print("\n".join([
+        f"stage-1 M2SNet step, {tr.compute_dtype} / {tr.music_conv_impl}, share_encodes "
+        f"{args.share}, B={b}, {c}-s crops of {s}-s samples, {STEPS} steps profiled on {_smi()}",
+        _times(wall_plain, wall, device), table]))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--impl", default="pallas_fused", choices=["pallas_fused", "flax"])
     ap.add_argument("--feat", default="auto", choices=["auto", "flax", "pallas"])
     ap.add_argument("--cached", action="store_true")
+    ap.add_argument("--m2snet", action="store_true")
+    ap.add_argument("--share", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: needs a CUDA card")
     import sys
 
     sys.path.insert(0, str(REPO))
+    # the plain paths are float32: no TF32 in cuBLAS or cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.m2snet:
+        return main_m2snet(args)
     from conductor_tpu_torch import DDPMTrainer
     from conductor_tpu_torch.config import Config, DenoiserConfig
     from conductor_tpu_torch.interop import synthetic_motion_encoder_state_dict, synthetic_state_dict
     from conductor_tpu_torch.kernel_checks import perceptual_inputs, time_ms
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = Config()
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, cached_features=args.cached,
                                                 feat_impl=args.feat))
@@ -74,24 +150,7 @@ def main() -> None:
     def step():
         return float(tr.train_step(mel, motion, generator=gen)["loss"])
 
-    for _ in range(2):
-        step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(STEPS):
-        step()
-    torch.cuda.synchronize()
-    wall_plain = (time.perf_counter() - t0) / STEPS
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(STEPS):
-            step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / STEPS
-    # device time: the kernels themselves (the CPU-side ops that launched
-    # them carry the same time again)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    device = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / STEPS
+    wall_plain, wall, device, table = profile_steps(step)
     pred, target, _ = perceptual_inputs(tr, mel, motion)
 
     def perceptual():
@@ -99,16 +158,11 @@ def main() -> None:
         tr.perceptual_loss(x, target).backward()
 
     feat_ms = time_ms(perceptual, 5)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip().splitlines()[0]
-    lines = [f"train step, impl {args.impl}, feat_impl {tr.cfg.train.feat_impl}, "
-             f"cached_features {args.cached}, B={b} T={n}, "
-             f"{STEPS} steps profiled on {smi}",
-             f"wall {wall_plain * 1e3:.2f} ms/step without the profiler, {wall * 1e3:.2f} ms/step "
-             f"under it; device {device:.2f} ms/step, busy {100 * device / (wall * 1e3):.1f} % of "
-             f"the wall under the profiler; perceptual term {feat_ms:.2f} ms (CUDA events)",
-             prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=30)]
-    print("\n".join(lines))
+    print("\n".join([
+        f"train step, impl {args.impl}, feat_impl {tr.cfg.train.feat_impl}, "
+        f"cached_features {args.cached}, B={b} T={n}, {STEPS} steps profiled on {_smi()}",
+        f"{_times(wall_plain, wall, device)}; perceptual term {feat_ms:.2f} ms (CUDA events)",
+        table]))
 
 
 if __name__ == "__main__":

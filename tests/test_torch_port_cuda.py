@@ -1,7 +1,9 @@
 """PyTorch port on the card: every CUDA kernel against its plain version,
-generate on the kernel path against the plain path, and a training step
+generate on the kernel path against the plain path, a training step
 through K5 / K6 / K7 against the plain path, at a small size (2 decoder
-layers, 3.2-s clips).  Skips without a CUDA card; on one, run it with
+layers, 3.2-s clips), and the stage-1 kernels (K4's training modes, K9,
+K10, K11 on tied inputs) and a B = 2 M2SNet step on them against the plain
+path.  Skips without a CUDA card; on one, run it with
 ``python -m pytest --noconftest tests/test_torch_port_cuda.py``.
 ``chip_smoke.py`` makes the same checks at the flagship size."""
 
@@ -9,16 +11,32 @@ import numpy as np
 import pytest
 import torch
 
-from conductor_tpu_torch import DDPMTrainer
+from conductor_tpu_torch import DDPMTrainer, M2SNetTrainer
 from conductor_tpu_torch.config import Config, DenoiserConfig, DiffusionConfig, TrainConfig
-from conductor_tpu_torch.interop import synthetic_motion_encoder_state_dict, synthetic_state_dict
+from conductor_tpu_torch.interop import (
+    synthetic_m2snet_state_dict,
+    synthetic_motion_encoder_state_dict,
+    synthetic_state_dict,
+)
 from conductor_tpu_torch.kernel_checks import (
     check_kernels,
+    check_stage1_kernels,
     check_stgcn_kernels,
     check_train_kernels,
     perceptual_inputs,
+    stage1_kernel_inputs,
 )
-from conductor_tpu_torch.ops import launch_counts, reset_launch_counts
+from conductor_tpu_torch.ops import (
+    conv3x3_dkernel,
+    fused_conv_block,
+    fused_max_pool,
+    launch_counts,
+    max_pool_bwd,
+    reset_launch_counts,
+)
+from conductor_tpu_torch.ops.conv_block import conv_block_plain
+from conductor_tpu_torch.ops.conv_train import conv3x3_dkernel_plain
+from conductor_tpu_torch.ops.max_pool import max_pool_bwd_plain, max_pool_plain
 
 torch.set_num_threads(2)
 
@@ -51,15 +69,114 @@ def trainers():
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
+def _stage1_trainers(**kw):
+    kernel = M2SNetTrainer(sample_length=6, clip_length=2, device="cuda", **kw)
+    plain = M2SNetTrainer(sample_length=6, clip_length=2, compute_dtype="float32",
+                          music_conv_impl="lax", device="cuda", **kw)
+    sd = synthetic_m2snet_state_dict(kernel.model, seed=0)
+    kernel.load_reference_state_dict(sd)
+    plain.load_reference_state_dict(sd)
+    rng = np.random.RandomState(0)
+    music = torch.from_numpy(rng.uniform(0, 1, size=(2, 540, 128)).astype(np.float32)).cuda()
+    motion = torch.from_numpy(rng.uniform(0, 1, size=(2, 180, 13, 2)).astype(np.float32)).cuda()
+    return kernel, plain, music, motion
+
+
 def test_kernels_match_plain_versions(trainers):
     kernel, _, mel, noise = trainers
     motion = torch.rand(2, 96, 13, 2, device="cuda")
+    s1, _, music, motion_s1 = _stage1_trainers()
     results = check_kernels(kernel, mel, noise, reps=1) + check_train_kernels(
         kernel, mel, motion, reps=1) + check_stgcn_kernels(
-        kernel, *perceptual_inputs(kernel, mel, motion), reps=1)
-    assert {r["name"] for r in results} == set(launch_counts())
+        kernel, *perceptual_inputs(kernel, mel, motion), reps=1) + check_stage1_kernels(
+        *stage1_kernel_inputs(s1, music, motion_s1, (0, 120)), reps=1)
+    assert {r["name"] for r in results} - {"conv_block_train"} == set(launch_counts())
     for r in results:
         assert r["ok"], r
+        assert r["bound_ms"] > 0 and r["bound_by"] in ("bytes", "operations"), r
+
+
+def _rand(*shape, gen):
+    return torch.randn(shape, generator=gen, device="cuda")
+
+
+@pytest.mark.parametrize("edge", ["reflect", "zero"])
+@pytest.mark.parametrize("cin,cout,f", [(1, 16, 128), (16, 32, 64), (32, 16, 64), (32, 32, 32)])
+def test_conv_block_training_modes(cin, cout, f, edge):
+    """K4 with relu off, identity affine and no residual, reflect or zero
+    edge: the trainable conv's forward and the interior of its transposed
+    conv."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(cin + cout)
+    x = _rand(2, 30, f, cin, gen=gen).to(torch.bfloat16)
+    args = (x, _rand(3, 3, cin, cout, gen=gen) * 0.2, torch.ones(cout, device="cuda"),
+            torch.zeros(cout, device="cuda"))
+    got = fused_conv_block(*args, relu=False, edge=edge).float()
+    want = conv_block_plain(*args, relu=False, edge=edge).float()
+    assert float(want.min()) < 0  # the ReLU is off
+    assert float((got - want).abs().max()) <= 0.02 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("cin,cout,f,t", [(1, 16, 128, 30), (16, 16, 128, 30), (16, 32, 64, 30),
+                                          (32, 32, 32, 10), (16, 16, 8, 2)])
+def test_conv3x3_dkernel_matches_plain(cin, cout, f, t):
+    """K9 against the d(kernel) sum written out, bf16 operands on both sides."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(cin * cout + f)
+    x = _rand(3, t, f, cin, gen=gen).to(torch.bfloat16)
+    dy = _rand(3, t, f, cout, gen=gen).to(torch.bfloat16)
+    got, want = conv3x3_dkernel(x, dy), conv3x3_dkernel_plain(x, dy)
+    assert got.shape == (3, 3, cin, cout)
+    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+    assert torch.equal(got, conv3x3_dkernel(x, dy))  # deterministic
+
+
+POOLS = [((5, 5), (1, 2), ((2, 2), (2, 2))), ((5, 5), (3, 2), ((2, 2), (2, 2))),
+         ((3, 3), (1, 2), ((1, 1), (1, 1)))]
+
+
+@pytest.mark.parametrize("pool,c,f,t", [(POOLS[0], 16, 128, 36), (POOLS[1], 32, 64, 36),
+                                        (POOLS[2], 32, 32, 12)])
+def test_max_pool_kernels(pool, c, f, t):
+    """K10 exact against the plain pool; K11 exact against the plain
+    first-max routing on tied inputs (post-ReLU plateaus rounded to a
+    coarse grid, a cotangent whose sums are exact in any order), and
+    conservative (sum dx == sum dy)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(c + t)
+    x = _rand(2, t, f, c, gen=gen).to(torch.bfloat16)
+    assert torch.equal(fused_max_pool(x, pool), max_pool_plain(x, pool))
+    tied = (torch.relu(x.float()) * 2).round().div(2).to(torch.bfloat16)
+    y = fused_max_pool(tied, pool)
+    dy = (torch.randint(-8, 9, y.shape, generator=gen, device="cuda") / 4).to(torch.bfloat16)
+    got = max_pool_bwd(tied, dy, pool)
+    assert torch.equal(got, max_pool_bwd_plain(tied, dy, pool))
+    assert float(got.float().sum()) == float(dy.float().sum())
+
+
+@pytest.mark.parametrize("share_encodes", [False, True])
+def test_m2snet_step_kernel_path_matches_plain_path(share_encodes, monkeypatch):
+    """Two B = 2 stage-1 steps on the kernels (bf16) against the plain
+    float32 path from the same weights and starts: the loss within the
+    bf16 bound of tests/test_fused_train_path.py (3e-2 relative), every
+    stage-1 kernel launched in each step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    kernel, plain, music, motion = _stage1_trainers(share_encodes=share_encodes)
+    for starts in ((0, 120), (10, 150)):
+        reset_launch_counts()
+        mk = kernel.train_step(music, motion, "hard", starts=starts)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        for name in ("conv_block", "conv3x3_dkernel", "max_pool", "max_pool_bwd"):
+            assert counts[name] > 0, counts
+        mp = plain.train_step(music, motion, "hard", starts=starts)
+        assert bool(torch.isfinite(mk["loss"]))
+        assert abs(float(mk["loss"]) - float(mp["loss"])) <= 3e-2 * abs(float(mp["loss"]))
 
 
 def test_generate_kernel_path_matches_plain_path(trainers):
@@ -70,7 +187,8 @@ def test_generate_kernel_path_matches_plain_path(trainers):
     counts = launch_counts()
     assert counts == {"decoder_stack": 5, "sampler_prologue": 5, "sampler_epilogue": 5,
                       "conv_block": 7, "decoder_layer": 0, "decoder_layer_bwd": 0,
-                      "stgcn_forward": 0, "stgcn_backward": 0}
+                      "stgcn_forward": 0, "stgcn_backward": 0, "conv3x3_dkernel": 0,
+                      "max_pool": 0, "max_pool_bwd": 0}
     ref = plain.generate(mel, num_steps=5, noise=noise)
     assert out.shape == (2, 96, 26) and bool(torch.isfinite(out).all())
     assert float((out - ref).abs().max()) <= 0.03 * float(ref.abs().max())

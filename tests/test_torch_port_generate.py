@@ -36,7 +36,7 @@ def test_generate_matches_reference_trajectory():
                                 num_heads=8),
         diffusion=DiffusionConfig(steps=steps, schedule="linear"),
     )
-    trainer = DDPMTrainer(cfg)
+    trainer = DDPMTrainer(cfg, device="cpu")
     assert trainer.fused is None  # "auto" on the CPU: the plain modules
     trainer.load_reference_state_dict(sd)
     mel, noise = torch.from_numpy(fx["mel"]), torch.from_numpy(fx["noise"])
@@ -70,7 +70,7 @@ def serving_pair():
         diffusion=DiffusionConfig(steps=8, schedule="cosine"),
         train=TrainConfig(sample_length=1),
     )
-    port = DDPMTrainer(base)
+    port = DDPMTrainer(base, device="cpu")
     sd = synth_state_dict(manifest(port.model), seed=2)
     port.load_reference_state_dict(sd)
     assert port.fused is not None and port.fused_encoder is not None
@@ -103,7 +103,7 @@ def test_plain_and_fused_paths_agree(serving_pair):
     """The port's own two serving paths on one weight set and one x_T."""
     _, _, _, port, mel, x_t = serving_pair
     plain = DDPMTrainer(port.cfg.replace(denoiser=dataclasses.replace(
-        port.cfg.denoiser, layer_impl="flax", music_encoder_impl="flax")))
+        port.cfg.denoiser, layer_impl="flax", music_encoder_impl="flax")), device="cpu")
     plain.load_reference_state_dict(port.model.state_dict())
     args = dict(num_steps=4, noise=torch.from_numpy(x_t))
     np.testing.assert_allclose(plain.generate(torch.from_numpy(mel), **args).numpy(),

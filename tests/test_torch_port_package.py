@@ -1,32 +1,41 @@
-"""PyTorch port, package contracts: no jax import, the kernel wrappers'
-CPU behaviour and launch counters, "auto" resolution, no silent fallback
-from CUDA to the CPU, and the modes not ported yet raising."""
+"""PyTorch port, package contracts: no import of jax or of the JAX package
+(in a fresh interpreter that blocks them, and in the source), the kernel
+wrappers' CPU behaviour and launch counters, "auto" resolution, the entry
+points on the card by default with no silent fallback from CUDA to the CPU,
+and the modes not ported yet raising."""
 
+import ast
 import dataclasses
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from conductor_tpu_torch import DDPMTrainer
+from conductor_tpu_torch import DDPMTrainer, M2SNetTrainer
+from conductor_tpu_torch.cli import train_m2snet
 from conductor_tpu_torch.config import Config, DenoiserConfig, DiffusionConfig, resolve_auto
 from conductor_tpu_torch.interop import reference_state_dict, synthetic_state_dict
 from conductor_tpu_torch.models.stgcn import MotionEncoderSTGCN
 from conductor_tpu_torch.ops import (
+    conv3x3_dkernel,
     decoder_layer_bwd,
     fused_conv_block,
     fused_decoder_layer,
     fused_decoder_stack,
     fused_frozen_stgcn,
+    fused_max_pool,
     launch_counts,
+    max_pool_bwd,
     pack_frozen_stgcn,
     reset_launch_counts,
     sampler_epilogue,
     sampler_prologue,
 )
+from conductor_tpu_torch.train.m2snet_trainer import M2SNetEvaluator, resolve_impls
 
 torch.set_num_threads(2)
 
@@ -40,46 +49,74 @@ TINY = Config(
 _NO_JAX = """
 import dataclasses, importlib.abc, sys
 
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "conductor_tpu")
+
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax"):
+        if name.split(".")[0] in BLOCKED:
             raise ImportError("blocked: " + name)
 
 sys.meta_path.insert(0, Block())
 import torch
 import conductor_tpu_torch
-from conductor_tpu_torch import DDPMTrainer
+from conductor_tpu_torch import DDPMTrainer, M2SNetTrainer
 from conductor_tpu_torch.config import Config, DenoiserConfig, DiffusionConfig, TrainConfig
-from conductor_tpu_torch.interop import synthetic_state_dict
+from conductor_tpu_torch.interop import synthetic_m2snet_state_dict, synthetic_state_dict
 cfg = Config(denoiser=DenoiserConfig(num_frames=32, latent_dim=32, ff_size=16, num_layers=2,
                                      num_heads=4, layer_impl="pallas_fused",
                                      music_encoder_impl="pallas"),
              diffusion=DiffusionConfig(steps=4, schedule="cosine"))
-tr = DDPMTrainer(cfg)
+tr = DDPMTrainer(cfg, device="cpu")
 tr.load_reference_state_dict(synthetic_state_dict(tr.model))
 out = tr.generate(torch.rand(1, 96, 128), generator=torch.Generator().manual_seed(0))
 assert out.shape == (1, 32, 26), out.shape
 cfg = cfg.replace(denoiser=dataclasses.replace(cfg.denoiser, train_layer_impl="pallas_fused"),
                   train=TrainConfig(feat_impl="pallas"))
-tr = DDPMTrainer(cfg)
+tr = DDPMTrainer(cfg, device="cpu")
 assert tr.feat_pack is not None
 m = tr.train_step(torch.rand(2, 96, 128), torch.rand(2, 32, 13, 2),
                   generator=torch.Generator().manual_seed(0))
 assert torch.isfinite(m["loss"]), m
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+s1 = M2SNetTrainer(sample_length=6, clip_length=2, music_conv_impl="pallas_train", device="cpu")
+s1.load_reference_state_dict(synthetic_m2snet_state_dict(s1.model))
+m = s1.train_step(torch.rand(2, 540, 128), torch.rand(2, 180, 13, 2), "hard", starts=(0, 120))
+assert torch.isfinite(m["loss"]), m
+bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("no-jax-ok")
 """
 
 
 def test_package_never_imports_jax():
-    """In a fresh interpreter, with jax and flax blocked, the package imports,
-    serves a clip and takes a training step (K5 / K6 / K7 path) on the CPU."""
+    """In a fresh interpreter, with jax, flax and the JAX package
+    (`conductor_tpu`, that top-level name alone) blocked, the package
+    imports, serves a clip, takes a stage-2 training step (K5 / K6 / K7
+    path) and a stage-1 M2SNet step (K4 / K9 / K10 / K11 path) on the CPU."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], capture_output=True, text=True,
                           cwd=REPO, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "no-jax-ok" in proc.stdout
+
+
+def _imported_modules(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    """Every module of the port, and chip_smoke.py, read as source: no
+    import of jax, jaxlib, flax, optax or conductor_tpu, at any depth."""
+    files = sorted(Path(REPO, "conductor_tpu_torch").rglob("*.py")) + [Path(REPO, "chip_smoke.py")]
+    assert len(files) > 20
+    bad = [(str(f.relative_to(REPO)), name) for f in files for name in _imported_modules(f)
+           if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "conductor_tpu")]
+    assert not bad, bad
 
 
 def test_wrappers_take_the_plain_path_on_cpu():
@@ -102,10 +139,16 @@ def test_wrappers_take_the_plain_path_on_cpu():
     motion = t(1, 5, 13, 2).requires_grad_(True)
     fused_frozen_stgcn(motion, pack_frozen_stgcn(MotionEncoderSTGCN().eval())).sum().backward()
     assert motion.grad is not None
+    fused_conv_block(t(1, 6, 16, 16), t(3, 3, 16, 16), t(16), t(16), relu=False, edge="zero")
+    conv3x3_dkernel(t(1, 6, 16, 16), t(1, 6, 16, 32))
+    pool = ((5, 5), (1, 2), ((2, 2), (2, 2)))
+    x = t(1, 6, 16, 16)
+    max_pool_bwd(x, fused_max_pool(x, pool), pool)
     assert launch_counts() == {"decoder_stack": 0, "sampler_prologue": 0,
                                "sampler_epilogue": 0, "conv_block": 0,
                                "decoder_layer": 0, "decoder_layer_bwd": 0,
-                               "stgcn_forward": 0, "stgcn_backward": 0}
+                               "stgcn_forward": 0, "stgcn_backward": 0,
+                               "conv3x3_dkernel": 0, "max_pool": 0, "max_pool_bwd": 0}
 
 
 def test_auto_resolution():
@@ -140,23 +183,63 @@ def test_cuda_trainer_without_a_card_raises():
         DDPMTrainer(TINY, device="cuda")
 
 
+@pytest.mark.parametrize("make", [lambda: DDPMTrainer(TINY), lambda: M2SNetTrainer()])
+def test_trainers_run_on_the_card_by_default(make):
+    """The entry points take the card unless the caller asks for the CPU:
+    without one, the default raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make()
+
+
+@pytest.mark.parametrize("kwargs,error", [
+    (dict(remat=True), NotImplementedError),
+    (dict(microbatch=2), NotImplementedError),
+    (dict(compute_dtype="bfloat16"), NotImplementedError),  # bf16 runs on the card only
+    (dict(music_conv_impl="xla"), ValueError),
+])
+def test_m2snet_trainer_unported_options_raise(kwargs, error):
+    with pytest.raises(error):
+        M2SNetTrainer(sample_length=6, clip_length=2, device="cpu", **kwargs)
+
+
+def test_m2snet_trainer_resolves_auto_and_defers():
+    """"auto" is the kernel path on CUDA (bf16, "pallas_train") and the
+    plain one elsewhere; the kernels take bf16 operands, so an explicit
+    "pallas_train" with float32 is refused on CUDA (checked where no card
+    is needed) and runs the plain versions on the CPU."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert resolve_impls("auto", "auto", cuda) == ("bfloat16", "pallas_train")
+    assert resolve_impls("auto", "auto", cpu) == ("float32", "lax")
+    with pytest.raises(ValueError, match="bf16"):
+        resolve_impls("float32", "pallas_train", cuda)
+    assert resolve_impls("float32", "pallas_train", cpu) == ("float32", "pallas_train")
+    tr = M2SNetTrainer(sample_length=6, clip_length=2, device="cpu")
+    assert (tr.compute_dtype, tr.music_conv_impl) == ("float32", "lax")
+    for deferred in (lambda: tr.recalibrate_batch_stats([]), lambda: tr.model.features(0, 0),
+                     M2SNetEvaluator, train_m2snet.main):
+        with pytest.raises(NotImplementedError):
+            deferred()
+
+
 @pytest.mark.parametrize("field,value", [("sampler_adaln_int8", True),
                                          ("sampler_vpu_dtype", "bfloat16")])
 def test_unported_sampler_modes_raise(field, value):
     cfg = TINY.replace(denoiser=dataclasses.replace(TINY.denoiser, **{field: value}))
     with pytest.raises(NotImplementedError):
-        DDPMTrainer(cfg)
+        DDPMTrainer(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("kwargs", [{"guidance_scale": 2.5}, {"sampler": "ddpm"}])
 def test_unported_generate_options_raise(kwargs):
-    tr = DDPMTrainer(TINY)
+    tr = DDPMTrainer(TINY, device="cpu")
     with pytest.raises(NotImplementedError):
         tr.generate(torch.zeros(1, 96, 128), **kwargs)
 
 
 def test_generate_rejects_wrong_mel_bins():
-    tr = DDPMTrainer(TINY)
+    tr = DDPMTrainer(TINY, device="cpu")
     with pytest.raises(ValueError, match="mel must be"):
         tr.generate(torch.zeros(1, 96, 80))
 
@@ -164,7 +247,7 @@ def test_generate_rejects_wrong_mel_bins():
 def test_reference_state_dict_forms(tmp_path):
     """DataParallel prefixes are stripped, a latest.tar-style dict contributes
     its encoder entry, and a file path loads; the load is strict."""
-    tr = DDPMTrainer(TINY)
+    tr = DDPMTrainer(TINY, device="cpu")
     sd = synthetic_state_dict(tr.model, seed=3)
     wrapped = {"encoder": {f"module.{k}": torch.from_numpy(np.array(v)) for k, v in sd.items()},
                "ep": 1, "total_it": 2}

@@ -216,7 +216,7 @@ def test_trainer_rebuilds_the_pack_on_new_weights():
                                              num_layers=2, num_heads=4),
                      diffusion=DiffusionConfig(steps=8, schedule="cosine"),
                      train=TrainConfig(feat_impl=feat_impl, cached_features=True))
-        return DDPMTrainer(cfg)
+        return DDPMTrainer(cfg, device="cpu")
 
     tr = make("pallas")
     assert tr.cfg.train.feat_impl == "pallas" and tr.feat_pack is not None

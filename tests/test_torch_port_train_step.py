@@ -65,7 +65,7 @@ def _batch(t):
 
 @pytest.fixture(scope="module")
 def weights():
-    probe = DDPMTrainer(make_cfg("flax"))
+    probe = DDPMTrainer(make_cfg("flax"), device="cpu")
     sd = synthetic_state_dict(probe.model, seed=1)
     feat_sd = synthetic_motion_encoder_state_dict(probe.feat_model, seed=2)
     return (sd, feat_sd, *_batch(T))
@@ -73,7 +73,7 @@ def weights():
 
 def _port_trainer(cfg, weights):
     sd, feat_sd = weights[:2]
-    tr = DDPMTrainer(cfg)
+    tr = DDPMTrainer(cfg, device="cpu")
     tr.load_reference_state_dict(sd, motion_encoder=feat_sd)
     return tr
 
@@ -196,7 +196,7 @@ def test_training_gating(change, error, match):
     cfg = cfg.replace(**{sec: dataclasses.replace(getattr(cfg, sec), **kw)
                          for sec, kw in change.items()})
     with pytest.raises(error, match=match):
-        DDPMTrainer(cfg)
+        DDPMTrainer(cfg, device="cpu")
 
 
 def test_explicit_pallas_features_need_bf16_operands_on_cuda():
@@ -212,7 +212,7 @@ def test_explicit_pallas_features_need_bf16_operands_on_cuda():
         cfg.denoiser, compute_dtype="bfloat16", train_layer_impl="pallas_fused"))
     _check_training_config(resolve_auto(bf16, "cuda"), torch.device("cuda"))
     _check_training_config(resolve_auto(f32, "cpu"), torch.device("cpu"))
-    assert DDPMTrainer(f32).feat_pack["m"].dtype == torch.float32
+    assert DDPMTrainer(f32, device="cpu").feat_pack["m"].dtype == torch.float32
 
 
 def test_bf16_plain_training_raises_but_serving_builds(weights):
@@ -223,6 +223,6 @@ def test_bf16_plain_training_raises_but_serving_builds(weights):
     cfg = cfg.replace(denoiser=dataclasses.replace(
         cfg.denoiser, compute_dtype="bfloat16", layer_impl="pallas_fused",
         music_encoder_impl="pallas"))
-    tr = DDPMTrainer(cfg)
+    tr = DDPMTrainer(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="float32"):
         tr.train_step(feats, motion)
