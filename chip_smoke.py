@@ -20,9 +20,13 @@ Phases, one line each (the kernel checks one line per kernel):
      and K4 in its training modes, on the inputs and cotangents of their
      calls in one train-mode forward and backward of a stage-1 step at
      B = 10 with 10-s crops (900 mel, 300 motion frames), bf16 on both
-     sides; each output must agree within 2 % of the plain output's largest
-     value, and K11 must follow the first-max tie rule exactly (error 0 on
-     tied inputs with a cotangent whose sums are exact);
+     sides; and K8, the standalone linear attention, at the shapes of its
+     two paths, the reference-mask training step (B = 32, T = 900, bf16 q,
+     the key mask of m_lens = 60 folded into float32 k and v) and the
+     plain-layer serving path (B = 2, T = 1800, a ones mask); each output
+     must agree within 2 % of the plain output's largest value, and K11
+     must follow the first-max tie rule exactly (error 0 on tied inputs
+     with a cotangent whose sums are exact);
   4. `DDPMTrainer.generate` on the kernel path, ddim50, on synthetic flagship
      weights and a seeded mel: a finite (2, 1800, 26) motion within 3 % of
      the plain path's on the card, with every serving kernel launched;
@@ -47,15 +51,27 @@ Phases, one line each (the kernel checks one line per kernel):
      each kernel-path loss must be finite and within 3e-2 relative of the
      plain path's, K4, K9, K10 and K11 must have launched in every step,
      and the median ms per step of both paths is printed, with that of the
-     ``share_encodes=True`` kernel-path step.
+     ``share_encodes=True`` kernel-path step;
+  8. training with the reference's loss mask: 4 steps of
+     ``replicate_reference_mask=True``, which "auto" on CUDA must resolve
+     to bf16 plain layers with the self-attention on K8 and the perceptual
+     term on K7, and 4 on the plain float32 path with the mask, on phase 6's
+     batch and random numbers and m_lens = 60 (the reference's value);
+     each loss and `loss_mot_feat` finite and within 3e-2 relative of the
+     plain path's, K8 launched num_layers = 8 times in every step and K7
+     in every step, the median ms per step of both paths printed;
+  9. serving on the plain layers (``layer_impl="flax"``, bf16): ddim50 at
+     B = 2 on phase 4's mel and noise, within 3 % of the plain float32
+     path's motion, K8 launched 8 x 50 times and K4 launched, its ms
+     printed.
 
 Every path runs at full depth; the run takes a few minutes of its 1200-s
 limit, so no path is cut.  Then one JSON line of per-kernel results (the
 launch counts of K1-K4 from phase 4, of K5 / K6 / K7 from phase 6, of K9,
-K10 and K11 from phase 7; each kernel's time, its plain version's, its
-bound and, where one PyTorch call computes the same function, that call's
-time), the nvidia-smi line again, and as the last line
-{"ok": true, "device": {...}}.
+K10 and K11 from phase 7, of K8 from phase 8; each kernel's time, its
+plain version's, its bound and, where one PyTorch call computes the same
+function, that call's time), the nvidia-smi line again, and as the last
+line {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
 """
@@ -89,12 +105,15 @@ KERNEL_SOURCES = {
                         "conductor_tpu/ops/conv_train.py:104"),
     "max_pool": ("conductor_tpu_torch/csrc/conv_block.cu", "conductor_tpu/ops/pallas_pool.py:163"),
     "max_pool_bwd": ("conductor_tpu_torch/csrc/max_pool.cu", "conductor_tpu/ops/pallas_pool.py:352"),
+    "linear_attention": ("conductor_tpu_torch/csrc/linear_attention.cu",
+                         "conductor_tpu/ops/pallas_attention.py:152"),
 }
 SERVING_KERNELS = ("decoder_stack", "sampler_prologue", "sampler_epilogue", "conv_block")
 TRAIN_KERNELS = ("decoder_layer", "decoder_layer_bwd", "stgcn_forward", "stgcn_backward")
 STAGE1_KERNELS = ("conv_block", "conv3x3_dkernel", "max_pool", "max_pool_bwd")
 # stage 1's batch, sample and crop seconds (conductor_tpu/cli/train_m2snet.py)
 STAGE1_B, STAGE1_S, STAGE1_C = 10, 30, 10
+REFERENCE_M_LENS = 60  # the reference's m_lens (conductor_tpu_torch/config.py TrainConfig)
 GENERATE_REL_TOL = 0.03  # ladder drift bound of tests/test_fused_denoiser.py
 TRAIN_LOSS_REL_TOL = 3e-2  # bf16 loss bound of tests/test_fused_train_path.py
 TRAIN_STEPS = 4
@@ -126,6 +145,7 @@ def main() -> int:
         synthetic_state_dict,
     )
     from conductor_tpu_torch.kernel_checks import (
+        check_attention_kernel,
         check_kernels,
         check_stage1_kernels,
         check_stgcn_kernels,
@@ -164,7 +184,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: 'auto' did not select the training kernels on CUDA")
     plain_cfg = cfg.replace(denoiser=DenoiserConfig(
         layer_impl="flax", music_encoder_impl="flax", train_layer_impl="flax",
-        compute_dtype="float32"), train=TrainConfig(feat_impl="flax"))
+        attention_impl="xla", compute_dtype="float32"), train=TrainConfig(feat_impl="flax"))
     plain_tr = DDPMTrainer(plain_cfg, device="cuda")
     sd = synthetic_state_dict(kernel_tr.model, seed=0)
     feat_sd = synthetic_motion_encoder_state_dict(kernel_tr.feat_model, seed=0)
@@ -211,6 +231,13 @@ def main() -> int:
     m2s_kernel.load_reference_state_dict(m2s_sd)
     results += check_stage1_kernels(*stage1_kernel_inputs(m2s_kernel, music, motion_s1, starts[0]))
     m2s_kernel.load_reference_state_dict(m2s_sd)  # undo the check's BN statistics
+    heads = cfg.denoiser.num_heads
+    for b, t, lens, name in ((n_train, t_train, REFERENCE_M_LENS, "linear_attention"),
+                             (2, 1800, 1800, "linear_attention_serving")):
+        q, k, v = (torch.from_numpy(rng.normal(size=(b, t, 128)).astype(np.float32)).cuda()
+                   .to(torch.bfloat16) for _ in range(3))
+        key_mask = (torch.arange(t, device="cuda")[None] < lens).float()[..., None].expand(b, t, 1)
+        results.append(check_attention_kernel(q, k, v, key_mask, heads) | {"name": name})
     for r in results:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"[kernel] {r['name']}: max_abs_err {r['max_abs_err']:.6g} "
@@ -224,6 +251,8 @@ def main() -> int:
         if r["name"] == "stgcn_backward":
             print(f"[kernel]   stgcn_backward after the kernel's own forward (ReLU masks of "
                   f"another summation order): err {r['e2e_err']:.6g}, not bounded")
+        if "kv_dtype" in r:
+            print(f"[kernel]   {r['name']} {r['shape']}: bf16 q, k and v {r['kv_dtype']}")
         if "tie_err" in r:
             print(f"[kernel]   max_pool_bwd on tied inputs: err {r['tie_err']:.6g} (must be 0)")
         for c in r.get("calls", []):
@@ -268,26 +297,27 @@ def main() -> int:
           f"(encoder {enc_ms:.2f} ms of it) on {smi}")
 
     # 6. training: kernel path, then the plain path, same weights and numbers
-    def train(tr):
-        losses, feats, times, counts = [], [], [], []
+    def train(tr, m_lens=None):
+        """4 steps on the training batch: losses, `loss_mot_feat`s, seconds
+        and launch counts, each step's own."""
+        losses, feats, times, step_counts = [], [], [], []
         for d in drawn:
+            reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            m = tr.train_step(mel_train, motion_train, **d)
+            m = tr.train_step(mel_train, motion_train, m_lens, **d)
             losses.append(float(m["loss"]))  # host readback ends the step
             times.append(time.perf_counter() - t0)
             feats.append(float(m["loss_mot_feat"]))
-            counts.append(launch_counts())
-        return losses, feats, times, counts
+            step_counts.append(launch_counts())
+        return losses, feats, times, step_counts
 
-    reset_launch_counts()
     losses_k, feats_k, times_k, step_counts = train(kernel_tr)
-    train_counts = step_counts[-1]
     losses_p, feats_p, times_p, _ = train(plain_tr)
     rel = [abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p)]
     rel_feat = [abs(a - b) / abs(b) for a, b in zip(feats_k, feats_p)]
-    per_step = [{k: c[k] - (step_counts[i - 1][k] if i else 0) for k in TRAIN_KERNELS}
-                for i, c in enumerate(step_counts)]
+    per_step = [{k: c[k] for k in TRAIN_KERNELS} for c in step_counts]
+    train_counts = {k: sum(c[k] for c in per_step) for k in TRAIN_KERNELS}
     print(f"[train] B={n_train} T={t_train} losses kernel {losses_k} plain {losses_p} "
           f"max rel diff {max(rel):.3g} launches {dict((k, train_counts[k]) for k in TRAIN_KERNELS)}")
     print(f"[train] loss_mot_feat kernel {feats_k} plain {feats_p} max rel diff "
@@ -337,6 +367,63 @@ def main() -> int:
     if min(c[k] for c in counts_s1 for k in STAGE1_KERNELS) == 0:
         raise SystemExit(f"chip_smoke: a stage-1 kernel was not launched in every step: {counts_s1}")
     counts.update({k: sum(c[k] for c in counts_s1) for k in STAGE1_KERNELS if k != "conv_block"})
+
+    # 8. training with the reference's loss mask: "auto" on CUDA, then the
+    # plain float32 path with the mask, same weights, batch and numbers
+    mask_cfg = cfg.replace(train=TrainConfig(replicate_reference_mask=True))
+    mask_tr = DDPMTrainer(mask_cfg, device="cuda")
+    md = mask_tr.cfg.denoiser
+    if (md.compute_dtype, md.train_layer_impl, md.attention_impl, mask_tr.cfg.train.feat_impl) != (
+            "bfloat16", "flax", "pallas", "pallas"):
+        raise SystemExit(f"chip_smoke: 'auto' with the reference mask resolved to {md}")
+    mask_plain = DDPMTrainer(mask_cfg.replace(
+        denoiser=DenoiserConfig(layer_impl="flax", music_encoder_impl="flax",
+                                train_layer_impl="flax", attention_impl="xla",
+                                compute_dtype="float32"),
+        train=TrainConfig(replicate_reference_mask=True, feat_impl="flax")), device="cuda")
+    for tr in (mask_tr, mask_plain):
+        tr.load_reference_state_dict(sd, motion_encoder=feat_sd)
+    m_lens = torch.full((n_train,), REFERENCE_M_LENS)
+    losses_m, feats_m, times_m, counts_m = train(mask_tr, m_lens)
+    losses_mp, feats_mp, times_mp, _ = train(mask_plain, m_lens)
+    rel_m = [abs(a - b) / abs(b) for a, b in zip(losses_m + feats_m, losses_mp + feats_mp)]
+    mask_kernels = ("linear_attention", "stgcn_forward", "stgcn_backward")
+    per_step_m = [{k: c[k] for k in mask_kernels} for c in counts_m]
+    print(f"[mask] B={n_train} T={t_train} m_lens={REFERENCE_M_LENS}: losses kernel {losses_m} "
+          f"plain {losses_mp}; loss_mot_feat kernel {feats_m} plain {feats_mp}; max rel diff "
+          f"{max(rel_m):.3g}; launches per step {per_step_m}")
+    print(f"[time] reference-mask train step B={n_train} T={t_train}: K8 path median "
+          f"{np.median(times_m) * 1e3:.1f} ms, plain path median {np.median(times_mp) * 1e3:.1f} ms "
+          f"(per step: K8 {[round(x * 1e3, 1) for x in times_m]}, plain "
+          f"{[round(x * 1e3, 1) for x in times_mp]}) on {smi}")
+    if not all(np.isfinite(losses_m + feats_m)) or max(rel_m) > TRAIN_LOSS_REL_TOL:
+        raise SystemExit("chip_smoke: the reference-mask step disagrees with the plain path")
+    if any(c["linear_attention"] != md.num_layers or min(c["stgcn_forward"], c["stgcn_backward"]) == 0
+           for c in per_step_m):
+        raise SystemExit(f"chip_smoke: K8 / K7 not launched as expected in every step: {per_step_m}")
+    counts["linear_attention"] = sum(c["linear_attention"] for c in per_step_m)
+    del mask_tr, mask_plain
+
+    # 9. serving on the plain layers in bf16, K4 encoder and K8 attention
+    flax_tr = DDPMTrainer(cfg.replace(denoiser=DenoiserConfig(layer_impl="flax")), device="cuda")
+    fd = flax_tr.cfg.denoiser
+    if (fd.compute_dtype, fd.attention_impl, fd.music_encoder_impl) != ("bfloat16", "pallas", "pallas"):
+        raise SystemExit(f"chip_smoke: 'auto' with layer_impl='flax' resolved to {fd}")
+    flax_tr.load_reference_state_dict(sd)
+    reset_launch_counts()
+    out_flax = flax_tr.generate(mel, num_steps=50, noise=noise)
+    torch.cuda.synchronize()
+    flax_counts = launch_counts()
+    err_f = float((out_flax - ref).abs().max())
+    print(f"[serve-flax] ddim50 B=2 bf16 plain layers: max_abs_err vs plain {err_f:.6g} (plain max "
+          f"{scale:.6g}) launches {flax_counts}")
+    if (tuple(out_flax.shape) != (2, 1800, 26) or not bool(torch.isfinite(out_flax).all())
+            or not err_f <= GENERATE_REL_TOL * scale):
+        raise SystemExit("chip_smoke: generate on the bf16 plain layers is wrong")
+    if flax_counts["linear_attention"] != fd.num_layers * 50 or flax_counts["conv_block"] == 0:
+        raise SystemExit(f"chip_smoke: K8 / K4 not launched as expected in serving: {flax_counts}")
+    _, t_flax = _timed(lambda: flax_tr.generate(mel, num_steps=50, noise=noise))
+    print(f"[time] ddim50 B=2 on the bf16 plain layers (K4, K8): {t_flax * 1e3:.1f} ms on {smi}")
 
     kernels = []
     for r in results:

@@ -232,6 +232,7 @@ class Config:
 # "pallas_fused" / "pallas" mean "the kernel path", which in this package is
 # CUDA C++ (`conductor_tpu_torch/csrc/`).
 _AUTO_FIELDS = {
+    "attention_impl": ("pallas", "xla"),
     "compute_dtype": ("bfloat16", "float32"),
     "layer_impl": ("pallas_fused", "flax"),
     "train_layer_impl": ("pallas_fused", "flax"),
@@ -241,11 +242,14 @@ _AUTO_FIELDS = {
 
 def resolve_auto(cfg: Config, device: torch.device | str) -> Config:
     """Resolve the "auto" implementation knobs for ``device``.  Explicit
-    values are kept as given.  As in the JAX package, "auto" training layers
-    fall back to the plain modules when dropout is on or the reference mask
-    is replicated, and "auto" falls back where a kernel's gate fails:
+    values are kept as given.  As in the JAX package
+    (`conductor_tpu/config.py:192-220`), "auto" falls back to the plain
+    modules without linear attention (the kernels compute linear attention
+    only: ``attention_impl`` "xla", the layers "flax"), and "auto" training
+    layers fall back to the plain modules when dropout is on or the
+    reference mask is replicated.  One rule is the port's own:
     ``feat_impl`` "auto" is the ST-GCN kernel (K7, "pallas") on a CUDA
-    device when the compute dtype resolves to bfloat16, the kernel's
+    device only when the compute dtype resolves to bfloat16, the kernel's
     operands, and the plain module ("flax") otherwise.  Idempotent."""
     cuda = torch.device(device).type == "cuda"
     d = cfg.denoiser
@@ -253,6 +257,10 @@ def resolve_auto(cfg: Config, device: torch.device | str) -> Config:
         k: (cuda_v if cuda else plain_v) if getattr(d, k) == "auto" else getattr(d, k)
         for k, (cuda_v, plain_v) in _AUTO_FIELDS.items()
     }
+    if not d.efficient_attention:
+        for k in ("attention_impl", "layer_impl", "train_layer_impl"):
+            if getattr(d, k) == "auto":
+                resolved[k] = "xla" if k == "attention_impl" else "flax"
     if d.train_layer_impl == "auto" and (d.dropout != 0.0 or cfg.train.replicate_reference_mask):
         resolved["train_layer_impl"] = "flax"
     feat = cfg.train.feat_impl

@@ -10,7 +10,9 @@ K6) on layer 0 of a training forward, `check_stgcn_kernels` for K7 on
 the perceptual term's inputs (`perceptual_inputs`), and
 `check_stage1_kernels` for the stage-1 music encoder's kernels (K9, K10,
 K11, and K4 in its training modes) on the inputs and cotangents of its
-calls in one train-mode forward and backward (`stage1_kernel_inputs`).  For
+calls in one train-mode forward and backward (`stage1_kernel_inputs`), and
+`check_attention_kernel` for K8 on q, k and v as its wrapper hands them
+over, the key mask folded in.  For
 each kernel it reports the largest absolute difference, the largest
 absolute plain value (for a kernel with several outputs, those of the
 output worst relative to its own scale, and every output's pair in
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 from torch.utils.flop_counter import FlopCounterMode
 
 from .diffusion import q_sample
+from .ops.attention import fold_key_mask, linear_attention_kernel, linear_attention_plain
 from .ops.conv_block import conv_block_plain, fused_conv_block
 from .ops.conv_train import conv3x3_dkernel, conv3x3_dkernel_plain
 from .ops.max_pool import fused_max_pool, max_pool_bwd, max_pool_bwd_plain, max_pool_plain
@@ -227,7 +230,7 @@ def perceptual_inputs(trainer, cond, motion, *, seed: int = 0):
     on ``cond`` and ``motion`` (B, T, J, 2), with seeded t and noise: pred
     and target (B, T, J, 2), and dy, the cotangent that the loss's L1 mean
     gives pred's latents, sign(f(pred) - f(target)) / numel, with f the
-    plain float32 module."""
+    trainer's plain module (in its compute dtype)."""
     dev = motion.device
     b, n = motion.shape[0], motion.shape[1]
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -298,8 +301,7 @@ def stage1_kernel_inputs(trainer, music, motion, starts) -> tuple[list, list]:
     m1, _, p1, _ = trainer._pairs(music, motion, "hard", starts, None)
     convs, pools = [], []
     trainer.model.train()
-    with trainer._autocast():
-        prob = trainer.model(m1, p1)
+    prob = trainer.model(m1, p1)
     loss = _bce(prob, 1.0)
     seen, stack = set(), [loss.grad_fn]
     while stack:
@@ -381,3 +383,16 @@ def check_stage1_kernels(convs, pools, *, reps: int = 5, rel_tol: float = REL_TO
     k4 = _merge("conv_block", conv_fwd + conv_dx)
     return [_merge("conv3x3_dkernel", dkernel), _merge("max_pool", pool_fwd), k11,
             k4 | {"name": "conv_block_train"}]
+
+
+@torch.no_grad()
+def check_attention_kernel(q, k, v, key_mask, num_heads: int, *, reps: int = 5,
+                           rel_tol: float = REL_TOL) -> dict:
+    """K8 against its plain version on q, k, v (B, T, D) and ``key_mask``
+    (B, T, 1) folded into k and v as `ops.attention.fused_linear_attention`
+    folds it (a float32 mask makes bf16 k and v float32).  No single
+    PyTorch call computes this function, so there is no library time."""
+    k, v = fold_key_mask(k, v, key_mask)
+    return _compare("linear_attention", lambda: linear_attention_kernel(q, k, v, num_heads),
+                    lambda: linear_attention_plain(q, k, v, num_heads), reps, rel_tol,
+                    (q, k, v)) | {"shape": list(q.shape), "kv_dtype": str(k.dtype)}

@@ -7,8 +7,9 @@ mode in one respect: the running variance moves toward the BIASED batch
 variance, where torch uses the unbiased one (0.8 % apart at the ST-GCN's
 ``data_bn`` over B * T = 120 frames).  The momentum is flax's 0.99, torch's
 ``momentum=0.01``; eps 1e-5; batch statistics in float32 whatever the
-activations' dtype, the output in that dtype.  Eval mode normalises with the
-running statistics, as torch's BatchNorm.
+activations' dtype, the output in that dtype or in the ``dtype`` given (flax's
+``nn.BatchNorm(dtype=...)``, `models.precision`).  Eval mode normalises with
+the running statistics, as torch's BatchNorm.
 
 `BatchNorm` keeps the reference key names (``weight``, ``bias``,
 ``running_mean``, ``running_var``, ``num_batches_tracked``), so reference
@@ -32,7 +33,8 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         if x.dim() < 2:
             raise ValueError(f"BatchNorm takes at least 2-D input, got {x.dim()}-D")
 
-    def forward(self, x: torch.Tensor, channel_dim: int = 1) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, channel_dim: int = 1,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
         channel_dim %= x.dim()
         x32 = x.float()
         if not self.training:
@@ -48,4 +50,4 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         shift = self.bias - mean * scale
         shape = [1] * x.dim()
         shape[channel_dim] = -1
-        return (x32 * scale.view(shape) + shift.view(shape)).to(x.dtype)
+        return (x32 * scale.view(shape) + shift.view(shape)).to(dtype or x.dtype)

@@ -5,7 +5,8 @@ ST-GCN motion encoder, fused by pointwise layers into a per-frame sync
 probability.  The fusion head keeps the reference's Conv1d form and keys
 (`fuse_layer.{0,2,4}`: Conv1d(128 -> 64, 1), ReLU, Conv1d(64 -> 64, 1),
 ReLU, Conv1d(64 -> 1, 1), Sigmoid), so a reference M2SNet state dict loads
-strictly (`interop.load_m2snet_state_dict`).
+strictly (`interop.load_m2snet_state_dict`).  ``compute_dtype`` rounds the
+three parts where the flax modules' ``dtype=`` does (`models.precision`).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 from torch import nn
 
 from .music_encoder import MusicEncoder
+from .precision import conv
 from .stgcn import MotionEncoderSTGCN
 
 
@@ -25,7 +27,8 @@ class M2SNet(nn.Module):
         super().__init__()
         self.music_encoder = MusicEncoder(latent_dim, conv_impl=music_conv_impl,
                                           dtype=compute_dtype)
-        self.motion_encoder = MotionEncoderSTGCN(latent_dim)
+        self.dtype = compute_dtype
+        self.motion_encoder = MotionEncoderSTGCN(latent_dim, dtype=compute_dtype)
         self.fuse_layer = nn.Sequential(
             nn.Conv1d(2 * latent_dim, latent_dim, 1), nn.ReLU(),
             nn.Conv1d(latent_dim, latent_dim, 1), nn.ReLU(),
@@ -38,8 +41,10 @@ class M2SNet(nn.Module):
 
     def fuse(self, hx: torch.Tensor, hy: torch.Tensor) -> torch.Tensor:
         """Sync probability (B, T30, 1) from the two latents."""
-        h = torch.cat([hx, hy], dim=-1)
-        return self.fuse_layer(h.transpose(1, 2)).transpose(1, 2)
+        first, _, second, _, third, _ = self.fuse_layer
+        h = torch.cat([hx, hy], dim=-1).transpose(1, 2)
+        h = torch.relu(conv(second, torch.relu(conv(first, h, self.dtype)), self.dtype))
+        return torch.sigmoid(conv(third, h, self.dtype)).transpose(1, 2)
 
     def forward(self, mel: torch.Tensor, motion: torch.Tensor) -> torch.Tensor:
         return self.fuse(*self.encode(mel, motion))

@@ -8,7 +8,9 @@ as plain PyTorch modules with the reference key names
 (`ops/pallas_conv.py:68-72`) and the stage pools as its epilogue.
 
 `MusicEncoder` trains in either of the JAX package's two paths, on the same
-parameters: ``conv_impl="lax"``, plain NCHW modules with T as height, and
+parameters: ``conv_impl="lax"``, plain NCHW modules with T as height that
+round where flax's ``dtype=`` does (`models.precision`: each conv in the
+compute dtype, BatchNorm in float32 returning it), and
 ``conv_impl="pallas_train"`` (`:22-112, 158-181, 231-254`), NHWC (B, T, F,
 C) activations in the compute dtype, each 3x3 conv on
 `ops.conv_train.conv3x3_train` (K4 forward and d(input), K9 d(kernel)),
@@ -32,6 +34,7 @@ from ..ops.conv_block import fold_bn, fused_conv_block
 from ..ops.conv_train import conv3x3_train
 from ..ops.max_pool import max_pool_train
 from .bn import BatchNorm
+from .precision import conv
 
 CONV_IMPLS = ("lax", "pallas_train")
 
@@ -47,13 +50,15 @@ class Conv2dResBlock(nn.Module):
         if self.res_mode == 2:
             self.residual = nn.Sequential(nn.Conv2d(cin, cout, 1), BatchNorm(cout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, Cin, T, F) -> (B, Cout, T, F)."""
-        y = self.conv2d_layer(F.pad(x, (1, 1, 1, 1), mode="reflect"))
+    def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """x (B, Cin, T, F) -> (B, Cout, T, F) in ``dtype``."""
+        conv_, bn = self.conv2d_layer[0], self.conv2d_layer[1]
+        y = torch.relu(bn(conv(conv_, F.pad(x, (1, 1, 1, 1), mode="reflect"), dtype)))
         if self.res_mode == 1:
             return y + x
         if self.res_mode == 2:
-            return y + self.residual(x)
+            rconv, rbn = self.residual
+            return y + rbn(conv(rconv, x, dtype))
         return y
 
     def forward_packed(self, x: torch.Tensor) -> torch.Tensor:
@@ -88,10 +93,10 @@ def max_pool(x: torch.Tensor, pool) -> torch.Tensor:
 class MusicEncoder(nn.Module):
     """(B, T90, 128) mel -> (B, T30, out_dim) frame features.
 
-    ``conv_impl`` picks the conv-stage path ("lax": plain float32 modules;
-    "pallas_train": the packed NHWC path on the kernels, activations in
-    ``dtype``).  Train mode normalises with batch statistics and moves the
-    running ones (`models.bn`)."""
+    ``conv_impl`` picks the conv-stage path ("lax": the plain modules;
+    "pallas_train": the packed NHWC path on the kernels); both compute in
+    ``dtype`` and return it.  Train mode normalises with batch statistics
+    and moves the running ones (`models.bn`)."""
 
     def __init__(self, out_dim: int = 64, conv_impl: str = "lax",
                  dtype: torch.dtype = torch.float32):
@@ -111,10 +116,13 @@ class MusicEncoder(nn.Module):
             return self._forward_packed(mel)
         x = mel[:, None]  # (B, 1, T90, 128)
         for name in ("conv1", "conv2", "conv3"):
-            x = max_pool(getattr(self, name)(x), POOLS[name])
+            for blk in getattr(self, name):
+                x = blk(x, self.dtype)
+            x = max_pool(x, POOLS[name])
         b, c, t, f = x.shape
         h = x.permute(0, 2, 1, 3).reshape(b, t, c * f)  # channel-major (C, F)
-        return self.conv4(h.transpose(1, 2)).transpose(1, 2)
+        proj, bn = self.conv4
+        return bn(conv(proj, h.transpose(1, 2), self.dtype)).transpose(1, 2)
 
     def _forward_packed(self, mel: torch.Tensor) -> torch.Tensor:
         x = mel.to(self.dtype)[..., None]  # (B, T90, 128, 1)

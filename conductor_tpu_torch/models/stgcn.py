@@ -18,6 +18,12 @@ encoder never runs; it is kept so that the keys match.  The BatchNorms
 as it is (plain, as the JAX package runs it); the stage-2 trainer keeps it
 frozen (`freeze`: eval BatchNorm, no parameter gradients, gradients to its
 input only) and runs it on K7 (`ops.stgcn`), packed from these weights.
+
+``dtype`` rounds where the flax module's ``dtype=`` does (`models.precision`,
+JAX `models/stgcn.py:33-137`): the BatchNorms and the projection return
+``dtype``, the graph and temporal convolutions take their product in it
+and add their bias in float32, as the JAX module's hand-written
+convolutions do, so those two return float32 into the next BatchNorm.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from torch import nn
 
 from .bn import BatchNorm
 from .graph import build_adjacency
+from .precision import conv
 
 # (out channels, temporal stride, residual) per block, M2S mode
 # (`conductor_tpu/models/stgcn.py:141-147`)
@@ -41,10 +48,14 @@ class ConvTemporalGraphical(nn.Module):
         self.k = k
         self.conv = nn.Conv2d(cin, cout * k, 1)
 
-    def forward(self, x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-        y = self.conv(x)
+    def forward(self, x: torch.Tensor, a: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        # as the JAX module: the product in ``dtype``, the bias contracted
+        # apart and added in float32
+        y = self.conv._conv_forward(x.to(dtype), self.conv.weight.to(dtype), None)
         b, kc, t, v = y.shape
-        return torch.einsum("nkctv,kvw->nctw", y.reshape(b, self.k, kc // self.k, t, v), a)
+        y = torch.einsum("nkctv,kvw->nctw", y.reshape(b, self.k, kc // self.k, t, v), a.to(dtype))
+        return y + torch.einsum("kc,kvw->cw", self.conv.bias.reshape(self.k, -1), a)[:, None]
 
 
 class STGCNBlock(nn.Module):
@@ -60,8 +71,11 @@ class STGCNBlock(nn.Module):
             BatchNorm(cout), nn.Dropout(0.0),
         )
 
-    def forward(self, x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-        y = self.tcn(self.gcn(x, a))
+    def forward(self, x: torch.Tensor, a: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        bn1, _, tconv, bn2, _ = self.tcn
+        y = torch.relu(bn1(self.gcn(x, a, dtype), dtype=dtype))
+        y = bn2(conv(tconv, y, dtype, bias_dtype=torch.float32), dtype=dtype)
         return torch.relu(y + x if self.residual else y)
 
 
@@ -80,30 +94,32 @@ class STGCN(nn.Module):
         self.edge_importance = nn.ParameterList(nn.Parameter(torch.ones_like(a)) for _ in blocks)
         self.fcn = nn.Conv2d(256, cin, 1)  # the reference's unused classifier head
 
-    def forward(self, motion: torch.Tensor) -> torch.Tensor:
-        """motion (B, T, V, C) -> (B, C_out, T, V)."""
+    def forward(self, motion: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """motion (B, T, V, C) -> (B, C_out, T, V) in ``dtype``."""
         b, t, v, c = motion.shape
-        x = self.data_bn(motion.reshape(b, t, v * c).transpose(1, 2))
+        x = self.data_bn(motion.reshape(b, t, v * c).transpose(1, 2), dtype=dtype)
         x = x.reshape(b, v, c, t).permute(0, 2, 3, 1)
         for blk, imp in zip(self.st_gcn_networks, self.edge_importance):
-            x = blk(x, self.A * imp)
+            x = blk(x, self.A * imp, dtype)
         return x
 
 
 class MotionEncoderSTGCN(nn.Module):
     """(B, T, 13, 2) motion -> (B, T, 64) latents."""
 
-    def __init__(self, out_dim: int = 64, n_joints: int = 13):
+    def __init__(self, out_dim: int = 64, n_joints: int = 13, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.st_gcn = STGCN()
         width = M2S_BLOCKS[-1][0] * n_joints
         self.fc = nn.Sequential(nn.Conv1d(width, out_dim, 1), BatchNorm(out_dim))
 
     def forward(self, motion: torch.Tensor) -> torch.Tensor:
-        h = self.st_gcn(motion)  # (B, C, T, V)
+        h = self.st_gcn(motion, self.dtype)  # (B, C, T, V)
         b, c, t, v = h.shape
         # channel-major (C, V) flatten, as the reference's NCTV flatten
-        return self.fc(h.transpose(2, 3).reshape(b, c * v, t)).transpose(1, 2)
+        proj, bn = self.fc
+        return bn(conv(proj, h.transpose(2, 3).reshape(b, c * v, t), self.dtype)).transpose(1, 2)
 
     def freeze(self) -> "MotionEncoderSTGCN":
         """Eval BatchNorm and no parameter gradients."""

@@ -8,6 +8,16 @@ dropout, `precompute_cond`, `time_embed_table` and `denoise`), linear
 attention only.  The music encoder is frozen: it runs without gradients and
 in eval mode.
 
+``dtype`` is flax's ``dtype=`` (`models.precision`): parameters stay
+float32; every Linear and LayerNorm returns ``dtype`` (the AdaLN projection
+``silu(emb) @ W + b`` included, JAX `_adaln_mods`), the residual stream is
+in ``dtype``, the query softmaxes and the cross-attention product run in
+it, the cross-attention KV state takes its time softmax and contraction in
+float32 and is rounded to ``dtype`` (JAX `transformer.py:147-151`), the
+music encoder runs in ``dtype``, and the output is float32.
+``attention_impl`` picks the self-attention: "xla", the module math, or
+"pallas", the K8 kernel (`ops.attention`).
+
 Parameter names are the reference state-dict keys
 (`Diffusion_Stage/models/transformer.py`), so a reference checkpoint loads
 with ``load_state_dict(strict=True)``.  Unlike the flax module, which packs
@@ -26,6 +36,7 @@ from torch import nn
 
 from ..ops.linear_attention import temporal_linear_attention
 from .music_encoder import MusicEncoder
+from .precision import layer_norm, linear
 
 LN_EPS = 1e-5
 
@@ -58,32 +69,38 @@ class StylizationBlock(nn.Module):
     """AdaLN: h -> Linear(silu(LN(h) * (1 + scale) + shift)), with (scale,
     shift) = Linear(silu(emb))."""
 
-    def __init__(self, latent_dim: int, time_embed_dim: int):
+    def __init__(self, latent_dim: int, time_embed_dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(time_embed_dim, 2 * latent_dim))
         self.norm = nn.LayerNorm(latent_dim, eps=LN_EPS)
         # index 1 is the reference's dropout, which serving runs at p=0
         self.out_layers = nn.Sequential(nn.SiLU(), nn.Identity(), nn.Linear(latent_dim, latent_dim))
 
     def forward(self, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        scale, shift = self.emb_layers(emb).chunk(2, dim=-1)
-        return self.out_layers(self.norm(h) * (1 + scale) + shift)
+        dt = self.dtype
+        scale, shift = linear(self.emb_layers[1], F.silu(emb), dt).chunk(2, dim=-1)
+        return linear(self.out_layers[2], F.silu(layer_norm(self.norm, h, dt) * (1 + scale) + shift),
+                      dt)
 
 
 class LinearSelfAttention(nn.Module):
-    def __init__(self, latent_dim: int, num_heads: int, time_embed_dim: int):
+    def __init__(self, latent_dim: int, num_heads: int, time_embed_dim: int,
+                 dtype: torch.dtype = torch.float32, attention_impl: str = "xla"):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads, self.dtype, self.attention_impl = num_heads, dtype, attention_impl
         self.norm = nn.LayerNorm(latent_dim, eps=LN_EPS)
         self.query = nn.Linear(latent_dim, latent_dim)
         self.key = nn.Linear(latent_dim, latent_dim)
         self.value = nn.Linear(latent_dim, latent_dim)
-        self.proj_out = StylizationBlock(latent_dim, time_embed_dim)
+        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dtype)
 
     def forward(self, x, emb, src_mask):
-        xn = self.norm(x)
+        dt = self.dtype
+        xn = layer_norm(self.norm, x, dt)
         y = temporal_linear_attention(
-            self.query(xn), self.key(xn), self.value(xn), self.num_heads, src_mask
+            linear(self.query, xn, dt), linear(self.key, xn, dt), linear(self.value, xn, dt),
+            self.num_heads, src_mask, impl=self.attention_impl,
         )
         return x + self.proj_out(y, emb)
 
@@ -93,29 +110,34 @@ class LinearCrossAttention(nn.Module):
     and value path depends only on the music, so `kv_state` computes the
     time-softmaxed K^T V (B, H, Dh, Dh) once per clip."""
 
-    def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int, time_embed_dim: int):
+    def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int, time_embed_dim: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads, self.dtype = num_heads, dtype
         self.norm = nn.LayerNorm(latent_dim, eps=LN_EPS)
         self.text_norm = nn.LayerNorm(text_latent_dim, eps=LN_EPS)
         self.query = nn.Linear(latent_dim, latent_dim)
         self.key = nn.Linear(text_latent_dim, latent_dim)
         self.value = nn.Linear(text_latent_dim, latent_dim)
-        self.proj_out = StylizationBlock(latent_dim, time_embed_dim)
+        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dtype)
 
-    def kv_state(self, xf: torch.Tensor) -> torch.Tensor:
-        fn = self.text_norm(xf)
-        k, v = self.key(fn), self.value(fn)
+    def kv_state(self, xf: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """(B, H, Dh, Dh), the time softmax and the contraction in float32
+        from the projections in ``dtype`` (the block's by default), rounded
+        to ``dtype``."""
+        dt = dtype or self.dtype
+        fn = layer_norm(self.text_norm, xf, dt)
+        k, v = linear(self.key, fn, dt), linear(self.value, fn, dt)
         b, n, d = k.shape
         h = self.num_heads
         # the time softmax runs over the last dimension: PyTorch's softmax
         # over the middle dimension of (B, N, H, Dh) took ~1 ms a layer on an
         # H100 at N = 1800
         kh = torch.softmax(k.float().transpose(1, 2), dim=-1).reshape(b, h, d // h, n)
-        return kh @ v.float().reshape(b, n, h, d // h).transpose(1, 2)  # (B, H, Dh, Dh)
+        return (kh @ v.float().reshape(b, n, h, d // h).transpose(1, 2)).to(dt)
 
     def forward(self, x, kv, emb):
-        q = self.query(self.norm(x))
+        q = linear(self.query, layer_norm(self.norm, x, self.dtype), self.dtype)
         b, t, d = q.shape
         h = self.num_heads
         qh = torch.softmax(q.reshape(b, t, h, d // h), dim=-1)
@@ -126,25 +148,31 @@ class LinearCrossAttention(nn.Module):
 class FFN(nn.Module):
     """tanh-GELU FFN (the JAX package's `nn.gelu` is the tanh form)."""
 
-    def __init__(self, latent_dim: int, ffn_dim: int, time_embed_dim: int):
+    def __init__(self, latent_dim: int, ffn_dim: int, time_embed_dim: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.linear1 = nn.Linear(latent_dim, ffn_dim)
         self.linear2 = nn.Linear(ffn_dim, latent_dim)
-        self.proj_out = StylizationBlock(latent_dim, time_embed_dim)
+        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dtype)
 
     def forward(self, x, emb):
-        y = self.linear2(F.gelu(self.linear1(x), approximate="tanh"))
+        dt = self.dtype
+        y = linear(self.linear2, F.gelu(linear(self.linear1, x, dt), approximate="tanh"), dt)
         return x + self.proj_out(y, emb)
 
 
 class DecoderLayer(nn.Module):
     """self-attention -> cross-attention -> FFN."""
 
-    def __init__(self, latent_dim, ffn_dim, num_heads, time_embed_dim):
+    def __init__(self, latent_dim, ffn_dim, num_heads, time_embed_dim,
+                 dtype: torch.dtype = torch.float32, attention_impl: str = "xla"):
         super().__init__()
-        self.sa_block = LinearSelfAttention(latent_dim, num_heads, time_embed_dim)
-        self.ca_block = LinearCrossAttention(latent_dim, time_embed_dim, num_heads, time_embed_dim)
-        self.ffn = FFN(latent_dim, ffn_dim, time_embed_dim)
+        self.sa_block = LinearSelfAttention(latent_dim, num_heads, time_embed_dim, dtype,
+                                            attention_impl)
+        self.ca_block = LinearCrossAttention(latent_dim, time_embed_dim, num_heads, time_embed_dim,
+                                             dtype)
+        self.ffn = FFN(latent_dim, ffn_dim, time_embed_dim, dtype)
 
     def forward(self, x, cross_kv, emb, src_mask):
         x = self.sa_block(x, emb, src_mask)
@@ -166,13 +194,16 @@ class MotionTransformer(nn.Module):
         num_heads: int = 8,
         music_latent_dim: int = 64,
         cond_mask_prob: float = 0.1,
+        dtype: torch.dtype = torch.float32,
+        attention_impl: str = "xla",
     ):
         super().__init__()
         self.latent_dim = latent_dim
         self.num_heads = num_heads
         self.cond_mask_prob = cond_mask_prob
+        self.dtype = dtype
         time_embed_dim = latent_dim * 4
-        self.music_encoder = MusicEncoder(out_dim=music_latent_dim)
+        self.music_encoder = MusicEncoder(out_dim=music_latent_dim, dtype=dtype)
         self.proj = nn.Linear(music_latent_dim, music_latent_dim)
         # the reference hard-codes Linear(64, 512); the music tokens are added
         # to the time embedding, so the width tracks time_embed_dim
@@ -184,20 +215,25 @@ class MotionTransformer(nn.Module):
             nn.Linear(time_embed_dim, time_embed_dim),
         )
         self.temporal_decoder_blocks = nn.ModuleList(
-            DecoderLayer(latent_dim, ff_size, num_heads, time_embed_dim)
+            DecoderLayer(latent_dim, ff_size, num_heads, time_embed_dim, dtype, attention_impl)
             for _ in range(num_layers)
         )
         self.out = nn.Linear(latent_dim, input_feats)
 
     @classmethod
     def from_config(cls, d) -> "MotionTransformer":
-        """Build from a `DenoiserConfig`."""
+        """Build from a `DenoiserConfig`, its compute dtype and attention
+        impl included; an unresolved "auto" takes the plain module's
+        float32 and "xla" (the trainers resolve first, `config.resolve_auto`)."""
         if not d.efficient_attention:
             raise NotImplementedError("the port implements linear attention only")
+        dtype = "float32" if d.compute_dtype == "auto" else d.compute_dtype
         return cls(
             input_feats=d.input_feats, num_frames=d.num_frames, latent_dim=d.latent_dim,
             ff_size=d.ff_size, num_layers=d.num_layers, num_heads=d.num_heads,
             music_latent_dim=d.music_latent_dim, cond_mask_prob=d.cond_mask_prob,
+            dtype=getattr(torch, dtype),
+            attention_impl="xla" if d.attention_impl == "auto" else d.attention_impl,
         )
 
     def encode_music(self, mel: torch.Tensor, train: bool = False, *,
@@ -222,36 +258,44 @@ class MotionTransformer(nn.Module):
             if keep is None:
                 keep = cond_keep_mask(x.shape[:2], self.cond_mask_prob, generator, x.device)
             x = x * keep.to(x)[..., None]
-        return self.proj(x), x
+        return linear(self.proj, x, self.dtype), x
 
     def precompute_cond(self, xf_proj: torch.Tensor, xf_out: torch.Tensor) -> dict:
         """The step-invariant conditioning: the music projection added to
         the time embedding, and every layer's cross-attention KV state."""
-        xf_o = self.linear(xf_out)
+        xf_o = linear(self.linear, xf_out, self.dtype)
         return {
-            "emb_base": self.linear(xf_proj),
+            "emb_base": linear(self.linear, xf_proj, self.dtype),
             "cross": [blk.ca_block.kv_state(xf_o) for blk in self.temporal_decoder_blocks],
         }
 
+    def _time_embed(self, timesteps: torch.Tensor) -> torch.Tensor:
+        temb = timestep_embedding(timesteps, self.latent_dim)
+        first, _, second = self.time_embed
+        return linear(second, F.silu(linear(first, temb, self.dtype)), self.dtype)
+
     def time_embed_table(self, num_timesteps: int) -> torch.Tensor:
         """All (num_timesteps, 4*latent) time embeddings in one batch."""
-        t = torch.arange(num_timesteps, device=self.sequence_embedding.device)
-        return self.time_embed(timestep_embedding(t, self.latent_dim))
+        return self._time_embed(torch.arange(num_timesteps, device=self.sequence_embedding.device))
 
     def denoise(self, x, timesteps, cond: dict, src_mask: torch.Tensor | None = None):
-        """One denoiser call on a `precompute_cond` condition."""
+        """One denoiser call on a `precompute_cond` condition; ``src_mask``
+        (B, T, 1) is the self-attention's key mask, all ones by default (in
+        float32, as JAX makes it from the float32 x)."""
         b, t = x.shape[0], x.shape[1]
         if x.ndim == 4:  # (B, T, J, 2) -> (B, T, 26)
             x = x.reshape(b, t, -1)
+        if src_mask is None:
+            src_mask = torch.ones((b, t, 1), device=x.device)
         if "temb_table" in cond:
             temb = cond["temb_table"][timesteps]
         else:
-            temb = self.time_embed(timestep_embedding(timesteps, self.latent_dim))
+            temb = self._time_embed(timesteps)
         emb = temb[:, None, :] + cond["emb_base"]
-        h = self.joint_embed(x) + self.sequence_embedding[None, :t]
+        h = linear(self.joint_embed, x, self.dtype) + self.sequence_embedding[None, :t].to(self.dtype)
         for blk, kv in zip(self.temporal_decoder_blocks, cond["cross"]):
             h = blk(h, kv, emb, src_mask)
-        return self.out(h).float()
+        return linear(self.out, h, self.dtype).float()
 
     def forward(self, x, timesteps, xf_proj, xf_out, src_mask=None):
         return self.denoise(x, timesteps, self.precompute_cond(xf_proj, xf_out), src_mask)

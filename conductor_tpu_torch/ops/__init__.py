@@ -5,6 +5,7 @@ each time it launches its kernel on a CUDA tensor (never on the plain CPU
 path).  `launch_counts` / `reset_launch_counts` read and clear them.
 """
 
+from .attention import fused_linear_attention, linear_attention_kernel  # noqa: F401
 from .conv_block import fold_bn, fused_conv_block  # noqa: F401
 from .conv_train import conv3x3_dkernel, conv3x3_train  # noqa: F401
 from .decoder_layer import decoder_layer_plain, fused_decoder_layer  # noqa: F401
@@ -37,6 +38,7 @@ KERNELS = {
     "conv3x3_dkernel": conv3x3_dkernel,
     "max_pool": fused_max_pool,
     "max_pool_bwd": max_pool_bwd,
+    "linear_attention": linear_attention_kernel,
 }
 
 

@@ -61,6 +61,8 @@ SIGNATURES = {
     "stgcn_forward": ([_P] * 11 + [_I] * 3 + [_P], _I),
     # dy, m0, m, wt, fc, hbuf, gbuf, dh, da, dx, B, T, stream
     "stgcn_backward": ([_P] * 10 + [_I] * 2 + [_P], _I),
+    # q, k, v, out, workspace, B, Tq, Tk, H, q_bf16, kv_bf16, stream
+    "linear_attention_forward": ([_P] * 5 + [_I] * 6 + [_P], _I),
 }
 
 

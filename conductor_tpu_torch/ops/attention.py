@@ -1,0 +1,111 @@
+"""K8: the standalone linear self-attention.
+
+Port of `conductor_tpu/ops/pallas_attention.py::fused_linear_attention`
+(wrapper :152-168, kernel `_attention_kernel` :45-76, pallas_call at :99,
+custom_vjp :133-149).  `fused_linear_attention` adds the reference's key
+mask as the JAX wrapper does (``k + (1 - mask) * -1e6``, ``v * mask``; with
+a float32 mask, bf16 k and v become float32, as in JAX), then calls a
+`torch.autograd.Function`:
+
+- forward, `linear_attention_kernel`: on CUDA tensors the kernel in
+  `csrc/linear_attention.cu`, on CPU tensors its plain version
+  `linear_attention_plain`, the kernel's math: q softmaxed within each
+  head's Dh features, k over time, KV = k_sm^T v per head, y = q_sm KV,
+  float32 throughout from the inputs, y in q's dtype;
+- backward: autograd of `linear_attention_plain`, recomputed from the saved
+  q, k and v.  The JAX custom_vjp differentiates its XLA formulation in the
+  inputs' dtypes and has no backward kernel, so neither has the port.  (The
+  JAX backward raises on the mixed dtypes a float32 mask gives, bf16 q with
+  float32 k and v: its VJP is handed a bf16 cotangent for a float32
+  output.  The plain formula's float32 gradients, cast to each input's
+  dtype, have no such case.)
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+
+def linear_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           num_heads: int) -> torch.Tensor:
+    """q (B, Tq, D), k and v (B, Tk, D), any float dtypes -> y (B, Tq, D)
+    in q's dtype, computed in float32."""
+    b, tq, d = q.shape
+    dh = d // num_heads
+    qs = torch.softmax(q.float().reshape(b, tq, num_heads, dh), dim=-1)
+    ks = torch.softmax(k.float().reshape(b, -1, num_heads, dh), dim=1)
+    kv = torch.einsum("bnhd,bnhl->bhdl", ks, v.float().reshape(b, -1, num_heads, dh))
+    return torch.einsum("bnhd,bhdl->bnhl", qs, kv).reshape(b, tq, d).to(q.dtype)
+
+
+HEAD_DIM = 16  # the kernel's head width: D = 128 with 8 heads
+CHUNK = 128    # rows of one block (csrc/linear_attention.cu kChunk)
+_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def linear_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            num_heads: int) -> torch.Tensor:
+    """`linear_attention_plain`'s function; on a CUDA tensor the kernel,
+    which takes contiguous q (B, Tq, D) and k, v (B, Tk, D), each bf16 or
+    float32 (k and v of one dtype), with D / num_heads = 16, and raises on
+    anything else."""
+    if not q.is_cuda:
+        return linear_attention_plain(q, k, v, num_heads)
+    b, tq, d = q.shape
+    tk = k.shape[1]
+    if (q.dtype not in _DTYPES or k.dtype not in _DTYPES or v.dtype != k.dtype
+            or d != num_heads * HEAD_DIM):
+        raise ValueError(f"linear_attention: the kernel takes bf16 or float32 q and k = v dtypes "
+                         f"and D = {HEAD_DIM} * num_heads; got q {q.dtype}, k {k.dtype}, "
+                         f"v {v.dtype}, D {d}, {num_heads} heads")
+    _build.require(q, "q", q.dtype, (b, tq, d))
+    _build.require(k, "k", k.dtype, (b, tk, d))
+    _build.require(v, "v", k.dtype, (b, tk, d))
+    out = torch.empty_like(q)
+    n_chunks = -(-tk // CHUNK)
+    workspace = torch.empty((b, num_heads, n_chunks, (2 + HEAD_DIM) * HEAD_DIM),
+                            dtype=torch.float32, device=q.device)
+    err = _build.library().linear_attention_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), workspace.data_ptr(),
+        b, tq, tk, num_heads, int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
+        _build.stream())
+    _build.check(err, "linear_attention_forward")
+    linear_attention_kernel.launches += 1
+    return out
+
+
+linear_attention_kernel.launches = 0
+
+
+class _LinearAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads):
+        ctx.save_for_backward(q, k, v)
+        ctx.num_heads = num_heads
+        return linear_attention_kernel(q, k, v, num_heads)
+
+    @staticmethod
+    def backward(ctx, dy):
+        inputs = [a.detach().requires_grad_(True) for a in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = linear_attention_plain(*inputs, ctx.num_heads)
+            return (*torch.autograd.grad(out, inputs, dy), None)
+
+
+def fold_key_mask(k: torch.Tensor, v: torch.Tensor, key_mask: torch.Tensor | None):
+    """The reference's key mask (B, Tk, 1) folded into k and v: -1e6 added
+    to masked keys, masked values zeroed (with torch's, and JAX's, type
+    promotion)."""
+    if key_mask is None:
+        return k, v
+    return k + (1.0 - key_mask) * -1000000.0, v * key_mask
+
+
+def fused_linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+                           key_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """q, k, v (B, T, D) pre-softmax projections; ``key_mask`` (B, Tk, 1)
+    as the reference's additive -1e6 on keys and multiplicative on values.
+    Returns (B, Tq, D) in q's dtype."""
+    return _LinearAttention.apply(q, *fold_key_mask(k, v, key_mask), num_heads)

@@ -4,27 +4,39 @@ Port of `DDPMTrainer` (`conductor_tpu/train/ddpm_trainer.py`).
 
 `train_step` is one step of `_train_step_impl` / `_losses` (`:190-330`):
 the 5-term objective ``1 * masked MSE + 1e-6 * L1(frozen ST-GCN latents) +
-0.1 * velocity - 0.1 * clamp(elbow, +-2e-4) + 0.1 * head`` (full-window
-mask), uniform timesteps, condition dropout, then optax's global-norm clip
-and Adam (`train/optim.py`).  With ``train_layer_impl == "pallas_fused"``
-(the port's "auto" on CUDA) the denoiser's layers run through
+0.1 * velocity - 0.1 * clamp(elbow, +-2e-4) + 0.1 * head``, uniform
+timesteps, condition dropout, then optax's global-norm clip and Adam
+(`train/optim.py`).  The MSE's mask is the full window, or with
+``replicate_reference_mask`` the reference's ``min(T, m_lens)`` frames,
+which the plain layers also take as the self-attention's key mask.  With
+``train_layer_impl == "pallas_fused"`` (the port's "auto" on CUDA, gated
+off by the reference mask or dropout) the denoiser's layers run through
 `fused_train_denoise`: K5 forward, K6 backward; otherwise the plain
-modules and autograd.  The perceptual term runs the frozen ST-GCN: with
-``feat_impl == "pallas"`` (the port's "auto" on CUDA with bf16 operands) on
-`ops.stgcn.fused_frozen_stgcn`, K7 forward on pred and target and K7
-backward to pred, over weights packed once outside the step; otherwise the
-plain `MotionEncoderSTGCN` and autograd.
+modules in the compute dtype (flax's ``dtype=`` rule, `models.precision`)
+and autograd, their self-attention on K8 with ``attention_impl ==
+"pallas"`` (`ops.attention`).  The perceptual term runs the frozen ST-GCN:
+with ``feat_impl == "pallas"`` (the port's "auto" on CUDA with bf16
+operands) on `ops.stgcn.fused_frozen_stgcn`, K7 forward on pred and target
+and K7 backward to pred, over weights packed once outside the step;
+otherwise the plain `MotionEncoderSTGCN` and autograd.  From mel the frozen
+music encoder runs in the compute dtype, as the JAX trainer's
+`MotionTransformer(dtype=compute_dtype)` runs it.
 
 `generate` (`:401-531`) encodes the music once, precomputes the
 step-invariant condition and the time-embedding table, then runs the
 (optionally respaced) eta=0 DDIM ladder.  With ``layer_impl ==
-"pallas_fused"`` the encoder runs on the conv-block kernel and the ladder
-on the sampler and decoder-stack kernels (`FusedDenoiser.ddim_sample`);
-otherwise the plain modules run through the generic `ddim_sample_loop`.
+"pallas_fused"`` the ladder runs on the sampler and decoder-stack kernels
+(`FusedDenoiser.ddim_sample`); otherwise the plain modules in the compute
+dtype run through the generic `ddim_sample_loop`.  With
+``music_encoder_impl == "pallas"`` the encoder runs on the conv-block
+kernel.
+
+Both entry points run with TF32 off (`models.precision.full_float32`), so
+a float32 path is float32 on the card too.
 
 Not ported yet, raising NotImplementedError: the loss-second-moment
-timestep sampler, `replicate_reference_mask`, checkpoints, classifier-free
-guidance, the ancestral sampler and the int8 / bf16-VPU sampler modes.
+timestep sampler, denoiser dropout, checkpoints, classifier-free guidance,
+the ancestral sampler and the int8 / bf16-VPU sampler modes.
 """
 
 from __future__ import annotations
@@ -43,6 +55,7 @@ from ..diffusion import (
 )
 from ..interop.weights import load_motion_encoder_state_dict, load_reference_state_dict
 from ..models.music_encoder import FusedMusicEncoder
+from ..models.precision import full_float32
 from ..models.stgcn import MotionEncoderSTGCN
 from ..models.transformer import MotionTransformer
 from ..ops.stgcn import fused_frozen_stgcn, pack_frozen_stgcn
@@ -63,11 +76,13 @@ class DDPMTrainer:
             raise NotImplementedError("sampler_adaln_int8 is not ported yet")
         if d.sampler_vpu_dtype != "float32":
             raise NotImplementedError("sampler_vpu_dtype='bfloat16' is not ported yet")
-        if d.layer_impl not in ("flax", "pallas_fused") or d.music_encoder_impl not in ("flax", "pallas"):
-            raise ValueError(f"unknown layer_impl / music_encoder_impl: {d.layer_impl}, "
-                             f"{d.music_encoder_impl}")
-        if d.compute_dtype != "float32" and "flax" in (d.layer_impl, d.music_encoder_impl):
-            raise NotImplementedError("the plain module path runs float32 only")
+        if (d.layer_impl not in ("flax", "pallas_fused")
+                or d.music_encoder_impl not in ("flax", "pallas")
+                or d.attention_impl not in ("xla", "pallas")
+                or d.compute_dtype not in ("float32", "bfloat16")):
+            raise ValueError(f"unknown layer_impl / music_encoder_impl / attention_impl / "
+                             f"compute_dtype: {d.layer_impl}, {d.music_encoder_impl}, "
+                             f"{d.attention_impl}, {d.compute_dtype}")
         if (cfg.diffusion.mean_type, cfg.diffusion.var_type) != ("start_x", "fixed_small"):
             raise NotImplementedError("the port serves START_X / FIXED_SMALL only")
         _check_training_config(cfg, device)
@@ -75,7 +90,8 @@ class DDPMTrainer:
         self.device = device
         self.model = MotionTransformer.from_config(d).to(device).eval()
         self.model.music_encoder.requires_grad_(False)  # frozen, as in the JAX package
-        self.feat_model = MotionEncoderSTGCN(n_joints=cfg.dataset.n_joints).to(device).freeze()
+        self.feat_model = MotionEncoderSTGCN(n_joints=cfg.dataset.n_joints,
+                                             dtype=getattr(torch, d.compute_dtype)).to(device).freeze()
         self._build_feat_pack()
         self.sched = make_schedule(cfg.diffusion.schedule, cfg.diffusion.steps)
         self.train_sched = self.sched.to(device)
@@ -125,6 +141,7 @@ class DDPMTrainer:
         self._pack_stale = False
 
     @torch.no_grad()
+    @full_float32()
     def generate(
         self,
         mel,
@@ -182,16 +199,19 @@ class DDPMTrainer:
 
     # ------------------------------------------------------------ training
 
-    def training_terms(self, xf_proj, xf_out, motion, t, noise) -> dict[str, torch.Tensor]:
+    def training_terms(self, xf_proj, xf_out, motion, t, noise,
+                       src_mask: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
         """`training_losses` of the denoiser on this trainer's layer path,
         given the music condition: the loss terms and the flat ``pred`` /
-        ``target`` (B, T, 26) that the perceptual term takes."""
+        ``target`` (B, T, 26) that the perceptual term takes.  ``src_mask``
+        (B, T, 1) float32 is the plain layers' key mask (all ones by
+        default); the fused layers take the full window only."""
         if self.cfg.denoiser.train_layer_impl == "pallas_fused":
             def model_fn(x, tt):
                 return fused_train_denoise(self.model, self.cfg, x, tt, xf_proj, xf_out)
         else:
             def model_fn(x, tt):
-                return self.model(x, tt, xf_proj, xf_out)
+                return self.model(x, tt, xf_proj, xf_out, src_mask)
         d = self.cfg.diffusion
         return training_losses(self.train_sched, model_fn, motion, t, noise.reshape(motion.shape),
                                mean_type=d.mean_type, var_type=d.var_type, loss_type=d.loss_type)
@@ -209,17 +229,20 @@ class DDPMTrainer:
             feat_fake, feat_real = self.feat_model(pred), self.feat_model(target)
         return (feat_fake - feat_real).abs().mean()
 
-    def _losses(self, cond, motion, t, noise, cond_keep, generator):
+    def _losses(self, cond, motion, m_lens, t, noise, cond_keep, generator):
         """The 5-term objective (`conductor_tpu/train/ddpm_trainer.py:
         190-298`) and its metrics."""
         b, n = motion.shape[0], motion.shape[1]
         tc = self.cfg.train
         encode = self.model.cond_from_features if tc.cached_features else self.model.encode_music
         xf_proj, xf_out = encode(cond, True, keep=cond_keep, generator=generator)
-        terms = self.training_terms(xf_proj, xf_out, motion, t, noise)
+        # the reference's mask (`:206-210`): the first min(T, m_lens) frames
+        cur_len = torch.clamp(m_lens, max=n) if tc.replicate_reference_mask else torch.full_like(m_lens, n)
+        src_mask = (torch.arange(n, device=motion.device)[None] < cur_len[:, None]).float()[..., None]
+        terms = self.training_terms(xf_proj, xf_out, motion, t, noise, src_mask)
         target, pred = terms["target"], terms["pred"]
-        # the full-window mask (replicate_reference_mask off): a plain mean
-        loss_rec = ((pred - target) ** 2).mean()
+        mask2d = src_mask[..., 0]
+        loss_rec = (((pred - target) ** 2).mean(dim=-1) * mask2d).sum() / mask2d.sum()
         if tc.lambda_feat == 0.0:
             loss_feat = torch.zeros((), device=pred.device)
         else:
@@ -241,18 +264,17 @@ class DDPMTrainer:
         }
         return loss, metrics
 
+    @full_float32()
     def train_step(self, mel_or_feats, motion, m_lens=None, *, t=None, noise=None, cond_keep=None,
                    generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
         """One optimizer step on a batch: ``mel_or_feats`` is mel (B, T90,
         128), or frozen-encoder features (B, T30, 64) with
-        ``cached_features``; ``motion`` (B, T30, J, 2).  ``m_lens`` is
-        accepted for the JAX signature; the full-window mask ignores it.
-        The timesteps ``t`` (B,), the noise (B, T30, J * 2) and the (B, T30)
-        condition keep mask are drawn from ``generator`` unless given.
-        Returns the JAX metrics as 0-d tensors (no host sync)."""
-        d = self.cfg.denoiser
-        if d.train_layer_impl == "flax" and d.compute_dtype != "float32":
-            raise NotImplementedError("the plain module path runs float32 only")
+        ``cached_features``; ``motion`` (B, T30, J, 2).  ``m_lens`` (B,),
+        the clips' lengths, is needed with ``replicate_reference_mask`` and
+        ignored without (the full window).  The timesteps ``t`` (B,), the
+        noise (B, T30, J * 2) and the (B, T30) condition keep mask are drawn
+        from ``generator`` unless given.  Returns the JAX metrics as 0-d
+        tensors (no host sync)."""
         dev = self.device
 
         def on_device(a, dtype):  # a copy of host arrays, which may be read-only
@@ -261,6 +283,11 @@ class DDPMTrainer:
         motion = on_device(motion, torch.float32)
         cond = on_device(mel_or_feats, torch.float32)
         b, n = motion.shape[0], motion.shape[1]
+        if m_lens is None:
+            if self.cfg.train.replicate_reference_mask:
+                raise ValueError("replicate_reference_mask needs m_lens, the clips' lengths")
+            m_lens = torch.full((b,), n)
+        m_lens = on_device(m_lens, torch.long)
         if t is None:
             t, _ = uniform_sample(self.sched.num_timesteps, b, generator=generator)
         if noise is None:
@@ -270,7 +297,7 @@ class DDPMTrainer:
         noise = on_device(noise, torch.float32)
         if cond_keep is not None:
             cond_keep = on_device(cond_keep, torch.float32)
-        loss, metrics = self._losses(cond, motion, t, noise, cond_keep, generator)
+        loss, metrics = self._losses(cond, motion, m_lens, t, noise, cond_keep, generator)
         loss.backward()
         metrics["grad_norm"] = self.optimizer.step()
         self._pack_stale = True
@@ -290,7 +317,7 @@ def _check_training_config(cfg: Config, device: torch.device | str) -> None:
     """Raise on the training options the port does not run on ``device``:
     the gating of the fused layers (`conductor_tpu/train/ddpm_trainer.py:
     119-125`), the ST-GCN kernel's bf16 operands on CUDA, and the modes not
-    ported yet."""
+    ported yet (denoiser dropout among them)."""
     d, tc = cfg.denoiser, cfg.train
     if d.train_layer_impl not in ("flax", "pallas_fused"):
         raise ValueError(f"unknown train_layer_impl: {d.train_layer_impl}")
@@ -305,8 +332,6 @@ def _check_training_config(cfg: Config, device: torch.device | str) -> None:
             and d.compute_dtype != "bfloat16"):
         raise ValueError("feat_impl='pallas' on CUDA runs the ST-GCN kernel, which takes bf16 "
                          f"operands; compute_dtype is {d.compute_dtype}")
-    if tc.replicate_reference_mask:
-        raise NotImplementedError("replicate_reference_mask is not ported yet")
     if tc.timestep_sampler != "uniform":
         raise NotImplementedError(f"timestep sampler {tc.timestep_sampler!r} is not ported yet")
     if d.dropout != 0.0:

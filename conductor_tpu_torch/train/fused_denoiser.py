@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import Config
+from ..models.precision import linear
 from ..models.transformer import MotionTransformer, timestep_embedding
 from ..ops.decoder_layer_bwd import fused_decoder_layer_train
 from ..ops.decoder_stack import ROWS_PER_TILE, fused_decoder_stack
@@ -154,9 +155,11 @@ class FusedDenoiser:
 
 def cross_kv_state(ca_block, xf_o: torch.Tensor) -> torch.Tensor:
     """One layer's cross-attention state `LinearCrossAttention.kv_state`
-    as the (B, D, D) block-diagonal matrix the layer kernels read; plain
-    torch and differentiable in the block's norm / key / value weights."""
-    return expand_block_diag(ca_block.kv_state(xf_o))
+    in float32, as JAX `cross_kv_state` computes it whatever the model's
+    dtype, as the (B, D, D) block-diagonal matrix the layer kernels read;
+    plain torch and differentiable in the block's norm / key / value
+    weights."""
+    return expand_block_diag(ca_block.kv_state(xf_o, torch.float32))
 
 
 def train_layer_inputs(model: MotionTransformer, cfg: Config, x: torch.Tensor, t: torch.Tensor,
@@ -164,12 +167,15 @@ def train_layer_inputs(model: MotionTransformer, cfg: Config, x: torch.Tensor, t
     """The inputs of the training layer stack: (h, emb_act, xf_o), with
     ``h`` (B, Tp, D) and ``emb_act`` (B, Tp, E) in the compute dtype and
     padded once to the kernel's row tile (Tp = T rounded up to 64), and
-    ``xf_o`` the projected music tokens of the cross-attention states."""
+    ``xf_o`` the projected music tokens of the cross-attention states.  The
+    glue runs in float32 from the condition, whatever the model's dtype, as
+    in JAX `fused_train_denoise`."""
     d = cfg.denoiser
     mxu = getattr(torch, d.compute_dtype)
     b, n = x.shape[0], x.shape[1]
     x = x.reshape(b, n, -1)
-    emb_base, xf_o = model.linear(xf_proj), model.linear(xf_out)
+    emb_base = linear(model.linear, xf_proj, torch.float32)
+    xf_o = linear(model.linear, xf_out, torch.float32)
     temb = model.time_embed(timestep_embedding(t, d.latent_dim))
     emb_act = F.silu(temb[:, None, :] + emb_base).to(mxu)
     h = (model.joint_embed(x) + model.sequence_embedding[None, :n]).to(mxu)

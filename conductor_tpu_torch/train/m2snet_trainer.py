@@ -10,17 +10,18 @@ and one `torch.optim.Adam` step (optax's `adam`, no clipping).
 
 "auto" resolves per device: on CUDA to ``compute_dtype="bfloat16"`` and
 ``music_conv_impl="pallas_train"``, the music encoder on the kernels (K4 in
-its training modes, K9, K10, K11) with the ST-GCN and the fusion head in
-bf16 under `torch.autocast` (float32 parameters and BN statistics, as
-flax's ``dtype=bfloat16``); elsewhere to "float32" and "lax", the plain
-modules.  The kernels take bf16 operands, so an explicit "pallas_train"
-with "float32" on CUDA raises; on the CPU it runs the kernels' plain
-versions in float32.
+its training modes, K9, K10, K11); elsewhere to "float32" and "lax", the
+plain modules.  Either dtype runs with either music path on the CPU (the
+kernels' plain versions); in bf16 every module rounds where the flax
+module's ``dtype=bfloat16`` does (`models.precision`: float32 parameters
+and BN statistics).  The kernels take bf16 operands, so an explicit
+"pallas_train" with "float32" on CUDA raises ValueError.  The step runs
+with TF32 off (`models.precision.full_float32`): float32 is float32 on the
+card too.
 
 Not ported yet, raising NotImplementedError: ``remat``, ``microbatch > 1``,
 `recalibrate_batch_stats`, `M2SNet.features` (its `features()`),
-`M2SNetEvaluator` and the ``train_m2snet`` CLI (`cli/train_m2snet.py`);
-float32 operands on the kernels raise ValueError.
+`M2SNetEvaluator` and the ``train_m2snet`` CLI (`cli/train_m2snet.py`).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import torch
 from ..data.pairs import build_pairs
 from ..interop.weights import load_m2snet_state_dict
 from ..models.m2snet import M2SNet
+from ..models.precision import full_float32
 from .ddpm_trainer import require_device
 
 
@@ -55,8 +57,6 @@ def resolve_impls(compute_dtype: str, music_conv_impl: str,
     if cuda and music_conv_impl == "pallas_train" and compute_dtype != "bfloat16":
         raise ValueError("music_conv_impl='pallas_train' on CUDA runs the kernels, which take "
                          f"bf16 operands; compute_dtype is {compute_dtype}")
-    if compute_dtype == "bfloat16" and not (cuda and music_conv_impl == "pallas_train"):
-        raise NotImplementedError("bf16 runs on the kernel path on CUDA only")
     return compute_dtype, music_conv_impl
 
 
@@ -92,19 +92,14 @@ class M2SNetTrainer:
         load_m2snet_state_dict(self.model, sd)
         self._new_optimizer()
 
-    def _autocast(self):
-        return torch.autocast(self.device.type, dtype=torch.bfloat16,
-                              enabled=self.compute_dtype == "bfloat16")
-
     def _forward4(self, pairs):
         m1, m2, p1, p2 = pairs
         model = self.model
-        with self._autocast():
-            if self.share_encodes:
-                x1, y1 = model.encode(m1, p1)
-                x2, y2 = model.encode(m2, p2)
-                return [model.fuse(a, b) for a, b in ((x1, y1), (x1, y2), (x2, y2), (x2, y1))]
-            return [model(mel, mot) for mel, mot in ((m1, p1), (m1, p2), (m2, p2), (m2, p1))]
+        if self.share_encodes:
+            x1, y1 = model.encode(m1, p1)
+            x2, y2 = model.encode(m2, p2)
+            return [model.fuse(a, b) for a, b in ((x1, y1), (x1, y2), (x2, y2), (x2, y1))]
+        return [model(mel, mot) for mel, mot in ((m1, p1), (m1, p2), (m2, p2), (m2, p1))]
 
     def _pairs(self, music, motion, strategy, starts, generator):
         def on_device(a):  # a copy of host arrays, which may be read-only
@@ -120,6 +115,7 @@ class M2SNetTrainer:
         return {"accuracy": hits / (b * self.clip_length * 2 * 30),
                 "sync_prob": p11.float().mean(), "non_sync_prob": p12.float().mean()}
 
+    @full_float32()
     def train_step(self, music, motion, strategy: str = "hard", *, starts=None,
                    generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
         """One optimizer step on music (B, S*90, 128) and motion
@@ -136,6 +132,7 @@ class M2SNetTrainer:
         return {"loss": loss.detach(), **{k: v.detach() for k, v in self._metrics(p11, p12).items()}}
 
     @torch.no_grad()
+    @full_float32()
     def evaluate(self, music, motion, strategy: str, *, starts=None,
                  generator: torch.Generator | None = None) -> dict[str, float]:
         """The four forwards in eval mode on one batch at a difficulty

@@ -4,7 +4,7 @@ card: stage 2's `DDPMTrainer.train_step`, or with ``--m2snet`` stage 1's
 `M2SNetTrainer.train_step`.
 
     python3 scripts/profile_torch_train.py [--impl pallas_fused|flax] [--feat auto|flax|pallas]
-                                           [--cached]
+                                           [--cached] [--mask]
     python3 scripts/profile_torch_train.py --m2snet [--impl pallas_fused|flax] [--share]
 
 Flagship configuration (D = 128, 8 layers, E = 512) on synthetic weights,
@@ -12,7 +12,10 @@ B = 32 windows of 30 s (T = 900 motion / 2700 mel frames), seeded data; with
 ``--cached`` the batch carries frozen-encoder features instead of mel
 (``TrainConfig.cached_features``), so the music encoder drops out.
 ``--feat`` picks the perceptual ST-GCN: "auto" is K7 on the kernel path,
-"flax" the plain float32 module.  After two warm-up steps it times two
+"flax" the plain float32 module.  ``--mask`` replicates the reference's
+loss mask (``replicate_reference_mask``, m_lens = 60): "auto" then runs the
+bf16 plain layers with the self-attention on K8, "flax" the float32 plain
+layers with the mask.  After two warm-up steps it times two
 steps, then `torch.profiler` records two more; the script prints the wall
 time per step without and under the profiler, the device time per step (the
 sum of the kernels' times), the device's busy share of the wall time under
@@ -45,10 +48,11 @@ REPO = Path(__file__).resolve().parents[1]
 STEPS = 2  # profiled steps, after two warm-up steps
 
 
-def profile_steps(step) -> tuple[float, float, float, str]:
+def profile_steps(step) -> tuple[float, float, float, str, dict]:
     """Two warm-up calls of ``step``, then STEPS timed, then STEPS under
     `torch.profiler`: (wall ms per step without the profiler, under it,
-    device ms per step, the kernels table)."""
+    device ms per step, the kernels table, {kernel name: (device ms, launches)
+    per step})."""
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -68,7 +72,11 @@ def profile_steps(step) -> tuple[float, float, float, str]:
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     device = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / STEPS
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=30)
-    return wall_plain * 1e3, wall * 1e3, device, table
+    by_name: dict[str, tuple[float, float]] = {}
+    for e in kernels:
+        ms, n = by_name.get(e.name, (0.0, 0.0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3 / STEPS, n + 1 / STEPS)
+    return wall_plain * 1e3, wall * 1e3, device, table, by_name
 
 
 def _smi() -> str:
@@ -99,7 +107,7 @@ def main_m2snet(args) -> None:
         return float(tr.train_step(music, motion, "hard",
                                    starts=(s1, int(rng.randint(s1 + 300, (s - c) * 30))))["loss"])
 
-    wall_plain, wall, device, table = profile_steps(step)
+    wall_plain, wall, device, table, _ = profile_steps(step)
     print("\n".join([
         f"stage-1 M2SNet step, {tr.compute_dtype} / {tr.music_conv_impl}, share_encodes "
         f"{args.share}, B={b}, {c}-s crops of {s}-s samples, {STEPS} steps profiled on {_smi()}",
@@ -111,6 +119,7 @@ def main() -> None:
     ap.add_argument("--impl", default="pallas_fused", choices=["pallas_fused", "flax"])
     ap.add_argument("--feat", default="auto", choices=["auto", "flax", "pallas"])
     ap.add_argument("--cached", action="store_true")
+    ap.add_argument("--mask", action="store_true")
     ap.add_argument("--m2snet", action="store_true")
     ap.add_argument("--share", action="store_true")
     args = ap.parse_args()
@@ -131,9 +140,11 @@ def main() -> None:
 
     cfg = Config()
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, cached_features=args.cached,
-                                                feat_impl=args.feat))
+                                                feat_impl=args.feat,
+                                                replicate_reference_mask=args.mask))
     if args.impl == "flax":
-        cfg = cfg.replace(denoiser=DenoiserConfig(train_layer_impl="flax", compute_dtype="float32"),
+        cfg = cfg.replace(denoiser=DenoiserConfig(train_layer_impl="flax", attention_impl="xla",
+                                                  compute_dtype="float32"),
                           train=dataclasses.replace(cfg.train, feat_impl="flax"))
     tr = DDPMTrainer(cfg, device="cuda")
     tr.load_reference_state_dict(synthetic_state_dict(tr.model, seed=0),
@@ -146,11 +157,12 @@ def main() -> None:
             mel = tr.model.music_encoder(mel)
     motion = torch.from_numpy(rng.uniform(0, 1, size=(b, n, 13, 2)).astype(np.float32)).cuda()
     gen = torch.Generator(device="cuda").manual_seed(0)
+    m_lens = torch.full((b,), 60)  # the reference's m_lens (config.py TrainConfig)
 
     def step():
-        return float(tr.train_step(mel, motion, generator=gen)["loss"])
+        return float(tr.train_step(mel, motion, m_lens, generator=gen)["loss"])
 
-    wall_plain, wall, device, table = profile_steps(step)
+    wall_plain, wall, device, table, by_name = profile_steps(step)
     pred, target, _ = perceptual_inputs(tr, mel, motion)
 
     def perceptual():
@@ -160,8 +172,12 @@ def main() -> None:
     feat_ms = time_ms(perceptual, 5)
     print("\n".join([
         f"train step, impl {args.impl}, feat_impl {tr.cfg.train.feat_impl}, "
-        f"cached_features {args.cached}, B={b} T={n}, {STEPS} steps profiled on {_smi()}",
+        f"cached_features {args.cached}, reference mask {args.mask}, "
+        f"{tr.cfg.denoiser.compute_dtype} / {tr.cfg.denoiser.train_layer_impl} / attention "
+        f"{tr.cfg.denoiser.attention_impl}, B={b} T={n}, {STEPS} steps profiled on {_smi()}",
         f"{_times(wall_plain, wall, device)}; perceptual term {feat_ms:.2f} ms (CUDA events)",
+        *(f"{name}: {ms:.4f} ms device, {n:g} launches per step" for name, (ms, n)
+          in sorted(by_name.items()) if "attention_" in name),  # K8's two kernels
         table]))
 
 

@@ -60,3 +60,50 @@ def test_synth_state_dict_is_bit_identical(fixture, key):
         for k, v in want.items():
             assert got[k].dtype == v.dtype, k
             np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+# each knob all "auto", all on the kernels, or all on the plain modules
+KNOBS = {
+    "auto": dict(attention_impl="auto", layer_impl="auto", train_layer_impl="auto",
+                 music_encoder_impl="auto", feat_impl="auto"),
+    "kernels": dict(attention_impl="pallas", layer_impl="pallas_fused",
+                    train_layer_impl="pallas_fused", music_encoder_impl="pallas",
+                    feat_impl="pallas"),
+    "plain": dict(attention_impl="xla", layer_impl="flax", train_layer_impl="flax",
+                  music_encoder_impl="flax", feat_impl="flax"),
+    "mixed": dict(attention_impl="auto", layer_impl="flax", train_layer_impl="auto",
+                  music_encoder_impl="pallas", feat_impl="auto"),
+}
+
+
+def _both(module, efficient, dropout, ref_mask, dtype, knobs):
+    kw = dict(KNOBS[knobs])
+    feat = kw.pop("feat_impl")
+    return module.Config(
+        denoiser=module.DenoiserConfig(efficient_attention=efficient, dropout=dropout,
+                                       compute_dtype=dtype, **kw),
+        train=module.TrainConfig(replicate_reference_mask=ref_mask, feat_impl=feat))
+
+
+@pytest.mark.parametrize("efficient", [True, False])
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("ref_mask", [False, True])
+def test_resolve_auto_matches_jax(efficient, dropout, ref_mask):
+    """The port's "auto" rule is JAX's, field by field: on CUDA as JAX's on
+    the TPU, on the CPU as JAX's on the CPU, over the compute dtypes and
+    explicit or "auto" knobs.  The one listed difference: the port's
+    ``feat_impl`` "auto" is K7 on CUDA only when the compute dtype resolves
+    to bfloat16 (the kernel's operands), where JAX's is its kernel on the
+    TPU at any dtype."""
+    for dtype in ("auto", "float32", "bfloat16"):
+        for knobs in KNOBS:
+            args = (efficient, dropout, ref_mask, dtype, knobs)
+            for device, backend in (("cuda", "tpu"), ("cpu", "cpu")):
+                got = dataclasses.asdict(port_config.resolve_auto(_both(port_config, *args), device))
+                want = dataclasses.asdict(jax_config.resolve_auto(_both(jax_config, *args), backend))
+                gate = (device == "cuda" and KNOBS[knobs]["feat_impl"] == "auto"
+                        and got["denoiser"]["compute_dtype"] == "float32")
+                if gate:  # the listed difference
+                    assert (got["train"]["feat_impl"], want["train"]["feat_impl"]) == ("flax", "pallas")
+                    want["train"]["feat_impl"] = "flax"
+                assert got == want, (args, device)

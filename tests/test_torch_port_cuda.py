@@ -1,9 +1,12 @@
 """PyTorch port on the card: every CUDA kernel against its plain version,
 generate on the kernel path against the plain path, a training step
 through K5 / K6 / K7 against the plain path, at a small size (2 decoder
-layers, 3.2-s clips), and the stage-1 kernels (K4's training modes, K9,
-K10, K11 on tied inputs) and a B = 2 M2SNet step on them against the plain
-path.  Skips without a CUDA card; on one, run it with
+layers, 3.2-s clips), the stage-1 kernels (K4's training modes, K9, K10,
+K11 on tied inputs) and a B = 2 M2SNet step on them against the plain
+path, K8 at its two paths' shapes, a reference-mask step and a
+plain-layer generate through K8, and a float32 stage-1 step with torch's
+TF32 defaults against the CPU (the entry points turn TF32 off).  Skips
+without a CUDA card; on one, run it with
 ``python -m pytest --noconftest tests/test_torch_port_cuda.py``.
 ``chip_smoke.py`` makes the same checks at the flagship size."""
 
@@ -19,6 +22,7 @@ from conductor_tpu_torch.interop import (
     synthetic_state_dict,
 )
 from conductor_tpu_torch.kernel_checks import (
+    check_attention_kernel,
     check_kernels,
     check_stage1_kernels,
     check_stgcn_kernels,
@@ -28,6 +32,7 @@ from conductor_tpu_torch.kernel_checks import (
 )
 from conductor_tpu_torch.ops import (
     conv3x3_dkernel,
+    linear_attention_kernel,
     fused_conv_block,
     fused_max_pool,
     launch_counts,
@@ -54,7 +59,7 @@ def trainers():
     kernel = DDPMTrainer(cfg, device="cuda")
     plain = DDPMTrainer(cfg.replace(denoiser=DenoiserConfig(
         num_frames=96, num_layers=2, layer_impl="flax", music_encoder_impl="flax",
-        train_layer_impl="flax", compute_dtype="float32"),
+        train_layer_impl="flax", attention_impl="xla", compute_dtype="float32"),
         train=TrainConfig(feat_impl="flax")), device="cuda")
     assert kernel.cfg.train.feat_impl == "pallas"
     sd = synthetic_state_dict(kernel.model, seed=0)
@@ -90,6 +95,8 @@ def test_kernels_match_plain_versions(trainers):
         kernel, mel, motion, reps=1) + check_stgcn_kernels(
         kernel, *perceptual_inputs(kernel, mel, motion), reps=1) + check_stage1_kernels(
         *stage1_kernel_inputs(s1, music, motion_s1, (0, 120)), reps=1)
+    q, k, v = (torch.randn(2, 96, 128, device="cuda").to(torch.bfloat16) for _ in range(3))
+    results.append(check_attention_kernel(q, k, v, torch.ones(2, 96, 1, device="cuda"), 8, reps=1))
     assert {r["name"] for r in results} - {"conv_block_train"} == set(launch_counts())
     for r in results:
         assert r["ok"], r
@@ -188,7 +195,7 @@ def test_generate_kernel_path_matches_plain_path(trainers):
     assert counts == {"decoder_stack": 5, "sampler_prologue": 5, "sampler_epilogue": 5,
                       "conv_block": 7, "decoder_layer": 0, "decoder_layer_bwd": 0,
                       "stgcn_forward": 0, "stgcn_backward": 0, "conv3x3_dkernel": 0,
-                      "max_pool": 0, "max_pool_bwd": 0}
+                      "max_pool": 0, "max_pool_bwd": 0, "linear_attention": 0}
     ref = plain.generate(mel, num_steps=5, noise=noise)
     assert out.shape == (2, 96, 26) and bool(torch.isfinite(out).all())
     assert float((out - ref).abs().max()) <= 0.03 * float(ref.abs().max())
@@ -215,3 +222,122 @@ def test_train_step_kernel_path_matches_plain_path(trainers):
         assert bool(torch.isfinite(mk["loss"])) and bool(torch.isfinite(mk["grad_norm"]))
         for k in ("loss", "loss_mot_feat"):
             assert abs(float(mk[k]) - float(mp[k])) <= 3e-2 * abs(float(mp[k])), (step, k, mk, mp)
+
+
+@pytest.mark.parametrize("b,t,lens,kv_dtype", [(32, 900, 60, "float32"), (2, 1800, 1800, "float32"),
+                                               (3, 200, 200, "bfloat16")])
+def test_linear_attention_kernel_matches_plain(b, t, lens, kv_dtype):
+    """K8 at the reference-mask step's shape (B = 32, T = 900, m_lens = 60
+    folded into float32 k and v), the plain-layer serving shape (B = 2,
+    T = 1800, a ones mask) and, unmasked, with bf16 k and v: within 2 % of
+    the plain version's largest value; deterministic; a dtype the kernel
+    does not take raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(t)
+    q, k, v = (_rand(b, t, 128, gen=gen).to(torch.bfloat16) for _ in range(3))
+    mask = None
+    if kv_dtype == "float32":
+        mask = (torch.arange(t, device="cuda")[None] < lens).float()[..., None].expand(b, t, 1)
+    r = check_attention_kernel(q, k, v, mask, 8, reps=1)
+    assert r["ok"] and r["kv_dtype"] == f"torch.{kv_dtype}", r
+    kf, vf = k.float(), v.float()
+    assert torch.equal(linear_attention_kernel(q, kf, vf, 8), linear_attention_kernel(q, kf, vf, 8))
+    with pytest.raises(ValueError, match="linear_attention"):
+        linear_attention_kernel(q, kf, v, 8)
+
+
+def test_reference_mask_step_and_plain_layer_serving_run_k8():
+    """``replicate_reference_mask`` on CUDA: "auto" gives bf16 plain layers
+    with K8 (2 launches a step, one per layer) and K7; two steps within the
+    3e-2 loss bound of the plain float32 path with the mask.  Then
+    ``layer_impl="flax"`` serving: K8 2 x 5 times for ddim5, K4 launched,
+    within 3 % of the plain path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    base = Config(denoiser=DenoiserConfig(num_frames=96, num_layers=2),
+                  diffusion=DiffusionConfig(steps=20, schedule="cosine"),
+                  train=TrainConfig(replicate_reference_mask=True))
+    mask = DDPMTrainer(base, device="cuda")
+    assert (mask.cfg.denoiser.train_layer_impl, mask.cfg.denoiser.attention_impl) == ("flax", "pallas")
+    plain = DDPMTrainer(base.replace(denoiser=DenoiserConfig(
+        num_frames=96, num_layers=2, layer_impl="flax", music_encoder_impl="flax",
+        train_layer_impl="flax", attention_impl="xla", compute_dtype="float32"),
+        train=TrainConfig(replicate_reference_mask=True, feat_impl="flax")), device="cuda")
+    sd = synthetic_state_dict(mask.model, seed=0)
+    feat_sd = synthetic_motion_encoder_state_dict(mask.feat_model, seed=0)
+    for tr in (mask, plain):
+        tr.load_reference_state_dict(sd, motion_encoder=feat_sd)
+    rng = np.random.RandomState(2)
+    mel = torch.from_numpy(rng.uniform(0, 1, size=(2, 288, 128)).astype(np.float32)).cuda()
+    motion = torch.from_numpy(rng.uniform(0, 1, size=(2, 96, 13, 2)).astype(np.float32)).cuda()
+    m_lens = torch.tensor([60, 96])
+    for _ in range(2):
+        drawn = {"t": rng.randint(0, 20, size=2), "noise": rng.normal(size=(2, 96, 26)),
+                 "cond_keep": (rng.uniform(size=(2, 96)) > 0.1).astype(np.float32)}
+        reset_launch_counts()
+        mk = mask.train_step(mel, motion, m_lens, **drawn)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert counts["linear_attention"] == 2 and counts["stgcn_backward"] == 1, counts
+        mp = plain.train_step(mel, motion, m_lens, **drawn)
+        for k in ("loss", "loss_mot_feat"):
+            assert abs(float(mk[k]) - float(mp[k])) <= 3e-2 * abs(float(mp[k])), (k, mk, mp)
+    serve = DDPMTrainer(base.replace(denoiser=DenoiserConfig(num_frames=96, num_layers=2,
+                                                             layer_impl="flax")), device="cuda")
+    serve.load_reference_state_dict(sd)
+    plain.load_reference_state_dict(sd)
+    noise = torch.from_numpy(rng.normal(size=(2, 96, 26)).astype(np.float32)).cuda()
+    reset_launch_counts()
+    out = serve.generate(mel, num_steps=5, noise=noise)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["linear_attention"] == 10 and counts["conv_block"] == 7, counts
+    ref = plain.generate(mel, num_steps=5, noise=noise)
+    assert float((out - ref).abs().max()) <= 0.03 * float(ref.abs().max())
+
+
+def test_float32_stage1_step_runs_without_tf32():
+    """With torch's TF32 defaults left as they are (cuDNN's on), a float32
+    "lax" stage-1 step's music-encoder outputs on the card match the CPU's
+    within 1e-5 of their largest element and its gradients within 1e-4:
+    the trainer turns TF32 off itself.  With TF32 on, the outputs are ~2e-3
+    apart and the gradients ~4e-2.  Without it, the gradients of the conv
+    weights are ~5e-6 apart, and the conv biases, whose exact gradient is 0
+    (the train-mode BatchNorm after each conv takes out the batch mean),
+    carry ~1.5e-5 of rounding noise: hence 1e-4 for the gradients.  The
+    step's four BCE terms cancel in the encoder's gradient, which puts two
+    float32 summation orders ~3e-2 apart, so each encoder call's upstream
+    gradient is replaced by a seeded cotangent; the backward still runs
+    inside the step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    assert torch.backends.cudnn.allow_tf32  # torch's default
+    sd = synthetic_m2snet_state_dict(M2SNetTrainer(device="cpu").model, seed=0)
+    rng = np.random.RandomState(5)
+    music = torch.from_numpy(rng.uniform(0, 1, size=(2, 540, 128)).astype(np.float32))
+    motion = torch.from_numpy(rng.uniform(0, 1, size=(2, 180, 13, 2)).astype(np.float32))
+    got = {}
+    for device in ("cpu", "cuda"):
+        tr = M2SNetTrainer(sample_length=6, clip_length=2, compute_dtype="float32",
+                           music_conv_impl="lax", device=device)
+        tr.load_reference_state_dict(sd)
+        outs, gen = [], torch.Generator().manual_seed(1)
+
+        def hook(module, inputs, out):
+            outs.append(out.detach().cpu())
+            dy = torch.randn(out.shape, generator=gen).to(out.device)
+            out.register_hook(lambda _: dy)
+
+        tr.model.music_encoder.register_forward_hook(hook)
+        tr.train_step(music, motion, "hard", starts=(0, 120))
+        got[device] = (outs, {k: p.grad.detach().cpu()
+                              for k, p in tr.model.music_encoder.named_parameters()})
+    assert torch.backends.cudnn.allow_tf32  # restored
+    (out_cpu, g_cpu), (out_gpu, g_gpu) = got["cpu"], got["cuda"]
+    assert len(out_cpu) == len(out_gpu) == 4
+    for a, b in zip(out_gpu, out_cpu):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    gmax = max(float(g.abs().max()) for g in g_cpu.values())
+    for k, g in g_cpu.items():
+        assert float((g_gpu[k] - g).abs().max()) <= 1e-4 * gmax, k

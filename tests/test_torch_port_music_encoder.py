@@ -1,6 +1,7 @@
-"""PyTorch port: the MusicEncoder, the fused conv block's plain version (the
-CPU side of kernel K4) and the FusedMusicEncoder, against the recorded
-reference-torch latents and the JAX package (Pallas in interpret mode)."""
+"""PyTorch port: the MusicEncoder (float32 and, as the stage-2 trainer runs
+it frozen, bf16), the fused conv block's plain version (the CPU side of
+kernel K4) and the FusedMusicEncoder, against the recorded reference-torch
+latents and the JAX package (Pallas in interpret mode)."""
 
 import os
 
@@ -12,6 +13,7 @@ import torch
 from conductor_tpu.interop import import_music_encoder
 from conductor_tpu.interop.synth import manifest_from_json, synth_state_dict
 from conductor_tpu.models.music_encoder import FusedMusicEncoder as JaxFusedMusicEncoder
+from conductor_tpu.models.music_encoder import MusicEncoder as JaxMusicEncoder
 from conductor_tpu.ops.pallas_conv import fused_conv_block as jax_fused_conv_block
 from conductor_tpu_torch.interop import load_reference_state_dict
 from conductor_tpu_torch.models.music_encoder import POOLS, FusedMusicEncoder, MusicEncoder
@@ -106,3 +108,25 @@ def test_fused_encoder_bf16_drift(m2snet):
     ref = FusedMusicEncoder(enc, torch.float32)(mel)
     got = FusedMusicEncoder(enc, torch.bfloat16)(mel)
     assert float((got - ref).abs().max()) <= 0.02 * float(ref.abs().max())
+
+
+def test_bf16_frozen_encoder_matches_jax_bf16_module(m2snet):
+    """The frozen encoder at bf16 (the stage-2 trainer's, flax's ``dtype=``
+    rule) against JAX's ``MusicEncoder(dtype=jnp.bfloat16)`` on the same
+    weights, eval mode: bf16 output within 2 % of its largest value (the
+    JAX package's bf16 bound, `conductor_tpu/ops/pallas_conv.py`)."""
+    _, sd, enc = m2snet
+    mel = np.random.RandomState(9).uniform(0, 1, size=(2, 90, 128)).astype(np.float32)
+    variables = import_music_encoder(sd, "music_encoder.")
+    want = JaxMusicEncoder(dtype=jnp.bfloat16).apply(variables, jnp.asarray(mel))
+    low = MusicEncoder(dtype=torch.bfloat16).eval()
+    low.load_state_dict(enc.state_dict())
+    with torch.no_grad():
+        got = low(torch.from_numpy(mel))
+        ref = enc(torch.from_numpy(mel))
+    assert got.dtype == torch.bfloat16 and str(want.dtype) == "bfloat16"
+    want = np.asarray(want, np.float32)
+    scale = float(np.abs(want).max())
+    assert float(np.abs(got.float().numpy() - want).max()) <= 0.02 * scale
+    # and bf16 is not float32: the rounding moved the output
+    assert float((got.float() - ref).abs().max()) > 1e-4 * scale

@@ -27,6 +27,7 @@ from conductor_tpu_torch.ops import (
     fused_decoder_layer,
     fused_decoder_stack,
     fused_frozen_stgcn,
+    fused_linear_attention,
     fused_max_pool,
     launch_counts,
     max_pool_bwd,
@@ -77,6 +78,14 @@ assert tr.feat_pack is not None
 m = tr.train_step(torch.rand(2, 96, 128), torch.rand(2, 32, 13, 2),
                   generator=torch.Generator().manual_seed(0))
 assert torch.isfinite(m["loss"]), m
+cfg = cfg.replace(denoiser=dataclasses.replace(cfg.denoiser, train_layer_impl="auto",
+                                               compute_dtype="bfloat16", attention_impl="pallas"),
+                  train=TrainConfig(replicate_reference_mask=True))
+tr = DDPMTrainer(cfg, device="cpu")
+assert tr.cfg.denoiser.train_layer_impl == "flax"
+m = tr.train_step(torch.rand(2, 96, 128), torch.rand(2, 32, 13, 2), torch.tensor([10, 40]),
+                  generator=torch.Generator().manual_seed(0))
+assert torch.isfinite(m["loss"]), m
 s1 = M2SNetTrainer(sample_length=6, clip_length=2, music_conv_impl="pallas_train", device="cpu")
 s1.load_reference_state_dict(synthetic_m2snet_state_dict(s1.model))
 m = s1.train_step(torch.rand(2, 540, 128), torch.rand(2, 180, 13, 2), "hard", starts=(0, 120))
@@ -91,7 +100,8 @@ def test_package_never_imports_jax():
     """In a fresh interpreter, with jax, flax and the JAX package
     (`conductor_tpu`, that top-level name alone) blocked, the package
     imports, serves a clip, takes a stage-2 training step (K5 / K6 / K7
-    path) and a stage-1 M2SNet step (K4 / K9 / K10 / K11 path) on the CPU."""
+    path) and one with the reference mask (bf16 modules, K8 path), and a
+    stage-1 M2SNet step (K4 / K9 / K10 / K11 path) on the CPU."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], capture_output=True, text=True,
                           cwd=REPO, env=env, timeout=300)
@@ -144,11 +154,15 @@ def test_wrappers_take_the_plain_path_on_cpu():
     pool = ((5, 5), (1, 2), ((2, 2), (2, 2)))
     x = t(1, 6, 16, 16)
     max_pool_bwd(x, fused_max_pool(x, pool), pool)
+    q = t(1, 5, 32).requires_grad_(True)
+    fused_linear_attention(q, t(1, 5, 32), t(1, 5, 32), 2, torch.ones(1, 5, 1)).sum().backward()
+    assert q.grad is not None
     assert launch_counts() == {"decoder_stack": 0, "sampler_prologue": 0,
                                "sampler_epilogue": 0, "conv_block": 0,
                                "decoder_layer": 0, "decoder_layer_bwd": 0,
                                "stgcn_forward": 0, "stgcn_backward": 0,
-                               "conv3x3_dkernel": 0, "max_pool": 0, "max_pool_bwd": 0}
+                               "conv3x3_dkernel": 0, "max_pool": 0, "max_pool_bwd": 0,
+                               "linear_attention": 0}
 
 
 def test_auto_resolution():
@@ -173,6 +187,9 @@ def test_auto_resolution():
     for change in (dict(denoiser=dataclasses.replace(cfg.denoiser, dropout=0.1)),
                    dict(train=dataclasses.replace(cfg.train, replicate_reference_mask=True))):
         assert resolve_auto(cfg.replace(**change), "cuda").denoiser.train_layer_impl == "flax"
+    # the standalone attention: K8 on CUDA, the module math elsewhere
+    assert resolve_auto(cfg, "cuda").denoiser.attention_impl == "pallas"
+    assert resolve_auto(cfg, "cpu").denoiser.attention_impl == "xla"
 
 
 def test_cuda_trainer_without_a_card_raises():
@@ -196,7 +213,7 @@ def test_trainers_run_on_the_card_by_default(make):
 @pytest.mark.parametrize("kwargs,error", [
     (dict(remat=True), NotImplementedError),
     (dict(microbatch=2), NotImplementedError),
-    (dict(compute_dtype="bfloat16"), NotImplementedError),  # bf16 runs on the card only
+    (dict(compute_dtype="float16"), ValueError),  # float32 and bfloat16 only
     (dict(music_conv_impl="xla"), ValueError),
 ])
 def test_m2snet_trainer_unported_options_raise(kwargs, error):
@@ -259,3 +276,33 @@ def test_reference_state_dict_forms(tmp_path):
     np.testing.assert_array_equal(tr.model.out.weight.detach().numpy(), sd["out.weight"])
     with pytest.raises(RuntimeError):
         tr.load_reference_state_dict({k: v for k, v in sd.items() if k != "out.bias"})
+
+
+def _stage2_step():
+    tr = DDPMTrainer(TINY, device="cpu")
+    tr.load_reference_state_dict(synthetic_state_dict(tr.model))
+    return tr.model.music_encoder, lambda: tr.train_step(
+        torch.rand(2, 96, 128), torch.rand(2, 32, 13, 2), generator=torch.Generator().manual_seed(0))
+
+
+def _stage1_step():
+    tr = M2SNetTrainer(sample_length=6, clip_length=2, device="cpu")
+    return tr.model.music_encoder, lambda: tr.train_step(
+        torch.rand(2, 540, 128), torch.rand(2, 180, 13, 2), "easy", starts=(0,))
+
+
+@pytest.mark.parametrize("make", [_stage2_step, _stage1_step], ids=["stage2", "stage1"])
+def test_float32_steps_run_without_tf32_and_restore_the_flags(make, monkeypatch):
+    """With both TF32 flags set by the caller, a float32 step's music
+    encoder runs with them off (cuDNN would otherwise take float32
+    convolutions in TF32 on a card), and the caller's flags are back after
+    the step."""
+    for flags in (torch.backends.cudnn, torch.backends.cuda.matmul):
+        monkeypatch.setattr(flags, "allow_tf32", True)
+    encoder, step = make()
+    seen = []
+    encoder.register_forward_hook(lambda *_: seen.append(
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)))
+    step()
+    assert seen and set(seen) == {(False, False)}
+    assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32

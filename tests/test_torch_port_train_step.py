@@ -78,10 +78,11 @@ def _port_trainer(cfg, weights):
     return tr
 
 
-def _jax_step(cfg, weights):
+def _jax_step(cfg, weights, m_lens=None):
     """One JAX train step on the imported weights and the batch in
-    ``weights``; returns the step's metrics, its updated params and the
-    random numbers it drew."""
+    ``weights`` (clip lengths ``m_lens``, the full window by default);
+    returns the step's metrics, its updated params and the random numbers
+    it drew."""
     sd, feat_sd, feats, motion = weights
     B, T = motion.shape[:2]
     tr = JaxTrainer(cfg)
@@ -104,7 +105,8 @@ def _jax_step(cfg, weights):
     )
     keep = np.asarray(ones_out[..., 0])
     assert set(np.unique(keep)) <= {0.0, 1.0}
-    batch = (jnp.asarray(feats), jnp.asarray(motion), jnp.full((B,), T, jnp.int32))
+    lens = jnp.full((B,), T, jnp.int32) if m_lens is None else jnp.asarray(m_lens, jnp.int32)
+    batch = (jnp.asarray(feats), jnp.asarray(motion), lens)
     state, metrics = tr.train_step(state, batch, rng)
     drawn = {"t": np.asarray(t), "noise": np.asarray(noise), "cond_keep": keep}
     return {k: float(v) for k, v in metrics.items()}, state.params, drawn
@@ -184,7 +186,7 @@ def test_drawn_randomness_and_sampling_pack_refresh(weights):
 
 @pytest.mark.parametrize("change,error,match", [
     (dict(denoiser=dict(train_layer_impl="pallas_fused", dropout=0.1)), ValueError, "dropout"),
-    (dict(train=dict(replicate_reference_mask=True)), NotImplementedError, "reference_mask"),
+    (dict(denoiser=dict(dropout=0.1)), NotImplementedError, "dropout"),
     (dict(denoiser=dict(train_layer_impl="pallas_fused"),
           train=dict(replicate_reference_mask=True)), ValueError, "src_mask"),
     (dict(train=dict(feat_impl="bogus")), ValueError, "feat_impl"),
@@ -216,13 +218,20 @@ def test_explicit_pallas_features_need_bf16_operands_on_cuda():
 
 
 def test_bf16_plain_training_raises_but_serving_builds(weights):
-    """A bf16 config serves on the CPU through the plain kernel versions; its
-    plain training path (float32 modules only) raises at the step."""
+    """A bf16 config serves on the CPU through the plain kernel versions, and
+    its plain training path (the bf16 modules, K8's plain version in the
+    self-attention) takes a finite step that moves the weights."""
     _, _, feats, motion = weights
     cfg = make_cfg("flax")
     cfg = cfg.replace(denoiser=dataclasses.replace(
         cfg.denoiser, compute_dtype="bfloat16", layer_impl="pallas_fused",
-        music_encoder_impl="pallas"))
-    tr = DDPMTrainer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="float32"):
-        tr.train_step(feats, motion)
+        music_encoder_impl="pallas", attention_impl="pallas"))
+    tr = _port_trainer(cfg, weights)
+    assert tr.model.dtype == torch.bfloat16 and tr.fused is not None
+    before = tr.model.out.weight.detach().clone()
+    metrics = tr.train_step(feats, motion, generator=torch.Generator().manual_seed(0))
+    assert all(bool(torch.isfinite(metrics[k])) for k in METRICS), metrics
+    assert tr.model.out.weight.dtype == torch.float32
+    assert not torch.equal(tr.model.out.weight, before)
+    out = tr.generate(torch.rand(1, 3 * T, 128), noise=torch.zeros(1, T, 26))
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
