@@ -9,9 +9,16 @@ Phases, one line each (the kernel checks one line per kernel):
   2. build of the CUDA kernels (conductor_tpu_torch/csrc), and its time;
   3. each serving kernel (K1-K4) against its plain PyTorch version on the
      card, at the serving path's shapes (B = 2 clips of 60 s: T = 5400 mel
-     frames, 1800 motion frames, D = 128, E = 512, 8 layers), and the
-     training layer kernels K5 (forward) and K6 (backward, seven gradients)
-     on layer 0 of a training forward at B = 4 windows of 30 s (T = 900,
+     frames, 1800 motion frames, D = 128, E = 512, 8 layers; K1 also in its
+     bf16-VPU mode, within 0.2 %, moving with the mode at least half as far
+     as the plain version and on average within a quarter of the mode's
+     move of it, and K2 with int8 output and K1 in its int8-AdaLN mode on
+     the int8 operands of the first ladder step, K2's codes compared
+     dequantized, at most 0.1 % of them differing from the plain version's
+     and none by more than 1, and all right on exact ties), and the
+     training layer kernels K5 (forward) and K6 (backward, seven
+     gradients) on layer 0 of
+     a training forward at B = 4 windows of 30 s (T = 900,
      padded to 960), and K7, the frozen ST-GCN of the perceptual loss
      (forward on pred and target, d(pred) backward), on pred and target of
      one training forward at B = 32, T = 900, bf16 operands on both sides;
@@ -63,12 +70,22 @@ Phases, one line each (the kernel checks one line per kernel):
   9. serving on the plain layers (``layer_impl="flax"``, bf16): ddim50 at
      B = 2 on phase 4's mel and noise, within 3 % of the plain float32
      path's motion, K8 launched 8 x 50 times and K4 launched, its ms
-     printed.
+     printed;
+ 10. serving under bench.py's exact config (int8 AdaLN, bf16 operands, the
+     fused kernels): ddim50 at B = 2 on phase 4's mel and noise, and again
+     with ``sampler_vpu_dtype="bfloat16"`` added, each within 3 % of the
+     plain float32 path's motion with K2 and K1 in their int8 modes (and K1
+     in its bf16-VPU mode) on all 50 steps; then bench.py's headline,
+     ``ddim1000_60s_clip_motion_frames_per_sec_per_chip``: ddim1000 at
+     B = 8, one untimed call, then the best of 3 timed to the host readback
+     (`bench.py:64-87`), then the same on the bf16 config, both printed
+     (and phase 5's one bf16 call).
 
 Every path runs at full depth; the run takes a few minutes of its 1200-s
 limit, so no path is cut.  Then one JSON line of per-kernel results (the
 launch counts of K1-K4 from phase 4, of K5 / K6 / K7 from phase 6, of K9,
-K10 and K11 from phase 7, of K8 from phase 8; each kernel's time, its
+K10 and K11 from phase 7, of K8 from phase 8, of K1's and K2's int8 modes
+and K1's bf16-VPU mode from phase 10; each kernel's time, its
 plain version's, its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
 line {"ok": true, "device": {...}}.
@@ -78,6 +95,7 @@ phase fails.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -89,8 +107,14 @@ import torch
 KERNEL_SOURCES = {
     "decoder_stack": ("conductor_tpu_torch/csrc/decoder_stack.cu",
                       "conductor_tpu/ops/pallas_layer.py:262"),
+    "decoder_stack_int8": ("conductor_tpu_torch/csrc/decoder_stack.cu",
+                           "conductor_tpu/ops/pallas_layer.py:262"),
+    "decoder_stack_vpu_bf16": ("conductor_tpu_torch/csrc/decoder_stack.cu",
+                               "conductor_tpu/ops/pallas_layer.py:262"),
     "sampler_prologue": ("conductor_tpu_torch/csrc/sampler_glue.cu",
                          "conductor_tpu/ops/pallas_sampler.py:80"),
+    "sampler_prologue_int8": ("conductor_tpu_torch/csrc/sampler_glue.cu",
+                              "conductor_tpu/ops/pallas_sampler.py:80"),
     "sampler_epilogue": ("conductor_tpu_torch/csrc/sampler_glue.cu",
                          "conductor_tpu/ops/pallas_sampler.py:143"),
     "conv_block": ("conductor_tpu_torch/csrc/conv_block.cu",
@@ -109,6 +133,9 @@ KERNEL_SOURCES = {
                          "conductor_tpu/ops/pallas_attention.py:152"),
 }
 SERVING_KERNELS = ("decoder_stack", "sampler_prologue", "sampler_epilogue", "conv_block")
+# bench.py's serving config (bench.py:41-50), applied to the port's Config()
+BENCH_DENOISER = dict(attention_impl="pallas", compute_dtype="bfloat16", layer_impl="pallas_fused",
+                      sampler_adaln_int8=True, music_encoder_impl="pallas")
 TRAIN_KERNELS = ("decoder_layer", "decoder_layer_bwd", "stgcn_forward", "stgcn_backward")
 STAGE1_KERNELS = ("conv_block", "conv3x3_dkernel", "max_pool", "max_pool_bwd")
 # stage 1's batch, sample and crop seconds (conductor_tpu/cli/train_m2snet.py)
@@ -255,6 +282,17 @@ def main() -> int:
             print(f"[kernel]   {r['name']} {r['shape']}: bf16 q, k and v {r['kv_dtype']}")
         if "tie_err" in r:
             print(f"[kernel]   max_pool_bwd on tied inputs: err {r['tie_err']:.6g} (must be 0)")
+        if "codes_differ" in r:
+            print(f"[kernel]   sampler_prologue_int8 codes: {r['codes_differ']} of {r['n_codes']} "
+                  f"differ from the plain version's (at most 0.1 % may), by at most "
+                  f"{r['code_max_diff']} (must be <= 1); wrong codes on exact ties: "
+                  f"{r['tie_errors']} (must be 0)")
+        if "mode_gap" in r:
+            print(f"[kernel]   decoder_stack_vpu_bf16: the mode moves the plain output by "
+                  f"{r['mode_gap']:.6g} at most, {r['mean_mode_gap']:.6g} on average, and the "
+                  f"kernel's by {r['kernel_gap']:.6g} (must be >= half the largest); the "
+                  f"kernel's mean distance from the plain version: {r['mean_abs_err']:.6g} "
+                  f"(must be <= a quarter of the mean move)")
         for c in r.get("calls", []):
             print(f"[kernel]   {r['name']} {c.get('shape', '')}: err {c['max_abs_err']:.6g} "
                   f"(max {c['ref_max_abs']:.6g}) kernel {c['ms']:.4f} ms "
@@ -424,6 +462,54 @@ def main() -> int:
         raise SystemExit(f"chip_smoke: K8 / K4 not launched as expected in serving: {flax_counts}")
     _, t_flax = _timed(lambda: flax_tr.generate(mel, num_steps=50, noise=noise))
     print(f"[time] ddim50 B=2 on the bf16 plain layers (K4, K8): {t_flax * 1e3:.1f} ms on {smi}")
+
+    # 10. serving under bench.py's exact config: int8 AdaLN (K2 int8 output,
+    # K1 int8 mode), then with the bf16-VPU mode added; then bench.py's
+    # headline, ddim1000 at B = 8, best of 3 timed to the host readback
+    del flax_tr
+    bench_cfg = cfg.replace(denoiser=dataclasses.replace(cfg.denoiser, **BENCH_DENOISER))
+    bench_counts = {}
+    for label, vpu in (("bench", "float32"), ("bench+vpu_bf16", "bfloat16")):
+        tr = DDPMTrainer(bench_cfg.replace(denoiser=dataclasses.replace(
+            bench_cfg.denoiser, sampler_vpu_dtype=vpu)), device="cuda")
+        tr.load_reference_state_dict(sd)
+        reset_launch_counts()
+        out_b = tr.generate(mel, num_steps=50, noise=noise)
+        torch.cuda.synchronize()
+        bc = launch_counts()
+        err_b = float((out_b - ref).abs().max())
+        print(f"[serve-{label}] ddim50 B=2 int8 AdaLN, VPU {vpu}: max_abs_err vs plain float32 "
+              f"{err_b:.6g} (plain max {scale:.6g}) launches {bc}")
+        if (tuple(out_b.shape) != (2, 1800, 26) or not bool(torch.isfinite(out_b).all())
+                or not err_b <= GENERATE_REL_TOL * scale):
+            raise SystemExit(f"chip_smoke: generate under bench.py's config ({label}) is wrong")
+        modes = ["decoder_stack_int8", "sampler_prologue_int8"] + (
+            ["decoder_stack_vpu_bf16"] if vpu == "bfloat16" else [])
+        if any(bc[k] != 50 for k in modes) or bc["sampler_epilogue"] != 50:
+            raise SystemExit(f"chip_smoke: the {label} modes did not run on every step: {bc}")
+        bench_counts[label] = bc
+        if vpu == "float32":
+            bench_tr = tr
+    del tr
+    for k in ("decoder_stack_int8", "sampler_prologue_int8"):
+        counts[k] = bench_counts["bench"][k]
+    counts["decoder_stack_vpu_bf16"] = bench_counts["bench+vpu_bf16"]["decoder_stack_vpu_bf16"]
+    # bench.py's compile call, then best of 3 on each config in turns
+    best = {}
+    for name, tr in (("bench.py serving (int8 AdaLN)", bench_tr), ("bf16", kernel_tr)):
+        tr.generate(mel8, noise=noise8)
+        times = []
+        for _ in range(3):
+            motion8, dt = _timed(lambda: tr.generate(mel8, noise=noise8))
+            times.append(dt)
+        if not bool(torch.isfinite(motion8).all()):
+            raise SystemExit(f"chip_smoke: the {name} ddim1000 ladder gave non-finite motion")
+        best[name] = (8 * 1800 / min(times), times)
+    (fps_q, times_q), (fps_b, times_b) = best.values()
+    print(f"[bench] ddim1000_60s_clip_motion_frames_per_sec_per_chip {fps_q:.1f} "
+          f"(config: bench.py serving (int8 AdaLN); B=8, best of 3: {times_q} s) against "
+          f"{fps_b:.1f} on the bf16 config (best of 3: {times_b} s; phase 5's one call: "
+          f"{fps:.1f}), on {smi}")
 
     kernels = []
     for r in results:

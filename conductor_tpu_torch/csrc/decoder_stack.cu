@@ -26,7 +26,8 @@
 //      it to bf16 as the JAX kernel does before its q_sm @ KV product.
 //   C  layer_rows (8 warps): the rest of the layer.  The tile's residual rows, emb_act
 //      rows, matmul operand and output and a 256-wide slice of the AdaLN
-//      output live in shared memory (213 KB at E = 512).
+//      output live in shared memory (213 KB at E = 512; 180 KB with int8
+//      emb rows).
 // Shared-memory rows are padded (float32 +4, bf16 +8 elements), so the 16
 // rows of a WMMA tile fall on different banks instead of all on one.
 // Matrix products (`block_gemm`): each warp computes 32 output columns of
@@ -42,6 +43,27 @@
 // stream lives in device memory between launches (in place after layer 0).
 // Plain WMMA, no wgmma/TMA yet.  The tile helpers live in layer_common.cuh,
 // shared with K6.
+//
+// K1's two opt-in serving modes are template flags of pass C (passes A and
+// B do not change):
+//   int8 AdaLN (`_stack_kernel` :182-201, `_layer_body` :113-118): emb_act
+//      arrives as int8 rows with float32 row scales (K2 quantizes it once a
+//      step) and adaln_w as int8 with float32 column scales.  The tile's
+//      emb rows sit in shared memory as int8, E bytes a row, k-chunk-major
+//      (each 16-code k-step of all 64 rows together, so that every WMMA
+//      fragment pointer is 32-byte aligned), half of the bf16 rows, with
+//      their 64 row scales.  The AdaLN product runs on the integer tensor
+//      cores (`block_gemm_s8`: m8n32k16 signed-char WMMA fragments -> int32,
+//      the same 32-column jobs and weight prefetch as `block_gemm`), and the
+//      AdaLN step dequantizes in float32, acc * (srow * scol) + ab, in JAX's
+//      order.
+//      The int8 AdaLN product is 22.6 GOP a step at B = 2, T = 1800: 0.011
+//      ms at the card's 1,979 int8 TOP/s, against 0.023 ms in bf16.
+//   bf16 VPU (`_layer_body` :98, 102-105, 154): the q feature-softmax exp,
+//      the StylizationBlock SiLU and the FFN GELU round their argument and
+//      every op's result to bf16, where JAX casts to bf16 (jax.nn.gelu's
+//      constants too); LN statistics, the time softmax, KV and the residual
+//      stay float32.
 //
 // K5 is one layer of the same three launches (`decoder_layer_forward`),
 // with the residual read and written in bf16 (the training path carries it
@@ -151,27 +173,43 @@ __global__ void kv_combine_kernel(const float* __restrict__ partials, bf16* __re
 }
 
 // ---------------------------------------------------------------- pass C
-template <typename XT>
+// kInt8: emb holds int8 rows with float32 row scales (emb_scale, B * T),
+// adaln_w is int8 with float32 column scales (aw_scale, 6D), and the AdaLN
+// product runs on the integer tensor cores (int32 accumulation), dequantized
+// in the AdaLN step.  kVpuBf16: the three elementwise chains of JAX's
+// bf16-VPU mode (head softmax exp, StylizationBlock SiLU, FFN GELU) round
+// where JAX's `_layer_body` casts to bf16.  K5 runs <bf16, false, false>.
+template <typename XT, bool kInt8, bool kVpuBf16>
 __global__ void __launch_bounds__(kThreadsC)
-layer_rows_kernel(const XT* x_in, XT* x_out, const bf16* __restrict__ emb,
+layer_rows_kernel(const XT* x_in, XT* x_out, const void* __restrict__ emb_v,
+                  const float* __restrict__ emb_scale,
                   const bf16* __restrict__ kv_self, const bf16* __restrict__ kv_cross,
                   const bf16* __restrict__ mats, const float* __restrict__ vecs,
-                  const bf16* __restrict__ adaln_w, const float* __restrict__ adaln_b,
-                  int T, int E, int dh) {
+                  const void* __restrict__ adaln_w_v, const float* __restrict__ aw_scale,
+                  const float* __restrict__ adaln_b, int T, int E, int dh) {
+  typedef typename std::conditional<kInt8, signed char, bf16>::type ET;
+  typedef typename std::conditional<kInt8, int, float>::type MT;  // the AdaLN product's type
+  constexpr int kVec = 16 / sizeof(ET);  // elements of one 16-byte load
+  const ET* emb = static_cast<const ET*>(emb_v);
+  const ET* adaln_w = static_cast<const ET*>(adaln_w_v);
   extern __shared__ __align__(128) unsigned char smem[];
-  const int lde = E + kPadE;
+  const int lde = kInt8 ? E : E + kPadE;
   float* xs = reinterpret_cast<float*>(smem);            // (64, kLdF) residual rows
   float* ys = xs + kTileRows * kLdF;                      // (64, kLdF) matmul output
   float* ms = ys + kTileRows * kLdF;                      // (64, kLdM) AdaLN slice
   bf16* as = reinterpret_cast<bf16*>(ms + kTileRows * kLdM);  // (64, kLdA) operand
-  bf16* es = as + kTileRows * kLdA;                       // (64, lde) emb_act rows
+  // emb rows: bf16 (64, lde); int8 k-chunk-major (E / 16, 64, 16), as
+  // block_gemm_s8 reads them
+  ET* es = reinterpret_cast<ET*>(as + kTileRows * kLdA);
+  float* srow = reinterpret_cast<float*>(es + kTileRows * lde);  // (64,) int8 row scales
   const int b = blockIdx.y;
   const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = blockIdx.x * kTileRows;
   const int n_rows = min(kTileRows, T - row0);
   // this warp's 8-row slices
   const int wo = wid * kRowsC;
-  float *xw = xs + wo * kLdF, *yw = ys + wo * kLdF, *mw = ms + wo * kLdM;
+  float *xw = xs + wo * kLdF, *yw = ys + wo * kLdF;
+  MT* mw = reinterpret_cast<MT*>(ms) + wo * kLdM;
   bf16* aw = as + wo * kLdA;
 
   for (int i = threadIdx.x; i < kTileRows * D / 4; i += kThreadsC) {
@@ -179,20 +217,29 @@ layer_rows_kernel(const XT* x_in, XT* x_out, const bf16* __restrict__ emb,
     if (i / (D / 4) < n_rows) v = load4(x_in + ((size_t)b * T + row0) * D + 4 * i);
     store4(xs + (i / (D / 4)) * kLdF + (i % (D / 4)) * 4, v);
   }
-  for (int i = threadIdx.x; i < kTileRows * E / 8; i += kThreadsC) {
+  for (int i = threadIdx.x; i < kTileRows * E / kVec; i += kThreadsC) {
+    const int r = i / (E / kVec), c = i % (E / kVec);  // row, 16-byte chunk
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (i / (E / 8) < n_rows) v = reinterpret_cast<const uint4*>(emb + ((size_t)b * T + row0) * E)[i];
-    *reinterpret_cast<uint4*>(es + (i / (E / 8)) * lde + (i % (E / 8)) * 8) = v;
+    if (r < n_rows) v = reinterpret_cast<const uint4*>(emb + ((size_t)b * T + row0) * E)[i];
+    ET* dst = kInt8 ? es + (c * kTileRows + r) * kVec : es + r * lde + c * kVec;
+    *reinterpret_cast<uint4*>(dst) = v;
   }
+  if (kInt8 && threadIdx.x < kTileRows)
+    srow[threadIdx.x] = threadIdx.x < n_rows ? emb_scale[(size_t)b * T + row0 + threadIdx.x] : 0.f;
   __syncthreads();
   const float* vec = vecs;
   auto W = [&](int i) { return mats + (size_t)i * D * D; };
 
   // One StylizationBlock + residual on y (in ys): x += silu(AdaLN(y)) @ W + b.
   auto stylize = [&](int j, const float* ybias, int g, const bf16* w_out, int b_out) {
-    block_gemm(es, lde, adaln_w + j * 2 * D, 6 * D, E, 2 * D, ms, kLdM);
+    if constexpr (kInt8)
+      block_gemm_s8(es, adaln_w + j * 2 * D, 6 * D, E, 2 * D, reinterpret_cast<int*>(ms), kLdM);
+    else
+      block_gemm(es, lde, adaln_w + j * 2 * D, 6 * D, E, 2 * D, ms, kLdM);
     __syncthreads();
-    warp_adaln_bf16<kRowsC>(yw, ybias, mw, adaln_b + j * 2 * D, vec + g * D, vec + (g + 1) * D, aw);
+    warp_adaln_bf16<kRowsC, kVpuBf16>(yw, ybias, mw, adaln_b + j * 2 * D, vec + g * D,
+                                      vec + (g + 1) * D, aw, srow + wo,
+                                      kInt8 ? aw_scale + j * 2 * D : nullptr);
     __syncthreads();
     block_gemm(as, kLdA, w_out, D, D, D, ys, kLdF);
     __syncthreads();
@@ -210,7 +257,7 @@ layer_rows_kernel(const XT* x_in, XT* x_out, const bf16* __restrict__ emb,
     __syncthreads();
     block_gemm(as, kLdA, wq, D, D, D, ys, kLdF);
     __syncthreads();
-    warp_head_softmax_bf16<kRowsC>(yw, vec + bq * D, dh, aw);
+    warp_head_softmax_bf16<kRowsC, kVpuBf16>(yw, vec + bq * D, dh, aw);
     __syncthreads();
   };
 
@@ -230,7 +277,8 @@ layer_rows_kernel(const XT* x_in, XT* x_out, const bf16* __restrict__ emb,
   __syncthreads();
   for (int i = lane; i < kRowsC * D; i += 32) {
     const float u = yw[(i / D) * kLdF + i % D] + vec[kB1 * D + i % D];
-    aw[(i / D) * kLdA + i % D] = __float2bfloat16(gelu_tanh(u));
+    aw[(i / D) * kLdA + i % D] =
+        __float2bfloat16(kVpuBf16 ? gelu_tanh_vpu_bf16(round_bf16(u)) : gelu_tanh(u));
   }
   __syncthreads();
   block_gemm(as, kLdA, W(kW2), D, D, D, ys, kLdF);
@@ -243,8 +291,11 @@ layer_rows_kernel(const XT* x_in, XT* x_out, const bf16* __restrict__ emb,
 }
 
 constexpr size_t kSmemA = (size_t)kTileRows * (kLdA * 2 + 2 * kLdF * 4);
-size_t smem_rows(int E) {
-  return (size_t)kTileRows * (2 * kLdF * 4 + kLdM * 4 + kLdA * 2 + (E + kPadE) * 2);
+// pass C's shared memory: the float32 and bf16 tiles, the emb rows and, in
+// the int8 mode, their row scales
+size_t smem_rows(int E, bool int8) {
+  const size_t emb_row = int8 ? (size_t)E : (size_t)(E + kPadE) * 2;
+  return (size_t)kTileRows * (2 * kLdF * 4 + kLdM * 4 + kLdA * 2 + emb_row + (int8 ? 4 : 0));
 }
 
 template <typename XT, bool kKvr>
@@ -286,36 +337,61 @@ size_t kv_pass_partials_bytes(int B, int t_valid, int dh, bool with_kvr) {
   return (size_t)B * ceil_div(t_valid, kTileRows) * (2 * D + (with_kvr ? 2 : 1) * D * dh) * 4;
 }
 
-CT_EXPORT int decoder_stack_forward(const void* x, const void* emb, const void* kv_cross,
-                                    const void* mats, const void* vecs, const void* adaln_w,
-                                    const void* adaln_b, void* out, void* partials,
-                                    void* kv_self, int B, int T, int d, int E, int H, int L,
-                                    void* stream) {
-  if (bad_shape(d, E, H)) return (int)cudaErrorInvalidValue;
-  const int dh = d / H;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem_c = smem_rows(E);
-  cudaError_t err = cudaFuncSetAttribute(layer_rows_kernel<float>,
+namespace {
+
+template <bool kInt8, bool kVpuBf16>
+cudaError_t stack_forward(const float* x, const void* emb, const float* emb_scale,
+                          const bf16* kv_cross, const bf16* mats, const float* vecs,
+                          const void* adaln_w, const float* aw_scale, const float* adaln_b,
+                          float* out, float* partials, bf16* kv_self, int B, int T, int E, int dh,
+                          int L, cudaStream_t s) {
+  const size_t smem_c = smem_rows(E, kInt8);
+  cudaError_t err = cudaFuncSetAttribute(layer_rows_kernel<float, kInt8, kVpuBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_c);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
+  const size_t aw_bytes = kInt8 ? 1 : 2;
   const dim3 tiles(ceil_div(T, kTileRows), B);
   for (int l = 0; l < L; ++l) {
-    const float* x_l = l == 0 ? static_cast<const float*>(x) : static_cast<const float*>(out);
-    const bf16* mats_l = static_cast<const bf16*>(mats) + (size_t)l * 9 * D * D;
-    const float* vecs_l = static_cast<const float*>(vecs) + (size_t)l * 24 * D;
-    err = kv_pass<float, false>(x_l, mats_l, vecs_l, static_cast<float*>(partials),
-                                static_cast<bf16*>(kv_self), nullptr, nullptr, B, T, T, dh, s);
-    if (err != cudaSuccess) return (int)err;
-    layer_rows_kernel<float><<<tiles, kThreadsC, smem_c, s>>>(
-        x_l, static_cast<float*>(out), static_cast<const bf16*>(emb),
-        static_cast<const bf16*>(kv_self),
-        static_cast<const bf16*>(kv_cross) + (size_t)l * B * D * D, mats_l, vecs_l,
-        static_cast<const bf16*>(adaln_w) + (size_t)l * E * 6 * D,
-        static_cast<const float*>(adaln_b) + (size_t)l * 6 * D, T, E, dh);
+    const float* x_l = l == 0 ? x : out;
+    const bf16* mats_l = mats + (size_t)l * 9 * D * D;
+    const float* vecs_l = vecs + (size_t)l * 24 * D;
+    err = kv_pass<float, false>(x_l, mats_l, vecs_l, partials, kv_self, nullptr, nullptr, B, T, T,
+                                dh, s);
+    if (err != cudaSuccess) return err;
+    layer_rows_kernel<float, kInt8, kVpuBf16><<<tiles, kThreadsC, smem_c, s>>>(
+        x_l, out, emb, emb_scale, kv_self, kv_cross + (size_t)l * B * D * D, mats_l, vecs_l,
+        static_cast<const unsigned char*>(adaln_w) + (size_t)l * E * 6 * D * aw_bytes,
+        kInt8 ? aw_scale + (size_t)l * 6 * D : nullptr, adaln_b + (size_t)l * 6 * D, T, E, dh);
     err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return err;
   }
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// emb_scale / aw_scale are null unless int8: the int8-AdaLN mode (emb and
+// adaln_w int8); vpu_bf16: the bf16-VPU mode.
+CT_EXPORT int decoder_stack_forward(const void* x, const void* emb, const void* emb_scale,
+                                    const void* kv_cross, const void* mats, const void* vecs,
+                                    const void* adaln_w, const void* aw_scale,
+                                    const void* adaln_b, void* out, void* partials,
+                                    void* kv_self, int B, int T, int d, int E, int H, int L,
+                                    int int8, int vpu_bf16, void* stream) {
+  if (bad_shape(d, E, H) || (int8 && (emb_scale == nullptr || aw_scale == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int dh = d / H;
+  auto run = [&](auto launch) {
+    return (int)launch(static_cast<const float*>(x), emb, static_cast<const float*>(emb_scale),
+                       static_cast<const bf16*>(kv_cross), static_cast<const bf16*>(mats),
+                       static_cast<const float*>(vecs), adaln_w,
+                       static_cast<const float*>(aw_scale), static_cast<const float*>(adaln_b),
+                       static_cast<float*>(out), static_cast<float*>(partials),
+                       static_cast<bf16*>(kv_self), B, T, E, dh, L,
+                       static_cast<cudaStream_t>(stream));
+  };
+  if (int8) return vpu_bf16 ? run(stack_forward<true, true>) : run(stack_forward<true, false>);
+  return vpu_bf16 ? run(stack_forward<false, true>) : run(stack_forward<false, false>);
 }
 
 CT_EXPORT int decoder_layer_forward(const void* x, const void* emb, const void* kv_cross,
@@ -326,8 +402,8 @@ CT_EXPORT int decoder_layer_forward(const void* x, const void* emb, const void* 
   if (bad_shape(d, E, H) || t_valid < 1 || t_valid > T) return (int)cudaErrorInvalidValue;
   const int dh = d / H;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem_c = smem_rows(E);
-  cudaError_t err = cudaFuncSetAttribute(layer_rows_kernel<bf16>,
+  const size_t smem_c = smem_rows(E, false);
+  cudaError_t err = cudaFuncSetAttribute(layer_rows_kernel<bf16, false, false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_c);
   if (err != cudaSuccess) return (int)err;
   const bf16* xb = static_cast<const bf16*>(x);
@@ -335,10 +411,10 @@ CT_EXPORT int decoder_layer_forward(const void* x, const void* emb, const void* 
                              static_cast<float*>(partials), static_cast<bf16*>(kv_self), nullptr,
                              nullptr, B, T, t_valid, dh, s);
   if (err != cudaSuccess) return (int)err;
-  layer_rows_kernel<bf16><<<dim3(ceil_div(T, kTileRows), B), kThreadsC, smem_c, s>>>(
-      xb, static_cast<bf16*>(out), static_cast<const bf16*>(emb),
-      static_cast<const bf16*>(kv_self), static_cast<const bf16*>(kv_cross),
-      static_cast<const bf16*>(mats), static_cast<const float*>(vecs),
-      static_cast<const bf16*>(adaln_w), static_cast<const float*>(adaln_b), T, E, dh);
+  layer_rows_kernel<bf16, false, false><<<dim3(ceil_div(T, kTileRows), B), kThreadsC, smem_c, s>>>(
+      xb, static_cast<bf16*>(out), emb, nullptr, static_cast<const bf16*>(kv_self),
+      static_cast<const bf16*>(kv_cross), static_cast<const bf16*>(mats),
+      static_cast<const float*>(vecs), adaln_w, nullptr, static_cast<const float*>(adaln_b), T,
+      E, dh);
   return (int)cudaGetLastError();
 }

@@ -25,6 +25,7 @@ constexpr int kLdF = D + 4;       // row stride of the (64, D) float32 tiles
 constexpr int kLdM = 2 * D + 4;   // row stride of the (64, 2D) AdaLN slice
 constexpr int kLdA = D + 8;       // row stride of the (64, D) bf16 operand
 constexpr int kPadE = 8;          // emb_act rows: E + kPadE bf16
+constexpr int kChunk8 = 16;       // int8 codes per k-step of the integer WMMA
 constexpr int kPrefetch = 4;      // k-steps of weight fragments in flight
 
 // vector rows of the (24, D) bank (train/fused_denoiser.pack_layer_weights)
@@ -149,6 +150,67 @@ __device__ void block_gemm(const bf16* A, int lda, const bf16* B, int ldb, int K
     block_gemm_jobs<2, kTransB>(A, lda, B, ldb, K, N, C, ldc, accumulate);
 }
 
+// The int8 AdaLN product: C (64 x N) int32 = A (64 x K) @ B (K x N) on the
+// integer tensor cores, in m8n32k16 signed-char WMMA fragments.  A (the
+// tile's int8 emb rows) sits in shared memory k-chunk-major, (K / 16, 64,
+// 16): the 16 codes of k-step c of row r at A + (c * 64 + r) * 16.  WMMA
+// wants every fragment pointer 32-byte aligned; in row-major int8 rows every
+// odd k-step would start 16 bytes off, while here each 8-row A fragment
+// starts at a multiple of 128 bytes, and its 8 x 16 codes are 128
+// contiguous bytes (no bank conflicts).  B (the int8 weights) is row-major
+// in global memory (L2) with ldb a multiple of 32 and one 16 x 32 fragment a
+// k-step, at a multiple of 32 bytes; C has ldc a multiple of 4.  Jobs as
+// `block_gemm`'s: a warp owns 32 columns of 8 * MI rows, one B fragment
+// feeds MI MMAs, the next kPrefetch k-steps' B fragments are in flight.
+template <int MI>
+__device__ void block_gemm_s8_jobs(const signed char* A, const signed char* B, int ldb, int K,
+                                   int N, int* C, int ldc) {
+  typedef wmma::fragment<wmma::matrix_a, 8, 32, 16, signed char, wmma::row_major> FragA8;
+  typedef wmma::fragment<wmma::matrix_b, 8, 32, 16, signed char, wmma::row_major> FragB8;
+  typedef wmma::fragment<wmma::accumulator, 8, 32, 16, int> FragC8;
+  constexpr int kGroups = kTileRows / (8 * MI);
+  const int n_warps = blockDim.x >> 5;
+  for (int job = threadIdx.x >> 5; job < kGroups * (N / 32); job += n_warps) {
+    const int r0 = (job % kGroups) * 8 * MI, n0 = (job / kGroups) * 32;
+    FragC8 acc[MI];
+#pragma unroll
+    for (int i = 0; i < MI; ++i) wmma::fill_fragment(acc[i], 0);
+    FragB8 b[kPrefetch];
+#pragma unroll
+    for (int s = 0; s < kPrefetch; ++s)
+      if (s * kChunk8 < K) wmma::load_matrix_sync(b[s], B + (size_t)s * kChunk8 * ldb + n0, ldb);
+    for (int k0 = 0; k0 < K; k0 += kChunk8 * kPrefetch) {
+#pragma unroll
+      for (int s = 0; s < kPrefetch; ++s) {
+        const int k = k0 + kChunk8 * s;
+        if (k < K) {
+          const signed char* a_k = A + (size_t)(k / kChunk8) * kTileRows * kChunk8;
+#pragma unroll
+          for (int i = 0; i < MI; ++i) {
+            FragA8 a;
+            wmma::load_matrix_sync(a, a_k + (r0 + i * 8) * kChunk8, kChunk8);
+            wmma::mma_sync(acc[i], a, b[s], acc[i]);
+          }
+          const int kn = k + kChunk8 * kPrefetch;
+          if (kn < K) wmma::load_matrix_sync(b[s], B + (size_t)kn * ldb + n0, ldb);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+      wmma::store_matrix_sync(C + (r0 + i * 8) * ldc + n0, acc[i], ldc, wmma::mem_row_major);
+  }
+}
+
+// Whole 64-row column slices while there is one for every warp, else halves.
+__device__ __forceinline__ void block_gemm_s8(const signed char* A, const signed char* B, int ldb,
+                                              int K, int N, int* C, int ldc) {
+  if (N / 32 >= (int)(blockDim.x >> 5))
+    block_gemm_s8_jobs<8>(A, B, ldb, K, N, C, ldc);
+  else
+    block_gemm_s8_jobs<4>(A, B, ldb, K, N, C, ldc);
+}
+
 // Row-wise helpers, one warp over its ROWS rows (float32 rows at stride
 // kLdF, bf16 rows at kLdA): lane owns columns lane + 32 * i, i < 4.
 
@@ -179,36 +241,56 @@ __device__ void warp_ln_bf16(const float* src, const float* g, const float* b, b
 }
 
 // softmax within each head of (q + bias): exp(q - rowmax) over the
-// denominators sum_head bf16(exp(..)), as the JAX kernel's seg matmul.
+// denominators sum_head bf16(exp(..)), as the JAX kernel's seg matmul.  In
+// the bf16-VPU mode (kVpuBf16) JAX's exp takes bf16(q - rowmax) and
+// returns bf16, which the float32 division then reads.
+template <bool kVpuBf16 = false>
 __device__ __forceinline__ void head_softmax_row(float v[4], int dh) {
   float m = fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3]));
   m = warp_max(m);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    v[i] = expf(v[i] - m);
-    v[i] /= head_sum(round_bf16(v[i]), dh);
+    if (kVpuBf16) {
+      v[i] = round_bf16(expf(round_bf16(v[i] - m)));
+      v[i] /= head_sum(v[i], dh);
+    } else {
+      v[i] = expf(v[i] - m);
+      v[i] /= head_sum(round_bf16(v[i]), dh);
+    }
   }
 }
 
-// dst = bf16(softmax within each head of (src + bias)).
-template <int ROWS>
+// dst = bf16(softmax within each head of (src + bias)); with kVpuBf16 in
+// the bf16-VPU mode's rounding.
+template <int ROWS, bool kVpuBf16 = false>
 __device__ void warp_head_softmax_bf16(const float* src, const float* bias, int dh, bf16* dst) {
   const int lane = threadIdx.x & 31;
   for (int r = 0; r < ROWS; ++r) {
     float v[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) v[i] = src[r * kLdF + lane + 32 * i] + bias[lane + 32 * i];
-    head_softmax_row(v, dh);
+    head_softmax_row<kVpuBf16>(v, dh);
 #pragma unroll
     for (int i = 0; i < 4; ++i) dst[r * kLdA + lane + 32 * i] = __float2bfloat16(v[i]);
   }
 }
 
-// dst = bf16(silu(LN(y + ybias) * (1 + scale) + shift)) with (scale, shift)
-// = mod (ROWS x 2D, row stride kLdM) + ab: the StylizationBlock's input.
-template <int ROWS>
-__device__ void warp_adaln_bf16(const float* y, const float* ybias, const float* mod,
-                                const float* ab, const float* g, const float* gb, bf16* dst) {
+// silu(h) = h / (1 + exp(-h)) with h and each op's result rounded to bf16,
+// as the JAX kernel's `styl` computes it in the bf16-VPU mode.
+__device__ __forceinline__ float silu_vpu_bf16(float h) {
+  const float hb = round_bf16(h);
+  return hb / round_bf16(1.f + round_bf16(expf(-hb)));
+}
+
+// dst = bf16(silu(LN(y + ybias) * (1 + scale) + shift)): the
+// StylizationBlock's input.  (scale, shift) = mod (ROWS x 2D, row stride
+// kLdM) + ab; in the int8-AdaLN mode mod holds the int32 products, and
+// (scale, shift) = acc * (srow[r] * scol[c]) + ab, JAX's dequantization
+// (each op rounded on its own, not fused).  kVpuBf16: the SiLU in bf16.
+template <int ROWS, bool kVpuBf16 = false, typename M = float>
+__device__ void warp_adaln_bf16(const float* y, const float* ybias, const M* mod,
+                                const float* ab, const float* g, const float* gb, bf16* dst,
+                                const float* srow = nullptr, const float* scol = nullptr) {
   const int lane = threadIdx.x & 31;
   for (int r = 0; r < ROWS; ++r) {
     float v[4];
@@ -221,16 +303,35 @@ __device__ void warp_adaln_bf16(const float* y, const float* ybias, const float*
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int c = lane + 32 * i;
-      const float scale = mod[r * kLdM + c] + ab[c];
-      const float shift = mod[r * kLdM + D + c] + ab[D + c];
+      float scale, shift;
+      if constexpr (std::is_same<M, int>::value) {
+        const float sr = srow[r];
+        scale = __fadd_rn(__fmul_rn(__int2float_rn(mod[r * kLdM + c]), sr * scol[c]), ab[c]);
+        shift = __fadd_rn(__fmul_rn(__int2float_rn(mod[r * kLdM + D + c]), sr * scol[D + c]),
+                          ab[D + c]);
+      } else {
+        scale = mod[r * kLdM + c] + ab[c];
+        shift = mod[r * kLdM + D + c] + ab[D + c];
+      }
       const float h = ((v[i] - st.x) * st.y * g[c] + gb[c]) * (1.f + scale) + shift;
-      dst[r * kLdA + c] = __float2bfloat16(silu(h));
+      dst[r * kLdA + c] = __float2bfloat16(kVpuBf16 ? silu_vpu_bf16(h) : silu(h));
     }
   }
 }
 
 __device__ __forceinline__ float gelu_tanh(float u) {
   return 0.5f * u * (1.f + tanhf(0.7978845608028654f * (u + 0.044715f * u * u * u)));
+}
+
+// jax.nn.gelu(approximate=True) on a bf16 value in bf16 arithmetic, as the
+// JAX kernel's FFN runs it in the bf16-VPU mode: its two constants and the
+// result of every op rounded to bf16, in jax's order of operations.
+__device__ __forceinline__ float gelu_tanh_vpu_bf16(float x) {
+  const float c1 = round_bf16(0.7978845608028654f), c2 = round_bf16(0.044715f);
+  const float x3 = round_bf16(x * round_bf16(x * x));
+  const float s = round_bf16(x + round_bf16(c2 * x3));
+  const float cdf = round_bf16(0.5f * round_bf16(1.f + round_bf16(tanhf(round_bf16(c1 * s)))));
+  return round_bf16(x * cdf);
 }
 
 }  // namespace layer

@@ -4,7 +4,9 @@ inputs the main paths give it.
 `check_kernels` takes a `DDPMTrainer` on the kernel path, a mel and an x_T
 on the card, rebuilds the first ladder step's kernel inputs from them
 (the real conditioning, the real encoder activations), and runs every
-serving kernel (K1-K4) and its plain version on the same inputs.
+serving kernel (K1-K4) and its plain version on the same inputs, K1 in
+its bf16-VPU mode too, and K2 and K1 in the int8-AdaLN mode on the int8
+operands of that step.
 `check_train_kernels` does the same for the training layer kernels (K5,
 K6) on layer 0 of a training forward, `check_stgcn_kernels` for K7 on
 the perceptual term's inputs (`perceptual_inputs`), and
@@ -27,6 +29,8 @@ Used by ``chip_smoke.py`` at the flagship shapes and by
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 from torch.utils.flop_counter import FlopCounterMode
@@ -47,13 +51,27 @@ from .ops.sampler_glue import (
     sampler_prologue_plain,
 )
 from .ops.stgcn import frozen_stgcn_plain, stgcn_backward, stgcn_forward
-from .train.fused_denoiser import cross_kv_state, pack_layer_weights, train_layer_inputs
+from .train.fused_denoiser import (
+    FusedDenoiser,
+    cross_kv_state,
+    pack_layer_weights,
+    train_layer_inputs,
+)
 
 REL_TOL = 0.02  # the bound the JAX package holds its reduced-precision modes to
+# K1's bf16-VPU mode moves its output 0.2 % of the largest value from the
+# float32-VPU output at the serving shape (on an H100), well inside REL_TOL,
+# so `vpu_mode_ok` holds it closer: the kernel within 0.2 % of its plain
+# version's largest value (0.046 % measured there)
+VPU_REL_TOL = 0.002
 # an H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bytes/s, dense
-# bf16 tensor-core FLOP/s; every kernel here takes bf16 operands
+# bf16 tensor-core FLOP/s, dense int8 tensor-core OP/s; every product here
+# takes bf16 operands but K1's int8 AdaLN product, priced at the int8 rate
+# so that quantization cannot flatter the bound (as JAX's utils/flops.py
+# prices it at the int8 peak)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 
 
 def time_ms(fn, reps: int) -> float:
@@ -86,14 +104,16 @@ def flops(fn) -> int:
     return counter.get_total_flops()
 
 
-def bound(inputs, outputs, n_flops: int) -> dict:
+def bound(inputs, outputs, n_flops: int, int8_ops: int = 0) -> dict:
     """The least time an H100 could take for a function of these inputs
-    and outputs doing ``n_flops``: ``bound_ms``, the larger of its bytes
-    (each input read once, each output written once) over the memory rate
-    (``bytes_ms``) and its FLOPs over the bf16 tensor-core rate
+    and outputs doing ``n_flops``, of which ``int8_ops`` are int8 products:
+    ``bound_ms``, the larger of its bytes (each input read once, each
+    output written once) over the memory rate (``bytes_ms``) and its
+    operations over the tensor-core rate of their type, bf16 or int8
     (``ops_ms``), and ``bound_by``, which of the two it is."""
     n_bytes = sum(t.numel() * t.element_size() for t in _tensors((inputs, outputs)))
-    return _bound(n_bytes / HBM_BYTES_PER_S * 1e3, n_flops / BF16_FLOPS * 1e3)
+    ops_s = (n_flops - int8_ops) / BF16_FLOPS + int8_ops / INT8_OPS
+    return _bound(n_bytes / HBM_BYTES_PER_S * 1e3, ops_s * 1e3)
 
 
 def _bound(bytes_ms: float, ops_ms: float) -> dict:
@@ -105,21 +125,24 @@ def _errors(got, want) -> list[tuple[float, float]]:
     """(max |got - want|, max |want|) of each output."""
     pairs = zip(got, want) if isinstance(got, (tuple, list)) else [(got, want)]
     return [(float((g.float() - w.float()).abs().max()), float(w.float().abs().max()))
-            for g, w in pairs]
+            for g, w in pairs if w is not None]
 
 
-def _compare(name, kernel_fn, plain_fn, reps, rel_tol, inputs, library_fn=None, n_flops=None):
-    """``kernel_fn`` against ``plain_fn`` (no arguments, same inputs).  The
-    bound counts ``n_flops``, by default those of ``plain_fn``."""
+def _compare(name, kernel_fn, plain_fn, reps, rel_tol, inputs, library_fn=None, n_flops=None,
+             int8_ops=0, view=None):
+    """``kernel_fn`` against ``plain_fn`` (no arguments, same inputs), both
+    outputs seen through ``view`` if given.  The bound counts ``n_flops``,
+    by default those of ``plain_fn``, ``int8_ops`` of them int8."""
     out = kernel_fn()
-    parts = _errors(out, plain_fn())
+    view = view or (lambda o: o)
+    parts = _errors(view(out), view(plain_fn()))
     torch.cuda.synchronize()
     err, ref = max(parts, key=lambda p: p[0] / max(p[1], 1e-30))
     return {
         "name": name, "max_abs_err": err, "ref_max_abs": ref,
         "ok": all(e <= rel_tol * r and r > 0 for e, r in parts),
         "ms": time_ms(kernel_fn, reps), "plain_ms": time_ms(plain_fn, reps),
-        **bound(inputs, out, flops(plain_fn) if n_flops is None else n_flops),
+        **bound(inputs, out, flops(plain_fn) if n_flops is None else n_flops, int8_ops),
         "library_ms": None if library_fn is None else time_ms(library_fn, reps),
         "parts": parts,
     }
@@ -170,14 +193,15 @@ def check_kernels(trainer, mel, noise, *, reps: int = 5, rel_tol: float = REL_TO
                             lambda: sampler_prologue_plain(*pro_args, **pro_kw), reps, rel_tol,
                             pro_args))
 
-    h, emb_act = sampler_prologue_plain(*pro_args, **pro_kw)
+    h, emb_act, _ = sampler_prologue_plain(*pro_args, **pro_kw)
     stack_args = (h, emb_act, cond["kv_stack"], fused.mats, fused.vecs, fused.adaln_w,
                   fused.adaln_b, fused.num_heads)
     results.append(_compare("decoder_stack",
                             lambda: fused_decoder_stack(*stack_args, mxu_dtype=mxu),
                             lambda: decoder_stack_plain(*stack_args, mxu_dtype=mxu),
                             reps, rel_tol, stack_args))
-
+    results.append(_check_vpu_mode(stack_args, mxu, reps))
+    results += _check_int8_modes(trainer, pro_args, h, cond, reps, rel_tol)
     h = decoder_stack_plain(*stack_args, mxu_dtype=mxu)
     alpha, beta = ddim_affine_tables(trainer.sched)
     epi_args = (h, noise, fused.w_out, fused.b_out, float(alpha[step]), float(beta[step]))
@@ -187,6 +211,97 @@ def check_kernels(trainer, mel, noise, *, reps: int = 5, rel_tol: float = REL_TO
                             reps, rel_tol, epi_args))
     results.append(conv)
     return results
+
+
+def vpu_mode_errors(stack_args, **kw) -> dict:
+    """K1's bf16-VPU mode on ``stack_args`` (``kw``: mxu_dtype and the int8
+    scales, if any), the kernel and the plain version each run with and
+    without it: the kernel's largest and mean distance from its plain
+    version in the mode (``max_abs_err``, ``mean_abs_err``, ``ref_max_abs``),
+    how far the mode moves the plain output (``mode_gap``, largest;
+    ``mean_mode_gap``) and the kernel's (``kernel_gap``, largest)."""
+    vpu = dict(kw, vpu_dtype=torch.bfloat16)
+    got, want = fused_decoder_stack(*stack_args, **vpu), decoder_stack_plain(*stack_args, **vpu)
+    got32, want32 = fused_decoder_stack(*stack_args, **kw), decoder_stack_plain(*stack_args, **kw)
+    return {"max_abs_err": float((got - want).abs().max()),
+            "mean_abs_err": float((got - want).abs().mean()),
+            "ref_max_abs": float(want.abs().max()),
+            "mode_gap": float((want - want32).abs().max()),
+            "mean_mode_gap": float((want - want32).abs().mean()),
+            "kernel_gap": float((got - got32).abs().max())}
+
+
+def vpu_mode_ok(r: dict, mean_share: float) -> bool:
+    """Whether `vpu_mode_errors` ``r`` shows the mode in the kernel: its
+    own move at least half the plain version's (a kernel that ignored the
+    mode would not move at all), and its mean distance from the plain
+    version at most ``mean_share`` of the mode's mean move (it would be
+    the whole move)."""
+    return r["kernel_gap"] >= r["mode_gap"] / 2 and r["mean_abs_err"] <= mean_share * r["mean_mode_gap"]
+
+
+def _check_vpu_mode(stack_args, mxu, reps) -> dict:
+    """K1 in the bf16-VPU mode against its plain version: within
+    VPU_REL_TOL of the largest value, and `vpu_mode_ok` with a mean
+    distance of at most a quarter of the mode's mean move (0.04 of it
+    measured on an H100 at the serving shape)."""
+    vpu = dict(mxu_dtype=mxu, vpu_dtype=torch.bfloat16)
+    r = _compare("decoder_stack_vpu_bf16", lambda: fused_decoder_stack(*stack_args, **vpu),
+                 lambda: decoder_stack_plain(*stack_args, **vpu), reps, VPU_REL_TOL, stack_args)
+    r.update(vpu_mode_errors(stack_args, mxu_dtype=mxu))
+    r["ok"] &= vpu_mode_ok(r, 0.25)
+    return r
+
+
+def prologue_tie_errors(pro_args, **kw) -> int:
+    """K2's int8 output on exact ties, against the codes half-to-even
+    rounding gives: emb rows of values (k + 0.5) / 4 for k in 68..125 and
+    one 31.75, so every SiLU is exact (sigmoid rounds to 1 above 17), every
+    row scale is 31.75 / 127 = 1/4 and every other code sits on a half code,
+    rounded to the even one (truncation, or rounding half away from zero,
+    moves half of them).  The number of codes and scales that differ."""
+    x, temb, emb_base, w_joint, seq_bias = pro_args
+    b, t, e = emb_base.shape
+    k = 68 + (torch.arange(e, device=x.device) + torch.arange(b * t, device=x.device)[:, None]) % 58
+    ties, want = (k + 0.5) / 4, k + k % 2
+    ties[:, 0], want[:, 0] = 31.75, 127
+    _, q, s = sampler_prologue(x, torch.zeros_like(temb), ties.reshape(b, t, e), w_joint,
+                               seq_bias, quantize_emb=True, **kw)
+    return int((q.long() != want.reshape(b, t, e)).sum()) + int((s != 0.25).sum())
+
+
+def _check_int8_modes(trainer, pro_args, h, cond, reps, rel_tol) -> list[dict]:
+    """K2 with int8 output on the step's prologue inputs, and K1 in the
+    int8-AdaLN mode on the int8 operands of that step (the trainer's
+    weights packed as ``sampler_adaln_int8`` packs them).  K2's codes are
+    compared dequantized (code x row scale); ``codes_differ`` and
+    ``code_max_diff`` count the codes that differ from the plain version's,
+    at most 1 apart and at no more than 0.1 % of them, and ``tie_errors``
+    the wrong codes on exact ties (`prologue_tie_errors`), which must be 0."""
+    cfg = trainer.cfg
+    pack = FusedDenoiser(trainer.model, cfg.replace(
+        denoiser=dataclasses.replace(cfg.denoiser, sampler_adaln_int8=True)))
+    mxu = pack.mxu_dtype
+    kw = dict(mxu_dtype=mxu, quantize_emb=True)
+    pro = _compare("sampler_prologue_int8", lambda: sampler_prologue(*pro_args, **kw),
+                   lambda: sampler_prologue_plain(*pro_args, **kw), reps, rel_tol, pro_args,
+                   view=lambda o: (o[0], o[1].float() * o[2]))
+    _, q_got, _ = sampler_prologue(*pro_args, **kw)
+    _, q_want, s_want = sampler_prologue_plain(*pro_args, **kw)
+    diff = (q_got.int() - q_want.int()).abs()
+    pro.update(codes_differ=int((diff > 0).sum()), code_max_diff=int(diff.max()),
+               n_codes=diff.numel(), tie_errors=prologue_tie_errors(pro_args, mxu_dtype=mxu))
+    pro["ok"] &= (pro["code_max_diff"] <= 1 and pro["codes_differ"] <= 1e-3 * pro["n_codes"]
+                  and pro["tie_errors"] == 0)
+    args = (h, q_want, cond["kv_stack"], pack.mats, pack.vecs, pack.adaln_w, pack.adaln_b,
+            pack.num_heads)
+    kw = dict(mxu_dtype=mxu, emb_scale=s_want, adaln_w_scale=pack.adaln_w_scale)
+    b, t, e = q_want.shape
+    int8_ops = 2 * b * t * e * pack.adaln_w.shape[-1] * pack.adaln_w.shape[0]
+    stack = _compare("decoder_stack_int8", lambda: fused_decoder_stack(*args, **kw),
+                     lambda: decoder_stack_plain(*args, **kw), reps, rel_tol,
+                     (args, s_want, pack.adaln_w_scale), int8_ops=int8_ops)
+    return [pro, stack]
 
 
 @torch.no_grad()

@@ -2,7 +2,8 @@
 
 Each kernel wrapper keeps a plain integer ``launches`` count, raised by one
 each time it launches its kernel on a CUDA tensor (never on the plain CPU
-path).  `launch_counts` / `reset_launch_counts` read and clear them.
+path); K1 and K2 keep one more for each opt-in mode (``launches_int8``,
+``launches_vpu_bf16``).  `launch_counts` / `reset_launch_counts` read and clear them.
 """
 
 from .attention import fused_linear_attention, linear_attention_kernel  # noqa: F401
@@ -14,7 +15,7 @@ from .decoder_layer_bwd import (  # noqa: F401
     decoder_layer_bwd_plain,
     fused_decoder_layer_train,
 )
-from .decoder_stack import fused_decoder_stack  # noqa: F401
+from .decoder_stack import fused_decoder_stack, quantize_rows  # noqa: F401
 from .linear_attention import linear_attention, qk_softmax, temporal_linear_attention  # noqa: F401
 from .max_pool import fused_max_pool, max_pool_bwd, max_pool_train  # noqa: F401
 from .sampler_glue import ddim_affine_tables, sampler_epilogue, sampler_prologue  # noqa: F401
@@ -26,26 +27,30 @@ from .stgcn import (  # noqa: F401
     stgcn_forward,
 )
 
+# count name -> (wrapper, attribute): one count per kernel and per mode
 KERNELS = {
-    "decoder_stack": fused_decoder_stack,
-    "sampler_prologue": sampler_prologue,
-    "sampler_epilogue": sampler_epilogue,
-    "conv_block": fused_conv_block,
-    "decoder_layer": fused_decoder_layer,
-    "decoder_layer_bwd": decoder_layer_bwd,
-    "stgcn_forward": stgcn_forward,
-    "stgcn_backward": stgcn_backward,
-    "conv3x3_dkernel": conv3x3_dkernel,
-    "max_pool": fused_max_pool,
-    "max_pool_bwd": max_pool_bwd,
-    "linear_attention": linear_attention_kernel,
+    "decoder_stack": (fused_decoder_stack, "launches"),
+    "decoder_stack_int8": (fused_decoder_stack, "launches_int8"),
+    "decoder_stack_vpu_bf16": (fused_decoder_stack, "launches_vpu_bf16"),
+    "sampler_prologue": (sampler_prologue, "launches"),
+    "sampler_prologue_int8": (sampler_prologue, "launches_int8"),
+    "sampler_epilogue": (sampler_epilogue, "launches"),
+    "conv_block": (fused_conv_block, "launches"),
+    "decoder_layer": (fused_decoder_layer, "launches"),
+    "decoder_layer_bwd": (decoder_layer_bwd, "launches"),
+    "stgcn_forward": (stgcn_forward, "launches"),
+    "stgcn_backward": (stgcn_backward, "launches"),
+    "conv3x3_dkernel": (conv3x3_dkernel, "launches"),
+    "max_pool": (fused_max_pool, "launches"),
+    "max_pool_bwd": (max_pool_bwd, "launches"),
+    "linear_attention": (linear_attention_kernel, "launches"),
 }
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    for fn, attr in KERNELS.values():
+        setattr(fn, attr, 0)

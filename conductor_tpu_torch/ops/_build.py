@@ -42,13 +42,14 @@ SIGNATURES = {
     "conv3x3_dkernel_workspace": ([_I] * 5, ctypes.c_longlong),
     # x, dy, workspace, dw, B, T, F, Cin, Cout, stream
     "conv3x3_dkernel": ([_P] * 4 + [_I] * 5 + [_P], _I),
-    # x, temb, emb_base, w_joint, seq_bias, h, emb_act, B, T, C, D, E, round_bf16, stream
-    "sampler_prologue_forward": ([_P] * 7 + [_I] * 6 + [_P], _I),
+    # x, temb, emb_base, w_joint, seq_bias, h, emb_act, emb_scale (null: bf16
+    # emb_act), B, T, C, D, E, round_bf16, stream
+    "sampler_prologue_forward": ([_P] * 8 + [_I] * 6 + [_P], _I),
     # h, x_t, w_out, b_out, out, alpha, beta, B, T, D, C, round_bf16, stream
     "sampler_epilogue_forward": ([_P] * 5 + [_F, _F] + [_I] * 5 + [_P], _I),
-    # x, emb, kv_cross, mats, vecs, adaln_w, adaln_b, out, partials, kv_self,
-    # B, T, D, E, H, L, stream
-    "decoder_stack_forward": ([_P] * 10 + [_I] * 6 + [_P], _I),
+    # x, emb, emb_scale, kv_cross, mats, vecs, adaln_w, adaln_w_scale, adaln_b,
+    # out, partials, kv_self, B, T, D, E, H, L, int8, vpu_bf16, stream
+    "decoder_stack_forward": ([_P] * 12 + [_I] * 8 + [_P], _I),
     # x, emb, kv_cross, mats, vecs, adaln_w, adaln_b, out, partials, kv_self,
     # B, T, t_valid, D, E, H, stream
     "decoder_layer_forward": ([_P] * 10 + [_I] * 6 + [_P], _I),

@@ -1,5 +1,5 @@
 """All decoder layers of one denoiser step (K1), plus the plain PyTorch
-version.
+version and `quantize_rows`.
 
 Port of `conductor_tpu/ops/pallas_layer.py::fused_decoder_stack` and its
 layer body `_layer_body` (`:60-160`).  Each layer:
@@ -14,8 +14,18 @@ layer body `_layer_body` (`:60-160`).  Each layer:
 
 Matmul operands are rounded to ``mxu_dtype`` with float32 products; the
 time softmax, KV, LayerNorm statistics, the residual carry and all
-elementwise work stay float32, as in the JAX kernel.  The bf16-VPU and
-int8-AdaLN modes of the JAX kernel are not ported yet.
+elementwise work stay float32, as in the JAX kernel.  Its two opt-in
+serving modes:
+
+- int8 AdaLN (``emb_scale`` / ``adaln_w_scale`` given): ``emb_act`` holds
+  int8 rows quantized per row (`quantize_rows`, scales (B, T, 1)) and
+  ``adaln_w`` int8 columns quantized per column (scales (L, 1, 6D)); the
+  modulation is the exact integer product, dequantized as
+  ``acc * (emb_scale * adaln_w_scale) + adaln_b`` (`:113-118`);
+- bf16 VPU (``vpu_dtype=torch.bfloat16``): the q feature-softmax exp, the
+  StylizationBlock SiLU and the FFN GELU run in bf16, every op rounded
+  where JAX's `_layer_body` casts to ``vd`` (`:98, 102-105, 154`); LN
+  statistics, the time softmax, KV and the residual stay float32.
 
 Weight banks as `train/fused_denoiser.pack_layer_weights` packs them:
 mats (L, 9, D, D), vecs (L, 24, D), adaln_w (L, E, 6D), adaln_b (L, 6D),
@@ -24,6 +34,8 @@ version, a CUDA tensor to the kernel in `csrc/decoder_stack.cu`.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -34,42 +46,80 @@ from .conv_block import _q
 ROWS_PER_TILE = 64  # the kernel's row tile (csrc/decoder_stack.cu kTileRows)
 
 
+def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization over the last axis, JAX
+    `quantize_rows` (`pallas_layer.py:345-354`): ``scale = max(max|x|,
+    1e-8) / 127`` in float32 and ``q = round(x / scale)``, half to even, so
+    that ``q * scale ~= x``.  Both divisions are true divisions (a CUDA
+    division by a host scalar would multiply by its reciprocal)."""
+    x = x.float()
+    amax = x.abs().amax(-1, keepdim=True).clamp(min=1e-8)
+    scale = amax / torch.tensor(127.0, device=x.device)
+    return torch.round(x / scale).to(torch.int8), scale
+
+
 def _ln(x, g, b, eps=1e-5):
     mu = x.mean(-1, keepdim=True)
     var = ((x - mu) ** 2).mean(-1, keepdim=True)
     return (x - mu) * torch.rsqrt(var + eps) * g + b
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.gelu(approximate=True)` op by op in ``x``'s dtype: its two
+    constants and every product and sum rounded to that dtype, in jax's
+    order (``x ** 3`` as ``x * (x * x)``)."""
+    def c(v):
+        return torch.tensor(v, dtype=x.dtype, device=x.device)
+
+    cdf = 0.5 * (1.0 + torch.tanh(c(math.sqrt(2 / math.pi)) * (x + c(0.044715) * (x * (x * x)))))
+    return x * cdf
+
+
 def decoder_stack_plain(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_heads, *,
-                        mxu_dtype=torch.float32, t_valid: int | None = None):
+                        mxu_dtype=torch.float32, vpu_dtype=torch.float32, emb_scale=None,
+                        adaln_w_scale=None, t_valid: int | None = None):
     """The plain version of the kernel: same arguments, same result.  Rows
     at or past ``t_valid`` (default: all rows valid) get the TPU kernel's
     mask: a -1e6 key and a zero value, so they drop out of the time
-    softmax and KV."""
+    softmax and KV.  In the int8 mode the integer product is a float32
+    product of the codes, exact while every partial sum is an integer below
+    2**24 (E * 127**2 < 2**24); TF32 must be off."""
     d = x.shape[-1]
     valid = None
     if t_valid is not None and t_valid < x.shape[1]:
         valid = (torch.arange(x.shape[1], device=x.device) < t_valid)[None, :, None]
     head = torch.arange(d, device=x.device) // (d // num_heads)
     seg = (head[:, None] == head[None, :]).float()
+    vd = vpu_dtype
+    if adaln_w_scale is not None:
+        if emb_act.shape[-1] * 127 ** 2 >= 2 ** 24:
+            raise ValueError(f"E = {emb_act.shape[-1]}: the float32 integer product is inexact")
+        codes = emb_act.float()
 
     def md(a, w):
         return _q(a, mxu_dtype) @ _q(w, mxu_dtype)
 
     def seg_softmax(q):
-        qe = torch.exp(q - q.amax(-1, keepdim=True))
-        return qe / md(qe, seg)
+        qe = torch.exp((q - q.amax(-1, keepdim=True)).to(vd))
+        return qe.float() / md(qe, seg)
 
     def styl(y, mod, j, v, w, gi):
         scale, shift = mod[..., 2 * j * d:(2 * j + 1) * d], mod[..., (2 * j + 1) * d:(2 * j + 2) * d]
-        h = _ln(y, v[gi], v[gi + 1]) * (1.0 + scale) + shift
+        h = (_ln(y, v[gi], v[gi + 1]) * (1.0 + scale) + shift).to(vd)
         h = h / (1.0 + torch.exp(-h))
         return md(h, w) + v[gi + 2]
+
+    def gelu(u):
+        return F.gelu(u, approximate="tanh") if vd == torch.float32 else gelu_tanh(u.to(vd))
 
     x = x.float()
     for layer in range(mats.shape[0]):
         m, v = mats[layer], vecs[layer].float()
-        mod = md(emb_act, adaln_w[layer]) + adaln_b[layer].float()
+        if adaln_w_scale is None:
+            mod = md(emb_act, adaln_w[layer]) + adaln_b[layer].float()
+        else:
+            acc = codes @ adaln_w[layer].float()
+            mod = acc * (emb_scale * adaln_w_scale[layer]) + adaln_b[layer].float()
         # self attention; the time softmax and KV stay float32
         xn = _ln(x, v[0], v[1])
         q, k, val = md(xn, m[0]) + v[2], md(xn, m[1]) + v[3], md(xn, m[2]) + v[4]
@@ -83,17 +133,26 @@ def decoder_stack_plain(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_
         qc = md(_ln(x, v[8], v[9]), m[4]) + v[10]
         x = x + styl(md(seg_softmax(qc), kv_cross[layer]), mod, 1, v, m[5], 11)
         # FFN
-        h1 = F.gelu(md(x, m[6]) + v[14], approximate="tanh")
+        h1 = gelu(md(x, m[6]) + v[14])
         x = x + styl(md(h1, m[7]) + v[15], mod, 2, v, m[8], 16)
     return x
 
 
 def fused_decoder_stack(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_heads, *,
-                        mxu_dtype=torch.float32):
-    """x (B, T, D) float32, emb_act (B, T, E) -> (B, T, D) float32."""
+                        mxu_dtype=torch.float32, vpu_dtype=torch.float32, emb_scale=None,
+                        adaln_w_scale=None):
+    """x (B, T, D) float32, emb_act (B, T, E) -> (B, T, D) float32.  The
+    int8-AdaLN mode takes int8 ``emb_act`` and ``adaln_w`` with their
+    ``emb_scale`` (B, T, 1) and ``adaln_w_scale`` (L, 1, 6D)."""
+    int8 = adaln_w_scale is not None
+    if (emb_scale is None) == int8:
+        raise ValueError("the int8-AdaLN mode takes both emb_scale and adaln_w_scale")
+    if vpu_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"vpu_dtype is float32 or bfloat16, got {vpu_dtype}")
     if not x.is_cuda:
-        return decoder_stack_plain(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b,
-                                   num_heads, mxu_dtype=mxu_dtype)
+        return decoder_stack_plain(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_heads,
+                                   mxu_dtype=mxu_dtype, vpu_dtype=vpu_dtype, emb_scale=emb_scale,
+                                   adaln_w_scale=adaln_w_scale)
     b, t, d = x.shape
     n_layers, e = mats.shape[0], emb_act.shape[-1]
     dh = d // num_heads
@@ -103,26 +162,42 @@ def fused_decoder_stack(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_
             f"width dividing 32; got {mxu_dtype}, D={d}, E={e}, H={num_heads}"
         )
     bf, f32 = torch.bfloat16, torch.float32
+    emb_dtype = torch.int8 if int8 else bf
     _build.require(x, "x", f32, (b, t, d))
-    _build.require(emb_act, "emb_act", bf, (b, t, e))
+    _build.require(emb_act, "emb_act", emb_dtype, (b, t, e))
     _build.require(kv_cross, "kv_cross", bf, (n_layers, b, d, d))
     _build.require(mats, "mats", bf, (n_layers, 9, d, d))
     _build.require(vecs, "vecs", f32, (n_layers, 24, d))
-    _build.require(adaln_w, "adaln_w", bf, (n_layers, e, 6 * d))
+    _build.require(adaln_w, "adaln_w", emb_dtype, (n_layers, e, 6 * d))
     _build.require(adaln_b, "adaln_b", f32, (n_layers, 6 * d))
+    if int8:
+        _build.require(emb_scale, "emb_scale", f32, (b, t, 1))
+        _build.require(adaln_w_scale, "adaln_w_scale", f32, (n_layers, 1, 6 * d))
+    if adaln_w.data_ptr() % 32 or emb_act.data_ptr() % 16:  # WMMA fragments, 16-byte loads
+        raise ValueError("decoder_stack kernel: adaln_w must start 32-byte aligned, emb_act 16")
     n_tiles = -(-t // ROWS_PER_TILE)
     out = torch.empty_like(x)
     partials = torch.empty((b, n_tiles, 2 * d + d * dh), dtype=f32, device=x.device)
     kv_self = torch.empty((b, d, d), dtype=bf, device=x.device)
     err = _build.library().decoder_stack_forward(
-        x.data_ptr(), emb_act.data_ptr(), kv_cross.data_ptr(), mats.data_ptr(),
-        vecs.data_ptr(), adaln_w.data_ptr(), adaln_b.data_ptr(), out.data_ptr(),
-        partials.data_ptr(), kv_self.data_ptr(), b, t, d, e, num_heads, n_layers,
-        _build.stream(),
+        x.data_ptr(), emb_act.data_ptr(), emb_scale.data_ptr() if int8 else None,
+        kv_cross.data_ptr(), mats.data_ptr(), vecs.data_ptr(), adaln_w.data_ptr(),
+        adaln_w_scale.data_ptr() if int8 else None, adaln_b.data_ptr(), out.data_ptr(),
+        partials.data_ptr(), kv_self.data_ptr(), b, t, d, e, num_heads, n_layers, int(int8),
+        int(vpu_dtype == bf), _build.stream(),
     )
     _build.check(err, "decoder_stack_forward")
-    fused_decoder_stack.launches += 1
+    # one count per mode: "decoder_stack" the bf16-MMA mode alone, and one
+    # each for the int8-AdaLN and bf16-VPU modes (both when both are on)
+    if int8:
+        fused_decoder_stack.launches_int8 += 1
+    if vpu_dtype == bf:
+        fused_decoder_stack.launches_vpu_bf16 += 1
+    if not int8 and vpu_dtype != bf:
+        fused_decoder_stack.launches += 1
     return out
 
 
 fused_decoder_stack.launches = 0
+fused_decoder_stack.launches_int8 = 0
+fused_decoder_stack.launches_vpu_bf16 = 0

@@ -9,7 +9,9 @@ Port of `conductor_tpu/ops/pallas_sampler.py`:
   the JAX package);
 - `sampler_prologue` (K2, `:80-126`): emb_act = silu(temb[t] + emb_base) and
   h0 = x @ W_joint + seq_bias.  The add of the time-embedding row, which the
-  JAX path does just outside its kernel, is fused in;
+  JAX path does just outside its kernel, is fused in.  With
+  ``quantize_emb`` (the int8-AdaLN mode) emb_act leaves as int8 codes and
+  float32 row scales (`emb_activation`, `:58-72`);
 - `sampler_epilogue` (K3, `:143-174`): x0 = h @ W_out + b_out and the DDIM
   update.
 
@@ -24,6 +26,7 @@ import torch
 
 from . import _build
 from .conv_block import _q
+from .decoder_stack import quantize_rows
 
 
 def ddim_affine_tables(sched) -> tuple[np.ndarray, np.ndarray]:
@@ -39,26 +42,39 @@ def ddim_affine_tables(sched) -> tuple[np.ndarray, np.ndarray]:
     return alpha.astype(np.float32), beta.astype(np.float32)
 
 
+def emb_activation(emb, *, emb_dtype=torch.float32, quantize_emb: bool = False):
+    """The decoder stack's emb_act from the float32 ``emb * sigmoid(emb)``:
+    (emb_act in ``emb_dtype``, None), or with ``quantize_emb`` (int8 codes,
+    float32 row scales) by `decoder_stack.quantize_rows`."""
+    emb_act = emb * torch.sigmoid(emb)
+    if quantize_emb:
+        return quantize_rows(emb_act)
+    return emb_act.to(emb_dtype), None
+
+
 def sampler_prologue_plain(x, temb, emb_base, w_joint, seq_bias, *,
-                           mxu_dtype=torch.float32, emb_dtype=torch.float32):
-    emb = temb + emb_base
-    emb_act = (emb * torch.sigmoid(emb)).to(emb_dtype)
+                           mxu_dtype=torch.float32, emb_dtype=torch.float32,
+                           quantize_emb: bool = False):
     h = _q(x, mxu_dtype) @ _q(w_joint, mxu_dtype) + seq_bias[: x.shape[1]]
-    return h, emb_act
+    return (h, *emb_activation(temb + emb_base, emb_dtype=emb_dtype, quantize_emb=quantize_emb))
 
 
 def sampler_prologue(x, temb, emb_base, w_joint, seq_bias, *,
-                     mxu_dtype=torch.float32, emb_dtype=torch.float32):
+                     mxu_dtype=torch.float32, emb_dtype=torch.float32, quantize_emb: bool = False):
     """x (B, T, C) pose, temb (E,) the step's time-embedding row, emb_base
     (B, T, E), w_joint (C, D), seq_bias (>= T, D) = seq_emb + b_joint ->
-    (h (B, T, D) float32, emb_act (B, T, E) ``emb_dtype``)."""
+    (h (B, T, D) float32, emb_act (B, T, E) ``emb_dtype``, None), or with
+    ``quantize_emb`` (h, emb_q (B, T, E) int8, emb_scale (B, T, 1)
+    float32)."""
     if not x.is_cuda:
-        return sampler_prologue_plain(x, temb, emb_base, w_joint, seq_bias,
-                                      mxu_dtype=mxu_dtype, emb_dtype=emb_dtype)
+        return sampler_prologue_plain(x, temb, emb_base, w_joint, seq_bias, mxu_dtype=mxu_dtype,
+                                      emb_dtype=emb_dtype, quantize_emb=quantize_emb)
     b, t, c = x.shape
     e, d = emb_base.shape[-1], w_joint.shape[-1]
-    if emb_dtype != torch.bfloat16 or mxu_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError("sampler_prologue kernel writes bf16 emb_act; mxu_dtype bf16 or f32")
+    if (emb_dtype != torch.bfloat16 and not quantize_emb) or mxu_dtype not in (
+            torch.bfloat16, torch.float32):
+        raise ValueError("sampler_prologue kernel writes bf16 or int8 emb_act; mxu_dtype bf16 "
+                         "or f32")
     f32 = torch.float32
     _build.require(x, "x", f32, (b, t, c))
     _build.require(temb, "temb", f32, (e,))
@@ -68,15 +84,21 @@ def sampler_prologue(x, temb, emb_base, w_joint, seq_bias, *,
         raise ValueError(f"seq_bias has {seq_bias.shape[0]} rows for T={t}")
     _build.require(seq_bias, "seq_bias", f32, (seq_bias.shape[0], d))
     h = torch.empty((b, t, d), dtype=f32, device=x.device)
-    emb_act = torch.empty((b, t, e), dtype=torch.bfloat16, device=x.device)
+    emb_act = torch.empty((b, t, e), dtype=torch.int8 if quantize_emb else torch.bfloat16,
+                          device=x.device)
+    emb_scale = torch.empty((b, t, 1), dtype=f32, device=x.device) if quantize_emb else None
     err = _build.library().sampler_prologue_forward(
         x.data_ptr(), temb.data_ptr(), emb_base.data_ptr(), w_joint.data_ptr(),
         seq_bias.data_ptr(), h.data_ptr(), emb_act.data_ptr(),
+        emb_scale.data_ptr() if quantize_emb else None,
         b, t, c, d, e, int(mxu_dtype == torch.bfloat16), _build.stream(),
     )
     _build.check(err, "sampler_prologue_forward")
-    sampler_prologue.launches += 1
-    return h, emb_act
+    if quantize_emb:
+        sampler_prologue.launches_int8 += 1
+    else:
+        sampler_prologue.launches += 1
+    return h, emb_act, emb_scale
 
 
 def sampler_epilogue_plain(h, x_t, w_out, b_out, alpha, beta, *, mxu_dtype=torch.float32):
@@ -111,4 +133,5 @@ def sampler_epilogue(h, x_t, w_out, b_out, alpha: float, beta: float, *,
 
 
 sampler_prologue.launches = 0
+sampler_prologue.launches_int8 = 0
 sampler_epilogue.launches = 0

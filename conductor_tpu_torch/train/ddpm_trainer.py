@@ -26,8 +26,11 @@ music encoder runs in the compute dtype, as the JAX trainer's
 step-invariant condition and the time-embedding table, then runs the
 (optionally respaced) eta=0 DDIM ladder.  With ``layer_impl ==
 "pallas_fused"`` the ladder runs on the sampler and decoder-stack kernels
-(`FusedDenoiser.ddim_sample`); otherwise the plain modules in the compute
-dtype run through the generic `ddim_sample_loop`.  With
+(`FusedDenoiser.ddim_sample`), in the int8-AdaLN mode with
+``sampler_adaln_int8`` (bench.py's serving config) and the bf16-VPU mode
+with ``sampler_vpu_dtype="bfloat16"``; otherwise the plain modules in the
+compute dtype run through the generic `ddim_sample_loop`, which ignores
+those two flags, as JAX's plain-layer path does.  With
 ``music_encoder_impl == "pallas"`` the encoder runs on the conv-block
 kernel.
 
@@ -36,7 +39,7 @@ a float32 path is float32 on the card too.
 
 Not ported yet, raising NotImplementedError: the loss-second-moment
 timestep sampler, denoiser dropout, checkpoints, classifier-free guidance,
-the ancestral sampler and the int8 / bf16-VPU sampler modes.
+and the ancestral sampler.
 """
 
 from __future__ import annotations
@@ -72,10 +75,6 @@ class DDPMTrainer:
         device = require_device(device)
         cfg = resolve_auto(cfg, device)
         d = cfg.denoiser
-        if d.sampler_adaln_int8:
-            raise NotImplementedError("sampler_adaln_int8 is not ported yet")
-        if d.sampler_vpu_dtype != "float32":
-            raise NotImplementedError("sampler_vpu_dtype='bfloat16' is not ported yet")
         if (d.layer_impl not in ("flax", "pallas_fused")
                 or d.music_encoder_impl not in ("flax", "pallas")
                 or d.attention_impl not in ("xla", "pallas")

@@ -12,7 +12,8 @@ The packing is differentiable (stack, pad and slice are linear), so the
 training path's gradients reach the module's own parameters.
 
 `ddim_sample` is the kernel path of a serving call: per ladder step the
-prologue (K2), the decoder stack (K1) and the epilogue (K3).
+prologue (K2), the decoder stack (K1) and the epilogue (K3), in the
+int8-AdaLN and bf16-VPU modes when the config turns them on.
 `fused_train_denoise` is the training forward: every layer through
 `fused_decoder_layer_train`, K5 forward and K6 backward.
 """
@@ -26,8 +27,13 @@ from ..config import Config
 from ..models.precision import linear
 from ..models.transformer import MotionTransformer, timestep_embedding
 from ..ops.decoder_layer_bwd import fused_decoder_layer_train
-from ..ops.decoder_stack import ROWS_PER_TILE, fused_decoder_stack
-from ..ops.sampler_glue import ddim_affine_tables, sampler_epilogue, sampler_prologue
+from ..ops.decoder_stack import ROWS_PER_TILE, fused_decoder_stack, quantize_rows
+from ..ops.sampler_glue import (
+    ddim_affine_tables,
+    emb_activation,
+    sampler_epilogue,
+    sampler_prologue,
+)
 
 
 def _wt(linear: torch.nn.Linear) -> torch.Tensor:
@@ -78,21 +84,36 @@ def expand_block_diag(kv: torch.Tensor) -> torch.Tensor:
 
 class FusedDenoiser:
     """The denoiser as packed weight banks for the decoder-stack kernel,
-    built once from a loaded `MotionTransformer`."""
+    built once from a loaded `MotionTransformer`.  With
+    ``sampler_adaln_int8`` the AdaLN weights are int8 per column with
+    float32 scales and each step's activations int8 per row; with
+    ``sampler_vpu_dtype="bfloat16"`` the kernel's elementwise chains run in
+    bf16 (`ops/decoder_stack.py`)."""
 
     def __init__(self, model: MotionTransformer, cfg: Config):
         d = cfg.denoiser
-        if d.sampler_adaln_int8 or d.sampler_vpu_dtype != "float32":
-            raise NotImplementedError("the int8-AdaLN and bf16-VPU sampler modes are not ported")
+        if d.sampler_vpu_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown sampler_vpu_dtype: {d.sampler_vpu_dtype}")
         self.num_heads = d.num_heads
         self.latent_dim = d.latent_dim
         self.mxu_dtype = getattr(torch, d.compute_dtype)
+        self.vpu_dtype = getattr(torch, d.sampler_vpu_dtype)
+        self.adaln_int8 = d.sampler_adaln_int8
         with torch.no_grad():
             banks = [pack_layer_weights(model, i) for i in range(d.num_layers)]
             # matrices feed the matmul units only: store them at mxu_dtype
             self.mats = torch.stack([bk[0] for bk in banks]).to(self.mxu_dtype).contiguous()
             self.vecs = torch.stack([bk[1] for bk in banks]).contiguous()
-            self.adaln_w = torch.stack([bk[2] for bk in banks]).to(self.mxu_dtype).contiguous()
+            adaln_w = torch.stack([bk[2] for bk in banks])  # (L, E, 6D) float32
+            self.adaln_w_scale = None
+            if self.adaln_int8:
+                # per column: quantize_rows over the E axis through a
+                # transpose, from the float32 weights, as JAX packs them
+                q, s = quantize_rows(adaln_w.transpose(1, 2))
+                self.adaln_w = q.transpose(1, 2).contiguous()             # (L, E, 6D) int8
+                self.adaln_w_scale = s.transpose(1, 2).contiguous()       # (L, 1, 6D)
+            else:
+                self.adaln_w = adaln_w.to(self.mxu_dtype).contiguous()
             self.adaln_b = torch.stack([bk[3] for bk in banks]).contiguous()
             self.w_joint = _wt(model.joint_embed).contiguous()          # (C, D)
             self.b_joint = model.joint_embed.bias.detach().float()
@@ -112,6 +133,13 @@ class FusedDenoiser:
             out["temb_table"] = cond["temb_table"].float().contiguous()
         return out
 
+    def _stack(self, h, emb_act, emb_scale, cond):
+        return fused_decoder_stack(
+            h, emb_act, cond["kv_stack"], self.mats, self.vecs, self.adaln_w, self.adaln_b,
+            self.num_heads, mxu_dtype=self.mxu_dtype, vpu_dtype=self.vpu_dtype,
+            emb_scale=emb_scale, adaln_w_scale=self.adaln_w_scale,
+        )
+
     @torch.no_grad()
     def __call__(self, x: torch.Tensor, t: torch.Tensor, cond: dict) -> torch.Tensor:
         """One denoiser call: plain glue around the decoder-stack kernel."""
@@ -120,12 +148,11 @@ class FusedDenoiser:
             temb = cond["temb_table"][t]
         else:
             temb = self.time_embed(timestep_embedding(t, self.latent_dim))
-        emb_act = F.silu(temb[:, None, :] + cond["emb_base"]).to(self.mxu_dtype)
+        emb_act, emb_scale = emb_activation(temb[:, None, :] + cond["emb_base"],
+                                            emb_dtype=self.mxu_dtype,
+                                            quantize_emb=self.adaln_int8)
         h = x @ self.w_joint + self.b_joint + self.seq_emb[None, :T]
-        h = fused_decoder_stack(
-            h.contiguous(), emb_act.contiguous(), cond["kv_stack"], self.mats, self.vecs,
-            self.adaln_w, self.adaln_b, self.num_heads, mxu_dtype=self.mxu_dtype,
-        )
+        h = self._stack(h.contiguous(), emb_act.contiguous(), emb_scale, cond)
         return (h @ self.w_out + self.b_out).float()
 
     @torch.no_grad()
@@ -140,14 +167,11 @@ class FusedDenoiser:
         temb_table, emb_base = cond["temb_table"], cond["emb_base"]
         x = noise.float().contiguous()
         for t in range(sched.num_timesteps - 1, -1, -1):
-            h, emb_act = sampler_prologue(
+            h, emb_act, emb_scale = sampler_prologue(
                 x, temb_table[t_model[t]], emb_base, self.w_joint, seq_bias,
-                mxu_dtype=self.mxu_dtype, emb_dtype=self.mxu_dtype,
+                mxu_dtype=self.mxu_dtype, emb_dtype=self.mxu_dtype, quantize_emb=self.adaln_int8,
             )
-            h = fused_decoder_stack(
-                h, emb_act, cond["kv_stack"], self.mats, self.vecs, self.adaln_w,
-                self.adaln_b, self.num_heads, mxu_dtype=self.mxu_dtype,
-            )
+            h = self._stack(h, emb_act, emb_scale, cond)
             x = sampler_epilogue(h, x, self.w_out, self.b_out, alpha[t], beta[t],
                                  mxu_dtype=self.mxu_dtype)
         return x

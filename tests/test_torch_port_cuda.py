@@ -4,11 +4,16 @@ through K5 / K6 / K7 against the plain path, at a small size (2 decoder
 layers, 3.2-s clips), the stage-1 kernels (K4's training modes, K9, K10,
 K11 on tied inputs) and a B = 2 M2SNet step on them against the plain
 path, K8 at its two paths' shapes, a reference-mask step and a
-plain-layer generate through K8, and a float32 stage-1 step with torch's
-TF32 defaults against the CPU (the entry points turn TF32 off).  Skips
+plain-layer generate through K8, K1's int8-AdaLN and bf16-VPU modes and
+K2's int8 output at whole and ragged tiles, generate under bench.py's
+serving config, the int8 wrappers raising on what their kernels do not
+take, and a float32 stage-1 step with torch's TF32 defaults against the
+CPU (the entry points turn TF32 off).  Skips
 without a CUDA card; on one, run it with
 ``python -m pytest --noconftest tests/test_torch_port_cuda.py``.
 ``chip_smoke.py`` makes the same checks at the flagship size."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -28,18 +33,26 @@ from conductor_tpu_torch.kernel_checks import (
     check_stgcn_kernels,
     check_train_kernels,
     perceptual_inputs,
+    prologue_tie_errors,
     stage1_kernel_inputs,
+    vpu_mode_errors,
+    vpu_mode_ok,
 )
 from conductor_tpu_torch.ops import (
     conv3x3_dkernel,
     linear_attention_kernel,
     fused_conv_block,
+    fused_decoder_stack,
     fused_max_pool,
     launch_counts,
     max_pool_bwd,
+    quantize_rows,
     reset_launch_counts,
+    sampler_prologue,
 )
 from conductor_tpu_torch.ops.conv_block import conv_block_plain
+from conductor_tpu_torch.ops.decoder_stack import decoder_stack_plain
+from conductor_tpu_torch.ops.sampler_glue import sampler_prologue_plain
 from conductor_tpu_torch.ops.conv_train import conv3x3_dkernel_plain
 from conductor_tpu_torch.ops.max_pool import max_pool_bwd_plain, max_pool_plain
 
@@ -192,13 +205,144 @@ def test_generate_kernel_path_matches_plain_path(trainers):
     out = kernel.generate(mel, num_steps=5, noise=noise)
     torch.cuda.synchronize()
     counts = launch_counts()
-    assert counts == {"decoder_stack": 5, "sampler_prologue": 5, "sampler_epilogue": 5,
+    assert counts == {"decoder_stack": 5, "decoder_stack_int8": 0, "decoder_stack_vpu_bf16": 0,
+                      "sampler_prologue": 5, "sampler_prologue_int8": 0, "sampler_epilogue": 5,
                       "conv_block": 7, "decoder_layer": 0, "decoder_layer_bwd": 0,
                       "stgcn_forward": 0, "stgcn_backward": 0, "conv3x3_dkernel": 0,
                       "max_pool": 0, "max_pool_bwd": 0, "linear_attention": 0}
     ref = plain.generate(mel, num_steps=5, noise=noise)
     assert out.shape == (2, 96, 26) and bool(torch.isfinite(out).all())
     assert float((out - ref).abs().max()) <= 0.03 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("vpu", ["float32", "bfloat16"])
+def test_generate_bench_config_matches_plain_path(trainers, vpu):
+    """bench.py's serving config (int8 AdaLN; with the bf16-VPU mode as a
+    second case) on the card: ddim5 within 3 % of the plain float32 path,
+    K2 and K1 in their int8 modes (and K1 in the bf16-VPU mode) on every
+    step."""
+    kernel, plain, mel, noise = trainers
+    cfg = kernel.cfg.replace(denoiser=dataclasses.replace(
+        kernel.cfg.denoiser, sampler_adaln_int8=True, sampler_vpu_dtype=vpu))
+    bench = DDPMTrainer(cfg, device="cuda")
+    bench.load_reference_state_dict(kernel.model.state_dict())
+    reset_launch_counts()
+    out = bench.generate(mel, num_steps=5, noise=noise)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["decoder_stack_int8"] == counts["sampler_prologue_int8"] == 5, counts
+    assert counts["decoder_stack_vpu_bf16"] == (5 if vpu == "bfloat16" else 0), counts
+    assert counts["decoder_stack"] == counts["sampler_prologue"] == 0, counts
+    ref = plain.generate(mel, num_steps=5, noise=noise)
+    assert out.shape == (2, 96, 26) and bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= 0.03 * float(ref.abs().max())
+
+
+def _stack_operands(t, gen, int8):
+    """K1's operands at the flagship widths (D = 128, 8 heads, E = 512), two
+    layers, B = 2; emb and adaln_w int8 with their scales, or bf16."""
+    seg = (torch.arange(128, device="cuda")[:, None] // 16
+           == torch.arange(128, device="cuda")[None, :] // 16).float()
+    vecs = _rand(2, 24, 128, gen=gen) * 0.3
+    vecs[:, [0, 5, 8, 11, 16]] += 1.0
+    x, emb = _rand(2, t, 128, gen=gen), _rand(2, t, 512, gen=gen)
+    aw = _rand(2, 512, 768, gen=gen) * 0.05
+    args = [x, emb, (_rand(2, 2, 128, 128, gen=gen) * 0.3 * seg).to(torch.bfloat16),
+            (_rand(2, 9, 128, 128, gen=gen) * 0.1).to(torch.bfloat16), vecs, aw,
+            _rand(2, 768, gen=gen) * 0.1]
+    kw = {}
+    if int8:
+        args[1], emb_scale = quantize_rows(emb)
+        q, s = quantize_rows(aw.transpose(1, 2))
+        args[5] = q.transpose(1, 2).contiguous()
+        kw = dict(emb_scale=emb_scale, adaln_w_scale=s.transpose(1, 2).contiguous())
+    else:
+        args[1], args[5] = emb.to(torch.bfloat16), aw.to(torch.bfloat16)
+    return args, kw
+
+
+@pytest.mark.parametrize("t", [128, 100])
+@pytest.mark.parametrize("int8,vpu", [(True, False), (False, True), (True, True)])
+def test_decoder_stack_modes_match_plain(t, int8, vpu, monkeypatch):
+    """K1 in the int8-AdaLN mode, the bf16-VPU mode and both, at whole
+    (T = 128) and ragged (T = 100) tiles: within 2 % of the plain version's
+    largest value; each mode counted where it launches.  In the bf16-VPU
+    mode also `vpu_mode_ok`: the kernel moves with the mode, and its mean
+    distance from the plain version is at most half the mode's mean move.
+    These operands (outputs up to ~17) put many bf16 roundings within a
+    float32 product's error of a tie, so that distance measured 0.25-0.31
+    of the move on an H100, against 0.04 at the serving shape, where
+    chip_smoke.py holds it to a quarter."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)  # exact int8 plain
+    gen = torch.Generator(device="cuda").manual_seed(t + 2 * int8 + vpu)
+    args, kw = _stack_operands(t, gen, int8)
+    kw.update(mxu_dtype=torch.bfloat16, vpu_dtype=torch.bfloat16 if vpu else torch.float32)
+    reset_launch_counts()
+    got = fused_decoder_stack(*args, 8, **kw)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert (counts["decoder_stack_int8"], counts["decoder_stack_vpu_bf16"],
+            counts["decoder_stack"]) == (int(int8), int(vpu), 0), counts
+    want = decoder_stack_plain(*args, 8, **kw)
+    scale, err = float(want.abs().max()), float((got - want).abs().max())
+    assert scale > 1.0
+    assert err <= 0.02 * scale
+    if vpu:
+        kw.pop("vpu_dtype")
+        r = vpu_mode_errors((*args, 8), **kw)
+        assert vpu_mode_ok(r, 0.5), r
+
+
+@pytest.mark.parametrize("t", [128, 100])
+def test_sampler_prologue_int8_matches_plain(t):
+    """K2 with int8 output: h within 2 % of the plain version's largest
+    value, the codes at most 1 apart at no more than 0.1 % of entries, the
+    scales within 1e-6 relative, one count where it launches; on exact
+    ties, every code rounded half to even."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(t)
+    args = (_rand(2, t, 26, gen=gen), _rand(512, gen=gen), _rand(2, t, 512, gen=gen) * 2,
+            _rand(26, 128, gen=gen) * 0.2, _rand(t + 10, 128, gen=gen))
+    kw = dict(mxu_dtype=torch.bfloat16, quantize_emb=True)
+    reset_launch_counts()
+    h, q, s = sampler_prologue(*args, **kw)
+    torch.cuda.synchronize()
+    assert (launch_counts()["sampler_prologue_int8"], launch_counts()["sampler_prologue"]) == (1, 0)
+    hp, qp, sp = sampler_prologue_plain(*args, **kw)
+    assert q.dtype == torch.int8 and s.shape == (2, t, 1)
+    assert float((h - hp).abs().max()) <= 0.02 * float(hp.abs().max())
+    diff = (q.int() - qp.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
+    assert float(((s - sp).abs() / sp).max()) <= 1e-6
+    assert prologue_tie_errors(args, mxu_dtype=torch.bfloat16) == 0
+
+
+def test_int8_kernels_raise_on_what_they_do_not_take():
+    """On CUDA the int8 wrappers raise, and never fall back, on a dtype or
+    shape their kernels do not take."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    args, kw = _stack_operands(64, gen, True)
+    bf = torch.bfloat16
+    bad = [
+        (dict(mxu_dtype=torch.float32), {}),                        # float32 operands
+        (dict(mxu_dtype=bf), {5: args[5].to(bf)}),                    # bf16 weights, int8 emb
+        (dict(mxu_dtype=bf, emb_scale=kw["emb_scale"][:, :32]), {}),  # scales of another T
+        (dict(mxu_dtype=bf, adaln_w_scale=kw["adaln_w_scale"].double()), {}),
+        (dict(mxu_dtype=bf, emb_scale=None), {}),                    # one scale of two
+    ]
+    for over, swap in bad:
+        a = [swap.get(i, v) for i, v in enumerate(args)]
+        with pytest.raises(ValueError):
+            fused_decoder_stack(*a, 8, **{**kw, **over})
+    pro = (_rand(2, 64, 26, gen=gen), _rand(512, gen=gen), _rand(2, 64, 512, gen=gen).half(),
+           _rand(26, 128, gen=gen), _rand(64, 128, gen=gen))
+    with pytest.raises(ValueError):
+        sampler_prologue(*pro, mxu_dtype=bf, quantize_emb=True)  # float16 emb_base
 
 
 def test_train_step_kernel_path_matches_plain_path(trainers):

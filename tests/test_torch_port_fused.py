@@ -106,7 +106,9 @@ def test_sampler_glue_plain_matches_jax_kernels():
         jnp.asarray(x), jnp.asarray(temb[None, None] + emb_base), jnp.asarray(w_joint),
         jnp.asarray(seq_bias),
     )
-    h, emb_act = sampler_prologue(*map(torch.from_numpy, (x, temb, emb_base, w_joint, seq_bias)))
+    h, emb_act, emb_scale = sampler_prologue(
+        *map(torch.from_numpy, (x, temb, emb_base, w_joint, seq_bias)))
+    assert emb_scale is None
     np.testing.assert_allclose(h.numpy(), np.asarray(h_want), atol=2e-4)
     np.testing.assert_allclose(emb_act.numpy(), np.asarray(emb_want), atol=2e-4)
 

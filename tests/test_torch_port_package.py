@@ -2,7 +2,7 @@
 (in a fresh interpreter that blocks them, and in the source), the kernel
 wrappers' CPU behaviour and launch counters, "auto" resolution, the entry
 points on the card by default with no silent fallback from CUDA to the CPU,
-and the modes not ported yet raising."""
+the serving modes generating, and the options not ported yet raising."""
 
 import ast
 import dataclasses
@@ -32,6 +32,7 @@ from conductor_tpu_torch.ops import (
     launch_counts,
     max_pool_bwd,
     pack_frozen_stgcn,
+    quantize_rows,
     reset_launch_counts,
     sampler_epilogue,
     sampler_prologue,
@@ -141,7 +142,7 @@ def test_wrappers_take_the_plain_path_on_cpu():
     fused_conv_block(t(1, 6, 16, 1), t(3, 3, 1, 16), t(16), t(16), pool=None)
     fused_decoder_stack(t(1, 5, 32), t(1, 5, 64), t(1, 1, 32, 32), t(1, 9, 32, 32),
                         t(1, 24, 32), t(1, 64, 192), t(1, 192), 4)
-    h, _ = sampler_prologue(t(1, 5, 26), t(64), t(1, 5, 64), t(26, 32), t(5, 32))
+    h, _, _ = sampler_prologue(t(1, 5, 26), t(64), t(1, 5, 64), t(26, 32), t(5, 32))
     sampler_epilogue(h, t(1, 5, 26), t(32, 26), t(26), 0.5, 0.5)
     layer = (t(1, 5, 32), t(1, 5, 64), t(1, 32, 32), t(9, 32, 32), t(24, 32), t(64, 192), t(192))
     fused_decoder_layer(*layer, 4)
@@ -157,7 +158,15 @@ def test_wrappers_take_the_plain_path_on_cpu():
     q = t(1, 5, 32).requires_grad_(True)
     fused_linear_attention(q, t(1, 5, 32), t(1, 5, 32), 2, torch.ones(1, 5, 1)).sum().backward()
     assert q.grad is not None
-    assert launch_counts() == {"decoder_stack": 0, "sampler_prologue": 0,
+    emb_q, emb_s = quantize_rows(t(1, 5, 64))
+    aw_q, aw_s = quantize_rows(t(1, 192, 64))
+    fused_decoder_stack(t(1, 5, 32), emb_q, t(1, 1, 32, 32), t(1, 9, 32, 32), t(1, 24, 32),
+                        aw_q.transpose(1, 2), t(1, 192), 4, vpu_dtype=torch.bfloat16,
+                        emb_scale=emb_s, adaln_w_scale=aw_s.transpose(1, 2))
+    sampler_prologue(t(1, 5, 26), t(64), t(1, 5, 64), t(26, 32), t(5, 32), quantize_emb=True)
+    assert launch_counts() == {"decoder_stack": 0, "decoder_stack_int8": 0,
+                               "decoder_stack_vpu_bf16": 0, "sampler_prologue": 0,
+                               "sampler_prologue_int8": 0,
                                "sampler_epilogue": 0, "conv_block": 0,
                                "decoder_layer": 0, "decoder_layer_bwd": 0,
                                "stgcn_forward": 0, "stgcn_backward": 0,
@@ -242,10 +251,22 @@ def test_m2snet_trainer_resolves_auto_and_defers():
 
 @pytest.mark.parametrize("field,value", [("sampler_adaln_int8", True),
                                          ("sampler_vpu_dtype", "bfloat16")])
-def test_unported_sampler_modes_raise(field, value):
+def test_sampler_modes_generate(field, value):
+    """Each serving mode of K1 / K2 builds a trainer and generates a finite
+    motion at TINY: on the flax layer path ("auto" on the CPU) the flag is
+    ignored, as in JAX; on the fused path it packs and runs its mode."""
     cfg = TINY.replace(denoiser=dataclasses.replace(TINY.denoiser, **{field: value}))
-    with pytest.raises(NotImplementedError):
-        DDPMTrainer(cfg, device="cpu")
+    mel, noise = torch.rand(1, 96, 128), torch.randn(1, 32, 26)
+    flax_tr = DDPMTrainer(cfg, device="cpu")
+    assert flax_tr.fused is None
+    flax_tr.load_reference_state_dict(synthetic_state_dict(flax_tr.model, seed=1))
+    fused_cfg = cfg.replace(denoiser=dataclasses.replace(cfg.denoiser, layer_impl="pallas_fused"))
+    fused_tr = DDPMTrainer(fused_cfg, device="cpu")
+    fused_tr.load_reference_state_dict(flax_tr.model.state_dict())
+    assert (fused_tr.fused.adaln_w.dtype == torch.int8) == (field == "sampler_adaln_int8")
+    for tr in (flax_tr, fused_tr):
+        out = tr.generate(mel, num_steps=4, noise=noise)
+        assert out.shape == (1, 32, 26) and bool(torch.isfinite(out).all())
 
 
 @pytest.mark.parametrize("kwargs", [{"guidance_scale": 2.5}, {"sampler": "ddpm"}])
