@@ -294,9 +294,10 @@ def main() -> int:
                   f"kernel's mean distance from the plain version: {r['mean_abs_err']:.6g} "
                   f"(must be <= a quarter of the mean move)")
         for c in r.get("calls", []):
+            lib = "none" if c["library_ms"] is None else f"{c['library_ms']:.4f} ms"
             print(f"[kernel]   {r['name']} {c.get('shape', '')}: err {c['max_abs_err']:.6g} "
                   f"(max {c['ref_max_abs']:.6g}) kernel {c['ms']:.4f} ms "
-                  f"plain {c['plain_ms']:.4f} ms bound {c['bound_ms']:.4f} ms")
+                  f"plain {c['plain_ms']:.4f} ms bound {c['bound_ms']:.4f} ms library {lib}")
     failed = [r["name"] for r in results if not r["ok"]]
     if failed:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failed}")

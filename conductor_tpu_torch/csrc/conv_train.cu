@@ -1,5 +1,5 @@
 // K9: d(kernel) of the reflect-padded 3x3 conv of the trainable music
-// encoder.
+// encoder, on tensor cores.
 //
 // Replaces conductor_tpu/ops/conv_train.py::_dkernel_pallas (kernel
 // `_dkernel_kernel`, pallas_call at :122):
@@ -14,26 +14,59 @@
 // Layout: x (B, T, F, Cin) and dy (B, T, F, Cout) bf16 NHWC; dW float32
 // (3, 3, Cin, Cout), float32 accumulation.
 //
-// What bounds it on an H100: a skinny reduction, at most 9*32*32 = 9216
-// outputs over B*T*F <= 1.15 M rows at the stage-1 shapes.  It moves the two
-// inputs once (~37 MB each at the full-resolution stage) and does at most
-// 2 * 9216 flops per row: bound by bytes at the bf16 tensor-core rate, by
-// float32 FMAs on the CUDA cores as written.  Design: one block per
-// (clip, chunk of rows) stages each time tile of x with its reflected +-1
-// halo and the tile of dy in shared memory (odd pixel strides: no bank
-// conflicts), every thread owns one (tap, ci) and Cout float32 accumulators
-// over a slice of the tile's pixels, the slices are summed in shared memory,
-// and each block writes its partial to a workspace; a second launch sums the
-// partials in block order.  No atomics: the result is deterministic, as K6's
-// weight gradients are.  Later work: tensor-core MMA over the pixel axis.
+// What bounds it on an H100: bytes.  The call reads x and dy once and
+// writes at most 9 * 32 * 32 floats; the products are 2 * 9 * Cin * Cout
+// flops a pixel.  Over one stage-1 forward's seven calls (B = 10) that is
+// ~340 MB, 0.10 ms at 3.35 TB/s, against 30 GFLOP, 0.03 ms on the bf16
+// tensor cores but at least 0.45 ms as float32 FMAs on the CUDA cores.  So
+// the products run on tensor cores and the operands stay bf16 from device
+// memory to the MMA.
+//
+// Design:
+// - A tile is `tile_t` rows of one clip.  Shared memory holds its x rows
+//   with the reflected halo (tile_t + 2 rows of F + 2 pixels) and its dy
+//   rows (tile_t rows, also F + 2 pixels a row, the two extra ones zero),
+//   both [pixel][channel], so one flat pixel index p walks both: tap
+//   (dt, df) pairs dy's pixel p with x's pixel p + dt (F + 2) + df.  Each
+//   tap is then one GEMM over the tile's pixels, dW_tap (Cin x Cout) +=
+//   X_shift^T (Cin x P) . dY (P x Cout): mma.sync m16n8k16, bf16 operands,
+//   float32 sums, both fragments loaded by ldmatrix.trans from the
+//   pixel-major tiles.  A pixel is 2 or 4 16-byte chunks; chunk c of pixel
+//   p sits at c ^ (a few bits of p), so the 8 consecutive pixels of one
+//   8x8 ldmatrix hit 8 distinct bank groups at any tap's shift.
+// - Cin = 1: each tile's (P x 16) im2col (the 9 taps, 7 zeros) is built in
+//   shared memory from the x tile, and the same MMA runs with the taps as
+//   its 16 rows.
+// - Tiles arrive by 16-byte cp.async into a ring of 3 stages (fewer where
+//   the rows are too wide), so the copies of the next tiles overlap this
+//   one's MMAs; the reflected halo comes by index, rows past the clip's
+//   end are zero-filled.  x at Cin = 1 (2-byte pixels, 6 % of that call's
+//   bytes) comes by plain loads.
+// - Each warp keeps the 9 taps of one (16 Cin x 16 Cout) block of dW in
+//   registers (72 floats) and walks every n-th 16-pixel step of the tile,
+//   n the number of warps sharing that block.  At the end the warps' sums
+//   are added in shared memory in warp order, each block writes its
+//   partial to a workspace and a second launch adds the partials in block
+//   order (runs of blocks, then the runs).  No atomics: the result is
+//   deterministic, as K6's weight gradients are.
+// - The grid is sized per shape: up to two blocks on each SM, and fewer
+//   where the tiles are few (at least kMinTiles a block), so that the
+//   partials (36 KB a block at 32 x 32) stay small against the operands.
+
+#include <stdint.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 512;
-constexpr int kTileBytes = 96 * 1024;
-constexpr int kTargetBlocks = 2 * 132;  // two blocks on each of the H100's SMs
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxBlocks = 2 * 132;     // two blocks on each of the H100's SMs
+constexpr int kSmemBudget = 110 * 1024;  // two blocks an SM
+constexpr int kMaxSmem = 227 * 1024;     // one block an SM
+constexpr int kMaxTileRows = 16;
+constexpr int kMinTiles = 4;      // tiles a block pipelines at least
+constexpr int kReduceRuns = 8;    // runs of blocks the second launch sums apart
 
 __device__ __forceinline__ int reflect(int i, int n) {
   if (i < 0) i = -i;
@@ -41,113 +74,320 @@ __device__ __forceinline__ int reflect(int i, int n) {
   return i;
 }
 
+// 16-byte unit of chunk c of pixel p in a tile of CH chunks a pixel: the
+// chunks of 8 consecutive pixels land in 8 distinct units mod 8 (bank groups).
+template <int CH>
+__device__ __forceinline__ int swz(int p, int c) {
+  return p * CH + (c ^ ((p / (8 / CH)) & (CH - 1)));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, or 16 zero bytes if !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c (16 x 8, float32) += a (16 x 16) . b (16 x 8), bf16 operands
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A fragment (16 channels c0 .. c0 + 15 x pixels p .. p + 15) of a
+// pixel-major swizzled tile of CH chunks a pixel, as mma's row-major A:
+// matrices (channels 0-7 | 8-15) x (pixels 0-7 | 8-15), channel block first.
+template <int CH>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], uint32_t tile, int p, int c0, int lane) {
+  const int j = lane >> 3;
+  ldmatrix_x4_trans(a, tile + 16 * swz<CH>(p + (j >> 1) * 8 + (lane & 7), c0 / 8 + (j & 1)));
+}
+
+// B fragments of two n8 tiles (pixels p .. p + 15 x channels c0 .. c0 + 15)
+// of a pixel-major swizzled tile: b[0], b[1] for channels c0 .. c0 + 7,
+// b[2], b[3] for c0 + 8 .. c0 + 15; pixel block first.
+template <int CH>
+__device__ __forceinline__ void load_b(uint32_t (&b)[4], uint32_t tile, int p, int c0, int lane) {
+  const int j = lane >> 3;
+  ldmatrix_x4_trans(b, tile + 16 * swz<CH>(p + (j & 1) * 8 + (lane & 7), c0 / 8 + (j >> 1)));
+}
+
 struct Plan {
-  int tile_t, chunks, rows_per_block, nslices, threads;
-  size_t smem;
+  int tile_t;          // rows of a tile
+  int x_bytes, stage;  // bytes of a stage's x tile, and of the whole stage (x, then dy)
+  int stages;          // ring depth
+  int smem;            // dynamic shared memory of the partial kernel; -1: does not fit
+  int tiles_per_clip, ntiles, nblocks;
 };
 
+// The first (stages, shared-memory limit) under which a tile of at least
+// one row fits, with the most rows that fit.
 Plan plan(int B, int T, int F, int cin, int cout) {
   Plan p;
-  const int xrow = (F + 2) * (cin | 1) * 4, drow = F * (cout + 1) * 4;
-  p.tile_t = (kTileBytes - 2 * xrow) / (xrow + drow);
-  p.tile_t = p.tile_t < 1 ? 1 : (p.tile_t > 64 ? 64 : p.tile_t);
-  const int tiles = ceil_div(T, p.tile_t);
-  const int want = ceil_div(kTargetBlocks, B);
-  p.chunks = tiles < want ? tiles : want;
-  p.rows_per_block = ceil_div(ceil_div(T, p.chunks), p.tile_t) * p.tile_t;
-  p.chunks = ceil_div(T, p.rows_per_block);
-  const int groups = 9 * cin;
-  p.nslices = groups >= kMaxThreads ? 1 : kMaxThreads / groups;
-  p.threads = groups * p.nslices;
-  const size_t tile = (size_t)(p.tile_t + 2) * xrow + (size_t)p.tile_t * drow;
-  const size_t red = (size_t)p.nslices * groups * cout * 4;
-  p.smem = tile > red ? tile : red;
+  const int w = F + 2;
+  // the warps' sums staged for the in-block reduction, in the ring's place
+  const int red = cin == 1 ? kWarps * 16 * cout * 4
+                           : kWarps / ((cin / 16) * (cout / 16)) * 9 * cin * cout * 4;
+  const int options[4][2] = {{3, kSmemBudget}, {3, kMaxSmem}, {2, kMaxSmem}, {1, kMaxSmem}};
+  p.smem = -1;
+  for (const auto& opt : options) {
+    for (int rows = T < kMaxTileRows ? T : kMaxTileRows; rows >= 1 && p.smem < 0; --rows) {
+      const long long ppad = ceil_div(rows * w, 16) * 16;  // dy pixels of a tile
+      const long long xpix = ppad + 2 * w + 2;  // the last tap's reach past the dy tile
+      const long long x_bytes = (xpix * cin * 2 + 127) / 128 * 128;
+      const long long stage = x_bytes + ppad * cout * 2;
+      const long long ring = opt[0] * stage + (cin == 1 ? ppad * 32 : 0);
+      const long long smem = ring > red ? ring : red;
+      if (smem <= opt[1]) {
+        p.tile_t = rows;
+        p.x_bytes = (int)x_bytes;
+        p.stage = (int)stage;
+        p.stages = opt[0];
+        p.smem = (int)smem;
+      }
+    }
+    if (p.smem > 0) break;
+  }
+  if (p.smem < 0) return p;
+  p.tiles_per_clip = ceil_div(T, p.tile_t);
+  p.ntiles = B * p.tiles_per_clip;
+  const int want = p.ntiles / kMinTiles;
+  p.nblocks = want < 1 ? 1 : (want > kMaxBlocks ? kMaxBlocks : want);
   return p;
 }
 
-template <int COUT>
-__global__ void __launch_bounds__(kMaxThreads)
+template <int CIN, int COUT>
+__global__ void __launch_bounds__(kThreads, 2)
 dkernel_partial(const bf16* __restrict__ x, const bf16* __restrict__ dy, float* __restrict__ ws,
-                int T, int F, int cin, int tile_t, int rows_per_block, int nslices) {
-  extern __shared__ float smem[];
-  const int xs_stride = cin | 1, ds = COUT + 1, cols = F + 2;
-  float* xs = smem;                                  // (tile_t + 2, F + 2, xs_stride)
-  float* dys = xs + (size_t)(tile_t + 2) * cols * xs_stride;  // (tile_t, F, ds)
-  const int groups = 9 * cin;
-  const int b = blockIdx.y;
-  const int g = threadIdx.x % groups, s = threadIdx.x / groups;
-  const int tap = g / cin, ci = g % cin, dt = tap / 3, df = tap % 3;
-  const int r0 = blockIdx.x * rows_per_block;
-  const int r1 = min(T, r0 + rows_per_block);
+                int T, int F, Plan p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int kCoBlocks = COUT / 16;
+  // blocks of 16 x 16 of dW a warp owns 9 taps of, and the warps sharing one
+  constexpr int kGroups = CIN == 1 ? 1 : (CIN / 16) * kCoBlocks;
+  constexpr int kSlices = kWarps / kGroups;
+  constexpr int kAcc = CIN == 1 ? kCoBlocks : 9;  // 16 x 16 sums a warp keeps
+  constexpr int kChX = CIN == 1 ? 2 : CIN / 8, kChD = COUT / 8;
+  constexpr int kN = 9 * CIN * COUT;
+  const int w = F + 2, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int group = warp % kGroups, slice = warp / kGroups;
+  const int ci0 = CIN == 1 ? 0 : (group / kCoBlocks) * 16;
+  const int co0 = (group % kCoBlocks) * 16;
 
-  float acc[COUT];
-#pragma unroll
-  for (int co = 0; co < COUT; ++co) acc[co] = 0.f;
-  for (int t0 = r0; t0 < r1; t0 += tile_t) {
-    const int rows = min(tile_t, r1 - t0);
-    __syncthreads();  // the previous tile is consumed
-    const int n_x = (rows + 2) * cols * cin;
-    for (int i = threadIdx.x; i < n_x; i += blockDim.x) {
-      const int c = i % cin, j = (i / cin) % cols, r = i / (cin * cols);
-      const int t = reflect(t0 - 1 + r, T), f = reflect(j - 1, F);
-      xs[(r * cols + j) * xs_stride + c] =
-          __bfloat162float(x[(((size_t)b * T + t) * F + f) * cin + c]);
+  // zero once: dy's two extra pixels a row and its tail, x's tail
+  for (int i = threadIdx.x; i < p.smem / 16; i += kThreads)
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+
+  const int first = (int)((long long)blockIdx.x * p.ntiles / gridDim.x);
+  const int count = (int)((long long)(blockIdx.x + 1) * p.ntiles / gridDim.x) - first;
+  bf16* col = reinterpret_cast<bf16*>(smem + (size_t)p.stages * p.stage);  // Cin = 1: im2col
+
+  auto load = [&](int tile, int s) {
+    const int b = tile / p.tiles_per_clip, t0 = (tile % p.tiles_per_clip) * p.tile_t;
+    const int rows = min(p.tile_t, T - t0);
+    bf16* xs = reinterpret_cast<bf16*>(smem + (size_t)s * p.stage);
+    bf16* ds = reinterpret_cast<bf16*>(smem + (size_t)s * p.stage + p.x_bytes);
+    const bf16* xb = x + (size_t)b * T * F * CIN;
+    if constexpr (CIN == 1) {
+      const int n = (p.tile_t + 2) * w;
+      for (int i = threadIdx.x; i < n; i += kThreads) {
+        const int r = i / w, j = i - r * w;
+        xs[i] = r < rows + 2 ? xb[(size_t)reflect(t0 - 1 + r, T) * F + reflect(j - 1, F)]
+                             : __float2bfloat16(0.f);
+      }
+    } else {
+      const int n = (p.tile_t + 2) * w * kChX;
+      for (int i = threadIdx.x; i < n; i += kThreads) {
+        const int c = i % kChX, px = i / kChX, r = px / w, j = px - r * w;
+        const bool valid = r < rows + 2;
+        const int t = valid ? reflect(t0 - 1 + r, T) : 0;
+        cp_async16(xs + 8 * swz<kChX>(px, c),
+                   xb + ((size_t)t * F + reflect(j - 1, F)) * CIN + c * 8, valid);
+      }
     }
-    const int n_d = rows * F * COUT;
-    const bf16* dyp = dy + ((size_t)b * T + t0) * F * COUT;
-    for (int i = threadIdx.x; i < n_d; i += blockDim.x)
-      dys[(i / COUT) * ds + i % COUT] = __bfloat162float(dyp[i]);
-    __syncthreads();
-    for (int p = s; p < rows * F; p += nslices) {
-      const int tt = p / F, f = p % F;
-      const float xv = xs[((tt + dt) * cols + f + df) * xs_stride + ci];
-      const float* d = dys + p * ds;
+    const int per_row = F * kChD;
+    const int n = p.tile_t * per_row;
+    const bf16* db = dy + ((size_t)b * T + t0) * F * COUT;
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      const int r = i / per_row, rem = i - r * per_row;
+      const bool valid = r < rows;
+      cp_async16(ds + 8 * swz<kChD>(r * w + rem / kChD, rem % kChD), valid ? db + (size_t)i * 8 : dy,
+                 valid);
+    }
+  };
+
+  float acc[kAcc][2][4];
 #pragma unroll
-      for (int co = 0; co < COUT; ++co) acc[co] = fmaf(xv, d[co], acc[co]);
+  for (int i = 0; i < kAcc; ++i)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+
+  for (int s = 0; s < p.stages - 1; ++s) {
+    if (s < count) load(first + s, s);
+    cp_async_commit();
+  }
+  for (int i = 0; i < count; ++i) {
+    const int ahead = i + p.stages - 1;
+    if (ahead < count) load(first + ahead, ahead % p.stages);
+    cp_async_commit();
+    // tile i's group is complete once at most stages - 1 are pending
+    if (p.stages == 3)
+      cp_async_wait<2>();
+    else if (p.stages == 2)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    const int tile = first + i;
+    const int rows = min(p.tile_t, T - (tile % p.tiles_per_clip) * p.tile_t);
+    const int ksteps = (rows * w + 15) / 16;
+    const int s = i % p.stages;
+    const uint32_t ds = smem_addr(smem + (size_t)s * p.stage + p.x_bytes);
+    if constexpr (CIN == 1) {
+      // im2col: pixel q's 16 values are x at q + dt (F + 2) + df for the
+      // 9 taps, then zeros; chunk c holds values 8c .. 8c + 7
+      const unsigned short* xs = reinterpret_cast<const unsigned short*>(smem + (size_t)s * p.stage);
+      for (int q = threadIdx.x; q < ksteps * 16; q += kThreads) {
+        uint32_t v[8];
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+          const int m0 = 2 * m, m1 = 2 * m + 1;
+          const uint32_t lo = m0 < 9 ? xs[q + (m0 / 3) * w + m0 % 3] : 0u;
+          const uint32_t hi = m1 < 9 ? xs[q + (m1 / 3) * w + m1 % 3] : 0u;
+          v[m] = lo | (hi << 16);
+        }
+        uint4* dst = reinterpret_cast<uint4*>(col);
+        dst[swz<2>(q, 0)] = make_uint4(v[0], v[1], v[2], v[3]);
+        dst[swz<2>(q, 1)] = make_uint4(v[4], v[5], v[6], v[7]);
+      }
+      __syncthreads();
+      const uint32_t cs = smem_addr(col);
+      for (int k = warp; k < ksteps; k += kWarps) {
+        uint32_t a[4];
+        load_a<2>(a, cs, k * 16, 0, lane);
+#pragma unroll
+        for (int nb = 0; nb < kCoBlocks; ++nb) {
+          uint32_t b[4];
+          load_b<kChD>(b, ds, k * 16, nb * 16, lane);
+          mma_bf16(acc[nb][0], a, b[0], b[1]);
+          mma_bf16(acc[nb][1], a, b[2], b[3]);
+        }
+      }
+    } else {
+      const uint32_t xs = smem_addr(smem + (size_t)s * p.stage);
+      for (int k = slice; k < ksteps; k += kSlices) {
+        uint32_t b[4];
+        load_b<kChD>(b, ds, k * 16, co0, lane);
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          uint32_t a[4];
+          load_a<kChX>(a, xs, k * 16 + (tap / 3) * w + tap % 3, ci0, lane);
+          mma_bf16(acc[tap][0], a, b[0], b[1]);
+          mma_bf16(acc[tap][1], a, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // stage s (and the im2col) consumed
+  }
+  cp_async_wait<0>();
+
+  // the warps' sums, in the ring's place: Cin = 1 (warp, 16 tap rows,
+  // Cout), else (slice, 9, Cin, Cout); C fragment element e of n8 tile n
+  // is row lane / 4 + 8 (e / 2), column n * 8 + 2 (lane % 4) + e % 2
+  float* red = reinterpret_cast<float*>(smem);
+  const int r = lane >> 2, cc = 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) {
+    float* base = CIN == 1 ? red + (size_t)warp * 16 * COUT + i * 16
+                           : red + ((size_t)(slice * 9 + i) * CIN + ci0) * COUT + co0;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      *reinterpret_cast<float2*>(base + r * COUT + n * 8 + cc) = make_float2(acc[i][n][0], acc[i][n][1]);
+      *reinterpret_cast<float2*>(base + (r + 8) * COUT + n * 8 + cc) =
+          make_float2(acc[i][n][2], acc[i][n][3]);
     }
   }
   __syncthreads();
-  float* red = smem;  // (nslices, groups, COUT)
-#pragma unroll
-  for (int co = 0; co < COUT; ++co) red[((size_t)s * groups + g) * COUT + co] = acc[co];
-  __syncthreads();
-  const int n = groups * COUT;
-  float* out = ws + (size_t)(blockIdx.y * gridDim.x + blockIdx.x) * n;
-  for (int o = threadIdx.x; o < n; o += blockDim.x) {
+  constexpr int kCopies = CIN == 1 ? kWarps : kSlices;
+  constexpr int kStride = CIN == 1 ? 16 * COUT : kN;  // floats between two copies
+  float* out = ws + (size_t)blockIdx.x * kN;
+  for (int o = threadIdx.x; o < kN; o += kThreads) {
     float v = 0.f;
-    for (int k = 0; k < nslices; ++k) v += red[(size_t)k * n + o];
+#pragma unroll
+    for (int k = 0; k < kCopies; ++k) v += red[k * kStride + o];
     out[o] = v;
   }
 }
 
-// dW[o] = sum of the blocks' partials, in block order.
-__global__ void dkernel_reduce(const float* __restrict__ ws, float* __restrict__ dw, int nblocks,
-                               int n) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= n) return;
+// dW[o] = the sum of the blocks' partials: kReduceRuns runs of consecutive
+// blocks, each summed in block order, then the runs in order.
+__global__ void __launch_bounds__(32 * kReduceRuns)
+dkernel_reduce(const float* __restrict__ ws, float* __restrict__ dw, int nblocks, int n) {
+  __shared__ float runs[kReduceRuns][32];
+  const int lane = threadIdx.x & 31, run = threadIdx.x >> 5;
+  const int o = blockIdx.x * 32 + lane;
+  const int per = (nblocks + kReduceRuns - 1) / kReduceRuns;
+  const int k1 = min(nblocks, (run + 1) * per);
   float v = 0.f;
-  for (int k = 0; k < nblocks; ++k) v += ws[(size_t)k * n + o];
-  dw[o] = v;
+  if (o < n) {
+#pragma unroll 4
+    for (int k = run * per; k < k1; ++k) v += ws[(size_t)k * n + o];
+  }
+  runs[run][lane] = v;
+  __syncthreads();
+  if (run == 0 && o < n) {
+    float t = 0.f;
+#pragma unroll
+    for (int i = 0; i < kReduceRuns; ++i) t += runs[i][lane];
+    dw[o] = t;
+  }
 }
 
-template <int COUT>
+template <int CIN, int COUT>
 cudaError_t launch(const bf16* x, const bf16* dy, float* ws, float* dw, int B, int T, int F,
-                   int cin, cudaStream_t s) {
-  const Plan p = plan(B, T, F, cin, COUT);
-  cudaError_t err = cudaFuncSetAttribute(dkernel_partial<COUT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+                   cudaStream_t s) {
+  const Plan p = plan(B, T, F, CIN, COUT);
+  cudaError_t err = cudaFuncSetAttribute(dkernel_partial<CIN, COUT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
-  dkernel_partial<COUT><<<dim3(p.chunks, B), p.threads, p.smem, s>>>(
-      x, dy, ws, T, F, cin, p.tile_t, p.rows_per_block, p.nslices);
+  dkernel_partial<CIN, COUT><<<p.nblocks, kThreads, p.smem, s>>>(x, dy, ws, T, F, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int n = 9 * cin * COUT;
-  dkernel_reduce<<<ceil_div(n, 256), 256, 0, s>>>(ws, dw, p.chunks * B, n);
+  const int n = 9 * CIN * COUT;
+  dkernel_reduce<<<ceil_div(n, 32), 32 * kReduceRuns, 0, s>>>(ws, dw, p.nblocks, n);
   return cudaGetLastError();
 }
 
-bool supported(int T, int F, int cin, int cout) {
-  return T >= 2 && F >= 2 && (cin == 1 || cin == 16 || cin == 32) && (cout == 16 || cout == 32);
+template <int CIN>
+cudaError_t launch_cin(const bf16* x, const bf16* dy, float* ws, float* dw, int B, int T, int F,
+                       int cout, cudaStream_t s) {
+  return cout == 16 ? launch<CIN, 16>(x, dy, ws, dw, B, T, F, s)
+                    : launch<CIN, 32>(x, dy, ws, dw, B, T, F, s);
+}
+
+bool supported(int B, int T, int F, int cin, int cout) {
+  return B >= 1 && T >= 2 && F >= 2 && (cin == 1 || cin == 16 || cin == 32) &&
+         (cout == 16 || cout == 32) && plan(B, T, F, cin, cout).smem > 0;
 }
 
 }  // namespace
@@ -155,20 +395,23 @@ bool supported(int T, int F, int cin, int cout) {
 // Bytes of float32 workspace `conv3x3_dkernel` needs; -1 for a shape it does
 // not take.
 CT_EXPORT long long conv3x3_dkernel_workspace(int B, int T, int F, int cin, int cout) {
-  if (!supported(T, F, cin, cout)) return -1;
-  const Plan p = plan(B, T, F, cin, cout);
-  return (long long)p.chunks * B * 9 * cin * cout * 4;
+  if (!supported(B, T, F, cin, cout)) return -1;
+  return (long long)plan(B, T, F, cin, cout).nblocks * 9 * cin * cout * 4;
 }
 
 CT_EXPORT int conv3x3_dkernel(const void* x, const void* dy, void* workspace, void* dw, int B,
                               int T, int F, int cin, int cout, void* stream) {
-  if (!supported(T, F, cin, cout)) return (int)cudaErrorInvalidValue;
+  if (!supported(B, T, F, cin, cout)) return (int)cudaErrorInvalidValue;
+  // the 16-byte copies: dy's pixels, and x's at Cin >= 16, start on 16 bytes
+  if ((reinterpret_cast<uintptr_t>(dy) | (cin > 1 ? reinterpret_cast<uintptr_t>(x) : 0)) & 15)
+    return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto xb = static_cast<const bf16*>(x);
   auto db = static_cast<const bf16*>(dy);
   auto ws = static_cast<float*>(workspace);
   auto out = static_cast<float*>(dw);
-  const cudaError_t err = cout == 16 ? launch<16>(xb, db, ws, out, B, T, F, cin, s)
-                                     : launch<32>(xb, db, ws, out, B, T, F, cin, s);
+  const cudaError_t err = cin == 1    ? launch_cin<1>(xb, db, ws, out, B, T, F, cout, s)
+                          : cin == 16 ? launch_cin<16>(xb, db, ws, out, B, T, F, cout, s)
+                                      : launch_cin<32>(xb, db, ws, out, B, T, F, cout, s);
   return (int)err;
 }

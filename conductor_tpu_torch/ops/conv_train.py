@@ -15,8 +15,9 @@ tensors, x (B, T, F, Cin) and kernel (3, 3, Cin, Cout):
   (the first block's input is the mel);
 - d(kernel): K9 (`csrc/conv_train.cu`), dW[dt, df, ci, co] = sum over
   (b, t, f) of xe[b, t+dt-1, f+df-1, ci] * dy[b, t, f, co], xe the reflect-
-  extended input, in (3, 3, Cin, Cout) directly: the TPU kernel's halo
-  layout and its offset-eye fold (:243-269) are not carried over.
+  extended input, in (3, 3, Cin, Cout) directly, one tensor-core GEMM per
+  tap over the pixels: the TPU kernel's halo layout and its offset-eye fold
+  (:243-269) are not carried over.
 
 The kernels take bf16 operands; on CPU tensors the wrappers take the plain
 versions in the tensors' own dtype (operands rounded to it, float32 sums).
@@ -32,10 +33,12 @@ from .conv_block import fused_conv_block
 
 
 def conv3x3_dkernel_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """The plain version of K9: the d(kernel) sum written out, float32."""
+    """The plain version of K9: the d(kernel) sum written out, in float32
+    (float64 for float64 operands)."""
     t, f = dy.shape[1], dy.shape[2]
-    xe = F.pad(x.float().permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect").permute(0, 2, 3, 1)
-    d = dy.float()
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    xe = F.pad(x.to(dtype).permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect").permute(0, 2, 3, 1)
+    d = dy.to(dtype)
     return torch.stack([
         torch.stack([torch.einsum("btfi,btfo->io", xe[:, a:a + t, c:c + f], d) for c in range(3)])
         for a in range(3)
@@ -54,8 +57,9 @@ def conv3x3_dkernel(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     lib = _build.library()
     nbytes = lib.conv3x3_dkernel_workspace(b, t, f, cin, cout)
     if nbytes < 0:
-        raise ValueError(f"conv3x3_dkernel takes T, F >= 2, Cin in (1, 16, 32) and Cout in "
-                         f"(16, 32); got x {tuple(x.shape)}, dy {tuple(dy.shape)}")
+        raise ValueError(f"conv3x3_dkernel takes T, F >= 2, Cin in (1, 16, 32), Cout in "
+                         f"(16, 32) and a row of x and dy that fits in shared memory (F up to "
+                         f"~900); got x {tuple(x.shape)}, dy {tuple(dy.shape)}")
     workspace = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     dw = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
     err = lib.conv3x3_dkernel(x.data_ptr(), dy.data_ptr(), workspace.data_ptr(), dw.data_ptr(),

@@ -29,7 +29,7 @@ drawn with numpy, on synthetic M2SNet weights (`synthetic_m2snet_state_dict`);
 "pallas_fused" (the default) means "auto" on CUDA, the kernel path (bf16,
 music_conv_impl "pallas_train"), "flax" the plain float32 "lax" path;
 ``--share`` sets ``share_encodes``.  The same timings and table, without
-the perceptual term.
+the perceptual term, and K9's device time and launches a step.
 """
 
 from __future__ import annotations
@@ -107,11 +107,15 @@ def main_m2snet(args) -> None:
         return float(tr.train_step(music, motion, "hard",
                                    starts=(s1, int(rng.randint(s1 + 300, (s - c) * 30))))["loss"])
 
-    wall_plain, wall, device, table, _ = profile_steps(step)
+    wall_plain, wall, device, table, by_name = profile_steps(step)
+    k9 = [v for name, v in by_name.items() if "dkernel" in name]
     print("\n".join([
         f"stage-1 M2SNet step, {tr.compute_dtype} / {tr.music_conv_impl}, share_encodes "
         f"{args.share}, B={b}, {c}-s crops of {s}-s samples, {STEPS} steps profiled on {_smi()}",
-        _times(wall_plain, wall, device), table]))
+        _times(wall_plain, wall, device),
+        f"K9 (csrc/conv_train.cu: dkernel_partial and dkernel_reduce, two launches a call): "
+        f"{sum(ms for ms, _ in k9):.3f} ms/step, {sum(n for _, n in k9):.0f} launches/step",
+        table]))
 
 
 def main() -> None:

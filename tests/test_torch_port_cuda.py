@@ -138,15 +138,24 @@ def test_conv_block_training_modes(cin, cout, f, edge):
     assert float((got - want).abs().max()) <= 0.02 * float(want.abs().max())
 
 
-@pytest.mark.parametrize("cin,cout,f,t", [(1, 16, 128, 30), (16, 16, 128, 30), (16, 32, 64, 30),
-                                          (32, 32, 32, 10), (16, 16, 8, 2)])
-def test_conv3x3_dkernel_matches_plain(cin, cout, f, t):
-    """K9 against the d(kernel) sum written out, bf16 operands on both sides."""
+@pytest.mark.parametrize("cin,cout,f,t,b", [
+    (1, 16, 128, 30, 3), (16, 16, 128, 30, 3), (16, 32, 64, 30, 3), (32, 32, 32, 10, 3),
+    (16, 16, 8, 2, 3),
+    # the five (F, Cin, Cout) of the stage-1 encoder's seven convs, at a T
+    # that is a multiple of no tile's rows
+    (1, 16, 128, 37, 2), (16, 16, 128, 37, 2), (16, 32, 64, 37, 2), (32, 32, 64, 37, 2),
+    (32, 32, 32, 37, 2),
+    # F not a multiple of 16
+    (32, 16, 18, 37, 2), (1, 32, 18, 11, 2),
+])
+def test_conv3x3_dkernel_matches_plain(cin, cout, f, t, b):
+    """K9 against the d(kernel) sum written out, bf16 operands on both sides;
+    the products are exact in float32, so only the order of the sums differs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(cin * cout + f)
-    x = _rand(3, t, f, cin, gen=gen).to(torch.bfloat16)
-    dy = _rand(3, t, f, cout, gen=gen).to(torch.bfloat16)
+    x = _rand(b, t, f, cin, gen=gen).to(torch.bfloat16)
+    dy = _rand(b, t, f, cout, gen=gen).to(torch.bfloat16)
     got, want = conv3x3_dkernel(x, dy), conv3x3_dkernel_plain(x, dy)
     assert got.shape == (3, 3, cin, cout)
     assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
