@@ -15,7 +15,13 @@ Phases, one line each (the kernel checks one line per kernel):
      move of it, and K2 with int8 output and K1 in its int8-AdaLN mode on
      the int8 operands of the first ladder step, K2's codes compared
      dequantized, at most 0.1 % of them differing from the plain version's
-     and none by more than 1, and all right on exact ties), and the
+     and none by more than 1, and all right on exact ties; K1's AdaLN GEMM
+     alone in bf16 and int8 as K1 launches it, all 8 layers at once,
+     beside torch.addmm with float32 out or torch._int_mm, and in device
+     time beside torch.matmul in bf16 or torch._int_mm on the same
+     product; K1's three modes and its GEMM again at B = 8, the
+     headline's batch, and K1's device time split by launch at B = 2 and
+     8, the `[k1-split]` lines), and the
      training layer kernels K5 (forward) and K6 (backward, seven
      gradients) on layer 0 of
      a training forward at B = 4 windows of 30 s (T = 900,
@@ -83,9 +89,10 @@ Phases, one line each (the kernel checks one line per kernel):
 
 Every path runs at full depth; the run takes a few minutes of its 1200-s
 limit, so no path is cut.  Then one JSON line of per-kernel results (the
-launch counts of K1-K4 from phase 4, of K5 / K6 / K7 from phase 6, of K9,
-K10 and K11 from phase 7, of K8 from phase 8, of K1's and K2's int8 modes
-and K1's bf16-VPU mode from phase 10; each kernel's time, its
+launch counts of K1-K4 and K1's AdaLN GEMM from phase 4, of K5 / K6 / K7
+from phase 6, of K9, K10 and K11 from phase 7, of K8 from phase 8, of K1's
+and K2's int8 modes, K1's bf16-VPU mode and the int8 GEMM from phase 10;
+each kernel's time, its
 plain version's, its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
 line {"ok": true, "device": {...}}.
@@ -131,7 +138,16 @@ KERNEL_SOURCES = {
     "max_pool_bwd": ("conductor_tpu_torch/csrc/max_pool.cu", "conductor_tpu/ops/pallas_pool.py:352"),
     "linear_attention": ("conductor_tpu_torch/csrc/linear_attention.cu",
                          "conductor_tpu/ops/pallas_attention.py:152"),
+    # K1's AdaLN modulation (`_layer_body` :112-120), launched by K1 once a call
+    "adaln_modulation": ("conductor_tpu_torch/csrc/adaln_gemm.cu",
+                         "conductor_tpu/ops/pallas_layer.py:262"),
+    "adaln_modulation_int8": ("conductor_tpu_torch/csrc/adaln_gemm.cu",
+                              "conductor_tpu/ops/pallas_layer.py:262"),
 }
+# the AdaLN GEMM's device time beside its yardstick's, in its kernels-line entries
+YARDSTICK_KEYS = ("device_ms", "yardstick", "yardstick_device_ms", "no_slower_than_yardstick")
+# K1's modes, with their rows of the per-launch split (`k1_launch_split`)
+K1_MODES = ("decoder_stack", "decoder_stack_vpu_bf16", "decoder_stack_int8")
 SERVING_KERNELS = ("decoder_stack", "sampler_prologue", "sampler_epilogue", "conv_block")
 # bench.py's serving config (bench.py:41-50), applied to the port's Config()
 BENCH_DENOISER = dict(attention_impl="pallas", compute_dtype="bfloat16", layer_impl="pallas_fused",
@@ -174,14 +190,24 @@ def main() -> int:
     from conductor_tpu_torch.kernel_checks import (
         check_attention_kernel,
         check_kernels,
+        check_stack_kernels,
         check_stage1_kernels,
         check_stgcn_kernels,
         check_train_kernels,
+        k1_launch_split,
+        ladder_step_inputs,
         perceptual_inputs,
+        stack_operands,
         stage1_kernel_inputs,
         time_ms,
     )
-    from conductor_tpu_torch.ops import _build, launch_counts, reset_launch_counts
+    from conductor_tpu_torch.ops import (
+        _build,
+        fused_decoder_stack,
+        launch_counts,
+        part_launch_counts,
+        reset_launch_counts,
+    )
 
     # the plain references run in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -251,8 +277,24 @@ def main() -> int:
         s1 = int(rng.randint(0, span - 300))
         starts.append((s1, int(rng.randint(s1 + 300, span))))
 
-    # 3. every kernel against its plain version, at the main paths' shapes
+    # 3. every kernel against its plain version, at the main paths' shapes;
+    # K1 and its AdaLN GEMM also at B = 8 (the headline's batch), on a mel
+    # and x_T of their own seed, and K1's device time by launch at both
     results = check_kernels(kernel_tr, mel, noise)
+    rng8 = np.random.RandomState(8)
+    mel_b8 = torch.from_numpy(rng8.uniform(0, 1, size=(8, 5400, 128)).astype(np.float32)).cuda()
+    noise_b8 = torch.from_numpy(rng8.normal(size=(8, 1800, 26)).astype(np.float32)).cuda()
+    step_b8 = ladder_step_inputs(kernel_tr, mel_b8, noise_b8)[:2]
+    results += check_stack_kernels(kernel_tr, *step_b8, suffix="_b8")
+    for label, (m, x_t) in (("B=2", (mel, noise)), ("B=8", (mel_b8, noise_b8))):
+        ops = stack_operands(kernel_tr, *ladder_step_inputs(kernel_tr, m, x_t)[:2])
+        for mode in K1_MODES:
+            args, kw = ops[mode]
+            split = k1_launch_split(lambda: fused_decoder_stack(*args, **kw))
+            print(f"[k1-split] {mode} {label} T=1800, device ms a call: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+                  + f", sum {sum(split.values()):.4f} ({smi})")
+    del mel_b8, noise_b8, step_b8, ops, args, kw
     results += check_train_kernels(kernel_tr, mel_train[:4], motion_train[:4])
     results += check_stgcn_kernels(kernel_tr, *perceptual_inputs(kernel_tr, mel_train, motion_train))
     m2s_kernel.load_reference_state_dict(m2s_sd)
@@ -267,7 +309,8 @@ def main() -> int:
         results.append(check_attention_kernel(q, k, v, key_mask, heads) | {"name": name})
     for r in results:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        print(f"[kernel] {r['name']}: max_abs_err {r['max_abs_err']:.6g} "
+        shape = f" {r['shape']}" if "shape" in r and "kv_dtype" not in r else ""
+        print(f"[kernel] {r['name']}{shape}: max_abs_err {r['max_abs_err']:.6g} "
               f"(plain max {r['ref_max_abs']:.6g}, {'ok' if r['ok'] else 'FAIL'}) "
               f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
               f"library {lib}")
@@ -278,6 +321,10 @@ def main() -> int:
         if r["name"] == "stgcn_backward":
             print(f"[kernel]   stgcn_backward after the kernel's own forward (ReLU masks of "
                   f"another summation order): err {r['e2e_err']:.6g}, not bounded")
+        if "yardstick" in r:
+            print(f"[kernel]   {r['name']}{shape}: device ms {r['device_ms']:.4f}, "
+                  f"{r['yardstick']} {r['yardstick_device_ms']:.4f}: no slower than it: "
+                  f"{r['no_slower_than_yardstick']}")
         if "kv_dtype" in r:
             print(f"[kernel]   {r['name']} {r['shape']}: bf16 q, k and v {r['kv_dtype']}")
         if "tie_err" in r:
@@ -307,6 +354,7 @@ def main() -> int:
     out = kernel_tr.generate(mel, num_steps=50, noise=noise)
     torch.cuda.synchronize()
     counts = launch_counts()
+    counts["adaln_modulation"] = part_launch_counts()["adaln_modulation"]
     ref = plain_tr.generate(mel, num_steps=50, noise=noise)
     err, scale = float((out - ref).abs().max()), float(ref.abs().max())
     finite = bool(torch.isfinite(out).all())
@@ -316,6 +364,8 @@ def main() -> int:
         raise SystemExit("chip_smoke: generate on the kernel path is wrong")
     if min(counts[k] for k in SERVING_KERNELS) == 0:
         raise SystemExit(f"chip_smoke: a kernel of the path was never launched: {counts}")
+    if counts["adaln_modulation"] != 50:
+        raise SystemExit(f"chip_smoke: K1 did not launch its AdaLN GEMM on every step: {counts}")
 
     # 5. timings on the kernel path
     mel1, noise1 = mel[:1].contiguous(), noise[:1].contiguous()
@@ -477,7 +527,7 @@ def main() -> int:
         reset_launch_counts()
         out_b = tr.generate(mel, num_steps=50, noise=noise)
         torch.cuda.synchronize()
-        bc = launch_counts()
+        bc = launch_counts() | part_launch_counts()
         err_b = float((out_b - ref).abs().max())
         print(f"[serve-{label}] ddim50 B=2 int8 AdaLN, VPU {vpu}: max_abs_err vs plain float32 "
               f"{err_b:.6g} (plain max {scale:.6g}) launches {bc}")
@@ -486,7 +536,8 @@ def main() -> int:
             raise SystemExit(f"chip_smoke: generate under bench.py's config ({label}) is wrong")
         modes = ["decoder_stack_int8", "sampler_prologue_int8"] + (
             ["decoder_stack_vpu_bf16"] if vpu == "bfloat16" else [])
-        if any(bc[k] != 50 for k in modes) or bc["sampler_epilogue"] != 50:
+        if (any(bc[k] != 50 for k in modes) or bc["sampler_epilogue"] != 50
+                or bc["adaln_modulation"] != 50):
             raise SystemExit(f"chip_smoke: the {label} modes did not run on every step: {bc}")
         bench_counts[label] = bc
         if vpu == "float32":
@@ -495,6 +546,7 @@ def main() -> int:
     for k in ("decoder_stack_int8", "sampler_prologue_int8"):
         counts[k] = bench_counts["bench"][k]
     counts["decoder_stack_vpu_bf16"] = bench_counts["bench+vpu_bf16"]["decoder_stack_vpu_bf16"]
+    counts["adaln_modulation_int8"] = bench_counts["bench"]["adaln_modulation"]
     # bench.py's compile call, then best of 3 on each config in turns
     best = {}
     for name, tr in (("bench.py serving (int8 AdaLN)", bench_tr), ("bf16", kernel_tr)):
@@ -522,7 +574,7 @@ def main() -> int:
             "launches": counts[r["name"]], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        })
+        } | {k: r[k] for k in YARDSTICK_KEYS if k in r})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

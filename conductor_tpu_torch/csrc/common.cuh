@@ -17,4 +17,15 @@ __device__ __forceinline__ float silu(float v) { return v / (1.0f + expf(-v)); }
 
 static inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
+// The current card's number of SMs (read once a process).
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 132;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v;
+  }();
+  return n;
+}
+
 #define CT_EXPORT extern "C" __attribute__((visibility("default")))

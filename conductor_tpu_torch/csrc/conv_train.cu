@@ -56,6 +56,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -81,35 +82,15 @@ __device__ __forceinline__ int swz(int p, int c) {
   return p * CH + (c ^ ((p / (8 / CH)) & (CH - 1)));
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using tc::cp_async_commit;
+using tc::cp_async_wait;
+using tc::ldmatrix_x4_trans;
+using tc::mma_bf16;
+using tc::smem_addr;
 
 // 16 bytes from global to shared memory, or 16 zero bytes if !valid.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c (16 x 8, float32) += a (16 x 16) . b (16 x 8), bf16 operands
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  tc::cp_async16(smem_addr(dst), src, valid);
 }
 
 // A fragment (16 channels c0 .. c0 + 15 x pixels p .. p + 15) of a

@@ -3,75 +3,79 @@
 // K1 replaces conductor_tpu/ops/pallas_layer.py::fused_decoder_stack (layer
 // body `_layer_body` :60-160, `_stack_kernel` :177-207, pallas_call at
 // :317); K5 replaces ::fused_decoder_layer (`_layer_kernel` :163-174,
-// pallas_call at :233), the forward of the training layer.  Per layer: AdaLN modulation mod = emb_act @ W_adaln + b -> LN ->
-// q, k, v -> q feature-softmax per head, k softmax over the whole clip,
-// KV = k_sm^T v (float32, block-diagonal) -> q_sm @ KV -> StylizationBlock +
-// residual -> cross-attention q_sm @ KV_cross -> StylizationBlock + residual
-// -> tanh-GELU FFN -> StylizationBlock + residual.
+// pallas_call at :233), the forward of the training layer.  Per layer: AdaLN
+// modulation mod = emb_act @ W_adaln + b -> LN -> q, k, v -> q feature-softmax
+// per head, k softmax over the whole clip, KV = k_sm^T v (float32,
+// block-diagonal) -> q_sm @ KV -> StylizationBlock + residual ->
+// cross-attention q_sm @ KV_cross -> StylizationBlock + residual -> tanh-GELU
+// FFN -> StylizationBlock + residual.
 //
 // What bounds it on an H100: per step and clip it is ~2*T*(E*6D + 11*D^2)*L
-// = 16.5 GFLOP of small-K matrix products (the AdaLN product is ~68 %), so
+// = 16.5 GFLOP of small-K matrix products (the AdaLN product is ~69 %), so
 // tensor cores are the unit to use; the data (residual 0.9 MB, emb_act
 // 1.8 MB bf16 per clip, 1.0 MB of weights a layer) fits in the 50 MB L2.
 // The TPU kernel holds a whole (T = 1800, D) clip in VMEM per grid step; a
 // Hopper block has 227 KB of shared memory, and k's time softmax and KV are
-// reductions over all T rows.  Design, per layer, three launches over 64-row
-// tiles:
-//   A  kv_partials (4 warps): LN -> k, v (bf16 WMMA, float32 accumulation) and, per
-//      tile, k's column max m, sum of exp(k - m) and the block-diagonal
-//      partial exp(k - m)^T v, online-softmax style, in float32.  Rows >= T
-//      are left out (the TPU kernel masks its pad rows with k = -1e6, v = 0,
-//      which gives them exactly zero weight).
+// reductions over all T rows.  Design: one GEMM launch a step (G), then
+// three launches a layer (A, B, C):
+//   A  kv_partials (4 warps, 64-row tiles): LN -> k, v (bf16 WMMA, float32
+//      accumulation) and, per tile, k's column max m, sum of exp(k - m) and
+//      the block-diagonal partial exp(k - m)^T v, online-softmax style, in
+//      float32.  Rows >= T are left out (the TPU kernel masks its pad rows
+//      with k = -1e6, v = 0, which gives them exactly zero weight).
 //   B  kv_combine: rescales and sums the tile partials into KV, then rounds
 //      it to bf16 as the JAX kernel does before its q_sm @ KV product.
-//   C  layer_rows (8 warps): the rest of the layer.  The tile's residual rows, emb_act
-//      rows, matmul operand and output and a 256-wide slice of the AdaLN
-//      output live in shared memory (213 KB at E = 512; 180 KB with int8
-//      emb rows).
-// Shared-memory rows are padded (float32 +4, bf16 +8 elements), so the 16
-// rows of a WMMA tile fall on different banks instead of all on one.
-// Matrix products (`block_gemm`): each warp computes 32 output columns of
-// all 64 rows (or of 32 rows when there are fewer 32-column slices than
-// warps), so one weight fragment, read from global memory (L2), feeds four
-// (two) MMAs, and the weight fragments of the next kPrefetch k-steps are in
-// flight while this one's MMAs issue.  A warp-serial design (16 rows a warp,
-// every fragment loaded by every warp) measured 4-8x slower: its chain of
-// dependent L2 loads bounded it.  Pass C's 213 KB of shared memory leaves
-// one block per SM, so it runs 8 warps to give each SM sub-partition two
-// warps to issue from.  Row-wise work (LayerNorm, softmax, AdaLN, GELU,
-// residual) runs one warp per 16 (pass A) or 8 (pass C) rows.  The residual
+//   G  the AdaLN GEMM (adaln_gemm.cu): mod for all B T rows and all L
+//      layers in one launch before layer 0, float32 (B T, 6D L), bias
+//      added; each layer's pass C reads its 6D columns.  One launch a layer,
+//      right before its pass C so that its 11 MB (B = 2) or 44 MB (B = 8)
+//      stay in L2, was measured against it while this design was made: no
+//      faster at B = 1 and 2 and slower at B = 8, as eight launches of 2-3
+//      waves each lose more to their ramps and tails than pass C loses
+//      reading mod from device memory (88 MB at B = 2, 354 MB at B = 8).
+//   C  layer_rows (8 warps): the rest of the layer on a tile of 32 rows.
+//      Its nine (32 x D) @ (D x D) products (`tile_gemm_smem`: mma.sync
+//      m16n8k16, A and B fragments by ldmatrix) take their B operand from
+//      shared memory: each weight matrix (and KV_self, KV_cross) is staged
+//      by 16-byte cp.async into a 2-stage ring (2 x 32 KB, swizzled) two
+//      products ahead, so the next matrices arrive while this one
+//      multiplies.  The AdaLN step reads its rows of mod from global memory,
+//      coalesced.  Shared memory: the ring, the tile's residual rows
+//      and matmul output (float32) and the bf16 operand, 105.5 KB at 32
+//      rows: two blocks an SM, and twice the blocks of 64-row tiles (57 a
+//      clip at T = 1800 against 29, on 132 SMs).  64-row tiles (147 KB, one
+//      block an SM) were slower at B = 1, 2 and 8 while this design was
+//      made, though each block stages the same 288 KB of weights for half
+//      the rows.
+// Shared-memory rows of the float32 and bf16 tiles are padded (+4, +8
+// elements), so the 8 rows of an ldmatrix or the 16 of a WMMA tile fall on
+// different banks.  The first design computed mod inside pass C per tile,
+// each warp reading its weight fragments from L2 (a chain of dependent
+// loads bounded it), and held the AdaLN operands in 133 KB of pass C's
+// shared memory.  Row-wise work (LayerNorm, softmax, AdaLN, GELU, residual)
+// runs one warp per 16 (pass A) or 4 (pass C) rows.  The residual
 // stream lives in device memory between launches (in place after layer 0).
-// Plain WMMA, no wgmma/TMA yet.  The tile helpers live in layer_common.cuh,
-// shared with K6.
 //
-// K1's two opt-in serving modes are template flags of pass C (passes A and
-// B do not change):
+// K1's two opt-in serving modes:
 //   int8 AdaLN (`_stack_kernel` :182-201, `_layer_body` :113-118): emb_act
 //      arrives as int8 rows with float32 row scales (K2 quantizes it once a
-//      step) and adaln_w as int8 with float32 column scales.  The tile's
-//      emb rows sit in shared memory as int8, E bytes a row, k-chunk-major
-//      (each 16-code k-step of all 64 rows together, so that every WMMA
-//      fragment pointer is 32-byte aligned), half of the bf16 rows, with
-//      their 64 row scales.  The AdaLN product runs on the integer tensor
-//      cores (`block_gemm_s8`: m8n32k16 signed-char WMMA fragments -> int32,
-//      the same 32-column jobs and weight prefetch as `block_gemm`), and the
-//      AdaLN step dequantizes in float32, acc * (srow * scol) + ab, in JAX's
-//      order.
-//      The int8 AdaLN product is 22.6 GOP a step at B = 2, T = 1800: 0.011
-//      ms at the card's 1,979 int8 TOP/s, against 0.023 ms in bf16.
-//   bf16 VPU (`_layer_body` :98, 102-105, 154): the q feature-softmax exp,
-//      the StylizationBlock SiLU and the FFN GELU round their argument and
-//      every op's result to bf16, where JAX casts to bf16 (jax.nn.gelu's
-//      constants too); LN statistics, the time softmax, KV and the residual
-//      stay float32.
+//      step) and adaln_w as int8 with float32 column scales.  Only the GEMM
+//      changes: s8 mma.sync m16n8k32 into int32, dequantized in JAX's order,
+//      acc * (srow * scol) + ab; pass C gets the same float32 mod.
+//   bf16 VPU (`_layer_body` :98, 102-105, 154): a template flag of pass C.
+//      The q feature-softmax exp, the StylizationBlock SiLU and the FFN GELU
+//      round their argument and every op's result to bf16, where JAX casts
+//      to bf16 (jax.nn.gelu's constants too); LN statistics, the time
+//      softmax, KV and the residual stay float32.
 //
-// K5 is one layer of the same three launches (`decoder_layer_forward`),
-// with the residual read and written in bf16 (the training path carries it
+// K5 is one layer of the same four launches (`decoder_layer_forward`), with
+// the residual read and written in bf16 (the training path carries it
 // in the compute dtype between layers, JAX `train/fused_denoiser.py:
 // 304-323`) and float32 inside.  Its input is padded to whole 64-row tiles;
 // rows at or past t_valid are left out of the KV pass, as the TPU kernel
 // masks them, and still computed by the row pass.
 
+#include "adaln_gemm.cuh"
 #include "layer_common.cuh"
 
 using namespace layer;
@@ -173,77 +177,70 @@ __global__ void kv_combine_kernel(const float* __restrict__ partials, bf16* __re
 }
 
 // ---------------------------------------------------------------- pass C
-// kInt8: emb holds int8 rows with float32 row scales (emb_scale, B * T),
-// adaln_w is int8 with float32 column scales (aw_scale, 6D), and the AdaLN
-// product runs on the integer tensor cores (int32 accumulation), dequantized
-// in the AdaLN step.  kVpuBf16: the three elementwise chains of JAX's
-// bf16-VPU mode (head softmax exp, StylizationBlock SiLU, FFN GELU) round
-// where JAX's `_layer_body` casts to bf16.  K5 runs <bf16, false, false>.
-template <typename XT, bool kInt8, bool kVpuBf16>
-__global__ void __launch_bounds__(kThreadsC)
-layer_rows_kernel(const XT* x_in, XT* x_out, const void* __restrict__ emb_v,
-                  const float* __restrict__ emb_scale,
+// mod: the layer's AdaLN modulation (adaln_gemm.cu), row stride ldmod.
+// kVpuBf16: the three elementwise chains of JAX's bf16-VPU mode (head
+// softmax exp, StylizationBlock SiLU, FFN GELU) round where JAX's
+// `_layer_body` casts to bf16.  K5 runs <bf16, false>.
+template <typename XT, bool kVpuBf16>
+__global__ void __launch_bounds__(kThreadsC, 2)
+layer_rows_kernel(const XT* x_in, XT* x_out, const float* __restrict__ mod, int ldmod,
                   const bf16* __restrict__ kv_self, const bf16* __restrict__ kv_cross,
-                  const bf16* __restrict__ mats, const float* __restrict__ vecs,
-                  const void* __restrict__ adaln_w_v, const float* __restrict__ aw_scale,
-                  const float* __restrict__ adaln_b, int T, int E, int dh) {
-  typedef typename std::conditional<kInt8, signed char, bf16>::type ET;
-  typedef typename std::conditional<kInt8, int, float>::type MT;  // the AdaLN product's type
-  constexpr int kVec = 16 / sizeof(ET);  // elements of one 16-byte load
-  const ET* emb = static_cast<const ET*>(emb_v);
-  const ET* adaln_w = static_cast<const ET*>(adaln_w_v);
+                  const bf16* __restrict__ mats, const float* __restrict__ vecs, int T, int dh) {
+  constexpr int ROWS = kRowsTile;
+  constexpr int kRows = ROWS * 32 / kThreadsC;  // rows a warp in the row-wise phases
   extern __shared__ __align__(128) unsigned char smem[];
-  const int lde = kInt8 ? E : E + kPadE;
-  float* xs = reinterpret_cast<float*>(smem);            // (64, kLdF) residual rows
-  float* ys = xs + kTileRows * kLdF;                      // (64, kLdF) matmul output
-  float* ms = ys + kTileRows * kLdF;                      // (64, kLdM) AdaLN slice
-  bf16* as = reinterpret_cast<bf16*>(ms + kTileRows * kLdM);  // (64, kLdA) operand
-  // emb rows: bf16 (64, lde); int8 k-chunk-major (E / 16, 64, 16), as
-  // block_gemm_s8 reads them
-  ET* es = reinterpret_cast<ET*>(as + kTileRows * kLdA);
-  float* srow = reinterpret_cast<float*>(es + kTileRows * lde);  // (64,) int8 row scales
+  const uint32_t ring = tc::smem_addr(smem);                          // 2 x (D, D) bf16
+  float* xs = reinterpret_cast<float*>(smem + 2 * kWeightTile);       // (ROWS, kLdF) residual rows
+  float* ys = xs + ROWS * kLdF;                                        // (ROWS, kLdF) matmul output
+  bf16* as = reinterpret_cast<bf16*>(ys + ROWS * kLdF);                // (ROWS, kLdA) operand
   const int b = blockIdx.y;
   const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = blockIdx.x * kTileRows;
-  const int n_rows = min(kTileRows, T - row0);
-  // this warp's 8-row slices
-  const int wo = wid * kRowsC;
+  const int row0 = blockIdx.x * ROWS;
+  const int n_rows = min(ROWS, T - row0);
+  // this warp's slices
+  const int wo = wid * kRows;
   float *xw = xs + wo * kLdF, *yw = ys + wo * kLdF;
-  MT* mw = reinterpret_cast<MT*>(ms) + wo * kLdM;
   bf16* aw = as + wo * kLdA;
+  const float* mw = mod + ((size_t)b * T + row0 + wo) * ldmod;
+  const float* vec = vecs;
+  auto W = [&](int i) { return mats + (size_t)i * D * D; };
 
-  for (int i = threadIdx.x; i < kTileRows * D / 4; i += kThreadsC) {
+  // the B operands of the nine products, in order; each is staged into the
+  // ring two products ahead of its use
+  const bf16* const operand[9] = {W(kWq), kv_self + (size_t)b * D * D, W(kWStylSelf),
+                                  W(kWqCross), kv_cross + (size_t)b * D * D, W(kWStylCross),
+                                  W(kW1), W(kW2), W(kWStylFfn)};
+  auto stage = [&](int i) {
+    if (i < 9) stage_weights(ring + (i & 1) * kWeightTile, operand[i]);
+    tc::cp_async_commit();  // one group a product, empty past the last
+  };
+  stage(0);
+  stage(1);
+  for (int i = threadIdx.x; i < ROWS * D / 4; i += kThreadsC) {
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (i / (D / 4) < n_rows) v = load4(x_in + ((size_t)b * T + row0) * D + 4 * i);
     store4(xs + (i / (D / 4)) * kLdF + (i % (D / 4)) * 4, v);
   }
-  for (int i = threadIdx.x; i < kTileRows * E / kVec; i += kThreadsC) {
-    const int r = i / (E / kVec), c = i % (E / kVec);  // row, 16-byte chunk
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_rows) v = reinterpret_cast<const uint4*>(emb + ((size_t)b * T + row0) * E)[i];
-    ET* dst = kInt8 ? es + (c * kTileRows + r) * kVec : es + r * lde + c * kVec;
-    *reinterpret_cast<uint4*>(dst) = v;
-  }
-  if (kInt8 && threadIdx.x < kTileRows)
-    srow[threadIdx.x] = threadIdx.x < n_rows ? emb_scale[(size_t)b * T + row0 + threadIdx.x] : 0.f;
   __syncthreads();
-  const float* vec = vecs;
-  auto W = [&](int i) { return mats + (size_t)i * D * D; };
 
+  // ys = as @ (product `next`'s matrix), then stage product next + 2 into
+  // the slot it frees.  Both syncs are the block's: as and the slot written
+  // before, ys read after.
+  int next = 0;
+  auto gemm = [&]() {
+    tc::cp_async_wait<1>();  // all groups but the newest (product next + 1)
+    __syncthreads();
+    tile_gemm_smem(as, ring + (next & 1) * kWeightTile, ys);
+    __syncthreads();
+    stage(next + 2);
+    ++next;
+  };
   // One StylizationBlock + residual on y (in ys): x += silu(AdaLN(y)) @ W + b.
-  auto stylize = [&](int j, const float* ybias, int g, const bf16* w_out, int b_out) {
-    if constexpr (kInt8)
-      block_gemm_s8(es, adaln_w + j * 2 * D, 6 * D, E, 2 * D, reinterpret_cast<int*>(ms), kLdM);
-    else
-      block_gemm(es, lde, adaln_w + j * 2 * D, 6 * D, E, 2 * D, ms, kLdM);
-    __syncthreads();
-    warp_adaln_bf16<kRowsC, kVpuBf16>(yw, ybias, mw, adaln_b + j * 2 * D, vec + g * D,
-                                      vec + (g + 1) * D, aw, srow + wo,
-                                      kInt8 ? aw_scale + j * 2 * D : nullptr);
-    __syncthreads();
-    block_gemm(as, kLdA, w_out, D, D, D, ys, kLdF);
-    __syncthreads();
-    for (int r = 0; r < kRowsC; ++r)
+  auto stylize = [&](int j, const float* ybias, int g, int b_out) {
+    warp_adaln_mod_bf16<kRows, kVpuBf16>(yw, ybias, mw + j * 2 * D, ldmod, n_rows - wo,
+                                         vec + g * D, vec + (g + 1) * D, aw);
+    gemm();
+    for (int r = 0; r < kRows; ++r)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int c = lane + 32 * i;
@@ -252,37 +249,32 @@ layer_rows_kernel(const XT* x_in, XT* x_out, const void* __restrict__ emb_v,
     __syncwarp();
   };
   // q_sm (into as) for the attention sublayers: LN -> q -> head softmax.
-  auto query = [&](int g, const bf16* wq, int bq) {
-    warp_ln_bf16<kRowsC>(xw, vec + g * D, vec + (g + 1) * D, aw);
-    __syncthreads();
-    block_gemm(as, kLdA, wq, D, D, D, ys, kLdF);
-    __syncthreads();
-    warp_head_softmax_bf16<kRowsC, kVpuBf16>(yw, vec + bq * D, dh, aw);
-    __syncthreads();
+  auto query = [&](int g, int bq) {
+    warp_ln_bf16<kRows>(xw, vec + g * D, vec + (g + 1) * D, aw);
+    gemm();
+    warp_head_softmax_bf16<kRows, kVpuBf16>(yw, vec + bq * D, dh, aw);
   };
 
   // self attention
-  query(kLnSelfG, W(kWq), kBq);
-  block_gemm(as, kLdA, kv_self + (size_t)b * D * D, D, D, D, ys, kLdF);
-  stylize(0, nullptr, kStylSelfG, W(kWStylSelf), kStylSelfOut);
+  query(kLnSelfG, kBq);
+  gemm();  // q_sm @ KV_self
+  stylize(0, nullptr, kStylSelfG, kStylSelfOut);
   // cross attention
-  query(kLnCrossG, W(kWqCross), kBqCross);
-  block_gemm(as, kLdA, kv_cross + (size_t)b * D * D, D, D, D, ys, kLdF);
-  stylize(1, nullptr, kStylCrossG, W(kWStylCross), kStylCrossOut);
+  query(kLnCrossG, kBqCross);
+  gemm();  // q_sm @ KV_cross
+  stylize(1, nullptr, kStylCrossG, kStylCrossOut);
   // FFN (W1 / W2 are zero-padded to D x D)
-  for (int i = lane; i < kRowsC * D; i += 32)
+  for (int i = lane; i < kRows * D; i += 32)
     aw[(i / D) * kLdA + i % D] = __float2bfloat16(xw[(i / D) * kLdF + i % D]);
-  __syncthreads();
-  block_gemm(as, kLdA, W(kW1), D, D, D, ys, kLdF);
-  __syncthreads();
-  for (int i = lane; i < kRowsC * D; i += 32) {
+  gemm();  // W1
+  for (int i = lane; i < kRows * D; i += 32) {
     const float u = yw[(i / D) * kLdF + i % D] + vec[kB1 * D + i % D];
     aw[(i / D) * kLdA + i % D] =
         __float2bfloat16(kVpuBf16 ? gelu_tanh_vpu_bf16(round_bf16(u)) : gelu_tanh(u));
   }
-  __syncthreads();
-  block_gemm(as, kLdA, W(kW2), D, D, D, ys, kLdF);
-  stylize(2, vec + kB2 * D, kStylFfnG, W(kWStylFfn), kStylFfnOut);
+  gemm();  // W2
+  stylize(2, vec + kB2 * D, kStylFfnG, kStylFfnOut);
+  tc::cp_async_wait<0>();
   __syncthreads();
 
   for (int i = threadIdx.x; i < n_rows * D / 4; i += kThreadsC)
@@ -291,12 +283,6 @@ layer_rows_kernel(const XT* x_in, XT* x_out, const void* __restrict__ emb_v,
 }
 
 constexpr size_t kSmemA = (size_t)kTileRows * (kLdA * 2 + 2 * kLdF * 4);
-// pass C's shared memory: the float32 and bf16 tiles, the emb rows and, in
-// the int8 mode, their row scales
-size_t smem_rows(int E, bool int8) {
-  const size_t emb_row = int8 ? (size_t)E : (size_t)(E + kPadE) * 2;
-  return (size_t)kTileRows * (2 * kLdF * 4 + kLdM * 4 + kLdA * 2 + emb_row + (int8 ? 4 : 0));
-}
 
 template <typename XT, bool kKvr>
 cudaError_t kv_pass(const XT* x, const bf16* mats, const float* vecs, float* partials, bf16* kv,
@@ -337,84 +323,99 @@ size_t kv_pass_partials_bytes(int B, int t_valid, int dh, bool with_kvr) {
   return (size_t)B * ceil_div(t_valid, kTileRows) * (2 * D + (with_kvr ? 2 : 1) * D * dh) * 4;
 }
 
+
 namespace {
 
-template <bool kInt8, bool kVpuBf16>
+constexpr size_t kSmemC = 2 * (size_t)kWeightTile + (size_t)kRowsTile * (2 * kLdF * 4 + kLdA * 2);
+
+template <typename XT, bool kVpuBf16>
+cudaError_t rows_pass(const XT* x, XT* out, const float* mod, int ldmod, const bf16* kv_self,
+                      const bf16* kv_cross, const bf16* mats, const float* vecs, int B, int T,
+                      int dh, cudaStream_t s) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      layer_rows_kernel<XT, kVpuBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemC);
+  if (attr != cudaSuccess) return attr;
+  layer_rows_kernel<XT, kVpuBf16><<<dim3(ceil_div(T, kRowsTile), B), kThreadsC, kSmemC, s>>>(
+      x, out, mod, ldmod, kv_self, kv_cross, mats, vecs, T, dh);
+  return cudaGetLastError();
+}
+
+// One layer after its AdaLN GEMM: passes A and B, then C.
+template <typename XT, bool kVpuBf16>
+cudaError_t layer_passes(const XT* x, XT* out, const float* mod, int ldmod, const bf16* kv_cross,
+                         const bf16* mats, const float* vecs, float* partials, bf16* kv_self,
+                         int B, int T, int t_valid, int dh, cudaStream_t s) {
+  cudaError_t err = kv_pass<XT, false>(x, mats, vecs, partials, kv_self, nullptr, nullptr, B, T,
+                                       t_valid, dh, s);
+  if (err != cudaSuccess) return err;
+  return rows_pass<XT, kVpuBf16>(x, out, mod, ldmod, kv_self, kv_cross, mats, vecs, B, T, dh, s);
+}
+
+// adaln_w: (L, E, 6D), bf16 or in the int8 mode int8; mod: (B T, 6D L)
+// float32 scratch; *gemm_launches counts the AdaLN GEMM's launches.
+template <bool kVpuBf16>
 cudaError_t stack_forward(const float* x, const void* emb, const float* emb_scale,
                           const bf16* kv_cross, const bf16* mats, const float* vecs,
                           const void* adaln_w, const float* aw_scale, const float* adaln_b,
-                          float* out, float* partials, bf16* kv_self, int B, int T, int E, int dh,
-                          int L, cudaStream_t s) {
-  const size_t smem_c = smem_rows(E, kInt8);
-  cudaError_t err = cudaFuncSetAttribute(layer_rows_kernel<float, kInt8, kVpuBf16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_c);
-  if (err != cudaSuccess) return err;
-  const size_t aw_bytes = kInt8 ? 1 : 2;
-  const dim3 tiles(ceil_div(T, kTileRows), B);
-  for (int l = 0; l < L; ++l) {
-    const float* x_l = l == 0 ? x : out;
-    const bf16* mats_l = mats + (size_t)l * 9 * D * D;
-    const float* vecs_l = vecs + (size_t)l * 24 * D;
-    err = kv_pass<float, false>(x_l, mats_l, vecs_l, partials, kv_self, nullptr, nullptr, B, T, T,
-                                dh, s);
-    if (err != cudaSuccess) return err;
-    layer_rows_kernel<float, kInt8, kVpuBf16><<<tiles, kThreadsC, smem_c, s>>>(
-        x_l, out, emb, emb_scale, kv_self, kv_cross + (size_t)l * B * D * D, mats_l, vecs_l,
-        static_cast<const unsigned char*>(adaln_w) + (size_t)l * E * 6 * D * aw_bytes,
-        kInt8 ? aw_scale + (size_t)l * 6 * D : nullptr, adaln_b + (size_t)l * 6 * D, T, E, dh);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaGetLastError();
+                          float* out, float* partials, bf16* kv_self, float* mod, int B, int T,
+                          int E, int dh, int L, bool int8, int* gemm_launches, cudaStream_t s) {
+  constexpr int N = 6 * D;
+  cudaError_t err = launch_adaln_gemm(emb, adaln_w, emb_scale, aw_scale, adaln_b, mod, L * N,
+                                      B * T, E, N, L, int8, gemm_launches, s);
+  for (int l = 0; l < L && err == cudaSuccess; ++l)
+    err = layer_passes<float, kVpuBf16>(l == 0 ? x : out, out, mod + l * N, L * N,
+                                        kv_cross + (size_t)l * B * D * D,
+                                        mats + (size_t)l * 9 * D * D, vecs + (size_t)l * 24 * D,
+                                        partials, kv_self, B, T, T, dh, s);
+  return err;
 }
 
 }  // namespace
 
 // emb_scale / aw_scale are null unless int8: the int8-AdaLN mode (emb and
-// adaln_w int8); vpu_bf16: the bf16-VPU mode.
+// adaln_w int8); vpu_bf16: the bf16-VPU mode.  mod: (B T, 6D L) float32
+// scratch.  gemm_launches (int, host): raised by one for each launch of the
+// AdaLN GEMM.
 CT_EXPORT int decoder_stack_forward(const void* x, const void* emb, const void* emb_scale,
                                     const void* kv_cross, const void* mats, const void* vecs,
                                     const void* adaln_w, const void* aw_scale,
                                     const void* adaln_b, void* out, void* partials,
-                                    void* kv_self, int B, int T, int d, int E, int H, int L,
-                                    int int8, int vpu_bf16, void* stream) {
-  if (bad_shape(d, E, H) || (int8 && (emb_scale == nullptr || aw_scale == nullptr)))
+                                    void* kv_self, void* mod, void* gemm_launches, int B, int T,
+                                    int d, int E, int H, int L, int int8, int vpu_bf16,
+                                    void* stream) {
+  if (bad_shape(d, E, H) || !adaln_gemm_takes(E, 6 * d, int8) ||
+      (int8 && (emb_scale == nullptr || aw_scale == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const int dh = d / H;
   auto run = [&](auto launch) {
     return (int)launch(static_cast<const float*>(x), emb, static_cast<const float*>(emb_scale),
                        static_cast<const bf16*>(kv_cross), static_cast<const bf16*>(mats),
                        static_cast<const float*>(vecs), adaln_w,
                        static_cast<const float*>(aw_scale), static_cast<const float*>(adaln_b),
                        static_cast<float*>(out), static_cast<float*>(partials),
-                       static_cast<bf16*>(kv_self), B, T, E, dh, L,
+                       static_cast<bf16*>(kv_self), static_cast<float*>(mod), B, T, E,
+                       d / H, L, int8 != 0, static_cast<int*>(gemm_launches),
                        static_cast<cudaStream_t>(stream));
   };
-  if (int8) return vpu_bf16 ? run(stack_forward<true, true>) : run(stack_forward<true, false>);
-  return vpu_bf16 ? run(stack_forward<false, true>) : run(stack_forward<false, false>);
+  return vpu_bf16 ? run(stack_forward<true>) : run(stack_forward<false>);
 }
 
+// mod: (B T, 6D) float32 scratch; gemm_launches as decoder_stack_forward's.
 CT_EXPORT int decoder_layer_forward(const void* x, const void* emb, const void* kv_cross,
                                     const void* mats, const void* vecs, const void* adaln_w,
                                     const void* adaln_b, void* out, void* partials,
-                                    void* kv_self, int B, int T, int t_valid, int d, int E, int H,
-                                    void* stream) {
-  if (bad_shape(d, E, H) || t_valid < 1 || t_valid > T) return (int)cudaErrorInvalidValue;
-  const int dh = d / H;
+                                    void* kv_self, void* mod, void* gemm_launches, int B, int T,
+                                    int t_valid, int d, int E, int H, void* stream) {
+  if (bad_shape(d, E, H) || !adaln_gemm_takes(E, 6 * d, false) || t_valid < 1 || t_valid > T)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem_c = smem_rows(E, false);
-  cudaError_t err = cudaFuncSetAttribute(layer_rows_kernel<bf16, false, false>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_c);
+  float* m = static_cast<float*>(mod);
+  cudaError_t err = launch_adaln_gemm(emb, adaln_w, nullptr, nullptr,
+                                      static_cast<const float*>(adaln_b), m, 6 * D, B * T, E,
+                                      6 * D, 1, false, static_cast<int*>(gemm_launches), s);
   if (err != cudaSuccess) return (int)err;
-  const bf16* xb = static_cast<const bf16*>(x);
-  err = kv_pass<bf16, false>(xb, static_cast<const bf16*>(mats), static_cast<const float*>(vecs),
-                             static_cast<float*>(partials), static_cast<bf16*>(kv_self), nullptr,
-                             nullptr, B, T, t_valid, dh, s);
-  if (err != cudaSuccess) return (int)err;
-  layer_rows_kernel<bf16, false, false><<<dim3(ceil_div(T, kTileRows), B), kThreadsC, smem_c, s>>>(
-      xb, static_cast<bf16*>(out), emb, nullptr, static_cast<const bf16*>(kv_self),
+  return (int)layer_passes<bf16, false>(
+      static_cast<const bf16*>(x), static_cast<bf16*>(out), m, 6 * D,
       static_cast<const bf16*>(kv_cross), static_cast<const bf16*>(mats),
-      static_cast<const float*>(vecs), adaln_w, nullptr, static_cast<const float*>(adaln_b), T,
-      E, dh);
-  return (int)cudaGetLastError();
+      static_cast<const float*>(vecs), static_cast<float*>(partials), static_cast<bf16*>(kv_self),
+      B, T, t_valid, d / H, s);
 }

@@ -1,7 +1,7 @@
 // Device code shared by the decoder-layer kernels: K1 / K5
 // (decoder_stack.cu) and K6 (decoder_layer_bwd.cu).  Everything here works
-// on one 64-row tile of one clip, D = 128 wide, in a block's shared memory;
-// see decoder_stack.cu for the design.
+// on one tile of one clip (64 rows; 32 in K1 / K5's row pass), D = 128
+// wide, in a block's shared memory; see decoder_stack.cu for the design.
 #pragma once
 
 #include <mma.h>
@@ -9,6 +9,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace layer {
 
@@ -24,7 +25,6 @@ static_assert(kThreadsA == D, "kv_partials_kernel gives each thread one column")
 constexpr int kLdF = D + 4;       // row stride of the (64, D) float32 tiles
 constexpr int kLdM = 2 * D + 4;   // row stride of the (64, 2D) AdaLN slice
 constexpr int kLdA = D + 8;       // row stride of the (64, D) bf16 operand
-constexpr int kPadE = 8;          // emb_act rows: E + kPadE bf16
 constexpr int kChunk8 = 16;       // int8 codes per k-step of the integer WMMA
 constexpr int kPrefetch = 4;      // k-steps of weight fragments in flight
 
@@ -314,6 +314,96 @@ __device__ void warp_adaln_bf16(const float* y, const float* ybias, const M* mod
         shift = mod[r * kLdM + D + c] + ab[D + c];
       }
       const float h = ((v[i] - st.x) * st.y * g[c] + gb[c]) * (1.f + scale) + shift;
+      dst[r * kLdA + c] = __float2bfloat16(kVpuBf16 ? silu_vpu_bf16(h) : silu(h));
+    }
+  }
+}
+
+// ---- helpers of K1 / K5's row pass since its redesign: the B operands of
+// its (ROWS x D) @ (D x D) products staged in shared memory, and the AdaLN
+// modulation read from the rows that the AdaLN GEMM (adaln_gemm.cu) wrote.
+
+constexpr int kWeightTile = D * D * 2;  // bytes of one staged (D x D) bf16 matrix
+constexpr int kRowsTile = 32;           // rows of a row-pass tile, 4 a warp
+
+// Start the copy of the row-major (D x D) bf16 matrix W into the shared
+// tile at `stage` (16 chunks a row, swizzled), by all the block's threads;
+// the caller commits the group.
+__device__ __forceinline__ void stage_weights(uint32_t stage, const bf16* W) {
+  for (int i = threadIdx.x; i < D * D / 8; i += blockDim.x)
+    tc::cp_async16(stage + tc::swz<16>(i >> 4, i & 15), W + 8 * i);
+}
+
+// C (kRowsTile x D, float32, row stride kLdF) = A (kRowsTile x D bf16, row
+// stride kLdA, shared) @ B (D x D bf16 staged by `stage_weights` at Bs):
+// mma.sync m16n8k16, A fragments by ldmatrix, B by ldmatrix.trans.  Each of
+// the block's 8 warps computes 16 columns of C.
+__device__ __forceinline__ void tile_gemm_smem(const bf16* A, uint32_t Bs, float* C) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n0 = warp * (D / 8);
+  const uint32_t a_base = tc::smem_addr(A);
+  float acc[2][2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < D; k += 16) {
+    uint32_t a[2][4], b[4];  // b: b0, b1 of n8 tile 0, then of tile 1
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      tc::ldmatrix_x4(a[i], a_base + ((16 * i + (lane & 15)) * kLdA + k + (lane >> 4) * 8) * 2);
+    tc::ldmatrix_x4_trans(b, Bs + tc::swz<16>(k + (lane & 15), n0 / 8 + (lane >> 4)));
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      tc::mma_bf16(acc[i][0], a[i], b[0], b[1]);
+      tc::mma_bf16(acc[i][1], a[i], b[2], b[3]);
+    }
+  }
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float* c = C + (16 * i + g) * kLdF + n0 + 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(c) = make_float2(acc[i][j][0], acc[i][j][1]);
+      *reinterpret_cast<float2*>(c + 8 * kLdF) = make_float2(acc[i][j][2], acc[i][j][3]);
+    }
+}
+
+// dst = bf16(silu(LN(y + ybias) * (1 + scale) + shift)) over the warp's
+// ROWS rows, (scale, shift) = mod[r, 0:D], mod[r, D:2D] (global memory, row
+// stride ldmod, the AdaLN bias already added); rows at or past n_valid read
+// no mod (0).  kVpuBf16: the SiLU in bf16, as `warp_adaln_bf16`.
+template <int ROWS, bool kVpuBf16 = false>
+__device__ void warp_adaln_mod_bf16(const float* y, const float* ybias, const float* mod,
+                                    int ldmod, int n_valid, const float* g, const float* gb,
+                                    bf16* dst) {
+  const int lane = threadIdx.x & 31;
+  float scale[ROWS][4], shift[ROWS][4];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool ok = r < n_valid;
+      scale[r][i] = ok ? mod[(size_t)r * ldmod + lane + 32 * i] : 0.f;
+      shift[r][i] = ok ? mod[(size_t)r * ldmod + D + lane + 32 * i] : 0.f;
+    }
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = lane + 32 * i;
+      v[i] = y[r * kLdF + c] + (ybias ? ybias[c] : 0.f);
+    }
+    const float2 st = ln_stats(v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = lane + 32 * i;
+      const float h = ((v[i] - st.x) * st.y * g[c] + gb[c]) * (1.f + scale[r][i]) + shift[r][i];
       dst[r * kLdA + c] = __float2bfloat16(kVpuBf16 ? silu_vpu_bf16(h) : silu(h));
     }
   }

@@ -6,7 +6,10 @@ on the card, rebuilds the first ladder step's kernel inputs from them
 (the real conditioning, the real encoder activations), and runs every
 serving kernel (K1-K4) and its plain version on the same inputs, K1 in
 its bf16-VPU mode too, and K2 and K1 in the int8-AdaLN mode on the int8
-operands of that step.
+operands of that step, with K1's AdaLN GEMM alone in both its modes at
+the shape K1 launches it (`check_stack_kernels`, which also runs alone at
+other batch sizes); `device_ms` reads device time from `torch.profiler`,
+by kernel name (`k1_launch_split`: K1's device time by launch).
 `check_train_kernels` does the same for the training layer kernels (K5,
 K6) on layer 0 of a training forward, `check_stgcn_kernels` for K7 on
 the perceptual term's inputs (`perceptual_inputs`), and
@@ -42,7 +45,12 @@ from .ops.conv_train import conv3x3_dkernel, conv3x3_dkernel_plain
 from .ops.max_pool import fused_max_pool, max_pool_bwd, max_pool_bwd_plain, max_pool_plain
 from .ops.decoder_layer import decoder_layer_plain, fused_decoder_layer
 from .ops.decoder_layer_bwd import decoder_layer_bwd, decoder_layer_bwd_plain
-from .ops.decoder_stack import decoder_stack_plain, fused_decoder_stack
+from .ops.decoder_stack import (
+    adaln_modulation,
+    adaln_modulation_plain,
+    decoder_stack_plain,
+    fused_decoder_stack,
+)
 from .ops.sampler_glue import (
     ddim_affine_tables,
     sampler_epilogue,
@@ -165,7 +173,7 @@ def _merge(name: str, calls: list[dict]) -> dict:
 
 @torch.no_grad()
 def check_kernels(trainer, mel, noise, *, reps: int = 5, rel_tol: float = REL_TOL) -> list[dict]:
-    fused, encoder, model = trainer.fused, trainer.fused_encoder, trainer.model
+    fused, encoder = trainer.fused, trainer.fused_encoder
     mxu = fused.mxu_dtype
     results = []
 
@@ -179,30 +187,16 @@ def check_kernels(trainer, mel, noise, *, reps: int = 5, rel_tol: float = REL_TO
         x = conv_block_plain(x, mxu_dtype=mxu, **kw)
     conv = _merge("conv_block", blocks)
 
-    # the first ladder step's inputs, from the real conditioning
-    t = x.shape[1]
-    feats = encoder(mel)
-    cond = fused.prepare_cond(dict(model.precompute_cond(*model.cond_from_features(feats)),
-                                   temb_table=trainer.temb_table))
-    step = trainer.sched.num_timesteps - 1
-    temb = cond["temb_table"][int(trainer.sched.timestep_map[step])]
-    seq_bias = (fused.seq_emb[:t] + fused.b_joint).contiguous()
-    pro_args = (noise, temb, cond["emb_base"], fused.w_joint, seq_bias)
+    pro_args, cond, step = ladder_step_inputs(trainer, mel, noise)
     pro_kw = dict(mxu_dtype=mxu, emb_dtype=mxu)
     results.append(_compare("sampler_prologue", lambda: sampler_prologue(*pro_args, **pro_kw),
                             lambda: sampler_prologue_plain(*pro_args, **pro_kw), reps, rel_tol,
                             pro_args))
-
+    results += check_stack_kernels(trainer, pro_args, cond, reps=reps, rel_tol=rel_tol)
+    results.append(_check_prologue_int8(pro_args, mxu, reps, rel_tol))
     h, emb_act, _ = sampler_prologue_plain(*pro_args, **pro_kw)
-    stack_args = (h, emb_act, cond["kv_stack"], fused.mats, fused.vecs, fused.adaln_w,
-                  fused.adaln_b, fused.num_heads)
-    results.append(_compare("decoder_stack",
-                            lambda: fused_decoder_stack(*stack_args, mxu_dtype=mxu),
-                            lambda: decoder_stack_plain(*stack_args, mxu_dtype=mxu),
-                            reps, rel_tol, stack_args))
-    results.append(_check_vpu_mode(stack_args, mxu, reps))
-    results += _check_int8_modes(trainer, pro_args, h, cond, reps, rel_tol)
-    h = decoder_stack_plain(*stack_args, mxu_dtype=mxu)
+    h = decoder_stack_plain(h, emb_act, cond["kv_stack"], fused.mats, fused.vecs, fused.adaln_w,
+                            fused.adaln_b, fused.num_heads, mxu_dtype=mxu)
     alpha, beta = ddim_affine_tables(trainer.sched)
     epi_args = (h, noise, fused.w_out, fused.b_out, float(alpha[step]), float(beta[step]))
     results.append(_compare("sampler_epilogue",
@@ -211,6 +205,150 @@ def check_kernels(trainer, mel, noise, *, reps: int = 5, rel_tol: float = REL_TO
                             reps, rel_tol, epi_args))
     results.append(conv)
     return results
+
+
+@torch.no_grad()
+def ladder_step_inputs(trainer, mel, noise):
+    """The first ladder step's K2 inputs (x_T, the step's time embedding,
+    the conditioning's emb_base, the input projection and its sequence
+    bias), the prepared conditioning and the step's index, from the real
+    encoder and conditioning of ``mel``."""
+    fused, model = trainer.fused, trainer.model
+    feats = trainer.fused_encoder(mel)
+    cond = fused.prepare_cond(dict(model.precompute_cond(*model.cond_from_features(feats)),
+                                   temb_table=trainer.temb_table))
+    step = trainer.sched.num_timesteps - 1
+    temb = cond["temb_table"][int(trainer.sched.timestep_map[step])]
+    seq_bias = (fused.seq_emb[:noise.shape[1]] + fused.b_joint).contiguous()
+    return (noise, temb, cond["emb_base"], fused.w_joint, seq_bias), cond, step
+
+
+def _int8_pack(trainer):
+    """The trainer's weights packed as ``sampler_adaln_int8`` packs them."""
+    cfg = trainer.cfg
+    return FusedDenoiser(trainer.model, cfg.replace(
+        denoiser=dataclasses.replace(cfg.denoiser, sampler_adaln_int8=True)))
+
+
+def _check_adaln(name, emb_act, adaln_w, adaln_b, reps, rel_tol, **kw) -> dict:
+    """K1's AdaLN GEMM alone as K1 launches it, all layers of the stacked
+    weights in one launch, against its plain version and one PyTorch call
+    on the layers' weights side by side, (E, L N), made outside the timed
+    call (never called by the port).  ``library_ms``: in bf16 `torch.addmm`
+    with float32 out, the same function; in int8 `torch._int_mm` (int32
+    out, the weights as a column-major view, the layout cuBLASLt takes),
+    since no one call dequantizes.  The yardstick of the bar the GEMM is
+    held to, `torch.matmul` in bf16 (bf16 out, no bias) or `torch._int_mm`,
+    and the GEMM are also timed in device time (`device_ms`):
+    ``no_slower_than_yardstick`` says whether the GEMM's is at most the
+    yardstick's."""
+    int8 = "adaln_w_scale" in kw
+    args = (emb_act, adaln_w, adaln_b)
+    m = emb_act.numel() // emb_act.shape[-1]
+    n_layers, e, n = adaln_w.shape
+    n_ops = 2 * m * e * n * n_layers
+    a2 = emb_act.reshape(m, e)
+    w_cat = adaln_w.permute(1, 0, 2).reshape(e, n_layers * n)
+    if int8:
+        w_cm = w_cat.t().contiguous().t()
+        library = yardstick = lambda: torch._int_mm(a2, w_cm)  # noqa: E731
+        yardstick_name = "torch._int_mm"
+    else:
+        b_cat = adaln_b.reshape(-1)
+        library = lambda: torch.addmm(b_cat, a2, w_cat, out_dtype=torch.float32)  # noqa: E731
+        yardstick = lambda: torch.matmul(a2, w_cat)  # noqa: E731
+        yardstick_name = "torch.matmul bf16"
+    kernel = lambda: adaln_modulation(*args, **kw)  # noqa: E731
+    r = _compare(name, kernel, lambda: adaln_modulation_plain(*args, **kw), reps, rel_tol,
+                 (args, list(kw.values())), library, n_flops=n_ops,
+                 int8_ops=n_ops if int8 else 0) | {"shape": [*emb_act.shape, n_layers, n]}
+    r.update(device_ms=device_ms(kernel, reps), yardstick=yardstick_name,
+             yardstick_device_ms=device_ms(yardstick, reps))
+    r["no_slower_than_yardstick"] = r["device_ms"] <= r["yardstick_device_ms"]
+    return r
+
+
+@torch.no_grad()
+def stack_operands(trainer, pro_args, cond) -> dict:
+    """K1's arguments in each of its modes on the first ladder step's
+    operands (`ladder_step_inputs`): {count name: (args, kwargs)}, K2's plain
+    output as x and emb_act, and in the int8-AdaLN mode its int8 codes and
+    row scales with the trainer's weights packed as ``sampler_adaln_int8``
+    packs them."""
+    fused = trainer.fused
+    mxu = fused.mxu_dtype
+    h, emb_act, _ = sampler_prologue_plain(*pro_args, mxu_dtype=mxu, emb_dtype=mxu)
+    args = (h, emb_act, cond["kv_stack"], fused.mats, fused.vecs, fused.adaln_w, fused.adaln_b,
+            fused.num_heads)
+    pack = _int8_pack(trainer)
+    _, q, s = sampler_prologue_plain(*pro_args, mxu_dtype=mxu, quantize_emb=True)
+    args8 = (h, q, cond["kv_stack"], pack.mats, pack.vecs, pack.adaln_w, pack.adaln_b,
+             pack.num_heads)
+    return {"decoder_stack": (args, dict(mxu_dtype=mxu)),
+            "decoder_stack_vpu_bf16": (args, dict(mxu_dtype=mxu, vpu_dtype=torch.bfloat16)),
+            "decoder_stack_int8": (args8, dict(mxu_dtype=mxu, emb_scale=s,
+                                               adaln_w_scale=pack.adaln_w_scale))}
+
+
+@torch.no_grad()
+def check_stack_kernels(trainer, pro_args, cond, *, reps: int = 5, rel_tol: float = REL_TOL,
+                        suffix: str = "") -> list[dict]:
+    """K1 in its three modes (bf16-MMA, bf16-VPU, int8-AdaLN), each against
+    its plain version on `stack_operands`, and K1's AdaLN GEMM alone on all
+    the layers in bf16 and int8, as K1 launches it.  ``suffix`` is added to
+    every name (a second batch size)."""
+    ops = stack_operands(trainer, pro_args, cond)
+    args, kw = ops["decoder_stack"]
+    args8, kw8 = ops["decoder_stack_int8"]
+    b, t, e = args8[1].shape
+    int8_ops = 2 * b * t * e * args8[5].shape[-1] * args8[5].shape[0]
+    results = [
+        _compare("decoder_stack", lambda: fused_decoder_stack(*args, **kw),
+                 lambda: decoder_stack_plain(*args, **kw), reps, rel_tol, args),
+        _check_adaln("adaln_modulation", args[1], args[5], args[6], reps, rel_tol, **kw),
+        _check_vpu_mode(args, kw["mxu_dtype"], reps),
+        _compare("decoder_stack_int8", lambda: fused_decoder_stack(*args8, **kw8),
+                 lambda: decoder_stack_plain(*args8, **kw8), reps, rel_tol,
+                 (args8, kw8["emb_scale"], kw8["adaln_w_scale"]), int8_ops=int8_ops),
+        _check_adaln("adaln_modulation_int8", args8[1], args8[5], args8[6], reps, rel_tol,
+                     emb_scale=kw8["emb_scale"], adaln_w_scale=kw8["adaln_w_scale"]),
+    ]
+    for r in results:
+        r["name"] += suffix
+    return results
+
+
+def device_ms(fn, reps: int = 5, parts: dict[str, str] | None = None):
+    """Device ms per call of ``fn`` from `torch.profiler` over ``reps``
+    calls after a warm-up call: the sum over every kernel it launched, or
+    with ``parts`` ({part: text in a kernel's name}) a dict of each part's
+    sum.  A trace that holds fewer kernels than calls (the profiler can
+    drop a trace's records) is taken again, at most twice, then raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(kernels) >= reps:
+            break
+    else:
+        raise RuntimeError(f"torch.profiler recorded {len(kernels)} kernels of {reps} calls")
+    split = {part: sum(e.time_range.elapsed_us() for e in kernels if key in e.name) / 1e3 / reps
+             for part, key in (parts or {"all": ""}).items()}
+    return split if parts else split["all"]
+
+
+def k1_launch_split(fn, reps: int = 5) -> dict[str, float]:
+    """Device ms per call of ``fn`` (one or more K1 calls) by K1 launch:
+    the AdaLN GEMM, pass A (``kv_partials``), pass B (``kv_combine``) and
+    the row pass."""
+    return device_ms(fn, reps, {p: p for p in ("adaln_gemm", "kv_partials", "kv_combine",
+                                               "layer_rows")})
 
 
 def vpu_mode_errors(stack_args, **kw) -> dict:
@@ -270,38 +408,24 @@ def prologue_tie_errors(pro_args, **kw) -> int:
     return int((q.long() != want.reshape(b, t, e)).sum()) + int((s != 0.25).sum())
 
 
-def _check_int8_modes(trainer, pro_args, h, cond, reps, rel_tol) -> list[dict]:
-    """K2 with int8 output on the step's prologue inputs, and K1 in the
-    int8-AdaLN mode on the int8 operands of that step (the trainer's
-    weights packed as ``sampler_adaln_int8`` packs them).  K2's codes are
-    compared dequantized (code x row scale); ``codes_differ`` and
-    ``code_max_diff`` count the codes that differ from the plain version's,
-    at most 1 apart and at no more than 0.1 % of them, and ``tie_errors``
-    the wrong codes on exact ties (`prologue_tie_errors`), which must be 0."""
-    cfg = trainer.cfg
-    pack = FusedDenoiser(trainer.model, cfg.replace(
-        denoiser=dataclasses.replace(cfg.denoiser, sampler_adaln_int8=True)))
-    mxu = pack.mxu_dtype
+def _check_prologue_int8(pro_args, mxu, reps, rel_tol) -> dict:
+    """K2 with int8 output on the step's prologue inputs, its codes compared
+    dequantized (code x row scale); ``codes_differ`` and ``code_max_diff``
+    count the codes that differ from the plain version's, at most 1 apart
+    and at no more than 0.1 % of them, and ``tie_errors`` the wrong codes on
+    exact ties (`prologue_tie_errors`), which must be 0."""
     kw = dict(mxu_dtype=mxu, quantize_emb=True)
     pro = _compare("sampler_prologue_int8", lambda: sampler_prologue(*pro_args, **kw),
                    lambda: sampler_prologue_plain(*pro_args, **kw), reps, rel_tol, pro_args,
                    view=lambda o: (o[0], o[1].float() * o[2]))
     _, q_got, _ = sampler_prologue(*pro_args, **kw)
-    _, q_want, s_want = sampler_prologue_plain(*pro_args, **kw)
+    _, q_want, _ = sampler_prologue_plain(*pro_args, **kw)
     diff = (q_got.int() - q_want.int()).abs()
     pro.update(codes_differ=int((diff > 0).sum()), code_max_diff=int(diff.max()),
                n_codes=diff.numel(), tie_errors=prologue_tie_errors(pro_args, mxu_dtype=mxu))
     pro["ok"] &= (pro["code_max_diff"] <= 1 and pro["codes_differ"] <= 1e-3 * pro["n_codes"]
                   and pro["tie_errors"] == 0)
-    args = (h, q_want, cond["kv_stack"], pack.mats, pack.vecs, pack.adaln_w, pack.adaln_b,
-            pack.num_heads)
-    kw = dict(mxu_dtype=mxu, emb_scale=s_want, adaln_w_scale=pack.adaln_w_scale)
-    b, t, e = q_want.shape
-    int8_ops = 2 * b * t * e * pack.adaln_w.shape[-1] * pack.adaln_w.shape[0]
-    stack = _compare("decoder_stack_int8", lambda: fused_decoder_stack(*args, **kw),
-                     lambda: decoder_stack_plain(*args, **kw), reps, rel_tol,
-                     (args, s_want, pack.adaln_w_scale), int8_ops=int8_ops)
-    return [pro, stack]
+    return pro
 
 
 @torch.no_grad()

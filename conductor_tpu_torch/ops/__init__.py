@@ -4,6 +4,9 @@ Each kernel wrapper keeps a plain integer ``launches`` count, raised by one
 each time it launches its kernel on a CUDA tensor (never on the plain CPU
 path); K1 and K2 keep one more for each opt-in mode (``launches_int8``,
 ``launches_vpu_bf16``).  `launch_counts` / `reset_launch_counts` read and clear them.
+A kernel that K1 and K5 launch as one of their parts, the AdaLN GEMM, keeps
+its own count of launches, as the C entry points that launch it report
+them, which `part_launch_counts` reads.
 """
 
 from .attention import fused_linear_attention, linear_attention_kernel  # noqa: F401
@@ -15,7 +18,7 @@ from .decoder_layer_bwd import (  # noqa: F401
     decoder_layer_bwd_plain,
     fused_decoder_layer_train,
 )
-from .decoder_stack import fused_decoder_stack, quantize_rows  # noqa: F401
+from .decoder_stack import adaln_modulation, fused_decoder_stack, quantize_rows  # noqa: F401
 from .linear_attention import linear_attention, qk_softmax, temporal_linear_attention  # noqa: F401
 from .max_pool import fused_max_pool, max_pool_bwd, max_pool_train  # noqa: F401
 from .sampler_glue import ddim_affine_tables, sampler_epilogue, sampler_prologue  # noqa: F401
@@ -45,12 +48,20 @@ KERNELS = {
     "max_pool_bwd": (max_pool_bwd, "launches"),
     "linear_attention": (linear_attention_kernel, "launches"),
 }
+# count name -> (wrapper, attribute) of the kernels launched as parts of others
+PARTS = {
+    "adaln_modulation": (adaln_modulation, "launches"),
+}
 
 
 def launch_counts() -> dict[str, int]:
     return {name: getattr(fn, attr) for name, (fn, attr) in KERNELS.items()}
 
 
+def part_launch_counts() -> dict[str, int]:
+    return {name: getattr(fn, attr) for name, (fn, attr) in PARTS.items()}
+
+
 def reset_launch_counts() -> None:
-    for fn, attr in KERNELS.values():
+    for fn, attr in (*KERNELS.values(), *PARTS.values()):
         setattr(fn, attr, 0)

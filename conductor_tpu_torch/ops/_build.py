@@ -48,11 +48,16 @@ SIGNATURES = {
     # h, x_t, w_out, b_out, out, alpha, beta, B, T, D, C, round_bf16, stream
     "sampler_epilogue_forward": ([_P] * 5 + [_F, _F] + [_I] * 5 + [_P], _I),
     # x, emb, emb_scale, kv_cross, mats, vecs, adaln_w, adaln_w_scale, adaln_b,
-    # out, partials, kv_self, B, T, D, E, H, L, int8, vpu_bf16, stream
-    "decoder_stack_forward": ([_P] * 12 + [_I] * 8 + [_P], _I),
-    # x, emb, kv_cross, mats, vecs, adaln_w, adaln_b, out, partials, kv_self,
-    # B, T, t_valid, D, E, H, stream
-    "decoder_layer_forward": ([_P] * 10 + [_I] * 6 + [_P], _I),
+    # out, partials, kv_self, mod, gemm_launches, B, T, D, E, H, L, int8,
+    # vpu_bf16, stream (gemm_launches: a host int the call raises by one for
+    # each AdaLN GEMM launch, as adaln_modulation_forward's launches)
+    "decoder_stack_forward": ([_P] * 14 + [_I] * 8 + [_P], _I),
+    # x, emb, kv_cross, mats, vecs, adaln_w, adaln_b, out, partials, kv_self, mod,
+    # gemm_launches, B, T, t_valid, D, E, H, stream
+    "decoder_layer_forward": ([_P] * 12 + [_I] * 6 + [_P], _I),
+    # emb, adaln_w, emb_scale, adaln_w_scale, adaln_b, out, launches, M, E, N, L,
+    # int8, stream
+    "adaln_modulation_forward": ([_P] * 7 + [_I] * 5 + [_P], _I),
     # B, T, D, E, H -> workspace bytes of decoder_layer_backward
     "decoder_layer_backward_workspace": ([_I] * 5, ctypes.c_longlong),
     # x, emb, kv_cross, mats, vecs, adaln_w, adaln_b, dy, dx, demb, dkv_cross,
@@ -132,3 +137,11 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> Non
             f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} on {t.device} "
             f"(contiguous={t.is_contiguous()})"
         )
+
+
+def require_aligned(**tensors: torch.Tensor) -> None:
+    """Raise unless each tensor starts 16-byte aligned (the kernels copy
+    their operands in 16-byte pieces)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel takes a tensor that starts 16-byte aligned")

@@ -11,18 +11,21 @@ of the time softmax and KV and still computed, as in the JAX kernel.
 Weights as one layer of `train/fused_denoiser.pack_layer_weights`: mats
 (9, D, D), vecs (24, D), adaln_w (E, 6D), adaln_b (6D,), kv_cross (B, D, D)
 block-diagonal.  A CPU tensor goes to the plain version; a CUDA tensor to
-the kernel in `csrc/decoder_stack.cu` (`decoder_layer_forward`), which
-takes bf16 operands, D = 128 and rows in whole 64-row tiles.  The wrapper
+the kernel in `csrc/decoder_stack.cu` (`decoder_layer_forward`: the AdaLN
+GEMM of `csrc/adaln_gemm.cu`, then the layer's passes), which takes bf16
+operands, D = 128 and rows in whole 64-row tiles.  The wrapper
 rounds the float32 weight banks to bf16 for it, as the plain version's
 matmuls round their operands.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
-from .decoder_stack import ROWS_PER_TILE, decoder_stack_plain
+from .decoder_stack import ROWS_PER_TILE, adaln_modulation, decoder_stack_plain
 
 
 def decoder_layer_plain(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_heads, *,
@@ -69,18 +72,22 @@ def fused_decoder_layer(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_
     _build.require(x, "x", bf, (b, t, d))
     _build.require(emb_act, "emb_act", bf, (b, t, e))
     _build.require(kv_cross, "kv_cross", bf, (b, d, d))
+    _build.require_aligned(x=x, emb_act=emb_act, kv_cross=kv_cross, mats=mats, adaln_w=adaln_w)
     n_tiles = -(-t_valid // ROWS_PER_TILE)
     out = torch.empty_like(x)
     partials = torch.empty((b, n_tiles, 2 * d + d * dh), dtype=f32, device=x.device)
     kv_self = torch.empty((b, d, d), dtype=bf, device=x.device)
+    mod = torch.empty((b * t, 6 * d), dtype=f32, device=x.device)  # the AdaLN modulation
+    gemm_launches = ctypes.c_int(0)
     err = _build.library().decoder_layer_forward(
         x.data_ptr(), emb_act.data_ptr(), kv_cross.data_ptr(), mats.data_ptr(),
         vecs.data_ptr(), adaln_w.data_ptr(), adaln_b.data_ptr(), out.data_ptr(),
-        partials.data_ptr(), kv_self.data_ptr(), b, t, t_valid, d, e, num_heads,
-        _build.stream(),
+        partials.data_ptr(), kv_self.data_ptr(), mod.data_ptr(), ctypes.addressof(gemm_launches),
+        b, t, t_valid, d, e, num_heads, _build.stream(),
     )
     _build.check(err, "decoder_layer_forward")
     fused_decoder_layer.launches += 1
+    adaln_modulation.launches += gemm_launches.value
     return out
 
 

@@ -30,11 +30,16 @@ serving modes:
 Weight banks as `train/fused_denoiser.pack_layer_weights` packs them:
 mats (L, 9, D, D), vecs (L, 24, D), adaln_w (L, E, 6D), adaln_b (L, 6D),
 kv_cross (L, B, D, D) block-diagonal.  A CPU tensor goes to the plain
-version, a CUDA tensor to the kernel in `csrc/decoder_stack.cu`.
+version, a CUDA tensor to the kernels in `csrc/decoder_stack.cu` (passes A,
+B and C of each layer) and `csrc/adaln_gemm.cu` (every layer's AdaLN
+modulation, one tensor-core GEMM launched before the first layer;
+`adaln_modulation` runs it alone, `adaln_modulation_plain` is its plain
+version).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -75,6 +80,81 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * cdf
 
 
+def adaln_modulation_plain(emb_act, adaln_w, adaln_b, *, mxu_dtype=torch.float32,
+                           emb_scale=None, adaln_w_scale=None):
+    """The AdaLN modulation, JAX `_layer_body` (`pallas_layer.py:112-120`):
+    ``emb_act (..., E) @ adaln_w (E, N) + adaln_b (N,)`` in float32, the
+    operands rounded to ``mxu_dtype``.  In the int8 mode (``emb_scale``
+    (..., 1) and ``adaln_w_scale`` (1, N) given, int8 codes) the integer
+    product, as a float32 product of the codes (exact while every partial
+    sum is an integer below 2**24, E * 127**2 < 2**24; TF32 must be off),
+    dequantized as ``acc * (emb_scale * adaln_w_scale) + adaln_b``, each op
+    rounded on its own, in JAX's order.  Stacked layers, ``adaln_w`` (L, E,
+    N), ``adaln_b`` (L, N) and ``adaln_w_scale`` (L, 1, N), give (..., L N):
+    each layer's N columns in turn."""
+    if adaln_w.dim() == 3:
+        return torch.cat([adaln_modulation_plain(
+            emb_act, adaln_w[i], adaln_b[i], mxu_dtype=mxu_dtype, emb_scale=emb_scale,
+            adaln_w_scale=None if adaln_w_scale is None else adaln_w_scale[i])
+            for i in range(adaln_w.shape[0])], -1)
+    if adaln_w_scale is None:
+        return _q(emb_act, mxu_dtype) @ _q(adaln_w, mxu_dtype) + adaln_b.float()
+    if emb_act.shape[-1] * 127 ** 2 >= 2 ** 24:
+        raise ValueError(f"E = {emb_act.shape[-1]}: the float32 integer product is inexact")
+    acc = emb_act.float() @ adaln_w.float()
+    return acc * (emb_scale * adaln_w_scale) + adaln_b.float()
+
+
+def _adaln_widths_ok(e: int, n: int, int8: bool) -> bool:
+    """The AdaLN GEMM's tiles: 128 bytes of E a stage (64 bf16 or 128 int8
+    codes), 128 columns a tile (csrc/adaln_gemm.cu)."""
+    return e > 0 and (e * (1 if int8 else 2)) % 128 == 0 and n > 0 and n % 128 == 0
+
+
+def adaln_modulation(emb_act, adaln_w, adaln_b, *, mxu_dtype=torch.float32, emb_scale=None,
+                     adaln_w_scale=None):
+    """The AdaLN modulation of stacked layers, ``emb_act`` (..., E) with
+    ``adaln_w`` (L, E, N), ``adaln_b`` (L, N) (and ``adaln_w_scale`` (L, 1,
+    N)) -> (..., L N) float32: the plain version on a CPU tensor, on a CUDA
+    tensor the GEMM that K1 (all its layers in one launch) and K5 run
+    before their row passes (bf16 operands, or int8 codes with their
+    scales; float32 sums and output)."""
+    int8 = adaln_w_scale is not None
+    if (emb_scale is None) == int8:
+        raise ValueError("the int8 mode takes both emb_scale and adaln_w_scale")
+    if not emb_act.is_cuda:
+        return adaln_modulation_plain(emb_act, adaln_w, adaln_b, mxu_dtype=mxu_dtype,
+                                      emb_scale=emb_scale, adaln_w_scale=adaln_w_scale)
+    n_layers, e, n = adaln_w.shape
+    lead = tuple(emb_act.shape[:-1])
+    m = math.prod(lead)
+    if (not int8 and mxu_dtype != torch.bfloat16) or not _adaln_widths_ok(e, n, int8) or m < 1:
+        raise ValueError(f"the AdaLN kernel takes bf16 operands (or int8 codes), E a multiple of "
+                         f"{128 if int8 else 64} and N of 128; got {mxu_dtype}, E={e}, N={n}")
+    dtype = torch.int8 if int8 else torch.bfloat16
+    _build.require(emb_act, "emb_act", dtype, (*lead, e))
+    _build.require(adaln_w, "adaln_w", dtype, (n_layers, e, n))
+    _build.require(adaln_b, "adaln_b", torch.float32, (n_layers, n))
+    if int8:
+        _build.require(emb_scale, "emb_scale", torch.float32, (*lead, 1))
+        _build.require(adaln_w_scale, "adaln_w_scale", torch.float32, (n_layers, 1, n))
+    _build.require_aligned(emb_act=emb_act, adaln_w=adaln_w)
+    out = torch.empty((*lead, n_layers * n), dtype=torch.float32, device=emb_act.device)
+    launches = ctypes.c_int(0)
+    err = _build.library().adaln_modulation_forward(
+        emb_act.data_ptr(), adaln_w.data_ptr(), emb_scale.data_ptr() if int8 else None,
+        adaln_w_scale.data_ptr() if int8 else None, adaln_b.data_ptr(), out.data_ptr(),
+        ctypes.addressof(launches), m, e, n, n_layers, int(int8), _build.stream())
+    _build.check(err, "adaln_modulation_forward")
+    adaln_modulation.launches += launches.value
+    return out
+
+
+# the GEMM's launches, as the C entry points that launch it (this wrapper's,
+# K1's and K5's) report them
+adaln_modulation.launches = 0
+
+
 def decoder_stack_plain(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_heads, *,
                         mxu_dtype=torch.float32, vpu_dtype=torch.float32, emb_scale=None,
                         adaln_w_scale=None, t_valid: int | None = None):
@@ -91,10 +171,6 @@ def decoder_stack_plain(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_
     head = torch.arange(d, device=x.device) // (d // num_heads)
     seg = (head[:, None] == head[None, :]).float()
     vd = vpu_dtype
-    if adaln_w_scale is not None:
-        if emb_act.shape[-1] * 127 ** 2 >= 2 ** 24:
-            raise ValueError(f"E = {emb_act.shape[-1]}: the float32 integer product is inexact")
-        codes = emb_act.float()
 
     def md(a, w):
         return _q(a, mxu_dtype) @ _q(w, mxu_dtype)
@@ -115,11 +191,9 @@ def decoder_stack_plain(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_
     x = x.float()
     for layer in range(mats.shape[0]):
         m, v = mats[layer], vecs[layer].float()
-        if adaln_w_scale is None:
-            mod = md(emb_act, adaln_w[layer]) + adaln_b[layer].float()
-        else:
-            acc = codes @ adaln_w[layer].float()
-            mod = acc * (emb_scale * adaln_w_scale[layer]) + adaln_b[layer].float()
+        mod = adaln_modulation_plain(
+            emb_act, adaln_w[layer], adaln_b[layer], mxu_dtype=mxu_dtype, emb_scale=emb_scale,
+            adaln_w_scale=None if adaln_w_scale is None else adaln_w_scale[layer])
         # self attention; the time softmax and KV stay float32
         xn = _ln(x, v[0], v[1])
         q, k, val = md(xn, m[0]) + v[2], md(xn, m[1]) + v[3], md(xn, m[2]) + v[4]
@@ -156,10 +230,12 @@ def fused_decoder_stack(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_
     b, t, d = x.shape
     n_layers, e = mats.shape[0], emb_act.shape[-1]
     dh = d // num_heads
-    if mxu_dtype != torch.bfloat16 or d != 128 or e % 16 or 32 % dh or dh * num_heads != d:
+    if (mxu_dtype != torch.bfloat16 or d != 128 or not _adaln_widths_ok(e, 6 * d, int8)
+            or 32 % dh or dh * num_heads != d):
         raise ValueError(
-            f"decoder_stack kernel takes bf16 operands, D = 128, E % 16 == 0 and a head "
-            f"width dividing 32; got {mxu_dtype}, D={d}, E={e}, H={num_heads}"
+            f"decoder_stack kernel takes bf16 operands, D = 128, E a multiple of "
+            f"{128 if int8 else 64} and a head width dividing 32; got {mxu_dtype}, D={d}, E={e}, "
+            f"H={num_heads}"
         )
     bf, f32 = torch.bfloat16, torch.float32
     emb_dtype = torch.int8 if int8 else bf
@@ -173,20 +249,22 @@ def fused_decoder_stack(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_
     if int8:
         _build.require(emb_scale, "emb_scale", f32, (b, t, 1))
         _build.require(adaln_w_scale, "adaln_w_scale", f32, (n_layers, 1, 6 * d))
-    if adaln_w.data_ptr() % 32 or emb_act.data_ptr() % 16:  # WMMA fragments, 16-byte loads
-        raise ValueError("decoder_stack kernel: adaln_w must start 32-byte aligned, emb_act 16")
+    _build.require_aligned(emb_act=emb_act, adaln_w=adaln_w, mats=mats, kv_cross=kv_cross)
     n_tiles = -(-t // ROWS_PER_TILE)
     out = torch.empty_like(x)
     partials = torch.empty((b, n_tiles, 2 * d + d * dh), dtype=f32, device=x.device)
     kv_self = torch.empty((b, d, d), dtype=bf, device=x.device)
+    mod = torch.empty((b * t, n_layers * 6 * d), dtype=f32, device=x.device)  # all layers' AdaLN
+    gemm_launches = ctypes.c_int(0)
     err = _build.library().decoder_stack_forward(
         x.data_ptr(), emb_act.data_ptr(), emb_scale.data_ptr() if int8 else None,
         kv_cross.data_ptr(), mats.data_ptr(), vecs.data_ptr(), adaln_w.data_ptr(),
         adaln_w_scale.data_ptr() if int8 else None, adaln_b.data_ptr(), out.data_ptr(),
-        partials.data_ptr(), kv_self.data_ptr(), b, t, d, e, num_heads, n_layers, int(int8),
-        int(vpu_dtype == bf), _build.stream(),
+        partials.data_ptr(), kv_self.data_ptr(), mod.data_ptr(), ctypes.addressof(gemm_launches),
+        b, t, d, e, num_heads, n_layers, int(int8), int(vpu_dtype == bf), _build.stream(),
     )
     _build.check(err, "decoder_stack_forward")
+    adaln_modulation.launches += gemm_launches.value
     # one count per mode: "decoder_stack" the bf16-MMA mode alone, and one
     # each for the int8-AdaLN and bf16-VPU modes (both when both are on)
     if int8:

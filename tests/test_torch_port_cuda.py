@@ -7,8 +7,10 @@ path, K8 at its two paths' shapes, a reference-mask step and a
 plain-layer generate through K8, K1's int8-AdaLN and bf16-VPU modes and
 K2's int8 output at whole and ragged tiles, generate under bench.py's
 serving config, the int8 wrappers raising on what their kernels do not
-take, and a float32 stage-1 step with torch's TF32 defaults against the
-CPU (the entry points turn TF32 off).  Skips
+take, a float32 stage-1 step with torch's TF32 defaults against the
+CPU (the entry points turn TF32 off), K1's AdaLN GEMM alone in bf16
+and int8 at four row counts, 8 layers at once as K1 launches it, and the
+GEMM launches that K1 and K5 report.  Skips
 without a CUDA card; on one, run it with
 ``python -m pytest --noconftest tests/test_torch_port_cuda.py``.
 ``chip_smoke.py`` makes the same checks at the flagship size."""
@@ -42,16 +44,22 @@ from conductor_tpu_torch.ops import (
     conv3x3_dkernel,
     linear_attention_kernel,
     fused_conv_block,
+    fused_decoder_layer,
     fused_decoder_stack,
     fused_max_pool,
     launch_counts,
     max_pool_bwd,
+    part_launch_counts,
     quantize_rows,
     reset_launch_counts,
     sampler_prologue,
 )
 from conductor_tpu_torch.ops.conv_block import conv_block_plain
-from conductor_tpu_torch.ops.decoder_stack import decoder_stack_plain
+from conductor_tpu_torch.ops.decoder_stack import (
+    adaln_modulation,
+    adaln_modulation_plain,
+    decoder_stack_plain,
+)
 from conductor_tpu_torch.ops.sampler_glue import sampler_prologue_plain
 from conductor_tpu_torch.ops.conv_train import conv3x3_dkernel_plain
 from conductor_tpu_torch.ops.max_pool import max_pool_bwd_plain, max_pool_plain
@@ -110,7 +118,8 @@ def test_kernels_match_plain_versions(trainers):
         *stage1_kernel_inputs(s1, music, motion_s1, (0, 120)), reps=1)
     q, k, v = (torch.randn(2, 96, 128, device="cuda").to(torch.bfloat16) for _ in range(3))
     results.append(check_attention_kernel(q, k, v, torch.ones(2, 96, 1, device="cuda"), 8, reps=1))
-    assert {r["name"] for r in results} - {"conv_block_train"} == set(launch_counts())
+    assert {r["name"] for r in results} - {"conv_block_train"} == set(launch_counts()) | {
+        "adaln_modulation", "adaln_modulation_int8"}
     for r in results:
         assert r["ok"], r
         assert r["bound_ms"] > 0 and r["bound_by"] in ("bytes", "operations"), r
@@ -302,6 +311,58 @@ def test_decoder_stack_modes_match_plain(t, int8, vpu, monkeypatch):
         kw.pop("vpu_dtype")
         r = vpu_mode_errors((*args, 8), **kw)
         assert vpu_mode_ok(r, 0.5), r
+
+
+def test_k1_and_k5_count_the_gemm_launches_they_make():
+    """K1 (8 layers) and K5 (one layer) each launch their AdaLN GEMM once a
+    call, and the count is the one their C entry points report."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    args, _ = _stack_operands(128, gen, False)
+    reset_launch_counts()
+    fused_decoder_stack(*args, 8, mxu_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert part_launch_counts()["adaln_modulation"] == 1
+    x, emb, kv, mats, vecs, aw, ab = args
+    fused_decoder_layer(x.to(torch.bfloat16), emb, kv[0], mats[0], vecs[0], aw[0], ab[0], 8,
+                        mxu_dtype=torch.bfloat16, t_valid=100)
+    torch.cuda.synchronize()
+    assert part_launch_counts()["adaln_modulation"] == 2
+    assert launch_counts()["decoder_layer"] == launch_counts()["decoder_stack"] == 1
+
+
+@pytest.mark.parametrize("m", [100, 1800, 3600, 14400])
+@pytest.mark.parametrize("int8", [False, True])
+def test_adaln_modulation_matches_plain(m, int8, monkeypatch):
+    """K1's AdaLN GEMM alone as K1 launches it, 8 layers at once, at B T =
+    100 (one ragged tile), 1800 (one clip), 3600 and 14400 (B = 2 and 8
+    clips), E = 512, 6D = 768: within 2 % of the plain version's largest
+    value (in int8 the integer product is exact, so only the
+    dequantization's rounding could differ), a repeat bit-identical, one
+    launch a call as the C entry point reports it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)  # exact int8 plain
+    gen = torch.Generator(device="cuda").manual_seed(m + int(int8))
+    layers = 8
+    emb = _rand(m, 512, gen=gen)
+    w, bias = _rand(layers, 512, 768, gen=gen) * 0.05, _rand(layers, 768, gen=gen)
+    if int8:
+        emb, emb_scale = quantize_rows(emb)
+        q, s = quantize_rows(w.transpose(1, 2))
+        w, kw = q.transpose(1, 2).contiguous(), dict(
+            emb_scale=emb_scale, adaln_w_scale=s.transpose(1, 2).contiguous())
+    else:
+        emb, w, kw = emb.to(torch.bfloat16), w.to(torch.bfloat16), dict(mxu_dtype=torch.bfloat16)
+    reset_launch_counts()
+    got = adaln_modulation(emb, w, bias, **kw)
+    torch.cuda.synchronize()
+    assert part_launch_counts()["adaln_modulation"] == 1
+    want = adaln_modulation_plain(emb, w, bias, **kw)
+    assert got.shape == (m, layers * 768) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 0.02 * float(want.abs().max())
+    assert torch.equal(got, adaln_modulation(emb, w, bias, **kw))
 
 
 @pytest.mark.parametrize("t", [128, 100])
