@@ -25,7 +25,10 @@ Phases, one line each (the kernel checks one line per kernel):
      training layer kernels K5 (forward) and K6 (backward, seven
      gradients) on layer 0 of
      a training forward at B = 4 windows of 30 s (T = 900,
-     padded to 960), and K7, the frozen ST-GCN of the perceptual loss
+     padded to 960), K6 again at the stage-2 step's B = 32 (a repeat
+     bit-identical, its device time split by launch, its workspace bytes,
+     and beside its d_adaln_w and d_emb GEMMs one PyTorch call each on the
+     same product, the `[k6]` lines), and K7, the frozen ST-GCN of the perceptual loss
      (forward on pred and target, d(pred) backward), on pred and target of
      one training forward at B = 32, T = 900, bf16 operands on both sides;
      and the stage-1 music encoder's kernels, K9 (each 3x3 conv's
@@ -190,6 +193,7 @@ def main() -> int:
     from conductor_tpu_torch.kernel_checks import (
         check_attention_kernel,
         check_kernels,
+        check_layer_bwd,
         check_stack_kernels,
         check_stage1_kernels,
         check_stgcn_kernels,
@@ -296,6 +300,8 @@ def main() -> int:
                   + f", sum {sum(split.values()):.4f} ({smi})")
     del mel_b8, noise_b8, step_b8, ops, args, kw
     results += check_train_kernels(kernel_tr, mel_train[:4], motion_train[:4])
+    results[-1]["name"] = "decoder_layer_bwd_b4"  # the main path's K6 call is B = 32's
+    results.append(check_layer_bwd(kernel_tr, mel_train, motion_train))
     results += check_stgcn_kernels(kernel_tr, *perceptual_inputs(kernel_tr, mel_train, motion_train))
     m2s_kernel.load_reference_state_dict(m2s_sd)
     results += check_stage1_kernels(*stage1_kernel_inputs(m2s_kernel, music, motion_s1, starts[0]))
@@ -314,10 +320,19 @@ def main() -> int:
               f"(plain max {r['ref_max_abs']:.6g}, {'ok' if r['ok'] else 'FAIL'}) "
               f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms bound {r['bound_ms']:.4f} ms "
               f"library {lib}")
-        if r["name"] == "decoder_layer_bwd":
+        if r["name"].startswith("decoder_layer_bwd"):
             for name, (e, m) in zip(("dx", "demb", "dkvc", "dmats", "dvecs", "daw", "dab"),
                                     r["parts"]):
-                print(f"[kernel]   decoder_layer_bwd {name}: err {e:.6g} (max {m:.6g})")
+                print(f"[kernel]   {r['name']} {name}: err {e:.6g} (max {m:.6g})")
+            print(f"[k6] {r['shape']}: repeat bit-identical {r['repeat_identical']}; device "
+                  f"{r['device_ms']:.4f} ms a call by launch: "
+                  + "; ".join(f"{k} {v:.4f}" for k, v in r["launch_split"])
+                  + f"; bound {r['bound_ms']:.4f} ms ({r['bound_by']}); workspace "
+                  f"{r['workspace_bytes']} bytes; yardsticks, device ms: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in r["yardsticks"].items())
+                  + "; GEMM launches' bounds: "
+                  + ", ".join(f"{k} {v['bound_ms']:.4f} ms ({v['bound_by']})"
+                              for k, v in r["part_bounds"].items()) + f" ({smi})")
         if r["name"] == "stgcn_backward":
             print(f"[kernel]   stgcn_backward after the kernel's own forward (ReLU masks of "
                   f"another summation order): err {r['e2e_err']:.6g}, not bounded")

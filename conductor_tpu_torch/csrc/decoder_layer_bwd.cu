@@ -7,59 +7,87 @@
 // d_kv_cross (in the inputs' dtypes) and d_mats (9, D, D), d_vecs (24, D),
 // d_adaln_w (E, 6D), d_adaln_b (6D) in float32, with the JAX kernel's
 // numerics: bf16 matmul operands with float32 accumulation, float32
-// elementwise work, d_emb accumulated in bf16 across the three sublayers
-// (FFN, then cross, then self), rows at or past t_valid carrying a -1e6
-// key, zero value and no gradient.
+// elementwise work, the AdaLN modulation `mod` in float32, d_emb rounded to
+// bf16 per sublayer and summed in bf16 (FFN, then cross, then self), rows
+// at or past t_valid carrying a -1e6 key, zero value and no gradient.
 //
-// What bounds it on an H100.  Per clip and layer the backward is ~3x the
-// forward's matrix work (~2 * T * (2 * E * 6D + 28 D^2) flops: the AdaLN
-// product recomputed and its two gradients, d_emb and d_adaln_w, dominate),
-// so tensor cores again; but it also has four reductions over all T rows of
-// a clip (the forward's time softmax and KV, dKV = q_sm^T dy1, dKV_cross =
-// qc_sm^T dy2, and the time-softmax backward's column sums) and weight
-// gradients that reduce over every row of the batch.  The TPU kernel holds
-// a whole clip in VMEM and accumulates the weight gradients over a
-// sequential batch grid; Hopper blocks hold 64 rows and run in parallel.
+// What bounds it on an H100.  At the stage-2 step's shape (B = 32, T = 900
+// padded to 960: 30,720 rows) a layer's backward is ~110 GFLOP of bf16
+// products: the AdaLN product, d_adaln_w = emb^T dMod and d_emb = dMod aw^T
+// are ~24 GFLOP each (2 * 30,720 * 512 * 768), the ~37 D x D products and
+// their weight gradients the rest; that is 0.11 ms at the bf16 tensor-core
+// rate.  The per-row intermediates that the launches hand each other (19
+// bf16 and 8 float32 (B T, D) arrays, dMod, `mod`; ~0.5 GB written and read
+// once) take ~0.3 ms at 3.35 TB/s, so bytes bound it, with the products
+// close behind, and neither is reached unless every product runs on tensor
+// cores from staged tiles.  The TPU kernel holds a whole clip in VMEM and
+// accumulates the weight gradients over a sequential batch grid; Hopper
+// blocks run in parallel and hold 64 rows.
 //
-// Design: the work is split at the reductions into launches, and every
-// per-row intermediate that a later launch needs is kept in device memory
-// (19 bf16 and 8 float32 (B*T, D) arrays, dMod and two AdaLN slices, ~0.5
-// GB at B = 32, T = 960)
-// instead of being recomputed: the card has 80 GB, a TPU core's VMEM a few
-// tens of MB.  Per layer:
-//   1. KV pass (decoder_stack.cu, bf16 x): KV_self as in K5, plus each
+// Design, per layer, one C call:
+//   1. the AdaLN GEMM (adaln_gemm.cu, as K1 / K5 launch it): mod = emb_act
+//      @ adaln_w + adaln_b, float32 (B T, 6D), bias added once, here.
+//   2. KV pass (decoder_stack.cu, bf16 x): KV_self as in K5, plus each
 //      column's softmax max and sum (so rows can rebuild k_sm) and KVr =
 //      k_sm^T bf16(v), float32.
-//   2. rows1 (64-row tiles, 8 warps): recompute the forward (q_sm, y1, x1,
-//      qc_sm, y2, x2, z, h1, y3), then the backward of the FFN, the cross
-//      attention and the self-attention's StylizationBlock and query, down
-//      to dq and dx1.  The three AdaLN slices are recomputed from emb_act
-//      read straight from L2, each once: the forward keeps its two as
-//      float32 rows for the backward.  Writes the bf16 operands of every weight
-//      gradient, dMod (B*T, 6D) and per-warp column sums (bias, LN and
-//      d_adaln_b gradients).
-//   3. dKV and dKV_cross: per-clip A^T B products over the T rows (atb).
-//   4. combine: dKV * seg to bf16, and the softmax backward's column sums
+//   3. rows1 (32-row tiles, 8 warps, two blocks an SM): recompute the
+//      forward (q_sm, y1, x1, qc_sm, y2, x2, z, h1, y3), then the backward
+//      of the FFN, the cross attention and the self-attention's
+//      StylizationBlock and query, down to dq and dx1.  Its AdaLN steps read
+//      their rows of mod, coalesced, as K1's row pass does; no AdaLN product
+//      is left in it.  Writes the bf16 operands of every weight gradient,
+//      dMod (B T, 6D) and per-warp column sums (bias, LN and d_adaln_b
+//      gradients).
+//   4. dKV = q_sm^T dy1 and dKV_cross = qc_sm^T dy2 per clip (atb), summed
+//      over row chunks (sum).
+//   5. combine: dKV * seg to bf16, and the softmax backward's column sums
 //      c = sum_l bf16(dKV)[d, l] * KVr[d, l] (= sum_t k_sm * dk_sm, using
 //      sum_t k_sm v = KVr, exact in the JAX kernel's roundings), dKV_cross
 //      to bf16.
-//   5. rows2: rebuild k_sm and v, dk = k_sm (v dKV^T - c), dv = k_sm dKV,
-//      dxn = dq Wq^T + dk Wk^T + dv Wv^T, the first LayerNorm's backward,
-//      dx = dx1 + dLN.
-//   6. weight gradients: per clip A^T B over its rows (atb: 9 (D, D)
-//      products and emb^T dMod), then a sum over the clips in fixed order;
-//      the column sums likewise.  No atomics: the result is deterministic.
-//   7. d_emb = dMod_k aw_k^T for the three sublayers, each rounded to bf16
-//      and added in bf16 in the JAX kernel's order.
-// Plain WMMA (16x16x16 bf16, float32 accumulation), as in K1; no wgmma/TMA.
+//   6. rows2 (as rows1): rebuild k_sm and v, dk = k_sm (v dKV^T - c), dv =
+//      k_sm dKV, dxn = dq Wq^T + dk Wk^T + dv Wv^T, the first LayerNorm's
+//      backward, dx = dx1 + dLN.
+//   7. the nine d_mats and d_adaln_w = emb^T dMod: one A^T B launch (atb)
+//      over 128 x 128 output tiles, each block reducing one chunk of the
+//      B T rows, so that the grid gives every SM two blocks whatever B is;
+//      then a sum of the chunks in chunk order.
+//   8. the column sums, in slot order, in two passes.
+//   9. d_emb = dMod_k aw_k^T for the three sublayers (demb), each rounded
+//      to bf16 and added in bf16 in the JAX kernel's order.
+// The row passes' D x D products (16 in rows1, 7 in rows2) take their B
+// operand from shared memory: each weight, KV_self, KV_cross or dKV is
+// staged by 16-byte cp.async into a 2-stage ring (2 x 32 KB, swizzled) two
+// products ahead, and multiplied by mma.sync m16n8k16 (`tile_gemm_smem`,
+// the backward's products A @ W^T by plain ldmatrix on the staged rows of
+// W).  64-row tiles (149 KB, one block an SM) were slower than these
+// 32-row ones at B = 4 and 32 while this design was made.  The A^T B and
+// d_emb GEMMs are mma.sync on tiles that 16-byte cp.async brings into a
+// 3-stage XOR-swizzled ring (96 KB, two blocks an SM): A^T fragments by
+// ldmatrix.trans from the row-major tiles (as K9's conv_train.cu), B by
+// ldmatrix(.trans).  Every sum runs in a fixed order and no atomics are
+// used: a repeat is bit-identical.  The chunk count depends on B only
+// through the rows there are, so B = 4 and B = 32 sum in different orders
+// (within float32 rounding).
 
+#include "adaln_gemm.cuh"
 #include "layer_common.cuh"
 
 using namespace layer;
 
 namespace {
 
-constexpr int kVecRows = 30;  // d_vecs rows 0-23, then d_adaln_b as 6 rows of D
+#define RETURN_IF_ERROR(call)                           \
+  do {                                                  \
+    const cudaError_t err_ = (call);                    \
+    if (err_ != cudaSuccess) return (int)err_;          \
+  } while (0)
+
+// Rows of the per-warp column sums: d_vecs rows 0-18 (19-23 stay zero),
+// then d_adaln_b as 6 rows of D.
+constexpr int kVecUsed = kStylFfnOut + 1;
+constexpr int kDabRow = kVecUsed;
+constexpr int kVecRows = kVecUsed + 6;
+constexpr int kSumGroups = 32;  // first-pass groups of the column sums' slots
 
 // Per-row intermediates kept between the launches, and the reductions'
 // scratch; carved out of one workspace.
@@ -70,14 +98,23 @@ struct Work {
   bf16* dmod;  // (B*T, 6D)
   // float32 (B*T, D)
   float *qs32, *qcs32, *y1, *y2, *y3, *z, *x1, *dx1;
-  float* mod;  // (B*T, 4D): the forward's AdaLN slices 0 and 1, reused by the backward
-  // the KV pass and the combine
-  float *partials, *stats, *kvr, *dkv32, *dkvc32, *cvec;
+  float* mod;  // (B*T, 6D): the AdaLN modulation, bias added
+  // the KV pass and the combine; dkv32 (2, B, D, D): dKV, then dKV_cross
+  float *partials, *stats, *kvr, *dkv32, *cvec;
   bf16 *kv, *dkvb;
-  // per-clip weight-gradient partials (B, 9 D^2 + E 6D) and per-warp column
-  // sums (B * T / 64 * 8, kVecRows, D)
-  float *wp, *vp;
+  // per-warp column sums (B * T / kRowsTile * 8, kVecRows, D), their first-pass
+  // group sums (kSumGroups, kVecRows, D), and the A^T B chunks' partials
+  float *vp, *vg, *part;
 };
+
+// Chunks each segment's rows are cut into, so that `tiles` output tiles
+// give about two blocks for each SM; at most one a 64-row step.
+int atb_chunks(int tiles, int ksteps) {
+  const int c = (2 * sm_count() + tiles / 2) / tiles;
+  return c < 1 ? 1 : (c > ksteps ? ksteps : c);
+}
+
+int weight_tiles(int E) { return 9 + (E / 128) * (6 * D / 128); }
 
 size_t carve(Work* w, unsigned char* base, int B, int T, int E, int dh) {
   size_t off = 0;
@@ -94,41 +131,80 @@ size_t carve(Work* w, unsigned char* base, int B, int T, int E, int dh) {
   w->dmod = static_cast<bf16*>(take(n * 6 * D * 2));
   float** rows_f[] = {&w->qs32, &w->qcs32, &w->y1, &w->y2, &w->y3, &w->z, &w->x1, &w->dx1};
   for (float** p : rows_f) *p = static_cast<float*>(take(n * D * 4));
-  w->mod = static_cast<float*>(take(n * 4 * D * 4));
+  w->mod = static_cast<float*>(take(n * 6 * D * 4));
   w->partials = static_cast<float*>(take(kv_pass_partials_bytes(B, T, dh, true)));
   w->stats = static_cast<float*>(take((size_t)B * 2 * D * 4));
   w->kvr = static_cast<float*>(take((size_t)B * D * dh * 4));
-  w->dkv32 = static_cast<float*>(take((size_t)B * D * D * 4));
-  w->dkvc32 = static_cast<float*>(take((size_t)B * D * D * 4));
+  w->dkv32 = static_cast<float*>(take((size_t)2 * B * D * D * 4));
   w->cvec = static_cast<float*>(take((size_t)B * D * 4));
   w->kv = static_cast<bf16*>(take((size_t)B * D * D * 2));
   w->dkvb = static_cast<bf16*>(take((size_t)B * D * D * 2));
-  w->wp = static_cast<float*>(take((size_t)B * (9 * D * D + (size_t)E * 6 * D) * 4));
-  w->vp = static_cast<float*>(take((size_t)n / kTileRows * 8 * kVecRows * D * 4));
+  w->vp = static_cast<float*>(take(n / kRowsTile * 8 * kVecRows * D * 4));
+  w->vg = static_cast<float*>(take((size_t)kSumGroups * kVecRows * D * 4));
+  const size_t kv_part = (size_t)atb_chunks(2 * B, T / 64) * 2 * B * D * D;
+  const size_t w_part = (size_t)atb_chunks(weight_tiles(E), (int)(n / 64)) * (9 * D * D + (size_t)E * 6 * D);
+  w->part = static_cast<float*>(take((kv_part > w_part ? kv_part : w_part) * 4));
   return off;
 }
 
 struct Inputs {
-  const bf16 *x, *emb, *kvc, *mats, *aw, *dy;
-  const float *vecs, *ab;
-  int T, t_valid, E, dh;
+  const bf16 *x, *kvc, *mats, *dy;
+  const float* vecs;
+  int T, t_valid, dh;
 };
 
-constexpr size_t kSmemRows =
-    (size_t)kTileRows * (3 * kLdF * 4 + kLdM * 4 + kLdA * 2);  // xs, ys, gs, ms, as
+// The row passes' tiles: kRowsTile (32) rows, kRowsW (4) a warp in the
+// row-wise phases.  Shared memory: the 2-stage ring of staged (D x D)
+// operands, two float32 (32, D) tiles and the bf16 operand, 105.5 KB: two
+// blocks an SM.
+constexpr int kRowsW = kRowsTile * 32 / kThreadsC;
+constexpr size_t kSmemRows = 2 * (size_t)kWeightTile + (size_t)kRowsTile * (2 * kLdF * 4 + kLdA * 2);
 
-// Shared-memory tiles of the two row passes.
 struct Tiles {
-  float *xs, *ys, *gs, *ms;
+  uint32_t ring;
+  float *xs, *ys;
   bf16* as;
   __device__ Tiles(unsigned char* smem) {
-    xs = reinterpret_cast<float*>(smem);
-    ys = xs + kTileRows * kLdF;
-    gs = ys + kTileRows * kLdF;
-    ms = gs + kTileRows * kLdF;
-    as = reinterpret_cast<bf16*>(ms + kTileRows * kLdM);
+    ring = tc::smem_addr(smem);
+    xs = reinterpret_cast<float*>(smem + 2 * kWeightTile);
+    ys = xs + kRowsTile * kLdF;
+    as = reinterpret_cast<bf16*>(ys + kRowsTile * kLdF);
   }
 };
+
+// The row passes' products in order, each operand staged into the ring two
+// products ahead of its use (as K1's row pass does).  gemm(C): C (kRowsTile x
+// D) = as @ the next operand; gemm_t(C, accumulate): C (+)= as @ its
+// transpose.  Both include the block syncs (as and the slot written
+// before, C read after).
+template <int N>
+struct Products {
+  const Tiles& t;
+  const bf16* const (&operand)[N];
+  int next = 0;
+  __device__ Products(const Tiles& tiles, const bf16* const (&ops)[N]) : t(tiles), operand(ops) {
+    stage(0);
+    stage(1);
+  }
+  __device__ void stage(int i) {
+    if (i < N) stage_weights(t.ring + (i & 1) * kWeightTile, operand[i]);
+    tc::cp_async_commit();  // one group a product, empty past the last
+  }
+  template <bool kTransB>
+  __device__ void product(float* C, bool accumulate) {
+    tc::cp_async_wait<1>();  // all groups but the newest (product next + 1)
+    __syncthreads();
+    tile_gemm_smem<kTransB>(t.as, t.ring + (next & 1) * kWeightTile, C, accumulate);
+    __syncthreads();
+    stage(next + 2);
+    ++next;
+  }
+  __device__ void gemm(float* C) { product<false>(C, false); }
+  __device__ void gemm_t(float* C, bool accumulate = false) { product<true>(C, accumulate); }
+};
+
+__device__ __forceinline__ float as_float(float v) { return v; }
+__device__ __forceinline__ float as_float(bf16 v) { return __bfloat162float(v); }
 
 // The warp's per-column sums (lane owns columns lane + 32 i) into its slot
 // of the column-sum partials.
@@ -138,11 +214,11 @@ __device__ __forceinline__ void put_sums(float* vp_slot, int row, const float s[
   for (int i = 0; i < 4; ++i) vp_slot[row * D + lane + 32 * i] = s[i];
 }
 
-// Copy the warp's kRowsC rows of a float32 tile (stride kLdF) to a bf16
+// Copy the warp's kRowsW rows of a float32 tile (stride kLdF) to a bf16
 // operand tile (stride kLdA) and, if `dst` is given, to global rows.
 __device__ __forceinline__ void rows_to_bf16(const float* src, bf16* op, bf16* dst) {
   const int lane = threadIdx.x & 31;
-  for (int i = lane; i < kRowsC * D; i += 32) {
+  for (int i = lane; i < kRowsW * D; i += 32) {
     const bf16 v = __float2bfloat16(src[(i / D) * kLdF + i % D]);
     op[(i / D) * kLdA + i % D] = v;
     if (dst) dst[i] = v;
@@ -150,19 +226,18 @@ __device__ __forceinline__ void rows_to_bf16(const float* src, bf16* op, bf16* d
 }
 
 // The backward of one StylizationBlock out = silu(LN(y) * (1 + scale) +
-// shift) @ W + b, for the warp's rows (`_layer_bwd_kernel.styl_bwd`):
-// y from global float32 rows, the AdaLN slice in `mod` (row stride ldm; +
-// ab), the upstream
-// gradient `dout` (float32 tile rows) and dhs = dout @ W^T in yw.  Writes
-// hs = bf16(h * sigmoid(h)) and dMod (2D columns at dmod_col) to global,
-// dy into yw, and the column sums of dout, dg, db, dscale, dshift.
+// shift) @ W + b, for the warp's kRowsW rows (`_layer_bwd_kernel.styl_bwd`):
+// y from global float32 rows, (scale, shift) from the rows of `mod` (row
+// stride ldm, the AdaLN bias already in), the upstream gradient `dout`
+// (float32 tile rows) and dhs = dout @ W^T in yw.  Writes hs = bf16(h *
+// sigmoid(h)) and dMod (2D columns at dmod_col) to global, dy into yw, and
+// the column sums of dout, dg, db, dscale, dshift.
 __device__ void styl_bwd_rows(const float* y, const float* dout, float* yw, const float* mod,
-                              int ldm, const float* ab, const float* g, const float* gb, bf16* hs_out,
-                              bf16* dmod, int dmod_col, float* vp_slot, int gi, int bi, int boi,
-                              int dab_row) {
+                              int ldm, const float* g, const float* gb, bf16* hs_out, bf16* dmod,
+                              int dmod_col, float* vp_slot, int gi, int bi, int boi, int dab_row) {
   const int lane = threadIdx.x & 31;
   float s_do[4] = {}, s_dg[4] = {}, s_db[4] = {}, s_sc[4] = {}, s_sh[4] = {};
-  for (int r = 0; r < kRowsC; ++r) {
+  for (int r = 0; r < kRowsW; ++r) {
     float v[4], xhat[4], dln[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) v[i] = y[(size_t)r * D + lane + 32 * i];
@@ -173,8 +248,8 @@ __device__ void styl_bwd_rows(const float* y, const float* dout, float* yw, cons
       const int c = lane + 32 * i;
       xhat[i] = (v[i] - st.x) * st.y;
       const float ln_y = xhat[i] * g[c] + gb[c];
-      const float scale = mod[(size_t)r * ldm + c] + ab[c];
-      const float shift = mod[(size_t)r * ldm + D + c] + ab[D + c];
+      const float scale = mod[(size_t)r * ldm + c];
+      const float shift = mod[(size_t)r * ldm + D + c];
       const float h = ln_y * (1.f + scale) + shift;
       const float sg = 1.f / (1.f + expf(-h));
       hs_out[(size_t)r * D + c] = __float2bfloat16(h * sg);
@@ -202,18 +277,19 @@ __device__ void styl_bwd_rows(const float* y, const float* dout, float* yw, cons
   put_sums(vp_slot, boi, s_do);
   put_sums(vp_slot, gi, s_dg);
   put_sums(vp_slot, bi, s_db);
-  put_sums(vp_slot, 24 + dab_row, s_sc);
-  put_sums(vp_slot, 24 + dab_row + 1, s_sh);
+  put_sums(vp_slot, kDabRow + dab_row, s_sc);
+  put_sums(vp_slot, kDabRow + dab_row + 1, s_sh);
 }
 
-// Softmax-within-heads backward for the warp's rows: ds in yw, s (float32)
-// from global; dq = s * ds - s * sum_head bf16(ds * s) (the JAX kernel's
-// seg matmul).  Writes bf16(dq) to `op` and `dst`, sums into vp row `row`.
+// Softmax-within-heads backward for the warp's kRowsW rows: ds in yw, s
+// (float32) from global; dq = s * ds - s * sum_head bf16(ds * s) (the JAX
+// kernel's seg matmul).  Writes bf16(dq) to `op` and `dst`, sums into vp
+// row `row`.
 __device__ void head_softmax_bwd_rows(const float* yw, const float* s32, bf16* op, bf16* dst,
                                       float* vp_slot, int row, int dh) {
   const int lane = threadIdx.x & 31;
   float sum[4] = {};
-  for (int r = 0; r < kRowsC; ++r)
+  for (int r = 0; r < kRowsW; ++r)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int c = lane + 32 * i;
@@ -228,17 +304,18 @@ __device__ void head_softmax_bwd_rows(const float* yw, const float* s32, bf16* o
   put_sums(vp_slot, row, sum);
 }
 
-// LayerNorm backward for the warp's rows: input rows x (float32, stride
-// ldx), upstream dxn in yw, gain g; acc += dLN; column sums into vp rows
-// gi (dg) and gi + 1 (db).
-__device__ void ln_bwd_rows(const float* x, int ldx, const float* yw, const float* g,
-                            float* acc, float* vp_slot, int gi) {
+// LayerNorm backward for the warp's kRowsW rows: input rows x (global, float32
+// or bf16, row stride D), upstream dxn in yw, gain g; acc += dLN; column
+// sums into vp rows gi (dg) and gi + 1 (db).
+template <typename XT>
+__device__ void ln_bwd_rows(const XT* x, const float* yw, const float* g, float* acc,
+                            float* vp_slot, int gi) {
   const int lane = threadIdx.x & 31;
   float s_dg[4] = {}, s_db[4] = {};
-  for (int r = 0; r < kRowsC; ++r) {
+  for (int r = 0; r < kRowsW; ++r) {
     float v[4], xhat[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = x[(size_t)r * ldx + lane + 32 * i];
+    for (int i = 0; i < 4; ++i) v[i] = as_float(x[(size_t)r * D + lane + 32 * i]);
     const float2 st = ln_stats(v);
     float m1 = 0.f, m2 = 0.f;
 #pragma unroll
@@ -264,26 +341,34 @@ __device__ void ln_bwd_rows(const float* x, int ldx, const float* yw, const floa
 }
 
 // ------------------------------------------------------------- rows1
-__global__ void __launch_bounds__(kThreadsC) rows1_kernel(Inputs in, Work w) {
+// xs holds the residual rows in the forward and the gradient rows in the
+// backward; ys the products; as the bf16 operand.  Its 16 products take
+// their B operands from the ring, in this order.
+__global__ void __launch_bounds__(kThreadsC, 2) rows1_kernel(Inputs in, Work w) {
   extern __shared__ __align__(128) unsigned char smem[];
-  Tiles t(smem);
+  const Tiles t(smem);
   const int b = blockIdx.y, wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int T = in.T, E = in.E, dh = in.dh;
-  const size_t tile_row = (size_t)b * T + blockIdx.x * kTileRows;
-  const int wo = wid * kRowsC;
+  const int T = in.T, dh = in.dh;
+  const size_t tile_row = (size_t)b * T + blockIdx.x * kRowsTile;
+  const int wo = wid * kRowsW;
   const size_t wrow = tile_row + wo;  // the warp's first global row
-  float *xw = t.xs + wo * kLdF, *yw = t.ys + wo * kLdF, *gw = t.gs + wo * kLdF;
-  float* mw = t.ms + wo * kLdM;
+  float *xw = t.xs + wo * kLdF, *yw = t.ys + wo * kLdF;
+  float* gw = xw;  // the backward's gradient rows, in the residual's place
   bf16* aw = t.as + wo * kLdA;
-  float* vp = w.vp + ((tile_row / kTileRows) * 8 + wid) * kVecRows * D;
+  float* vp = w.vp + ((tile_row / kRowsTile) * 8 + wid) * kVecRows * D;
+  const float* mrow = w.mod + wrow * 6 * D;  // the warp's rows of mod
   const float* vec = in.vecs;
   auto W = [&](int i) { return in.mats + (size_t)i * D * D; };
   auto R = [&](auto* p) { return p + wrow * D; };  // the warp's rows of a (B*T, D) array
-  const bf16* emb_tile = in.emb + tile_row * E;
-  auto mod = [&](int j) { block_gemm(emb_tile, E, in.aw + j * 2 * D, 6 * D, E, 2 * D, t.ms, kLdM); };
+  const bf16* kv = w.kv + (size_t)b * D * D;
+  const bf16* kvc = in.kvc + (size_t)b * D * D;
+  const bf16* const operand[16] = {
+      W(kWq), kv, W(kWStylSelf), W(kWqCross), kvc, W(kWStylCross), W(kW1), W(kW2),  // forward
+      W(kWStylFfn), W(kW2), W(kW1), W(kWStylCross), kvc, W(kWqCross), W(kWStylSelf), kv};
+  Products<16> p(t, operand);
   // float32 rows of the warp's tile: y (= yw) + bias -> global
   auto store_rows = [&](float* dst, const float* src, const float* bias) {
-    for (int i = lane; i < kRowsC * D; i += 32) {
+    for (int i = lane; i < kRowsW * D; i += 32) {
       const float v = src[(i / D) * kLdF + i % D] + (bias ? bias[i % D] : 0.f);
       if (bias) yw[(i / D) * kLdF + i % D] = v;
       dst[i] = v;
@@ -291,13 +376,11 @@ __global__ void __launch_bounds__(kThreadsC) rows1_kernel(Inputs in, Work w) {
   };
   // LN -> q -> head softmax for an attention sublayer: q_sm into as and
   // global (bf16 and float32)
-  auto query = [&](int g, const bf16* wq, int bq, bf16* xn, bf16* s16, float* s32) {
-    warp_ln_bf16<kRowsC>(xw, vec + g * D, vec + (g + 1) * D, aw);
-    for (int i = lane; i < kRowsC * D; i += 32) R(xn)[i] = aw[(i / D) * kLdA + i % D];
-    __syncthreads();
-    block_gemm(t.as, kLdA, wq, D, D, D, t.ys, kLdF);
-    __syncthreads();
-    for (int r = 0; r < kRowsC; ++r) {
+  auto query = [&](int g, int bq, bf16* xn, bf16* s16, float* s32) {
+    warp_ln_bf16<kRowsW>(xw, vec + g * D, vec + (g + 1) * D, aw);
+    for (int i = lane; i < kRowsW * D; i += 32) R(xn)[i] = aw[(i / D) * kLdA + i % D];
+    p.gemm(t.ys);
+    for (int r = 0; r < kRowsW; ++r) {
       float v[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) v[i] = yw[r * kLdF + lane + 32 * i] + vec[bq * D + lane + 32 * i];
@@ -309,77 +392,63 @@ __global__ void __launch_bounds__(kThreadsC) rows1_kernel(Inputs in, Work w) {
         aw[r * kLdA + c] = R(s16)[r * D + c] = __float2bfloat16(v[i]);
       }
     }
-    __syncthreads();
   };
-  // forward StylizationBlock + residual: x += silu(AdaLN(y)) @ W + b
-  auto stylize = [&](int j, int g, int wi, int b_out) {
-    mod(j);
-    __syncthreads();
-    for (int i = lane; i < kRowsC * 2 * D; i += 32)
-      w.mod[(wrow + i / (2 * D)) * 4 * D + j * 2 * D + i % (2 * D)] = mw[(i / (2 * D)) * kLdM + i % (2 * D)];
-    warp_adaln_bf16<kRowsC>(yw, nullptr, mw, in.ab + j * 2 * D, vec + g * D, vec + (g + 1) * D, aw);
-    __syncthreads();
-    block_gemm(t.as, kLdA, W(wi), D, D, D, t.ys, kLdF);
-    __syncthreads();
-    for (int i = lane; i < kRowsC * D; i += 32)
+  // forward StylizationBlock + residual: x += silu(AdaLN(y)) @ W + b, the
+  // AdaLN slice j read from mod
+  auto stylize = [&](int j, int g, int b_out) {
+    warp_adaln_mod_bf16<kRowsW>(yw, nullptr, mrow + j * 2 * D, 6 * D, kRowsW, vec + g * D,
+                                vec + (g + 1) * D, aw);
+    p.gemm(t.ys);
+    for (int i = lane; i < kRowsW * D; i += 32)
       xw[(i / D) * kLdF + i % D] += yw[(i / D) * kLdF + i % D] + vec[b_out * D + i % D];
     __syncwarp();
   };
 
-  for (int i = threadIdx.x; i < kTileRows * D / 4; i += kThreadsC)
+  for (int i = threadIdx.x; i < kRowsTile * D / 4; i += kThreadsC)
     store4(t.xs + (i / (D / 4)) * kLdF + (i % (D / 4)) * 4, load4(in.x + tile_row * D + 4 * i));
   __syncthreads();
 
   // ---- forward, keeping what the backward reads
-  query(kLnSelfG, W(kWq), kBq, w.xn, w.qs, w.qs32);
-  block_gemm(t.as, kLdA, w.kv + (size_t)b * D * D, D, D, D, t.ys, kLdF);
-  __syncthreads();
+  query(kLnSelfG, kBq, w.xn, w.qs, w.qs32);
+  p.gemm(t.ys);  // q_sm KV_self
   store_rows(R(w.y1), yw, nullptr);
-  stylize(0, kStylSelfG, kWStylSelf, kStylSelfOut);
+  stylize(0, kStylSelfG, kStylSelfOut);
   store_rows(R(w.x1), xw, nullptr);
-  query(kLnCrossG, W(kWqCross), kBqCross, w.xn2, w.qcs, w.qcs32);
-  block_gemm(t.as, kLdA, in.kvc + (size_t)b * D * D, D, D, D, t.ys, kLdF);
-  __syncthreads();
+  query(kLnCrossG, kBqCross, w.xn2, w.qcs, w.qcs32);
+  p.gemm(t.ys);  // qc_sm KV_cross
   store_rows(R(w.y2), yw, nullptr);
-  stylize(1, kStylCrossG, kWStylCross, kStylCrossOut);
+  stylize(1, kStylCrossG, kStylCrossOut);
   rows_to_bf16(xw, aw, R(w.x2b));  // x2
-  __syncthreads();
-  block_gemm(t.as, kLdA, W(kW1), D, D, D, t.ys, kLdF);
-  __syncthreads();
+  p.gemm(t.ys);                        // W1
   store_rows(R(w.z), yw, vec + kB1 * D);  // z = x2 W1 + b1, kept in yw
-  for (int i = lane; i < kRowsC * D; i += 32)
+  for (int i = lane; i < kRowsW * D; i += 32)
     aw[(i / D) * kLdA + i % D] = R(w.h1)[i] = __float2bfloat16(gelu_tanh(yw[(i / D) * kLdF + i % D]));
-  __syncthreads();
-  block_gemm(t.as, kLdA, W(kW2), D, D, D, t.ys, kLdF);
-  __syncthreads();
+  p.gemm(t.ys);  // W2
   store_rows(R(w.y3), yw, vec + kB2 * D);
 
-  // ---- FFN backward: dy into gs (float32) and as (bf16)
-  for (int i = threadIdx.x; i < kTileRows * D / 4; i += kThreadsC) {
+  // ---- FFN backward: dy into xs (float32, the residual no longer needed)
+  // and as (bf16)
+  for (int i = threadIdx.x; i < kRowsTile * D / 4; i += kThreadsC) {
     const float4 v = load4(in.dy + tile_row * D + 4 * i);
-    store4(t.gs + (i / (D / 4)) * kLdF + (i % (D / 4)) * 4, v);
+    store4(t.xs + (i / (D / 4)) * kLdF + (i % (D / 4)) * 4, v);
     store4(t.as + (i / (D / 4)) * kLdA + (i % (D / 4)) * 4, v);
   }
-  __syncthreads();
-  mod(2);
-  block_gemm<true>(t.as, kLdA, W(kWStylFfn), D, D, D, t.ys, kLdF);
-  __syncthreads();
-  styl_bwd_rows(R(w.y3), gw, yw, mw, kLdM, in.ab + 4 * D, vec + kStylFfnG * D, vec + kStylFfnB * D,
-                R(w.hs3), w.dmod + wrow * 6 * D, 4 * D, vp, kStylFfnG, kStylFfnB, kStylFfnOut, 4);
+  p.gemm_t(t.ys);  // dy W_styl_ffn^T
+  styl_bwd_rows(R(w.y3), gw, yw, mrow + 4 * D, 6 * D, vec + kStylFfnG * D,
+                    vec + kStylFfnB * D, R(w.hs3), w.dmod + wrow * 6 * D, 4 * D, vp, kStylFfnG,
+                    kStylFfnB, kStylFfnOut, 4);
   {  // dy3: column sums (d b2), bf16 operand
     float s[4] = {};
-    for (int r = 0; r < kRowsC; ++r)
+    for (int r = 0; r < kRowsW; ++r)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[i] += yw[r * kLdF + lane + 32 * i];
     put_sums(vp, kB2, s);
   }
   rows_to_bf16(yw, aw, R(w.dy3));
-  __syncthreads();
-  block_gemm<true>(t.as, kLdA, W(kW2), D, D, D, t.ys, kLdF);  // dh1
-  __syncthreads();
+  p.gemm_t(t.ys);  // dh1 = dy3 W2^T
   {  // dz = gelu'(z) dh1
     float s[4] = {};
-    for (int r = 0; r < kRowsC; ++r)
+    for (int r = 0; r < kRowsW; ++r)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int c = lane + 32 * i;
@@ -393,352 +462,497 @@ __global__ void __launch_bounds__(kThreadsC) rows1_kernel(Inputs in, Work w) {
       }
     put_sums(vp, kB1, s);
   }
-  __syncthreads();
-  block_gemm<true>(t.as, kLdA, W(kW1), D, D, D, t.gs, kLdF, true);  // dx2 = dy + dz W1^T
-  __syncthreads();
+  p.gemm_t(t.xs, true);  // dx2 = dy + dz W1^T
 
   // ---- cross attention backward
   rows_to_bf16(gw, aw, R(w.dx2b));
-  __syncthreads();
-  block_gemm<true>(t.as, kLdA, W(kWStylCross), D, D, D, t.ys, kLdF);
-  __syncthreads();
-  styl_bwd_rows(R(w.y2), gw, yw, w.mod + wrow * 4 * D + 2 * D, 4 * D, in.ab + 2 * D, vec + kStylCrossG * D, vec + kStylCrossB * D,
-                R(w.hs2), w.dmod + wrow * 6 * D, 2 * D, vp, kStylCrossG, kStylCrossB,
-                kStylCrossOut, 2);
+  p.gemm_t(t.ys);  // dx2 W_styl_cross^T
+  styl_bwd_rows(R(w.y2), gw, yw, mrow + 2 * D, 6 * D, vec + kStylCrossG * D,
+                    vec + kStylCrossB * D, R(w.hs2), w.dmod + wrow * 6 * D, 2 * D, vp,
+                    kStylCrossG, kStylCrossB, kStylCrossOut, 2);
   rows_to_bf16(yw, aw, R(w.dy2));
-  __syncthreads();
-  block_gemm<true>(t.as, kLdA, in.kvc + (size_t)b * D * D, D, D, D, t.ys, kLdF);  // dqc_sm
-  __syncthreads();
+  p.gemm_t(t.ys);  // dqc_sm = dy2 KV_cross^T
   head_softmax_bwd_rows(yw, R(w.qcs32), aw, R(w.dqc), vp, kBqCross, dh);
-  __syncthreads();
-  block_gemm<true>(t.as, kLdA, W(kWqCross), D, D, D, t.ys, kLdF);  // dxn2
-  __syncthreads();
-  ln_bwd_rows(R(w.x1), D, yw, vec + kLnCrossG * D, gw, vp, kLnCrossG);  // gs: dx1
+  p.gemm_t(t.ys);  // dxn2 = dqc Wq_cross^T
+  ln_bwd_rows(R(w.x1), yw, vec + kLnCrossG * D, gw, vp, kLnCrossG);  // xs: dx1
   __syncwarp();
 
   // ---- self attention: StylizationBlock and query backward
   rows_to_bf16(gw, aw, R(w.dx1b));
-  for (int i = lane; i < kRowsC * D; i += 32) R(w.dx1)[i] = gw[(i / D) * kLdF + i % D];
-  __syncthreads();
-  block_gemm<true>(t.as, kLdA, W(kWStylSelf), D, D, D, t.ys, kLdF);
-  __syncthreads();
-  styl_bwd_rows(R(w.y1), gw, yw, w.mod + wrow * 4 * D, 4 * D, in.ab, vec + kStylSelfG * D, vec + kStylSelfB * D,
-                R(w.hs1), w.dmod + wrow * 6 * D, 0, vp, kStylSelfG, kStylSelfB, kStylSelfOut, 0);
+  for (int i = lane; i < kRowsW * D; i += 32) R(w.dx1)[i] = gw[(i / D) * kLdF + i % D];
+  p.gemm_t(t.ys);  // dx1 W_styl_self^T
+  styl_bwd_rows(R(w.y1), gw, yw, mrow, 6 * D, vec + kStylSelfG * D, vec + kStylSelfB * D,
+                    R(w.hs1), w.dmod + wrow * 6 * D, 0, vp, kStylSelfG, kStylSelfB, kStylSelfOut,
+                    0);
   rows_to_bf16(yw, aw, R(w.dy1));
-  __syncthreads();
-  block_gemm<true>(t.as, kLdA, w.kv + (size_t)b * D * D, D, D, D, t.ys, kLdF);  // dq_sm
-  __syncthreads();
+  p.gemm_t(t.ys);  // dq_sm = dy1 KV_self^T
   head_softmax_bwd_rows(yw, R(w.qs32), aw, R(w.dq), vp, kBq, dh);
 }
 
 // ------------------------------------------------------------- rows2
-__global__ void __launch_bounds__(kThreadsC) rows2_kernel(Inputs in, Work w, bf16* dx) {
+// ys and xs take k and v, then k_sm and dk_sm, then dv, then dxn and dx.
+__global__ void __launch_bounds__(kThreadsC, 2) rows2_kernel(Inputs in, Work w, bf16* dx) {
   extern __shared__ __align__(128) unsigned char smem[];
-  Tiles t(smem);
+  const Tiles t(smem);
   const int b = blockIdx.y, wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int T = in.T;
-  const size_t tile_row = (size_t)b * T + blockIdx.x * kTileRows;
-  const int wo = wid * kRowsC;
+  const size_t tile_row = (size_t)b * T + blockIdx.x * kRowsTile;
+  const int wo = wid * kRowsW;
   const size_t wrow = tile_row + wo;
-  float *xw = t.xs + wo * kLdF, *yw = t.ys + wo * kLdF, *gw = t.gs + wo * kLdF;
-  float* mw = t.ms + wo * kLdM;
+  float *xw = t.xs + wo * kLdF, *yw = t.ys + wo * kLdF;
   bf16* aw = t.as + wo * kLdA;
-  float* vp = w.vp + ((tile_row / kTileRows) * 8 + wid) * kVecRows * D;
+  float* vp = w.vp + ((tile_row / kRowsTile) * 8 + wid) * kVecRows * D;
   const float* vec = in.vecs;
   const float* stats = w.stats + (size_t)b * 2 * D;
   const float* cvec = w.cvec + (size_t)b * D;
   const bf16* dkv = w.dkvb + (size_t)b * D * D;
   auto W = [&](int i) { return in.mats + (size_t)i * D * D; };
-  auto load_op = [&](const bf16* src) {  // a (64, D) bf16 tile from global into as
-    for (int i = threadIdx.x; i < kTileRows * D / 8; i += kThreadsC)
+  const bf16* const operand[7] = {W(kWk), W(kWv), dkv, dkv, W(kWq), W(kWk), W(kWv)};
+  Products<7> p(t, operand);
+  auto load_op = [&](const bf16* src) {  // a (kRowsTile, D) bf16 tile from global into as
+    for (int i = threadIdx.x; i < kRowsTile * D / 8; i += kThreadsC)
       *reinterpret_cast<uint4*>(t.as + (i / (D / 8)) * kLdA + (i % (D / 8)) * 8) =
           reinterpret_cast<const uint4*>(src + tile_row * D)[i];
   };
+  auto valid = [&](int r) { return (int)blockIdx.x * kRowsTile + wo + r < in.t_valid; };
 
-  for (int i = threadIdx.x; i < kTileRows * D / 4; i += kThreadsC)
-    store4(t.xs + (i / (D / 4)) * kLdF + (i % (D / 4)) * 4, load4(in.x + tile_row * D + 4 * i));
   load_op(w.xn);
-  __syncthreads();
-  block_gemm(t.as, kLdA, W(kWk), D, D, D, t.ys, kLdF);
-  block_gemm(t.as, kLdA, W(kWv), D, D, D, t.gs, kLdF);
-  __syncthreads();
-  // k_sm (ys) and v (gs), masked past t_valid; bf16(v) into as
-  for (int r = 0; r < kRowsC; ++r) {
-    const bool valid = blockIdx.x * kTileRows + wo + r < in.t_valid;
+  p.gemm(t.ys);  // k
+  p.gemm(t.xs);  // v
+  // k_sm (ys) and bf16(v) (as), masked past t_valid
+  for (int r = 0; r < kRowsW; ++r)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int c = lane + 32 * i;
       const float k = yw[r * kLdF + c] + vec[kBk * D + c];
-      yw[r * kLdF + c] = valid ? expf(k - stats[c]) / stats[D + c] : 0.f;
-      const float v = valid ? gw[r * kLdF + c] + vec[kBv * D + c] : 0.f;
-      aw[r * kLdA + c] = __float2bfloat16(v);
+      yw[r * kLdF + c] = valid(r) ? expf(k - stats[c]) / stats[D + c] : 0.f;
+      aw[r * kLdA + c] = __float2bfloat16(valid(r) ? xw[r * kLdF + c] + vec[kBv * D + c] : 0.f);
     }
-  }
-  __syncthreads();
-  block_gemm<true>(t.as, kLdA, dkv, D, D, D, t.ms, kLdM);  // dk_sm = v dKV^T
-  __syncthreads();
-  rows_to_bf16(yw, aw, nullptr);  // bf16(k_sm)
-  __syncthreads();
-  block_gemm(t.as, kLdA, dkv, D, D, D, t.ms + D, kLdM);  // dv = k_sm dKV
-  __syncthreads();
-  {  // time-softmax backward: dk = k_sm (dk_sm - c); masked rows give 0
-    float sk[4] = {}, sv[4] = {};
-    for (int r = 0; r < kRowsC; ++r)
+  p.gemm_t(t.xs);  // dk_sm = v dKV^T
+  {  // time-softmax backward: dk = k_sm (dk_sm - c), masked rows give 0; bf16(k_sm) into as
+    float sk[4] = {};
+    for (int r = 0; r < kRowsW; ++r)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int c = lane + 32 * i;
-        const bool valid = blockIdx.x * kTileRows + wo + r < in.t_valid;
-        const float dk = valid ? yw[r * kLdF + c] * (mw[r * kLdM + c] - cvec[c]) : 0.f;
-        const float dv = valid ? mw[r * kLdM + D + c] : 0.f;
-        mw[r * kLdM + c] = dk;
-        mw[r * kLdM + D + c] = dv;
+        const float dk = valid(r) ? yw[r * kLdF + c] * (xw[r * kLdF + c] - cvec[c]) : 0.f;
         sk[i] += dk;
-        sv[i] += dv;
         w.dk[(wrow + r) * D + c] = __float2bfloat16(dk);
-        w.dv[(wrow + r) * D + c] = __float2bfloat16(dv);
+        aw[r * kLdA + c] = __float2bfloat16(yw[r * kLdF + c]);
       }
     put_sums(vp, kBk, sk);
+  }
+  p.gemm(t.ys);  // dv = k_sm dKV
+  {
+    float sv[4] = {};
+    for (int r = 0; r < kRowsW; ++r)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = lane + 32 * i;
+        const float dv = valid(r) ? yw[r * kLdF + c] : 0.f;
+        sv[i] += dv;
+        w.dv[(wrow + r) * D + c] = __float2bfloat16(dv);
+      }
     put_sums(vp, kBv, sv);
   }
-  __syncthreads();
-  // dxn = dq Wq^T + dk Wk^T + dv Wv^T, into gs
+  __syncthreads();  // the block's rows of dk and dv written, as free
+  // dxn = dq Wq^T + dk Wk^T + dv Wv^T, into ys
   load_op(w.dq);
-  __syncthreads();
-  block_gemm<true>(t.as, kLdA, W(kWq), D, D, D, t.gs, kLdF);
-  __syncthreads();
-  for (int i = lane; i < kRowsC * D; i += 32)
-    aw[(i / D) * kLdA + i % D] = __float2bfloat16(mw[(i / D) * kLdM + i % D]);
-  __syncthreads();
-  block_gemm<true>(t.as, kLdA, W(kWk), D, D, D, t.gs, kLdF, true);
-  __syncthreads();
-  for (int i = lane; i < kRowsC * D; i += 32)
-    aw[(i / D) * kLdA + i % D] = __float2bfloat16(mw[(i / D) * kLdM + D + i % D]);
-  __syncthreads();
-  block_gemm<true>(t.as, kLdA, W(kWv), D, D, D, t.gs, kLdF, true);
-  __syncthreads();
+  p.gemm_t(t.ys);
+  load_op(w.dk);
+  p.gemm_t(t.ys, true);
+  load_op(w.dv);
+  p.gemm_t(t.ys, true);
   // first LayerNorm backward; dx = dx1 + dLN
-  for (int i = lane; i < kRowsC * D; i += 32)
-    yw[(i / D) * kLdF + i % D] = gw[(i / D) * kLdF + i % D];
-  for (int i = lane; i < kRowsC * D; i += 32)
-    gw[(i / D) * kLdF + i % D] = w.dx1[wrow * D + i];
+  for (int i = lane; i < kRowsW * D; i += 32) xw[(i / D) * kLdF + i % D] = w.dx1[wrow * D + i];
   __syncwarp();
-  ln_bwd_rows(xw, kLdF, yw, vec + kLnSelfG * D, gw, vp, kLnSelfG);
+  ln_bwd_rows(in.x + wrow * D, yw, vec + kLnSelfG * D, xw, vp, kLnSelfG);
   __syncwarp();
-  for (int i = lane; i < kRowsC * D; i += 32)
-    dx[wrow * D + i] = __float2bfloat16(gw[(i / D) * kLdF + i % D]);
+  for (int i = lane; i < kRowsW * D; i += 32)
+    dx[wrow * D + i] = __float2bfloat16(xw[(i / D) * kLdF + i % D]);
+}
+
+// ------------------------------------------------- staged GEMM tiles
+// 128 x 128 output tiles, 8 warps (2 x 4), each 64 x 32 of float32 sums in
+// registers; operand tiles by 16-byte cp.async into a 3-stage ring.
+constexpr int kGemmThreads = 256;
+constexpr int kGemmStages = 3;
+constexpr int kGemmStage = 32768;  // two 16-KB operand tiles
+constexpr int kGemmSmem = kGemmStages * kGemmStage;
+
+// The ring's pipeline over nk stages of work: load(k, slot) starts stage
+// k's copies, compute(slot) consumes a stage.
+template <typename Load, typename Compute>
+__device__ __forceinline__ void run_ring(int nk, Load load, Compute compute) {
+#pragma unroll
+  for (int s = 0; s < kGemmStages - 1; ++s) {
+    if (s < nk) load(s, s);
+    tc::cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + kGemmStages - 1 < nk) load(kt + kGemmStages - 1, (kt + kGemmStages - 1) % kGemmStages);
+    tc::cp_async_commit();
+    tc::cp_async_wait<kGemmStages - 1>();  // stage kt's group is complete
+    __syncthreads();
+    compute(kt);
+    __syncthreads();  // stage kt consumed before it is refilled
+  }
+  tc::cp_async_wait<0>();
 }
 
 // ------------------------------------------------------------- A^T B
-// C[b] (M x N) = sum over the T rows of clip b of A[row, :M]^T B[row, :N]
-// (bf16, float32 accumulation), one 64 x 64 tile of one job per block of 4
-// warps, each warp 32 x 32.  blockIdx = (tile, clip, job).
+// C[s] (m x n) = sum over rows r of segment s of A[r, :m]^T B[r, :n] (bf16,
+// float32 sums); a segment's rows are cut into `chunks` runs of 64-row
+// steps, each block summing one run of one 128 x 128 tile.  With chunks > 1
+// the run's sums go to part + chunk * part_stride, laid out as out (S, m,
+// n), and a sum in chunk order follows.
 struct AtbJob {
-  const bf16* a;
-  const bf16* b;
-  float* c;
-  int m, n, lda, ldb;
-  long long c_stride;  // between clips
+  const bf16 *a, *b;
+  float *out, *part;
+  long long part_stride;
+  int m, n, lda, ldb, segs, seg_rows;
 };
 struct AtbJobs {
   AtbJob job[10];
+  int count, chunks;
 };
 
-__global__ void __launch_bounds__(128) atb_kernel(AtbJobs jobs, int T) {
-  const AtbJob& j = jobs.job[blockIdx.z];
-  const int tiles_m = j.m / 64;
-  if ((int)blockIdx.x >= tiles_m * (j.n / 64)) return;
-  const int wid = threadIdx.x >> 5;
-  const int m0 = (blockIdx.x % tiles_m) * 64 + (wid & 1) * 32;
-  const int n0 = (blockIdx.x / tiles_m) * 64 + (wid >> 1) * 32;
-  const bf16* a = j.a + (size_t)blockIdx.y * T * j.lda;
-  const bf16* bb = j.b + (size_t)blockIdx.y * T * j.ldb;
-  typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAT;
-  typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-  FragC acc[2][2];
-#pragma unroll
-  for (int p = 0; p < 2; ++p)
-#pragma unroll
-    for (int q = 0; q < 2; ++q) wmma::fill_fragment(acc[p][q], 0.f);
-  for (int k = 0; k < T; k += 16) {
-    FragAT fa[2];
-    FragB fb[2];
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      wmma::load_matrix_sync(fa[p], a + (size_t)k * j.lda + m0 + 16 * p, j.lda);
-      wmma::load_matrix_sync(fb[p], bb + (size_t)k * j.ldb + n0 + 16 * p, j.ldb);
-    }
-#pragma unroll
-    for (int p = 0; p < 2; ++p)
-#pragma unroll
-      for (int q = 0; q < 2; ++q) wmma::mma_sync(acc[p][q], fa[p], fb[q], acc[p][q]);
-  }
-  float* c = j.c + blockIdx.y * j.c_stride;
-#pragma unroll
-  for (int p = 0; p < 2; ++p)
-#pragma unroll
-    for (int q = 0; q < 2; ++q)
-      wmma::store_matrix_sync(c + (size_t)(m0 + 16 * p) * j.n + n0 + 16 * q, acc[p][q], j.n,
-                              wmma::mem_row_major);
+int atb_blocks(const AtbJobs& jobs) {
+  int n = 0;
+  for (int j = 0; j < jobs.count; ++j)
+    n += (jobs.job[j].m / 128) * (jobs.job[j].n / 128) * jobs.job[j].segs * jobs.chunks;
+  return n;
 }
 
-// out[i] = sum_{g < G} in[g * stride + i], g in order: deterministic.
-__global__ void sum_kernel(const float* __restrict__ in, long long stride, int G,
-                           float* __restrict__ out, int n) {
-  __shared__ float part[32][33];
-  const int i = blockIdx.x * 32 + threadIdx.x;
-  float s = 0.f;
+__global__ void __launch_bounds__(kGemmThreads, 2) atb_kernel(AtbJobs jobs) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  int blk = blockIdx.x, j = 0;
+  for (; j < jobs.count - 1; ++j) {
+    const int nb = (jobs.job[j].m / 128) * (jobs.job[j].n / 128) * jobs.job[j].segs * jobs.chunks;
+    if (blk < nb) break;
+    blk -= nb;
+  }
+  const AtbJob& jb = jobs.job[j];
+  const int tiles_m = jb.m / 128, tiles = tiles_m * (jb.n / 128);
+  // tiles fastest: the blocks that run together share rows (L2)
+  const int tile = blk % tiles, chunk = (blk / tiles) % jobs.chunks, seg = blk / tiles / jobs.chunks;
+  const int m0 = (tile % tiles_m) * 128, n0 = (tile / tiles_m) * 128;
+  const int ks = jb.seg_rows / 64;
+  const int k0 = chunk * ks / jobs.chunks, nk = (chunk + 1) * ks / jobs.chunks - k0;
+  const bf16* a = jb.a + ((size_t)seg * jb.seg_rows + (size_t)k0 * 64) * jb.lda + m0;
+  const bf16* bsrc = jb.b + ((size_t)seg * jb.seg_rows + (size_t)k0 * 64) * jb.ldb + n0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = (warp & 1) * 64, wn = (warp >> 1) * 32;
+  const uint32_t base = tc::smem_addr(smem);
+
+  // stage: 64 rows of A's 128 columns, then of B's, 16 chunks a row
+  auto load = [&](int kt, int s) {
+    for (int i = threadIdx.x; i < 2 * 64 * 16; i += kGemmThreads) {
+      const int half = i >> 10, r = (i >> 4) & 63, c = i & 15;
+      const bf16* src = half ? bsrc + ((size_t)kt * 64 + r) * jb.ldb : a + ((size_t)kt * 64 + r) * jb.lda;
+      tc::cp_async16(base + s * kGemmStage + half * 16384 + tc::swz<16>(r, c), src + 8 * c);
+    }
+  };
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][q][e] = 0.f;
+  auto compute = [&](int kt) {
+    const uint32_t as = base + (kt % kGemmStages) * kGemmStage, bs = as + 16384;
+#pragma unroll
+    for (int kk = 0; kk < 64; kk += 16) {
+      uint32_t bq[2][4];  // b0, b1 of n8 tiles 2 q and 2 q + 1
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        tc::ldmatrix_x4_trans(bq[q], bs + tc::swz<16>(kk + (lane & 15), (wn + 16 * q) / 8 + (lane >> 4)));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        uint32_t af[4];  // A^T: matrices (m 0-7 | 8-15) x (rows 0-7 | 8-15), m block first
+        tc::ldmatrix_x4_trans(af, as + tc::swz<16>(kk + ((lane >> 4) << 3) + (lane & 7),
+                                                   (wm + 16 * i) / 8 + ((lane >> 3) & 1)));
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          tc::mma_bf16(acc[i][2 * q], af, bq[q][0], bq[q][1]);
+          tc::mma_bf16(acc[i][2 * q + 1], af, bq[q][2], bq[q][3]);
+        }
+      }
+    }
+  };
+  run_ring(nk, load, compute);
+
+  // C fragment element e of n8 tile q: row lane / 4 + 8 (e / 2), column
+  // 8 q + 2 (lane % 4) + e % 2
+  float* c = (jobs.chunks > 1 ? jb.part + chunk * jb.part_stride : jb.out) +
+             (size_t)seg * jb.m * jb.n + (size_t)(m0 + wm) * jb.n + n0 + wn;
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float* p = c + (size_t)(16 * i + g) * jb.n + 8 * q + t2;
+      *reinterpret_cast<float2*>(p) = make_float2(acc[i][q][0], acc[i][q][1]);
+      *reinterpret_cast<float2*>(p + 8 * (size_t)jb.n) = make_float2(acc[i][q][2], acc[i][q][3]);
+    }
+}
+
+// out[i] = sum over g of in[g * stride + i] for i < n (n a multiple of 4),
+// g in [G * y / groups, G * (y + 1) / groups) for blockIdx.y = y, written
+// to out + y * n: threads (x, y) of a 32 x 8 block take float4 x of the
+// block's 128 values and every 8th g in order, then the block adds its 8
+// partial sums in order.  Deterministic.
+__global__ void __launch_bounds__(256) sum_kernel(const float* __restrict__ in, long long stride,
+                                                  int G, float* __restrict__ out, int n) {
+  __shared__ float4 part[8][32];
+  const int i = (blockIdx.x * 32 + threadIdx.x) * 4;
+  const int g0 = (int)((long long)G * blockIdx.y / gridDim.y);
+  const int g1 = (int)((long long)G * (blockIdx.y + 1) / gridDim.y);
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
   if (i < n)
-    for (int g = threadIdx.y; g < G; g += blockDim.y) s += in[(size_t)g * stride + i];
+    for (int g = g0 + threadIdx.y; g < g1; g += 8) {
+      const float4 v = *reinterpret_cast<const float4*>(in + g * stride + i);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
   part[threadIdx.y][threadIdx.x] = s;
   __syncthreads();
   if (threadIdx.y == 0 && i < n) {
-    float total = 0.f;
-    for (int y = 0; y < (int)blockDim.y; ++y) total += part[y][threadIdx.x];
-    out[i] = total;
+    float4 total = part[0][threadIdx.x];
+    for (int y = 1; y < 8; ++y) {
+      total.x += part[y][threadIdx.x].x;
+      total.y += part[y][threadIdx.x].y;
+      total.z += part[y][threadIdx.x].z;
+      total.w += part[y][threadIdx.x].w;
+    }
+    *reinterpret_cast<float4*>(out + (size_t)blockIdx.y * n + i) = total;
   }
+}
+
+cudaError_t launch_sum(const float* in, long long stride, int G, float* out, int n, int groups,
+                       cudaStream_t s) {
+  sum_kernel<<<dim3(ceil_div(n, 128), groups), dim3(32, 8), 0, s>>>(in, stride, G, out, n);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_atb(const AtbJobs& jobs, cudaStream_t s) {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(atb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
+  if (attr != cudaSuccess) return attr;
+  atb_kernel<<<atb_blocks(jobs), kGemmThreads, kGemmSmem, s>>>(jobs);
+  return cudaGetLastError();
 }
 
 // dKV -> bf16(dKV * seg) and the softmax backward's column sums
-// c[d] = sum_l bf16(dKV)[d, l] KVr[d, l]; dKV_cross -> bf16.  One block
-// per clip, one thread per row d.
-__global__ void combine_kernel(Work w, bf16* dkvc, int dh) {
-  const int b = blockIdx.x, d = threadIdx.x;
-  const size_t base = ((size_t)b * D + d) * D;
-  float c = 0.f;
-  for (int l = 0; l < D; ++l) {
-    const bool same = d / dh == l / dh;
-    const bf16 v = __float2bfloat16(same ? w.dkv32[base + l] : 0.f);
-    w.dkvb[base + l] = v;
-    if (same) c += __bfloat162float(v) * w.kvr[((size_t)b * D + d) * dh + l % dh];
-    dkvc[base + l] = __float2bfloat16(w.dkvc32[base + l]);
+// c[d] = sum_l bf16(dKV)[d, l] KVr[d, l], summed in l order; dKV_cross ->
+// bf16.  One block per row d of a clip, one thread per column l.
+__global__ void __launch_bounds__(D) combine_kernel(Work w, bf16* dkvc, int B, int dh) {
+  __shared__ float prod[D];
+  const int b = blockIdx.y, d = blockIdx.x, l = threadIdx.x;
+  const size_t i = ((size_t)b * D + d) * D + l;
+  const bool same = d / dh == l / dh;
+  const bf16 v = __float2bfloat16(same ? w.dkv32[i] : 0.f);
+  w.dkvb[i] = v;
+  dkvc[i] = __float2bfloat16(w.dkv32[(size_t)B * D * D + i]);
+  prod[l] = same ? __bfloat162float(v) * w.kvr[((size_t)b * D + d) * dh + l % dh] : 0.f;
+  __syncthreads();
+  if (l == 0) {
+    float c = 0.f;
+    for (int k = 0; k < D; ++k) c += prod[k];
+    w.cvec[(size_t)b * D + d] = c;
   }
-  w.cvec[(size_t)b * D + d] = c;
 }
 
+// ------------------------------------------------------------- d_emb
 // d_emb[r, e] = bf16(bf16(bf16(A_2) + bf16(A_1)) + bf16(A_0)), A_j = dMod[r,
 // j-th 2D slice] @ aw[e, same slice]^T: the JAX kernel's bf16 accumulation
-// across the sublayers (FFN, cross, self).  64 x 64 tiles, 4 warps of 32 x 32.
-__global__ void __launch_bounds__(128) demb_kernel(const bf16* __restrict__ dmod,
-                                                   const bf16* __restrict__ aw,
-                                                   bf16* __restrict__ demb, int E) {
-  __shared__ __align__(32) float out[4][32 * 32];
-  typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBT;
-  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t r0 = (size_t)blockIdx.x * 64 + (wid & 1) * 32;
-  const int e0 = blockIdx.y * 64 + (wid >> 1) * 32;
-  FragC res[2][2];
-  for (int j = 2; j >= 0; --j) {
-    FragC acc[2][2];
-#pragma unroll
-    for (int p = 0; p < 2; ++p)
-#pragma unroll
-      for (int q = 0; q < 2; ++q) wmma::fill_fragment(acc[p][q], 0.f);
-    for (int k = j * 2 * D; k < (j + 1) * 2 * D; k += 16) {
-      FragA fa[2];
-      FragBT fb[2];
-#pragma unroll
-      for (int p = 0; p < 2; ++p) {
-        wmma::load_matrix_sync(fa[p], dmod + (r0 + 16 * p) * 6 * D + k, 6 * D);
-        wmma::load_matrix_sync(fb[p], aw + (size_t)(e0 + 16 * p) * 6 * D + k, 6 * D);
-      }
-#pragma unroll
-      for (int p = 0; p < 2; ++p)
-#pragma unroll
-        for (int q = 0; q < 2; ++q) wmma::mma_sync(acc[p][q], fa[p], fb[q], acc[p][q]);
+// across the sublayers (FFN, cross, self).  A 128 x 128 tile of d_emb a
+// block; a stage holds 64 columns of dMod's 128 rows and of aw's 128 rows
+// (8 chunks a row), both k-contiguous, so both fragments come by plain
+// ldmatrix.  The running bf16 sum stays packed in registers.
+__global__ void __launch_bounds__(kGemmThreads, 2)
+demb_kernel(const bf16* __restrict__ dmod, const bf16* __restrict__ aw, bf16* __restrict__ demb,
+            int M, int E) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int row0 = blockIdx.y * 128, col0 = blockIdx.x * 128;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = (warp & 1) * 64, wn = (warp >> 1) * 32;
+  const uint32_t base = tc::smem_addr(smem);
+  constexpr int kSteps = 2 * D / 64;  // stages of one sublayer's slice
+
+  // stage kt: slice 2 - kt / kSteps (FFN first), its 64 columns kt % kSteps
+  auto load = [&](int kt, int s) {
+    const int k = (2 - kt / kSteps) * 2 * D + (kt % kSteps) * 64;
+    for (int i = threadIdx.x; i < 2 * 128 * 8; i += kGemmThreads) {
+      const int half = i >> 10, r = (i >> 3) & 127, c = i & 7;
+      const bool valid = half || row0 + r < M;
+      const bf16* src = half ? aw + (size_t)(col0 + r) * 6 * D : dmod + (size_t)(valid ? row0 + r : 0) * 6 * D;
+      tc::cp_async16(base + s * kGemmStage + half * 16384 + tc::swz<8>(r, c), src + k + 8 * c, valid);
     }
+  };
+  float acc[4][4][4];
+  __nv_bfloat162 res[4][4][2];  // the running d_emb, rows g and g + 8
 #pragma unroll
-    for (int p = 0; p < 2; ++p)
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][q][e] = 0.f;
+  auto compute = [&](int kt) {
+    const uint32_t as = base + (kt % kGemmStages) * kGemmStage, bs = as + 16384;
+#pragma unroll
+    for (int kc = 0; kc < 8; kc += 2) {  // 16 columns: chunks kc, kc + 1
+      uint32_t bq[2][4];  // b0, b1 of n8 tile 2 q, then of 2 q + 1
 #pragma unroll
       for (int q = 0; q < 2; ++q)
-        for (int i = 0; i < acc[p][q].num_elements; ++i) {
-          const float a = round_bf16(acc[p][q].x[i]);
-          res[p][q].x[i] = j == 2 ? a : round_bf16(res[p][q].x[i] + a);
+        tc::ldmatrix_x4(bq[q], bs + tc::swz<8>(wn + 16 * q + ((lane >> 4) << 3) + (lane & 7),
+                                               kc + ((lane >> 3) & 1)));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        uint32_t af[4];
+        tc::ldmatrix_x4(af, as + tc::swz<8>(wm + 16 * i + (lane & 15), kc + (lane >> 4)));
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          tc::mma_bf16(acc[i][2 * q], af, bq[q][0], bq[q][1]);
+          tc::mma_bf16(acc[i][2 * q + 1], af, bq[q][2], bq[q][3]);
         }
+      }
+    }
+    if (kt % kSteps == kSteps - 1) {  // a sublayer done: round, add in bf16
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float a0 = round_bf16(acc[i][q][2 * h]), a1 = round_bf16(acc[i][q][2 * h + 1]);
+            if (kt < kSteps) {
+              res[i][q][h] = __floats2bfloat162_rn(a0, a1);
+            } else {
+              const float2 r = __bfloat1622float2(res[i][q][h]);
+              res[i][q][h] = __floats2bfloat162_rn(r.x + a0, r.y + a1);
+            }
+            acc[i][q][2 * h] = acc[i][q][2 * h + 1] = 0.f;
+          }
+    }
+  };
+  run_ring(3 * kSteps, load, compute);
+  __syncthreads();
+
+  // the tile through shared memory (the ring is free): whole 256-byte rows
+  constexpr int kLdO = 128 + 8;
+  bf16* os = reinterpret_cast<bf16*>(smem);
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<__nv_bfloat162*>(os + (wm + 16 * i + g + 8 * h) * kLdO + wn + 8 * q + t2) =
+            res[i][q][h];
+  __syncthreads();
+  for (int i = threadIdx.x; i < 128 * 16; i += kGemmThreads) {
+    const int r = i >> 4, c = i & 15;
+    if (row0 + r < M)
+      *reinterpret_cast<uint4*>(demb + (size_t)(row0 + r) * E + col0 + 8 * c) =
+          *reinterpret_cast<const uint4*>(os + r * kLdO + 8 * c);
   }
-#pragma unroll
-  for (int p = 0; p < 2; ++p)
-#pragma unroll
-    for (int q = 0; q < 2; ++q)
-      wmma::store_matrix_sync(out[wid] + 16 * p * 32 + 16 * q, res[p][q], 32, wmma::mem_row_major);
-  __syncwarp();
-  for (int i = lane; i < 32 * 32; i += 32)
-    demb[(r0 + i / 32) * E + e0 + i % 32] = __float2bfloat16(out[wid][i]);
 }
 
 }  // namespace
 
 CT_EXPORT long long decoder_layer_backward_workspace(int B, int T, int d, int E, int H) {
   Work w;
-  return d == D && H > 0 ? (long long)carve(&w, nullptr, B, T, E, d / H) : -1;
+  return d == D && H > 0 && E % 128 == 0 ? (long long)carve(&w, nullptr, B, T, E, d / H) : -1;
 }
 
+// gemm_launches (int, host): raised by one for each launch of the AdaLN GEMM.
 CT_EXPORT int decoder_layer_backward(const void* x, const void* emb, const void* kv_cross,
                                      const void* mats, const void* vecs, const void* adaln_w,
                                      const void* adaln_b, const void* dy, void* dx, void* demb,
                                      void* dkv_cross, void* dmats, void* dvecs, void* dadaln_w,
-                                     void* dadaln_b, void* workspace, int B, int T, int t_valid,
-                                     int d, int E, int H, void* stream) {
+                                     void* dadaln_b, void* workspace, void* gemm_launches, int B,
+                                     int T, int t_valid, int d, int E, int H, void* stream) {
   const int dh = d / H;
-  if (d != D || dh * H != d || 32 % dh != 0 || E % 64 != 0 || T % kTileRows != 0 || t_valid < 1 ||
-      t_valid > T)
+  if (d != D || dh * H != d || 32 % dh != 0 || E % 128 != 0 || !adaln_gemm_takes(E, 6 * D, false) ||
+      T % kTileRows != 0 || t_valid < 1 || t_valid > T)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Work w;
   carve(&w, static_cast<unsigned char*>(workspace), B, T, E, dh);
-  Inputs in{static_cast<const bf16*>(x), static_cast<const bf16*>(emb),
-            static_cast<const bf16*>(kv_cross), static_cast<const bf16*>(mats),
-            static_cast<const bf16*>(adaln_w), static_cast<const bf16*>(dy),
-            static_cast<const float*>(vecs), static_cast<const float*>(adaln_b), T, t_valid, E, dh};
-  const int n_tiles = T / kTileRows;
-  const size_t n_slots = (size_t)B * n_tiles * 8;
+  const bf16 *xb = static_cast<const bf16*>(x), *eb = static_cast<const bf16*>(emb);
+  const bf16 *awb = static_cast<const bf16*>(adaln_w), *dyb = static_cast<const bf16*>(dy);
+  Inputs in{xb, static_cast<const bf16*>(kv_cross), static_cast<const bf16*>(mats), dyb,
+            static_cast<const float*>(vecs), T, t_valid, dh};
+  const int rows = B * T;
 
-  static const cudaError_t attr1 = cudaFuncSetAttribute(
-      rows1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemRows);
-  static const cudaError_t attr2 = cudaFuncSetAttribute(
-      rows2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemRows);
-  if (attr1 != cudaSuccess) return (int)attr1;
-  if (attr2 != cudaSuccess) return (int)attr2;
-  cudaError_t err = cudaMemsetAsync(w.vp, 0, n_slots * kVecRows * D * 4, s);
-  if (err != cudaSuccess) return (int)err;
+  static const cudaError_t attr[] = {
+      cudaFuncSetAttribute(rows1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemRows),
+      cudaFuncSetAttribute(rows2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemRows),
+      cudaFuncSetAttribute(demb_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem)};
+  for (cudaError_t e : attr) RETURN_IF_ERROR(e);
 
-  // 1. the forward's KV, column statistics and KVr
-  err = launch_kv_pass(x, true, in.mats, in.vecs, w.partials, w.kv, w.stats, w.kvr, B, T, t_valid,
-                       dh, s);
-  if (err != cudaSuccess) return (int)err;
-  // 2. rows1
-  const dim3 tiles(n_tiles, B);
+  // 1. the AdaLN modulation, bias added
+  RETURN_IF_ERROR(launch_adaln_gemm(emb, adaln_w, nullptr, nullptr,
+                                    static_cast<const float*>(adaln_b), w.mod, 6 * D, rows, E,
+                                    6 * D, 1, false, static_cast<int*>(gemm_launches), s));
+  // 2. the forward's KV, column statistics and KVr
+  RETURN_IF_ERROR(launch_kv_pass(x, true, in.mats, in.vecs, w.partials, w.kv, w.stats, w.kvr, B,
+                                 T, t_valid, dh, s));
+  // 3. rows1
+  const dim3 tiles(T / kRowsTile, B);
   rows1_kernel<<<tiles, kThreadsC, kSmemRows, s>>>(in, w);
-  // 3. dKV = q_sm^T dy1 and dKV_cross = qc_sm^T dy2, per clip
+  RETURN_IF_ERROR(cudaGetLastError());
+  // 4. dKV = q_sm^T dy1 and dKV_cross = qc_sm^T dy2, per clip
   const long long dd = (long long)D * D;
   AtbJobs kv_jobs{};
-  kv_jobs.job[0] = {w.qs, w.dy1, w.dkv32, D, D, D, D, dd};
-  kv_jobs.job[1] = {w.qcs, w.dy2, w.dkvc32, D, D, D, D, dd};
-  atb_kernel<<<dim3(4, B, 2), 128, 0, s>>>(kv_jobs, T);
-  // 4. combine
-  combine_kernel<<<B, D, 0, s>>>(w, static_cast<bf16*>(dkv_cross), dh);
-  // 5. rows2
+  kv_jobs.count = 2;
+  kv_jobs.chunks = atb_chunks(2 * B, T / 64);
+  kv_jobs.job[0] = {w.qs, w.dy1, w.dkv32, w.part, 2 * B * dd, D, D, D, D, B, T};
+  kv_jobs.job[1] = {w.qcs, w.dy2, w.dkv32 + B * dd, w.part + B * dd, 2 * B * dd, D, D, D, D, B, T};
+  RETURN_IF_ERROR(launch_atb(kv_jobs, s));
+  if (kv_jobs.chunks > 1)
+    RETURN_IF_ERROR(launch_sum(w.part, 2 * B * dd, kv_jobs.chunks, w.dkv32, 2 * B * dd, 1, s));
+  // 5. combine
+  combine_kernel<<<dim3(D, B), D, 0, s>>>(w, static_cast<bf16*>(dkv_cross), B, dh);
+  RETURN_IF_ERROR(cudaGetLastError());
+  // 6. rows2
   rows2_kernel<<<tiles, kThreadsC, kSmemRows, s>>>(in, w, static_cast<bf16*>(dx));
-  // 6. weight gradients, per clip, then summed over the clips
-  const long long wp_stride = 9 * dd + (long long)E * 6 * D;
+  RETURN_IF_ERROR(cudaGetLastError());
+  // 7. weight gradients over all B T rows, in row chunks, then summed
+  const long long w_stride = 9 * dd + (long long)E * 6 * D;
   const bf16* ops[9][2] = {{w.xn, w.dq},   {w.xn, w.dk},    {w.xn, w.dv},
                            {w.hs1, w.dx1b}, {w.xn2, w.dqc},  {w.hs2, w.dx2b},
-                           {w.x2b, w.dz},  {w.h1, w.dy3},   {w.hs3, in.dy}};
-  AtbJobs mat_jobs{};
-  for (int i = 0; i < 9; ++i) mat_jobs.job[i] = {ops[i][0], ops[i][1], w.wp + i * dd, D, D, D, D, wp_stride};
-  atb_kernel<<<dim3(4, B, 9), 128, 0, s>>>(mat_jobs, T);
-  AtbJobs aw_jobs{};
-  aw_jobs.job[0] = {in.emb, w.dmod, w.wp + 9 * dd, E, 6 * D, E, 6 * D, wp_stride};
-  atb_kernel<<<dim3((E / 64) * (6 * D / 64), B, 1), 128, 0, s>>>(aw_jobs, T);
-  const dim3 sum_block(32, 32);
-  sum_kernel<<<ceil_div(9 * D * D, 32), sum_block, 0, s>>>(w.wp, wp_stride, B,
-                                                           static_cast<float*>(dmats), 9 * D * D);
-  sum_kernel<<<ceil_div(E * 6 * D, 32), sum_block, 0, s>>>(w.wp + 9 * dd, wp_stride, B,
-                                                           static_cast<float*>(dadaln_w), E * 6 * D);
-  sum_kernel<<<ceil_div(24 * D, 32), sum_block, 0, s>>>(w.vp, kVecRows * D, (int)n_slots,
-                                                        static_cast<float*>(dvecs), 24 * D);
-  sum_kernel<<<ceil_div(6 * D, 32), sum_block, 0, s>>>(w.vp + 24 * D, kVecRows * D, (int)n_slots,
-                                                       static_cast<float*>(dadaln_b), 6 * D);
-  // 7. d_emb
-  demb_kernel<<<dim3(B * T / 64, E / 64), 128, 0, s>>>(w.dmod, in.aw, static_cast<bf16*>(demb), E);
+                           {w.x2b, w.dz},  {w.h1, w.dy3},   {w.hs3, dyb}};
+  AtbJobs w_jobs{};
+  w_jobs.count = 10;
+  w_jobs.chunks = atb_chunks(weight_tiles(E), rows / 64);
+  float* dm = static_cast<float*>(dmats);
+  for (int i = 0; i < 9; ++i)
+    w_jobs.job[i] = {ops[i][0], ops[i][1], dm + i * dd, w.part + i * dd, w_stride, D, D, D, D, 1, rows};
+  w_jobs.job[9] = {eb, w.dmod, static_cast<float*>(dadaln_w), w.part + 9 * dd, w_stride, E, 6 * D,
+                   E, 6 * D, 1, rows};
+  RETURN_IF_ERROR(launch_atb(w_jobs, s));
+  if (w_jobs.chunks > 1) {
+    RETURN_IF_ERROR(launch_sum(w.part, w_stride, w_jobs.chunks, dm, 9 * dd, 1, s));
+    RETURN_IF_ERROR(launch_sum(w.part + 9 * dd, w_stride, w_jobs.chunks,
+                               static_cast<float*>(dadaln_w), E * 6 * D, 1, s));
+  }
+  // 8. the column sums: slots into kSumGroups groups, then the groups
+  const int n_slots = rows / kRowsTile * 8;
+  RETURN_IF_ERROR(launch_sum(w.vp, kVecRows * D, n_slots, w.vg, kVecRows * D, kSumGroups, s));
+  RETURN_IF_ERROR(launch_sum(w.vg, kVecRows * D, kSumGroups, static_cast<float*>(dvecs),
+                             kVecUsed * D, 1, s));
+  RETURN_IF_ERROR(launch_sum(w.vg + kDabRow * D, kVecRows * D, kSumGroups,
+                             static_cast<float*>(dadaln_b), 6 * D, 1, s));
+  RETURN_IF_ERROR(cudaMemsetAsync(static_cast<float*>(dvecs) + kVecUsed * D, 0,
+                                  (24 - kVecUsed) * D * 4, s));
+  // 9. d_emb
+  demb_kernel<<<dim3(E / 128, ceil_div(rows, 128)), kGemmThreads, kGemmSmem, s>>>(
+      w.dmod, awb, static_cast<bf16*>(demb), rows, E);
   return (int)cudaGetLastError();
 }

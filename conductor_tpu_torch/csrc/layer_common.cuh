@@ -1,7 +1,8 @@
 // Device code shared by the decoder-layer kernels: K1 / K5
 // (decoder_stack.cu) and K6 (decoder_layer_bwd.cu).  Everything here works
-// on one tile of one clip (64 rows; 32 in K1 / K5's row pass), D = 128
-// wide, in a block's shared memory; see decoder_stack.cu for the design.
+// on one tile of one clip (64 rows in the KV pass, 32 in the row passes),
+// D = 128 wide, in a block's shared memory; see decoder_stack.cu for the
+// design.
 #pragma once
 
 #include <mma.h>
@@ -23,9 +24,7 @@ constexpr int kRowsA = kTileRows * 32 / kThreadsA;  // rows per warp in the row-
 constexpr int kRowsC = kTileRows * 32 / kThreadsC;
 static_assert(kThreadsA == D, "kv_partials_kernel gives each thread one column");
 constexpr int kLdF = D + 4;       // row stride of the (64, D) float32 tiles
-constexpr int kLdM = 2 * D + 4;   // row stride of the (64, 2D) AdaLN slice
 constexpr int kLdA = D + 8;       // row stride of the (64, D) bf16 operand
-constexpr int kChunk8 = 16;       // int8 codes per k-step of the integer WMMA
 constexpr int kPrefetch = 4;      // k-steps of weight fragments in flight
 
 // vector rows of the (24, D) bank (train/fused_denoiser.pack_layer_weights)
@@ -150,67 +149,6 @@ __device__ void block_gemm(const bf16* A, int lda, const bf16* B, int ldb, int K
     block_gemm_jobs<2, kTransB>(A, lda, B, ldb, K, N, C, ldc, accumulate);
 }
 
-// The int8 AdaLN product: C (64 x N) int32 = A (64 x K) @ B (K x N) on the
-// integer tensor cores, in m8n32k16 signed-char WMMA fragments.  A (the
-// tile's int8 emb rows) sits in shared memory k-chunk-major, (K / 16, 64,
-// 16): the 16 codes of k-step c of row r at A + (c * 64 + r) * 16.  WMMA
-// wants every fragment pointer 32-byte aligned; in row-major int8 rows every
-// odd k-step would start 16 bytes off, while here each 8-row A fragment
-// starts at a multiple of 128 bytes, and its 8 x 16 codes are 128
-// contiguous bytes (no bank conflicts).  B (the int8 weights) is row-major
-// in global memory (L2) with ldb a multiple of 32 and one 16 x 32 fragment a
-// k-step, at a multiple of 32 bytes; C has ldc a multiple of 4.  Jobs as
-// `block_gemm`'s: a warp owns 32 columns of 8 * MI rows, one B fragment
-// feeds MI MMAs, the next kPrefetch k-steps' B fragments are in flight.
-template <int MI>
-__device__ void block_gemm_s8_jobs(const signed char* A, const signed char* B, int ldb, int K,
-                                   int N, int* C, int ldc) {
-  typedef wmma::fragment<wmma::matrix_a, 8, 32, 16, signed char, wmma::row_major> FragA8;
-  typedef wmma::fragment<wmma::matrix_b, 8, 32, 16, signed char, wmma::row_major> FragB8;
-  typedef wmma::fragment<wmma::accumulator, 8, 32, 16, int> FragC8;
-  constexpr int kGroups = kTileRows / (8 * MI);
-  const int n_warps = blockDim.x >> 5;
-  for (int job = threadIdx.x >> 5; job < kGroups * (N / 32); job += n_warps) {
-    const int r0 = (job % kGroups) * 8 * MI, n0 = (job / kGroups) * 32;
-    FragC8 acc[MI];
-#pragma unroll
-    for (int i = 0; i < MI; ++i) wmma::fill_fragment(acc[i], 0);
-    FragB8 b[kPrefetch];
-#pragma unroll
-    for (int s = 0; s < kPrefetch; ++s)
-      if (s * kChunk8 < K) wmma::load_matrix_sync(b[s], B + (size_t)s * kChunk8 * ldb + n0, ldb);
-    for (int k0 = 0; k0 < K; k0 += kChunk8 * kPrefetch) {
-#pragma unroll
-      for (int s = 0; s < kPrefetch; ++s) {
-        const int k = k0 + kChunk8 * s;
-        if (k < K) {
-          const signed char* a_k = A + (size_t)(k / kChunk8) * kTileRows * kChunk8;
-#pragma unroll
-          for (int i = 0; i < MI; ++i) {
-            FragA8 a;
-            wmma::load_matrix_sync(a, a_k + (r0 + i * 8) * kChunk8, kChunk8);
-            wmma::mma_sync(acc[i], a, b[s], acc[i]);
-          }
-          const int kn = k + kChunk8 * kPrefetch;
-          if (kn < K) wmma::load_matrix_sync(b[s], B + (size_t)kn * ldb + n0, ldb);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-      wmma::store_matrix_sync(C + (r0 + i * 8) * ldc + n0, acc[i], ldc, wmma::mem_row_major);
-  }
-}
-
-// Whole 64-row column slices while there is one for every warp, else halves.
-__device__ __forceinline__ void block_gemm_s8(const signed char* A, const signed char* B, int ldb,
-                                              int K, int N, int* C, int ldc) {
-  if (N / 32 >= (int)(blockDim.x >> 5))
-    block_gemm_s8_jobs<8>(A, B, ldb, K, N, C, ldc);
-  else
-    block_gemm_s8_jobs<4>(A, B, ldb, K, N, C, ldc);
-}
-
 // Row-wise helpers, one warp over its ROWS rows (float32 rows at stride
 // kLdF, bf16 rows at kLdA): lane owns columns lane + 32 * i, i < 4.
 
@@ -282,49 +220,12 @@ __device__ __forceinline__ float silu_vpu_bf16(float h) {
   return hb / round_bf16(1.f + round_bf16(expf(-hb)));
 }
 
-// dst = bf16(silu(LN(y + ybias) * (1 + scale) + shift)): the
-// StylizationBlock's input.  (scale, shift) = mod (ROWS x 2D, row stride
-// kLdM) + ab; in the int8-AdaLN mode mod holds the int32 products, and
-// (scale, shift) = acc * (srow[r] * scol[c]) + ab, JAX's dequantization
-// (each op rounded on its own, not fused).  kVpuBf16: the SiLU in bf16.
-template <int ROWS, bool kVpuBf16 = false, typename M = float>
-__device__ void warp_adaln_bf16(const float* y, const float* ybias, const M* mod,
-                                const float* ab, const float* g, const float* gb, bf16* dst,
-                                const float* srow = nullptr, const float* scol = nullptr) {
-  const int lane = threadIdx.x & 31;
-  for (int r = 0; r < ROWS; ++r) {
-    float v[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = lane + 32 * i;
-      v[i] = y[r * kLdF + c] + (ybias ? ybias[c] : 0.f);
-    }
-    const float2 st = ln_stats(v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = lane + 32 * i;
-      float scale, shift;
-      if constexpr (std::is_same<M, int>::value) {
-        const float sr = srow[r];
-        scale = __fadd_rn(__fmul_rn(__int2float_rn(mod[r * kLdM + c]), sr * scol[c]), ab[c]);
-        shift = __fadd_rn(__fmul_rn(__int2float_rn(mod[r * kLdM + D + c]), sr * scol[D + c]),
-                          ab[D + c]);
-      } else {
-        scale = mod[r * kLdM + c] + ab[c];
-        shift = mod[r * kLdM + D + c] + ab[D + c];
-      }
-      const float h = ((v[i] - st.x) * st.y * g[c] + gb[c]) * (1.f + scale) + shift;
-      dst[r * kLdA + c] = __float2bfloat16(kVpuBf16 ? silu_vpu_bf16(h) : silu(h));
-    }
-  }
-}
-
 // ---- helpers of K1 / K5's row pass since its redesign: the B operands of
 // its (ROWS x D) @ (D x D) products staged in shared memory, and the AdaLN
 // modulation read from the rows that the AdaLN GEMM (adaln_gemm.cu) wrote.
 
 constexpr int kWeightTile = D * D * 2;  // bytes of one staged (D x D) bf16 matrix
-constexpr int kRowsTile = 32;           // rows of a row-pass tile, 4 a warp
+constexpr int kRowsTile = 32;           // rows of a row-pass tile (K1 / K5, K6), 4 a warp
 
 // Start the copy of the row-major (D x D) bf16 matrix W into the shared
 // tile at `stage` (16 chunks a row, swizzled), by all the block's threads;
@@ -334,37 +235,52 @@ __device__ __forceinline__ void stage_weights(uint32_t stage, const bf16* W) {
     tc::cp_async16(stage + tc::swz<16>(i >> 4, i & 15), W + 8 * i);
 }
 
-// C (kRowsTile x D, float32, row stride kLdF) = A (kRowsTile x D bf16, row
-// stride kLdA, shared) @ B (D x D bf16 staged by `stage_weights` at Bs):
-// mma.sync m16n8k16, A fragments by ldmatrix, B by ldmatrix.trans.  Each of
-// the block's 8 warps computes 16 columns of C.
-__device__ __forceinline__ void tile_gemm_smem(const bf16* A, uint32_t Bs, float* C) {
+// C (kRowsTile x D, float32, row stride kLdF) = A (kRowsTile x D bf16,
+// row stride kLdA, shared) @ op(B), B the (D x D) bf16 matrix staged by
+// `stage_weights` at Bs: B itself, or with kTransB its transpose (K6's
+// backward products); with `accumulate`, C += instead.  mma.sync
+// m16n8k16, A fragments by ldmatrix, B by ldmatrix.trans (B) or ldmatrix
+// (B^T: the staged rows are its columns).  Each of the block's 8 warps
+// computes 16 columns of C.
+template <bool kTransB = false>
+__device__ __forceinline__ void tile_gemm_smem(const bf16* A, uint32_t Bs, float* C,
+                                               bool accumulate = false) {
+  constexpr int MI = kRowsTile / 16;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n0 = warp * (D / 8);
+  const int g = lane >> 2, t = lane & 3;
   const uint32_t a_base = tc::smem_addr(A);
-  float acc[2][2][4];
+  float acc[MI][2][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    for (int j = 0; j < 2; ++j) {
+      const float* c = C + (16 * i + g) * kLdF + n0 + 8 * j + 2 * t;
+      const float2 lo = accumulate ? *reinterpret_cast<const float2*>(c) : make_float2(0.f, 0.f);
+      const float2 hi = accumulate ? *reinterpret_cast<const float2*>(c + 8 * kLdF) : make_float2(0.f, 0.f);
+      acc[i][j][0] = lo.x;
+      acc[i][j][1] = lo.y;
+      acc[i][j][2] = hi.x;
+      acc[i][j][3] = hi.y;
+    }
 #pragma unroll 4
   for (int k = 0; k < D; k += 16) {
-    uint32_t a[2][4], b[4];  // b: b0, b1 of n8 tile 0, then of tile 1
+    uint32_t a[MI][4], b[4];  // b: b0, b1 of n8 tile 0, then of tile 1
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < MI; ++i)
       tc::ldmatrix_x4(a[i], a_base + ((16 * i + (lane & 15)) * kLdA + k + (lane >> 4) * 8) * 2);
-    tc::ldmatrix_x4_trans(b, Bs + tc::swz<16>(k + (lane & 15), n0 / 8 + (lane >> 4)));
+    if (kTransB)
+      tc::ldmatrix_x4(b, Bs + tc::swz<16>(n0 + ((lane >> 4) << 3) + (lane & 7), k / 8 + ((lane >> 3) & 1)));
+    else
+      tc::ldmatrix_x4_trans(b, Bs + tc::swz<16>(k + (lane & 15), n0 / 8 + (lane >> 4)));
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < MI; ++i) {
       tc::mma_bf16(acc[i][0], a[i], b[0], b[1]);
       tc::mma_bf16(acc[i][1], a[i], b[2], b[3]);
     }
   }
-  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       float* c = C + (16 * i + g) * kLdF + n0 + 8 * j + 2 * t;
@@ -376,7 +292,7 @@ __device__ __forceinline__ void tile_gemm_smem(const bf16* A, uint32_t Bs, float
 // dst = bf16(silu(LN(y + ybias) * (1 + scale) + shift)) over the warp's
 // ROWS rows, (scale, shift) = mod[r, 0:D], mod[r, D:2D] (global memory, row
 // stride ldmod, the AdaLN bias already added); rows at or past n_valid read
-// no mod (0).  kVpuBf16: the SiLU in bf16, as `warp_adaln_bf16`.
+// no mod (0).  kVpuBf16: the SiLU in bf16 (`silu_vpu_bf16`).
 template <int ROWS, bool kVpuBf16 = false>
 __device__ void warp_adaln_mod_bf16(const float* y, const float* ybias, const float* mod,
                                     int ldmod, int n_valid, const float* g, const float* gb,

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch.utils.flop_counter import FlopCounterMode
 
 from .diffusion import q_sample
+from .ops import _build
 from .ops.attention import fold_key_mask, linear_attention_kernel, linear_attention_plain
 from .ops.conv_block import conv_block_plain, fused_conv_block
 from .ops.conv_train import conv3x3_dkernel, conv3x3_dkernel_plain
@@ -428,14 +429,12 @@ def _check_prologue_int8(pro_args, mxu, reps, rel_tol) -> dict:
     return pro
 
 
-@torch.no_grad()
-def check_train_kernels(trainer, cond, motion, *, reps: int = 5, rel_tol: float = REL_TOL,
-                        seed: int = 0) -> list[dict]:
-    """K5 and K6 against their plain versions on the inputs of layer 0 of a
-    training forward: ``cond`` (mel, or features with ``cached_features``)
-    and ``motion`` (B, T, J, 2) on the card, seeded t and noise, the
-    denoiser's packed weights, and a seeded bf16 cotangent (zero on the pad
-    rows, as the training path gives it)."""
+def train_layer_args(trainer, cond, motion, *, seed: int = 0):
+    """K5's and K6's arguments on layer 0 of a training forward of
+    ``trainer`` on ``cond`` (mel, or features with ``cached_features``) and
+    ``motion`` (B, T, J, 2): seeded t and noise, the denoiser's packed
+    weights, and a seeded bf16 cotangent (zero on the pad rows, as the
+    training path gives it).  Returns (args, kwargs, dy, heads)."""
     cfg, model = trainer.cfg, trainer.model
     mxu = getattr(torch, cfg.denoiser.compute_dtype)
     dev = motion.device
@@ -449,18 +448,102 @@ def check_train_kernels(trainer, cond, motion, *, reps: int = 5, rel_tol: float 
     h, emb_act, xf_o = train_layer_inputs(model, cfg, x_t, t, xf_proj, xf_out)
     kvb = cross_kv_state(model.temporal_decoder_blocks[0].ca_block, xf_o).to(mxu)
     args = (h, emb_act, kvb, *pack_layer_weights(model, 0))
-    kw = dict(mxu_dtype=mxu, t_valid=n)
-    heads = cfg.denoiser.num_heads
-    results = [_compare("decoder_layer", lambda: fused_decoder_layer(*args, heads, **kw),
-                        lambda: decoder_layer_plain(*args, heads, **kw), reps, rel_tol, args)]
     dy = torch.randn(h.shape, generator=gen, device=dev) * 1e-2
     dy[:, n:] = 0
-    dy = dy.to(h.dtype)
-    results.append(_compare("decoder_layer_bwd",
-                            lambda: decoder_layer_bwd(*args, dy, heads, **kw),
-                            lambda: decoder_layer_bwd_plain(*args, dy, heads, **kw),
-                            reps, rel_tol, (args, dy)))
-    return results
+    return args, dict(mxu_dtype=mxu, t_valid=n), dy.to(h.dtype), cfg.denoiser.num_heads
+
+
+@torch.no_grad()
+def check_train_kernels(trainer, cond, motion, *, reps: int = 5, rel_tol: float = REL_TOL,
+                        seed: int = 0) -> list[dict]:
+    """K5 and K6 (`check_layer_bwd`) against their plain versions on
+    `train_layer_args`."""
+    args, kw, _, heads = train_layer_args(trainer, cond, motion, seed=seed)
+    return [_compare("decoder_layer", lambda: fused_decoder_layer(*args, heads, **kw),
+                     lambda: decoder_layer_plain(*args, heads, **kw), reps, rel_tol, args),
+            check_layer_bwd(trainer, cond, motion, reps=reps, rel_tol=rel_tol, seed=seed)]
+
+
+def launch_split(fn, reps: int = 5) -> list[tuple[str, float]]:
+    """Device ms per call of ``fn`` by launch, in launch order: [(kernel
+    name, ms)], each launch's mean over ``reps`` calls after a warm-up
+    call.  Every call must launch the same kernels: a trace that does not
+    show that (the profiler can drop records) is taken again, at most
+    twice, then raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def name(e):
+        return e.name.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0]
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+        per = len(kernels) // reps
+        names = [name(e) for e in kernels]
+        if per and len(kernels) == reps * per and all(
+                names[c * per:(c + 1) * per] == names[:per] for c in range(reps)):
+            return [(names[i], sum(kernels[c * per + i].time_range.elapsed_us()
+                                   for c in range(reps)) / 1e3 / reps) for i in range(per)]
+    raise RuntimeError(f"torch.profiler recorded {len(kernels)} kernels of {reps} calls, "
+                       "not the same launches in each")
+
+
+@torch.no_grad()
+def check_layer_bwd(trainer, cond, motion, *, reps: int = 5, rel_tol: float = REL_TOL,
+                    seed: int = 0) -> dict:
+    """K6 against its plain version on `train_layer_args` (all seven
+    gradients within ``rel_tol`` of their largest values), and: whether a
+    second call is bit-identical (``repeat_identical``, part of ``ok``),
+    its device ms a call by launch (`launch_split`), its workspace bytes,
+    and the yardsticks of its two large GEMMs, the same product in one
+    PyTorch call on operands of the same shapes in device ms (never called
+    by the port): d_adaln_w = emb^T dMod by `torch.mm` with float32 out,
+    d_emb = dMod aw^T by `torch.mm` in bf16; and the bounds of its two GEMM
+    launches (``part_bounds``): the weight-gradient A^T B (its 16 distinct
+    (B T, D) operands, emb and dMod read once, 9 D x D and E x 6D float32
+    out) and d_emb."""
+    args, kw, dy, heads = train_layer_args(trainer, cond, motion, seed=seed)
+    kernel = lambda: decoder_layer_bwd(*args, dy, heads, **kw)  # noqa: E731
+    r = _compare("decoder_layer_bwd", kernel,
+                 lambda: decoder_layer_bwd_plain(*args, dy, heads, **kw), reps, rel_tol,
+                 (args, dy))
+    first, again = kernel(), kernel()
+    r["repeat_identical"] = all(torch.equal(a, b) for a, b in zip(first, again))
+    r["ok"] &= r["repeat_identical"]
+    h, emb_act, adaln_w = args[0], args[1], args[5]
+    b, t, e = emb_act.shape
+    r["shape"] = [b, t, h.shape[-1]]
+    r["launch_split"] = launch_split(kernel, reps)
+    r["device_ms"] = sum(ms for _, ms in r["launch_split"])
+    r["workspace_bytes"] = int(_build.library().decoder_layer_backward_workspace(
+        b, t, h.shape[-1], e, heads))
+    gen = torch.Generator(device=h.device).manual_seed(seed + 1)
+    emb2 = emb_act.reshape(b * t, e).to(torch.bfloat16)
+    dmod = torch.randn((b * t, adaln_w.shape[-1]), generator=gen, device=h.device).to(torch.bfloat16)
+    aw = adaln_w.to(torch.bfloat16)
+    r["yardsticks"] = {
+        "d_adaln_w torch.mm float32 out": device_ms(
+            lambda: torch.mm(emb2.t(), dmod, out_dtype=torch.float32), reps),
+        "d_emb torch.mm bf16": device_ms(lambda: torch.mm(dmod, aw.t()), reps),
+    }
+    # the bounds of K6's two GEMM launches (`launch_split`'s second atb_kernel
+    # and demb_kernel): bf16 operands read once, float32 / bf16 outputs
+    rows, d, n6 = b * t, h.shape[-1], adaln_w.shape[-1]
+    r["part_bounds"] = {
+        "atb: 9 d_mats + d_adaln_w": _bound(
+            (16 * rows * d * 2 + rows * (e + n6) * 2 + (9 * d * d + e * n6) * 4) / HBM_BYTES_PER_S * 1e3,
+            2 * rows * (9 * d * d + e * n6) / BF16_FLOPS * 1e3),
+        "demb: d_emb": _bound(
+            (rows * (n6 + e) * 2 + e * n6 * 2) / HBM_BYTES_PER_S * 1e3,
+            2 * rows * n6 * e / BF16_FLOPS * 1e3),
+    }
+    return r
 
 
 @torch.no_grad()

@@ -4,7 +4,7 @@ Each kernel wrapper keeps a plain integer ``launches`` count, raised by one
 each time it launches its kernel on a CUDA tensor (never on the plain CPU
 path); K1 and K2 keep one more for each opt-in mode (``launches_int8``,
 ``launches_vpu_bf16``).  `launch_counts` / `reset_launch_counts` read and clear them.
-A kernel that K1 and K5 launch as one of their parts, the AdaLN GEMM, keeps
+A kernel that K1, K5 and K6 launch as one of their parts, the AdaLN GEMM, keeps
 its own count of launches, as the C entry points that launch it report
 them, which `part_launch_counts` reads.
 """

@@ -61,8 +61,9 @@ SIGNATURES = {
     # B, T, D, E, H -> workspace bytes of decoder_layer_backward
     "decoder_layer_backward_workspace": ([_I] * 5, ctypes.c_longlong),
     # x, emb, kv_cross, mats, vecs, adaln_w, adaln_b, dy, dx, demb, dkv_cross,
-    # dmats, dvecs, dadaln_w, dadaln_b, workspace, B, T, t_valid, D, E, H, stream
-    "decoder_layer_backward": ([_P] * 16 + [_I] * 6 + [_P], _I),
+    # dmats, dvecs, dadaln_w, dadaln_b, workspace, gemm_launches, B, T, t_valid,
+    # D, E, H, stream
+    "decoder_layer_backward": ([_P] * 17 + [_I] * 6 + [_P], _I),
     # x, m0, m, wt, b1, b2, fc, fcb, hbuf, gbuf, out, B, T, save, stream
     "stgcn_forward": ([_P] * 11 + [_I] * 3 + [_P], _I),
     # dy, m0, m, wt, fc, hbuf, gbuf, dh, da, dx, B, T, stream

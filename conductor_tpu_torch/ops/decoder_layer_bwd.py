@@ -14,15 +14,20 @@ weights.
 On CPU tensors `decoder_layer_bwd` is its plain version,
 `decoder_layer_bwd_plain`: `torch.autograd.grad` through
 `decoder_layer_plain`.  On CUDA tensors it launches the kernel in
-`csrc/decoder_layer_bwd.cu` (several launches, one C call) or raises.
+`csrc/decoder_layer_bwd.cu` (several launches, one C call: the AdaLN GEMM
+of `csrc/adaln_gemm.cu` among them, counted in `adaln_modulation.launches`
+as the C call reports it) or raises.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import _build
 from .decoder_layer import _check_kernel_args, decoder_layer_plain, fused_decoder_layer, kernel_weights
+from .decoder_stack import adaln_modulation
 
 
 def decoder_layer_bwd_plain(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, dy, num_heads, *,
@@ -51,20 +56,26 @@ def decoder_layer_bwd(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, dy, nu
     _build.require(x, "x", bf, (b, t, d))
     _build.require(emb_act, "emb_act", bf, (b, t, e))
     _build.require(kv_cross, "kv_cross", bf, (b, d, d))
+    _build.require_aligned(x=x, emb_act=emb_act, mats=wm, adaln_w=wa, dy=dy)
     lib = _build.library()
-    workspace = torch.empty(lib.decoder_layer_backward_workspace(b, t, d, e, num_heads),
-                            dtype=torch.uint8, device=x.device)
+    ws_bytes = lib.decoder_layer_backward_workspace(b, t, d, e, num_heads)
+    if ws_bytes < 0:
+        raise ValueError(f"decoder_layer_bwd: the kernel does not take D={d}, E={e}, H={num_heads}")
+    workspace = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device)
     dx, demb, dkvc = torch.empty_like(x), torch.empty_like(emb_act), torch.empty_like(kv_cross)
     dmats = torch.empty((9, d, d), dtype=f32, device=x.device)
     dvecs = torch.empty((24, d), dtype=f32, device=x.device)
     daw = torch.empty((e, 6 * d), dtype=f32, device=x.device)
     dab = torch.empty((6 * d,), dtype=f32, device=x.device)
+    gemm_launches = ctypes.c_int(0)
     err = lib.decoder_layer_backward(
         x.data_ptr(), emb_act.data_ptr(), kv_cross.data_ptr(), wm.data_ptr(), wv.data_ptr(),
         wa.data_ptr(), wb.data_ptr(), dy.data_ptr(), dx.data_ptr(), demb.data_ptr(),
         dkvc.data_ptr(), dmats.data_ptr(), dvecs.data_ptr(), daw.data_ptr(), dab.data_ptr(),
-        workspace.data_ptr(), b, t, t_valid, d, e, num_heads, _build.stream(),
+        workspace.data_ptr(), ctypes.addressof(gemm_launches), b, t, t_valid, d, e, num_heads,
+        _build.stream(),
     )
+    adaln_modulation.launches += gemm_launches.value
     _build.check(err, "decoder_layer_backward")
     decoder_layer_bwd.launches += 1
     return (dx, demb, dkvc, dmats.to(mats.dtype), dvecs.to(vecs.dtype), daw.to(adaln_w.dtype),

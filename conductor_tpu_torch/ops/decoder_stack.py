@@ -116,7 +116,7 @@ def adaln_modulation(emb_act, adaln_w, adaln_b, *, mxu_dtype=torch.float32, emb_
     """The AdaLN modulation of stacked layers, ``emb_act`` (..., E) with
     ``adaln_w`` (L, E, N), ``adaln_b`` (L, N) (and ``adaln_w_scale`` (L, 1,
     N)) -> (..., L N) float32: the plain version on a CPU tensor, on a CUDA
-    tensor the GEMM that K1 (all its layers in one launch) and K5 run
+    tensor the GEMM that K1 (all its layers in one launch), K5 and K6 run
     before their row passes (bf16 operands, or int8 codes with their
     scales; float32 sums and output)."""
     int8 = adaln_w_scale is not None
@@ -151,7 +151,7 @@ def adaln_modulation(emb_act, adaln_w, adaln_b, *, mxu_dtype=torch.float32, emb_
 
 
 # the GEMM's launches, as the C entry points that launch it (this wrapper's,
-# K1's and K5's) report them
+# K1's, K5's and K6's) report them
 adaln_modulation.launches = 0
 
 

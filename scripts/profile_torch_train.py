@@ -4,7 +4,7 @@ card: stage 2's `DDPMTrainer.train_step`, or with ``--m2snet`` stage 1's
 `M2SNetTrainer.train_step`.
 
     python3 scripts/profile_torch_train.py [--impl pallas_fused|flax] [--feat auto|flax|pallas]
-                                           [--cached] [--mask]
+                                           [--cached] [--mask] [--tree DIR]
     python3 scripts/profile_torch_train.py --m2snet [--impl pallas_fused|flax] [--share]
 
 Flagship configuration (D = 128, 8 layers, E = 512) on synthetic weights,
@@ -21,7 +21,14 @@ time per step without and under the profiler, the device time per step (the
 sum of the kernels' times), the device's busy share of the wall time under
 the profiler, the perceptual term alone (its latents of pred and target and
 its backward to pred, CUDA events, on pred and target of a training
-forward), and the kernels by total device time.
+forward), and the kernels by total device time.  On the kernel path it
+also splits K6's device time a step by kernel (`k6_split`: the kernels
+launched inside each `decoder_layer_bwd` call, which the script wraps in
+a `torch.profiler.record_function` range), and times one K6 call alone on
+layer 0's inputs of a training forward at the step's shape (B = 32, T =
+900 padded to 960): CUDA-event ms a call, device ms a call by kernel, and
+its workspace bytes.  ``--tree`` profiles the port in another checkout (a
+parent commit unpacked by `git archive`), which builds its own kernels.
 
 ``--m2snet``: the stage-1 step at the reference batch, B = 10 samples of
 30 s (2700 mel / 900 motion frames), 10-s crops, strategy "hard", starts
@@ -36,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
 import subprocess
 import time
 from pathlib import Path
@@ -46,13 +54,14 @@ from torch.profiler import ProfilerActivity, profile
 
 REPO = Path(__file__).resolve().parents[1]
 STEPS = 2  # profiled steps, after two warm-up steps
+K6_RANGE = "K6 decoder_layer_bwd"  # the profiler range around each K6 call
 
 
-def profile_steps(step) -> tuple[float, float, float, str, dict]:
+def profile_steps(step) -> tuple[float, float, float, str, dict, dict]:
     """Two warm-up calls of ``step``, then STEPS timed, then STEPS under
     `torch.profiler`: (wall ms per step without the profiler, under it,
     device ms per step, the kernels table, {kernel name: (device ms, launches)
-    per step})."""
+    per step}, `k6_split` per step)."""
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -69,14 +78,124 @@ def profile_steps(step) -> tuple[float, float, float, str, dict]:
         wall = (time.perf_counter() - t0) / STEPS
     # device time: the kernels themselves (the CPU-side ops that launched
     # them carry the same time again)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.name != K6_RANGE]
     device = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / STEPS
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=30)
     by_name: dict[str, tuple[float, float]] = {}
     for e in kernels:
         ms, n = by_name.get(e.name, (0.0, 0.0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3 / STEPS, n + 1 / STEPS)
-    return wall_plain * 1e3, wall * 1e3, device, table, by_name
+    return wall_plain * 1e3, wall * 1e3, device, table, by_name, k6_split(prof, STEPS)
+
+
+def _short(name: str) -> str:
+    """A kernel's name without its return type, namespace and arguments."""
+    return name.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0]
+
+
+def k6_split(prof, calls: int) -> dict[str, tuple[float, float]]:
+    """{kernel: (device ms, launches)} per call of the kernels that ran on
+    the card inside the K6_RANGE ranges of ``prof`` (the profiler marks each
+    range on the device timeline too), divided by ``calls``."""
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    windows = [(e.time_range.start, e.time_range.end) for e in dev if e.name == K6_RANGE]
+    out: dict[str, tuple[float, float]] = {}
+    for e in dev:
+        if e.name != K6_RANGE and any(a <= e.time_range.start and e.time_range.end <= b
+                                      for a, b in windows):
+            ms, n = out.get(_short(e.name), (0.0, 0.0))
+            out[_short(e.name)] = (ms + e.time_range.elapsed_us() / 1e3 / calls, n + 1 / calls)
+    return out
+
+
+def wrap_k6_in_range() -> None:
+    """Put each K6 call (`ops.decoder_layer_bwd.decoder_layer_bwd`, which the
+    training layer's backward looks up in its module) in a K6_RANGE range;
+    its launch count moves to the wrapper."""
+    mod = importlib.import_module("conductor_tpu_torch.ops.decoder_layer_bwd")
+    inner = mod.decoder_layer_bwd
+
+    def wrapped(*args, **kw):
+        with torch.profiler.record_function(K6_RANGE):
+            return inner(*args, **kw)
+
+    wrapped.launches = 0
+    mod.decoder_layer_bwd = wrapped
+
+
+def _split_text(split: dict[str, tuple[float, float]]) -> str:
+    total = sum(ms for ms, _ in split.values())
+    parts = "; ".join(f"{name} {ms:.4f} ms x {n:g}" for name, (ms, n)
+                      in sorted(split.items(), key=lambda kv: -kv[1][0]))
+    return f"{total:.4f} ms: {parts}" if split else "not measured (the trace linked no kernels)"
+
+
+def k6_alone(tr, cond, motion, smi: str) -> str:
+    """One K6 call on layer 0's inputs of a training forward of ``tr`` on
+    ``cond`` and ``motion`` (seeded t and noise, a seeded cotangent zero on
+    the pad rows, as `kernel_checks.check_train_kernels` builds them): its
+    CUDA-event ms a call, device ms a call by kernel and workspace bytes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from conductor_tpu_torch.diffusion import q_sample
+    from conductor_tpu_torch.kernel_checks import time_ms
+    from conductor_tpu_torch.ops import _build
+    from conductor_tpu_torch.train.fused_denoiser import (
+        cross_kv_state,
+        pack_layer_weights,
+        train_layer_inputs,
+    )
+
+    cfg, model = tr.cfg, tr.model
+    b, n = motion.shape[0], motion.shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        t = torch.randint(0, tr.sched.num_timesteps, (b,), generator=gen, device="cuda")
+        x0 = motion.reshape(b, n, -1)
+        x_t = q_sample(tr.train_sched, x0, t, torch.randn(x0.shape, generator=gen, device="cuda"))
+        encode = model.cond_from_features if cfg.train.cached_features else model.encode_music
+        h, emb_act, xf_o = train_layer_inputs(model, cfg, x_t, t, *encode(cond))
+        kvb = cross_kv_state(model.temporal_decoder_blocks[0].ca_block, xf_o).to(h.dtype)
+        args = (h, emb_act, kvb, *pack_layer_weights(model, 0))
+        dy = torch.randn(h.shape, generator=gen, device="cuda") * 1e-2
+        dy[:, n:] = 0
+        dy = dy.to(h.dtype)
+    heads = cfg.denoiser.num_heads
+
+    def call():
+        return importlib.import_module("conductor_tpu_torch.ops.decoder_layer_bwd").decoder_layer_bwd(
+            *args, dy, heads, mxu_dtype=h.dtype, t_valid=n)
+
+    ms = time_ms(call, 10)
+    call()
+    torch.cuda.synchronize()
+    # by launch, in launch order (a parent tree's kernel_checks may lack
+    # `launch_split`, so the script keeps its own); a trace that dropped
+    # records is taken again, at most twice
+    split = None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+        launches = sorted((e for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA),
+                          key=lambda e: e.time_range.start)
+        per = len(launches) // 5
+        names = [_short(e.name) for e in launches]
+        if per and len(launches) == 5 * per and all(names[c * per:(c + 1) * per] == names[:per]
+                                                    for c in range(5)):
+            split = [(names[i], sum(launches[c * per + i].time_range.elapsed_us()
+                                    for c in range(5)) / 1e3 / 5) for i in range(per)]
+            break
+    tp, d = h.shape[1], h.shape[2]
+    ws = _build.library().decoder_layer_backward_workspace(b, tp, d, emb_act.shape[-1], heads)
+    by_launch = ("not measured (the profiler dropped records)" if split is None else
+                 f"{sum(t for _, t in split):.4f} ms by launch: "
+                 + "; ".join(f"{k} {t:.4f}" for k, t in split))
+    return (f"K6 alone, B={b} T={n} (padded {tp}): {ms:.4f} ms a call (CUDA events), device "
+            f"{by_launch}; workspace {ws} bytes, on {smi}")
 
 
 def _smi() -> str:
@@ -107,7 +226,7 @@ def main_m2snet(args) -> None:
         return float(tr.train_step(music, motion, "hard",
                                    starts=(s1, int(rng.randint(s1 + 300, (s - c) * 30))))["loss"])
 
-    wall_plain, wall, device, table, by_name = profile_steps(step)
+    wall_plain, wall, device, table, by_name, _ = profile_steps(step)
     k9 = [v for name, v in by_name.items() if "dkernel" in name]
     print("\n".join([
         f"stage-1 M2SNet step, {tr.compute_dtype} / {tr.music_conv_impl}, share_encodes "
@@ -126,12 +245,14 @@ def main() -> None:
     ap.add_argument("--mask", action="store_true")
     ap.add_argument("--m2snet", action="store_true")
     ap.add_argument("--share", action="store_true")
+    ap.add_argument("--tree", type=Path, default=REPO)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: needs a CUDA card")
     import sys
 
-    sys.path.insert(0, str(REPO))
+    sys.path.insert(0, str(args.tree.resolve()))
+    print(f"tree {args.tree.resolve()}")
     # the plain paths are float32: no TF32 in cuBLAS or cuDNN
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -151,6 +272,9 @@ def main() -> None:
                                                   compute_dtype="float32"),
                           train=dataclasses.replace(cfg.train, feat_impl="flax"))
     tr = DDPMTrainer(cfg, device="cuda")
+    kernel_path = tr.cfg.denoiser.train_layer_impl == "pallas_fused"
+    if kernel_path:
+        wrap_k6_in_range()
     tr.load_reference_state_dict(synthetic_state_dict(tr.model, seed=0),
                                  motion_encoder=synthetic_motion_encoder_state_dict(tr.feat_model))
     rng = np.random.RandomState(0)
@@ -166,7 +290,7 @@ def main() -> None:
     def step():
         return float(tr.train_step(mel, motion, m_lens, generator=gen)["loss"])
 
-    wall_plain, wall, device, table, by_name = profile_steps(step)
+    wall_plain, wall, device, table, by_name, k6 = profile_steps(step)
     pred, target, _ = perceptual_inputs(tr, mel, motion)
 
     def perceptual():
@@ -182,6 +306,8 @@ def main() -> None:
         f"{_times(wall_plain, wall, device)}; perceptual term {feat_ms:.2f} ms (CUDA events)",
         *(f"{name}: {ms:.4f} ms device, {n:g} launches per step" for name, (ms, n)
           in sorted(by_name.items()) if "attention_" in name),  # K8's two kernels
+        *([f"K6 a step: device {_split_text(k6)}", k6_alone(tr, mel, motion, _smi())]
+          if kernel_path else []),
         table]))
 
 

@@ -9,8 +9,9 @@ K2's int8 output at whole and ragged tiles, generate under bench.py's
 serving config, the int8 wrappers raising on what their kernels do not
 take, a float32 stage-1 step with torch's TF32 defaults against the
 CPU (the entry points turn TF32 off), K1's AdaLN GEMM alone in bf16
-and int8 at four row counts, 8 layers at once as K1 launches it, and the
-GEMM launches that K1 and K5 report.  Skips
+and int8 at four row counts, 8 layers at once as K1 launches it, the
+GEMM launches that K1, K5 and K6 report, and K6 alone at B = 1 and 5, at a
+ragged t_valid, repeating bit for bit.  Skips
 without a CUDA card; on one, run it with
 ``python -m pytest --noconftest tests/test_torch_port_cuda.py``.
 ``chip_smoke.py`` makes the same checks at the flagship size."""
@@ -42,6 +43,8 @@ from conductor_tpu_torch.kernel_checks import (
 )
 from conductor_tpu_torch.ops import (
     conv3x3_dkernel,
+    decoder_layer_bwd,
+    decoder_layer_bwd_plain,
     linear_attention_kernel,
     fused_conv_block,
     fused_decoder_layer,
@@ -330,6 +333,60 @@ def test_k1_and_k5_count_the_gemm_launches_they_make():
     torch.cuda.synchronize()
     assert part_launch_counts()["adaln_modulation"] == 2
     assert launch_counts()["decoder_layer"] == launch_counts()["decoder_stack"] == 1
+
+
+def _layer_operands(b, t, t_valid, gen):
+    """K6's operands for one layer at the flagship widths (D = 128, 8 heads,
+    E = 512): bf16 x, emb and block-diagonal kv_cross, the weight banks, and
+    a cotangent zero past ``t_valid``."""
+    seg = (torch.arange(128, device="cuda")[:, None] // 16
+           == torch.arange(128, device="cuda")[None, :] // 16).float()
+    vecs = _rand(24, 128, gen=gen) * 0.3
+    vecs[[0, 5, 8, 11, 16]] += 1.0
+    bf = torch.bfloat16
+    args = (_rand(b, t, 128, gen=gen).to(bf), _rand(b, t, 512, gen=gen).to(bf),
+            (_rand(b, 128, 128, gen=gen) * 0.3 * seg).to(bf), _rand(9, 128, 128, gen=gen) * 0.1,
+            vecs, _rand(512, 768, gen=gen) * 0.05, _rand(768, gen=gen) * 0.1)
+    dy = _rand(b, t, 128, gen=gen) * 0.1
+    dy[:, t_valid:] = 0
+    return args, dy.to(bf)
+
+
+@pytest.mark.parametrize("b,t,t_valid", [(1, 128, 100), (5, 128, 100), (5, 192, 192)])
+def test_layer_bwd_matches_plain(b, t, t_valid):
+    """K6 at B = 1 and 5, at a ragged t_valid (100 of 128 rows) and at whole
+    tiles: each of its seven gradients within 2 % of the plain version's
+    largest value of that gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(b * t + t_valid)
+    args, dy = _layer_operands(b, t, t_valid, gen)
+    kw = dict(mxu_dtype=torch.bfloat16, t_valid=t_valid)
+    got = decoder_layer_bwd(*args, dy, 8, **kw)
+    want = decoder_layer_bwd_plain(*args, dy, 8, **kw)
+    for name, g, w in zip(("dx", "demb", "dkvc", "dmats", "dvecs", "daw", "dab"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        scale = float(w.float().abs().max())
+        assert scale > 0 and float((g.float() - w.float()).abs().max()) <= 0.02 * scale, name
+
+
+def test_layer_bwd_repeats_bit_for_bit_and_counts_its_gemm():
+    """Two K6 calls on the same inputs give bit-identical gradients (every
+    sum runs in a fixed order); each call counts one launch of K6 and one
+    of the AdaLN GEMM it launches, as its C entry point reports it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    args, dy = _layer_operands(4, 960, 900, gen)
+    reset_launch_counts()
+    first = decoder_layer_bwd(*args, dy, 8, mxu_dtype=torch.bfloat16, t_valid=900)
+    torch.cuda.synchronize()
+    assert part_launch_counts()["adaln_modulation"] == 1
+    assert launch_counts()["decoder_layer_bwd"] == 1
+    again = decoder_layer_bwd(*args, dy, 8, mxu_dtype=torch.bfloat16, t_valid=900)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    assert part_launch_counts()["adaln_modulation"] == 2
 
 
 @pytest.mark.parametrize("m", [100, 1800, 3600, 14400])
