@@ -21,7 +21,9 @@ Phases, one line each (the kernel checks one line per kernel):
      time beside torch.matmul in bf16 or torch._int_mm on the same
      product; K1's three modes and its GEMM again at B = 8, the
      headline's batch, and K1's device time split by launch at B = 2 and
-     8, the `[k1-split]` lines), and the
+     8, the `[k1-split]` lines; K4 on each of the encoder's 7 blocks at
+     B = 2 and again at B = 8, each call's time printed and a repeat
+     bit-identical), and the
      training layer kernels K5 (forward) and K6 (backward, seven
      gradients) on layer 0 of
      a training forward at B = 4 windows of 30 s (T = 900,
@@ -33,7 +35,9 @@ Phases, one line each (the kernel checks one line per kernel):
      one training forward at B = 32, T = 900, bf16 operands on both sides;
      and the stage-1 music encoder's kernels, K9 (each 3x3 conv's
      d(kernel)), K10 and K11 (each pool's forward and first-max backward)
-     and K4 in its training modes, on the inputs and cotangents of their
+     and K4 in its training modes (each call beside cuDNN's bf16
+     `F.conv2d` on the same operands, a repeat bit-identical), on the
+     inputs and cotangents of their
      calls in one train-mode forward and backward of a stage-1 step at
      B = 10 with 10-s crops (900 mel, 300 motion frames), bf16 on both
      sides; and K8, the standalone linear attention, at the shapes of its
@@ -137,7 +141,7 @@ KERNEL_SOURCES = {
     "stgcn_backward": ("conductor_tpu_torch/csrc/stgcn.cu", "conductor_tpu/ops/pallas_stgcn.py:280"),
     "conv3x3_dkernel": ("conductor_tpu_torch/csrc/conv_train.cu",
                         "conductor_tpu/ops/conv_train.py:104"),
-    "max_pool": ("conductor_tpu_torch/csrc/conv_block.cu", "conductor_tpu/ops/pallas_pool.py:163"),
+    "max_pool": ("conductor_tpu_torch/csrc/max_pool.cu", "conductor_tpu/ops/pallas_pool.py:163"),
     "max_pool_bwd": ("conductor_tpu_torch/csrc/max_pool.cu", "conductor_tpu/ops/pallas_pool.py:352"),
     "linear_attention": ("conductor_tpu_torch/csrc/linear_attention.cu",
                          "conductor_tpu/ops/pallas_attention.py:152"),
@@ -192,6 +196,7 @@ def main() -> int:
     )
     from conductor_tpu_torch.kernel_checks import (
         check_attention_kernel,
+        check_conv_blocks,
         check_kernels,
         check_layer_bwd,
         check_stack_kernels,
@@ -290,6 +295,7 @@ def main() -> int:
     noise_b8 = torch.from_numpy(rng8.normal(size=(8, 1800, 26)).astype(np.float32)).cuda()
     step_b8 = ladder_step_inputs(kernel_tr, mel_b8, noise_b8)[:2]
     results += check_stack_kernels(kernel_tr, *step_b8, suffix="_b8")
+    results.append(check_conv_blocks(kernel_tr.fused_encoder, mel_b8) | {"name": "conv_block_b8"})
     for label, (m, x_t) in (("B=2", (mel, noise)), ("B=8", (mel_b8, noise_b8))):
         ops = stack_operands(kernel_tr, *ladder_step_inputs(kernel_tr, m, x_t)[:2])
         for mode in K1_MODES:
@@ -357,9 +363,20 @@ def main() -> int:
                   f"(must be <= a quarter of the mean move)")
         for c in r.get("calls", []):
             lib = "none" if c["library_ms"] is None else f"{c['library_ms']:.4f} ms"
-            print(f"[kernel]   {r['name']} {c.get('shape', '')}: err {c['max_abs_err']:.6g} "
-                  f"(max {c['ref_max_abs']:.6g}) kernel {c['ms']:.4f} ms "
-                  f"plain {c['plain_ms']:.4f} ms bound {c['bound_ms']:.4f} ms library {lib}")
+            extra = ""
+            if "repeat_identical" in c:  # K4: beside its library call, a repeat
+                if c["library_ms"] is not None:
+                    extra = f" (kernel no slower: {c['ms'] <= c['library_ms']})"
+                extra += f"; repeat bit-identical {c['repeat_identical']}"
+            edge = f" {c['edge']}" if "edge" in c else ""
+            print(f"[kernel]   {r['name']} {c.get('shape', '')}{edge}: err {c['max_abs_err']:.6g} "
+                  f"(max {c['ref_max_abs']:.6g}) kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} "
+                  f"ms bound {c['bound_ms']:.4f} ms library {lib}{extra}")
+        if r["name"].startswith("conv_block"):
+            lib = "" if r["library_ms"] is None else (
+                f"; library {r['library_ms']:.4f} ms, device {r['library_device_ms']:.4f} ms")
+            print(f"[k4] {r['name']}: {len(r['calls'])} calls, {r['ms']:.4f} ms by CUDA events, "
+                  f"device {r['device_ms']:.4f} ms{lib} ({smi})")
     failed = [r["name"] for r in results if not r["ok"]]
     if failed:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failed}")
@@ -581,7 +598,7 @@ def main() -> int:
 
     kernels = []
     for r in results:
-        if r["name"] not in KERNEL_SOURCES:  # conv_block_train: K4's modes, reported above
+        if r["name"] not in KERNEL_SOURCES:  # K4's training modes and B = 8, reported above
             continue
         source, replaces = KERNEL_SOURCES[r["name"]]
         kernels.append({

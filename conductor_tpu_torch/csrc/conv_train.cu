@@ -56,6 +56,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "conv_tile.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -69,29 +70,14 @@ constexpr int kMaxTileRows = 16;
 constexpr int kMinTiles = 4;      // tiles a block pipelines at least
 constexpr int kReduceRuns = 8;    // runs of blocks the second launch sums apart
 
-__device__ __forceinline__ int reflect(int i, int n) {
-  if (i < 0) i = -i;
-  if (i >= n) i = 2 * (n - 1) - i;
-  return i;
-}
-
-// 16-byte unit of chunk c of pixel p in a tile of CH chunks a pixel: the
-// chunks of 8 consecutive pixels land in 8 distinct units mod 8 (bank groups).
-template <int CH>
-__device__ __forceinline__ int swz(int p, int c) {
-  return p * CH + (c ^ ((p / (8 / CH)) & (CH - 1)));
-}
-
+using convt::cp_async16;
+using convt::reflect;
+using convt::swz;
 using tc::cp_async_commit;
 using tc::cp_async_wait;
 using tc::ldmatrix_x4_trans;
 using tc::mma_bf16;
 using tc::smem_addr;
-
-// 16 bytes from global to shared memory, or 16 zero bytes if !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  tc::cp_async16(smem_addr(dst), src, valid);
-}
 
 // A fragment (16 channels c0 .. c0 + 15 x pixels p .. p + 15) of a
 // pixel-major swizzled tile of CH chunks a pixel, as mma's row-major A:

@@ -1,6 +1,13 @@
-// K11: the backward of the music encoder's max-pool, first-max routing.
+// K10 and K11: the music encoder's trainable max-pool, forward and its
+// first-max backward.
 //
-// Replaces conductor_tpu/ops/pallas_pool.py::_make_pool_op's backward
+// K10 replaces conductor_tpu/ops/pallas_pool.py::fused_max_pool (pallas_call
+// at :191): the window maxima with -inf padding, one thread an output
+// element, on the bf16 input (the training path's pool after BatchNorm;
+// the serving blocks pool in K4's epilogue, conv_block.cu).  Bytes bound it:
+// it reads x (within a window from L1 / L2 again) and writes the output once.
+//
+// K11 replaces conductor_tpu/ops/pallas_pool.py::_make_pool_op's backward
 // (kernel `_pool_bwd_kernel`, pallas_call at :386).  The whole cotangent of
 // each output window goes to ONE input position, chosen by the JAX kernel's
 // tie rule (`pallas_pool.py:219-232, 277-343`): the first freq tap, in
@@ -11,7 +18,7 @@
 // plateaus are common, so the routing is written out here.
 //
 // Layout: x (B, T, F, C) and dx bf16 NHWC, dy (B, To, Fo, C) bf16; window,
-// stride and padding as `max_pool_forward` (conv_block.cu) takes them.
+// stride and padding as `max_pool_forward` takes them.
 //
 // What bounds it on an H100: bytes.  It reads x once (and, within a window,
 // from L1/L2 again), dy once, and writes dx once; no arithmetic to speak of.
@@ -25,6 +32,31 @@
 #include "common.cuh"
 
 namespace {
+
+// Max-pool with -inf padding: every window holds at least one real element.
+__global__ void max_pool_kernel(const bf16* __restrict__ y, bf16* __restrict__ out,
+                                int B, int T, int F, int C, int To, int Fo,
+                                int wt, int wf, int st, int sf, int pt, int pf) {
+  const size_t n = (size_t)B * To * Fo * C;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int c = i % C;
+    const int fo = (i / C) % Fo;
+    const int to = (i / ((size_t)C * Fo)) % To;
+    const int b = i / ((size_t)C * Fo * To);
+    float m = -CUDART_INF_F;
+    for (int dt = 0; dt < wt; ++dt) {
+      const int t = to * st - pt + dt;
+      if (t < 0 || t >= T) continue;
+      for (int df = 0; df < wf; ++df) {
+        const int f = fo * sf - pf + df;
+        if (f < 0 || f >= F) continue;
+        m = fmaxf(m, __bfloat162float(y[(((size_t)b * T + t) * F + f) * C + c]));
+      }
+    }
+    out[i] = __float2bfloat16(m);
+  }
+}
 
 __global__ void pool_winner_kernel(const bf16* __restrict__ x, int* __restrict__ win, int B,
                                    int T, int F, int C, int To, int Fo, int wt, int wf, int st,
@@ -97,7 +129,17 @@ int grid_for(size_t n) {
 
 }  // namespace
 
-// winner: int32 scratch of dy's shape.
+// K10: y (B, T, F, C) -> out (B, To, Fo, C).
+CT_EXPORT int max_pool_forward(const void* y, void* out, int B, int T, int F, int C, int To,
+                               int Fo, int wt, int wf, int st, int sf, int pt, int pf,
+                               void* stream) {
+  max_pool_kernel<<<grid_for((size_t)B * To * Fo * C), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(y), static_cast<bf16*>(out), B, T, F, C, To, Fo, wt, wf, st, sf,
+      pt, pf);
+  return (int)cudaGetLastError();
+}
+
+// K11.  winner: int32 scratch of dy's shape.
 CT_EXPORT int max_pool_backward(const void* x, const void* dy, void* winner, void* dx, int B,
                                 int T, int F, int C, int To, int Fo, int wt, int wf, int st,
                                 int sf, int pt, int pf, void* stream) {

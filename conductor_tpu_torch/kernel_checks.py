@@ -7,15 +7,17 @@ on the card, rebuilds the first ladder step's kernel inputs from them
 serving kernel (K1-K4) and its plain version on the same inputs, K1 in
 its bf16-VPU mode too, and K2 and K1 in the int8-AdaLN mode on the int8
 operands of that step, with K1's AdaLN GEMM alone in both its modes at
-the shape K1 launches it (`check_stack_kernels`, which also runs alone at
-other batch sizes); `device_ms` reads device time from `torch.profiler`,
+the shape K1 launches it (`check_stack_kernels`), and K4 on the encoder's
+7 blocks, a repeat bit-identical (`check_conv_blocks`); both also run alone
+at other batch sizes.  `device_ms` reads device time from `torch.profiler`,
 by kernel name (`k1_launch_split`: K1's device time by launch).
 `check_train_kernels` does the same for the training layer kernels (K5,
 K6) on layer 0 of a training forward, `check_stgcn_kernels` for K7 on
 the perceptual term's inputs (`perceptual_inputs`), and
 `check_stage1_kernels` for the stage-1 music encoder's kernels (K9, K10,
-K11, and K4 in its training modes) on the inputs and cotangents of its
-calls in one train-mode forward and backward (`stage1_kernel_inputs`), and
+K11, and K4 in its training modes, beside cuDNN's `F.conv2d`) on the
+inputs and cotangents of its calls in one train-mode forward and
+backward (`stage1_kernel_inputs`), and
 `check_attention_kernel` for K8 on q, k and v as its wrapper hands them
 over, the key mask folded in.  For
 each kernel it reports the largest absolute difference, the largest
@@ -33,6 +35,7 @@ Used by ``chip_smoke.py`` at the flagship shapes and by
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -78,6 +81,10 @@ VPU_REL_TOL = 0.002
 # takes bf16 operands but K1's int8 AdaLN product, priced at the int8 rate
 # so that quantization cannot flatter the bound (as JAX's utils/flops.py
 # prices it at the int8 peak)
+# traces `device_ms` and `launch_split` take before they give up on a
+# profiler that keeps dropping records (3 did not do on an H100: a
+# chip_smoke run died there on K1's int8 GEMM)
+PROFILE_TRIES = 10
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
@@ -174,20 +181,10 @@ def _merge(name: str, calls: list[dict]) -> dict:
 
 @torch.no_grad()
 def check_kernels(trainer, mel, noise, *, reps: int = 5, rel_tol: float = REL_TOL) -> list[dict]:
-    fused, encoder = trainer.fused, trainer.fused_encoder
+    fused = trainer.fused
     mxu = fused.mxu_dtype
     results = []
-
-    # K4: every encoder block on the activations the plain chain gives it
-    x = mel.to(encoder.mxu_dtype)[..., None]
-    blocks = []
-    for kw in encoder.block_args:
-        blocks.append(_compare("conv_block", lambda: fused_conv_block(x, mxu_dtype=mxu, **kw),
-                               lambda: conv_block_plain(x, mxu_dtype=mxu, **kw), reps, rel_tol,
-                               (x, kw)) | {"shape": list(x.shape)})
-        x = conv_block_plain(x, mxu_dtype=mxu, **kw)
-    conv = _merge("conv_block", blocks)
-
+    conv = check_conv_blocks(trainer.fused_encoder, mel, reps=reps, rel_tol=rel_tol)
     pro_args, cond, step = ladder_step_inputs(trainer, mel, noise)
     pro_kw = dict(mxu_dtype=mxu, emb_dtype=mxu)
     results.append(_compare("sampler_prologue", lambda: sampler_prologue(*pro_args, **pro_kw),
@@ -206,6 +203,47 @@ def check_kernels(trainer, mel, noise, *, reps: int = 5, rel_tol: float = REL_TO
                             reps, rel_tol, epi_args))
     results.append(conv)
     return results
+
+
+def _repeat(r: dict, kernel_fn) -> dict:
+    """``r`` with ``repeat_identical``: whether two more calls of
+    ``kernel_fn`` give the same bits (part of ``ok``)."""
+    first, again = kernel_fn(), kernel_fn()
+    pairs = zip(first, again) if isinstance(first, (tuple, list)) else [(first, again)]
+    r["repeat_identical"] = all(torch.equal(a, b) for a, b in pairs)
+    r["ok"] &= r["repeat_identical"]
+    return r
+
+
+def _device_totals(r: dict, kernel_fns, library_fns=None, reps: int = 5) -> dict:
+    """Merged K4 result ``r`` with ``device_ms``, the device ms of all its
+    calls ``kernel_fns`` (`launch_split` over them in one trace), and
+    ``library_device_ms``, that of ``library_fns`` (`device_ms`): the
+    CUDA-event times of calls this short also hold the host's cost of a
+    call."""
+    r["device_ms"] = sum(ms for _, ms in launch_split(lambda: [fn() for fn in kernel_fns], reps))
+    if library_fns is not None:
+        r["library_device_ms"] = device_ms(lambda: [fn() for fn in library_fns], reps)
+    return r
+
+
+@torch.no_grad()
+def check_conv_blocks(encoder, mel, *, reps: int = 5, rel_tol: float = REL_TOL) -> dict:
+    """K4 on each block of ``encoder`` (a `FusedMusicEncoder`), each on the
+    activations the plain chain gives it from ``mel``, against its plain
+    version, a repeat bit-identical: one result over the 7 calls, each in
+    ``calls``."""
+    mxu = encoder.mxu_dtype
+    x = mel.to(mxu)[..., None]
+    blocks, kernels = [], []
+    for kw in encoder.block_args:
+        kernel = functools.partial(fused_conv_block, x, mxu_dtype=mxu, **kw)
+        blocks.append(_repeat(_compare(
+            "conv_block", kernel, lambda: conv_block_plain(x, mxu_dtype=mxu, **kw), reps, rel_tol,
+            (x, kw)) | {"shape": list(x.shape)}, kernel))
+        kernels.append(kernel)
+        x = conv_block_plain(x, mxu_dtype=mxu, **kw)
+    return _device_totals(_merge("conv_block", blocks), kernels, reps=reps)
 
 
 @torch.no_grad()
@@ -324,12 +362,13 @@ def device_ms(fn, reps: int = 5, parts: dict[str, str] | None = None):
     calls after a warm-up call: the sum over every kernel it launched, or
     with ``parts`` ({part: text in a kernel's name}) a dict of each part's
     sum.  A trace that holds fewer kernels than calls (the profiler can
-    drop a trace's records) is taken again, at most twice, then raises."""
+    drop a trace's records) is taken again, up to PROFILE_TRIES traces in
+    all, then raises."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -468,8 +507,8 @@ def launch_split(fn, reps: int = 5) -> list[tuple[str, float]]:
     """Device ms per call of ``fn`` by launch, in launch order: [(kernel
     name, ms)], each launch's mean over ``reps`` calls after a warm-up
     call.  Every call must launch the same kernels: a trace that does not
-    show that (the profiler can drop records) is taken again, at most
-    twice, then raises."""
+    show that (the profiler can drop records) is taken again, up to
+    PROFILE_TRIES traces in all, then raises."""
     from torch.profiler import ProfilerActivity, profile
 
     def name(e):
@@ -477,7 +516,7 @@ def launch_split(fn, reps: int = 5) -> list[tuple[str, float]]:
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -513,9 +552,7 @@ def check_layer_bwd(trainer, cond, motion, *, reps: int = 5, rel_tol: float = RE
     r = _compare("decoder_layer_bwd", kernel,
                  lambda: decoder_layer_bwd_plain(*args, dy, heads, **kw), reps, rel_tol,
                  (args, dy))
-    first, again = kernel(), kernel()
-    r["repeat_identical"] = all(torch.equal(a, b) for a, b in zip(first, again))
-    r["ok"] &= r["repeat_identical"]
+    _repeat(r, kernel)
     h, emb_act, adaln_w = args[0], args[1], args[5]
     b, t, e = emb_act.shape
     r["shape"] = [b, t, h.shape[-1]]
@@ -653,6 +690,18 @@ def _library_dkernel(x, dy):
     return lambda: torch.nn.grad.conv2d_weight(xe, shape, dyn)
 
 
+def _library_conv(x, kernel, edge):
+    """cuDNN's conv of the same operands, `F.conv2d` in bf16 channels_last:
+    on the reflect-padded input made outside the timed call, or with
+    ``padding=1`` for the zero edge."""
+    w = kernel.to(x.dtype).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    xn = x.permute(0, 3, 1, 2)  # NHWC storage is channels_last
+    if edge == "zero":
+        return lambda: F.conv2d(xn, w, padding=1)
+    xe = F.pad(xn, (1, 1, 1, 1), mode="reflect").contiguous(memory_format=torch.channels_last)
+    return lambda: F.conv2d(xe, w)
+
+
 @torch.no_grad()
 def check_stage1_kernels(convs, pools, *, reps: int = 5, rel_tol: float = REL_TOL,
                          seed: int = 0) -> list[dict]:
@@ -665,6 +714,7 @@ def check_stage1_kernels(convs, pools, *, reps: int = 5, rel_tol: float = REL_TO
     equal values, zeros included) with a cotangent of quarter-integers,
     whose sums are exact in float32 and bf16 in any order."""
     dkernel, conv_fwd, conv_dx, pool_fwd, pool_bwd = [], [], [], [], []
+    k4_fns, k4_libs = [], []  # K4's calls and their library calls
     for x, kernel, dy in convs:
         dkernel.append(_compare("conv3x3_dkernel", lambda: conv3x3_dkernel(x, dy),
                                 lambda: conv3x3_dkernel_plain(x, dy), reps, rel_tol, (x, dy),
@@ -672,16 +722,24 @@ def check_stage1_kernels(convs, pools, *, reps: int = 5, rel_tol: float = REL_TO
         cout, cin = kernel.shape[-1], kernel.shape[2]
         one = torch.ones(cout, device=x.device)
         fwd = (x, kernel, one, torch.zeros_like(one))
-        conv_fwd.append(_compare(
-            "conv_block", lambda: fused_conv_block(*fwd, relu=False),
-            lambda: conv_block_plain(*fwd, relu=False), reps, rel_tol, fwd))
+        k4 = functools.partial(fused_conv_block, *fwd, relu=False)
+        lib = _library_conv(x, kernel, "reflect")
+        conv_fwd.append(_repeat(_compare(
+            "conv_block", k4, lambda: conv_block_plain(*fwd, relu=False), reps, rel_tol, fwd, lib)
+            | {"shape": list(x.shape)}, k4))
+        k4_fns.append(k4)
+        k4_libs.append(lib)
         if cin > 1:  # the first block's input (the mel) takes no gradient
             wflip = kernel.flip(0, 1).transpose(2, 3).contiguous()
             one = torch.ones(cin, device=x.device)
             bwd = (dy, wflip, one, torch.zeros_like(one))
-            conv_dx.append(_compare(
-                "conv_block", lambda: fused_conv_block(*bwd, relu=False, edge="zero"),
-                lambda: conv_block_plain(*bwd, relu=False, edge="zero"), reps, rel_tol, bwd))
+            k4 = functools.partial(fused_conv_block, *bwd, relu=False, edge="zero")
+            lib = _library_conv(dy, wflip, "zero")
+            conv_dx.append(_repeat(_compare(
+                "conv_block", k4, lambda: conv_block_plain(*bwd, relu=False, edge="zero"), reps,
+                rel_tol, bwd, lib) | {"shape": list(dy.shape), "edge": "zero"}, k4))
+            k4_fns.append(k4)
+            k4_libs.append(lib)
     gen = torch.Generator(device=pools[0][0].device).manual_seed(seed)
     tie_err = 0.0
     for x, dy, pool in pools:
@@ -702,7 +760,7 @@ def check_stage1_kernels(convs, pools, *, reps: int = 5, rel_tol: float = REL_TO
         tie_err = max(tie_err, float((got.float() - want.float()).abs().max()))
     k11 = _merge("max_pool_bwd", pool_bwd) | {"tie_err": tie_err}
     k11["ok"] &= tie_err == 0.0
-    k4 = _merge("conv_block", conv_fwd + conv_dx)
+    k4 = _device_totals(_merge("conv_block", conv_fwd + conv_dx), k4_fns, k4_libs, reps)
     return [_merge("conv3x3_dkernel", dkernel), _merge("max_pool", pool_fwd), k11,
             k4 | {"name": "conv_block_train"}]
 

@@ -31,9 +31,11 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> (argument types, return type)
 SIGNATURES = {
-    # x, w, scale, bias, resw, rscale, rbias, conv_out, pool_out,
+    # x, w, scale, bias, resw, rscale, rbias, out (pooled if wt > 0),
     # B, T, F, Cin, Cout, res_mode, relu, zero_edge, wt, wf, st, sf, pt, pf, To, Fo, stream
-    "conv_block_forward": ([_P] * 9 + [_I] * 16 + [_P], _I),
+    "conv_block_forward": ([_P] * 8 + [_I] * 16 + [_P], _I),
+    # B, T, F, Cin, Cout, res_mode, wt, wf, st, sf, pt, pf, To, Fo, out (7 int32)
+    "conv_block_plan": ([_I] * 14 + [_P], _I),
     # y, out, B, T, F, C, To, Fo, wt, wf, st, sf, pt, pf, stream
     "max_pool_forward": ([_P] * 2 + [_I] * 12 + [_P], _I),
     # x, dy, winner, dx, B, T, F, C, To, Fo, wt, wf, st, sf, pt, pf, stream
@@ -122,7 +124,9 @@ def library() -> ctypes.CDLL:
 
 
 def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current CUDA stream's handle, by torch's raw getter (a
+    `torch.cuda.current_stream()` object costs several microseconds a call)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def check(err: int, name: str) -> None:

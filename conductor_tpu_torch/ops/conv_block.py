@@ -12,12 +12,15 @@ is the JAX package's NHWC (B, T, F, C); the kernel weights are (3, 3, Cin,
 Cout) and the residual 1x1 weights (Cin, Cout).
 
 `fused_conv_block` takes a CPU tensor to `conv_block_plain` and a CUDA
-tensor to the kernel in `csrc/conv_block.cu`; on CUDA it raises on what
+tensor to the kernel in `csrc/conv_block.cu` (one launch, tensor cores; a
+pooled block writes only the pooled tensor); on CUDA it raises on what
 the kernel does not take.  Matmul operands are rounded to ``mxu_dtype`` and
 products summed in float32 on both paths, as the JAX kernel body does.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -62,6 +65,32 @@ def conv_block_plain(
     return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
+def _pool_args(t: int, f: int, pool) -> tuple[int, ...]:
+    """(wt, wf, st, sf, pt, pf, To, Fo) of ``pool`` on a (T, F) input, all 0
+    without one."""
+    if pool is None:
+        return (0,) * 8
+    (wt, wf), (st, sf), ((pt, pt1), (pf, pf1)) = pool
+    if pt != pt1 or pf != pf1 or not (0 <= pt < wt and 0 <= pf < wf):
+        raise ValueError(f"conv_block kernel: pool padding must be symmetric and below the "
+                         f"window, got {pool}")
+    return wt, wf, st, sf, pt, pf, pooled_size(t, wt, st, pt), pooled_size(f, wf, sf, pf)
+
+
+def kernel_plan(shape, cout: int, *, res_mode: int = 0, pool=None) -> dict:
+    """The tiling the kernel picks for an input of ``shape`` (B, T, F, Cin):
+    conv rows and pooled rows a tile, ring stages, blocks an SM, blocks,
+    tiles and shared-memory bytes.  Builds the kernel library (no card
+    needed)."""
+    b, t, f, cin = shape
+    out = (ctypes.c_int * 7)()
+    err = _build.library().conv_block_plan(b, t, f, cin, cout, res_mode, *_pool_args(t, f, pool),
+                                           out)
+    _build.check(err, "conv_block_plan")
+    return dict(zip(("conv_rows", "pooled_rows", "stages", "blocks_per_sm", "blocks", "tiles",
+                     "smem_bytes"), out))
+
+
 def fused_conv_block(
     x, kernel, scale, bias, *, res_mode=0, res_kernel=None, res_scale=None,
     res_bias=None, pool=None, mxu_dtype=torch.bfloat16, relu=True, edge="reflect",
@@ -69,10 +98,10 @@ def fused_conv_block(
     """x (B, T, F, Cin) -> (B, T, F, Cout), or the pooled (B, T', F', Cout)."""
     if edge not in ("reflect", "zero"):
         raise ValueError(f"edge must be 'reflect' or 'zero', got {edge!r}")
-    args = dict(res_mode=res_mode, res_kernel=res_kernel, res_scale=res_scale,
-                res_bias=res_bias, pool=pool, mxu_dtype=mxu_dtype, relu=relu, edge=edge)
     if not x.is_cuda:
-        return conv_block_plain(x, kernel, scale, bias, **args)
+        return conv_block_plain(x, kernel, scale, bias, res_mode=res_mode, res_kernel=res_kernel,
+                                res_scale=res_scale, res_bias=res_bias, pool=pool,
+                                mxu_dtype=mxu_dtype, relu=relu, edge=edge)
     b, t, f, cin = x.shape
     cout = kernel.shape[-1]
     if mxu_dtype != torch.bfloat16 or cin not in (1, 16, 32) or cout not in (16, 32):
@@ -92,22 +121,20 @@ def fused_conv_block(
         _build.require(res_scale, "res_scale", f32, (cout,))
         _build.require(res_bias, "res_bias", f32, (cout,))
     res = (res_kernel, res_scale, res_bias) if res_mode == 2 else (None, None, None)
-    conv_out = torch.empty((b, t, f, cout), dtype=torch.bfloat16, device=x.device)
-    wt = wf = st = sf = pt = pf = to = fo = 0
-    pool_out = None
-    if pool is not None:
-        (wt, wf), (st, sf), ((pt, _), (pf, _)) = pool
-        to, fo = pooled_size(t, wt, st, pt), pooled_size(f, wf, sf, pf)
-        pool_out = torch.empty((b, to, fo, cout), dtype=torch.bfloat16, device=x.device)
+    pool_args = _pool_args(t, f, pool)
+    shape = (b, t, f, cout) if pool is None else (b, *pool_args[6:], cout)
+    out = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
+    _build.require_aligned(kernel=kernel, **({"x": x} if cin > 1 else {}),
+                           **({"res_kernel": res_kernel} if res_mode == 2 and cin > 1 else {}))
     ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
     err = _build.library().conv_block_forward(
-        ptr(x), ptr(kernel), ptr(scale), ptr(bias), *map(ptr, res),
-        ptr(conv_out), ptr(pool_out), b, t, f, cin, cout, res_mode, int(relu),
-        int(edge == "zero"), wt, wf, st, sf, pt, pf, to, fo, _build.stream(),
+        ptr(x), ptr(kernel), ptr(scale), ptr(bias), *map(ptr, res), ptr(out),
+        b, t, f, cin, cout, res_mode, int(relu), int(edge == "zero"), *pool_args,
+        _build.stream(),
     )
     _build.check(err, "conv_block_forward")
     fused_conv_block.launches += 1
-    return conv_out if pool_out is None else pool_out
+    return out
 
 
 fused_conv_block.launches = 0

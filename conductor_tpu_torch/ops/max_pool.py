@@ -15,7 +15,7 @@ exactly one input, so ``sum dx == sum dy``.
 Layout: NHWC (B, T, F, C); ``pool`` is (window, strides, padding) as the
 music encoder's `POOLS` give it, padding symmetric and -inf.  The wrappers
 take the plain version for CPU tensors; on CUDA they launch the kernels
-(`csrc/conv_block.cu::max_pool_forward`, `csrc/max_pool.cu`) and raise on
+(`csrc/max_pool.cu`: `max_pool_forward`, `max_pool_backward`) and raise on
 what those do not take (bf16 only).
 """
 

@@ -36,7 +36,7 @@ drawn with numpy, on synthetic M2SNet weights (`synthetic_m2snet_state_dict`);
 "pallas_fused" (the default) means "auto" on CUDA, the kernel path (bf16,
 music_conv_impl "pallas_train"), "flax" the plain float32 "lax" path;
 ``--share`` sets ``share_encodes``.  The same timings and table, without
-the perceptual term, and K9's device time and launches a step.
+the perceptual term, and K9's and K4's device time and launches a step.
 """
 
 from __future__ import annotations
@@ -228,12 +228,16 @@ def main_m2snet(args) -> None:
 
     wall_plain, wall, device, table, by_name, _ = profile_steps(step)
     k9 = [v for name, v in by_name.items() if "dkernel" in name]
+    # K4's kernel: conv_block_kernel, conv3x3_kernel in trees before it ran on tensor cores
+    k4 = [v for name, v in by_name.items() if "conv_block_kernel" in name or "conv3x3_kernel" in name]
     print("\n".join([
         f"stage-1 M2SNet step, {tr.compute_dtype} / {tr.music_conv_impl}, share_encodes "
         f"{args.share}, B={b}, {c}-s crops of {s}-s samples, {STEPS} steps profiled on {_smi()}",
         _times(wall_plain, wall, device),
         f"K9 (csrc/conv_train.cu: dkernel_partial and dkernel_reduce, two launches a call): "
         f"{sum(ms for ms, _ in k9):.3f} ms/step, {sum(n for _, n in k9):.0f} launches/step",
+        f"K4 (csrc/conv_block.cu, forward and d(input)): {sum(ms for ms, _ in k4):.3f} ms/step, "
+        f"{sum(n for _, n in k4):.0f} launches/step",
         table]))
 
 

@@ -132,22 +132,103 @@ def _rand(*shape, gen):
     return torch.randn(shape, generator=gen, device="cuda")
 
 
+def _check_conv_block(x, cout, *, gen, res_mode=0, affine=True, **kw):
+    """K4 on ``x`` with seeded weights against its plain version: within
+    2 % of the plain output's largest value (REL_TOL), and a repeat
+    bit-identical.  Returns the plain output (float32)."""
+    cin = x.shape[-1]
+    args = dict(kernel=_rand(3, 3, cin, cout, gen=gen) * 0.2,
+                scale=_rand(cout, gen=gen) * 0.2 + 1 if affine else torch.ones(cout, device="cuda"),
+                bias=_rand(cout, gen=gen) * 0.1 if affine else torch.zeros(cout, device="cuda"))
+    if res_mode == 2:
+        args.update(res_kernel=_rand(cin, cout, gen=gen) * 0.2,
+                    res_scale=_rand(cout, gen=gen) * 0.2 + 1, res_bias=_rand(cout, gen=gen) * 0.1)
+    got = fused_conv_block(x, res_mode=res_mode, **args, **kw)
+    want = conv_block_plain(x, res_mode=res_mode, **args, **kw)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert float((got.float() - want.float()).abs().max()) <= 0.02 * float(want.float().abs().max())
+    assert torch.equal(got, fused_conv_block(x, res_mode=res_mode, **args, **kw))
+    return want.float()
+
+
 @pytest.mark.parametrize("edge", ["reflect", "zero"])
 @pytest.mark.parametrize("cin,cout,f", [(1, 16, 128), (16, 32, 64), (32, 16, 64), (32, 32, 32)])
 def test_conv_block_training_modes(cin, cout, f, edge):
     """K4 with relu off, identity affine and no residual, reflect or zero
     edge: the trainable conv's forward and the interior of its transposed
-    conv."""
+    conv; a repeat bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(cin + cout)
     x = _rand(2, 30, f, cin, gen=gen).to(torch.bfloat16)
-    args = (x, _rand(3, 3, cin, cout, gen=gen) * 0.2, torch.ones(cout, device="cuda"),
-            torch.zeros(cout, device="cuda"))
-    got = fused_conv_block(*args, relu=False, edge=edge).float()
-    want = conv_block_plain(*args, relu=False, edge=edge).float()
+    want = _check_conv_block(x, cout, gen=gen, affine=False, relu=False, edge=edge)
     assert float(want.min()) < 0  # the ReLU is off
-    assert float((got - want).abs().max()) <= 0.02 * float(want.abs().max())
+
+
+POOLS = [((5, 5), (1, 2), ((2, 2), (2, 2))), ((5, 5), (3, 2), ((2, 2), (2, 2))),
+         ((3, 3), (1, 2), ((1, 1), (1, 1)))]
+
+
+@pytest.mark.parametrize("cin,cout,f,t,b,res_mode,pool,relu,edge", [
+    # each residual mode without a pool and with each of the encoder's three
+    # pools, at T = 31 / 37 (a multiple of no tile's rows, nor of the pool's
+    # time stride 3), B = 1 and 2
+    (1, 16, 128, 37, 1, 0, None, True, "reflect"),
+    (16, 16, 128, 31, 2, 0, POOLS[0], True, "reflect"),
+    (32, 32, 64, 37, 1, 0, POOLS[1], True, "reflect"),
+    (32, 32, 32, 31, 2, 0, POOLS[2], True, "reflect"),
+    (16, 16, 128, 37, 2, 1, None, True, "reflect"),
+    (16, 16, 128, 37, 1, 1, POOLS[0], True, "reflect"),
+    (32, 32, 64, 31, 2, 1, POOLS[1], True, "reflect"),
+    (32, 32, 32, 37, 1, 1, POOLS[2], True, "reflect"),
+    (16, 32, 64, 31, 2, 2, None, True, "reflect"),
+    (16, 32, 128, 37, 1, 2, POOLS[0], True, "reflect"),
+    (16, 32, 64, 37, 2, 2, POOLS[1], True, "reflect"),
+    (32, 16, 32, 31, 1, 2, POOLS[2], True, "reflect"),
+    # Cin = 1 with a pool and a 1x1 residual (its weight at the centre tap)
+    (1, 16, 128, 31, 1, 0, POOLS[0], True, "reflect"),
+    (1, 32, 64, 37, 2, 2, POOLS[1], True, "reflect"),
+    # T = 2, F = 8: every row an edge row, pool windows past both ends
+    (16, 16, 8, 2, 3, 1, None, True, "reflect"),
+    (16, 16, 8, 2, 2, 1, POOLS[0], True, "reflect"),
+    (32, 32, 8, 2, 1, 2, POOLS[1], True, "reflect"),
+    # the training modes at ragged T and B = 1, both edges
+    (1, 16, 128, 37, 1, 0, None, False, "zero"),
+    (32, 16, 64, 31, 1, 0, None, False, "reflect"),
+    (32, 32, 32, 37, 2, 0, None, False, "zero"),
+    (16, 16, 8, 2, 3, 0, None, False, "zero"),
+])
+def test_conv_block_modes_and_shapes(cin, cout, f, t, b, res_mode, pool, relu, edge):
+    """K4 in every residual mode, with and without each pool, and in the
+    training modes, at ragged shapes, against its plain version; a repeat
+    bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(cin * cout + f + t)
+    x = _rand(b, t, f, cin, gen=gen).to(torch.bfloat16)
+    _check_conv_block(x, cout, gen=gen, res_mode=res_mode, pool=pool, relu=relu, edge=edge,
+                      affine=relu)
+
+
+def test_conv_block_pooled_call_allocates_no_conv_output():
+    """A pooled block's call allocates its pooled output and nothing of the
+    full-resolution conv output's size: its peak over the memory before it
+    stays under the conv output's bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = _rand(2, 900, 128, 16, gen=gen).to(torch.bfloat16)
+    args = (x, _rand(3, 3, 16, 16, gen=gen) * 0.2, torch.ones(16, device="cuda"),
+            torch.zeros(16, device="cuda"))
+    fused_conv_block(*args, res_mode=1, pool=POOLS[0])  # build and warm up
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fused_conv_block(*args, res_mode=1, pool=POOLS[0])
+    torch.cuda.synchronize()
+    assert out.shape == (2, 900, 64, 16)
+    peak = torch.cuda.max_memory_allocated() - before
+    assert out.numel() * 2 <= peak < x.numel() * 2, (peak, x.numel() * 2)
 
 
 @pytest.mark.parametrize("cin,cout,f,t,b", [
@@ -172,10 +253,6 @@ def test_conv3x3_dkernel_matches_plain(cin, cout, f, t, b):
     assert got.shape == (3, 3, cin, cout)
     assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
     assert torch.equal(got, conv3x3_dkernel(x, dy))  # deterministic
-
-
-POOLS = [((5, 5), (1, 2), ((2, 2), (2, 2))), ((5, 5), (3, 2), ((2, 2), (2, 2))),
-         ((3, 3), (1, 2), ((1, 1), (1, 1)))]
 
 
 @pytest.mark.parametrize("pool,c,f,t", [(POOLS[0], 16, 128, 36), (POOLS[1], 32, 64, 36),

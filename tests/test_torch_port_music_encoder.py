@@ -44,23 +44,30 @@ def test_music_encoder_matches_reference(m2snet):
     np.testing.assert_allclose(hx.numpy(), fx["hx"], atol=2e-4, rtol=1e-3)
 
 
-# (Cin, Cout, F, T, res_mode, pool): every residual mode and every pool
-# configuration of the encoder, at its real channel and frequency widths
+# (Cin, Cout, F, T, res_mode, pool, B): every residual mode and every pool
+# configuration of the encoder, at its real channel and frequency widths,
+# and two pooled blocks of one clip at a ragged T (conv1's pool at T = 37,
+# conv2's stride-3 pool at T = 31), shapes the card tests hold the kernel to
 BLOCKS = [
-    (1, 16, 128, 12, 0, None),
-    (16, 16, 128, 12, 1, POOLS["conv1"]),
-    (16, 32, 64, 12, 2, None),
-    (32, 32, 64, 30, 1, POOLS["conv2"]),
-    (32, 32, 32, 10, 1, POOLS["conv3"]),
+    (1, 16, 128, 12, 0, None, 2),
+    (16, 16, 128, 12, 1, POOLS["conv1"], 2),
+    (16, 32, 64, 12, 2, None, 2),
+    (32, 32, 64, 30, 1, POOLS["conv2"], 2),
+    (32, 32, 32, 10, 1, POOLS["conv3"], 2),
+    (16, 16, 128, 37, 1, POOLS["conv1"], 1),
+    (32, 32, 64, 31, 1, POOLS["conv2"], 1),
 ]
+# ids from the first six columns, as pytest names such tuples, and B where it is not 2
+BLOCK_IDS = ["-".join(map(str, blk[:5])) + ("-None" if blk[5] is None else f"-pool{i}")
+             + ("" if blk[6] == 2 else f"-b{blk[6]}") for i, blk in enumerate(BLOCKS)]
 
 
-@pytest.mark.parametrize("cin,cout,f,t,res_mode,pool", BLOCKS)
-def test_conv_block_plain_matches_jax_kernel(cin, cout, f, t, res_mode, pool):
+@pytest.mark.parametrize("cin,cout,f,t,res_mode,pool,b", BLOCKS, ids=BLOCK_IDS)
+def test_conv_block_plain_matches_jax_kernel(cin, cout, f, t, res_mode, pool, b):
     """The plain conv block against the JAX Pallas kernel (interpret mode,
     float32 operands); atol 2e-4."""
     rng = np.random.RandomState(cin + cout + f + t)
-    x = rng.normal(size=(2, t, f, cin)).astype(np.float32)
+    x = rng.normal(size=(b, t, f, cin)).astype(np.float32)
     args = dict(
         kernel=rng.normal(0, 0.2, size=(3, 3, cin, cout)).astype(np.float32),
         scale=rng.uniform(0.5, 1.5, size=(cout,)).astype(np.float32),
