@@ -46,7 +46,11 @@ Phases, one line each (the kernel checks one line per kernel):
      plain-layer serving path (B = 2, T = 1800, a ones mask); each output
      must agree within 2 % of the plain output's largest value, and K11
      must follow the first-max tie rule exactly (error 0 on tied inputs
-     with a cotangent whose sums are exact);
+     with a cotangent whose sums are exact), repeat bit for bit and launch
+     one kernel a call; the `[k11]` lines give each pool's time by CUDA
+     events and on the device beside its bound and autograd's max_pool2d
+     backward (another tie rule), and the three pools' sums against K11's
+     bars (`bar_met`);
   4. `DDPMTrainer.generate` on the kernel path, ddim50, on synthetic flagship
      weights and a seeded mel: a finite (2, 1800, 26) motion within 3 % of
      the plain path's on the card, with every serving kernel launched;
@@ -195,6 +199,8 @@ def main() -> int:
         synthetic_state_dict,
     )
     from conductor_tpu_torch.kernel_checks import (
+        K11_BAR_DEVICE_MS,
+        K11_BAR_MS,
         check_attention_kernel,
         check_conv_blocks,
         check_kernels,
@@ -372,6 +378,17 @@ def main() -> int:
             print(f"[kernel]   {r['name']} {c.get('shape', '')}{edge}: err {c['max_abs_err']:.6g} "
                   f"(max {c['ref_max_abs']:.6g}) kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} "
                   f"ms bound {c['bound_ms']:.4f} ms library {lib}{extra}")
+        if r["name"] == "max_pool_bwd":
+            for c in r["calls"]:
+                print(f"[k11] pool {c['pool']} x {c['shape']}: {c['ms']:.4f} ms by CUDA events, "
+                      f"device {c['device_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+                      f"({c['bound_by']}), {c['launches_a_call']} launch a call, repeat "
+                      f"bit-identical {c['repeat_identical']}; autograd's max_pool2d backward "
+                      f"(another tie rule, not a yardstick) {c['reference_ms']:.4f} ms ({smi})")
+            print(f"[k11] 3 pools: {r['ms']:.4f} ms by CUDA events (bar <= {K11_BAR_MS}), device "
+                  f"{r['device_ms']:.4f} ms (bar <= {K11_BAR_DEVICE_MS}), bound "
+                  f"{r['bound_ms']:.4f} ms, tie_err {r['tie_err']:.6g}: bar_met {r['bar_met']} "
+                  f"({smi})")
         if r["name"].startswith("conv_block"):
             lib = "" if r["library_ms"] is None else (
                 f"; library {r['library_ms']:.4f} ms, device {r['library_device_ms']:.4f} ms")

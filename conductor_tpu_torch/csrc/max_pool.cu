@@ -20,14 +20,35 @@
 // Layout: x (B, T, F, C) and dx bf16 NHWC, dy (B, To, Fo, C) bf16; window,
 // stride and padding as `max_pool_forward` takes them.
 //
-// What bounds it on an H100: bytes.  It reads x once (and, within a window,
-// from L1/L2 again), dy once, and writes dx once; no arithmetic to speak of.
-// Design: two passes, deterministic and without atomics.  Pass 1, one
-// thread per output element, recomputes the window's maximum and stores its
-// winner's flat (t, f) as one int32.  Pass 2, one thread per input element,
-// sums in a fixed order the float32 cotangents of the covering windows
-// (at most 5 x 3) whose winner it is, and writes bf16.  Equality is tested
-// on the bf16 values widened exactly to float32, as the TPU kernel does.
+// What bounds K11 on an H100: bytes.  It must read x and dy once and write
+// dx once; its compares and adds are a few dozen a value.  Design: one
+// launch a call, separable like the TPU kernel, nothing in global memory
+// but x, dy and dx.  A block owns a tile of input rows of one clip (and,
+// for wide rows, a range of columns) and walks the output rows (windows)
+// that cover it, recomputing the few that reach past its edge.  One thread
+// owns one 8-channel column vector (16 bytes) of the tile:
+//   1. time: it stages its column's x rows into a shared-memory ring with
+//      16-byte cp.async, one window ahead, and takes each window row's
+//      time maximum of its column and the first tap attaining it (bf16x2
+//      max and compare, exact), keeping the tap in registers and staging
+//      the maximum in shared memory;
+//   2. freq: per window, a thread takes the maximum of its WF staged column
+//      maxima and the first column attaining it, a one-hot code in shared
+//      memory, beside the window's dy (cp.async, one window ahead);
+//   3. routing, by gather in a fixed order: a column's thread sums, in
+//      float32, the dy of each window of the row whose code names its
+//      column (freq windows ascending), then adds that sum to the one of
+//      the window's WT dx rows its tap names, kept in registers (time
+//      windows ascending); a row no later window covers is written as bf16
+//      with one 16-byte store, and the rest move up by the time stride.
+// No atomics and no cross-block sums: a repeat is bit-identical and
+// sum dx == sum dy.  The channels, window, strides and padding are template
+// parameters (the encoder's three pools, C 16 or 32), so no inner loop
+// divides by a runtime value; index math is 32-bit but for the clip's base
+// offset.  `ops.max_pool.bwd_plan` chooses the rows a tile and the columns a
+// block and says what each block stages.
+
+#include <stdint.h>
 
 #include "common.cuh"
 
@@ -58,73 +79,275 @@ __global__ void max_pool_kernel(const bf16* __restrict__ y, bf16* __restrict__ o
   }
 }
 
-__global__ void pool_winner_kernel(const bf16* __restrict__ x, int* __restrict__ win, int B,
-                                   int T, int F, int C, int To, int Fo, int wt, int wf, int st,
-                                   int sf, int pt, int pf) {
-  const size_t n = (size_t)B * To * Fo * C;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int c = i % C;
-    const int fo = (i / C) % Fo;
-    const int to = (i / ((size_t)C * Fo)) % To;
-    const int b = i / ((size_t)C * Fo * To);
-    const bf16* xb = x + (size_t)b * T * F * C + c;
-    float best = -CUDART_INF_F;
-    int best_f = -1;
-    for (int df = 0; df < wf; ++df) {
-      const int f = fo * sf - pf + df;
-      if (f < 0 || f >= F) continue;
-      float m = -CUDART_INF_F;
-      for (int dt = 0; dt < wt; ++dt) {
-        const int t = to * st - pt + dt;
-        if (t >= 0 && t < T) m = fmaxf(m, __bfloat162float(xb[((size_t)t * F + f) * C]));
-      }
-      if (best_f < 0 || m > best) {  // strict: the first column attaining the maximum
-        best = m;
-        best_f = f;
-      }
-    }
-    int w = -1;
-    for (int dt = 0; dt < wt && w < 0; ++dt) {
-      const int t = to * st - pt + dt;
-      if (t >= 0 && t < T && __bfloat162float(xb[((size_t)t * F + best_f) * C]) == best)
-        w = t * F + best_f;
-    }
-    win[i] = w;
-  }
-}
-
-// First index o >= 0 with o * s - p + w - 1 >= i, i.e. the first window
-// covering position i.
-__device__ __forceinline__ int first_window(int i, int w, int s, int p) {
-  const int num = i + p - w + 1;
-  return num <= 0 ? 0 : (num + s - 1) / s;
-}
-
-__global__ void pool_route_kernel(const bf16* __restrict__ dy, const int* __restrict__ win,
-                                  bf16* __restrict__ dx, int B, int T, int F, int C, int To,
-                                  int Fo, int wt, int wf, int st, int sf, int pt, int pf) {
-  const size_t n = (size_t)B * T * F * C;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int c = i % C;
-    const int f = (i / C) % F;
-    const int t = (i / ((size_t)C * F)) % T;
-    const int b = i / ((size_t)C * F * T);
-    const int to_hi = min(To - 1, (t + pt) / st), fo_hi = min(Fo - 1, (f + pf) / sf);
-    const int me = t * F + f;
-    float acc = 0.f;
-    for (int to = first_window(t, wt, st, pt); to <= to_hi; ++to)
-      for (int fo = first_window(f, wf, sf, pf); fo <= fo_hi; ++fo) {
-        const size_t j = (((size_t)b * To + to) * Fo + fo) * C + c;
-        if (win[j] == me) acc += __bfloat162float(dy[j]);
-      }
-    dx[i] = __float2bfloat16(acc);
-  }
-}
-
 int grid_for(size_t n) {
   return (int)((n + 255) / 256 < 65535 * 8 ? (n + 255) / 256 : 65535 * 8);
+}
+
+// ---- K11 ------------------------------------------------------------------
+
+constexpr int kBwdMaxThreads = 256;  // one thread a staged 8-channel column vector
+constexpr uint32_t kNegInf2 = 0xFF80FF80u;  // two bf16 -inf
+
+// cp.async with the compiler barred from moving shared-memory accesses
+// across it: a thread reads back its own copies after `wait` without a
+// block barrier in between.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ __nv_bfloat162 as_b2(uint32_t u) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&u);
+}
+// bf16x2 maximum and equality mask (0xffff a half where equal), both exact
+__device__ __forceinline__ uint32_t max2(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 r = __hmax2(as_b2(a), as_b2(b));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+__device__ __forceinline__ uint32_t eq2(uint32_t a, uint32_t b) {
+  return __heq2_mask(as_b2(a), as_b2(b));
+}
+// 0xffff in each 16-bit half whose bit 15 is set (prmt replicates the sign
+// bits of bytes 1 and 3)
+__device__ __forceinline__ uint32_t sign_halves(uint32_t v) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, 0xBB99;" : "=r"(r) : "r"(v), "r"(0u));
+  return r;
+}
+
+// The first window (output index) covering input index i, for window W,
+// stride S, padding P: the first o >= 0 with o * S - P + W - 1 >= i.
+template <int W, int S, int P>
+__device__ __forceinline__ int first_cover(int i) {
+  const int n = i + P - W + 1;
+  return n <= 0 ? 0 : (n + S - 1) / S;
+}
+
+// One block: clip blockIdx.z, input rows [t0, t0 + rows), owned columns
+// [q0, q0 + cols).  Shared memory (16-byte units, blockDim.x = N threads):
+// the x ring [RX][N], the time maxima of one window row over the staged
+// columns and PF -inf columns each side [N + 2 PF V], the window codes
+// [N] and dy of two window rows [2][N].
+template <int C, int WT, int WF, int ST, int SF, int PT, int PF>
+__global__ void __launch_bounds__(kBwdMaxThreads, 2)
+pool_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy, bf16* __restrict__ dx,
+                int T, int F, int To, int Fo, int rows, int cols) {
+  constexpr int V = C / 8;                         // 16-byte vectors a (t, f)
+  constexpr int RX = (WT + 2 * ST - 1) / ST * ST;  // x ring: a window's rows and the next's new
+  constexpr int NC = (WF + SF - 1) / SF;           // windows covering a column, at most
+  static_assert(C % 8 == 0 && ST <= WT && SF <= WF && PT < WT && PF < WF, "pool geometry");
+  // every input row and column lies in a window, and a block's windows are
+  // no more than its staged columns
+  static_assert(PT >= ST - 1 && PF >= SF - 1 && 2 * PF <= WF - 1, "pool geometry");
+
+  extern __shared__ uint4 smem[];
+  const int n = blockDim.x, tid = threadIdx.x;
+  uint4* xs = smem;                        // [RX][n]
+  uint4* tmv = xs + RX * n;                // [n + 2 PF V]
+  uint4* codes = tmv + n + 2 * PF * V;     // [n]
+  uint4* dyv = codes + n;                  // [2][n]
+
+  // rows: owned [t0, t1), windows [o0, o1], x rows from xr0
+  const int t0 = blockIdx.x * rows, t1 = min(T, t0 + rows);
+  const int o0 = first_cover<WT, ST, PT>(t0), o1 = min(To - 1, (t1 - 1 + PT) / ST);
+  const int nw = o1 - o0 + 1, xr0 = o0 * ST - PT;
+  // columns: owned [q0, q1), windows [f0, f1], staged [qa, qb)
+  const int q0 = blockIdx.y * cols, q1 = min(F, q0 + cols);
+  const int f0 = first_cover<WF, SF, PF>(q0), f1 = min(Fo - 1, (q1 - 1 + PF) / SF);
+  const int qa = max(0, f0 * SF - PF), qb = min(F, f1 * SF - PF + WF);
+  const int ncol = (qb - qa) * V, nwin = (f1 - f0 + 1) * V;
+
+  const int c8 = tid % V;
+  const bool col_thread = tid < ncol, win_thread = tid < nwin;
+  const int q = qa + tid / V;             // a column thread's column
+  const bool owned = col_thread && q >= q0 && q < q1;
+  const int fo = f0 + tid / V;            // a window thread's window
+  // the windows covering column q
+  const int fa = first_cover<WF, SF, PF>(q), fb = min(Fo - 1, (q + PF) / SF);
+
+  const int xrow = F * C, dyrow = Fo * C;
+  const size_t clip = blockIdx.z;
+  const bf16* xq = x + clip * T * xrow + q * C + c8 * 8;
+  const bf16* dyq = dy + clip * To * dyrow + fo * C + c8 * 8;
+  bf16* dxq = dx + clip * T * xrow + q * C + c8 * 8;
+  const uint4 ninf = make_uint4(kNegInf2, kNegInf2, kNegInf2, kNegInf2);
+
+  // x row xr0 + rel of the thread's column into its ring slot (-inf outside)
+  auto stage_x = [&](int rel) {
+    const int r = xr0 + rel;
+    uint4* dst = xs + (rel % RX) * n + tid;
+    if (r >= 0 && r < T) cp_async16(dst, xq + r * xrow);
+    else *dst = ninf;
+  };
+
+  if (tid < PF * V) {  // the -inf columns each side of the time maxima
+    tmv[tid] = ninf;
+    tmv[PF * V + ncol + tid] = ninf;
+  }
+  if (col_thread) {
+#pragma unroll
+    for (int i = 0; i < WT; ++i) stage_x(i);
+  }
+  if (win_thread) cp_async16(dyv + tid, dyq + o0 * dyrow);
+  cp_async_commit();
+
+  float acc[WT][8];  // dx rows ts .. ts + WT - 1 of the current window
+#pragma unroll
+  for (int s = 0; s < WT; ++s)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[s][k] = 0.f;
+
+  for (int w = 0; w < nw; ++w) {  // window o0 + w
+    if (col_thread && w + 1 < nw) {
+#pragma unroll
+      for (int i = 0; i < ST; ++i) stage_x(w * ST + WT + i);  // the next window's new rows
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this window's x rows and dy are in
+
+    // 1. time: the column's maximum over the window's rows, the first tap attaining it
+    uint32_t tap[4] = {0u, 0u, 0u, 0u};
+    if (col_thread) {
+      uint4 v[WT];
+#pragma unroll
+      for (int dt = 0; dt < WT; ++dt) v[dt] = xs[((w * ST + dt) % RX) * n + tid];
+      uint32_t m[4] = {v[0].x, v[0].y, v[0].z, v[0].w};
+#pragma unroll
+      for (int dt = 1; dt < WT; ++dt) {
+        m[0] = max2(m[0], v[dt].x);
+        m[1] = max2(m[1], v[dt].y);
+        m[2] = max2(m[2], v[dt].z);
+        m[3] = max2(m[3], v[dt].w);
+      }
+#pragma unroll
+      for (int dt = WT - 1; dt >= 0; --dt) {  // descending: the first tap is set last
+        const uint32_t d2 = dt * 0x00010001u;
+        const uint32_t e[4] = {eq2(v[dt].x, m[0]), eq2(v[dt].y, m[1]), eq2(v[dt].z, m[2]),
+                               eq2(v[dt].w, m[3])};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) tap[j] = (d2 & e[j]) | (tap[j] & ~e[j]);
+      }
+      tmv[PF * V + tid] = make_uint4(m[0], m[1], m[2], m[3]);
+    }
+    __syncthreads();
+
+    // 2. freq: the window's maximum over its columns' maxima and the first
+    // column attaining it, as a one-hot code (bit 15 - df of each half)
+    if (win_thread) {
+      const uint4* t = tmv + (fo * SF - qa) * V + c8;  // the window's first column
+      uint4 v[WF];
+#pragma unroll
+      for (int df = 0; df < WF; ++df) v[df] = t[df * V];
+      uint32_t m[4] = {v[0].x, v[0].y, v[0].z, v[0].w};
+#pragma unroll
+      for (int df = 1; df < WF; ++df) {
+        m[0] = max2(m[0], v[df].x);
+        m[1] = max2(m[1], v[df].y);
+        m[2] = max2(m[2], v[df].z);
+        m[3] = max2(m[3], v[df].w);
+      }
+      uint32_t code[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int df = WF - 1; df >= 0; --df) {
+        const uint32_t h2 = (0x8000u >> df) * 0x00010001u;
+        const uint32_t e[4] = {eq2(v[df].x, m[0]), eq2(v[df].y, m[1]), eq2(v[df].z, m[2]),
+                               eq2(v[df].w, m[3])};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) code[j] = (h2 & e[j]) | (code[j] & ~e[j]);
+      }
+      codes[tid] = make_uint4(code[0], code[1], code[2], code[3]);
+      if (w + 1 < nw) cp_async16(dyv + ((w + 1) & 1) * n + tid, dyq + (o0 + w + 1) * dyrow);
+    }
+    cp_async_commit();
+    __syncthreads();
+
+    // 3. routing: the dy of the row's windows whose code names this column
+    // (freq windows ascending), then into the dx row its tap names
+    if (owned) {
+      float g[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) g[k] = 0.f;
+      const uint4* dyw = dyv + (w & 1) * n;
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int f = fa + i;
+        if (f <= fb) {
+          const int df = q + PF - f * SF, at = (f - f0) * V + c8;
+          const uint4 cv = codes[at], dv = dyw[at];
+          const uint32_t cw[4] = {cv.x, cv.y, cv.z, cv.w}, dw[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const uint32_t d = dw[j] & sign_halves(cw[j] << df);
+            g[2 * j] += __uint_as_float(d << 16);
+            g[2 * j + 1] += __uint_as_float(d & 0xFFFF0000u);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int lo = tap[j] & 0xFFFF, hi = tap[j] >> 16;
+#pragma unroll
+        for (int dt = 0; dt < WT; ++dt) {
+          if (lo == dt) acc[dt][2 * j] += g[2 * j];
+          if (hi == dt) acc[dt][2 * j + 1] += g[2 * j + 1];
+        }
+      }
+      // dx rows no later window covers: this window's first ST, and after
+      // the last window the rest of the tile; then the rows move up by ST
+      const int ts = (o0 + w) * ST - PT;
+#pragma unroll
+      for (int i = 0; i < WT; ++i) {
+        const int r = ts + i;
+        if ((i < ST || w + 1 == nw) && r >= t0 && r < t1) {
+          uint4 out;
+          uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const __nv_bfloat162 h = __floats2bfloat162_rn(acc[i][2 * j], acc[i][2 * j + 1]);
+            o[j] = *reinterpret_cast<const uint32_t*>(&h);
+          }
+          *reinterpret_cast<uint4*>(dxq + r * xrow) = out;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < WT; ++i)
+#pragma unroll
+        for (int k = 0; k < 8; ++k) acc[i][k] = i + ST < WT ? acc[i + ST][k] : 0.f;
+    }
+  }
+}
+
+// The shared bytes of a K11 block of `threads` threads (as bwd_plan counts them).
+template <int C, int WT, int WF, int ST, int SF, int PT, int PF>
+int bwd_smem(int threads) {
+  constexpr int RX = (WT + 2 * ST - 1) / ST * ST;
+  return ((RX + 4) * threads + 2 * PF * (C / 8)) * 16;
+}
+
+template <int C, int WT, int WF, int ST, int SF, int PT, int PF>
+int launch_bwd(const bf16* x, const bf16* dy, bf16* dx, int B, int T, int F, int To, int Fo,
+               int rows, int cols, int threads, cudaStream_t s) {
+  auto kernel = pool_bwd_kernel<C, WT, WF, ST, SF, PT, PF>;
+  const int smem = bwd_smem<C, WT, WF, ST, SF, PT, PF>(threads);
+  static int smem_set = 48 * 1024;  // the default limit; raised once per instantiation
+  if (smem > smem_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  const dim3 grid(ceil_div(T, rows), ceil_div(F, cols), B);
+  kernel<<<grid, threads, smem, s>>>(x, dy, dx, T, F, To, Fo, rows, cols);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -139,20 +362,32 @@ CT_EXPORT int max_pool_forward(const void* y, void* out, int B, int T, int F, in
   return (int)cudaGetLastError();
 }
 
-// K11.  winner: int32 scratch of dy's shape.
-CT_EXPORT int max_pool_backward(const void* x, const void* dy, void* winner, void* dx, int B,
-                                int T, int F, int C, int To, int Fo, int wt, int wf, int st,
-                                int sf, int pt, int pf, void* stream) {
-  if (pt >= wt || pf >= wf || st < 1 || sf < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// K11: dx (B, T, F, C) of the pool for dy (B, To, Fo, C), one launch.
+// rows / cols / threads: the tiling of `ops.max_pool.bwd_plan` (input rows a
+// tile, owned columns a block, threads a block: at least the block's staged
+// column vectors and windows, at most 256).  The encoder's three pools at
+// C = 16 or 32; any other geometry returns cudaErrorInvalidValue.
+CT_EXPORT int max_pool_backward(const void* x, const void* dy, void* dx, int B, int T, int F,
+                                int C, int To, int Fo, int wt, int wf, int st, int sf, int pt,
+                                int pf, int rows, int cols, int threads, void* stream) {
+  if (rows < 1 || cols < 1 || threads < 1 || threads > kBwdMaxThreads || B < 1 || T < 1 ||
+      F < 1 || B > 65535)
+    return (int)cudaErrorInvalidValue;
   auto xb = static_cast<const bf16*>(x);
   auto dyb = static_cast<const bf16*>(dy);
-  auto win = static_cast<int*>(winner);
-  pool_winner_kernel<<<grid_for((size_t)B * To * Fo * C), 256, 0, s>>>(
-      xb, win, B, T, F, C, To, Fo, wt, wf, st, sf, pt, pf);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  pool_route_kernel<<<grid_for((size_t)B * T * F * C), 256, 0, s>>>(
-      dyb, win, static_cast<bf16*>(dx), B, T, F, C, To, Fo, wt, wf, st, sf, pt, pf);
-  return (int)cudaGetLastError();
+  auto dxb = static_cast<bf16*>(dx);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define K11_POOL(CC, WT, WF, ST, SF, PT, PF)                                                   \
+  if (C == CC && wt == WT && wf == WF && st == ST && sf == SF && pt == PT && pf == PF)         \
+    return launch_bwd<CC, WT, WF, ST, SF, PT, PF>(xb, dyb, dxb, B, T, F, To, Fo, rows, cols,  \
+                                                  threads, s);
+  // models/music_encoder.py POOLS: conv1, conv2, conv3
+  K11_POOL(16, 5, 5, 1, 2, 2, 2)
+  K11_POOL(32, 5, 5, 1, 2, 2, 2)
+  K11_POOL(16, 5, 5, 3, 2, 2, 2)
+  K11_POOL(32, 5, 5, 3, 2, 2, 2)
+  K11_POOL(16, 3, 3, 1, 2, 1, 1)
+  K11_POOL(32, 3, 3, 1, 2, 1, 1)
+#undef K11_POOL
+  return (int)cudaErrorInvalidValue;
 }

@@ -85,6 +85,10 @@ VPU_REL_TOL = 0.002
 # profiler that keeps dropping records (3 did not do on an H100: a
 # chip_smoke run died there on K1's int8 GEMM)
 PROFILE_TRIES = 10
+# K11's bars over the three stage-1 pools at B = 10, summed: ms a call by
+# CUDA events and device ms (within 2.7x of their 0.0559-ms byte bound)
+K11_BAR_MS = 0.20
+K11_BAR_DEVICE_MS = 0.15
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
@@ -690,6 +694,18 @@ def _library_dkernel(x, dy):
     return lambda: torch.nn.grad.conv2d_weight(xe, shape, dyn)
 
 
+def _reference_pool_bwd(x, dy, pool):
+    """Autograd's `max_pool2d` backward on the same x and dy in an NCHW view,
+    its indices made outside the timed call.  It breaks ties its own way, so
+    it computes another function than K11: a reference, not a yardstick."""
+    window, strides, padding = pool
+    pad = (padding[0][0], padding[1][0])
+    nchw, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+    _, idx = F.max_pool2d_with_indices(nchw, window, strides, pad)
+    return lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+        dyn, nchw, window, strides, pad, (1, 1), False, idx)
+
+
 def _library_conv(x, kernel, edge):
     """cuDNN's conv of the same operands, `F.conv2d` in bf16 channels_last:
     on the reflect-padded input made outside the timed call, or with
@@ -712,7 +728,11 @@ def check_stage1_kernels(convs, pools, *, reps: int = 5, rel_tol: float = REL_TO
     K11 is also held to the tie rule exactly (``tie_err`` must be 0): on
     each pool's input rounded to a coarse grid after a ReLU (plateaus of
     equal values, zeros included) with a cotangent of quarter-integers,
-    whose sums are exact in float32 and bf16 in any order."""
+    whose sums are exact in float32 and bf16 in any order; each of its
+    calls must repeat bit for bit and launch one kernel, and reports its
+    device ms (``device_ms``) and autograd's `max_pool2d` backward on the
+    same inputs (``reference_ms``, `_reference_pool_bwd`); ``bar_met``: the
+    sums within K11_BAR_MS and K11_BAR_DEVICE_MS."""
     dkernel, conv_fwd, conv_dx, pool_fwd, pool_bwd = [], [], [], [], []
     k4_fns, k4_libs = [], []  # K4's calls and their library calls
     for x, kernel, dy in convs:
@@ -750,16 +770,24 @@ def check_stage1_kernels(convs, pools, *, reps: int = 5, rel_tol: float = REL_TO
             reps, rel_tol, x,
             lambda: F.max_pool2d(nchw, window, strides, (padding[0][0], padding[1][0])))
             | {"shape": list(x.shape)})
-        pool_bwd.append(_compare(
-            "max_pool_bwd", lambda: max_pool_bwd(x, dy, pool),
-            lambda: max_pool_bwd_plain(x, dy, pool), reps, rel_tol, (x, dy))
-            | {"shape": list(x.shape)})
+        bwd = functools.partial(max_pool_bwd, x, dy, pool)
+        split = launch_split(bwd, reps)
+        call = _repeat(_compare(
+            "max_pool_bwd", bwd, lambda: max_pool_bwd_plain(x, dy, pool), reps, rel_tol, (x, dy))
+            | {"shape": list(x.shape), "pool": pool, "launches_a_call": len(split),
+               "device_ms": sum(ms for _, ms in split),
+               "reference_ms": time_ms(_reference_pool_bwd(x, dy, pool), reps)}, bwd)
+        call["ok"] &= len(split) == 1
+        pool_bwd.append(call)
         tied = (torch.relu(x.float()) * 2).round().div(2).to(x.dtype)
         dy_q = (torch.randint(-8, 9, dy.shape, generator=gen, device=dy.device) / 4).to(dy.dtype)
         got, want = max_pool_bwd(tied, dy_q, pool), max_pool_bwd_plain(tied, dy_q, pool)
         tie_err = max(tie_err, float((got.float() - want.float()).abs().max()))
-    k11 = _merge("max_pool_bwd", pool_bwd) | {"tie_err": tie_err}
+    k11 = _merge("max_pool_bwd", pool_bwd) | {
+        "tie_err": tie_err, "device_ms": sum(c["device_ms"] for c in pool_bwd),
+        "reference_ms": sum(c["reference_ms"] for c in pool_bwd)}
     k11["ok"] &= tie_err == 0.0
+    k11["bar_met"] = k11["ok"] and k11["ms"] <= K11_BAR_MS and k11["device_ms"] <= K11_BAR_DEVICE_MS
     k4 = _device_totals(_merge("conv_block", conv_fwd + conv_dx), k4_fns, k4_libs, reps)
     return [_merge("conv3x3_dkernel", dkernel), _merge("max_pool", pool_fwd), k11,
             k4 | {"name": "conv_block_train"}]

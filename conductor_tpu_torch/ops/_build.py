@@ -38,8 +38,8 @@ SIGNATURES = {
     "conv_block_plan": ([_I] * 14 + [_P], _I),
     # y, out, B, T, F, C, To, Fo, wt, wf, st, sf, pt, pf, stream
     "max_pool_forward": ([_P] * 2 + [_I] * 12 + [_P], _I),
-    # x, dy, winner, dx, B, T, F, C, To, Fo, wt, wf, st, sf, pt, pf, stream
-    "max_pool_backward": ([_P] * 4 + [_I] * 12 + [_P], _I),
+    # x, dy, dx, B, T, F, C, To, Fo, wt, wf, st, sf, pt, pf, rows, cols, threads, stream
+    "max_pool_backward": ([_P] * 3 + [_I] * 15 + [_P], _I),
     # B, T, F, Cin, Cout -> workspace bytes of conv3x3_dkernel
     "conv3x3_dkernel_workspace": ([_I] * 5, ctypes.c_longlong),
     # x, dy, workspace, dw, B, T, F, Cin, Cout, stream

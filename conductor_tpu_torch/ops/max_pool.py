@@ -16,16 +16,28 @@ Layout: NHWC (B, T, F, C); ``pool`` is (window, strides, padding) as the
 music encoder's `POOLS` give it, padding symmetric and -inf.  The wrappers
 take the plain version for CPU tensors; on CUDA they launch the kernels
 (`csrc/max_pool.cu`: `max_pool_forward`, `max_pool_backward`) and raise on
-what those do not take (bf16 only).
+what those do not take (bf16 only; K11 only the encoder's three pools at
+C = 16 or 32).  K11 is one launch a call, tiled by `bwd_plan`.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
 from .conv_block import pooled_size
+
+# K11's geometries, its kernel's template instances: C, then (wt, wf, st,
+# sf, pt, pf) of the music encoder's POOLS (models/music_encoder.py)
+BWD_CHANNELS = (16, 32)
+BWD_POOLS = ((5, 5, 1, 2, 2, 2), (5, 5, 3, 2, 2, 2), (3, 3, 1, 2, 1, 1))
+BWD_MAX_THREADS = 256  # a block's threads at most (the kernel's launch bounds)
+BWD_BLOCKS_PER_SM = 2  # resident 256-thread blocks an SM the launch bounds ask for
+SMEM_PER_SM = 233472   # an H100 SM's shared memory, bytes (1 KB of it reserved a block)
+H100_SMS = 132
 
 
 def _geometry(x: torch.Tensor, pool):
@@ -91,22 +103,108 @@ def fused_max_pool(x: torch.Tensor, pool) -> torch.Tensor:
     return out
 
 
-def max_pool_bwd(x: torch.Tensor, dy: torch.Tensor, pool) -> torch.Tensor:
-    """K11: d(x) (B, T, F, C) of the pool for ``dy`` (B, To, Fo, C)."""
-    if not x.is_cuda:
-        return max_pool_bwd_plain(x, dy, pool)
+def _first_cover(i: int, w: int, s: int, p: int) -> int:
+    """The first window (output index) covering input index ``i``."""
+    n = i + p - w + 1
+    return 0 if n <= 0 else -(-n // s)
+
+
+def _span(lo: int, hi: int, n_in: int, n_out: int, w: int, s: int, p: int) -> tuple:
+    """Owned input indices [lo, hi) of a tile along one axis: (lo, hi, the
+    windows covering them [o0, o1], the input indices those windows read
+    [x0, x1) within [0, n_in)), as the kernel computes them."""
+    o0, o1 = _first_cover(lo, w, s, p), min(n_out - 1, (hi - 1 + p) // s)
+    return lo, hi, o0, o1, max(0, o0 * s - p), min(n_in, o1 * s - p + w)
+
+
+def bwd_plan(shape, pool, *, rows: int | None = None, sms: int = H100_SMS) -> dict:
+    """K11's tiling of an input of ``shape`` (B, T, F, C) for ``pool``: a
+    block owns ``rows`` input rows of one clip (chosen here, a multiple of
+    the time stride, unless given) and ``cols`` columns (all F when F C / 8
+    vectors fit in one block), one thread a staged 8-channel column vector.
+    ``row_tiles`` / ``col_chunks``: each tile's owned range, the windows
+    covering it (recomputed where they reach past its edge) and the input
+    range those windows read, which the block stages, per axis: (lo, hi, o0,
+    o1, x0, x1).  ``halo_rows`` / ``halo_cols``: the most staged beyond the
+    owned.  ``threads`` a block, ``blocks``, ``smem_bytes`` a block and
+    ``smem_budget``, an SM's shared memory over ``blocks_per_sm``.  The rows
+    minimise waves x windows a tile over ``sms`` SMs at ``blocks_per_sm``."""
+    b, t, f, c = shape
+    (wt, wf), (st, sf), ((pt, _), (pf, _)) = pool
+    to, fo = pooled_size(t, wt, st, pt), pooled_size(f, wf, sf, pf)
+    v = c // 8
+    cols = f if f * v <= BWD_MAX_THREADS else BWD_MAX_THREADS // v - 2 * (wf - 1)
+    col_chunks = [_span(q, min(f, q + cols), f, fo, wf, sf, pf) for q in range(0, f, cols)]
+    threads = max(max(x1 - x0, o1 - o0 + 1) * v for _, _, o0, o1, x0, x1 in col_chunks)
+    threads = min(BWD_MAX_THREADS, -(-threads // 32) * 32)
+    per_sm = max(1, BWD_BLOCKS_PER_SM * BWD_MAX_THREADS // threads)
+
+    def tiles(r):
+        return [_span(lo, min(t, lo + r), t, to, wt, st, pt) for lo in range(0, t, r)]
+
+    def cost(r):  # waves of blocks x the most windows a tile walks (and its preload)
+        waves = -(-b * -(-t // r) * len(col_chunks) // (sms * per_sm))
+        return waves * (max(o1 - o0 + 1 for _, _, o0, o1, _, _ in tiles(r)) + 2)
+
+    if rows is None:
+        rows = min(range(st, min(t, 64) + st, st), key=lambda r: (cost(r), -r))
+    row_tiles = tiles(rows)
+    rx = -(-(wt + st) // st) * st  # the x ring's rows
+    return {
+        "rows": rows, "cols": cols, "threads": threads,
+        "halo_rows": max(x1 - x0 - (hi - lo) for lo, hi, _, _, x0, x1 in row_tiles),
+        "halo_cols": max(x1 - x0 - (hi - lo) for lo, hi, _, _, x0, x1 in col_chunks),
+        "blocks": b * len(row_tiles) * len(col_chunks), "blocks_per_sm": per_sm,
+        "smem_bytes": ((rx + 4) * threads + 2 * pf * v) * 16,
+        "smem_budget": SMEM_PER_SM // per_sm - 1024,
+        "row_tiles": row_tiles, "col_chunks": col_chunks,
+    }
+
+
+@functools.lru_cache(maxsize=64)
+def _cached_plan(shape, pool, sms):
+    plan = bwd_plan(shape, pool, sms=sms)
+    return plan["rows"], plan["cols"], plan["threads"]
+
+
+@functools.lru_cache(maxsize=8)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _bwd_geometry(x: torch.Tensor, pool) -> tuple[int, ...]:
+    """`_geometry` of a pool K11's kernel takes; raises on any other."""
+    geometry = _geometry(x, pool)
+    if x.shape[-1] not in BWD_CHANNELS or geometry[:6] not in BWD_POOLS:
+        raise ValueError(f"max_pool_bwd kernel takes the music encoder's pools at C in "
+                         f"{BWD_CHANNELS}, got C={x.shape[-1]}, pool {pool}")
+    return geometry
+
+
+def _bwd_launch(x, dy, geometry, rows, cols, threads) -> torch.Tensor:
+    """K11 on ``geometry`` (`_bwd_geometry`) with a tiling of `bwd_plan`."""
     b, t, f, c = x.shape
-    wt, wf, st, sf, pt, pf, to, fo = _geometry(x, pool)
+    wt, wf, st, sf, pt, pf, to, fo = geometry
     _build.require(x, "x", torch.bfloat16, (b, t, f, c))
     _build.require(dy, "dy", torch.bfloat16, (b, to, fo, c))
-    winner = torch.empty(dy.shape, dtype=torch.int32, device=x.device)
+    _build.require_aligned(x=x, dy=dy)
     dx = torch.empty_like(x)
     err = _build.library().max_pool_backward(
-        x.data_ptr(), dy.data_ptr(), winner.data_ptr(), dx.data_ptr(), b, t, f, c, to, fo,
-        wt, wf, st, sf, pt, pf, _build.stream())
+        x.data_ptr(), dy.data_ptr(), dx.data_ptr(), b, t, f, c, to, fo, wt, wf, st, sf, pt, pf,
+        rows, cols, threads, _build.stream())
     _build.check(err, "max_pool_backward")
     max_pool_bwd.launches += 1
     return dx
+
+
+def max_pool_bwd(x: torch.Tensor, dy: torch.Tensor, pool) -> torch.Tensor:
+    """K11: d(x) (B, T, F, C) of the pool for ``dy`` (B, To, Fo, C), one
+    launch tiled by `bwd_plan`."""
+    if not x.is_cuda:
+        return max_pool_bwd_plain(x, dy, pool)
+    geometry = _bwd_geometry(x, pool)
+    return _bwd_launch(x, dy, geometry,
+                       *_cached_plan(tuple(x.shape), pool, _sms(x.device.index)))
 
 
 fused_max_pool.launches = 0

@@ -36,7 +36,8 @@ drawn with numpy, on synthetic M2SNet weights (`synthetic_m2snet_state_dict`);
 "pallas_fused" (the default) means "auto" on CUDA, the kernel path (bf16,
 music_conv_impl "pallas_train"), "flax" the plain float32 "lax" path;
 ``--share`` sets ``share_encodes``.  The same timings and table, without
-the perceptual term, and K9's and K4's device time and launches a step.
+the perceptual term, and K9's, K4's, K11's and K10's device time and
+launches a step.
 """
 
 from __future__ import annotations
@@ -230,6 +231,11 @@ def main_m2snet(args) -> None:
     k9 = [v for name, v in by_name.items() if "dkernel" in name]
     # K4's kernel: conv_block_kernel, conv3x3_kernel in trees before it ran on tensor cores
     k4 = [v for name, v in by_name.items() if "conv_block_kernel" in name or "conv3x3_kernel" in name]
+    # K11's kernel: pool_bwd_kernel; pool_winner_kernel and pool_route_kernel
+    # in trees before it was one launch
+    k11 = [v for name, v in by_name.items()
+           if any(k in name for k in ("pool_bwd_kernel", "pool_winner_kernel", "pool_route_kernel"))]
+    k10 = [v for name, v in by_name.items() if "max_pool_kernel" in name]
     print("\n".join([
         f"stage-1 M2SNet step, {tr.compute_dtype} / {tr.music_conv_impl}, share_encodes "
         f"{args.share}, B={b}, {c}-s crops of {s}-s samples, {STEPS} steps profiled on {_smi()}",
@@ -238,6 +244,9 @@ def main_m2snet(args) -> None:
         f"{sum(ms for ms, _ in k9):.3f} ms/step, {sum(n for _, n in k9):.0f} launches/step",
         f"K4 (csrc/conv_block.cu, forward and d(input)): {sum(ms for ms, _ in k4):.3f} ms/step, "
         f"{sum(n for _, n in k4):.0f} launches/step",
+        f"K11 (csrc/max_pool.cu, the pool backward): {sum(ms for ms, _ in k11):.3f} ms/step, "
+        f"{sum(n for _, n in k11):.0f} launches/step; K10 (the pool forward): "
+        f"{sum(ms for ms, _ in k10):.3f} ms/step, {sum(n for _, n in k10):.0f} launches/step",
         table]))
 
 

@@ -255,17 +255,30 @@ def test_conv3x3_dkernel_matches_plain(cin, cout, f, t, b):
     assert torch.equal(got, conv3x3_dkernel(x, dy))  # deterministic
 
 
-@pytest.mark.parametrize("pool,c,f,t", [(POOLS[0], 16, 128, 36), (POOLS[1], 32, 64, 36),
-                                        (POOLS[2], 32, 32, 12)])
-def test_max_pool_kernels(pool, c, f, t):
+@pytest.mark.parametrize("pool,c,f,t,b", [
+    (POOLS[0], 16, 128, 36, 2), (POOLS[1], 32, 64, 36, 2), (POOLS[2], 32, 32, 12, 2),
+    # K11's tiling: T a multiple of no tile's rows, T inside one tile, B = 1,
+    # the smallest F a pool takes, and rows too wide for one block (column
+    # chunks with their halo)
+    (POOLS[0], 16, 128, 31, 1), (POOLS[0], 16, 128, 97, 2), (POOLS[0], 16, 1, 37, 1),
+    (POOLS[0], 16, 200, 37, 1), (POOLS[0], 16, 128, 2, 3),
+    (POOLS[1], 32, 64, 33, 1), (POOLS[1], 32, 64, 99, 2), (POOLS[1], 32, 1, 33, 1),
+    (POOLS[1], 32, 70, 99, 1), (POOLS[1], 32, 64, 2, 3),
+    (POOLS[2], 32, 32, 31, 1), (POOLS[2], 32, 32, 97, 2), (POOLS[2], 32, 1, 37, 1),
+    (POOLS[2], 32, 70, 37, 1), (POOLS[2], 32, 32, 2, 3),
+    # the stage-1 stride-3 pool at C = 16, the stride-1 5x5 one at C = 32
+    (POOLS[1], 16, 128, 37, 1), (POOLS[0], 32, 64, 31, 1),
+])
+def test_max_pool_kernels(pool, c, f, t, b):
     """K10 exact against the plain pool; K11 exact against the plain
     first-max routing on tied inputs (post-ReLU plateaus rounded to a
     coarse grid, a cotangent whose sums are exact in any order), and
-    conservative (sum dx == sum dy)."""
+    conservative (sum dx == sum dy); on random inputs within REL_TOL of the
+    plain version's largest value, a repeat bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    gen = torch.Generator(device="cuda").manual_seed(c + t)
-    x = _rand(2, t, f, c, gen=gen).to(torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(c + t + f)
+    x = _rand(b, t, f, c, gen=gen).to(torch.bfloat16)
     assert torch.equal(fused_max_pool(x, pool), max_pool_plain(x, pool))
     tied = (torch.relu(x.float()) * 2).round().div(2).to(torch.bfloat16)
     y = fused_max_pool(tied, pool)
@@ -273,6 +286,41 @@ def test_max_pool_kernels(pool, c, f, t):
     got = max_pool_bwd(tied, dy, pool)
     assert torch.equal(got, max_pool_bwd_plain(tied, dy, pool))
     assert float(got.float().sum()) == float(dy.float().sum())
+    dy = _rand(*y.shape, gen=gen).to(torch.bfloat16)
+    got, want = max_pool_bwd(x, dy, pool), max_pool_bwd_plain(x, dy, pool)
+    assert float((got.float() - want.float()).abs().max()) <= 0.02 * float(want.float().abs().max())
+    assert torch.equal(got, max_pool_bwd(x, dy, pool))
+
+
+def test_max_pool_bwd_allocates_only_dx():
+    """A K11 call allocates its output dx and no scratch of dy's shape (the
+    int32 winner array of the two-pass design): its peak over the memory
+    before it stays under dx's bytes plus an int32 array of dy's shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = _rand(2, 900, 128, 16, gen=gen).to(torch.bfloat16)
+    dy = _rand(2, 900, 64, 16, gen=gen).to(torch.bfloat16)
+    max_pool_bwd(x, dy, POOLS[0])  # build and warm up
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dx = max_pool_bwd(x, dy, POOLS[0])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    assert dx.numel() * 2 <= peak < dx.numel() * 2 + dy.numel() * 4, (peak, dx.numel() * 2)
+
+
+def test_max_pool_bwd_raises_on_other_geometries():
+    """K11 takes the encoder's three pools at C = 16 or 32 and raises on
+    any other channels or window (its kernel's template instances)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    for c, pool in ((8, POOLS[0]), (64, POOLS[0]), (16, ((3, 3), (2, 2), ((1, 1), (1, 1))))):
+        x = torch.zeros(1, 12, 16, c, device="cuda", dtype=torch.bfloat16)
+        dy = torch.zeros_like(fused_max_pool(x, pool))
+        with pytest.raises(ValueError, match="pools"):
+            max_pool_bwd(x, dy, pool)
 
 
 @pytest.mark.parametrize("share_encodes", [False, True])
