@@ -31,8 +31,15 @@ Phases, one line each (the kernel checks one line per kernel):
      bit-identical, its device time split by launch, its workspace bytes,
      and beside its d_adaln_w and d_emb GEMMs one PyTorch call each on the
      same product, the `[k6]` lines), and K7, the frozen ST-GCN of the perceptual loss
-     (forward on pred and target, d(pred) backward), on pred and target of
-     one training forward at B = 32, T = 900, bf16 operands on both sides;
+     (forward on pred and target, d(pred) backward from the plain forward's
+     ReLU masks against the plain backward on the same masks), on pred and
+     target of one training forward at B = 32, T = 900, bf16 operands on
+     both sides, a repeat bit-identical, 10 launches a call, the tiling
+     `ops.stgcn.plan` reports the kernel's, and the forward's ReLU masks
+     those of the plain forward but for at most 0.1 % of their bits; the
+     `[k7]` lines give each direction's time by CUDA events (the forward's
+     two calls apart), device ms by launch, bound (the backward's old bound
+     beside it), the bytes of the masks the forward keeps and `bar_met`;
      and the stage-1 music encoder's kernels, K9 (each 3x3 conv's
      d(kernel)), K10 and K11 (each pool's forward and first-max backward)
      and K4 in its training modes (each call beside cuDNN's bf16
@@ -64,9 +71,9 @@ Phases, one line each (the kernel checks one line per kernel):
      kernel-path loss, and its perceptual term `loss_mot_feat` (weighted
      1e-6 in the loss, so the loss alone would not see a wrong K7), must be
      finite and within 3e-2 relative of the plain path's (the bf16 bound of
-     tests/test_fused_train_path.py), K5, K6 and K7 (forward and backward)
-     must have launched in every step, and the median ms per step of both
-     paths is printed;
+     tests/test_fused_train_path.py), K5, K6 and K7 must have launched in
+     every step (K7's forward twice and its backward once), and the median
+     ms per step of both paths is printed;
   7. stage 1: 4 `M2SNetTrainer.train_step`s on the kernel path ("auto" on
      CUDA: bf16, music_conv_impl "pallas_train") and 4 on the plain path
      (float32, "lax", cuDNN without TF32), from the same synthetic M2SNet
@@ -83,7 +90,7 @@ Phases, one line each (the kernel checks one line per kernel):
      batch and random numbers and m_lens = 60 (the reference's value);
      each loss and `loss_mot_feat` finite and within 3e-2 relative of the
      plain path's, K8 launched num_layers = 8 times in every step and K7
-     in every step, the median ms per step of both paths printed;
+     2 + 1 times, the median ms per step of both paths printed;
   9. serving on the plain layers (``layer_impl="flax"``, bf16): ddim50 at
      B = 2 on phase 4's mel and noise, within 3 % of the plain float32
      path's motion, K8 launched 8 x 50 times and K4 launched, its ms
@@ -164,6 +171,7 @@ SERVING_KERNELS = ("decoder_stack", "sampler_prologue", "sampler_epilogue", "con
 BENCH_DENOISER = dict(attention_impl="pallas", compute_dtype="bfloat16", layer_impl="pallas_fused",
                       sampler_adaln_int8=True, music_encoder_impl="pallas")
 TRAIN_KERNELS = ("decoder_layer", "decoder_layer_bwd", "stgcn_forward", "stgcn_backward")
+K7_PER_STEP = (2, 1)  # K7's forward (pred, target) and backward calls in a stage-2 step
 STAGE1_KERNELS = ("conv_block", "conv3x3_dkernel", "max_pool", "max_pool_bwd")
 # stage 1's batch, sample and crop seconds (conductor_tpu/cli/train_m2snet.py)
 STAGE1_B, STAGE1_S, STAGE1_C = 10, 30, 10
@@ -199,6 +207,8 @@ def main() -> int:
         synthetic_state_dict,
     )
     from conductor_tpu_torch.kernel_checks import (
+        K7_BAR_MS,
+        K7_MASK_FLIP_SHARE,
         K11_BAR_DEVICE_MS,
         K11_BAR_MS,
         check_attention_kernel,
@@ -348,6 +358,20 @@ def main() -> int:
         if r["name"] == "stgcn_backward":
             print(f"[kernel]   stgcn_backward after the kernel's own forward (ReLU masks of "
                   f"another summation order): err {r['e2e_err']:.6g}, not bounded")
+        if r["name"] in ("stgcn_forward", "stgcn_backward"):
+            calls = "".join(f"; {k} {v:.4f} ms" for k, v in r.get("calls_ms", {}).items())
+            old = r.get("old_bound")
+            extra = (f"; old bound {old['bound_ms']:.4f} ms ({old['bound_by']})" if old else
+                     f"; masks kept {r['mask_bytes']} bytes, {r['mask_flips']} of their "
+                     f"{r['mask_bits']} bits other than the plain forward's (at most "
+                     f"{K7_MASK_FLIP_SHARE:g} of them)")
+            print(f"[k7] {r['name']} B={n_train} T={t_train}: {r['ms']:.4f} ms a call by CUDA events"
+                  f"{calls} (bar <= {K7_BAR_MS}: bar_met {r['bar_met']}); device "
+                  f"{r['device_ms']:.4f} ms in {len(r['launch_split'])} launches, "
+                  f"{r['launches_a_call']} of them K7's: "
+                  + "; ".join(f"{k} {v:.4f}" for k, v in r["launch_split"])
+                  + f"; bound {r['bound_ms']:.4f} ms ({r['bound_by']}){extra}; repeat "
+                  f"bit-identical {r['repeat_identical']}; plan the kernel's {r['plan_ok']} ({smi})")
         if "yardstick" in r:
             print(f"[kernel]   {r['name']}{shape}: device ms {r['device_ms']:.4f}, "
                   f"{r['yardstick']} {r['yardstick_device_ms']:.4f}: no slower than it: "
@@ -467,7 +491,8 @@ def main() -> int:
     if (not all(np.isfinite(losses_k + feats_k)) or max(rel) > TRAIN_LOSS_REL_TOL
             or max(rel_feat) > TRAIN_LOSS_REL_TOL):
         raise SystemExit("chip_smoke: training on the kernel path disagrees with the plain path")
-    if min(c[k] for c in per_step for k in TRAIN_KERNELS) == 0:
+    if min(c[k] for c in per_step for k in TRAIN_KERNELS) == 0 or any(
+            (c["stgcn_forward"], c["stgcn_backward"]) != K7_PER_STEP for c in per_step):
         raise SystemExit(f"chip_smoke: a training kernel was not launched in every step: {per_step}")
     counts.update({k: train_counts[k] for k in TRAIN_KERNELS})
 
@@ -536,8 +561,8 @@ def main() -> int:
           f"{[round(x * 1e3, 1) for x in times_mp]}) on {smi}")
     if not all(np.isfinite(losses_m + feats_m)) or max(rel_m) > TRAIN_LOSS_REL_TOL:
         raise SystemExit("chip_smoke: the reference-mask step disagrees with the plain path")
-    if any(c["linear_attention"] != md.num_layers or min(c["stgcn_forward"], c["stgcn_backward"]) == 0
-           for c in per_step_m):
+    if any(c["linear_attention"] != md.num_layers
+           or (c["stgcn_forward"], c["stgcn_backward"]) != K7_PER_STEP for c in per_step_m):
         raise SystemExit(f"chip_smoke: K8 / K7 not launched as expected in every step: {per_step_m}")
     counts["linear_attention"] = sum(c["linear_attention"] for c in per_step_m)
     del mask_tr, mask_plain

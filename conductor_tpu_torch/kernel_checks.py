@@ -62,7 +62,18 @@ from .ops.sampler_glue import (
     sampler_prologue,
     sampler_prologue_plain,
 )
-from .ops.stgcn import frozen_stgcn_plain, stgcn_backward, stgcn_forward
+from .ops.stgcn import (
+    BLOCKS,
+    KERNEL_PLAN_KEYS,
+    WIDTH,
+    frozen_stgcn_plain,
+    kernel_plan,
+    plan,
+    stgcn_backward,
+    stgcn_backward_plain,
+    stgcn_forward,
+    unpack_relu_masks,
+)
 from .train.fused_denoiser import (
     FusedDenoiser,
     cross_kv_state,
@@ -89,6 +100,12 @@ PROFILE_TRIES = 10
 # CUDA events and device ms (within 2.7x of their 0.0559-ms byte bound)
 K11_BAR_MS = 0.20
 K11_BAR_DEVICE_MS = 0.15
+# K7's bar at B = 32, T = 900: ms a call by CUDA events, forward (the mean
+# of its two calls) and backward each
+K7_BAR_MS = 0.70
+# the most ReLU mask bits K7's forward may set otherwise than the plain
+# forward (flips between summation orders), a share of all its mask bits
+K7_MASK_FLIP_SHARE = 1e-3
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
@@ -613,43 +630,85 @@ def check_stgcn_kernels(trainer, pred, target, dy, *, reps: int = 5,
     """K7 against its plain versions on the perceptual term's inputs
     (`perceptual_inputs`), over the trainer's packed ST-GCN.
 
-    stgcn_forward: the latents of pred (with the activations kept for the
+    stgcn_forward: the latents of pred (with the ReLU masks kept for the
     backward, as the training path runs it) and of target; ms per call is
-    the mean of the two.  stgcn_backward: d(pred) from ``dy``, against
-    autograd through the plain version, the kernel reading the plain
-    forward's activations: the same ReLU masks.  Two bf16 forwards that sum
-    in another order flip a few masks, and a flip moves single elements of
-    the gradient by several percent of its maximum; ``e2e_err`` is the
-    difference with the kernel's own forward, reported and not bounded.
+    the mean of the two (``calls_ms``: each alone).  stgcn_backward: d(pred)
+    from ``dy`` and the masks of the plain forward of pred, against
+    `stgcn_backward_plain` on the same masks.  Two bf16 forwards that sum in
+    another order flip a few masks (``mask_flips``: bits of the kernel's
+    own forward that differ from the plain one's), and a flip moves single
+    elements of the gradient by several percent of its maximum; ``e2e_err``
+    is the backward's difference after the kernel's own forward, reported
+    and not bounded.  Both: a repeat bit-identical (part of ``ok``), the
+    device ms a call by launch (`launch_split`), one launch a st_gcn block
+    (part of ``ok``), and ``bar_met``, each within K7_BAR_MS by CUDA events
+    (not part of ``ok``); the forward also
+    ``mask_bytes``, what `save` keeps, with ``mask_flips`` within
+    K7_MASK_FLIP_SHARE of the mask bits (part of ``ok``); and ``plan_ok``,
+    `ops.stgcn.plan` the tiling the kernel reports (`kernel_plan`, part of
+    ``ok``).
 
-    The bounds count the work of the function, not of the pack: the FLOPs
-    of the ST-GCN module (`trainer.feat_model`) on the same inputs, whose
-    joint contraction is one (13, 13) matrix per partition where the pack
-    holds it as a dense (416, 416) one, and the module's weights in place
-    of the pack's bytes."""
+    The bounds count the work of the function, whatever implements it, and
+    the module's weights in place of the pack's bytes: the forward reads the
+    motion and writes the latents, with the FLOPs of the ST-GCN module
+    (`trainer.feat_model`: its joint contraction is one (13, 13) matrix per
+    partition where the pack holds a dense (416, 416) one); the backward
+    reads the motion and dy and writes dx, with the FLOPs of the module's
+    forward and its d(input), which is what the JAX backward kernel does.
+    ``old_bound``: the backward's bound counted over what the kernel reads
+    instead, the forward's ten float32 h and bf16 g slabs as inputs and the
+    d(input) FLOPs alone: what a design that keeps those slabs would be
+    held to."""
     pack, mxu = trainer.feat_pack, getattr(torch, trainer.cfg.denoiser.compute_dtype)
     module = trainer.feat_model
     weights = list(module.state_dict().values())
+    kept = lambda: (lambda o: (o[0], *o[1]))(stgcn_forward(pred, pack, save=True))  # noqa: E731
+    fwd_flops = flops(lambda: module(pred))
     fwd = _compare(
         "stgcn_forward",
         lambda: (stgcn_forward(pred, pack, save=True)[0], stgcn_forward(target, pack)),
         lambda: (frozen_stgcn_plain(pred, pack, mxu), frozen_stgcn_plain(target, pack, mxu)),
         reps, rel_tol, (pred, target, weights, weights),
-        n_flops=flops(lambda: (module(pred), module(target))))
+        n_flops=2 * fwd_flops)
     fwd.update(_bound(fwd["bytes_ms"] / 2, fwd["ops_ms"] / 2), ms=fwd["ms"] / 2,
                plain_ms=fwd["plain_ms"] / 2)
+    fwd["calls_ms"] = {"forward, save": time_ms(kept, reps),
+                       "forward": time_ms(lambda: stgcn_forward(target, pack), reps)}
+    _repeat(fwd, kept)
+    fwd["launch_split"] = launch_split(kept, reps)
+    own = kept()
+    fwd["mask_bytes"] = sum(m.numel() * m.element_size() for m in own[1:])
+    _, masks = frozen_stgcn_plain(pred, pack, mxu, save=True)
+    fwd["mask_flips"] = sum(int((unpack_relu_masks(a) != unpack_relu_masks(b)).sum())
+                            for a, b in zip(own[1:], masks))
+    fwd["mask_bits"] = sum(m.numel() * 32 for m in masks)
+    fwd["ok"] &= fwd["mask_flips"] <= K7_MASK_FLIP_SHARE * fwd["mask_bits"]
     with torch.enable_grad():
-        x = pred.detach().requires_grad_(True)
-        out, saved = frozen_stgcn_plain(x, pack, mxu, save=True)
         xm = pred.detach().requires_grad_(True)
         out_m = module(xm)
-    saved = tuple(a.detach() for a in saved)
-    bwd = _compare("stgcn_backward", lambda: stgcn_backward(dy, saved, pack),
-                   lambda: torch.autograd.grad(out, x, dy, retain_graph=True)[0], reps, rel_tol,
-                   (dy, saved, weights),
-                   n_flops=flops(lambda: torch.autograd.grad(out_m, xm, dy)))
-    own = stgcn_backward(dy, stgcn_forward(pred, pack, save=True)[1], pack)
-    bwd["e2e_err"] = _errors(own, torch.autograd.grad(out, x, dy)[0])[0][0]
+        n_dinput = flops(lambda: torch.autograd.grad(out_m, xm, dy))
+    n_bwd = fwd_flops + n_dinput
+    kernel = lambda: stgcn_backward(dy, masks, pack)  # noqa: E731
+    bwd = _compare("stgcn_backward", kernel, lambda: stgcn_backward_plain(dy, masks, pack, mxu),
+                   reps, rel_tol, (pred, dy, weights), n_flops=n_bwd)
+    _repeat(bwd, kernel)
+    bwd["launch_split"] = launch_split(kernel, reps)
+    saved_bytes = BLOCKS * pred.shape[0] * pred.shape[1] * WIDTH * (4 + 2)
+    old = bound((dy, weights), own[0].new_empty(pred.shape), n_dinput)
+    bwd["old_bound"] = _bound(old["bytes_ms"] + saved_bytes / HBM_BYTES_PER_S * 1e3, old["ops_ms"])
+    bwd["e2e_err"] = _errors(stgcn_backward(dy, own[1:], pack),
+                             stgcn_backward_plain(dy, masks, pack, mxu))[0][0]
+    for r in (fwd, bwd):
+        r["device_ms"] = sum(ms for _, ms in r["launch_split"])
+        # K7's own launches, one a st_gcn block (the wrapper may first copy
+        # a non-contiguous dy)
+        r["launches_a_call"] = sum(name.startswith("stgcn_") for name, _ in r["launch_split"])
+        direction = "forward" if r is fwd else "backward"
+        mine = plan(pred.shape[0], pred.shape[1], direction)
+        r["plan_ok"] = {k: mine[k] for k in KERNEL_PLAN_KEYS} == kernel_plan(
+            pred.shape[0], pred.shape[1], direction)
+        r["ok"] &= r["launches_a_call"] == BLOCKS and r["plan_ok"]
+        r["bar_met"] = r["ms"] <= K7_BAR_MS
     return [fwd, bwd]
 
 

@@ -66,10 +66,12 @@ SIGNATURES = {
     # dmats, dvecs, dadaln_w, dadaln_b, workspace, gemm_launches, B, T, t_valid,
     # D, E, H, stream
     "decoder_layer_backward": ([_P] * 17 + [_I] * 6 + [_P], _I),
-    # x, m0, m, wt, b1, b2, fc, fcb, hbuf, gbuf, out, B, T, save, stream
-    "stgcn_forward": ([_P] * 11 + [_I] * 3 + [_P], _I),
-    # dy, m0, m, wt, fc, hbuf, gbuf, dh, da, dx, B, T, stream
-    "stgcn_backward": ([_P] * 10 + [_I] * 2 + [_P], _I),
+    # x, m0, m, wt, b1, b2, fc, fcb, hbuf, gmask (null: no save), hmask, out, B, T, stream
+    "stgcn_forward": ([_P] * 12 + [_I] * 2 + [_P], _I),
+    # dy, m0, m, wt, fc, gmask, hmask, dh, dx, B, T, stream
+    "stgcn_backward": ([_P] * 9 + [_I] * 2 + [_P], _I),
+    # B, T, backward, out (5 int32) -> 0
+    "stgcn_plan": ([_I] * 3 + [_P], _I),
     # q, k, v, out, workspace, B, Tq, Tk, H, q_bf16, kv_bf16, stream
     "linear_attention_forward": ([_P] * 5 + [_I] * 6 + [_P], _I),
 }

@@ -20,14 +20,26 @@ float32 accumulation, bias, ReLU and residual in float32.  Per block:
 g = relu(h M + b1); y = sum_k g[t + k - 1] W_k + b2 (+ h after block 0),
 zero-padded at the clip's edges; h = relu(y).
 
+`stgcn_backward_plain` is the plain version of the backward kernel: it
+walks the blocks in reverse from the output cotangent and reads nothing of
+the forward but its ReLU masks, [g > 0] and [h > 0] of each block, in the
+kernels' bit layout (`pack_relu_masks`: one 32-bit word a joint, 13 a
+frame), with the same roundings.
+
 `fused_frozen_stgcn` is a `torch.autograd.Function`.  On CPU tensors it
 runs the plain version, and its backward is autograd through it.  On CUDA
-tensors the forward is `stgcn_forward` and the backward `stgcn_backward`,
-the kernels in `csrc/stgcn.cu`, which take bf16 operands, 13 joints and 32
-channels; anything else raises.  The pack takes no gradient.
+tensors the forward is `stgcn_forward`, which keeps the masks, and the
+backward `stgcn_backward`, the kernels in `csrc/stgcn.cu` (one launch a
+block and direction, tiled as `plan` reports), which take bf16 operands,
+13 joints and 32 channels; anything else raises.  The pack takes no
+gradient.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+import re
 
 import torch
 
@@ -39,6 +51,12 @@ IN = V * 2       # a frame of motion: 13 joints x (x, y)
 IN_PAD = 32      # block 0's matrix rows, padded with zeros to a whole 16-deep MMA step
 WIDTH = V * C    # 416 values a frame between blocks
 PACK_KEYS = ("m0", "m", "wt", "b1", "b2", "fc", "fcb")
+# the kernels' tiling: a thread block of WARPS warps, one a joint, one
+# block an SM; its tile heights and ring depths are csrc/stgcn.cu's
+# (`_tiling`)
+WARPS = V
+SMEM_PER_SM = 233472     # an H100 SM's shared memory, bytes (1 KB of it reserved a block)
+SMEM_PER_BLOCK = 232448  # the most one block can take
 
 
 def _affine(bn) -> tuple[torch.Tensor, torch.Tensor]:
@@ -100,25 +118,119 @@ def _tconv(g: torch.Tensor, wt: torch.Tensor, mxu_dtype: torch.dtype) -> torch.T
     return sum(zp[:, k:k + t] @ w[k] for k in range(3)).reshape(b, t, WIDTH)
 
 
+@functools.cache
+def _tiling() -> dict[str, int]:
+    """The tiling constants of `csrc/stgcn.cu`, read from the source the
+    kernels are built from: kFTile / kBTile, the rows a forward / backward
+    block's products run on, and kFDepth / kBDepth, its rings' stages."""
+    src = (_build.CSRC / "stgcn.cu").read_text()
+    return {k: int(re.search(rf"\b{k} = (\d+)[,;]", src).group(1))
+            for k in ("kFTile", "kFDepth", "kBTile", "kBDepth")}
+
+
+def plan(batch: int, t: int, direction: str = "forward") -> dict:
+    """K7's tiling of a call on (batch, t) motion in ``direction``
+    ("forward" or "backward"), as `csrc/stgcn.cu` launches it: per clip,
+    ``tiles`` of (lo, hi, x0, x1), a thread block owning frames [lo, hi)
+    (``rows`` of them, fewer in the last) and reading the block's input on
+    frames [x0, x1), its owned ones and a row of halo each side inside the
+    clip; ``tile_rows``, the rows its products run on (forward: the owned
+    ones and the halo; backward: the owned ones, its dy tiles holding the
+    halo too); ``blocks`` a launch, ``launches`` a call (one a st_gcn
+    block), ``threads`` a block (a warp a joint), ``smem_bytes`` a block
+    (the most of its launches) and ``smem_budget``, the most one block may
+    take on an H100, which leaves room for one block an SM.  The kernel
+    reports the same (`kernel_plan`)."""
+    if direction not in ("forward", "backward"):
+        raise ValueError(f"direction is 'forward' or 'backward', got {direction!r}")
+    fwd = direction == "forward"
+    k = _tiling()
+    tile_rows, depth = (k["kFTile"], k["kFDepth"]) if fwd else (k["kBTile"], k["kBDepth"])
+    rows = tile_rows - 2 if fwd else tile_rows
+    tiles = [(lo, min(t, lo + rows), max(0, lo - 1), min(t, lo + rows + 1))
+             for lo in range(0, t, rows)]
+    # bf16: the 416-wide tile (8 values of row padding), the taps, each
+    # warp's region: its cp.async ring of 32 x 32 sub-tiles or its 32-wide
+    # g / dy tile of tile_rows + 2 rows
+    region = max(depth * C * C, (tile_rows + 2) * C) * 2
+    smem = tile_rows * (WIDTH + 8) * 2 + 3 * C * C * 2 + WARPS * region
+    if fwd:  # the owned rows' float32 residual
+        smem += rows * (WIDTH + 8) * 4
+    else:  # block 9's dy_out tile: whole m16 fragments over tile_rows + 2 rows
+        smem += -(-(tile_rows + 2) // 16) * 16 * (OUT + 8) * 2
+    return {"rows": rows, "tile_rows": tile_rows, "tiles": tiles, "blocks": batch * len(tiles),
+            "launches": BLOCKS, "threads": 32 * WARPS, "smem_bytes": smem,
+            "smem_budget": SMEM_PER_BLOCK}
+
+
+KERNEL_PLAN_KEYS = ("rows", "tile_rows", "blocks", "threads", "smem_bytes")
+
+
+def kernel_plan(batch: int, t: int, direction: str = "forward") -> dict:
+    """What `csrc/stgcn.cu` launches for a call (its `stgcn_plan`), under
+    `plan`'s names ``KERNEL_PLAN_KEYS``; needs the built library."""
+    out = (ctypes.c_int * len(KERNEL_PLAN_KEYS))()
+    err = _build.library().stgcn_plan(batch, t, int(direction == "backward"), out)
+    _build.check(err, "stgcn_plan")
+    return dict(zip(KERNEL_PLAN_KEYS, out))
+
+
+def pack_relu_masks(mask: torch.Tensor) -> torch.Tensor:
+    """A boolean (..., 416) mask -> the kernels' bit layout, (..., 13) int32:
+    bit c of word v is mask[..., 32 v + c]."""
+    bits = mask.reshape(*mask.shape[:-1], V, C).to(torch.int64)
+    words = (bits << torch.arange(C, device=mask.device)).sum(-1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
+def unpack_relu_masks(words: torch.Tensor) -> torch.Tensor:
+    """`pack_relu_masks`' inverse: (..., 13) int32 -> (..., 416) bool."""
+    bits = (words.to(torch.int64)[..., None] >> torch.arange(C, device=words.device)) & 1
+    return bits.reshape(*words.shape[:-1], WIDTH).bool()
+
+
 def frozen_stgcn_plain(motion: torch.Tensor, pack: dict, mxu_dtype: torch.dtype = torch.bfloat16,
                        *, save: bool = False):
-    """The plain version of the kernels: (B, T, 13, 2) -> (B, T, 64) float32.
-    With ``save``, also returns what `stgcn_backward` reads, as
-    `stgcn_forward` lays it out: every block's h (10, B*T, 416) float32 and
-    g (10, B*T, 416) in ``mxu_dtype``."""
+    """The plain version of the forward kernel: (B, T, 13, 2) -> (B, T, 64)
+    float32.  With ``save``, also returns what `stgcn_backward` reads, as
+    `stgcn_forward` lays it out: the masks [g > 0] and [h > 0] of every
+    block, (10, B*T, 13) int32 each (`pack_relu_masks`)."""
     b, t = motion.shape[0], motion.shape[1]
     h = motion.reshape(b, t, IN).float()
-    hs, gs = [], []
+    gmask, hmask = [], []
     for i in range(BLOCKS):
         mat = pack["m0"][:IN] if i == 0 else pack["m"][i - 1]
         g = torch.relu(_q(h, mxu_dtype) @ _q(mat, mxu_dtype) + pack["b1"][i])
         y = _tconv(g, pack["wt"][i], mxu_dtype) + pack["b2"][i].repeat(V)
         h = torch.relu(y if i == 0 else y + h)
         if save:
-            hs.append(h.reshape(b * t, WIDTH))
-            gs.append(g.reshape(b * t, WIDTH).to(mxu_dtype))
+            gmask.append(pack_relu_masks(g.reshape(b * t, WIDTH) > 0))
+            hmask.append(pack_relu_masks(h.reshape(b * t, WIDTH) > 0))
     out = _q(h, mxu_dtype) @ _q(pack["fc"], mxu_dtype) + pack["fcb"]
-    return (out, (torch.stack(hs), torch.stack(gs))) if save else out
+    return (out, (torch.stack(gmask), torch.stack(hmask))) if save else out
+
+
+def stgcn_backward_plain(dy: torch.Tensor, masks: tuple, pack: dict,
+                         mxu_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The plain version of the backward kernel: the output cotangent (B, T,
+    64) and the forward's ``masks`` -> d(motion) (B, T, 13, 2) float32, with
+    the JAX backward kernel's roundings (each product's operands in
+    ``mxu_dtype``).  From dh = dy FC^T it walks the blocks in reverse: dy_i
+    = dh [h_i > 0]; da = (the transposed temporal conv of dy_i) [g_i > 0];
+    dh = da M_i^T + dy_i (block 0: dx = da M_0^T)."""
+    gmask, hmask = masks
+    b, t = dy.shape[0], dy.shape[1]
+    dh = _q(dy.float(), mxu_dtype) @ _q(pack["fc"], mxu_dtype).t()
+    for i in reversed(range(BLOCKS)):
+        dyi = dh * unpack_relu_masks(hmask[i]).reshape(b, t, WIDTH)
+        # sum_k dy[t + 1 - k] W_k^T: the forward conv with its taps reversed and transposed
+        da = _tconv(dyi, pack["wt"][i].flip(0).transpose(-1, -2), mxu_dtype)
+        da = da * unpack_relu_masks(gmask[i]).reshape(b, t, WIDTH)
+        mat = pack["m0"][:IN] if i == 0 else pack["m"][i - 1]
+        dh = _q(da, mxu_dtype) @ _q(mat, mxu_dtype).t()
+        if i > 0:
+            dh = dh + dyi
+    return dh.reshape(b, t, V, 2)
 
 
 def _check_pack(pack: dict) -> None:
@@ -143,43 +255,43 @@ def _check_kernel_args(motion: torch.Tensor, pack: dict, mxu_dtype: torch.dtype)
 def stgcn_forward(motion: torch.Tensor, pack: dict, *, save: bool = False):
     """K7 forward on the card: (B, T, 13, 2) float32 -> (B, T, 64) float32.
     With ``save``, also returns what `stgcn_backward` needs: every block's
-    output h (10, B*T, 416) float32 and graph-conv activation g (10, B*T,
-    416) bf16."""
+    ReLU masks [g > 0] and [h > 0], (10, B*T, 13) int32 each, as
+    `frozen_stgcn_plain` lays them out."""
     _check_kernel_args(motion, pack, torch.bfloat16)
     b, t = motion.shape[0], motion.shape[1]
     x = motion.float().contiguous()
     _build.require(x, "motion", torch.float32, (b, t, V, 2))
     rows = b * t
-    hbuf = torch.empty((BLOCKS if save else 2, rows, WIDTH), dtype=torch.float32, device=x.device)
-    gbuf = torch.empty((BLOCKS if save else 1, rows, WIDTH), dtype=torch.bfloat16, device=x.device)
+    hbuf = torch.empty((2, rows, WIDTH), dtype=torch.float32, device=x.device)
+    masks = torch.empty((2, BLOCKS, rows, V), dtype=torch.int32, device=x.device) if save else None
     out = torch.empty((b, t, OUT), dtype=torch.float32, device=x.device)
     err = _build.library().stgcn_forward(
         x.data_ptr(), *(pack[k].data_ptr() for k in PACK_KEYS), hbuf.data_ptr(),
-        gbuf.data_ptr(), out.data_ptr(), b, t, int(save), _build.stream())
+        *((masks[0].data_ptr(), masks[1].data_ptr()) if save else (None, None)), out.data_ptr(),
+        b, t, _build.stream())
     _build.check(err, "stgcn_forward")
     stgcn_forward.launches += 1
-    return (out, (hbuf, gbuf)) if save else out
+    return (out, (masks[0], masks[1])) if save else out
 
 
 stgcn_forward.launches = 0
 
 
-def stgcn_backward(dy: torch.Tensor, saved: tuple, pack: dict) -> torch.Tensor:
+def stgcn_backward(dy: torch.Tensor, masks: tuple, pack: dict) -> torch.Tensor:
     """K7 backward on the card: the output cotangent (B, T, 64) and the
-    forward's ``saved`` -> d(motion) (B, T, 13, 2) float32."""
-    hbuf, gbuf = saved
+    forward's ``masks`` -> d(motion) (B, T, 13, 2) float32."""
+    gmask, hmask = masks
     b, t = dy.shape[0], dy.shape[1]
     _check_pack(pack)
     dy = dy.float().contiguous()
     _build.require(dy, "dy", torch.float32, (b, t, OUT))
-    _build.require(hbuf, "h", torch.float32, (BLOCKS, b * t, WIDTH))
-    _build.require(gbuf, "g", torch.bfloat16, (BLOCKS, b * t, WIDTH))
+    _build.require(gmask, "gmask", torch.int32, (BLOCKS, b * t, V))
+    _build.require(hmask, "hmask", torch.int32, (BLOCKS, b * t, V))
     dh = torch.empty((2, b * t, WIDTH), dtype=torch.float32, device=dy.device)
-    da = torch.empty((b * t, WIDTH), dtype=torch.bfloat16, device=dy.device)
     dx = torch.empty((b, t, V, 2), dtype=torch.float32, device=dy.device)
     err = _build.library().stgcn_backward(
-        dy.data_ptr(), *(pack[k].data_ptr() for k in ("m0", "m", "wt", "fc")), hbuf.data_ptr(),
-        gbuf.data_ptr(), dh.data_ptr(), da.data_ptr(), dx.data_ptr(), b, t, _build.stream())
+        dy.data_ptr(), *(pack[k].data_ptr() for k in ("m0", "m", "wt", "fc")), gmask.data_ptr(),
+        hmask.data_ptr(), dh.data_ptr(), dx.data_ptr(), b, t, _build.stream())
     _build.check(err, "stgcn_backward")
     stgcn_backward.launches += 1
     return dx
@@ -199,7 +311,7 @@ class _FrozenSTGCN(torch.autograd.Function):
         _check_kernel_args(motion, pack, mxu_dtype)
         if not ctx.needs_input_grad[0]:
             return stgcn_forward(motion, pack)
-        out, ctx.kernel_saved = stgcn_forward(motion, pack, save=True)
+        out, ctx.masks = stgcn_forward(motion, pack, save=True)
         return out
 
     @staticmethod
@@ -207,8 +319,8 @@ class _FrozenSTGCN(torch.autograd.Function):
         motion, *pack_tensors = ctx.saved_tensors
         pack = dict(zip(PACK_KEYS, pack_tensors))
         if motion.is_cuda:
-            dx = stgcn_backward(dy, ctx.kernel_saved, pack).to(motion.dtype)
-            del ctx.kernel_saved
+            dx = stgcn_backward(dy, ctx.masks, pack).to(motion.dtype)
+            del ctx.masks
         else:
             with torch.enable_grad():
                 m = motion.detach().requires_grad_(True)

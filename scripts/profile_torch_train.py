@@ -4,8 +4,8 @@ card: stage 2's `DDPMTrainer.train_step`, or with ``--m2snet`` stage 1's
 `M2SNetTrainer.train_step`.
 
     python3 scripts/profile_torch_train.py [--impl pallas_fused|flax] [--feat auto|flax|pallas]
-                                           [--cached] [--mask] [--tree DIR]
-    python3 scripts/profile_torch_train.py --m2snet [--impl pallas_fused|flax] [--share]
+                                           [--cached] [--mask] [--tree DIR] [--walls N]
+    python3 scripts/profile_torch_train.py --m2snet [--impl pallas_fused|flax] [--share] [--walls N]
 
 Flagship configuration (D = 128, 8 layers, E = 512) on synthetic weights,
 B = 32 windows of 30 s (T = 900 motion / 2700 mel frames), seeded data; with
@@ -15,13 +15,16 @@ B = 32 windows of 30 s (T = 900 motion / 2700 mel frames), seeded data; with
 "flax" the plain float32 module.  ``--mask`` replicates the reference's
 loss mask (``replicate_reference_mask``, m_lens = 60): "auto" then runs the
 bf16 plain layers with the self-attention on K8, "flax" the float32 plain
-layers with the mask.  After two warm-up steps it times two
-steps, then `torch.profiler` records two more; the script prints the wall
-time per step without and under the profiler, the device time per step (the
-sum of the kernels' times), the device's busy share of the wall time under
-the profiler, the perceptual term alone (its latents of pred and target and
+layers with the mask.  After two warm-up steps it times ``--walls`` steps
+(2 unless given) one by one, then `torch.profiler` records two more; the
+script prints the wall time per step without the profiler (the median of
+the timed steps, with their least and most) and under it, the device time
+per step (the sum of the kernels' times), the device's busy share of the
+wall time under the profiler, the perceptual term alone (its latents of pred and target and
 its backward to pred, CUDA events, on pred and target of a training
-forward), and the kernels by total device time.  On the kernel path it
+forward), K7's device time and launches a step, the peak memory of one
+more step (`torch.cuda.max_memory_allocated`), and the kernels by total
+device time.  On the kernel path it
 also splits K6's device time a step by kernel (`k6_split`: the kernels
 launched inside each `decoder_layer_bwd` call, which the script wraps in
 a `torch.profiler.record_function` range), and times one K6 call alone on
@@ -56,21 +59,26 @@ from torch.profiler import ProfilerActivity, profile
 REPO = Path(__file__).resolve().parents[1]
 STEPS = 2  # profiled steps, after two warm-up steps
 K6_RANGE = "K6 decoder_layer_bwd"  # the profiler range around each K6 call
+# K7's kernels: one a st_gcn block and direction; the row and temporal
+# passes in trees before it was one launch a block
+K7_KERNELS = ("stgcn_fwd_kernel", "stgcn_bwd_kernel", "rows_kernel", "tconv_kernel")
 
 
-def profile_steps(step) -> tuple[float, float, float, str, dict, dict]:
-    """Two warm-up calls of ``step``, then STEPS timed, then STEPS under
-    `torch.profiler`: (wall ms per step without the profiler, under it,
-    device ms per step, the kernels table, {kernel name: (device ms, launches)
-    per step}, `k6_split` per step)."""
+def profile_steps(step, walls: int = STEPS) -> tuple[list, float, float, str, dict, dict]:
+    """Two warm-up calls of ``step``, then ``walls`` timed one by one, then
+    STEPS under `torch.profiler`: (each timed step's wall ms without the
+    profiler, the wall ms per step under it, device ms per step, the
+    kernels table, {kernel name: (device ms, launches) per step}, `k6_split`
+    per step)."""
     for _ in range(2):
         step()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(STEPS):
+    wall_plain = []
+    for _ in range(walls):
+        t0 = time.perf_counter()
         step()
-    torch.cuda.synchronize()
-    wall_plain = (time.perf_counter() - t0) / STEPS
+        torch.cuda.synchronize()
+        wall_plain.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(STEPS):
@@ -87,7 +95,7 @@ def profile_steps(step) -> tuple[float, float, float, str, dict, dict]:
     for e in kernels:
         ms, n = by_name.get(e.name, (0.0, 0.0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3 / STEPS, n + 1 / STEPS)
-    return wall_plain * 1e3, wall * 1e3, device, table, by_name, k6_split(prof, STEPS)
+    return wall_plain, wall * 1e3, device, table, by_name, k6_split(prof, STEPS)
 
 
 def _short(name: str) -> str:
@@ -204,10 +212,11 @@ def _smi() -> str:
                           capture_output=True, text=True).stdout.strip().splitlines()[0]
 
 
-def _times(wall_plain: float, wall: float, device: float) -> str:
-    return (f"wall {wall_plain:.2f} ms/step without the profiler, {wall:.2f} ms/step under it; "
-            f"device {device:.2f} ms/step, busy {100 * device / wall:.1f} % of the wall under "
-            f"the profiler")
+def _times(wall_plain: list, wall: float, device: float) -> str:
+    return (f"wall {float(np.median(wall_plain)):.2f} ms/step without the profiler (median of "
+            f"{len(wall_plain)} steps, {min(wall_plain):.2f} to {max(wall_plain):.2f}), "
+            f"{wall:.2f} ms/step under it; device {device:.2f} ms/step, busy "
+            f"{100 * device / wall:.1f} % of the wall under the profiler")
 
 
 def main_m2snet(args) -> None:
@@ -227,7 +236,7 @@ def main_m2snet(args) -> None:
         return float(tr.train_step(music, motion, "hard",
                                    starts=(s1, int(rng.randint(s1 + 300, (s - c) * 30))))["loss"])
 
-    wall_plain, wall, device, table, by_name, _ = profile_steps(step)
+    wall_plain, wall, device, table, by_name, _ = profile_steps(step, args.walls)
     k9 = [v for name, v in by_name.items() if "dkernel" in name]
     # K4's kernel: conv_block_kernel, conv3x3_kernel in trees before it ran on tensor cores
     k4 = [v for name, v in by_name.items() if "conv_block_kernel" in name or "conv3x3_kernel" in name]
@@ -259,6 +268,7 @@ def main() -> None:
     ap.add_argument("--m2snet", action="store_true")
     ap.add_argument("--share", action="store_true")
     ap.add_argument("--tree", type=Path, default=REPO)
+    ap.add_argument("--walls", type=int, default=STEPS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: needs a CUDA card")
@@ -303,7 +313,13 @@ def main() -> None:
     def step():
         return float(tr.train_step(mel, motion, m_lens, generator=gen)["loss"])
 
-    wall_plain, wall, device, table, by_name, k6 = profile_steps(step)
+    wall_plain, wall, device, table, by_name, k6 = profile_steps(step, args.walls)
+    k7 = [v for name, v in by_name.items() if _short(name).split("<")[0] in K7_KERNELS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
     pred, target, _ = perceptual_inputs(tr, mel, motion)
 
     def perceptual():
@@ -317,6 +333,9 @@ def main() -> None:
         f"{tr.cfg.denoiser.compute_dtype} / {tr.cfg.denoiser.train_layer_impl} / attention "
         f"{tr.cfg.denoiser.attention_impl}, B={b} T={n}, {STEPS} steps profiled on {_smi()}",
         f"{_times(wall_plain, wall, device)}; perceptual term {feat_ms:.2f} ms (CUDA events)",
+        f"K7 (csrc/stgcn.cu, the perceptual ST-GCN): {sum(ms for ms, _ in k7):.3f} ms/step device, "
+        f"{sum(c for _, c in k7):.0f} launches/step; peak memory of a step "
+        f"(torch.cuda.max_memory_allocated) {peak} bytes",
         *(f"{name}: {ms:.4f} ms device, {n:g} launches per step" for name, (ms, n)
           in sorted(by_name.items()) if "attention_" in name),  # K8's two kernels
         *([f"K6 a step: device {_split_text(k6)}", k6_alone(tr, mel, motion, _smi())]

@@ -10,8 +10,10 @@ serving config, the int8 wrappers raising on what their kernels do not
 take, a float32 stage-1 step with torch's TF32 defaults against the
 CPU (the entry points turn TF32 off), K1's AdaLN GEMM alone in bf16
 and int8 at four row counts, 8 layers at once as K1 launches it, the
-GEMM launches that K1, K5 and K6 report, and K6 alone at B = 1 and 5, at a
-ragged t_valid, repeating bit for bit.  Skips
+GEMM launches that K1, K5 and K6 report, K6 alone at B = 1 and 5, at a
+ragged t_valid, repeating bit for bit, and K7 alone at ragged T, T inside
+one tile and B = 1 (a repeat bit-identical, 10 launches a call, the
+forward keeping only its ReLU bit masks).  Skips
 without a CUDA card; on one, run it with
 ``python -m pytest --noconftest tests/test_torch_port_cuda.py``.
 ``chip_smoke.py`` makes the same checks at the flagship size."""
@@ -30,11 +32,13 @@ from conductor_tpu_torch.interop import (
     synthetic_state_dict,
 )
 from conductor_tpu_torch.kernel_checks import (
+    REL_TOL,
     check_attention_kernel,
     check_kernels,
     check_stage1_kernels,
     check_stgcn_kernels,
     check_train_kernels,
+    launch_split,
     perceptual_inputs,
     prologue_tie_errors,
     stage1_kernel_inputs,
@@ -66,6 +70,19 @@ from conductor_tpu_torch.ops.decoder_stack import (
 from conductor_tpu_torch.ops.sampler_glue import sampler_prologue_plain
 from conductor_tpu_torch.ops.conv_train import conv3x3_dkernel_plain
 from conductor_tpu_torch.ops.max_pool import max_pool_bwd_plain, max_pool_plain
+from conductor_tpu_torch.models.stgcn import MotionEncoderSTGCN
+from conductor_tpu_torch.interop import load_motion_encoder_state_dict
+from conductor_tpu_torch.ops.stgcn import (
+    KERNEL_PLAN_KEYS,
+    frozen_stgcn_plain,
+    kernel_plan,
+    pack_frozen_stgcn,
+    plan,
+    stgcn_backward,
+    stgcn_backward_plain,
+    stgcn_forward,
+    unpack_relu_masks,
+)
 
 torch.set_num_threads(2)
 
@@ -618,6 +635,70 @@ def test_train_step_kernel_path_matches_plain_path(trainers):
         assert bool(torch.isfinite(mk["loss"])) and bool(torch.isfinite(mk["grad_norm"]))
         for k in ("loss", "loss_mot_feat"):
             assert abs(float(mk[k]) - float(mp[k])) <= 3e-2 * abs(float(mp[k])), (step, k, mk, mp)
+
+
+def _stgcn_pack():
+    """K7's bf16 pack of the synthetic ST-GCN of seed 0, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    model = MotionEncoderSTGCN()
+    load_motion_encoder_state_dict(model, synthetic_motion_encoder_state_dict(model, seed=0))
+    return pack_frozen_stgcn(model.freeze().cuda(), torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,t", [(2, 96), (1, 37), (1, 200), (3, 62), (1, 1)])
+def test_stgcn_kernels_match_plain(b, t):
+    """K7 at ragged T (96: a whole forward tile of 62 frames and a ragged
+    one; 200), a T shorter than one tile (37, 1), a T of exactly one
+    forward tile (62) and B = 1: the forward within REL_TOL of
+    `frozen_stgcn_plain`'s largest value, its masks those of the plain
+    forward but for at most 0.1 % of the bits (ReLU flips between summation
+    orders); the backward within REL_TOL of `stgcn_backward_plain` on the
+    plain forward's masks; each a repeat bit-identical and one launch a
+    st_gcn block, 10 K7 launches a call, counted by `launch_split`, tiled
+    as `ops.stgcn.plan` says (the kernel's own `stgcn_plan`)."""
+    pack = _stgcn_pack()
+    gen = torch.Generator(device="cuda").manual_seed(b * 1000 + t)
+    motion = torch.rand((b, t, 13, 2), generator=gen, device="cuda")
+    dy = _rand(b, t, 64, gen=gen)
+    out, masks = stgcn_forward(motion, pack, save=True)
+    want, want_masks = frozen_stgcn_plain(motion, pack, torch.bfloat16, save=True)
+    assert float((out - want).abs().max()) <= REL_TOL * float(want.abs().max())
+    for got_m, want_m in zip(masks, want_masks):
+        assert got_m.shape == want_m.shape == (10, b * t, 13) and got_m.dtype == torch.int32
+        flips = int((unpack_relu_masks(got_m) != unpack_relu_masks(want_m)).sum())
+        assert flips <= 1e-3 * want_m.numel() * 32, flips
+    again, again_masks = stgcn_forward(motion, pack, save=True)
+    assert torch.equal(again, out) and all(torch.equal(x, y) for x, y in zip(again_masks, masks))
+    assert torch.equal(stgcn_forward(motion, pack), out)
+    dx = stgcn_backward(dy, want_masks, pack)
+    ref = stgcn_backward_plain(dy, want_masks, pack, torch.bfloat16)
+    assert dx.shape == motion.shape
+    assert float((dx - ref).abs().max()) <= REL_TOL * float(ref.abs().max())
+    assert torch.equal(stgcn_backward(dy, want_masks, pack), dx)
+    for call in (lambda: stgcn_forward(motion, pack, save=True),
+                 lambda: stgcn_backward(dy, masks, pack)):
+        assert sum(name.startswith("stgcn_") for name, _ in launch_split(call, 2)) == 10
+    for direction in ("forward", "backward"):
+        mine = plan(b, t, direction)
+        assert {k: mine[k] for k in KERNEL_PLAN_KEYS} == kernel_plan(b, t, direction)
+
+
+def test_stgcn_forward_keeps_only_the_masks():
+    """At the stage-2 step's B = 32, T = 900, a K7 forward with ``save``
+    holds, once it returns, its latents and the two masks (10, B*T, 13)
+    int32, 30 MB, and nothing else: at most 40 MB in all."""
+    pack = _stgcn_pack()
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    motion = torch.rand((32, 900, 13, 2), generator=gen, device="cuda")
+    stgcn_forward(motion, pack, save=True)  # build and warm up
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out, masks = stgcn_forward(motion, pack, save=True)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    assert sum(m.numel() * 4 for m in masks) == 2 * 10 * 32 * 900 * 13 * 4
+    assert held <= 40 * 2 ** 20, held
 
 
 @pytest.mark.parametrize("b,t,lens,kv_dtype", [(32, 900, 60, "float32"), (2, 1800, 1800, "float32"),

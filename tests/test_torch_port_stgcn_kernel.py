@@ -13,8 +13,9 @@ module wherever some b1 > 0 (0.36 of a maximum 1.98 here at T = 21).  The
 reference zero-pads the conv at the clip's edge, and so does the port.  So
 the JAX kernel is compared at T = 24 and 16, and the ragged T = 21 and 17
 against the flax module.  Also: the float32 pack against the port's
-module, the autograd Function's gradients, the kernel wrappers' refusals,
-and the trainer's pack refresh.
+module, the masks that ``save`` keeps, the plain backward from those masks
+against the JAX kernel's `jax.grad` in bf16, the autograd Function's
+gradients, the kernel wrappers' refusals, and the trainer's pack refresh.
 """
 
 import jax
@@ -44,8 +45,11 @@ from conductor_tpu_torch.ops.stgcn import (
     fused_frozen_stgcn,
     pack_frozen_stgcn,
     stgcn_backward,
+    stgcn_backward_plain,
     stgcn_forward,
+    unpack_relu_masks,
 )
+from test_torch_port_stgcn_plan import _blocks
 
 torch.set_num_threads(2)
 
@@ -148,19 +152,41 @@ def test_float32_pack_matches_module(encoder, t):
 
 
 def test_saved_activations_are_the_blocks(encoder):
-    """``save`` returns each block's output h and graph-conv activation g,
-    in `stgcn_forward`'s layout; the last h projects to the output."""
+    """``save`` returns each block's ReLU masks in `stgcn_forward`'s bit
+    layout: [g > 0] and [h > 0], (10, B*T, 13) int32 each, bit c of word v
+    for channel c of joint v, those of the blocks' activations (written out
+    apart in `test_torch_port_stgcn_plan._blocks`); the last h projects to
+    the output."""
     model, _ = encoder
     motion = torch.from_numpy(_inputs(17)[0])
     pack = pack_frozen_stgcn(model, torch.bfloat16)
-    out, (h, g) = frozen_stgcn_plain(motion, pack, torch.bfloat16, save=True)
-    assert h.shape == g.shape == (10, B * 17, 13 * 32)
-    assert (h.dtype, g.dtype) == (torch.float32, torch.bfloat16)
-    assert bool((h >= 0).all()) and bool((g >= 0).all()) and float(h[-1].max()) > 0
+    out, (gmask, hmask) = frozen_stgcn_plain(motion, pack, torch.bfloat16, save=True)
+    assert gmask.shape == hmask.shape == (10, B * 17, 13)
+    assert gmask.dtype == hmask.dtype == torch.int32
     torch.testing.assert_close(out, frozen_stgcn_plain(motion, pack, torch.bfloat16), rtol=0,
                                atol=0)
-    proj = h[-1].to(torch.bfloat16).float() @ pack["fc"].float() + pack["fcb"]
+    gs, hs = _blocks(motion, pack, torch.bfloat16)
+    for i in range(10):
+        assert torch.equal(unpack_relu_masks(gmask[i]), gs[i] > 0)
+        assert torch.equal(unpack_relu_masks(hmask[i]), hs[i] > 0)
+    assert bool(unpack_relu_masks(hmask[-1]).any())
+    proj = hs[-1].to(torch.bfloat16).float() @ pack["fc"].float() + pack["fcb"]
     torch.testing.assert_close(proj.reshape(out.shape), out, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("t", [24, 16])
+def test_backward_plain_from_masks_matches_jax_kernel(encoder, t):
+    """In bf16, `stgcn_backward_plain` on the plain forward's masks against
+    `jax.grad` of the JAX kernel (its backward kernel, which recomputes the
+    forward's masks), within `_assert_close`'s bf16 bounds."""
+    model, variables = encoder
+    motion, dy = _inputs(t)
+    want, want_grad = _jax_kernel(variables, motion, dy, "bfloat16")
+    f32_grad = _jax_kernel(variables, motion, dy, "float32")[1]
+    pack = pack_frozen_stgcn(model, torch.bfloat16)
+    out, masks = frozen_stgcn_plain(torch.from_numpy(motion), pack, torch.bfloat16, save=True)
+    grad = stgcn_backward_plain(torch.from_numpy(dy), masks, pack, torch.bfloat16)
+    _assert_close(out.numpy(), grad.numpy(), want, want_grad, "bfloat16", f32_grad)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
