@@ -57,7 +57,13 @@ Phases, one line each (the kernel checks one line per kernel):
      one kernel a call; the `[k11]` lines give each pool's time by CUDA
      events and on the device beside its bound and autograd's max_pool2d
      backward (another tie rule), and the three pools' sums against K11's
-     bars (`bar_met`);
+     bars (`bar_met`); K10 must equal its plain version bit for bit,
+     repeat bit for bit, launch one kernel a call and run the tiling
+     `ops.max_pool.fwd_plan` computes (the kernel's `max_pool_fwd_plan`),
+     the `[k10]` lines giving each pool's events and device ms beside its
+     bound and `F.max_pool2d`, and the sums against K10's bars; K8 must
+     repeat bit for bit and launch one kernel a call, the `[k8]` lines
+     giving its events and device ms at both shapes against its bars;
   4. `DDPMTrainer.generate` on the kernel path, ddim50, on synthetic flagship
      weights and a seeded mel: a finite (2, 1800, 26) motion within 3 % of
      the plain path's on the card, with every serving kernel launched;
@@ -80,7 +86,8 @@ Phases, one line each (the kernel checks one line per kernel):
      weights, on the same seeded music (10, 2700, 128) and motion
      (10, 900, 13, 2), strategy "hard", the same starts drawn with numpy;
      each kernel-path loss must be finite and within 3e-2 relative of the
-     plain path's, K4, K9, K10 and K11 must have launched in every step,
+     plain path's, K4, K9, K10 and K11 must have launched in every step
+     (K10 12 times: three pools in each of the step's four forwards),
      and the median ms per step of both paths is printed, with that of the
      ``share_encodes=True`` kernel-path step;
   8. training with the reference's loss mask: 4 steps of
@@ -173,6 +180,7 @@ BENCH_DENOISER = dict(attention_impl="pallas", compute_dtype="bfloat16", layer_i
 TRAIN_KERNELS = ("decoder_layer", "decoder_layer_bwd", "stgcn_forward", "stgcn_backward")
 K7_PER_STEP = (2, 1)  # K7's forward (pred, target) and backward calls in a stage-2 step
 STAGE1_KERNELS = ("conv_block", "conv3x3_dkernel", "max_pool", "max_pool_bwd")
+K10_PER_STEP = 12  # K10's calls in a stage-1 step: 3 pools in each of its 4 music forwards
 # stage 1's batch, sample and crop seconds (conductor_tpu/cli/train_m2snet.py)
 STAGE1_B, STAGE1_S, STAGE1_C = 10, 30, 10
 REFERENCE_M_LENS = 60  # the reference's m_lens (conductor_tpu_torch/config.py TrainConfig)
@@ -209,6 +217,9 @@ def main() -> int:
     from conductor_tpu_torch.kernel_checks import (
         K7_BAR_MS,
         K7_MASK_FLIP_SHARE,
+        K8_BAR_DEVICE_MS,
+        K10_BAR_DEVICE_MS,
+        K10_BAR_MS,
         K11_BAR_DEVICE_MS,
         K11_BAR_MS,
         check_attention_kernel,
@@ -329,12 +340,14 @@ def main() -> int:
     results += check_stage1_kernels(*stage1_kernel_inputs(m2s_kernel, music, motion_s1, starts[0]))
     m2s_kernel.load_reference_state_dict(m2s_sd)  # undo the check's BN statistics
     heads = cfg.denoiser.num_heads
-    for b, t, lens, name in ((n_train, t_train, REFERENCE_M_LENS, "linear_attention"),
-                             (2, 1800, 1800, "linear_attention_serving")):
+    for b, t, lens, name, bar in (
+            (n_train, t_train, REFERENCE_M_LENS, "linear_attention", K8_BAR_DEVICE_MS["mask"]),
+            (2, 1800, 1800, "linear_attention_serving", K8_BAR_DEVICE_MS["serving"])):
         q, k, v = (torch.from_numpy(rng.normal(size=(b, t, 128)).astype(np.float32)).cuda()
                    .to(torch.bfloat16) for _ in range(3))
         key_mask = (torch.arange(t, device="cuda")[None] < lens).float()[..., None].expand(b, t, 1)
-        results.append(check_attention_kernel(q, k, v, key_mask, heads) | {"name": name})
+        results.append(check_attention_kernel(q, k, v, key_mask, heads, bar_device_ms=bar)
+                       | {"name": name, "bar_device_ms": bar})
     for r in results:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         shape = f" {r['shape']}" if "shape" in r and "kv_dtype" not in r else ""
@@ -378,6 +391,12 @@ def main() -> int:
                   f"{r['no_slower_than_yardstick']}")
         if "kv_dtype" in r:
             print(f"[kernel]   {r['name']} {r['shape']}: bf16 q, k and v {r['kv_dtype']}")
+            print(f"[k8] {r['name']} {r['shape']}, k and v {r['kv_dtype']}, clusters of "
+                  f"{r['cluster']}: {r['ms']:.4f} ms a call by CUDA events, device "
+                  f"{r['device_ms']:.4f} ms (bar <= {r['bar_device_ms']}), "
+                  f"{r['launches_a_call']} launch a call, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), repeat bit-identical "
+                  f"{r['repeat_identical']}: bar_met {r['bar_met']} ({smi})")
         if "tie_err" in r:
             print(f"[kernel]   max_pool_bwd on tied inputs: err {r['tie_err']:.6g} (must be 0)")
         if "codes_differ" in r:
@@ -413,6 +432,18 @@ def main() -> int:
                   f"{r['device_ms']:.4f} ms (bar <= {K11_BAR_DEVICE_MS}), bound "
                   f"{r['bound_ms']:.4f} ms, tie_err {r['tie_err']:.6g}: bar_met {r['bar_met']} "
                   f"({smi})")
+        if r["name"] == "max_pool":
+            for c in r["calls"]:
+                print(f"[k10] pool {c['pool']} x {c['shape']}: {c['ms']:.4f} ms by CUDA events, "
+                      f"device {c['device_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
+                      f"({c['bound_by']}), F.max_pool2d {c['library_ms']:.4f} ms, "
+                      f"{c['launches_a_call']} launch a call, err {c['max_abs_err']:.6g} (must "
+                      f"be 0), repeat bit-identical {c['repeat_identical']}, plan {c['plan']} the "
+                      f"kernel's {c['plan_ok']} ({smi})")
+            print(f"[k10] 3 pools: {r['ms']:.4f} ms by CUDA events (bar <= {K10_BAR_MS}), device "
+                  f"{r['device_ms']:.4f} ms (bar <= {K10_BAR_DEVICE_MS}), bound "
+                  f"{r['bound_ms']:.4f} ms, F.max_pool2d {r['library_ms']:.4f} ms: bar_met "
+                  f"{r['bar_met']} ({smi})")
         if r["name"].startswith("conv_block"):
             lib = "" if r["library_ms"] is None else (
                 f"; library {r['library_ms']:.4f} ms, device {r['library_device_ms']:.4f} ms")
@@ -527,7 +558,8 @@ def main() -> int:
           f"share {[round(x * 1e3, 1) for x in times_s1]}) on {smi}")
     if not all(np.isfinite(losses_k1 + losses_s1)) or max(rel1) > TRAIN_LOSS_REL_TOL:
         raise SystemExit("chip_smoke: stage 1 on the kernel path disagrees with the plain path")
-    if min(c[k] for c in counts_s1 for k in STAGE1_KERNELS) == 0:
+    if min(c[k] for c in counts_s1 for k in STAGE1_KERNELS) == 0 or any(
+            c["max_pool"] != K10_PER_STEP for c in counts_s1):
         raise SystemExit(f"chip_smoke: a stage-1 kernel was not launched in every step: {counts_s1}")
     counts.update({k: sum(c[k] for c in counts_s1) for k in STAGE1_KERNELS if k != "conv_block"})
 

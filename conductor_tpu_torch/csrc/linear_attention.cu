@@ -17,164 +17,368 @@
 // multiple of 8 with -1e6 rows.  Here each head's 16 x 16 block is computed
 // alone and rows past T are never read.
 //
-// What bounds it on an H100: bytes.  A row of one head costs 2 * 2 * 16 *
-// 16 = 1024 FLOPs of float32 FMAs (its KV partial and its y) against 4 * 16
-// values read or written, 8-12 FLOPs a byte, below the float32 CUDA cores'
-// ~20 (67 TFLOP/s over 3.35 TB/s).  So the design reads each input once,
-// keeps the per-head reductions in shared memory and registers, and
-// spreads one clip over many blocks: two launches over a grid of (T-chunk
-// of 128 rows, head, clip), so one clip at T = 1800 is 15 * 8 blocks and
-// not the 8 of a (clip, head) grid, for 132 SMs.
-//   1 attention_partials_kernel: the chunk's k and v columns of the head
-//     in shared memory; per column its max m over the chunk and the sum s
-//     of exp(k - m), and the partial exp(k - m)^T v (16 x 16), float32,
-//     into a workspace.
-//   2 attention_rows_kernel: the clip's chunk partials of the head,
-//     combined in chunk order, each rescaled by exp(m_c - max m) (no
-//     atomics: the result does not depend on the order in which blocks
-//     run), KV = sum / s; then each row of the block's chunk: q's softmax
-//     within the head across 16 lanes, y = q_sm KV, rounded to q's dtype.
-// A half-warp owns a row or a column of the head: the max and sum of a
-// softmax are four shuffles.
+// What bounds it on an H100, by its function: bytes.  A row of one head
+// costs 2 * 2 * 16 * 16 = 1024 FLOPs of float32 FMAs (its KV partial and
+// its y) against 4 * 16 values read or written, 8-12 FLOPs a byte, below
+// the float32 CUDA cores' ~20 (67 TFLOP/s over 3.35 TB/s).  At the serving shape a call moves only
+// 3.7-5.5 MB, so latency rules: the design is ONE launch, with nothing in
+// global memory but q, k, v and y.  A thread-block cluster of S blocks
+// owns one (clip, head), over a grid of (S, H, B); rank s owns k / v rows
+// [s ceil(Tk / S), ...) and, apart, q rows [s ceil(Tq / S), ...).  The
+// caller picks S in {2, 8} (`ops.attention.cluster_size`: 8 where that
+// grid fits one wave of resident blocks, else 2): at the serving shape
+// (B H = 16) S = 8 spreads a clip over 128 SMs, while at the mask step's
+// (B H = 256) S = 2 fills the card and the combine stays small.
+// A block first stages its first kThreads q rows of the head with 16-byte
+// cp.async, to be read after the combine, then:
+//   1 partials: the block stages its k and v rows of the head with 16-byte
+//     cp.async, kChunk rows at a time, in the dtype handed over.  Thread
+//     (p, i) owns column i over the rows p, p + kStrips, ... of each chunk
+//     (a strip): its running maximum m, the sum s of exp(k - m) and the row
+//     exp(k - m) v (16 values), rescaled by exp(m_old - m_new) when a
+//     chunk raises m.  Then the strips are combined in strip order into
+//     the block's partial (per column m, s, and the 16 x 16 exp(k - m)^T v)
+//     in shared memory.  float32 throughout, no tensor-core rounding.
+//   2 combine: cluster barrier; every block reads the cluster's partials
+//     from distributed shared memory in rank order, rescales each by
+//     exp(m_s - max m) (a rank without rows has m = -inf and weight 0) and
+//     forms KV = sum / s, so every block holds bit-identical KV.
+//   3 rows: one thread a q row of the block's range (the staged ones from
+//     shared memory, any further by 16-byte loads), the per-head softmax in
+//     registers, y = q_sm KV with KV read from shared memory as
+//     broadcasts, y stored in q's dtype with 16-byte stores.  A last
+//     cluster barrier keeps each block's partial alive while its peers
+//     read it.
+// Every sum runs in a fixed order and there are no atomics: a repeat is
+// bit-identical.  The launch bounds hold a thread to 64 registers, so that
+// kMinBlocks blocks share an SM and hide each other's latency; the KV rows
+// of phase 3 are read by loads the compiler may not hoist out of the row
+// loop (it would keep all 256 values live and spill).  On the card the
+// serving shape is bound by the latency of that chain and the mask step's
+// by instruction throughput, so the exponentials run on the SFU and a q
+// row's softmax takes one reciprocal, not 16 divisions.  `__expf(x)` is
+// within 2 + floor(|1.173 x|) ulp of exp(x) (CUDA's programming guide), so
+// its relative error grows with |x|: ~1.7e-6 at x = -10, where the weight
+// is already e^-10 of the largest; every argument here is x - max <= 0.
+// The output, in q's dtype, rounds far coarser for bf16 q
+// (scripts/k8_variants.py measures the tuning constants, and the accurate
+// `expf` with divisions beside this version's error).
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kDh = 16;                 // head width (ops/attention.py HEAD_DIM)
-constexpr int kChunk = 128;             // rows of one block (ops/attention.py CHUNK)
-constexpr int kThreads = kDh * kDh;     // thread (i, j) = (threadIdx.x / 16, threadIdx.x % 16)
-constexpr int kLd = kDh + 1;            // shared row stride: a column's rows on distinct banks
-constexpr int kPart = (2 + kDh) * kDh;  // floats of one chunk's partial: m, s, KV
+constexpr int kDh = 16;                  // head width (ops/attention.py HEAD_DIM)
+constexpr int kThreads = 256;            // thread (p, i) = (tid / 16, tid % 16) in phase 1
+constexpr int kMinBlocks = 4;            // blocks an SM the launch bounds ask for
+constexpr int kStrips = kThreads / kDh;  // row strips of a chunk
+constexpr int kChunk = 256;              // k / v rows staged at once
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
-__device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(bf16* p, float v) { *p = __float2bfloat16(v); }
-
-// max / sum over the 16 lanes of a half-warp
-__device__ __forceinline__ float group_max(float v) {
-#pragma unroll
-  for (int o = kDh / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = kDh / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
+// Dynamic shared bytes: a chunk's k and v rows (after the last chunk, the
+// strips' partials), then the staged q rows.
 template <typename KT>
-__global__ void __launch_bounds__(kThreads)
-attention_partials_kernel(const KT* __restrict__ k, const KT* __restrict__ v,
-                          float* __restrict__ part, int T, int H) {
-  __shared__ float k_s[kChunk * kLd];
-  __shared__ float v_s[kChunk * kLd];
-  const int chunk = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int D = H * kDh;
-  const int row0 = chunk * kChunk;
-  const int n_rows = min(kChunk, T - row0);
-  const size_t base = ((size_t)b * T + row0) * D + h * kDh;
-  for (int e = threadIdx.x; e < n_rows * kDh; e += kThreads) {
-    const int r = e / kDh, c = e % kDh;
-    k_s[r * kLd + c] = ld(k + base + (size_t)r * D + c);
-    v_s[r * kLd + c] = ld(v + base + (size_t)r * D + c);
-  }
-  __syncthreads();
-  // column i of k, over the rows j, j + 16, ... of this thread
-  const int i = threadIdx.x / kDh, j = threadIdx.x % kDh;
-  float m = -CUDART_INF_F;
-  for (int r = j; r < n_rows; r += kDh) m = fmaxf(m, k_s[r * kLd + i]);
-  m = group_max(m);
-  float s = 0.f;
-  for (int r = j; r < n_rows; r += kDh) {
-    const float e = expf(k_s[r * kLd + i] - m);
-    k_s[r * kLd + i] = e;
-    s += e;
-  }
-  s = group_sum(s);
-  __syncthreads();
-  float acc = 0.f;  // (i, j) of sum_r exp(k[r][i] - m_i) v[r][j]
-  for (int r = 0; r < n_rows; ++r) acc = fmaf(k_s[r * kLd + i], v_s[r * kLd + j], acc);
-  float* p = part + (((size_t)b * H + h) * gridDim.x + chunk) * kPart;
-  if (j == 0) {
-    p[i] = m;
-    p[kDh + i] = s;
-  }
-  p[2 * kDh + i * kDh + j] = acc;
+__host__ __device__ constexpr int stage_bytes() {
+  return 2 * kChunk * kDh * (int)sizeof(KT) > kStrips * kDh * (2 + kDh) * (int)sizeof(float)
+             ? 2 * kChunk * kDh * (int)sizeof(KT)
+             : kStrips * kDh * (2 + kDh) * (int)sizeof(float);
+}
+template <typename QT, typename KT>
+__host__ __device__ constexpr int smem_bytes() {
+  return stage_bytes<KT>() + kThreads * kDh * (int)sizeof(QT);
 }
 
-template <typename QT>
-__global__ void __launch_bounds__(kThreads)
-attention_rows_kernel(const QT* __restrict__ q, const float* __restrict__ part,
-                      QT* __restrict__ out, int T, int H, int n_chunks) {
-  __shared__ float kv_s[kDh * kDh];
-  const int chunk = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int D = H * kDh;
-  const int i = threadIdx.x / kDh, j = threadIdx.x % kDh;
-  const float* p = part + ((size_t)b * H + h) * n_chunks * kPart;
-  float m = -CUDART_INF_F;
-  for (int c = 0; c < n_chunks; ++c) m = fmaxf(m, p[c * kPart + i]);
-  float s = 0.f, acc = 0.f;
-  for (int c = 0; c < n_chunks; ++c) {
-    const float w = expf(p[c * kPart + i] - m);
-    s = fmaf(p[c * kPart + kDh + i], w, s);
-    acc = fmaf(p[c * kPart + 2 * kDh + i * kDh + j], w, acc);
-  }
-  kv_s[i * kDh + j] = acc / s;
-  __syncthreads();
-  const int row0 = chunk * kChunk;
-  const int n_rows = min(kChunk, T - row0);
-  // half-warp i takes rows i, i + 16, ...; lane j holds feature j.  Every
-  // lane runs every round (the shuffles need the whole warp).
-  for (int r0 = 0; r0 < n_rows; r0 += kThreads / kDh) {
-    const int r = r0 + i;
-    const bool valid = r < n_rows;
-    const size_t at = ((size_t)b * T + row0 + r) * D + h * kDh + j;
-    const float x = valid ? ld(q + at) : 0.f;
-    const float e = expf(x - group_max(x));
-    const float qs = e / group_sum(e);
-    float y = 0.f;
+// A block's partial over its k / v rows: per column its max m and sum s of
+// exp(k - m), and the 16 x 16 sum of exp(k - m)^T v.
+struct Partial {
+  float m[kDh];
+  float s[kDh];
+  float kv[kDh * kDh];
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ float scalar(const float* p) { return *p; }
+__device__ __forceinline__ float scalar(const bf16* p) { return __bfloat162float(*p); }
+
+// 16 consecutive values (16-byte aligned) as float32, by 16-byte loads
+__device__ __forceinline__ void load_row(const float* p, float (&o)[kDh]) {
 #pragma unroll
-    for (int d = 0; d < kDh; ++d)
-      y = fmaf(__shfl_sync(0xffffffffu, qs, d, kDh), kv_s[d * kDh + j], y);
-    if (valid) st(out + at, y);
+  for (int i = 0; i < kDh / 4; ++i) {
+    const float4 f = reinterpret_cast<const float4*>(p)[i];
+    o[4 * i] = f.x;
+    o[4 * i + 1] = f.y;
+    o[4 * i + 2] = f.z;
+    o[4 * i + 3] = f.w;
+  }
+}
+__device__ __forceinline__ void load_row(const bf16* p, float (&o)[kDh]) {
+#pragma unroll
+  for (int i = 0; i < kDh / 8; ++i) {
+    const uint4 u = reinterpret_cast<const uint4*>(p)[i];
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+      o[8 * i + 2 * j] = f.x;
+      o[8 * i + 2 * j + 1] = f.y;
+    }
   }
 }
 
-template <typename KT>
-void launch_partials(const void* k, const void* v, float* part, int B, int T, int H,
-                     cudaStream_t s) {
-  attention_partials_kernel<KT><<<dim3(ceil_div(T, kChunk), H, B), kThreads, 0, s>>>(
-      static_cast<const KT*>(k), static_cast<const KT*>(v), part, T, H);
+// 16 values to 16 consecutive outputs (16-byte aligned), by 16-byte stores
+__device__ __forceinline__ void store_row(float* p, const float (&y)[kDh]) {
+#pragma unroll
+  for (int i = 0; i < kDh / 4; ++i)
+    reinterpret_cast<float4*>(p)[i] = make_float4(y[4 * i], y[4 * i + 1], y[4 * i + 2], y[4 * i + 3]);
+}
+__device__ __forceinline__ void store_row(bf16* p, const float (&y)[kDh]) {
+#pragma unroll
+  for (int i = 0; i < kDh / 8; ++i) {
+    uint32_t w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(y[8 * i + 2 * j], y[8 * i + 2 * j + 1]);
+      w[j] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    reinterpret_cast<uint4*>(p)[i] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
 }
 
-template <typename QT>
-void launch_rows(const void* q, const float* part, void* out, int B, int T, int H, int n_chunks,
-                 cudaStream_t s) {
-  attention_rows_kernel<QT><<<dim3(ceil_div(T, kChunk), H, B), kThreads, 0, s>>>(
-      static_cast<const QT*>(q), part, static_cast<QT*>(out), T, H, n_chunks);
+// A KV row from shared memory, by 16-byte loads the compiler may not hoist:
+// the row loop would otherwise keep all 256 KV values live and spill.
+__device__ __forceinline__ void kv_row(const float* p, float (&o)[kDh]) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+#pragma unroll
+  for (int i = 0; i < kDh / 4; ++i)
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(o[4 * i]), "=f"(o[4 * i + 1]), "=f"(o[4 * i + 2]), "=f"(o[4 * i + 3])
+                 : "r"(a + 16 * i)
+                 : "memory");
+}
+
+// exp(m - M), or 0 for a partial without rows (m = -inf)
+__device__ __forceinline__ float weight(float m, float M) {
+  return m == -CUDART_INF_F ? 0.f : __expf(m - M);
+}
+
+// q (B, Tq, D), k and v (B, Tk, D), out like q; grid (S, H, B) in
+// clusters of (S, 1, 1).
+template <typename QT, typename KT, int S>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k, const KT* __restrict__ v,
+                 QT* __restrict__ out, int Tq, int Tk, int H) {
+  constexpr int kVec = 16 / sizeof(KT);   // values a 16-byte piece
+  constexpr int kPieces = kDh / kVec;     // pieces a row of the head
+  constexpr int kQVec = 16 / sizeof(QT);  // and of q
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* stage = smem;  // the chunk's k and v rows, then the strips' partials
+  QT* q_s = reinterpret_cast<QT*>(smem + stage_bytes<KT>());  // [kThreads][kDh]
+  __shared__ Partial part;  // this block's, read by the whole cluster
+  __shared__ __align__(16) float kv_s[kDh * kDh];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = blockIdx.x, h = blockIdx.y, D = H * kDh;
+  const size_t b = blockIdx.z;
+  const int tid = threadIdx.x, p = tid / kDh, i = tid % kDh;
+
+  // this rank's q rows [q0, q1); the first kThreads staged now, one a thread
+  const int qper = (Tq + S - 1) / S;
+  const int q0 = min(Tq, rank * qper), q1 = min(Tq, q0 + qper);
+  const QT* qb = q + b * Tq * D + h * kDh;
+  if (q0 + tid < q1) {
+#pragma unroll
+    for (int c = 0; c < kDh; c += kQVec) cp_async16(q_s + tid * kDh + c, qb + (q0 + tid) * D + c);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  // 1. partials over this rank's k / v rows [r0, r1)
+  const int kper = (Tk + S - 1) / S;
+  const int r0 = min(Tk, rank * kper), r1 = min(Tk, r0 + kper);
+  const KT* kb = k + b * Tk * D + h * kDh;
+  const KT* vb = v + b * Tk * D + h * kDh;
+  KT* ks = reinterpret_cast<KT*>(stage);  // [kChunk][kDh]
+  KT* vs = ks + kChunk * kDh;
+  float m = -CUDART_INF_F, s = 0.f, acc[kDh];
+#pragma unroll
+  for (int j = 0; j < kDh; ++j) acc[j] = 0.f;
+  for (int c0 = r0; c0 < r1; c0 += kChunk) {
+    const int n = min(kChunk, r1 - c0);
+    for (int e = tid; e < n * kPieces; e += kThreads) {
+      const int r = e / kPieces, at = r * kDh + e % kPieces * kVec, g = (c0 + r) * D + at % kDh;
+      cp_async16(ks + at, kb + g);
+      cp_async16(vs + at, vb + g);
+    }
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+    float cm = -CUDART_INF_F;  // column i's maximum over the strip's rows of the chunk
+    for (int r = p; r < n; r += kStrips) cm = fmaxf(cm, scalar(ks + r * kDh + i));
+    if (cm > m) {
+      const float sc = __expf(m - cm);
+      s *= sc;
+#pragma unroll
+      for (int j = 0; j < kDh; ++j) acc[j] *= sc;
+      m = cm;
+    }
+    for (int r = p; r < n; r += kStrips) {
+      const float e = __expf(scalar(ks + r * kDh + i) - m);
+      float vr[kDh];
+      load_row(vs + r * kDh, vr);
+      s += e;
+#pragma unroll
+      for (int j = 0; j < kDh; ++j) acc[j] = fmaf(e, vr[j], acc[j]);
+    }
+    __syncthreads();  // the chunk is read before the next one (or the scratch) lands
+  }
+  float* sm = reinterpret_cast<float*>(stage);  // [kStrips][kDh]
+  float* ss = sm + kStrips * kDh;               // [kStrips][kDh]
+  float* sa = ss + kStrips * kDh;               // [kStrips][kDh][kDh]
+  sm[tid] = m;
+  ss[tid] = s;
+#pragma unroll
+  for (int j = 0; j < kDh; j += 4)
+    *reinterpret_cast<float4*>(sa + tid * kDh + j) = make_float4(acc[j], acc[j + 1], acc[j + 2], acc[j + 3]);
+  __syncthreads();
+  // the strips in strip order, a thread an entry (ci, cj) of KV
+  for (int e = tid; e < kDh * kDh; e += kThreads) {
+    const int ci = e / kDh, cj = e % kDh;
+    float M = -CUDART_INF_F;
+#pragma unroll
+    for (int r = 0; r < kStrips; ++r) M = fmaxf(M, sm[r * kDh + ci]);
+    float den = 0.f, num = 0.f;
+#pragma unroll
+    for (int r = 0; r < kStrips; ++r) {
+      const float w = weight(sm[r * kDh + ci], M);
+      den = fmaf(ss[r * kDh + ci], w, den);
+      num = fmaf(sa[(r * kDh + ci) * kDh + cj], w, num);
+    }
+    part.kv[e] = num;
+    if (cj == 0) {
+      part.m[ci] = M;
+      part.s[ci] = den;
+    }
+  }
+
+  // 2. combine the cluster's partials in rank order
+  cluster.sync();
+  for (int e = tid; e < kDh * kDh; e += kThreads) {
+    const int ci = e / kDh;
+    float mr[S], sr[S], ar[S];
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      const Partial* peer = cluster.map_shared_rank(&part, r);
+      mr[r] = peer->m[ci];
+      sr[r] = peer->s[ci];
+      ar[r] = peer->kv[e];
+    }
+    float M = -CUDART_INF_F;
+#pragma unroll
+    for (int r = 0; r < S; ++r) M = fmaxf(M, mr[r]);
+    float den = 0.f, num = 0.f;
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      const float w = weight(mr[r], M);
+      den = fmaf(sr[r], w, den);
+      num = fmaf(ar[r], w, num);
+    }
+    kv_s[e] = num / den;
+  }
+  __syncthreads();
+
+  // 3. this rank's q rows: softmax within the head, y = q_sm KV
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // the staged q rows
+  QT* ob = out + b * Tq * D + h * kDh;
+  for (int r = q0 + tid; r < q1; r += kThreads) {
+    float x[kDh];
+    if (r < q0 + kThreads) load_row(q_s + tid * kDh, x);
+    else load_row(qb + r * D, x);
+    float mx = x[0];
+#pragma unroll
+    for (int d = 1; d < kDh; ++d) mx = fmaxf(mx, x[d]);
+    float sum = 0.f;
+#pragma unroll
+    for (int d = 0; d < kDh; ++d) {
+      x[d] = __expf(x[d] - mx);
+      sum += x[d];
+    }
+    const float inv = 1.f / sum;
+    float y[kDh];
+#pragma unroll
+    for (int j = 0; j < kDh; ++j) y[j] = 0.f;
+#pragma unroll
+    for (int d = 0; d < kDh; ++d) {
+      float kvr[kDh];
+      kv_row(kv_s + d * kDh, kvr);
+      const float qs = x[d] * inv;
+#pragma unroll
+      for (int j = 0; j < kDh; ++j) y[j] = fmaf(qs, kvr[j], y[j]);
+    }
+    store_row(ob + r * D, y);
+  }
+  cluster.sync();  // the peers are done reading this block's partial
+}
+
+template <typename QT, typename KT, int S>
+int launch(const void* q, const void* k, const void* v, void* out, int B, int Tq, int Tk, int H,
+           cudaStream_t s) {
+  auto kernel = attention_kernel<QT, KT, S>;
+  constexpr int smem = smem_bytes<QT, KT>();
+  static bool attribute_set = false;  // once per instantiation
+  if (!attribute_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    attribute_set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S, H, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = S;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kernel, static_cast<const QT*>(q), static_cast<const KT*>(k),
+                         static_cast<const KT*>(v), static_cast<QT*>(out), Tq, Tk, H);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+template <int S>
+int launch_dtypes(const void* q, const void* k, const void* v, void* out, int B, int Tq, int Tk,
+                  int H, int q_bf16, int kv_bf16, cudaStream_t s) {
+  if (q_bf16)
+    return kv_bf16 ? launch<bf16, bf16, S>(q, k, v, out, B, Tq, Tk, H, s)
+                   : launch<bf16, float, S>(q, k, v, out, B, Tq, Tk, H, s);
+  return kv_bf16 ? launch<float, bf16, S>(q, k, v, out, B, Tq, Tk, H, s)
+                 : launch<float, float, S>(q, k, v, out, B, Tq, Tk, H, s);
 }
 
 }  // namespace
 
-// q (B, Tq, 16 H), k and v (B, Tk, 16 H), row-major; out like q; workspace
-// (B, H, ceil(Tk / 128), 288) float32.
+// q (B, Tq, 16 H), k and v (B, Tk, 16 H), row-major, each 16-byte aligned;
+// out like q; `cluster` blocks a (clip, head), 2 or 8.  One launch.
 CT_EXPORT int linear_attention_forward(const void* q, const void* k, const void* v, void* out,
-                                       void* workspace, int B, int Tq, int Tk, int H, int q_bf16,
+                                       int B, int Tq, int Tk, int H, int cluster, int q_bf16,
                                        int kv_bf16, void* stream) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* part = static_cast<float*>(workspace);
-  if (kv_bf16)
-    launch_partials<bf16>(k, v, part, B, Tk, H, s);
-  else
-    launch_partials<float>(k, v, part, B, Tk, H, s);
-  const int n_chunks = ceil_div(Tk, kChunk);
-  if (q_bf16)
-    launch_rows<bf16>(q, part, out, B, Tq, H, n_chunks, s);
-  else
-    launch_rows<float>(q, part, out, B, Tq, H, n_chunks, s);
-  return (int)cudaGetLastError();
+  switch (cluster) {
+    case 2: return launch_dtypes<2>(q, k, v, out, B, Tq, Tk, H, q_bf16, kv_bf16, s);
+    case 8: return launch_dtypes<8>(q, k, v, out, B, Tq, Tk, H, q_bf16, kv_bf16, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -2,10 +2,9 @@
 // first-max backward.
 //
 // K10 replaces conductor_tpu/ops/pallas_pool.py::fused_max_pool (pallas_call
-// at :191): the window maxima with -inf padding, one thread an output
-// element, on the bf16 input (the training path's pool after BatchNorm;
-// the serving blocks pool in K4's epilogue, conv_block.cu).  Bytes bound it:
-// it reads x (within a window from L1 / L2 again) and writes the output once.
+// at :191): the window maxima with -inf padding, on the bf16 input (the
+// training path's pool after BatchNorm; the serving blocks pool in K4's
+// epilogue, conv_block.cu).
 //
 // K11 replaces conductor_tpu/ops/pallas_pool.py::_make_pool_op's backward
 // (kernel `_pool_bwd_kernel`, pallas_call at :386).  The whole cotangent of
@@ -17,21 +16,32 @@
 // PyTorch's max_pool2d backward breaks ties its own way, and post-ReLU zero
 // plateaus are common, so the routing is written out here.
 //
-// Layout: x (B, T, F, C) and dx bf16 NHWC, dy (B, To, Fo, C) bf16; window,
-// stride and padding as `max_pool_forward` takes them.
+// Layout: x (B, T, F, C), out (B, To, Fo, C), dy like out and dx like x,
+// all bf16 NHWC; window, stride and padding as the entry points take them.
 //
-// What bounds K11 on an H100: bytes.  It must read x and dy once and write
-// dx once; its compares and adds are a few dozen a value.  Design: one
-// launch a call, separable like the TPU kernel, nothing in global memory
-// but x, dy and dx.  A block owns a tile of input rows of one clip (and,
-// for wide rows, a range of columns) and walks the output rows (windows)
-// that cover it, recomputing the few that reach past its edge.  One thread
-// owns one 8-channel column vector (16 bytes) of the tile:
-//   1. time: it stages its column's x rows into a shared-memory ring with
-//      16-byte cp.async, one window ahead, and takes each window row's
-//      time maximum of its column and the first tap attaining it (bf16x2
-//      max and compare, exact), keeping the tap in registers and staging
-//      the maximum in shared memory;
+// What bounds both on an H100: bytes.  K10 must read x once and write the
+// output once, K11 read x and dy once and write dx once; their compares and
+// adds are a few dozen a value.  Both are one launch a call, separable like
+// the TPU kernel, with nothing in global memory but their operands, and
+// share one staging design.  One thread owns one 8-channel column vector
+// (16 bytes) of a block's staged input row: it brings its column's x rows
+// into a shared-memory ring with 16-byte cp.async, one window ahead (rows
+// outside [0, T) become -inf there, with no global read), and takes each
+// window's time maximum of its column with bf16x2 max (exact), staged in
+// shared memory between PF -inf columns each side; a window thread then
+// takes the maximum over its WF staged columns.
+//
+// K10: a block owns a tile of OUTPUT rows of one clip (and, for wide rows,
+// a chunk of output columns, staging their input columns with the halo),
+// so each window is computed once; it walks its windows, double-buffering
+// the time maxima so that one barrier a window does, and writes each
+// output vector with one 16-byte store.
+//
+// K11: a block owns a tile of INPUT rows of one clip (and, for wide rows,
+// a range of columns) and walks the output rows (windows) that cover it,
+// recomputing the few that reach past its edge:
+//   1. time: the window maximum of its column and the first tap attaining
+//      it (bf16x2 compare, exact), the tap kept in registers;
 //   2. freq: per window, a thread takes the maximum of its WF staged column
 //      maxima and the first column attaining it, a one-hot code in shared
 //      memory, beside the window's dy (cp.async, one window ahead);
@@ -42,51 +52,36 @@
 //      windows ascending); a row no later window covers is written as bf16
 //      with one 16-byte store, and the rest move up by the time stride.
 // No atomics and no cross-block sums: a repeat is bit-identical and
-// sum dx == sum dy.  The channels, window, strides and padding are template
-// parameters (the encoder's three pools, C 16 or 32), so no inner loop
+// sum dx == sum dy.
+//
+// The channels, window, strides and padding are template parameters (the
+// encoder's three pools, C 16 or 32: POOL_INSTANCES), so no inner loop
 // divides by a runtime value; index math is 32-bit but for the clip's base
-// offset.  `ops.max_pool.bwd_plan` chooses the rows a tile and the columns a
-// block and says what each block stages.
+// offset.  `ops.max_pool.fwd_plan` / `bwd_plan` choose the rows a tile and
+// the columns a block and say what each block stages; `max_pool_fwd_plan`
+// reports K10's ranges from the kernel's own formulas.
 
 #include <stdint.h>
 
 #include "common.cuh"
 
+// The encoder's pools (models/music_encoder.py POOLS: conv1, conv2, conv3)
+// at C = 16 and 32, as X(C, WT, WF, ST, SF, PT, PF): the kernels' instances.
+#define POOL_INSTANCES(X)   \
+  X(16, 5, 5, 1, 2, 2, 2)   \
+  X(32, 5, 5, 1, 2, 2, 2)   \
+  X(16, 5, 5, 3, 2, 2, 2)   \
+  X(32, 5, 5, 3, 2, 2, 2)   \
+  X(16, 3, 3, 1, 2, 1, 1)   \
+  X(32, 3, 3, 1, 2, 1, 1)
+
 namespace {
 
-// Max-pool with -inf padding: every window holds at least one real element.
-__global__ void max_pool_kernel(const bf16* __restrict__ y, bf16* __restrict__ out,
-                                int B, int T, int F, int C, int To, int Fo,
-                                int wt, int wf, int st, int sf, int pt, int pf) {
-  const size_t n = (size_t)B * To * Fo * C;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int c = i % C;
-    const int fo = (i / C) % Fo;
-    const int to = (i / ((size_t)C * Fo)) % To;
-    const int b = i / ((size_t)C * Fo * To);
-    float m = -CUDART_INF_F;
-    for (int dt = 0; dt < wt; ++dt) {
-      const int t = to * st - pt + dt;
-      if (t < 0 || t >= T) continue;
-      for (int df = 0; df < wf; ++df) {
-        const int f = fo * sf - pf + df;
-        if (f < 0 || f >= F) continue;
-        m = fmaxf(m, __bfloat162float(y[(((size_t)b * T + t) * F + f) * C + c]));
-      }
-    }
-    out[i] = __float2bfloat16(m);
-  }
-}
-
-int grid_for(size_t n) {
-  return (int)((n + 255) / 256 < 65535 * 8 ? (n + 255) / 256 : 65535 * 8);
-}
-
-// ---- K11 ------------------------------------------------------------------
-
-constexpr int kBwdMaxThreads = 256;  // one thread a staged 8-channel column vector
+constexpr int kPoolMaxThreads = 256;  // one thread a staged 8-channel column vector
+constexpr int kFwdBlocksPerSm = 4;    // K10's launch bounds (ops/max_pool.py FWD_BLOCKS_PER_SM)
 constexpr uint32_t kNegInf2 = 0xFF80FF80u;  // two bf16 -inf
+
+// ---- shared by K10 and K11 --------------------------------------------------
 
 // cp.async with the compiler barred from moving shared-memory accesses
 // across it: a thread reads back its own copies after `wait` without a
@@ -105,6 +100,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+__device__ __forceinline__ uint4 neg_inf4() {
+  return make_uint4(kNegInf2, kNegInf2, kNegInf2, kNegInf2);
+}
 __device__ __forceinline__ __nv_bfloat162 as_b2(uint32_t u) {
   return *reinterpret_cast<const __nv_bfloat162*>(&u);
 }
@@ -132,17 +130,193 @@ __device__ __forceinline__ int first_cover(int i) {
   return n <= 0 ? 0 : (n + S - 1) / S;
 }
 
+// The x ring's rows: a window's WT rows and the next window's ST new ones,
+// in whole strides.
+template <int WT, int ST>
+__host__ __device__ constexpr int ring_rows() {
+  return (WT + 2 * ST - 1) / ST * ST;
+}
+
+// x row r of a thread's column (`col`, rows `row_stride` apart), ring
+// position rel, into the thread's slot of the ring (n threads a row):
+// 16-byte cp.async, or -inf outside [0, T) with no global read.
+template <int RX>
+__device__ __forceinline__ void stage_row(uint4* ring, int n, int tid, int rel, int r, int T,
+                                          const bf16* col, int row_stride) {
+  uint4* dst = ring + (rel % RX) * n + tid;
+  if (r >= 0 && r < T) cp_async16(dst, col + r * row_stride);
+  else *dst = neg_inf4();
+}
+
+// The WT staged rows of window w (ring position w * ST on) of a thread's column.
+template <int WT, int ST, int RX>
+__device__ __forceinline__ void window_rows(const uint4* ring, int n, int tid, int w,
+                                            uint4 (&v)[WT]) {
+#pragma unroll
+  for (int dt = 0; dt < WT; ++dt) v[dt] = ring[((w * ST + dt) % RX) * n + tid];
+}
+
+// A window's WF time maxima from its first column's (`t`), V vectors a column.
+template <int WF, int V>
+__device__ __forceinline__ void window_cols(const uint4* t, uint4 (&v)[WF]) {
+#pragma unroll
+  for (int df = 0; df < WF; ++df) v[df] = t[df * V];
+}
+
+// bf16x2 maximum of W vectors (exact)
+template <int W>
+__device__ __forceinline__ uint4 max_of(const uint4 (&v)[W]) {
+  uint4 m = v[0];
+#pragma unroll
+  for (int i = 1; i < W; ++i) {
+    m.x = max2(m.x, v[i].x);
+    m.y = max2(m.y, v[i].y);
+    m.z = max2(m.z, v[i].z);
+    m.w = max2(m.w, v[i].w);
+  }
+  return m;
+}
+
+// The PF -inf columns each side of a row of ncol staged time maxima.
+template <int PF, int V>
+__device__ __forceinline__ void pad_columns(uint4* tmv, int ncol, int tid) {
+  if (tid < PF * V) {
+    tmv[tid] = neg_inf4();
+    tmv[PF * V + ncol + tid] = neg_inf4();
+  }
+}
+
+// ---- K10 --------------------------------------------------------------------
+
+// Tile i of `per` outputs along one axis of n_in inputs and n_out outputs
+// (window W, stride S, padding P): outputs [lo, hi), and the inputs their
+// windows read within [0, n_in), [x0, x1).  The kernel and
+// `max_pool_fwd_plan` (and `ops.max_pool.fwd_plan`) share it.
+struct Span {
+  int lo, hi, x0, x1;
+};
+__host__ __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ __forceinline__ Span fwd_span(int i, int per, int n_in, int n_out, int W, int S,
+                                                  int P) {
+  const int lo = i * per, hi = imin(n_out, lo + per);
+  return {lo, hi, imax(0, lo * S - P), imin(n_in, (hi - 1) * S - P + W)};
+}
+
+// One block: clip blockIdx.z, output rows (windows) tile blockIdx.x of
+// `rows`, output columns chunk blockIdx.y of `cols`.  Shared memory (16-byte
+// units, blockDim.x = N threads): the x ring [RX][N] and the time maxima
+// of two windows over the staged columns with PF -inf columns each side,
+// [2][N + 2 PF V].
+template <int C, int WT, int WF, int ST, int SF, int PT, int PF>
+__global__ void __launch_bounds__(kPoolMaxThreads, kFwdBlocksPerSm)
+pool_fwd_kernel(const bf16* __restrict__ x, bf16* __restrict__ out, int T, int F, int To, int Fo,
+                int rows, int cols) {
+  constexpr int V = C / 8;  // 16-byte vectors a (t, f)
+  constexpr int RX = ring_rows<WT, ST>();
+  static_assert(C % 8 == 0 && ST <= WT && SF <= WF && PT < WT && PF < WF, "pool geometry");
+  static_assert(2 * PF <= WF - 1, "pool geometry");
+
+  extern __shared__ uint4 smem[];
+  const int n = blockDim.x, tid = threadIdx.x;
+  const int tw = n + 2 * PF * V;  // one window's time maxima
+  uint4* xs = smem;               // [RX][n]
+  uint4* tmv = xs + RX * n;       // [2][tw]
+
+  const Span rs = fwd_span(blockIdx.x, rows, T, To, WT, ST, PT);
+  const Span cs = fwd_span(blockIdx.y, cols, F, Fo, WF, SF, PF);
+  const int nw = rs.hi - rs.lo, xr0 = rs.lo * ST - PT;  // x rows from xr0 (-inf before 0)
+  const int ncol = (cs.x1 - cs.x0) * V, nwin = (cs.hi - cs.lo) * V;
+  const int c8 = tid % V;
+  const bool col_thread = tid < ncol, win_thread = tid < nwin;
+  const int q = cs.x0 + tid / V;   // a column thread's column
+  const int fo = cs.lo + tid / V;  // a window thread's window
+
+  const int xrow = F * C, orow = Fo * C;
+  const size_t clip = blockIdx.z;
+  const bf16* xq = x + clip * T * xrow + q * C + c8 * 8;
+  bf16* oq = out + (clip * To + rs.lo) * orow + fo * C + c8 * 8;
+
+  pad_columns<PF, V>(tmv, ncol, tid);
+  pad_columns<PF, V>(tmv + tw, ncol, tid);
+  if (col_thread) {
+#pragma unroll
+    for (int i = 0; i < WT; ++i) stage_row<RX>(xs, n, tid, i, xr0 + i, T, xq, xrow);
+  }
+  cp_async_commit();
+
+  for (int w = 0; w < nw; ++w) {  // window rs.lo + w
+    if (col_thread && w + 1 < nw) {
+#pragma unroll
+      for (int i = 0; i < ST; ++i) {  // the next window's new rows
+        const int rel = w * ST + WT + i;
+        stage_row<RX>(xs, n, tid, rel, xr0 + rel, T, xq, xrow);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this window's x rows are in
+    uint4* tm = tmv + (w & 1) * tw;
+    if (col_thread) {
+      uint4 v[WT];
+      window_rows<WT, ST, RX>(xs, n, tid, w, v);
+      tm[PF * V + tid] = max_of(v);
+    }
+    // the time maxima in; the window before the last is done with the other buffer
+    __syncthreads();
+    if (win_thread) {
+      uint4 v[WF];
+      window_cols<WF, V>(tm + (fo * SF - cs.x0) * V + c8, v);
+      *reinterpret_cast<uint4*>(oq + w * orow) = max_of(v);
+    }
+  }
+}
+
+// The shared bytes of a K10 block of `threads` threads (as fwd_plan counts them).
+template <int C, int WT, int WF, int ST, int SF, int PT, int PF>
+int fwd_smem(int threads) {
+  return (ring_rows<WT, ST>() * threads + 2 * (threads + 2 * PF * (C / 8))) * 16;
+}
+
+// Whether a K10 launch of `threads` threads a block holds each block's
+// staged column vectors: a full chunk of `cols` windows stages at most
+// (cols - 1) SF + WF columns.
+template <int C, int WT, int WF, int ST, int SF, int PT, int PF>
+bool fwd_threads_ok(int F, int cols, int threads) {
+  return imin(F, (cols - 1) * SF + WF) * (C / 8) <= threads && cols * (C / 8) <= threads;
+}
+
+template <int C, int WT, int WF, int ST, int SF, int PT, int PF>
+int launch_fwd(const bf16* x, bf16* out, int B, int T, int F, int To, int Fo, int rows, int cols,
+               int threads, cudaStream_t s) {
+  if (!fwd_threads_ok<C, WT, WF, ST, SF, PT, PF>(F, cols, threads))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = pool_fwd_kernel<C, WT, WF, ST, SF, PT, PF>;
+  const int smem = fwd_smem<C, WT, WF, ST, SF, PT, PF>(threads);
+  static int smem_set = 48 * 1024;  // the default limit; raised once per instantiation
+  if (smem > smem_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  const dim3 grid(ceil_div(To, rows), ceil_div(Fo, cols), B);
+  kernel<<<grid, threads, smem, s>>>(x, out, T, F, To, Fo, rows, cols);
+  return (int)cudaGetLastError();
+}
+
+// ---- K11 --------------------------------------------------------------------
+
 // One block: clip blockIdx.z, input rows [t0, t0 + rows), owned columns
 // [q0, q0 + cols).  Shared memory (16-byte units, blockDim.x = N threads):
 // the x ring [RX][N], the time maxima of one window row over the staged
 // columns and PF -inf columns each side [N + 2 PF V], the window codes
 // [N] and dy of two window rows [2][N].
 template <int C, int WT, int WF, int ST, int SF, int PT, int PF>
-__global__ void __launch_bounds__(kBwdMaxThreads, 2)
+__global__ void __launch_bounds__(kPoolMaxThreads, 2)
 pool_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy, bf16* __restrict__ dx,
                 int T, int F, int To, int Fo, int rows, int cols) {
   constexpr int V = C / 8;                         // 16-byte vectors a (t, f)
-  constexpr int RX = (WT + 2 * ST - 1) / ST * ST;  // x ring: a window's rows and the next's new
+  constexpr int RX = ring_rows<WT, ST>();          // x ring: a window's rows and the next's new
   constexpr int NC = (WF + SF - 1) / SF;           // windows covering a column, at most
   static_assert(C % 8 == 0 && ST <= WT && SF <= WF && PT < WT && PF < WF, "pool geometry");
   // every input row and column lies in a window, and a block's windows are
@@ -179,23 +353,11 @@ pool_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy, bf16* _
   const bf16* xq = x + clip * T * xrow + q * C + c8 * 8;
   const bf16* dyq = dy + clip * To * dyrow + fo * C + c8 * 8;
   bf16* dxq = dx + clip * T * xrow + q * C + c8 * 8;
-  const uint4 ninf = make_uint4(kNegInf2, kNegInf2, kNegInf2, kNegInf2);
 
-  // x row xr0 + rel of the thread's column into its ring slot (-inf outside)
-  auto stage_x = [&](int rel) {
-    const int r = xr0 + rel;
-    uint4* dst = xs + (rel % RX) * n + tid;
-    if (r >= 0 && r < T) cp_async16(dst, xq + r * xrow);
-    else *dst = ninf;
-  };
-
-  if (tid < PF * V) {  // the -inf columns each side of the time maxima
-    tmv[tid] = ninf;
-    tmv[PF * V + ncol + tid] = ninf;
-  }
+  pad_columns<PF, V>(tmv, ncol, tid);
   if (col_thread) {
 #pragma unroll
-    for (int i = 0; i < WT; ++i) stage_x(i);
+    for (int i = 0; i < WT; ++i) stage_row<RX>(xs, n, tid, i, xr0 + i, T, xq, xrow);
   }
   if (win_thread) cp_async16(dyv + tid, dyq + o0 * dyrow);
   cp_async_commit();
@@ -209,7 +371,10 @@ pool_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy, bf16* _
   for (int w = 0; w < nw; ++w) {  // window o0 + w
     if (col_thread && w + 1 < nw) {
 #pragma unroll
-      for (int i = 0; i < ST; ++i) stage_x(w * ST + WT + i);  // the next window's new rows
+      for (int i = 0; i < ST; ++i) {  // the next window's new rows
+        const int rel = w * ST + WT + i;
+        stage_row<RX>(xs, n, tid, rel, xr0 + rel, T, xq, xrow);
+      }
     }
     cp_async_commit();
     cp_async_wait<1>();  // this window's x rows and dy are in
@@ -218,16 +383,9 @@ pool_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy, bf16* _
     uint32_t tap[4] = {0u, 0u, 0u, 0u};
     if (col_thread) {
       uint4 v[WT];
-#pragma unroll
-      for (int dt = 0; dt < WT; ++dt) v[dt] = xs[((w * ST + dt) % RX) * n + tid];
-      uint32_t m[4] = {v[0].x, v[0].y, v[0].z, v[0].w};
-#pragma unroll
-      for (int dt = 1; dt < WT; ++dt) {
-        m[0] = max2(m[0], v[dt].x);
-        m[1] = max2(m[1], v[dt].y);
-        m[2] = max2(m[2], v[dt].z);
-        m[3] = max2(m[3], v[dt].w);
-      }
+      window_rows<WT, ST, RX>(xs, n, tid, w, v);
+      const uint4 mv = max_of(v);
+      const uint32_t m[4] = {mv.x, mv.y, mv.z, mv.w};
 #pragma unroll
       for (int dt = WT - 1; dt >= 0; --dt) {  // descending: the first tap is set last
         const uint32_t d2 = dt * 0x00010001u;
@@ -236,25 +394,17 @@ pool_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy, bf16* _
 #pragma unroll
         for (int j = 0; j < 4; ++j) tap[j] = (d2 & e[j]) | (tap[j] & ~e[j]);
       }
-      tmv[PF * V + tid] = make_uint4(m[0], m[1], m[2], m[3]);
+      tmv[PF * V + tid] = mv;
     }
     __syncthreads();
 
     // 2. freq: the window's maximum over its columns' maxima and the first
     // column attaining it, as a one-hot code (bit 15 - df of each half)
     if (win_thread) {
-      const uint4* t = tmv + (fo * SF - qa) * V + c8;  // the window's first column
       uint4 v[WF];
-#pragma unroll
-      for (int df = 0; df < WF; ++df) v[df] = t[df * V];
-      uint32_t m[4] = {v[0].x, v[0].y, v[0].z, v[0].w};
-#pragma unroll
-      for (int df = 1; df < WF; ++df) {
-        m[0] = max2(m[0], v[df].x);
-        m[1] = max2(m[1], v[df].y);
-        m[2] = max2(m[2], v[df].z);
-        m[3] = max2(m[3], v[df].w);
-      }
+      window_cols<WF, V>(tmv + (fo * SF - qa) * V + c8, v);  // from the window's first column
+      const uint4 mv = max_of(v);
+      const uint32_t m[4] = {mv.x, mv.y, mv.z, mv.w};
       uint32_t code[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
       for (int df = WF - 1; df >= 0; --df) {
@@ -329,8 +479,7 @@ pool_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy, bf16* _
 // The shared bytes of a K11 block of `threads` threads (as bwd_plan counts them).
 template <int C, int WT, int WF, int ST, int SF, int PT, int PF>
 int bwd_smem(int threads) {
-  constexpr int RX = (WT + 2 * ST - 1) / ST * ST;
-  return ((RX + 4) * threads + 2 * PF * (C / 8)) * 16;
+  return ((ring_rows<WT, ST>() + 4) * threads + 2 * PF * (C / 8)) * 16;
 }
 
 template <int C, int WT, int WF, int ST, int SF, int PT, int PF>
@@ -350,16 +499,71 @@ int launch_bwd(const bf16* x, const bf16* dy, bf16* dx, int B, int T, int F, int
   return (int)cudaGetLastError();
 }
 
+// The tiling arguments both entry points check: blocks a grid can hold,
+// threads within the launch bounds.
+bool tiling_ok(int B, int T, int F, int rows, int cols, int threads) {
+  return rows >= 1 && cols >= 1 && threads >= 1 && threads <= kPoolMaxThreads && B >= 1 &&
+         T >= 1 && F >= 1 && B <= 65535 && ceil_div(F, cols) <= 65535;
+}
+
 }  // namespace
 
-// K10: y (B, T, F, C) -> out (B, To, Fo, C).
-CT_EXPORT int max_pool_forward(const void* y, void* out, int B, int T, int F, int C, int To,
-                               int Fo, int wt, int wf, int st, int sf, int pt, int pf,
-                               void* stream) {
-  max_pool_kernel<<<grid_for((size_t)B * To * Fo * C), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(y), static_cast<bf16*>(out), B, T, F, C, To, Fo, wt, wf, st, sf,
-      pt, pf);
-  return (int)cudaGetLastError();
+#define POOL_MATCH(CC, WT, WF, ST, SF, PT, PF) \
+  (C == CC && wt == WT && wf == WF && st == ST && sf == SF && pt == PT && pf == PF)
+
+// K10: out (B, To, Fo, C) of x (B, T, F, C), one launch.  rows / cols /
+// threads: the tiling of `ops.max_pool.fwd_plan` (output rows a tile, output
+// columns a block, threads a block: at least the block's staged column
+// vectors, at most 256).  The encoder's three pools at C = 16 or 32; any
+// other geometry returns cudaErrorInvalidValue.
+CT_EXPORT int max_pool_forward(const void* x, void* out, int B, int T, int F, int C, int To,
+                               int Fo, int wt, int wf, int st, int sf, int pt, int pf, int rows,
+                               int cols, int threads, void* stream) {
+  if (!tiling_ok(B, T, F, rows, cols, threads)) return (int)cudaErrorInvalidValue;
+  auto xb = static_cast<const bf16*>(x);
+  auto ob = static_cast<bf16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define K10_POOL(CC, WT, WF, ST, SF, PT, PF)                                                    \
+  if (POOL_MATCH(CC, WT, WF, ST, SF, PT, PF))                                                  \
+    return launch_fwd<CC, WT, WF, ST, SF, PT, PF>(xb, ob, B, T, F, To, Fo, rows, cols, threads, \
+                                                  s);
+  POOL_INSTANCES(K10_POOL)
+#undef K10_POOL
+  return (int)cudaErrorInvalidValue;
+}
+
+// K10's tiling as its launch with these arguments runs it, from the
+// kernel's own span formula: out[0..3] = blocks, dynamic shared bytes a
+// block, row tiles R, column chunks Q; then (lo, hi, x0, x1) of each row
+// tile and of each column chunk (`fwd_span`).  `cap` ints at most;
+// cudaErrorInvalidValue where max_pool_forward would refuse the launch.
+CT_EXPORT int max_pool_fwd_plan(int B, int T, int F, int C, int To, int Fo, int wt, int wf, int st,
+                                int sf, int pt, int pf, int rows, int cols, int threads, int* out,
+                                int cap) {
+  if (!tiling_ok(B, T, F, rows, cols, threads)) return (int)cudaErrorInvalidValue;
+  int smem = -1;
+#define K10_PLAN(CC, WT, WF, ST, SF, PT, PF)                                      \
+  if (POOL_MATCH(CC, WT, WF, ST, SF, PT, PF) &&                                   \
+      fwd_threads_ok<CC, WT, WF, ST, SF, PT, PF>(F, cols, threads))               \
+    smem = fwd_smem<CC, WT, WF, ST, SF, PT, PF>(threads);
+  POOL_INSTANCES(K10_PLAN)
+#undef K10_PLAN
+  const int R = ceil_div(To, rows), Q = ceil_div(Fo, cols);
+  if (smem < 0 || cap < 4 + 4 * (R + Q)) return (int)cudaErrorInvalidValue;
+  out[0] = B * R * Q;
+  out[1] = smem;
+  out[2] = R;
+  out[3] = Q;
+  int* o = out + 4;
+  for (int i = 0; i < R + Q; ++i, o += 4) {
+    const Span sp = i < R ? fwd_span(i, rows, T, To, wt, st, pt)
+                          : fwd_span(i - R, cols, F, Fo, wf, sf, pf);
+    o[0] = sp.lo;
+    o[1] = sp.hi;
+    o[2] = sp.x0;
+    o[3] = sp.x1;
+  }
+  return 0;
 }
 
 // K11: dx (B, T, F, C) of the pool for dy (B, To, Fo, C), one launch.
@@ -370,24 +574,16 @@ CT_EXPORT int max_pool_forward(const void* y, void* out, int B, int T, int F, in
 CT_EXPORT int max_pool_backward(const void* x, const void* dy, void* dx, int B, int T, int F,
                                 int C, int To, int Fo, int wt, int wf, int st, int sf, int pt,
                                 int pf, int rows, int cols, int threads, void* stream) {
-  if (rows < 1 || cols < 1 || threads < 1 || threads > kBwdMaxThreads || B < 1 || T < 1 ||
-      F < 1 || B > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (!tiling_ok(B, T, F, rows, cols, threads)) return (int)cudaErrorInvalidValue;
   auto xb = static_cast<const bf16*>(x);
   auto dyb = static_cast<const bf16*>(dy);
   auto dxb = static_cast<bf16*>(dx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define K11_POOL(CC, WT, WF, ST, SF, PT, PF)                                                   \
-  if (C == CC && wt == WT && wf == WF && st == ST && sf == SF && pt == PT && pf == PF)         \
+  if (POOL_MATCH(CC, WT, WF, ST, SF, PT, PF))                                                  \
     return launch_bwd<CC, WT, WF, ST, SF, PT, PF>(xb, dyb, dxb, B, T, F, To, Fo, rows, cols,  \
                                                   threads, s);
-  // models/music_encoder.py POOLS: conv1, conv2, conv3
-  K11_POOL(16, 5, 5, 1, 2, 2, 2)
-  K11_POOL(32, 5, 5, 1, 2, 2, 2)
-  K11_POOL(16, 5, 5, 3, 2, 2, 2)
-  K11_POOL(32, 5, 5, 3, 2, 2, 2)
-  K11_POOL(16, 3, 3, 1, 2, 1, 1)
-  K11_POOL(32, 3, 3, 1, 2, 1, 1)
+  POOL_INSTANCES(K11_POOL)
 #undef K11_POOL
   return (int)cudaErrorInvalidValue;
 }

@@ -43,10 +43,23 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from .diffusion import q_sample
 from .ops import _build
-from .ops.attention import fold_key_mask, linear_attention_kernel, linear_attention_plain
+from .ops.attention import (
+    cluster_size,
+    fold_key_mask,
+    linear_attention_kernel,
+    linear_attention_plain,
+)
 from .ops.conv_block import conv_block_plain, fused_conv_block
 from .ops.conv_train import conv3x3_dkernel, conv3x3_dkernel_plain
-from .ops.max_pool import fused_max_pool, max_pool_bwd, max_pool_bwd_plain, max_pool_plain
+from .ops.max_pool import (
+    KERNEL_FWD_PLAN_KEYS,
+    fused_max_pool,
+    fwd_plan,
+    kernel_fwd_plan,
+    max_pool_bwd,
+    max_pool_bwd_plain,
+    max_pool_plain,
+)
 from .ops.decoder_layer import decoder_layer_plain, fused_decoder_layer
 from .ops.decoder_layer_bwd import decoder_layer_bwd, decoder_layer_bwd_plain
 from .ops.decoder_stack import (
@@ -100,6 +113,13 @@ PROFILE_TRIES = 10
 # CUDA events and device ms (within 2.7x of their 0.0559-ms byte bound)
 K11_BAR_MS = 0.20
 K11_BAR_DEVICE_MS = 0.15
+# K10's bars over the same three pools' forwards, summed (byte bound 0.0321)
+K10_BAR_MS = 0.10
+K10_BAR_DEVICE_MS = 0.070
+# K8's device-ms bars a call at its two paths' shapes: the reference-mask
+# step (B = 32, T = 900, float32 k and v) and plain-layer serving (B = 2,
+# T = 1800)
+K8_BAR_DEVICE_MS = {"mask": 0.030, "serving": 0.012}
 # K7's bar at B = 32, T = 900: ms a call by CUDA events, forward (the mean
 # of its two calls) and backward each
 K7_BAR_MS = 0.70
@@ -791,7 +811,11 @@ def check_stage1_kernels(convs, pools, *, reps: int = 5, rel_tol: float = REL_TO
     calls must repeat bit for bit and launch one kernel, and reports its
     device ms (``device_ms``) and autograd's `max_pool2d` backward on the
     same inputs (``reference_ms``, `_reference_pool_bwd`); ``bar_met``: the
-    sums within K11_BAR_MS and K11_BAR_DEVICE_MS."""
+    sums within K11_BAR_MS and K11_BAR_DEVICE_MS.  K10 is held to its plain
+    version exactly (``max_abs_err`` 0); each of its calls must repeat bit
+    for bit, launch one kernel and run the tiling `fwd_plan` computes
+    (``plan_ok``: the kernel's `max_pool_fwd_plan`), and reports its device
+    ms; ``bar_met``: the sums within K10_BAR_MS and K10_BAR_DEVICE_MS."""
     dkernel, conv_fwd, conv_dx, pool_fwd, pool_bwd = [], [], [], [], []
     k4_fns, k4_libs = [], []  # K4's calls and their library calls
     for x, kernel, dy in convs:
@@ -824,11 +848,19 @@ def check_stage1_kernels(convs, pools, *, reps: int = 5, rel_tol: float = REL_TO
     for x, dy, pool in pools:
         window, strides, padding = pool
         nchw = x.permute(0, 3, 1, 2)
-        pool_fwd.append(_compare(
-            "max_pool", lambda: fused_max_pool(x, pool), lambda: max_pool_plain(x, pool),
-            reps, rel_tol, x,
+        fwd = functools.partial(fused_max_pool, x, pool)
+        split = launch_split(fwd, reps)
+        mine = fwd_plan(tuple(x.shape), pool)
+        plan_ok = {k: mine[k] for k in KERNEL_FWD_PLAN_KEYS} == kernel_fwd_plan(
+            tuple(x.shape), pool, mine["rows"], mine["cols"], mine["threads"])
+        call = _repeat(_compare(
+            "max_pool", fwd, lambda: max_pool_plain(x, pool), reps, rel_tol, x,
             lambda: F.max_pool2d(nchw, window, strides, (padding[0][0], padding[1][0])))
-            | {"shape": list(x.shape)})
+            | {"shape": list(x.shape), "pool": pool, "launches_a_call": len(split),
+               "device_ms": sum(ms for _, ms in split), "plan_ok": plan_ok,
+               "plan": {k: mine[k] for k in ("rows", "cols", "threads", "blocks")}}, fwd)
+        call["ok"] &= call["max_abs_err"] == 0.0 and len(split) == 1 and plan_ok
+        pool_fwd.append(call)
         bwd = functools.partial(max_pool_bwd, x, dy, pool)
         split = launch_split(bwd, reps)
         call = _repeat(_compare(
@@ -847,19 +879,32 @@ def check_stage1_kernels(convs, pools, *, reps: int = 5, rel_tol: float = REL_TO
         "reference_ms": sum(c["reference_ms"] for c in pool_bwd)}
     k11["ok"] &= tie_err == 0.0
     k11["bar_met"] = k11["ok"] and k11["ms"] <= K11_BAR_MS and k11["device_ms"] <= K11_BAR_DEVICE_MS
+    k10 = _merge("max_pool", pool_fwd) | {"device_ms": sum(c["device_ms"] for c in pool_fwd)}
+    k10["bar_met"] = k10["ok"] and k10["ms"] <= K10_BAR_MS and k10["device_ms"] <= K10_BAR_DEVICE_MS
     k4 = _device_totals(_merge("conv_block", conv_fwd + conv_dx), k4_fns, k4_libs, reps)
-    return [_merge("conv3x3_dkernel", dkernel), _merge("max_pool", pool_fwd), k11,
-            k4 | {"name": "conv_block_train"}]
+    return [_merge("conv3x3_dkernel", dkernel), k10, k11, k4 | {"name": "conv_block_train"}]
 
 
 @torch.no_grad()
 def check_attention_kernel(q, k, v, key_mask, num_heads: int, *, reps: int = 5,
-                           rel_tol: float = REL_TOL) -> dict:
+                           rel_tol: float = REL_TOL, bar_device_ms: float | None = None) -> dict:
     """K8 against its plain version on q, k, v (B, T, D) and ``key_mask``
     (B, T, 1) folded into k and v as `ops.attention.fused_linear_attention`
-    folds it (a float32 mask makes bf16 k and v float32).  No single
+    folds it (a float32 mask makes bf16 k and v float32); a repeat must be
+    bit-identical and a call one launch (``launches_a_call``), both in
+    ``ok``; ``device_ms`` a call by launch and ``bar_met``, within
+    ``bar_device_ms`` (K8_BAR_DEVICE_MS) where given; ``cluster``, the
+    blocks a clip and head the wrapper chose (`cluster_size`).  No single
     PyTorch call computes this function, so there is no library time."""
     k, v = fold_key_mask(k, v, key_mask)
-    return _compare("linear_attention", lambda: linear_attention_kernel(q, k, v, num_heads),
-                    lambda: linear_attention_plain(q, k, v, num_heads), reps, rel_tol,
-                    (q, k, v)) | {"shape": list(q.shape), "kv_dtype": str(k.dtype)}
+    call = functools.partial(linear_attention_kernel, q, k, v, num_heads)
+    split = launch_split(call, reps)
+    r = _repeat(_compare("linear_attention", call,
+                         lambda: linear_attention_plain(q, k, v, num_heads), reps, rel_tol,
+                         (q, k, v)), call) | {
+        "shape": list(q.shape), "kv_dtype": str(k.dtype), "launches_a_call": len(split),
+        "device_ms": sum(ms for _, ms in split),
+        "cluster": cluster_size(q.shape[0], num_heads, _build.sm_count(q.device.index))}
+    r["ok"] &= len(split) == 1
+    r["bar_met"] = None if bar_device_ms is None else r["ok"] and r["device_ms"] <= bar_device_ms
+    return r

@@ -36,8 +36,10 @@ SIGNATURES = {
     "conv_block_forward": ([_P] * 8 + [_I] * 16 + [_P], _I),
     # B, T, F, Cin, Cout, res_mode, wt, wf, st, sf, pt, pf, To, Fo, out (7 int32)
     "conv_block_plan": ([_I] * 14 + [_P], _I),
-    # y, out, B, T, F, C, To, Fo, wt, wf, st, sf, pt, pf, stream
-    "max_pool_forward": ([_P] * 2 + [_I] * 12 + [_P], _I),
+    # x, out, B, T, F, C, To, Fo, wt, wf, st, sf, pt, pf, rows, cols, threads, stream
+    "max_pool_forward": ([_P] * 2 + [_I] * 15 + [_P], _I),
+    # B, T, F, C, To, Fo, wt, wf, st, sf, pt, pf, rows, cols, threads, out, cap -> 0
+    "max_pool_fwd_plan": ([_I] * 15 + [_P, _I], _I),
     # x, dy, dx, B, T, F, C, To, Fo, wt, wf, st, sf, pt, pf, rows, cols, threads, stream
     "max_pool_backward": ([_P] * 3 + [_I] * 15 + [_P], _I),
     # B, T, F, Cin, Cout -> workspace bytes of conv3x3_dkernel
@@ -72,8 +74,8 @@ SIGNATURES = {
     "stgcn_backward": ([_P] * 9 + [_I] * 2 + [_P], _I),
     # B, T, backward, out (5 int32) -> 0
     "stgcn_plan": ([_I] * 3 + [_P], _I),
-    # q, k, v, out, workspace, B, Tq, Tk, H, q_bf16, kv_bf16, stream
-    "linear_attention_forward": ([_P] * 5 + [_I] * 6 + [_P], _I),
+    # q, k, v, out, B, Tq, Tk, H, cluster, q_bf16, kv_bf16, stream
+    "linear_attention_forward": ([_P] * 4 + [_I] * 7 + [_P], _I),
 }
 
 
@@ -123,6 +125,15 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+H100_SMS = 132  # an H100 SXM's SMs: the tilings' default card
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index`` (the tilings size their grids by it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream() -> int:

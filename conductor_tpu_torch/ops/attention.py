@@ -8,7 +8,10 @@ a float32 mask, bf16 k and v become float32, as in JAX), then calls a
 `torch.autograd.Function`:
 
 - forward, `linear_attention_kernel`: on CUDA tensors the kernel in
-  `csrc/linear_attention.cu`, on CPU tensors its plain version
+  `csrc/linear_attention.cu` (one launch: a cluster of `cluster_size`
+  blocks a clip and head, each over its `rank_rows` of k / v and of q, the
+  partials combined in distributed shared memory), on CPU tensors its
+  plain version
   `linear_attention_plain`, the kernel's math: q softmaxed within each
   head's Dh features, k over time, KV = k_sm^T v per head, y = q_sm KV,
   float32 throughout from the inputs, y in q's dtype;
@@ -40,17 +43,35 @@ def linear_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bnhd,bhdl->bnhl", qs, kv).reshape(b, tq, d).to(q.dtype)
 
 
-HEAD_DIM = 16  # the kernel's head width: D = 128 with 8 heads
-CHUNK = 128    # rows of one block (csrc/linear_attention.cu kChunk)
+HEAD_DIM = 16         # the kernel's head width: D = 128 with 8 heads
+CLUSTERS = (8, 2)     # the kernel's cluster sizes, blocks a (clip, head)
+BLOCKS_PER_SM = 4     # resident blocks an SM its launch bounds ask for (kMinBlocks)
+H100_SMS = _build.H100_SMS
 _DTYPES = (torch.bfloat16, torch.float32)
+
+
+def cluster_size(batch: int, num_heads: int, sms: int = H100_SMS) -> int:
+    """The blocks a cluster gives each (clip, head): the most of `CLUSTERS`
+    that keeps the grid within one wave of resident blocks, else the least
+    (8 at plain-layer serving's B = 2, 2 at the reference-mask step's B = 32)."""
+    slots = sms * BLOCKS_PER_SM
+    return next((s for s in CLUSTERS if batch * num_heads * s <= slots), CLUSTERS[-1])
+
+
+def rank_rows(t: int, ranks: int) -> list[tuple[int, int]]:
+    """The rows [lo, hi) of ``t`` that each block of a cluster of ``ranks``
+    owns, as the kernel splits k / v and, apart, q: ceil(t / ranks) a rank,
+    fewer in the last, none in a rank past the end."""
+    per = -(-t // ranks)
+    return [(min(t, r * per), min(t, r * per + per)) for r in range(ranks)]
 
 
 def linear_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             num_heads: int) -> torch.Tensor:
     """`linear_attention_plain`'s function; on a CUDA tensor the kernel,
-    which takes contiguous q (B, Tq, D) and k, v (B, Tk, D), each bf16 or
-    float32 (k and v of one dtype), with D / num_heads = 16, and raises on
-    anything else."""
+    one launch, which takes contiguous, 16-byte aligned q (B, Tq, D) and
+    k, v (B, Tk, D), each bf16 or float32 (k and v of one dtype), with
+    D / num_heads = 16, and raises on anything else."""
     if not q.is_cuda:
         return linear_attention_plain(q, k, v, num_heads)
     b, tq, d = q.shape
@@ -63,14 +84,12 @@ def linear_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.require(q, "q", q.dtype, (b, tq, d))
     _build.require(k, "k", k.dtype, (b, tk, d))
     _build.require(v, "v", k.dtype, (b, tk, d))
+    _build.require_aligned(q=q, k=k, v=v)
     out = torch.empty_like(q)
-    n_chunks = -(-tk // CHUNK)
-    workspace = torch.empty((b, num_heads, n_chunks, (2 + HEAD_DIM) * HEAD_DIM),
-                            dtype=torch.float32, device=q.device)
     err = _build.library().linear_attention_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), workspace.data_ptr(),
-        b, tq, tk, num_heads, int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
-        _build.stream())
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, tq, tk, num_heads,
+        cluster_size(b, num_heads, _build.sm_count(q.device.index)), int(q.dtype == torch.bfloat16),
+        int(k.dtype == torch.bfloat16), _build.stream())
     _build.check(err, "linear_attention_forward")
     linear_attention_kernel.launches += 1
     return out

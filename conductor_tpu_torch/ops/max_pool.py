@@ -16,12 +16,14 @@ Layout: NHWC (B, T, F, C); ``pool`` is (window, strides, padding) as the
 music encoder's `POOLS` give it, padding symmetric and -inf.  The wrappers
 take the plain version for CPU tensors; on CUDA they launch the kernels
 (`csrc/max_pool.cu`: `max_pool_forward`, `max_pool_backward`) and raise on
-what those do not take (bf16 only; K11 only the encoder's three pools at
-C = 16 or 32).  K11 is one launch a call, tiled by `bwd_plan`.
+what those do not take (bf16 only, and only the encoder's three pools at
+C = 16 or 32, the kernels' template instances).  Each is one launch a
+call, tiled by `fwd_plan` / `bwd_plan`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -30,14 +32,16 @@ import torch.nn.functional as F
 from . import _build
 from .conv_block import pooled_size
 
-# K11's geometries, its kernel's template instances: C, then (wt, wf, st,
-# sf, pt, pf) of the music encoder's POOLS (models/music_encoder.py)
-BWD_CHANNELS = (16, 32)
-BWD_POOLS = ((5, 5, 1, 2, 2, 2), (5, 5, 3, 2, 2, 2), (3, 3, 1, 2, 1, 1))
-BWD_MAX_THREADS = 256  # a block's threads at most (the kernel's launch bounds)
-BWD_BLOCKS_PER_SM = 2  # resident 256-thread blocks an SM the launch bounds ask for
+# K10's and K11's geometries, their kernels' template instances
+# (`csrc/max_pool.cu` POOL_INSTANCES): C, then (wt, wf, st, sf, pt, pf) of
+# the music encoder's POOLS (models/music_encoder.py)
+KERNEL_CHANNELS = (16, 32)
+KERNEL_POOLS = ((5, 5, 1, 2, 2, 2), (5, 5, 3, 2, 2, 2), (3, 3, 1, 2, 1, 1))
+MAX_THREADS = 256      # a block's threads at most (both kernels' launch bounds)
+FWD_BLOCKS_PER_SM = 4  # resident 256-thread blocks an SM K10's launch bounds ask for
+BWD_BLOCKS_PER_SM = 2  # and K11's
 SMEM_PER_SM = 233472   # an H100 SM's shared memory, bytes (1 KB of it reserved a block)
-H100_SMS = 132
+H100_SMS = _build.H100_SMS
 
 
 def _geometry(x: torch.Tensor, pool):
@@ -88,21 +92,6 @@ def max_pool_bwd_plain(x: torch.Tensor, dy: torch.Tensor, pool) -> torch.Tensor:
     return dx.reshape(x.shape).to(x.dtype)
 
 
-def fused_max_pool(x: torch.Tensor, pool) -> torch.Tensor:
-    """K10: x (B, T, F, C) -> (B, To, Fo, C)."""
-    if not x.is_cuda:
-        return max_pool_plain(x, pool)
-    b, t, f, c = x.shape
-    wt, wf, st, sf, pt, pf, to, fo = _geometry(x, pool)
-    _build.require(x, "x", torch.bfloat16, (b, t, f, c))
-    out = torch.empty((b, to, fo, c), dtype=torch.bfloat16, device=x.device)
-    err = _build.library().max_pool_forward(x.data_ptr(), out.data_ptr(), b, t, f, c, to, fo,
-                                            wt, wf, st, sf, pt, pf, _build.stream())
-    _build.check(err, "max_pool_forward")
-    fused_max_pool.launches += 1
-    return out
-
-
 def _first_cover(i: int, w: int, s: int, p: int) -> int:
     """The first window (output index) covering input index ``i``."""
     n = i + p - w + 1
@@ -133,11 +122,11 @@ def bwd_plan(shape, pool, *, rows: int | None = None, sms: int = H100_SMS) -> di
     (wt, wf), (st, sf), ((pt, _), (pf, _)) = pool
     to, fo = pooled_size(t, wt, st, pt), pooled_size(f, wf, sf, pf)
     v = c // 8
-    cols = f if f * v <= BWD_MAX_THREADS else BWD_MAX_THREADS // v - 2 * (wf - 1)
+    cols = f if f * v <= MAX_THREADS else MAX_THREADS // v - 2 * (wf - 1)
     col_chunks = [_span(q, min(f, q + cols), f, fo, wf, sf, pf) for q in range(0, f, cols)]
     threads = max(max(x1 - x0, o1 - o0 + 1) * v for _, _, o0, o1, x0, x1 in col_chunks)
-    threads = min(BWD_MAX_THREADS, -(-threads // 32) * 32)
-    per_sm = max(1, BWD_BLOCKS_PER_SM * BWD_MAX_THREADS // threads)
+    threads = min(MAX_THREADS, -(-threads // 32) * 32)
+    per_sm = max(1, BWD_BLOCKS_PER_SM * MAX_THREADS // threads)
 
     def tiles(r):
         return [_span(lo, min(t, lo + r), t, to, wt, st, pt) for lo in range(0, t, r)]
@@ -149,36 +138,143 @@ def bwd_plan(shape, pool, *, rows: int | None = None, sms: int = H100_SMS) -> di
     if rows is None:
         rows = min(range(st, min(t, 64) + st, st), key=lambda r: (cost(r), -r))
     row_tiles = tiles(rows)
-    rx = -(-(wt + st) // st) * st  # the x ring's rows
     return {
         "rows": rows, "cols": cols, "threads": threads,
         "halo_rows": max(x1 - x0 - (hi - lo) for lo, hi, _, _, x0, x1 in row_tiles),
         "halo_cols": max(x1 - x0 - (hi - lo) for lo, hi, _, _, x0, x1 in col_chunks),
         "blocks": b * len(row_tiles) * len(col_chunks), "blocks_per_sm": per_sm,
-        "smem_bytes": ((rx + 4) * threads + 2 * pf * v) * 16,
+        "smem_bytes": ((_ring_rows(wt, st) + 4) * threads + 2 * pf * v) * 16,
         "smem_budget": SMEM_PER_SM // per_sm - 1024,
         "row_tiles": row_tiles, "col_chunks": col_chunks,
     }
 
 
+def _ring_rows(wt: int, st: int) -> int:
+    """The x ring's rows: a window's and the next window's new ones, in
+    whole strides (`csrc/max_pool.cu` ring_rows)."""
+    return -(-(wt + st) // st) * st
+
+
+def _fwd_span(lo: int, hi: int, n_in: int, w: int, s: int, p: int) -> tuple:
+    """Owned outputs (windows) [lo, hi) of a K10 tile along one axis: (lo,
+    hi, the input indices their windows read [x0, x1) within [0, n_in)), as
+    the kernel's `fwd_span` computes them."""
+    return lo, hi, max(0, lo * s - p), min(n_in, (hi - 1) * s - p + w)
+
+
+def fwd_plan(shape, pool, *, rows: int | None = None, sms: int = H100_SMS) -> dict:
+    """K10's tiling of an input of ``shape`` (B, T, F, C) for ``pool``: a
+    block owns ``rows`` output rows (windows) of one clip (chosen here
+    unless given) and ``cols`` output columns (all Fo when the F C / 8
+    input vectors fit in one block), one thread a staged 8-channel column
+    vector.  ``row_tiles`` / ``col_chunks``: each tile's owned outputs
+    (its windows, each computed once) [lo, hi) and the input range those
+    windows read [x0, x1), which the block stages, per axis: (lo, hi, x0,
+    x1).  ``halo_rows`` / ``halo_cols``: the most inputs a tile stages
+    beyond its own stride's share (a neighbour stages them too).
+    ``threads`` a block, ``blocks``, ``smem_bytes`` a block and
+    ``smem_budget``, an SM's shared memory over ``blocks_per_sm``.  The rows
+    minimise waves x windows a tile over ``sms`` SMs at ``blocks_per_sm``.
+    The kernel reports the same ranges (`kernel_fwd_plan`)."""
+    b, t, f, c = shape
+    (wt, wf), (st, sf), ((pt, _), (pf, _)) = pool
+    to, fo = pooled_size(t, wt, st, pt), pooled_size(f, wf, sf, pf)
+    v = c // 8
+    cols = fo if f * v <= MAX_THREADS else (MAX_THREADS // v - wf) // sf + 1
+    col_chunks = [_fwd_span(lo, min(fo, lo + cols), f, wf, sf, pf) for lo in range(0, fo, cols)]
+    threads = max(max(x1 - x0, hi - lo) * v for lo, hi, x0, x1 in col_chunks)
+    threads = min(MAX_THREADS, -(-threads // 32) * 32)
+    smem = (_ring_rows(wt, st) * threads + 2 * (threads + 2 * pf * v)) * 16
+    per_sm = max(1, FWD_BLOCKS_PER_SM * MAX_THREADS // threads)
+
+    def tiles(r):
+        return [_fwd_span(lo, min(to, lo + r), t, wt, st, pt) for lo in range(0, to, r)]
+
+    def cost(r):  # waves of blocks x the windows a tile walks (and its preload)
+        waves = -(-b * -(-to // r) * len(col_chunks) // (sms * per_sm))
+        return waves * (r + 2)
+
+    if rows is None:
+        rows = min(range(1, min(to, 64) + 1), key=lambda r: (cost(r), -r))
+    row_tiles = tiles(rows)
+    return {
+        "rows": rows, "cols": cols, "threads": threads,
+        "halo_rows": max(x1 - x0 - (hi - lo) * st for lo, hi, x0, x1 in row_tiles),
+        "halo_cols": max(x1 - x0 - (hi - lo) * sf for lo, hi, x0, x1 in col_chunks),
+        "blocks": b * len(row_tiles) * len(col_chunks), "blocks_per_sm": per_sm,
+        "smem_bytes": smem, "smem_budget": SMEM_PER_SM // per_sm - 1024,
+        "row_tiles": row_tiles, "col_chunks": col_chunks,
+    }
+
+
+# what `kernel_fwd_plan` reports, under `fwd_plan`'s names
+KERNEL_FWD_PLAN_KEYS = ("blocks", "smem_bytes", "row_tiles", "col_chunks")
+
+
+def kernel_fwd_plan(shape, pool, rows: int, cols: int, threads: int) -> dict:
+    """What K10's launch with this tiling runs (`csrc/max_pool.cu`
+    `max_pool_fwd_plan`, from the kernel's own span formula), under
+    `fwd_plan`'s names ``KERNEL_FWD_PLAN_KEYS``; needs the built library."""
+    b, t, f, c = shape
+    (wt, wf), (st, sf), ((pt, _), (pf, _)) = pool
+    to, fo = pooled_size(t, wt, st, pt), pooled_size(f, wf, sf, pf)
+    n_tiles = -(-to // rows) + -(-fo // cols)
+    out = (ctypes.c_int * (4 + 4 * n_tiles))()
+    err = _build.library().max_pool_fwd_plan(b, t, f, c, to, fo, wt, wf, st, sf, pt, pf, rows,
+                                             cols, threads, out, len(out))
+    _build.check(err, "max_pool_fwd_plan")
+    spans = [tuple(out[4 + 4 * i:8 + 4 * i]) for i in range(n_tiles)]
+    return {"blocks": out[0], "smem_bytes": out[1], "row_tiles": spans[:out[2]],
+            "col_chunks": spans[out[2]:]}
+
+
 @functools.lru_cache(maxsize=64)
-def _cached_plan(shape, pool, sms):
-    plan = bwd_plan(shape, pool, sms=sms)
+def _cached_plan(kind, shape, pool, sms):
+    plan = (fwd_plan if kind == "fwd" else bwd_plan)(shape, pool, sms=sms)
     return plan["rows"], plan["cols"], plan["threads"]
 
 
-@functools.lru_cache(maxsize=8)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def _kernel_geometry(x: torch.Tensor, pool, name: str) -> tuple[int, ...]:
+    """`_geometry` of a pool the kernels take; raises on any other."""
+    geometry = _geometry(x, pool)
+    if x.shape[-1] not in KERNEL_CHANNELS or geometry[:6] not in KERNEL_POOLS:
+        raise ValueError(f"{name} kernel takes the music encoder's pools at C in "
+                         f"{KERNEL_CHANNELS}, got C={x.shape[-1]}, pool {pool}")
+    return geometry
+
+
+def _fwd_geometry(x: torch.Tensor, pool) -> tuple[int, ...]:
+    """`_geometry` of a pool K10's kernel takes; raises on any other."""
+    return _kernel_geometry(x, pool, "max_pool")
 
 
 def _bwd_geometry(x: torch.Tensor, pool) -> tuple[int, ...]:
     """`_geometry` of a pool K11's kernel takes; raises on any other."""
-    geometry = _geometry(x, pool)
-    if x.shape[-1] not in BWD_CHANNELS or geometry[:6] not in BWD_POOLS:
-        raise ValueError(f"max_pool_bwd kernel takes the music encoder's pools at C in "
-                         f"{BWD_CHANNELS}, got C={x.shape[-1]}, pool {pool}")
-    return geometry
+    return _kernel_geometry(x, pool, "max_pool_bwd")
+
+
+def _fwd_launch(x, geometry, rows, cols, threads) -> torch.Tensor:
+    """K10 on ``geometry`` (`_fwd_geometry`) with a tiling of `fwd_plan`."""
+    b, t, f, c = x.shape
+    wt, wf, st, sf, pt, pf, to, fo = geometry
+    _build.require(x, "x", torch.bfloat16, (b, t, f, c))
+    _build.require_aligned(x=x)
+    out = torch.empty((b, to, fo, c), dtype=torch.bfloat16, device=x.device)
+    err = _build.library().max_pool_forward(
+        x.data_ptr(), out.data_ptr(), b, t, f, c, to, fo, wt, wf, st, sf, pt, pf, rows, cols,
+        threads, _build.stream())
+    _build.check(err, "max_pool_forward")
+    fused_max_pool.launches += 1
+    return out
+
+
+def fused_max_pool(x: torch.Tensor, pool) -> torch.Tensor:
+    """K10: x (B, T, F, C) -> (B, To, Fo, C), one launch tiled by `fwd_plan`."""
+    if not x.is_cuda:
+        return max_pool_plain(x, pool)
+    geometry = _fwd_geometry(x, pool)
+    return _fwd_launch(x, geometry,
+                       *_cached_plan("fwd", tuple(x.shape), pool, _build.sm_count(x.device.index)))
 
 
 def _bwd_launch(x, dy, geometry, rows, cols, threads) -> torch.Tensor:
@@ -204,7 +300,7 @@ def max_pool_bwd(x: torch.Tensor, dy: torch.Tensor, pool) -> torch.Tensor:
         return max_pool_bwd_plain(x, dy, pool)
     geometry = _bwd_geometry(x, pool)
     return _bwd_launch(x, dy, geometry,
-                       *_cached_plan(tuple(x.shape), pool, _sms(x.device.index)))
+                       *_cached_plan("bwd", tuple(x.shape), pool, _build.sm_count(x.device.index)))
 
 
 fused_max_pool.launches = 0

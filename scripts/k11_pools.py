@@ -1,14 +1,23 @@
 #!/usr/bin/env python3
-"""K11's time on a CUDA card, pool by pool, at the stage-1 shapes.
+"""K10's and K11's times on a CUDA card, pool by pool, at the stage-1 shapes.
 
     python3 scripts/k11_pools.py [--tree DIR] [--reps N] [--sweep]
 
 The three pools of one stage-1 train-mode forward and backward at B = 10
 with 10-s crops (`kernel_checks.stage1_kernel_inputs`, synthetic M2SNet
 weights of seed 0, seeded music and motion): each pool's input x and
-cotangent dy as the step hands them to `ops.max_pool.max_pool_bwd`.  Per
-pool it prints the shape, the mean ms of a call by CUDA events, the device
-ms of each launch (`kernel_checks.launch_split`), the byte bound
+cotangent dy as the step hands them to the kernels.
+
+K10 first (`ops.max_pool.fused_max_pool` on x): per pool the mean ms of a
+call by CUDA events, the device ms of each launch, the byte bound, the
+tiling (`ops.max_pool.fwd_plan`, where the tree has it), whether the
+output equals the plain version's bit for bit and a repeat the first
+call's, and `F.max_pool2d` on the same x in an NCHW view (the same
+function, a library yardstick); then the sums.
+
+Then K11 (`ops.max_pool.max_pool_bwd` on x and dy).  Per pool it prints
+the shape, the mean ms of a call by CUDA events, the device ms of each
+launch (`kernel_checks.launch_split`), the byte bound
 (`kernel_checks.bound`), the tiling (`ops.max_pool.bwd_plan`, where the tree
 has it), and the largest difference from the plain version
 (`max_pool_bwd_plain`) on these inputs, on tied inputs (post-ReLU plateaus
@@ -61,7 +70,33 @@ def main() -> None:
     motion = torch.from_numpy(rng.uniform(0, 1, size=(10, 900, 13, 2)).astype(np.float32)).cuda()
     _, pools = kernel_checks.stage1_kernel_inputs(m2s, music, motion, (0, 300))
     gen = torch.Generator(device="cuda").manual_seed(0)
+    fplan = getattr(max_pool, "fwd_plan", None)
     total, ok = [], True
+    print(f"[k10] B=10, 10-s crops, the 3 pools of one forward ({smi})")
+    for x, _, pool in reversed(pools):  # forward order
+        call = lambda: max_pool.fused_max_pool(x, pool)  # noqa: E731
+        got = call()
+        exact = torch.equal(got, max_pool.max_pool_plain(x, pool))
+        repeat = torch.equal(got, call())
+        ok &= exact and repeat
+        ms = kernel_checks.time_ms(call, reps)
+        split = kernel_checks.launch_split(call, reps)
+        bound = kernel_checks.bound(x, got, 0)["bound_ms"]
+        (wt, wf), strides, ((pt, _), (pf, _)) = pool
+        nchw = x.permute(0, 3, 1, 2)
+        lib = lambda: torch.nn.functional.max_pool2d(nchw, (wt, wf), strides, (pt, pf))  # noqa: E731
+        tiling = "" if fplan is None else "; plan " + str(
+            {k: v for k, v in fplan(tuple(x.shape), pool).items()
+             if k not in ("row_tiles", "col_chunks")})
+        print(f"  pool {pool} x {list(x.shape)}: {ms:.4f} ms a call; device by launch: "
+              + "; ".join(f"{name} {d:.4f}" for name, d in split)
+              + f"; bound {bound:.4f} ms; equal to the plain version {exact}; repeat "
+              f"bit-identical {repeat}; F.max_pool2d {kernel_checks.time_ms(lib, reps):.4f} ms, "
+              f"device {kernel_checks.device_ms(lib, reps):.4f} ms{tiling}", flush=True)
+        total.append((ms, sum(d for _, d in split), bound))
+    print(f"  sum of 3: {sum(t[0] for t in total):.4f} ms, device {sum(t[1] for t in total):.4f} "
+          f"ms, bound {sum(t[2] for t in total):.4f} ms", flush=True)
+    total = []
     print(f"[k11] B=10, 10-s crops, the 3 pools of one forward and backward ({smi})")
     for x, dy, pool in reversed(pools):  # forward order
         call = lambda: max_pool.max_pool_bwd(x, dy, pool)  # noqa: E731
@@ -110,7 +145,7 @@ def main() -> None:
           f"ms, bound {sum(t[2] for t in total):.4f} ms; checks {'ok' if ok else 'FAILED'}",
           flush=True)
     if not ok:
-        raise SystemExit("k11_pools: K11 disagrees with its plain version")
+        raise SystemExit("k11_pools: K10 or K11 disagrees with its plain version")
 
 
 if __name__ == "__main__":

@@ -22,7 +22,7 @@ the timed steps, with their least and most) and under it, the device time
 per step (the sum of the kernels' times), the device's busy share of the
 wall time under the profiler, the perceptual term alone (its latents of pred and target and
 its backward to pred, CUDA events, on pred and target of a training
-forward), K7's device time and launches a step, the peak memory of one
+forward), K7's and K8's device time and launches a step, the peak memory of one
 more step (`torch.cuda.max_memory_allocated`), and the kernels by total
 device time.  On the kernel path it
 also splits K6's device time a step by kernel (`k6_split`: the kernels
@@ -244,7 +244,8 @@ def main_m2snet(args) -> None:
     # in trees before it was one launch
     k11 = [v for name, v in by_name.items()
            if any(k in name for k in ("pool_bwd_kernel", "pool_winner_kernel", "pool_route_kernel"))]
-    k10 = [v for name, v in by_name.items() if "max_pool_kernel" in name]
+    # K10's kernel: pool_fwd_kernel; max_pool_kernel in trees before it was tiled
+    k10 = [v for name, v in by_name.items() if "pool_fwd_kernel" in name or "max_pool_kernel" in name]
     print("\n".join([
         f"stage-1 M2SNet step, {tr.compute_dtype} / {tr.music_conv_impl}, share_encodes "
         f"{args.share}, B={b}, {c}-s crops of {s}-s samples, {STEPS} steps profiled on {_smi()}",
@@ -315,6 +316,7 @@ def main() -> None:
 
     wall_plain, wall, device, table, by_name, k6 = profile_steps(step, args.walls)
     k7 = [v for name, v in by_name.items() if _short(name).split("<")[0] in K7_KERNELS]
+    k8 = [v for name, v in by_name.items() if "attention_" in name]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step()
@@ -337,7 +339,9 @@ def main() -> None:
         f"{sum(c for _, c in k7):.0f} launches/step; peak memory of a step "
         f"(torch.cuda.max_memory_allocated) {peak} bytes",
         *(f"{name}: {ms:.4f} ms device, {n:g} launches per step" for name, (ms, n)
-          in sorted(by_name.items()) if "attention_" in name),  # K8's two kernels
+          in sorted(by_name.items()) if "attention_" in name),  # K8's kernel(s)
+        f"K8 (csrc/linear_attention.cu): {sum(ms for ms, _ in k8):.4f} ms/step device, "
+        f"{sum(n for _, n in k8):.0f} launches/step",
         *([f"K6 a step: device {_split_text(k6)}", k6_alone(tr, mel, motion, _smi())]
           if kernel_path else []),
         table]))

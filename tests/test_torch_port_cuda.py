@@ -69,7 +69,15 @@ from conductor_tpu_torch.ops.decoder_stack import (
 )
 from conductor_tpu_torch.ops.sampler_glue import sampler_prologue_plain
 from conductor_tpu_torch.ops.conv_train import conv3x3_dkernel_plain
-from conductor_tpu_torch.ops.max_pool import max_pool_bwd_plain, max_pool_plain
+from conductor_tpu_torch.ops import attention
+from conductor_tpu_torch.ops.attention import fold_key_mask, linear_attention_plain
+from conductor_tpu_torch.ops.max_pool import (
+    KERNEL_FWD_PLAN_KEYS,
+    fwd_plan,
+    kernel_fwd_plan,
+    max_pool_bwd_plain,
+    max_pool_plain,
+)
 from conductor_tpu_torch.models.stgcn import MotionEncoderSTGCN
 from conductor_tpu_torch.interop import load_motion_encoder_state_dict
 from conductor_tpu_torch.ops.stgcn import (
@@ -335,9 +343,38 @@ def test_max_pool_bwd_raises_on_other_geometries():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     for c, pool in ((8, POOLS[0]), (64, POOLS[0]), (16, ((3, 3), (2, 2), ((1, 1), (1, 1))))):
         x = torch.zeros(1, 12, 16, c, device="cuda", dtype=torch.bfloat16)
-        dy = torch.zeros_like(fused_max_pool(x, pool))
+        dy = torch.zeros_like(max_pool_plain(x, pool))
         with pytest.raises(ValueError, match="pools"):
             max_pool_bwd(x, dy, pool)
+
+
+def test_max_pool_fwd_raises_on_other_geometries():
+    """K10 takes the encoder's three pools at C = 16 or 32 (its kernel's
+    template instances, K11's) and raises on any other channels or window."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    for c, pool in ((8, POOLS[0]), (64, POOLS[0]), (16, ((3, 3), (2, 2), ((1, 1), (1, 1))))):
+        x = torch.zeros(1, 12, 16, c, device="cuda", dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="pools"):
+            fused_max_pool(x, pool)
+
+
+@pytest.mark.parametrize("pool,shape", [(POOLS[0], (2, 900, 128, 16)), (POOLS[1], (2, 900, 64, 32)),
+                                        (POOLS[2], (2, 300, 32, 32)), (POOLS[1], (1, 99, 70, 32))])
+def test_max_pool_fwd_one_launch_on_the_plan(pool, shape):
+    """K10 at the stage-1 pools' widths (and rows too wide for one block):
+    one launch a call, a repeat bit-identical, exact, and the tiling the
+    kernel runs (`max_pool_fwd_plan`) the one `fwd_plan` computes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(shape[1])
+    x = _rand(*shape, gen=gen).to(torch.bfloat16)
+    call = lambda: fused_max_pool(x, pool)  # noqa: E731
+    assert torch.equal(call(), max_pool_plain(x, pool)) and torch.equal(call(), call())
+    assert len(launch_split(call, 2)) == 1
+    mine = fwd_plan(shape, pool)
+    assert {k: mine[k] for k in KERNEL_FWD_PLAN_KEYS} == kernel_fwd_plan(
+        shape, pool, mine["rows"], mine["cols"], mine["threads"])
 
 
 @pytest.mark.parametrize("share_encodes", [False, True])
@@ -722,6 +759,68 @@ def test_linear_attention_kernel_matches_plain(b, t, lens, kv_dtype):
     assert torch.equal(linear_attention_kernel(q, kf, vf, 8), linear_attention_kernel(q, kf, vf, 8))
     with pytest.raises(ValueError, match="linear_attention"):
         linear_attention_kernel(q, kf, v, 8)
+
+
+@pytest.mark.parametrize("b,tq,tk,q_dtype,kv_dtype", [
+    (2, 5, 5, "bfloat16", "float32"), (3, 7, 7, "bfloat16", "bfloat16"),
+    (2, 40, 3, "float32", "float32"), (2, 33, 300, "bfloat16", "bfloat16"),
+    (1, 24, 2100, "float32", "bfloat16"), (2, 1800, 1800, "bfloat16", "float32"),
+])
+def test_linear_attention_one_launch_at_edges(b, tq, tk, q_dtype, kv_dtype):
+    """K8 at T below the cluster's 8 blocks, Tq != Tk, a rank's rows in two
+    chunks, both k / v dtypes and both q dtypes: finite, within 2 % of the
+    plain version's largest value, one launch a call, a repeat
+    bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(tq + tk)
+    q = _rand(b, tq, 128, gen=gen).to(getattr(torch, q_dtype))
+    k, v = (_rand(b, tk, 128, gen=gen).to(getattr(torch, kv_dtype)) for _ in range(2))
+    call = lambda: linear_attention_kernel(q, k, v, 8)  # noqa: E731
+    got, want = call(), linear_attention_plain(q, k, v, 8)
+    assert got.dtype == q.dtype and bool(torch.isfinite(got.float()).all())
+    assert float((got.float() - want.float()).abs().max()) <= REL_TOL * float(want.float().abs().max())
+    assert torch.equal(got, call())
+    assert len(launch_split(call, 2)) == 1
+
+
+@pytest.mark.parametrize("cluster", attention.CLUSTERS)
+def test_linear_attention_every_cluster_size(cluster, monkeypatch):
+    """K8 with each cluster size its kernel takes (the wrapper's
+    `cluster_size` pinned), at T below the cluster, Tq != Tk and the
+    reference-mask step's shape with its mask: within 2 % of the plain
+    version's largest value, a repeat bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    monkeypatch.setattr(attention, "cluster_size", lambda *a: cluster)
+    gen = torch.Generator(device="cuda").manual_seed(cluster)
+    for b, tq, tk, lens in ((2, 5, 5, 5), (2, 33, 300, 171), (32, 900, 900, 60)):
+        q = _rand(b, tq, 128, gen=gen).to(torch.bfloat16)
+        k, v = (_rand(b, tk, 128, gen=gen).to(torch.bfloat16) for _ in range(2))
+        mask = (torch.arange(tk, device="cuda")[None] < lens).float()[..., None].expand(b, tk, 1)
+        k, v = fold_key_mask(k, v, mask)
+        got, want = linear_attention_kernel(q, k, v, 8), linear_attention_plain(q, k, v, 8)
+        assert float((got.float() - want.float()).abs().max()) <= REL_TOL * float(
+            want.float().abs().max())
+        assert torch.equal(got, linear_attention_kernel(q, k, v, 8))
+
+
+def test_linear_attention_allocates_only_its_output():
+    """A K8 call at the reference-mask step's shape allocates its output and
+    nothing else (no workspace): its peak over the memory before it is the
+    output's bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q = _rand(32, 900, 128, gen=gen).to(torch.bfloat16)
+    k, v = (_rand(32, 900, 128, gen=gen) for _ in range(2))
+    linear_attention_kernel(q, k, v, 8)  # build and warm up
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = linear_attention_kernel(q, k, v, 8)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before == out.numel() * out.element_size()
 
 
 def test_reference_mask_step_and_plain_layer_serving_run_k8():
