@@ -21,7 +21,12 @@ Phases, one line each (the kernel checks one line per kernel):
      time beside torch.matmul in bf16 or torch._int_mm on the same
      product; K1's three modes and its GEMM again at B = 8, the
      headline's batch, and K1's device time split by launch at B = 2 and
-     8, the `[k1-split]` lines; K4 on each of the encoder's 7 blocks at
+     8, the `[k1-split]` lines; K2 (both modes) and K3 again at B = 8,
+     the `[k2]` / `[k3]` lines giving each at both batches by CUDA events
+     and device ms by launch (one launch a call, a repeat bit-identical
+     and the tiling `ops.sampler_glue.plan` computes the kernel's
+     `sampler_plan`, all three in `ok`) beside its bound and, at B = 8,
+     its device-ms bar (`bar_met`); K4 on each of the encoder's 7 blocks at
      B = 2 and again at B = 8, each call's time printed and a repeat
      bit-identical), and the
      training layer kernels K5 (forward) and K6 (backward, seven
@@ -316,10 +321,10 @@ def main() -> int:
     # 3. every kernel against its plain version, at the main paths' shapes;
     # K1 and its AdaLN GEMM also at B = 8 (the headline's batch), on a mel
     # and x_T of their own seed, and K1's device time by launch at both
-    results = check_kernels(kernel_tr, mel, noise)
     rng8 = np.random.RandomState(8)
     mel_b8 = torch.from_numpy(rng8.uniform(0, 1, size=(8, 5400, 128)).astype(np.float32)).cuda()
     noise_b8 = torch.from_numpy(rng8.normal(size=(8, 1800, 26)).astype(np.float32)).cuda()
+    results = check_kernels(kernel_tr, mel, noise, glue_inputs=(mel_b8, noise_b8))
     step_b8 = ladder_step_inputs(kernel_tr, mel_b8, noise_b8)[:2]
     results += check_stack_kernels(kernel_tr, *step_b8, suffix="_b8")
     results.append(check_conv_blocks(kernel_tr.fused_encoder, mel_b8) | {"name": "conv_block_b8"})
@@ -399,8 +404,16 @@ def main() -> int:
                   f"{r['repeat_identical']}: bar_met {r['bar_met']} ({smi})")
         if "tie_err" in r:
             print(f"[kernel]   max_pool_bwd on tied inputs: err {r['tie_err']:.6g} (must be 0)")
+        if r["name"].startswith("sampler_"):
+            bar = ("" if r["bar_device_ms"] is None else
+                   f" (bar <= {r['bar_device_ms']}: bar_met {r['bar_met']})")
+            print(f"[{'k3' if 'epilogue' in r['name'] else 'k2'}] {r['name']} B={r['shape'][0]} "
+                  f"T={r['shape'][1]}: {r['ms']:.4f} ms a call by CUDA events, device "
+                  f"{r['device_ms']:.4f} ms{bar}, {r['launches_a_call']} launch a call, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), repeat bit-identical "
+                  f"{r['repeat_identical']}, plan {r['plan']} the kernel's {r['plan_ok']} ({smi})")
         if "codes_differ" in r:
-            print(f"[kernel]   sampler_prologue_int8 codes: {r['codes_differ']} of {r['n_codes']} "
+            print(f"[kernel]   {r['name']} codes: {r['codes_differ']} of {r['n_codes']} "
                   f"differ from the plain version's (at most 0.1 % may), by at most "
                   f"{r['code_max_diff']} (must be <= 1); wrong codes on exact ties: "
                   f"{r['tie_errors']} (must be 0)")

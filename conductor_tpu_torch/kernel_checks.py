@@ -9,7 +9,11 @@ its bf16-VPU mode too, and K2 and K1 in the int8-AdaLN mode on the int8
 operands of that step, with K1's AdaLN GEMM alone in both its modes at
 the shape K1 launches it (`check_stack_kernels`), and K4 on the encoder's
 7 blocks, a repeat bit-identical (`check_conv_blocks`); both also run alone
-at other batch sizes.  `device_ms` reads device time from `torch.profiler`,
+at other batch sizes.  K2 (both modes) and K3 (`check_sampler_glue`) also
+report their device ms by launch, one launch a call, a repeat
+bit-identical and the tiling `ops.sampler_glue.plan` computes against the
+kernel's own, and run again at B = 8 against their bars
+(`K2_K3_BAR_DEVICE_MS`).  `device_ms` reads device time from `torch.profiler`,
 by kernel name (`k1_launch_split`: K1's device time by launch).
 `check_train_kernels` does the same for the training layer kernels (K5,
 K6) on layer 0 of a training forward, `check_stgcn_kernels` for K7 on
@@ -68,6 +72,7 @@ from .ops.decoder_stack import (
     decoder_stack_plain,
     fused_decoder_stack,
 )
+from .ops.sampler_glue import KERNEL_PLAN_KEYS as GLUE_PLAN_KEYS
 from .ops.sampler_glue import (
     ddim_affine_tables,
     sampler_epilogue,
@@ -75,6 +80,8 @@ from .ops.sampler_glue import (
     sampler_prologue,
     sampler_prologue_plain,
 )
+from .ops.sampler_glue import kernel_plan as glue_kernel_plan
+from .ops.sampler_glue import plan as glue_plan
 from .ops.stgcn import (
     BLOCKS,
     KERNEL_PLAN_KEYS,
@@ -126,6 +133,11 @@ K7_BAR_MS = 0.70
 # the most ReLU mask bits K7's forward may set otherwise than the plain
 # forward (flips between summation orders), a share of all its mask bits
 K7_MASK_FLIP_SHARE = 1e-3
+# K2's (bf16 and int8 emb_act) and K3's device-ms bars a call at the
+# headline's shape, B = 8, T = 1800: twice their byte bounds (0.0161 /
+# 0.0139 / 0.0031 ms), half the card's memory rate
+K2_K3_BAR_DEVICE_MS = {"sampler_prologue": 0.032, "sampler_prologue_int8": 0.028,
+                       "sampler_epilogue": 0.0062}
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
@@ -221,29 +233,81 @@ def _merge(name: str, calls: list[dict]) -> dict:
 
 
 @torch.no_grad()
-def check_kernels(trainer, mel, noise, *, reps: int = 5, rel_tol: float = REL_TOL) -> list[dict]:
-    fused = trainer.fused
-    mxu = fused.mxu_dtype
+def check_kernels(trainer, mel, noise, *, reps: int = 5, rel_tol: float = REL_TOL,
+                  glue_inputs=None) -> list[dict]:
+    """Every serving kernel on the first ladder step of ``mel`` and
+    ``noise`` (`check_sampler_glue`, `check_stack_kernels`,
+    `check_conv_blocks`); with ``glue_inputs``, a (mel, noise) of B = 8,
+    T = 1800, K2 and K3 again on that step against their bars
+    (`K2_K3_BAR_DEVICE_MS`), named with ``_b8`` (``_b{B}``)."""
     results = []
     conv = check_conv_blocks(trainer.fused_encoder, mel, reps=reps, rel_tol=rel_tol)
     pro_args, cond, step = ladder_step_inputs(trainer, mel, noise)
-    pro_kw = dict(mxu_dtype=mxu, emb_dtype=mxu)
-    results.append(_compare("sampler_prologue", lambda: sampler_prologue(*pro_args, **pro_kw),
-                            lambda: sampler_prologue_plain(*pro_args, **pro_kw), reps, rel_tol,
-                            pro_args))
+    glue = check_sampler_glue(trainer, pro_args, cond, step, reps=reps, rel_tol=rel_tol)
+    results.append(glue[0])
     results += check_stack_kernels(trainer, pro_args, cond, reps=reps, rel_tol=rel_tol)
-    results.append(_check_prologue_int8(pro_args, mxu, reps, rel_tol))
+    results += glue[1:]
+    results.append(conv)
+    if glue_inputs is not None:
+        pro_args, cond, step = ladder_step_inputs(trainer, *glue_inputs)
+        suffix = f"_b{pro_args[0].shape[0]}"
+        results += [r | {"name": r["name"] + suffix} for r in check_sampler_glue(
+            trainer, pro_args, cond, step, reps=reps, rel_tol=rel_tol, bars=K2_K3_BAR_DEVICE_MS)]
+    return results
+
+
+@torch.no_grad()
+def check_sampler_glue(trainer, pro_args, cond, step, *, reps: int = 5, rel_tol: float = REL_TOL,
+                       bars: dict | None = None) -> list[dict]:
+    """K2 (bf16 emb_act), K2 with int8 output (`_check_prologue_int8`) and
+    K3 against their plain versions on a ladder step's operands
+    (`ladder_step_inputs`; K3's h from the plain prologue and decoder
+    stack), each with `_glue_timing`'s device ms, launches, repeat and plan,
+    and ``bar_met`` against ``bars`` (by name) where given."""
+    fused = trainer.fused
+    mxu = fused.mxu_dtype
+    bars = bars or {}
+    x, _, emb_base = pro_args[:3]
+    shape = (*x.shape, emb_base.shape[-1])
+    pro_kw = dict(mxu_dtype=mxu, emb_dtype=mxu)
+    call = functools.partial(sampler_prologue, *pro_args, **pro_kw)
+    pro = _glue_timing(_compare("sampler_prologue", call,
+                                lambda: sampler_prologue_plain(*pro_args, **pro_kw), reps, rel_tol,
+                                pro_args), call, "prologue", shape, bars, reps)
+    int8 = _glue_timing(_check_prologue_int8(pro_args, mxu, reps, rel_tol),
+                        functools.partial(sampler_prologue, *pro_args, mxu_dtype=mxu,
+                                          quantize_emb=True), "prologue", shape, bars, reps)
     h, emb_act, _ = sampler_prologue_plain(*pro_args, **pro_kw)
     h = decoder_stack_plain(h, emb_act, cond["kv_stack"], fused.mats, fused.vecs, fused.adaln_w,
                             fused.adaln_b, fused.num_heads, mxu_dtype=mxu)
     alpha, beta = ddim_affine_tables(trainer.sched)
-    epi_args = (h, noise, fused.w_out, fused.b_out, float(alpha[step]), float(beta[step]))
-    results.append(_compare("sampler_epilogue",
-                            lambda: sampler_epilogue(*epi_args, mxu_dtype=mxu),
-                            lambda: sampler_epilogue_plain(*epi_args, mxu_dtype=mxu),
-                            reps, rel_tol, epi_args))
-    results.append(conv)
-    return results
+    epi_args = (h, x, fused.w_out, fused.b_out, float(alpha[step]), float(beta[step]))
+    call = functools.partial(sampler_epilogue, *epi_args, mxu_dtype=mxu)
+    epi = _glue_timing(_compare("sampler_epilogue", call,
+                                lambda: sampler_epilogue_plain(*epi_args, mxu_dtype=mxu), reps,
+                                rel_tol, epi_args), call, "epilogue", shape, bars, reps)
+    return [pro, int8, epi]
+
+
+def _glue_timing(r: dict, call, which: str, shape, bars: dict, reps: int) -> dict:
+    """K2 / K3 result ``r`` of ``call`` at ``shape`` (B, T, C, E) with
+    ``device_ms`` a call (`launch_split`), ``launches_a_call`` (must be 1),
+    a repeat bit-identical (`_repeat`), ``plan`` (`ops.sampler_glue.plan`
+    for the card's SMs) and ``plan_ok`` (the kernel's `sampler_plan` equals
+    it), all in ``ok``; ``bar_met``: ok and ``device_ms`` within the bar
+    ``bars`` holds under ``r``'s name, or None without one."""
+    b, t, c, e = shape
+    split = launch_split(call, reps)
+    want = glue_plan(b, t, which, c=c, e=e, sms=_build.sm_count(torch.cuda.current_device()))
+    r = _repeat(r, call) | {
+        "shape": [b, t], "launch_split": split, "launches_a_call": len(split),
+        "device_ms": sum(ms for _, ms in split),
+        "plan": {k: want[k] for k in GLUE_PLAN_KEYS}}
+    r["plan_ok"] = glue_kernel_plan(b, t, which, c=c, e=e) == r["plan"]
+    r["ok"] &= len(split) == 1 and r["plan_ok"]
+    bar = r["bar_device_ms"] = bars.get(r["name"])
+    r["bar_met"] = None if bar is None else r["ok"] and r["device_ms"] <= bar
+    return r
 
 
 def _repeat(r: dict, kernel_fn) -> dict:
@@ -251,7 +315,7 @@ def _repeat(r: dict, kernel_fn) -> dict:
     ``kernel_fn`` give the same bits (part of ``ok``)."""
     first, again = kernel_fn(), kernel_fn()
     pairs = zip(first, again) if isinstance(first, (tuple, list)) else [(first, again)]
-    r["repeat_identical"] = all(torch.equal(a, b) for a, b in pairs)
+    r["repeat_identical"] = all(torch.equal(a, b) for a, b in pairs if a is not None)
     r["ok"] &= r["repeat_identical"]
     return r
 

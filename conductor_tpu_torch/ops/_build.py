@@ -51,6 +51,9 @@ SIGNATURES = {
     "sampler_prologue_forward": ([_P] * 8 + [_I] * 6 + [_P], _I),
     # h, x_t, w_out, b_out, out, alpha, beta, B, T, D, C, round_bf16, stream
     "sampler_epilogue_forward": ([_P] * 5 + [_F, _F] + [_I] * 5 + [_P], _I),
+    # B, T, C, E, which (0 K2, 1 K3), out (5 int32: rows, blocks, threads,
+    # stages, shared bytes) -> 0
+    "sampler_plan": ([_I] * 5 + [_P], _I),
     # x, emb, emb_scale, kv_cross, mats, vecs, adaln_w, adaln_w_scale, adaln_b,
     # out, partials, kv_self, mod, gemm_launches, B, T, D, E, H, L, int8,
     # vpu_bf16, stream (gemm_launches: a host int the call raises by one for

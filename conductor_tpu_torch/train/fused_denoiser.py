@@ -31,8 +31,7 @@ from ..ops.decoder_stack import ROWS_PER_TILE, fused_decoder_stack, quantize_row
 from ..ops.sampler_glue import (
     ddim_affine_tables,
     emb_activation,
-    sampler_epilogue,
-    sampler_prologue,
+    ladder_glue,
 )
 
 
@@ -158,22 +157,22 @@ class FusedDenoiser:
     @torch.no_grad()
     def ddim_sample(self, cond: dict, sched, noise: torch.Tensor) -> torch.Tensor:
         """The whole eta=0 DDIM ladder from x_T = ``noise`` (B, T, C), each
-        step prologue -> decoder stack -> epilogue.  Matches
+        step prologue -> decoder stack -> epilogue (K2 and K3 checked once a
+        ladder, `ladder_glue`).  Matches
         `diffusion.sampling.ddim_sample_loop` over :meth:`__call__`."""
         T = noise.shape[1]
         alpha, beta = ddim_affine_tables(sched)
         t_model = sched.timestep_map.tolist()
         seq_bias = (self.seq_emb[:T] + self.b_joint).contiguous()
-        temb_table, emb_base = cond["temb_table"], cond["emb_base"]
+        temb_table = cond["temb_table"]
         x = noise.float().contiguous()
+        prologue, epilogue = ladder_glue(x, temb_table, cond["emb_base"], self.w_joint, seq_bias,
+                                         self.w_out, self.b_out, mxu_dtype=self.mxu_dtype,
+                                         quantize_emb=self.adaln_int8)
         for t in range(sched.num_timesteps - 1, -1, -1):
-            h, emb_act, emb_scale = sampler_prologue(
-                x, temb_table[t_model[t]], emb_base, self.w_joint, seq_bias,
-                mxu_dtype=self.mxu_dtype, emb_dtype=self.mxu_dtype, quantize_emb=self.adaln_int8,
-            )
+            h, emb_act, emb_scale = prologue(x, temb_table[t_model[t]])
             h = self._stack(h, emb_act, emb_scale, cond)
-            x = sampler_epilogue(h, x, self.w_out, self.b_out, alpha[t], beta[t],
-                                 mxu_dtype=self.mxu_dtype)
+            x = epilogue(h, x, alpha[t], beta[t])
         return x
 
 

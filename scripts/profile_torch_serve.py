@@ -14,7 +14,8 @@ card's idle share of the wall under the profiler, K1's device ms per step
 split by launch (the AdaLN GEMM, pass A
 `kv_partials`, pass B `kv_combine`, the row pass `layer_rows`; an earlier
 K1 without the GEMM shows 0 there and the product inside its row pass),
-and the five kernels with the most device time.  ``--tree`` profiles the
+K2's and K3's device ms per step, and the five kernels with the most
+device time.  ``--tree`` profiles the
 port in another checkout (a parent commit unpacked by `git archive`),
 which builds its own kernels.
 """
@@ -37,6 +38,9 @@ BENCH_DENOISER = dict(attention_impl="pallas", compute_dtype="bfloat16", layer_i
                       sampler_adaln_int8=True, music_encoder_impl="pallas")
 K1_PARTS = {"adaln_gemm": ("adaln_gemm",), "kv_partials": ("kv_partials",),
             "kv_combine": ("kv_combine",), "layer_rows": ("layer_rows",)}
+# K2's and K3's kernels, by their names before and after their redesign
+GLUE_PARTS = {"K2": ("prologue_kernel", "prologue_rows"),
+              "K3": ("epilogue_kernel", "epilogue_tiles")}
 
 
 def profile_call(call) -> dict:
@@ -57,9 +61,10 @@ def profile_call(call) -> dict:
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     device = sum(by_name.values())
-    split = {part: sum(ms for name, ms in by_name.items() if any(k in name for k in keys))
-             for part, keys in K1_PARTS.items()}
-    return dict(wall=wall, wall_prof=wall_prof, device=device, split=split, by_name=by_name)
+    split, glue = ({part: sum(ms for name, ms in by_name.items() if any(k in name for k in keys))
+                    for part, keys in parts.items()} for parts in (K1_PARTS, GLUE_PARTS))
+    return dict(wall=wall, wall_prof=wall_prof, device=device, split=split, glue=glue,
+                by_name=by_name)
 
 
 def main() -> None:
@@ -97,7 +102,8 @@ def main() -> None:
             print(f"[serve] {label} B={b} ddim{STEPS}: wall {r['wall'] * 1e3 / STEPS:.3f} ms a "
                   f"step ({r['wall_prof'] * 1e3 / STEPS:.3f} under the profiler), device "
                   f"{r['device'] / STEPS:.3f} ms a step, idle {idle:.1%}; K1 device ms a step: "
-                  f"{split}, K1 sum {sum(r['split'].values()) / STEPS:.4f}", flush=True)
+                  f"{split}, K1 sum {sum(r['split'].values()) / STEPS:.4f}; K2 "
+                  f"{r['glue']['K2'] / STEPS:.4f}, K3 {r['glue']['K3'] / STEPS:.4f}", flush=True)
             print("   top: " + "; ".join(f"{name[:60]} {ms / STEPS:.4f}" for name, ms in top))
         del tr
 

@@ -5,7 +5,9 @@ layers, 3.2-s clips), the stage-1 kernels (K4's training modes, K9, K10,
 K11 on tied inputs) and a B = 2 M2SNet step on them against the plain
 path, K8 at its two paths' shapes, a reference-mask step and a
 plain-layer generate through K8, K1's int8-AdaLN and bf16-VPU modes and
-K2's int8 output at whole and ragged tiles, generate under bench.py's
+K2's int8 output at whole and ragged tiles, K2 (both modes) and K3 at a
+ragged T and below one tile (one launch a call, repeating bit for bit,
+the tiling `ops.sampler_glue.plan` computes), generate under bench.py's
 serving config, the int8 wrappers raising on what their kernels do not
 take, a float32 stage-1 step with torch's TF32 defaults against the
 CPU (the entry points turn TF32 off), K1's AdaLN GEMM alone in bf16
@@ -19,6 +21,7 @@ without a CUDA card; on one, run it with
 ``chip_smoke.py`` makes the same checks at the flagship size."""
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -67,7 +70,14 @@ from conductor_tpu_torch.ops.decoder_stack import (
     adaln_modulation_plain,
     decoder_stack_plain,
 )
-from conductor_tpu_torch.ops.sampler_glue import sampler_prologue_plain
+from conductor_tpu_torch.ops.sampler_glue import KERNEL_PLAN_KEYS as GLUE_PLAN_KEYS
+from conductor_tpu_torch.ops.sampler_glue import kernel_plan as kernel_glue_plan
+from conductor_tpu_torch.ops.sampler_glue import plan as glue_plan
+from conductor_tpu_torch.ops.sampler_glue import (
+    sampler_epilogue,
+    sampler_epilogue_plain,
+    sampler_prologue_plain,
+)
 from conductor_tpu_torch.ops.conv_train import conv3x3_dkernel_plain
 from conductor_tpu_torch.ops import attention
 from conductor_tpu_torch.ops.attention import fold_key_mask, linear_attention_plain
@@ -624,6 +634,57 @@ def test_sampler_prologue_int8_matches_plain(t):
     assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
     assert float(((s - sp).abs() / sp).max()) <= 1e-6
     assert prologue_tie_errors(args, mxu_dtype=torch.bfloat16) == 0
+
+
+@pytest.mark.parametrize("mxu", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,t", [(2, 37), (1, 5)])
+@pytest.mark.parametrize("kind", ["prologue", "prologue_int8", "epilogue"])
+def test_sampler_glue_matches_plain_repeats_and_runs_its_plan(kind, b, t, mxu):
+    """K2 (bf16 and int8 emb_act) and K3 at a ragged T (37) and at B T
+    below one tile (B = 1, T = 5: fewer rows than a K3 tile or a K2
+    block's warps), bf16 and float32 operands: within 2 % of the plain
+    version's largest value (the int8 codes at most 1 apart at no more
+    than 0.1 % of them), a repeat bit-identical, one launch a call (its
+    count and the profiler's), and the tiling `plan` computes the
+    kernel's `sampler_plan`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(b * 100 + t)
+    md = getattr(torch, mxu)
+    x, h = _rand(b, t, 26, gen=gen), _rand(b, t, 128, gen=gen)
+    pro = (x, _rand(512, gen=gen), _rand(b, t, 512, gen=gen) * 2, _rand(26, 128, gen=gen) * 0.2,
+           _rand(t + 3, 128, gen=gen))
+    epi = (h, x, _rand(128, 26, gen=gen) * 0.1, _rand(26, gen=gen), 0.9, 0.1)
+    if kind == "epilogue":
+        call = functools.partial(sampler_epilogue, *epi, mxu_dtype=md)
+        want, count = sampler_epilogue_plain(*epi, mxu_dtype=md), "sampler_epilogue"
+    else:
+        kw = dict(mxu_dtype=md, quantize_emb=True) if kind == "prologue_int8" else dict(
+            mxu_dtype=md, emb_dtype=torch.bfloat16)
+        call = functools.partial(sampler_prologue, *pro, **kw)
+        want, count = sampler_prologue_plain(*pro, **kw), "sampler_" + kind
+    reset_launch_counts()
+    got = call()
+    torch.cuda.synchronize()
+    assert launch_counts()[count] == 1
+    assert len(launch_split(call)) == 1
+    if kind == "prologue_int8":
+        diff = (got[1].int() - want[1].int()).abs()
+        assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
+        got, want = (got[0], got[1].float() * got[2]), (want[0], want[1].float() * want[2])
+    pairs = zip(got, want) if kind != "epilogue" else [(got, want)]
+    for g, w in pairs:
+        if w is not None:
+            err = float((g.float() - w.float()).abs().max())
+            assert err <= REL_TOL * float(w.float().abs().max())
+    first, again = call(), call()
+    if kind == "epilogue":
+        first, again = (first,), (again,)
+    assert all(torch.equal(u, v) for u, v in zip(first, again) if u is not None)
+    which = "epilogue" if kind == "epilogue" else "prologue"
+    want_plan = glue_plan(b, t, which,
+                          sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    assert kernel_glue_plan(b, t, which) == {k: want_plan[k] for k in GLUE_PLAN_KEYS}
 
 
 def test_int8_kernels_raise_on_what_they_do_not_take():
