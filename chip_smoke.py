@@ -115,13 +115,42 @@ Phases, one line each (the kernel checks one line per kernel):
      ``ddim1000_60s_clip_motion_frames_per_sec_per_chip``: ddim1000 at
      B = 8, one untimed call, then the best of 3 timed to the host readback
      (`bench.py:64-87`), then the same on the bf16 config, both printed
-     (and phase 5's one bf16 call).
+     (and phase 5's one bf16 call);
+ 11. M2SGAN (`M2SGANTrainer`), the WGAN-GP step at the reference batch,
+     B = 55 samples of 30 s (2700 mel, 900 motion frames), 5 critic
+     iterations, from synthetic generator and critic weights and phase 7's
+     M2SNet (its music encoder in the generator, its motion encoder the
+     SyncLoss network), the same seeded noise and interpolation weights on
+     every path, 4 steps each: (a) "auto" on CUDA (K4 on the frozen
+     encoder, 7 launches a step; K7 bf16 in the SyncLoss, its forward on
+     the fake, masks kept, and the real, its backward on the fake) beside
+     the plain float32 path (the encoder on cuDNN without TF32, the flax
+     SyncLoss module in float32); (b) (a) with ``cached_features`` and
+     ``cached_sync_latents`` (no K4, K7's forward once), whose metrics
+     must equal (a)'s bit for bit (cuDNN deterministic in this phase); (c)
+     ``train_music_encoder`` on "auto" (bf16, K4's training modes, K9,
+     K10 6 and K11 3 times a step) beside its witness, the same precision
+     without the kernels (a bf16 generator with its encoder on cuDNN, the
+     SyncLoss module in bf16), and the float32 "lax" path.  Every metric
+     finite and ``loss_sync`` within 3e-2 relative of the plain path's or
+     the witness's at every step; at the first step, from the same weights
+     and numbers, ``w_distance`` and ``loss_adv`` within 0.05 (the JAX
+     tests' one-step bound, tests/test_stage1.py:276, 337); the plain
+     paths and the witness launch no kernel; each step's differences,
+     (c)'s from the float32 path too, printed; the median ms a step of
+     each path and its peak memory.  Phase 3 also holds phase 11's kernels
+     against their plain versions at its shapes: K4 on the frozen encoder
+     at B = 55, T = 2700 (`[k4] conv_block_gan`), K7 on the SyncLoss's
+     inputs (`[k7] ..._gan`), and K4's training modes, K9, K10 and K11 on
+     the inputs and cotangents of their calls in one generator step of
+     (c) (`[k4] conv_block_train_gan`, `[k9]`, `[k10]`, `[k11]` ..._gan).
 
 Every path runs at full depth; the run takes a few minutes of its 1200-s
 limit, so no path is cut.  Then one JSON line of per-kernel results (the
 launch counts of K1-K4 and K1's AdaLN GEMM from phase 4, of K5 / K6 / K7
 from phase 6, of K9, K10 and K11 from phase 7, of K8 from phase 8, of K1's
-and K2's int8 modes, K1's bf16-VPU mode and the int8 GEMM from phase 10;
+and K2's int8 modes, K1's bf16-VPU mode and the int8 GEMM from phase 10,
+and phase 11's launches of K4, K7, K9, K10 and K11 added;
 each kernel's time, its
 plain version's, its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
@@ -192,6 +221,12 @@ REFERENCE_M_LENS = 60  # the reference's m_lens (conductor_tpu_torch/config.py T
 GENERATE_REL_TOL = 0.03  # ladder drift bound of tests/test_fused_denoiser.py
 TRAIN_LOSS_REL_TOL = 3e-2  # bf16 loss bound of tests/test_fused_train_path.py
 TRAIN_STEPS = 4
+# M2SGAN: the reference batch, sample seconds and critic iterations
+# (M2SGAN_train.py:168-196)
+GAN_B, GAN_S, GAN_ITERS = 55, 30, 5
+GAN_KERNELS = ("conv_block", "conv3x3_dkernel", "max_pool", "max_pool_bwd", "stgcn_forward",
+               "stgcn_backward")
+GAN_ADV_TOL = 0.05  # w_distance and loss_adv, tests/test_stage1.py:276, 337
 
 
 def _run(cmd: list[str]) -> str:
@@ -212,9 +247,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
-    from conductor_tpu_torch import DDPMTrainer, M2SNetTrainer
+    from conductor_tpu_torch import DDPMTrainer, M2SGANTrainer, M2SNetTrainer
     from conductor_tpu_torch.config import Config, DenoiserConfig, TrainConfig
     from conductor_tpu_torch.interop import (
+        synthetic_discriminator_state_dict,
+        synthetic_generator_state_dict,
         synthetic_m2snet_state_dict,
         synthetic_motion_encoder_state_dict,
         synthetic_state_dict,
@@ -235,11 +272,13 @@ def main() -> int:
         check_stage1_kernels,
         check_stgcn_kernels,
         check_train_kernels,
+        gan_encoder_kernel_inputs,
         k1_launch_split,
         ladder_step_inputs,
         perceptual_inputs,
         stack_operands,
         stage1_kernel_inputs,
+        sync_loss_inputs,
         time_ms,
     )
     from conductor_tpu_torch.ops import (
@@ -318,6 +357,31 @@ def main() -> int:
         s1 = int(rng.randint(0, span - 300))
         starts.append((s1, int(rng.randint(s1 + 300, span))))
 
+    # M2SGAN: the "auto" trainer (K4 frozen encoder, K7 bf16 SyncLoss), the
+    # synthetic generator and critic, phase 7's M2SNet, a seeded batch of
+    # 30-s samples and each step's noise and interpolation weights
+    gan = M2SGANTrainer(critic_iters=GAN_ITERS, device="cuda")
+    if (gan.music_encoder_impl, gan.sync_encoder_impl, gan.sync_encoder_dtype,
+            gan.compute_dtype) != ("pallas", "pallas", "bfloat16", "float32"):
+        raise SystemExit("chip_smoke: 'auto' did not select the M2SGAN kernels on CUDA")
+    gan_sd = (synthetic_generator_state_dict(gan.G, seed=0),
+              synthetic_discriminator_state_dict(gan.D, seed=1))
+    gan.load_reference_state_dict(*gan_sd, m2snet=m2s_sd)
+
+    def gan_trainer(**kw):
+        tr = M2SGANTrainer(critic_iters=GAN_ITERS, device="cuda", **kw)
+        tr.load_reference_state_dict(*gan_sd, m2snet=m2s_sd)
+        return tr
+
+    gan_mel = torch.from_numpy(rng.uniform(
+        0, 1, size=(GAN_B, GAN_S * 90, 128)).astype(np.float32)).cuda()
+    gan_real = torch.from_numpy(rng.uniform(
+        0, 1, size=(GAN_B, GAN_S * 30, 13, 2)).astype(np.float32)).cuda()
+    gan_drawn = [(torch.from_numpy(rng.normal(size=(GAN_B, GAN_S, 8)).astype(np.float32)).cuda(),
+                  {"real_fake": torch.from_numpy(rng.uniform(size=(GAN_ITERS, GAN_B))
+                                                 .astype(np.float32))})
+                 for _ in range(TRAIN_STEPS)]
+
     # 3. every kernel against its plain version, at the main paths' shapes;
     # K1 and its AdaLN GEMM also at B = 8 (the headline's batch), on a mel
     # and x_T of their own seed, and K1's device time by launch at both
@@ -340,10 +404,24 @@ def main() -> int:
     results += check_train_kernels(kernel_tr, mel_train[:4], motion_train[:4])
     results[-1]["name"] = "decoder_layer_bwd_b4"  # the main path's K6 call is B = 32's
     results.append(check_layer_bwd(kernel_tr, mel_train, motion_train))
-    results += check_stgcn_kernels(kernel_tr, *perceptual_inputs(kernel_tr, mel_train, motion_train))
+    feat_mxu = getattr(torch, kernel_tr.cfg.denoiser.compute_dtype)
+    results += check_stgcn_kernels(kernel_tr.feat_model, kernel_tr.feat_pack, feat_mxu,
+                                   *perceptual_inputs(kernel_tr, mel_train, motion_train))
     m2s_kernel.load_reference_state_dict(m2s_sd)
     results += check_stage1_kernels(*stage1_kernel_inputs(m2s_kernel, music, motion_s1, starts[0]))
     m2s_kernel.load_reference_state_dict(m2s_sd)  # undo the check's BN statistics
+    # M2SGAN's kernels at phase 11's shapes: K4 on the frozen encoder (a),
+    # K7 on the SyncLoss's inputs, and the trainable encoder's kernels
+    # (K4's training modes, K9, K10, K11) in a generator step of (c)
+    results.append(check_conv_blocks(gan.fused_encoder(), gan_mel) | {"name": "conv_block_gan"})
+    results += check_stgcn_kernels(gan.sync_encoder, gan.sync_pack(), gan.sync_dtype,
+                                   *sync_loss_inputs(gan, gan_mel, gan_real, gan_drawn[0][0]),
+                                   suffix="_gan")
+    trains = gan_trainer(train_music_encoder=True)
+    results += [r | {"name": r["name"] + "_gan"} for r in check_stage1_kernels(
+        *gan_encoder_kernel_inputs(trains, gan_mel, gan_real, gan_drawn[0][0]))]
+    del trains
+    torch.cuda.empty_cache()
     heads = cfg.denoiser.num_heads
     for b, t, lens, name, bar in (
             (n_train, t_train, REFERENCE_M_LENS, "linear_attention", K8_BAR_DEVICE_MS["mask"]),
@@ -373,18 +451,22 @@ def main() -> int:
                   + "; GEMM launches' bounds: "
                   + ", ".join(f"{k} {v['bound_ms']:.4f} ms ({v['bound_by']})"
                               for k, v in r["part_bounds"].items()) + f" ({smi})")
-        if r["name"] == "stgcn_backward":
-            print(f"[kernel]   stgcn_backward after the kernel's own forward (ReLU masks of "
+        k7, gan_k7 = r["name"].removesuffix("_gan"), r["name"].endswith("_gan")
+        if k7 == "stgcn_backward":
+            print(f"[kernel]   {r['name']} after the kernel's own forward (ReLU masks of "
                   f"another summation order): err {r['e2e_err']:.6g}, not bounded")
-        if r["name"] in ("stgcn_forward", "stgcn_backward"):
+        if k7 in ("stgcn_forward", "stgcn_backward"):
             calls = "".join(f"; {k} {v:.4f} ms" for k, v in r.get("calls_ms", {}).items())
             old = r.get("old_bound")
             extra = (f"; old bound {old['bound_ms']:.4f} ms ({old['bound_by']})" if old else
                      f"; masks kept {r['mask_bytes']} bytes, {r['mask_flips']} of their "
                      f"{r['mask_bits']} bits other than the plain forward's (at most "
                      f"{K7_MASK_FLIP_SHARE:g} of them)")
-            print(f"[k7] {r['name']} B={n_train} T={t_train}: {r['ms']:.4f} ms a call by CUDA events"
-                  f"{calls} (bar <= {K7_BAR_MS}: bar_met {r['bar_met']}); device "
+            shape = (f"B={GAN_B} T={GAN_S * 30} (M2SGAN SyncLoss: the fake, the real)" if gan_k7
+                     else f"B={n_train} T={t_train}")
+            bar = "" if gan_k7 else f" (bar <= {K7_BAR_MS}: bar_met {r['bar_met']})"
+            print(f"[k7] {r['name']} {shape}: {r['ms']:.4f} ms a call by CUDA events"
+                  f"{calls}{bar}; device "
                   f"{r['device_ms']:.4f} ms in {len(r['launch_split'])} launches, "
                   f"{r['launches_a_call']} of them K7's: "
                   + "; ".join(f"{k} {v:.4f}" for k, v in r["launch_split"])
@@ -434,18 +516,30 @@ def main() -> int:
             print(f"[kernel]   {r['name']} {c.get('shape', '')}{edge}: err {c['max_abs_err']:.6g} "
                   f"(max {c['ref_max_abs']:.6g}) kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} "
                   f"ms bound {c['bound_ms']:.4f} ms library {lib}{extra}")
-        if r["name"] == "max_pool_bwd":
+        # the trainable encoder's kernels at stage 1's shapes or M2SGAN's
+        # (``_gan``, B = 55 samples of 30 s, where the bars do not apply)
+        base, gan_s1 = r["name"].removesuffix("_gan"), r["name"].endswith("_gan")
+        where = (f"M2SGAN B={GAN_B} T={GAN_S * 90}" if gan_s1 else
+                 f"stage 1 B={STAGE1_B} crops T={STAGE1_C * 90}")
+        if base == "conv3x3_dkernel":
+            print(f"[k9] {r['name']} {where}: {len(r['calls'])} calls, {r['ms']:.4f} ms by CUDA "
+                  f"events, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}), library {r['library_ms']:.4f} ms, max_abs_err "
+                  f"{r['max_abs_err']:.6g} (plain max {r['ref_max_abs']:.6g}): ok {r['ok']} ({smi})")
+        if base == "max_pool_bwd":
             for c in r["calls"]:
                 print(f"[k11] pool {c['pool']} x {c['shape']}: {c['ms']:.4f} ms by CUDA events, "
                       f"device {c['device_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
                       f"({c['bound_by']}), {c['launches_a_call']} launch a call, repeat "
                       f"bit-identical {c['repeat_identical']}; autograd's max_pool2d backward "
                       f"(another tie rule, not a yardstick) {c['reference_ms']:.4f} ms ({smi})")
-            print(f"[k11] 3 pools: {r['ms']:.4f} ms by CUDA events (bar <= {K11_BAR_MS}), device "
-                  f"{r['device_ms']:.4f} ms (bar <= {K11_BAR_DEVICE_MS}), bound "
-                  f"{r['bound_ms']:.4f} ms, tie_err {r['tie_err']:.6g}: bar_met {r['bar_met']} "
-                  f"({smi})")
-        if r["name"] == "max_pool":
+            bars = ("" if gan_s1 else f" (bar <= {K11_BAR_MS})",
+                    "" if gan_s1 else f" (bar <= {K11_BAR_DEVICE_MS})",
+                    "" if gan_s1 else f", bar_met {r['bar_met']}")
+            print(f"[k11] {r['name']} {where}, 3 pools: {r['ms']:.4f} ms by CUDA events{bars[0]}, "
+                  f"device {r['device_ms']:.4f} ms{bars[1]}, bound {r['bound_ms']:.4f} ms, tie_err "
+                  f"{r['tie_err']:.6g}: ok {r['ok']}{bars[2]} ({smi})")
+        if base == "max_pool":
             for c in r["calls"]:
                 print(f"[k10] pool {c['pool']} x {c['shape']}: {c['ms']:.4f} ms by CUDA events, "
                       f"device {c['device_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
@@ -453,15 +547,18 @@ def main() -> int:
                       f"{c['launches_a_call']} launch a call, err {c['max_abs_err']:.6g} (must "
                       f"be 0), repeat bit-identical {c['repeat_identical']}, plan {c['plan']} the "
                       f"kernel's {c['plan_ok']} ({smi})")
-            print(f"[k10] 3 pools: {r['ms']:.4f} ms by CUDA events (bar <= {K10_BAR_MS}), device "
-                  f"{r['device_ms']:.4f} ms (bar <= {K10_BAR_DEVICE_MS}), bound "
-                  f"{r['bound_ms']:.4f} ms, F.max_pool2d {r['library_ms']:.4f} ms: bar_met "
-                  f"{r['bar_met']} ({smi})")
+            bars = ("" if gan_s1 else f" (bar <= {K10_BAR_MS})",
+                    "" if gan_s1 else f" (bar <= {K10_BAR_DEVICE_MS})",
+                    "" if gan_s1 else f", bar_met {r['bar_met']}")
+            print(f"[k10] {r['name']} {where}, 3 pools: {r['ms']:.4f} ms by CUDA events{bars[0]}, "
+                  f"device {r['device_ms']:.4f} ms{bars[1]}, bound {r['bound_ms']:.4f} ms, "
+                  f"F.max_pool2d {r['library_ms']:.4f} ms: ok {r['ok']}{bars[2]} ({smi})")
         if r["name"].startswith("conv_block"):
             lib = "" if r["library_ms"] is None else (
                 f"; library {r['library_ms']:.4f} ms, device {r['library_device_ms']:.4f} ms")
-            print(f"[k4] {r['name']}: {len(r['calls'])} calls, {r['ms']:.4f} ms by CUDA events, "
-                  f"device {r['device_ms']:.4f} ms{lib} ({smi})")
+            print(f"[k4] {r['name']} (first input {r['calls'][0]['shape']}): {len(r['calls'])} calls, "
+                  f"{r['ms']:.4f} ms by CUDA events, device {r['device_ms']:.4f} ms{lib}, max_abs_err "
+                  f"{r['max_abs_err']:.6g} (plain max {r['ref_max_abs']:.6g}): ok {r['ok']} ({smi})")
     failed = [r["name"] for r in results if not r["ok"]]
     if failed:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failed}")
@@ -682,6 +779,102 @@ def main() -> int:
           f"(config: bench.py serving (int8 AdaLN); B=8, best of 3: {times_q} s) against "
           f"{fps_b:.1f} on the bf16 config (best of 3: {times_b} s; phase 5's one call: "
           f"{fps:.1f}), on {smi}")
+
+    # 11. M2SGAN: 4 WGAN-GP steps at B = 55 on each path, (a) "auto" (K4
+    # frozen encoder, K7 bf16) beside the plain float32 path, (b) (a) with
+    # the features and real SyncLoss latents cached, (c) the encoder
+    # training on "auto" (bf16, K4's training modes, K9, K10, K11) beside
+    # its bf16 witness on cuDNN and the float32 "lax" path; cuDNN
+    # deterministic, so that (b) can repeat (a)
+    del kernel_tr, plain_tr, bench_tr, tr, m2s_kernel, m2s_plain, m2s_share
+    torch.cuda.empty_cache()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    def gan_steps(tr, cond, latents=None):
+        """4 steps on the GAN batch: each step's metrics, seconds and launch
+        counts, and the peak memory of the 4."""
+        metrics, times, step_counts = [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        for noise_i, alpha_i in gan_drawn:
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = tr.train_step(cond, gan_real, latents, noise=noise_i, gp_alpha=alpha_i)
+            metrics.append({k: float(v) for k, v in m.items()})  # host readback ends the step
+            times.append(time.perf_counter() - t0)
+            step_counts.append({k: v for k, v in launch_counts().items() if k in GAN_KERNELS})
+        return metrics, times, step_counts, torch.cuda.max_memory_allocated()
+
+    plain_kw = dict(music_encoder_impl="flax", sync_encoder_impl="flax",
+                    sync_encoder_dtype="float32", compute_dtype="float32", music_conv_impl="lax")
+    # (c)'s witness: its precision (a bf16 generator and SyncLoss) without
+    # the kernels (the encoder on cuDNN, the SyncLoss module in bf16)
+    witness_kw = plain_kw | dict(sync_encoder_dtype="bfloat16", compute_dtype="bfloat16")
+    gan.load_reference_state_dict(*gan_sd, m2snet=m2s_sd)  # undo the check's statistics
+    gan_runs = {"a": gan_steps(gan, gan_mel), "a_plain": gan_steps(gan_trainer(**plain_kw), gan_mel)}
+    cached = gan_trainer(cached_features=True, cached_sync_latents=True)
+    with torch.no_grad():
+        feats, latents = cached.music_features(gan_mel), cached.sync_latents(gan_real)
+    gan_runs["b"] = gan_steps(cached, feats, latents)
+    del gan, cached, feats, latents
+    torch.cuda.empty_cache()
+    trains = gan_trainer(train_music_encoder=True)
+    if (trains.compute_dtype, trains.music_conv_impl) != ("bfloat16", "pallas_train"):
+        raise SystemExit("chip_smoke: 'auto' with train_music_encoder did not select the kernels")
+    gan_runs["c"] = gan_steps(trains, gan_mel)
+    del trains
+    torch.cuda.empty_cache()
+    gan_runs["c_bf16"] = gan_steps(gan_trainer(train_music_encoder=True, **witness_kw), gan_mel)
+    gan_runs["c_plain"] = gan_steps(gan_trainer(train_music_encoder=True, **plain_kw), gan_mel)
+    torch.backends.cudnn.deterministic = deterministic
+    for name, (metrics, times, step_counts, peak) in gan_runs.items():
+        print(f"[gan] ({name}) B={GAN_B} S={GAN_S} critic_iters={GAN_ITERS}: metrics "
+              f"{metrics}; launches per step {step_counts}")
+        print(f"[time] m2sgan step ({name}) B={GAN_B}: median {np.median(times) * 1e3:.1f} ms (per "
+              f"step {[round(x * 1e3, 1) for x in times]}), peak memory {peak} bytes on {smi}")
+    # every step: finite metrics and loss_sync within 3e-2 of the plain
+    # path's; the first step, from the same weights, batch and numbers on
+    # both sides, w_distance and loss_adv within 0.05, the JAX tests' bound
+    # for one step of these paths.  (a) against the plain float32 path, (c)
+    # against its bf16 witness: a bf16 generator's output moves by its
+    # rounding far more than the kernels' summation orders move it, so
+    # (c) against float32 is printed, not bounded.  Later steps diverge as
+    # GAN updates do, and are printed.
+    gan_bad = []
+    for path, ref in (("a", "a_plain"), ("c", "c_bf16")):
+        for i, (got, want) in enumerate(zip(gan_runs[path][0], gan_runs[ref][0])):
+            if (not all(np.isfinite(list(got.values()) + list(want.values())))
+                    or abs(got["loss_sync"] - want["loss_sync"]) > TRAIN_LOSS_REL_TOL * abs(
+                        want["loss_sync"])
+                    or (i == 0 and any(abs(got[k] - want[k]) > GAN_ADV_TOL
+                                       for k in ("w_distance", "loss_adv")))):
+                gan_bad.append((path, i, got, want))
+    for path, ref in (("a", "a_plain"), ("c", "c_bf16"), ("c", "c_plain"), ("c_bf16", "c_plain")):
+        print(f"[gan] ({path}) against ({ref}) by step: "
+              + "; ".join(f"w_distance {abs(g['w_distance'] - w['w_distance']):.6g}, loss_adv "
+                          f"{abs(g['loss_adv'] - w['loss_adv']):.6g}, loss_sync rel "
+                          f"{abs(g['loss_sync'] - w['loss_sync']) / abs(w['loss_sync']):.6g}"
+                          for g, w in zip(gan_runs[path][0], gan_runs[ref][0])))
+    if gan_bad:
+        raise SystemExit(f"chip_smoke: the M2SGAN kernel paths disagree with the plain ones: {gan_bad}")
+    if gan_runs["b"][0] != gan_runs["a"][0]:
+        raise SystemExit("chip_smoke: the cached M2SGAN step did not repeat the uncached one bit "
+                         "for bit")
+    expect = {"a": lambda c: (c["conv_block"], c["stgcn_forward"], c["stgcn_backward"]) == (7, 2, 1),
+              "b": lambda c: (c["conv_block"], c["stgcn_forward"], c["stgcn_backward"]) == (0, 1, 1),
+              "c": lambda c: (min(c["conv_block"], c["conv3x3_dkernel"]) > 0
+                              and (c["max_pool"], c["max_pool_bwd"]) == (6, 3)
+                              and (c["stgcn_forward"], c["stgcn_backward"]) == (2, 1))}
+    expect |= {path: lambda c: not any(c.values()) for path in ("a_plain", "c_bf16", "c_plain")}
+    for path, ok in expect.items():
+        if not all(ok(c) for c in gan_runs[path][2]):
+            raise SystemExit(f"chip_smoke: M2SGAN path ({path}) did not launch its kernels as "
+                             f"expected: {gan_runs[path][2]}")
+    gan_counts = {k: sum(c[k] for path in "abc" for c in gan_runs[path][2]) for k in GAN_KERNELS}
+    print(f"[gan] launches in phase 11's kernel paths (a), (b), (c): {gan_counts}")
+    for k, n in gan_counts.items():
+        counts[k] += n
 
     kernels = []
     for r in results:

@@ -1,7 +1,8 @@
 """conductor-tpu on PyTorch + CUDA: the serving path of `conductor_tpu`
 (mel -> MusicEncoder -> eta=0 DDIM ladder over the MotionTransformer ->
-motion), its stage-2 training step (`DDPMTrainer`) and its stage-1 M2SNet
-contrastive step (`M2SNetTrainer`) ported to PyTorch, with the TPU's Pallas
+motion), its stage-2 training step (`DDPMTrainer`), its stage-1 M2SNet
+contrastive step (`M2SNetTrainer`) and its stage-1 WGAN-GP step
+(`M2SGANTrainer`) ported to PyTorch, with the TPU's Pallas
 kernels on those paths rewritten as hand-written CUDA C++ kernels for
 Hopper (sm_90a).  The entry points run on the card unless the caller asks
 for the CPU (``device="cpu"``).
@@ -14,4 +15,5 @@ config dataclasses (`config`) and of the weight synthesis
 
 from .config import Config, DenoiserConfig, DiffusionConfig, resolve_auto  # noqa: F401
 from .train.ddpm_trainer import DDPMTrainer  # noqa: F401
+from .train.m2sgan_trainer import M2SGANTrainer  # noqa: F401
 from .train.m2snet_trainer import M2SNetTrainer  # noqa: F401

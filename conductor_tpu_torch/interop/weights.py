@@ -10,7 +10,12 @@ does for the JAX package.  The frozen ST-GCN of the perceptual loss loads
 from its own subtree or from a whole stage-1 M2SNet state dict
 (`load_motion_encoder_state_dict`), and a whole M2SNet from its state dict
 (`load_m2snet_state_dict`); the checkpoint's adjacency buffer must equal
-the port's graph.
+the port's graph.  The M2SGAN generator and critic load from their own
+state dicts (`load_generator_state_dict`, `load_discriminator_state_dict`:
+`load_reference_state_dict` under the names of what they load),
+and a stage-1 M2SNet's music encoder, its parameters and BatchNorm
+statistics, transfers into a generator (`load_music_encoder_from_m2snet`,
+reference `M2SGAN_train.py:61-62`).
 """
 
 from __future__ import annotations
@@ -67,6 +72,20 @@ def load_m2snet_state_dict(module: nn.Module, sd) -> None:
     module.load_state_dict(sd, strict=True)
 
 
+# the M2SGAN generator and critic load as any module whose keys are the
+# reference's (`models.generator`)
+load_generator_state_dict = load_discriminator_state_dict = load_reference_state_dict
+
+
+def load_music_encoder_from_m2snet(generator: nn.Module, sd) -> None:
+    """Transfer a stage-1 M2SNet's music encoder (its ``music_encoder.*``
+    parameters and BatchNorm statistics) into ``generator.music_encoder``,
+    strictly."""
+    prefix = "music_encoder."
+    sd = {k[len(prefix):]: v for k, v in reference_state_dict(sd).items() if k.startswith(prefix)}
+    generator.music_encoder.load_state_dict(sd, strict=True)
+
+
 def _check_adjacency(ours: torch.Tensor, theirs: torch.Tensor | None) -> None:
     if theirs is not None and (
         theirs.shape != ours.shape or not torch.allclose(theirs.float().cpu(), ours.cpu(), atol=1e-5)
@@ -87,6 +106,28 @@ def synthetic_state_dict(module: nn.Module, seed: int = 0) -> dict[str, np.ndarr
     0.05, BN scales and variances from U(0.5, 1.5), the adjacency of
     `models.graph`)."""
     return synth_state_dict(manifest(module), seed=seed)
+
+
+def synthetic_generator_state_dict(module: nn.Module, seed: int = 0) -> dict[str, np.ndarray]:
+    """Synthetic weights for a `models.generator.Generator`:
+    `synthetic_state_dict`, then the decoder's and the noise path's
+    BatchNorm scales and the TCN's weight-norm gains moved to 1 + N(0,
+    0.05).  `synth_state_dict` alone draws those around 0 (their keys do
+    not end in ``.1.weight``), which shrinks the signal at each of them
+    and leaves a motion that barely moves in time, on which the critic's
+    max-pools sit on near-ties: float32 and float64 then route its
+    gradient apart.  The TCN's keys under two names draw apart; the
+    ``net.*`` ones load last and win (`models.tcn`)."""
+    sd = synthetic_state_dict(module, seed=seed)
+    for k, v in sd.items():
+        if k.endswith(("weight_g", "noise_BN.weight")) or (
+                k.startswith("tcn.") and k.endswith(("bn1.weight", "bn2.weight", "net.2.weight",
+                                                     "net.7.weight"))):
+            sd[k] = v + np.float32(1.0)
+    return sd
+
+
+synthetic_discriminator_state_dict = synthetic_state_dict  # the critic's need no adjusting
 
 
 def synthetic_motion_encoder_state_dict(module: nn.Module, seed: int = 0) -> dict[str, np.ndarray]:

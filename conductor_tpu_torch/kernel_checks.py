@@ -17,11 +17,13 @@ kernel's own, and run again at B = 8 against their bars
 by kernel name (`k1_launch_split`: K1's device time by launch).
 `check_train_kernels` does the same for the training layer kernels (K5,
 K6) on layer 0 of a training forward, `check_stgcn_kernels` for K7 on
-the perceptual term's inputs (`perceptual_inputs`), and
-`check_stage1_kernels` for the stage-1 music encoder's kernels (K9, K10,
+the perceptual term's inputs (`perceptual_inputs`) and on the M2SGAN
+SyncLoss's (`sync_loss_inputs`), and
+`check_stage1_kernels` for the trainable music encoder's kernels (K9, K10,
 K11, and K4 in its training modes, beside cuDNN's `F.conv2d`) on the
 inputs and cotangents of its calls in one train-mode forward and
-backward (`stage1_kernel_inputs`), and
+backward of a stage-1 step (`stage1_kernel_inputs`) or of an M2SGAN
+generator step (`gan_encoder_kernel_inputs`), and
 `check_attention_kernel` for K8 on q, k and v as its wrapper hands them
 over, the key mask folded in.  For
 each kernel it reports the largest absolute difference, the largest
@@ -709,10 +711,29 @@ def perceptual_inputs(trainer, cond, motion, *, seed: int = 0):
 
 
 @torch.no_grad()
-def check_stgcn_kernels(trainer, pred, target, dy, *, reps: int = 5,
-                        rel_tol: float = REL_TOL) -> list[dict]:
+def sync_loss_inputs(trainer, mel, real, noise):
+    """The SyncLoss's inputs in one step of an `M2SGANTrainer` with a frozen
+    music encoder, on ``mel``, ``real`` and ``noise``: the fake of its
+    generator step (train mode; the running statistics are put back),
+    float32, the real motion, and dy, the cotangent that the loss's L1 mean
+    gives the fake's latents, sign(f(fake) - f(real)) / numel, with f the
+    trainer's plain frozen ST-GCN (in its dtype)."""
+    saved = {k: v.clone() for k, v in trainer.G.state_dict().items()}
+    fake = trainer.G.decode(trainer.music_features(mel), noise, train=True).float()
+    trainer.G.load_state_dict(saved)
+    diff = trainer.sync_encoder(fake) - trainer.sync_encoder(real)
+    return fake, real, torch.sign(diff.float()) / diff.numel()
+
+
+@torch.no_grad()
+def check_stgcn_kernels(module, pack, mxu, pred, target, dy, *, reps: int = 5,
+                        rel_tol: float = REL_TOL, suffix: str = "") -> list[dict]:
     """K7 against its plain versions on the perceptual term's inputs
-    (`perceptual_inputs`), over the trainer's packed ST-GCN.
+    (`perceptual_inputs`) or the SyncLoss's (`sync_loss_inputs`), over a
+    frozen ST-GCN ``module``, its K7 ``pack`` and the ``mxu`` dtype they
+    compute in (a `DDPMTrainer`'s perceptual network or an
+    `M2SGANTrainer`'s SyncLoss network); ``suffix`` ends the results'
+    names.
 
     stgcn_forward: the latents of pred (with the ReLU masks kept for the
     backward, as the training path runs it) and of target; ms per call is
@@ -735,7 +756,7 @@ def check_stgcn_kernels(trainer, pred, target, dy, *, reps: int = 5,
     The bounds count the work of the function, whatever implements it, and
     the module's weights in place of the pack's bytes: the forward reads the
     motion and writes the latents, with the FLOPs of the ST-GCN module
-    (`trainer.feat_model`: its joint contraction is one (13, 13) matrix per
+    (its joint contraction is one (13, 13) matrix per
     partition where the pack holds a dense (416, 416) one); the backward
     reads the motion and dy and writes dx, with the FLOPs of the module's
     forward and its d(input), which is what the JAX backward kernel does.
@@ -743,13 +764,11 @@ def check_stgcn_kernels(trainer, pred, target, dy, *, reps: int = 5,
     instead, the forward's ten float32 h and bf16 g slabs as inputs and the
     d(input) FLOPs alone: what a design that keeps those slabs would be
     held to."""
-    pack, mxu = trainer.feat_pack, getattr(torch, trainer.cfg.denoiser.compute_dtype)
-    module = trainer.feat_model
     weights = list(module.state_dict().values())
     kept = lambda: (lambda o: (o[0], *o[1]))(stgcn_forward(pred, pack, save=True))  # noqa: E731
     fwd_flops = flops(lambda: module(pred))
     fwd = _compare(
-        "stgcn_forward",
+        "stgcn_forward" + suffix,
         lambda: (stgcn_forward(pred, pack, save=True)[0], stgcn_forward(target, pack)),
         lambda: (frozen_stgcn_plain(pred, pack, mxu), frozen_stgcn_plain(target, pack, mxu)),
         reps, rel_tol, (pred, target, weights, weights),
@@ -773,7 +792,7 @@ def check_stgcn_kernels(trainer, pred, target, dy, *, reps: int = 5,
         n_dinput = flops(lambda: torch.autograd.grad(out_m, xm, dy))
     n_bwd = fwd_flops + n_dinput
     kernel = lambda: stgcn_backward(dy, masks, pack)  # noqa: E731
-    bwd = _compare("stgcn_backward", kernel, lambda: stgcn_backward_plain(dy, masks, pack, mxu),
+    bwd = _compare("stgcn_backward" + suffix, kernel, lambda: stgcn_backward_plain(dy, masks, pack, mxu),
                    reps, rel_tol, (pred, dy, weights), n_flops=n_bwd)
     _repeat(bwd, kernel)
     bwd["launch_split"] = launch_split(kernel, reps)
@@ -799,16 +818,37 @@ def check_stgcn_kernels(trainer, pred, target, dy, *, reps: int = 5,
 def stage1_kernel_inputs(trainer, music, motion, starts) -> tuple[list, list]:
     """The inputs of the music encoder's kernels in one train-mode forward
     and backward of a stage-1 step's first pair, (m1, p1) of the "hard"
-    strategy at ``starts``, under the first BCE term: per 3x3 conv
-    ``(x, kernel, dy)``, per pool ``(x, dy, pool)``, in backward order.
-    Moves the BatchNorm running statistics and leaves no gradients."""
+    strategy at ``starts``, under the first BCE term
+    (`encoder_kernel_inputs`).  Moves the BatchNorm running statistics and
+    leaves no gradients."""
     from .train.m2snet_trainer import _bce
 
     m1, _, p1, _ = trainer._pairs(music, motion, "hard", starts, None)
-    convs, pools = [], []
     trainer.model.train()
-    prob = trainer.model(m1, p1)
-    loss = _bce(prob, 1.0)
+    inputs = encoder_kernel_inputs(_bce(trainer.model(m1, p1), 1.0))
+    trainer.model.zero_grad(set_to_none=True)
+    return inputs
+
+
+def gan_encoder_kernel_inputs(trainer, mel, real, noise) -> tuple[list, list]:
+    """The inputs of the music encoder's kernels in the generator step of an
+    `M2SGANTrainer` with ``train_music_encoder`` on ``mel``, ``real`` and
+    ``noise`` (`encoder_kernel_inputs` under `generator_loss`, the
+    encoder in train mode).  Leaves the trainer's weights, statistics and
+    gradients as they were."""
+    saved = {k: v.clone() for k, v in trainer.G.state_dict().items()}
+    inputs = encoder_kernel_inputs(trainer.generator_loss(mel, None, noise, real)[0])
+    trainer.G.load_state_dict(saved)
+    for module in (trainer.G, trainer.D):
+        module.zero_grad(set_to_none=True)
+    return inputs
+
+
+def encoder_kernel_inputs(loss) -> tuple[list, list]:
+    """Runs ``loss``'s backward and returns the inputs of the trainable
+    music encoder's kernels on its graph: per 3x3 conv ``(x, kernel,
+    dy)``, per pool ``(x, dy, pool)``, in backward order."""
+    convs, pools, hooks = [], [], []
     seen, stack = set(), [loss.grad_fn]
     while stack:
         node = stack.pop()
@@ -817,12 +857,15 @@ def stage1_kernel_inputs(trainer, music, motion, starts) -> tuple[list, list]:
         seen.add(node)
         name = type(node).__name__
         if name == "_Conv3x3TrainBackward":
-            node.register_prehook(lambda g, n=node: convs.append((*n.saved_tensors, g[0])))
+            hooks.append(node.register_prehook(
+                lambda g, n=node: convs.append((*n.saved_tensors, g[0]))))
         elif name == "_MaxPoolTrainBackward":
-            node.register_prehook(lambda g, n=node: pools.append((*n.saved_tensors, g[0], n.pool)))
+            hooks.append(node.register_prehook(
+                lambda g, n=node: pools.append((*n.saved_tensors, g[0], n.pool))))
         stack.extend(fn for fn, _ in node.next_functions)
     loss.backward()
-    trainer.model.zero_grad(set_to_none=True)
+    for hook in hooks:  # a hook holds its node: left in place, the pair outlives the call
+        hook.remove()
     detach = lambda items: [tuple(a.detach().contiguous() if torch.is_tensor(a) else a  # noqa: E731
                                   for a in item) for item in items]
     return detach(convs), detach(pools)

@@ -49,5 +49,7 @@ class M2SNet(nn.Module):
     def forward(self, mel: torch.Tensor, motion: torch.Tensor) -> torch.Tensor:
         return self.fuse(*self.encode(mel, motion))
 
-    def features(self, mel, motion):
-        raise NotImplementedError("M2SNet.features is not ported yet")
+    def features(self, mel: torch.Tensor, motion: torch.Tensor):
+        """Every intermediate map of both encoders (`M2SNet.py:38-41`):
+        (`MusicEncoder.features`, `MotionEncoderSTGCN.features`)."""
+        return self.music_encoder.features(mel), self.motion_encoder.features(motion)

@@ -111,30 +111,48 @@ class MusicEncoder(nn.Module):
         self.conv3 = nn.Sequential(Conv2dResBlock(32, 32), Conv2dResBlock(32, 32))
         self.conv4 = nn.Sequential(nn.Conv1d(512, out_dim, 1), BatchNorm(out_dim))
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+    def forward(self, mel: torch.Tensor, maps: list | None = None) -> torch.Tensor:
+        """The latents (B, T30, out_dim); with ``maps``, also appends the
+        three pooled maps to it, as `features` lists them."""
         if self.conv_impl == "pallas_train":
-            return self._forward_packed(mel)
+            return self._forward_packed(mel, maps)
         x = mel[:, None]  # (B, 1, T90, 128)
         for name in ("conv1", "conv2", "conv3"):
             for blk in getattr(self, name):
                 x = blk(x, self.dtype)
             x = max_pool(x, POOLS[name])
+            if maps is not None and name != "conv3":
+                maps.append(x.permute(0, 2, 3, 1).flatten(2))  # (B, T, F*C)
         b, c, t, f = x.shape
         h = x.permute(0, 2, 1, 3).reshape(b, t, c * f)  # channel-major (C, F)
+        if maps is not None:
+            maps.append(h)
         proj, bn = self.conv4
         return bn(conv(proj, h.transpose(1, 2), self.dtype)).transpose(1, 2)
 
-    def _forward_packed(self, mel: torch.Tensor) -> torch.Tensor:
+    def _forward_packed(self, mel: torch.Tensor, maps: list | None) -> torch.Tensor:
         x = mel.to(self.dtype)[..., None]  # (B, T90, 128, 1)
         for name in ("conv1", "conv2", "conv3"):
             for blk in getattr(self, name):
                 x = blk.forward_packed(x)
             x = max_pool_train(x, POOLS[name])
+            if maps is not None and name != "conv3":
+                maps.append(x.flatten(2))  # (B, T, F*C)
         b, t, f, c = x.shape
         h = x.permute(0, 1, 3, 2).reshape(b, t, c * f)  # channel-major (C, F)
+        if maps is not None:
+            maps.append(h)
         proj, bn = self.conv4
         return bn(F.linear(h, proj.weight[:, :, 0].to(h.dtype), proj.bias.to(h.dtype)),
                   channel_dim=-1)
+
+    def features(self, mel: torch.Tensor) -> list[torch.Tensor]:
+        """Every map, channel-last (B, T, C), as JAX `features` (`:261-268`):
+        the mel, the first two stages' pooled maps flattened (F, C) (frequency
+        major), the third's flattened (C, F) (channel major) and the
+        projection, (B, T30, out_dim)."""
+        maps = [mel]
+        return maps + [self(mel, maps)]
 
 
 class FusedMusicEncoder:

@@ -94,13 +94,21 @@ class STGCN(nn.Module):
         self.edge_importance = nn.ParameterList(nn.Parameter(torch.ones_like(a)) for _ in blocks)
         self.fcn = nn.Conv2d(256, cin, 1)  # the reference's unused classifier head
 
-    def forward(self, motion: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        """motion (B, T, V, C) -> (B, C_out, T, V) in ``dtype``."""
+    def forward(self, motion: torch.Tensor, dtype: torch.dtype = torch.float32,
+                feats: list | None = None) -> torch.Tensor:
+        """motion (B, T, V, C) -> (B, C_out, T, V) in ``dtype``.  With
+        ``feats``, appends to it the normalised input and every block's
+        output, each flattened channel-major to (B, T, C*V), as JAX
+        `extract_feature` (`conductor_tpu/models/stgcn.py:200-211`)."""
         b, t, v, c = motion.shape
         x = self.data_bn(motion.reshape(b, t, v * c).transpose(1, 2), dtype=dtype)
         x = x.reshape(b, v, c, t).permute(0, 2, 3, 1)
+        keep = (lambda h: feats.append(h.permute(0, 2, 1, 3).reshape(b, t, -1))
+                if feats is not None else None)
+        keep(x)
         for blk, imp in zip(self.st_gcn_networks, self.edge_importance):
             x = blk(x, self.A * imp, dtype)
+            keep(x)
         return x
 
 
@@ -115,7 +123,17 @@ class MotionEncoderSTGCN(nn.Module):
         self.fc = nn.Sequential(nn.Conv1d(width, out_dim, 1), BatchNorm(out_dim))
 
     def forward(self, motion: torch.Tensor) -> torch.Tensor:
-        h = self.st_gcn(motion, self.dtype)  # (B, C, T, V)
+        return self._project(self.st_gcn(motion, self.dtype))
+
+    def features(self, motion: torch.Tensor) -> list[torch.Tensor]:
+        """The perceptual feature stack (`conductor_tpu/models/stgcn.py:
+        236-247`): the normalised input and the 10 blocks' maps, (B, T,
+        C*V) channel-major, then the (B, T, 64) latents."""
+        feats: list[torch.Tensor] = []
+        h = self.st_gcn(motion, self.dtype, feats)
+        return feats + [self._project(h)]
+
+    def _project(self, h: torch.Tensor) -> torch.Tensor:
         b, c, t, v = h.shape
         # channel-major (C, V) flatten, as the reference's NCTV flatten
         proj, bn = self.fc

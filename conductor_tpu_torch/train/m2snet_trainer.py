@@ -20,8 +20,8 @@ with TF32 off (`models.precision.full_float32`): float32 is float32 on the
 card too.
 
 Not ported yet, raising NotImplementedError: ``remat``, ``microbatch > 1``,
-`recalibrate_batch_stats`, `M2SNet.features` (its `features()`),
-`M2SNetEvaluator` and the ``train_m2snet`` CLI (`cli/train_m2snet.py`).
+`recalibrate_batch_stats`, `M2SNetEvaluator` and the ``train_m2snet`` CLI
+(`cli/train_m2snet.py`).
 """
 
 from __future__ import annotations

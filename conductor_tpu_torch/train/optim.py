@@ -1,4 +1,6 @@
-"""The stage-2 optimizer: optax's ``chain(clip_by_global_norm(c), adam(lr))``.
+"""The port's optimizers: stage 2's optax ``chain(clip_by_global_norm(c),
+adam(lr))`` (`ClippedAdam`), and the M2SGAN trainer's optax ``rmsprop``
+(`RMSprop`).
 
 `clip_by_global_norm` is optax's own rule: the gradients are scaled by
 ``c / norm`` only when ``norm >= c``, with no ``+ 1e-6`` on the norm
@@ -47,3 +49,27 @@ class ClippedAdam:
         self.adam.step()
         self.adam.zero_grad(set_to_none=True)
         return norm
+
+
+class RMSprop:
+    """optax's ``rmsprop(lr, decay, eps)`` with its defaults of optax 0.2.6
+    (``eps_in_sqrt=True``, ``initial_scale=0``, no momentum or centring),
+    the M2SGAN trainer's (`conductor_tpu/train/m2sgan_trainer.py:151-152`):
+    nu = (1 - decay) g² + decay nu, then p += -lr (g rsqrt(nu + eps)), in
+    optax's order of operations.  `torch.optim.RMSprop` divides by
+    sqrt(nu) + eps instead, which departs from it where nu is near eps."""
+
+    def __init__(self, params, lr: float, decay: float = 0.99, eps: float = 1e-8):
+        self.params = [p for p in params if p.requires_grad]
+        self.lr, self.decay, self.eps = lr, decay, eps
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self) -> None:
+        """One update from the parameters' ``.grad`` (a missing one counts
+        as zero, as in optax), which it then clears."""
+        for p, nu in zip(self.params, self.nu):
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            nu.copy_((g * g) * (1 - self.decay) + self.decay * nu)
+            p.add_((g * torch.rsqrt(nu + self.eps)) * -self.lr)
+            p.grad = None

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Where a training step of the PyTorch port spends its time on a CUDA
-card: stage 2's `DDPMTrainer.train_step`, or with ``--m2snet`` stage 1's
-`M2SNetTrainer.train_step`.
+card: stage 2's `DDPMTrainer.train_step`, with ``--m2snet`` stage 1's
+`M2SNetTrainer.train_step`, or with ``--m2sgan`` stage 1's
+`M2SGANTrainer.train_step`.
 
     python3 scripts/profile_torch_train.py [--impl pallas_fused|flax] [--feat auto|flax|pallas]
                                            [--cached] [--mask] [--tree DIR] [--walls N]
     python3 scripts/profile_torch_train.py --m2snet [--impl pallas_fused|flax] [--share] [--walls N]
+    python3 scripts/profile_torch_train.py --m2sgan [--impl pallas_fused|flax] [--train-encoder]
+                                           [--cached] [--walls N]
 
 Flagship configuration (D = 128, 8 layers, E = 512) on synthetic weights,
 B = 32 windows of 30 s (T = 900 motion / 2700 mel frames), seeded data; with
@@ -41,6 +44,18 @@ music_conv_impl "pallas_train"), "flax" the plain float32 "lax" path;
 ``--share`` sets ``share_encodes``.  The same timings and table, without
 the perceptual term, and K9's, K4's, K11's and K10's device time and
 launches a step.
+
+``--m2sgan``: the WGAN-GP step at the reference batch, B = 55 samples of
+30 s (2700 mel / 900 motion frames), 5 critic iterations, seeded noise and
+interpolation weights, on synthetic generator, critic and M2SNet weights;
+"pallas_fused" means "auto" on CUDA (K4 on the frozen encoder, K7 bf16 in
+the SyncLoss; with ``--train-encoder`` the encoder trains in bf16 on K4's
+training modes, K9, K10 and K11), "flax" the plain float32 path (cuDNN
+encoder, float32 flax SyncLoss); ``--cached`` hands the step the frozen
+encoder's features and the real motion's SyncLoss latents
+(``cached_features``, ``cached_sync_latents``).  The same timings and
+table, K4's, K7's, K9's, K10's and K11's device time and launches a step,
+and the peak memory of one more step.
 """
 
 from __future__ import annotations
@@ -260,6 +275,61 @@ def main_m2snet(args) -> None:
         table]))
 
 
+def _kernel_ms(by_name: dict, names: tuple[str, ...]) -> str:
+    hits = [v for name, v in by_name.items() if any(k in name for k in names)]
+    return f"{sum(ms for ms, _ in hits):.3f} ms/step, {sum(n for _, n in hits):.0f} launches/step"
+
+
+def main_m2sgan(args) -> None:
+    from conductor_tpu_torch import M2SGANTrainer
+    from conductor_tpu_torch.interop import (
+        synthetic_discriminator_state_dict,
+        synthetic_generator_state_dict,
+        synthetic_m2snet_state_dict,
+    )
+    from conductor_tpu_torch.models.m2snet import M2SNet
+
+    b, s, iters = 55, 30, 5  # the reference batch and critic iterations (M2SGAN_train.py:168-196)
+    kw = dict(train_music_encoder=args.train_encoder, cached_features=args.cached,
+              cached_sync_latents=args.cached)
+    if args.impl == "flax":
+        kw.update(music_encoder_impl="flax", sync_encoder_impl="flax",
+                  sync_encoder_dtype="float32", compute_dtype="float32", music_conv_impl="lax")
+    tr = M2SGANTrainer(sample_length=s, critic_iters=iters, device="cuda", **kw)
+    tr.load_reference_state_dict(synthetic_generator_state_dict(tr.G, seed=0),
+                                 synthetic_discriminator_state_dict(tr.D, seed=1),
+                                 m2snet=synthetic_m2snet_state_dict(M2SNet(), seed=0))
+    rng = np.random.RandomState(0)
+    mel = torch.from_numpy(rng.uniform(0, 1, size=(b, s * 90, 128)).astype(np.float32)).cuda()
+    real = torch.from_numpy(rng.uniform(0, 1, size=(b, s * 30, 13, 2)).astype(np.float32)).cuda()
+    batch = (mel, real)
+    if args.cached:
+        with torch.no_grad():
+            batch = (tr.music_features(mel), real, tr.sync_latents(real))
+
+    def step():
+        noise = torch.from_numpy(rng.normal(size=(b, s, 8)).astype(np.float32)).cuda()
+        alpha = {"real_fake": torch.from_numpy(rng.uniform(size=(iters, b)).astype(np.float32))}
+        return float(tr.train_step(*batch, noise=noise, gp_alpha=alpha)["loss_sync"])
+
+    wall_plain, wall, device, table, by_name, _ = profile_steps(step, args.walls)
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    peak = torch.cuda.max_memory_allocated()
+    print("\n".join([
+        f"M2SGAN step, music encoder {tr.music_encoder_impl} / {tr.compute_dtype} / "
+        f"{tr.music_conv_impl} (trains: {tr.train_music_encoder}), SyncLoss "
+        f"{tr.sync_encoder_impl} / {tr.sync_encoder_dtype}, cached {args.cached}, B={b}, {s}-s "
+        f"samples, {iters} critic iterations, {STEPS} steps profiled on {_smi()}",
+        _times(wall_plain, wall, device),
+        f"K4 (csrc/conv_block.cu): {_kernel_ms(by_name, ('conv_block_kernel',))}; "
+        f"K7 (csrc/stgcn.cu): {_kernel_ms(by_name, ('stgcn_fwd_kernel', 'stgcn_bwd_kernel'))}; "
+        f"K9: {_kernel_ms(by_name, ('dkernel',))}; K10: {_kernel_ms(by_name, ('pool_fwd_kernel',))}; "
+        f"K11: {_kernel_ms(by_name, ('pool_bwd_kernel',))}",
+        f"peak memory of one step {peak} bytes",
+        table]))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--impl", default="pallas_fused", choices=["pallas_fused", "flax"])
@@ -268,6 +338,8 @@ def main() -> None:
     ap.add_argument("--mask", action="store_true")
     ap.add_argument("--m2snet", action="store_true")
     ap.add_argument("--share", action="store_true")
+    ap.add_argument("--m2sgan", action="store_true")
+    ap.add_argument("--train-encoder", action="store_true")
     ap.add_argument("--tree", type=Path, default=REPO)
     ap.add_argument("--walls", type=int, default=STEPS)
     args = ap.parse_args()
@@ -282,6 +354,8 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     if args.m2snet:
         return main_m2snet(args)
+    if args.m2sgan:
+        return main_m2sgan(args)
     from conductor_tpu_torch import DDPMTrainer
     from conductor_tpu_torch.config import Config, DenoiserConfig
     from conductor_tpu_torch.interop import synthetic_motion_encoder_state_dict, synthetic_state_dict

@@ -15,7 +15,10 @@ and int8 at four row counts, 8 layers at once as K1 launches it, the
 GEMM launches that K1, K5 and K6 report, K6 alone at B = 1 and 5, at a
 ragged t_valid, repeating bit for bit, and K7 alone at ragged T, T inside
 one tile and B = 1 (a repeat bit-identical, 10 launches a call, the
-forward keeping only its ReLU bit masks).  Skips
+forward keeping only its ReLU bit masks), and an M2SGAN step on the
+kernels ("auto": K4 on the frozen encoder and K7 in the SyncLoss; with
+the encoder training, K4's training modes, K9, K10 and K11) against the
+plain float32 step at S = 6.  Skips
 without a CUDA card; on one, run it with
 ``python -m pytest --noconftest tests/test_torch_port_cuda.py``.
 ``chip_smoke.py`` makes the same checks at the flagship size."""
@@ -27,9 +30,11 @@ import numpy as np
 import pytest
 import torch
 
-from conductor_tpu_torch import DDPMTrainer, M2SNetTrainer
+from conductor_tpu_torch import DDPMTrainer, M2SGANTrainer, M2SNetTrainer
 from conductor_tpu_torch.config import Config, DenoiserConfig, DiffusionConfig, TrainConfig
 from conductor_tpu_torch.interop import (
+    synthetic_discriminator_state_dict,
+    synthetic_generator_state_dict,
     synthetic_m2snet_state_dict,
     synthetic_motion_encoder_state_dict,
     synthetic_state_dict,
@@ -37,10 +42,12 @@ from conductor_tpu_torch.interop import (
 from conductor_tpu_torch.kernel_checks import (
     REL_TOL,
     check_attention_kernel,
+    check_conv_blocks,
     check_kernels,
     check_stage1_kernels,
     check_stgcn_kernels,
     check_train_kernels,
+    gan_encoder_kernel_inputs,
     launch_split,
     perceptual_inputs,
     prologue_tie_errors,
@@ -152,7 +159,8 @@ def test_kernels_match_plain_versions(trainers):
     s1, _, music, motion_s1 = _stage1_trainers()
     results = check_kernels(kernel, mel, noise, reps=1) + check_train_kernels(
         kernel, mel, motion, reps=1) + check_stgcn_kernels(
-        kernel, *perceptual_inputs(kernel, mel, motion), reps=1) + check_stage1_kernels(
+        kernel.feat_model, kernel.feat_pack, getattr(torch, kernel.cfg.denoiser.compute_dtype),
+        *perceptual_inputs(kernel, mel, motion), reps=1) + check_stage1_kernels(
         *stage1_kernel_inputs(s1, music, motion_s1, (0, 120)), reps=1)
     q, k, v = (torch.randn(2, 96, 128, device="cuda").to(torch.bfloat16) for _ in range(3))
     results.append(check_attention_kernel(q, k, v, torch.ones(2, 96, 1, device="cuda"), 8, reps=1))
@@ -978,3 +986,62 @@ def test_float32_stage1_step_runs_without_tf32():
     gmax = max(float(g.abs().max()) for g in g_cpu.values())
     for k, g in g_cpu.items():
         assert float((g_gpu[k] - g).abs().max()) <= 1e-4 * gmax, k
+
+
+@pytest.mark.parametrize("train_encoder", [False, True], ids=["frozen", "train_encoder"])
+def test_m2sgan_step_kernel_path_matches_plain_path(train_encoder):
+    """One M2SGAN step at S = 6, B = 2, two critic iterations, on "auto"
+    (the kernels) and on its plain path, from the same weights, batch,
+    noise and interpolation weights: with the encoder frozen the plain
+    float32 path, with it training the bf16 witness (the same precision on
+    cuDNN and the bf16 SyncLoss module, chip_smoke.py phase 11); every
+    metric finite, ``loss_sync`` within 3e-2 relative, ``w_distance`` and
+    ``loss_adv`` within 0.05 (tests/test_stage1.py:276, 337); K4 launched
+    7 times and K7's forward twice and backward once with the encoder
+    frozen; K4, K9, K10 (3 pools in each of 2 forwards) and K11 (3) with
+    it training, the plain path none.  Then the path's encoder kernels
+    against their plain versions at the step's shapes (`check_conv_blocks`
+    on the frozen encoder, `check_stage1_kernels` on a generator step's
+    inputs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    kw = dict(sample_length=6, critic_iters=2, train_music_encoder=train_encoder, device="cuda")
+    kernel = M2SGANTrainer(**kw)
+    dtype = "bfloat16" if train_encoder else "float32"
+    plain = M2SGANTrainer(music_encoder_impl="flax", sync_encoder_impl="flax",
+                          sync_encoder_dtype=dtype, compute_dtype=dtype,
+                          music_conv_impl="lax", **kw)
+    assert (kernel.sync_encoder_impl, kernel.music_encoder_impl) == (
+        "pallas", "flax" if train_encoder else "pallas")
+    g_sd = synthetic_generator_state_dict(kernel.G, seed=0)
+    d_sd = synthetic_discriminator_state_dict(kernel.D, seed=1)
+    m_sd = synthetic_m2snet_state_dict(M2SNetTrainer(device="cpu").model, seed=2)
+    rng = np.random.RandomState(3)
+    mel = torch.from_numpy(rng.uniform(0, 1, size=(2, 540, 128)).astype(np.float32)).cuda()
+    real = torch.from_numpy(rng.uniform(0, 1, size=(2, 180, 13, 2)).astype(np.float32)).cuda()
+    noise = torch.from_numpy(rng.normal(size=(2, 6, 8)).astype(np.float32)).cuda()
+    alpha = {"real_fake": torch.from_numpy(rng.uniform(size=(2, 2)).astype(np.float32))}
+    metrics = {}
+    for name, tr in (("kernel", kernel), ("plain", plain)):
+        tr.load_reference_state_dict(g_sd, d_sd, m2snet=m_sd)
+        reset_launch_counts()
+        m = tr.train_step(mel, real, noise=noise, gp_alpha=alpha)
+        torch.cuda.synchronize()
+        metrics[name] = ({k: float(v) for k, v in m.items()}, launch_counts())
+    (got, counts), (want, plain_counts) = metrics["kernel"], metrics["plain"]
+    assert all(np.isfinite(list(got.values()))), got
+    assert abs(got["loss_sync"] - want["loss_sync"]) <= 3e-2 * abs(want["loss_sync"]), (got, want)
+    for k in ("w_distance", "loss_adv"):
+        assert abs(got[k] - want[k]) <= 0.05, (k, got, want)
+    assert not any(plain_counts.values()), plain_counts
+    if train_encoder:
+        assert counts["conv_block"] > 0 and counts["conv3x3_dkernel"] > 0, counts
+        assert (counts["max_pool"], counts["max_pool_bwd"]) == (6, 3), counts
+        results = check_stage1_kernels(*gan_encoder_kernel_inputs(kernel, mel, real, noise),
+                                       reps=1)
+    else:
+        assert counts["conv_block"] == 7 and counts["conv3x3_dkernel"] == 0, counts
+        results = [check_conv_blocks(kernel.fused_encoder(), mel, reps=1)]
+    assert (counts["stgcn_forward"], counts["stgcn_backward"]) == (2, 1), counts
+    for r in results:
+        assert r["ok"], r

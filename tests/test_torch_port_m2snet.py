@@ -8,7 +8,7 @@ the CPU.
 - `M2SNet` in eval mode against the reference activations of
   `torch_m2snet.npz` (``hx``, ``hy``, ``out``, at the bounds of
   tests/test_torch_import.py) on `synth_state_dict` weights, and against
-  the flax `M2SNet`.
+  the flax `M2SNet`; its `features` stacks end in the same latents.
 """
 
 import os
@@ -16,7 +16,6 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 from test_torch_port_m2s_parity import as_reference, close_trees, grads, tree
 
@@ -80,5 +79,10 @@ def test_m2snet_eval_matches_reference_and_flax():
     want = FlaxM2SNet().apply(tree(import_m2snet(sd)), jnp.asarray(fx["mel"]),
                               jnp.asarray(fx["motion"]))
     np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        model.features(mel, motion)
+    # the feature stacks end in the same latents (their maps are held
+    # against flax in tests/test_torch_port_gan_losses.py)
+    with torch.no_grad():
+        music_feats, motion_feats = model.features(mel, motion)
+    assert (len(music_feats), len(motion_feats)) == (5, 12)
+    np.testing.assert_array_equal(music_feats[-1].numpy(), hx.numpy())
+    np.testing.assert_array_equal(motion_feats[-1].numpy(), hy.numpy())

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from conductor_tpu_torch import DDPMTrainer, M2SNetTrainer
+from conductor_tpu_torch import DDPMTrainer, M2SGANTrainer, M2SNetTrainer
 from conductor_tpu_torch.cli import train_m2snet
 from conductor_tpu_torch.config import Config, DenoiserConfig, DiffusionConfig, resolve_auto
 from conductor_tpu_torch.interop import reference_state_dict, synthetic_state_dict
@@ -61,7 +61,7 @@ class Block(importlib.abc.MetaPathFinder):
 sys.meta_path.insert(0, Block())
 import torch
 import conductor_tpu_torch
-from conductor_tpu_torch import DDPMTrainer, M2SNetTrainer
+from conductor_tpu_torch import DDPMTrainer, M2SGANTrainer, M2SNetTrainer
 from conductor_tpu_torch.config import Config, DenoiserConfig, DiffusionConfig, TrainConfig
 from conductor_tpu_torch.interop import synthetic_m2snet_state_dict, synthetic_state_dict
 cfg = Config(denoiser=DenoiserConfig(num_frames=32, latent_dim=32, ff_size=16, num_layers=2,
@@ -91,6 +91,12 @@ s1 = M2SNetTrainer(sample_length=6, clip_length=2, music_conv_impl="pallas_train
 s1.load_reference_state_dict(synthetic_m2snet_state_dict(s1.model))
 m = s1.train_step(torch.rand(2, 540, 128), torch.rand(2, 180, 13, 2), "hard", starts=(0, 120))
 assert torch.isfinite(m["loss"]), m
+gan = M2SGANTrainer(sample_length=6, critic_iters=1, sync_encoder_impl="pallas",
+                    sync_encoder_dtype="bfloat16", device="cpu")
+gan.load_reference_state_dict(m2snet=synthetic_m2snet_state_dict(s1.model))
+m = gan.train_step(torch.rand(2, 540, 128), torch.rand(2, 180, 13, 2),
+                   generator=torch.Generator().manual_seed(0))
+assert all(bool(torch.isfinite(v)) for v in m.values()), m
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("no-jax-ok")
@@ -101,8 +107,9 @@ def test_package_never_imports_jax():
     """In a fresh interpreter, with jax, flax and the JAX package
     (`conductor_tpu`, that top-level name alone) blocked, the package
     imports, serves a clip, takes a stage-2 training step (K5 / K6 / K7
-    path) and one with the reference mask (bf16 modules, K8 path), and a
-    stage-1 M2SNet step (K4 / K9 / K10 / K11 path) on the CPU."""
+    path) and one with the reference mask (bf16 modules, K8 path), a
+    stage-1 M2SNet step (K4 / K9 / K10 / K11 path) and an M2SGAN step
+    (SyncLoss on K7) on the CPU."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], capture_output=True, text=True,
                           cwd=REPO, env=env, timeout=300)
@@ -209,7 +216,8 @@ def test_cuda_trainer_without_a_card_raises():
         DDPMTrainer(TINY, device="cuda")
 
 
-@pytest.mark.parametrize("make", [lambda: DDPMTrainer(TINY), lambda: M2SNetTrainer()])
+@pytest.mark.parametrize("make", [lambda: DDPMTrainer(TINY), lambda: M2SNetTrainer(),
+                                  lambda: M2SGANTrainer()])
 def test_trainers_run_on_the_card_by_default(make):
     """The entry points take the card unless the caller asks for the CPU:
     without one, the default raises."""
@@ -243,7 +251,7 @@ def test_m2snet_trainer_resolves_auto_and_defers():
     assert resolve_impls("float32", "pallas_train", cpu) == ("float32", "pallas_train")
     tr = M2SNetTrainer(sample_length=6, clip_length=2, device="cpu")
     assert (tr.compute_dtype, tr.music_conv_impl) == ("float32", "lax")
-    for deferred in (lambda: tr.recalibrate_batch_stats([]), lambda: tr.model.features(0, 0),
+    for deferred in (lambda: tr.recalibrate_batch_stats([]),
                      M2SNetEvaluator, train_m2snet.main):
         with pytest.raises(NotImplementedError):
             deferred()
