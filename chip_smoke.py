@@ -143,14 +143,33 @@ Phases, one line each (the kernel checks one line per kernel):
      at B = 55, T = 2700 (`[k4] conv_block_gan`), K7 on the SyncLoss's
      inputs (`[k7] ..._gan`), and K4's training modes, K9, K10 and K11 on
      the inputs and cotangents of their calls in one generator step of
-     (c) (`[k4] conv_block_train_gan`, `[k9]`, `[k10]`, `[k11]` ..._gan).
+     (c) (`[k4] conv_block_train_gan`, `[k9]`, `[k10]`, `[k11]` ..._gan);
+ 12. the stage-2 CLI, `python -m conductor_tpu_torch.cli.train`, on a
+     synthetic root of 16 60-s clips in a temporary directory (the `[cli]`
+     lines): the loader must be the native one, its sequential epoch equal
+     to the Python iterator's, and its ms a B = 32 batch and the batch's
+     pageable copy to the card are printed; then in process (1) the CLI's
+     defaults with ``--times 4 --epochs 3 --save_latest 2``, 6 steps at
+     B = 32, T = 900, 1000 diffusion steps: finite losses, config.json
+     resolved to ``pallas_fused`` / ``pallas`` / bf16, K5 and K6 8 times
+     and K7 2 + 1 times a step, checkpoints at steps 2, 4 and 6, steps/s
+     beside phase 6's bare step, and the run's peak memory; (2)
+     ``--epochs 1`` then ``--continue --epochs 2`` with
+     ``--cached_features`` and cuDNN deterministic, equal to a straight
+     ``--epochs 2`` bit for bit (weights, Adam state, every logged loss);
+     (3) a SIGTERM to a CLI subprocess: exit 0, its checkpoint at the last
+     logged step, and ``--continue`` from it; (4) ``--stage1_ckpt`` from
+     a synthetic reference-format M2SNet file, both encoders grafted; (5)
+     ``--timestep_sampler loss-second-moment --diffusion_steps 50``, 60
+     steps, every ring full; (6) ``--faithful``, 2 steps, no kernel.
 
 Every path runs at full depth; the run takes a few minutes of its 1200-s
 limit, so no path is cut.  Then one JSON line of per-kernel results (the
 launch counts of K1-K4 and K1's AdaLN GEMM from phase 4, of K5 / K6 / K7
 from phase 6, of K9, K10 and K11 from phase 7, of K8 from phase 8, of K1's
 and K2's int8 modes, K1's bf16-VPU mode and the int8 GEMM from phase 10,
-and phase 11's launches of K4, K7, K9, K10 and K11 added;
+phase 11's launches of K4, K7, K9, K10 and K11 and phase 12's of K5, K6
+and K7 added;
 each kernel's time, its
 plain version's, its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
@@ -227,6 +246,10 @@ GAN_B, GAN_S, GAN_ITERS = 55, 30, 5
 GAN_KERNELS = ("conv_block", "conv3x3_dkernel", "max_pool", "max_pool_bwd", "stgcn_forward",
                "stgcn_backward")
 GAN_ADV_TOL = 0.05  # w_distance and loss_adv, tests/test_stage1.py:276, 337
+# phase 12: the stage-2 CLI on a synthetic root of 60-s clips; 16 clips
+# give 16 windows an epoch, 2 batches of 32 with --times 4
+CLI_CLIPS = 16
+CLI_KERNELS = ("decoder_layer", "decoder_layer_bwd", "stgcn_forward", "stgcn_backward")
 
 
 def _run(cmd: list[str]) -> str:
@@ -241,6 +264,212 @@ def _timed(fn):
     t0 = time.perf_counter()
     out = fn().cpu()  # up to the host readback
     return out, time.perf_counter() - t0
+
+
+def cli_phase(smi: str, bare_step_s: float) -> dict[str, int]:
+    """Phase 12: `python -m conductor_tpu_torch.cli.train` on a synthetic
+    root, in process unless a signal is sent; returns the launches of K5 /
+    K6 / K7 in its default run.  Raises SystemExit on any failed check."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from conductor_tpu_torch.cli.train import main as train_cli
+    from conductor_tpu_torch.data.dataset import (
+        BatchIterator,
+        ConductorMotionDataset,
+        make_synthetic_dataset,
+    )
+    from conductor_tpu_torch.data.native_loader import make_batch_iterator
+    from conductor_tpu_torch.interop import synthetic_m2snet_state_dict
+    from conductor_tpu_torch.models.m2snet import M2SNet
+    from conductor_tpu_torch.ops import launch_counts, reset_launch_counts
+    from conductor_tpu_torch.train.checkpoints import CheckpointManager
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        root = os.path.join(work, "data")
+        make_synthetic_dataset(root, "train", num_clips=CLI_CLIPS)
+
+        # (1) the loader: native, its sequential epoch the Python one's, and
+        # its time a B = 32 random-window batch, and the copy to the card
+        seq = ConductorMotionDataset(root, "train", 30, "sequential")
+        native = make_batch_iterator(seq, 8, shuffle=False)
+        if native.kind != "native":
+            raise SystemExit(f"chip_smoke: the native loader was not chosen: "
+                             f"{getattr(native, 'fallback_reason', '')}")
+        nb, pb = list(native), list(BatchIterator(seq, 8, shuffle=False))
+        if len(nb) != len(pb) or not all(np.array_equal(x, y) for a, b in zip(nb, pb)
+                                         for x, y in zip(a, b)):
+            raise SystemExit("chip_smoke: the native loader's epoch differs from the Python one's")
+        native.close()
+        loader = make_batch_iterator(ConductorMotionDataset(root, "train", 30, "random"), 32,
+                                     seed=1, times=4)
+        batch_s, copy_s = [], []
+        for epoch in range(4):
+            loader.epoch = epoch
+            t0 = time.perf_counter()
+            for mel, motion, m_lens in loader:
+                batch_s.append(time.perf_counter() - t0)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                torch.tensor(mel).to("cuda")  # the step's copy: pageable host memory
+                torch.tensor(motion).to("cuda")
+                torch.cuda.synchronize()
+                copy_s.append(time.perf_counter() - t1)
+                t0 = time.perf_counter()
+        loader.close()
+        mb = (mel.nbytes + motion.nbytes) / 1e6
+        print(f"[cli] loader: native, its sequential epoch equal to the Python iterator's "
+              f"({len(nb)} batches of 8); B=32 random windows: median {np.median(batch_s) * 1e3:.2f} "
+              f"ms a batch from the loader (max {max(batch_s) * 1e3:.2f}, {len(batch_s)} batches), "
+              f"host-to-device copy of its {mb:.1f} MB median {np.median(copy_s) * 1e3:.2f} ms "
+              f"(max {max(copy_s) * 1e3:.2f}) on {smi}")
+
+        def run(name, *extra):
+            """One in-process CLI run; its run directory, the launches of the
+            path's kernels and its wall seconds."""
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            train_cli(["--data_root", root, "--name", name, "--checkpoints_dir", work, *extra])
+            torch.cuda.synchronize()
+            return (os.path.join(work, "ConductorMotion100", name), launch_counts(),
+                    time.perf_counter() - t0)
+
+        def records(run_dir):
+            with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+                return [json.loads(line) for line in f]
+
+        def final(run_dir):
+            return CheckpointManager(os.path.join(run_dir, "ckpt")).restore()
+
+        # (2) the defaults: B = 32, 30-s windows, 1000 steps, "auto"; 6 steps
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run_dir, cli_counts, wall = run("defaults", "--times", "4", "--epochs", "3",
+                                        "--save_latest", "2")
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        recs = records(run_dir)
+        with open(os.path.join(run_dir, "config.json")) as f:
+            saved = json.load(f)
+        impls = (saved["denoiser"]["train_layer_impl"], saved["train"]["feat_impl"],
+                 saved["denoiser"]["compute_dtype"])
+        per_step = {k: cli_counts[k] for k in CLI_KERNELS}
+        steps = [r["step"] for r in recs]
+        t_steps = [r["t"] for r in recs]
+        steady = (t_steps[-1] - t_steps[1]) / (len(t_steps) - 2)  # steps 3-6, saves included
+        step_ms = [round((b - a) * 1e3, 1) for a, b in zip(t_steps, t_steps[1:])]
+        print(f"[cli] defaults (B=32, T=900, 1000 steps, --times 4 --epochs 3): steps {steps}, "
+              f"losses {[r['loss'] for r in recs]}, config {impls}, launches {per_step}, "
+              f"{1 / steady:.2f} steps/s over steps 3-6 ({steady * 1e3:.1f} ms a step, "
+              f"checkpoint saves included; steps 2-6 {step_ms} ms apart; phase 6's bare step "
+              f"{bare_step_s * 1e3:.1f} ms, "
+              f"{1 / bare_step_s:.2f} steps/s), run wall {wall:.1f} s, peak memory above the "
+              f"phases before {peak:.2f} GiB on {smi}")
+        if steps != list(range(1, 7)) or not all(np.isfinite(r["loss"]) for r in recs):
+            raise SystemExit(f"chip_smoke: the CLI's default run went wrong: {recs}")
+        if impls != ("pallas_fused", "pallas", "bfloat16"):
+            raise SystemExit(f"chip_smoke: the CLI did not resolve 'auto' to the kernels: {impls}")
+        if per_step != {"decoder_layer": 48, "decoder_layer_bwd": 48, "stgcn_forward": 12,
+                        "stgcn_backward": 6}:
+            raise SystemExit(f"chip_smoke: the CLI did not launch K5 / K6 / K7 every step: "
+                             f"{per_step}")
+        if CheckpointManager(os.path.join(run_dir, "ckpt")).all_steps() != [2, 4, 6]:
+            raise SystemExit("chip_smoke: the CLI's default run did not save steps 2, 4, 6")
+
+        # (3) resume from an epoch boundary, cached features, cuDNN
+        # deterministic: --epochs 1 then --continue --epochs 2 equals a
+        # straight --epochs 2 bit for bit
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            common = ["--times", "4", "--cached_features"]
+            straight, _, _ = run("straight", *common, "--epochs", "2")
+            resumed, _, _ = run("resumed", *common, "--epochs", "1")
+            run("resumed", *common, "--epochs", "2", "--continue")
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        a, b = final(straight), final(resumed)
+        same = a["total_it"] == b["total_it"] == 4 and all(
+            torch.equal(v, b["encoder"][k]) for k, v in a["encoder"].items()) and all(
+            torch.equal(v, b["opt_encoder"]["state"][i][key])
+            for i, st in a["opt_encoder"]["state"].items() for key, v in st.items())
+        losses_a = [r["loss"] for r in records(straight)]
+        losses_b = [r["loss"] for r in records(resumed)]
+        print(f"[cli] resume at step 2 (cached features): losses straight {losses_a}, resumed "
+              f"{losses_b}; final weights and Adam state bit-equal: {same}")
+        if not same or losses_a != losses_b:
+            raise SystemExit("chip_smoke: the resumed CLI run differs from the straight one")
+
+        # (4) SIGTERM to a CLI process: a checkpoint at the logged step, rc 0
+        argv = [sys.executable, "-m", "conductor_tpu_torch.cli.train", "--data_root", root,
+                "--name", "sigterm", "--checkpoints_dir", work, "--times", "4",
+                "--cached_features", "--epochs", "1000"]
+        sig_dir = os.path.join(work, "ConductorMotion100", "sigterm")
+        jsonl = os.path.join(sig_dir, "metrics.jsonl")
+        proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            deadline = time.time() + 120
+            while not (os.path.exists(jsonl) and os.path.getsize(jsonl) > 0):
+                if proc.poll() is not None or time.time() > deadline:
+                    raise SystemExit(f"chip_smoke: the CLI process logged no step: "
+                                     f"{proc.communicate()[0][-2000:]}")
+                time.sleep(0.05)
+            proc.send_signal(signal.SIGTERM)
+            out, _ = proc.communicate(timeout=120)
+        finally:
+            proc.kill()
+            proc.wait()
+        last = records(sig_dir)[-1]["step"]
+        saved_step = CheckpointManager(os.path.join(sig_dir, "ckpt")).latest_step()
+        run("sigterm", "--times", "4", "--cached_features", "--epochs", str(last // 2 + 2),
+            "--continue")
+        after = [r["step"] for r in records(sig_dir)]
+        print(f"[cli] SIGTERM after step {last}: rc {proc.returncode}, latest checkpoint "
+              f"{saved_step}; --continue logged steps {after[after.index(last) + 1:]}")
+        if proc.returncode != 0 or saved_step != last or after[-1] <= last:
+            raise SystemExit(f"chip_smoke: SIGTERM did not checkpoint and resume: {out[-2000:]}")
+
+        # (5) the stage-1 graft from a reference-format M2SNet file
+        m2s = synthetic_m2snet_state_dict(M2SNet(), seed=1)
+        torch.save({k: torch.from_numpy(v) for k, v in m2s.items()}, os.path.join(work, "m2snet.pt"))
+        graft_dir, graft_counts, _ = run("graft", "--times", "2", "--epochs", "1",
+                                         "--stage1_ckpt", os.path.join(work, "m2snet.pt"))
+        g = final(graft_dir)
+        grafted = all(np.array_equal(g["encoder"][k].numpy(), v) for k, v in m2s.items()
+                      if k.startswith("music_encoder.")) and all(
+            np.array_equal(g["feat_encoder"][k.removeprefix("motion_encoder.")].numpy(), v)
+            for k, v in m2s.items() if k.startswith("motion_encoder."))
+        g_loss = records(graft_dir)[-1]["loss"]
+        print(f"[cli] --stage1_ckpt: encoders grafted {grafted}, loss {g_loss}, K7 launches "
+              f"{graft_counts['stgcn_forward']} + {graft_counts['stgcn_backward']}")
+        if not grafted or not np.isfinite(g_loss) or graft_counts["stgcn_backward"] != 1:
+            raise SystemExit("chip_smoke: the stage-1 graft went wrong")
+
+        # (6) the loss-second-moment sampler over 50 timesteps, to a full ring
+        lsm_dir, _, lsm_wall = run("lsm", "--timestep_sampler", "loss-second-moment",
+                                   "--diffusion_steps", "50", "--times", "40", "--epochs", "3",
+                                   "--cached_features", "--save_latest", "1000")
+        st = final(lsm_dir)["sampler_state"]
+        full = int((st["loss_counts"] == 10).sum())
+        lsm_losses = [r["loss"] for r in records(lsm_dir)]
+        print(f"[cli] loss-second-moment, 50 timesteps: {len(lsm_losses)} steps in {lsm_wall:.1f} s, "
+              f"{full} of 50 rings full, last loss {lsm_losses[-1]}")
+        if full != 50 or not all(np.isfinite(lsm_losses)):
+            raise SystemExit("chip_smoke: the loss-second-moment sampler did not fill its rings")
+
+        # (7) --faithful: the plain float32 path, which launches no kernel
+        faithful_dir, faithful_counts, faithful_wall = run("faithful", "--faithful", "--times", "2",
+                                                           "--epochs", "2")
+        f_losses = [r["loss"] for r in records(faithful_dir)]
+        print(f"[cli] --faithful: 2 steps in {faithful_wall:.1f} s, losses {f_losses}, launches "
+              f"{sum(faithful_counts.values())}")
+        if any(faithful_counts.values()) or len(f_losses) != 2 or not all(np.isfinite(f_losses)):
+            raise SystemExit(f"chip_smoke: --faithful launched a kernel: {faithful_counts}")
+        return per_step
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def main() -> int:
@@ -874,6 +1103,10 @@ def main() -> int:
     gan_counts = {k: sum(c[k] for path in "abc" for c in gan_runs[path][2]) for k in GAN_KERNELS}
     print(f"[gan] launches in phase 11's kernel paths (a), (b), (c): {gan_counts}")
     for k, n in gan_counts.items():
+        counts[k] += n
+
+    # 12. the stage-2 CLI on the card, beside phase 6's bare step
+    for k, n in cli_phase(smi, float(np.median(times_k))).items():
         counts[k] += n
 
     kernels = []

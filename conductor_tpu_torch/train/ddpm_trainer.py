@@ -37,9 +37,19 @@ kernel.
 Both entry points run with TF32 off (`models.precision.full_float32`), so
 a float32 path is float32 on the card too.
 
-Not ported yet, raising NotImplementedError: the loss-second-moment
-timestep sampler, denoiser dropout, checkpoints, classifier-free guidance,
-and the ancestral sampler.
+Around the step, as JAX's `TrainState` and `init_state` carry it: the step
+count, from which each step's random numbers are drawn (a generator seeded
+from ``(cfg.train.seed, step)``, as JAX folds the step into its key), so a
+resumed run draws what the uninterrupted one drew; the loss-second-moment
+sampler's state (``timestep_sampler="loss-second-moment"``, updated from
+each step's per-sample MSE); `graft_stage1`, which takes a stage-1
+M2SNet's music encoder into the denoiser and its motion encoder into the
+perceptual net; and `state_dict` / `load_state_dict` of the whole training
+state in the reference's stage-2 ``latest.tar`` layout
+(`train.checkpoints`).
+
+Not ported yet, raising NotImplementedError: denoiser dropout,
+classifier-free guidance, and the ancestral sampler.
 """
 
 from __future__ import annotations
@@ -56,7 +66,12 @@ from ..diffusion import (
     training_losses,
     uniform_sample,
 )
-from ..interop.weights import load_motion_encoder_state_dict, load_reference_state_dict
+from ..diffusion import timestep_samplers as ts
+from ..interop.weights import (
+    load_motion_encoder_state_dict,
+    load_music_encoder_from_m2snet,
+    load_reference_state_dict,
+)
 from ..models.music_encoder import FusedMusicEncoder
 from ..models.precision import full_float32
 from ..models.stgcn import MotionEncoderSTGCN
@@ -94,6 +109,9 @@ class DDPMTrainer:
         self._build_feat_pack()
         self.sched = make_schedule(cfg.diffusion.schedule, cfg.diffusion.steps)
         self.train_sched = self.sched.to(device)
+        self.step = 0
+        self.sampler_state = (ts.init_state(self.sched.num_timesteps)
+                              if cfg.train.timestep_sampler == "loss-second-moment" else None)
         self._new_optimizer()
         self._build_sampling_pack()
 
@@ -114,6 +132,95 @@ class DDPMTrainer:
         if motion_encoder is not None:
             load_motion_encoder_state_dict(self.feat_model, motion_encoder)
             self._build_feat_pack()
+
+    def graft_stage1(self, m2snet_sd) -> None:
+        """The hand-off from stage 1 (JAX `init_state(stage1_music_params=,
+        stage1_music_stats=, stage1_motion_variables=)`,
+        `conductor_tpu/train/ddpm_trainer.py:135-186`): a reference-format
+        M2SNet state dict's music encoder, parameters and BatchNorm
+        statistics, into the frozen ``model.music_encoder``, and its motion
+        encoder into the perceptual ST-GCN; then `reset_caches`."""
+        load_music_encoder_from_m2snet(self.model, m2snet_sd)
+        load_motion_encoder_state_dict(self.feat_model, m2snet_sd)
+        self.reset_caches()
+
+    def reset_caches(self) -> None:
+        """Rebuild what is derived from the weights (the ST-GCN's pack, the
+        sampling pack, the fused encoder) after a graft or a restore (JAX
+        `reset_caches`, called by `cli/train.py:167`)."""
+        self._build_feat_pack()
+        self._build_sampling_pack()
+
+    def _step_generator(self) -> torch.Generator:
+        """The generator of this step's random numbers, on the trainer's
+        device, seeded from ``(cfg.train.seed, step)``: JAX draws them from
+        ``fold_in(rng, state.step)`` (`conductor_tpu/train/ddpm_trainer.py:302`)."""
+        seed = np.random.SeedSequence((self.cfg.train.seed, self.step)).generate_state(1, np.uint64)
+        return torch.Generator(device=self.device).manual_seed(int(seed[0]) >> 1)
+
+    # ---------------------------------------------------------- checkpoints
+
+    def state_dict(self, epoch: int = 0) -> dict:
+        """The whole training state, on the host, in the reference's stage-2
+        ``latest.tar`` layout (`Diffusion_Stage/trainers/ddpm_trainer.py:
+        290-319`): ``encoder`` (the denoiser under the reference's key
+        names), ``opt_encoder`` (the Adam state over every parameter in
+        the reference's registration order, the frozen music encoder's
+        without state), ``ep`` and ``total_it`` (the step); beside them the
+        frozen perceptual ST-GCN (``feat_encoder``, which JAX's
+        `TrainState` carries as ``feat_variables``) and the
+        loss-second-moment sampler's state (``sampler_state``, or None)."""
+        def host(sd):
+            return {k: v.detach().to("cpu", copy=True) for k, v in sd.items()}
+
+        sampler = None
+        if self.sampler_state is not None:
+            sampler = {k: torch.from_numpy(v.copy()) for k, v in self.sampler_state._asdict().items()}
+        return {
+            "encoder": host(self.model.state_dict()),
+            "opt_encoder": self._reference_adam_state(host),
+            "ep": int(epoch),
+            "total_it": self.step,
+            "feat_encoder": host(self.feat_model.state_dict()),
+            "sampler_state": sampler,
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore `state_dict`'s output, or a reference ``latest.tar`` dict
+        (without the port's own keys, which then stay as they are); then
+        `reset_caches`."""
+        load_reference_state_dict(self.model, state["encoder"])
+        if state.get("feat_encoder") is not None:
+            self.feat_model.load_state_dict(state["feat_encoder"], strict=True)
+        opt = state.get("opt_encoder")
+        if opt and opt.get("state"):
+            self.optimizer.adam.load_state_dict(self._port_adam_state(opt))
+        self.step = int(state.get("total_it", 0))
+        if state.get("sampler_state") is not None and self.sampler_state is not None:
+            self.sampler_state = ts.SamplerState(
+                **{k: v.numpy().copy() for k, v in state["sampler_state"].items()})
+        self.reset_caches()
+
+    def _trainable_positions(self) -> list[int]:
+        """The positions, among every parameter in registration order (the
+        reference's ``param_groups[0]["params"]``), of the parameters the
+        optimizer owns (`ClippedAdam` keeps them in that order)."""
+        return [i for i, p in enumerate(self.model.parameters()) if p.requires_grad]
+
+    def _reference_adam_state(self, host) -> dict:
+        sd = self.optimizer.adam.state_dict()
+        pos = self._trainable_positions()
+        n = sum(1 for _ in self.model.parameters())
+        return {
+            "state": {pos[i]: host(st) for i, st in sd["state"].items()},
+            "param_groups": [dict(g, params=list(range(n))) for g in sd["param_groups"]],
+        }
+
+    def _port_adam_state(self, opt: dict) -> dict:
+        index = {p: i for i, p in enumerate(self._trainable_positions())}
+        state = {index[int(p)]: st for p, st in opt["state"].items() if int(p) in index}
+        groups = [dict(g, params=list(range(len(index)))) for g in opt["param_groups"]]
+        return {"state": state, "param_groups": groups}
 
     @torch.no_grad()
     def _build_feat_pack(self) -> None:
@@ -196,6 +303,16 @@ class DDPMTrainer:
 
         return ddim_sample_loop(sched, model_fn, noise)
 
+    @torch.no_grad()
+    @full_float32()
+    def music_features(self, mel) -> torch.Tensor:
+        """The frozen encoder's features (B, T30, 64) of mel (B, T90, 128),
+        as a step from mel computes them: the plain `MusicEncoder` in the
+        compute dtype (what the feature cache holds, as JAX's CLI encodes
+        with `encode_music`, `conductor_tpu/cli/train.py:184-189`)."""
+        mel = torch.as_tensor(mel, dtype=torch.float32, device=self.device)
+        return self.model.encode_music(mel)[1]
+
     # ------------------------------------------------------------ training
 
     def training_terms(self, xf_proj, xf_out, motion, t, noise,
@@ -260,6 +377,7 @@ class DDPMTrainer:
             "loss_elbow": loss_elbow,
             "loss_head": terms["velocity_head"],
             "loss_body": terms["velocity_body"],
+            "mse_per_sample": terms["mse"],  # the sampler's input, not a metric
         }
         return loss, metrics
 
@@ -272,9 +390,12 @@ class DDPMTrainer:
         the clips' lengths, is needed with ``replicate_reference_mask`` and
         ignored without (the full window).  The timesteps ``t`` (B,), the
         noise (B, T30, J * 2) and the (B, T30) condition keep mask are drawn
-        from ``generator`` unless given.  Returns the JAX metrics as 0-d
-        tensors (no host sync)."""
+        unless given, from ``generator`` or else from `_step_generator`; t
+        by the timestep sampler.  Returns the JAX metrics as 0-d tensors (no
+        host sync but the loss-second-moment sampler's update)."""
         dev = self.device
+        if generator is None:
+            generator = self._step_generator()
 
         def on_device(a, dtype):  # a copy of host arrays, which may be read-only
             return (a if torch.is_tensor(a) else torch.tensor(np.asarray(a))).to(dev, dtype)
@@ -287,11 +408,13 @@ class DDPMTrainer:
                 raise ValueError("replicate_reference_mask needs m_lens, the clips' lengths")
             m_lens = torch.full((b,), n)
         m_lens = on_device(m_lens, torch.long)
-        if t is None:
+        if t is None and self.sampler_state is not None:
+            t, _ = ts.loss_aware_sample(self.sampler_state, b, generator=generator)
+        elif t is None:
             t, _ = uniform_sample(self.sched.num_timesteps, b, generator=generator)
         if noise is None:
-            gen_device = generator.device if generator is not None else dev
-            noise = torch.randn((b, n, motion[0, 0].numel()), generator=generator, device=gen_device)
+            noise = torch.randn((b, n, motion[0, 0].numel()), generator=generator,
+                                device=generator.device)
         t = on_device(t, torch.long)
         noise = on_device(noise, torch.float32)
         if cond_keep is not None:
@@ -300,6 +423,11 @@ class DDPMTrainer:
         loss.backward()
         metrics["grad_norm"] = self.optimizer.step()
         self._pack_stale = True
+        self.step += 1
+        mse = metrics.pop("mse_per_sample")
+        if self.sampler_state is not None:
+            self.sampler_state = ts.update_state(self.sampler_state, t.cpu().numpy(),
+                                                 mse.detach().cpu().numpy())
         return {k: v.detach() for k, v in metrics.items()}
 
 
@@ -331,8 +459,8 @@ def _check_training_config(cfg: Config, device: torch.device | str) -> None:
             and d.compute_dtype != "bfloat16"):
         raise ValueError("feat_impl='pallas' on CUDA runs the ST-GCN kernel, which takes bf16 "
                          f"operands; compute_dtype is {d.compute_dtype}")
-    if tc.timestep_sampler != "uniform":
-        raise NotImplementedError(f"timestep sampler {tc.timestep_sampler!r} is not ported yet")
+    if tc.timestep_sampler not in ("uniform", "loss-second-moment"):
+        raise ValueError(f"unknown timestep sampler: {tc.timestep_sampler}")
     if d.dropout != 0.0:
         raise NotImplementedError("denoiser dropout is not ported (the default is 0)")
     if cfg.diffusion.loss_type not in ("mse", "rescaled_mse"):

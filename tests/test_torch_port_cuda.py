@@ -18,7 +18,8 @@ one tile and B = 1 (a repeat bit-identical, 10 launches a call, the
 forward keeping only its ReLU bit masks), and an M2SGAN step on the
 kernels ("auto": K4 on the frozen encoder and K7 in the SyncLoss; with
 the encoder training, K4's training modes, K9, K10 and K11) against the
-plain float32 step at S = 6.  Skips
+plain float32 step at S = 6, and 2 steps of the stage-2 training CLI
+launching K5 / K6 / K7 every step.  Skips
 without a CUDA card; on one, run it with
 ``python -m pytest --noconftest tests/test_torch_port_cuda.py``.
 ``chip_smoke.py`` makes the same checks at the flagship size."""
@@ -1045,3 +1046,33 @@ def test_m2sgan_step_kernel_path_matches_plain_path(train_encoder):
     assert (counts["stgcn_forward"], counts["stgcn_backward"]) == (2, 1), counts
     for r in results:
         assert r["ok"], r
+
+def test_train_cli_two_steps_launch_the_training_kernels(tmp_path):
+    """`python -m conductor_tpu_torch.cli.train` on the card: 2 steps of 2
+    layers at B = 2, 3-s windows of 6-s clips, "auto" resolved to K5 / K6 /
+    K7 and the native loader, each kernel launched every step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import json
+    import os
+
+    from conductor_tpu_torch.cli.train import main
+    from conductor_tpu_torch.config import DatasetSpec
+    from conductor_tpu_torch.data.dataset import make_synthetic_dataset
+
+    root = str(tmp_path / "data")
+    make_synthetic_dataset(root, "train", num_clips=2, spec=DatasetSpec(clip_seconds=6))
+    reset_launch_counts()
+    main(["--data_root", root, "--name", "cuda", "--checkpoints_dir", str(tmp_path),
+          "--batch_size", "2", "--sample_length", "3", "--num_layers", "2", "--times", "2",
+          "--epochs", "1", "--diffusion_steps", "20", "--schedule", "cosine"])
+    counts = launch_counts()
+    run = tmp_path / "ConductorMotion100" / "cuda"
+    records = [json.loads(line) for line in open(run / "metrics.jsonl")]
+    saved = json.load(open(run / "config.json"))
+    assert [r["step"] for r in records] == [1, 2] and all(np.isfinite(r["loss"]) for r in records)
+    assert (saved["denoiser"]["train_layer_impl"], saved["train"]["feat_impl"]) == (
+        "pallas_fused", "pallas")
+    assert (counts["decoder_layer"], counts["decoder_layer_bwd"], counts["stgcn_forward"],
+            counts["stgcn_backward"]) == (4, 4, 4, 2)
+    assert os.listdir(run / "ckpt") == ["2.tar"]

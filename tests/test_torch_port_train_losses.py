@@ -14,7 +14,7 @@ from conductor_tpu.diffusion import gaussian as jg
 from conductor_tpu.diffusion import make_schedule as jax_make_schedule
 from conductor_tpu.diffusion import timestep_samplers as jts
 from conductor_tpu_torch.diffusion import make_schedule, q_sample, training_losses, uniform_sample
-from conductor_tpu_torch.diffusion.timestep_samplers import loss_aware_sample
+from conductor_tpu_torch.diffusion.timestep_samplers import init_state, loss_aware_sample
 from conductor_tpu_torch.train.optim import ClippedAdam, clip_by_global_norm
 
 torch.set_num_threads(2)
@@ -73,7 +73,8 @@ def test_unported_losses_raise(kwargs):
 
 def test_uniform_sample_range_matches_jax():
     """Both samplers draw every timestep of [0, N) and nothing else, with
-    unit weights; the port's draw is reproducible from its generator."""
+    unit weights; the port's draw is reproducible from its generator.  So
+    does the loss-second-moment sampler before its warm-up, as JAX's."""
     n, b = 8, 4096
     tj, wj = jts.uniform_sample(jax.random.PRNGKey(0), n, b)
     tp, wp = uniform_sample(n, b, generator=torch.Generator().manual_seed(0))
@@ -81,8 +82,10 @@ def test_uniform_sample_range_matches_jax():
     np.testing.assert_array_equal(wp.numpy(), np.asarray(wj))
     again, _ = uniform_sample(n, b, generator=torch.Generator().manual_seed(0))
     assert torch.equal(tp, again)
-    with pytest.raises(NotImplementedError):
-        loss_aware_sample()
+    tj, wj = jts.loss_aware_sample(jts.init_state(n), jax.random.PRNGKey(0), b)
+    tp, wp = loss_aware_sample(init_state(n), b, generator=torch.Generator().manual_seed(0))
+    assert set(np.unique(np.asarray(tj))) == set(np.unique(tp.numpy())) == set(range(n))
+    np.testing.assert_allclose(wp.numpy(), np.asarray(wj), rtol=1e-6)
 
 
 @pytest.mark.parametrize("grad_scale", [1e-3, 1.0])

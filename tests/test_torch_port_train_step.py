@@ -190,7 +190,7 @@ def test_drawn_randomness_and_sampling_pack_refresh(weights):
     (dict(denoiser=dict(train_layer_impl="pallas_fused"),
           train=dict(replicate_reference_mask=True)), ValueError, "src_mask"),
     (dict(train=dict(feat_impl="bogus")), ValueError, "feat_impl"),
-    (dict(train=dict(timestep_sampler="loss-second-moment")), NotImplementedError, "sampler"),
+    (dict(train=dict(timestep_sampler="bogus")), ValueError, "sampler"),
     (dict(diffusion=dict(loss_type="kl")), NotImplementedError, "loss_type"),
 ])
 def test_training_gating(change, error, match):
