@@ -161,15 +161,44 @@ Phases, one line each (the kernel checks one line per kernel):
      logged step, and ``--continue`` from it; (4) ``--stage1_ckpt`` from
      a synthetic reference-format M2SNet file, both encoders grafted; (5)
      ``--timestep_sampler loss-second-moment --diffusion_steps 50``, 60
-     steps, every ring full; (6) ``--faithful``, 2 steps, no kernel.
+     steps, every ring full; (6) ``--faithful``, 2 steps, no kernel;
+ 13. the M2SNet CLI, `python -m conductor_tpu_torch.cli.train_m2snet`, in
+     process on a synthetic root of 28 train and 28 test 60-s clips in a
+     temporary directory (the `[m2snet_cli]` lines; each `train_step`'s
+     launches and wall counted by wrapping it): the Python loader's ms a
+     B = 10 batch and its pageable copy; (1) the defaults with ``--epochs 3
+     --evaluate_epoch 2``, 15 steps: finite losses, K4 / K9 / K10 / K11 every
+     step (K10 12 times), evaluations at epochs 0 and 2 over the three
+     difficulties, 24 feature-map dumps, checkpoints 5 and 15, the loop's
+     ms a step beside phase 7's bare step, peak memory; (2) ``--continue
+     --epochs 1`` (epoch 0, easy, again) equal bit for bit to the same steps
+     replayed in process from step 15's checkpoint, cuDNN deterministic;
+     (3) ``--remat``: the first step's loss and BN statistics bit-equal to
+     (1)'s, K10 24 a step, less peak memory, the largest parameter
+     difference printed; (4) ``--microbatch 2``: the first loss within 5 %
+     of (1)'s; (5) ``--faithful``: no kernel;
+ 14. the M2SGAN CLI, `python -m conductor_tpu_torch.cli.train_m2sgan`, on
+     the same root from (13)'s checkpoint (the `[m2sgan_cli]` lines, cuDNN
+     deterministic): the loader's ms a B = 55 batch and its copy; (1) the
+     defaults with ``--epochs 2 --evaluate_epoch 1 --eval_batches 1``: K4 7
+     and K7 2 + 1 times a step, every evaluation metric finite, BC among
+     them, its beat tracking's seconds; (2) ``--cached_sync_latents``: every
+     training metric (1)'s bit for bit, K7's forward once; (3) with
+     ``--cached_features`` too: no K4, loss_sync and loss_mse within 3e-2 of
+     (1)'s (the features' window borders, ROADMAP F11), every metric's
+     largest difference printed; (4) ``--train_music_encoder``: K4's
+     training modes, K9, K10 6 and K11 3 times a step; (5) ``--continue``
+     without ``--m2snet_ckpt``, the SyncLoss net kept; (6) ``--faithful``:
+     no kernel.
 
 Every path runs at full depth; the run takes a few minutes of its 1200-s
 limit, so no path is cut.  Then one JSON line of per-kernel results (the
 launch counts of K1-K4 and K1's AdaLN GEMM from phase 4, of K5 / K6 / K7
 from phase 6, of K9, K10 and K11 from phase 7, of K8 from phase 8, of K1's
 and K2's int8 modes, K1's bf16-VPU mode and the int8 GEMM from phase 10,
-phase 11's launches of K4, K7, K9, K10 and K11 and phase 12's of K5, K6
-and K7 added;
+phase 11's launches of K4, K7, K9, K10 and K11, phase 12's of K5, K6
+and K7, and the steps' launches of phase 13's default run and phase 14's
+kernel paths added;
 each kernel's time, its
 plain version's, its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
@@ -250,6 +279,14 @@ GAN_ADV_TOL = 0.05  # w_distance and loss_adv, tests/test_stage1.py:276, 337
 # give 16 windows an epoch, 2 batches of 32 with --times 4
 CLI_CLIPS = 16
 CLI_KERNELS = ("decoder_layer", "decoder_layer_bwd", "stgcn_forward", "stgcn_backward")
+# phases 13 and 14: the stage-1 CLIs on one synthetic root of 60-s clips, 28
+# a split: 5 batches of 10 (and one of 55) 30-s windows an epoch
+STAGE1_CLI_CLIPS = 28
+CLI_SEED = 19990319  # the stage-1 CLIs' default --seed
+MICROBATCH_LOSS_REL_TOL = 0.05  # tests/test_stage1.py's microbatch bound
+GAN_METRICS = ("w_distance", "gp", "loss_adv", "loss_sync", "loss_mse")
+GAN_EVAL_KEYS = ("SD_real", "SD_fake", "SDP", "wasserstein", "MSE", "RDE", "SCE", "MPE", "FGD",
+                 "Diversity", "BC")
 
 
 def _run(cmd: list[str]) -> str:
@@ -470,6 +507,352 @@ def cli_phase(smi: str, bare_step_s: float) -> dict[str, int]:
         return per_step
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+class StepRecorder:
+    """Wraps ``cls.train_step`` while a CLI phase runs: each step's launches
+    of ``kernels``, its wall ms (the card synchronised before and after, the
+    batch's copy to the card included) and, after the first step, a copy of
+    the model's buffers and parameters (``module`` names the attribute)."""
+
+    def __init__(self, cls, kernels, module: str | None = None):
+        self.cls, self.kernels, self.module, self.orig = cls, kernels, module, cls.train_step
+        self.steps: list[dict] = []
+        self.first: dict | None = None
+
+    def __enter__(self):
+        from conductor_tpu_torch.ops import launch_counts
+
+        def step(tr, *args, **kwargs):
+            before = launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.orig(tr, *args, **kwargs)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            after = launch_counts()
+            self.steps.append({"ms": ms, "launches": {k: after[k] - before[k] for k in self.kernels}})
+            if self.first is None and self.module is not None:
+                module = getattr(tr, self.module)
+                self.first = {part: {k: v.detach().clone() for k, v in named()}
+                              for part, named in (("buffers", module.named_buffers),
+                                                  ("params", module.named_parameters))}
+            return out
+
+        self.cls.train_step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.train_step = self.orig
+
+    def launches(self) -> dict[str, int]:
+        return {k: sum(s["launches"][k] for s in self.steps) for k in self.kernels}
+
+
+def stage1_cli_run(cli, work: str, stage: str, kernels, module: str, name: str, *argv):
+    """One in-process run of a stage-1 CLI on phase 13's root: its run
+    directory, records, `StepRecorder`, peak memory above the run's start
+    (bytes), the launches of the whole run (steps, evaluations and caches)
+    and its wall seconds."""
+    import os
+
+    from conductor_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cls = cli.M2SNetTrainer if stage == "M2SNet" else cli.M2SGANTrainer
+    reset_launch_counts()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with StepRecorder(cls, kernels, module) as rec:
+        t0 = time.perf_counter()
+        cli.main(["--data_root", os.path.join(work, "data"), "--checkpoints_dir", work,
+                  "--name", name, *argv])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run_dir = os.path.join(work, stage, name)
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    return (run_dir, records, rec, torch.cuda.max_memory_allocated() - base, launch_counts(),
+            wall)
+
+
+def batch_copy(root: str, batch: int, seconds: int, smi: str, tag: str) -> None:
+    """The CLIs' Python loader's ms a batch of ``seconds``-s windows and its
+    pageable copy to the card, as the step copies it, three batches."""
+    from conductor_tpu_torch.data.dataset import BatchIterator, ConductorMotionDataset
+
+    loader = BatchIterator(ConductorMotionDataset(root, "train", seconds, "sequential"), batch,
+                           seed=1, times=3)
+    load_ms, copy_ms = [], []
+    it = iter(loader)
+    for _ in range(3):
+        t0 = time.perf_counter()
+        mel, motion, _ = next(it)
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.tensor(mel).to("cuda")
+        torch.tensor(motion).to("cuda")
+        torch.cuda.synchronize()
+        copy_ms.append((time.perf_counter() - t0) * 1e3)
+    mb = (mel.nbytes + motion.nbytes) / 1e6
+    print(f"[{tag}] B={batch} batch from the Python loader: {[round(x, 2) for x in load_ms]} ms; "
+          f"its {mb:.1f} MB pageable copy to the card: {[round(x, 2) for x in copy_ms]} ms on {smi}")
+
+
+def m2snet_cli_phase(smi: str, work: str, bare_step_s: float) -> tuple[dict[str, int], str]:
+    """Phase 13: `python -m conductor_tpu_torch.cli.train_m2snet` in process
+    on the root under ``work``; returns the launches of its default run's
+    steps and that run's checkpoint root.  Raises SystemExit on any failed
+    check."""
+    import os
+
+    from conductor_tpu_torch import M2SNetTrainer
+    from conductor_tpu_torch.cli import train_m2snet as cli
+    from conductor_tpu_torch.data.dataset import BatchIterator, ConductorMotionDataset
+    from conductor_tpu_torch.train.checkpoints import CheckpointManager
+    from conductor_tpu_torch.train.ddpm_trainer import step_generator
+
+    root = os.path.join(work, "data")
+    batch_copy(root, STAGE1_B, STAGE1_S, smi, "m2snet_cli")
+
+    def run(name, *argv):
+        return stage1_cli_run(cli, work, "M2SNet", STAGE1_KERNELS, "model", name, *argv)
+
+    def losses(records):
+        return [r["loss"] for r in records if "loss" in r]
+
+    # (1) the defaults: B = 10, 30-s windows, 10-s crops, "hard", "auto"
+    run_dir, recs, rec, peak, _, wall = run("defaults", "--epochs", "3", "--evaluate_epoch", "2")
+    steps = [r for r in recs if "loss" in r]
+    evals = [r for r in recs if "accuracy_easy" in r]
+    keys = [f"{k}_{s}" for s in ("easy", "hard", "super_hard")
+            for k in ("accuracy", "sync_prob", "non_sync_prob")]
+    per_step = [s["launches"] for s in rec.steps]
+    images = os.listdir(os.path.join(run_dir, "images"))
+    ckpts = CheckpointManager(os.path.join(run_dir, "ckpt")).all_steps()
+    # the loop's ms a step: consecutive steps with no evaluation between them
+    gaps = [(b["t"] - a["t"]) * 1e3 for a, b in zip(recs, recs[1:]) if "loss" in a and "loss" in b]
+    print(f"[m2snet_cli] defaults (B={STAGE1_B}, {STAGE1_S}-s windows, hard, --epochs 3 "
+          f"--evaluate_epoch 2): {len(steps)} steps, losses {losses(recs)}; evaluations at (step, epoch) "
+          f"{[(r['step'], r['epoch']) for r in evals]}: {[{k: r[k] for k in keys} for r in evals]}; "
+          f"{len(images)} feature-map images, checkpoints {ckpts}; launches per step {per_step}")
+    print(f"[m2snet_cli] defaults: the loop's ms a step (consecutive steps) median "
+          f"{np.median(gaps):.1f} (min {min(gaps):.1f}, max {max(gaps):.1f}, {len(gaps)}); "
+          f"train_step with its batch copy median {np.median([s['ms'] for s in rec.steps]):.1f} "
+          f"ms; phase 7's bare step {bare_step_s * 1e3:.1f} ms; run wall {wall:.1f} s, peak "
+          f"memory above its start {peak / 2**30:.3f} GiB on {smi}")
+    if (len(steps) != 15 or not all(np.isfinite(losses(recs)))
+            or [(r["step"], r["epoch"]) for r in evals] != [(5, 0), (15, 2)]
+            or not all(np.isfinite(r[k]) for r in evals for k in keys)):
+        raise SystemExit(f"chip_smoke: the M2SNet CLI's default run went wrong: {recs}")
+    if len(images) != 2 * (5 + 7) or ckpts != [5, 15]:
+        raise SystemExit(f"chip_smoke: the M2SNet CLI's dumps went wrong: {images}, {ckpts}")
+    if min(c[k] for c in per_step for k in STAGE1_KERNELS) == 0 or any(
+            c["max_pool"] != K10_PER_STEP for c in per_step):
+        raise SystemExit(f"chip_smoke: a stage-1 kernel was not launched in every CLI step: "
+                         f"{per_step}")
+    counts, first, first_loss = rec.launches(), rec.first, losses(recs)[0]
+
+    # (2) --continue --epochs 1: epoch 0 (easy) again from step 15, against
+    # the same steps replayed here from that checkpoint, cuDNN deterministic
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        saved = CheckpointManager(os.path.join(run_dir, "ckpt")).restore(15)
+        _, recs, rec, _, _, _ = run("defaults", "--epochs", "1", "--continue",
+                                    "--eval_batches", "1")
+        replay = M2SNetTrainer(sample_length=STAGE1_S, clip_length=STAGE1_C, device="cuda")
+        replay.load_state_dict(saved)
+        replayed = []
+        loader = BatchIterator(ConductorMotionDataset(root, "train", STAGE1_S, "sequential"),
+                               STAGE1_B, seed=CLI_SEED)
+        for mel, motion, _ in loader:
+            m = replay.train_step(mel, motion, "easy",
+                                  generator=step_generator(CLI_SEED, replay.step))
+            replayed.append({k: float(v) for k, v in m.items()})
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    resumed = [{k: r[k] for k in replayed[0]} for r in recs if "loss" in r][15:]
+    final = CheckpointManager(os.path.join(run_dir, "ckpt")).restore()
+    again = replay.state_dict()
+    same = final["step"] == again["step"] == 20 and all(
+        torch.equal(v, again["model"][k]) for k, v in final["model"].items()) and all(
+        torch.equal(v, again["optimizer"]["state"][i][key])
+        for i, st in final["optimizer"]["state"].items() for key, v in st.items())
+    print(f"[m2snet_cli] --continue --epochs 1 from step 15: steps "
+          f"{[r['step'] for r in recs if 'loss' in r][15:]}, losses {[r['loss'] for r in resumed]}, "
+          f"replayed in process {[r['loss'] for r in replayed]}; every metric equal "
+          f"{resumed == replayed}; final weights, BN statistics and Adam state bit-equal {same}")
+    if resumed != replayed or not same:
+        raise SystemExit("chip_smoke: the resumed M2SNet CLI differs from the replay")
+    del replay, saved, final, again
+
+    # (3) --remat: the first step's loss and BN statistics bit-equal to (1)'s
+    _, recs, rec, remat_peak, _, _ = run("remat", "--remat", "--epochs", "1", "--evaluate_epoch",
+                                         "5", "--eval_batches", "1")
+    stats_equal = all(torch.equal(v, first["buffers"][k]) for k, v in rec.first["buffers"].items())
+    param_diff = max(float((v - first["params"][k]).abs().max())
+                     for k, v in rec.first["params"].items())
+    print(f"[m2snet_cli] --remat: first loss {losses(recs)[0]} (defaults {first_loss}), BN "
+          f"statistics after step 1 bit-equal {stats_equal}, largest parameter difference after "
+          f"step 1 {param_diff:.6g}; launches per step {[s['launches'] for s in rec.steps]}; "
+          f"train_step median {np.median([s['ms'] for s in rec.steps]):.1f} ms; peak memory "
+          f"{remat_peak / 2**30:.3f} GiB against the defaults' {peak / 2**30:.3f} GiB on {smi}")
+    if losses(recs)[0] != first_loss or not stats_equal or not remat_peak < peak or any(
+            s["launches"]["max_pool"] != 2 * K10_PER_STEP for s in rec.steps):
+        raise SystemExit("chip_smoke: --remat did not repeat the first step or save memory")
+
+    # (4) --microbatch 2: the first loss within 5 % of (1)'s (tests/test_stage1.py)
+    _, recs, rec, micro_peak, _, _ = run("micro", "--microbatch", "2", "--epochs", "1",
+                                         "--evaluate_epoch", "5", "--eval_batches", "1")
+    rel = abs(losses(recs)[0] - first_loss) / abs(first_loss)
+    print(f"[m2snet_cli] --microbatch 2: first loss {losses(recs)[0]} (defaults {first_loss}, "
+          f"rel diff {rel:.4g}); train_step median {np.median([s['ms'] for s in rec.steps]):.1f} "
+          f"ms; peak memory {micro_peak / 2**30:.3f} GiB on {smi}")
+    if not rel <= MICROBATCH_LOSS_REL_TOL or not all(np.isfinite(losses(recs))):
+        raise SystemExit("chip_smoke: --microbatch 2 moved the first loss")
+
+    # (5) --faithful: the plain float32 path, which launches no kernel
+    _, recs, rec, _, faithful_counts, wall = run("faithful", "--faithful", "--epochs", "1",
+                                                 "--evaluate_epoch", "5", "--eval_batches", "1")
+    print(f"[m2snet_cli] --faithful: {len(losses(recs))} steps in {wall:.1f} s, losses "
+          f"{losses(recs)}, train_step median {np.median([s['ms'] for s in rec.steps]):.1f} ms, "
+          f"launches {sum(faithful_counts.values())}")
+    if any(faithful_counts.values()) or not all(np.isfinite(losses(recs))):
+        raise SystemExit(f"chip_smoke: the M2SNet CLI's --faithful launched a kernel: "
+                         f"{faithful_counts}")
+    return counts, os.path.join(run_dir, "ckpt")
+
+
+def m2sgan_cli_phase(smi: str, work: str, m2snet_ckpt: str, gan_step_s: float) -> dict[str, int]:
+    """Phase 14: `python -m conductor_tpu_torch.cli.train_m2sgan` in process
+    on phase 13's root, from its checkpoint; returns the launches of the
+    kernel paths' steps.  Raises SystemExit on any failed check."""
+    import os
+
+    from conductor_tpu_torch.cli import train_m2sgan as cli
+    from conductor_tpu_torch.eval import stage1
+    from conductor_tpu_torch.train.checkpoints import CheckpointManager, restore_raw
+
+    batch_copy(os.path.join(work, "data"), GAN_B, GAN_S, smi, "m2sgan_cli")
+    beat_s: list[float] = []
+    beat = stage1.beat_consistency
+
+    def timed_beat(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = beat(*args, **kwargs)
+        beat_s.append(time.perf_counter() - t0)
+        return out
+
+    def run(name, *argv):
+        return stage1_cli_run(cli, work, "M2SGAN", GAN_KERNELS, None, name, *argv)
+
+    def steps(records):
+        return [{k: r[k] for k in GAN_METRICS} for r in records if "loss_sync" in r]
+
+    common = ["--m2snet_ckpt", m2snet_ckpt, "--evaluate_epoch", "5", "--eval_batches", "1",
+              "--no_eval_beats"]
+    # cuDNN deterministic, so that (2) can repeat (1)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    stage1.beat_consistency = timed_beat
+    try:
+        # (1) the defaults: B = 55, frozen encoder on K4, SyncLoss on K7
+        t0 = time.perf_counter()
+        _, recs, rec, peak, _, wall = run("defaults", "--m2snet_ckpt", m2snet_ckpt, "--epochs", "2",
+                                          "--evaluate_epoch", "1", "--eval_batches", "1")
+        evals = [r for r in recs if "FGD" in r]
+        base = steps(recs)
+        print(f"[m2sgan_cli] defaults (B={GAN_B}, {GAN_S}-s samples, critic_iters {GAN_ITERS}, "
+              f"--epochs 2 --evaluate_epoch 1 --eval_batches 1): metrics {base}; evaluations "
+              f"{[{k: r[k] for k in GAN_EVAL_KEYS} for r in evals]}; BC's beat tracking "
+              f"{sum(beat_s):.2f} s over {len(beat_s)} clips; launches per step "
+              f"{[s['launches'] for s in rec.steps]}")
+        print(f"[m2sgan_cli] defaults: train_step with its batch copy "
+              f"{[round(s['ms'], 1) for s in rec.steps]} ms (phase 11's (a) step median "
+              f"{gan_step_s * 1e3:.1f} ms); run wall {wall:.1f} s; peak memory above its start "
+              f"{peak / 2**30:.3f} GiB on {smi}")
+        if (len(base) != 2 or not all(np.isfinite(list(m.values())).all() for m in base)
+                or len(evals) != 2 or not all(np.isfinite(r[k]) for r in evals for k in GAN_EVAL_KEYS)
+                or not beat_s):
+            raise SystemExit(f"chip_smoke: the M2SGAN CLI's default run went wrong: {recs}")
+        if any((c["conv_block"], c["stgcn_forward"], c["stgcn_backward"]) != (7, 2, 1)
+               for c in (s["launches"] for s in rec.steps)):
+            raise SystemExit(f"chip_smoke: the M2SGAN CLI did not launch K4 7 times and K7 2 + 1 "
+                             f"times a step: {rec.steps}")
+        counts = rec.launches()
+
+        # (2) --cached_sync_latents: every training metric (1)'s, bit for bit
+        _, recs, rec, _, _, _ = run("latents", *common, "--epochs", "2", "--cached_sync_latents")
+        print(f"[m2sgan_cli] --cached_sync_latents: metrics {steps(recs)}; equal to the defaults' "
+              f"bit for bit {steps(recs) == base}; launches per step "
+              f"{[s['launches'] for s in rec.steps]}; train_step "
+              f"{[round(s['ms'], 1) for s in rec.steps]} ms")
+        if steps(recs) != base or any((c["stgcn_forward"], c["stgcn_backward"]) != (1, 1)
+                                      for c in (s["launches"] for s in rec.steps)):
+            raise SystemExit("chip_smoke: --cached_sync_latents did not repeat the uncached run")
+        counts = {k: n + rec.launches()[k] for k, n in counts.items()}
+
+        # (3) with --cached_features as well: no K4, K7's forward once; the
+        # features' window borders (F11) move the losses within 3e-2
+        _, recs, rec, _, _, _ = run("cached", *common, "--epochs", "2", "--cached_sync_latents",
+                                    "--cached_features")
+        got = steps(recs)
+        rel = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(got, base)
+                  for k in ("loss_sync", "loss_mse"))
+        diff = {k: max(abs(g[k] - w[k]) for g, w in zip(got, base)) for k in GAN_METRICS}
+        print(f"[m2sgan_cli] --cached_sync_latents --cached_features: metrics {got}; largest "
+              f"difference from the defaults' {diff}, loss_sync / loss_mse rel {rel:.4g}; "
+              f"launches per step {[s['launches'] for s in rec.steps]}; train_step "
+              f"{[round(s['ms'], 1) for s in rec.steps]} ms")
+        if not rel <= TRAIN_LOSS_REL_TOL or any(
+                (c["conv_block"], c["stgcn_forward"], c["stgcn_backward"]) != (0, 1, 1)
+                for c in (s["launches"] for s in rec.steps)):
+            raise SystemExit("chip_smoke: the cached M2SGAN CLI run went wrong")
+        counts = {k: n + rec.launches()[k] for k, n in counts.items()}
+
+        # (4) --train_music_encoder: K4's training modes, K9, K10 6 and K11 3 a step
+        _, recs, rec, enc_peak, _, _ = run("encoder", *common, "--epochs", "2",
+                                           "--train_music_encoder")
+        per_step = [s["launches"] for s in rec.steps]
+        print(f"[m2sgan_cli] --train_music_encoder: metrics {steps(recs)}; launches per step "
+              f"{per_step}; train_step {[round(s['ms'], 1) for s in rec.steps]} ms; peak memory "
+              f"{enc_peak / 2**30:.3f} GiB on {smi}")
+        if len(per_step) != 2 or not all(np.isfinite(list(m.values())).all() for m in steps(recs)) or any(
+                min(c["conv_block"], c["conv3x3_dkernel"]) == 0
+                or (c["max_pool"], c["max_pool_bwd"], c["stgcn_forward"], c["stgcn_backward"])
+                != (6, 3, 2, 1) for c in per_step):
+            raise SystemExit(f"chip_smoke: --train_music_encoder did not launch its kernels: "
+                             f"{per_step}")
+        counts = {k: n + rec.launches()[k] for k, n in counts.items()}
+
+        # (5) --continue without --m2snet_ckpt: the SyncLoss net from the checkpoint
+        _, recs, _, _, _, _ = run("defaults", "--epochs", "1", "--continue", "--evaluate_epoch", "5",
+                                  "--eval_batches", "1", "--no_eval_beats")
+        final = CheckpointManager(os.path.join(work, "M2SGAN", "defaults", "ckpt")).restore()
+        m2snet = restore_raw(m2snet_ckpt)
+        sync_kept = all(torch.equal(v, m2snet["motion_encoder." + k])
+                        for k, v in final["sync_encoder"].items())
+        print(f"[m2sgan_cli] --continue (no --m2snet_ckpt): steps "
+              f"{[r['step'] for r in recs if 'loss_sync' in r]}, metrics {steps(recs)[2:]}; the "
+              f"SyncLoss net is the M2SNet's {sync_kept}")
+        if [r["step"] for r in recs if "loss_sync" in r] != [1, 2, 3] or not sync_kept:
+            raise SystemExit("chip_smoke: the M2SGAN CLI's --continue went wrong")
+
+        # (6) --faithful: the plain float32 path, which launches no kernel
+        _, recs, rec, _, faithful_counts, wall = run("faithful", *common, "--epochs", "1",
+                                                     "--faithful")
+        print(f"[m2sgan_cli] --faithful: metrics {steps(recs)} in {wall:.1f} s, train_step "
+              f"{[round(s['ms'], 1) for s in rec.steps]} ms, launches "
+              f"{sum(faithful_counts.values())}")
+        if any(faithful_counts.values()) or not steps(recs):
+            raise SystemExit(f"chip_smoke: the M2SGAN CLI's --faithful launched a kernel: "
+                             f"{faithful_counts}")
+        print(f"[m2sgan_cli] phase 14 took {time.perf_counter() - t0:.1f} s")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        stage1.beat_consistency = beat
+    return counts
 
 
 def main() -> int:
@@ -1108,6 +1491,27 @@ def main() -> int:
     # 12. the stage-2 CLI on the card, beside phase 6's bare step
     for k, n in cli_phase(smi, float(np.median(times_k))).items():
         counts[k] += n
+
+    # 13. and 14. the stage-1 CLIs on one synthetic root, beside phase 7's
+    # and phase 11's bare steps
+    import os
+    import shutil
+    import tempfile
+
+    from conductor_tpu_torch.data.dataset import make_synthetic_dataset
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_stage1_")
+    try:
+        for split in ("train", "test"):
+            make_synthetic_dataset(os.path.join(work, "data"), split, num_clips=STAGE1_CLI_CLIPS)
+        s1_counts, m2snet_ckpt = m2snet_cli_phase(smi, work, float(np.median(times_k1)))
+        for k, n in s1_counts.items():
+            counts[k] += n
+        for k, n in m2sgan_cli_phase(smi, work, m2snet_ckpt,
+                                     float(np.median(gan_runs["a"][1]))).items():
+            counts[k] += n
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     kernels = []
     for r in results:

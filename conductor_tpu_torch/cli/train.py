@@ -23,6 +23,7 @@ import time
 
 import torch
 
+from . import training_device
 from ..config import Config, DenoiserConfig, DiffusionConfig, TrainConfig, pin_faithful, resolve_auto
 from ..data.dataset import ConductorMotionDataset
 from ..data.feature_cache import (
@@ -148,11 +149,7 @@ def main(argv: list[str] | None = None) -> None:
 
 
 def _train(args: argparse.Namespace, stop_requested: list[int]) -> None:
-    device = torch.device(args.device)
-    if device.type == "cuda" and device.index is None and torch.cuda.device_count() > 1:
-        device = torch.device("cuda:0")
-        print(f"{torch.cuda.device_count()} CUDA devices: training on cuda:0 only "
-              "(one device; no data parallelism)")
+    device = training_device(args.device)
     cfg = config_from_args(args, device)
     run_dir = os.path.join(args.checkpoints_dir, cfg.dataset.name, args.name)
     os.makedirs(run_dir, exist_ok=True)

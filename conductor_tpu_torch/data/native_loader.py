@@ -30,7 +30,7 @@ import numpy as np
 
 from ..ops._build import BUILD_DIR
 from .dataset import BatchIterator, ConductorMotionDataset
-from .feature_cache import FEATURE_FILE, FeatureCachedDataset
+from .feature_cache import FeatureCachedDataset
 
 SOURCE = Path(__file__).resolve().parents[2] / "native" / "dataloader.cpp"
 CXX_FLAGS = ["-O2", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared"]  # native/Makefile's
@@ -109,7 +109,7 @@ class NativeBatchIterator:
         # conditioning instead of 90 Hz mel: the same loader, another rate
         if isinstance(dataset, FeatureCachedDataset):
             cond_hz = spec.motion_hz
-            cond_paths = [os.path.join(os.path.dirname(c.mel_path), FEATURE_FILE)
+            cond_paths = [os.path.join(os.path.dirname(c.mel_path), dataset.feature_file)
                           for c in dataset.clips]
             width = np.load(cond_paths[0], mmap_mode="r").shape[-1]
         else:

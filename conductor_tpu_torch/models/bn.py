@@ -14,12 +14,37 @@ the running statistics, as torch's BatchNorm.
 `BatchNorm` keeps the reference key names (``weight``, ``bias``,
 ``running_mean``, ``running_var``, ``num_batches_tracked``), so reference
 state dicts load strictly into the modules that use it.
+
+flax returns the new running statistics from ``apply``; here a train-mode
+forward moves them in place.  Inside `batch_statistics_only` it does not:
+a forward that autograd recomputes (``torch.utils.checkpoint``, the
+trainers' ``remat``) must not move them a second time, and precise-BN
+recalibration reads each BatchNorm's batch statistics there instead.
 """
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
+
 import torch
 from torch import nn
+
+_scope = threading.local()  # autograd may recompute a forward on its own thread
+
+
+@contextmanager
+def batch_statistics_only(record: dict | None = None):
+    """Inside, train-mode BatchNorms normalise by their batch statistics
+    and leave ``running_mean``, ``running_var`` and ``num_batches_tracked``
+    as they are; with ``record``, each stores its float32 batch (mean,
+    var) there under itself."""
+    outer = getattr(_scope, "frozen", None)
+    _scope.frozen = {} if record is None else record
+    try:
+        yield
+    finally:
+        _scope.frozen = outer
 
 
 class BatchNorm(nn.modules.batchnorm._BatchNorm):
@@ -42,10 +67,14 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         else:
             dims = [d for d in range(x.dim()) if d != channel_dim]
             var, mean = torch.var_mean(x32, dim=dims, correction=0)
-            with torch.no_grad():
-                for stat, batch in ((self.running_mean, mean), (self.running_var, var)):
-                    stat.mul_(1.0 - self.momentum).add_(batch, alpha=self.momentum)
-                self.num_batches_tracked += 1
+            frozen = getattr(_scope, "frozen", None)
+            if frozen is not None:
+                frozen[self] = (mean.detach(), var.detach())
+            else:
+                with torch.no_grad():
+                    for stat, batch in ((self.running_mean, mean), (self.running_var, var)):
+                        stat.mul_(1.0 - self.momentum).add_(batch, alpha=self.momentum)
+                    self.num_batches_tracked += 1
         scale = self.weight * torch.rsqrt(var + self.eps)
         shift = self.bias - mean * scale
         shape = [1] * x.dim()

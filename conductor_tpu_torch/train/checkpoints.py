@@ -10,9 +10,13 @@ leaves the previous checkpoints whole.  A save copies nothing itself: the
 caller hands over host tensors (``state_dict`` copies them), and the write
 runs on a thread unless ``wait``.
 
-`restore_raw` reads a reference-format M2SNet state dict for the graft:
-a raw ``state_dict`` file (the reference's ``M2SNet_eval.py:118-119``
-save) or a directory holding one.  It cannot read JAX's Orbax directories.
+`restore_raw` reads a reference-format M2SNet state dict for the graft
+and for M2SGAN: a raw ``state_dict`` file (the reference's
+``M2SNet_eval.py:118-119`` save), a directory holding one, or a
+`CheckpointManager` root such as the stage-1 CLI's ``<run>/ckpt``, whose
+latest step it takes, as JAX's `restore_raw` does; from a stage-1 CLI
+checkpoint (`M2SNetTrainer.state_dict`) it returns the ``model`` entry.
+It cannot read JAX's Orbax directories.
 """
 
 from __future__ import annotations
@@ -28,16 +32,24 @@ CHECKPOINT_SUFFIXES = (".pt", ".pth", ".tar", ".ckpt")
 
 
 def restore_raw(path: str | os.PathLike) -> dict[str, torch.Tensor]:
-    """The state dict in a file, or in the one checkpoint file of a
-    directory (else ValueError)."""
+    """The state dict in a file; in the latest ``<step>.tar`` of a
+    `CheckpointManager` root; or in the one checkpoint file of another
+    directory (else ValueError).  A stage-1 CLI checkpoint gives its
+    ``model``."""
     path = Path(path)
     if path.is_dir():
-        files = sorted(p for p in path.iterdir() if p.suffix in CHECKPOINT_SUFFIXES)
-        if len(files) != 1:
-            raise ValueError(f"{path} must hold exactly one state-dict file "
-                             f"({'/'.join(CHECKPOINT_SUFFIXES)}), found {[p.name for p in files]}")
-        path = files[0]
-    return torch.load(path, map_location="cpu", weights_only=True)
+        steps = CheckpointManager.steps_in(path)
+        if steps:
+            path = path / f"{steps[-1]}.tar"
+        else:
+            files = sorted(p for p in path.iterdir() if p.suffix in CHECKPOINT_SUFFIXES)
+            if len(files) != 1:
+                raise ValueError(f"{path} must hold checkpoint steps or exactly one state-dict "
+                                 f"file ({'/'.join(CHECKPOINT_SUFFIXES)}), found "
+                                 f"{[p.name for p in files]}")
+            path = files[0]
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return sd["model"] if isinstance(sd.get("model"), dict) else sd
 
 
 class CheckpointManager:
@@ -53,8 +65,13 @@ class CheckpointManager:
     def _path(self, step: int) -> Path:
         return self.directory / f"{step}.tar"
 
+    @staticmethod
+    def steps_in(directory: str | os.PathLike) -> list[int]:
+        """The steps saved under ``directory``, in order."""
+        return sorted(int(p.stem) for p in Path(directory).glob("*.tar") if p.stem.isdigit())
+
     def all_steps(self) -> list[int]:
-        return sorted(int(p.stem) for p in self.directory.glob("*.tar") if p.stem.isdigit())
+        return self.steps_in(self.directory)
 
     def latest_step(self) -> int | None:
         steps = self.all_steps()

@@ -155,8 +155,7 @@ class DDPMTrainer:
         """The generator of this step's random numbers, on the trainer's
         device, seeded from ``(cfg.train.seed, step)``: JAX draws them from
         ``fold_in(rng, state.step)`` (`conductor_tpu/train/ddpm_trainer.py:302`)."""
-        seed = np.random.SeedSequence((self.cfg.train.seed, self.step)).generate_state(1, np.uint64)
-        return torch.Generator(device=self.device).manual_seed(int(seed[0]) >> 1)
+        return step_generator(self.cfg.train.seed, self.step, self.device)
 
     # ---------------------------------------------------------- checkpoints
 
@@ -429,6 +428,15 @@ class DDPMTrainer:
             self.sampler_state = ts.update_state(self.sampler_state, t.cpu().numpy(),
                                                  mse.detach().cpu().numpy())
         return {k: v.detach() for k, v in metrics.items()}
+
+
+def step_generator(seed: int, step: int, device: torch.device | str = "cpu") -> torch.Generator:
+    """A generator on ``device`` seeded from ``(seed, step)``, the port's
+    counterpart of JAX's ``fold_in(PRNGKey(seed), step)``: every CLI step
+    draws its random numbers from one, so a resumed run draws what the
+    straight run drew."""
+    state = np.random.SeedSequence((seed, step)).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(state[0]) >> 1)
 
 
 def require_device(device: torch.device | str) -> torch.device:

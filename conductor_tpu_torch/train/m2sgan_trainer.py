@@ -50,8 +50,10 @@ each interpolating term's weights with a leading critic-iteration axis)
 are handed over or drawn from ``generator``.  Both entry points run with
 TF32 off (`models.precision.full_float32`).
 
-Not ported yet: the BiLSTM decoder (ROADMAP G), `M2SGANEvaluator` (E) and
-the ``train_m2sgan`` CLI with its checkpoints and caches (P4).
+``step`` counts the steps taken; `state_dict` / `load_state_dict` carry
+G and D under the reference's keys, both RMSprop states, the frozen
+SyncLoss network (JAX's ``GANState.sync_variables``) and the step.  Not
+ported yet: the BiLSTM decoder (ROADMAP G).
 """
 
 from __future__ import annotations
@@ -180,6 +182,30 @@ class M2SGANTrainer:
         if sync_encoder is not None:
             load_motion_encoder_state_dict(self.sync_encoder, sync_encoder)
         self._new_optimizers()
+        self.reset_caches()
+
+    def state_dict(self) -> dict:
+        """The training state on the host: ``G`` and ``D`` under the
+        reference's keys (JAX's `import_generator` / `import_discriminator`
+        read them; the TCN's two names of one module hold one value),
+        ``g_opt`` / ``d_opt`` (RMSprop's second moments), ``sync_encoder``
+        (the frozen SyncLoss ST-GCN) and ``step``."""
+        def host(module):
+            return {k: v.detach().to("cpu", copy=True) for k, v in module.state_dict().items()}
+
+        return {"G": host(self.G), "D": host(self.D), "g_opt": self.g_opt.state_dict(),
+                "d_opt": self.d_opt.state_dict(), "sync_encoder": host(self.sync_encoder),
+                "step": self.step}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore `state_dict`'s output, then `reset_caches`."""
+        load_reference_state_dict(self.G, state["G"])
+        load_reference_state_dict(self.D, state["D"])
+        load_motion_encoder_state_dict(self.sync_encoder, state["sync_encoder"])
+        self._new_optimizers()
+        self.g_opt.load_state_dict(state["g_opt"])
+        self.d_opt.load_state_dict(state["d_opt"])
+        self.step = int(state["step"])
         self.reset_caches()
 
     def _on_device(self, a) -> torch.Tensor:

@@ -1,12 +1,29 @@
 """The stage-1 trainer: one M2SNet contrastive step.
 
-Port of `M2SNetTrainer` (`conductor_tpu/train/m2snet_trainer.py:37-280`).
+Port of `M2SNetTrainer` (`conductor_tpu/train/m2snet_trainer.py:37-332`).
 `train_step` cuts the pairs (`data.pairs`), runs four M2SNet forwards in
 train mode, (m1, p1), (m1, p2), (m2, p2), (m2, p1), with the BatchNorm
 running statistics chained in that order (with ``share_encodes``: two
 encodes and four fusions, `:132-169`), takes the loss, four BCEs of the
 per-sample mean probability clipped to [1e-7, 1 - 1e-7] (`:171-202`),
 and one `torch.optim.Adam` step (optax's `adam`, no clipping).
+
+- ``remat`` (`:67-110`): each of the four forwards (each encode under
+  ``share_encodes``) runs under `torch.utils.checkpoint`, so the backward
+  recomputes its activations instead of keeping them.  The recomputation
+  runs inside `models.bn.batch_statistics_only`, so that the running
+  statistics move once a forward, as without ``remat``; the kernels'
+  autograd Functions run their forward again, which their launch counts
+  show.
+- ``microbatch = k`` (`:204-245`): the pairs are cut over the whole batch,
+  then split into k chunks along it; each chunk takes its four forwards
+  (BatchNorm batch statistics per chunk, the running ones chained chunk
+  after chunk) and its own gradient, and the gradients and metrics are
+  the mean over the chunks.
+- `recalibrate_batch_stats` (`:284-332`): precise-BN over a list of
+  batches.
+- ``step`` counts the steps taken; `state_dict` / `load_state_dict` carry
+  the model (the reference's M2SNet keys), Adam's state and the step.
 
 "auto" resolves per device: on CUDA to ``compute_dtype="bfloat16"`` and
 ``music_conv_impl="pallas_train"``, the music encoder on the kernels (K4 in
@@ -18,22 +35,28 @@ and BN statistics).  The kernels take bf16 operands, so an explicit
 "pallas_train" with "float32" on CUDA raises ValueError.  The step runs
 with TF32 off (`models.precision.full_float32`): float32 is float32 on the
 card too.
-
-Not ported yet, raising NotImplementedError: ``remat``, ``microbatch > 1``,
-`recalibrate_batch_stats`, `M2SNetEvaluator` and the ``train_m2snet`` CLI
-(`cli/train_m2snet.py`).
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..data.pairs import build_pairs
 from ..interop.weights import load_m2snet_state_dict
+from ..models.bn import batch_statistics_only
 from ..models.m2snet import M2SNet
 from ..models.precision import full_float32
 from .ddpm_trainer import require_device
+
+
+def _recomputation():
+    """`torch.utils.checkpoint`'s contexts: the forward as it is, the
+    recomputation leaving the BatchNorm running statistics alone."""
+    return contextlib.nullcontext(), batch_statistics_only()
 
 
 def _bce(pred: torch.Tensor, target: float) -> torch.Tensor:
@@ -69,14 +92,13 @@ class M2SNetTrainer:
                  remat: bool = False, microbatch: int = 1, music_conv_impl: str = "auto",
                  device: torch.device | str = "cuda"):
         device = require_device(device)
-        if remat:
-            raise NotImplementedError("remat is not ported yet")
-        if microbatch != 1:
-            raise NotImplementedError("microbatch > 1 is not ported yet")
+        if microbatch < 1:
+            raise ValueError(f"microbatch must be a positive number of chunks, got {microbatch}")
         compute_dtype, music_conv_impl = resolve_impls(compute_dtype, music_conv_impl, device)
         self.device = device
         self.sample_length, self.clip_length = sample_length, clip_length
-        self.share_encodes = share_encodes
+        self.share_encodes, self.remat, self.microbatch = share_encodes, remat, microbatch
+        self.step = 0
         self.compute_dtype, self.music_conv_impl = compute_dtype, music_conv_impl
         self.lr = lr
         self.model = M2SNet(latent_dim, music_conv_impl, getattr(torch, compute_dtype)).to(device)
@@ -92,22 +114,51 @@ class M2SNetTrainer:
         load_m2snet_state_dict(self.model, sd)
         self._new_optimizer()
 
-    def _forward4(self, pairs):
+    def state_dict(self) -> dict:
+        """The training state on the host: ``model`` (the M2SNet under the
+        reference's keys, which `load_m2snet_state_dict` and JAX's
+        `import_m2snet` read), ``optimizer`` (Adam's state) and ``step``."""
+        def host(sd):
+            return {k: v.detach().to("cpu", copy=True) for k, v in sd.items()}
+
+        opt = self.optimizer.state_dict()
+        return {"model": host(self.model.state_dict()),
+                "optimizer": {"state": {i: host(st) for i, st in opt["state"].items()},
+                              "param_groups": opt["param_groups"]},
+                "step": self.step}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore `state_dict`'s output."""
+        load_m2snet_state_dict(self.model, state["model"])
+        self._new_optimizer()
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+
+    def _forward4(self, pairs, remat: bool = False):
         m1, m2, p1, p2 = pairs
         model = self.model
+
+        def run(fn, *args):
+            if not remat:
+                return fn(*args)
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                              context_fn=_recomputation)
+
         if self.share_encodes:
-            x1, y1 = model.encode(m1, p1)
-            x2, y2 = model.encode(m2, p2)
+            x1, y1 = run(model.encode, m1, p1)
+            x2, y2 = run(model.encode, m2, p2)
             return [model.fuse(a, b) for a, b in ((x1, y1), (x1, y2), (x2, y2), (x2, y1))]
-        return [model(mel, mot) for mel, mot in ((m1, p1), (m1, p2), (m2, p2), (m2, p1))]
+        return [run(model, mel, mot) for mel, mot in ((m1, p1), (m1, p2), (m2, p2), (m2, p1))]
+
+    def _on_device(self, a) -> torch.Tensor:
+        """A float32 copy on the device (host arrays may be read-only)."""
+        return (a if torch.is_tensor(a) else torch.tensor(np.asarray(a))).to(
+            self.device, torch.float32)
 
     def _pairs(self, music, motion, strategy, starts, generator):
-        def on_device(a):  # a copy of host arrays, which may be read-only
-            return (a if torch.is_tensor(a) else torch.tensor(np.asarray(a))).to(
-                self.device, torch.float32)
-
-        return build_pairs(on_device(music), on_device(motion), strategy, self.sample_length,
-                           self.clip_length, starts=starts, generator=generator)
+        return build_pairs(self._on_device(music), self._on_device(motion), strategy,
+                           self.sample_length, self.clip_length, starts=starts,
+                           generator=generator)
 
     def _metrics(self, p11, p12) -> dict[str, torch.Tensor]:
         b = p11.shape[0]
@@ -121,15 +172,33 @@ class M2SNetTrainer:
         """One optimizer step on music (B, S*90, 128) and motion
         (B, S*30, 13, 2).  The pair starts (30 Hz frames) are ``starts`` if
         given, else drawn from ``generator``.  Returns the JAX metrics as
-        0-d tensors (no host sync)."""
+        0-d tensors (no host sync); the step's gradients stay in the
+        parameters' ``.grad``."""
         pairs = self._pairs(music, motion, strategy, starts, generator)
+        k, b = self.microbatch, pairs[0].shape[0]
+        if b % k:
+            raise ValueError(f"batch {b} not divisible by microbatch {k}")
         self.model.train()
-        p11, p12, p22, p21 = self._forward4(pairs)
-        loss = _bce(p11, 1.0) + _bce(p12, 0.0) + _bce(p22, 1.0) + _bce(p21, 0.0)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        params = list(self.model.parameters())
+        grads = metrics = None
+        for chunk in zip(*(t.chunk(k) for t in pairs)):
+            p11, p12, p22, p21 = self._forward4(chunk, self.remat)
+            loss = _bce(p11, 1.0) + _bce(p12, 0.0) + _bce(p22, 1.0) + _bce(p21, 0.0)
+            g = torch.autograd.grad(loss, params, allow_unused=True)
+            m = {"loss": loss.detach(), **{n: v.detach() for n, v in self._metrics(p11, p12).items()}}
+            if grads is None:
+                grads, metrics = list(g), m
+            else:  # the chunks' sums, in chunk order, as JAX's scan adds them
+                grads = [a if c is None else a + c for a, c in zip(grads, g)]
+                metrics = {n: v + m[n] for n, v in metrics.items()}
+        if k > 1:  # equal chunks: the mean of the chunk means is the batch mean
+            grads = [None if g is None else g / k for g in grads]
+            metrics = {n: v / k for n, v in metrics.items()}
+        for p, g in zip(params, grads):
+            p.grad = g
         self.optimizer.step()
-        return {"loss": loss.detach(), **{k: v.detach() for k, v in self._metrics(p11, p12).items()}}
+        self.step += 1
+        return metrics
 
     @torch.no_grad()
     @full_float32()
@@ -142,13 +211,40 @@ class M2SNetTrainer:
         p11, p12, _, _ = self._forward4(pairs)
         return {k: float(v) for k, v in self._metrics(p11, p12).items()}
 
-    def recalibrate_batch_stats(self, batches):
-        raise NotImplementedError("recalibrate_batch_stats is not ported yet")
+    @torch.no_grad()
+    @full_float32()
+    def features(self, music, motion):
+        """`M2SNet.features` in eval mode: every map of both encoders."""
+        self.model.eval()
+        return self.model.features(self._on_device(music), self._on_device(motion))
 
-
-class M2SNetEvaluator:
-    """Not ported yet (`conductor_tpu/eval/stage1.py::M2SNetEvaluator`);
-    `M2SNetTrainer.evaluate` scores one batch."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("M2SNetEvaluator is not ported yet")
+    @torch.no_grad()
+    @full_float32()
+    def recalibrate_batch_stats(self, batches) -> None:
+        """Precise-BN (`:284-332`): replace every BatchNorm's running mean
+        and variance by the aggregate of its batch statistics over
+        ``batches``, (music, motion) pairs of whole windows: one train-mode
+        forward of the M2SNet a batch, each normalising by its own batch
+        statistics, which are read directly (JAX recovers them from its
+        running-statistics update, (new - 0.99 old) / 0.01, with 100 times
+        the float32 rounding).  The mean is the mean of the batch means,
+        the variance max(E[var_i + mean_i²] - mean², 0): the statistics of
+        one batch holding the whole set.  The weights, the optimizer and
+        ``num_batches_tracked`` are left as they are (flax keeps no such
+        count).  Raises ValueError on an empty list."""
+        self.model.train()
+        records = []
+        for music, motion in batches:
+            record: dict = {}
+            with batch_statistics_only(record):
+                self.model(self._on_device(music), self._on_device(motion))
+            records.append(record)
+        if not records:
+            raise ValueError("recalibrate_batch_stats needs at least one batch")
+        n = len(records)
+        for bn in records[0]:
+            means = [r[bn][0] for r in records]
+            mean = sum(means) / n
+            e2 = sum(r[bn][1] + m ** 2 for r, m in zip(records, means)) / n
+            bn.running_mean.copy_(mean)
+            bn.running_var.copy_(torch.clamp_min(e2 - mean ** 2, 0.0))

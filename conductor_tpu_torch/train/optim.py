@@ -73,3 +73,14 @@ class RMSprop:
             nu.copy_((g * g) * (1 - self.decay) + self.decay * nu)
             p.add_((g * torch.rsqrt(nu + self.eps)) * -self.lr)
             p.grad = None
+
+    def state_dict(self) -> dict:
+        """The second moments (optax's ``nu``) on the host, in parameter order."""
+        return {"nu": [nu.detach().to("cpu", copy=True) for nu in self.nu]}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        if len(state["nu"]) != len(self.nu):
+            raise ValueError(f"{len(state['nu'])} second moments for {len(self.nu)} parameters")
+        for nu, saved in zip(self.nu, state["nu"]):
+            nu.copy_(saved)

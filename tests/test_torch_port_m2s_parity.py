@@ -162,3 +162,58 @@ def close_trees(got, want, **tol):
     assert got.keys() == want.keys()
     for k, v in want.items():
         np.testing.assert_allclose(got[k], v, err_msg=k, **tol)
+
+
+def jax_option_step(sd, music, motion, key, strategy: str, sample_length: int, clip_length: int,
+                    **options):
+    """One step of the JAX trainer on the lax float32 path with ``options``
+    (``remat``, ``microbatch``, ``share_encodes``): its metrics and new
+    variables, and the exact gradient of that step's loss: `jax.grad` in
+    float64 of the mean over the microbatch chunks of the step's loss
+    (`_forward4` / `_bce` on each chunk of the pairs the step cuts), the
+    forwards under the same ``remat``.  Each chunk normalises by its own
+    batch statistics; the running ones do not enter a train-mode loss."""
+    s, c, k = sample_length, clip_length, options.get("microbatch", 1)
+    tr = JaxTrainer(sample_length=s, clip_length=c, compute_dtype="float32",
+                    music_conv_impl="lax", **options)
+    v = jax.tree.map(jnp.asarray, import_m2snet(sd))
+    state = M2SNetState(step=jnp.zeros((), jnp.int32), params=v["params"],
+                        batch_stats=v["batch_stats"], opt_state=tr.tx.init(v["params"]))
+    batch = (jnp.asarray(music), jnp.asarray(motion))
+    pairs = [np.asarray(a) for a in build_pairs(jax.random.fold_in(key, 0), *batch, strategy, s, c)]
+    with jax.enable_x64(True):
+        tr64 = JaxTrainer(sample_length=s, clip_length=c, compute_dtype="float64",
+                          music_conv_impl="lax", **options)
+        v64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), import_m2snet(sd))
+        b = pairs[0].shape[0] // k
+
+        def loss(params, chunk):
+            (p11, p12, p22, p21), _ = tr64._forward4(params, v64["batch_stats"], chunk, train=True)
+            return (tr64._bce(p11, 1.0) + tr64._bce(p12, 0.0)
+                    + tr64._bce(p22, 1.0) + tr64._bce(p21, 0.0))
+
+        grad = jax.jit(jax.grad(loss))
+        chunk_grads = [grad(v64["params"], [jnp.asarray(a[i * b:(i + 1) * b], jnp.float64)
+                                            for a in pairs]) for i in range(k)]
+        grads = jax.device_get(jax.tree.map(lambda *g: sum(g) / k, *chunk_grads))
+    new, metrics = tr.train_step(state, batch, key, strategy)
+    return ({name: float(m) for name, m in metrics.items()}, jax.device_get(new.batch_stats),
+            grads)
+
+
+def check_option_step(tr: M2SNetTrainer, got, reference) -> None:
+    """The port's step (its metrics ``got``; its gradients still on the
+    parameters) against `jax_option_step`'s: loss rtol 1e-4, accuracy
+    atol 1e-6, the probabilities rtol 1e-4, every gradient within 1e-4 of
+    the largest of the exact one, the new BN statistics within 1e-5."""
+    metrics, stats, want = reference
+    np.testing.assert_allclose(float(got["loss"]), metrics["loss"], rtol=1e-4)
+    np.testing.assert_allclose(float(got["accuracy"]), metrics["accuracy"], atol=1e-6)
+    for k in ("sync_prob", "non_sync_prob"):
+        np.testing.assert_allclose(float(got[k]), metrics[k], rtol=1e-4)
+    state = {k: v.detach().numpy() for k, v in tr.model.state_dict().items()}
+    step_grads = {k: (np.zeros_like(state[k]) if p.grad is None else p.grad.numpy())
+                  for k, p in tr.model.named_parameters()}
+    gmax = max(float(np.abs(g).max()) for g in jax.tree.leaves(want))
+    close_trees(import_m2snet(state | step_grads)["params"], want, atol=1e-4 * gmax)
+    close_trees(import_m2snet(state)["batch_stats"], stats, atol=1e-5)

@@ -16,7 +16,6 @@ import pytest
 import torch
 
 from conductor_tpu_torch import DDPMTrainer, M2SGANTrainer, M2SNetTrainer
-from conductor_tpu_torch.cli import train_m2snet
 from conductor_tpu_torch.config import Config, DenoiserConfig, DiffusionConfig, resolve_auto
 from conductor_tpu_torch.interop import reference_state_dict, synthetic_state_dict
 from conductor_tpu_torch.models.stgcn import MotionEncoderSTGCN
@@ -37,7 +36,8 @@ from conductor_tpu_torch.ops import (
     sampler_epilogue,
     sampler_prologue,
 )
-from conductor_tpu_torch.train.m2snet_trainer import M2SNetEvaluator, resolve_impls
+from conductor_tpu_torch.eval.stage1 import M2SNetEvaluator
+from conductor_tpu_torch.train.m2snet_trainer import resolve_impls
 
 torch.set_num_threads(2)
 
@@ -228,8 +228,7 @@ def test_trainers_run_on_the_card_by_default(make):
 
 
 @pytest.mark.parametrize("kwargs,error", [
-    (dict(remat=True), NotImplementedError),
-    (dict(microbatch=2), NotImplementedError),
+    (dict(microbatch=0), ValueError),  # a positive number of chunks
     (dict(compute_dtype="float16"), ValueError),  # float32 and bfloat16 only
     (dict(music_conv_impl="xla"), ValueError),
 ])
@@ -242,7 +241,9 @@ def test_m2snet_trainer_resolves_auto_and_defers():
     """"auto" is the kernel path on CUDA (bf16, "pallas_train") and the
     plain one elsewhere; the kernels take bf16 operands, so an explicit
     "pallas_train" with float32 is refused on CUDA (checked where no card
-    is needed) and runs the plain versions on the CPU."""
+    is needed) and runs the plain versions on the CPU.  The options once
+    deferred run: recalibration refuses only an empty list, the evaluator
+    takes the trainer."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     assert resolve_impls("auto", "auto", cuda) == ("bfloat16", "pallas_train")
     assert resolve_impls("auto", "auto", cpu) == ("float32", "lax")
@@ -251,10 +252,9 @@ def test_m2snet_trainer_resolves_auto_and_defers():
     assert resolve_impls("float32", "pallas_train", cpu) == ("float32", "pallas_train")
     tr = M2SNetTrainer(sample_length=6, clip_length=2, device="cpu")
     assert (tr.compute_dtype, tr.music_conv_impl) == ("float32", "lax")
-    for deferred in (lambda: tr.recalibrate_batch_stats([]),
-                     M2SNetEvaluator, train_m2snet.main):
-        with pytest.raises(NotImplementedError):
-            deferred()
+    with pytest.raises(ValueError, match="at least one batch"):
+        tr.recalibrate_batch_stats([])
+    assert M2SNetEvaluator(tr).trainer is tr
 
 
 @pytest.mark.parametrize("field,value", [("sampler_adaln_int8", True),
