@@ -68,7 +68,16 @@ Phases, one line each (the kernel checks one line per kernel):
      the `[k10]` lines giving each pool's events and device ms beside its
      bound and `F.max_pool2d`, and the sums against K10's bars; K8 must
      repeat bit for bit and launch one kernel a call, the `[k8]` lines
-     giving its events and device ms at both shapes against its bars;
+     giving its events and device ms at both shapes against its bars; and
+     the float32 modes of phase 15: K4 on the serving encoder's 7 blocks at
+     B = 2 in float32 (`conv_block_f32`, beside cuDNN's float32 convs of
+     the blocks alone), K4's training modes, K9, K10 and K11 on the inputs
+     and cotangents of one float32 stage-1 forward and backward at B = 10
+     (the `_f32` lines, each beside cuDNN's float32 `F.conv2d` / weight
+     gradient or `F.max_pool2d`, TF32 off): K4 and K9 within 1e-4 of the
+     plain version's largest value, K10 bit-equal, K11 within 1e-6 and
+     exact on tied inputs, each repeating bit for bit, the products priced
+     at the card's float32 rate (67 TFLOP/s);
   4. `DDPMTrainer.generate` on the kernel path, ddim50, on synthetic flagship
      weights and a seeded mel: a finite (2, 1800, 26) motion within 3 % of
      the plain path's on the card, with every serving kernel launched;
@@ -176,7 +185,7 @@ Phases, one line each (the kernel checks one line per kernel):
      (3) ``--remat``: the first step's loss and BN statistics bit-equal to
      (1)'s, K10 24 a step, less peak memory, the largest parameter
      difference printed; (4) ``--microbatch 2``: the first loss within 5 %
-     of (1)'s; (5) ``--faithful``: no kernel;
+     of (1)'s; (5) ``--faithful``: no kernel; (6) phase 15 (b);
  14. the M2SGAN CLI, `python -m conductor_tpu_torch.cli.train_m2sgan`, on
      the same root from (13)'s checkpoint (the `[m2sgan_cli]` lines, cuDNN
      deterministic): the loader's ms a B = 55 batch and its copy; (1) the
@@ -189,7 +198,29 @@ Phases, one line each (the kernel checks one line per kernel):
      largest difference printed; (4) ``--train_music_encoder``: K4's
      training modes, K9, K10 6 and K11 3 times a step; (5) ``--continue``
      without ``--m2snet_ckpt``, the SyncLoss net kept; (6) ``--faithful``:
-     no kernel.
+     no kernel;
+ 15. float32 on the kernels' float32 modes (the `[f32]` lines): (a) 4
+     stage-1 steps at B = 10, 10-s crops, "hard", ``compute_dtype=
+     "float32", music_conv_impl="pallas_train"`` against the plain float32
+     "lax" path on phase 7's weights, batch and starts: the first loss
+     within 1e-4 relative and every parameter and BN statistic after it
+     within 5e-3 (tests/test_conv_train.py:314, 324), each loss within
+     1e-3, K4 52, K9 28, K10 12 and K11 12 float32 launches a step and no
+     bf16 one; the median ms a step and peak memory beside the plain
+     float32 and the bf16 kernel steps; (b) in phase 13's root, its step
+     (6): the M2SNet CLI with ``--compute_dtype float32 --music_conv_impl
+     pallas_train`` for (5)'s steps from the same seed, every loss in
+     ``metrics.jsonl`` within 1e-3 relative of ``--faithful``'s; (c) 4
+     M2SGAN steps at B = 55 with the encoder training in float32 on the
+     kernels (the SyncLoss on the plain float32 module) beside phase 11's
+     float32 witness (c_plain): the first step's loss_sync, w_distance and
+     loss_adv within 1e-3 relative, K4 20, K9 7, K10 6 and K11 3 float32
+     launches a step, its ms and peak memory; (d) ddim50 at B = 2 on phase
+     4's mel and noise with ``compute_dtype="float32"``,
+     ``music_encoder_impl="pallas"`` and the plain layers: the encoder's
+     features within 1e-4 of the plain encoder's largest value, the motion
+     within 1e-3 of phase 4's plain float32 path's, K4's float32 mode 7
+     launches and no other kernel.
 
 Every path runs at full depth; the run takes a few minutes of its 1200-s
 limit, so no path is cut.  Then one JSON line of per-kernel results (the
@@ -198,7 +229,9 @@ from phase 6, of K9, K10 and K11 from phase 7, of K8 from phase 8, of K1's
 and K2's int8 modes, K1's bf16-VPU mode and the int8 GEMM from phase 10,
 phase 11's launches of K4, K7, K9, K10 and K11, phase 12's of K5, K6
 and K7, and the steps' launches of phase 13's default run and phase 14's
-kernel paths added;
+kernel paths added; the float32 rows with phase 15's: K4's serving mode
+(`conv_block_f32`) (d)'s, its training modes (`conv_block_train_f32`),
+K9, K10 and K11 those of (a), (b) and (c));
 each kernel's time, its
 plain version's, its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
@@ -243,6 +276,16 @@ KERNEL_SOURCES = {
                         "conductor_tpu/ops/conv_train.py:104"),
     "max_pool": ("conductor_tpu_torch/csrc/max_pool.cu", "conductor_tpu/ops/pallas_pool.py:163"),
     "max_pool_bwd": ("conductor_tpu_torch/csrc/max_pool.cu", "conductor_tpu/ops/pallas_pool.py:352"),
+    # the float32 modes of K4 (serving; training), K9, K10 and K11 (phase 15)
+    "conv_block_f32": ("conductor_tpu_torch/csrc/conv_block.cu",
+                       "conductor_tpu/ops/pallas_conv.py:198"),
+    "conv_block_train_f32": ("conductor_tpu_torch/csrc/conv_block.cu",
+                             "conductor_tpu/ops/pallas_conv.py:198"),
+    "conv3x3_dkernel_f32": ("conductor_tpu_torch/csrc/conv_train.cu",
+                            "conductor_tpu/ops/conv_train.py:104"),
+    "max_pool_f32": ("conductor_tpu_torch/csrc/max_pool.cu", "conductor_tpu/ops/pallas_pool.py:163"),
+    "max_pool_bwd_f32": ("conductor_tpu_torch/csrc/max_pool.cu",
+                         "conductor_tpu/ops/pallas_pool.py:352"),
     "linear_attention": ("conductor_tpu_torch/csrc/linear_attention.cu",
                          "conductor_tpu/ops/pallas_attention.py:152"),
     # K1's AdaLN modulation (`_layer_body` :112-120), launched by K1 once a call
@@ -263,6 +306,20 @@ TRAIN_KERNELS = ("decoder_layer", "decoder_layer_bwd", "stgcn_forward", "stgcn_b
 K7_PER_STEP = (2, 1)  # K7's forward (pred, target) and backward calls in a stage-2 step
 STAGE1_KERNELS = ("conv_block", "conv3x3_dkernel", "max_pool", "max_pool_bwd")
 K10_PER_STEP = 12  # K10's calls in a stage-1 step: 3 pools in each of its 4 music forwards
+# the float32 modes' counts, and their launches in a float32 stage-1 step (7
+# K4 forwards and 6 d(input)s, 7 K9s, 3 K10s and 3 K11s a music forward and
+# backward, 4 of them) and in an M2SGAN step with the encoder training in
+# float32 (the fake's forward, then the generator step's forward and backward)
+STAGE1_F32_KERNELS = ("conv_block_f32", "conv3x3_dkernel_f32", "max_pool_f32", "max_pool_bwd_f32")
+F32_PER_STEP = dict(zip(STAGE1_F32_KERNELS, (52, 28, 12, 12)))
+GAN_F32_PER_STEP = dict(zip(STAGE1_F32_KERNELS, (20, 7, 6, 3)))
+# phase 15's bounds: the float32 stage-1 step's first loss (rtol) and
+# parameters after it (atol), as tests/test_conv_train.py:314, 324 hold the
+# JAX package's packed float32 step; its 4 losses, the M2SNet CLI's losses
+# and M2SGAN's first-step metrics (rtol); the float32 encoder's features and
+# the motion of a float32 generate (of the plain path's largest value)
+F32_FIRST_LOSS_RTOL, F32_PARAM_ATOL, F32_LOSS_RTOL = 1e-4, 5e-3, 1e-3
+F32_FEATURE_TOL, F32_MOTION_TOL = 1e-4, 1e-3
 # stage 1's batch, sample and crop seconds (conductor_tpu/cli/train_m2snet.py)
 STAGE1_B, STAGE1_S, STAGE1_C = 10, 30, 10
 REFERENCE_M_LENS = 60  # the reference's m_lens (conductor_tpu_torch/config.py TrainConfig)
@@ -273,7 +330,7 @@ TRAIN_STEPS = 4
 # (M2SGAN_train.py:168-196)
 GAN_B, GAN_S, GAN_ITERS = 55, 30, 5
 GAN_KERNELS = ("conv_block", "conv3x3_dkernel", "max_pool", "max_pool_bwd", "stgcn_forward",
-               "stgcn_backward")
+               "stgcn_backward", *STAGE1_F32_KERNELS)
 GAN_ADV_TOL = 0.05  # w_distance and loss_adv, tests/test_stage1.py:276, 337
 # phase 12: the stage-2 CLI on a synthetic root of 60-s clips; 16 clips
 # give 16 windows an epoch, 2 batches of 32 with --times 4
@@ -599,11 +656,12 @@ def batch_copy(root: str, batch: int, seconds: int, smi: str, tag: str) -> None:
           f"its {mb:.1f} MB pageable copy to the card: {[round(x, 2) for x in copy_ms]} ms on {smi}")
 
 
-def m2snet_cli_phase(smi: str, work: str, bare_step_s: float) -> tuple[dict[str, int], str]:
+def m2snet_cli_phase(smi: str, work: str,
+                     bare_step_s: float) -> tuple[dict[str, int], str, dict[str, int]]:
     """Phase 13: `python -m conductor_tpu_torch.cli.train_m2snet` in process
     on the root under ``work``; returns the launches of its default run's
-    steps and that run's checkpoint root.  Raises SystemExit on any failed
-    check."""
+    steps, that run's checkpoint root and the launches of the float32 run's
+    steps (phase 15 (b)).  Raises SystemExit on any failed check."""
     import os
 
     from conductor_tpu_torch import M2SNetTrainer
@@ -721,7 +779,30 @@ def m2snet_cli_phase(smi: str, work: str, bare_step_s: float) -> tuple[dict[str,
     if any(faithful_counts.values()) or not all(np.isfinite(losses(recs))):
         raise SystemExit(f"chip_smoke: the M2SNet CLI's --faithful launched a kernel: "
                          f"{faithful_counts}")
-    return counts, os.path.join(run_dir, "ckpt")
+
+    # (6) = phase 15 (b): float32 on the kernels' float32 modes, the same
+    # steps as (5) from the same seed: every loss within 1e-3 relative
+    faithful_losses = losses(recs)
+    _, recs, rec, f32_peak, _, wall = stage1_cli_run(
+        cli, work, "M2SNet", STAGE1_KERNELS + STAGE1_F32_KERNELS, "model", "f32",
+        "--compute_dtype", "float32", "--music_conv_impl", "pallas_train", "--epochs", "1",
+        "--evaluate_epoch", "5", "--eval_batches", "1")
+    f32_losses, per_step = losses(recs), [s["launches"] for s in rec.steps]
+    rel = [abs(a - b) / abs(b) for a, b in zip(f32_losses, faithful_losses)]
+    print(f"[m2snet_cli] --compute_dtype float32 --music_conv_impl pallas_train (phase 15 (b)): "
+          f"{len(f32_losses)} steps in {wall:.1f} s, losses {f32_losses} against --faithful's "
+          f"{faithful_losses}, largest rel diff {max(rel):.3g} (bound {F32_LOSS_RTOL}); "
+          f"train_step median {np.median([s['ms'] for s in rec.steps]):.1f} ms, peak memory "
+          f"{f32_peak / 2**30:.3f} GiB; launches per step {per_step} on {smi}")
+    if len(f32_losses) != len(faithful_losses) or not max(rel) <= F32_LOSS_RTOL:
+        raise SystemExit("chip_smoke: the float32 M2SNet CLI on the kernels disagrees with "
+                         "--faithful")
+    if any({k: c[k] for k in STAGE1_F32_KERNELS} != F32_PER_STEP
+           or any(c[k] for k in STAGE1_KERNELS) for c in per_step):
+        raise SystemExit(f"chip_smoke: the float32 M2SNet CLI did not launch the float32 modes "
+                         f"as expected: {per_step}")
+    f32_counts = {k: sum(c[k] for c in per_step) for k in STAGE1_F32_KERNELS}
+    return counts, os.path.join(run_dir, "ckpt"), f32_counts
 
 
 def m2sgan_cli_phase(smi: str, work: str, m2snet_ckpt: str, gan_step_s: float) -> dict[str, int]:
@@ -869,6 +950,8 @@ def main() -> int:
         synthetic_state_dict,
     )
     from conductor_tpu_torch.kernel_checks import (
+        F32_REL_TOL,
+        K11_F32_REL_TOL,
         K7_BAR_MS,
         K7_MASK_FLIP_SHARE,
         K8_BAR_DEVICE_MS,
@@ -893,6 +976,7 @@ def main() -> int:
         sync_loss_inputs,
         time_ms,
     )
+    from conductor_tpu_torch.models.music_encoder import FusedMusicEncoder
     from conductor_tpu_torch.ops import (
         _build,
         fused_decoder_stack,
@@ -1022,6 +1106,16 @@ def main() -> int:
     m2s_kernel.load_reference_state_dict(m2s_sd)
     results += check_stage1_kernels(*stage1_kernel_inputs(m2s_kernel, music, motion_s1, starts[0]))
     m2s_kernel.load_reference_state_dict(m2s_sd)  # undo the check's BN statistics
+    # the float32 modes (phase 15's kernels) on the inputs of their calls: K4
+    # on the serving encoder's 7 blocks at B = 2, and K4's training modes,
+    # K9, K10 and K11 in one float32 stage-1 forward and backward at B = 10
+    results.append(check_conv_blocks(FusedMusicEncoder(kernel_tr.model.music_encoder,
+                                                       torch.float32), mel))
+    m2s_f32 = M2SNetTrainer(sample_length=STAGE1_S, clip_length=STAGE1_C, compute_dtype="float32",
+                            music_conv_impl="pallas_train", device="cuda")
+    m2s_f32.load_reference_state_dict(m2s_sd)
+    results += check_stage1_kernels(*stage1_kernel_inputs(m2s_f32, music, motion_s1, starts[0]))
+    del m2s_f32
     # M2SGAN's kernels at phase 11's shapes: K4 on the frozen encoder (a),
     # K7 on the SyncLoss's inputs, and the trainable encoder's kernels
     # (K4's training modes, K9, K10, K11) in a generator step of (c)
@@ -1129,10 +1223,15 @@ def main() -> int:
                   f"(max {c['ref_max_abs']:.6g}) kernel {c['ms']:.4f} ms plain {c['plain_ms']:.4f} "
                   f"ms bound {c['bound_ms']:.4f} ms library {lib}{extra}")
         # the trainable encoder's kernels at stage 1's shapes or M2SGAN's
-        # (``_gan``, B = 55 samples of 30 s, where the bars do not apply)
-        base, gan_s1 = r["name"].removesuffix("_gan"), r["name"].endswith("_gan")
-        where = (f"M2SGAN B={GAN_B} T={GAN_S * 90}" if gan_s1 else
-                 f"stage 1 B={STAGE1_B} crops T={STAGE1_C * 90}")
+        # (``_gan``, B = 55 samples of 30 s), in bf16 or in their float32
+        # modes (``_f32``); the bars are bf16 stage 1's
+        f32 = r["name"].endswith("_f32")
+        base = r["name"].removesuffix("_gan").removesuffix("_f32")
+        gan_s1 = r["name"].endswith("_gan") or f32
+        where = (f"M2SGAN B={GAN_B} T={GAN_S * 90}" if r["name"].endswith("_gan") else
+                 f"stage 1 B={STAGE1_B} crops T={STAGE1_C * 90}"
+                 + (f", float32 (bound {F32_REL_TOL:g} of the largest value; K11 "
+                    f"{K11_F32_REL_TOL:g})" if f32 else ""))
         if base == "conv3x3_dkernel":
             print(f"[k9] {r['name']} {where}: {len(r['calls'])} calls, {r['ms']:.4f} ms by CUDA "
                   f"events, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -1168,6 +1267,11 @@ def main() -> int:
         if r["name"].startswith("conv_block"):
             lib = "" if r["library_ms"] is None else (
                 f"; library {r['library_ms']:.4f} ms, device {r['library_device_ms']:.4f} ms")
+            if "cudnn_conv_ms" in r:
+                lib = (f"; cuDNN float32 F.conv2d of the 7 convs alone {r['cudnn_conv_ms']:.4f} ms"
+                       f"; bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            elif f32:
+                lib += f"; bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
             print(f"[k4] {r['name']} (first input {r['calls'][0]['shape']}): {len(r['calls'])} calls, "
                   f"{r['ms']:.4f} ms by CUDA events, device {r['device_ms']:.4f} ms{lib}, max_abs_err "
                   f"{r['max_abs_err']:.6g} (plain max {r['ref_max_abs']:.6g}): ok {r['ok']} ({smi})")
@@ -1454,20 +1558,21 @@ def main() -> int:
     # (c) against float32 is printed, not bounded.  Later steps diverge as
     # GAN updates do, and are printed.
     gan_bad = []
-    for path, ref in (("a", "a_plain"), ("c", "c_bf16")):
-        for i, (got, want) in enumerate(zip(gan_runs[path][0], gan_runs[ref][0])):
+    for path, ref_path in (("a", "a_plain"), ("c", "c_bf16")):
+        for i, (got, want) in enumerate(zip(gan_runs[path][0], gan_runs[ref_path][0])):
             if (not all(np.isfinite(list(got.values()) + list(want.values())))
                     or abs(got["loss_sync"] - want["loss_sync"]) > TRAIN_LOSS_REL_TOL * abs(
                         want["loss_sync"])
                     or (i == 0 and any(abs(got[k] - want[k]) > GAN_ADV_TOL
                                        for k in ("w_distance", "loss_adv")))):
                 gan_bad.append((path, i, got, want))
-    for path, ref in (("a", "a_plain"), ("c", "c_bf16"), ("c", "c_plain"), ("c_bf16", "c_plain")):
-        print(f"[gan] ({path}) against ({ref}) by step: "
+    for path, ref_path in (("a", "a_plain"), ("c", "c_bf16"), ("c", "c_plain"),
+                           ("c_bf16", "c_plain")):
+        print(f"[gan] ({path}) against ({ref_path}) by step: "
               + "; ".join(f"w_distance {abs(g['w_distance'] - w['w_distance']):.6g}, loss_adv "
                           f"{abs(g['loss_adv'] - w['loss_adv']):.6g}, loss_sync rel "
                           f"{abs(g['loss_sync'] - w['loss_sync']) / abs(w['loss_sync']):.6g}"
-                          for g, w in zip(gan_runs[path][0], gan_runs[ref][0])))
+                          for g, w in zip(gan_runs[path][0], gan_runs[ref_path][0])))
     if gan_bad:
         raise SystemExit(f"chip_smoke: the M2SGAN kernel paths disagree with the plain ones: {gan_bad}")
     if gan_runs["b"][0] != gan_runs["a"][0]:
@@ -1504,7 +1609,8 @@ def main() -> int:
     try:
         for split in ("train", "test"):
             make_synthetic_dataset(os.path.join(work, "data"), split, num_clips=STAGE1_CLI_CLIPS)
-        s1_counts, m2snet_ckpt = m2snet_cli_phase(smi, work, float(np.median(times_k1)))
+        s1_counts, m2snet_ckpt, f32_cli_counts = m2snet_cli_phase(smi, work,
+                                                                  float(np.median(times_k1)))
         for k, n in s1_counts.items():
             counts[k] += n
         for k, n in m2sgan_cli_phase(smi, work, m2snet_ckpt,
@@ -1512,6 +1618,131 @@ def main() -> int:
             counts[k] += n
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+    # 15. float32 on the kernels' float32 modes: (a) the stage-1 step, (b)
+    # the M2SNet CLI (phase 13's (6)), (c) M2SGAN with the encoder training,
+    # (d) generate with the float32 fused encoder
+    f32_counts = dict(f32_cli_counts)
+
+    def s1_steps(tr):
+        """4 steps on phase 7's batch and starts: losses, seconds, launches
+        by step, the state after the first step and the peak memory."""
+        losses, times, step_counts, first = [], [], [], None
+        torch.cuda.reset_peak_memory_stats()
+        for st in starts:
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = tr.train_step(music, motion_s1, "hard", starts=st)
+            losses.append(float(m["loss"]))  # host readback ends the step
+            times.append(time.perf_counter() - t0)
+            step_counts.append({k: v for k, v in launch_counts().items()
+                                if k in STAGE1_KERNELS + STAGE1_F32_KERNELS})
+            if first is None:
+                first = {k: v.detach().float().clone() for k, v in tr.model.state_dict().items()}
+        return losses, times, step_counts, first, torch.cuda.max_memory_allocated()
+
+    s1_runs = {}
+    for name, kw in (("f32_kernels", dict(compute_dtype="float32", music_conv_impl="pallas_train")),
+                     ("f32_plain", dict(compute_dtype="float32", music_conv_impl="lax")),
+                     ("bf16_kernels", {})):
+        tr = M2SNetTrainer(sample_length=STAGE1_S, clip_length=STAGE1_C, device="cuda", **kw)
+        tr.load_reference_state_dict(m2s_sd)
+        s1_runs[name] = s1_steps(tr)
+        del tr
+    (lk, tk, ck, first_k, peak_k), (lp, tp, _, first_p, peak_p), (lb, tb, _, _, peak_b) = (
+        s1_runs.values())
+    rel = [abs(a - b) / abs(b) for a, b in zip(lk, lp)]
+    param_diff = max(float((v - first_p[k]).abs().max()) for k, v in first_k.items())
+    print(f"[f32] (a) stage-1 step B={STAGE1_B} crops {STAGE1_C} s, hard, float32 on the kernels: "
+          f"losses {lk} against the plain float32 path's {lp}: rel diff {[f'{x:.3g}' for x in rel]} "
+          f"(first <= {F32_FIRST_LOSS_RTOL}, each <= {F32_LOSS_RTOL}); largest parameter or "
+          f"statistic difference after step 1 {param_diff:.6g} (<= {F32_PARAM_ATOL}); launches "
+          f"per step {ck}")
+    print(f"[time] (a) stage-1 step B={STAGE1_B}, median ms: float32 kernels "
+          f"{np.median(tk) * 1e3:.1f}, plain float32 {np.median(tp) * 1e3:.1f}, bf16 kernels "
+          f"{np.median(tb) * 1e3:.1f} (per step {[round(x * 1e3, 1) for x in tk]}, "
+          f"{[round(x * 1e3, 1) for x in tp]}, {[round(x * 1e3, 1) for x in tb]}); peak memory "
+          f"{peak_k}, {peak_p}, {peak_b} bytes on {smi}")
+    if (not all(np.isfinite(lk)) or not rel[0] <= F32_FIRST_LOSS_RTOL or not max(rel) <= F32_LOSS_RTOL
+            or not param_diff <= F32_PARAM_ATOL):
+        raise SystemExit("chip_smoke: the float32 stage-1 step on the kernels disagrees with the "
+                         "plain float32 path")
+    if any({k: c[k] for k in STAGE1_F32_KERNELS} != F32_PER_STEP
+           or any(c[k] for k in STAGE1_KERNELS) for c in ck):
+        raise SystemExit(f"chip_smoke: the float32 stage-1 step did not launch the float32 modes "
+                         f"as expected: {ck}")
+    for k in STAGE1_F32_KERNELS:
+        f32_counts[k] += sum(c[k] for c in ck)
+    del s1_runs, first_k, first_p
+    torch.cuda.empty_cache()
+
+    # (c) M2SGAN with the encoder training in float32 on the kernels, the
+    # SyncLoss on the plain float32 module as phase 11's float32 witness
+    # (c_plain), cuDNN deterministic as there
+    torch.backends.cudnn.deterministic = True
+    f32_gan = gan_trainer(train_music_encoder=True, compute_dtype="float32",
+                          music_conv_impl="pallas_train", sync_encoder_impl="flax",
+                          sync_encoder_dtype="float32")
+    metrics, times, gan_f32_counts, peak = gan_steps(f32_gan, gan_mel)
+    del f32_gan
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = deterministic
+    witness, w_times, _, w_peak = gan_runs["c_plain"]
+    rel = {k: abs(metrics[0][k] - witness[0][k]) / abs(witness[0][k])
+           for k in ("loss_sync", "w_distance", "loss_adv")}
+    print(f"[f32] (c) M2SGAN B={GAN_B} S={GAN_S}, the encoder training in float32 on the kernels: "
+          f"metrics {metrics}; first step against phase 11's float32 witness (c_plain) "
+          + ", ".join(f"{k} rel {v:.3g}" for k, v in rel.items())
+          + f" (<= {F32_LOSS_RTOL}); launches per step {gan_f32_counts}")
+    print(f"[time] (c) m2sgan step B={GAN_B}, float32 encoder on the kernels: median "
+          f"{np.median(times) * 1e3:.1f} ms (per step {[round(x * 1e3, 1) for x in times]}), peak "
+          f"memory {peak} bytes; the witness on cuDNN {np.median(w_times) * 1e3:.1f} ms, {w_peak} "
+          f"bytes, on {smi}")
+    if (not all(np.isfinite(list(m.values())).all() for m in metrics)
+            or not max(rel.values()) <= F32_LOSS_RTOL):
+        raise SystemExit("chip_smoke: M2SGAN with the float32 encoder on the kernels disagrees "
+                         "with its float32 witness")
+    if any({k: c[k] for k in STAGE1_F32_KERNELS} != GAN_F32_PER_STEP
+           or any(c[k] for k in GAN_KERNELS if k not in STAGE1_F32_KERNELS)
+           for c in gan_f32_counts):
+        raise SystemExit(f"chip_smoke: M2SGAN's float32 encoder did not launch the float32 modes "
+                         f"as expected: {gan_f32_counts}")
+    for k in STAGE1_F32_KERNELS:
+        f32_counts[k] += sum(c[k] for c in gan_f32_counts)
+
+    # (d) generate, ddim50 at B = 2 on phase 4's mel and noise, the float32
+    # fused encoder (K4's float32 serving mode) and the plain float32 layers
+    f32_tr = DDPMTrainer(cfg.replace(
+        denoiser=DenoiserConfig(compute_dtype="float32", music_encoder_impl="pallas",
+                                layer_impl="flax", train_layer_impl="flax", attention_impl="xla"),
+        train=TrainConfig(feat_impl="flax")), device="cuda")
+    f32_tr.load_reference_state_dict(sd)
+    reset_launch_counts()
+    out_f32 = f32_tr.generate(mel, num_steps=50, noise=noise)
+    torch.cuda.synchronize()
+    gen_counts = launch_counts()
+    with torch.no_grad():
+        feats_k, feats_p = f32_tr.fused_encoder(mel), f32_tr.music_features(mel)
+    err_feat, feat_scale = float((feats_k - feats_p).abs().max()), float(feats_p.abs().max())
+    err_mot = float((out_f32 - ref).abs().max())
+    _, t_f32 = _timed(lambda: f32_tr.generate(mel, num_steps=50, noise=noise))
+    print(f"[f32] (d) generate ddim50 B=2, float32 fused encoder, plain float32 layers: encoder "
+          f"features max_abs_err {err_feat:.6g} against the plain encoder's (max {feat_scale:.6g}, "
+          f"bound {F32_FEATURE_TOL:g} of it); motion max_abs_err {err_mot:.6g} against the plain "
+          f"float32 path's (max {scale:.6g}, bound {F32_MOTION_TOL:g} of it); launches {gen_counts}")
+    print(f"[time] (d) ddim50 B=2, float32 fused encoder and plain float32 layers: "
+          f"{t_f32 * 1e3:.1f} ms on {smi}")
+    if (tuple(out_f32.shape) != (2, 1800, 26) or not bool(torch.isfinite(out_f32).all())
+            or not err_feat <= F32_FEATURE_TOL * feat_scale or not err_mot <= F32_MOTION_TOL * scale):
+        raise SystemExit("chip_smoke: generate with the float32 fused encoder is wrong")
+    if gen_counts["conv_block_f32"] != 7 or any(n for k, n in gen_counts.items()
+                                                if k != "conv_block_f32"):
+        raise SystemExit(f"chip_smoke: the float32 generate did not launch K4's float32 mode "
+                         f"alone, 7 times: {gen_counts}")
+    del f32_tr
+    counts.update(f32_counts, conv_block_f32=gen_counts["conv_block_f32"],
+                  conv_block_train_f32=f32_counts["conv_block_f32"])
 
     kernels = []
     for r in results:

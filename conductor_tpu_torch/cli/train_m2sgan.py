@@ -101,8 +101,9 @@ def build_argparser() -> argparse.ArgumentParser:
                         "kernel K4; auto = pallas on CUDA (flax with --train_music_encoder)")
     p.add_argument("--music_conv_impl", default="auto", choices=["auto", "lax", "pallas_train"],
                    help="music-encoder conv impl inside the generator: pallas_train = the "
-                        "training kernels; auto = pallas_train on CUDA when "
-                        "--train_music_encoder is set, lax otherwise")
+                        "training kernels (bf16, or their float32 modes with --compute_dtype "
+                        "float32); auto = pallas_train on CUDA when --train_music_encoder is "
+                        "set, lax otherwise")
     p.add_argument("--compute_dtype", default="auto", choices=["auto", "float32", "bfloat16"],
                    help="generator compute dtype; auto = bf16 on CUDA when "
                         "--train_music_encoder is set, float32 otherwise (reference-exact)")

@@ -60,10 +60,12 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="resume from the run dir's latest checkpoint (reference --M2SNet ckpt path)")
     p.add_argument("--music_conv_impl", default="auto", choices=["auto", "lax", "pallas_train"],
                    help="music-encoder conv stages: lax (cuDNN / the plain modules) or "
-                        "pallas_train (the training kernels K4 / K9 / K10 / K11); auto = "
+                        "pallas_train (the training kernels K4 / K9 / K10 / K11, in bf16 or "
+                        "in their float32 modes with --compute_dtype float32); auto = "
                         "pallas_train on CUDA")
     p.add_argument("--compute_dtype", default="auto", choices=["auto", "float32", "bfloat16"],
-                   help="encoder compute dtype; auto = bf16 on CUDA, f32 elsewhere")
+                   help="encoder compute dtype; auto = bf16 on CUDA, f32 elsewhere; either runs "
+                        "with either --music_conv_impl")
     p.add_argument("--faithful", action="store_true",
                    help="reference-exact preset: lax convs + f32 on any device (the default is "
                         "the kernel path in bf16 on CUDA)")

@@ -602,6 +602,366 @@ bool supported(int B, int T, int F, int cin, int cout, int res_mode) {
          (res_mode != 1 || cin == cout);
 }
 
+// ---- float32 mode -----------------------------------------------------------
+//
+// The same block on float32 operands with float32 products, the JAX
+// kernel's mxu_dtype=float32 (pallas_conv.py:198, conv_train.py:31-33):
+// float32 x in, float32 out, the weights unrounded.  Float32 MMAs on the
+// tensor cores would be TF32, so the products are FFMAs on the CUDA cores,
+// and operations bound it: the serving call's 37 GFLOP take 0.55 ms at the
+// card's 67 TFLOP/s against 0.2 ms for its (now float32) bytes.
+//
+// Design: register-tiled FFMA.  A tile is `crows` conv rows of one clip,
+// staged as in the bf16 mode (F + 2 pixels a row, the reflected or zero
+// halo by index and cp.async's zero fill, XOR-swizzled 16-byte chunks of 4
+// channels, so that the 32 consecutive pixels a warp reads hit distinct
+// bank groups), in a ring of 1 or 2 stages; the weights [tap][Cin][Cout]
+// and the epilogue's vectors are staged once a block.  A thread owns kPR
+// conv rows x kCO output channels at one column, the warp's lanes on 32
+// consecutive columns of the same channels: for each chunk of 4 input
+// channels and each column tap it loads the kPR + 2 staged pixels of its
+// column (the three row taps share them), then for each channel and row
+// tap two float4s of weights (one address across the warp: a broadcast)
+// and kPR x kCO FFMAs.  The epilogue is the bf16 mode's in registers (the
+// 1x1 residual a row at a time); the output leaves as float4s, or on a
+// pooled block goes to shared memory and is pooled over time in place,
+// then over freq, -inf outside the clip.  Fixed summation order: a repeat
+// is bit-identical.
+namespace f32 {
+
+constexpr int kPR = 4;  // conv rows a thread
+constexpr int kCO = 8;  // output channels a thread
+
+struct Plan {
+  int crows;           // conv rows a tile computes
+  int step, front;     // conv rows between two tiles; tile 0 starts at conv row -front
+  int n_to;            // pooled rows a tile writes (pooled blocks)
+  int xrows;           // staged input rows: crows in whole kPR, and the row halo
+  int x_bytes;         // a ring stage
+  int w_off, v_off, y_off, x_off;  // byte offsets: weights (+ residual), vectors, conv rows, ring
+  int stages, smem;    // ring depth, dynamic shared memory; smem < 0: does not fit
+  int tiles_per_clip, ntiles, nblocks, per_sm;
+};
+
+template <int CIN, int COUT>
+Plan make_plan(int rows, int stages, int B, int T, int F, bool pool, bool res2, const Pool& pl) {
+  Plan p;
+  if (pool) {
+    p.n_to = rows;
+    p.crows = (rows - 1) * pl.st + pl.wt;
+    p.step = rows * pl.st;
+    p.front = pl.pt;
+    p.tiles_per_clip = ceil_div(pl.to, rows);
+  } else {
+    p.n_to = 0;
+    p.crows = p.step = rows;
+    p.front = 0;
+    p.tiles_per_clip = ceil_div(T, rows);
+  }
+  p.xrows = round_up(p.crows, kPR) + 2;
+  p.x_bytes = round_up(p.xrows * (F + 2) * CIN * 4, 128);
+  p.w_off = 0;
+  p.v_off = round_up((9 + (res2 ? 1 : 0)) * CIN * COUT * 4, 128);
+  p.y_off = p.v_off + 4 * COUT * 4;
+  p.x_off = round_up(p.y_off + (pool ? p.crows * F * COUT * 4 : 0), 128);
+  p.stages = stages;
+  p.smem = p.x_off + stages * p.x_bytes;
+  p.ntiles = B * p.tiles_per_clip;
+  return p;
+}
+
+// The plan of least estimated time, as the bf16 mode's `plan` weighs it,
+// with a tile's operations at the card's float32 rate: its threads' passes
+// over the tile's (row group, column, channel group) items.
+template <int CIN, int COUT>
+Plan plan(int B, int T, int F, bool pool, bool res2, const Pool& pl) {
+  constexpr double kBytesPerNs = 3.35e12 / 132 / 1e9, kFlopsPerNs = 67e12 / 132 / 1e9;
+  constexpr double kTileNs = 300;
+  Plan best;
+  best.smem = -1;
+  double best_ns = 0;
+  const int w = F + 2;
+  const int max_rows = pool ? std::min(kMaxRows, pl.to) : std::min(kMaxRows, round_up(T, kPR));
+  const int row_step = pool ? 1 : kPR;
+  for (int per_sm = 2; per_sm >= 1 && best.smem < 0; --per_sm)
+    for (int stages = 2; stages >= 1; --stages)
+      for (int rows = row_step; rows <= max_rows; rows += row_step) {
+        Plan p = f32::make_plan<CIN, COUT>(rows, stages, B, T, F, pool, res2, pl);
+        if (p.smem > (per_sm == 2 ? kTwoBlockSmem : kMaxSmem)) break;
+        p.nblocks = std::min(p.ntiles, per_sm * sm_count());
+        p.per_sm = per_sm;
+        const int items = (p.xrows - 2) / kPR * F * (COUT / kCO);
+        const double out_px = pool ? (double)rows * pl.fo : (double)rows * F;
+        const double bytes = (double)p.xrows * w * CIN * 4 + out_px * COUT * 4;
+        const double flops = (double)ceil_div(items, kThreads) * kThreads * kPR * kCO * 2 * 9 * CIN;
+        const double l = bytes / kBytesPerNs, c = flops / kFlopsPerNs;
+        const double tiles = (double)ceil_div(p.ntiles, p.nblocks) * per_sm;
+        const double ns = (per_sm == 2 || stages == 2 ? tiles * fmax(l, c) + fmin(l, c)
+                                                      : tiles * (l + c)) +
+                          tiles * kTileNs / per_sm;
+        if (best.smem < 0 || ns < best_ns) {
+          best = p;
+          best_ns = ns;
+        }
+      }
+  return best;
+}
+
+struct Args {
+  const float* x;
+  const float *w, *scale, *bias, *resw, *rscale, *rbias;
+  float* out;
+  int T, F, res_mode, relu, zero_edge;
+};
+
+__device__ __forceinline__ float4 max4(const float4& a, const float4& b) {
+  return make_float4(fmaxf(a.x, b.x), fmaxf(a.y, b.y), fmaxf(a.z, b.z), fmaxf(a.w, b.w));
+}
+
+template <int CIN, int COUT, bool POOL>
+__global__ void __launch_bounds__(kThreads, 2)
+conv_block_kernel(const Args a, const Plan p, const Pool pl) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int kCI = CIN == 1 ? 1 : 4;  // input channels a staged load
+  constexpr int kChX = CIN / 4;          // 16-byte chunks of a staged pixel (Cin >= 16)
+  constexpr int kChY = COUT / 4;         // ... of a conv output pixel
+  constexpr int kNcg = COUT / kCO;       // channel groups
+  const int T = a.T, F = a.F, w = F + 2;
+
+  float* ws = reinterpret_cast<float*>(smem + p.w_off);  // [tap][ci][co]
+  const float* rws = ws + 9 * CIN * COUT;                // [ci][co]
+  float* vec = reinterpret_cast<float*>(smem + p.v_off);  // scale, bias, rscale, rbias
+
+  const int first = (int)((long long)blockIdx.x * p.ntiles / gridDim.x);
+  const int count = (int)((long long)(blockIdx.x + 1) * p.ntiles / gridDim.x) - first;
+
+  auto origin = [&](int tile, int& b, int& c0) {
+    b = tile / p.tiles_per_clip;
+    c0 = (tile % p.tiles_per_clip) * p.step - p.front;
+  };
+  auto in_row = [&](int i, bool& valid) {
+    valid = (i >= 0 && i < T) || ((i == -1 || i == T) && !a.zero_edge);
+    return valid ? reflect(i, T) : 0;
+  };
+  auto load = [&](int tile, int s) {
+    int b, c0;
+    origin(tile, b, c0);
+    unsigned char* xs = smem + p.x_off + (size_t)s * p.x_bytes;
+    const float* xb = a.x + (size_t)b * T * F * CIN;
+    const int n = p.xrows * w;
+    if constexpr (CIN == 1) {  // 4-byte pixels: plain loads, eight in flight a thread
+      float* xv = reinterpret_cast<float*>(xs);
+      for (int i0 = threadIdx.x; i0 < n; i0 += 8 * kThreads) {
+        float v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int i = i0 + u * kThreads, r = i / w, j = i - r * w;
+          bool rv;
+          const int t = in_row(c0 - 1 + r, rv);
+          const bool valid = i < n && rv && ((j >= 1 && j <= F) || !a.zero_edge);
+          v[u] = valid ? xb[(size_t)t * F + reflect(j - 1, F)] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (i0 + u * kThreads < n) xv[i0 + u * kThreads] = v[u];
+      }
+    } else {
+      // thread i copies chunk i % kChX of pixels i / kChX + k kThreads / kChX
+      constexpr int kStep = kThreads / kChX;
+      const int c = threadIdx.x % kChX;
+      int px = threadIdx.x / kChX, r = px / w, j = px - r * w;
+      for (; px < n; px += kStep) {
+        bool rv;
+        const int t = in_row(c0 - 1 + r, rv);
+        const bool valid = rv && ((j >= 1 && j <= F) || !a.zero_edge);
+        cp_async16(xs + 16 * swz<kChX>(px, c),
+                   valid ? xb + ((size_t)t * F + reflect(j - 1, F)) * CIN + c * 4 : a.x, valid);
+        for (j += kStep; j >= w; j -= w) ++r;
+      }
+    }
+  };
+  // a staged pixel's channels ci0 .. ci0 + kCI - 1
+  auto pixel = [&](const unsigned char* xs, int px, int ci0, float (&v)[kCI]) {
+    if constexpr (CIN == 1) {
+      v[0] = reinterpret_cast<const float*>(xs)[px];
+    } else {
+      const float4 q = *reinterpret_cast<const float4*>(xs + 16 * swz<kChX>(px, ci0 / 4));
+      v[0] = q.x;
+      v[1] = q.y;
+      v[2] = q.z;
+      v[3] = q.w;
+    }
+  };
+
+  for (int s = 0; s < p.stages - 1; ++s) {
+    if (s < count) load(first + s, s);
+    cp_async_commit();
+  }
+  // while the first tiles copy: the weights as they are in device memory
+  // ([tap][ci][co], then the residual's [ci][co]) and the epilogue's vectors
+  const int n_w4 = (9 + (a.res_mode == 2 ? 1 : 0)) * CIN * COUT / 4;
+  for (int i = threadIdx.x; i < n_w4; i += kThreads)
+    reinterpret_cast<float4*>(ws)[i] =
+        i < 9 * CIN * COUT / 4 ? reinterpret_cast<const float4*>(a.w)[i]
+                               : reinterpret_cast<const float4*>(a.resw)[i - 9 * CIN * COUT / 4];
+  for (int i = threadIdx.x; i < COUT; i += kThreads) {
+    vec[i] = a.scale[i];
+    vec[COUT + i] = a.bias[i];
+    vec[2 * COUT + i] = a.res_mode == 2 ? a.rscale[i] : 0.f;
+    vec[3 * COUT + i] = a.res_mode == 2 ? a.rbias[i] : 0.f;
+  }
+  const int items = (p.xrows - 2) / kPR * F * kNcg;
+  for (int it = 0; it < count; ++it) {
+    const int ahead = it + p.stages - 1;
+    if (ahead < count) load(first + ahead, ahead % p.stages);
+    cp_async_commit();
+    if (p.stages == 2)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    const int tile = first + it;
+    int b, c0;
+    origin(tile, b, c0);
+    const int rows = POOL ? p.crows : min(p.crows, T - c0);  // conv rows kept
+    const unsigned char* xs = smem + p.x_off + (size_t)(it % p.stages) * p.x_bytes;
+
+    for (int item = threadIdx.x; item < items; item += kThreads) {
+      const int col = item % F, rest = item / F;
+      const int co0 = rest % kNcg * kCO, r0 = rest / kNcg * kPR;
+      if (r0 >= rows) continue;
+      float acc[kPR][kCO];
+#pragma unroll
+      for (int i = 0; i < kPR; ++i)
+#pragma unroll
+        for (int c = 0; c < kCO; ++c) acc[i][c] = 0.f;
+#pragma unroll 1
+      for (int ci0 = 0; ci0 < CIN; ci0 += kCI) {
+#pragma unroll
+        for (int df = 0; df < 3; ++df) {
+          float xv[kPR + 2][kCI];  // staged rows r0 .. r0 + kPR + 1 at column col + df
+#pragma unroll
+          for (int s = 0; s < kPR + 2; ++s) pixel(xs, (r0 + s) * w + col + df, ci0, xv[s]);
+#pragma unroll
+          for (int k = 0; k < kCI; ++k)
+#pragma unroll
+            for (int dt = 0; dt < 3; ++dt) {
+              const float* wr = ws + ((dt * 3 + df) * CIN + ci0 + k) * COUT + co0;
+              const float4 w0 = *reinterpret_cast<const float4*>(wr);
+              const float4 w1 = *reinterpret_cast<const float4*>(wr + 4);
+              const float wv[kCO] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+              for (int i = 0; i < kPR; ++i)
+#pragma unroll
+                for (int c = 0; c < kCO; ++c) acc[i][c] = fmaf(xv[i + dt][k], wv[c], acc[i][c]);
+            }
+        }
+      }
+
+      // epilogue: affine, ReLU, residual, a row at a time
+#pragma unroll
+      for (int i = 0; i < kPR; ++i) {
+        const int r = r0 + i;
+        if (r >= rows) break;
+        const int qc = (r + 1) * w + col + 1;  // its staged centre pixel
+        float v[kCO];
+#pragma unroll
+        for (int c = 0; c < kCO; ++c) {
+          v[c] = fmaf(acc[i][c], vec[co0 + c], vec[COUT + co0 + c]);
+          if (a.relu) v[c] = fmaxf(v[c], 0.f);
+        }
+        if constexpr (CIN == COUT) {
+          if (a.res_mode == 1) {
+            float xc[2][4];
+            pixel(xs, qc, co0, xc[0]);
+            pixel(xs, qc, co0 + 4, xc[1]);
+#pragma unroll
+            for (int c = 0; c < kCO; ++c) v[c] += xc[c / 4][c % 4];
+          }
+        }
+        if (a.res_mode == 2) {  // the 1x1-conv residual on the centre pixel
+          float racc[kCO];
+#pragma unroll
+          for (int c = 0; c < kCO; ++c) racc[c] = 0.f;
+#pragma unroll 4
+          for (int ci0 = 0; ci0 < CIN; ci0 += kCI) {
+            float xc[kCI];
+            pixel(xs, qc, ci0, xc);
+#pragma unroll
+            for (int k = 0; k < kCI; ++k)
+#pragma unroll
+              for (int c = 0; c < kCO; ++c)
+                racc[c] = fmaf(xc[k], rws[(ci0 + k) * COUT + co0 + c], racc[c]);
+          }
+#pragma unroll
+          for (int c = 0; c < kCO; ++c)
+            v[c] += fmaf(racc[c], vec[2 * COUT + co0 + c], vec[3 * COUT + co0 + c]);
+        }
+        const float4 v0 = make_float4(v[0], v[1], v[2], v[3]);
+        const float4 v1 = make_float4(v[4], v[5], v[6], v[7]);
+        if constexpr (POOL) {  // the tile's conv rows [r][f]
+          float4* yb = reinterpret_cast<float4*>(smem + p.y_off);
+          yb[swz<kChY>(r * F + col, co0 / 4)] = v0;
+          yb[swz<kChY>(r * F + col, co0 / 4 + 1)] = v1;
+        } else {
+          float4* o = reinterpret_cast<float4*>(
+              a.out + (((size_t)b * T + c0 + r) * F + col) * COUT + co0);
+          o[0] = v0;
+          o[1] = v1;
+        }
+      }
+    }
+
+    if constexpr (POOL) {
+      // as the bf16 mode: over time in place, a thread down each (column,
+      // chunk), then over freq from those rows; conv rows outside the clip
+      // are -inf
+      __syncthreads();
+      const int to0 = (tile % p.tiles_per_clip) * p.n_to;
+      const int n_to = min(p.n_to, pl.to - to0);
+      float4* yb = reinterpret_cast<float4*>(smem + p.y_off);
+      const float4 ninf = make_float4(-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F);
+      for (int i = threadIdx.x; i < F * kChY; i += kThreads) {
+        const int c = i % kChY, f = i / kChY;
+        for (int tr = 0; tr < n_to; ++tr) {
+          float4 mx = ninf;
+          for (int dt = 0; dt < pl.wt; ++dt) {
+            const int r = tr * pl.st + dt;
+            if (c0 + r >= 0 && c0 + r < T) mx = max4(mx, yb[swz<kChY>(r * F + f, c)]);
+          }
+          yb[swz<kChY>(tr * F + f, c)] = mx;
+        }
+      }
+      __syncthreads();
+      for (int i = threadIdx.x; i < n_to * pl.fo * kChY; i += kThreads) {
+        const int c = i % kChY, fo = (i / kChY) % pl.fo, tr = i / (kChY * pl.fo);
+        float4 mx = ninf;
+        for (int df = 0; df < pl.wf; ++df) {
+          const int f = fo * pl.sf - pl.pf + df;
+          if (f >= 0 && f < F) mx = max4(mx, yb[swz<kChY>(tr * F + f, c)]);
+        }
+        *reinterpret_cast<float4*>(a.out + (((size_t)b * pl.to + to0 + tr) * pl.fo + fo) * COUT +
+                                   4 * c) = mx;
+      }
+    }
+    __syncthreads();  // the stage (and the pooled block's conv rows) consumed
+  }
+  cp_async_wait<0>();
+}
+
+template <int CIN, int COUT, bool POOL>
+cudaError_t launch(const Args& a, int B, const Pool& pl, cudaStream_t s) {
+  const Plan p = f32::plan<CIN, COUT>(B, a.T, a.F, POOL, a.res_mode == 2, pl);
+  if (p.smem < 0) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv_block_kernel<CIN, COUT, POOL>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return err;
+  conv_block_kernel<CIN, COUT, POOL><<<p.nblocks, kThreads, p.smem, s>>>(a, p, pl);
+  return cudaGetLastError();
+}
+
+}  // namespace f32
+
 }  // namespace
 
 // One block: out is (B, T, F, Cout), or with a pool (wt > 0) the pooled
@@ -645,5 +1005,32 @@ CT_EXPORT int conv_block_plan(int B, int T, int F, int cin, int cout, int res_mo
     const int v[7] = {p.crows, p.n_to, p.stages, p.per_sm, p.nblocks, p.ntiles, p.smem};
     std::copy(v, v + 7, out);
     return p.smem < 0 ? cudaErrorInvalidValue : cudaSuccess;
+  });
+}
+
+// The float32 mode of conv_block_forward: x, w, resw and out float32, the
+// same arguments and refusals (f32::conv_block_kernel).
+CT_EXPORT int conv_block_forward_f32(const void* x, const void* w, const void* scale,
+                                     const void* bias, const void* resw, const void* rscale,
+                                     const void* rbias, void* out, int B, int T, int F, int cin,
+                                     int cout, int res_mode, int relu, int zero_edge, int wt,
+                                     int wf, int st, int sf, int pt, int pf, int To, int Fo,
+                                     void* stream) {
+  if (!supported(B, T, F, cin, cout, res_mode)) return (int)cudaErrorInvalidValue;
+  // 16-byte copies, loads and stores: x's pixels at Cin >= 16, the weights, out
+  if (((cin > 1 ? reinterpret_cast<uintptr_t>(x) : 0) | reinterpret_cast<uintptr_t>(w) |
+       (res_mode == 2 ? reinterpret_cast<uintptr_t>(resw) : 0) |
+       reinterpret_cast<uintptr_t>(out)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  const f32::Args a{static_cast<const float*>(x), static_cast<const float*>(w),
+                    static_cast<const float*>(scale), static_cast<const float*>(bias),
+                    static_cast<const float*>(resw), static_cast<const float*>(rscale),
+                    static_cast<const float*>(rbias), static_cast<float*>(out), T, F, res_mode,
+                    relu, zero_edge};
+  const Pool pl{wt, wf, st, sf, pt, pf, To, Fo};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)dispatch(cin, cout, wt > 0, [&](auto ci, auto co, auto po) {
+    return f32::launch<decltype(ci)::value, decltype(co)::value, decltype(po)::value>(a, B, pl,
+                                                                                     s);
   });
 }

@@ -55,6 +55,8 @@
 
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "conv_tile.cuh"
 #include "tensor_core.cuh"
@@ -357,6 +359,255 @@ bool supported(int B, int T, int F, int cin, int cout) {
          (cout == 16 || cout == 32) && plan(B, T, F, cin, cout).smem > 0;
 }
 
+// ---- float32 mode -----------------------------------------------------------
+//
+// The same d(kernel) on float32 x and dy with float32 products, the JAX
+// kernel's mxu_dtype=x.dtype (conv_train.py:125).  Float32 MMAs would be
+// TF32, so the products are FFMAs on the CUDA cores, and operations bound
+// it: the seven stage-1 calls' 31 GFLOP take 0.46 ms at 67 TFLOP/s against
+// 0.2 ms for their float32 bytes.
+//
+// Design: register-tiled FFMA over a sliding window.  Tiles of `tile_t`
+// rows of one clip arrive by 16-byte cp.async in a ring of 2 stages (1
+// where the rows are too wide): x with its reflected halo, (tile_t + 2)
+// rows of F + 2 pixels, and dy, tile_t rows of F pixels, both
+// [pixel][channel].  A group of 3 (Cin / 4) (Cout / 8) threads holds one
+// copy of dW: each thread the three column taps of one row tap dt, 4
+// input x 8 output channels (96 sums; 3 x 8 at Cin = 1).  The block's
+// copies (slices) share the tile's work, runs of kSeg columns of one row:
+// a thread walks its run column by column, loading one new x pixel (the
+// window of three column taps slides) and two float4s of dy a column for
+// 96 FFMAs.  At the end the slices' sums are added in shared memory in
+// slice order, each block writes its partial and dkernel_reduce adds the
+// partials in block order: deterministic, as the bf16 mode.
+namespace f32 {
+
+constexpr int kCO = 8;            // output channels a thread
+constexpr int kSeg = 16;          // columns a unit of work
+constexpr int kTileRows = 16;     // rows a tile at most
+
+template <int CIN, int COUT>
+struct Geo {
+  static constexpr int kCI = CIN == 1 ? 1 : 4;                // input channels a thread
+  static constexpr int kNci = CIN / kCI, kNco = COUT / kCO;
+  static constexpr int kGroup = 3 * kNci * kNco;              // threads of one copy of dW
+  static constexpr int kSlices = kThreads / kGroup;           // copies a block
+  static constexpr int kBlock = kGroup * kSlices;             // threads a block
+};
+
+struct Plan {
+  int tile_t;          // rows of a tile
+  int x_bytes, stage;  // bytes of a stage's x tile, and of the whole stage (x, then dy)
+  int stages;          // ring depth
+  int smem;            // dynamic shared memory; -1: does not fit
+  int tiles_per_clip, ntiles, nblocks;
+};
+
+// The most rows (up to kTileRows) whose ring fits one block an SM: two
+// stages, else one.  One block an SM: the sums and the sliding window
+// take ~130 registers a thread.
+template <int CIN, int COUT>
+Plan plan(int B, int T, int F) {
+  using G = Geo<CIN, COUT>;
+  Plan p;
+  const int w = F + 2;
+  const long long red = (long long)G::kSlices * 9 * CIN * COUT * 4;
+  p.smem = -1;
+  for (int stages = 2; stages >= 1 && p.smem < 0; --stages)
+    for (int rows = T < kTileRows ? T : kTileRows; rows >= 1 && p.smem < 0; --rows) {
+      const long long x_bytes = ((long long)(rows + 2) * w * CIN * 4 + 127) / 128 * 128;
+      const long long stage = x_bytes + (long long)rows * F * COUT * 4;
+      const long long smem = stages * stage > red ? stages * stage : red;
+      if (smem <= kMaxSmem) {
+        p.tile_t = rows;
+        p.x_bytes = (int)x_bytes;
+        p.stage = (int)stage;
+        p.stages = stages;
+        p.smem = (int)smem;
+      }
+    }
+  if (p.smem < 0) return p;
+  p.tiles_per_clip = ceil_div(T, p.tile_t);
+  p.ntiles = B * p.tiles_per_clip;
+  const int want = p.ntiles / kMinTiles, most = sm_count();
+  p.nblocks = want < 1 ? 1 : (want > most ? most : want);
+  return p;
+}
+
+template <int CIN, int COUT>
+__global__ void __launch_bounds__(kThreads, 1)
+dkernel_partial(const float* __restrict__ x, const float* __restrict__ dy, float* __restrict__ ws,
+                int T, int F, Plan p) {
+  using G = Geo<CIN, COUT>;
+  constexpr int kCI = G::kCI, kSlices = G::kSlices;
+  constexpr int kChX = CIN == 1 ? 1 : CIN / 4;  // 16-byte chunks of an x pixel (Cin >= 16)
+  constexpr int kN = 9 * CIN * COUT;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int w = F + 2, nseg = (F + kSeg - 1) / kSeg;
+  const int g = threadIdx.x % G::kGroup, slice = threadIdx.x / G::kGroup;
+  const int co0 = (g % G::kNco) * kCO, ci0 = (g / G::kNco) % G::kNci * kCI;
+  const int dt = g / (G::kNco * G::kNci);
+
+  const int first = (int)((long long)blockIdx.x * p.ntiles / gridDim.x);
+  const int count = (int)((long long)(blockIdx.x + 1) * p.ntiles / gridDim.x) - first;
+
+  auto load = [&](int tile, int s) {
+    const int b = tile / p.tiles_per_clip, t0 = (tile % p.tiles_per_clip) * p.tile_t;
+    const int rows = min(p.tile_t, T - t0);
+    float* xs = reinterpret_cast<float*>(smem + (size_t)s * p.stage);
+    float* ds = reinterpret_cast<float*>(smem + (size_t)s * p.stage + p.x_bytes);
+    const float* xb = x + (size_t)b * T * F * CIN;
+    if constexpr (CIN == 1) {
+      const int n = (p.tile_t + 2) * w;
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const int r = i / w, j = i - r * w;
+        xs[i] = r < rows + 2 ? xb[(size_t)reflect(t0 - 1 + r, T) * F + reflect(j - 1, F)] : 0.f;
+      }
+    } else {
+      const int n = (p.tile_t + 2) * w * kChX;
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const int c = i % kChX, px = i / kChX, r = px / w, j = px - r * w;
+        const bool valid = r < rows + 2;
+        const int t = valid ? reflect(t0 - 1 + r, T) : 0;
+        cp_async16(xs + px * CIN + c * 4, xb + ((size_t)t * F + reflect(j - 1, F)) * CIN + c * 4,
+                   valid);
+      }
+    }
+    const int n4 = p.tile_t * F * COUT / 4, valid4 = rows * F * COUT / 4;
+    const float* db = dy + ((size_t)b * T + t0) * F * COUT;
+    for (int i = threadIdx.x; i < n4; i += blockDim.x)
+      cp_async16(ds + 4 * i, i < valid4 ? db + 4 * i : dy, i < valid4);
+  };
+  auto pixel = [&](const float* px, float (&v)[kCI]) {
+    if constexpr (CIN == 1) {
+      v[0] = *px;
+    } else {
+      const float4 q = *reinterpret_cast<const float4*>(px);
+      v[0] = q.x;
+      v[1] = q.y;
+      v[2] = q.z;
+      v[3] = q.w;
+    }
+  };
+
+  float acc[3][kCI][kCO];  // [column tap][input channel][output channel]
+#pragma unroll
+  for (int df = 0; df < 3; ++df)
+#pragma unroll
+    for (int k = 0; k < kCI; ++k)
+#pragma unroll
+      for (int c = 0; c < kCO; ++c) acc[df][k][c] = 0.f;
+
+  for (int s = 0; s < p.stages - 1; ++s) {
+    if (s < count) load(first + s, s);
+    cp_async_commit();
+  }
+  for (int i = 0; i < count; ++i) {
+    const int ahead = i + p.stages - 1;
+    if (ahead < count) load(first + ahead, ahead % p.stages);
+    cp_async_commit();
+    if (p.stages == 2)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    const int tile = first + i;
+    const int rows = min(p.tile_t, T - (tile % p.tiles_per_clip) * p.tile_t);
+    const int s = i % p.stages;
+    const float* xs = reinterpret_cast<const float*>(smem + (size_t)s * p.stage);
+    const float* ds = reinterpret_cast<const float*>(smem + (size_t)s * p.stage + p.x_bytes);
+    for (int u = slice; u < rows * nseg; u += kSlices) {
+      const int r = u / nseg, f0 = (u - r * nseg) * kSeg, f1 = min(F, f0 + kSeg);
+      // x pixels (r + dt, f + df) of the window, from staged column f0
+      const float* xr = xs + ((size_t)(r + dt) * w + f0) * CIN + ci0;
+      const float* dr = ds + ((size_t)r * F + f0) * COUT + co0;
+      float xw[3][kCI];
+      pixel(xr, xw[0]);
+      pixel(xr + CIN, xw[1]);
+      for (int f = f0; f < f1; ++f) {
+        xr += CIN;
+        pixel(xr + CIN, xw[2]);
+        const float4 d0 = *reinterpret_cast<const float4*>(dr);
+        const float4 d1 = *reinterpret_cast<const float4*>(dr + 4);
+        dr += COUT;
+        const float d[kCO] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+        for (int df = 0; df < 3; ++df)
+#pragma unroll
+          for (int k = 0; k < kCI; ++k)
+#pragma unroll
+            for (int c = 0; c < kCO; ++c) acc[df][k][c] = fmaf(xw[df][k], d[c], acc[df][k][c]);
+#pragma unroll
+        for (int k = 0; k < kCI; ++k) {
+          xw[0][k] = xw[1][k];
+          xw[1][k] = xw[2][k];
+        }
+      }
+    }
+    __syncthreads();  // stage s consumed
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the slices' sums, in the ring's place, (slice, 9, Cin, Cout); then
+  // this block's partial, the slices added in order
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int df = 0; df < 3; ++df)
+#pragma unroll
+    for (int k = 0; k < kCI; ++k) {
+      float* o = red + ((size_t)(slice * 9 + dt * 3 + df) * CIN + ci0 + k) * COUT + co0;
+      *reinterpret_cast<float4*>(o) = make_float4(acc[df][k][0], acc[df][k][1], acc[df][k][2],
+                                                  acc[df][k][3]);
+      *reinterpret_cast<float4*>(o + 4) = make_float4(acc[df][k][4], acc[df][k][5],
+                                                      acc[df][k][6], acc[df][k][7]);
+    }
+  __syncthreads();
+  float* out = ws + (size_t)blockIdx.x * kN;
+  for (int o = threadIdx.x; o < kN; o += blockDim.x) {
+    float v = 0.f;
+#pragma unroll
+    for (int k = 0; k < kSlices; ++k) v += red[k * kN + o];
+    out[o] = v;
+  }
+}
+
+template <int CIN, int COUT>
+cudaError_t launch(const float* x, const float* dy, float* ws, float* dw, int B, int T, int F,
+                   cudaStream_t s) {
+  const Plan p = plan<CIN, COUT>(B, T, F);
+  cudaError_t err = cudaFuncSetAttribute(dkernel_partial<CIN, COUT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return err;
+  dkernel_partial<CIN, COUT><<<p.nblocks, Geo<CIN, COUT>::kBlock, p.smem, s>>>(x, dy, ws, T, F, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n = 9 * CIN * COUT;
+  dkernel_reduce<<<ceil_div(n, 32), 32 * kReduceRuns, 0, s>>>(ws, dw, p.nblocks, n);
+  return cudaGetLastError();
+}
+
+// fn(Cin, Cout) with both as compile-time constants.
+template <class Fn>
+auto dispatch(int cin, int cout, Fn&& fn) {
+  using std::integral_constant;
+  auto by_cout = [&](auto ci) {
+    return cout == 16 ? fn(ci, integral_constant<int, 16>{}) : fn(ci, integral_constant<int, 32>{});
+  };
+  return cin == 1    ? by_cout(integral_constant<int, 1>{})
+         : cin == 16 ? by_cout(integral_constant<int, 16>{})
+                     : by_cout(integral_constant<int, 32>{});
+}
+
+bool supported(int B, int T, int F, int cin, int cout) {
+  return B >= 1 && T >= 2 && F >= 2 && (cin == 1 || cin == 16 || cin == 32) &&
+         (cout == 16 || cout == 32) && dispatch(cin, cout, [&](auto ci, auto co) {
+           return plan<decltype(ci)::value, decltype(co)::value>(B, T, F).smem > 0;
+         });
+}
+
+}  // namespace f32
+
 }  // namespace
 
 // Bytes of float32 workspace `conv3x3_dkernel` needs; -1 for a shape it does
@@ -381,4 +632,30 @@ CT_EXPORT int conv3x3_dkernel(const void* x, const void* dy, void* workspace, vo
                           : cin == 16 ? launch_cin<16>(xb, db, ws, out, B, T, F, cout, s)
                                       : launch_cin<32>(xb, db, ws, out, B, T, F, cout, s);
   return (int)err;
+}
+
+// Bytes of float32 workspace `conv3x3_dkernel_f32` needs; -1 for a shape it
+// does not take.
+CT_EXPORT long long conv3x3_dkernel_f32_workspace(int B, int T, int F, int cin, int cout) {
+  if (!f32::supported(B, T, F, cin, cout)) return -1;
+  return f32::dispatch(cin, cout, [&](auto ci, auto co) {
+    return (long long)f32::plan<decltype(ci)::value, decltype(co)::value>(B, T, F).nblocks * 9 *
+           cin * cout * 4;
+  });
+}
+
+// The float32 mode of conv3x3_dkernel: x (B, T, F, Cin) and dy (B, T, F,
+// Cout) float32, the same refusals.
+CT_EXPORT int conv3x3_dkernel_f32(const void* x, const void* dy, void* workspace, void* dw, int B,
+                                  int T, int F, int cin, int cout, void* stream) {
+  if (!f32::supported(B, T, F, cin, cout)) return (int)cudaErrorInvalidValue;
+  // the 16-byte copies: dy's, and x's at Cin >= 16, start on 16 bytes
+  if ((reinterpret_cast<uintptr_t>(dy) | (cin > 1 ? reinterpret_cast<uintptr_t>(x) : 0)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)f32::dispatch(cin, cout, [&](auto ci, auto co) {
+    return f32::launch<decltype(ci)::value, decltype(co)::value>(
+        static_cast<const float*>(x), static_cast<const float*>(dy), static_cast<float*>(workspace),
+        static_cast<float*>(dw), B, T, F, s);
+  });
 }

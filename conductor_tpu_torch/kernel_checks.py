@@ -104,16 +104,26 @@ from .train.fused_denoiser import (
 )
 
 REL_TOL = 0.02  # the bound the JAX package holds its reduced-precision modes to
+# the float32 modes of K4 and K9 within 1e-4 of their plain version's
+# largest value: the same float32 products summed in another order (the
+# JAX package holds its own float32 kernels to 1e-5 / 2e-5 absolute,
+# tests/test_conv_train.py:47, 68, 73); K11's float32 mode within 1e-6
+# (each dy goes to one place: only the order of the float32 sums of dy
+# that meet in one dx moves it); K10's exact in both modes
+F32_REL_TOL = 1e-4
+K11_F32_REL_TOL = 1e-6
 # K1's bf16-VPU mode moves its output 0.2 % of the largest value from the
 # float32-VPU output at the serving shape (on an H100), well inside REL_TOL,
 # so `vpu_mode_ok` holds it closer: the kernel within 0.2 % of its plain
 # version's largest value (0.046 % measured there)
 VPU_REL_TOL = 0.002
 # an H100 SXM's published peaks (NVIDIA's data sheet): HBM3 bytes/s, dense
-# bf16 tensor-core FLOP/s, dense int8 tensor-core OP/s; every product here
-# takes bf16 operands but K1's int8 AdaLN product, priced at the int8 rate
-# so that quantization cannot flatter the bound (as JAX's utils/flops.py
-# prices it at the int8 peak)
+# bf16 tensor-core FLOP/s, dense int8 tensor-core OP/s and float32 FLOP/s
+# outside the tensor cores; the products here take bf16 operands but K1's
+# int8 AdaLN product, priced at the int8 rate so that quantization cannot
+# flatter the bound (as JAX's utils/flops.py prices it at the int8 peak),
+# and the float32 modes' products (K4, K9), priced at the float32 rate
+# (`bound`'s ``product_dtype``): TF32 would round them
 # traces `device_ms` and `launch_split` take before they give up on a
 # profiler that keeps dropping records (3 did not do on an H100: a
 # chip_smoke run died there on K1's int8 GEMM)
@@ -143,6 +153,7 @@ K2_K3_BAR_DEVICE_MS = {"sampler_prologue": 0.032, "sampler_prologue_int8": 0.028
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
+F32_FLOPS = 67e12
 
 
 def time_ms(fn, reps: int) -> float:
@@ -175,15 +186,18 @@ def flops(fn) -> int:
     return counter.get_total_flops()
 
 
-def bound(inputs, outputs, n_flops: int, int8_ops: int = 0) -> dict:
+def bound(inputs, outputs, n_flops: int, int8_ops: int = 0,
+          product_dtype: torch.dtype = torch.bfloat16) -> dict:
     """The least time an H100 could take for a function of these inputs
-    and outputs doing ``n_flops``, of which ``int8_ops`` are int8 products:
-    ``bound_ms``, the larger of its bytes (each input read once, each
-    output written once) over the memory rate (``bytes_ms``) and its
-    operations over the tensor-core rate of their type, bf16 or int8
+    and outputs doing ``n_flops``, of which ``int8_ops`` are int8 products
+    and the rest products of ``product_dtype`` operands: ``bound_ms``, the
+    larger of its bytes (each input read once, each output written once)
+    over the memory rate (``bytes_ms``) and its operations over the rate of
+    their type, bf16 or int8 on the tensor cores, float32 outside them
     (``ops_ms``), and ``bound_by``, which of the two it is."""
     n_bytes = sum(t.numel() * t.element_size() for t in _tensors((inputs, outputs)))
-    ops_s = (n_flops - int8_ops) / BF16_FLOPS + int8_ops / INT8_OPS
+    rate = F32_FLOPS if product_dtype == torch.float32 else BF16_FLOPS
+    ops_s = (n_flops - int8_ops) / rate + int8_ops / INT8_OPS
     return _bound(n_bytes / HBM_BYTES_PER_S * 1e3, ops_s * 1e3)
 
 
@@ -200,10 +214,11 @@ def _errors(got, want) -> list[tuple[float, float]]:
 
 
 def _compare(name, kernel_fn, plain_fn, reps, rel_tol, inputs, library_fn=None, n_flops=None,
-             int8_ops=0, view=None):
+             int8_ops=0, view=None, product_dtype=torch.bfloat16):
     """``kernel_fn`` against ``plain_fn`` (no arguments, same inputs), both
     outputs seen through ``view`` if given.  The bound counts ``n_flops``,
-    by default those of ``plain_fn``, ``int8_ops`` of them int8."""
+    by default those of ``plain_fn``, ``int8_ops`` of them int8, the rest
+    products of ``product_dtype``."""
     out = kernel_fn()
     view = view or (lambda o: o)
     parts = _errors(view(out), view(plain_fn()))
@@ -213,7 +228,8 @@ def _compare(name, kernel_fn, plain_fn, reps, rel_tol, inputs, library_fn=None, 
         "name": name, "max_abs_err": err, "ref_max_abs": ref,
         "ok": all(e <= rel_tol * r and r > 0 for e, r in parts),
         "ms": time_ms(kernel_fn, reps), "plain_ms": time_ms(plain_fn, reps),
-        **bound(inputs, out, flops(plain_fn) if n_flops is None else n_flops, int8_ops),
+        **bound(inputs, out, flops(plain_fn) if n_flops is None else n_flops, int8_ops,
+                product_dtype),
         "library_ms": None if library_fn is None else time_ms(library_fn, reps),
         "parts": parts,
     }
@@ -335,22 +351,33 @@ def _device_totals(r: dict, kernel_fns, library_fns=None, reps: int = 5) -> dict
 
 
 @torch.no_grad()
-def check_conv_blocks(encoder, mel, *, reps: int = 5, rel_tol: float = REL_TOL) -> dict:
+def check_conv_blocks(encoder, mel, *, reps: int = 5, rel_tol: float | None = None) -> dict:
     """K4 on each block of ``encoder`` (a `FusedMusicEncoder`), each on the
     activations the plain chain gives it from ``mel``, against its plain
     version, a repeat bit-identical: one result over the 7 calls, each in
-    ``calls``."""
+    ``calls``.  In the encoder's mode: bf16 within ``rel_tol`` (REL_TOL by
+    default), float32 (``conv_block_f32``, priced at the float32 rate)
+    within F32_REL_TOL, with ``cudnn_conv_ms``, cuDNN's float32 `F.conv2d`
+    of the 7 blocks' convs alone (a yardstick for the products: no
+    PyTorch call computes a block)."""
     mxu = encoder.mxu_dtype
-    x = mel.to(mxu)[..., None]
-    blocks, kernels = [], []
+    mode_f32 = mxu == torch.float32
+    rel_tol = rel_tol if rel_tol is not None else F32_REL_TOL if mode_f32 else REL_TOL
+    x = mel.to(mxu).contiguous()[..., None]
+    blocks, kernels, convs = [], [], []
     for kw in encoder.block_args:
         kernel = functools.partial(fused_conv_block, x, mxu_dtype=mxu, **kw)
         blocks.append(_repeat(_compare(
             "conv_block", kernel, lambda: conv_block_plain(x, mxu_dtype=mxu, **kw), reps, rel_tol,
-            (x, kw)) | {"shape": list(x.shape)}, kernel))
+            (x, kw), product_dtype=mxu) | {"shape": list(x.shape)}, kernel))
         kernels.append(kernel)
+        convs.append(_library_conv(x, kw["kernel"], "reflect"))
         x = conv_block_plain(x, mxu_dtype=mxu, **kw)
-    return _device_totals(_merge("conv_block", blocks), kernels, reps=reps)
+    r = _device_totals(_merge("conv_block_f32" if mode_f32 else "conv_block", blocks), kernels,
+                       reps=reps)
+    if mode_f32:  # no call computes a block; cuDNN's float32 conv of each, a yardstick
+        r["cudnn_conv_ms"] = sum(time_ms(fn, reps) for fn in convs)
+    return r
 
 
 @torch.no_grad()
@@ -893,9 +920,10 @@ def _reference_pool_bwd(x, dy, pool):
 
 
 def _library_conv(x, kernel, edge):
-    """cuDNN's conv of the same operands, `F.conv2d` in bf16 channels_last:
-    on the reflect-padded input made outside the timed call, or with
-    ``padding=1`` for the zero edge."""
+    """cuDNN's conv of the same operands, `F.conv2d` in x's dtype (bf16, or
+    float32: TF32 off where the caller turns it off, as chip_smoke does)
+    channels_last: on the reflect-padded input made outside the timed call,
+    or with ``padding=1`` for the zero edge."""
     w = kernel.to(x.dtype).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     xn = x.permute(0, 3, 1, 2)  # NHWC storage is channels_last
     if edge == "zero":
@@ -905,12 +933,16 @@ def _library_conv(x, kernel, edge):
 
 
 @torch.no_grad()
-def check_stage1_kernels(convs, pools, *, reps: int = 5, rel_tol: float = REL_TOL,
+def check_stage1_kernels(convs, pools, *, reps: int = 5, rel_tol: float | None = None,
                          seed: int = 0) -> list[dict]:
     """K9 (each conv's d(kernel)), K10 and K11 (each pool's forward and
     backward) and K4's training modes (each conv's forward, relu off and
     reflect edge, and the zero-edge interior of its transposed conv) against
-    their plain versions on `stage1_kernel_inputs`; bf16 on both sides.
+    their plain versions on `stage1_kernel_inputs`, in the inputs' dtype on
+    both sides: bf16 within ``rel_tol`` (REL_TOL by default), or float32
+    (the float32 modes, their results named with ``_f32``, products priced
+    at the float32 rate, no bars): K4 and K9 within F32_REL_TOL, K11 within
+    K11_F32_REL_TOL.
     K11 is also held to the tie rule exactly (``tie_err`` must be 0): on
     each pool's input rounded to a coarse grid after a ReLU (plateaus of
     equal values, zeros included) with a cotangent of quarter-integers,
@@ -923,30 +955,37 @@ def check_stage1_kernels(convs, pools, *, reps: int = 5, rel_tol: float = REL_TO
     for bit, launch one kernel and run the tiling `fwd_plan` computes
     (``plan_ok``: the kernel's `max_pool_fwd_plan`), and reports its device
     ms; ``bar_met``: the sums within K10_BAR_MS and K10_BAR_DEVICE_MS."""
+    mxu = convs[0][0].dtype
+    mode_f32 = mxu == torch.float32
+    rel_tol = rel_tol if rel_tol is not None else F32_REL_TOL if mode_f32 else REL_TOL
+    pool_tol = K11_F32_REL_TOL if mode_f32 else rel_tol
+    cmp = functools.partial(_compare, product_dtype=mxu)
     dkernel, conv_fwd, conv_dx, pool_fwd, pool_bwd = [], [], [], [], []
     k4_fns, k4_libs = [], []  # K4's calls and their library calls
     for x, kernel, dy in convs:
-        dkernel.append(_compare("conv3x3_dkernel", lambda: conv3x3_dkernel(x, dy),
-                                lambda: conv3x3_dkernel_plain(x, dy), reps, rel_tol, (x, dy),
-                                _library_dkernel(x, dy)) | {"shape": list(x.shape)})
+        dkernel.append(_repeat(cmp("conv3x3_dkernel", lambda: conv3x3_dkernel(x, dy),
+                                   lambda: conv3x3_dkernel_plain(x, dy), reps, rel_tol, (x, dy),
+                                   _library_dkernel(x, dy)) | {"shape": list(x.shape)},
+                               lambda: conv3x3_dkernel(x, dy)))
         cout, cin = kernel.shape[-1], kernel.shape[2]
         one = torch.ones(cout, device=x.device)
         fwd = (x, kernel, one, torch.zeros_like(one))
-        k4 = functools.partial(fused_conv_block, *fwd, relu=False)
+        k4 = functools.partial(fused_conv_block, *fwd, relu=False, mxu_dtype=mxu)
         lib = _library_conv(x, kernel, "reflect")
-        conv_fwd.append(_repeat(_compare(
-            "conv_block", k4, lambda: conv_block_plain(*fwd, relu=False), reps, rel_tol, fwd, lib)
-            | {"shape": list(x.shape)}, k4))
+        conv_fwd.append(_repeat(cmp(
+            "conv_block", k4, lambda: conv_block_plain(*fwd, relu=False, mxu_dtype=mxu), reps,
+            rel_tol, fwd, lib) | {"shape": list(x.shape)}, k4))
         k4_fns.append(k4)
         k4_libs.append(lib)
         if cin > 1:  # the first block's input (the mel) takes no gradient
             wflip = kernel.flip(0, 1).transpose(2, 3).contiguous()
             one = torch.ones(cin, device=x.device)
             bwd = (dy, wflip, one, torch.zeros_like(one))
-            k4 = functools.partial(fused_conv_block, *bwd, relu=False, edge="zero")
+            k4 = functools.partial(fused_conv_block, *bwd, relu=False, edge="zero", mxu_dtype=mxu)
             lib = _library_conv(dy, wflip, "zero")
-            conv_dx.append(_repeat(_compare(
-                "conv_block", k4, lambda: conv_block_plain(*bwd, relu=False, edge="zero"), reps,
+            conv_dx.append(_repeat(cmp(
+                "conv_block", k4,
+                lambda: conv_block_plain(*bwd, relu=False, edge="zero", mxu_dtype=mxu), reps,
                 rel_tol, bwd, lib) | {"shape": list(dy.shape), "edge": "zero"}, k4))
             k4_fns.append(k4)
             k4_libs.append(lib)
@@ -957,9 +996,10 @@ def check_stage1_kernels(convs, pools, *, reps: int = 5, rel_tol: float = REL_TO
         nchw = x.permute(0, 3, 1, 2)
         fwd = functools.partial(fused_max_pool, x, pool)
         split = launch_split(fwd, reps)
-        mine = fwd_plan(tuple(x.shape), pool)
+        esize = x.element_size()
+        mine = fwd_plan(tuple(x.shape), pool, sms=_build.sm_count(x.device.index), esize=esize)
         plan_ok = {k: mine[k] for k in KERNEL_FWD_PLAN_KEYS} == kernel_fwd_plan(
-            tuple(x.shape), pool, mine["rows"], mine["cols"], mine["threads"])
+            tuple(x.shape), pool, mine["rows"], mine["cols"], mine["threads"], esize)
         call = _repeat(_compare(
             "max_pool", fwd, lambda: max_pool_plain(x, pool), reps, rel_tol, x,
             lambda: F.max_pool2d(nchw, window, strides, (padding[0][0], padding[1][0])))
@@ -971,7 +1011,7 @@ def check_stage1_kernels(convs, pools, *, reps: int = 5, rel_tol: float = REL_TO
         bwd = functools.partial(max_pool_bwd, x, dy, pool)
         split = launch_split(bwd, reps)
         call = _repeat(_compare(
-            "max_pool_bwd", bwd, lambda: max_pool_bwd_plain(x, dy, pool), reps, rel_tol, (x, dy))
+            "max_pool_bwd", bwd, lambda: max_pool_bwd_plain(x, dy, pool), reps, pool_tol, (x, dy))
             | {"shape": list(x.shape), "pool": pool, "launches_a_call": len(split),
                "device_ms": sum(ms for _, ms in split),
                "reference_ms": time_ms(_reference_pool_bwd(x, dy, pool), reps)}, bwd)
@@ -981,15 +1021,20 @@ def check_stage1_kernels(convs, pools, *, reps: int = 5, rel_tol: float = REL_TO
         dy_q = (torch.randint(-8, 9, dy.shape, generator=gen, device=dy.device) / 4).to(dy.dtype)
         got, want = max_pool_bwd(tied, dy_q, pool), max_pool_bwd_plain(tied, dy_q, pool)
         tie_err = max(tie_err, float((got.float() - want.float()).abs().max()))
-    k11 = _merge("max_pool_bwd", pool_bwd) | {
+    sfx = "_f32" if mode_f32 else ""
+    k11 = _merge("max_pool_bwd" + sfx, pool_bwd) | {
         "tie_err": tie_err, "device_ms": sum(c["device_ms"] for c in pool_bwd),
         "reference_ms": sum(c["reference_ms"] for c in pool_bwd)}
     k11["ok"] &= tie_err == 0.0
-    k11["bar_met"] = k11["ok"] and k11["ms"] <= K11_BAR_MS and k11["device_ms"] <= K11_BAR_DEVICE_MS
-    k10 = _merge("max_pool", pool_fwd) | {"device_ms": sum(c["device_ms"] for c in pool_fwd)}
-    k10["bar_met"] = k10["ok"] and k10["ms"] <= K10_BAR_MS and k10["device_ms"] <= K10_BAR_DEVICE_MS
+    k11["bar_met"] = None if mode_f32 else (
+        k11["ok"] and k11["ms"] <= K11_BAR_MS and k11["device_ms"] <= K11_BAR_DEVICE_MS)
+    k10 = _merge("max_pool" + sfx, pool_fwd) | {"device_ms": sum(c["device_ms"] for c in pool_fwd)}
+    k10["bar_met"] = None if mode_f32 else (
+        k10["ok"] and k10["ms"] <= K10_BAR_MS and k10["device_ms"] <= K10_BAR_DEVICE_MS)
     k4 = _device_totals(_merge("conv_block", conv_fwd + conv_dx), k4_fns, k4_libs, reps)
-    return [_merge("conv3x3_dkernel", dkernel), k10, k11, k4 | {"name": "conv_block_train"}]
+    k9 = _merge("conv3x3_dkernel" + sfx, dkernel)
+    k9["ok"] &= all(c["repeat_identical"] for c in dkernel)
+    return [k9, k10, k11, k4 | {"name": "conv_block_train" + sfx}]
 
 
 @torch.no_grad()

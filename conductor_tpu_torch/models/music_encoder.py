@@ -131,7 +131,7 @@ class MusicEncoder(nn.Module):
         return bn(conv(proj, h.transpose(1, 2), self.dtype)).transpose(1, 2)
 
     def _forward_packed(self, mel: torch.Tensor, maps: list | None) -> torch.Tensor:
-        x = mel.to(self.dtype)[..., None]  # (B, T90, 128, 1)
+        x = mel.to(self.dtype).contiguous()[..., None]  # (B, T90, 128, 1); a crop is a view
         for name in ("conv1", "conv2", "conv3"):
             for blk in getattr(self, name):
                 x = blk.forward_packed(x)
@@ -189,7 +189,7 @@ class FusedMusicEncoder:
 
     @torch.no_grad()
     def __call__(self, mel: torch.Tensor) -> torch.Tensor:
-        x = mel.to(self.mxu_dtype)[..., None]  # (B, T90, 128, 1)
+        x = mel.to(self.mxu_dtype).contiguous()[..., None]  # (B, T90, 128, 1)
         for kw in self.block_args:
             x = fused_conv_block(x, mxu_dtype=self.mxu_dtype, **kw)
         b, t, f, c = x.shape

@@ -3,7 +3,8 @@
 Each kernel wrapper keeps a plain integer ``launches`` count, raised by one
 each time it launches its kernel on a CUDA tensor (never on the plain CPU
 path); K1 and K2 keep one more for each opt-in mode (``launches_int8``,
-``launches_vpu_bf16``).  `launch_counts` / `reset_launch_counts` read and clear them.
+``launches_vpu_bf16``), K4, K9, K10 and K11 one for their float32 mode
+(``launches_f32``), each launch counted in one mode's count only.  `launch_counts` / `reset_launch_counts` read and clear them.
 A kernel that K1, K5 and K6 launch as one of their parts, the AdaLN GEMM, keeps
 its own count of launches, as the C entry points that launch it report
 them, which `part_launch_counts` reads.
@@ -47,6 +48,10 @@ KERNELS = {
     "max_pool": (fused_max_pool, "launches"),
     "max_pool_bwd": (max_pool_bwd, "launches"),
     "linear_attention": (linear_attention_kernel, "launches"),
+    "conv_block_f32": (fused_conv_block, "launches_f32"),
+    "conv3x3_dkernel_f32": (conv3x3_dkernel, "launches_f32"),
+    "max_pool_f32": (fused_max_pool, "launches_f32"),
+    "max_pool_bwd_f32": (max_pool_bwd, "launches_f32"),
 }
 # count name -> (wrapper, attribute) of the kernels launched as parts of others
 PARTS = {

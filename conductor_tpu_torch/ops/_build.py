@@ -36,16 +36,21 @@ SIGNATURES = {
     "conv_block_forward": ([_P] * 8 + [_I] * 16 + [_P], _I),
     # B, T, F, Cin, Cout, res_mode, wt, wf, st, sf, pt, pf, To, Fo, out (7 int32)
     "conv_block_plan": ([_I] * 14 + [_P], _I),
-    # x, out, B, T, F, C, To, Fo, wt, wf, st, sf, pt, pf, rows, cols, threads, stream
-    "max_pool_forward": ([_P] * 2 + [_I] * 15 + [_P], _I),
-    # B, T, F, C, To, Fo, wt, wf, st, sf, pt, pf, rows, cols, threads, out, cap -> 0
-    "max_pool_fwd_plan": ([_I] * 15 + [_P, _I], _I),
-    # x, dy, dx, B, T, F, C, To, Fo, wt, wf, st, sf, pt, pf, rows, cols, threads, stream
-    "max_pool_backward": ([_P] * 3 + [_I] * 15 + [_P], _I),
+    # conv_block_forward's float32 mode, the same arguments
+    "conv_block_forward_f32": ([_P] * 8 + [_I] * 16 + [_P], _I),
+    # x, out, B, T, F, C, To, Fo, wt, wf, st, sf, pt, pf, rows, cols, threads, f32, stream
+    "max_pool_forward": ([_P] * 2 + [_I] * 16 + [_P], _I),
+    # B, T, F, C, To, Fo, wt, wf, st, sf, pt, pf, rows, cols, threads, f32, out, cap -> 0
+    "max_pool_fwd_plan": ([_I] * 16 + [_P, _I], _I),
+    # x, dy, dx, B, T, F, C, To, Fo, wt, wf, st, sf, pt, pf, rows, cols, threads, f32, stream
+    "max_pool_backward": ([_P] * 3 + [_I] * 16 + [_P], _I),
     # B, T, F, Cin, Cout -> workspace bytes of conv3x3_dkernel
     "conv3x3_dkernel_workspace": ([_I] * 5, ctypes.c_longlong),
     # x, dy, workspace, dw, B, T, F, Cin, Cout, stream
     "conv3x3_dkernel": ([_P] * 4 + [_I] * 5 + [_P], _I),
+    # the float32 mode of the two above, the same arguments
+    "conv3x3_dkernel_f32_workspace": ([_I] * 5, ctypes.c_longlong),
+    "conv3x3_dkernel_f32": ([_P] * 4 + [_I] * 5 + [_P], _I),
     # x, temb, emb_base, w_joint, seq_bias, h, emb_act, emb_scale (null: bf16
     # emb_act), B, T, C, D, E, round_bf16, stream
     "sampler_prologue_forward": ([_P] * 8 + [_I] * 6 + [_P], _I),

@@ -12,10 +12,13 @@ is the JAX package's NHWC (B, T, F, C); the kernel weights are (3, 3, Cin,
 Cout) and the residual 1x1 weights (Cin, Cout).
 
 `fused_conv_block` takes a CPU tensor to `conv_block_plain` and a CUDA
-tensor to the kernel in `csrc/conv_block.cu` (one launch, tensor cores; a
-pooled block writes only the pooled tensor); on CUDA it raises on what
-the kernel does not take.  Matmul operands are rounded to ``mxu_dtype`` and
-products summed in float32 on both paths, as the JAX kernel body does.
+tensor to the kernel in `csrc/conv_block.cu` (one launch; a pooled block
+writes only the pooled tensor); on CUDA it raises on what the kernel does
+not take.  Matmul operands are rounded to ``mxu_dtype`` and products summed
+in float32 on both paths, as the JAX kernel body does.  The kernel has two
+modes, chosen by ``mxu_dtype``: bf16 operands on the tensor cores
+(``launches``), and float32 operands with float32 products on the CUDA
+cores, x and the output float32, the weights unrounded (``launches_f32``).
 """
 
 from __future__ import annotations
@@ -104,15 +107,16 @@ def fused_conv_block(
                                 mxu_dtype=mxu_dtype, relu=relu, edge=edge)
     b, t, f, cin = x.shape
     cout = kernel.shape[-1]
-    if mxu_dtype != torch.bfloat16 or cin not in (1, 16, 32) or cout not in (16, 32):
+    if mxu_dtype not in (torch.bfloat16, torch.float32) or cin not in (1, 16, 32) or cout not in (
+            16, 32):
         raise ValueError(
-            f"conv_block kernel takes bf16 operands, Cin in (1, 16, 32) and Cout in "
+            f"conv_block kernel takes bf16 or float32 operands, Cin in (1, 16, 32) and Cout in "
             f"(16, 32); got {mxu_dtype}, Cin={cin}, Cout={cout}"
         )
     if t < 2 or f < 2 or res_mode not in (0, 1, 2) or (res_mode == 1 and cin != cout):
         raise ValueError(f"conv_block kernel: bad shape {tuple(x.shape)} / res_mode {res_mode}")
     f32 = torch.float32
-    _build.require(x, "x", torch.bfloat16, (b, t, f, cin))
+    _build.require(x, "x", mxu_dtype, (b, t, f, cin))
     _build.require(kernel, "kernel", f32, (3, 3, cin, cout))
     _build.require(scale, "scale", f32, (cout,))
     _build.require(bias, "bias", f32, (cout,))
@@ -123,18 +127,26 @@ def fused_conv_block(
     res = (res_kernel, res_scale, res_bias) if res_mode == 2 else (None, None, None)
     pool_args = _pool_args(t, f, pool)
     shape = (b, t, f, cout) if pool is None else (b, *pool_args[6:], cout)
-    out = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
+    out = torch.empty(shape, dtype=mxu_dtype, device=x.device)
+    mode_f32 = mxu_dtype == f32
+    # the float32 mode stages the residual weights by 16-byte loads at Cin = 1 too
     _build.require_aligned(kernel=kernel, **({"x": x} if cin > 1 else {}),
-                           **({"res_kernel": res_kernel} if res_mode == 2 and cin > 1 else {}))
+                           **({"res_kernel": res_kernel}
+                              if res_mode == 2 and (cin > 1 or mode_f32) else {}))
     ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
-    err = _build.library().conv_block_forward(
+    name = "conv_block_forward_f32" if mode_f32 else "conv_block_forward"
+    err = getattr(_build.library(), name)(
         ptr(x), ptr(kernel), ptr(scale), ptr(bias), *map(ptr, res), ptr(out),
         b, t, f, cin, cout, res_mode, int(relu), int(edge == "zero"), *pool_args,
         _build.stream(),
     )
-    _build.check(err, "conv_block_forward")
-    fused_conv_block.launches += 1
+    _build.check(err, name)
+    if mode_f32:
+        fused_conv_block.launches_f32 += 1
+    else:
+        fused_conv_block.launches += 1
     return out
 
 
 fused_conv_block.launches = 0
+fused_conv_block.launches_f32 = 0

@@ -19,8 +19,11 @@ tensors, x (B, T, F, Cin) and kernel (3, 3, Cin, Cout):
   tap over the pixels: the TPU kernel's halo layout and its offset-eye fold
   (:243-269) are not carried over.
 
-The kernels take bf16 operands; on CPU tensors the wrappers take the plain
-versions in the tensors' own dtype (operands rounded to it, float32 sums).
+The kernels take bf16 operands (tensor cores) or float32 operands (float32
+products on the CUDA cores: K4's and K9's float32 modes, counted apart as
+``launches_f32``), the dtype of x carried through the autograd Function to
+both; on CPU tensors the wrappers take the plain versions in the tensors'
+own dtype (operands rounded to it, float32 sums).
 """
 
 from __future__ import annotations
@@ -47,29 +50,38 @@ def conv3x3_dkernel_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 
 def conv3x3_dkernel(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """K9: d(kernel) (3, 3, Cin, Cout) float32 of the reflect-padded 3x3
-    conv, for x (B, T, F, Cin) and its output's cotangent dy (B, T, F, Cout)."""
+    conv, for x (B, T, F, Cin) and its output's cotangent dy (B, T, F, Cout),
+    both bf16 or both float32 (the float32 mode)."""
     if not x.is_cuda:
         return conv3x3_dkernel_plain(x, dy)
     b, t, f, cin = x.shape
     cout = dy.shape[-1]
-    _build.require(x, "x", torch.bfloat16, (b, t, f, cin))
-    _build.require(dy, "dy", torch.bfloat16, (b, t, f, cout))
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"conv3x3_dkernel takes bf16 or float32 operands, got {x.dtype}")
+    _build.require(x, "x", x.dtype, (b, t, f, cin))
+    _build.require(dy, "dy", x.dtype, (b, t, f, cout))
+    mode_f32 = x.dtype == torch.float32
+    name = "conv3x3_dkernel_f32" if mode_f32 else "conv3x3_dkernel"
     lib = _build.library()
-    nbytes = lib.conv3x3_dkernel_workspace(b, t, f, cin, cout)
+    nbytes = getattr(lib, f"{name}_workspace")(b, t, f, cin, cout)
     if nbytes < 0:
         raise ValueError(f"conv3x3_dkernel takes T, F >= 2, Cin in (1, 16, 32), Cout in "
-                         f"(16, 32) and a row of x and dy that fits in shared memory (F up to "
-                         f"~900); got x {tuple(x.shape)}, dy {tuple(dy.shape)}")
+                         f"(16, 32) and a row of x and dy that fits in shared memory; got x "
+                         f"{tuple(x.shape)}, dy {tuple(dy.shape)} ({x.dtype})")
     workspace = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
     dw = torch.empty((3, 3, cin, cout), dtype=torch.float32, device=x.device)
-    err = lib.conv3x3_dkernel(x.data_ptr(), dy.data_ptr(), workspace.data_ptr(), dw.data_ptr(),
-                              b, t, f, cin, cout, _build.stream())
-    _build.check(err, "conv3x3_dkernel")
-    conv3x3_dkernel.launches += 1
+    err = getattr(lib, name)(x.data_ptr(), dy.data_ptr(), workspace.data_ptr(), dw.data_ptr(),
+                             b, t, f, cin, cout, _build.stream())
+    _build.check(err, name)
+    if mode_f32:
+        conv3x3_dkernel.launches_f32 += 1
+    else:
+        conv3x3_dkernel.launches += 1
     return dw
 
 
 conv3x3_dkernel.launches = 0
+conv3x3_dkernel.launches_f32 = 0
 
 
 def _border_taps(line: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:

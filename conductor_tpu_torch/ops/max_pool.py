@@ -16,9 +16,12 @@ Layout: NHWC (B, T, F, C); ``pool`` is (window, strides, padding) as the
 music encoder's `POOLS` give it, padding symmetric and -inf.  The wrappers
 take the plain version for CPU tensors; on CUDA they launch the kernels
 (`csrc/max_pool.cu`: `max_pool_forward`, `max_pool_backward`) and raise on
-what those do not take (bf16 only, and only the encoder's three pools at
-C = 16 or 32, the kernels' template instances).  Each is one launch a
-call, tiled by `fwd_plan` / `bwd_plan`.
+what those do not take (bf16 or float32, and only the encoder's three pools
+at C = 16 or 32, the kernels' template instances).  Each is one launch a
+call, tiled by `fwd_plan` / `bwd_plan` for the element size: a thread owns
+16 bytes, 8 bf16 or 4 float32 channels, so float32 rows take twice the
+threads and are cut into column chunks sooner.  The float32 mode's
+launches are counted apart (``launches_f32``).
 """
 
 from __future__ import annotations
@@ -92,6 +95,14 @@ def max_pool_bwd_plain(x: torch.Tensor, dy: torch.Tensor, pool) -> torch.Tensor:
     return dx.reshape(x.shape).to(x.dtype)
 
 
+def _blocks_per_sm(bound: int, threads: int, smem: int) -> int:
+    """Resident blocks an SM of ``threads`` threads and ``smem`` shared bytes
+    each: the launch bounds' ``bound`` blocks of MAX_THREADS in threads, at
+    most what the SM's shared memory holds (1 KB of it reserved a block;
+    a narrow float32 block's -inf pad columns can bind)."""
+    return max(1, min(bound * MAX_THREADS // threads, SMEM_PER_SM // (smem + 1024)))
+
+
 def _first_cover(i: int, w: int, s: int, p: int) -> int:
     """The first window (output index) covering input index ``i``."""
     n = i + p - w + 1
@@ -106,11 +117,18 @@ def _span(lo: int, hi: int, n_in: int, n_out: int, w: int, s: int, p: int) -> tu
     return lo, hi, o0, o1, max(0, o0 * s - p), min(n_in, o1 * s - p + w)
 
 
-def bwd_plan(shape, pool, *, rows: int | None = None, sms: int = H100_SMS) -> dict:
-    """K11's tiling of an input of ``shape`` (B, T, F, C) for ``pool``: a
-    block owns ``rows`` input rows of one clip (chosen here, a multiple of
-    the time stride, unless given) and ``cols`` columns (all F when F C / 8
-    vectors fit in one block), one thread a staged 8-channel column vector.
+def _vectors(c: int, esize: int) -> int:
+    """16-byte vectors of a (t, f) of C channels of ``esize`` bytes."""
+    return c * esize // 16
+
+
+def bwd_plan(shape, pool, *, rows: int | None = None, sms: int = H100_SMS,
+             esize: int = 2) -> dict:
+    """K11's tiling of an input of ``shape`` (B, T, F, C) of ``esize``-byte
+    elements (2: bf16, 4: float32) for ``pool``: a block owns ``rows`` input
+    rows of one clip (chosen here, a multiple of the time stride, unless
+    given) and ``cols`` columns (all F when the row's F C esize / 16 vectors
+    fit in one block), one thread a staged 16-byte column vector.
     ``row_tiles`` / ``col_chunks``: each tile's owned range, the windows
     covering it (recomputed where they reach past its edge) and the input
     range those windows read, which the block stages, per axis: (lo, hi, o0,
@@ -121,12 +139,13 @@ def bwd_plan(shape, pool, *, rows: int | None = None, sms: int = H100_SMS) -> di
     b, t, f, c = shape
     (wt, wf), (st, sf), ((pt, _), (pf, _)) = pool
     to, fo = pooled_size(t, wt, st, pt), pooled_size(f, wf, sf, pf)
-    v = c // 8
+    v = _vectors(c, esize)
     cols = f if f * v <= MAX_THREADS else MAX_THREADS // v - 2 * (wf - 1)
     col_chunks = [_span(q, min(f, q + cols), f, fo, wf, sf, pf) for q in range(0, f, cols)]
     threads = max(max(x1 - x0, o1 - o0 + 1) * v for _, _, o0, o1, x0, x1 in col_chunks)
     threads = min(MAX_THREADS, -(-threads // 32) * 32)
-    per_sm = max(1, BWD_BLOCKS_PER_SM * MAX_THREADS // threads)
+    smem = ((_ring_rows(wt, st) + 4) * threads + 2 * pf * v) * 16
+    per_sm = _blocks_per_sm(BWD_BLOCKS_PER_SM, threads, smem)
 
     def tiles(r):
         return [_span(lo, min(t, lo + r), t, to, wt, st, pt) for lo in range(0, t, r)]
@@ -143,7 +162,7 @@ def bwd_plan(shape, pool, *, rows: int | None = None, sms: int = H100_SMS) -> di
         "halo_rows": max(x1 - x0 - (hi - lo) for lo, hi, _, _, x0, x1 in row_tiles),
         "halo_cols": max(x1 - x0 - (hi - lo) for lo, hi, _, _, x0, x1 in col_chunks),
         "blocks": b * len(row_tiles) * len(col_chunks), "blocks_per_sm": per_sm,
-        "smem_bytes": ((_ring_rows(wt, st) + 4) * threads + 2 * pf * v) * 16,
+        "smem_bytes": smem,
         "smem_budget": SMEM_PER_SM // per_sm - 1024,
         "row_tiles": row_tiles, "col_chunks": col_chunks,
     }
@@ -162,12 +181,13 @@ def _fwd_span(lo: int, hi: int, n_in: int, w: int, s: int, p: int) -> tuple:
     return lo, hi, max(0, lo * s - p), min(n_in, (hi - 1) * s - p + w)
 
 
-def fwd_plan(shape, pool, *, rows: int | None = None, sms: int = H100_SMS) -> dict:
-    """K10's tiling of an input of ``shape`` (B, T, F, C) for ``pool``: a
-    block owns ``rows`` output rows (windows) of one clip (chosen here
-    unless given) and ``cols`` output columns (all Fo when the F C / 8
-    input vectors fit in one block), one thread a staged 8-channel column
-    vector.  ``row_tiles`` / ``col_chunks``: each tile's owned outputs
+def fwd_plan(shape, pool, *, rows: int | None = None, sms: int = H100_SMS,
+             esize: int = 2) -> dict:
+    """K10's tiling of an input of ``shape`` (B, T, F, C) of ``esize``-byte
+    elements for ``pool``: a block owns ``rows`` output rows (windows) of
+    one clip (chosen here unless given) and ``cols`` output columns (all Fo
+    when the row's F C esize / 16 input vectors fit in one block), one
+    thread a staged 16-byte column vector.  ``row_tiles`` / ``col_chunks``: each tile's owned outputs
     (its windows, each computed once) [lo, hi) and the input range those
     windows read [x0, x1), which the block stages, per axis: (lo, hi, x0,
     x1).  ``halo_rows`` / ``halo_cols``: the most inputs a tile stages
@@ -179,13 +199,13 @@ def fwd_plan(shape, pool, *, rows: int | None = None, sms: int = H100_SMS) -> di
     b, t, f, c = shape
     (wt, wf), (st, sf), ((pt, _), (pf, _)) = pool
     to, fo = pooled_size(t, wt, st, pt), pooled_size(f, wf, sf, pf)
-    v = c // 8
+    v = _vectors(c, esize)
     cols = fo if f * v <= MAX_THREADS else (MAX_THREADS // v - wf) // sf + 1
     col_chunks = [_fwd_span(lo, min(fo, lo + cols), f, wf, sf, pf) for lo in range(0, fo, cols)]
     threads = max(max(x1 - x0, hi - lo) * v for lo, hi, x0, x1 in col_chunks)
     threads = min(MAX_THREADS, -(-threads // 32) * 32)
     smem = (_ring_rows(wt, st) * threads + 2 * (threads + 2 * pf * v)) * 16
-    per_sm = max(1, FWD_BLOCKS_PER_SM * MAX_THREADS // threads)
+    per_sm = _blocks_per_sm(FWD_BLOCKS_PER_SM, threads, smem)
 
     def tiles(r):
         return [_fwd_span(lo, min(to, lo + r), t, wt, st, pt) for lo in range(0, to, r)]
@@ -211,17 +231,18 @@ def fwd_plan(shape, pool, *, rows: int | None = None, sms: int = H100_SMS) -> di
 KERNEL_FWD_PLAN_KEYS = ("blocks", "smem_bytes", "row_tiles", "col_chunks")
 
 
-def kernel_fwd_plan(shape, pool, rows: int, cols: int, threads: int) -> dict:
-    """What K10's launch with this tiling runs (`csrc/max_pool.cu`
-    `max_pool_fwd_plan`, from the kernel's own span formula), under
-    `fwd_plan`'s names ``KERNEL_FWD_PLAN_KEYS``; needs the built library."""
+def kernel_fwd_plan(shape, pool, rows: int, cols: int, threads: int, esize: int = 2) -> dict:
+    """What K10's launch with this tiling runs on ``esize``-byte elements
+    (`csrc/max_pool.cu` `max_pool_fwd_plan`, from the kernel's own span
+    formula), under `fwd_plan`'s names ``KERNEL_FWD_PLAN_KEYS``; needs the
+    built library."""
     b, t, f, c = shape
     (wt, wf), (st, sf), ((pt, _), (pf, _)) = pool
     to, fo = pooled_size(t, wt, st, pt), pooled_size(f, wf, sf, pf)
     n_tiles = -(-to // rows) + -(-fo // cols)
     out = (ctypes.c_int * (4 + 4 * n_tiles))()
     err = _build.library().max_pool_fwd_plan(b, t, f, c, to, fo, wt, wf, st, sf, pt, pf, rows,
-                                             cols, threads, out, len(out))
+                                             cols, threads, int(esize == 4), out, len(out))
     _build.check(err, "max_pool_fwd_plan")
     spans = [tuple(out[4 + 4 * i:8 + 4 * i]) for i in range(n_tiles)]
     return {"blocks": out[0], "smem_bytes": out[1], "row_tiles": spans[:out[2]],
@@ -229,17 +250,22 @@ def kernel_fwd_plan(shape, pool, rows: int, cols: int, threads: int) -> dict:
 
 
 @functools.lru_cache(maxsize=64)
-def _cached_plan(kind, shape, pool, sms):
-    plan = (fwd_plan if kind == "fwd" else bwd_plan)(shape, pool, sms=sms)
+def _cached_plan(kind, shape, pool, sms, esize):
+    plan = (fwd_plan if kind == "fwd" else bwd_plan)(shape, pool, sms=sms, esize=esize)
     return plan["rows"], plan["cols"], plan["threads"]
+
+
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # the kernels' two modes
 
 
 def _kernel_geometry(x: torch.Tensor, pool, name: str) -> tuple[int, ...]:
     """`_geometry` of a pool the kernels take; raises on any other."""
     geometry = _geometry(x, pool)
-    if x.shape[-1] not in KERNEL_CHANNELS or geometry[:6] not in KERNEL_POOLS:
+    if (x.shape[-1] not in KERNEL_CHANNELS or geometry[:6] not in KERNEL_POOLS
+            or x.dtype not in KERNEL_DTYPES):
         raise ValueError(f"{name} kernel takes the music encoder's pools at C in "
-                         f"{KERNEL_CHANNELS}, got C={x.shape[-1]}, pool {pool}")
+                         f"{KERNEL_CHANNELS}, bf16 or float32, got C={x.shape[-1]}, pool {pool}, "
+                         f"{x.dtype}")
     return geometry
 
 
@@ -257,14 +283,18 @@ def _fwd_launch(x, geometry, rows, cols, threads) -> torch.Tensor:
     """K10 on ``geometry`` (`_fwd_geometry`) with a tiling of `fwd_plan`."""
     b, t, f, c = x.shape
     wt, wf, st, sf, pt, pf, to, fo = geometry
-    _build.require(x, "x", torch.bfloat16, (b, t, f, c))
+    _build.require(x, "x", x.dtype, (b, t, f, c))
     _build.require_aligned(x=x)
-    out = torch.empty((b, to, fo, c), dtype=torch.bfloat16, device=x.device)
+    mode_f32 = x.dtype == torch.float32
+    out = torch.empty((b, to, fo, c), dtype=x.dtype, device=x.device)
     err = _build.library().max_pool_forward(
         x.data_ptr(), out.data_ptr(), b, t, f, c, to, fo, wt, wf, st, sf, pt, pf, rows, cols,
-        threads, _build.stream())
+        threads, int(mode_f32), _build.stream())
     _build.check(err, "max_pool_forward")
-    fused_max_pool.launches += 1
+    if mode_f32:
+        fused_max_pool.launches_f32 += 1
+    else:
+        fused_max_pool.launches += 1
     return out
 
 
@@ -273,23 +303,28 @@ def fused_max_pool(x: torch.Tensor, pool) -> torch.Tensor:
     if not x.is_cuda:
         return max_pool_plain(x, pool)
     geometry = _fwd_geometry(x, pool)
-    return _fwd_launch(x, geometry,
-                       *_cached_plan("fwd", tuple(x.shape), pool, _build.sm_count(x.device.index)))
+    return _fwd_launch(x, geometry, *_cached_plan("fwd", tuple(x.shape), pool,
+                                                  _build.sm_count(x.device.index),
+                                                  x.element_size()))
 
 
 def _bwd_launch(x, dy, geometry, rows, cols, threads) -> torch.Tensor:
     """K11 on ``geometry`` (`_bwd_geometry`) with a tiling of `bwd_plan`."""
     b, t, f, c = x.shape
     wt, wf, st, sf, pt, pf, to, fo = geometry
-    _build.require(x, "x", torch.bfloat16, (b, t, f, c))
-    _build.require(dy, "dy", torch.bfloat16, (b, to, fo, c))
+    _build.require(x, "x", x.dtype, (b, t, f, c))
+    _build.require(dy, "dy", x.dtype, (b, to, fo, c))
     _build.require_aligned(x=x, dy=dy)
+    mode_f32 = x.dtype == torch.float32
     dx = torch.empty_like(x)
     err = _build.library().max_pool_backward(
         x.data_ptr(), dy.data_ptr(), dx.data_ptr(), b, t, f, c, to, fo, wt, wf, st, sf, pt, pf,
-        rows, cols, threads, _build.stream())
+        rows, cols, threads, int(mode_f32), _build.stream())
     _build.check(err, "max_pool_backward")
-    max_pool_bwd.launches += 1
+    if mode_f32:
+        max_pool_bwd.launches_f32 += 1
+    else:
+        max_pool_bwd.launches += 1
     return dx
 
 
@@ -299,12 +334,15 @@ def max_pool_bwd(x: torch.Tensor, dy: torch.Tensor, pool) -> torch.Tensor:
     if not x.is_cuda:
         return max_pool_bwd_plain(x, dy, pool)
     geometry = _bwd_geometry(x, pool)
-    return _bwd_launch(x, dy, geometry,
-                       *_cached_plan("bwd", tuple(x.shape), pool, _build.sm_count(x.device.index)))
+    return _bwd_launch(x, dy, geometry, *_cached_plan("bwd", tuple(x.shape), pool,
+                                                      _build.sm_count(x.device.index),
+                                                      x.element_size()))
 
 
 fused_max_pool.launches = 0
+fused_max_pool.launches_f32 = 0
 max_pool_bwd.launches = 0
+max_pool_bwd.launches_f32 = 0
 
 
 class _MaxPoolTrain(torch.autograd.Function):

@@ -451,8 +451,10 @@ def require_device(device: torch.device | str) -> torch.device:
 def _check_training_config(cfg: Config, device: torch.device | str) -> None:
     """Raise on the training options the port does not run on ``device``:
     the gating of the fused layers (`conductor_tpu/train/ddpm_trainer.py:
-    119-125`), the ST-GCN kernel's bf16 operands on CUDA, and the modes not
-    ported yet (denoiser dropout among them)."""
+    119-125`), the kernels whose float32 mode is not ported on CUDA (K1 / K2
+    and K5 / K6, the fused layers; K7, the perceptual ST-GCN: see
+    `_check_float32_kernels`), and the modes not ported yet (denoiser
+    dropout among them)."""
     d, tc = cfg.denoiser, cfg.train
     if d.train_layer_impl not in ("flax", "pallas_fused"):
         raise ValueError(f"unknown train_layer_impl: {d.train_layer_impl}")
@@ -463,13 +465,34 @@ def _check_training_config(cfg: Config, device: torch.device | str) -> None:
                          "the full src_mask (replicate_reference_mask off)")
     if tc.feat_impl not in ("flax", "pallas"):
         raise ValueError(f"unknown feat_impl: {tc.feat_impl}")
-    if (tc.feat_impl == "pallas" and torch.device(device).type == "cuda"
-            and d.compute_dtype != "bfloat16"):
-        raise ValueError("feat_impl='pallas' on CUDA runs the ST-GCN kernel, which takes bf16 "
-                         f"operands; compute_dtype is {d.compute_dtype}")
+    _check_float32_kernels(cfg, device)
     if tc.timestep_sampler not in ("uniform", "loss-second-moment"):
         raise ValueError(f"unknown timestep sampler: {tc.timestep_sampler}")
     if d.dropout != 0.0:
         raise NotImplementedError("denoiser dropout is not ported (the default is 0)")
     if cfg.diffusion.loss_type not in ("mse", "rescaled_mse"):
         raise NotImplementedError(f"loss_type {cfg.diffusion.loss_type!r} is not ported")
+
+
+def _check_float32_kernels(cfg: Config, device: torch.device | str) -> None:
+    """A float32 config on CUDA runs only the kernels whose float32 mode is
+    ported: K4 (the music encoder, ``music_encoder_impl="pallas"``), K3 and
+    K8.  Raise, naming each kernel the config would launch without a
+    float32 mode (K1 / K2, K5 / K6, K7) and the knobs that run today, rather
+    than fail in a wrapper at the first call."""
+    d, tc = cfg.denoiser, cfg.train
+    if torch.device(device).type != "cuda" or d.compute_dtype != "float32":
+        return
+    unported = [name for name, used in (
+        ("K1 / K2, the fused sampler (layer_impl='pallas_fused')", d.layer_impl == "pallas_fused"),
+        ("K5 / K6, the fused training layers (train_layer_impl='pallas_fused')",
+         d.train_layer_impl == "pallas_fused"),
+        ("K7, the perceptual ST-GCN (feat_impl='pallas')", tc.feat_impl == "pallas"),
+    ) if used]
+    if unported:
+        raise ValueError(
+            "compute_dtype='float32' on CUDA: the float32 mode of " + "; ".join(unported)
+            + " is not ported yet (these kernels take bf16 operands).  The float32 path that "
+            "runs today pins layer_impl='flax', train_layer_impl='flax' and feat_impl='flax', "
+            "the music encoder on K4's float32 mode (music_encoder_impl='pallas') or on the "
+            "plain module ('flax')")

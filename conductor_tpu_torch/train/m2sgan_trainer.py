@@ -34,8 +34,9 @@ The knobs and their "auto" rule are JAX's (`:50-153`), "on TPU" read as
   to float32 before it;
 - with ``train_music_encoder``, ``compute_dtype`` bf16 and
   ``music_conv_impl`` "pallas_train" (K4's training modes, K9, K10, K11,
-  `m2snet_trainer.resolve_impls`); with the encoder frozen, float32 and
-  "lax".
+  `m2snet_trainer.resolve_impls`), also on the kernels' float32 modes
+  with an explicit ``compute_dtype="float32"``; with the encoder frozen,
+  float32 and "lax".
 
 As in JAX, ``train_music_encoder`` refuses ``music_encoder_impl="pallas"``
 and ``cached_features`` (a trainable encoder's output cannot be

@@ -28,13 +28,14 @@ and one `torch.optim.Adam` step (optax's `adam`, no clipping).
 "auto" resolves per device: on CUDA to ``compute_dtype="bfloat16"`` and
 ``music_conv_impl="pallas_train"``, the music encoder on the kernels (K4 in
 its training modes, K9, K10, K11); elsewhere to "float32" and "lax", the
-plain modules.  Either dtype runs with either music path on the CPU (the
-kernels' plain versions); in bf16 every module rounds where the flax
+plain modules, as JAX's rule (`conductor_tpu/train/m2snet_trainer.py:
+65-66`).  Either dtype runs with either music path, on the CPU through the
+kernels' plain versions and on CUDA through the kernels, which take bf16
+operands (tensor cores) or float32 operands with float32 products (their
+float32 modes, CUDA cores); in bf16 every module rounds where the flax
 module's ``dtype=bfloat16`` does (`models.precision`: float32 parameters
-and BN statistics).  The kernels take bf16 operands, so an explicit
-"pallas_train" with "float32" on CUDA raises ValueError.  The step runs
-with TF32 off (`models.precision.full_float32`): float32 is float32 on the
-card too.
+and BN statistics).  The step runs with TF32 off
+(`models.precision.full_float32`): float32 is float32 on the card too.
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ def _bce(pred: torch.Tensor, target: float) -> torch.Tensor:
 def resolve_impls(compute_dtype: str, music_conv_impl: str,
                   device: torch.device) -> tuple[str, str]:
     """(compute_dtype, music_conv_impl) with "auto" resolved for
-    ``device``; raises on a pair the port does not run there."""
+    ``device``; raises on an unknown value."""
     cuda = device.type == "cuda"
     if compute_dtype == "auto":
         compute_dtype = "bfloat16" if cuda else "float32"
@@ -77,9 +78,6 @@ def resolve_impls(compute_dtype: str, music_conv_impl: str,
         raise ValueError(f"unknown compute_dtype: {compute_dtype}")
     if music_conv_impl not in ("lax", "pallas_train"):
         raise ValueError(f"unknown music_conv_impl: {music_conv_impl}")
-    if cuda and music_conv_impl == "pallas_train" and compute_dtype != "bfloat16":
-        raise ValueError("music_conv_impl='pallas_train' on CUDA runs the kernels, which take "
-                         f"bf16 operands; compute_dtype is {compute_dtype}")
     return compute_dtype, music_conv_impl
 
 

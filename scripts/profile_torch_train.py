@@ -366,8 +366,8 @@ def main() -> None:
                                                 feat_impl=args.feat,
                                                 replicate_reference_mask=args.mask))
     if args.impl == "flax":
-        cfg = cfg.replace(denoiser=DenoiserConfig(train_layer_impl="flax", attention_impl="xla",
-                                                  compute_dtype="float32"),
+        cfg = cfg.replace(denoiser=DenoiserConfig(layer_impl="flax", train_layer_impl="flax",
+                                                  attention_impl="xla", compute_dtype="float32"),
                           train=dataclasses.replace(cfg.train, feat_impl="flax"))
     tr = DDPMTrainer(cfg, device="cuda")
     kernel_path = tr.cfg.denoiser.train_layer_impl == "pallas_fused"

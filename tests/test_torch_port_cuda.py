@@ -72,6 +72,8 @@ from conductor_tpu_torch.ops import (
     reset_launch_counts,
     sampler_prologue,
 )
+from conductor_tpu_torch.models.music_encoder import FusedMusicEncoder
+from conductor_tpu_torch.models.precision import full_float32
 from conductor_tpu_torch.ops.conv_block import conv_block_plain
 from conductor_tpu_torch.ops.decoder_stack import (
     adaln_modulation,
@@ -158,15 +160,22 @@ def test_kernels_match_plain_versions(trainers):
     kernel, _, mel, noise = trainers
     motion = torch.rand(2, 96, 13, 2, device="cuda")
     s1, _, music, motion_s1 = _stage1_trainers()
-    results = check_kernels(kernel, mel, noise, reps=1) + check_train_kernels(
-        kernel, mel, motion, reps=1) + check_stgcn_kernels(
-        kernel.feat_model, kernel.feat_pack, getattr(torch, kernel.cfg.denoiser.compute_dtype),
-        *perceptual_inputs(kernel, mel, motion), reps=1) + check_stage1_kernels(
-        *stage1_kernel_inputs(s1, music, motion_s1, (0, 120)), reps=1)
+    s1_f32 = M2SNetTrainer(sample_length=6, clip_length=2, compute_dtype="float32",
+                           music_conv_impl="pallas_train", device="cuda")
+    s1_f32.load_reference_state_dict(s1.state_dict()["model"])
+    with full_float32():  # the plain versions' float32 convs without TF32
+        results = check_kernels(kernel, mel, noise, reps=1) + check_train_kernels(
+            kernel, mel, motion, reps=1) + check_stgcn_kernels(
+            kernel.feat_model, kernel.feat_pack, getattr(torch, kernel.cfg.denoiser.compute_dtype),
+            *perceptual_inputs(kernel, mel, motion), reps=1) + check_stage1_kernels(
+            *stage1_kernel_inputs(s1, music, motion_s1, (0, 120)), reps=1) + check_stage1_kernels(
+            *stage1_kernel_inputs(s1_f32, music, motion_s1, (0, 120)), reps=1)
+        results.append(check_conv_blocks(
+            FusedMusicEncoder(kernel.model.music_encoder, torch.float32), mel, reps=1))
     q, k, v = (torch.randn(2, 96, 128, device="cuda").to(torch.bfloat16) for _ in range(3))
     results.append(check_attention_kernel(q, k, v, torch.ones(2, 96, 1, device="cuda"), 8, reps=1))
-    assert {r["name"] for r in results} - {"conv_block_train"} == set(launch_counts()) | {
-        "adaln_modulation", "adaln_modulation_int8"}
+    assert {r["name"] for r in results} - {"conv_block_train", "conv_block_train_f32"} == set(
+        launch_counts()) | {"adaln_modulation", "adaln_modulation_int8"}
     for r in results:
         assert r["ok"], r
         assert r["bound_ms"] > 0 and r["bound_by"] in ("bytes", "operations"), r
@@ -177,9 +186,12 @@ def _rand(*shape, gen):
 
 
 def _check_conv_block(x, cout, *, gen, res_mode=0, affine=True, **kw):
-    """K4 on ``x`` with seeded weights against its plain version: within
-    2 % of the plain output's largest value (REL_TOL), and a repeat
-    bit-identical.  Returns the plain output (float32)."""
+    """K4 on ``x`` with seeded weights against its plain version in x's
+    dtype (bf16, or the float32 mode): within 2 % of the plain output's
+    largest value (REL_TOL) in bf16, 1e-4 (F32_REL_TOL) in float32, and a
+    repeat bit-identical.  Returns the plain output (float32)."""
+    kw = dict(kw, mxu_dtype=x.dtype)
+    tol = 1e-4 if x.dtype == torch.float32 else 0.02
     cin = x.shape[-1]
     args = dict(kernel=_rand(3, 3, cin, cout, gen=gen) * 0.2,
                 scale=_rand(cout, gen=gen) * 0.2 + 1 if affine else torch.ones(cout, device="cuda"),
@@ -188,23 +200,28 @@ def _check_conv_block(x, cout, *, gen, res_mode=0, affine=True, **kw):
         args.update(res_kernel=_rand(cin, cout, gen=gen) * 0.2,
                     res_scale=_rand(cout, gen=gen) * 0.2 + 1, res_bias=_rand(cout, gen=gen) * 0.1)
     got = fused_conv_block(x, res_mode=res_mode, **args, **kw)
-    want = conv_block_plain(x, res_mode=res_mode, **args, **kw)
-    assert got.shape == want.shape and got.dtype == torch.bfloat16
-    assert float((got.float() - want.float()).abs().max()) <= 0.02 * float(want.float().abs().max())
+    with full_float32():  # cuDNN's float32 conv is TF32 by default
+        want = conv_block_plain(x, res_mode=res_mode, **args, **kw)
+    assert got.shape == want.shape and got.dtype == x.dtype
+    assert float((got.float() - want.float()).abs().max()) <= tol * float(want.float().abs().max())
     assert torch.equal(got, fused_conv_block(x, res_mode=res_mode, **args, **kw))
     return want.float()
 
 
+DTYPES = [torch.bfloat16, torch.float32]  # the stage-1 kernels' two modes
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("edge", ["reflect", "zero"])
 @pytest.mark.parametrize("cin,cout,f", [(1, 16, 128), (16, 32, 64), (32, 16, 64), (32, 32, 32)])
-def test_conv_block_training_modes(cin, cout, f, edge):
+def test_conv_block_training_modes(cin, cout, f, edge, dtype):
     """K4 with relu off, identity affine and no residual, reflect or zero
     edge: the trainable conv's forward and the interior of its transposed
-    conv; a repeat bit-identical."""
+    conv, in bf16 and in the float32 mode; a repeat bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(cin + cout)
-    x = _rand(2, 30, f, cin, gen=gen).to(torch.bfloat16)
+    x = _rand(2, 30, f, cin, gen=gen).to(dtype)
     want = _check_conv_block(x, cout, gen=gen, affine=False, relu=False, edge=edge)
     assert float(want.min()) < 0  # the ReLU is off
 
@@ -242,14 +259,15 @@ POOLS = [((5, 5), (1, 2), ((2, 2), (2, 2))), ((5, 5), (3, 2), ((2, 2), (2, 2))),
     (32, 32, 32, 37, 2, 0, None, False, "zero"),
     (16, 16, 8, 2, 3, 0, None, False, "zero"),
 ])
-def test_conv_block_modes_and_shapes(cin, cout, f, t, b, res_mode, pool, relu, edge):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_conv_block_modes_and_shapes(cin, cout, f, t, b, res_mode, pool, relu, edge, dtype):
     """K4 in every residual mode, with and without each pool, and in the
-    training modes, at ragged shapes, against its plain version; a repeat
-    bit-identical."""
+    training modes, at ragged shapes, against its plain version, in bf16
+    and in the float32 mode; a repeat bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(cin * cout + f + t)
-    x = _rand(b, t, f, cin, gen=gen).to(torch.bfloat16)
+    x = _rand(b, t, f, cin, gen=gen).to(dtype)
     _check_conv_block(x, cout, gen=gen, res_mode=res_mode, pool=pool, relu=relu, edge=edge,
                       affine=relu)
 
@@ -285,17 +303,21 @@ def test_conv_block_pooled_call_allocates_no_conv_output():
     # F not a multiple of 16
     (32, 16, 18, 37, 2), (1, 32, 18, 11, 2),
 ])
-def test_conv3x3_dkernel_matches_plain(cin, cout, f, t, b):
-    """K9 against the d(kernel) sum written out, bf16 operands on both sides;
-    the products are exact in float32, so only the order of the sums differs."""
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_conv3x3_dkernel_matches_plain(cin, cout, f, t, b, dtype):
+    """K9 against the d(kernel) sum written out, bf16 operands on both sides
+    (the products exact in float32, so only the order of the sums differs:
+    within 1e-3 of the largest value), or float32 (the float32 mode: within
+    1e-4, F32_REL_TOL)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(cin * cout + f)
-    x = _rand(b, t, f, cin, gen=gen).to(torch.bfloat16)
-    dy = _rand(b, t, f, cout, gen=gen).to(torch.bfloat16)
+    x = _rand(b, t, f, cin, gen=gen).to(dtype)
+    dy = _rand(b, t, f, cout, gen=gen).to(dtype)
     got, want = conv3x3_dkernel(x, dy), conv3x3_dkernel_plain(x, dy)
     assert got.shape == (3, 3, cin, cout)
-    assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+    tol = 1e-4 if dtype == torch.float32 else 1e-3
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
     assert torch.equal(got, conv3x3_dkernel(x, dy))  # deterministic
 
 
@@ -313,26 +335,29 @@ def test_conv3x3_dkernel_matches_plain(cin, cout, f, t, b):
     # the stage-1 stride-3 pool at C = 16, the stride-1 5x5 one at C = 32
     (POOLS[1], 16, 128, 37, 1), (POOLS[0], 32, 64, 31, 1),
 ])
-def test_max_pool_kernels(pool, c, f, t, b):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_max_pool_kernels(pool, c, f, t, b, dtype):
     """K10 exact against the plain pool; K11 exact against the plain
     first-max routing on tied inputs (post-ReLU plateaus rounded to a
     coarse grid, a cotangent whose sums are exact in any order), and
     conservative (sum dx == sum dy); on random inputs within REL_TOL of the
-    plain version's largest value, a repeat bit-identical."""
+    plain version's largest value in bf16, 1e-6 (K11_F32_REL_TOL) in the
+    float32 mode, a repeat bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(c + t + f)
-    x = _rand(b, t, f, c, gen=gen).to(torch.bfloat16)
+    x = _rand(b, t, f, c, gen=gen).to(dtype)
     assert torch.equal(fused_max_pool(x, pool), max_pool_plain(x, pool))
-    tied = (torch.relu(x.float()) * 2).round().div(2).to(torch.bfloat16)
+    tied = (torch.relu(x.float()) * 2).round().div(2).to(dtype)
     y = fused_max_pool(tied, pool)
-    dy = (torch.randint(-8, 9, y.shape, generator=gen, device="cuda") / 4).to(torch.bfloat16)
+    dy = (torch.randint(-8, 9, y.shape, generator=gen, device="cuda") / 4).to(dtype)
     got = max_pool_bwd(tied, dy, pool)
     assert torch.equal(got, max_pool_bwd_plain(tied, dy, pool))
     assert float(got.float().sum()) == float(dy.float().sum())
-    dy = _rand(*y.shape, gen=gen).to(torch.bfloat16)
+    dy = _rand(*y.shape, gen=gen).to(dtype)
     got, want = max_pool_bwd(x, dy, pool), max_pool_bwd_plain(x, dy, pool)
-    assert float((got.float() - want.float()).abs().max()) <= 0.02 * float(want.float().abs().max())
+    tol = 1e-6 if dtype == torch.float32 else 0.02
+    assert float((got.float() - want.float()).abs().max()) <= tol * float(want.float().abs().max())
     assert torch.equal(got, max_pool_bwd(x, dy, pool))
 
 
@@ -418,6 +443,41 @@ def test_m2snet_step_kernel_path_matches_plain_path(share_encodes, monkeypatch):
         assert abs(float(mk["loss"]) - float(mp["loss"])) <= 3e-2 * abs(float(mp["loss"]))
 
 
+def test_m2snet_float32_step_on_the_kernels_matches_plain_path():
+    """Two B = 2 stage-1 steps in float32 on the kernels' float32 modes
+    ("pallas_train") against the plain float32 "lax" path from the same
+    weights and starts: the loss within 1e-4 relative (the JAX package's
+    lax / packed bound, tests/test_conv_train.py:314) at the first step
+    and 1e-3 at the second, every parameter within 5e-3 after the first
+    (tests/test_conv_train.py:324); K4, K9, K10 and K11 launched in their
+    float32 modes only (K4 13, K9 7, K10 3 and K11 3 times a forward and
+    backward: 52 / 28 / 12 / 12 a step)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    _, plain, music, motion = _stage1_trainers()
+    kernel = M2SNetTrainer(sample_length=6, clip_length=2, compute_dtype="float32",
+                           music_conv_impl="pallas_train", device="cuda")
+    kernel.load_reference_state_dict(plain.state_dict()["model"])
+    for i, starts in enumerate(((0, 120), (10, 150))):
+        reset_launch_counts()
+        mk = kernel.train_step(music, motion, "hard", starts=starts)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert {k: counts[k] for k in ("conv_block_f32", "conv3x3_dkernel_f32", "max_pool_f32",
+                                       "max_pool_bwd_f32")} == {
+            "conv_block_f32": 52, "conv3x3_dkernel_f32": 28, "max_pool_f32": 12,
+            "max_pool_bwd_f32": 12}, counts
+        assert not any(counts[k] for k in ("conv_block", "conv3x3_dkernel", "max_pool",
+                                           "max_pool_bwd")), counts
+        mp = plain.train_step(music, motion, "hard", starts=starts)
+        tol = 1e-4 if i == 0 else 1e-3
+        assert abs(float(mk["loss"]) - float(mp["loss"])) <= tol * abs(float(mp["loss"]))
+        if i == 0:
+            for (name, a), b in zip(kernel.model.state_dict().items(),
+                                    plain.model.state_dict().values()):
+                assert float((a.float() - b.float()).abs().max()) <= 5e-3, name
+
+
 def test_generate_kernel_path_matches_plain_path(trainers):
     kernel, plain, mel, noise = trainers
     reset_launch_counts()
@@ -428,7 +488,9 @@ def test_generate_kernel_path_matches_plain_path(trainers):
                       "sampler_prologue": 5, "sampler_prologue_int8": 0, "sampler_epilogue": 5,
                       "conv_block": 7, "decoder_layer": 0, "decoder_layer_bwd": 0,
                       "stgcn_forward": 0, "stgcn_backward": 0, "conv3x3_dkernel": 0,
-                      "max_pool": 0, "max_pool_bwd": 0, "linear_attention": 0}
+                      "max_pool": 0, "max_pool_bwd": 0, "linear_attention": 0,
+                      "conv_block_f32": 0, "conv3x3_dkernel_f32": 0, "max_pool_f32": 0,
+                      "max_pool_bwd_f32": 0}
     ref = plain.generate(mel, num_steps=5, noise=noise)
     assert out.shape == (2, 96, 26) and bool(torch.isfinite(out).all())
     assert float((out - ref).abs().max()) <= 0.03 * float(ref.abs().max())

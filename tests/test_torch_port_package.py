@@ -16,7 +16,13 @@ import pytest
 import torch
 
 from conductor_tpu_torch import DDPMTrainer, M2SGANTrainer, M2SNetTrainer
-from conductor_tpu_torch.config import Config, DenoiserConfig, DiffusionConfig, resolve_auto
+from conductor_tpu_torch.config import (
+    Config,
+    DenoiserConfig,
+    DiffusionConfig,
+    TrainConfig,
+    resolve_auto,
+)
 from conductor_tpu_torch.interop import reference_state_dict, synthetic_state_dict
 from conductor_tpu_torch.models.stgcn import MotionEncoderSTGCN
 from conductor_tpu_torch.ops import (
@@ -158,6 +164,8 @@ def test_wrappers_take_the_plain_path_on_cpu():
     fused_frozen_stgcn(motion, pack_frozen_stgcn(MotionEncoderSTGCN().eval())).sum().backward()
     assert motion.grad is not None
     fused_conv_block(t(1, 6, 16, 16), t(3, 3, 16, 16), t(16), t(16), relu=False, edge="zero")
+    fused_conv_block(t(1, 6, 16, 16), t(3, 3, 16, 16), t(16), t(16), res_mode=1,
+                     pool=((3, 3), (1, 2), ((1, 1), (1, 1))), mxu_dtype=torch.float32)
     conv3x3_dkernel(t(1, 6, 16, 16), t(1, 6, 16, 32))
     pool = ((5, 5), (1, 2), ((2, 2), (2, 2)))
     x = t(1, 6, 16, 16)
@@ -178,7 +186,9 @@ def test_wrappers_take_the_plain_path_on_cpu():
                                "decoder_layer": 0, "decoder_layer_bwd": 0,
                                "stgcn_forward": 0, "stgcn_backward": 0,
                                "conv3x3_dkernel": 0, "max_pool": 0, "max_pool_bwd": 0,
-                               "linear_attention": 0}
+                               "linear_attention": 0, "conv_block_f32": 0,
+                               "conv3x3_dkernel_f32": 0, "max_pool_f32": 0,
+                               "max_pool_bwd_f32": 0}
 
 
 def test_auto_resolution():
@@ -239,22 +249,53 @@ def test_m2snet_trainer_unported_options_raise(kwargs, error):
 
 def test_m2snet_trainer_resolves_auto_and_defers():
     """"auto" is the kernel path on CUDA (bf16, "pallas_train") and the
-    plain one elsewhere; the kernels take bf16 operands, so an explicit
-    "pallas_train" with float32 is refused on CUDA (checked where no card
-    is needed) and runs the plain versions on the CPU.  The options once
-    deferred run: recalibration refuses only an empty list, the evaluator
-    takes the trainer."""
+    plain one elsewhere; the kernels have a float32 mode, so an explicit
+    "pallas_train" with float32 is accepted on CUDA, as in JAX (checked
+    where no card is needed), and runs the plain versions on the CPU.  The
+    options once deferred run: recalibration refuses only an empty list,
+    the evaluator takes the trainer."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     assert resolve_impls("auto", "auto", cuda) == ("bfloat16", "pallas_train")
     assert resolve_impls("auto", "auto", cpu) == ("float32", "lax")
-    with pytest.raises(ValueError, match="bf16"):
-        resolve_impls("float32", "pallas_train", cuda)
+    assert resolve_impls("float32", "pallas_train", cuda) == ("float32", "pallas_train")
     assert resolve_impls("float32", "pallas_train", cpu) == ("float32", "pallas_train")
     tr = M2SNetTrainer(sample_length=6, clip_length=2, device="cpu")
     assert (tr.compute_dtype, tr.music_conv_impl) == ("float32", "lax")
     with pytest.raises(ValueError, match="at least one batch"):
         tr.recalibrate_batch_stats([])
     assert M2SNetEvaluator(tr).trainer is tr
+
+
+@pytest.mark.parametrize("denoiser,feat_impl,names", [
+    # "auto" on CUDA: the fused sampler and training layers ("auto" puts
+    # the perceptual term on K7 only in bf16)
+    ({}, "auto", ("K1 / K2", "K5 / K6")),
+    (dict(train_layer_impl="flax"), "flax", ("K1 / K2",)),
+    (dict(layer_impl="flax"), "flax", ("K5 / K6",)),
+    (dict(layer_impl="flax", train_layer_impl="flax"), "pallas", ("K7",)),
+])
+def test_float32_config_on_unported_kernels_raises_at_construction(denoiser, feat_impl, names):
+    """A float32 config that resolves on CUDA to a kernel whose float32 mode
+    is not ported (K1 / K2, K5 / K6, K7) is refused where the trainer is
+    built, naming those kernels and the knobs that run (checked where no
+    card is needed, as `_check_training_config` takes the device); the
+    float32 path on K4's float32 mode and the plain layers passes, and the
+    CPU takes every knob."""
+    from conductor_tpu_torch.train.ddpm_trainer import _check_training_config
+
+    cfg = Config(denoiser=DenoiserConfig(compute_dtype="float32", **denoiser),
+                 train=TrainConfig(feat_impl=feat_impl))
+    with pytest.raises(ValueError, match="float32 mode of") as err:
+        _check_training_config(resolve_auto(cfg, "cuda"), torch.device("cuda"))
+    assert all(name in str(err.value) for name in names), str(err.value)
+    assert all(name not in str(err.value)
+               for name in {"K1 / K2", "K5 / K6", "K7"} - set(names)), str(err.value)
+    assert "layer_impl='flax'" in str(err.value)
+    _check_training_config(resolve_auto(cfg, "cpu"), torch.device("cpu"))
+    runs = Config(denoiser=DenoiserConfig(compute_dtype="float32", layer_impl="flax",
+                                          train_layer_impl="flax", music_encoder_impl="pallas"),
+                  train=TrainConfig(feat_impl="flax"))
+    _check_training_config(resolve_auto(runs, "cuda"), torch.device("cuda"))
 
 
 @pytest.mark.parametrize("field,value", [("sampler_adaln_int8", True),
@@ -335,3 +376,22 @@ def test_float32_steps_run_without_tf32_and_restore_the_flags(make, monkeypatch)
     step()
     assert seen and set(seen) == {(False, False)}
     assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+
+
+def test_bound_prices_products_at_the_rate_of_their_type():
+    """`kernel_checks.bound` prices a float32 product at the card's float32
+    rate outside the tensor cores (67 TFLOP/s: K4's and K9's float32
+    modes), a bf16 one at the bf16 tensor-core rate (989 TFLOP/s) as
+    before, and int8 at 1,979 TOP/s; bytes at 3.35 TB/s."""
+    from conductor_tpu_torch.kernel_checks import bound
+
+    x = torch.zeros(1024)  # 4 KB: far below the products' time
+    f32 = bound([x], [], 67 * 10**9, product_dtype=torch.float32)
+    bf16 = bound([x], [], 989 * 10**9)
+    int8 = bound([x], [], 1979 * 10**9, int8_ops=1979 * 10**9)
+    for r in (f32, bf16, int8):
+        assert r["ops_ms"] == pytest.approx(1.0) and r["bound_by"] == "operations"
+        assert r["bound_ms"] == r["ops_ms"]
+    assert bound([x], [], 989 * 10**9, product_dtype=torch.bfloat16) == bf16
+    mem = bound([torch.zeros(3350 * 10**3 // 4)], [], 0, product_dtype=torch.float32)
+    assert mem["bytes_ms"] == pytest.approx(1e-3) and mem["bound_by"] == "bytes"

@@ -8,9 +8,10 @@ K10: the tiles' owned output rows (and columns) cover the output exactly
 once, each window computed by one tile, and a tile stages exactly the
 input rows (columns) its windows read.  Both: a block's threads cover its
 staged column vectors and its windows; the shared bytes fit the budget the
-plan states.  The kernels (`csrc/max_pool.cu`, `pool_fwd_kernel`,
-`pool_bwd_kernel`) derive each block's ranges by the same formulas from
-its block index."""
+plan states.  Each at both element sizes, 2 bytes (bf16) and 4 (the
+float32 mode: 4 channels a 16-byte vector, twice the vectors a row).  The
+kernels (`csrc/max_pool.cu`, `pool_fwd_kernel`, `pool_bwd_kernel`) derive
+each block's ranges by the same formulas from its block index."""
 
 import pytest
 
@@ -37,16 +38,17 @@ def _check_axis(spans, n_in, window, stride, pad):
         assert (min(read), max(read) + 1) == (x0, x1)
 
 
+@pytest.mark.parametrize("esize", [2, 4])
 @pytest.mark.parametrize("c", [16, 32])
 @pytest.mark.parametrize("name", sorted(POOLS))
-def test_bwd_plan_covers_the_input_once_and_stages_what_its_windows_read(name, c):
+def test_bwd_plan_covers_the_input_once_and_stages_what_its_windows_read(name, c, esize):
     pool = POOLS[name]
     (wt, wf), (st, sf), ((pt, _), (pf, _)) = pool
-    v = c // 8
+    v = c * esize // 16
     for t in TS:
         for f in FS:
             for b in (1, 10):
-                plan = bwd_plan((b, t, f, c), pool)
+                plan = bwd_plan((b, t, f, c), pool, esize=esize)
                 rows, cols, threads = plan["rows"], plan["cols"], plan["threads"]
                 assert rows % st == 0 and cols >= 1
                 _check_axis(plan["row_tiles"], t, wt, st, pt)
@@ -91,16 +93,17 @@ def _check_fwd_axis(spans, per, n_in, window, stride, pad):
         assert (min(read), max(read) + 1) == (x0, x1), (lo, hi, x0, x1)
 
 
+@pytest.mark.parametrize("esize", [2, 4])
 @pytest.mark.parametrize("c", [16, 32])
 @pytest.mark.parametrize("name", sorted(POOLS))
-def test_fwd_plan_covers_each_output_once_and_stages_what_its_windows_read(name, c):
+def test_fwd_plan_covers_each_output_once_and_stages_what_its_windows_read(name, c, esize):
     pool = POOLS[name]
     (wt, wf), (st, sf), ((pt, _), (pf, _)) = pool
-    v = c // 8
+    v = c * esize // 16
     for t in TS:
         for f in FS:
             for b in (1, 10):
-                plan = fwd_plan((b, t, f, c), pool)
+                plan = fwd_plan((b, t, f, c), pool, esize=esize)
                 threads = plan["threads"]
                 _check_fwd_axis(plan["row_tiles"], plan["rows"], t, wt, st, pt)
                 _check_fwd_axis(plan["col_chunks"], plan["cols"], f, wf, sf, pf)
