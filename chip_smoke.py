@@ -77,7 +77,19 @@ Phases, one line each (the kernel checks one line per kernel):
      gradient or `F.max_pool2d`, TF32 off): K4 and K9 within 1e-4 of the
      plain version's largest value, K10 bit-equal, K11 within 1e-6 and
      exact on tied inputs, each repeating bit for bit, the products priced
-     at the card's float32 rate (67 TFLOP/s);
+     at the card's float32 rate (67 TFLOP/s); and the fused ladder's
+     float32 mode (phase 15 (e)) on the first step of phase 4's mel and
+     x_T: K2 with float32 emb_act (`sampler_prologue_f32`) and with int8
+     output beside float32 products (`sampler_prologue_f32_int8`, h within
+     1e-4, the codes as phase 3's int8 K2), K1 alone, with
+     int8 AdaLN and with bf16 VPU (`decoder_stack_f32`, `_f32_int8`,
+     `_f32_vpu_bf16`), its float32 AdaLN GEMM alone (`adaln_modulation_f32`,
+     beside torch.addmm in float32 with TF32 off) and K3 with float32
+     products (`sampler_epilogue_f32`), within 1e-4 of the plain version's
+     largest value (the bf16-VPU mode within 0.2 %, its mean within 1e-4,
+     moving with the mode), K2 and K3 one launch a call, a repeat
+     bit-identical, priced at the float32 rate; K1 and its GEMM again at
+     B = 8, and K1's device time by launch (`[k1-split] decoder_stack_f32`);
   4. `DDPMTrainer.generate` on the kernel path, ddim50, on synthetic flagship
      weights and a seeded mel: a finite (2, 1800, 26) motion within 3 % of
      the plain path's on the card, with every serving kernel launched;
@@ -220,7 +232,16 @@ Phases, one line each (the kernel checks one line per kernel):
      ``music_encoder_impl="pallas"`` and the plain layers: the encoder's
      features within 1e-4 of the plain encoder's largest value, the motion
      within 1e-3 of phase 4's plain float32 path's, K4's float32 mode 7
-     launches and no other kernel.
+     launches and no other kernel; (d') (d) with ``attention_impl=
+     "pallas"``: K8 on float32 q, k and v 8 x 50 times, the motion within
+     the same bound; (e) ddim50 at B = 2 on phase 4's mel and noise on the
+     fused ladder's float32 mode (``compute_dtype="float32"``,
+     ``layer_impl="pallas_fused"``, ``music_encoder_impl="pallas"``,
+     ``train_layer_impl="flax"``): the motion within 1e-3 of phase 4's
+     plain float32 path's, K4's float32 mode 7 launches and K2, K1, K3 and
+     the AdaLN GEMM 50 each in their float32 counts and no other; then with
+     bf16 VPU and with int8 AdaLN added, each within 3 %; each call's ms
+     beside (d)'s.
 
 Every path runs at full depth; the run takes a few minutes of its 1200-s
 limit, so no path is cut.  Then one JSON line of per-kernel results (the
@@ -231,7 +252,8 @@ phase 11's launches of K4, K7, K9, K10 and K11, phase 12's of K5, K6
 and K7, and the steps' launches of phase 13's default run and phase 14's
 kernel paths added; the float32 rows with phase 15's: K4's serving mode
 (`conv_block_f32`) (d)'s, its training modes (`conv_block_train_f32`),
-K9, K10 and K11 those of (a), (b) and (c));
+K9, K10 and K11 those of (a), (b) and (c), K1's float32 modes, its float32
+GEMM, K2's float32 emb_act and K3's float32 mode (e)'s);
 each kernel's time, its
 plain version's, its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
@@ -293,6 +315,22 @@ KERNEL_SOURCES = {
                          "conductor_tpu/ops/pallas_layer.py:262"),
     "adaln_modulation_int8": ("conductor_tpu_torch/csrc/adaln_gemm.cu",
                               "conductor_tpu/ops/pallas_layer.py:262"),
+    # the fused ladder's float32 mode (phase 15 (e)): K1 alone, with int8
+    # AdaLN and with bf16 VPU, its float32 GEMM, K2's float32 emb_act, K3
+    "decoder_stack_f32": ("conductor_tpu_torch/csrc/decoder_stack.cu",
+                          "conductor_tpu/ops/pallas_layer.py:262"),
+    "decoder_stack_f32_int8": ("conductor_tpu_torch/csrc/decoder_stack.cu",
+                               "conductor_tpu/ops/pallas_layer.py:262"),
+    "decoder_stack_f32_vpu_bf16": ("conductor_tpu_torch/csrc/decoder_stack.cu",
+                                   "conductor_tpu/ops/pallas_layer.py:262"),
+    "adaln_modulation_f32": ("conductor_tpu_torch/csrc/adaln_gemm.cu",
+                             "conductor_tpu/ops/pallas_layer.py:262"),
+    "sampler_prologue_f32": ("conductor_tpu_torch/csrc/sampler_glue.cu",
+                             "conductor_tpu/ops/pallas_sampler.py:80"),
+    "sampler_prologue_f32_int8": ("conductor_tpu_torch/csrc/sampler_glue.cu",
+                                  "conductor_tpu/ops/pallas_sampler.py:80"),
+    "sampler_epilogue_f32": ("conductor_tpu_torch/csrc/sampler_glue.cu",
+                             "conductor_tpu/ops/pallas_sampler.py:143"),
 }
 # the AdaLN GEMM's device time beside its yardstick's, in its kernels-line entries
 YARDSTICK_KEYS = ("device_ms", "yardstick", "yardstick_device_ms", "no_slower_than_yardstick")
@@ -302,6 +340,19 @@ SERVING_KERNELS = ("decoder_stack", "sampler_prologue", "sampler_epilogue", "con
 # bench.py's serving config (bench.py:41-50), applied to the port's Config()
 BENCH_DENOISER = dict(attention_impl="pallas", compute_dtype="bfloat16", layer_impl="pallas_fused",
                       sampler_adaln_int8=True, music_encoder_impl="pallas")
+# phase 15 (e): the fused ladder's float32 modes, (extra denoiser knobs, the
+# launches of a ddim50 call on them: K4's float32 mode 7, K2 / K1 / K3 and
+# the AdaLN GEMM 50 each, in these counts and no other)
+F32_LADDER = {
+    "f32": ({}, ("decoder_stack_f32", "sampler_prologue_f32", "sampler_epilogue_f32",
+                 "adaln_modulation_f32")),
+    "f32_vpu_bf16": (dict(sampler_vpu_dtype="bfloat16"),
+                     ("decoder_stack_f32_vpu_bf16", "sampler_prologue_f32",
+                      "sampler_epilogue_f32", "adaln_modulation_f32")),
+    "f32_int8": (dict(sampler_adaln_int8=True),
+                 ("decoder_stack_f32_int8", "sampler_prologue_f32_int8", "sampler_epilogue_f32",
+                  "adaln_modulation")),
+}
 TRAIN_KERNELS = ("decoder_layer", "decoder_layer_bwd", "stgcn_forward", "stgcn_backward")
 K7_PER_STEP = (2, 1)  # K7's forward (pred, target) and backward calls in a stage-2 step
 STAGE1_KERNELS = ("conv_block", "conv3x3_dkernel", "max_pool", "max_pool_bwd")
@@ -963,6 +1014,7 @@ def main() -> int:
         check_conv_blocks,
         check_kernels,
         check_layer_bwd,
+        check_sampler_glue,
         check_stack_kernels,
         check_stage1_kernels,
         check_stgcn_kernels,
@@ -1019,6 +1071,18 @@ def main() -> int:
     feat_sd = synthetic_motion_encoder_state_dict(kernel_tr.feat_model, seed=0)
     kernel_tr.load_reference_state_dict(sd, motion_encoder=feat_sd)
     plain_tr.load_reference_state_dict(sd, motion_encoder=feat_sd)
+
+    def f32_ladder_trainer(extra):
+        """Serving on the fused ladder's float32 mode (phase 15 (e)): K4's
+        float32 encoder, K2 / K1 / K3 in float32 (``extra``: bf16 VPU or
+        int8 AdaLN on top), the plain training layers (K5 / K6 have no
+        float32 mode yet), on phase 4's weights."""
+        tr = DDPMTrainer(cfg.replace(
+            denoiser=DenoiserConfig(compute_dtype="float32", layer_impl="pallas_fused",
+                                    music_encoder_impl="pallas", train_layer_impl="flax", **extra),
+            train=TrainConfig(feat_impl="flax")), device="cuda")
+        tr.load_reference_state_dict(sd)
+        return tr
     rng = np.random.RandomState(0)
     mel = torch.from_numpy(rng.uniform(0, 1, size=(2, 5400, 128)).astype(np.float32)).cuda()
     noise = torch.from_numpy(rng.normal(size=(2, 1800, 26)).astype(np.float32)).cuda()
@@ -1096,7 +1160,7 @@ def main() -> int:
             print(f"[k1-split] {mode} {label} T=1800, device ms a call: "
                   + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
                   + f", sum {sum(split.values()):.4f} ({smi})")
-    del mel_b8, noise_b8, step_b8, ops, args, kw
+    del step_b8, ops, args, kw
     results += check_train_kernels(kernel_tr, mel_train[:4], motion_train[:4])
     results[-1]["name"] = "decoder_layer_bwd_b4"  # the main path's K6 call is B = 32's
     results.append(check_layer_bwd(kernel_tr, mel_train, motion_train))
@@ -1111,6 +1175,24 @@ def main() -> int:
     # K9, K10 and K11 in one float32 stage-1 forward and backward at B = 10
     results.append(check_conv_blocks(FusedMusicEncoder(kernel_tr.model.music_encoder,
                                                        torch.float32), mel))
+    # the fused ladder's float32 mode (phase 15 (e)'s kernels) on the first
+    # ladder step of phase 4's mel and x_T: K2 with float32 and int8 emb_act, K1 alone,
+    # with bf16 VPU and with int8 AdaLN, its float32 GEMM, K3; K1 and its
+    # GEMM again at B = 8, and K1's device time by launch at both
+    f32_fused = f32_ladder_trainer({})
+    step_f32 = ladder_step_inputs(f32_fused, mel, noise)
+    glue_f32 = check_sampler_glue(f32_fused, *step_f32)
+    results += [glue_f32[0], *check_stack_kernels(f32_fused, *step_f32[:2]), *glue_f32[1:]]
+    step_f32_b8 = ladder_step_inputs(f32_fused, mel_b8, noise_b8)[:2]
+    results += check_stack_kernels(f32_fused, *step_f32_b8, suffix="_b8")
+    for label, step in (("B=2", step_f32[:2]), ("B=8", step_f32_b8)):
+        args, kw = stack_operands(f32_fused, *step)["decoder_stack"]
+        split = k1_launch_split(lambda: fused_decoder_stack(*args, **kw))
+        print(f"[k1-split] decoder_stack_f32 {label} T=1800, device ms a call: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f", sum {sum(split.values()):.4f} ({smi})")
+    del f32_fused, step_f32, glue_f32, step_f32_b8, args, kw, mel_b8, noise_b8
+    torch.cuda.empty_cache()
     m2s_f32 = M2SNetTrainer(sample_length=STAGE1_S, clip_length=STAGE1_C, compute_dtype="float32",
                             music_conv_impl="pallas_train", device="cuda")
     m2s_f32.load_reference_state_dict(m2s_sd)
@@ -1206,7 +1288,7 @@ def main() -> int:
                   f"{r['code_max_diff']} (must be <= 1); wrong codes on exact ties: "
                   f"{r['tie_errors']} (must be 0)")
         if "mode_gap" in r:
-            print(f"[kernel]   decoder_stack_vpu_bf16: the mode moves the plain output by "
+            print(f"[kernel]   {r['name']}: the mode moves the plain output by "
                   f"{r['mode_gap']:.6g} at most, {r['mean_mode_gap']:.6g} on average, and the "
                   f"kernel's by {r['kernel_gap']:.6g} (must be >= half the largest); the "
                   f"kernel's mean distance from the plain version: {r['mean_abs_err']:.6g} "
@@ -1741,8 +1823,64 @@ def main() -> int:
         raise SystemExit(f"chip_smoke: the float32 generate did not launch K4's float32 mode "
                          f"alone, 7 times: {gen_counts}")
     del f32_tr
+
+    # (d') (d) with the plain layers' self-attention on K8, float32 q, k and v
+    k8_tr = DDPMTrainer(cfg.replace(
+        denoiser=DenoiserConfig(compute_dtype="float32", music_encoder_impl="pallas",
+                                layer_impl="flax", train_layer_impl="flax",
+                                attention_impl="pallas"),
+        train=TrainConfig(feat_impl="flax")), device="cuda")
+    k8_tr.load_reference_state_dict(sd)
+    reset_launch_counts()
+    out_k8 = k8_tr.generate(mel, num_steps=50, noise=noise)
+    torch.cuda.synchronize()
+    k8_counts = {k: n for k, n in launch_counts().items() if n}
+    err_k8 = float((out_k8 - ref).abs().max())
+    _, t_k8 = _timed(lambda: k8_tr.generate(mel, num_steps=50, noise=noise))
+    print(f"[f32] (d') generate ddim50 B=2, float32 fused encoder, plain float32 layers, K8 on "
+          f"float32 q, k and v: motion max_abs_err {err_k8:.6g} against the plain float32 path's "
+          f"(max {scale:.6g}, bound {F32_MOTION_TOL:g} of it); launches {k8_counts}")
+    print(f"[time] (d') ddim50 B=2, float32 plain layers with K8: {t_k8 * 1e3:.1f} ms (d: "
+          f"{t_f32 * 1e3:.1f} ms) on {smi}")
+    if (tuple(out_k8.shape) != (2, 1800, 26) or not bool(torch.isfinite(out_k8).all())
+            or not err_k8 <= F32_MOTION_TOL * scale):
+        raise SystemExit("chip_smoke: the float32 generate with K8 is wrong")
+    if k8_counts != {"conv_block_f32": 7, "linear_attention": cfg.denoiser.num_layers * 50}:
+        raise SystemExit(f"chip_smoke: the float32 generate with K8 did not launch K4's float32 "
+                         f"mode 7 times and K8 8 x 50 times alone: {k8_counts}")
+    del k8_tr
+
+    # (e) serving on the fused ladder's float32 mode: ddim50 at B = 2 on phase
+    # 4's mel and noise (K4 float32, then K2 / K1 / K3 in float32 every step),
+    # within F32_MOTION_TOL of phase 4's plain float32 path; then with bf16
+    # VPU and with int8 AdaLN on top, within the 3 % ladder bound of those
+    # modes; each the launches F32_LADDER says and no other, its ms beside (d)'s
+    ladder_counts = {}
+    for label, (extra, modes) in F32_LADDER.items():
+        tr = f32_ladder_trainer(extra)
+        reset_launch_counts()
+        out_e = tr.generate(mel, num_steps=50, noise=noise)
+        torch.cuda.synchronize()
+        ec = {k: n for k, n in (launch_counts() | part_launch_counts()).items() if n}
+        err_e = float((out_e - ref).abs().max())
+        tol = F32_MOTION_TOL if label == "f32" else GENERATE_REL_TOL
+        _, t_e = _timed(lambda: tr.generate(mel, num_steps=50, noise=noise))
+        print(f"[f32] (e) generate ddim50 B=2 on the fused ladder, {label}: motion max_abs_err "
+              f"{err_e:.6g} against the plain float32 path's (max {scale:.6g}, bound {tol:g} of "
+              f"it); launches {ec}")
+        print(f"[time] (e) ddim50 B=2 on the fused ladder, {label}: {t_e * 1e3:.1f} ms (d, the "
+              f"plain float32 layers: {t_f32 * 1e3:.1f} ms) on {smi}")
+        if (tuple(out_e.shape) != (2, 1800, 26) or not bool(torch.isfinite(out_e).all())
+                or not err_e <= tol * scale):
+            raise SystemExit(f"chip_smoke: generate on the float32 fused ladder ({label}) is wrong")
+        if ec != {"conv_block_f32": 7, **dict.fromkeys(modes, 50)}:
+            raise SystemExit(f"chip_smoke: the float32 fused ladder ({label}) did not launch its "
+                             f"modes as expected: {ec}")
+        ladder_counts.update({k: ec[k] for k in modes if k.endswith(("_f32", "_f32_int8",
+                                                                      "_f32_vpu_bf16"))})
+        del tr
     counts.update(f32_counts, conv_block_f32=gen_counts["conv_block_f32"],
-                  conv_block_train_f32=f32_counts["conv_block_f32"])
+                  conv_block_train_f32=f32_counts["conv_block_f32"], **ladder_counts)
 
     kernels = []
     for r in results:

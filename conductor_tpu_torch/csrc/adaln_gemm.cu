@@ -37,6 +37,17 @@
 // zeros (cp.async with source size 0) and are never stored.  Sums run in a
 // fixed order: a repeat is bit-identical.  `wgmma` is not used yet (see
 // ROADMAP).
+//
+// K1's float32 mode (`md(emb, aw)` with mxu_dtype float32) takes float32
+// emb and W: (B T, 512) @ (512, 6144) at B = 2 is 22.6 GFLOP, 0.34 ms at
+// the card's 67 TFLOP/s outside the tensor cores, so there it is the
+// operations that bound it, and TF32 would keep about three digits.  So
+// `f32::adaln_gemm_f32_kernel` is a register-tiled FFMA GEMM: 128 x 128 tiles of 16
+// warps, a thread 8 x 8 sums (two 4-row by two 4-column blocks, so that
+// its operands are 16-byte vectors of shared memory), k-slices of 8 staged
+// in shared memory (A transposed, so that a thread's 4 rows are one
+// vector) and double-buffered through registers, each sum one FFMA chain
+// over k in ascending order, the bias added at the end.
 
 #include <type_traits>
 
@@ -232,6 +243,95 @@ adaln_gemm_kernel(const unsigned char* __restrict__ A, const unsigned char* __re
   }
 }
 
+namespace f32 {
+
+constexpr int kBM = 128, kBN = 128, kBK = 8, kThreads = 256;
+constexpr int kLdA = kBM + 4;  // A tile rows (k) padded: the transposing stores hit distinct banks
+
+// A kBM x kBN tile of out: thread (ty, tx) = (t / 16, t % 16) owns rows
+// 4 ty + i and 64 + 4 ty + i, columns 4 tx + j and 64 + 4 tx + j (i, j < 4).
+__global__ void __launch_bounds__(kThreads)
+adaln_gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ Bw,
+            const float* __restrict__ bias, float* __restrict__ out, int ldo, int M, int K,
+            int N) {
+  __shared__ __align__(16) float As[2][kBK][kLdA];
+  __shared__ __align__(16) float Bs[2][kBK][kBN];
+  const int t = threadIdx.x, ty = t >> 4, tx = t & 15;
+  const int col0 = blockIdx.x * kBN, row0 = blockIdx.y * kBM;
+  const int layer = col0 / N, n_in = col0 - layer * N;
+  // the loads: A row t / 2, k 4 (t % 2) .. + 3; B k row t / 32, columns 4 (t % 32) .. + 3
+  const int ar = t >> 1, ak = (t & 1) * 4, bk = t >> 5, bn = (t & 31) * 4;
+  const bool a_ok = row0 + ar < M;  // rows past M are zeros and never stored
+  const float* a_src = A + (size_t)(a_ok ? row0 + ar : 0) * K + ak;
+  const float* b_src = Bw + (size_t)layer * K * N + n_in + (size_t)bk * N + bn;
+  float4 ra, rb;
+  auto fetch = [&](int k0) {
+    ra = a_ok ? __ldg(reinterpret_cast<const float4*>(a_src + k0))
+              : make_float4(0.f, 0.f, 0.f, 0.f);
+    rb = __ldg(reinterpret_cast<const float4*>(b_src + (size_t)k0 * N));
+  };
+  auto put_tile = [&](int s) {
+    As[s][ak][ar] = ra.x;
+    As[s][ak + 1][ar] = ra.y;
+    As[s][ak + 2][ar] = ra.z;
+    As[s][ak + 3][ar] = ra.w;
+    *reinterpret_cast<float4*>(&Bs[s][bk][bn]) = rb;
+  };
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  fetch(0);
+  put_tile(0);
+  __syncthreads();
+  const int nk = K / kBK;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt & 1;
+    if (kt + 1 < nk) fetch((kt + 1) * kBK);  // in flight while this slice multiplies
+#pragma unroll
+    for (int k = 0; k < kBK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[s][k][4 * ty]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[s][k][64 + 4 * ty]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[s][k][4 * tx]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[s][k][64 + 4 * tx]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    // the other buffer was read in the slice before, which the last sync closed
+    if (kt + 1 < nk) put_tile(s ^ 1);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = row0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
+    if (r >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = col0 + 64 * h + 4 * tx;
+      const float4 bv = __ldg(reinterpret_cast<const float4*>(bias + c));
+      *reinterpret_cast<float4*>(out + (size_t)r * ldo + c) =
+          make_float4(acc[i][4 * h] + bv.x, acc[i][4 * h + 1] + bv.y, acc[i][4 * h + 2] + bv.z,
+                      acc[i][4 * h + 3] + bv.w);
+    }
+  }
+}
+
+cudaError_t launch(const float* emb, const float* w, const float* bias, float* out, int ldo,
+                   int M, int E, int N, int L, int* launches, cudaStream_t s) {
+  adaln_gemm_f32_kernel<<<dim3(L * N / kBN, ceil_div(M, kBM)), kThreads, 0, s>>>(
+      emb, w, bias, out, ldo, M, E, N);
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launches;
+  return err;
+}
+
+}  // namespace f32
+
 template <bool kInt8, int BM>
 cudaError_t launch(const void* emb, const void* w, const float* emb_scale, const float* w_scale,
                    const float* bias, float* out, int ldo, int M, int E, int N, int L,
@@ -250,36 +350,43 @@ cudaError_t launch(const void* emb, const void* w, const float* emb_scale, const
 
 }  // namespace
 
-bool adaln_gemm_takes(int E, int N, bool int8) {
-  return E > 0 && E * (int8 ? 1 : 2) % kKBytes == 0 && N > 0 && N % kBN == 0;
+bool adaln_gemm_takes(int E, int N, int operands) {
+  if (operands == kAdalnF32) return E > 0 && E % f32::kBK == 0 && N > 0 && N % f32::kBN == 0;
+  return E > 0 && E * (operands == kAdalnInt8 ? 1 : 2) % kKBytes == 0 && N > 0 && N % kBN == 0;
 }
 
 cudaError_t launch_adaln_gemm(const void* emb, const void* w, const float* emb_scale,
                               const float* w_scale, const float* bias, float* out, int ldo, int M,
-                              int E, int N, int L, bool int8, int* launches, cudaStream_t stream) {
+                              int E, int N, int L, int operands, int* launches,
+                              cudaStream_t stream) {
+  if (operands == kAdalnF32)
+    return f32::launch(static_cast<const float*>(emb), static_cast<const float*>(w), bias, out,
+                       ldo, M, E, N, L, launches, stream);
   // 128-row tiles while they give every SM one, else 64
   const bool tall = (long long)ceil_div(M, 128) * (L * N / kBN) >= sm_count();
   auto run = [&](auto kernel_launch) {
     return kernel_launch(emb, w, emb_scale, w_scale, bias, out, ldo, M, E, N, L, launches, stream);
   };
-  if (int8) return tall ? run(launch<true, 128>) : run(launch<true, 64>);
+  if (operands == kAdalnInt8) return tall ? run(launch<true, 128>) : run(launch<true, 64>);
   return tall ? run(launch<false, 128>) : run(launch<false, 64>);
 }
 
 // out (M, L N) float32 = the AdaLN modulation of the L layers in one launch
-// (emb (M, E), adaln_w (L, E, N), adaln_b (L, N)); int8: emb and adaln_w
-// int8 with emb_scale (M,) and aw_scale (L, N).  launches (int, host):
-// raised by one for each kernel launched.
+// (emb (M, E), adaln_w (L, E, N), adaln_b (L, N)) in the operand types
+// `operands` (AdalnOperands: 0 bf16, 1 int8 with emb_scale (M,) and aw_scale
+// (L, N), 2 float32).  launches (int, host): raised by one for each kernel
+// launched.
 CT_EXPORT int adaln_modulation_forward(const void* emb, const void* adaln_w, const void* emb_scale,
                                        const void* aw_scale, const void* adaln_b, void* out,
-                                       void* launches, int M, int E, int N, int L, int int8,
+                                       void* launches, int M, int E, int N, int L, int operands,
                                        void* stream) {
-  if (M < 1 || L < 1 || !adaln_gemm_takes(E, N, int8) ||
-      (int8 && (emb_scale == nullptr || aw_scale == nullptr)))
+  if (M < 1 || L < 1 || operands < kAdalnBf16 || operands > kAdalnF32 ||
+      !adaln_gemm_takes(E, N, operands) ||
+      (operands == kAdalnInt8 && (emb_scale == nullptr || aw_scale == nullptr)))
     return (int)cudaErrorInvalidValue;
   return (int)launch_adaln_gemm(emb, adaln_w, static_cast<const float*>(emb_scale),
                                 static_cast<const float*>(aw_scale),
                                 static_cast<const float*>(adaln_b), static_cast<float*>(out),
-                                L * N, M, E, N, L, int8, static_cast<int*>(launches),
+                                L * N, M, E, N, L, operands, static_cast<int*>(launches),
                                 static_cast<cudaStream_t>(stream));
 }

@@ -377,7 +377,7 @@ __global__ void __launch_bounds__(kThreadsC, 2) rows1_kernel(Inputs in, Work w) 
   // LN -> q -> head softmax for an attention sublayer: q_sm into as and
   // global (bf16 and float32)
   auto query = [&](int g, int bq, bf16* xn, bf16* s16, float* s32) {
-    warp_ln_bf16<kRowsW>(xw, vec + g * D, vec + (g + 1) * D, aw);
+    warp_ln<kRowsW>(xw, vec + g * D, vec + (g + 1) * D, aw);
     for (int i = lane; i < kRowsW * D; i += 32) R(xn)[i] = aw[(i / D) * kLdA + i % D];
     p.gemm(t.ys);
     for (int r = 0; r < kRowsW; ++r) {
@@ -396,8 +396,8 @@ __global__ void __launch_bounds__(kThreadsC, 2) rows1_kernel(Inputs in, Work w) 
   // forward StylizationBlock + residual: x += silu(AdaLN(y)) @ W + b, the
   // AdaLN slice j read from mod
   auto stylize = [&](int j, int g, int b_out) {
-    warp_adaln_mod_bf16<kRowsW>(yw, nullptr, mrow + j * 2 * D, 6 * D, kRowsW, vec + g * D,
-                                vec + (g + 1) * D, aw);
+    warp_adaln_mod<kRowsW>(yw, nullptr, mrow + j * 2 * D, 6 * D, kRowsW, vec + g * D,
+                           vec + (g + 1) * D, aw);
     p.gemm(t.ys);
     for (int i = lane; i < kRowsW * D; i += 32)
       xw[(i / D) * kLdF + i % D] += yw[(i / D) * kLdF + i % D] + vec[b_out * D + i % D];
@@ -878,7 +878,8 @@ CT_EXPORT int decoder_layer_backward(const void* x, const void* emb, const void*
                                      void* dadaln_b, void* workspace, void* gemm_launches, int B,
                                      int T, int t_valid, int d, int E, int H, void* stream) {
   const int dh = d / H;
-  if (d != D || dh * H != d || 32 % dh != 0 || E % 128 != 0 || !adaln_gemm_takes(E, 6 * D, false) ||
+  if (d != D || dh * H != d || 32 % dh != 0 || E % 128 != 0 ||
+      !adaln_gemm_takes(E, 6 * D, kAdalnBf16) ||
       T % kTileRows != 0 || t_valid < 1 || t_valid > T)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -899,7 +900,7 @@ CT_EXPORT int decoder_layer_backward(const void* x, const void* emb, const void*
   // 1. the AdaLN modulation, bias added
   RETURN_IF_ERROR(launch_adaln_gemm(emb, adaln_w, nullptr, nullptr,
                                     static_cast<const float*>(adaln_b), w.mod, 6 * D, rows, E,
-                                    6 * D, 1, false, static_cast<int*>(gemm_launches), s));
+                                    6 * D, 1, kAdalnBf16, static_cast<int*>(gemm_launches), s));
   // 2. the forward's KV, column statistics and KVr
   RETURN_IF_ERROR(launch_kv_pass(x, true, in.mats, in.vecs, w.partials, w.kv, w.stats, w.kvr, B,
                                  T, t_valid, dh, s));

@@ -68,12 +68,32 @@
 //      to bf16 (jax.nn.gelu's constants too); LN statistics, the time
 //      softmax, KV and the residual stay float32.
 //
+// K1's float32 mode (`mxu_dtype=float32`, `_layer_body`'s `md` casting to
+// float32): every product takes float32 operands, as JAX's does, so the
+// operand type OT is a template parameter of the passes.  The tensor cores
+// have no float32 product (TF32 keeps about three digits), so the products
+// run as FFMA on the CUDA cores, each output one chain over k in ascending
+// order, and the operations bound it: 33 GFLOP a step at B = 2, 0.49 ms at
+// the card's 67 TFLOP/s, 69 % of it the AdaLN GEMM.  Pass A by
+// `block_gemm_f32` (a thread 8 x 8 outputs, Wk then Wv staged whole in
+// shared memory, 163 KB a block; at T = 1800 a clip has 29 blocks, so one
+// block an SM costs no occupancy), pass C by `slab_fma` (a thread 4 x 4
+// outputs; each (D x D) float32 matrix, 64 KB, streams through a ring of
+// three 32-row k-slabs, 48 KB, two slabs ahead, so that pass C keeps 97.5
+// KB and two blocks an SM), and the AdaLN GEMM by its float32 kernel
+// (adaln_gemm.cu).  KV leaves pass B
+// unrounded, the q softmax's head sums are of float32 values, and the
+// bf16-VPU mode rounds its three chains as in the bf16 mode; with int8
+// AdaLN the GEMM is the int8 one and the passes float32.
+//
 // K5 is one layer of the same four launches (`decoder_layer_forward`), with
 // the residual read and written in bf16 (the training path carries it
 // in the compute dtype between layers, JAX `train/fused_denoiser.py:
 // 304-323`) and float32 inside.  Its input is padded to whole 64-row tiles;
 // rows at or past t_valid are left out of the KV pass, as the TPU kernel
 // masks them, and still computed by the row pass.
+
+#include <type_traits>
 
 #include "adaln_gemm.cuh"
 #include "layer_common.cuh"
@@ -83,21 +103,29 @@ using namespace layer;
 namespace {
 
 // ---------------------------------------------------------------- pass A
-// XT: the residual's storage type (float for K1, bf16 for K5 / K6).  With
-// kKvr (K6) each tile also gives exp(k - m)^T bf16(v), block-diagonal.
-template <typename XT, bool kKvr>
+// XT: the residual's storage type (float for K1, bf16 for K5 / K6); OT: the
+// products' operand type (bf16, or float in K1's float32 mode).  With kKvr
+// (K6) each tile also gives exp(k - m)^T bf16(v), block-diagonal.
+template <typename XT, typename OT, bool kKvr>
 __global__ void __launch_bounds__(kThreadsA)
-kv_partials_kernel(const XT* x, const bf16* __restrict__ mats, const float* __restrict__ vecs,
+kv_partials_kernel(const XT* x, const OT* __restrict__ mats, const float* __restrict__ vecs,
                    float* __restrict__ partials, int T, int t_valid, int dh, int n_tiles) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* a_s = reinterpret_cast<bf16*>(smem);                          // (64, kLdA)
-  float* k_s = reinterpret_cast<float*>(smem + kTileRows * kLdA * 2); // (64, kLdF)
-  float* v_s = k_s + kTileRows * kLdF;                                // (64, kLdF)
+  OT* a_s = reinterpret_cast<OT*>(smem);                                          // (64, kLdOp)
+  float* k_s = reinterpret_cast<float*>(smem + kTileRows * kLdOp<OT> * sizeof(OT));  // (64, kLdF)
+  float* v_s = k_s + kTileRows * kLdF;                                            // (64, kLdF)
+  constexpr bool kF32 = std::is_same<OT, float>::value;
+  // float32: Wk, then Wv, staged whole (64 KB) after v_s
+  const uint32_t w_s = tc::smem_addr(v_s + kTileRows * kLdF);
   const int b = blockIdx.y, tile = blockIdx.x;
   const int wid = threadIdx.x >> 5;
   const int row0 = tile * kTileRows;
   const int n_rows = min(kTileRows, t_valid - row0);
   const float* vec = vecs;
+  if constexpr (kF32) {
+    stage_matrix_f32(w_s, mats + kWk * D * D);  // lands while the rows load and LN runs
+    tc::cp_async_commit();
+  }
 
   // the tile's rows (zeros past t_valid), staged in k_s, then LN into a_s
   for (int i = threadIdx.x; i < kTileRows * D / 4; i += kThreadsA) {
@@ -106,11 +134,24 @@ kv_partials_kernel(const XT* x, const bf16* __restrict__ mats, const float* __re
     store4(k_s + (i / (D / 4)) * kLdF + (i % (D / 4)) * 4, v);
   }
   __syncthreads();
-  warp_ln_bf16<kRowsA>(k_s + wid * kRowsA * kLdF, vec + kLnSelfG * D, vec + kLnSelfB * D,
-                       a_s + wid * kRowsA * kLdA);
+  warp_ln<kRowsA>(k_s + wid * kRowsA * kLdF, vec + kLnSelfG * D, vec + kLnSelfB * D,
+                  a_s + wid * kRowsA * kLdOp<OT>);
   __syncthreads();
-  block_gemm(a_s, kLdA, mats + kWk * D * D, D, D, D, k_s, kLdF);
-  block_gemm(a_s, kLdA, mats + kWv * D * D, D, D, D, v_s, kLdF);
+  if constexpr (kF32) {
+    const float* w = v_s + kTileRows * kLdF;
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    block_gemm_f32(a_s, w, k_s);
+    __syncthreads();
+    stage_matrix_f32(w_s, mats + kWv * D * D);
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    block_gemm_f32(a_s, w, v_s);
+  } else {
+    block_gemm(a_s, kLdA, mats + kWk * D * D, D, D, D, k_s, kLdF);
+    block_gemm(a_s, kLdA, mats + kWv * D * D, D, D, D, v_s, kLdF);
+  }
   __syncthreads();
 
   const int stride = 2 * D + (kKvr ? 2 : 1) * D * dh;
@@ -145,14 +186,15 @@ kv_partials_kernel(const XT* x, const bf16* __restrict__ mats, const float* __re
 }
 
 // ---------------------------------------------------------------- pass B
-template <bool kKvr>
-__global__ void kv_combine_kernel(const float* __restrict__ partials, bf16* __restrict__ kv,
+// KV in the operand type OT: rounded to bf16, or in the float32 mode as is.
+template <typename OT, bool kKvr>
+__global__ void kv_combine_kernel(const float* __restrict__ partials, OT* __restrict__ kv,
                                   float* __restrict__ stats, float* __restrict__ kvr,
                                   int n_tiles, int dh) {
   const int b = blockIdx.y, d = blockIdx.x, l = threadIdx.x;
-  bf16* out = kv + ((size_t)b * D + d) * D + l;
+  OT* out = kv + ((size_t)b * D + d) * D + l;
   if (d / dh != l / dh) {
-    *out = __float2bfloat16(0.f);
+    put(out, 0.f);
     return;
   }
   const int stride = 2 * D + (kKvr ? 2 : 1) * D * dh;
@@ -166,7 +208,7 @@ __global__ void kv_combine_kernel(const float* __restrict__ partials, bf16* __re
     acc = fmaf(p[t * stride + 2 * D + d * dh + l % dh], w, acc);
     if (kKvr) acc_r = fmaf(p[t * stride + 2 * D + D * dh + d * dh + l % dh], w, acc_r);
   }
-  *out = __float2bfloat16(acc / s);
+  put(out, acc / s);
   if (kKvr) {
     kvr[((size_t)b * D + d) * dh + l % dh] = acc_r / s;
     if (l == d) {
@@ -177,22 +219,31 @@ __global__ void kv_combine_kernel(const float* __restrict__ partials, bf16* __re
 }
 
 // ---------------------------------------------------------------- pass C
+// Shared bytes of pass C's ring of B operands: two whole bf16 matrices, or
+// kSlabStages float32 k-slabs.
+template <typename OT>
+constexpr size_t kRingBytes =
+    std::is_same<OT, float>::value ? (size_t)kSlabStages * kSlabBytes : 2 * (size_t)kWeightTile;
+
 // mod: the layer's AdaLN modulation (adaln_gemm.cu), row stride ldmod.
+// OT: the products' operand type (bf16; float in K1's float32 mode).
 // kVpuBf16: the three elementwise chains of JAX's bf16-VPU mode (head
 // softmax exp, StylizationBlock SiLU, FFN GELU) round where JAX's
-// `_layer_body` casts to bf16.  K5 runs <bf16, false>.
-template <typename XT, bool kVpuBf16>
+// `_layer_body` casts to bf16.  K5 runs <bf16, bf16, false>.
+template <typename XT, typename OT, bool kVpuBf16>
 __global__ void __launch_bounds__(kThreadsC, 2)
 layer_rows_kernel(const XT* x_in, XT* x_out, const float* __restrict__ mod, int ldmod,
-                  const bf16* __restrict__ kv_self, const bf16* __restrict__ kv_cross,
-                  const bf16* __restrict__ mats, const float* __restrict__ vecs, int T, int dh) {
+                  const OT* __restrict__ kv_self, const OT* __restrict__ kv_cross,
+                  const OT* __restrict__ mats, const float* __restrict__ vecs, int T, int dh) {
+  constexpr bool kF32 = std::is_same<OT, float>::value;
   constexpr int ROWS = kRowsTile;
   constexpr int kRows = ROWS * 32 / kThreadsC;  // rows a warp in the row-wise phases
+  constexpr int kLdO = kLdOp<OT>;
   extern __shared__ __align__(128) unsigned char smem[];
-  const uint32_t ring = tc::smem_addr(smem);                          // 2 x (D, D) bf16
-  float* xs = reinterpret_cast<float*>(smem + 2 * kWeightTile);       // (ROWS, kLdF) residual rows
+  const uint32_t ring = tc::smem_addr(smem);                          // the B operands' ring
+  float* xs = reinterpret_cast<float*>(smem + kRingBytes<OT>);        // (ROWS, kLdF) residual rows
   float* ys = xs + ROWS * kLdF;                                        // (ROWS, kLdF) matmul output
-  bf16* as = reinterpret_cast<bf16*>(ys + ROWS * kLdF);                // (ROWS, kLdA) operand
+  OT* as = reinterpret_cast<OT*>(ys + ROWS * kLdF);                    // (ROWS, kLdO) operand
   const int b = blockIdx.y;
   const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = blockIdx.x * ROWS;
@@ -200,19 +251,27 @@ layer_rows_kernel(const XT* x_in, XT* x_out, const float* __restrict__ mod, int 
   // this warp's slices
   const int wo = wid * kRows;
   float *xw = xs + wo * kLdF, *yw = ys + wo * kLdF;
-  bf16* aw = as + wo * kLdA;
+  OT* aw = as + wo * kLdO;
   const float* mw = mod + ((size_t)b * T + row0 + wo) * ldmod;
   const float* vec = vecs;
   auto W = [&](int i) { return mats + (size_t)i * D * D; };
 
-  // the B operands of the nine products, in order; each is staged into the
-  // ring two products ahead of its use
-  const bf16* const operand[9] = {W(kWq), kv_self + (size_t)b * D * D, W(kWStylSelf),
-                                  W(kWqCross), kv_cross + (size_t)b * D * D, W(kWStylCross),
-                                  W(kW1), W(kW2), W(kWStylFfn)};
+  // the B operands of the nine products, in order; bf16: each staged whole
+  // into the ring two products ahead of its use; float32: stage s is k-slab
+  // s % 4 of product s / 4, staged two slabs ahead
+  const OT* const operand[9] = {W(kWq), kv_self + (size_t)b * D * D, W(kWStylSelf),
+                                W(kWqCross), kv_cross + (size_t)b * D * D, W(kWStylCross),
+                                W(kW1), W(kW2), W(kWStylFfn)};
+  constexpr int kSlabs = D / kSlabRows;  // float32: slabs a product
   auto stage = [&](int i) {
-    if (i < 9) stage_weights(ring + (i & 1) * kWeightTile, operand[i]);
-    tc::cp_async_commit();  // one group a product, empty past the last
+    if constexpr (kF32) {
+      if (i < 9 * kSlabs)
+        stage_slab(ring + (i % kSlabStages) * kSlabBytes,
+                   operand[i / kSlabs] + (size_t)(i % kSlabs) * kSlabRows * D);
+    } else {
+      if (i < 9) stage_weights(ring + (i & 1) * kWeightTile, operand[i]);
+    }
+    tc::cp_async_commit();  // one group a stage, empty past the last
   };
   stage(0);
   stage(1);
@@ -223,22 +282,37 @@ layer_rows_kernel(const XT* x_in, XT* x_out, const float* __restrict__ mod, int 
   }
   __syncthreads();
 
-  // ys = as @ (product `next`'s matrix), then stage product next + 2 into
-  // the slot it frees.  Both syncs are the block's: as and the slot written
-  // before, ys read after.
+  // ys = as @ (the next product's matrix).  bf16: then stage product next +
+  // 2 into the slot it frees.  Both syncs are the block's: as and the slot
+  // written before, ys read after.  float32: a slab at a time, each sync
+  // also freeing the slot of the slab before, which takes slab next + 2.
   int next = 0;
   auto gemm = [&]() {
-    tc::cp_async_wait<1>();  // all groups but the newest (product next + 1)
-    __syncthreads();
-    tile_gemm_smem(as, ring + (next & 1) * kWeightTile, ys);
-    __syncthreads();
-    stage(next + 2);
-    ++next;
+    if constexpr (kF32) {
+      float acc[4][4] = {};
+      for (int j = 0; j < kSlabs; ++j) {
+        tc::cp_async_wait<1>();  // all groups but the newest (slab next + 1)
+        __syncthreads();
+        stage(next + 2);
+        slab_fma(as, j * kSlabRows,
+                 reinterpret_cast<const float*>(smem + (next % kSlabStages) * kSlabBytes), acc);
+        ++next;
+      }
+      slab_store(acc, ys);
+      __syncthreads();
+    } else {
+      tc::cp_async_wait<1>();  // all groups but the newest (product next + 1)
+      __syncthreads();
+      tile_gemm_smem(as, ring + (next & 1) * kWeightTile, ys);
+      __syncthreads();
+      stage(next + 2);
+      ++next;
+    }
   };
   // One StylizationBlock + residual on y (in ys): x += silu(AdaLN(y)) @ W + b.
   auto stylize = [&](int j, const float* ybias, int g, int b_out) {
-    warp_adaln_mod_bf16<kRows, kVpuBf16>(yw, ybias, mw + j * 2 * D, ldmod, n_rows - wo,
-                                         vec + g * D, vec + (g + 1) * D, aw);
+    warp_adaln_mod<kRows, kVpuBf16>(yw, ybias, mw + j * 2 * D, ldmod, n_rows - wo, vec + g * D,
+                                    vec + (g + 1) * D, aw);
     gemm();
     for (int r = 0; r < kRows; ++r)
 #pragma unroll
@@ -250,9 +324,9 @@ layer_rows_kernel(const XT* x_in, XT* x_out, const float* __restrict__ mod, int 
   };
   // q_sm (into as) for the attention sublayers: LN -> q -> head softmax.
   auto query = [&](int g, int bq) {
-    warp_ln_bf16<kRows>(xw, vec + g * D, vec + (g + 1) * D, aw);
+    warp_ln<kRows>(xw, vec + g * D, vec + (g + 1) * D, aw);
     gemm();
-    warp_head_softmax_bf16<kRows, kVpuBf16>(yw, vec + bq * D, dh, aw);
+    warp_head_softmax<kRows, kVpuBf16>(yw, vec + bq * D, dh, aw);
   };
 
   // self attention
@@ -265,12 +339,11 @@ layer_rows_kernel(const XT* x_in, XT* x_out, const float* __restrict__ mod, int 
   stylize(1, nullptr, kStylCrossG, kStylCrossOut);
   // FFN (W1 / W2 are zero-padded to D x D)
   for (int i = lane; i < kRows * D; i += 32)
-    aw[(i / D) * kLdA + i % D] = __float2bfloat16(xw[(i / D) * kLdF + i % D]);
+    put(aw + (i / D) * kLdO + i % D, xw[(i / D) * kLdF + i % D]);
   gemm();  // W1
   for (int i = lane; i < kRows * D; i += 32) {
     const float u = yw[(i / D) * kLdF + i % D] + vec[kB1 * D + i % D];
-    aw[(i / D) * kLdA + i % D] =
-        __float2bfloat16(kVpuBf16 ? gelu_tanh_vpu_bf16(round_bf16(u)) : gelu_tanh(u));
+    put(aw + (i / D) * kLdO + i % D, kVpuBf16 ? gelu_tanh_vpu_bf16(round_bf16(u)) : gelu_tanh(u));
   }
   gemm();  // W2
   stylize(2, vec + kB2 * D, kStylFfnG, kStylFfnOut);
@@ -282,19 +355,24 @@ layer_rows_kernel(const XT* x_in, XT* x_out, const float* __restrict__ mod, int 
            load4(xs + (i / (D / 4)) * kLdF + (i % (D / 4)) * 4));
 }
 
-constexpr size_t kSmemA = (size_t)kTileRows * (kLdA * 2 + 2 * kLdF * 4);
+// pass A's shared bytes: the operand, k and v tiles (and in the float32
+// mode the staged weight matrix)
+template <typename OT>
+constexpr size_t kSmemA = (size_t)kTileRows * (kLdOp<OT> * sizeof(OT) + 2 * kLdF * 4) +
+                          (std::is_same<OT, float>::value ? (size_t)D * D * 4 : 0);
 
-template <typename XT, bool kKvr>
-cudaError_t kv_pass(const XT* x, const bf16* mats, const float* vecs, float* partials, bf16* kv,
+template <typename XT, typename OT, bool kKvr>
+cudaError_t kv_pass(const XT* x, const OT* mats, const float* vecs, float* partials, OT* kv,
                     float* stats, float* kvr, int B, int T, int t_valid, int dh,
                     cudaStream_t s) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kv_partials_kernel<XT, kKvr>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemA);
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kv_partials_kernel<XT, OT, kKvr>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemA<OT>);
   if (attr != cudaSuccess) return attr;
   const int n_tiles = ceil_div(t_valid, kTileRows);
-  kv_partials_kernel<XT, kKvr><<<dim3(n_tiles, B), kThreadsA, kSmemA, s>>>(
+  kv_partials_kernel<XT, OT, kKvr><<<dim3(n_tiles, B), kThreadsA, kSmemA<OT>, s>>>(
       x, mats, vecs, partials, T, t_valid, dh, n_tiles);
-  kv_combine_kernel<kKvr><<<dim3(D, B), D, 0, s>>>(partials, kv, stats, kvr, n_tiles, dh);
+  kv_combine_kernel<OT, kKvr><<<dim3(D, B), D, 0, s>>>(partials, kv, stats, kvr, n_tiles, dh);
   return cudaGetLastError();
 }
 
@@ -309,14 +387,14 @@ cudaError_t launch_kv_pass(const void* x, bool x_bf16, const bf16* mats, const f
                            float* partials, bf16* kv, float* stats, float* kvr, int B, int T,
                            int t_valid, int dh, cudaStream_t stream) {
   if (kvr != nullptr)
-    return x_bf16 ? kv_pass<bf16, true>(static_cast<const bf16*>(x), mats, vecs, partials, kv,
-                                        stats, kvr, B, T, t_valid, dh, stream)
-                  : kv_pass<float, true>(static_cast<const float*>(x), mats, vecs, partials, kv,
-                                         stats, kvr, B, T, t_valid, dh, stream);
-  return x_bf16 ? kv_pass<bf16, false>(static_cast<const bf16*>(x), mats, vecs, partials, kv,
-                                       stats, kvr, B, T, t_valid, dh, stream)
-                : kv_pass<float, false>(static_cast<const float*>(x), mats, vecs, partials, kv,
-                                        stats, kvr, B, T, t_valid, dh, stream);
+    return x_bf16 ? kv_pass<bf16, bf16, true>(static_cast<const bf16*>(x), mats, vecs, partials,
+                                              kv, stats, kvr, B, T, t_valid, dh, stream)
+                  : kv_pass<float, bf16, true>(static_cast<const float*>(x), mats, vecs, partials,
+                                               kv, stats, kvr, B, T, t_valid, dh, stream);
+  return x_bf16 ? kv_pass<bf16, bf16, false>(static_cast<const bf16*>(x), mats, vecs, partials,
+                                             kv, stats, kvr, B, T, t_valid, dh, stream)
+                : kv_pass<float, bf16, false>(static_cast<const float*>(x), mats, vecs, partials,
+                                              kv, stats, kvr, B, T, t_valid, dh, stream);
 }
 
 size_t kv_pass_partials_bytes(int B, int t_valid, int dh, bool with_kvr) {
@@ -326,77 +404,88 @@ size_t kv_pass_partials_bytes(int B, int t_valid, int dh, bool with_kvr) {
 
 namespace {
 
-constexpr size_t kSmemC = 2 * (size_t)kWeightTile + (size_t)kRowsTile * (2 * kLdF * 4 + kLdA * 2);
+template <typename OT>
+constexpr size_t kSmemC =
+    kRingBytes<OT> + (size_t)kRowsTile * (2 * kLdF * 4 + kLdOp<OT> * sizeof(OT));
 
-template <typename XT, bool kVpuBf16>
-cudaError_t rows_pass(const XT* x, XT* out, const float* mod, int ldmod, const bf16* kv_self,
-                      const bf16* kv_cross, const bf16* mats, const float* vecs, int B, int T,
+template <typename XT, typename OT, bool kVpuBf16>
+cudaError_t rows_pass(const XT* x, XT* out, const float* mod, int ldmod, const OT* kv_self,
+                      const OT* kv_cross, const OT* mats, const float* vecs, int B, int T,
                       int dh, cudaStream_t s) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      layer_rows_kernel<XT, kVpuBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemC);
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(layer_rows_kernel<XT, OT, kVpuBf16>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemC<OT>);
   if (attr != cudaSuccess) return attr;
-  layer_rows_kernel<XT, kVpuBf16><<<dim3(ceil_div(T, kRowsTile), B), kThreadsC, kSmemC, s>>>(
-      x, out, mod, ldmod, kv_self, kv_cross, mats, vecs, T, dh);
+  layer_rows_kernel<XT, OT, kVpuBf16>
+      <<<dim3(ceil_div(T, kRowsTile), B), kThreadsC, kSmemC<OT>, s>>>(
+          x, out, mod, ldmod, kv_self, kv_cross, mats, vecs, T, dh);
   return cudaGetLastError();
 }
 
 // One layer after its AdaLN GEMM: passes A and B, then C.
-template <typename XT, bool kVpuBf16>
-cudaError_t layer_passes(const XT* x, XT* out, const float* mod, int ldmod, const bf16* kv_cross,
-                         const bf16* mats, const float* vecs, float* partials, bf16* kv_self,
-                         int B, int T, int t_valid, int dh, cudaStream_t s) {
-  cudaError_t err = kv_pass<XT, false>(x, mats, vecs, partials, kv_self, nullptr, nullptr, B, T,
-                                       t_valid, dh, s);
+template <typename XT, typename OT, bool kVpuBf16>
+cudaError_t layer_passes(const XT* x, XT* out, const float* mod, int ldmod, const OT* kv_cross,
+                         const OT* mats, const float* vecs, float* partials, OT* kv_self, int B,
+                         int T, int t_valid, int dh, cudaStream_t s) {
+  cudaError_t err = kv_pass<XT, OT, false>(x, mats, vecs, partials, kv_self, nullptr, nullptr, B,
+                                           T, t_valid, dh, s);
   if (err != cudaSuccess) return err;
-  return rows_pass<XT, kVpuBf16>(x, out, mod, ldmod, kv_self, kv_cross, mats, vecs, B, T, dh, s);
+  return rows_pass<XT, OT, kVpuBf16>(x, out, mod, ldmod, kv_self, kv_cross, mats, vecs, B, T, dh,
+                                     s);
 }
 
-// adaln_w: (L, E, 6D), bf16 or in the int8 mode int8; mod: (B T, 6D L)
-// float32 scratch; *gemm_launches counts the AdaLN GEMM's launches.
-template <bool kVpuBf16>
-cudaError_t stack_forward(const float* x, const void* emb, const float* emb_scale,
-                          const bf16* kv_cross, const bf16* mats, const float* vecs,
-                          const void* adaln_w, const float* aw_scale, const float* adaln_b,
-                          float* out, float* partials, bf16* kv_self, float* mod, int B, int T,
-                          int E, int dh, int L, bool int8, int* gemm_launches, cudaStream_t s) {
+// adaln_w: (L, E, 6D) in the GEMM's operand type `operands` (AdalnOperands);
+// mod: (B T, 6D L) float32 scratch; *gemm_launches counts the AdaLN GEMM's
+// launches.  OT: the passes' operand type (mats, kv_cross, kv_self).
+template <typename OT, bool kVpuBf16>
+cudaError_t stack_forward(const void* x, const void* emb, const void* emb_scale,
+                          const void* kv_cross, const void* mats, const void* vecs,
+                          const void* adaln_w, const void* aw_scale, const void* adaln_b,
+                          void* out, void* partials, void* kv_self, void* mod, int B, int T,
+                          int E, int dh, int L, int operands, int* gemm_launches,
+                          cudaStream_t s) {
   constexpr int N = 6 * D;
-  cudaError_t err = launch_adaln_gemm(emb, adaln_w, emb_scale, aw_scale, adaln_b, mod, L * N,
-                                      B * T, E, N, L, int8, gemm_launches, s);
+  float* o = static_cast<float*>(out);
+  float* m = static_cast<float*>(mod);
+  cudaError_t err = launch_adaln_gemm(emb, adaln_w, static_cast<const float*>(emb_scale),
+                                      static_cast<const float*>(aw_scale),
+                                      static_cast<const float*>(adaln_b), m, L * N, B * T, E, N,
+                                      L, operands, gemm_launches, s);
   for (int l = 0; l < L && err == cudaSuccess; ++l)
-    err = layer_passes<float, kVpuBf16>(l == 0 ? x : out, out, mod + l * N, L * N,
-                                        kv_cross + (size_t)l * B * D * D,
-                                        mats + (size_t)l * 9 * D * D, vecs + (size_t)l * 24 * D,
-                                        partials, kv_self, B, T, T, dh, s);
+    err = layer_passes<float, OT, kVpuBf16>(
+        l == 0 ? static_cast<const float*>(x) : o, o, m + l * N, L * N,
+        static_cast<const OT*>(kv_cross) + (size_t)l * B * D * D,
+        static_cast<const OT*>(mats) + (size_t)l * 9 * D * D,
+        static_cast<const float*>(vecs) + (size_t)l * 24 * D, static_cast<float*>(partials),
+        static_cast<OT*>(kv_self), B, T, T, dh, s);
   return err;
 }
 
 }  // namespace
 
 // emb_scale / aw_scale are null unless int8: the int8-AdaLN mode (emb and
-// adaln_w int8); vpu_bf16: the bf16-VPU mode.  mod: (B T, 6D L) float32
-// scratch.  gemm_launches (int, host): raised by one for each launch of the
-// AdaLN GEMM.
+// adaln_w int8); vpu_bf16: the bf16-VPU mode; mxu_f32: the float32 mode
+// (mats, kv_cross and kv_self float32; emb and adaln_w float32 unless
+// int8), else bf16.  mod: (B T, 6D L) float32 scratch.  gemm_launches
+// (int, host): raised by one for each launch of the AdaLN GEMM.
 CT_EXPORT int decoder_stack_forward(const void* x, const void* emb, const void* emb_scale,
                                     const void* kv_cross, const void* mats, const void* vecs,
                                     const void* adaln_w, const void* aw_scale,
                                     const void* adaln_b, void* out, void* partials,
                                     void* kv_self, void* mod, void* gemm_launches, int B, int T,
                                     int d, int E, int H, int L, int int8, int vpu_bf16,
-                                    void* stream) {
-  if (bad_shape(d, E, H) || !adaln_gemm_takes(E, 6 * d, int8) ||
+                                    int mxu_f32, void* stream) {
+  const int operands = int8 ? kAdalnInt8 : mxu_f32 ? kAdalnF32 : kAdalnBf16;
+  if (bad_shape(d, E, H) || !adaln_gemm_takes(E, 6 * d, operands) ||
       (int8 && (emb_scale == nullptr || aw_scale == nullptr)))
     return (int)cudaErrorInvalidValue;
   auto run = [&](auto launch) {
-    return (int)launch(static_cast<const float*>(x), emb, static_cast<const float*>(emb_scale),
-                       static_cast<const bf16*>(kv_cross), static_cast<const bf16*>(mats),
-                       static_cast<const float*>(vecs), adaln_w,
-                       static_cast<const float*>(aw_scale), static_cast<const float*>(adaln_b),
-                       static_cast<float*>(out), static_cast<float*>(partials),
-                       static_cast<bf16*>(kv_self), static_cast<float*>(mod), B, T, E,
-                       d / H, L, int8 != 0, static_cast<int*>(gemm_launches),
-                       static_cast<cudaStream_t>(stream));
+    return (int)launch(x, emb, emb_scale, kv_cross, mats, vecs, adaln_w, aw_scale, adaln_b, out,
+                       partials, kv_self, mod, B, T, E, d / H, L, operands,
+                       static_cast<int*>(gemm_launches), static_cast<cudaStream_t>(stream));
   };
-  return vpu_bf16 ? run(stack_forward<true>) : run(stack_forward<false>);
+  if (mxu_f32) return vpu_bf16 ? run(stack_forward<float, true>) : run(stack_forward<float, false>);
+  return vpu_bf16 ? run(stack_forward<bf16, true>) : run(stack_forward<bf16, false>);
 }
 
 // mod: (B T, 6D) float32 scratch; gemm_launches as decoder_stack_forward's.
@@ -405,15 +494,16 @@ CT_EXPORT int decoder_layer_forward(const void* x, const void* emb, const void* 
                                     const void* adaln_b, void* out, void* partials,
                                     void* kv_self, void* mod, void* gemm_launches, int B, int T,
                                     int t_valid, int d, int E, int H, void* stream) {
-  if (bad_shape(d, E, H) || !adaln_gemm_takes(E, 6 * d, false) || t_valid < 1 || t_valid > T)
+  if (bad_shape(d, E, H) || !adaln_gemm_takes(E, 6 * d, kAdalnBf16) || t_valid < 1 ||
+      t_valid > T)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* m = static_cast<float*>(mod);
   cudaError_t err = launch_adaln_gemm(emb, adaln_w, nullptr, nullptr,
                                       static_cast<const float*>(adaln_b), m, 6 * D, B * T, E,
-                                      6 * D, 1, false, static_cast<int*>(gemm_launches), s);
+                                      6 * D, 1, kAdalnBf16, static_cast<int*>(gemm_launches), s);
   if (err != cudaSuccess) return (int)err;
-  return (int)layer_passes<bf16, false>(
+  return (int)layer_passes<bf16, bf16, false>(
       static_cast<const bf16*>(x), static_cast<bf16*>(out), m, 6 * D,
       static_cast<const bf16*>(kv_cross), static_cast<const bf16*>(mats),
       static_cast<const float*>(vecs), static_cast<float*>(partials), static_cast<bf16*>(kv_self),

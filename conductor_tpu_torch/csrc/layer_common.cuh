@@ -2,7 +2,8 @@
 // (decoder_stack.cu) and K6 (decoder_layer_bwd.cu).  Everything here works
 // on one tile of one clip (64 rows in the KV pass, 32 in the row passes),
 // D = 128 wide, in a block's shared memory; see decoder_stack.cu for the
-// design.
+// design.  The row-wise helpers write the matmul operand in its type: bf16
+// (rows of kLdA) or, in K1's float32 mode, float32 (rows of kLdF).
 #pragma once
 
 #include <mma.h>
@@ -65,6 +66,13 @@ __device__ __forceinline__ float4 load4(const bf16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 __device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+
+// One matmul operand value, rounded to the operand type: bf16, or float32 as is.
+__device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+// Row stride of an operand tile of type OT in shared memory.
+template <typename OT>
+constexpr int kLdOp = std::is_same<OT, float>::value ? kLdF : kLdA;
 __device__ __forceinline__ void store4(bf16* p, float4 v) {
   __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
   q[0] = __floats2bfloat162_rn(v.x, v.y);
@@ -161,9 +169,9 @@ __device__ __forceinline__ float2 ln_stats(const float v[4]) {
   return make_float2(mu, rsqrtf(warp_sum(q) * (1.f / D) + 1e-5f));
 }
 
-// dst = bf16(LN(src) * g + b).
-template <int ROWS>
-__device__ void warp_ln_bf16(const float* src, const float* g, const float* b, bf16* dst) {
+// dst = LN(src) * g + b, in dst's operand type.
+template <int ROWS, typename OT>
+__device__ void warp_ln(const float* src, const float* g, const float* b, OT* dst) {
   const int lane = threadIdx.x & 31;
   for (int r = 0; r < ROWS; ++r) {
     float v[4];
@@ -173,16 +181,17 @@ __device__ void warp_ln_bf16(const float* src, const float* g, const float* b, b
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int c = lane + 32 * i;
-      dst[r * kLdA + c] = __float2bfloat16((v[i] - st.x) * st.y * g[c] + b[c]);
+      put(dst + r * kLdOp<OT> + c, (v[i] - st.x) * st.y * g[c] + b[c]);
     }
   }
 }
 
 // softmax within each head of (q + bias): exp(q - rowmax) over the
-// denominators sum_head bf16(exp(..)), as the JAX kernel's seg matmul.  In
-// the bf16-VPU mode (kVpuBf16) JAX's exp takes bf16(q - rowmax) and
-// returns bf16, which the float32 division then reads.
-template <bool kVpuBf16 = false>
+// denominators sum_head bf16(exp(..)), as the JAX kernel's seg matmul
+// rounds its operand (kMxuBf16; in the float32 mode the sum is of the
+// float32 values).  In the bf16-VPU mode (kVpuBf16) JAX's exp takes
+// bf16(q - rowmax) and returns bf16, which the float32 division then reads.
+template <bool kVpuBf16 = false, bool kMxuBf16 = true>
 __device__ __forceinline__ void head_softmax_row(float v[4], int dh) {
   float m = fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3]));
   m = warp_max(m);
@@ -193,31 +202,32 @@ __device__ __forceinline__ void head_softmax_row(float v[4], int dh) {
       v[i] /= head_sum(v[i], dh);
     } else {
       v[i] = expf(v[i] - m);
-      v[i] /= head_sum(round_bf16(v[i]), dh);
+      v[i] /= head_sum(kMxuBf16 ? round_bf16(v[i]) : v[i], dh);
     }
   }
 }
 
-// dst = bf16(softmax within each head of (src + bias)); with kVpuBf16 in
-// the bf16-VPU mode's rounding.
-template <int ROWS, bool kVpuBf16 = false>
-__device__ void warp_head_softmax_bf16(const float* src, const float* bias, int dh, bf16* dst) {
+// dst = softmax within each head of (src + bias), in dst's operand type;
+// with kVpuBf16 in the bf16-VPU mode's rounding.
+template <int ROWS, bool kVpuBf16 = false, typename OT>
+__device__ void warp_head_softmax(const float* src, const float* bias, int dh, OT* dst) {
   const int lane = threadIdx.x & 31;
   for (int r = 0; r < ROWS; ++r) {
     float v[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) v[i] = src[r * kLdF + lane + 32 * i] + bias[lane + 32 * i];
-    head_softmax_row<kVpuBf16>(v, dh);
+    head_softmax_row<kVpuBf16, std::is_same<OT, bf16>::value>(v, dh);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) dst[r * kLdA + lane + 32 * i] = __float2bfloat16(v[i]);
+    for (int i = 0; i < 4; ++i) put(dst + r * kLdOp<OT> + lane + 32 * i, v[i]);
   }
 }
 
 // silu(h) = h / (1 + exp(-h)) with h and each op's result rounded to bf16,
-// as the JAX kernel's `styl` computes it in the bf16-VPU mode.
+// the quotient too (a float32 operand keeps it so), as the JAX kernel's
+// `styl` computes it in the bf16-VPU mode.
 __device__ __forceinline__ float silu_vpu_bf16(float h) {
   const float hb = round_bf16(h);
-  return hb / round_bf16(1.f + round_bf16(expf(-hb)));
+  return round_bf16(hb / round_bf16(1.f + round_bf16(expf(-hb))));
 }
 
 // ---- helpers of K1 / K5's row pass since its redesign: the B operands of
@@ -289,14 +299,14 @@ __device__ __forceinline__ void tile_gemm_smem(const bf16* A, uint32_t Bs, float
     }
 }
 
-// dst = bf16(silu(LN(y + ybias) * (1 + scale) + shift)) over the warp's
-// ROWS rows, (scale, shift) = mod[r, 0:D], mod[r, D:2D] (global memory, row
-// stride ldmod, the AdaLN bias already added); rows at or past n_valid read
-// no mod (0).  kVpuBf16: the SiLU in bf16 (`silu_vpu_bf16`).
-template <int ROWS, bool kVpuBf16 = false>
-__device__ void warp_adaln_mod_bf16(const float* y, const float* ybias, const float* mod,
-                                    int ldmod, int n_valid, const float* g, const float* gb,
-                                    bf16* dst) {
+// dst = silu(LN(y + ybias) * (1 + scale) + shift) over the warp's ROWS
+// rows, in dst's operand type, (scale, shift) = mod[r, 0:D], mod[r, D:2D]
+// (global memory, row stride ldmod, the AdaLN bias already added); rows at
+// or past n_valid read no mod (0).  kVpuBf16: the SiLU in bf16
+// (`silu_vpu_bf16`).
+template <int ROWS, bool kVpuBf16 = false, typename OT>
+__device__ void warp_adaln_mod(const float* y, const float* ybias, const float* mod, int ldmod,
+                               int n_valid, const float* g, const float* gb, OT* dst) {
   const int lane = threadIdx.x & 31;
   float scale[ROWS][4], shift[ROWS][4];
 #pragma unroll
@@ -320,9 +330,116 @@ __device__ void warp_adaln_mod_bf16(const float* y, const float* ybias, const fl
     for (int i = 0; i < 4; ++i) {
       const int c = lane + 32 * i;
       const float h = ((v[i] - st.x) * st.y * g[c] + gb[c]) * (1.f + scale[r][i]) + shift[r][i];
-      dst[r * kLdA + c] = __float2bfloat16(kVpuBf16 ? silu_vpu_bf16(h) : silu(h));
+      put(dst + r * kLdOp<OT> + c, kVpuBf16 ? silu_vpu_bf16(h) : silu(h));
     }
   }
+}
+
+// ---- K1's float32 mode (`mxu_dtype=float32`): the same products on the
+// CUDA cores, FFMA in float32, each output one chain over k in ascending
+// order (the tensor cores have no float32 product, and TF32 keeps about
+// three digits).  A thread holds a register tile of outputs and reads A
+// and B from shared memory as 16-byte vectors, 4 k-steps at a time.
+
+// C (kTileRows x D, row stride kLdF) = A (kTileRows x D float32, row stride
+// kLdF, shared) @ B (D x D float32, row-major, shared), by kThreadsA
+// threads: thread t owns rows t % 8 + 8 i (i < 8) and columns 4 (t / 8) +
+// j, 64 + 4 (t / 8) + j (j < 4).  The 8 lanes of one k-step's A load read
+// 8 rows 4 banks apart (kLdF = 132), so no two share a bank; a warp's B
+// loads are 4 vectors of one row, broadcast.  Pass A's k and v products.
+__device__ inline void block_gemm_f32(const float* A, const float* B, float* C) {
+  const int rg = threadIdx.x & 7, n0 = 4 * (threadIdx.x >> 3);
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll 1
+  for (int k = 0; k < D; k += 4) {
+    float4 a[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) a[i] = load4(A + (rg + 8 * i) * kLdF + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 b0 = load4(B + (k + kk) * D + n0);
+      const float4 b1 = load4(B + (k + kk) * D + 64 + n0);
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y : kk == 2 ? a[i].z : a[i].w;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float* c = C + (rg + 8 * i) * kLdF + n0;
+    store4(c, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+    store4(c + 64, make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
+  }
+}
+
+// Start the copy of the row-major (D x D) float32 matrix W into shared
+// memory at `dst` (row-major, unpadded), by all the block's threads; the
+// caller commits the group.
+__device__ __forceinline__ void stage_matrix_f32(uint32_t dst, const float* W) {
+  for (int i = threadIdx.x; i < D * D / 4; i += blockDim.x) tc::cp_async16(dst + 16 * i, W + 4 * i);
+}
+
+// The row pass's float32 B operands stream through shared memory in k-slabs
+// of kSlabRows rows (16 KB), a ring of kSlabStages of them: a whole float32
+// (D x D) matrix is 64 KB, and a ring of two would leave one block an SM.
+constexpr int kSlabRows = 32;
+constexpr int kSlabBytes = kSlabRows * D * 4;
+constexpr int kSlabStages = 3;
+static_assert(kRowsTile == 32 && kThreadsC == 256,
+              "slab_fma: 8 warps of 16 columns, 4 rows a lane");
+
+// Start the copy of kSlabRows rows of a row-major float32 matrix (W at its
+// first row) into the slab at `stage`, by all the block's threads; the
+// caller commits the group.
+__device__ __forceinline__ void stage_slab(uint32_t stage, const float* W) {
+  for (int i = threadIdx.x; i < kSlabRows * D / 4; i += blockDim.x)
+    tc::cp_async16(stage + 16 * i, W + 4 * i);
+}
+
+// acc += A[:, k0 : k0 + kSlabRows] @ S for the thread's 4 x 4 outputs of a
+// (kRowsTile x D) product: A (kRowsTile x D float32, row stride kLdF,
+// shared), S a staged slab (kSlabRows x D).  Warp w owns columns 16 w ..
+// 16 w + 15 (as `tile_gemm_smem`'s warps do), lane l rows l % 8 + 8 i and
+// columns 16 w + 4 (l / 8) + j.
+__device__ __forceinline__ void slab_fma(const float* A, int k0, const float* S,
+                                         float (&acc)[4][4]) {
+  const int lane = threadIdx.x & 31;
+  const int rg = lane & 7, n0 = (threadIdx.x >> 5) * 16 + 4 * (lane >> 3);
+#pragma unroll 2
+  for (int k = 0; k < kSlabRows; k += 4) {
+    float4 a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = load4(A + (rg + 8 * i) * kLdF + k0 + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 b = load4(S + (k + kk) * D + n0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y : kk == 2 ? a[i].z : a[i].w;
+        acc[i][0] = fmaf(av, b.x, acc[i][0]);
+        acc[i][1] = fmaf(av, b.y, acc[i][1]);
+        acc[i][2] = fmaf(av, b.z, acc[i][2]);
+        acc[i][3] = fmaf(av, b.w, acc[i][3]);
+      }
+    }
+  }
+}
+
+// C (kRowsTile x D, row stride kLdF) = the thread's `slab_fma` outputs.
+__device__ __forceinline__ void slab_store(const float (&acc)[4][4], float* C) {
+  const int lane = threadIdx.x & 31;
+  const int rg = lane & 7, n0 = (threadIdx.x >> 5) * 16 + 4 * (lane >> 3);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    store4(C + (rg + 8 * i) * kLdF + n0, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
 }
 
 __device__ __forceinline__ float gelu_tanh(float u) {

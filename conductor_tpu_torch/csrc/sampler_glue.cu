@@ -5,7 +5,8 @@
 //   emb_act = silu(temb[t] + emb_base)   (the temb add the JAX path does
 //                                         outside its kernel is fused here)
 //   h0      = x @ W_joint + seq_bias     (seq_bias = seq_emb[:T] + b_joint)
-// emb_act leaves as bf16 or, in the int8-AdaLN mode (`quantize_emb`,
+// emb_act leaves as bf16, as float32 (the float32 mode, `emb_dtype`
+// float32) or, in the int8-AdaLN mode (`quantize_emb`,
 // :58-72), as int8 codes with one float32 scale a row: symmetric per-row
 // quantization, scale = max(max|row|, 1e-8) / 127, code = round-half-even
 // (emb_act / scale), JAX `quantize_rows` (pallas_layer.py:345-354).  The
@@ -19,7 +20,8 @@
 // with (alpha, beta) from the host's ddim_affine_tables, passed by value.
 //
 // What bounds them on an H100: bytes.  At B = 8, T = 1800 K2 moves 54.0 MB
-// (46.7 in the int8 mode), emb_base's 29.5 MB read and emb_act written,
+// (46.7 in the int8 mode, 68.7 with float32 emb_act), emb_base's 29.5 MB
+// read and emb_act written,
 // 0.016 ms at 3.35 TB/s; K3 10.4 MB, mostly h, 0.003 ms.  Their products
 // (26 x 128 a row, 96 and 48 MFLOP at B = 8) stay on the CUDA cores, about a
 // microsecond there: an MMA tile would sit mostly idle at depth 26 or width
@@ -39,8 +41,8 @@
 // lanes by __shfl_sync; lane l owns h columns 4l..4l+3 (a 16-byte store)
 // and runs their 26-deep chain in ascending c from shared memory; it owns
 // emb_base's 16 values at the copies it made, writes them back as 8-byte
-// bf16 or 4-byte int8 stores, and keeps temb's matching 16 values in
-// registers for all its rows.  The int8 row maximum is 5 __shfl_xor_sync
+// bf16, 16-byte float32 or 4-byte int8 stores, and keeps temb's matching 16
+// values in registers for all its rows.  The int8 row maximum is 5 __shfl_xor_sync
 // steps.  2 stages at 3 blocks an SM (24 warps, ~64 KB of loads in flight
 // an SM) measured faster than 3 or 4 stages at 2 blocks
 // (scripts/k2_variants.py); a 1-D bulk copy into the ring was not tried.
@@ -131,7 +133,7 @@ prologue_rows(const float* __restrict__ x, const float* __restrict__ temb,
               const float* __restrict__ emb_base, const float* __restrict__ w_joint,
               const float* __restrict__ seq_bias, float* __restrict__ h,
               void* __restrict__ emb_out, float* __restrict__ emb_scale, int n_rows, int T,
-              int C, int E, int rows_per_block, int rnd) {
+              int C, int E, int rows_per_block, int rnd, int emb_f32) {
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int ev = E >> 7;  // 16-byte pieces of emb_base a lane
@@ -203,6 +205,15 @@ prologue_rows(const float* __restrict__ x, const float* __restrict__ temb,
       }
     }
     const size_t out0 = (size_t)row * E;
+    if (emb_f32) {
+      float4* out = reinterpret_cast<float4*>(static_cast<float*>(emb_out) + out0);
+#pragma unroll
+      for (int j = 0; j < kMaxEv; ++j)
+        if (j < ev)
+          out[j * 32 + lane] =
+              make_float4(silu(v[j].x), silu(v[j].y), silu(v[j].z), silu(v[j].w));
+      continue;
+    }
     if (emb_scale == nullptr) {
       bf16* out = static_cast<bf16*>(emb_out) + out0;
 #pragma unroll
@@ -353,13 +364,14 @@ CT_EXPORT int sampler_plan(int B, int T, int C, int E, int which, int* out) {
   return 0;
 }
 
-// emb_scale null: emb_act bf16; else int8 codes and their row scales.
+// emb_f32: emb_act float32; else emb_scale null: emb_act bf16; else int8
+// codes and their row scales.
 CT_EXPORT int sampler_prologue_forward(const void* x, const void* temb, const void* emb_base,
                                        const void* w_joint, const void* seq_bias, void* h,
                                        void* emb_act, void* emb_scale, int B, int T, int C,
-                                       int D, int E, int rnd, void* stream) {
+                                       int D, int E, int rnd, int emb_f32, void* stream) {
   if (D != kWidth || C < 1 || C > kPoseSlot || E < 128 || E > 128 * kMaxEv || E % 128 ||
-      B * T < 1)
+      B * T < 1 || (emb_f32 && emb_scale != nullptr))
     return (int)cudaErrorInvalidValue;
   int p[5];
   plan_of(B * T, C, E, 0, sm_count(), p);
@@ -372,7 +384,7 @@ CT_EXPORT int sampler_prologue_forward(const void* x, const void* temb, const vo
       static_cast<const float*>(x), static_cast<const float*>(temb),
       static_cast<const float*>(emb_base), static_cast<const float*>(w_joint),
       static_cast<const float*>(seq_bias), static_cast<float*>(h), emb_act,
-      static_cast<float*>(emb_scale), B * T, T, C, E, p[0], rnd);
+      static_cast<float*>(emb_scale), B * T, T, C, E, p[0], rnd, emb_f32);
   return (int)cudaGetLastError();
 }
 

@@ -9,7 +9,11 @@ its bf16-VPU mode too, and K2 and K1 in the int8-AdaLN mode on the int8
 operands of that step, with K1's AdaLN GEMM alone in both its modes at
 the shape K1 launches it (`check_stack_kernels`), and K4 on the encoder's
 7 blocks, a repeat bit-identical (`check_conv_blocks`); both also run alone
-at other batch sizes.  K2 (both modes) and K3 (`check_sampler_glue`) also
+at other batch sizes; on a trainer with ``compute_dtype="float32"`` the
+same checks run the float32 modes (the ``_f32`` names: K2 with float32
+emb_act, K1 alone, with bf16 VPU and with int8 AdaLN, its float32 GEMM, and
+K3), held to F32_REL_TOL (K1's bf16-VPU mode as `_check_vpu_mode` says) and
+priced at the float32 rate.  K2 (both modes) and K3 (`check_sampler_glue`) also
 report their device ms by launch, one launch a call, a repeat
 bit-identical and the tiling `ops.sampler_glue.plan` computes against the
 kernel's own, and run again at B = 8 against their bars
@@ -281,30 +285,37 @@ def check_sampler_glue(trainer, pro_args, cond, step, *, reps: int = 5, rel_tol:
     K3 against their plain versions on a ladder step's operands
     (`ladder_step_inputs`; K3's h from the plain prologue and decoder
     stack), each with `_glue_timing`'s device ms, launches, repeat and plan,
-    and ``bar_met`` against ``bars`` (by name) where given."""
+    and ``bar_met`` against ``bars`` (by name) where given.  On a float32
+    trainer K2 with float32 emb_act, K2 with int8 output and K3 with float32
+    products (the ``_f32`` names), their float32 outputs within
+    F32_REL_TOL."""
     fused = trainer.fused
     mxu = fused.mxu_dtype
+    f32 = mxu == torch.float32  # the float32 modes: K2's float32 emb_act, K3's float32 products
+    sfx, tol = ("_f32", F32_REL_TOL) if f32 else ("", rel_tol)
     bars = bars or {}
     x, _, emb_base = pro_args[:3]
     shape = (*x.shape, emb_base.shape[-1])
     pro_kw = dict(mxu_dtype=mxu, emb_dtype=mxu)
     call = functools.partial(sampler_prologue, *pro_args, **pro_kw)
-    pro = _glue_timing(_compare("sampler_prologue", call,
-                                lambda: sampler_prologue_plain(*pro_args, **pro_kw), reps, rel_tol,
-                                pro_args), call, "prologue", shape, bars, reps)
-    int8 = _glue_timing(_check_prologue_int8(pro_args, mxu, reps, rel_tol),
-                        functools.partial(sampler_prologue, *pro_args, mxu_dtype=mxu,
-                                          quantize_emb=True), "prologue", shape, bars, reps)
+    glue = [_glue_timing(_compare("sampler_prologue" + sfx, call,
+                                  lambda: sampler_prologue_plain(*pro_args, **pro_kw), reps, tol,
+                                  pro_args, product_dtype=mxu), call, "prologue", shape, bars,
+                         reps)]
+    glue.append(_glue_timing(_check_prologue_int8(pro_args, mxu, reps, rel_tol),
+                             functools.partial(sampler_prologue, *pro_args, mxu_dtype=mxu,
+                                               quantize_emb=True), "prologue", shape, bars, reps))
     h, emb_act, _ = sampler_prologue_plain(*pro_args, **pro_kw)
     h = decoder_stack_plain(h, emb_act, cond["kv_stack"], fused.mats, fused.vecs, fused.adaln_w,
                             fused.adaln_b, fused.num_heads, mxu_dtype=mxu)
     alpha, beta = ddim_affine_tables(trainer.sched)
     epi_args = (h, x, fused.w_out, fused.b_out, float(alpha[step]), float(beta[step]))
     call = functools.partial(sampler_epilogue, *epi_args, mxu_dtype=mxu)
-    epi = _glue_timing(_compare("sampler_epilogue", call,
-                                lambda: sampler_epilogue_plain(*epi_args, mxu_dtype=mxu), reps,
-                                rel_tol, epi_args), call, "epilogue", shape, bars, reps)
-    return [pro, int8, epi]
+    glue.append(_glue_timing(_compare("sampler_epilogue" + sfx, call,
+                                      lambda: sampler_epilogue_plain(*epi_args, mxu_dtype=mxu),
+                                      reps, tol, epi_args, product_dtype=mxu), call, "epilogue",
+                             shape, bars, reps))
+    return glue
 
 
 def _glue_timing(r: dict, call, which: str, shape, bars: dict, reps: int) -> dict:
@@ -408,10 +419,11 @@ def _check_adaln(name, emb_act, adaln_w, adaln_b, reps, rel_tol, **kw) -> dict:
     weights in one launch, against its plain version and one PyTorch call
     on the layers' weights side by side, (E, L N), made outside the timed
     call (never called by the port).  ``library_ms``: in bf16 `torch.addmm`
-    with float32 out, the same function; in int8 `torch._int_mm` (int32
-    out, the weights as a column-major view, the layout cuBLASLt takes),
-    since no one call dequantizes.  The yardstick of the bar the GEMM is
-    held to, `torch.matmul` in bf16 (bf16 out, no bias) or `torch._int_mm`,
+    with float32 out, the same function (in float32 `torch.addmm`, TF32
+    off); in int8 `torch._int_mm` (int32 out, the weights as a column-major
+    view, the layout cuBLASLt takes), since no one call dequantizes.  The
+    yardstick of the bar the GEMM is held to, `torch.matmul` in bf16 (bf16
+    out, no bias) or float32, or `torch._int_mm`,
     and the GEMM are also timed in device time (`device_ms`):
     ``no_slower_than_yardstick`` says whether the GEMM's is at most the
     yardstick's."""
@@ -426,6 +438,11 @@ def _check_adaln(name, emb_act, adaln_w, adaln_b, reps, rel_tol, **kw) -> dict:
         w_cm = w_cat.t().contiguous().t()
         library = yardstick = lambda: torch._int_mm(a2, w_cm)  # noqa: E731
         yardstick_name = "torch._int_mm"
+    elif emb_act.dtype == torch.float32:  # TF32 off: the callers run under full_float32
+        b_cat = adaln_b.reshape(-1)
+        library = lambda: torch.addmm(b_cat, a2, w_cat)  # noqa: E731
+        yardstick = lambda: torch.matmul(a2, w_cat)  # noqa: E731
+        yardstick_name = "torch.matmul float32"
     else:
         b_cat = adaln_b.reshape(-1)
         library = lambda: torch.addmm(b_cat, a2, w_cat, out_dtype=torch.float32)  # noqa: E731
@@ -434,7 +451,8 @@ def _check_adaln(name, emb_act, adaln_w, adaln_b, reps, rel_tol, **kw) -> dict:
     kernel = lambda: adaln_modulation(*args, **kw)  # noqa: E731
     r = _compare(name, kernel, lambda: adaln_modulation_plain(*args, **kw), reps, rel_tol,
                  (args, list(kw.values())), library, n_flops=n_ops,
-                 int8_ops=n_ops if int8 else 0) | {"shape": [*emb_act.shape, n_layers, n]}
+                 int8_ops=n_ops if int8 else 0, product_dtype=emb_act.dtype) | {
+                     "shape": [*emb_act.shape, n_layers, n]}
     r.update(device_ms=device_ms(kernel, reps), yardstick=yardstick_name,
              yardstick_device_ms=device_ms(yardstick, reps))
     r["no_slower_than_yardstick"] = r["device_ms"] <= r["yardstick_device_ms"]
@@ -444,7 +462,8 @@ def _check_adaln(name, emb_act, adaln_w, adaln_b, reps, rel_tol, **kw) -> dict:
 @torch.no_grad()
 def stack_operands(trainer, pro_args, cond) -> dict:
     """K1's arguments in each of its modes on the first ladder step's
-    operands (`ladder_step_inputs`): {count name: (args, kwargs)}, K2's plain
+    operands (`ladder_step_inputs`), in the trainer's operand type (bf16 or
+    float32): {the bf16 mode's count name: (args, kwargs)}, K2's plain
     output as x and emb_act, and in the int8-AdaLN mode its int8 codes and
     row scales with the trainer's weights packed as ``sampler_adaln_int8``
     packs them."""
@@ -463,29 +482,58 @@ def stack_operands(trainer, pro_args, cond) -> dict:
                                                adaln_w_scale=pack.adaln_w_scale))}
 
 
+def stack_flops(stack_args, ff: int) -> int:
+    """K1's matrix-product FLOPs on ``stack_args`` (`fused_decoder_stack`'s
+    arguments) with an FFN of width ``ff``: the AdaLN GEMM and, a layer,
+    seven D x D products, the FFN's two at width ``ff`` and three per-head
+    ones (k^T v, and the softmaxed q against the self and the cross KV).
+    `flops` of the plain version counts more than the function needs: its
+    head sums as products with a block-diagonal matrix, k^T v and q @ KV
+    across all of D, and the FFN zero-padded to D."""
+    x, adaln_w, num_heads = stack_args[0], stack_args[5], stack_args[7]
+    b, t, d = x.shape
+    n_layers, e, n = adaln_w.shape
+    per_layer = 7 * d * d + 2 * d * ff + 3 * d * (d // num_heads)
+    return 2 * b * t * n_layers * (e * n + per_layer)
+
+
 @torch.no_grad()
 def check_stack_kernels(trainer, pro_args, cond, *, reps: int = 5, rel_tol: float = REL_TOL,
                         suffix: str = "") -> list[dict]:
     """K1 in its three modes (bf16-MMA, bf16-VPU, int8-AdaLN), each against
     its plain version on `stack_operands`, and K1's AdaLN GEMM alone on all
-    the layers in bf16 and int8, as K1 launches it.  ``suffix`` is added to
-    every name (a second batch size)."""
+    the layers in bf16 and int8, as K1 launches it.  On a float32 trainer
+    the float32 mode alone, with bf16 VPU and with int8 AdaLN
+    (``decoder_stack_f32``, ``_f32_vpu_bf16``, ``_f32_int8``) and the
+    float32 GEMM (``adaln_modulation_f32``), within F32_REL_TOL (the
+    bf16-VPU mode as `_check_vpu_mode` says) and priced at the float32
+    rate.  K1's bounds count `stack_flops`.  ``suffix`` is added to every
+    name (a second batch size)."""
     ops = stack_operands(trainer, pro_args, cond)
     args, kw = ops["decoder_stack"]
     args8, kw8 = ops["decoder_stack_int8"]
+    mxu = kw["mxu_dtype"]
+    f32 = mxu == torch.float32
+    pre, tol = ("decoder_stack_f32", F32_REL_TOL) if f32 else ("decoder_stack", rel_tol)
+    n_flops = stack_flops(args, trainer.cfg.denoiser.ff_size)
     b, t, e = args8[1].shape
     int8_ops = 2 * b * t * e * args8[5].shape[-1] * args8[5].shape[0]
     results = [
-        _compare("decoder_stack", lambda: fused_decoder_stack(*args, **kw),
-                 lambda: decoder_stack_plain(*args, **kw), reps, rel_tol, args),
-        _check_adaln("adaln_modulation", args[1], args[5], args[6], reps, rel_tol, **kw),
-        _check_vpu_mode(args, kw["mxu_dtype"], reps),
-        _compare("decoder_stack_int8", lambda: fused_decoder_stack(*args8, **kw8),
-                 lambda: decoder_stack_plain(*args8, **kw8), reps, rel_tol,
-                 (args8, kw8["emb_scale"], kw8["adaln_w_scale"]), int8_ops=int8_ops),
-        _check_adaln("adaln_modulation_int8", args8[1], args8[5], args8[6], reps, rel_tol,
-                     emb_scale=kw8["emb_scale"], adaln_w_scale=kw8["adaln_w_scale"]),
+        _compare(pre, lambda: fused_decoder_stack(*args, **kw),
+                 lambda: decoder_stack_plain(*args, **kw), reps, tol, args, n_flops=n_flops,
+                 product_dtype=mxu),
+        _check_adaln("adaln_modulation_f32" if f32 else "adaln_modulation", args[1], args[5],
+                     args[6], reps, tol, **kw),
+        _check_vpu_mode(args, mxu, reps, n_flops),
+        _compare(pre + "_int8", lambda: fused_decoder_stack(*args8, **kw8),
+                 lambda: decoder_stack_plain(*args8, **kw8), reps, tol,
+                 (args8, kw8["emb_scale"], kw8["adaln_w_scale"]), n_flops=n_flops,
+                 int8_ops=int8_ops, product_dtype=mxu),
     ]
+    if not f32:  # the int8 GEMM is the same in both modes
+        results.append(_check_adaln("adaln_modulation_int8", args8[1], args8[5], args8[6], reps,
+                                    rel_tol, emb_scale=kw8["emb_scale"],
+                                    adaln_w_scale=kw8["adaln_w_scale"]))
     for r in results:
         r["name"] += suffix
     return results
@@ -552,16 +600,28 @@ def vpu_mode_ok(r: dict, mean_share: float) -> bool:
     return r["kernel_gap"] >= r["mode_gap"] / 2 and r["mean_abs_err"] <= mean_share * r["mean_mode_gap"]
 
 
-def _check_vpu_mode(stack_args, mxu, reps) -> dict:
+def _check_vpu_mode(stack_args, mxu, reps, n_flops) -> dict:
     """K1 in the bf16-VPU mode against its plain version: within
     VPU_REL_TOL of the largest value, and `vpu_mode_ok` with a mean
     distance of at most a quarter of the mode's mean move (0.04 of it
-    measured on an H100 at the serving shape)."""
+    measured on an H100 at the serving shape).  With float32 products
+    (``decoder_stack_f32_vpu_bf16``) also a mean distance within
+    F32_REL_TOL of the largest value: the kernel and the plain version sum
+    the same float32 products in other orders, so a bf16 rounding of the
+    mode's chains can fall on the other side of a tie, which moves its row
+    (and, through the next layer's KV, its clip) by up to a few tenths of a
+    percent, as between two float32 summation orders on the CPU
+    (tests/test_torch_port_sampler_modes.py)."""
     vpu = dict(mxu_dtype=mxu, vpu_dtype=torch.bfloat16)
-    r = _compare("decoder_stack_vpu_bf16", lambda: fused_decoder_stack(*stack_args, **vpu),
-                 lambda: decoder_stack_plain(*stack_args, **vpu), reps, VPU_REL_TOL, stack_args)
+    f32 = mxu == torch.float32
+    r = _compare("decoder_stack_f32_vpu_bf16" if f32 else "decoder_stack_vpu_bf16",
+                 lambda: fused_decoder_stack(*stack_args, **vpu),
+                 lambda: decoder_stack_plain(*stack_args, **vpu), reps, VPU_REL_TOL, stack_args,
+                 n_flops=n_flops, product_dtype=mxu)
     r.update(vpu_mode_errors(stack_args, mxu_dtype=mxu))
     r["ok"] &= vpu_mode_ok(r, 0.25)
+    if f32:
+        r["ok"] &= r["mean_abs_err"] <= F32_REL_TOL * r["ref_max_abs"]
     return r
 
 
@@ -584,14 +644,21 @@ def prologue_tie_errors(pro_args, **kw) -> int:
 
 def _check_prologue_int8(pro_args, mxu, reps, rel_tol) -> dict:
     """K2 with int8 output on the step's prologue inputs, its codes compared
-    dequantized (code x row scale); ``codes_differ`` and ``code_max_diff``
+    dequantized (code x row scale) within ``rel_tol`` (one code is 1/127 of
+    its row); ``codes_differ`` and ``code_max_diff``
     count the codes that differ from the plain version's, at most 1 apart
     and at no more than 0.1 % of them, and ``tie_errors`` the wrong codes on
-    exact ties (`prologue_tie_errors`), which must be 0."""
+    exact ties (`prologue_tie_errors`), which must be 0.  With float32
+    products (``sampler_prologue_f32_int8``) h within F32_REL_TOL."""
     kw = dict(mxu_dtype=mxu, quantize_emb=True)
-    pro = _compare("sampler_prologue_int8", lambda: sampler_prologue(*pro_args, **kw),
+    f32 = mxu == torch.float32
+    pro = _compare("sampler_prologue_f32_int8" if f32 else "sampler_prologue_int8",
+                   lambda: sampler_prologue(*pro_args, **kw),
                    lambda: sampler_prologue_plain(*pro_args, **kw), reps, rel_tol, pro_args,
-                   view=lambda o: (o[0], o[1].float() * o[2]))
+                   view=lambda o: (o[0], o[1].float() * o[2]), product_dtype=mxu)
+    if f32:
+        err, ref = pro["parts"][0]
+        pro["ok"] &= err <= F32_REL_TOL * ref
     _, q_got, _ = sampler_prologue(*pro_args, **kw)
     _, q_want, _ = sampler_prologue_plain(*pro_args, **kw)
     diff = (q_got.int() - q_want.int()).abs()

@@ -3,8 +3,12 @@
 Each kernel wrapper keeps a plain integer ``launches`` count, raised by one
 each time it launches its kernel on a CUDA tensor (never on the plain CPU
 path); K1 and K2 keep one more for each opt-in mode (``launches_int8``,
-``launches_vpu_bf16``), K4, K9, K10 and K11 one for their float32 mode
-(``launches_f32``), each launch counted in one mode's count only.  `launch_counts` / `reset_launch_counts` read and clear them.
+``launches_vpu_bf16``), K1, K2, K3, K4, K9, K10 and K11 one for their
+float32 mode (``launches_f32``; K1 also ``launches_f32_int8`` and
+``launches_f32_vpu_bf16``, K2 ``launches_f32_int8``), each launch counted
+in one mode's count only (but K1 with both int8 AdaLN and bf16 VPU,
+counted in both).
+`launch_counts` / `reset_launch_counts` read and clear them.
 A kernel that K1, K5 and K6 launch as one of their parts, the AdaLN GEMM, keeps
 its own count of launches, as the C entry points that launch it report
 them, which `part_launch_counts` reads.
@@ -52,10 +56,17 @@ KERNELS = {
     "conv3x3_dkernel_f32": (conv3x3_dkernel, "launches_f32"),
     "max_pool_f32": (fused_max_pool, "launches_f32"),
     "max_pool_bwd_f32": (max_pool_bwd, "launches_f32"),
+    "decoder_stack_f32": (fused_decoder_stack, "launches_f32"),
+    "decoder_stack_f32_int8": (fused_decoder_stack, "launches_f32_int8"),
+    "decoder_stack_f32_vpu_bf16": (fused_decoder_stack, "launches_f32_vpu_bf16"),
+    "sampler_prologue_f32": (sampler_prologue, "launches_f32"),
+    "sampler_prologue_f32_int8": (sampler_prologue, "launches_f32_int8"),
+    "sampler_epilogue_f32": (sampler_epilogue, "launches_f32"),
 }
 # count name -> (wrapper, attribute) of the kernels launched as parts of others
 PARTS = {
     "adaln_modulation": (adaln_modulation, "launches"),
+    "adaln_modulation_f32": (adaln_modulation, "launches_f32"),
 }
 
 

@@ -52,8 +52,8 @@ SIGNATURES = {
     "conv3x3_dkernel_f32_workspace": ([_I] * 5, ctypes.c_longlong),
     "conv3x3_dkernel_f32": ([_P] * 4 + [_I] * 5 + [_P], _I),
     # x, temb, emb_base, w_joint, seq_bias, h, emb_act, emb_scale (null: bf16
-    # emb_act), B, T, C, D, E, round_bf16, stream
-    "sampler_prologue_forward": ([_P] * 8 + [_I] * 6 + [_P], _I),
+    # or float32 emb_act), B, T, C, D, E, round_bf16, emb_f32, stream
+    "sampler_prologue_forward": ([_P] * 8 + [_I] * 7 + [_P], _I),
     # h, x_t, w_out, b_out, out, alpha, beta, B, T, D, C, round_bf16, stream
     "sampler_epilogue_forward": ([_P] * 5 + [_F, _F] + [_I] * 5 + [_P], _I),
     # B, T, C, E, which (0 K2, 1 K3), out (5 int32: rows, blocks, threads,
@@ -61,14 +61,14 @@ SIGNATURES = {
     "sampler_plan": ([_I] * 5 + [_P], _I),
     # x, emb, emb_scale, kv_cross, mats, vecs, adaln_w, adaln_w_scale, adaln_b,
     # out, partials, kv_self, mod, gemm_launches, B, T, D, E, H, L, int8,
-    # vpu_bf16, stream (gemm_launches: a host int the call raises by one for
-    # each AdaLN GEMM launch, as adaln_modulation_forward's launches)
-    "decoder_stack_forward": ([_P] * 14 + [_I] * 8 + [_P], _I),
+    # vpu_bf16, mxu_f32, stream (gemm_launches: a host int the call raises by
+    # one for each AdaLN GEMM launch, as adaln_modulation_forward's launches)
+    "decoder_stack_forward": ([_P] * 14 + [_I] * 9 + [_P], _I),
     # x, emb, kv_cross, mats, vecs, adaln_w, adaln_b, out, partials, kv_self, mod,
     # gemm_launches, B, T, t_valid, D, E, H, stream
     "decoder_layer_forward": ([_P] * 12 + [_I] * 6 + [_P], _I),
     # emb, adaln_w, emb_scale, adaln_w_scale, adaln_b, out, launches, M, E, N, L,
-    # int8, stream
+    # operands (0 bf16, 1 int8, 2 float32), stream
     "adaln_modulation_forward": ([_P] * 7 + [_I] * 5 + [_P], _I),
     # B, T, D, E, H -> workspace bytes of decoder_layer_backward
     "decoder_layer_backward_workspace": ([_I] * 5, ctypes.c_longlong),

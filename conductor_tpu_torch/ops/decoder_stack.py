@@ -27,6 +27,11 @@ serving modes:
   where JAX's `_layer_body` casts to ``vd`` (`:98, 102-105, 154`); LN
   statistics, the time softmax, KV and the residual stay float32.
 
+Matmul operands are bf16 (``mxu_dtype=torch.bfloat16``) or, in the float32
+mode (``mxu_dtype=torch.float32``), float32: the matrices, the cross KV,
+``emb_act`` and ``adaln_w`` float32 (int8 in the int8-AdaLN mode), KV_self
+unrounded; both opt-in modes compose with it.
+
 Weight banks as `train/fused_denoiser.pack_layer_weights` packs them:
 mats (L, 9, D, D), vecs (L, 24, D), adaln_w (L, E, 6D), adaln_b (L, 6D),
 kv_cross (L, B, D, D) block-diagonal.  A CPU tensor goes to the plain
@@ -34,7 +39,8 @@ version, a CUDA tensor to the kernels in `csrc/decoder_stack.cu` (passes A,
 B and C of each layer) and `csrc/adaln_gemm.cu` (every layer's AdaLN
 modulation, one tensor-core GEMM launched before the first layer;
 `adaln_modulation` runs it alone, `adaln_modulation_plain` is its plain
-version).
+version); in the float32 mode the passes and the GEMM run float32 FFMA on
+the CUDA cores.
 """
 
 from __future__ import annotations
@@ -105,10 +111,16 @@ def adaln_modulation_plain(emb_act, adaln_w, adaln_b, *, mxu_dtype=torch.float32
     return acc * (emb_scale * adaln_w_scale) + adaln_b.float()
 
 
-def _adaln_widths_ok(e: int, n: int, int8: bool) -> bool:
-    """The AdaLN GEMM's tiles: 128 bytes of E a stage (64 bf16 or 128 int8
-    codes), 128 columns a tile (csrc/adaln_gemm.cu)."""
-    return e > 0 and (e * (1 if int8 else 2)) % 128 == 0 and n > 0 and n % 128 == 0
+# the AdaLN GEMM's operand types (csrc/adaln_gemm.cuh AdalnOperands)
+_GEMM_OPERANDS = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
+
+
+def _adaln_widths_ok(e: int, n: int, dtype: torch.dtype) -> bool:
+    """The AdaLN GEMM's tiles for its operand ``dtype``: 128 bytes of E a
+    stage (64 bf16 or 128 int8 codes), or 8 float32 k-rows a slice; 128
+    columns a tile (csrc/adaln_gemm.cu)."""
+    step = {torch.bfloat16: 64, torch.int8: 128, torch.float32: 8}[dtype]
+    return e > 0 and e % step == 0 and n > 0 and n % 128 == 0
 
 
 def adaln_modulation(emb_act, adaln_w, adaln_b, *, mxu_dtype=torch.float32, emb_scale=None,
@@ -117,8 +129,9 @@ def adaln_modulation(emb_act, adaln_w, adaln_b, *, mxu_dtype=torch.float32, emb_
     ``adaln_w`` (L, E, N), ``adaln_b`` (L, N) (and ``adaln_w_scale`` (L, 1,
     N)) -> (..., L N) float32: the plain version on a CPU tensor, on a CUDA
     tensor the GEMM that K1 (all its layers in one launch), K5 and K6 run
-    before their row passes (bf16 operands, or int8 codes with their
-    scales; float32 sums and output)."""
+    before their row passes (bf16 or float32 operands, or int8 codes with
+    their scales; float32 sums and output).  Its launches count in
+    ``launches``, those in float32 in ``launches_f32``."""
     int8 = adaln_w_scale is not None
     if (emb_scale is None) == int8:
         raise ValueError("the int8 mode takes both emb_scale and adaln_w_scale")
@@ -128,10 +141,10 @@ def adaln_modulation(emb_act, adaln_w, adaln_b, *, mxu_dtype=torch.float32, emb_
     n_layers, e, n = adaln_w.shape
     lead = tuple(emb_act.shape[:-1])
     m = math.prod(lead)
-    if (not int8 and mxu_dtype != torch.bfloat16) or not _adaln_widths_ok(e, n, int8) or m < 1:
-        raise ValueError(f"the AdaLN kernel takes bf16 operands (or int8 codes), E a multiple of "
-                         f"{128 if int8 else 64} and N of 128; got {mxu_dtype}, E={e}, N={n}")
-    dtype = torch.int8 if int8 else torch.bfloat16
+    dtype = torch.int8 if int8 else mxu_dtype
+    if dtype not in _GEMM_OPERANDS or not _adaln_widths_ok(e, n, dtype) or m < 1:
+        raise ValueError(f"the AdaLN kernel takes bf16 or float32 operands (or int8 codes), E a "
+                         f"multiple of 64, 8 or 128 and N of 128; got {dtype}, E={e}, N={n}")
     _build.require(emb_act, "emb_act", dtype, (*lead, e))
     _build.require(adaln_w, "adaln_w", dtype, (n_layers, e, n))
     _build.require(adaln_b, "adaln_b", torch.float32, (n_layers, n))
@@ -144,15 +157,23 @@ def adaln_modulation(emb_act, adaln_w, adaln_b, *, mxu_dtype=torch.float32, emb_
     err = _build.library().adaln_modulation_forward(
         emb_act.data_ptr(), adaln_w.data_ptr(), emb_scale.data_ptr() if int8 else None,
         adaln_w_scale.data_ptr() if int8 else None, adaln_b.data_ptr(), out.data_ptr(),
-        ctypes.addressof(launches), m, e, n, n_layers, int(int8), _build.stream())
+        ctypes.addressof(launches), m, e, n, n_layers, _GEMM_OPERANDS[dtype], _build.stream())
     _build.check(err, "adaln_modulation_forward")
-    adaln_modulation.launches += launches.value
+    _count_gemm(dtype, launches.value)
     return out
 
 
+def _count_gemm(dtype: torch.dtype, n: int) -> None:
+    if dtype == torch.float32:
+        adaln_modulation.launches_f32 += n
+    else:
+        adaln_modulation.launches += n
+
+
 # the GEMM's launches, as the C entry points that launch it (this wrapper's,
-# K1's, K5's and K6's) report them
+# K1's, K5's and K6's) report them: bf16 and int8, and float32 apart
 adaln_modulation.launches = 0
+adaln_modulation.launches_f32 = 0
 
 
 def decoder_stack_plain(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_heads, *,
@@ -217,7 +238,12 @@ def fused_decoder_stack(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_
                         adaln_w_scale=None):
     """x (B, T, D) float32, emb_act (B, T, E) -> (B, T, D) float32.  The
     int8-AdaLN mode takes int8 ``emb_act`` and ``adaln_w`` with their
-    ``emb_scale`` (B, T, 1) and ``adaln_w_scale`` (L, 1, 6D)."""
+    ``emb_scale`` (B, T, 1) and ``adaln_w_scale`` (L, 1, 6D).  On CUDA the
+    operands are in ``mxu_dtype``, bf16 or float32.  Each launch counts in
+    one count of its mode: ``launches`` (bf16 alone), ``launches_int8``
+    and ``launches_vpu_bf16`` (both when both are on), and in the float32
+    mode ``launches_f32`` (alone), ``launches_f32_int8`` and
+    ``launches_f32_vpu_bf16``."""
     int8 = adaln_w_scale is not None
     if (emb_scale is None) == int8:
         raise ValueError("the int8-AdaLN mode takes both emb_scale and adaln_w_scale")
@@ -230,19 +256,20 @@ def fused_decoder_stack(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_
     b, t, d = x.shape
     n_layers, e = mats.shape[0], emb_act.shape[-1]
     dh = d // num_heads
-    if (mxu_dtype != torch.bfloat16 or d != 128 or not _adaln_widths_ok(e, 6 * d, int8)
-            or 32 % dh or dh * num_heads != d):
+    emb_dtype = torch.int8 if int8 else mxu_dtype
+    if (mxu_dtype not in (torch.bfloat16, torch.float32) or d != 128
+            or not _adaln_widths_ok(e, 6 * d, emb_dtype) or 32 % dh or dh * num_heads != d):
         raise ValueError(
-            f"decoder_stack kernel takes bf16 operands, D = 128, E a multiple of "
-            f"{128 if int8 else 64} and a head width dividing 32; got {mxu_dtype}, D={d}, E={e}, "
-            f"H={num_heads}"
+            f"decoder_stack kernel takes bf16 or float32 operands, D = 128, E a multiple of "
+            f"64 (bf16), 8 (float32) or 128 (int8) and a head width dividing 32; got "
+            f"{mxu_dtype}, D={d}, E={e}, H={num_heads}"
         )
     bf, f32 = torch.bfloat16, torch.float32
-    emb_dtype = torch.int8 if int8 else bf
+    mode_f32 = mxu_dtype == f32
     _build.require(x, "x", f32, (b, t, d))
     _build.require(emb_act, "emb_act", emb_dtype, (b, t, e))
-    _build.require(kv_cross, "kv_cross", bf, (n_layers, b, d, d))
-    _build.require(mats, "mats", bf, (n_layers, 9, d, d))
+    _build.require(kv_cross, "kv_cross", mxu_dtype, (n_layers, b, d, d))
+    _build.require(mats, "mats", mxu_dtype, (n_layers, 9, d, d))
     _build.require(vecs, "vecs", f32, (n_layers, 24, d))
     _build.require(adaln_w, "adaln_w", emb_dtype, (n_layers, e, 6 * d))
     _build.require(adaln_b, "adaln_b", f32, (n_layers, 6 * d))
@@ -253,7 +280,7 @@ def fused_decoder_stack(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_
     n_tiles = -(-t // ROWS_PER_TILE)
     out = torch.empty_like(x)
     partials = torch.empty((b, n_tiles, 2 * d + d * dh), dtype=f32, device=x.device)
-    kv_self = torch.empty((b, d, d), dtype=bf, device=x.device)
+    kv_self = torch.empty((b, d, d), dtype=mxu_dtype, device=x.device)
     mod = torch.empty((b * t, n_layers * 6 * d), dtype=f32, device=x.device)  # all layers' AdaLN
     gemm_launches = ctypes.c_int(0)
     err = _build.library().decoder_stack_forward(
@@ -261,21 +288,31 @@ def fused_decoder_stack(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_
         kv_cross.data_ptr(), mats.data_ptr(), vecs.data_ptr(), adaln_w.data_ptr(),
         adaln_w_scale.data_ptr() if int8 else None, adaln_b.data_ptr(), out.data_ptr(),
         partials.data_ptr(), kv_self.data_ptr(), mod.data_ptr(), ctypes.addressof(gemm_launches),
-        b, t, d, e, num_heads, n_layers, int(int8), int(vpu_dtype == bf), _build.stream(),
+        b, t, d, e, num_heads, n_layers, int(int8), int(vpu_dtype == bf), int(mode_f32),
+        _build.stream(),
     )
     _build.check(err, "decoder_stack_forward")
-    adaln_modulation.launches += gemm_launches.value
+    _count_gemm(emb_dtype, gemm_launches.value)
     # one count per mode: "decoder_stack" the bf16-MMA mode alone, and one
-    # each for the int8-AdaLN and bf16-VPU modes (both when both are on)
+    # each for the int8-AdaLN and bf16-VPU modes (both when both are on);
+    # the float32 mode's counts apart
+    pre = "launches_f32" if mode_f32 else "launches"
     if int8:
-        fused_decoder_stack.launches_int8 += 1
+        _bump(f"{pre}_int8")
     if vpu_dtype == bf:
-        fused_decoder_stack.launches_vpu_bf16 += 1
+        _bump(f"{pre}_vpu_bf16")
     if not int8 and vpu_dtype != bf:
-        fused_decoder_stack.launches += 1
+        _bump(pre)
     return out
+
+
+def _bump(attr: str) -> None:
+    setattr(fused_decoder_stack, attr, getattr(fused_decoder_stack, attr) + 1)
 
 
 fused_decoder_stack.launches = 0
 fused_decoder_stack.launches_int8 = 0
 fused_decoder_stack.launches_vpu_bf16 = 0
+fused_decoder_stack.launches_f32 = 0
+fused_decoder_stack.launches_f32_int8 = 0
+fused_decoder_stack.launches_f32_vpu_bf16 = 0

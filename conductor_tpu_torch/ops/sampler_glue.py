@@ -9,9 +9,10 @@ Port of `conductor_tpu/ops/pallas_sampler.py`:
   the JAX package);
 - `sampler_prologue` (K2, `:80-126`): emb_act = silu(temb[t] + emb_base) and
   h0 = x @ W_joint + seq_bias.  The add of the time-embedding row, which the
-  JAX path does just outside its kernel, is fused in.  With
-  ``quantize_emb`` (the int8-AdaLN mode) emb_act leaves as int8 codes and
-  float32 row scales (`emb_activation`, `:58-72`);
+  JAX path does just outside its kernel, is fused in.  emb_act leaves in
+  ``emb_dtype``, bf16 or float32 (the float32 mode), or with
+  ``quantize_emb`` (the int8-AdaLN mode) as int8 codes and float32 row
+  scales (`emb_activation`, `:58-72`);
 - `sampler_epilogue` (K3, `:143-174`): x0 = h @ W_out + b_out and the DDIM
   update.
 
@@ -20,7 +21,10 @@ plain version, a CUDA tensor to the kernel in `csrc/sampler_glue.cu`: K2 a
 warp a row, each warp streaming its rows through a ring of `PRO_STAGES`
 shared-memory slots by cp.async; K3 a warp a run of rows, streamed `EPI_GROUP`
 at a time through a ring of `EPI_STAGES` slots, lane c keeping W_out's
-column c in registers.
+column c in registers.  Matmul operands are rounded to bf16 with
+``mxu_dtype=torch.bfloat16``; with float32 they stay float32 (K3's float32
+mode, counted apart in ``launches_f32``, as K2's float32 emb_act is, and
+K2's int8 output beside float32 products in ``launches_f32_int8``).
 `plan` computes the tiling each launch picks (the kernel's `sampler_plan`
 reports the same, `kernel_plan`), `prologue_rows` / `epilogue_outputs` the
 rows and outputs each block, warp and thread takes.  `ladder_glue` checks a
@@ -154,10 +158,10 @@ def _check_prologue(x, temb, emb_base, w_joint, seq_bias, *, mxu_dtype, emb_dtyp
     """Raise unless K2 takes these CUDA operands (`sampler_prologue`)."""
     b, t, c = x.shape
     e, d = emb_base.shape[-1], w_joint.shape[-1]
-    if (emb_dtype != torch.bfloat16 and not quantize_emb) or mxu_dtype not in (
+    if (emb_dtype not in (torch.bfloat16, torch.float32) and not quantize_emb) or mxu_dtype not in (
             torch.bfloat16, torch.float32):
-        raise ValueError("sampler_prologue kernel writes bf16 or int8 emb_act; mxu_dtype bf16 "
-                         "or f32")
+        raise ValueError("sampler_prologue kernel writes bf16, float32 or int8 emb_act; mxu_dtype "
+                         "bf16 or f32")
     if d != WIDTH or not 1 <= c <= POSE_SLOT or e % 128 or not 128 <= e <= 128 * MAX_EV:
         raise ValueError(f"sampler_prologue kernel takes D = {WIDTH}, C <= {POSE_SLOT} and E a "
                          f"multiple of 128 up to {128 * MAX_EV}; got D={d}, C={c}, E={e}")
@@ -172,23 +176,30 @@ def _check_prologue(x, temb, emb_base, w_joint, seq_bias, *, mxu_dtype, emb_dtyp
     _build.require_aligned(temb=temb, emb_base=emb_base, w_joint=w_joint, seq_bias=seq_bias)
 
 
-def _prologue_launch(x, temb, emb_base, w_joint, seq_bias, rnd: int, quantize_emb: bool):
+def _prologue_launch(x, temb, emb_base, w_joint, seq_bias, rnd: int, quantize_emb: bool,
+                     emb_dtype: torch.dtype):
     """K2 on operands `_check_prologue` has passed: one launch."""
     b, t, c = x.shape
     e = emb_base.shape[-1]
+    emb_f32 = not quantize_emb and emb_dtype == torch.float32
     h = torch.empty((b, t, WIDTH), dtype=torch.float32, device=x.device)
-    emb_act = torch.empty((b, t, e), dtype=torch.int8 if quantize_emb else torch.bfloat16,
+    emb_act = torch.empty((b, t, e), dtype=torch.int8 if quantize_emb else emb_dtype,
                           device=x.device)
     emb_scale = (torch.empty((b, t, 1), dtype=torch.float32, device=x.device) if quantize_emb
                  else None)
     err = _build.library().sampler_prologue_forward(
         x.data_ptr(), temb.data_ptr(), emb_base.data_ptr(), w_joint.data_ptr(),
         seq_bias.data_ptr(), h.data_ptr(), emb_act.data_ptr(),
-        emb_scale.data_ptr() if quantize_emb else None, b, t, c, WIDTH, e, rnd, _build.stream(),
+        emb_scale.data_ptr() if quantize_emb else None, b, t, c, WIDTH, e, rnd, int(emb_f32),
+        _build.stream(),
     )
     _build.check(err, "sampler_prologue_forward")
-    if quantize_emb:
+    if quantize_emb and not rnd:
+        sampler_prologue.launches_f32_int8 += 1
+    elif quantize_emb:
         sampler_prologue.launches_int8 += 1
+    elif emb_f32:
+        sampler_prologue.launches_f32 += 1
     else:
         sampler_prologue.launches += 1
     return h, emb_act, emb_scale
@@ -200,14 +211,15 @@ def sampler_prologue(x, temb, emb_base, w_joint, seq_bias, *,
     (B, T, E), w_joint (C, D), seq_bias (>= T, D) = seq_emb + b_joint ->
     (h (B, T, D) float32, emb_act (B, T, E) ``emb_dtype``, None), or with
     ``quantize_emb`` (h, emb_q (B, T, E) int8, emb_scale (B, T, 1)
-    float32).  One launch, tiled as `plan` says."""
+    float32).  One launch, tiled as `plan` says; on CUDA ``emb_dtype`` is
+    bf16 or float32."""
     if not x.is_cuda:
         return sampler_prologue_plain(x, temb, emb_base, w_joint, seq_bias, mxu_dtype=mxu_dtype,
                                       emb_dtype=emb_dtype, quantize_emb=quantize_emb)
     _check_prologue(x, temb, emb_base, w_joint, seq_bias, mxu_dtype=mxu_dtype,
                     emb_dtype=emb_dtype, quantize_emb=quantize_emb)
     return _prologue_launch(x, temb, emb_base, w_joint, seq_bias,
-                            int(mxu_dtype == torch.bfloat16), quantize_emb)
+                            int(mxu_dtype == torch.bfloat16), quantize_emb, emb_dtype)
 
 
 def sampler_epilogue_plain(h, x_t, w_out, b_out, alpha, beta, *, mxu_dtype=torch.float32):
@@ -239,7 +251,10 @@ def _epilogue_launch(h, x_t, w_out, b_out, alpha: float, beta: float, rnd: int):
         alpha, beta, b, t, WIDTH, POSE, rnd, _build.stream(),
     )
     _build.check(err, "sampler_epilogue_forward")
-    sampler_epilogue.launches += 1
+    if rnd:
+        sampler_epilogue.launches += 1
+    else:
+        sampler_epilogue.launches_f32 += 1
     return out
 
 
@@ -280,10 +295,13 @@ def ladder_glue(x, temb_table, emb_base, w_joint, seq_bias, w_out, b_out, *,
     _check_epilogue(x, w_out, b_out, mxu_dtype=mxu_dtype)
     rnd = int(mxu_dtype == torch.bfloat16)
     return (lambda x_t, temb: _prologue_launch(x_t, temb, emb_base, w_joint, seq_bias, rnd,
-                                               quantize_emb),
+                                               quantize_emb, mxu_dtype),
             lambda h, x_t, a, b: _epilogue_launch(h, x_t, w_out, b_out, float(a), float(b), rnd))
 
 
 sampler_prologue.launches = 0
 sampler_prologue.launches_int8 = 0
+sampler_prologue.launches_f32 = 0
+sampler_prologue.launches_f32_int8 = 0
 sampler_epilogue.launches = 0
+sampler_epilogue.launches_f32 = 0

@@ -451,9 +451,10 @@ def require_device(device: torch.device | str) -> torch.device:
 def _check_training_config(cfg: Config, device: torch.device | str) -> None:
     """Raise on the training options the port does not run on ``device``:
     the gating of the fused layers (`conductor_tpu/train/ddpm_trainer.py:
-    119-125`), the kernels whose float32 mode is not ported on CUDA (K1 / K2
-    and K5 / K6, the fused layers; K7, the perceptual ST-GCN: see
-    `_check_float32_kernels`), and the modes not ported yet (denoiser
+    119-125`), the kernels whose float32 mode is not ported on CUDA (K5 /
+    K6, the fused training layers; K7, the perceptual ST-GCN: see
+    `_check_float32_kernels`), the model widths the kernels do not take on
+    CUDA (`_check_kernel_widths`), and the modes not ported yet (denoiser
     dropout among them)."""
     d, tc = cfg.denoiser, cfg.train
     if d.train_layer_impl not in ("flax", "pallas_fused"):
@@ -466,6 +467,7 @@ def _check_training_config(cfg: Config, device: torch.device | str) -> None:
     if tc.feat_impl not in ("flax", "pallas"):
         raise ValueError(f"unknown feat_impl: {tc.feat_impl}")
     _check_float32_kernels(cfg, device)
+    _check_kernel_widths(cfg, device)
     if tc.timestep_sampler not in ("uniform", "loss-second-moment"):
         raise ValueError(f"unknown timestep sampler: {tc.timestep_sampler}")
     if d.dropout != 0.0:
@@ -476,15 +478,15 @@ def _check_training_config(cfg: Config, device: torch.device | str) -> None:
 
 def _check_float32_kernels(cfg: Config, device: torch.device | str) -> None:
     """A float32 config on CUDA runs only the kernels whose float32 mode is
-    ported: K4 (the music encoder, ``music_encoder_impl="pallas"``), K3 and
-    K8.  Raise, naming each kernel the config would launch without a
-    float32 mode (K1 / K2, K5 / K6, K7) and the knobs that run today, rather
-    than fail in a wrapper at the first call."""
+    ported: K1 / K2 / K3 (the fused sampler, ``layer_impl="pallas_fused"``),
+    K4 (the music encoder, ``music_encoder_impl="pallas"``) and K8.  Raise,
+    naming each kernel the config would launch without a float32 mode (K5 /
+    K6, K7) and the knobs that run today, rather than fail in a wrapper at
+    the first call."""
     d, tc = cfg.denoiser, cfg.train
     if torch.device(device).type != "cuda" or d.compute_dtype != "float32":
         return
     unported = [name for name, used in (
-        ("K1 / K2, the fused sampler (layer_impl='pallas_fused')", d.layer_impl == "pallas_fused"),
         ("K5 / K6, the fused training layers (train_layer_impl='pallas_fused')",
          d.train_layer_impl == "pallas_fused"),
         ("K7, the perceptual ST-GCN (feat_impl='pallas')", tc.feat_impl == "pallas"),
@@ -493,6 +495,48 @@ def _check_float32_kernels(cfg: Config, device: torch.device | str) -> None:
         raise ValueError(
             "compute_dtype='float32' on CUDA: the float32 mode of " + "; ".join(unported)
             + " is not ported yet (these kernels take bf16 operands).  The float32 path that "
-            "runs today pins layer_impl='flax', train_layer_impl='flax' and feat_impl='flax', "
-            "the music encoder on K4's float32 mode (music_encoder_impl='pallas') or on the "
-            "plain module ('flax')")
+            "runs today pins train_layer_impl='flax' and feat_impl='flax'; serving runs on the "
+            "float32 kernels (layer_impl='pallas_fused', music_encoder_impl='pallas') or on the "
+            "plain modules (layer_impl='flax', music_encoder_impl='flax')")
+
+
+# the widths the decoder kernels are built for (csrc/layer_common.cuh D, the
+# K2 / K3 pose width, ops/attention.py HEAD_DIM)
+_KERNEL_D, _KERNEL_POSE, _K8_HEAD = 128, 26, 16
+
+
+def _check_kernel_widths(cfg: Config, device: torch.device | str) -> None:
+    """On CUDA the decoder kernels take the flagship's widths only: K1 /
+    K2 / K3 (``layer_impl="pallas_fused"``) and K5 / K6
+    (``train_layer_impl="pallas_fused"``) D = 128 and a head width dividing
+    32 (K3 also the 26-wide pose), K8 (``attention_impl="pallas"`` where a
+    plain-layer path runs: ``layer_impl`` or ``train_layer_impl`` "flax",
+    or ``replicate_reference_mask``) a head width of 16.  Raise at
+    construction, naming each kernel a config of other widths would reach
+    and the knobs that run it on the plain modules, rather than fail at the
+    first call; the CPU takes every width.  Porting the other widths is
+    ROADMAP P5f."""
+    d = cfg.denoiser
+    if torch.device(device).type != "cuda":
+        return
+    dh = d.latent_dim // d.num_heads
+    layers_ok = d.latent_dim == _KERNEL_D and dh * d.num_heads == d.latent_dim and 32 % dh == 0
+    plain_layers = (d.layer_impl == "flax" or d.train_layer_impl == "flax"
+                    or cfg.train.replicate_reference_mask)
+    refused = [name for name, used in (
+        ("K1 / K2 / K3, the fused sampler (layer_impl='pallas_fused')",
+         d.layer_impl == "pallas_fused" and not (layers_ok and d.input_feats == _KERNEL_POSE)),
+        ("K5 / K6, the fused training layers (train_layer_impl='pallas_fused')",
+         d.train_layer_impl == "pallas_fused" and not layers_ok),
+        ("K8, the plain layers' linear attention (attention_impl='pallas')",
+         d.attention_impl == "pallas" and plain_layers and dh != _K8_HEAD),
+    ) if used]
+    if refused:
+        raise ValueError(
+            f"latent_dim={d.latent_dim}, num_heads={d.num_heads} (head width {dh}), "
+            f"input_feats={d.input_feats} on CUDA: the kernels are built for D = {_KERNEL_D}, a "
+            f"head width dividing 32 ({_K8_HEAD} in the plain layers' attention) and a "
+            f"{_KERNEL_POSE}-wide pose, so " + "; ".join(refused) + " would fail at the first "
+            "call.  The "
+            "plain modules take every width: pin layer_impl='flax', train_layer_impl='flax' "
+            "and attention_impl='xla'")

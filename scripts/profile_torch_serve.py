@@ -5,8 +5,10 @@
 
 `DDPMTrainer.generate(num_steps=10)` on the flagship configuration
 (D = 128, 8 layers, E = 512) with synthetic weights, 60-s clips (mel
-(B, 5400, 128), seeded), on two configs: bench.py's serving config (int8
-AdaLN, `bench.py:41-50`) and the bf16 config ("auto" on CUDA).  Per config
+(B, 5400, 128), seeded), on three configs: bench.py's serving config
+(int8 AdaLN, `bench.py:41-50`), the bf16 config ("auto" on CUDA) and
+float32 on the fused ladder's float32 mode (``compute_dtype="float32"``,
+``layer_impl="pallas_fused"``, the plain training layers).  Per config
 and batch: one warm-up call, two calls timed to the host readback, then one
 under `torch.profiler`.  It prints the wall ms per ladder step without and
 under the profiler, the device ms per step (the kernels' summed times), the
@@ -17,7 +19,8 @@ K1 without the GEMM shows 0 there and the product inside its row pass),
 K2's and K3's device ms per step, and the five kernels with the most
 device time.  ``--tree`` profiles the
 port in another checkout (a parent commit unpacked by `git archive`),
-which builds its own kernels.
+which builds its own kernels; a config that tree refuses at construction
+(the float32 ladder before it was ported) is skipped, with a line saying so.
 """
 
 from __future__ import annotations
@@ -83,14 +86,26 @@ def main() -> None:
                          capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(f"tree {args.tree.resolve()} on {smi}")
     cfg = Config()
-    configs = {"bench.py (int8 AdaLN)": cfg.replace(
-        denoiser=dataclasses.replace(cfg.denoiser, **BENCH_DENOISER)), "bf16": cfg}
+    configs = {
+        "bench.py (int8 AdaLN)": cfg.replace(
+            denoiser=dataclasses.replace(cfg.denoiser, **BENCH_DENOISER)),
+        "bf16": cfg,
+        "float32 fused ladder": cfg.replace(
+            denoiser=dataclasses.replace(cfg.denoiser, compute_dtype="float32",
+                                         layer_impl="pallas_fused", music_encoder_impl="pallas",
+                                         train_layer_impl="flax"),
+            train=dataclasses.replace(cfg.train, feat_impl="flax")),
+    }
     rng = np.random.RandomState(0)
     mel = torch.from_numpy(rng.uniform(0, 1, size=(max(args.batches), 5400, 128))
                            .astype(np.float32)).cuda()
     sd = None
     for label, c in configs.items():
-        tr = DDPMTrainer(c, device="cuda")
+        try:
+            tr = DDPMTrainer(c, device="cuda")
+        except ValueError as e:
+            print(f"[serve] {label}: skipped, the tree refuses it at construction: {e}")
+            continue
         sd = sd or synthetic_state_dict(tr.model, seed=0)
         tr.load_reference_state_dict(sd)
         for b in args.batches:

@@ -115,7 +115,7 @@ def test_adaln_wrapper_takes_the_plain_path_on_cpu():
     got = adaln_modulation(emb, w, bias, emb_scale=emb_scale, adaln_w_scale=w_scale)
     assert torch.equal(got, adaln_modulation_plain(emb, w, bias, emb_scale=emb_scale,
                                                    adaln_w_scale=w_scale))
-    assert part_launch_counts() == {"adaln_modulation": 0}
+    assert part_launch_counts() == {"adaln_modulation": 0, "adaln_modulation_f32": 0}
     with pytest.raises(ValueError):
         adaln_modulation(emb, w, bias, emb_scale=emb_scale)
 

@@ -19,7 +19,10 @@ forward keeping only its ReLU bit masks), and an M2SGAN step on the
 kernels ("auto": K4 on the frozen encoder and K7 in the SyncLoss; with
 the encoder training, K4's training modes, K9, K10 and K11) against the
 plain float32 step at S = 6, and 2 steps of the stage-2 training CLI
-launching K5 / K6 / K7 every step.  Skips
+launching K5 / K6 / K7 every step; the fused ladder's float32 mode: K1
+alone, with bf16 VPU and with int8 AdaLN, its float32 GEMM, K2's float32
+emb_act and K3's float32 products within F32_REL_TOL, and a float32
+generate through them against the plain float32 path.  Skips
 without a CUDA card; on one, run it with
 ``python -m pytest --noconftest tests/test_torch_port_cuda.py``.
 ``chip_smoke.py`` makes the same checks at the flagship size."""
@@ -41,6 +44,7 @@ from conductor_tpu_torch.interop import (
     synthetic_state_dict,
 )
 from conductor_tpu_torch.kernel_checks import (
+    F32_REL_TOL,
     REL_TOL,
     check_attention_kernel,
     check_conv_blocks,
@@ -172,10 +176,11 @@ def test_kernels_match_plain_versions(trainers):
             *stage1_kernel_inputs(s1_f32, music, motion_s1, (0, 120)), reps=1)
         results.append(check_conv_blocks(
             FusedMusicEncoder(kernel.model.music_encoder, torch.float32), mel, reps=1))
+        results += check_kernels(_float32_fused(kernel), mel, noise, reps=1)
     q, k, v = (torch.randn(2, 96, 128, device="cuda").to(torch.bfloat16) for _ in range(3))
     results.append(check_attention_kernel(q, k, v, torch.ones(2, 96, 1, device="cuda"), 8, reps=1))
     assert {r["name"] for r in results} - {"conv_block_train", "conv_block_train_f32"} == set(
-        launch_counts()) | {"adaln_modulation", "adaln_modulation_int8"}
+        launch_counts()) | {"adaln_modulation", "adaln_modulation_int8", "adaln_modulation_f32"}
     for r in results:
         assert r["ok"], r
         assert r["bound_ms"] > 0 and r["bound_by"] in ("bytes", "operations"), r
@@ -183,6 +188,19 @@ def test_kernels_match_plain_versions(trainers):
 
 def _rand(*shape, gen):
     return torch.randn(shape, generator=gen, device="cuda")
+
+
+def _float32_fused(kernel, **denoiser):
+    """A float32 trainer on the fused ladder's float32 mode (K2 / K1 / K3,
+    K4's float32 encoder), the plain training layers, with ``kernel``'s
+    weights."""
+    cfg = kernel.cfg.replace(
+        denoiser=dataclasses.replace(kernel.cfg.denoiser, compute_dtype="float32",
+                                     train_layer_impl="flax", **denoiser),
+        train=dataclasses.replace(kernel.cfg.train, feat_impl="flax"))
+    tr = DDPMTrainer(cfg, device="cuda")
+    tr.load_reference_state_dict(kernel.model.state_dict())
+    return tr
 
 
 def _check_conv_block(x, cout, *, gen, res_mode=0, affine=True, **kw):
@@ -490,10 +508,38 @@ def test_generate_kernel_path_matches_plain_path(trainers):
                       "stgcn_forward": 0, "stgcn_backward": 0, "conv3x3_dkernel": 0,
                       "max_pool": 0, "max_pool_bwd": 0, "linear_attention": 0,
                       "conv_block_f32": 0, "conv3x3_dkernel_f32": 0, "max_pool_f32": 0,
-                      "max_pool_bwd_f32": 0}
+                      "max_pool_bwd_f32": 0, "decoder_stack_f32": 0, "decoder_stack_f32_int8": 0,
+                      "decoder_stack_f32_vpu_bf16": 0, "sampler_prologue_f32": 0,
+                      "sampler_prologue_f32_int8": 0, "sampler_epilogue_f32": 0}
     ref = plain.generate(mel, num_steps=5, noise=noise)
     assert out.shape == (2, 96, 26) and bool(torch.isfinite(out).all())
     assert float((out - ref).abs().max()) <= 0.03 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("mode", ["f32", "f32_vpu_bf16", "f32_int8"])
+def test_generate_float32_fused_ladder_matches_plain_path(trainers, mode):
+    """``compute_dtype="float32"`` with the fused ladder on the card: ddim5
+    through K2 / K1 / K3 in their float32 modes (and K4's), within 1e-3 of
+    the plain float32 path's largest value (chip_smoke.py's
+    F32_MOTION_TOL), every step in the mode's counts and no bf16 count
+    moved; with bf16 VPU or int8 AdaLN added, within the 3 % ladder bound
+    of the reduced-precision modes."""
+    kernel, plain, mel, noise = trainers
+    extra = {"f32": {}, "f32_vpu_bf16": dict(sampler_vpu_dtype="bfloat16"),
+             "f32_int8": dict(sampler_adaln_int8=True)}[mode]
+    f32 = _float32_fused(kernel, **extra)
+    reset_launch_counts()
+    out = f32.generate(mel, num_steps=5, noise=noise)
+    torch.cuda.synchronize()
+    counts = launch_counts() | part_launch_counts()
+    want = {"decoder_stack_" + mode: 5, "sampler_epilogue_f32": 5, "conv_block_f32": 7,
+            "sampler_prologue_" + ("f32_int8" if mode == "f32_int8" else "f32"): 5,
+            "adaln_modulation" if mode == "f32_int8" else "adaln_modulation_f32": 5}
+    assert {k: n for k, n in counts.items() if n} == want, counts
+    ref = plain.generate(mel, num_steps=5, noise=noise)
+    tol = 1e-3 if mode == "f32" else 0.03
+    assert out.shape == (2, 96, 26) and bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
 
 
 @pytest.mark.parametrize("vpu", ["float32", "bfloat16"])
@@ -574,6 +620,50 @@ def test_decoder_stack_modes_match_plain(t, int8, vpu, monkeypatch):
         kw.pop("vpu_dtype")
         r = vpu_mode_errors((*args, 8), **kw)
         assert vpu_mode_ok(r, 0.5), r
+
+
+@pytest.mark.parametrize("t", [128, 100])
+@pytest.mark.parametrize("int8,vpu", [(False, False), (False, True), (True, False)])
+def test_decoder_stack_float32_modes_match_plain(t, int8, vpu, monkeypatch):
+    """K1's float32 mode alone, with bf16 VPU and with int8 AdaLN, at whole
+    (T = 128) and ragged (T = 100) tiles: within F32_REL_TOL of the plain
+    float32 version's largest value (with bf16 VPU: its mean distance
+    within it, the largest within the mode's own largest move, and
+    `vpu_mode_ok`: a bf16 rounding of the mode's chains can fall on the
+    other side of a tie between two float32 summation orders, which moved
+    a row by 0.0020 of the largest value at T = 128 on an H100), a repeat
+    bit-identical, one launch in the mode's count and the GEMM's in its
+    count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator(device="cuda").manual_seed(t + 2 * int8 + vpu)
+    args, kw = _stack_operands(t, gen, int8)
+    f32 = torch.float32
+    args[2], args[3] = args[2].float(), args[3].float()  # kv_cross, mats
+    if not int8:
+        args[1], args[5] = args[1].float(), args[5].float()  # emb_act, adaln_w
+    kw.update(mxu_dtype=f32, vpu_dtype=torch.bfloat16 if vpu else f32)
+    call = functools.partial(fused_decoder_stack, *args, 8, **kw)
+    reset_launch_counts()
+    got = call()
+    torch.cuda.synchronize()
+    mode = "decoder_stack_f32" + ("_int8" if int8 else "_vpu_bf16" if vpu else "")
+    counts = launch_counts() | part_launch_counts()
+    assert {k: n for k, n in counts.items() if n} == {
+        mode: 1, "adaln_modulation" if int8 else "adaln_modulation_f32": 1}, counts
+    want = decoder_stack_plain(*args, 8, **kw)
+    scale, err = float(want.abs().max()), (got - want).abs()
+    assert scale > 1.0
+    if vpu:
+        kw.pop("vpu_dtype")
+        r = vpu_mode_errors((*args, 8), **kw)
+        assert float(err.mean()) <= F32_REL_TOL * scale
+        assert float(err.max()) <= r["mode_gap"], r
+        assert vpu_mode_ok(r, 0.25), r
+    else:
+        assert float(err.max()) <= F32_REL_TOL * scale
+    assert torch.equal(got, call())
 
 
 def test_k1_and_k5_count_the_gemm_launches_they_make():
@@ -682,6 +772,29 @@ def test_adaln_modulation_matches_plain(m, int8, monkeypatch):
     assert torch.equal(got, adaln_modulation(emb, w, bias, **kw))
 
 
+@pytest.mark.parametrize("m", [100, 1800, 3600, 14400])
+def test_adaln_modulation_float32_matches_plain(m, monkeypatch):
+    """K1's float32 AdaLN GEMM (FFMA) alone as K1 launches it, 8 layers at
+    once, at B T = 100 (one ragged tile), 1800, 3600 and 14400, E = 512,
+    6D = 768: within F32_REL_TOL of the plain float32 version's largest
+    value (TF32 off), a repeat bit-identical, one launch in its float32
+    count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator(device="cuda").manual_seed(m)
+    emb, w = _rand(m, 512, gen=gen), _rand(8, 512, 768, gen=gen) * 0.05
+    bias = _rand(8, 768, gen=gen)
+    reset_launch_counts()
+    got = adaln_modulation(emb, w, bias, mxu_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert part_launch_counts() == {"adaln_modulation": 0, "adaln_modulation_f32": 1}
+    want = adaln_modulation_plain(emb, w, bias, mxu_dtype=torch.float32)
+    assert got.shape == (m, 8 * 768) and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= F32_REL_TOL * float(want.abs().max())
+    assert torch.equal(got, adaln_modulation(emb, w, bias, mxu_dtype=torch.float32))
+
+
 @pytest.mark.parametrize("t", [128, 100])
 def test_sampler_prologue_int8_matches_plain(t):
     """K2 with int8 output: h within 2 % of the plain version's largest
@@ -713,11 +826,13 @@ def test_sampler_prologue_int8_matches_plain(t):
 def test_sampler_glue_matches_plain_repeats_and_runs_its_plan(kind, b, t, mxu):
     """K2 (bf16 and int8 emb_act) and K3 at a ragged T (37) and at B T
     below one tile (B = 1, T = 5: fewer rows than a K3 tile or a K2
-    block's warps), bf16 and float32 operands: within 2 % of the plain
-    version's largest value (the int8 codes at most 1 apart at no more
-    than 0.1 % of them), a repeat bit-identical, one launch a call (its
-    count and the profiler's), and the tiling `plan` computes the
-    kernel's `sampler_plan`."""
+    block's warps), bf16 and float32 operands (with float32 operands K2
+    writes float32 emb_act: the float32 modes): within 2 % of the plain
+    version's largest value with bf16 operands, F32_REL_TOL with float32
+    ones (the int8 codes at most 1 apart at no more than 0.1 % of them,
+    compared dequantized within 2 %), a repeat bit-identical, one launch a
+    call (the mode's count and the profiler's), and the tiling `plan`
+    computes the kernel's `sampler_plan`."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(b * 100 + t)
@@ -726,28 +841,35 @@ def test_sampler_glue_matches_plain_repeats_and_runs_its_plan(kind, b, t, mxu):
     pro = (x, _rand(512, gen=gen), _rand(b, t, 512, gen=gen) * 2, _rand(26, 128, gen=gen) * 0.2,
            _rand(t + 3, 128, gen=gen))
     epi = (h, x, _rand(128, 26, gen=gen) * 0.1, _rand(26, gen=gen), 0.9, 0.1)
+    f32 = mxu == "float32"
+    sfx, tol = ("_f32", F32_REL_TOL) if f32 else ("", REL_TOL)
     if kind == "epilogue":
         call = functools.partial(sampler_epilogue, *epi, mxu_dtype=md)
-        want, count = sampler_epilogue_plain(*epi, mxu_dtype=md), "sampler_epilogue"
+        want, count = sampler_epilogue_plain(*epi, mxu_dtype=md), "sampler_epilogue" + sfx
     else:
         kw = dict(mxu_dtype=md, quantize_emb=True) if kind == "prologue_int8" else dict(
-            mxu_dtype=md, emb_dtype=torch.bfloat16)
+            mxu_dtype=md, emb_dtype=md)
         call = functools.partial(sampler_prologue, *pro, **kw)
-        want, count = sampler_prologue_plain(*pro, **kw), "sampler_" + kind
+        want = sampler_prologue_plain(*pro, **kw)
+        count = ("sampler_prologue" + sfx + "_int8" if kind == "prologue_int8"
+                 else "sampler_" + kind + sfx)
     reset_launch_counts()
     got = call()
     torch.cuda.synchronize()
-    assert launch_counts()[count] == 1
+    assert {k: n for k, n in launch_counts().items() if n} == {count: 1}
     assert len(launch_split(call)) == 1
+    tols = [tol, tol]
     if kind == "prologue_int8":
         diff = (got[1].int() - want[1].int()).abs()
         assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) <= 1e-3
         got, want = (got[0], got[1].float() * got[2]), (want[0], want[1].float() * want[2])
+        tols[1] = REL_TOL  # a code 1 apart is 1/127 of its row's largest value
     pairs = zip(got, want) if kind != "epilogue" else [(got, want)]
-    for g, w in pairs:
+    for (g, w), t_ in zip(pairs, tols):
         if w is not None:
+            assert g.dtype == w.dtype
             err = float((g.float() - w.float()).abs().max())
-            assert err <= REL_TOL * float(w.float().abs().max())
+            assert err <= t_ * float(w.float().abs().max())
     first, again = call(), call()
     if kind == "epilogue":
         first, again = (first,), (again,)
@@ -767,7 +889,7 @@ def test_int8_kernels_raise_on_what_they_do_not_take():
     args, kw = _stack_operands(64, gen, True)
     bf = torch.bfloat16
     bad = [
-        (dict(mxu_dtype=torch.float32), {}),                        # float32 operands
+        (dict(mxu_dtype=torch.float32), {}),                        # float32 mode, bf16 matrices
         (dict(mxu_dtype=bf), {5: args[5].to(bf)}),                    # bf16 weights, int8 emb
         (dict(mxu_dtype=bf, emb_scale=kw["emb_scale"][:, :32]), {}),  # scales of another T
         (dict(mxu_dtype=bf, adaln_w_scale=kw["adaln_w_scale"].double()), {}),
@@ -901,7 +1023,8 @@ def test_linear_attention_kernel_matches_plain(b, t, lens, kv_dtype):
 def test_linear_attention_one_launch_at_edges(b, tq, tk, q_dtype, kv_dtype):
     """K8 at T below the cluster's 8 blocks, Tq != Tk, a rank's rows in two
     chunks, both k / v dtypes and both q dtypes: finite, within 2 % of the
-    plain version's largest value, one launch a call, a repeat
+    plain version's largest value (F32_REL_TOL with float32 q, k and v:
+    float32 inside, the output unrounded), one launch a call, a repeat
     bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
@@ -910,8 +1033,9 @@ def test_linear_attention_one_launch_at_edges(b, tq, tk, q_dtype, kv_dtype):
     k, v = (_rand(b, tk, 128, gen=gen).to(getattr(torch, kv_dtype)) for _ in range(2))
     call = lambda: linear_attention_kernel(q, k, v, 8)  # noqa: E731
     got, want = call(), linear_attention_plain(q, k, v, 8)
+    tol = F32_REL_TOL if q_dtype == kv_dtype == "float32" else REL_TOL
     assert got.dtype == q.dtype and bool(torch.isfinite(got.float()).all())
-    assert float((got.float() - want.float()).abs().max()) <= REL_TOL * float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol * float(want.float().abs().max())
     assert torch.equal(got, call())
     assert len(launch_split(call, 2)) == 1
 

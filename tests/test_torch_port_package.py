@@ -188,7 +188,10 @@ def test_wrappers_take_the_plain_path_on_cpu():
                                "conv3x3_dkernel": 0, "max_pool": 0, "max_pool_bwd": 0,
                                "linear_attention": 0, "conv_block_f32": 0,
                                "conv3x3_dkernel_f32": 0, "max_pool_f32": 0,
-                               "max_pool_bwd_f32": 0}
+                               "max_pool_bwd_f32": 0, "decoder_stack_f32": 0,
+                               "decoder_stack_f32_int8": 0, "decoder_stack_f32_vpu_bf16": 0,
+                               "sampler_prologue_f32": 0, "sampler_prologue_f32_int8": 0,
+                               "sampler_epilogue_f32": 0}
 
 
 def test_auto_resolution():
@@ -267,35 +270,72 @@ def test_m2snet_trainer_resolves_auto_and_defers():
 
 
 @pytest.mark.parametrize("denoiser,feat_impl,names", [
-    # "auto" on CUDA: the fused sampler and training layers ("auto" puts
-    # the perceptual term on K7 only in bf16)
-    ({}, "auto", ("K1 / K2", "K5 / K6")),
-    (dict(train_layer_impl="flax"), "flax", ("K1 / K2",)),
+    # "auto" on CUDA: the fused sampler (float32 on K1 / K2 / K3) and the
+    # fused training layers ("auto" puts the perceptual term on K7 only in
+    # bf16)
+    ({}, "auto", ("K5 / K6",)),
+    # the fused sampler in float32 with the plain training layers: builds
+    (dict(train_layer_impl="flax"), "flax", ()),
     (dict(layer_impl="flax"), "flax", ("K5 / K6",)),
     (dict(layer_impl="flax", train_layer_impl="flax"), "pallas", ("K7",)),
 ])
 def test_float32_config_on_unported_kernels_raises_at_construction(denoiser, feat_impl, names):
     """A float32 config that resolves on CUDA to a kernel whose float32 mode
-    is not ported (K1 / K2, K5 / K6, K7) is refused where the trainer is
-    built, naming those kernels and the knobs that run (checked where no
-    card is needed, as `_check_training_config` takes the device); the
-    float32 path on K4's float32 mode and the plain layers passes, and the
-    CPU takes every knob."""
+    is not ported (K5 / K6, K7) is refused where the trainer is built,
+    naming those kernels and the knobs that run (checked where no card is
+    needed, as `_check_training_config` takes the device); the float32
+    paths on the kernels' float32 modes (the fused sampler K1 / K2 / K3,
+    K4) with the plain training layers pass, and the CPU takes every
+    knob."""
     from conductor_tpu_torch.train.ddpm_trainer import _check_training_config
 
     cfg = Config(denoiser=DenoiserConfig(compute_dtype="float32", **denoiser),
                  train=TrainConfig(feat_impl=feat_impl))
-    with pytest.raises(ValueError, match="float32 mode of") as err:
+    if names:
+        with pytest.raises(ValueError, match="float32 mode of") as err:
+            _check_training_config(resolve_auto(cfg, "cuda"), torch.device("cuda"))
+        assert all(name in str(err.value) for name in names), str(err.value)
+        assert all(name not in str(err.value)
+                   for name in {"K1", "K5 / K6", "K7"} - set(names)), str(err.value)
+        assert "train_layer_impl='flax'" in str(err.value)
+    else:
         _check_training_config(resolve_auto(cfg, "cuda"), torch.device("cuda"))
-    assert all(name in str(err.value) for name in names), str(err.value)
-    assert all(name not in str(err.value)
-               for name in {"K1 / K2", "K5 / K6", "K7"} - set(names)), str(err.value)
-    assert "layer_impl='flax'" in str(err.value)
     _check_training_config(resolve_auto(cfg, "cpu"), torch.device("cpu"))
     runs = Config(denoiser=DenoiserConfig(compute_dtype="float32", layer_impl="flax",
                                           train_layer_impl="flax", music_encoder_impl="pallas"),
                   train=TrainConfig(feat_impl="flax"))
     _check_training_config(resolve_auto(runs, "cuda"), torch.device("cuda"))
+
+
+@pytest.mark.parametrize("widths,extra,names", [
+    # D = 32, 4 heads, on "auto": the fused sampler and training layers
+    (dict(latent_dim=32, ff_size=16, num_heads=4), {}, ("K1 / K2 / K3", "K5 / K6")),
+    # D = 128, 4 heads (head width 32): K8 wherever the plain layers run
+    (dict(num_heads=4), dict(replicate_reference_mask=True), ("K8",)),
+    (dict(num_heads=4), dict(layer_impl="flax"), ("K8",)),
+])
+def test_unported_widths_raise_at_construction(widths, extra, names):
+    """A model width the port's kernels do not take is refused on CUDA where
+    the trainer is built, naming the kernels the config would reach and the
+    knobs that run it on the plain modules; the same config builds on the
+    CPU, and on CUDA with those knobs pinned."""
+    from conductor_tpu_torch.train.ddpm_trainer import _check_training_config
+
+    layer = {k: v for k, v in extra.items() if k == "layer_impl"}
+    train = {k: v for k, v in extra.items() if k == "replicate_reference_mask"}
+    cfg = Config(denoiser=DenoiserConfig(**widths, **layer), train=TrainConfig(**train))
+    with pytest.raises(ValueError, match="would fail at the first call") as err:
+        _check_training_config(resolve_auto(cfg, "cuda"), torch.device("cuda"))
+    msg = str(err.value)
+    assert all(name in msg for name in names), msg
+    assert all(name not in msg for name in {"K1 / K2 / K3", "K5 / K6", "K8"} - set(names)), msg
+    assert all(knob in msg for knob in ("layer_impl='flax'", "train_layer_impl='flax'",
+                                        "attention_impl='xla'")), msg
+    _check_training_config(resolve_auto(cfg, "cpu"), torch.device("cpu"))
+    DDPMTrainer(cfg, device="cpu")
+    plain = cfg.replace(denoiser=dataclasses.replace(
+        cfg.denoiser, layer_impl="flax", train_layer_impl="flax", attention_impl="xla"))
+    _check_training_config(resolve_auto(plain, "cuda"), torch.device("cuda"))
 
 
 @pytest.mark.parametrize("field,value", [("sampler_adaln_int8", True),
@@ -395,3 +435,24 @@ def test_bound_prices_products_at_the_rate_of_their_type():
     assert bound([x], [], 989 * 10**9, product_dtype=torch.bfloat16) == bf16
     mem = bound([torch.zeros(3350 * 10**3 // 4)], [], 0, product_dtype=torch.float32)
     assert mem["bytes_ms"] == pytest.approx(1e-3) and mem["bound_by"] == "bytes"
+
+
+def test_stack_flops_counts_what_k1_needs():
+    """`kernel_checks.stack_flops` is the plain K1's FLOP count less its
+    head sums: with one head (k^T v and q @ KV then span all of D, as the
+    plain version computes them) and ff = D (no FFN padding), the two
+    block-diagonal products of each layer are all that differ; with 8
+    heads and ff = D / 2 it counts those products at their own widths."""
+    from conductor_tpu_torch.kernel_checks import flops, stack_flops
+    from conductor_tpu_torch.ops.decoder_stack import decoder_stack_plain
+
+    b, t, d, e, n_layers = 2, 5, 16, 32, 2
+    rng = np.random.RandomState(0)
+    args = [torch.from_numpy(rng.randn(*s).astype(np.float32)) for s in (
+        (b, t, d), (b, t, e), (n_layers, b, d, d), (n_layers, 9, d, d), (n_layers, 24, d),
+        (n_layers, e, 6 * d), (n_layers, 6 * d))]
+    rows = b * t
+    plain = flops(lambda: decoder_stack_plain(*args, 1))
+    assert stack_flops((*args, 1), d) == plain - n_layers * 2 * (2 * rows * d * d)
+    per_layer = 7 * d * d + 2 * d * (d // 2) + 3 * d * (d // 8)
+    assert stack_flops((*args, 8), d // 2) == 2 * rows * n_layers * (e * 6 * d + per_layer)
