@@ -32,7 +32,7 @@ Phases, one line each (the kernel checks one line per kernel):
      training layer kernels K5 (forward) and K6 (backward, seven
      gradients) on layer 0 of
      a training forward at B = 4 windows of 30 s (T = 900,
-     padded to 960), K6 again at the stage-2 step's B = 32 (a repeat
+     padded to 960, the ``_b4`` rows) and at the stage-2 step's B = 32 (K6 a repeat
      bit-identical, its device time split by launch, its workspace bytes,
      and beside its d_adaln_w and d_emb GEMMs one PyTorch call each on the
      same product, the `[k6]` lines), and K7, the frozen ST-GCN of the perceptual loss
@@ -90,6 +90,15 @@ Phases, one line each (the kernel checks one line per kernel):
      moving with the mode), K2 and K3 one launch a call, a repeat
      bit-identical, priced at the float32 rate; K1 and its GEMM again at
      B = 8, and K1's device time by launch (`[k1-split] decoder_stack_f32`);
+     and the float32 training kernels (phase 15 (f)) on layer 0 of a
+     float32 training forward: K5 (`decoder_layer_f32`) and K6
+     (`decoder_layer_bwd_f32`, seven gradients) at B = 4 and 32, within
+     1e-4 of the plain float32 version's largest value, priced at the
+     float32 rate, K6's `[k6]` lines as the bf16 mode's (its GEMMs beside
+     `torch.mm` in float32, TF32 off); and K7's float32 mode
+     (`stgcn_forward_f32`, `stgcn_backward_f32`) on the float32 perceptual
+     term's inputs at B = 32, T = 900, as the bf16 rows but within 1e-4,
+     priced at the float32 rate, 21 launches a call and no plan or bar;
   4. `DDPMTrainer.generate` on the kernel path, ddim50, on synthetic flagship
      weights and a seeded mel: a finite (2, 1800, 26) motion within 3 % of
      the plain path's on the card, with every serving kernel launched;
@@ -182,7 +191,11 @@ Phases, one line each (the kernel checks one line per kernel):
      logged step, and ``--continue`` from it; (4) ``--stage1_ckpt`` from
      a synthetic reference-format M2SNet file, both encoders grafted; (5)
      ``--timestep_sampler loss-second-moment --diffusion_steps 50``, 60
-     steps, every ring full; (6) ``--faithful``, 2 steps, no kernel;
+     steps, every ring full; (6) ``--faithful``, 2 steps, no kernel; (7)
+     ``--compute_dtype float32`` at its other defaults, 4 steps: config.json
+     resolved to ``pallas_fused`` / ``pallas`` / float32, K5 and K6 8 times
+     and K7 2 + 1 times a step in their float32 counts and no bf16 K5 / K6
+     / K7, finite losses, its ms a step beside (1)'s;
  13. the M2SNet CLI, `python -m conductor_tpu_torch.cli.train_m2snet`, in
      process on a synthetic root of 28 train and 28 test 60-s clips in a
      temporary directory (the `[m2snet_cli]` lines; each `train_step`'s
@@ -241,7 +254,14 @@ Phases, one line each (the kernel checks one line per kernel):
      plain float32 path's, K4's float32 mode 7 launches and K2, K1, K3 and
      the AdaLN GEMM 50 each in their float32 counts and no other; then with
      bf16 VPU and with int8 AdaLN added, each within 3 %; each call's ms
-     beside (d)'s.
+     beside (d)'s; (f) 4 stage-2 steps at B = 32, T = 900 with
+     ``compute_dtype="float32"`` at "auto" (K5 / K6's and K7's float32
+     modes) on phase 6's weights and random numbers, against phase 6's
+     plain float32 path: the first loss within 1e-4 relative, each loss and
+     each `loss_mot_feat` within 1e-3, the largest gap printed, K5 and K6
+     8 times and K7 2 + 1 times a step in their float32 counts and no other
+     K5 / K6 / K7 count; the median ms a step beside the plain float32
+     path's and the bf16 kernel path's.
 
 Every path runs at full depth; the run takes a few minutes of its 1200-s
 limit, so no path is cut.  Then one JSON line of per-kernel results (the
@@ -253,7 +273,8 @@ and K7, and the steps' launches of phase 13's default run and phase 14's
 kernel paths added; the float32 rows with phase 15's: K4's serving mode
 (`conv_block_f32`) (d)'s, its training modes (`conv_block_train_f32`),
 K9, K10 and K11 those of (a), (b) and (c), K1's float32 modes, its float32
-GEMM, K2's float32 emb_act and K3's float32 mode (e)'s);
+GEMM, K2's float32 emb_act and K3's float32 mode (e)'s, K5's, K6's and
+K7's float32 modes those of (f) and of phase 12's float32 run);
 each kernel's time, its
 plain version's, its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
@@ -331,6 +352,16 @@ KERNEL_SOURCES = {
                                   "conductor_tpu/ops/pallas_sampler.py:80"),
     "sampler_epilogue_f32": ("conductor_tpu_torch/csrc/sampler_glue.cu",
                              "conductor_tpu/ops/pallas_sampler.py:143"),
+    # the training layers' float32 mode (phase 15 (f)): K5 and K6
+    "decoder_layer_f32": ("conductor_tpu_torch/csrc/decoder_stack.cu",
+                          "conductor_tpu/ops/pallas_layer.py:210"),
+    "decoder_layer_bwd_f32": ("conductor_tpu_torch/csrc/decoder_layer_bwd.cu",
+                              "conductor_tpu/ops/pallas_layer_bwd.py:353"),
+    # the perceptual ST-GCN's float32 mode (phase 15 (f)): K7
+    "stgcn_forward_f32": ("conductor_tpu_torch/csrc/stgcn_f32.cu",
+                          "conductor_tpu/ops/pallas_stgcn.py:252"),
+    "stgcn_backward_f32": ("conductor_tpu_torch/csrc/stgcn_f32.cu",
+                           "conductor_tpu/ops/pallas_stgcn.py:280"),
 }
 # the AdaLN GEMM's device time beside its yardstick's, in its kernels-line entries
 YARDSTICK_KEYS = ("device_ms", "yardstick", "yardstick_device_ms", "no_slower_than_yardstick")
@@ -354,6 +385,9 @@ F32_LADDER = {
                   "adaln_modulation")),
 }
 TRAIN_KERNELS = ("decoder_layer", "decoder_layer_bwd", "stgcn_forward", "stgcn_backward")
+# the float32 training kernels' counts (phase 15 (f), phase 12's float32 run)
+TRAIN_F32_KERNELS = ("decoder_layer_f32", "decoder_layer_bwd_f32", "stgcn_forward_f32",
+                     "stgcn_backward_f32")
 K7_PER_STEP = (2, 1)  # K7's forward (pred, target) and backward calls in a stage-2 step
 STAGE1_KERNELS = ("conv_block", "conv3x3_dkernel", "max_pool", "max_pool_bwd")
 K10_PER_STEP = 12  # K10's calls in a stage-1 step: 3 pools in each of its 4 music forwards
@@ -364,8 +398,9 @@ K10_PER_STEP = 12  # K10's calls in a stage-1 step: 3 pools in each of its 4 mus
 STAGE1_F32_KERNELS = ("conv_block_f32", "conv3x3_dkernel_f32", "max_pool_f32", "max_pool_bwd_f32")
 F32_PER_STEP = dict(zip(STAGE1_F32_KERNELS, (52, 28, 12, 12)))
 GAN_F32_PER_STEP = dict(zip(STAGE1_F32_KERNELS, (20, 7, 6, 3)))
-# phase 15's bounds: the float32 stage-1 step's first loss (rtol) and
-# parameters after it (atol), as tests/test_conv_train.py:314, 324 hold the
+# phase 15's bounds: the float32 stage-1 step's first loss (rtol; (f)'s
+# stage-2 step's too) and parameters after it (atol), as
+# tests/test_conv_train.py:314, 324 hold the
 # JAX package's packed float32 step; its 4 losses, the M2SNet CLI's losses
 # and M2SGAN's first-step metrics (rtol); the float32 encoder's features and
 # the motion of a float32 generate (of the plain path's largest value)
@@ -386,7 +421,7 @@ GAN_ADV_TOL = 0.05  # w_distance and loss_adv, tests/test_stage1.py:276, 337
 # phase 12: the stage-2 CLI on a synthetic root of 60-s clips; 16 clips
 # give 16 windows an epoch, 2 batches of 32 with --times 4
 CLI_CLIPS = 16
-CLI_KERNELS = ("decoder_layer", "decoder_layer_bwd", "stgcn_forward", "stgcn_backward")
+CLI_KERNELS = TRAIN_KERNELS + TRAIN_F32_KERNELS
 # phases 13 and 14: the stage-1 CLIs on one synthetic root of 60-s clips, 28
 # a split: 5 batches of 10 (and one of 55) 30-s windows an epoch
 STAGE1_CLI_CLIPS = 28
@@ -414,7 +449,8 @@ def _timed(fn):
 def cli_phase(smi: str, bare_step_s: float) -> dict[str, int]:
     """Phase 12: `python -m conductor_tpu_torch.cli.train` on a synthetic
     root, in process unless a signal is sent; returns the launches of K5 /
-    K6 / K7 in its default run.  Raises SystemExit on any failed check."""
+    K6 / K7 in its default run and of K5 / K6's float32 mode in its float32
+    run.  Raises SystemExit on any failed check."""
     import os
     import shutil
     import signal
@@ -517,7 +553,7 @@ def cli_phase(smi: str, bare_step_s: float) -> dict[str, int]:
         if impls != ("pallas_fused", "pallas", "bfloat16"):
             raise SystemExit(f"chip_smoke: the CLI did not resolve 'auto' to the kernels: {impls}")
         if per_step != {"decoder_layer": 48, "decoder_layer_bwd": 48, "stgcn_forward": 12,
-                        "stgcn_backward": 6}:
+                        "stgcn_backward": 6} | {k: 0 for k in TRAIN_F32_KERNELS}:
             raise SystemExit(f"chip_smoke: the CLI did not launch K5 / K6 / K7 every step: "
                              f"{per_step}")
         if CheckpointManager(os.path.join(run_dir, "ckpt")).all_steps() != [2, 4, 6]:
@@ -612,7 +648,35 @@ def cli_phase(smi: str, bare_step_s: float) -> dict[str, int]:
               f"{sum(faithful_counts.values())}")
         if any(faithful_counts.values()) or len(f_losses) != 2 or not all(np.isfinite(f_losses)):
             raise SystemExit(f"chip_smoke: --faithful launched a kernel: {faithful_counts}")
-        return per_step
+
+        # (8) float32 at the other defaults: K5 / K6's and K7's float32 modes
+        f32_dir, f32_counts, f32_wall = run("float32", "--compute_dtype", "float32", "--times",
+                                            "4", "--epochs", "2")
+        f32_recs = records(f32_dir)
+        with open(os.path.join(f32_dir, "config.json")) as f:
+            saved = json.load(f)
+        f32_impls = (saved["denoiser"]["train_layer_impl"], saved["train"]["feat_impl"],
+                     saved["denoiser"]["compute_dtype"])
+        f32_t = [r["t"] for r in f32_recs]
+        f32_ms = (f32_t[-1] - f32_t[1]) / (len(f32_t) - 2) * 1e3
+        f32_step = {k: f32_counts[k] for k in CLI_KERNELS}
+        print(f"[cli] --compute_dtype float32 (--times 4 --epochs 2): steps "
+              f"{[r['step'] for r in f32_recs]}, losses {[r['loss'] for r in f32_recs]}, config "
+              f"{f32_impls}, launches {f32_step}, {f32_ms:.1f} ms a step over steps 3-4 "
+              f"((1): {steady * 1e3:.1f} over steps 3-6, saves included), run wall "
+              f"{f32_wall:.1f} s on {smi}")
+        if ([r["step"] for r in f32_recs] != [1, 2, 3, 4]
+                or not all(np.isfinite(r["loss"]) for r in f32_recs)):
+            raise SystemExit(f"chip_smoke: the CLI's float32 run went wrong: {f32_recs}")
+        if f32_impls != ("pallas_fused", "pallas", "float32"):
+            raise SystemExit(f"chip_smoke: the float32 CLI did not resolve to K5 / K6's and K7's "
+                             f"float32 modes: {f32_impls}")
+        if f32_step != {k: 0 for k in TRAIN_KERNELS} | {
+                "decoder_layer_f32": 32, "decoder_layer_bwd_f32": 32, "stgcn_forward_f32": 8,
+                "stgcn_backward_f32": 4}:
+            raise SystemExit(f"chip_smoke: the float32 CLI did not launch K5 / K6's and K7's "
+                             f"float32 modes every step: {f32_step}")
+        return {k: per_step[k] + f32_step[k] for k in CLI_KERNELS}
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1071,12 +1135,20 @@ def main() -> int:
     feat_sd = synthetic_motion_encoder_state_dict(kernel_tr.feat_model, seed=0)
     kernel_tr.load_reference_state_dict(sd, motion_encoder=feat_sd)
     plain_tr.load_reference_state_dict(sd, motion_encoder=feat_sd)
+    # stage 2 in float32 at "auto" (phase 15 (f)): K5 / K6's and K7's
+    # float32 modes
+    f32_train = DDPMTrainer(cfg.replace(denoiser=DenoiserConfig(compute_dtype="float32")),
+                            device="cuda")
+    if (f32_train.cfg.denoiser.train_layer_impl, f32_train.cfg.train.feat_impl) != (
+            "pallas_fused", "pallas"):
+        raise SystemExit("chip_smoke: float32 'auto' did not select K5 / K6 and K7")
+    f32_train.load_reference_state_dict(sd, motion_encoder=feat_sd)
 
     def f32_ladder_trainer(extra):
         """Serving on the fused ladder's float32 mode (phase 15 (e)): K4's
         float32 encoder, K2 / K1 / K3 in float32 (``extra``: bf16 VPU or
-        int8 AdaLN on top), the plain training layers (K5 / K6 have no
-        float32 mode yet), on phase 4's weights."""
+        int8 AdaLN on top), the plain training layers, on phase 4's
+        weights."""
         tr = DDPMTrainer(cfg.replace(
             denoiser=DenoiserConfig(compute_dtype="float32", layer_impl="pallas_fused",
                                     music_encoder_impl="pallas", train_layer_impl="flax", **extra),
@@ -1161,12 +1233,18 @@ def main() -> int:
                   + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
                   + f", sum {sum(split.values()):.4f} ({smi})")
     del step_b8, ops, args, kw
-    results += check_train_kernels(kernel_tr, mel_train[:4], motion_train[:4])
-    results[-1]["name"] = "decoder_layer_bwd_b4"  # the main path's K6 call is B = 32's
-    results.append(check_layer_bwd(kernel_tr, mel_train, motion_train))
+    # K5 and K6 at B = 4 (the ``_b4`` rows) and at the main path's B = 32
+    results += check_train_kernels(kernel_tr, mel_train, motion_train, batches=(4, n_train))
+    # the training kernels' float32 modes (phase 15 (f)'s) on layer 0 of a
+    # float32 training forward, K5 and K6 at B = 4 and 32, and K7 on the
+    # float32 perceptual term's inputs
+    results += check_train_kernels(f32_train, mel_train, motion_train, batches=(4, n_train))
+    torch.cuda.empty_cache()
     feat_mxu = getattr(torch, kernel_tr.cfg.denoiser.compute_dtype)
     results += check_stgcn_kernels(kernel_tr.feat_model, kernel_tr.feat_pack, feat_mxu,
                                    *perceptual_inputs(kernel_tr, mel_train, motion_train))
+    results += check_stgcn_kernels(f32_train.feat_model, f32_train.feat_pack, torch.float32,
+                                   *perceptual_inputs(f32_train, mel_train, motion_train))
     m2s_kernel.load_reference_state_dict(m2s_sd)
     results += check_stage1_kernels(*stage1_kernel_inputs(m2s_kernel, music, motion_s1, starts[0]))
     m2s_kernel.load_reference_state_dict(m2s_sd)  # undo the check's BN statistics
@@ -1239,7 +1317,8 @@ def main() -> int:
                   + "; GEMM launches' bounds: "
                   + ", ".join(f"{k} {v['bound_ms']:.4f} ms ({v['bound_by']})"
                               for k, v in r["part_bounds"].items()) + f" ({smi})")
-        k7, gan_k7 = r["name"].removesuffix("_gan"), r["name"].endswith("_gan")
+        k7 = r["name"].removesuffix("_gan").removesuffix("_f32")
+        gan_k7 = r["name"].endswith("_gan")
         if k7 == "stgcn_backward":
             print(f"[kernel]   {r['name']} after the kernel's own forward (ReLU masks of "
                   f"another summation order): err {r['e2e_err']:.6g}, not bounded")
@@ -1252,14 +1331,16 @@ def main() -> int:
                      f"{K7_MASK_FLIP_SHARE:g} of them)")
             shape = (f"B={GAN_B} T={GAN_S * 30} (M2SGAN SyncLoss: the fake, the real)" if gan_k7
                      else f"B={n_train} T={t_train}")
-            bar = "" if gan_k7 else f" (bar <= {K7_BAR_MS}: bar_met {r['bar_met']})"
+            bar = ("" if gan_k7 or r["bar_met"] is None
+                   else f" (bar <= {K7_BAR_MS}: bar_met {r['bar_met']})")
+            plan_ok = "" if r["plan_ok"] is None else f"; plan the kernel's {r['plan_ok']}"
             print(f"[k7] {r['name']} {shape}: {r['ms']:.4f} ms a call by CUDA events"
                   f"{calls}{bar}; device "
                   f"{r['device_ms']:.4f} ms in {len(r['launch_split'])} launches, "
                   f"{r['launches_a_call']} of them K7's: "
                   + "; ".join(f"{k} {v:.4f}" for k, v in r["launch_split"])
                   + f"; bound {r['bound_ms']:.4f} ms ({r['bound_by']}){extra}; repeat "
-                  f"bit-identical {r['repeat_identical']}; plan the kernel's {r['plan_ok']} ({smi})")
+                  f"bit-identical {r['repeat_identical']}{plan_ok} ({smi})")
         if "yardstick" in r:
             print(f"[kernel]   {r['name']}{shape}: device ms {r['device_ms']:.4f}, "
                   f"{r['yardstick']} {r['yardstick_device_ms']:.4f}: no slower than it: "
@@ -1805,8 +1886,8 @@ def main() -> int:
     torch.cuda.synchronize()
     gen_counts = launch_counts()
     with torch.no_grad():
-        feats_k, feats_p = f32_tr.fused_encoder(mel), f32_tr.music_features(mel)
-    err_feat, feat_scale = float((feats_k - feats_p).abs().max()), float(feats_p.abs().max())
+        enc_k, enc_p = f32_tr.fused_encoder(mel), f32_tr.music_features(mel)
+    err_feat, feat_scale = float((enc_k - enc_p).abs().max()), float(enc_p.abs().max())
     err_mot = float((out_f32 - ref).abs().max())
     _, t_f32 = _timed(lambda: f32_tr.generate(mel, num_steps=50, noise=noise))
     print(f"[f32] (d) generate ddim50 B=2, float32 fused encoder, plain float32 layers: encoder "
@@ -1881,6 +1962,37 @@ def main() -> int:
         del tr
     counts.update(f32_counts, conv_block_f32=gen_counts["conv_block_f32"],
                   conv_block_train_f32=f32_counts["conv_block_f32"], **ladder_counts)
+
+    # (f) stage 2 in float32 on K5 / K6's and K7's float32 modes: 4 steps on
+    # phase 6's weights, batch and random numbers, against phase 6's plain
+    # float32 path
+    losses_f, feats_f, times_f, counts_f = train(f32_train)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses_f, losses_p)]
+    rel_feat = [abs(a - b) / abs(b) for a, b in zip(feats_f, feats_p)]
+    per_step = [{k: n for k, n in c.items() if n} for c in counts_f]
+    print(f"[f32] (f) stage-2 step B={n_train} T={t_train}, float32 on K5 / K6 / K7: losses "
+          f"{losses_f} against phase 6's plain float32 path's {losses_p}: rel diff "
+          f"{[f'{x:.3g}' for x in rel]}, largest {max(rel):.3g} (first <= "
+          f"{F32_FIRST_LOSS_RTOL}, each <= {F32_LOSS_RTOL}); loss_mot_feat rel diff "
+          f"{[f'{x:.3g}' for x in rel_feat]} (each <= {F32_LOSS_RTOL}); launches per step "
+          f"{per_step}")
+    print(f"[time] (f) train step B={n_train} T={t_train}, median ms: float32 on K5 / K6 / K7 "
+          f"{np.median(times_f) * 1e3:.1f}, plain float32 (phase 6) "
+          f"{np.median(times_p) * 1e3:.1f}, bf16 kernels (phase 6) {np.median(times_k) * 1e3:.1f} "
+          f"(per step {[round(x * 1e3, 1) for x in times_f]}) on {smi}")
+    if (not all(np.isfinite(losses_f + feats_f)) or not rel[0] <= F32_FIRST_LOSS_RTOL
+            or not max(rel) <= F32_LOSS_RTOL or not max(rel_feat) <= F32_LOSS_RTOL):
+        raise SystemExit("chip_smoke: the float32 stage-2 step on K5 / K6 / K7 disagrees with the "
+                         "plain float32 path")
+    if any(c != {"decoder_layer_f32": cfg.denoiser.num_layers,
+                 "decoder_layer_bwd_f32": cfg.denoiser.num_layers,
+                 "stgcn_forward_f32": K7_PER_STEP[0], "stgcn_backward_f32": K7_PER_STEP[1]}
+           for c in per_step):
+        raise SystemExit(f"chip_smoke: the float32 stage-2 step did not launch K5 / K6's float32 "
+                         f"mode alone, once a layer, and K7's as phase 6 does: {per_step}")
+    for k in TRAIN_F32_KERNELS:
+        counts[k] += sum(c[k] for c in counts_f)
+    del f32_train
 
     kernels = []
     for r in results:

@@ -70,15 +70,17 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--schedule", default="linear", choices=["linear", "cosine"])
     p.add_argument("--compute_dtype", default="auto", choices=["auto", "float32", "bfloat16"],
                    help="activation/matmul dtype (params stay f32); auto = bf16 on CUDA, "
-                        "f32 elsewhere")
+                        "f32 elsewhere; float32 on CUDA runs the kernels' float32 modes (K1 / "
+                        "K4 / K5 / K6 / K7)")
     p.add_argument("--feat_impl", default="auto", choices=["auto", "flax", "pallas"],
                    help="perceptual-loss ST-GCN: the frozen-encoder kernel (K7, "
-                        "csrc/stgcn.cu; 'pallas') vs the plain module ('flax'); auto = the "
-                        "kernel on CUDA with bf16")
+                        "csrc/stgcn.cu, in float32 csrc/stgcn_f32.cu; 'pallas') vs the plain "
+                        "module ('flax'); auto = the kernel on CUDA")
     p.add_argument("--train_layer_impl", default="auto", choices=["auto", "flax", "pallas_fused"],
                    help="the decoder layers' training kernels (K5 forward, K6 backward; "
-                        "'pallas_fused'), which need dropout 0, efficient attention and no "
-                        "--replicate_reference_mask; auto = the kernels on CUDA when those hold")
+                        "'pallas_fused', in bf16 or float32), which need dropout 0, efficient "
+                        "attention and no --replicate_reference_mask; auto = the kernels on CUDA "
+                        "when those hold")
     p.add_argument("--faithful", action="store_true",
                    help="reference-exact preset: pin every implementation knob to the plain "
                         "float32 modules (the default is the kernel path in bf16 on CUDA)")

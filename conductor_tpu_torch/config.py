@@ -247,10 +247,9 @@ def resolve_auto(cfg: Config, device: torch.device | str) -> Config:
     modules without linear attention (the kernels compute linear attention
     only: ``attention_impl`` "xla", the layers "flax"), and "auto" training
     layers fall back to the plain modules when dropout is on or the
-    reference mask is replicated.  One rule is the port's own:
-    ``feat_impl`` "auto" is the ST-GCN kernel (K7, "pallas") on a CUDA
-    device only when the compute dtype resolves to bfloat16, the kernel's
-    operands, and the plain module ("flax") otherwise.  Idempotent."""
+    reference mask is replicated.  ``feat_impl`` "auto" is the ST-GCN
+    kernel (K7, "pallas", in bf16 or float32, the compute dtype) on a CUDA
+    device and the plain module ("flax") elsewhere.  Idempotent."""
     cuda = torch.device(device).type == "cuda"
     d = cfg.denoiser
     resolved = {
@@ -265,6 +264,6 @@ def resolve_auto(cfg: Config, device: torch.device | str) -> Config:
         resolved["train_layer_impl"] = "flax"
     feat = cfg.train.feat_impl
     if feat == "auto":
-        feat = "pallas" if cuda and resolved["compute_dtype"] == "bfloat16" else "flax"
+        feat = "pallas" if cuda else "flax"
     return cfg.replace(denoiser=dataclasses.replace(d, **resolved),
                        train=dataclasses.replace(cfg.train, feat_impl=feat))

@@ -87,11 +87,13 @@
 // AdaLN the GEMM is the int8 one and the passes float32.
 //
 // K5 is one layer of the same four launches (`decoder_layer_forward`), with
-// the residual read and written in bf16 (the training path carries it
-// in the compute dtype between layers, JAX `train/fused_denoiser.py:
-// 304-323`) and float32 inside.  Its input is padded to whole 64-row tiles;
+// the residual read and written in the compute dtype (the training path
+// carries it so between layers, JAX `train/fused_denoiser.py:304-323`) and
+// float32 inside: bf16, or in K5's float32 mode (`mxu_f32`) float32, with
+// K1's float32 passes and GEMM.  Its input is padded to whole 64-row tiles;
 // rows at or past t_valid are left out of the KV pass, as the TPU kernel
-// masks them, and still computed by the row pass.
+// masks them (a -1e6 key and a zero value, which give them exactly zero
+// weight), and still computed by the row pass.
 
 #include <type_traits>
 
@@ -103,9 +105,20 @@ using namespace layer;
 namespace {
 
 // ---------------------------------------------------------------- pass A
-// XT: the residual's storage type (float for K1, bf16 for K5 / K6); OT: the
-// products' operand type (bf16, or float in K1's float32 mode).  With kKvr
-// (K6) each tile also gives exp(k - m)^T bf16(v), block-diagonal.
+// A tile's partials: the column max and sum, the partial KV and, with
+// kKvrRounded, the partial KVr.
+template <typename OT, bool kKvr>
+constexpr bool kKvrRounded = kKvr && !std::is_same<OT, float>::value;
+template <typename OT, bool kKvr>
+__host__ __device__ constexpr int partial_stride(int dh) {
+  return 2 * D + (kKvrRounded<OT, kKvr> ? 2 : 1) * D * dh;
+}
+
+// XT: the residual's storage type (float for K1, bf16 or float for K5 /
+// K6); OT: the products' operand type (bf16, or float in the float32
+// modes).  With kKvr (K6) pass B also writes each column's softmax
+// statistics, and in bf16 each tile also gives exp(k - m)^T bf16(v),
+// block-diagonal (in float32 that is KV itself).
 template <typename XT, typename OT, bool kKvr>
 __global__ void __launch_bounds__(kThreadsA)
 kv_partials_kernel(const XT* x, const OT* __restrict__ mats, const float* __restrict__ vecs,
@@ -154,7 +167,8 @@ kv_partials_kernel(const XT* x, const OT* __restrict__ mats, const float* __rest
   }
   __syncthreads();
 
-  const int stride = 2 * D + (kKvr ? 2 : 1) * D * dh;
+  constexpr bool kRounded = kKvrRounded<OT, kKvr>;
+  const int stride = partial_stride<OT, kKvr>(dh);
   float* part = partials + ((size_t)b * n_tiles + tile) * stride;
   {
     const int c = threadIdx.x;  // one column per thread (kThreadsA == D)
@@ -178,15 +192,16 @@ kv_partials_kernel(const XT* x, const OT* __restrict__ mats, const float* __rest
     float acc = 0.f, acc_r = 0.f;
     for (int r = 0; r < n_rows; ++r) {
       acc = fmaf(k_s[r * kLdF + d], v_s[r * kLdF + l], acc);
-      if (kKvr) acc_r = fmaf(k_s[r * kLdF + d], round_bf16(v_s[r * kLdF + l]), acc_r);
+      if (kRounded) acc_r = fmaf(k_s[r * kLdF + d], round_bf16(v_s[r * kLdF + l]), acc_r);
     }
     part[2 * D + i] = acc;
-    if (kKvr) part[2 * D + D * dh + i] = acc_r;
+    if (kRounded) part[2 * D + D * dh + i] = acc_r;
   }
 }
 
 // ---------------------------------------------------------------- pass B
-// KV in the operand type OT: rounded to bf16, or in the float32 mode as is.
+// KV in the operand type OT: rounded to bf16, or in the float32 mode as is;
+// with kKvr the column statistics and, in bf16, KVr.
 template <typename OT, bool kKvr>
 __global__ void kv_combine_kernel(const float* __restrict__ partials, OT* __restrict__ kv,
                                   float* __restrict__ stats, float* __restrict__ kvr,
@@ -197,7 +212,8 @@ __global__ void kv_combine_kernel(const float* __restrict__ partials, OT* __rest
     put(out, 0.f);
     return;
   }
-  const int stride = 2 * D + (kKvr ? 2 : 1) * D * dh;
+  constexpr bool kRounded = kKvrRounded<OT, kKvr>;
+  const int stride = partial_stride<OT, kKvr>(dh);
   const float* p = partials + (size_t)b * n_tiles * stride;
   float m = -CUDART_INF_F;
   for (int t = 0; t < n_tiles; ++t) m = fmaxf(m, p[t * stride + d]);
@@ -206,11 +222,11 @@ __global__ void kv_combine_kernel(const float* __restrict__ partials, OT* __rest
     const float w = expf(p[t * stride + d] - m);
     s = fmaf(p[t * stride + D + d], w, s);
     acc = fmaf(p[t * stride + 2 * D + d * dh + l % dh], w, acc);
-    if (kKvr) acc_r = fmaf(p[t * stride + 2 * D + D * dh + d * dh + l % dh], w, acc_r);
+    if (kRounded) acc_r = fmaf(p[t * stride + 2 * D + D * dh + d * dh + l % dh], w, acc_r);
   }
   put(out, acc / s);
+  if (kRounded) kvr[((size_t)b * D + d) * dh + l % dh] = acc_r / s;
   if (kKvr) {
-    kvr[((size_t)b * D + d) * dh + l % dh] = acc_r / s;
     if (l == d) {
       stats[(size_t)b * 2 * D + d] = m;
       stats[(size_t)b * 2 * D + D + d] = s;
@@ -383,6 +399,13 @@ bool bad_shape(int d, int E, int H) {
 
 }  // namespace
 
+cudaError_t launch_kv_pass_f32(const float* x, const float* mats, const float* vecs,
+                               float* partials, float* kv, float* stats, int B, int T,
+                               int t_valid, int dh, cudaStream_t stream) {
+  return kv_pass<float, float, true>(x, mats, vecs, partials, kv, stats, nullptr, B, T, t_valid,
+                                     dh, stream);
+}
+
 cudaError_t launch_kv_pass(const void* x, bool x_bf16, const bf16* mats, const float* vecs,
                            float* partials, bf16* kv, float* stats, float* kvr, int B, int T,
                            int t_valid, int dh, cudaStream_t stream) {
@@ -397,8 +420,10 @@ cudaError_t launch_kv_pass(const void* x, bool x_bf16, const bf16* mats, const f
                                               kv, stats, kvr, B, T, t_valid, dh, stream);
 }
 
-size_t kv_pass_partials_bytes(int B, int t_valid, int dh, bool with_kvr) {
-  return (size_t)B * ceil_div(t_valid, kTileRows) * (2 * D + (with_kvr ? 2 : 1) * D * dh) * 4;
+size_t kv_pass_partials_bytes(int B, int t_valid, int dh, bool with_kvr, bool f32) {
+  const int stride = f32 ? partial_stride<float, true>(dh)
+                         : with_kvr ? partial_stride<bf16, true>(dh) : partial_stride<bf16, false>(dh);
+  return (size_t)B * ceil_div(t_valid, kTileRows) * stride * 4;
 }
 
 
@@ -489,23 +514,31 @@ CT_EXPORT int decoder_stack_forward(const void* x, const void* emb, const void* 
 }
 
 // mod: (B T, 6D) float32 scratch; gemm_launches as decoder_stack_forward's.
+// mxu_f32: K5's float32 mode (x, out, emb, kv_cross, mats, adaln_w and
+// kv_self float32), else bf16.
 CT_EXPORT int decoder_layer_forward(const void* x, const void* emb, const void* kv_cross,
                                     const void* mats, const void* vecs, const void* adaln_w,
                                     const void* adaln_b, void* out, void* partials,
                                     void* kv_self, void* mod, void* gemm_launches, int B, int T,
-                                    int t_valid, int d, int E, int H, void* stream) {
-  if (bad_shape(d, E, H) || !adaln_gemm_takes(E, 6 * d, kAdalnBf16) || t_valid < 1 ||
+                                    int t_valid, int d, int E, int H, int mxu_f32,
+                                    void* stream) {
+  const int operands = mxu_f32 ? kAdalnF32 : kAdalnBf16;
+  if (bad_shape(d, E, H) || !adaln_gemm_takes(E, 6 * d, operands) || t_valid < 1 ||
       t_valid > T)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* m = static_cast<float*>(mod);
   cudaError_t err = launch_adaln_gemm(emb, adaln_w, nullptr, nullptr,
                                       static_cast<const float*>(adaln_b), m, 6 * D, B * T, E,
-                                      6 * D, 1, kAdalnBf16, static_cast<int*>(gemm_launches), s);
+                                      6 * D, 1, operands, static_cast<int*>(gemm_launches), s);
   if (err != cudaSuccess) return (int)err;
-  return (int)layer_passes<bf16, bf16, false>(
-      static_cast<const bf16*>(x), static_cast<bf16*>(out), m, 6 * D,
-      static_cast<const bf16*>(kv_cross), static_cast<const bf16*>(mats),
-      static_cast<const float*>(vecs), static_cast<float*>(partials), static_cast<bf16*>(kv_self),
-      B, T, t_valid, d / H, s);
+  auto run = [&](auto* typed) {
+    using T_ = std::remove_pointer_t<decltype(typed)>;
+    return (int)layer_passes<T_, T_, false>(
+        static_cast<const T_*>(x), static_cast<T_*>(out), m, 6 * D,
+        static_cast<const T_*>(kv_cross), static_cast<const T_*>(mats),
+        static_cast<const float*>(vecs), static_cast<float*>(partials),
+        static_cast<T_*>(kv_self), B, T, t_valid, d / H, s);
+  };
+  return mxu_f32 ? run(static_cast<float*>(nullptr)) : run(static_cast<bf16*>(nullptr));
 }

@@ -442,6 +442,20 @@ __device__ __forceinline__ void slab_store(const float (&acc)[4][4], float* C) {
     store4(C + (rg + 8 * i) * kLdF + n0, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
 }
 
+// The thread's `slab_fma` outputs read from C (a product that adds to C).
+__device__ __forceinline__ void slab_load(float (&acc)[4][4], const float* C) {
+  const int lane = threadIdx.x & 31;
+  const int rg = lane & 7, n0 = (threadIdx.x >> 5) * 16 + 4 * (lane >> 3);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 v = load4(C + (rg + 8 * i) * kLdF + n0);
+    acc[i][0] = v.x;
+    acc[i][1] = v.y;
+    acc[i][2] = v.z;
+    acc[i][3] = v.w;
+  }
+}
+
 __device__ __forceinline__ float gelu_tanh(float u) {
   return 0.5f * u * (1.f + tanhf(0.7978845608028654f * (u + 0.044715f * u * u * u)));
 }
@@ -468,5 +482,12 @@ cudaError_t launch_kv_pass(const void* x, bool x_bf16, const bf16* mats, const f
                            float* partials, bf16* kv, float* stats, float* kvr, int B, int T,
                            int t_valid, int dh, cudaStream_t stream);
 
-// Bytes of the `partials` scratch that launch_kv_pass needs.
-size_t kv_pass_partials_bytes(int B, int t_valid, int dh, bool with_kvr);
+// K6's float32 mode: the same pass on float32 x and mats into the float32
+// KV, unrounded, and the column statistics (no KVr: it is KV itself).
+cudaError_t launch_kv_pass_f32(const float* x, const float* mats, const float* vecs,
+                               float* partials, float* kv, float* stats, int B, int T,
+                               int t_valid, int dh, cudaStream_t stream);
+
+// Bytes of the `partials` scratch that the KV pass needs: bf16, with or
+// without KVr, or float32 (f32, with the statistics).
+size_t kv_pass_partials_bytes(int B, int t_valid, int dh, bool with_kvr, bool f32);

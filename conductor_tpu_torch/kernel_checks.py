@@ -20,9 +20,12 @@ kernel's own, and run again at B = 8 against their bars
 (`K2_K3_BAR_DEVICE_MS`).  `device_ms` reads device time from `torch.profiler`,
 by kernel name (`k1_launch_split`: K1's device time by launch).
 `check_train_kernels` does the same for the training layer kernels (K5,
-K6) on layer 0 of a training forward, `check_stgcn_kernels` for K7 on
-the perceptual term's inputs (`perceptual_inputs`) and on the M2SGAN
-SyncLoss's (`sync_loss_inputs`), and
+K6) on layer 0 of a training forward (on a float32 trainer their float32
+modes, ``decoder_layer_f32`` and ``decoder_layer_bwd_f32``, held to
+F32_REL_TOL and priced at the float32 rate), `check_stgcn_kernels` for K7 on
+the perceptual term's inputs (`perceptual_inputs`; over a float32 pack its
+float32 mode, ``stgcn_forward_f32`` and ``stgcn_backward_f32``) and on the
+M2SGAN SyncLoss's (`sync_loss_inputs`), and
 `check_stage1_kernels` for the trainable music encoder's kernels (K9, K10,
 K11, and K4 in its training modes, beside cuDNN's `F.conv2d`) on the
 inputs and cotangents of its calls in one train-mode forward and
@@ -497,6 +500,24 @@ def stack_flops(stack_args, ff: int) -> int:
     return 2 * b * t * n_layers * (e * n + per_layer)
 
 
+def layer_flops(layer_args, ff: int) -> int:
+    """K5's matrix-product FLOPs on one layer's ``layer_args`` (x, emb_act,
+    kv_cross, mats, vecs, adaln_w, adaln_b, num_heads): `stack_flops` of
+    that layer."""
+    x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, heads = layer_args
+    return stack_flops((x, emb_act, kv_cross[None], mats[None], vecs[None], adaln_w[None],
+                        adaln_b[None], heads), ff)
+
+
+def layer_bwd_flops(layer_args, ff: int) -> int:
+    """K6's matrix-product FLOPs on ``layer_args`` (as `layer_flops`): the
+    forward it recomputes and, for each of the forward's products, the two
+    that give its operands' gradients, three forwards in all.  `flops` of
+    the plain backward counts what `stack_flops` says it over-counts, three
+    times."""
+    return 3 * layer_flops(layer_args, ff)
+
+
 @torch.no_grad()
 def check_stack_kernels(trainer, pro_args, cond, *, reps: int = 5, rel_tol: float = REL_TOL,
                         suffix: str = "") -> list[dict]:
@@ -694,14 +715,33 @@ def train_layer_args(trainer, cond, motion, *, seed: int = 0):
 
 
 @torch.no_grad()
-def check_train_kernels(trainer, cond, motion, *, reps: int = 5, rel_tol: float = REL_TOL,
-                        seed: int = 0) -> list[dict]:
+def check_train_kernels(trainer, cond, motion, *, batches=None, reps: int = 5,
+                        rel_tol: float = REL_TOL, seed: int = 0) -> list[dict]:
     """K5 and K6 (`check_layer_bwd`) against their plain versions on
-    `train_layer_args`."""
-    args, kw, _, heads = train_layer_args(trainer, cond, motion, seed=seed)
-    return [_compare("decoder_layer", lambda: fused_decoder_layer(*args, heads, **kw),
-                     lambda: decoder_layer_plain(*args, heads, **kw), reps, rel_tol, args),
-            check_layer_bwd(trainer, cond, motion, reps=reps, rel_tol=rel_tol, seed=seed)]
+    `train_layer_args` of the first b clips of ``cond`` and ``motion``, for
+    each b in ``batches`` (all of them by default); the rows of a b short
+    of the whole batch end in ``_b{b}``.  On a float32 trainer their
+    float32 modes (``decoder_layer_f32``, ``decoder_layer_bwd_f32``) within
+    F32_REL_TOL, priced at the float32 rate.  The bounds count the products
+    the kernels need (K5 `layer_flops`, K6 `layer_bwd_flops`)."""
+    results = []
+    for b in batches or (cond.shape[0],):
+        suffix = "" if b == cond.shape[0] else f"_b{b}"
+        args, kw, _, heads = train_layer_args(trainer, cond[:b], motion[:b], seed=seed)
+        mxu = kw["mxu_dtype"]
+        f32 = mxu == torch.float32
+        n_flops = layer_flops((*args, heads), trainer.cfg.denoiser.ff_size)
+        fwd = _compare("decoder_layer_f32" if f32 else "decoder_layer",
+                       lambda: fused_decoder_layer(*args, heads, **kw),
+                       lambda: decoder_layer_plain(*args, heads, **kw), reps,
+                       F32_REL_TOL if f32 else rel_tol, args, n_flops=n_flops, product_dtype=mxu)
+        bwd = check_layer_bwd(trainer, cond[:b], motion[:b], reps=reps, rel_tol=rel_tol,
+                              seed=seed)
+        for r in (fwd, bwd):
+            r["name"] += suffix
+            r["batch"] = b
+        results += [fwd, bwd]
+    return results
 
 
 def launch_split(fn, reps: int = 5) -> list[tuple[str, float]]:
@@ -738,21 +778,29 @@ def launch_split(fn, reps: int = 5) -> list[tuple[str, float]]:
 def check_layer_bwd(trainer, cond, motion, *, reps: int = 5, rel_tol: float = REL_TOL,
                     seed: int = 0) -> dict:
     """K6 against its plain version on `train_layer_args` (all seven
-    gradients within ``rel_tol`` of their largest values), and: whether a
-    second call is bit-identical (``repeat_identical``, part of ``ok``),
-    its device ms a call by launch (`launch_split`), its workspace bytes,
-    and the yardsticks of its two large GEMMs, the same product in one
-    PyTorch call on operands of the same shapes in device ms (never called
-    by the port): d_adaln_w = emb^T dMod by `torch.mm` with float32 out,
-    d_emb = dMod aw^T by `torch.mm` in bf16; and the bounds of its two GEMM
+    gradients within ``rel_tol`` of their largest values; on a float32
+    trainer its float32 mode, ``decoder_layer_bwd_f32``, within
+    F32_REL_TOL, priced at the float32 rate; its bound counts
+    `layer_bwd_flops`), and: whether a second call is
+    bit-identical (``repeat_identical``, part of ``ok``), its device ms a
+    call by launch (`launch_split`), its workspace bytes, and the
+    yardsticks of its two large GEMMs, the same product in one PyTorch call
+    on operands of the same shapes in device ms (never called by the port):
+    d_adaln_w = emb^T dMod by `torch.mm` with float32 out, d_emb = dMod
+    aw^T by `torch.mm`, in bf16 or, in the float32 mode, float32 (TF32 off:
+    the callers run under `full_float32`); and the bounds of its two GEMM
     launches (``part_bounds``): the weight-gradient A^T B (its 16 distinct
     (B T, D) operands, emb and dMod read once, 9 D x D and E x 6D float32
-    out) and d_emb."""
+    out) and d_emb, at the rate of the mode's products."""
     args, kw, dy, heads = train_layer_args(trainer, cond, motion, seed=seed)
+    mxu = kw["mxu_dtype"]
+    f32 = mxu == torch.float32
     kernel = lambda: decoder_layer_bwd(*args, dy, heads, **kw)  # noqa: E731
-    r = _compare("decoder_layer_bwd", kernel,
-                 lambda: decoder_layer_bwd_plain(*args, dy, heads, **kw), reps, rel_tol,
-                 (args, dy))
+    r = _compare("decoder_layer_bwd_f32" if f32 else "decoder_layer_bwd", kernel,
+                 lambda: decoder_layer_bwd_plain(*args, dy, heads, **kw), reps,
+                 F32_REL_TOL if f32 else rel_tol, (args, dy),
+                 n_flops=layer_bwd_flops((*args, heads), trainer.cfg.denoiser.ff_size),
+                 product_dtype=mxu)
     _repeat(r, kernel)
     h, emb_act, adaln_w = args[0], args[1], args[5]
     b, t, e = emb_act.shape
@@ -760,26 +808,31 @@ def check_layer_bwd(trainer, cond, motion, *, reps: int = 5, rel_tol: float = RE
     r["launch_split"] = launch_split(kernel, reps)
     r["device_ms"] = sum(ms for _, ms in r["launch_split"])
     r["workspace_bytes"] = int(_build.library().decoder_layer_backward_workspace(
-        b, t, h.shape[-1], e, heads))
+        b, t, h.shape[-1], e, heads, int(f32)))
     gen = torch.Generator(device=h.device).manual_seed(seed + 1)
-    emb2 = emb_act.reshape(b * t, e).to(torch.bfloat16)
-    dmod = torch.randn((b * t, adaln_w.shape[-1]), generator=gen, device=h.device).to(torch.bfloat16)
-    aw = adaln_w.to(torch.bfloat16)
+    emb2 = emb_act.reshape(b * t, e).to(mxu)
+    dmod = torch.randn((b * t, adaln_w.shape[-1]), generator=gen, device=h.device).to(mxu)
+    aw = adaln_w.to(mxu)
     r["yardsticks"] = {
         "d_adaln_w torch.mm float32 out": device_ms(
-            lambda: torch.mm(emb2.t(), dmod, out_dtype=torch.float32), reps),
-        "d_emb torch.mm bf16": device_ms(lambda: torch.mm(dmod, aw.t()), reps),
+            (lambda: torch.mm(emb2.t(), dmod)) if f32 else
+            (lambda: torch.mm(emb2.t(), dmod, out_dtype=torch.float32)), reps),
+        f"d_emb torch.mm {'float32' if f32 else 'bf16'}": device_ms(
+            lambda: torch.mm(dmod, aw.t()), reps),
     }
     # the bounds of K6's two GEMM launches (`launch_split`'s second atb_kernel
-    # and demb_kernel): bf16 operands read once, float32 / bf16 outputs
+    # and demb_kernel, or their float32 modes): operands read once, float32
+    # sums out (d_emb in the operand type)
     rows, d, n6 = b * t, h.shape[-1], adaln_w.shape[-1]
+    size, rate = (4, F32_FLOPS) if f32 else (2, BF16_FLOPS)
     r["part_bounds"] = {
         "atb: 9 d_mats + d_adaln_w": _bound(
-            (16 * rows * d * 2 + rows * (e + n6) * 2 + (9 * d * d + e * n6) * 4) / HBM_BYTES_PER_S * 1e3,
-            2 * rows * (9 * d * d + e * n6) / BF16_FLOPS * 1e3),
+            (16 * rows * d * size + rows * (e + n6) * size + (9 * d * d + e * n6) * 4)
+            / HBM_BYTES_PER_S * 1e3,
+            2 * rows * (9 * d * d + e * n6) / rate * 1e3),
         "demb: d_emb": _bound(
-            (rows * (n6 + e) * 2 + e * n6 * 2) / HBM_BYTES_PER_S * 1e3,
-            2 * rows * n6 * e / BF16_FLOPS * 1e3),
+            (rows * (n6 + e) * size + e * n6 * size) / HBM_BYTES_PER_S * 1e3,
+            2 * rows * n6 * e / rate * 1e3),
     }
     return r
 
@@ -845,7 +898,12 @@ def check_stgcn_kernels(module, pack, mxu, pred, target, dy, *, reps: int = 5,
     ``mask_bytes``, what `save` keeps, with ``mask_flips`` within
     K7_MASK_FLIP_SHARE of the mask bits (part of ``ok``); and ``plan_ok``,
     `ops.stgcn.plan` the tiling the kernel reports (`kernel_plan`, part of
-    ``ok``).
+    ``ok``).  With a float32 ``mxu`` and pack, K7's float32 mode
+    (``stgcn_forward_f32``, ``stgcn_backward_f32``): within F32_REL_TOL,
+    priced at the float32 rate, 21 launches a call (a product and a
+    temporal conv a block, and the projection or the cotangent's start);
+    its tiling is its own (no ``plan_ok``) and K7_BAR_MS is the bf16
+    mode's (no ``bar_met``).
 
     The bounds count the work of the function, whatever implements it, and
     the module's weights in place of the pack's bytes: the forward reads the
@@ -859,6 +917,9 @@ def check_stgcn_kernels(module, pack, mxu, pred, target, dy, *, reps: int = 5,
     d(input) FLOPs alone: what a design that keeps those slabs would be
     held to."""
     weights = list(module.state_dict().values())
+    f32 = mxu == torch.float32
+    if f32:
+        rel_tol, suffix = F32_REL_TOL, "_f32" + suffix
     kept = lambda: (lambda o: (o[0], *o[1]))(stgcn_forward(pred, pack, save=True))  # noqa: E731
     fwd_flops = flops(lambda: module(pred))
     fwd = _compare(
@@ -866,7 +927,7 @@ def check_stgcn_kernels(module, pack, mxu, pred, target, dy, *, reps: int = 5,
         lambda: (stgcn_forward(pred, pack, save=True)[0], stgcn_forward(target, pack)),
         lambda: (frozen_stgcn_plain(pred, pack, mxu), frozen_stgcn_plain(target, pack, mxu)),
         reps, rel_tol, (pred, target, weights, weights),
-        n_flops=2 * fwd_flops)
+        n_flops=2 * fwd_flops, product_dtype=mxu)
     fwd.update(_bound(fwd["bytes_ms"] / 2, fwd["ops_ms"] / 2), ms=fwd["ms"] / 2,
                plain_ms=fwd["plain_ms"] / 2)
     fwd["calls_ms"] = {"forward, save": time_ms(kept, reps),
@@ -887,11 +948,11 @@ def check_stgcn_kernels(module, pack, mxu, pred, target, dy, *, reps: int = 5,
     n_bwd = fwd_flops + n_dinput
     kernel = lambda: stgcn_backward(dy, masks, pack)  # noqa: E731
     bwd = _compare("stgcn_backward" + suffix, kernel, lambda: stgcn_backward_plain(dy, masks, pack, mxu),
-                   reps, rel_tol, (pred, dy, weights), n_flops=n_bwd)
+                   reps, rel_tol, (pred, dy, weights), n_flops=n_bwd, product_dtype=mxu)
     _repeat(bwd, kernel)
     bwd["launch_split"] = launch_split(kernel, reps)
-    saved_bytes = BLOCKS * pred.shape[0] * pred.shape[1] * WIDTH * (4 + 2)
-    old = bound((dy, weights), own[0].new_empty(pred.shape), n_dinput)
+    saved_bytes = BLOCKS * pred.shape[0] * pred.shape[1] * WIDTH * (4 + (4 if f32 else 2))
+    old = bound((dy, weights), own[0].new_empty(pred.shape), n_dinput, product_dtype=mxu)
     bwd["old_bound"] = _bound(old["bytes_ms"] + saved_bytes / HBM_BYTES_PER_S * 1e3, old["ops_ms"])
     bwd["e2e_err"] = _errors(stgcn_backward(dy, own[1:], pack),
                              stgcn_backward_plain(dy, masks, pack, mxu))[0][0]
@@ -900,11 +961,15 @@ def check_stgcn_kernels(module, pack, mxu, pred, target, dy, *, reps: int = 5,
         # K7's own launches, one a st_gcn block (the wrapper may first copy
         # a non-contiguous dy)
         r["launches_a_call"] = sum(name.startswith("stgcn_") for name, _ in r["launch_split"])
+        r["ok"] &= r["launches_a_call"] == (2 * BLOCKS + 1 if f32 else BLOCKS)
+        if f32:
+            r["plan_ok"] = r["bar_met"] = None
+            continue
         direction = "forward" if r is fwd else "backward"
         mine = plan(pred.shape[0], pred.shape[1], direction)
         r["plan_ok"] = {k: mine[k] for k in KERNEL_PLAN_KEYS} == kernel_plan(
             pred.shape[0], pred.shape[1], direction)
-        r["ok"] &= r["launches_a_call"] == BLOCKS and r["plan_ok"]
+        r["ok"] &= r["plan_ok"]
         r["bar_met"] = r["ms"] <= K7_BAR_MS
     return [fwd, bwd]
 

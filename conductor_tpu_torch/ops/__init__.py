@@ -3,8 +3,8 @@
 Each kernel wrapper keeps a plain integer ``launches`` count, raised by one
 each time it launches its kernel on a CUDA tensor (never on the plain CPU
 path); K1 and K2 keep one more for each opt-in mode (``launches_int8``,
-``launches_vpu_bf16``), K1, K2, K3, K4, K9, K10 and K11 one for their
-float32 mode (``launches_f32``; K1 also ``launches_f32_int8`` and
+``launches_vpu_bf16``), K1-K7 and K9-K11 one for their float32 mode
+(``launches_f32``; K1 also ``launches_f32_int8`` and
 ``launches_f32_vpu_bf16``, K2 ``launches_f32_int8``), each launch counted
 in one mode's count only (but K1 with both int8 AdaLN and bf16 VPU,
 counted in both).
@@ -62,6 +62,10 @@ KERNELS = {
     "sampler_prologue_f32": (sampler_prologue, "launches_f32"),
     "sampler_prologue_f32_int8": (sampler_prologue, "launches_f32_int8"),
     "sampler_epilogue_f32": (sampler_epilogue, "launches_f32"),
+    "decoder_layer_f32": (fused_decoder_layer, "launches_f32"),
+    "decoder_layer_bwd_f32": (decoder_layer_bwd, "launches_f32"),
+    "stgcn_forward_f32": (stgcn_forward, "launches_f32"),
+    "stgcn_backward_f32": (stgcn_backward, "launches_f32"),
 }
 # count name -> (wrapper, attribute) of the kernels launched as parts of others
 PARTS = {

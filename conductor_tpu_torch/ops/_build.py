@@ -65,21 +65,26 @@ SIGNATURES = {
     # one for each AdaLN GEMM launch, as adaln_modulation_forward's launches)
     "decoder_stack_forward": ([_P] * 14 + [_I] * 9 + [_P], _I),
     # x, emb, kv_cross, mats, vecs, adaln_w, adaln_b, out, partials, kv_self, mod,
-    # gemm_launches, B, T, t_valid, D, E, H, stream
-    "decoder_layer_forward": ([_P] * 12 + [_I] * 6 + [_P], _I),
+    # gemm_launches, B, T, t_valid, D, E, H, mxu_f32, stream
+    "decoder_layer_forward": ([_P] * 12 + [_I] * 7 + [_P], _I),
     # emb, adaln_w, emb_scale, adaln_w_scale, adaln_b, out, launches, M, E, N, L,
     # operands (0 bf16, 1 int8, 2 float32), stream
     "adaln_modulation_forward": ([_P] * 7 + [_I] * 5 + [_P], _I),
-    # B, T, D, E, H -> workspace bytes of decoder_layer_backward
-    "decoder_layer_backward_workspace": ([_I] * 5, ctypes.c_longlong),
+    # B, T, D, E, H, mxu_f32 -> workspace bytes of decoder_layer_backward
+    "decoder_layer_backward_workspace": ([_I] * 6, ctypes.c_longlong),
     # x, emb, kv_cross, mats, vecs, adaln_w, adaln_b, dy, dx, demb, dkv_cross,
     # dmats, dvecs, dadaln_w, dadaln_b, workspace, gemm_launches, B, T, t_valid,
-    # D, E, H, stream
-    "decoder_layer_backward": ([_P] * 17 + [_I] * 6 + [_P], _I),
+    # D, E, H, mxu_f32, stream
+    "decoder_layer_backward": ([_P] * 17 + [_I] * 7 + [_P], _I),
     # x, m0, m, wt, b1, b2, fc, fcb, hbuf, gmask (null: no save), hmask, out, B, T, stream
     "stgcn_forward": ([_P] * 12 + [_I] * 2 + [_P], _I),
     # dy, m0, m, wt, fc, gmask, hmask, dh, dx, B, T, stream
     "stgcn_backward": ([_P] * 9 + [_I] * 2 + [_P], _I),
+    # float32 mode: x, m0, m, wt, b1, b2, fc, fcb, h, g, gmask (null: no save),
+    # hmask, out, B, T, stream
+    "stgcn_forward_f32": ([_P] * 13 + [_I] * 2 + [_P], _I),
+    # float32 mode: dy, m0, m, wt, fc, gmask, hmask, dh, da, dx, B, T, stream
+    "stgcn_backward_f32": ([_P] * 10 + [_I] * 2 + [_P], _I),
     # B, T, backward, out (5 int32) -> 0
     "stgcn_plan": ([_I] * 3 + [_P], _I),
     # q, k, v, out, B, Tq, Tk, H, cluster, q_bf16, kv_bf16, stream

@@ -12,10 +12,14 @@ Weights as one layer of `train/fused_denoiser.pack_layer_weights`: mats
 (9, D, D), vecs (24, D), adaln_w (E, 6D), adaln_b (6D,), kv_cross (B, D, D)
 block-diagonal.  A CPU tensor goes to the plain version; a CUDA tensor to
 the kernel in `csrc/decoder_stack.cu` (`decoder_layer_forward`: the AdaLN
-GEMM of `csrc/adaln_gemm.cu`, then the layer's passes), which takes bf16
-operands, D = 128 and rows in whole 64-row tiles.  The wrapper
-rounds the float32 weight banks to bf16 for it, as the plain version's
-matmuls round their operands.
+GEMM of `csrc/adaln_gemm.cu`, then the layer's passes), which takes D =
+128, rows in whole 64-row tiles and operands in ``mxu_dtype``: bf16, or in
+its float32 mode float32 (x, emb_act and kv_cross too, as JAX's
+`fused_train_denoise` casts them).  `kernel_operands` gives the operands
+as the kernels take them: the float32 weight banks rounded to bf16 in the
+bf16 mode, as the plain version's matmuls round their operands, and left
+float32 in the float32 mode.  Float32 launches count in
+``launches_f32``.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import ctypes
 import torch
 
 from . import _build
-from .decoder_stack import ROWS_PER_TILE, adaln_modulation, decoder_stack_plain
+from .decoder_stack import ROWS_PER_TILE, _count_gemm, decoder_stack_plain
 
 
 def decoder_layer_plain(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_heads, *,
@@ -41,22 +45,40 @@ def _check_kernel_args(x, emb_act, num_heads, mxu_dtype):
     b, t, d = x.shape
     e = emb_act.shape[-1]
     dh = d // num_heads
-    if (mxu_dtype != torch.bfloat16 or x.dtype != torch.bfloat16 or d != 128 or e % 64
-            or 32 % dh or dh * num_heads != d or t % ROWS_PER_TILE):
+    if (mxu_dtype not in (torch.bfloat16, torch.float32) or x.dtype != mxu_dtype or d != 128
+            or e % 64 or 32 % dh or dh * num_heads != d or t % ROWS_PER_TILE):
         raise ValueError(
-            f"the decoder-layer kernels take bf16 x and operands, D = 128, E % 64 == 0, a head "
-            f"width dividing 32 and T a multiple of {ROWS_PER_TILE}; got {x.dtype} x, "
-            f"{mxu_dtype} operands, D={d}, E={e}, H={num_heads}, T={t}"
+            f"the decoder-layer kernels take x and operands in one of bf16 and float32, D = "
+            f"128, E % 64 == 0, a head width dividing 32 and T a multiple of {ROWS_PER_TILE}; "
+            f"got {x.dtype} x, {mxu_dtype} operands, D={d}, E={e}, H={num_heads}, T={t}"
         )
     return b, t, d, e, dh
 
 
-def kernel_weights(mats, vecs, adaln_w, adaln_b):
-    """The weight banks in the kernels' dtypes: bf16 matrices, float32
-    vectors, all contiguous."""
-    bf, f32 = torch.bfloat16, torch.float32
-    return (mats.to(bf).contiguous(), vecs.to(f32).contiguous(), adaln_w.to(bf).contiguous(),
-            adaln_b.to(f32).contiguous())
+def kernel_operands(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_heads, *,
+                    mxu_dtype, dy=None) -> dict[str, torch.Tensor]:
+    """K5's (and, with ``dy``, K6's) operands as the kernels take them, on
+    any device: x, emb_act and kv_cross as given, which must be in
+    ``mxu_dtype`` (bf16 or float32) at the shapes the kernels take; the
+    matrices ``mats`` and ``adaln_w`` and the cotangent ``dy`` in
+    ``mxu_dtype`` (rounded to bf16 in the bf16 mode, left float32 in the
+    float32 mode); ``vecs`` and ``adaln_b`` float32; all contiguous.
+    Raises ValueError on what the kernels do not take."""
+    b, t, d, e, _ = _check_kernel_args(x, emb_act, num_heads, mxu_dtype)
+    given = {"emb_act": (emb_act, (b, t, e)), "kv_cross": (kv_cross, (b, d, d)),
+             "mats": (mats, (9, d, d)), "vecs": (vecs, (24, d)), "adaln_w": (adaln_w, (e, 6 * d)),
+             "adaln_b": (adaln_b, (6 * d,)), **({} if dy is None else {"dy": (dy, (b, t, d))})}
+    for name, (a, shape) in given.items():
+        if tuple(a.shape) != shape or (name in ("emb_act", "kv_cross") and a.dtype != mxu_dtype):
+            raise ValueError(f"{name}: the decoder-layer kernels take shape {shape} (emb_act "
+                             f"and kv_cross in {mxu_dtype}), got {a.dtype} {tuple(a.shape)}")
+    f32 = torch.float32
+    ops = dict(x=x, emb_act=emb_act, kv_cross=kv_cross, mats=mats.to(mxu_dtype).contiguous(),
+               vecs=vecs.to(f32).contiguous(), adaln_w=adaln_w.to(mxu_dtype).contiguous(),
+               adaln_b=adaln_b.to(f32).contiguous())
+    if dy is not None:
+        ops["dy"] = dy.to(mxu_dtype).contiguous()
+    return ops
 
 
 def fused_decoder_layer(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_heads, *,
@@ -65,30 +87,36 @@ def fused_decoder_layer(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_
     if not x.is_cuda:
         return decoder_layer_plain(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b,
                                    num_heads, mxu_dtype=mxu_dtype, t_valid=t_valid)
-    b, t, d, e, dh = _check_kernel_args(x, emb_act, num_heads, mxu_dtype)
+    ops = kernel_operands(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_heads,
+                          mxu_dtype=mxu_dtype)
+    b, t, d = x.shape
+    e, dh = emb_act.shape[-1], d // num_heads
     t_valid = t if t_valid is None else t_valid
-    mats, vecs, adaln_w, adaln_b = kernel_weights(mats, vecs, adaln_w, adaln_b)
-    bf, f32 = torch.bfloat16, torch.float32
-    _build.require(x, "x", bf, (b, t, d))
-    _build.require(emb_act, "emb_act", bf, (b, t, e))
-    _build.require(kv_cross, "kv_cross", bf, (b, d, d))
-    _build.require_aligned(x=x, emb_act=emb_act, kv_cross=kv_cross, mats=mats, adaln_w=adaln_w)
+    f32, mode_f32 = torch.float32, mxu_dtype == torch.float32
+    for name in ("x", "emb_act", "kv_cross", "mats", "adaln_w"):
+        _build.require(ops[name], name, mxu_dtype, tuple(ops[name].shape))
+    _build.require_aligned(**{k: ops[k] for k in ("x", "emb_act", "kv_cross", "mats", "adaln_w")})
     n_tiles = -(-t_valid // ROWS_PER_TILE)
     out = torch.empty_like(x)
     partials = torch.empty((b, n_tiles, 2 * d + d * dh), dtype=f32, device=x.device)
-    kv_self = torch.empty((b, d, d), dtype=bf, device=x.device)
+    kv_self = torch.empty((b, d, d), dtype=mxu_dtype, device=x.device)
     mod = torch.empty((b * t, 6 * d), dtype=f32, device=x.device)  # the AdaLN modulation
     gemm_launches = ctypes.c_int(0)
     err = _build.library().decoder_layer_forward(
-        x.data_ptr(), emb_act.data_ptr(), kv_cross.data_ptr(), mats.data_ptr(),
-        vecs.data_ptr(), adaln_w.data_ptr(), adaln_b.data_ptr(), out.data_ptr(),
-        partials.data_ptr(), kv_self.data_ptr(), mod.data_ptr(), ctypes.addressof(gemm_launches),
-        b, t, t_valid, d, e, num_heads, _build.stream(),
+        x.data_ptr(), emb_act.data_ptr(), kv_cross.data_ptr(), ops["mats"].data_ptr(),
+        ops["vecs"].data_ptr(), ops["adaln_w"].data_ptr(), ops["adaln_b"].data_ptr(),
+        out.data_ptr(), partials.data_ptr(), kv_self.data_ptr(), mod.data_ptr(),
+        ctypes.addressof(gemm_launches), b, t, t_valid, d, e, num_heads, int(mode_f32),
+        _build.stream(),
     )
     _build.check(err, "decoder_layer_forward")
-    fused_decoder_layer.launches += 1
-    adaln_modulation.launches += gemm_launches.value
+    if mode_f32:
+        fused_decoder_layer.launches_f32 += 1
+    else:
+        fused_decoder_layer.launches += 1
+    _count_gemm(mxu_dtype, gemm_launches.value)
     return out
 
 
 fused_decoder_layer.launches = 0
+fused_decoder_layer.launches_f32 = 0

@@ -7,16 +7,20 @@ Port of `conductor_tpu/ops/pallas_layer_bwd.py::fused_decoder_layer_train`
 forward is K5 (`ops/decoder_layer.fused_decoder_layer`), its backward
 `decoder_layer_bwd`, which returns the seven gradients of the JAX custom_vjp:
 dx, d_emb_act, d_kv_cross, d_mats (9, D, D), d_vecs (24, D), d_adaln_w
-(E, 6D) and d_adaln_b (6D,), each in its input's dtype.  Rows at or past
-``t_valid`` are masked as in the forward and carry no gradient into the
-weights.
+(E, 6D) and d_adaln_b (6D,), each in its input's dtype (the kernel computes
+the four weight gradients in float32, as the JAX kernel's `out_shapes`).
+Rows at or past ``t_valid`` are masked as in the forward and carry no
+gradient into the weights.
 
 On CPU tensors `decoder_layer_bwd` is its plain version,
 `decoder_layer_bwd_plain`: `torch.autograd.grad` through
 `decoder_layer_plain`.  On CUDA tensors it launches the kernel in
 `csrc/decoder_layer_bwd.cu` (several launches, one C call: the AdaLN GEMM
-of `csrc/adaln_gemm.cu` among them, counted in `adaln_modulation.launches`
-as the C call reports it) or raises.
+of `csrc/adaln_gemm.cu` among them, counted in `adaln_modulation`'s
+``launches`` or ``launches_f32`` as the C call reports it) or raises.  Its
+operands are those of `ops.decoder_layer.kernel_operands`: bf16, or in the
+float32 mode (``mxu_dtype=torch.float32``) float32, the cotangent too; the
+float32 launches count in ``launches_f32``.
 """
 
 from __future__ import annotations
@@ -26,8 +30,8 @@ import ctypes
 import torch
 
 from . import _build
-from .decoder_layer import _check_kernel_args, decoder_layer_plain, fused_decoder_layer, kernel_weights
-from .decoder_stack import adaln_modulation
+from .decoder_layer import decoder_layer_plain, fused_decoder_layer, kernel_operands
+from .decoder_stack import _count_gemm
 
 
 def decoder_layer_bwd_plain(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, dy, num_heads, *,
@@ -48,17 +52,17 @@ def decoder_layer_bwd(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, dy, nu
     if not x.is_cuda:
         return decoder_layer_bwd_plain(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, dy,
                                        num_heads, mxu_dtype=mxu_dtype, t_valid=t_valid)
-    b, t, d, e, _ = _check_kernel_args(x, emb_act, num_heads, mxu_dtype)
+    ops = kernel_operands(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_heads,
+                          mxu_dtype=mxu_dtype, dy=dy)
+    b, t, d = x.shape
+    e = emb_act.shape[-1]
     t_valid = t if t_valid is None else t_valid
-    bf, f32 = torch.bfloat16, torch.float32
-    wm, wv, wa, wb = kernel_weights(mats, vecs, adaln_w, adaln_b)
-    dy = dy.to(bf).contiguous()
-    _build.require(x, "x", bf, (b, t, d))
-    _build.require(emb_act, "emb_act", bf, (b, t, e))
-    _build.require(kv_cross, "kv_cross", bf, (b, d, d))
-    _build.require_aligned(x=x, emb_act=emb_act, mats=wm, adaln_w=wa, dy=dy)
+    f32, mode_f32 = torch.float32, mxu_dtype == torch.float32
+    for name in ("x", "emb_act", "kv_cross", "mats", "adaln_w", "dy"):
+        _build.require(ops[name], name, mxu_dtype, tuple(ops[name].shape))
+    _build.require_aligned(**{k: ops[k] for k in ("x", "emb_act", "mats", "adaln_w", "dy")})
     lib = _build.library()
-    ws_bytes = lib.decoder_layer_backward_workspace(b, t, d, e, num_heads)
+    ws_bytes = lib.decoder_layer_backward_workspace(b, t, d, e, num_heads, int(mode_f32))
     if ws_bytes < 0:
         raise ValueError(f"decoder_layer_bwd: the kernel does not take D={d}, E={e}, H={num_heads}")
     workspace = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device)
@@ -69,20 +73,24 @@ def decoder_layer_bwd(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, dy, nu
     dab = torch.empty((6 * d,), dtype=f32, device=x.device)
     gemm_launches = ctypes.c_int(0)
     err = lib.decoder_layer_backward(
-        x.data_ptr(), emb_act.data_ptr(), kv_cross.data_ptr(), wm.data_ptr(), wv.data_ptr(),
-        wa.data_ptr(), wb.data_ptr(), dy.data_ptr(), dx.data_ptr(), demb.data_ptr(),
+        x.data_ptr(), emb_act.data_ptr(), kv_cross.data_ptr(), *(ops[k].data_ptr() for k in (
+            "mats", "vecs", "adaln_w", "adaln_b", "dy")), dx.data_ptr(), demb.data_ptr(),
         dkvc.data_ptr(), dmats.data_ptr(), dvecs.data_ptr(), daw.data_ptr(), dab.data_ptr(),
         workspace.data_ptr(), ctypes.addressof(gemm_launches), b, t, t_valid, d, e, num_heads,
-        _build.stream(),
+        int(mode_f32), _build.stream(),
     )
-    adaln_modulation.launches += gemm_launches.value
+    _count_gemm(mxu_dtype, gemm_launches.value)
     _build.check(err, "decoder_layer_backward")
-    decoder_layer_bwd.launches += 1
+    if mode_f32:
+        decoder_layer_bwd.launches_f32 += 1
+    else:
+        decoder_layer_bwd.launches += 1
     return (dx, demb, dkvc, dmats.to(mats.dtype), dvecs.to(vecs.dtype), daw.to(adaln_w.dtype),
             dab.to(adaln_b.dtype))
 
 
 decoder_layer_bwd.launches = 0
+decoder_layer_bwd.launches_f32 = 0
 
 
 class _LayerTrain(torch.autograd.Function):

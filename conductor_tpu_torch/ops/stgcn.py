@@ -29,10 +29,13 @@ frame), with the same roundings.
 `fused_frozen_stgcn` is a `torch.autograd.Function`.  On CPU tensors it
 runs the plain version, and its backward is autograd through it.  On CUDA
 tensors the forward is `stgcn_forward`, which keeps the masks, and the
-backward `stgcn_backward`, the kernels in `csrc/stgcn.cu` (one launch a
-block and direction, tiled as `plan` reports), which take bf16 operands,
-13 joints and 32 channels; anything else raises.  The pack takes no
-gradient.
+backward `stgcn_backward`, which take 13 joints and 32 channels and the
+pack in one of two modes, read from its matrices' dtype: bf16, the kernels
+in `csrc/stgcn.cu` (one launch a block and direction, tiled as `plan`
+reports), or float32, the float32 mode in `csrc/stgcn_f32.cu` (FFMA: a
+dense product and a temporal conv a block and direction, and the
+projection), counted in ``launches_f32``; anything else raises.  The pack
+takes no gradient.
 """
 
 from __future__ import annotations
@@ -233,22 +236,31 @@ def stgcn_backward_plain(dy: torch.Tensor, masks: tuple, pack: dict,
     return dh.reshape(b, t, V, 2)
 
 
-def _check_pack(pack: dict) -> None:
-    """Raise ValueError unless the pack is the kernels': on the card, bf16
-    matrices and float32 biases for 13 joints and 32 channels."""
+def _check_pack(pack: dict) -> torch.dtype:
+    """The pack's mode, bf16 or float32 (its matrices' dtype); raise
+    ValueError unless the pack is the kernels': on the card, matrices all
+    in that dtype and float32 biases for 13 joints and 32 channels."""
+    mxu = pack["m"].dtype
+    if mxu not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the ST-GCN kernels take a bf16 or a float32 pack; got {mxu} matrices")
     for k, s in (("m0", (IN_PAD, WIDTH)), ("m", (BLOCKS - 1, WIDTH, WIDTH)),
                  ("wt", (BLOCKS, 3, C, C)), ("fc", (WIDTH, OUT))):
-        _build.require(pack[k], k, torch.bfloat16, s)
+        _build.require(pack[k], k, mxu, s)
     for k, s in (("b1", (BLOCKS, WIDTH)), ("b2", (BLOCKS, C)), ("fcb", (OUT,))):
         _build.require(pack[k], k, torch.float32, s)
+    return mxu
 
 
 def _check_kernel_args(motion: torch.Tensor, pack: dict, mxu_dtype: torch.dtype) -> None:
-    """Raise ValueError unless the kernels take these arguments: bf16
-    operands, 13 joints x 2, the pack `_check_pack` takes."""
-    if mxu_dtype != torch.bfloat16 or tuple(motion.shape[2:]) != (V, 2):
-        raise ValueError(f"the ST-GCN kernels take bf16 operands and {V} joints x 2; got "
-                         f"{mxu_dtype} operands, motion {tuple(motion.shape)}")
+    """Raise ValueError unless the kernels take these arguments: operands
+    in bf16 or float32, the pack's mode, 13 joints x 2, the pack
+    `_check_pack` takes."""
+    if mxu_dtype not in (torch.bfloat16, torch.float32) or tuple(motion.shape[2:]) != (V, 2):
+        raise ValueError(f"the ST-GCN kernels take bf16 or float32 operands and {V} joints x 2; "
+                         f"got {mxu_dtype} operands, motion {tuple(motion.shape)}")
+    if pack["m"].dtype != mxu_dtype:
+        raise ValueError(f"the ST-GCN kernels take a pack in the operands' dtype (bf16 or "
+                         f"float32); got a {pack['m'].dtype} pack, {mxu_dtype} operands")
     _check_pack(pack)
 
 
@@ -256,48 +268,69 @@ def stgcn_forward(motion: torch.Tensor, pack: dict, *, save: bool = False):
     """K7 forward on the card: (B, T, 13, 2) float32 -> (B, T, 64) float32.
     With ``save``, also returns what `stgcn_backward` needs: every block's
     ReLU masks [g > 0] and [h > 0], (10, B*T, 13) int32 each, as
-    `frozen_stgcn_plain` lays them out."""
-    _check_kernel_args(motion, pack, torch.bfloat16)
+    `frozen_stgcn_plain` lays them out.  The pack's dtype picks the mode
+    (`_check_pack`)."""
+    mxu = pack["m"].dtype
+    _check_kernel_args(motion, pack, mxu)
     b, t = motion.shape[0], motion.shape[1]
     x = motion.float().contiguous()
     _build.require(x, "motion", torch.float32, (b, t, V, 2))
     rows = b * t
+    # bf16: two h slabs used in turn; float32: h (in place) and g
     hbuf = torch.empty((2, rows, WIDTH), dtype=torch.float32, device=x.device)
     masks = torch.empty((2, BLOCKS, rows, V), dtype=torch.int32, device=x.device) if save else None
     out = torch.empty((b, t, OUT), dtype=torch.float32, device=x.device)
-    err = _build.library().stgcn_forward(
-        x.data_ptr(), *(pack[k].data_ptr() for k in PACK_KEYS), hbuf.data_ptr(),
+    f32 = mxu == torch.float32
+    entry = _build.library().stgcn_forward_f32 if f32 else _build.library().stgcn_forward
+    err = entry(
+        x.data_ptr(), *(pack[k].data_ptr() for k in PACK_KEYS),
+        *((hbuf[0].data_ptr(), hbuf[1].data_ptr()) if f32 else (hbuf.data_ptr(),)),
         *((masks[0].data_ptr(), masks[1].data_ptr()) if save else (None, None)), out.data_ptr(),
         b, t, _build.stream())
-    _build.check(err, "stgcn_forward")
-    stgcn_forward.launches += 1
+    _build.check(err, "stgcn_forward_f32" if f32 else "stgcn_forward")
+    if f32:
+        stgcn_forward.launches_f32 += 1
+    else:
+        stgcn_forward.launches += 1
     return (out, (masks[0], masks[1])) if save else out
 
 
 stgcn_forward.launches = 0
+stgcn_forward.launches_f32 = 0
 
 
 def stgcn_backward(dy: torch.Tensor, masks: tuple, pack: dict) -> torch.Tensor:
     """K7 backward on the card: the output cotangent (B, T, 64) and the
-    forward's ``masks`` -> d(motion) (B, T, 13, 2) float32."""
+    forward's ``masks`` -> d(motion) (B, T, 13, 2) float32, in the pack's
+    mode."""
     gmask, hmask = masks
     b, t = dy.shape[0], dy.shape[1]
-    _check_pack(pack)
+    f32 = _check_pack(pack) == torch.float32
     dy = dy.float().contiguous()
     _build.require(dy, "dy", torch.float32, (b, t, OUT))
     _build.require(gmask, "gmask", torch.int32, (BLOCKS, b * t, V))
     _build.require(hmask, "hmask", torch.int32, (BLOCKS, b * t, V))
+    # bf16: two dh slabs used in turn; float32: dh (in place) and da
     dh = torch.empty((2, b * t, WIDTH), dtype=torch.float32, device=dy.device)
     dx = torch.empty((b, t, V, 2), dtype=torch.float32, device=dy.device)
-    err = _build.library().stgcn_backward(
-        dy.data_ptr(), *(pack[k].data_ptr() for k in ("m0", "m", "wt", "fc")), gmask.data_ptr(),
-        hmask.data_ptr(), dh.data_ptr(), dx.data_ptr(), b, t, _build.stream())
-    _build.check(err, "stgcn_backward")
-    stgcn_backward.launches += 1
+    weights = [pack[k].data_ptr() for k in ("m0", "m", "wt", "fc")]
+    if f32:
+        err = _build.library().stgcn_backward_f32(
+            dy.data_ptr(), *weights, gmask.data_ptr(), hmask.data_ptr(), dh[0].data_ptr(),
+            dh[1].data_ptr(), dx.data_ptr(), b, t, _build.stream())
+        _build.check(err, "stgcn_backward_f32")
+        stgcn_backward.launches_f32 += 1
+    else:
+        err = _build.library().stgcn_backward(
+            dy.data_ptr(), *weights, gmask.data_ptr(), hmask.data_ptr(), dh.data_ptr(),
+            dx.data_ptr(), b, t, _build.stream())
+        _build.check(err, "stgcn_backward")
+        stgcn_backward.launches += 1
     return dx
 
 
 stgcn_backward.launches = 0
+stgcn_backward.launches_f32 = 0
 
 
 class _FrozenSTGCN(torch.autograd.Function):

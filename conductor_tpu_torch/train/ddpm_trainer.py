@@ -15,8 +15,8 @@ off by the reference mask or dropout) the denoiser's layers run through
 modules in the compute dtype (flax's ``dtype=`` rule, `models.precision`)
 and autograd, their self-attention on K8 with ``attention_impl ==
 "pallas"`` (`ops.attention`).  The perceptual term runs the frozen ST-GCN:
-with ``feat_impl == "pallas"`` (the port's "auto" on CUDA with bf16
-operands) on `ops.stgcn.fused_frozen_stgcn`, K7 forward on pred and target
+with ``feat_impl == "pallas"`` (the port's "auto" on CUDA, in bf16 or
+float32, the compute dtype) on `ops.stgcn.fused_frozen_stgcn`, K7 forward on pred and target
 and K7 backward to pred, over weights packed once outside the step;
 otherwise the plain `MotionEncoderSTGCN` and autograd.  From mel the frozen
 music encoder runs in the compute dtype, as the JAX trainer's
@@ -451,11 +451,9 @@ def require_device(device: torch.device | str) -> torch.device:
 def _check_training_config(cfg: Config, device: torch.device | str) -> None:
     """Raise on the training options the port does not run on ``device``:
     the gating of the fused layers (`conductor_tpu/train/ddpm_trainer.py:
-    119-125`), the kernels whose float32 mode is not ported on CUDA (K5 /
-    K6, the fused training layers; K7, the perceptual ST-GCN: see
-    `_check_float32_kernels`), the model widths the kernels do not take on
-    CUDA (`_check_kernel_widths`), and the modes not ported yet (denoiser
-    dropout among them)."""
+    119-125`), the model widths the kernels do not take on CUDA
+    (`_check_kernel_widths`), and the modes not ported yet (denoiser
+    dropout among them).  Every kernel takes both compute dtypes."""
     d, tc = cfg.denoiser, cfg.train
     if d.train_layer_impl not in ("flax", "pallas_fused"):
         raise ValueError(f"unknown train_layer_impl: {d.train_layer_impl}")
@@ -466,7 +464,6 @@ def _check_training_config(cfg: Config, device: torch.device | str) -> None:
                          "the full src_mask (replicate_reference_mask off)")
     if tc.feat_impl not in ("flax", "pallas"):
         raise ValueError(f"unknown feat_impl: {tc.feat_impl}")
-    _check_float32_kernels(cfg, device)
     _check_kernel_widths(cfg, device)
     if tc.timestep_sampler not in ("uniform", "loss-second-moment"):
         raise ValueError(f"unknown timestep sampler: {tc.timestep_sampler}")
@@ -474,30 +471,6 @@ def _check_training_config(cfg: Config, device: torch.device | str) -> None:
         raise NotImplementedError("denoiser dropout is not ported (the default is 0)")
     if cfg.diffusion.loss_type not in ("mse", "rescaled_mse"):
         raise NotImplementedError(f"loss_type {cfg.diffusion.loss_type!r} is not ported")
-
-
-def _check_float32_kernels(cfg: Config, device: torch.device | str) -> None:
-    """A float32 config on CUDA runs only the kernels whose float32 mode is
-    ported: K1 / K2 / K3 (the fused sampler, ``layer_impl="pallas_fused"``),
-    K4 (the music encoder, ``music_encoder_impl="pallas"``) and K8.  Raise,
-    naming each kernel the config would launch without a float32 mode (K5 /
-    K6, K7) and the knobs that run today, rather than fail in a wrapper at
-    the first call."""
-    d, tc = cfg.denoiser, cfg.train
-    if torch.device(device).type != "cuda" or d.compute_dtype != "float32":
-        return
-    unported = [name for name, used in (
-        ("K5 / K6, the fused training layers (train_layer_impl='pallas_fused')",
-         d.train_layer_impl == "pallas_fused"),
-        ("K7, the perceptual ST-GCN (feat_impl='pallas')", tc.feat_impl == "pallas"),
-    ) if used]
-    if unported:
-        raise ValueError(
-            "compute_dtype='float32' on CUDA: the float32 mode of " + "; ".join(unported)
-            + " is not ported yet (these kernels take bf16 operands).  The float32 path that "
-            "runs today pins train_layer_impl='flax' and feat_impl='flax'; serving runs on the "
-            "float32 kernels (layer_impl='pallas_fused', music_encoder_impl='pallas') or on the "
-            "plain modules (layer_impl='flax', music_encoder_impl='flax')")
 
 
 # the widths the decoder kernels are built for (csrc/layer_common.cuh D, the

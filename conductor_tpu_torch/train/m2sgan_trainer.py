@@ -29,8 +29,8 @@ The knobs and their "auto" rule are JAX's (`:50-153`), "on TPU" read as
 - ``sync_encoder_impl`` "pallas" with ``sync_encoder_dtype`` bf16 (the
   frozen ST-GCN on K7, `ops.stgcn.fused_frozen_stgcn`: the fake forward
   keeping its ReLU masks and backward, the real forward only; the pack
-  built once and dropped by `reset_caches`); "flax" and float32 off
-  CUDA.  K7 takes float32 motion, so a bf16 generator's output is cast
+  built once and dropped by `reset_caches`; an explicit float32 runs K7's
+  float32 mode); "flax" and float32 off CUDA.  K7 takes float32 motion, so a bf16 generator's output is cast
   to float32 before it;
 - with ``train_music_encoder``, ``compute_dtype`` bf16 and
   ``music_conv_impl`` "pallas_train" (K4's training modes, K9, K10, K11,
@@ -104,9 +104,6 @@ def resolve_gan_impls(music_encoder_impl: str, sync_encoder_dtype: str, sync_enc
                          ("sync_encoder_dtype", ("float32", "bfloat16"))):
         if out[key] not in allowed:
             raise ValueError(f"unknown {key}: {out[key]}")
-    if cuda and out["sync_encoder_impl"] == "pallas" and out["sync_encoder_dtype"] != "bfloat16":
-        raise ValueError("sync_encoder_impl='pallas' on CUDA runs K7, which takes bf16 operands; "
-                         f"sync_encoder_dtype is {out['sync_encoder_dtype']}")
     return out
 
 

@@ -5,7 +5,8 @@ card: stage 2's `DDPMTrainer.train_step`, with ``--m2snet`` stage 1's
 `M2SGANTrainer.train_step`.
 
     python3 scripts/profile_torch_train.py [--impl pallas_fused|flax] [--feat auto|flax|pallas]
-                                           [--cached] [--mask] [--tree DIR] [--walls N]
+                                           [--dtype auto|float32] [--cached] [--mask]
+                                           [--tree DIR] [--walls N]
     python3 scripts/profile_torch_train.py --m2snet [--impl pallas_fused|flax] [--share] [--walls N]
     python3 scripts/profile_torch_train.py --m2sgan [--impl pallas_fused|flax] [--train-encoder]
                                            [--cached] [--walls N]
@@ -15,7 +16,8 @@ B = 32 windows of 30 s (T = 900 motion / 2700 mel frames), seeded data; with
 ``--cached`` the batch carries frozen-encoder features instead of mel
 (``TrainConfig.cached_features``), so the music encoder drops out.
 ``--feat`` picks the perceptual ST-GCN: "auto" is K7 on the kernel path,
-"flax" the plain float32 module.  ``--mask`` replicates the reference's
+"flax" the plain float32 module.  ``--dtype float32`` runs the kernel path
+in float32 (K5 / K6's and K7's float32 modes).  ``--mask`` replicates the reference's
 loss mask (``replicate_reference_mask``, m_lens = 60): "auto" then runs the
 bf16 plain layers with the self-attention on K8, "flax" the float32 plain
 layers with the mask.  After two warm-up steps it times ``--walls`` steps
@@ -30,10 +32,10 @@ more step (`torch.cuda.max_memory_allocated`), and the kernels by total
 device time.  On the kernel path it
 also splits K6's device time a step by kernel (`k6_split`: the kernels
 launched inside each `decoder_layer_bwd` call, which the script wraps in
-a `torch.profiler.record_function` range), and times one K6 call alone on
-layer 0's inputs of a training forward at the step's shape (B = 32, T =
-900 padded to 960): CUDA-event ms a call, device ms a call by kernel, and
-its workspace bytes.  ``--tree`` profiles the port in another checkout (a
+a `torch.profiler.record_function` range), and times one K5 and one K6
+call alone on layer 0's inputs of a training forward at the step's shape
+(B = 32, T = 900 padded to 960): CUDA-event ms a call and device ms a call
+by kernel.  ``--tree`` profiles the port in another checkout (a
 parent commit unpacked by `git archive`), which builds its own kernels.
 
 ``--m2snet``: the stage-1 step at the reference batch, B = 10 samples of
@@ -76,7 +78,8 @@ STEPS = 2  # profiled steps, after two warm-up steps
 K6_RANGE = "K6 decoder_layer_bwd"  # the profiler range around each K6 call
 # K7's kernels: one a st_gcn block and direction; the row and temporal
 # passes in trees before it was one launch a block
-K7_KERNELS = ("stgcn_fwd_kernel", "stgcn_bwd_kernel", "rows_kernel", "tconv_kernel")
+K7_KERNELS = ("stgcn_fwd_kernel", "stgcn_bwd_kernel", "rows_kernel", "tconv_kernel",
+              "stgcn_f32_gemm", "stgcn_f32_tconv")  # the last two: K7's float32 mode
 
 
 def profile_steps(step, walls: int = STEPS) -> tuple[list, float, float, str, dict, dict]:
@@ -144,7 +147,7 @@ def wrap_k6_in_range() -> None:
         with torch.profiler.record_function(K6_RANGE):
             return inner(*args, **kw)
 
-    wrapped.launches = 0
+    wrapped.launches = wrapped.launches_f32 = 0  # the bf16 and float32 modes' counts
     mod.decoder_layer_bwd = wrapped
 
 
@@ -155,16 +158,14 @@ def _split_text(split: dict[str, tuple[float, float]]) -> str:
     return f"{total:.4f} ms: {parts}" if split else "not measured (the trace linked no kernels)"
 
 
-def k6_alone(tr, cond, motion, smi: str) -> str:
-    """One K6 call on layer 0's inputs of a training forward of ``tr`` on
-    ``cond`` and ``motion`` (seeded t and noise, a seeded cotangent zero on
-    the pad rows, as `kernel_checks.check_train_kernels` builds them): its
-    CUDA-event ms a call, device ms a call by kernel and workspace bytes."""
-    from torch.profiler import ProfilerActivity, profile
-
+def layers_alone(tr, cond, motion, smi: str) -> str:
+    """One K5 and one K6 call on layer 0's inputs of a training forward of
+    ``tr`` on ``cond`` and ``motion`` (seeded t and noise, a seeded
+    cotangent zero on the pad rows, as `kernel_checks.check_train_kernels`
+    builds them): each one's CUDA-event ms a call and device ms a call by
+    kernel."""
     from conductor_tpu_torch.diffusion import q_sample
-    from conductor_tpu_torch.kernel_checks import time_ms
-    from conductor_tpu_torch.ops import _build
+    from conductor_tpu_torch.kernel_checks import launch_split, time_ms
     from conductor_tpu_torch.train.fused_denoiser import (
         cross_kv_state,
         pack_layer_weights,
@@ -186,40 +187,20 @@ def k6_alone(tr, cond, motion, smi: str) -> str:
         dy[:, n:] = 0
         dy = dy.to(h.dtype)
     heads = cfg.denoiser.num_heads
-
-    def call():
-        return importlib.import_module("conductor_tpu_torch.ops.decoder_layer_bwd").decoder_layer_bwd(
-            *args, dy, heads, mxu_dtype=h.dtype, t_valid=n)
-
-    ms = time_ms(call, 10)
-    call()
-    torch.cuda.synchronize()
-    # by launch, in launch order (a parent tree's kernel_checks may lack
-    # `launch_split`, so the script keeps its own); a trace that dropped
-    # records is taken again, at most twice
-    split = None
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                call()
-            torch.cuda.synchronize()
-        launches = sorted((e for e in prof.events()
-                           if e.device_type == torch.autograd.DeviceType.CUDA),
-                          key=lambda e: e.time_range.start)
-        per = len(launches) // 5
-        names = [_short(e.name) for e in launches]
-        if per and len(launches) == 5 * per and all(names[c * per:(c + 1) * per] == names[:per]
-                                                    for c in range(5)):
-            split = [(names[i], sum(launches[c * per + i].time_range.elapsed_us()
-                                    for c in range(5)) / 1e3 / 5) for i in range(per)]
-            break
-    tp, d = h.shape[1], h.shape[2]
-    ws = _build.library().decoder_layer_backward_workspace(b, tp, d, emb_act.shape[-1], heads)
-    by_launch = ("not measured (the profiler dropped records)" if split is None else
-                 f"{sum(t for _, t in split):.4f} ms by launch: "
-                 + "; ".join(f"{k} {t:.4f}" for k, t in split))
-    return (f"K6 alone, B={b} T={n} (padded {tp}): {ms:.4f} ms a call (CUDA events), device "
-            f"{by_launch}; workspace {ws} bytes, on {smi}")
+    kw = dict(mxu_dtype=h.dtype, t_valid=n)
+    calls = {
+        "K5": lambda: importlib.import_module(
+            "conductor_tpu_torch.ops.decoder_layer").fused_decoder_layer(*args, heads, **kw),
+        "K6": lambda: importlib.import_module(
+            "conductor_tpu_torch.ops.decoder_layer_bwd").decoder_layer_bwd(*args, dy, heads, **kw),
+    }
+    lines = []
+    for name, call in calls.items():
+        ms, split = time_ms(call, 10), launch_split(call)
+        lines.append(f"{name} alone, {h.dtype}, B={b} T={n} (padded {h.shape[1]}): {ms:.4f} ms a "
+                     f"call (CUDA events), device {sum(t for _, t in split):.4f} ms by launch: "
+                     + "; ".join(f"{k} {t:.4f}" for k, t in split) + f", on {smi}")
+    return "\n".join(lines)
 
 
 def _smi() -> str:
@@ -334,6 +315,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--impl", default="pallas_fused", choices=["pallas_fused", "flax"])
     ap.add_argument("--feat", default="auto", choices=["auto", "flax", "pallas"])
+    ap.add_argument("--dtype", default="auto", choices=["auto", "float32"])
     ap.add_argument("--cached", action="store_true")
     ap.add_argument("--mask", action="store_true")
     ap.add_argument("--m2snet", action="store_true")
@@ -362,7 +344,8 @@ def main() -> None:
     from conductor_tpu_torch.kernel_checks import perceptual_inputs, time_ms
 
     cfg = Config()
-    cfg = cfg.replace(train=dataclasses.replace(cfg.train, cached_features=args.cached,
+    cfg = cfg.replace(denoiser=dataclasses.replace(cfg.denoiser, compute_dtype=args.dtype),
+                      train=dataclasses.replace(cfg.train, cached_features=args.cached,
                                                 feat_impl=args.feat,
                                                 replicate_reference_mask=args.mask))
     if args.impl == "flax":
@@ -409,14 +392,15 @@ def main() -> None:
         f"{tr.cfg.denoiser.compute_dtype} / {tr.cfg.denoiser.train_layer_impl} / attention "
         f"{tr.cfg.denoiser.attention_impl}, B={b} T={n}, {STEPS} steps profiled on {_smi()}",
         f"{_times(wall_plain, wall, device)}; perceptual term {feat_ms:.2f} ms (CUDA events)",
-        f"K7 (csrc/stgcn.cu, the perceptual ST-GCN): {sum(ms for ms, _ in k7):.3f} ms/step device, "
+        f"K7 (csrc/stgcn.cu, float32 csrc/stgcn_f32.cu, the perceptual ST-GCN): "
+        f"{sum(ms for ms, _ in k7):.3f} ms/step device, "
         f"{sum(c for _, c in k7):.0f} launches/step; peak memory of a step "
         f"(torch.cuda.max_memory_allocated) {peak} bytes",
         *(f"{name}: {ms:.4f} ms device, {n:g} launches per step" for name, (ms, n)
           in sorted(by_name.items()) if "attention_" in name),  # K8's kernel(s)
         f"K8 (csrc/linear_attention.cu): {sum(ms for ms, _ in k8):.4f} ms/step device, "
         f"{sum(n for _, n in k8):.0f} launches/step",
-        *([f"K6 a step: device {_split_text(k6)}", k6_alone(tr, mel, motion, _smi())]
+        *([f"K6 a step: device {_split_text(k6)}", layers_alone(tr, mel, motion, _smi())]
           if kernel_path else []),
         table]))
 

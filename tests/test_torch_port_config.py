@@ -91,19 +91,12 @@ def _both(module, efficient, dropout, ref_mask, dtype, knobs):
 def test_resolve_auto_matches_jax(efficient, dropout, ref_mask):
     """The port's "auto" rule is JAX's, field by field: on CUDA as JAX's on
     the TPU, on the CPU as JAX's on the CPU, over the compute dtypes and
-    explicit or "auto" knobs.  The one listed difference: the port's
-    ``feat_impl`` "auto" is K7 on CUDA only when the compute dtype resolves
-    to bfloat16 (the kernel's operands), where JAX's is its kernel on the
-    TPU at any dtype."""
+    explicit or "auto" knobs, ``feat_impl`` included (K7 on CUDA at either
+    compute dtype, as JAX's kernel on the TPU)."""
     for dtype in ("auto", "float32", "bfloat16"):
         for knobs in KNOBS:
             args = (efficient, dropout, ref_mask, dtype, knobs)
             for device, backend in (("cuda", "tpu"), ("cpu", "cpu")):
                 got = dataclasses.asdict(port_config.resolve_auto(_both(port_config, *args), device))
                 want = dataclasses.asdict(jax_config.resolve_auto(_both(jax_config, *args), backend))
-                gate = (device == "cuda" and KNOBS[knobs]["feat_impl"] == "auto"
-                        and got["denoiser"]["compute_dtype"] == "float32")
-                if gate:  # the listed difference
-                    assert (got["train"]["feat_impl"], want["train"]["feat_impl"]) == ("flax", "pallas")
-                    want["train"]["feat_impl"] = "flax"
                 assert got == want, (args, device)

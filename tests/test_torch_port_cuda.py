@@ -22,7 +22,11 @@ plain float32 step at S = 6, and 2 steps of the stage-2 training CLI
 launching K5 / K6 / K7 every step; the fused ladder's float32 mode: K1
 alone, with bf16 VPU and with int8 AdaLN, its float32 GEMM, K2's float32
 emb_act and K3's float32 products within F32_REL_TOL, and a float32
-generate through them against the plain float32 path.  Skips
+generate through them against the plain float32 path; K5's and K6's
+float32 modes against their plain versions at a padded T with a partial
+last tile, repeating bit for bit and counted apart, and a float32 stage-2
+step on them against the plain float32 path with the caller's TF32 flags
+left on and restored.  Skips
 without a CUDA card; on one, run it with
 ``python -m pytest --noconftest tests/test_torch_port_cuda.py``.
 ``chip_smoke.py`` makes the same checks at the flagship size."""
@@ -64,6 +68,7 @@ from conductor_tpu_torch.ops import (
     conv3x3_dkernel,
     decoder_layer_bwd,
     decoder_layer_bwd_plain,
+    decoder_layer_plain,
     linear_attention_kernel,
     fused_conv_block,
     fused_decoder_layer,
@@ -176,7 +181,11 @@ def test_kernels_match_plain_versions(trainers):
             *stage1_kernel_inputs(s1_f32, music, motion_s1, (0, 120)), reps=1)
         results.append(check_conv_blocks(
             FusedMusicEncoder(kernel.model.music_encoder, torch.float32), mel, reps=1))
-        results += check_kernels(_float32_fused(kernel), mel, noise, reps=1)
+        f32 = _float32_fused(kernel, feat_impl="pallas", train_layer_impl="pallas_fused")
+        results += check_kernels(f32, mel, noise, reps=1) + check_train_kernels(
+            f32, mel, motion, reps=1) + check_stgcn_kernels(
+            f32.feat_model, f32.feat_pack, torch.float32, *perceptual_inputs(f32, mel, motion),
+            reps=1)
     q, k, v = (torch.randn(2, 96, 128, device="cuda").to(torch.bfloat16) for _ in range(3))
     results.append(check_attention_kernel(q, k, v, torch.ones(2, 96, 1, device="cuda"), 8, reps=1))
     assert {r["name"] for r in results} - {"conv_block_train", "conv_block_train_f32"} == set(
@@ -190,14 +199,16 @@ def _rand(*shape, gen):
     return torch.randn(shape, generator=gen, device="cuda")
 
 
-def _float32_fused(kernel, **denoiser):
+def _float32_fused(kernel, feat_impl="flax", **denoiser):
     """A float32 trainer on the fused ladder's float32 mode (K2 / K1 / K3,
-    K4's float32 encoder), the plain training layers, with ``kernel``'s
-    weights."""
+    K4's float32 encoder), the plain training layers unless ``denoiser``
+    says otherwise (``train_layer_impl="pallas_fused"``: K5 / K6's float32
+    mode) and the plain perceptual ST-GCN unless ``feat_impl="pallas"``
+    (K7's float32 mode), with ``kernel``'s weights."""
     cfg = kernel.cfg.replace(
         denoiser=dataclasses.replace(kernel.cfg.denoiser, compute_dtype="float32",
-                                     train_layer_impl="flax", **denoiser),
-        train=dataclasses.replace(kernel.cfg.train, feat_impl="flax"))
+                                     **{"train_layer_impl": "flax", **denoiser}),
+        train=dataclasses.replace(kernel.cfg.train, feat_impl=feat_impl))
     tr = DDPMTrainer(cfg, device="cuda")
     tr.load_reference_state_dict(kernel.model.state_dict())
     return tr
@@ -510,7 +521,9 @@ def test_generate_kernel_path_matches_plain_path(trainers):
                       "conv_block_f32": 0, "conv3x3_dkernel_f32": 0, "max_pool_f32": 0,
                       "max_pool_bwd_f32": 0, "decoder_stack_f32": 0, "decoder_stack_f32_int8": 0,
                       "decoder_stack_f32_vpu_bf16": 0, "sampler_prologue_f32": 0,
-                      "sampler_prologue_f32_int8": 0, "sampler_epilogue_f32": 0}
+                      "sampler_prologue_f32_int8": 0, "sampler_epilogue_f32": 0,
+                      "decoder_layer_f32": 0, "decoder_layer_bwd_f32": 0,
+                      "stgcn_forward_f32": 0, "stgcn_backward_f32": 0}
     ref = plain.generate(mel, num_steps=5, noise=noise)
     assert out.shape == (2, 96, 26) and bool(torch.isfinite(out).all())
     assert float((out - ref).abs().max()) <= 0.03 * float(ref.abs().max())
@@ -739,6 +752,101 @@ def test_layer_bwd_repeats_bit_for_bit_and_counts_its_gemm():
     assert part_launch_counts()["adaln_modulation"] == 2
 
 
+def _float32_layer_operands(b, t, t_valid, seed):
+    """`_layer_operands` in K5 / K6's float32 mode: x, emb_act, kv_cross and
+    dy float32 (from the same seeded draws, not rounded to bf16)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    seg = (torch.arange(128, device="cuda")[:, None] // 16
+           == torch.arange(128, device="cuda")[None, :] // 16).float()
+    vecs = _rand(24, 128, gen=gen) * 0.3
+    vecs[[0, 5, 8, 11, 16]] += 1.0
+    args = (_rand(b, t, 128, gen=gen), _rand(b, t, 512, gen=gen),
+            _rand(b, 128, 128, gen=gen) * 0.3 * seg, _rand(9, 128, 128, gen=gen) * 0.1,
+            vecs, _rand(512, 768, gen=gen) * 0.05, _rand(768, gen=gen) * 0.1)
+    dy = _rand(b, t, 128, gen=gen) * 0.1
+    dy[:, t_valid:] = 0
+    return args, dy
+
+
+@pytest.mark.parametrize("b,t,t_valid", [(2, 960, 900), (3, 128, 100), (1, 192, 150)])
+def test_layer_float32_matches_plain(b, t, t_valid, monkeypatch):
+    """K5's and K6's float32 modes at T = 960 with t_valid = 900 (the
+    stage-2 window padded to whole tiles) and at t_valid leaving a partial
+    64-row tile: the output and each of the seven gradients within
+    F32_REL_TOL of the plain float32 version's largest value of it, in the
+    dtypes of the bf16 mode's contract (float32 here), with TF32 off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    args, dy = _float32_layer_operands(b, t, t_valid, b * t + t_valid)
+    kw = dict(mxu_dtype=torch.float32, t_valid=t_valid)
+    got = [fused_decoder_layer(*args, 8, **kw), *decoder_layer_bwd(*args, dy, 8, **kw)]
+    want = [decoder_layer_plain(*args, 8, **kw), *decoder_layer_bwd_plain(*args, dy, 8, **kw)]
+    for name, g, w in zip(("out", "dx", "demb", "dkvc", "dmats", "dvecs", "daw", "dab"), got,
+                          want):
+        assert g.shape == w.shape and g.dtype == w.dtype == torch.float32, name
+        scale = float(w.abs().max())
+        assert scale > 0 and float((g - w).abs().max()) <= F32_REL_TOL * scale, name
+
+
+def test_layer_float32_repeats_bit_for_bit_and_counts_apart():
+    """Two calls of K5 and of K6 in their float32 mode on the same inputs
+    give the same bits (every sum in a fixed order); each call counts in
+    ``decoder_layer_f32`` / ``decoder_layer_bwd_f32`` and its AdaLN GEMM in
+    ``adaln_modulation_f32``, and no bf16 count moves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    args, dy = _float32_layer_operands(4, 960, 900, 12)
+    kw = dict(mxu_dtype=torch.float32, t_valid=900)
+    reset_launch_counts()
+    out = fused_decoder_layer(*args, 8, **kw)
+    grads = decoder_layer_bwd(*args, dy, 8, **kw)
+    torch.cuda.synchronize()
+    counts = launch_counts() | part_launch_counts()
+    assert {k: n for k, n in counts.items() if n} == {
+        "decoder_layer_f32": 1, "decoder_layer_bwd_f32": 1, "adaln_modulation_f32": 2}, counts
+    assert torch.equal(out, fused_decoder_layer(*args, 8, **kw))
+    for a, b in zip(grads, decoder_layer_bwd(*args, dy, 8, **kw)):
+        assert torch.equal(a, b)
+
+
+def test_train_step_float32_fused_layers_match_plain_path(trainers):
+    """A float32 stage-2 step on K5 / K6's and K7's float32 modes (as
+    "auto" resolves float32 on CUDA) against the plain float32 path on the
+    same weights and random numbers, with the caller's TF32 flags on: the
+    step turns them off inside (the first loss within 1e-4 relative, the
+    second within 1e-3) and restores them; one float32 K5 and K6 a layer,
+    K7's float32 forward on pred and target and its backward, no bf16
+    count."""
+    kernel, plain, mel, _ = trainers
+    f32 = _float32_fused(kernel, feat_impl="pallas", train_layer_impl="pallas_fused")
+    f32.load_reference_state_dict(
+        motion_encoder=synthetic_motion_encoder_state_dict(f32.feat_model, seed=0))
+    assert (f32.cfg.denoiser.train_layer_impl, f32.cfg.train.feat_impl) == (
+        "pallas_fused", "pallas")
+    rng = np.random.RandomState(2)
+    motion = torch.from_numpy(rng.uniform(0, 1, size=(2, 96, 13, 2)).astype(np.float32)).cuda()
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        for step, tol in enumerate((1e-4, 1e-3)):
+            drawn = {"t": rng.randint(0, 20, size=2), "noise": rng.normal(size=(2, 96, 26)),
+                     "cond_keep": (rng.uniform(size=(2, 96)) > 0.1).astype(np.float32)}
+            reset_launch_counts()
+            mk = f32.train_step(mel, motion, **drawn)
+            torch.cuda.synchronize()
+            counts = {k: n for k, n in launch_counts().items() if n}
+            assert counts == {"decoder_layer_f32": 2, "decoder_layer_bwd_f32": 2,
+                              "stgcn_forward_f32": 2, "stgcn_backward_f32": 1}, counts
+            assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+            mp = plain.train_step(mel, motion, **drawn)
+            assert bool(torch.isfinite(mk["loss"])) and bool(torch.isfinite(mk["grad_norm"]))
+            assert abs(float(mk["loss"]) - float(mp["loss"])) <= tol * abs(float(mp["loss"])), (
+                step, mk, mp)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
 @pytest.mark.parametrize("m", [100, 1800, 3600, 14400])
 @pytest.mark.parametrize("int8", [False, True])
 def test_adaln_modulation_matches_plain(m, int8, monkeypatch):
@@ -928,33 +1036,48 @@ def test_train_step_kernel_path_matches_plain_path(trainers):
             assert abs(float(mk[k]) - float(mp[k])) <= 3e-2 * abs(float(mp[k])), (step, k, mk, mp)
 
 
-def _stgcn_pack():
-    """K7's bf16 pack of the synthetic ST-GCN of seed 0, on the card."""
+def _stgcn_pack(mxu=torch.bfloat16):
+    """K7's pack (bf16 unless ``mxu`` says otherwise) of the synthetic
+    ST-GCN of seed 0, on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     model = MotionEncoderSTGCN()
     load_motion_encoder_state_dict(model, synthetic_motion_encoder_state_dict(model, seed=0))
-    return pack_frozen_stgcn(model.freeze().cuda(), torch.bfloat16)
+    return pack_frozen_stgcn(model.freeze().cuda(), mxu)
 
 
-@pytest.mark.parametrize("b,t", [(2, 96), (1, 37), (1, 200), (3, 62), (1, 1)])
-def test_stgcn_kernels_match_plain(b, t):
-    """K7 at ragged T (96: a whole forward tile of 62 frames and a ragged
-    one; 200), a T shorter than one tile (37, 1), a T of exactly one
-    forward tile (62) and B = 1: the forward within REL_TOL of
-    `frozen_stgcn_plain`'s largest value, its masks those of the plain
-    forward but for at most 0.1 % of the bits (ReLU flips between summation
-    orders); the backward within REL_TOL of `stgcn_backward_plain` on the
-    plain forward's masks; each a repeat bit-identical and one launch a
-    st_gcn block, 10 K7 launches a call, counted by `launch_split`, tiled
-    as `ops.stgcn.plan` says (the kernel's own `stgcn_plan`)."""
-    pack = _stgcn_pack()
+@pytest.mark.parametrize("mxu", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,t", [(2, 96), (1, 37), (1, 200), (3, 62), (1, 1), (32, 900)])
+def test_stgcn_kernels_match_plain(b, t, mxu, monkeypatch):
+    """K7 in bf16 and in its float32 mode (TF32 off) at ragged T (96: a
+    whole bf16 forward tile of 62 frames and a ragged one; 200), a T
+    shorter than one tile (37, 1), a T of exactly one bf16 forward tile
+    (62), B = 1 and the stage-2 step's B = 32, T = 900: the forward within
+    REL_TOL (float32: F32_REL_TOL) of `frozen_stgcn_plain`'s largest value,
+    its masks those of the plain forward but for at most 0.1 % of the bits
+    (ReLU flips between summation orders); the backward within the same
+    bound of `stgcn_backward_plain` on the plain forward's masks; each a
+    repeat bit-identical and counted in its mode's count alone; bf16 one
+    launch a st_gcn block, 10 K7 launches a call, counted by
+    `launch_split`, tiled as `ops.stgcn.plan` says (the kernel's own
+    `stgcn_plan`); float32 21 (a product and a temporal conv a block, and
+    the projection or the cotangent's start)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    f32 = mxu == torch.float32
+    tol, suffix = (F32_REL_TOL, "_f32") if f32 else (REL_TOL, "")
+    pack = _stgcn_pack(mxu)
     gen = torch.Generator(device="cuda").manual_seed(b * 1000 + t)
     motion = torch.rand((b, t, 13, 2), generator=gen, device="cuda")
     dy = _rand(b, t, 64, gen=gen)
+    reset_launch_counts()
     out, masks = stgcn_forward(motion, pack, save=True)
-    want, want_masks = frozen_stgcn_plain(motion, pack, torch.bfloat16, save=True)
-    assert float((out - want).abs().max()) <= REL_TOL * float(want.abs().max())
+    stgcn_backward(dy, masks, pack)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in launch_counts().items() if n} == {
+        "stgcn_forward" + suffix: 1, "stgcn_backward" + suffix: 1}
+    want, want_masks = frozen_stgcn_plain(motion, pack, mxu, save=True)
+    assert out.dtype == torch.float32
+    assert float((out - want).abs().max()) <= tol * float(want.abs().max())
     for got_m, want_m in zip(masks, want_masks):
         assert got_m.shape == want_m.shape == (10, b * t, 13) and got_m.dtype == torch.int32
         flips = int((unpack_relu_masks(got_m) != unpack_relu_masks(want_m)).sum())
@@ -963,16 +1086,18 @@ def test_stgcn_kernels_match_plain(b, t):
     assert torch.equal(again, out) and all(torch.equal(x, y) for x, y in zip(again_masks, masks))
     assert torch.equal(stgcn_forward(motion, pack), out)
     dx = stgcn_backward(dy, want_masks, pack)
-    ref = stgcn_backward_plain(dy, want_masks, pack, torch.bfloat16)
+    ref = stgcn_backward_plain(dy, want_masks, pack, mxu)
     assert dx.shape == motion.shape
-    assert float((dx - ref).abs().max()) <= REL_TOL * float(ref.abs().max())
+    assert float((dx - ref).abs().max()) <= tol * float(ref.abs().max())
     assert torch.equal(stgcn_backward(dy, want_masks, pack), dx)
     for call in (lambda: stgcn_forward(motion, pack, save=True),
                  lambda: stgcn_backward(dy, masks, pack)):
-        assert sum(name.startswith("stgcn_") for name, _ in launch_split(call, 2)) == 10
-    for direction in ("forward", "backward"):
-        mine = plan(b, t, direction)
-        assert {k: mine[k] for k in KERNEL_PLAN_KEYS} == kernel_plan(b, t, direction)
+        launches = sum(name.startswith("stgcn_") for name, _ in launch_split(call, 2))
+        assert launches == (21 if f32 else 10)
+    if not f32:
+        for direction in ("forward", "backward"):
+            mine = plan(b, t, direction)
+            assert {k: mine[k] for k in KERNEL_PLAN_KEYS} == kernel_plan(b, t, direction)
 
 
 def test_stgcn_forward_keeps_only_the_masks():
@@ -1232,6 +1357,46 @@ def test_m2sgan_step_kernel_path_matches_plain_path(train_encoder):
     assert (counts["stgcn_forward"], counts["stgcn_backward"]) == (2, 1), counts
     for r in results:
         assert r["ok"], r
+
+
+def test_m2sgan_float32_sync_loss_runs_k7_float32():
+    """An explicit ``sync_encoder_dtype="float32"`` with the SyncLoss on K7
+    (the encoder frozen) runs K7's float32 mode, the fake forward and
+    backward and the real forward, and matches the plain float32 path from
+    the same weights, batch, noise and interpolation weights: ``loss_sync``
+    within 1e-3 relative, ``w_distance`` and ``loss_adv`` within 0.05
+    (tests/test_stage1.py:276, 337)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    kw = dict(sample_length=6, critic_iters=2, sync_encoder_dtype="float32", device="cuda")
+    kernel = M2SGANTrainer(**kw)
+    plain = M2SGANTrainer(music_encoder_impl="flax", sync_encoder_impl="flax",
+                          compute_dtype="float32", music_conv_impl="lax", **kw)
+    assert (kernel.sync_encoder_impl, kernel.sync_pack()["m"].dtype) == ("pallas", torch.float32)
+    g_sd = synthetic_generator_state_dict(kernel.G, seed=0)
+    d_sd = synthetic_discriminator_state_dict(kernel.D, seed=1)
+    m_sd = synthetic_m2snet_state_dict(M2SNetTrainer(device="cpu").model, seed=2)
+    rng = np.random.RandomState(4)
+    mel = torch.from_numpy(rng.uniform(0, 1, size=(2, 540, 128)).astype(np.float32)).cuda()
+    real = torch.from_numpy(rng.uniform(0, 1, size=(2, 180, 13, 2)).astype(np.float32)).cuda()
+    noise = torch.from_numpy(rng.normal(size=(2, 6, 8)).astype(np.float32)).cuda()
+    alpha = {"real_fake": torch.from_numpy(rng.uniform(size=(2, 2)).astype(np.float32))}
+    metrics = {}
+    for name, tr in (("kernel", kernel), ("plain", plain)):
+        tr.load_reference_state_dict(g_sd, d_sd, m2snet=m_sd)
+        reset_launch_counts()
+        m = tr.train_step(mel, real, noise=noise, gp_alpha=alpha)
+        torch.cuda.synchronize()
+        metrics[name] = ({k: float(v) for k, v in m.items()}, launch_counts())
+    (got, counts), (want, plain_counts) = metrics["kernel"], metrics["plain"]
+    assert all(np.isfinite(list(got.values()))), got
+    assert abs(got["loss_sync"] - want["loss_sync"]) <= 1e-3 * abs(want["loss_sync"]), (got, want)
+    for k in ("w_distance", "loss_adv"):
+        assert abs(got[k] - want[k]) <= 0.05, (k, got, want)
+    assert not any(plain_counts.values()), plain_counts
+    assert (counts["stgcn_forward_f32"], counts["stgcn_backward_f32"]) == (2, 1), counts
+    assert counts["stgcn_forward"] == counts["stgcn_backward"] == 0, counts
+
 
 def test_train_cli_two_steps_launch_the_training_kernels(tmp_path):
     """`python -m conductor_tpu_torch.cli.train` on the card: 2 steps of 2

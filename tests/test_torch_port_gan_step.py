@@ -301,25 +301,29 @@ def test_generate_from_mel_and_from_features():
     (lambda: M2SGANTrainer(sample_length=S, train_music_encoder=True, cached_features=True,
                            device="cpu"), ValueError),
     (lambda: M2SGANTrainer(sample_length=S, sync_encoder_impl="xla", device="cpu"), ValueError),
-    (lambda: resolve_gan_impls("auto", "float32", "pallas", "auto", "auto", False,
+    (lambda: resolve_gan_impls("auto", "float16", "pallas", "auto", "auto", False,
                                torch.device("cuda")), ValueError),
     (lambda: Generator(decoder_kind="bilstm"), NotImplementedError),
     (GeneratorCVPRLSTM, NotImplementedError),
 ])
 def test_refusals(make, error):
     """The JAX trainer's refusals (`m2sgan_trainer.py:110-115, 125-130`),
-    K7's bf16-only operands on CUDA, and the decoders not ported yet."""
+    a SyncLoss dtype K7 has no mode for (float16), and the decoders not
+    ported yet."""
     with pytest.raises(error):
         make()
 
 
 def test_auto_resolution():
-    """JAX's "auto" with "on TPU" read as "on CUDA"."""
+    """JAX's "auto" with "on TPU" read as "on CUDA"; an explicit float32
+    SyncLoss on CUDA stays on K7 (its float32 mode)."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     frozen = resolve_gan_impls("auto", "auto", "auto", "auto", "auto", False, cuda)
     assert frozen == {"music_encoder_impl": "pallas", "sync_encoder_dtype": "bfloat16",
                       "sync_encoder_impl": "pallas", "compute_dtype": "float32",
                       "music_conv_impl": "lax"}
+    sync_f32 = resolve_gan_impls("auto", "float32", "pallas", "auto", "auto", False, cuda)
+    assert (sync_f32["sync_encoder_impl"], sync_f32["sync_encoder_dtype"]) == ("pallas", "float32")
     trains = resolve_gan_impls("auto", "auto", "auto", "auto", "auto", True, cuda)
     assert (trains["music_encoder_impl"], trains["compute_dtype"], trains["music_conv_impl"]) == (
         "flax", "bfloat16", "pallas_train")

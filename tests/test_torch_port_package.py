@@ -191,7 +191,9 @@ def test_wrappers_take_the_plain_path_on_cpu():
                                "max_pool_bwd_f32": 0, "decoder_stack_f32": 0,
                                "decoder_stack_f32_int8": 0, "decoder_stack_f32_vpu_bf16": 0,
                                "sampler_prologue_f32": 0, "sampler_prologue_f32_int8": 0,
-                               "sampler_epilogue_f32": 0}
+                               "sampler_epilogue_f32": 0, "decoder_layer_f32": 0,
+                               "decoder_layer_bwd_f32": 0, "stgcn_forward_f32": 0,
+                               "stgcn_backward_f32": 0}
 
 
 def test_auto_resolution():
@@ -206,13 +208,14 @@ def test_auto_resolution():
     assert resolve_auto(pinned, "cuda").denoiser.layer_impl == "flax"
     # the training knobs: kernels on CUDA unless dropout or the reference
     # mask rule them out; the perceptual ST-GCN on its kernel (K7) on CUDA
-    # when the operands resolve to bf16, plain otherwise
+    # in either compute dtype, plain elsewhere
     assert resolve_auto(cfg, "cuda").denoiser.train_layer_impl == "pallas_fused"
     assert resolve_auto(cfg, "cpu").denoiser.train_layer_impl == "flax"
     assert resolve_auto(cfg, "cuda").train.feat_impl == "pallas"
     assert resolve_auto(cfg, "cpu").train.feat_impl == "flax"
     f32 = cfg.replace(denoiser=dataclasses.replace(cfg.denoiser, compute_dtype="float32"))
-    assert resolve_auto(f32, "cuda").train.feat_impl == "flax"
+    assert resolve_auto(f32, "cuda").train.feat_impl == "pallas"
+    assert resolve_auto(f32, "cpu").train.feat_impl == "flax"
     for change in (dict(denoiser=dataclasses.replace(cfg.denoiser, dropout=0.1)),
                    dict(train=dataclasses.replace(cfg.train, replicate_reference_mask=True))):
         assert resolve_auto(cfg.replace(**change), "cuda").denoiser.train_layer_impl == "flax"
@@ -270,41 +273,103 @@ def test_m2snet_trainer_resolves_auto_and_defers():
 
 
 @pytest.mark.parametrize("denoiser,feat_impl,names", [
-    # "auto" on CUDA: the fused sampler (float32 on K1 / K2 / K3) and the
-    # fused training layers ("auto" puts the perceptual term on K7 only in
-    # bf16)
-    ({}, "auto", ("K5 / K6",)),
+    # "auto" on CUDA: the fused sampler (float32 on K1 / K2 / K3), the
+    # fused training layers (K5 / K6) and the perceptual term on K7, all
+    # in their float32 modes: builds
+    ({}, "auto", ()),
     # the fused sampler in float32 with the plain training layers: builds
     (dict(train_layer_impl="flax"), "flax", ()),
-    (dict(layer_impl="flax"), "flax", ("K5 / K6",)),
-    (dict(layer_impl="flax", train_layer_impl="flax"), "pallas", ("K7",)),
+    # the plain serving layers, K5 / K6 in float32 and the plain ST-GCN: builds
+    (dict(layer_impl="flax"), "flax", ()),
+    # K7's float32 mode asked for beside the plain layers: builds
+    (dict(layer_impl="flax", train_layer_impl="flax"), "pallas", ()),
+    # float32 at a width the decoder kernels do not take: K1-K3 and K5 / K6
+    # are named, K7 (which takes every denoiser width) is not
+    (dict(latent_dim=64, num_heads=4), "auto", ("K1 / K2 / K3", "K5 / K6")),
 ])
 def test_float32_config_on_unported_kernels_raises_at_construction(denoiser, feat_impl, names):
-    """A float32 config that resolves on CUDA to a kernel whose float32 mode
-    is not ported (K5 / K6, K7) is refused where the trainer is built,
-    naming those kernels and the knobs that run (checked where no card is
-    needed, as `_check_training_config` takes the device); the float32
-    paths on the kernels' float32 modes (the fused sampler K1 / K2 / K3,
-    K4) with the plain training layers pass, and the CPU takes every
-    knob."""
+    """A float32 config that resolves on CUDA to a kernel that cannot take
+    it is refused where the trainer is built, naming that kernel and the
+    knobs that run (checked where no card is needed, as
+    `_check_training_config` takes the device).  Every kernel has its
+    float32 mode (K1 / K2 / K3, K4, K5 / K6, K7), so a float32 config at
+    the kernels' widths passes in every mix of fused and plain modules;
+    only the model widths the kernels are not built for (F12) are refused.
+    The CPU takes every knob."""
     from conductor_tpu_torch.train.ddpm_trainer import _check_training_config
 
     cfg = Config(denoiser=DenoiserConfig(compute_dtype="float32", **denoiser),
                  train=TrainConfig(feat_impl=feat_impl))
     if names:
-        with pytest.raises(ValueError, match="float32 mode of") as err:
+        with pytest.raises(ValueError, match="would fail at the first call") as err:
             _check_training_config(resolve_auto(cfg, "cuda"), torch.device("cuda"))
         assert all(name in str(err.value) for name in names), str(err.value)
         assert all(name not in str(err.value)
-                   for name in {"K1", "K5 / K6", "K7"} - set(names)), str(err.value)
+                   for name in {"K1 / K2 / K3", "K5 / K6", "K7", "K8"} - set(names)), str(err.value)
         assert "train_layer_impl='flax'" in str(err.value)
     else:
-        _check_training_config(resolve_auto(cfg, "cuda"), torch.device("cuda"))
+        resolved = resolve_auto(cfg, "cuda")
+        _check_training_config(resolved, torch.device("cuda"))
+        assert resolved.train.feat_impl == ("pallas" if feat_impl == "auto" else feat_impl)
     _check_training_config(resolve_auto(cfg, "cpu"), torch.device("cpu"))
     runs = Config(denoiser=DenoiserConfig(compute_dtype="float32", layer_impl="flax",
                                           train_layer_impl="flax", music_encoder_impl="pallas"),
                   train=TrainConfig(feat_impl="flax"))
     _check_training_config(resolve_auto(runs, "cuda"), torch.device("cuda"))
+
+
+def test_train_cli_float32_resolves_to_the_fused_layers_on_cuda():
+    """`cli.train --compute_dtype float32` at its other defaults resolves on
+    "cuda" to the fused layers (K1 serving, K5 / K6 training, K4's music
+    encoder) and the perceptual ST-GCN (K7) in float32, and passes the
+    trainer's construction checks (where no card is needed); ``--faithful``
+    still pins the plain modules."""
+    from conductor_tpu_torch.cli.train import build_argparser, config_from_args
+    from conductor_tpu_torch.train.ddpm_trainer import _check_training_config
+
+    argv = ["--data_root", "unused", "--compute_dtype", "float32"]
+    cfg = config_from_args(build_argparser().parse_args(argv), torch.device("cuda"))
+    d = cfg.denoiser
+    assert (d.compute_dtype, d.layer_impl, d.train_layer_impl, d.music_encoder_impl,
+            cfg.train.feat_impl) == ("float32", "pallas_fused", "pallas_fused", "pallas", "pallas")
+    _check_training_config(cfg, torch.device("cuda"))
+    faithful = config_from_args(build_argparser().parse_args(argv + ["--faithful"]),
+                                torch.device("cuda"))
+    assert (faithful.denoiser.train_layer_impl, faithful.train.feat_impl) == ("flax", "flax")
+
+
+@pytest.mark.parametrize("mxu", [torch.bfloat16, torch.float32])
+def test_layer_kernel_operands_keep_the_mode_dtype(mxu):
+    """The operands K5 and K6 take (`kernel_operands`, what their wrappers
+    hand the C entry points): in float32 mode the weight banks and the
+    cotangent stay float32, unrounded; in bf16 mode the matrices and dy are
+    rounded to bf16 and the vectors stay float32; inputs of another dtype
+    than the mode's, or of shapes the kernels do not take, raise."""
+    from conductor_tpu_torch.ops.decoder_layer import kernel_operands
+
+    rng = np.random.RandomState(3)
+
+    def t(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
+
+    layer = (t(2, 64, 128, dtype=mxu), t(2, 64, 512, dtype=mxu), t(2, 128, 128, dtype=mxu),
+             t(9, 128, 128), t(24, 128), t(512, 768), t(768))
+    dy = t(2, 64, 128)
+    ops = kernel_operands(*layer, 8, mxu_dtype=mxu, dy=dy)
+    assert {k: v.dtype for k, v in ops.items()} == {
+        "x": mxu, "emb_act": mxu, "kv_cross": mxu, "mats": mxu, "vecs": torch.float32,
+        "adaln_w": mxu, "adaln_b": torch.float32, "dy": mxu}
+    for name, src in (("mats", layer[3]), ("adaln_w", layer[5]), ("dy", dy)):
+        assert torch.equal(ops[name], src.to(mxu)), name
+        assert torch.equal(ops[name].float(), src) == (mxu == torch.float32), name
+    assert all(v.is_contiguous() for v in ops.values())
+    other = torch.float32 if mxu == torch.bfloat16 else torch.bfloat16
+    with pytest.raises(ValueError):
+        kernel_operands(layer[0].to(other), *layer[1:], 8, mxu_dtype=mxu)
+    with pytest.raises(ValueError):
+        kernel_operands(layer[0], layer[1], layer[2].to(other), *layer[3:], 8, mxu_dtype=mxu)
+    with pytest.raises(ValueError):
+        kernel_operands(*layer[:5], t(512, 640), layer[6], 8, mxu_dtype=mxu)
 
 
 @pytest.mark.parametrize("widths,extra,names", [
@@ -456,3 +521,26 @@ def test_stack_flops_counts_what_k1_needs():
     assert stack_flops((*args, 1), d) == plain - n_layers * 2 * (2 * rows * d * d)
     per_layer = 7 * d * d + 2 * d * (d // 2) + 3 * d * (d // 8)
     assert stack_flops((*args, 8), d // 2) == 2 * rows * n_layers * (e * 6 * d + per_layer)
+
+
+def test_layer_bwd_flops_counts_what_k6_needs():
+    """`kernel_checks.layer_bwd_flops` is three of K5's forwards
+    (`layer_flops`, `stack_flops` of one layer): the recomputed forward and
+    two products for each of its products.  With one head and ff = D it is
+    the plain K6's FLOP count less its head sums: the forward's two
+    block-diagonal products and, in the backward, the one product each
+    takes for the gradient of its non-constant operand."""
+    from conductor_tpu_torch.kernel_checks import flops, layer_bwd_flops, layer_flops
+    from conductor_tpu_torch.ops.decoder_layer_bwd import decoder_layer_bwd_plain
+
+    b, t, d, e = 2, 5, 16, 32
+    rng = np.random.RandomState(0)
+    args = [torch.from_numpy(rng.randn(*s).astype(np.float32)) for s in (
+        (b, t, d), (b, t, e), (b, d, d), (9, d, d), (24, d), (e, 6 * d), (6 * d,))]
+    dy = torch.from_numpy(rng.randn(b, t, d).astype(np.float32))
+    head_sums = 2 * (2 * b * t * d * d)
+    plain = flops(lambda: decoder_layer_bwd_plain(*args, dy, 1))
+    assert layer_bwd_flops((*args, 1), d) == plain - 2 * head_sums
+    assert layer_bwd_flops((*args, 8), d // 2) == 3 * layer_flops((*args, 8), d // 2)
+    per_layer = 7 * d * d + 2 * d * (d // 2) + 3 * d * (d // 8)
+    assert layer_flops((*args, 8), d // 2) == 2 * b * t * (e * 6 * d + per_layer)

@@ -213,8 +213,9 @@ def test_function_gives_no_pack_gradients(encoder, dtype):
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(encoder):
-    """The kernels take bf16 operands, 13 joints and tensors on the card;
-    anything else raises ValueError before a launch."""
+    """The kernels take bf16 or float32 operands in the pack's dtype, 13
+    joints and tensors on the card; anything else raises ValueError before
+    a launch."""
     model, _ = encoder
     motion = torch.from_numpy(_inputs(17)[0])
     pack = pack_frozen_stgcn(model, torch.bfloat16)
@@ -222,8 +223,10 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(encoder):
         _check_kernel_args(motion, pack, torch.float32)
     with pytest.raises(ValueError, match="13 joints"):
         stgcn_forward(motion[:, :, :12], pack)
-    with pytest.raises(ValueError, match="bfloat16"):
-        stgcn_forward(motion, pack_frozen_stgcn(model, torch.float32))
+    with pytest.raises(ValueError, match="bfloat16"):  # a bf16 matrix in a float32 pack
+        stgcn_forward(motion, dict(pack_frozen_stgcn(model, torch.float32), m0=pack["m0"]))
+    with pytest.raises(ValueError, match="bf16 or float32"):
+        stgcn_forward(motion, pack_frozen_stgcn(model, torch.float16))
     with pytest.raises(ValueError, match="CUDA"):  # the pack lies on the CPU
         stgcn_forward(motion, pack)
     saved = frozen_stgcn_plain(motion, pack, torch.bfloat16, save=True)[1]

@@ -202,14 +202,14 @@ def test_training_gating(change, error, match):
 
 
 def test_explicit_pallas_features_need_bf16_operands_on_cuda():
-    """K7 takes bf16 operands: an explicit ``feat_impl="pallas"`` with
-    float32 is refused for a CUDA device (checked where no card is needed;
+    """K7 takes bf16 operands and, in its float32 mode, float32 ones: an
+    explicit ``feat_impl="pallas"`` passes the construction checks for a
+    CUDA device in both compute dtypes (checked where no card is needed;
     ``DDPMTrainer(cfg, "cuda")`` raises first for the missing card), and
-    runs the plain version on the CPU."""
+    runs the plain version on the CPU over a pack in the compute dtype."""
     cfg = make_cfg("flax", feat_impl="pallas")
     f32 = cfg.replace(denoiser=dataclasses.replace(cfg.denoiser, compute_dtype="float32"))
-    with pytest.raises(ValueError, match="bf16"):
-        _check_training_config(resolve_auto(f32, "cuda"), torch.device("cuda"))
+    _check_training_config(resolve_auto(f32, "cuda"), torch.device("cuda"))
     bf16 = cfg.replace(denoiser=dataclasses.replace(
         cfg.denoiser, compute_dtype="bfloat16", train_layer_impl="pallas_fused"))
     _check_training_config(resolve_auto(bf16, "cuda"), torch.device("cuda"))
