@@ -261,7 +261,28 @@ Phases, one line each (the kernel checks one line per kernel):
      each `loss_mot_feat` within 1e-3, the largest gap printed, K5 and K6
      8 times and K7 2 + 1 times a step in their float32 counts and no other
      K5 / K6 / K7 count; the median ms a step beside the plain float32
-     path's and the bf16 kernel path's.
+     path's and the bf16 kernel path's;
+ 16. (run right after phase 3, the `[widths]` lines, `widths_phase`) the
+     model widths beside the flagship's that the decoder kernels take,
+     each at 8 layers: W32 (D = 32, 4 heads, ff 16), W64 (D = 64, 8
+     heads, ff 64), H4 (D = 128, 4 heads, ff 64): (a) K1 in its six
+     modes, its AdaLN GEMM (bf16, int8, float32), K2 (bf16, int8, float32
+     emb_act, int8 beside float32 products), K3 (both modes) on the first
+     ladder step at B = 2, T = 1800, and K5 / K6 (both modes) on layer 0 of
+     a training forward at B = 32, T = 900, each against its plain version
+     (REL_TOL, F32_REL_TOL, the bf16-VPU rule), a repeat bit-identical, its
+     plan the kernel's own export, its ms by CUDA events beside its bound;
+     (b) ddim50 at B = 2 in bf16, bench.py's int8 config (with and without
+     bf16 VPU) and the three float32 ladders against the plain float32
+     path (3 %, float32 1e-3), every step in the mode's counts; (c) 4
+     stage-2 steps at B = 32 in bf16 and float32 (losses within 3e-2 of
+     the plain float32 path's, K5 / K6 once a layer); (d) at W32 and H4
+     (head widths 8, 32) 4 reference-mask steps (K8 8 times a step) and K8
+     alone at the mask step's shape, and at head width 64 (D = 256, 4
+     heads) K8 alone and a ddim50 on the bf16 plain layers (3 %, K8 400
+     times); (e), in phase 12 on its root, `cli.train --latent_dim 64
+     --num_heads 8 --ff_size 64`, 4 steps on K5 / K6 / K7.  Each width's
+     launches are counted apart (rows `<kernel>_w32`, ..., `_dh64`).
 
 Every path runs at full depth; the run takes a few minutes of its 1200-s
 limit, so no path is cut.  Then one JSON line of per-kernel results (the
@@ -274,7 +295,8 @@ kernel paths added; the float32 rows with phase 15's: K4's serving mode
 (`conv_block_f32`) (d)'s, its training modes (`conv_block_train_f32`),
 K9, K10 and K11 those of (a), (b) and (c), K1's float32 modes, its float32
 GEMM, K2's float32 emb_act and K3's float32 mode (e)'s, K5's, K6's and
-K7's float32 modes those of (f) and of phase 12's float32 run);
+K7's float32 modes those of (f) and of phase 12's float32 run; the
+width rows phase 16's, K5 / K6 at W64 with (e)'s added);
 each kernel's time, its
 plain version's, its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
@@ -384,6 +406,46 @@ F32_LADDER = {
                  ("decoder_stack_f32_int8", "sampler_prologue_f32_int8", "sampler_epilogue_f32",
                   "adaln_modulation")),
 }
+# phase 16: the model widths beside the flagship's that the decoder kernels
+# take (ops/_build.py WIDTHS), at the flagship's depth and lengths: JAX's
+# own test widths (tests/test_fused_denoiser.py:20), D = 64 with the
+# flagship's 8 heads (--latent_dim 64), and D = 128 with 4 heads (head
+# width 32, --num_heads 4)
+WIDTH_CONFIGS = {"W32": dict(latent_dim=32, num_heads=4, ff_size=16),
+                 "W64": dict(latent_dim=64, num_heads=8, ff_size=64),
+                 "H4": dict(num_heads=4, ff_size=64)}
+# the kernels and modes phase 16 holds at each width (rows named <kernel>_w32, ...)
+WIDTH_KERNELS = (
+    "decoder_stack", "decoder_stack_int8", "decoder_stack_vpu_bf16", "adaln_modulation",
+    "adaln_modulation_int8", "sampler_prologue", "sampler_prologue_int8", "sampler_epilogue",
+    "decoder_layer", "decoder_layer_bwd", "decoder_stack_f32", "decoder_stack_f32_int8",
+    "decoder_stack_f32_vpu_bf16", "adaln_modulation_f32", "sampler_prologue_f32",
+    "sampler_prologue_f32_int8", "sampler_epilogue_f32", "decoder_layer_f32",
+    "decoder_layer_bwd_f32")
+# phase 16 (b): the fused ladder's modes at each width, (denoiser knobs, the
+# launches a ddim50 call gives 50 of each: K1's mode, K2, K3, the AdaLN
+# GEMM, whose int8 count the kernels line names adaln_modulation_int8)
+WIDTH_LADDERS = {
+    "bf16": ({}, ("decoder_stack", "sampler_prologue", "sampler_epilogue", "adaln_modulation")),
+    "bench": (dict(sampler_adaln_int8=True),
+              ("decoder_stack_int8", "sampler_prologue_int8", "sampler_epilogue",
+               "adaln_modulation_int8")),
+    "bench+vpu_bf16": (dict(sampler_adaln_int8=True, sampler_vpu_dtype="bfloat16"),
+                       ("decoder_stack_int8", "decoder_stack_vpu_bf16", "sampler_prologue_int8",
+                        "sampler_epilogue", "adaln_modulation_int8")),
+    **{k: (dict(v[0], compute_dtype="float32"),
+           tuple("adaln_modulation_int8" if m == "adaln_modulation" else m for m in v[1]))
+       for k, v in F32_LADDER.items()},
+}
+# phase 16 (e): the stage-2 CLI at D = 64 (its other flags the defaults)
+WIDTH_CLI_ARGS = ("--latent_dim", "64", "--num_heads", "8", "--ff_size", "64")
+# phase 16 (d): K8 alone at head width 64 (D = 256, 4 heads), and serving
+# on the plain layers there
+DH64 = dict(latent_dim=256, num_heads=4)
+for _w in WIDTH_CONFIGS:
+    for _k in (*WIDTH_KERNELS, "linear_attention"):
+        KERNEL_SOURCES[f"{_k}_{_w.lower()}"] = KERNEL_SOURCES[_k]
+KERNEL_SOURCES["linear_attention_dh64"] = KERNEL_SOURCES["linear_attention"]
 TRAIN_KERNELS = ("decoder_layer", "decoder_layer_bwd", "stgcn_forward", "stgcn_backward")
 # the float32 training kernels' counts (phase 15 (f), phase 12's float32 run)
 TRAIN_F32_KERNELS = ("decoder_layer_f32", "decoder_layer_bwd_f32", "stgcn_forward_f32",
@@ -446,11 +508,12 @@ def _timed(fn):
     return out, time.perf_counter() - t0
 
 
-def cli_phase(smi: str, bare_step_s: float) -> dict[str, int]:
+def cli_phase(smi: str, bare_step_s: float) -> tuple[dict[str, int], dict[str, int]]:
     """Phase 12: `python -m conductor_tpu_torch.cli.train` on a synthetic
     root, in process unless a signal is sent; returns the launches of K5 /
     K6 / K7 in its default run and of K5 / K6's float32 mode in its float32
-    run.  Raises SystemExit on any failed check."""
+    run, and those of phase 16 (e), the CLI at ``WIDTH_CLI_ARGS`` on the
+    same root.  Raises SystemExit on any failed check."""
     import os
     import shutil
     import signal
@@ -676,7 +739,28 @@ def cli_phase(smi: str, bare_step_s: float) -> dict[str, int]:
                 "stgcn_backward_f32": 4}:
             raise SystemExit(f"chip_smoke: the float32 CLI did not launch K5 / K6's and K7's "
                              f"float32 modes every step: {f32_step}")
-        return {k: per_step[k] + f32_step[k] for k in CLI_KERNELS}
+
+        # (9) = phase 16 (e): D = 64 with 8 heads and ff 64 at the other
+        # defaults, 4 steps: "auto" must resolve to K5 / K6 / K7 at that width
+        w_dir, w_counts, w_wall = run("w64", *WIDTH_CLI_ARGS, "--times", "4", "--epochs", "2")
+        w_recs = records(w_dir)
+        with open(os.path.join(w_dir, "config.json")) as f:
+            saved = json.load(f)
+        w_impls = (saved["denoiser"]["train_layer_impl"], saved["train"]["feat_impl"],
+                   saved["denoiser"]["latent_dim"], saved["denoiser"]["num_heads"])
+        w_step = {k: w_counts[k] for k in TRAIN_KERNELS}
+        print(f"[widths] (e) cli.train {' '.join(WIDTH_CLI_ARGS)} (--times 4 --epochs 2, on "
+              f"phase 12's root): steps {[r['step'] for r in w_recs]}, losses "
+              f"{[r['loss'] for r in w_recs]}, config {w_impls}, launches {w_step}, run wall "
+              f"{w_wall:.1f} s on {smi}")
+        if ([r["step"] for r in w_recs] != [1, 2, 3, 4]
+                or not all(np.isfinite(r["loss"]) for r in w_recs)
+                or w_impls != ("pallas_fused", "pallas", 64, 8)
+                or w_step != {"decoder_layer": 32, "decoder_layer_bwd": 32, "stgcn_forward": 8,
+                              "stgcn_backward": 4}):
+            raise SystemExit(f"chip_smoke: the CLI at --latent_dim 64 did not run on K5 / K6 / "
+                             f"K7: {w_recs} {w_impls} {w_step}")
+        return {k: per_step[k] + f32_step[k] for k in CLI_KERNELS}, w_step
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1049,6 +1133,186 @@ def m2sgan_cli_phase(smi: str, work: str, m2snet_ckpt: str, gan_step_s: float) -
         torch.backends.cudnn.deterministic = deterministic
         stage1.beat_consistency = beat
     return counts
+
+
+def widths_phase(smi, cfg, feat_sd, mel, noise, mel_train, motion_train, train, m_lens, rng):
+    """Phase 16: the model widths beside the flagship's (`WIDTH_CONFIGS`),
+    each at the flagship's 8 layers: (a) every widened kernel and mode
+    against its plain version on the real operands of layer 0 (K1-K3 on
+    the first ladder step of ``mel`` / ``noise`` at B = 2, T = 1800; K5 /
+    K6 on ``mel_train`` / ``motion_train`` at B = 32, T = 900), a repeat
+    bit-identical, the plan the kernel's own export; (b) ddim50 at B = 2 in
+    each of the ladder's modes (`WIDTH_LADDERS`) against the plain float32
+    path; (c) 4 stage-2 steps by ``train`` (phase 6's) in bf16 and float32
+    against the plain float32 path; (d) K8 through phase 8's
+    reference-mask steps (``m_lens``) at head widths 8 (W32) and 32 (H4),
+    and at 64 alone and in plain-layer serving (D = 256, 4 heads); K8's
+    inputs drawn from ``rng``.  (e),
+    the CLI at D = 64, runs in phase 12.  Returns the kernel rows (named
+    ``<kernel>_<width>``) and their launches on the paths (b)-(d), each
+    width counted apart.  Raises SystemExit on any failed check."""
+    from conductor_tpu_torch import DDPMTrainer
+    from conductor_tpu_torch.config import DenoiserConfig, TrainConfig
+    from conductor_tpu_torch.interop import synthetic_state_dict
+    from conductor_tpu_torch.kernel_checks import (
+        check_attention_kernel,
+        check_kernels,
+        check_train_kernels,
+    )
+    from conductor_tpu_torch.ops import launch_counts, part_launch_counts, reset_launch_counts
+
+    n_train, t_train = mel_train.shape[0], motion_train.shape[1]
+    results, counts = [], {}
+    width_counts = {}
+
+    def width_trainer(widths, **knobs):
+        """A trainer at ``widths`` with the denoiser ``knobs`` ("plain": the
+        plain float32 path) on synthetic weights of its own width."""
+        train_kw = {}
+        if knobs.pop("plain", False):
+            knobs.update(layer_impl="flax", music_encoder_impl="flax", train_layer_impl="flax",
+                         attention_impl="xla", compute_dtype="float32")
+            train_kw["feat_impl"] = "flax"
+        if knobs.pop("mask", False):
+            train_kw["replicate_reference_mask"] = True
+        tr = DDPMTrainer(cfg.replace(denoiser=DenoiserConfig(**widths, **knobs),
+                                     train=TrainConfig(**train_kw)), device="cuda")
+        tr.load_reference_state_dict(synthetic_state_dict(tr.model, seed=0),
+                                     motion_encoder=feat_sd)
+        return tr
+
+    def width_rows(rows, tag):
+        for r in rows:
+            r["name"] = f"{r['name']}_{tag}"
+            extra = "".join(f", {k} {r[k]}" for k in ("repeat_identical", "plan_ok") if k in r)
+            dev = f", device {r['device_ms']:.4f} ms" if "device_ms" in r else ""
+            print(f"[widths] (a) {r['name']}: max_abs_err {r['max_abs_err']:.6g} (plain max "
+                  f"{r['ref_max_abs']:.6g}) kernel {r['ms']:.4f} ms by CUDA events{dev}, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms"
+                  f"{extra}: ok {r['ok']} ({smi})")
+        failed = [r["name"] for r in rows if not r["ok"]]
+        if failed:
+            raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failed}")
+        return rows
+
+    for wname, widths in WIDTH_CONFIGS.items():
+        t_w = time.perf_counter()
+        tag, wc = wname.lower(), {}
+        w_k, w_f, w_p = (width_trainer(widths), width_trainer(widths, compute_dtype="float32"),
+                         width_trainer(widths, plain=True))
+        if (w_k.fused is None or w_f.fused is None or w_k.cfg.denoiser.train_layer_impl
+                != "pallas_fused" or w_f.cfg.denoiser.train_layer_impl != "pallas_fused"):
+            raise SystemExit(f"chip_smoke: 'auto' at {wname} did not select the decoder kernels")
+        # (a)
+        rows = [r for tr in (w_k, w_f) for r in check_kernels(tr, mel, noise)
+                if not r["name"].startswith("conv_block")]
+        rows += check_train_kernels(w_k, mel_train, motion_train)
+        rows += check_train_kernels(w_f, mel_train, motion_train)
+        results += width_rows(rows, tag)
+        torch.cuda.empty_cache()
+        # (b)
+        ref_w = w_p.generate(mel, num_steps=50, noise=noise)
+        scale_w = float(ref_w.abs().max())
+        for label, (knobs, modes) in WIDTH_LADDERS.items():
+            tr = width_trainer(widths, **knobs) if knobs else w_k
+            reset_launch_counts()
+            out_w = tr.generate(mel, num_steps=50, noise=noise)
+            torch.cuda.synchronize()
+            bc = launch_counts() | part_launch_counts()
+            got = {k: bc["adaln_modulation" if k == "adaln_modulation_int8" else k] for k in modes}
+            err_w = float((out_w - ref_w).abs().max())
+            tol = F32_MOTION_TOL if label == "f32" else GENERATE_REL_TOL
+            print(f"[widths] (b) {wname} ddim50 B=2 {label}: max_abs_err vs plain float32 "
+                  f"{err_w:.6g} (plain max {scale_w:.6g}, bound {tol:g} of it) launches {got}")
+            if (tuple(out_w.shape) != (2, 1800, 26) or not bool(torch.isfinite(out_w).all())
+                    or not err_w <= tol * scale_w):
+                raise SystemExit(f"chip_smoke: generate at {wname} ({label}) is wrong")
+            if any(n != 50 for n in got.values()):
+                raise SystemExit(f"chip_smoke: the {label} ladder at {wname} did not launch its "
+                                 f"modes on every step: {got}")
+            for k, n in got.items():
+                wc[k] = wc.get(k, 0) + n
+            del tr
+        # (c)
+        losses_wp, _, times_wp, _ = train(w_p)
+        for label, tr, kset in (("bf16", w_k, ("decoder_layer", "decoder_layer_bwd")),
+                                ("float32", w_f, ("decoder_layer_f32", "decoder_layer_bwd_f32"))):
+            losses_w, _, times_w, counts_w = train(tr)
+            rel_w = [abs(a - b) / abs(b) for a, b in zip(losses_w, losses_wp)]
+            per_step_w = [{k: c[k] for k in kset} for c in counts_w]
+            print(f"[widths] (c) {wname} stage-2 step B={n_train} T={t_train} {label}: losses "
+                  f"{losses_w} against the plain float32 path's {losses_wp}: largest rel diff "
+                  f"{max(rel_w):.3g} (<= {TRAIN_LOSS_REL_TOL}); median {np.median(times_w) * 1e3:.1f} "
+                  f"ms a step (plain {np.median(times_wp) * 1e3:.1f}); launches per step "
+                  f"{per_step_w} on {smi}")
+            if not all(np.isfinite(losses_w)) or max(rel_w) > TRAIN_LOSS_REL_TOL:
+                raise SystemExit(f"chip_smoke: stage 2 at {wname} ({label}) disagrees with the "
+                                 f"plain float32 path")
+            if any(c[k] != cfg.denoiser.num_layers for c in per_step_w for k in kset):
+                raise SystemExit(f"chip_smoke: stage 2 at {wname} ({label}) did not launch K5 / "
+                                 f"K6 once a layer: {per_step_w}")
+            for k in kset:
+                wc[k] = sum(c[k] for c in per_step_w)
+        del w_k, w_f, w_p
+        # (d): the reference-mask step at head widths 8 and 32
+        dh = widths.get("latent_dim", 128) // widths["num_heads"]
+        if wname in ("W32", "H4"):
+            mask_k, mask_p = (width_trainer(widths, mask=True),
+                              width_trainer(widths, mask=True, plain=True))
+            if mask_k.cfg.denoiser.attention_impl != "pallas":
+                raise SystemExit(f"chip_smoke: the mask step at {wname} does not run K8")
+            losses_mk, _, _, counts_mk = train(mask_k, m_lens)
+            losses_mp, _, _, _ = train(mask_p, m_lens)
+            rel_mk = [abs(a - b) / abs(b) for a, b in zip(losses_mk, losses_mp)]
+            k8 = [c["linear_attention"] for c in counts_mk]
+            print(f"[widths] (d) {wname} reference-mask step (head width {dh}): losses "
+                  f"{losses_mk} plain {losses_mp}, largest rel diff {max(rel_mk):.3g}; K8 "
+                  f"launches per step {k8}")
+            if (not all(np.isfinite(losses_mk)) or max(rel_mk) > TRAIN_LOSS_REL_TOL
+                    or any(n != cfg.denoiser.num_layers for n in k8)):
+                raise SystemExit(f"chip_smoke: the mask step at {wname} is wrong: {k8}")
+            wc["linear_attention"] = sum(k8)
+            d_w = widths.get("latent_dim", 128)
+            q, k, v = (torch.from_numpy(rng.normal(size=(n_train, t_train, d_w)).astype(
+                np.float32)).cuda().to(torch.bfloat16) for _ in range(3))
+            key_mask = (torch.arange(t_train, device="cuda")[None] < REFERENCE_M_LENS).float()[
+                ..., None].expand(n_train, t_train, 1)
+            results += width_rows([check_attention_kernel(q, k, v, key_mask, widths["num_heads"])
+                                   | {"name": "linear_attention"}], tag)
+            del mask_k, mask_p, q, k, v
+        width_counts[wname] = wc
+        for k, n in wc.items():
+            counts[f"{k}_{tag}"] = n
+        print(f"[widths] {wname} {widths} (head width {dh}): launches {wc}; "
+              f"{time.perf_counter() - t_w:.1f} s")
+        torch.cuda.empty_cache()
+    # (d) head width 64: K8 alone at the mask step's shape, then serving on
+    # the plain bf16 layers (K8 8 times a step) against the plain float32 path
+    q, k, v = (torch.from_numpy(rng.normal(size=(n_train, t_train, DH64["latent_dim"])).astype(
+        np.float32)).cuda().to(torch.bfloat16) for _ in range(3))
+    key_mask = (torch.arange(t_train, device="cuda")[None] < REFERENCE_M_LENS).float()[
+        ..., None].expand(n_train, t_train, 1)
+    results += width_rows([check_attention_kernel(q, k, v, key_mask, DH64["num_heads"])
+                           | {"name": "linear_attention"}], "dh64")
+    del q, k, v
+    flax64 = width_trainer(DH64, layer_impl="flax", train_layer_impl="flax")
+    plain64 = width_trainer(DH64, plain=True)
+    reset_launch_counts()
+    out64 = flax64.generate(mel, num_steps=50, noise=noise)
+    torch.cuda.synchronize()
+    k8_64 = launch_counts()["linear_attention"]
+    ref64 = plain64.generate(mel, num_steps=50, noise=noise)
+    err64, scale64 = float((out64 - ref64).abs().max()), float(ref64.abs().max())
+    print(f"[widths] (d) serving on the bf16 plain layers at {DH64} (head width 64): ddim50 B=2 "
+          f"max_abs_err vs plain float32 {err64:.6g} (plain max {scale64:.6g}); K8 launches "
+          f"{k8_64}")
+    if (not bool(torch.isfinite(out64).all()) or not err64 <= GENERATE_REL_TOL * scale64
+            or k8_64 != cfg.denoiser.num_layers * 50):
+        raise SystemExit("chip_smoke: serving on the plain layers at head width 64 is wrong")
+    counts["linear_attention_dh64"] = k8_64
+    del flax64, plain64
+    print(f"[widths] launches by width: {width_counts}")
+    return results, counts
 
 
 def main() -> int:
@@ -1442,6 +1706,30 @@ def main() -> int:
     if failed:
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {failed}")
 
+    # stage 2's steps on the training batch (phases 6, 8, 15 (f) and 16)
+    def train(tr, m_lens=None):
+        """4 steps on the training batch: losses, `loss_mot_feat`s, seconds
+        and launch counts, each step's own."""
+        losses, feats, times, step_counts = [], [], [], []
+        for d in drawn:
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = tr.train_step(mel_train, motion_train, m_lens, **d)
+            losses.append(float(m["loss"]))  # host readback ends the step
+            times.append(time.perf_counter() - t0)
+            feats.append(float(m["loss_mot_feat"]))
+            step_counts.append(launch_counts())
+        return losses, feats, times, step_counts
+
+    m_lens = torch.full((n_train,), REFERENCE_M_LENS)  # the reference's (phases 8, 16)
+
+    # 16. the model widths beside the flagship's (`widths_phase`; its (e)
+    # runs in phase 12), here beside phase 3's kernel checks.
+    width_rows, width_counts = widths_phase(smi, cfg, feat_sd, mel, noise, mel_train,
+                                            motion_train, train, m_lens,
+                                            np.random.RandomState(16))
+
     # 4. the main path: generate through the kernels, ddim50, B = 2
     reset_launch_counts()
     out = kernel_tr.generate(mel, num_steps=50, noise=noise)
@@ -1479,21 +1767,6 @@ def main() -> int:
           f"(encoder {enc_ms:.2f} ms of it) on {smi}")
 
     # 6. training: kernel path, then the plain path, same weights and numbers
-    def train(tr, m_lens=None):
-        """4 steps on the training batch: losses, `loss_mot_feat`s, seconds
-        and launch counts, each step's own."""
-        losses, feats, times, step_counts = [], [], [], []
-        for d in drawn:
-            reset_launch_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            m = tr.train_step(mel_train, motion_train, m_lens, **d)
-            losses.append(float(m["loss"]))  # host readback ends the step
-            times.append(time.perf_counter() - t0)
-            feats.append(float(m["loss_mot_feat"]))
-            step_counts.append(launch_counts())
-        return losses, feats, times, step_counts
-
     losses_k, feats_k, times_k, step_counts = train(kernel_tr)
     losses_p, feats_p, times_p, _ = train(plain_tr)
     rel = [abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p)]
@@ -1567,7 +1840,6 @@ def main() -> int:
         train=TrainConfig(replicate_reference_mask=True, feat_impl="flax")), device="cuda")
     for tr in (mask_tr, mask_plain):
         tr.load_reference_state_dict(sd, motion_encoder=feat_sd)
-    m_lens = torch.full((n_train,), REFERENCE_M_LENS)
     losses_m, feats_m, times_m, counts_m = train(mask_tr, m_lens)
     losses_mp, feats_mp, times_mp, _ = train(mask_plain, m_lens)
     rel_m = [abs(a - b) / abs(b) for a, b in zip(losses_m + feats_m, losses_mp + feats_mp)]
@@ -1756,8 +2028,10 @@ def main() -> int:
     for k, n in gan_counts.items():
         counts[k] += n
 
-    # 12. the stage-2 CLI on the card, beside phase 6's bare step
-    for k, n in cli_phase(smi, float(np.median(times_k))).items():
+    # 12. the stage-2 CLI on the card, beside phase 6's bare step (and phase
+    # 16 (e), the CLI at --latent_dim 64, on its root)
+    cli_counts, w64_cli_counts = cli_phase(smi, float(np.median(times_k)))
+    for k, n in cli_counts.items():
         counts[k] += n
 
     # 13. and 14. the stage-1 CLIs on one synthetic root, beside phase 7's
@@ -1993,6 +2267,13 @@ def main() -> int:
     for k in TRAIN_F32_KERNELS:
         counts[k] += sum(c[k] for c in counts_f)
     del f32_train
+
+    # phase 16's rows and launches (it ran after phase 3; its (e) in phase 12)
+    results += width_rows
+    counts.update(width_counts)
+    counts["decoder_layer_w64"] += w64_cli_counts["decoder_layer"]
+    counts["decoder_layer_bwd_w64"] += w64_cli_counts["decoder_layer_bwd"]
+    print(f"[widths] (e)'s CLI run at D = 64 (phase 12): launches {w64_cli_counts}")
 
     kernels = []
     for r in results:

@@ -16,8 +16,9 @@
 // B = 8).  So the output's bytes bound it, and the operands should not add
 // a second stream: they stay bf16 or int8 from device memory to the MMA.
 //
-// Design: tiles of BM x 128 outputs, 4 warps (2 x 2), each a (BM / 2) x 64
-// block of float32 (int32) sums in registers; mma.sync m16n8k16 (bf16) or
+// Design: tiles of BM x BN outputs (BN = 128, or 64 where a layer's N is
+// not a multiple of 128: N = 6D = 192 at D = 32), 4 warps (2 x 2), each a
+// (BM / 2) x (BN / 2) block of float32 (int32) sums in registers; mma.sync m16n8k16 (bf16) or
 // m16n8k32 (s8) on tiles that 16-byte cp.async brings into a 3-stage ring
 // (128 bytes of K a row a stage, 64 bf16 or 128 int8), XOR-swizzled so that
 // the fragment loads are conflict-free.  A fragments come by ldmatrix from
@@ -57,17 +58,22 @@
 namespace {
 
 constexpr int kThreads = 128;  // 4 warps, 2 x 2 over the tile
-constexpr int kBN = 128;       // output columns a tile
 constexpr int kKBytes = 128;   // bytes of K a row a stage: 64 bf16 or 128 int8
 constexpr int kStages = 3;
-constexpr int kBTile = 16384;  // a stage's B tile: 64 (bf16) or 128 (int8) k rows of 128 columns
-constexpr int kLdC = kBN + 4;  // row stride of the output tile staged in shared memory
 
-// Byte offset of 16-byte chunk c of row r of the int8 B tile (8 chunks a
-// row): the chunk XORed with 2 ((r / 4) % 4), so that the words a warp
-// reads at one k step (rows 4 t + i, t < 4, of 8 consecutive words) fall
-// on 32 distinct banks.
+// A stage's B tile: 64 (bf16) or 128 (int8) k rows of BN columns.
+template <int BN>
+constexpr int kBTile = 128 * BN;
+
+// Byte offset of 16-byte chunk c of row r of the int8 B tile (CH = BN / 16
+// chunks a row).  CH = 8: the chunk XORed with 2 ((r / 4) % 4), so that the
+// words a warp reads at one k step (rows 4 t + i, t < 4, of 8 consecutive
+// words) fall on 32 distinct banks.  CH = 4 (64-byte rows, whose rows 4 t
+// + i all start on one half of the banks): XORed with 2 ((r / 4) % 2),
+// two-way conflicts at most.
+template <int CH>
 __device__ __forceinline__ uint32_t swz_kn(int r, int c) {
+  if constexpr (CH == 4) return (uint32_t)(r * 4 + (c ^ (((r >> 2) & 1) << 1))) * 16u;
   return (uint32_t)(r * 8 + (c ^ (((r >> 2) & 3) << 1))) * 16u;
 }
 
@@ -87,8 +93,8 @@ __device__ __forceinline__ void transpose4x4(const uint32_t (&w)[4], uint32_t (&
   r[3] = __byte_perm(t1, t3, 0x7632);
 }
 
-// A BM x 128 tile of out, by 2 x 2 warps, each (BM / 2) x 64.
-template <bool kInt8, int BM>
+// A BM x BN tile of out, by 2 x 2 warps, each (BM / 2) x (BN / 2).
+template <bool kInt8, int BM, int BN>
 __global__ void __launch_bounds__(kThreads)
 adaln_gemm_kernel(const unsigned char* __restrict__ A, const unsigned char* __restrict__ Bw,
                   const float* __restrict__ a_scale, const float* __restrict__ b_scale,
@@ -97,14 +103,16 @@ adaln_gemm_kernel(const unsigned char* __restrict__ A, const unsigned char* __re
   extern __shared__ __align__(128) unsigned char smem[];
   typedef typename std::conditional<kInt8, int, float>::type Acc;
   constexpr int kEl = kInt8 ? 1 : 2;
-  constexpr int kStage = BM * kKBytes + kBTile;
-  constexpr int MI = BM / 32;  // m16 tiles of a warp's BM / 2 rows
+  constexpr int kStage = BM * kKBytes + kBTile<BN>;
+  constexpr int MI = BM / 32;   // m16 tiles of a warp's BM / 2 rows
+  constexpr int NT = BN / 16;   // n8 tiles of a warp's BN / 2 columns
+  constexpr int kLdC = BN + 4;  // row stride of the output tile staged in shared memory
   static_assert(BM * kLdC * 4 <= kStages * kStage, "the output tile fits in the ring");
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int col0 = blockIdx.x * kBN, row0 = blockIdx.y * BM;
+  const int col0 = blockIdx.x * BN, row0 = blockIdx.y * BM;
   const int layer = col0 / N, n_in = col0 - layer * N;
   const size_t row_bytes = (size_t)K * kEl;
-  // this tile's B: rows k of the layer's W, columns n_in .. n_in + 127
+  // this tile's B: rows k of the layer's W, columns n_in .. n_in + BN - 1
   const unsigned char* b_src = Bw + ((size_t)layer * K * N + n_in) * kEl;
   const int nk = (int)(row_bytes / kKBytes);
   const uint32_t base = tc::smem_addr(smem);
@@ -118,25 +126,27 @@ adaln_gemm_kernel(const unsigned char* __restrict__ A, const unsigned char* __re
                      A + (valid ? (size_t)(row0 + r) * row_bytes + kt * kKBytes + c * 16 : 0),
                      valid);
     }
-    if constexpr (kInt8) {  // 128 k rows of 128 columns
-      for (int i = threadIdx.x; i < 128 * 8; i += kThreads) {
-        const int r = i >> 3, c = i & 7;
-        tc::cp_async16(bs + swz_kn(r, c), b_src + (size_t)(kt * 128 + r) * N + c * 16);
+    if constexpr (kInt8) {  // 128 k rows of BN columns
+      constexpr int CH = BN / 16;
+      for (int i = threadIdx.x; i < 128 * CH; i += kThreads) {
+        const int r = (unsigned)i / CH, c = (unsigned)i % CH;
+        tc::cp_async16(bs + swz_kn<CH>(r, c), b_src + (size_t)(kt * 128 + r) * N + c * 16);
       }
-    } else {  // 64 k rows of 128 columns
-      for (int i = threadIdx.x; i < 64 * 16; i += kThreads) {
-        const int r = i >> 4, c = i & 15;
-        tc::cp_async16(bs + tc::swz<16>(r, c), b_src + (size_t)(kt * 64 + r) * N * 2 + c * 16);
+    } else {  // 64 k rows of BN columns
+      constexpr int CH = BN / 8;
+      for (int i = threadIdx.x; i < 64 * CH; i += kThreads) {
+        const int r = (unsigned)i / CH, c = (unsigned)i % CH;
+        tc::cp_async16(bs + tc::swz<CH>(r, c), b_src + (size_t)(kt * 64 + r) * N * 2 + c * 16);
       }
     }
   };
 
-  const int m0 = (warp & 1) * (BM / 2), n0 = (warp >> 1) * 64;
-  Acc acc[MI][8][4];
+  const int m0 = (warp & 1) * (BM / 2), n0 = (warp >> 1) * (BN / 2);
+  Acc acc[MI][NT][4];
 #pragma unroll
   for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 
@@ -162,7 +172,7 @@ adaln_gemm_kernel(const unsigned char* __restrict__ A, const unsigned char* __re
         // 32 s + 4 t (b0) and + 16 (b1), columns 4 g .. 4 g + 3 of the group
         const int t = lane & 3, g = lane >> 2;
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
+        for (int q = 0; q < BN / 64; ++q) {
           uint32_t b[2][4];
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
@@ -170,7 +180,7 @@ adaln_gemm_kernel(const unsigned char* __restrict__ A, const unsigned char* __re
 #pragma unroll
             for (int i = 0; i < 4; ++i)
               w[i] = ld_shared_u32(bs + 4 * (g % 4) +
-                                   swz_kn(32 * s + 16 * h + 4 * t + i, (n0 + 32 * q) / 16 + g / 4));
+                                   swz_kn<BN / 16>(32 * s + 16 * h + 4 * t + i, (n0 + 32 * q) / 16 + g / 4));
             transpose4x4(w, b[h]);
           }
 #pragma unroll
@@ -180,10 +190,10 @@ adaln_gemm_kernel(const unsigned char* __restrict__ A, const unsigned char* __re
         }
       } else {
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
+        for (int jj = 0; jj < NT / 2; ++jj) {
           uint32_t b[4];  // b0, b1 of n8 tile 2 jj, then of tile 2 jj + 1
-          tc::ldmatrix_x4_trans(b, bs + tc::swz<16>(16 * s + (lane & 15),
-                                                    (n0 + 16 * jj) / 8 + (lane >> 4)));
+          tc::ldmatrix_x4_trans(b, bs + tc::swz<BN / 8>(16 * s + (lane & 15),
+                                                        (n0 + 16 * jj) / 8 + (lane >> 4)));
 #pragma unroll
           for (int i = 0; i < MI; ++i) {
             tc::mma_bf16(acc[i][2 * jj], a[i], b[0], b[1]);
@@ -213,7 +223,7 @@ adaln_gemm_kernel(const unsigned char* __restrict__ A, const unsigned char* __re
       if constexpr (kInt8) {
         const float sr = row0 + r < M ? a_scale[row0 + r] : 0.f;
 #pragma unroll
-        for (int q = 0; q < 2; ++q)
+        for (int q = 0; q < BN / 64; ++q)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int c = n0 + 32 * q + 8 * t + 4 * e;
@@ -227,7 +237,7 @@ adaln_gemm_kernel(const unsigned char* __restrict__ A, const unsigned char* __re
           }
       } else {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < NT; ++j) {
           const int c = n0 + 8 * j + 2 * t;
           *reinterpret_cast<float2*>(crow + c) = make_float2(
               acc[i][j][2 * h] + bias[col0 + c], acc[i][j][2 * h + 1] + bias[col0 + c + 1]);
@@ -235,8 +245,8 @@ adaln_gemm_kernel(const unsigned char* __restrict__ A, const unsigned char* __re
       }
     }
   __syncthreads();
-  for (int i = threadIdx.x; i < BM * (kBN / 4); i += kThreads) {
-    const int r = i / (kBN / 4), c = 4 * (i % (kBN / 4));
+  for (int i = threadIdx.x; i < BM * (BN / 4); i += kThreads) {
+    const int r = i / (BN / 4), c = 4 * (i % (BN / 4));
     if (row0 + r < M)
       *reinterpret_cast<float4*>(out + (size_t)(row0 + r) * ldo + col0 + c) =
           *reinterpret_cast<const float4*>(cs + r * kLdC + c);
@@ -245,22 +255,27 @@ adaln_gemm_kernel(const unsigned char* __restrict__ A, const unsigned char* __re
 
 namespace f32 {
 
-constexpr int kBM = 128, kBN = 128, kBK = 8, kThreads = 256;
+constexpr int kBM = 128, kBK = 8, kThreads = 256;
 constexpr int kLdA = kBM + 4;  // A tile rows (k) padded: the transposing stores hit distinct banks
 
-// A kBM x kBN tile of out: thread (ty, tx) = (t / 16, t % 16) owns rows
-// 4 ty + i and 64 + 4 ty + i, columns 4 tx + j and 64 + 4 tx + j (i, j < 4).
+// A kBM x BN tile of out (BN = 128, or 64 where N is not a multiple of 128):
+// thread (ty, tx) = (t / 16, t % 16) owns rows 4 ty + i and 64 + 4 ty + i,
+// columns 4 tx + j and, at BN = 128, 64 + 4 tx + j (i, j < 4).
+template <int BN>
 __global__ void __launch_bounds__(kThreads)
 adaln_gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ Bw,
             const float* __restrict__ bias, float* __restrict__ out, int ldo, int M, int K,
             int N) {
+  constexpr int NH = BN / 64;  // column halves a thread owns
   __shared__ __align__(16) float As[2][kBK][kLdA];
-  __shared__ __align__(16) float Bs[2][kBK][kBN];
+  __shared__ __align__(16) float Bs[2][kBK][BN];
   const int t = threadIdx.x, ty = t >> 4, tx = t & 15;
-  const int col0 = blockIdx.x * kBN, row0 = blockIdx.y * kBM;
+  const int col0 = blockIdx.x * BN, row0 = blockIdx.y * kBM;
   const int layer = col0 / N, n_in = col0 - layer * N;
-  // the loads: A row t / 2, k 4 (t % 2) .. + 3; B k row t / 32, columns 4 (t % 32) .. + 3
-  const int ar = t >> 1, ak = (t & 1) * 4, bk = t >> 5, bn = (t & 31) * 4;
+  // the loads: A row t / 2, k 4 (t % 2) .. + 3; B k row t / (BN / 4),
+  // columns 4 (t % (BN / 4)) .. + 3, by the first kBK BN / 4 threads
+  const int ar = t >> 1, ak = (t & 1) * 4, bk = t / (BN / 4), bn = (t % (BN / 4)) * 4;
+  const bool b_ld = t < kBK * BN / 4;
   const bool a_ok = row0 + ar < M;  // rows past M are zeros and never stored
   const float* a_src = A + (size_t)(a_ok ? row0 + ar : 0) * K + ak;
   const float* b_src = Bw + (size_t)layer * K * N + n_in + (size_t)bk * N + bn;
@@ -268,20 +283,20 @@ adaln_gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ Bw,
   auto fetch = [&](int k0) {
     ra = a_ok ? __ldg(reinterpret_cast<const float4*>(a_src + k0))
               : make_float4(0.f, 0.f, 0.f, 0.f);
-    rb = __ldg(reinterpret_cast<const float4*>(b_src + (size_t)k0 * N));
+    if (b_ld) rb = __ldg(reinterpret_cast<const float4*>(b_src + (size_t)k0 * N));
   };
   auto put_tile = [&](int s) {
     As[s][ak][ar] = ra.x;
     As[s][ak + 1][ar] = ra.y;
     As[s][ak + 2][ar] = ra.z;
     As[s][ak + 3][ar] = ra.w;
-    *reinterpret_cast<float4*>(&Bs[s][bk][bn]) = rb;
+    if (b_ld) *reinterpret_cast<float4*>(&Bs[s][bk][bn]) = rb;
   };
-  float acc[8][8];
+  float acc[8][4 * NH];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4 * NH; ++j) acc[i][j] = 0.f;
   fetch(0);
   put_tile(0);
   __syncthreads();
@@ -293,14 +308,20 @@ adaln_gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ Bw,
     for (int k = 0; k < kBK; ++k) {
       const float4 a0 = *reinterpret_cast<const float4*>(&As[s][k][4 * ty]);
       const float4 a1 = *reinterpret_cast<const float4*>(&As[s][k][64 + 4 * ty]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[s][k][4 * tx]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[s][k][64 + 4 * tx]);
+      float b[4 * NH];
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        const float4 bv = *reinterpret_cast<const float4*>(&Bs[s][k][64 * h + 4 * tx]);
+        b[4 * h] = bv.x;
+        b[4 * h + 1] = bv.y;
+        b[4 * h + 2] = bv.z;
+        b[4 * h + 3] = bv.w;
+      }
       const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 4 * NH; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
     // the other buffer was read in the slice before, which the last sync closed
     if (kt + 1 < nk) put_tile(s ^ 1);
@@ -311,7 +332,7 @@ adaln_gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ Bw,
     const int r = row0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
     if (r >= M) continue;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < NH; ++h) {
       const int c = col0 + 64 * h + 4 * tx;
       const float4 bv = __ldg(reinterpret_cast<const float4*>(bias + c));
       *reinterpret_cast<float4*>(out + (size_t)r * ldo + c) =
@@ -323,8 +344,12 @@ adaln_gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ Bw,
 
 cudaError_t launch(const float* emb, const float* w, const float* bias, float* out, int ldo,
                    int M, int E, int N, int L, int* launches, cudaStream_t s) {
-  adaln_gemm_f32_kernel<<<dim3(L * N / kBN, ceil_div(M, kBM)), kThreads, 0, s>>>(
-      emb, w, bias, out, ldo, M, E, N);
+  if (N % 128 == 0)
+    adaln_gemm_f32_kernel<128><<<dim3(L * N / 128, ceil_div(M, kBM)), kThreads, 0, s>>>(
+        emb, w, bias, out, ldo, M, E, N);
+  else
+    adaln_gemm_f32_kernel<64><<<dim3(L * N / 64, ceil_div(M, kBM)), kThreads, 0, s>>>(
+        emb, w, bias, out, ldo, M, E, N);
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) ++*launches;
   return err;
@@ -332,15 +357,18 @@ cudaError_t launch(const float* emb, const float* w, const float* bias, float* o
 
 }  // namespace f32
 
-template <bool kInt8, int BM>
+template <int BM, int BN>
+constexpr int kSmem = kStages * (BM * kKBytes + kBTile<BN>);
+
+template <bool kInt8, int BM, int BN>
 cudaError_t launch(const void* emb, const void* w, const float* emb_scale, const float* w_scale,
                    const float* bias, float* out, int ldo, int M, int E, int N, int L,
                    int* launches, cudaStream_t s) {
-  constexpr int smem = kStages * (BM * kKBytes + kBTile);
+  constexpr int smem = kSmem<BM, BN>;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      adaln_gemm_kernel<kInt8, BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      adaln_gemm_kernel<kInt8, BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
-  adaln_gemm_kernel<kInt8, BM><<<dim3(L * N / kBN, ceil_div(M, BM)), kThreads, smem, s>>>(
+  adaln_gemm_kernel<kInt8, BM, BN><<<dim3(L * N / BN, ceil_div(M, BM)), kThreads, smem, s>>>(
       static_cast<const unsigned char*>(emb), static_cast<const unsigned char*>(w), emb_scale,
       w_scale, bias, out, ldo, M, E, N);
   const cudaError_t err = cudaGetLastError();
@@ -348,11 +376,27 @@ cudaError_t launch(const void* emb, const void* w, const float* emb_scale, const
   return err;
 }
 
+// The tiling a launch picks: {BM, BN, threads, grid.x, grid.y, dynamic
+// shared bytes (the float32 kernel's are static)}: 128-row tiles while they
+// give every SM one (else 64; float32 always 128), 128-column tiles where N
+// is a multiple of 128, else 64.
+void plan_of(int M, int N, int L, int operands, int sms, int* out) {
+  const int bn = N % 128 == 0 ? 128 : 64;
+  int bm = 128;
+  if (operands != kAdalnF32 && (long long)ceil_div(M, 128) * (L * N / bn) < sms) bm = 64;
+  out[0] = bm;
+  out[1] = bn;
+  out[2] = operands == kAdalnF32 ? f32::kThreads : kThreads;
+  out[3] = L * N / bn;
+  out[4] = ceil_div(M, bm);
+  out[5] = operands == kAdalnF32 ? 0 : kStages * (bm * kKBytes + 128 * bn);
+}
+
 }  // namespace
 
 bool adaln_gemm_takes(int E, int N, int operands) {
-  if (operands == kAdalnF32) return E > 0 && E % f32::kBK == 0 && N > 0 && N % f32::kBN == 0;
-  return E > 0 && E * (operands == kAdalnInt8 ? 1 : 2) % kKBytes == 0 && N > 0 && N % kBN == 0;
+  if (operands == kAdalnF32) return E > 0 && E % f32::kBK == 0 && N > 0 && N % 64 == 0;
+  return E > 0 && E * (operands == kAdalnInt8 ? 1 : 2) % kKBytes == 0 && N > 0 && N % 64 == 0;
 }
 
 cudaError_t launch_adaln_gemm(const void* emb, const void* w, const float* emb_scale,
@@ -362,13 +406,25 @@ cudaError_t launch_adaln_gemm(const void* emb, const void* w, const float* emb_s
   if (operands == kAdalnF32)
     return f32::launch(static_cast<const float*>(emb), static_cast<const float*>(w), bias, out,
                        ldo, M, E, N, L, launches, stream);
-  // 128-row tiles while they give every SM one, else 64
-  const bool tall = (long long)ceil_div(M, 128) * (L * N / kBN) >= sm_count();
+  int p[6];
+  plan_of(M, N, L, operands, sm_count(), p);
   auto run = [&](auto kernel_launch) {
     return kernel_launch(emb, w, emb_scale, w_scale, bias, out, ldo, M, E, N, L, launches, stream);
   };
-  if (operands == kAdalnInt8) return tall ? run(launch<true, 128>) : run(launch<true, 64>);
-  return tall ? run(launch<false, 128>) : run(launch<false, 64>);
+  const bool tall = p[0] == 128, wide = p[1] == 128;
+  if (operands == kAdalnInt8)
+    return wide ? (tall ? run(launch<true, 128, 128>) : run(launch<true, 64, 128>))
+                : (tall ? run(launch<true, 128, 64>) : run(launch<true, 64, 64>));
+  return wide ? (tall ? run(launch<false, 128, 128>) : run(launch<false, 64, 128>))
+              : (tall ? run(launch<false, 128, 64>) : run(launch<false, 64, 64>));
+}
+
+// The tiling of the GEMM's launch for M rows, L layers of N columns in the
+// operand types `operands` on the current card (6 int32, see `plan_of`;
+// ops/decoder_stack.py `adaln_plan` computes the same).
+CT_EXPORT int adaln_gemm_plan(int M, int N, int L, int operands, int* out) {
+  plan_of(M, N, L, operands, sm_count(), out);
+  return 0;
 }
 
 // out (M, L N) float32 = the AdaLN modulation of the L layers in one launch

@@ -92,6 +92,16 @@
 // tiling, dMod's and aw's rows stored transposed into shared memory from
 // registers.  The sums keep their fixed orders: a repeat is bit-identical.
 
+// Widths (layer_common.cuh): D = 32, 64 or 128, each its own compile-time
+// instantiation, head widths dividing 32.  The row passes' products and
+// row-wise work tile as K1's pass C does at each width; the A^T B launches
+// keep their 128 x 128 output tiles, partial where a D-wide result is
+// narrower (staged zeros, sums not stored); d_emb's 128-column tiles cover
+// E = 4D (128 at D = 32) whole, and its k-stages of 64 columns a
+// sublayer's 2D columns.  D = 256 does not fit: the row passes' two
+// float32 tiles and the operand tile beside the ring outgrow a block's
+// shared memory.
+
 #include <type_traits>
 
 #include "adaln_gemm.cuh"
@@ -151,7 +161,13 @@ int atb_chunks(int tiles, int ksteps) {
   return c < 1 ? 1 : (c > ksteps ? ksteps : c);
 }
 
-int weight_tiles(int E) { return 9 + (E / 128) * (6 * D / 128); }
+// Output tiles (128 x 128, the last ones in a row or column partial) of
+// an m x n A^T B result.
+__host__ __device__ inline int atb_tiles(int m, int n) {
+  return ((m + 127) / 128) * ((n + 127) / 128);
+}
+
+int weight_tiles(int E) { return 9 * atb_tiles(D, D) + atb_tiles(E, 6 * D); }
 
 template <typename OT>
 size_t carve(Work<OT>* w, unsigned char* base, int B, int T, int E, int dh) {
@@ -276,7 +292,7 @@ struct Products<float, N> {
   // Each slab's sync also frees the slot of the slab before, which takes
   // slab next + 2; the first also orders as (and C, when accumulating).
   __device__ void product(float* C, bool accumulate) {
-    float acc[4][4] = {};
+    float acc[kC][4] = {};
 #pragma unroll 1
     for (int j = 0; j < kSlabs; ++j) {
       tc::cp_async_wait<1>();  // all groups but the newest (slab next + 1)
@@ -299,10 +315,10 @@ __device__ __forceinline__ float as_float(bf16 v) { return __bfloat162float(v); 
 
 // The warp's per-column sums (lane owns columns lane + 32 i) into its slot
 // of the column-sum partials.
-__device__ __forceinline__ void put_sums(float* vp_slot, int row, const float s[4]) {
+__device__ __forceinline__ void put_sums(float* vp_slot, int row, const float s[kC]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) vp_slot[row * D + lane + 32 * i] = s[i];
+  for (int i = 0; i < kC; ++i) vp_slot[row * D + lane + 32 * i] = s[i];
 }
 
 // Copy the warp's kRowsW rows of a float32 tile (stride kLdF) to an operand
@@ -329,15 +345,15 @@ __device__ void styl_bwd_rows(const float* y, const float* dout, float* yw, cons
                               int ldm, const float* g, const float* gb, OT* hs_out, OT* dmod,
                               int dmod_col, float* vp_slot, int gi, int bi, int boi, int dab_row) {
   const int lane = threadIdx.x & 31;
-  float s_do[4] = {}, s_dg[4] = {}, s_db[4] = {}, s_sc[4] = {}, s_sh[4] = {};
+  float s_do[kC] = {}, s_dg[kC] = {}, s_db[kC] = {}, s_sc[kC] = {}, s_sh[kC] = {};
   for (int r = 0; r < kRowsW; ++r) {
-    float v[4], xhat[4], dln[4];
+    float v[kC], xhat[kC], dln[kC];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = y[(size_t)r * D + lane + 32 * i];
+    for (int i = 0; i < kC; ++i) v[i] = y[(size_t)r * D + lane + 32 * i];
     const float2 st = ln_stats(v);
     float m1 = 0.f, m2 = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kC; ++i) {
       const int c = lane + 32 * i;
       xhat[i] = (v[i] - st.x) * st.y;
       const float ln_y = xhat[i] * g[c] + gb[c];
@@ -362,7 +378,7 @@ __device__ void styl_bwd_rows(const float* y, const float* dout, float* yw, cons
     m1 = warp_sum(m1) * (1.f / D);
     m2 = warp_sum(m2) * (1.f / D);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kC; ++i) {
       const int c = lane + 32 * i;
       yw[r * kLdF + c] = st.y * (dln[i] * g[c] - m1 - xhat[i] * m2);
     }
@@ -382,10 +398,10 @@ template <typename OT>
 __device__ void head_softmax_bwd_rows(const float* yw, const float* s32, OT* op, OT* dst,
                                       float* vp_slot, int row, int dh) {
   const int lane = threadIdx.x & 31;
-  float sum[4] = {};
+  float sum[kC] = {};
   for (int r = 0; r < kRowsW; ++r)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kC; ++i) {
       const int c = lane + 32 * i;
       const float s = s32[(size_t)r * D + c], ds = yw[r * kLdF + c];
       const float dot = head_sum(kIsF32<OT> ? ds * s : round_bf16(ds * s), dh);
@@ -404,15 +420,15 @@ template <typename XT>
 __device__ void ln_bwd_rows(const XT* x, const float* yw, const float* g, float* acc,
                             float* vp_slot, int gi) {
   const int lane = threadIdx.x & 31;
-  float s_dg[4] = {}, s_db[4] = {};
+  float s_dg[kC] = {}, s_db[kC] = {};
   for (int r = 0; r < kRowsW; ++r) {
-    float v[4], xhat[4];
+    float v[kC], xhat[kC];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = as_float(x[(size_t)r * D + lane + 32 * i]);
+    for (int i = 0; i < kC; ++i) v[i] = as_float(x[(size_t)r * D + lane + 32 * i]);
     const float2 st = ln_stats(v);
     float m1 = 0.f, m2 = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kC; ++i) {
       const int c = lane + 32 * i;
       xhat[i] = (v[i] - st.x) * st.y;
       const float dxn = yw[r * kLdF + c];
@@ -424,7 +440,7 @@ __device__ void ln_bwd_rows(const XT* x, const float* yw, const float* g, float*
     m1 = warp_sum(m1) * (1.f / D);
     m2 = warp_sum(m2) * (1.f / D);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kC; ++i) {
       const int c = lane + 32 * i;
       acc[r * kLdF + c] += st.y * (yw[r * kLdF + c] * g[c] - m1 - xhat[i] * m2);
     }
@@ -478,12 +494,12 @@ __global__ void __launch_bounds__(kThreadsC, 2) rows1_kernel(Inputs<OT> in, Work
     for (int i = lane; i < kRowsW * D; i += 32) R(xn)[i] = aw[(i / D) * kLdO + i % D];
     p.gemm(t.ys);
     for (int r = 0; r < kRowsW; ++r) {
-      float v[4];
+      float v[kC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) v[i] = yw[r * kLdF + lane + 32 * i] + vec[bq * D + lane + 32 * i];
+      for (int i = 0; i < kC; ++i) v[i] = yw[r * kLdF + lane + 32 * i] + vec[bq * D + lane + 32 * i];
       head_softmax_row<false, (!kIsF32<OT>)>(v, dh);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < kC; ++i) {
         const int c = lane + 32 * i;
         R(s32)[r * D + c] = v[i];
         put(aw + r * kLdO + c, v[i]);
@@ -539,19 +555,19 @@ __global__ void __launch_bounds__(kThreadsC, 2) rows1_kernel(Inputs<OT> in, Work
                     vec + kStylFfnB * D, R(w.hs3), w.dmod + wrow * 6 * D, 4 * D, vp, kStylFfnG,
                     kStylFfnB, kStylFfnOut, 4);
   {  // dy3: column sums (d b2), operand
-    float s[4] = {};
+    float s[kC] = {};
     for (int r = 0; r < kRowsW; ++r)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[i] += yw[r * kLdF + lane + 32 * i];
+      for (int i = 0; i < kC; ++i) s[i] += yw[r * kLdF + lane + 32 * i];
     put_sums(vp, kB2, s);
   }
   rows_to_op(yw, aw, R(w.dy3));
   p.gemm_t(t.ys);  // dh1 = dy3 W2^T
   {  // dz = gelu'(z) dh1
-    float s[4] = {};
+    float s[kC] = {};
     for (int r = 0; r < kRowsW; ++r)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < kC; ++i) {
         const int c = lane + 32 * i;
         const float z = R(w.z)[r * D + c];
         const float u = 0.7978845608028654f * (z + 0.044715f * z * z * z);
@@ -629,7 +645,7 @@ __global__ void __launch_bounds__(kThreadsC, 2) rows2_kernel(Inputs<OT> in, Work
   // k_sm (ys) and v (as), masked past t_valid
   for (int r = 0; r < kRowsW; ++r)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kC; ++i) {
       const int c = lane + 32 * i;
       const float k = yw[r * kLdF + c] + vec[kBk * D + c];
       yw[r * kLdF + c] = valid(r) ? expf(k - stats[c]) / stats[D + c] : 0.f;
@@ -637,10 +653,10 @@ __global__ void __launch_bounds__(kThreadsC, 2) rows2_kernel(Inputs<OT> in, Work
     }
   p.gemm_t(t.xs);  // dk_sm = v dKV^T
   {  // time-softmax backward: dk = k_sm (dk_sm - c), masked rows give 0; k_sm into as
-    float sk[4] = {};
+    float sk[kC] = {};
     for (int r = 0; r < kRowsW; ++r)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < kC; ++i) {
         const int c = lane + 32 * i;
         const float dk = valid(r) ? yw[r * kLdF + c] * (xw[r * kLdF + c] - cvec[c]) : 0.f;
         sk[i] += dk;
@@ -651,10 +667,10 @@ __global__ void __launch_bounds__(kThreadsC, 2) rows2_kernel(Inputs<OT> in, Work
   }
   p.gemm(t.ys);  // dv = k_sm dKV
   {
-    float sv[4] = {};
+    float sv[kC] = {};
     for (int r = 0; r < kRowsW; ++r)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < kC; ++i) {
         const int c = lane + 32 * i;
         const float dv = valid(r) ? yw[r * kLdF + c] : 0.f;
         sv[i] += dv;
@@ -711,7 +727,9 @@ __device__ __forceinline__ void run_ring(int nk, Load load, Compute compute) {
 // C[s] (m x n) = sum over rows r of segment s of A[r, :m]^T B[r, :n] (bf16
 // or float32 operands, float32 sums); a segment's rows are cut into
 // `chunks` runs of 64-row steps, each block summing one run of one 128 x
-// 128 tile.  With chunks > 1 the run's sums go to part + chunk *
+// 128 tile (m and n multiples of 8: at D < 128 the tiles of a D-wide
+// result are partial, their missing columns staged as zeros and their sums
+// not stored).  With chunks > 1 the run's sums go to part + chunk *
 // part_stride, laid out as out (S, m, n), and a sum in chunk order follows.
 template <typename T>
 struct AtbJob {
@@ -730,7 +748,7 @@ template <typename T>
 int atb_blocks(const AtbJobs<T>& jobs) {
   int n = 0;
   for (int j = 0; j < jobs.count; ++j)
-    n += (jobs.job[j].m / 128) * (jobs.job[j].n / 128) * jobs.job[j].segs * jobs.chunks;
+    n += atb_tiles(jobs.job[j].m, jobs.job[j].n) * jobs.job[j].segs * jobs.chunks;
   return n;
 }
 
@@ -745,12 +763,12 @@ __device__ AtbTile atb_tile(const AtbJobs<T>& jobs) {
   int blk = blockIdx.x;
   for (a.j = 0; a.j < jobs.count - 1; ++a.j) {
     const AtbJob<T>& jb = jobs.job[a.j];
-    const int nb = (jb.m / 128) * (jb.n / 128) * jb.segs * jobs.chunks;
+    const int nb = atb_tiles(jb.m, jb.n) * jb.segs * jobs.chunks;
     if (blk < nb) break;
     blk -= nb;
   }
   const AtbJob<T>& jb = jobs.job[a.j];
-  const int tiles_m = jb.m / 128, tiles = tiles_m * (jb.n / 128);
+  const int tiles_m = (jb.m + 127) / 128, tiles = atb_tiles(jb.m, jb.n);
   // tiles fastest: the blocks that run together share rows (L2)
   const int tile = blk % tiles;
   a.chunk = (blk / tiles) % jobs.chunks;
@@ -763,6 +781,9 @@ __device__ AtbTile atb_tile(const AtbJobs<T>& jobs) {
   return a;
 }
 
+// kPartial: some tile of the launch is partial (D < 128); without it the
+// loads and stores carry no bounds checks.
+template <bool kPartial>
 __global__ void __launch_bounds__(kGemmThreads, 2) atb_kernel(AtbJobs<bf16> jobs) {
   extern __shared__ __align__(128) unsigned char smem[];
   const AtbTile at = atb_tile(jobs);
@@ -773,12 +794,20 @@ __global__ void __launch_bounds__(kGemmThreads, 2) atb_kernel(AtbJobs<bf16> jobs
   const int wm = (warp & 1) * 64, wn = (warp >> 1) * 32;
   const uint32_t base = tc::smem_addr(smem);
 
-  // stage: 64 rows of A's 128 columns, then of B's, 16 chunks a row
+  // stage: 64 rows of A's 128 columns, then of B's, 16 chunks a row; a
+  // partial tile (D < 128) stages zeros past its columns
+  const bool partial = kPartial && (at.m0 + 128 > jb.m || at.n0 + 128 > jb.n);
   auto load = [&](int kt, int s) {
     for (int i = threadIdx.x; i < 2 * 64 * 16; i += kGemmThreads) {
       const int half = i >> 10, r = (i >> 4) & 63, c = i & 15;
       const bf16* src = half ? bsrc + ((size_t)kt * 64 + r) * jb.ldb : a + ((size_t)kt * 64 + r) * jb.lda;
-      tc::cp_async16(base + s * kGemmStage + half * 16384 + tc::swz<16>(r, c), src + 8 * c);
+      const uint32_t dst = base + s * kGemmStage + half * 16384 + tc::swz<16>(r, c);
+      if (!partial) {
+        tc::cp_async16(dst, src + 8 * c);
+      } else {
+        const bool valid = (half ? at.n0 : at.m0) + 8 * c < (half ? jb.n : jb.m);
+        tc::cp_async16(dst, valid ? src + 8 * c : src, valid);
+      }
     }
   };
   float acc[4][4][4];
@@ -816,13 +845,17 @@ __global__ void __launch_bounds__(kGemmThreads, 2) atb_kernel(AtbJobs<bf16> jobs
   float* c = (jobs.chunks > 1 ? jb.part + at.chunk * jb.part_stride : jb.out) +
              (size_t)at.seg * jb.m * jb.n + (size_t)(at.m0 + wm) * jb.n + at.n0 + wn;
   const int g = lane >> 2, t2 = 2 * (lane & 3);
+  // in range: rows < rows, columns < cols (all of a whole tile)
+  const int rows = partial ? jb.m - at.m0 - wm : 128, cols = partial ? jb.n - at.n0 - wn : 128;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
+      if (8 * q + t2 >= cols) continue;
       float* p = c + (size_t)(16 * i + g) * jb.n + 8 * q + t2;
-      *reinterpret_cast<float2*>(p) = make_float2(acc[i][q][0], acc[i][q][1]);
-      *reinterpret_cast<float2*>(p + 8 * (size_t)jb.n) = make_float2(acc[i][q][2], acc[i][q][3]);
+      if (16 * i + g < rows) *reinterpret_cast<float2*>(p) = make_float2(acc[i][q][0], acc[i][q][1]);
+      if (16 * i + g + 8 < rows)
+        *reinterpret_cast<float2*>(p + 8 * (size_t)jb.n) = make_float2(acc[i][q][2], acc[i][q][3]);
     }
 }
 
@@ -832,6 +865,7 @@ __global__ void __launch_bounds__(kGemmThreads, 2) atb_kernel(AtbJobs<bf16> jobs
 // tx + j of B (i, j < 4), each an FFMA chain over the rows in order: per row
 // four 16-byte loads (A's two broadcast within a warp, B's 16 distinct
 // vectors of one row) feed 64 FFMAs.
+template <bool kPartial>
 __global__ void __launch_bounds__(kGemmThreads, 2) atb_f32_kernel(AtbJobs<float> jobs) {
   constexpr int kRows = 32;  // rows a stage
   extern __shared__ __align__(128) unsigned char smem[];
@@ -843,13 +877,21 @@ __global__ void __launch_bounds__(kGemmThreads, 2) atb_f32_kernel(AtbJobs<float>
   const uint32_t base = tc::smem_addr(smem);
   const float* fbase = reinterpret_cast<const float*>(smem);
 
-  // stage: kRows rows of A's 128 columns, then of B's, 32 chunks a row
+  // stage: kRows rows of A's 128 columns, then of B's, 32 chunks a row; a
+  // partial tile stages zeros past its columns
+  const bool partial = kPartial && (at.m0 + 128 > jb.m || at.n0 + 128 > jb.n);
   auto load = [&](int kt, int s) {
     for (int i = threadIdx.x; i < 2 * kRows * 32; i += kGemmThreads) {
       const int half = i >> 10, r = (i >> 5) & (kRows - 1), c = i & 31;
       const float* src = half ? bsrc + ((size_t)kt * kRows + r) * jb.ldb
                               : a + ((size_t)kt * kRows + r) * jb.lda;
-      tc::cp_async16(base + s * kGemmStage + half * 16384 + (r * 128 + 4 * c) * 4, src + 4 * c);
+      const uint32_t dst = base + s * kGemmStage + half * 16384 + (r * 128 + 4 * c) * 4;
+      if (!partial) {
+        tc::cp_async16(dst, src + 4 * c);
+      } else {
+        const bool valid = (half ? at.n0 : at.m0) + 4 * c < (half ? jb.n : jb.m);
+        tc::cp_async16(dst, valid ? src + 4 * c : src, valid);
+      }
     }
   };
   float acc[8][8];
@@ -876,11 +918,15 @@ __global__ void __launch_bounds__(kGemmThreads, 2) atb_f32_kernel(AtbJobs<float>
 
   float* c = (jobs.chunks > 1 ? jb.part + at.chunk * jb.part_stride : jb.out) +
              (size_t)at.seg * jb.m * jb.n + (size_t)at.m0 * jb.n + at.n0;
+  // in range: rows < rows, columns < cols (all of a whole tile)
+  const int rows = partial ? jb.m - at.m0 : 128, cols = partial ? jb.n - at.n0 : 128;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    float* p = c + (size_t)(i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4) * jb.n + 4 * tx;
-    store4(p, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-    store4(p + 64, make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
+    const int r = i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4;
+    if (r >= rows) continue;
+    float* p = c + (size_t)r * jb.n + 4 * tx;
+    if (4 * tx < cols) store4(p, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+    if (64 + 4 * tx < cols) store4(p + 64, make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
   }
 }
 
@@ -924,18 +970,28 @@ cudaError_t launch_sum(const float* in, long long stride, int G, float* out, int
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_atb(const AtbJobs<T>& jobs, cudaStream_t s) {
+template <typename T, bool kPartial>
+cudaError_t launch_atb_kernel(const AtbJobs<T>& jobs, cudaStream_t s) {
   void (*kernel)(AtbJobs<T>);
   if constexpr (kIsF32<T>)
-    kernel = atb_f32_kernel;
+    kernel = atb_f32_kernel<kPartial>;
   else
-    kernel = atb_kernel;
+    kernel = atb_kernel<kPartial>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
   if (attr != cudaSuccess) return attr;
   kernel<<<atb_blocks(jobs), kGemmThreads, kGemmSmem, s>>>(jobs);
   return cudaGetLastError();
+}
+
+// The A^T B launch, its bounds checks compiled in only where a job's
+// result is no whole number of 128 x 128 tiles (D < 128).
+template <typename T>
+cudaError_t launch_atb(const AtbJobs<T>& jobs, cudaStream_t s) {
+  bool partial = false;
+  for (int j = 0; j < jobs.count; ++j)
+    partial |= jobs.job[j].m % 128 != 0 || jobs.job[j].n % 128 != 0;
+  return partial ? launch_atb_kernel<T, true>(jobs, s) : launch_atb_kernel<T, false>(jobs, s);
 }
 
 // out[i] = in[i]^T for the n (D x D) float32 matrices of `in`, through a
@@ -1275,9 +1331,21 @@ bool bad_backward_shape(int T, int t_valid, int d, int E, int H, int mxu_f32) {
 
 }  // namespace
 
+// The launches of one layer's backward at this width for clips of T rows,
+// in the float32 mode (f32) or bf16: {the row passes' threads, tiles a
+// clip, shared bytes; the A^T B and d_emb launches' threads, dynamic
+// shared bytes (d_emb's float32 kernel: static)} (ops/decoder_layer_bwd.py
+// `plan` computes the same).
+CT_EXPORT int LAYER_EXPORT(decoder_layer_backward_plan)(int T, int f32, int* out) {
+  const int v[5] = {kThreadsC, T / kRowsTile, (int)(f32 ? kSmemRows<float> : kSmemRows<bf16>),
+                    kGemmThreads, kGemmSmem};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
+  return 0;
+}
+
 // Workspace bytes of decoder_layer_backward in its mode (mxu_f32: float32);
 // -1 for widths it does not take.
-CT_EXPORT long long decoder_layer_backward_workspace(int B, int T, int d, int E, int H,
+CT_EXPORT long long LAYER_EXPORT(decoder_layer_backward_workspace)(int B, int T, int d, int E, int H,
                                                      int mxu_f32) {
   if (d != D || H < 1 || H > d || E % 128 != 0) return -1;
   if (mxu_f32) {
@@ -1292,7 +1360,7 @@ CT_EXPORT long long decoder_layer_backward_workspace(int B, int T, int d, int E,
 // demb, dkv_cross float32), else bf16; the weight gradients are float32 in
 // both.  gemm_launches (int, host): raised by one for each launch of the
 // AdaLN GEMM.
-CT_EXPORT int decoder_layer_backward(const void* x, const void* emb, const void* kv_cross,
+CT_EXPORT int LAYER_EXPORT(decoder_layer_backward)(const void* x, const void* emb, const void* kv_cross,
                                      const void* mats, const void* vecs, const void* adaln_w,
                                      const void* adaln_b, const void* dy, void* dx, void* demb,
                                      void* dkv_cross, void* dmats, void* dvecs, void* dadaln_w,

@@ -86,6 +86,16 @@
 // bf16-VPU mode rounds its three chains as in the bf16 mode; with int8
 // AdaLN the GEMM is the int8 one and the passes float32.
 //
+// Widths (layer_common.cuh): D = 32, 64 or 128, each its own compile-time
+// instantiation; a head width dh dividing 32 (8, 16 or 32), since the
+// head sums are shuffles inside a warp.  Pass A gives each of its D threads
+// a column (one warp at D = 32); pass C's 8 warps tile each product by
+// `tile_gemm_smem`'s warp grid (16 columns of 32 rows a warp at D = 128, 8
+// columns of 32 or 16 rows below) and its row-wise work gives a lane D / 32
+// columns.  The AdaLN GEMM's N = 6D is 192 at D = 32, which its 64-column
+// tiles take (adaln_gemm.cu).  Wider models (D = 256) do not fit this
+// design's shared memory: pass A's float32 mode stages Wk and Wv whole.
+//
 // K5 is one layer of the same four launches (`decoder_layer_forward`), with
 // the residual read and written in the compute dtype (the training path
 // carries it so between layers, JAX `train/fused_denoiser.py:304-323`) and
@@ -305,7 +315,7 @@ layer_rows_kernel(const XT* x_in, XT* x_out, const float* __restrict__ mod, int 
   int next = 0;
   auto gemm = [&]() {
     if constexpr (kF32) {
-      float acc[4][4] = {};
+      float acc[kC][4] = {};
       for (int j = 0; j < kSlabs; ++j) {
         tc::cp_async_wait<1>();  // all groups but the newest (slab next + 1)
         __syncthreads();
@@ -332,7 +342,7 @@ layer_rows_kernel(const XT* x_in, XT* x_out, const float* __restrict__ mod, int 
     gemm();
     for (int r = 0; r < kRows; ++r)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < kC; ++i) {
         const int c = lane + 32 * i;
         xw[r * kLdF + c] += yw[r * kLdF + c] + vec[b_out * D + c];
       }
@@ -399,6 +409,9 @@ bool bad_shape(int d, int E, int H) {
 
 }  // namespace
 
+namespace layer {
+inline namespace LAYER_WIDTH_NS {
+
 cudaError_t launch_kv_pass_f32(const float* x, const float* mats, const float* vecs,
                                float* partials, float* kv, float* stats, int B, int T,
                                int t_valid, int dh, cudaStream_t stream) {
@@ -425,6 +438,9 @@ size_t kv_pass_partials_bytes(int B, int t_valid, int dh, bool with_kvr, bool f3
                          : with_kvr ? partial_stride<bf16, true>(dh) : partial_stride<bf16, false>(dh);
   return (size_t)B * ceil_div(t_valid, kTileRows) * stride * 4;
 }
+
+}  // namespace LAYER_WIDTH_NS
+}  // namespace layer
 
 
 namespace {
@@ -493,7 +509,7 @@ cudaError_t stack_forward(const void* x, const void* emb, const void* emb_scale,
 // (mats, kv_cross and kv_self float32; emb and adaln_w float32 unless
 // int8), else bf16.  mod: (B T, 6D L) float32 scratch.  gemm_launches
 // (int, host): raised by one for each launch of the AdaLN GEMM.
-CT_EXPORT int decoder_stack_forward(const void* x, const void* emb, const void* emb_scale,
+CT_EXPORT int LAYER_EXPORT(decoder_stack_forward)(const void* x, const void* emb, const void* emb_scale,
                                     const void* kv_cross, const void* mats, const void* vecs,
                                     const void* adaln_w, const void* aw_scale,
                                     const void* adaln_b, void* out, void* partials,
@@ -516,7 +532,7 @@ CT_EXPORT int decoder_stack_forward(const void* x, const void* emb, const void* 
 // mod: (B T, 6D) float32 scratch; gemm_launches as decoder_stack_forward's.
 // mxu_f32: K5's float32 mode (x, out, emb, kv_cross, mats, adaln_w and
 // kv_self float32), else bf16.
-CT_EXPORT int decoder_layer_forward(const void* x, const void* emb, const void* kv_cross,
+CT_EXPORT int LAYER_EXPORT(decoder_layer_forward)(const void* x, const void* emb, const void* kv_cross,
                                     const void* mats, const void* vecs, const void* adaln_w,
                                     const void* adaln_b, void* out, void* partials,
                                     void* kv_self, void* mod, void* gemm_launches, int B, int T,
@@ -541,4 +557,17 @@ CT_EXPORT int decoder_layer_forward(const void* x, const void* emb, const void* 
         static_cast<T_*>(kv_self), B, T, t_valid, d / H, s);
   };
   return mxu_f32 ? run(static_cast<float*>(nullptr)) : run(static_cast<bf16*>(nullptr));
+}
+
+// The launches of one layer at this width for clips of T rows (t_valid of
+// them in the KV pass), as kv_pass and rows_pass make them, in the float32
+// mode (f32) or bf16: {pass A's threads, tiles a clip, shared bytes; pass
+// B's threads, blocks a clip; pass C's threads, tiles a clip, shared bytes}
+// (ops/decoder_stack.py `plan` computes the same).
+CT_EXPORT int LAYER_EXPORT(decoder_stack_plan)(int T, int t_valid, int f32, int* out) {
+  const int v[8] = {kThreadsA, ceil_div(t_valid, kTileRows),
+                    (int)(f32 ? kSmemA<float> : kSmemA<bf16>), D, D, kThreadsC,
+                    ceil_div(T, kRowsTile), (int)(f32 ? kSmemC<float> : kSmemC<bf16>)};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
 }

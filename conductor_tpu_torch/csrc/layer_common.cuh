@@ -1,9 +1,18 @@
 // Device code shared by the decoder-layer kernels: K1 / K5
 // (decoder_stack.cu) and K6 (decoder_layer_bwd.cu).  Everything here works
 // on one tile of one clip (64 rows in the KV pass, 32 in the row passes),
-// D = 128 wide, in a block's shared memory; see decoder_stack.cu for the
-// design.  The row-wise helpers write the matmul operand in its type: bf16
-// (rows of kLdA) or, in K1's float32 mode, float32 (rows of kLdF).
+// D wide, in a block's shared memory; see decoder_stack.cu for the design.
+// The row-wise helpers write the matmul operand in its type: bf16 (rows of
+// kLdA) or, in K1's float32 mode, float32 (rows of kLdF).
+//
+// D, the model width, is a compile-time constant: the build compiles each
+// of the two sources that include this header once per width it takes
+// (LAYER_D = 32, 64, 128; ops/_build.py WIDTHS), each into its own inline
+// namespace (layer::d32, ...), and their C entry points carry the width in
+// their names (`LAYER_EXPORT`: decoder_stack_forward_d64, ...).  So every
+// register tile and shared-memory layout stays compile-time at each width,
+// the D = 128 code is the one the flagship ran before the other widths
+// came, and the widths build in parallel.
 #pragma once
 
 #include <mma.h>
@@ -13,13 +22,25 @@
 #include "common.cuh"
 #include "tensor_core.cuh"
 
+#ifndef LAYER_D
+#define LAYER_D 128
+#endif
+#define LAYER_CAT2(a, b) a##b
+#define LAYER_CAT(a, b) LAYER_CAT2(a, b)
+// The width's inline namespace, and a C entry point's name at this width.
+#define LAYER_WIDTH_NS LAYER_CAT(d, LAYER_D)
+#define LAYER_EXPORT(name) LAYER_CAT(name, LAYER_CAT(_d, LAYER_D))
+
 namespace layer {
+inline namespace LAYER_WIDTH_NS {
 
 using namespace nvcuda;
 
-constexpr int D = 128;          // latent width the kernels are built for
+constexpr int D = LAYER_D;      // latent width of this instantiation
+static_assert(D == 32 || D == 64 || D == 128, "the widths the kernels are built for");
+constexpr int kC = D / 32;      // columns a lane owns in the row-wise helpers
 constexpr int kTileRows = 64;   // rows per block (ops/decoder_stack.py ROWS_PER_TILE)
-constexpr int kThreadsA = 128;  // kv_partials: 4 warps
+constexpr int kThreadsA = D;    // kv_partials: a thread a column (4 warps at D = 128, 1 at 32)
 constexpr int kThreadsC = 256;  // row passes: 8 warps
 constexpr int kRowsA = kTileRows * 32 / kThreadsA;  // rows per warp in the row-wise phases
 constexpr int kRowsC = kTileRows * 32 / kThreadsC;
@@ -27,6 +48,7 @@ static_assert(kThreadsA == D, "kv_partials_kernel gives each thread one column")
 constexpr int kLdF = D + 4;       // row stride of the (64, D) float32 tiles
 constexpr int kLdA = D + 8;       // row stride of the (64, D) bf16 operand
 constexpr int kPrefetch = 4;      // k-steps of weight fragments in flight
+constexpr int kChunks = D / 8;    // 16-byte chunks of a bf16 row of D
 
 // vector rows of the (24, D) bank (train/fused_denoiser.pack_layer_weights)
 enum Vec {
@@ -158,14 +180,17 @@ __device__ void block_gemm(const bf16* A, int lda, const bf16* B, int ldb, int K
 }
 
 // Row-wise helpers, one warp over its ROWS rows (float32 rows at stride
-// kLdF, bf16 rows at kLdA): lane owns columns lane + 32 * i, i < 4.
+// kLdF, bf16 rows at kLdA): lane owns columns lane + 32 * i, i < kC.
 
-// LayerNorm statistics of one row held as v[4] per lane: (mean, rstd).
-__device__ __forceinline__ float2 ln_stats(const float v[4]) {
-  const float mu = warp_sum(v[0] + v[1] + v[2] + v[3]) * (1.f / D);
+// LayerNorm statistics of one row held as v[kC] per lane: (mean, rstd).
+__device__ __forceinline__ float2 ln_stats(const float v[kC]) {
+  float s = v[0];
+#pragma unroll
+  for (int i = 1; i < kC; ++i) s += v[i];
+  const float mu = warp_sum(s) * (1.f / D);
   float q = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) q += (v[i] - mu) * (v[i] - mu);
+  for (int i = 0; i < kC; ++i) q += (v[i] - mu) * (v[i] - mu);
   return make_float2(mu, rsqrtf(warp_sum(q) * (1.f / D) + 1e-5f));
 }
 
@@ -174,12 +199,12 @@ template <int ROWS, typename OT>
 __device__ void warp_ln(const float* src, const float* g, const float* b, OT* dst) {
   const int lane = threadIdx.x & 31;
   for (int r = 0; r < ROWS; ++r) {
-    float v[4];
+    float v[kC];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = src[r * kLdF + lane + 32 * i];
+    for (int i = 0; i < kC; ++i) v[i] = src[r * kLdF + lane + 32 * i];
     const float2 st = ln_stats(v);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kC; ++i) {
       const int c = lane + 32 * i;
       put(dst + r * kLdOp<OT> + c, (v[i] - st.x) * st.y * g[c] + b[c]);
     }
@@ -192,11 +217,17 @@ __device__ void warp_ln(const float* src, const float* g, const float* b, OT* ds
 // float32 values).  In the bf16-VPU mode (kVpuBf16) JAX's exp takes
 // bf16(q - rowmax) and returns bf16, which the float32 division then reads.
 template <bool kVpuBf16 = false, bool kMxuBf16 = true>
-__device__ __forceinline__ void head_softmax_row(float v[4], int dh) {
-  float m = fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3]));
+__device__ __forceinline__ void head_softmax_row(float v[kC], int dh) {
+  float m = v[0];
+  if constexpr (kC == 4) {  // D = 128: a tree, two steps deep
+    m = fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3]));
+  } else {
+#pragma unroll
+    for (int i = 1; i < kC; ++i) m = fmaxf(m, v[i]);
+  }
   m = warp_max(m);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kC; ++i) {
     if (kVpuBf16) {
       v[i] = round_bf16(expf(round_bf16(v[i] - m)));
       v[i] /= head_sum(v[i], dh);
@@ -213,12 +244,12 @@ template <int ROWS, bool kVpuBf16 = false, typename OT>
 __device__ void warp_head_softmax(const float* src, const float* bias, int dh, OT* dst) {
   const int lane = threadIdx.x & 31;
   for (int r = 0; r < ROWS; ++r) {
-    float v[4];
+    float v[kC];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = src[r * kLdF + lane + 32 * i] + bias[lane + 32 * i];
+    for (int i = 0; i < kC; ++i) v[i] = src[r * kLdF + lane + 32 * i] + bias[lane + 32 * i];
     head_softmax_row<kVpuBf16, std::is_same<OT, bf16>::value>(v, dh);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) put(dst + r * kLdOp<OT> + lane + 32 * i, v[i]);
+    for (int i = 0; i < kC; ++i) put(dst + r * kLdOp<OT> + lane + 32 * i, v[i]);
   }
 }
 
@@ -238,12 +269,21 @@ constexpr int kWeightTile = D * D * 2;  // bytes of one staged (D x D) bf16 matr
 constexpr int kRowsTile = 32;           // rows of a row-pass tile (K1 / K5, K6), 4 a warp
 
 // Start the copy of the row-major (D x D) bf16 matrix W into the shared
-// tile at `stage` (16 chunks a row, swizzled), by all the block's threads;
-// the caller commits the group.
+// tile at `stage` (kChunks chunks a row, swizzled), by all the block's
+// threads; the caller commits the group.
 __device__ __forceinline__ void stage_weights(uint32_t stage, const bf16* W) {
   for (int i = threadIdx.x; i < D * D / 8; i += blockDim.x)
-    tc::cp_async16(stage + tc::swz<16>(i >> 4, i & 15), W + 8 * i);
+    tc::cp_async16(stage + tc::swz<kChunks>((unsigned)i / kChunks, (unsigned)i % kChunks), W + 8 * i);
 }
+
+// `tile_gemm_smem`'s warp grid over the (kRowsTile x D) output: kGemmNJ n8
+// tiles a warp (16 columns at D = 128, 8 below), kGemmWN warps across the
+// columns and kGemmWR down the rows, kGemmMI m16 tiles a warp.
+constexpr int kGemmNJ = D >= 128 ? 2 : 1;
+constexpr int kGemmWN = D / (8 * kGemmNJ);
+constexpr int kGemmWR = (kThreadsC / 32) / kGemmWN;
+constexpr int kGemmMI = kRowsTile / 16 / kGemmWR;
+static_assert(kGemmWR * kGemmWN == kThreadsC / 32 && kGemmMI >= 1, "tile_gemm_smem's warp grid");
 
 // C (kRowsTile x D, float32, row stride kLdF) = A (kRowsTile x D bf16,
 // row stride kLdA, shared) @ op(B), B the (D x D) bf16 matrix staged by
@@ -251,20 +291,24 @@ __device__ __forceinline__ void stage_weights(uint32_t stage, const bf16* W) {
 // backward products); with `accumulate`, C += instead.  mma.sync
 // m16n8k16, A fragments by ldmatrix, B by ldmatrix.trans (B) or ldmatrix
 // (B^T: the staged rows are its columns).  Each of the block's 8 warps
-// computes 16 columns of C.
+// computes 8 kGemmNJ columns of 16 kGemmMI rows of C (at D = 128, 16
+// columns of all 32 rows).
 template <bool kTransB = false>
 __device__ __forceinline__ void tile_gemm_smem(const bf16* A, uint32_t Bs, float* C,
                                                bool accumulate = false) {
-  constexpr int MI = kRowsTile / 16;
+  constexpr int MI = kGemmMI, NJ = kGemmNJ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n0 = warp * (D / 8);
+  // (one warp row at D = 128: the warp index alone places it)
+  const int n0 = (kGemmWR == 1 ? warp : warp % kGemmWN) * 8 * NJ;
+  const int m0 = kGemmWR == 1 ? 0 : (warp / kGemmWN) * 16 * MI;
   const int g = lane >> 2, t = lane & 3;
   const uint32_t a_base = tc::smem_addr(A);
-  float acc[MI][2][4];
+  C += m0 * kLdF;
+  float acc[MI][NJ][4];
 #pragma unroll
   for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       const float* c = C + (16 * i + g) * kLdF + n0 + 8 * j + 2 * t;
       const float2 lo = accumulate ? *reinterpret_cast<const float2*>(c) : make_float2(0.f, 0.f);
       const float2 hi = accumulate ? *reinterpret_cast<const float2*>(c + 8 * kLdF) : make_float2(0.f, 0.f);
@@ -278,21 +322,30 @@ __device__ __forceinline__ void tile_gemm_smem(const bf16* A, uint32_t Bs, float
     uint32_t a[MI][4], b[4];  // b: b0, b1 of n8 tile 0, then of tile 1
 #pragma unroll
     for (int i = 0; i < MI; ++i)
-      tc::ldmatrix_x4(a[i], a_base + ((16 * i + (lane & 15)) * kLdA + k + (lane >> 4) * 8) * 2);
-    if (kTransB)
-      tc::ldmatrix_x4(b, Bs + tc::swz<16>(n0 + ((lane >> 4) << 3) + (lane & 7), k / 8 + ((lane >> 3) & 1)));
-    else
-      tc::ldmatrix_x4_trans(b, Bs + tc::swz<16>(k + (lane & 15), n0 / 8 + (lane >> 4)));
+      tc::ldmatrix_x4(a[i], a_base + ((m0 + 16 * i + (lane & 15)) * kLdA + k + (lane >> 4) * 8) * 2);
+    if constexpr (NJ == 2) {
+      if (kTransB)
+        tc::ldmatrix_x4(b, Bs + tc::swz<kChunks>(n0 + ((lane >> 4) << 3) + (lane & 7), k / 8 + ((lane >> 3) & 1)));
+      else
+        tc::ldmatrix_x4_trans(b, Bs + tc::swz<kChunks>(k + (lane & 15), n0 / 8 + (lane >> 4)));
+    } else {  // one n8 tile: lanes 0-15 give the addresses (the others' are not read)
+      const int l = lane & 15;
+      uint32_t (&b2)[2] = *reinterpret_cast<uint32_t(*)[2]>(b);
+      if (kTransB)
+        tc::ldmatrix_x2(b2, Bs + tc::swz<kChunks>(n0 + (l & 7), k / 8 + (l >> 3)));
+      else
+        tc::ldmatrix_x2_trans(b2, Bs + tc::swz<kChunks>(k + l, n0 / 8));
+    }
 #pragma unroll
     for (int i = 0; i < MI; ++i) {
       tc::mma_bf16(acc[i][0], a[i], b[0], b[1]);
-      tc::mma_bf16(acc[i][1], a[i], b[2], b[3]);
+      if constexpr (NJ == 2) tc::mma_bf16(acc[i][NJ - 1], a[i], b[2], b[3]);
     }
   }
 #pragma unroll
   for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       float* c = C + (16 * i + g) * kLdF + n0 + 8 * j + 2 * t;
       *reinterpret_cast<float2*>(c) = make_float2(acc[i][j][0], acc[i][j][1]);
       *reinterpret_cast<float2*>(c + 8 * kLdF) = make_float2(acc[i][j][2], acc[i][j][3]);
@@ -308,26 +361,26 @@ template <int ROWS, bool kVpuBf16 = false, typename OT>
 __device__ void warp_adaln_mod(const float* y, const float* ybias, const float* mod, int ldmod,
                                int n_valid, const float* g, const float* gb, OT* dst) {
   const int lane = threadIdx.x & 31;
-  float scale[ROWS][4], shift[ROWS][4];
+  float scale[ROWS][kC], shift[ROWS][kC];
 #pragma unroll
   for (int r = 0; r < ROWS; ++r)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kC; ++i) {
       const bool ok = r < n_valid;
       scale[r][i] = ok ? mod[(size_t)r * ldmod + lane + 32 * i] : 0.f;
       shift[r][i] = ok ? mod[(size_t)r * ldmod + D + lane + 32 * i] : 0.f;
     }
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
-    float v[4];
+    float v[kC];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kC; ++i) {
       const int c = lane + 32 * i;
       v[i] = y[r * kLdF + c] + (ybias ? ybias[c] : 0.f);
     }
     const float2 st = ln_stats(v);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kC; ++i) {
       const int c = lane + 32 * i;
       const float h = ((v[i] - st.x) * st.y * g[c] + gb[c]) * (1.f + scale[r][i]) + shift[r][i];
       put(dst + r * kLdOp<OT> + c, kVpuBf16 ? silu_vpu_bf16(h) : silu(h));
@@ -342,11 +395,12 @@ __device__ void warp_adaln_mod(const float* y, const float* ybias, const float* 
 // and B from shared memory as 16-byte vectors, 4 k-steps at a time.
 
 // C (kTileRows x D, row stride kLdF) = A (kTileRows x D float32, row stride
-// kLdF, shared) @ B (D x D float32, row-major, shared), by kThreadsA
+// kLdF, shared) @ B (D x D float32, row-major, shared), by kThreadsA (= D)
 // threads: thread t owns rows t % 8 + 8 i (i < 8) and columns 4 (t / 8) +
-// j, 64 + 4 (t / 8) + j (j < 4).  The 8 lanes of one k-step's A load read
-// 8 rows 4 banks apart (kLdF = 132), so no two share a bank; a warp's B
-// loads are 4 vectors of one row, broadcast.  Pass A's k and v products.
+// j, D / 2 + 4 (t / 8) + j (j < 4).  The 8 lanes of one k-step's A load
+// read 8 rows 4 banks apart (kLdF = D + 4), so no two share a bank; a
+// warp's B loads are 4 vectors of one row, broadcast.  Pass A's k and v
+// products.
 __device__ inline void block_gemm_f32(const float* A, const float* B, float* C) {
   const int rg = threadIdx.x & 7, n0 = 4 * (threadIdx.x >> 3);
   float acc[8][8];
@@ -362,7 +416,7 @@ __device__ inline void block_gemm_f32(const float* A, const float* B, float* C) 
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const float4 b0 = load4(B + (k + kk) * D + n0);
-      const float4 b1 = load4(B + (k + kk) * D + 64 + n0);
+      const float4 b1 = load4(B + (k + kk) * D + D / 2 + n0);
       const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
@@ -376,7 +430,7 @@ __device__ inline void block_gemm_f32(const float* A, const float* B, float* C) 
   for (int i = 0; i < 8; ++i) {
     float* c = C + (rg + 8 * i) * kLdF + n0;
     store4(c, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-    store4(c + 64, make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
+    store4(c + D / 2, make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
   }
 }
 
@@ -394,7 +448,22 @@ constexpr int kSlabRows = 32;
 constexpr int kSlabBytes = kSlabRows * D * 4;
 constexpr int kSlabStages = 3;
 static_assert(kRowsTile == 32 && kThreadsC == 256,
-              "slab_fma: 8 warps of 16 columns, 4 rows a lane");
+              "slab_fma: 8 warps of 16 columns, kC rows a lane");
+// slab_fma's warp grid: kSlabWN warps of 16 columns across D, kSlabWR down
+// the rows (1 at D = 128: each warp all 32 rows), each D / 4 rows, kC a lane.
+constexpr int kSlabWN = D / 16;
+constexpr int kSlabWR = (kThreadsC / 32) / kSlabWN;
+static_assert(kSlabWR * kSlabWN == kThreadsC / 32, "slab_fma's warp grid");
+
+// The thread's first output row and column in slab_fma's grid.
+__device__ __forceinline__ int slab_row0() {
+  const int warp = threadIdx.x >> 5;
+  return (kSlabWR == 1 ? 0 : (warp / kSlabWN) * (D / 4)) + (threadIdx.x & 7);
+}
+__device__ __forceinline__ int slab_col0() {
+  const int warp = threadIdx.x >> 5;
+  return (kSlabWR == 1 ? warp : warp % kSlabWN) * 16 + 4 * ((threadIdx.x & 31) >> 3);
+}
 
 // Start the copy of kSlabRows rows of a row-major float32 matrix (W at its
 // first row) into the slab at `stage`, by all the block's threads; the
@@ -404,25 +473,25 @@ __device__ __forceinline__ void stage_slab(uint32_t stage, const float* W) {
     tc::cp_async16(stage + 16 * i, W + 4 * i);
 }
 
-// acc += A[:, k0 : k0 + kSlabRows] @ S for the thread's 4 x 4 outputs of a
-// (kRowsTile x D) product: A (kRowsTile x D float32, row stride kLdF,
-// shared), S a staged slab (kSlabRows x D).  Warp w owns columns 16 w ..
-// 16 w + 15 (as `tile_gemm_smem`'s warps do), lane l rows l % 8 + 8 i and
-// columns 16 w + 4 (l / 8) + j.
+// acc += A[:, k0 : k0 + kSlabRows] @ S for the thread's kC x 4 outputs of
+// a (kRowsTile x D) product: A (kRowsTile x D float32, row stride kLdF,
+// shared), S a staged slab (kSlabRows x D).  Warp w owns columns 16 (w %
+// kSlabWN) .. + 15 (at D = 128 as `tile_gemm_smem`'s warps do) of rows
+// (w / kSlabWN) D / 4 .. + D / 4 - 1, lane l rows l % 8 + 8 i of those and
+// columns 4 (l / 8) + j of the warp's.
 __device__ __forceinline__ void slab_fma(const float* A, int k0, const float* S,
-                                         float (&acc)[4][4]) {
-  const int lane = threadIdx.x & 31;
-  const int rg = lane & 7, n0 = (threadIdx.x >> 5) * 16 + 4 * (lane >> 3);
+                                         float (&acc)[kC][4]) {
+  const int r0 = slab_row0(), n0 = slab_col0();
 #pragma unroll 2
   for (int k = 0; k < kSlabRows; k += 4) {
-    float4 a[4];
+    float4 a[kC];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = load4(A + (rg + 8 * i) * kLdF + k0 + k);
+    for (int i = 0; i < kC; ++i) a[i] = load4(A + (r0 + 8 * i) * kLdF + k0 + k);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const float4 b = load4(S + (k + kk) * D + n0);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < kC; ++i) {
         const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y : kk == 2 ? a[i].z : a[i].w;
         acc[i][0] = fmaf(av, b.x, acc[i][0]);
         acc[i][1] = fmaf(av, b.y, acc[i][1]);
@@ -434,21 +503,19 @@ __device__ __forceinline__ void slab_fma(const float* A, int k0, const float* S,
 }
 
 // C (kRowsTile x D, row stride kLdF) = the thread's `slab_fma` outputs.
-__device__ __forceinline__ void slab_store(const float (&acc)[4][4], float* C) {
-  const int lane = threadIdx.x & 31;
-  const int rg = lane & 7, n0 = (threadIdx.x >> 5) * 16 + 4 * (lane >> 3);
+__device__ __forceinline__ void slab_store(const float (&acc)[kC][4], float* C) {
+  const int r0 = slab_row0(), n0 = slab_col0();
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    store4(C + (rg + 8 * i) * kLdF + n0, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+  for (int i = 0; i < kC; ++i)
+    store4(C + (r0 + 8 * i) * kLdF + n0, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
 }
 
 // The thread's `slab_fma` outputs read from C (a product that adds to C).
-__device__ __forceinline__ void slab_load(float (&acc)[4][4], const float* C) {
-  const int lane = threadIdx.x & 31;
-  const int rg = lane & 7, n0 = (threadIdx.x >> 5) * 16 + 4 * (lane >> 3);
+__device__ __forceinline__ void slab_load(float (&acc)[kC][4], const float* C) {
+  const int r0 = slab_row0(), n0 = slab_col0();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 v = load4(C + (rg + 8 * i) * kLdF + n0);
+  for (int i = 0; i < kC; ++i) {
+    const float4 v = load4(C + (r0 + 8 * i) * kLdF + n0);
     acc[i][0] = v.x;
     acc[i][1] = v.y;
     acc[i][2] = v.z;
@@ -471,8 +538,6 @@ __device__ __forceinline__ float gelu_tanh_vpu_bf16(float x) {
   return round_bf16(x * cdf);
 }
 
-}  // namespace layer
-
 // The KV pass of one layer (decoder_stack.cu): per-tile partials over the
 // first t_valid rows of x (float32 or, with x_bf16, bf16; rows of stride D,
 // T rows a clip), then the combine into the bf16 block-diagonal KV.  With
@@ -491,3 +556,6 @@ cudaError_t launch_kv_pass_f32(const float* x, const float* mats, const float* v
 // Bytes of the `partials` scratch that the KV pass needs: bf16, with or
 // without KVr, or float32 (f32, with the statistics).
 size_t kv_pass_partials_bytes(int B, int t_valid, int dh, bool with_kvr, bool f32);
+
+}  // namespace LAYER_WIDTH_NS
+}  // namespace layer

@@ -2,9 +2,10 @@
 //
 // Replaces conductor_tpu/ops/pallas_attention.py::fused_linear_attention
 // (`_attention_kernel` :45-76, pallas_call at :99).  Per clip and head h,
-// over the head's Dh = 16 columns of D = 16 * H: q_sm = softmax of q over
-// the head's 16 features, k_sm = softmax of k over time, KV = k_sm^T v
-// (16 x 16), y = q_sm KV; float32 inside, y in q's dtype.  The JAX
+// over the head's Dh columns of D = Dh * H (Dh = 8, 16, 32 or 64, a
+// template parameter; 16 at the flagship's D = 128 with 8 heads): q_sm =
+// softmax of q over the head's Dh features, k_sm = softmax of k over time,
+// KV = k_sm^T v (Dh x Dh), y = q_sm KV; float32 inside, y in q's dtype.  The JAX
 // wrapper's key mask arrives folded into k (-1e6 on masked rows) and v
 // (zeroed), so a masked row gets the weight exp(-1e6 - max) = 0, as there.
 //
@@ -72,27 +73,33 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kDh = 16;                  // head width (ops/attention.py HEAD_DIM)
-constexpr int kThreads = 256;            // thread (p, i) = (tid / 16, tid % 16) in phase 1
-constexpr int kMinBlocks = 4;            // blocks an SM the launch bounds ask for
+constexpr int kThreads = 256;  // thread (p, i) = (tid / Dh, tid % Dh) in phase 1
+// Blocks an SM the launch bounds ask for at head width Dh (ops/attention.py
+// BLOCKS_PER_SM): 4 up to Dh = 16 (64 registers a thread), 2 at 32, 1 at
+// 64, where a thread keeps a Dh-wide row of sums and one of q.
+template <int kDh>
+constexpr int kMinBlocks = kDh <= 16 ? 4 : kDh == 32 ? 2 : 1;
+template <int kDh>
 constexpr int kStrips = kThreads / kDh;  // row strips of a chunk
-constexpr int kChunk = 256;              // k / v rows staged at once
+template <int kDh>
+constexpr int kChunk = 4096 / kDh;       // k / v rows staged at once (256 at Dh = 16)
 
 // Dynamic shared bytes: a chunk's k and v rows (after the last chunk, the
 // strips' partials), then the staged q rows.
-template <typename KT>
+template <int kDh, typename KT>
 __host__ __device__ constexpr int stage_bytes() {
-  return 2 * kChunk * kDh * (int)sizeof(KT) > kStrips * kDh * (2 + kDh) * (int)sizeof(float)
-             ? 2 * kChunk * kDh * (int)sizeof(KT)
-             : kStrips * kDh * (2 + kDh) * (int)sizeof(float);
+  return 2 * kChunk<kDh> * kDh * (int)sizeof(KT) > kStrips<kDh> * kDh * (2 + kDh) * (int)sizeof(float)
+             ? 2 * kChunk<kDh> * kDh * (int)sizeof(KT)
+             : kStrips<kDh> * kDh * (2 + kDh) * (int)sizeof(float);
 }
-template <typename QT, typename KT>
+template <int kDh, typename QT, typename KT>
 __host__ __device__ constexpr int smem_bytes() {
-  return stage_bytes<KT>() + kThreads * kDh * (int)sizeof(QT);
+  return stage_bytes<kDh, KT>() + kThreads * kDh * (int)sizeof(QT);
 }
 
 // A block's partial over its k / v rows: per column its max m and sum s of
-// exp(k - m), and the 16 x 16 sum of exp(k - m)^T v.
+// exp(k - m), and the Dh x Dh sum of exp(k - m)^T v.
+template <int kDh>
 struct Partial {
   float m[kDh];
   float s[kDh];
@@ -109,7 +116,8 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 __device__ __forceinline__ float scalar(const float* p) { return *p; }
 __device__ __forceinline__ float scalar(const bf16* p) { return __bfloat162float(*p); }
 
-// 16 consecutive values (16-byte aligned) as float32, by 16-byte loads
+// Dh consecutive values (16-byte aligned) as float32, by 16-byte loads
+template <int kDh>
 __device__ __forceinline__ void load_row(const float* p, float (&o)[kDh]) {
 #pragma unroll
   for (int i = 0; i < kDh / 4; ++i) {
@@ -120,6 +128,7 @@ __device__ __forceinline__ void load_row(const float* p, float (&o)[kDh]) {
     o[4 * i + 3] = f.w;
   }
 }
+template <int kDh>
 __device__ __forceinline__ void load_row(const bf16* p, float (&o)[kDh]) {
 #pragma unroll
   for (int i = 0; i < kDh / 8; ++i) {
@@ -134,12 +143,14 @@ __device__ __forceinline__ void load_row(const bf16* p, float (&o)[kDh]) {
   }
 }
 
-// 16 values to 16 consecutive outputs (16-byte aligned), by 16-byte stores
+// Dh values to Dh consecutive outputs (16-byte aligned), by 16-byte stores
+template <int kDh>
 __device__ __forceinline__ void store_row(float* p, const float (&y)[kDh]) {
 #pragma unroll
   for (int i = 0; i < kDh / 4; ++i)
     reinterpret_cast<float4*>(p)[i] = make_float4(y[4 * i], y[4 * i + 1], y[4 * i + 2], y[4 * i + 3]);
 }
+template <int kDh>
 __device__ __forceinline__ void store_row(bf16* p, const float (&y)[kDh]) {
 #pragma unroll
   for (int i = 0; i < kDh / 8; ++i) {
@@ -154,7 +165,8 @@ __device__ __forceinline__ void store_row(bf16* p, const float (&y)[kDh]) {
 }
 
 // A KV row from shared memory, by 16-byte loads the compiler may not hoist:
-// the row loop would otherwise keep all 256 KV values live and spill.
+// the row loop would otherwise keep all Dh^2 KV values live and spill.
+template <int kDh>
 __device__ __forceinline__ void kv_row(const float* p, float (&o)[kDh]) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
 #pragma unroll
@@ -172,17 +184,19 @@ __device__ __forceinline__ float weight(float m, float M) {
 
 // q (B, Tq, D), k and v (B, Tk, D), out like q; grid (S, H, B) in
 // clusters of (S, 1, 1).
-template <typename QT, typename KT, int S>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+template <int kDh, typename QT, typename KT, int S>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<kDh>)
 attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k, const KT* __restrict__ v,
                  QT* __restrict__ out, int Tq, int Tk, int H) {
+  constexpr int kStrips = ::kStrips<kDh>;
+  constexpr int kChunk = ::kChunk<kDh>;
   constexpr int kVec = 16 / sizeof(KT);   // values a 16-byte piece
   constexpr int kPieces = kDh / kVec;     // pieces a row of the head
   constexpr int kQVec = 16 / sizeof(QT);  // and of q
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* stage = smem;  // the chunk's k and v rows, then the strips' partials
-  QT* q_s = reinterpret_cast<QT*>(smem + stage_bytes<KT>());  // [kThreads][kDh]
-  __shared__ Partial part;  // this block's, read by the whole cluster
+  QT* q_s = reinterpret_cast<QT*>(smem + stage_bytes<kDh, KT>());  // [kThreads][kDh]
+  __shared__ Partial<kDh> part;  // this block's, read by the whole cluster
   __shared__ __align__(16) float kv_s[kDh * kDh];
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -274,7 +288,7 @@ attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k, const KT* _
     float mr[S], sr[S], ar[S];
 #pragma unroll
     for (int r = 0; r < S; ++r) {
-      const Partial* peer = cluster.map_shared_rank(&part, r);
+      const Partial<kDh>* peer = cluster.map_shared_rank(&part, r);
       mr[r] = peer->m[ci];
       sr[r] = peer->s[ci];
       ar[r] = peer->kv[e];
@@ -326,11 +340,11 @@ attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k, const KT* _
   cluster.sync();  // the peers are done reading this block's partial
 }
 
-template <typename QT, typename KT, int S>
+template <int kDh, typename QT, typename KT, int S>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int Tq, int Tk, int H,
            cudaStream_t s) {
-  auto kernel = attention_kernel<QT, KT, S>;
-  constexpr int smem = smem_bytes<QT, KT>();
+  auto kernel = attention_kernel<kDh, QT, KT, S>;
+  constexpr int smem = smem_bytes<kDh, QT, KT>();
   static bool attribute_set = false;  // once per instantiation
   if (!attribute_set) {
     const cudaError_t err =
@@ -356,29 +370,68 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Tq
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-template <int S>
+template <int kDh, int S>
 int launch_dtypes(const void* q, const void* k, const void* v, void* out, int B, int Tq, int Tk,
                   int H, int q_bf16, int kv_bf16, cudaStream_t s) {
   if (q_bf16)
-    return kv_bf16 ? launch<bf16, bf16, S>(q, k, v, out, B, Tq, Tk, H, s)
-                   : launch<bf16, float, S>(q, k, v, out, B, Tq, Tk, H, s);
-  return kv_bf16 ? launch<float, bf16, S>(q, k, v, out, B, Tq, Tk, H, s)
-                 : launch<float, float, S>(q, k, v, out, B, Tq, Tk, H, s);
+    return kv_bf16 ? launch<kDh, bf16, bf16, S>(q, k, v, out, B, Tq, Tk, H, s)
+                   : launch<kDh, bf16, float, S>(q, k, v, out, B, Tq, Tk, H, s);
+  return kv_bf16 ? launch<kDh, float, bf16, S>(q, k, v, out, B, Tq, Tk, H, s)
+                 : launch<kDh, float, float, S>(q, k, v, out, B, Tq, Tk, H, s);
+}
+
+template <int kDh>
+int launch_cluster(const void* q, const void* k, const void* v, void* out, int B, int Tq, int Tk,
+                   int H, int cluster, int q_bf16, int kv_bf16, cudaStream_t s) {
+  switch (cluster) {
+    case 2: return launch_dtypes<kDh, 2>(q, k, v, out, B, Tq, Tk, H, q_bf16, kv_bf16, s);
+    case 8: return launch_dtypes<kDh, 8>(q, k, v, out, B, Tq, Tk, H, q_bf16, kv_bf16, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// {threads, dynamic shared bytes, static shared bytes, k / v rows a chunk,
+// blocks an SM the launch bounds ask for} at head width Dh.
+template <int kDh>
+void plan_dh(int q_bf16, int kv_bf16, int* out) {
+  out[0] = kThreads;
+  out[1] = q_bf16 ? (kv_bf16 ? smem_bytes<kDh, bf16, bf16>() : smem_bytes<kDh, bf16, float>())
+                  : (kv_bf16 ? smem_bytes<kDh, float, bf16>() : smem_bytes<kDh, float, float>());
+  out[2] = (int)(sizeof(Partial<kDh>) + kDh * kDh * sizeof(float));
+  out[3] = kChunk<kDh>;
+  out[4] = kMinBlocks<kDh>;
 }
 
 }  // namespace
 
-// q (B, Tq, 16 H), k and v (B, Tk, 16 H), row-major, each 16-byte aligned;
-// out like q; `cluster` blocks a (clip, head), 2 or 8.  One launch.
+// The launch's shape at head width dh for its operand types: {threads,
+// dynamic shared bytes, static shared bytes, k / v rows a chunk, blocks an
+// SM}; -1 for a head width the kernel does not take (ops/attention.py
+// `plan` computes the same).
+CT_EXPORT int linear_attention_plan(int dh, int q_bf16, int kv_bf16, int* out) {
+  switch (dh) {
+    case 8: plan_dh<8>(q_bf16, kv_bf16, out); return 0;
+    case 16: plan_dh<16>(q_bf16, kv_bf16, out); return 0;
+    case 32: plan_dh<32>(q_bf16, kv_bf16, out); return 0;
+    case 64: plan_dh<64>(q_bf16, kv_bf16, out); return 0;
+    default: return -1;
+  }
+}
+
+// q (B, Tq, dh H), k and v (B, Tk, dh H), row-major, each 16-byte aligned;
+// out like q; dh 8, 16, 32 or 64; `cluster` blocks a (clip, head), 2 or 8.
+// One launch.
 CT_EXPORT int linear_attention_forward(const void* q, const void* k, const void* v, void* out,
-                                       int B, int Tq, int Tk, int H, int cluster, int q_bf16,
-                                       int kv_bf16, void* stream) {
+                                       int B, int Tq, int Tk, int H, int dh, int cluster,
+                                       int q_bf16, int kv_bf16, void* stream) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (cluster) {
-    case 2: return launch_dtypes<2>(q, k, v, out, B, Tq, Tk, H, q_bf16, kv_bf16, s);
-    case 8: return launch_dtypes<8>(q, k, v, out, B, Tq, Tk, H, q_bf16, kv_bf16, s);
+  switch (dh) {
+    case 8: return launch_cluster<8>(q, k, v, out, B, Tq, Tk, H, cluster, q_bf16, kv_bf16, s);
+    case 16: return launch_cluster<16>(q, k, v, out, B, Tq, Tk, H, cluster, q_bf16, kv_bf16, s);
+    case 32: return launch_cluster<32>(q, k, v, out, B, Tq, Tk, H, cluster, q_bf16, kv_bf16, s);
+    case 64: return launch_cluster<64>(q, k, v, out, B, Tq, Tk, H, cluster, q_bf16, kv_bf16, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

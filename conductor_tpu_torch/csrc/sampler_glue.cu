@@ -61,6 +61,13 @@
 // of its time (scripts/k2_variants.py), on the shared loads as much as on
 // the FMAs: a lane cannot hold more of W_out than one column.
 //
+// Widths: h's width D (W in the kernels, a template parameter) is 32, 64
+// or 128, the model widths of K1 (ops/_build.py WIDTHS).  K2's lane owns W
+// / 32 columns of h (4 at D = 128, one 16-byte store; 2 or 1 below, 8- or
+// 4-byte copies and stores), and copies exactly its own columns of the
+// sequence bias; emb_act's E = 4D is 128-512, 1-4 pieces a lane.  K3's lane
+// keeps W values of its W_out column.
+//
 // Both: fixed summation orders, no atomics (a repeat gives the same bits),
 // 32-bit index math but for a row's offset, any B and T.  Every output is
 // one chain in ascending order with the per-element formulas above, so its
@@ -75,7 +82,7 @@
 
 namespace {
 
-constexpr int kWidth = 128;          // D: h's width, 4 columns a lane (K2), 32 float4s a row
+constexpr int kMaxWidth = 128;       // the widest h (D) the kernels are built for
 constexpr int kProWarps = 8;         // K2: warps a block
 constexpr int kProBlocksPerSm = 3;   // K2's launch bounds (ops/sampler_glue.py PRO_BLOCKS_PER_SM)
 constexpr int kProStages = 2;        // K2: a warp's ring of row slots
@@ -103,6 +110,38 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                "l"(src)
                : "memory");
 }
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+// N (1, 2 or 4) consecutive floats, N-aligned, by one copy.
+template <int N>
+__device__ __forceinline__ void cp_async_n(float* dst, const float* src) {
+  if constexpr (N == 4) cp_async16(dst, src);
+  else if constexpr (N == 2) cp_async8(dst, src);
+  else cp_async4(dst, src);
+}
+// N (1, 2 or 4) consecutive floats, N-aligned, by one load or store.
+template <int N>
+__device__ __forceinline__ void load_n(const float* p, float (&v)[N]) {
+  if constexpr (N == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+  } else if constexpr (N == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    v[0] = f.x, v[1] = f.y;
+  } else {
+    v[0] = *p;
+  }
+}
+template <int N>
+__device__ __forceinline__ void store_n(float* p, const float (&v)[N]) {
+  if constexpr (N == 4) *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else if constexpr (N == 2) *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  else *p = v[0];
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -125,20 +164,22 @@ __device__ __forceinline__ uint32_t code(float a, float s) {  // half to even, a
   return static_cast<uint8_t>(static_cast<signed char>(__float2int_rn(__fdiv_rn(a, s))));
 }
 
-// Shared memory (floats): W_joint (C, D), then each warp's ring of
-// kProStages slots of E + kPoseSlot + D floats (emb_base's row, the pose's
-// and seq_bias[t]).
+// Shared memory (floats): W_joint (C, W), then each warp's ring of
+// kProStages slots of E + kPoseSlot + W floats (emb_base's row, the pose's
+// and seq_bias[t]).  Lane l owns h's columns kCols l .. kCols l + kCols - 1.
+template <int W>
 __global__ void __launch_bounds__(kProWarps * 32, kProBlocksPerSm)
 prologue_rows(const float* __restrict__ x, const float* __restrict__ temb,
               const float* __restrict__ emb_base, const float* __restrict__ w_joint,
               const float* __restrict__ seq_bias, float* __restrict__ h,
               void* __restrict__ emb_out, float* __restrict__ emb_scale, int n_rows, int T,
               int C, int E, int rows_per_block, int rnd, int emb_f32) {
+  constexpr int kCols = W / 32;  // h's columns a lane
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int ev = E >> 7;  // 16-byte pieces of emb_base a lane
-  const int slot = E + kPoseSlot + kWidth;
-  float* ring = smem + C * kWidth + warp * kProStages * slot;
+  const int slot = E + kPoseSlot + W;
+  float* ring = smem + C * W + warp * kProStages * slot;
   const int lo = blockIdx.x * rows_per_block, hi = min(n_rows, lo + rows_per_block);
 
   // the row's emb_base, pose and sequence bias into ring slot `stage`; an
@@ -151,13 +192,14 @@ prologue_rows(const float* __restrict__ x, const float* __restrict__ temb,
       for (int j = 0; j < kMaxEv; ++j)
         if (j < ev) cp_async16(dst + 4 * (j * 32 + lane), src + 4 * (j * 32 + lane));
       if (lane < C) cp_async4(dst + E + lane, x + (size_t)row * C + lane);
-      cp_async16(dst + E + kPoseSlot + 4 * lane, seq_bias + (size_t)(row % T) * kWidth + 4 * lane);
+      cp_async_n<kCols>(dst + E + kPoseSlot + kCols * lane,
+                        seq_bias + (size_t)(row % T) * W + kCols * lane);
     }
     cp_async_commit();
   };
 
   // W_joint: a group of its own, ahead of the ring's first rows
-  for (int i = threadIdx.x; i < C * kWidth / 4; i += blockDim.x)
+  for (int i = threadIdx.x; i < C * W / 4; i += blockDim.x)
     cp_async16(smem + 4 * i, w_joint + 4 * i);
   cp_async_commit();
   int row = lo + warp;
@@ -169,31 +211,32 @@ prologue_rows(const float* __restrict__ x, const float* __restrict__ temb,
     if (j < ev) tv[j] = __ldg(reinterpret_cast<const float4*>(temb) + j * 32 + lane);
   cp_async_wait<kProStages - 1>();  // the W_joint pieces this thread copied
   if (rnd)  // rounded to bf16 once, each thread its own pieces
-    for (int i = threadIdx.x; i < C * kWidth / 4; i += blockDim.x)
+    for (int i = threadIdx.x; i < C * W / 4; i += blockDim.x)
       reinterpret_cast<float4*>(smem)[i] = round4(reinterpret_cast<float4*>(smem)[i]);
   __syncthreads();  // W_joint staged
 
-  const float4* ws = reinterpret_cast<const float4*>(smem);
+  const float* ws = smem;
   for (int k = 0; row < hi; ++k, row += kProWarps) {
     issue(row + (kProStages - 1) * kProWarps, (k + kProStages - 1) % kProStages);
     cp_async_wait<kProStages - 1>();  // this row's copies (the lane's own) have landed
     const float* st = ring + (k % kProStages) * slot;
 
     // h = x @ W_joint + seq_bias[t]
-    const float4 sb = reinterpret_cast<const float4*>(st + E + kPoseSlot)[lane];
+    float sb[kCols];
+    load_n<kCols>(st + E + kPoseSlot + kCols * lane, sb);
     float xv = lane < C ? st[E + lane] : 0.f;
     if (rnd) xv = round_bf16(xv);
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    float acc[kCols] = {};
     for (int c = 0; c < C; ++c) {
       const float xc = __shfl_sync(kFull, xv, c);
-      const float4 w = ws[c * (kWidth / 4) + lane];
-      acc.x = fmaf(xc, w.x, acc.x);
-      acc.y = fmaf(xc, w.y, acc.y);
-      acc.z = fmaf(xc, w.z, acc.z);
-      acc.w = fmaf(xc, w.w, acc.w);
+      float w[kCols];
+      load_n<kCols>(ws + c * W + kCols * lane, w);
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) acc[j] = fmaf(xc, w[j], acc[j]);
     }
-    reinterpret_cast<float4*>(h)[(size_t)row * (kWidth / 4) + lane] =
-        make_float4(acc.x + sb.x, acc.y + sb.y, acc.z + sb.z, acc.w + sb.w);
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[j] += sb[j];
+    store_n<kCols>(h + (size_t)row * W + kCols * lane, acc);
 
     // emb_act = silu(temb + emb_base)
     float4 v[kMaxEv];
@@ -253,19 +296,19 @@ prologue_rows(const float* __restrict__ x, const float* __restrict__ temb,
   cp_async_wait<0>();
 }
 
-// Shared memory (floats): W_out (D, C) as it lies in device memory, then
-// each warp's ring of kEpiStages groups of kEpiGroup h rows (D each).
-template <int C>
+// Shared memory (floats): W_out (W, C) as it lies in device memory, then
+// each warp's ring of kEpiStages groups of kEpiGroup h rows (W each).
+template <int W, int C>
 __global__ void __launch_bounds__(kEpiWarps * 32, kEpiBlocksPerSm)
 epilogue_tiles(const float* __restrict__ h, const float* __restrict__ x_t,
                const float* __restrict__ w_out, const float* __restrict__ b_out,
                float* __restrict__ out, float alpha, float beta, int n_rows, int warp_rows,
                int rnd) {
-  static_assert(kWidth * C % 4 == 0 && C <= 32, "K3 shape");
-  constexpr int kSlot = kEpiGroup * kWidth;  // floats a ring slot
+  static_assert(W * C % 4 == 0 && C <= 32, "K3 shape");
+  constexpr int kSlot = kEpiGroup * W;  // floats a ring slot
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* ring = smem + kWidth * C + warp * kEpiStages * kSlot;
+  float* ring = smem + W * C + warp * kEpiStages * kSlot;
   const int lo = (blockIdx.x * kEpiWarps + warp) * warp_rows;  // the warp's rows [lo, hi)
   const int hi = min(n_rows, lo + warp_rows);
 
@@ -273,13 +316,13 @@ epilogue_tiles(const float* __restrict__ h, const float* __restrict__ x_t,
   // rows); lane l copies the 16-byte pieces l, l + 32, ...
   auto issue = [&](int k) {
     const int r0 = lo + k * kEpiGroup, nr = min(kEpiGroup, hi - r0);
-    const float* src = h + (size_t)r0 * kWidth;
-    for (int i = lane; i < nr * (kWidth / 4); i += 32)
+    const float* src = h + (size_t)r0 * W;
+    for (int i = lane; i < nr * (W / 4); i += 32)
       cp_async16(ring + (k % kEpiStages) * kSlot + 4 * i, src + 4 * i);
     cp_async_commit();
   };
 
-  for (int i = threadIdx.x; i < kWidth * C / 4; i += blockDim.x)
+  for (int i = threadIdx.x; i < W * C / 4; i += blockDim.x)
     cp_async16(smem + 4 * i, w_out + 4 * i);
   cp_async_commit();
 #pragma unroll
@@ -288,9 +331,9 @@ epilogue_tiles(const float* __restrict__ h, const float* __restrict__ x_t,
   __syncthreads();  // W_out staged
   // lane c keeps column c of W_out (rounded once where rnd), and b_out[c]
   const int c = lane < C ? lane : C - 1;
-  float w[kWidth];
+  float w[W];
 #pragma unroll
-  for (int d = 0; d < kWidth; ++d) w[d] = rnd ? round_bf16(smem[d * C + c]) : smem[d * C + c];
+  for (int d = 0; d < W; ++d) w[d] = rnd ? round_bf16(smem[d * C + c]) : smem[d * C + c];
   const float bias = __ldg(b_out + c);
 
   const int groups = (hi - lo + kEpiGroup - 1) / kEpiGroup;
@@ -305,17 +348,17 @@ epilogue_tiles(const float* __restrict__ h, const float* __restrict__ x_t,
     cp_async_wait<kEpiStages - 1>();  // this group's pieces, the lane's own
     float* st = ring + (k % kEpiStages) * kSlot;
     if (rnd)
-      for (int i = lane; i < nr * (kWidth / 4); i += 32)
+      for (int i = lane; i < nr * (W / 4); i += 32)
         reinterpret_cast<float4*>(st)[i] = round4(reinterpret_cast<float4*>(st)[i]);
     __syncwarp();  // every lane's pieces landed and rounded
 
-    // each row's 128-deep chain, ascending d; the rows' h read by every lane
+    // each row's W-deep chain, ascending d; the rows' h read by every lane
     float acc[kEpiGroup] = {};
 #pragma unroll
-    for (int d4 = 0; d4 < kWidth / 4; ++d4) {
+    for (int d4 = 0; d4 < W / 4; ++d4) {
 #pragma unroll
       for (int j = 0; j < kEpiGroup; ++j) {
-        const float4 hv = reinterpret_cast<const float4*>(st + j * kWidth)[d4];
+        const float4 hv = reinterpret_cast<const float4*>(st + j * W)[d4];
         acc[j] = fmaf(hv.x, w[4 * d4], acc[j]);
         acc[j] = fmaf(hv.y, w[4 * d4 + 1], acc[j]);
         acc[j] = fmaf(hv.z, w[4 * d4 + 2], acc[j]);
@@ -332,8 +375,8 @@ epilogue_tiles(const float* __restrict__ h, const float* __restrict__ x_t,
 }
 
 // The tiling a launch picks: {rows a block, blocks, threads, ring stages,
-// shared bytes}.  which: 0 = K2, 1 = K3.
-void plan_of(int n_rows, int C, int E, int which, int sms, int* out) {
+// shared bytes}.  which: 0 = K2, 1 = K3; W: h's width.
+void plan_of(int n_rows, int C, int W, int E, int which, int sms, int* out) {
   if (which == 0) {
     const int blocks = std::min(ceil_div(n_rows, kProWarps), sms * kProBlocksPerSm);
     const int rows = ceil_div(n_rows, blocks);
@@ -341,7 +384,7 @@ void plan_of(int n_rows, int C, int E, int which, int sms, int* out) {
     out[1] = ceil_div(n_rows, rows);
     out[2] = kProWarps * 32;
     out[3] = kProStages;
-    out[4] = (C * kWidth + kProWarps * kProStages * (E + kPoseSlot + kWidth)) * (int)sizeof(float);
+    out[4] = (C * W + kProWarps * kProStages * (E + kPoseSlot + W)) * (int)sizeof(float);
   } else {
     // rows a warp: groups enough to give each of the SMs' warp slots one
     // share of the rows, up to kEpiMaxGroups
@@ -351,16 +394,49 @@ void plan_of(int n_rows, int C, int E, int which, int sms, int* out) {
     out[1] = ceil_div(n_rows, out[0]);
     out[2] = kEpiWarps * 32;
     out[3] = kEpiStages;
-    out[4] = (kWidth * C + kEpiWarps * kEpiStages * kEpiGroup * kWidth) * (int)sizeof(float);
+    out[4] = (W * C + kEpiWarps * kEpiStages * kEpiGroup * W) * (int)sizeof(float);
   }
+}
+
+bool width_ok(int D) { return D == 32 || D == 64 || D == kMaxWidth; }
+
+template <int W>
+cudaError_t prologue(const void* x, const void* temb, const void* emb_base, const void* w_joint,
+                     const void* seq_bias, void* h, void* emb_act, void* emb_scale, int B, int T,
+                     int C, int E, int rnd, int emb_f32, cudaStream_t s) {
+  int p[5];
+  plan_of(B * T, C, W, E, 0, sm_count(), p);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      prologue_rows<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (kPoseSlot * W + kProWarps * kProStages * (128 * kMaxEv + kPoseSlot + W)) *
+          (int)sizeof(float));
+  if (attr != cudaSuccess) return attr;
+  prologue_rows<W><<<p[1], p[2], p[4], s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(temb),
+      static_cast<const float*>(emb_base), static_cast<const float*>(w_joint),
+      static_cast<const float*>(seq_bias), static_cast<float*>(h), emb_act,
+      static_cast<float*>(emb_scale), B * T, T, C, E, p[0], rnd, emb_f32);
+  return cudaGetLastError();
+}
+
+template <int W>
+cudaError_t epilogue(const void* h, const void* x_t, const void* w_out, const void* b_out,
+                     void* out, float alpha, float beta, int B, int T, int rnd, cudaStream_t s) {
+  int p[5];
+  plan_of(B * T, kPose, W, 0, 1, sm_count(), p);
+  epilogue_tiles<W, kPose><<<p[1], p[2], p[4], s>>>(
+      static_cast<const float*>(h), static_cast<const float*>(x_t),
+      static_cast<const float*>(w_out), static_cast<const float*>(b_out),
+      static_cast<float*>(out), alpha, beta, B * T, p[0] / kEpiWarps, rnd);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // {rows a block, blocks, threads, ring stages, shared bytes} of K2 (which 0)
-// or K3 (which 1) for B x T rows on the current card.
-CT_EXPORT int sampler_plan(int B, int T, int C, int E, int which, int* out) {
-  plan_of(B * T, C, E, which, sm_count(), out);
+// or K3 (which 1) for B x T rows of width D on the current card.
+CT_EXPORT int sampler_plan(int B, int T, int C, int D, int E, int which, int* out) {
+  plan_of(B * T, C, D, E, which, sm_count(), out);
   return 0;
 }
 
@@ -370,33 +446,23 @@ CT_EXPORT int sampler_prologue_forward(const void* x, const void* temb, const vo
                                        const void* w_joint, const void* seq_bias, void* h,
                                        void* emb_act, void* emb_scale, int B, int T, int C,
                                        int D, int E, int rnd, int emb_f32, void* stream) {
-  if (D != kWidth || C < 1 || C > kPoseSlot || E < 128 || E > 128 * kMaxEv || E % 128 ||
+  if (!width_ok(D) || C < 1 || C > kPoseSlot || E < 128 || E > 128 * kMaxEv || E % 128 ||
       B * T < 1 || (emb_f32 && emb_scale != nullptr))
     return (int)cudaErrorInvalidValue;
-  int p[5];
-  plan_of(B * T, C, E, 0, sm_count(), p);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      prologue_rows, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (kPoseSlot * kWidth + kProWarps * kProStages * (128 * kMaxEv + kPoseSlot + kWidth)) *
-          (int)sizeof(float));
-  if (attr != cudaSuccess) return (int)attr;
-  prologue_rows<<<p[1], p[2], p[4], static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(temb),
-      static_cast<const float*>(emb_base), static_cast<const float*>(w_joint),
-      static_cast<const float*>(seq_bias), static_cast<float*>(h), emb_act,
-      static_cast<float*>(emb_scale), B * T, T, C, E, p[0], rnd, emb_f32);
-  return (int)cudaGetLastError();
+  auto run = [&](auto launch) {
+    return (int)launch(x, temb, emb_base, w_joint, seq_bias, h, emb_act, emb_scale, B, T, C, E,
+                       rnd, emb_f32, static_cast<cudaStream_t>(stream));
+  };
+  return D == 32 ? run(prologue<32>) : D == 64 ? run(prologue<64>) : run(prologue<128>);
 }
 
 CT_EXPORT int sampler_epilogue_forward(const void* h, const void* x_t, const void* w_out,
                                        const void* b_out, void* out, float alpha, float beta,
                                        int B, int T, int D, int C, int rnd, void* stream) {
-  if (D != kWidth || C != kPose || B * T < 1) return (int)cudaErrorInvalidValue;
-  int p[5];
-  plan_of(B * T, C, 0, 1, sm_count(), p);
-  epilogue_tiles<kPose><<<p[1], p[2], p[4], static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(h), static_cast<const float*>(x_t),
-      static_cast<const float*>(w_out), static_cast<const float*>(b_out),
-      static_cast<float*>(out), alpha, beta, B * T, p[0] / kEpiWarps, rnd);
-  return (int)cudaGetLastError();
+  if (!width_ok(D) || C != kPose || B * T < 1) return (int)cudaErrorInvalidValue;
+  auto run = [&](auto launch) {
+    return (int)launch(h, x_t, w_out, b_out, out, alpha, beta, B, T, rnd,
+                       static_cast<cudaStream_t>(stream));
+  };
+  return D == 32 ? run(epilogue<32>) : D == 64 ? run(epilogue<64>) : run(epilogue<128>);
 }

@@ -36,6 +36,17 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t add
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
 }
+// Two 8x8 b16 matrices; lanes 8j .. 8j + 7 (j < 2) give the row addresses.
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
 
 // c (16 x 8, float32) += a (16 x 16) . b (16 x 8), bf16 operands
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -60,10 +71,12 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint
 // Byte offset of 16-byte chunk c of row r in a tile of CH chunks a row (CH a
 // multiple of 8): the low three bits of the chunk are XORed with the row's,
 // so the 8 rows that one 8x8 ldmatrix reads at one chunk fall on 8
-// distinct bank groups.
+// distinct bank groups.  Rows of 4 chunks (64 bytes, two rows a 128-byte
+// line) XOR the chunk with bits 1-2 of the row instead, to the same end.
 template <int CH>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
-  static_assert(CH % 8 == 0, "rows of whole 128-byte lines");
+  static_assert(CH % 8 == 0 || CH == 4, "rows of whole 128-byte lines, or of half lines");
+  if constexpr (CH == 4) return (uint32_t)(r * 4 + (c ^ ((r >> 1) & 3))) * 16u;
   return (uint32_t)(r * CH + (c ^ (r & 7))) * 16u;
 }
 

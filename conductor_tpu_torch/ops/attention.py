@@ -26,6 +26,8 @@ a float32 mask, bf16 k and v become float32, as in JAX), then calls a
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
@@ -43,19 +45,54 @@ def linear_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bnhd,bhdl->bnhl", qs, kv).reshape(b, tq, d).to(q.dtype)
 
 
-HEAD_DIM = 16         # the kernel's head width: D = 128 with 8 heads
+HEAD_DIM = 16         # the flagship's head width: D = 128 with 8 heads
+HEAD_DIMS = (8, 16, 32, 64)  # the head widths the kernel is built for (its template kDh)
 CLUSTERS = (8, 2)     # the kernel's cluster sizes, blocks a (clip, head)
-BLOCKS_PER_SM = 4     # resident blocks an SM its launch bounds ask for (kMinBlocks)
+# resident blocks an SM its launch bounds ask for at each head width
+# (kMinBlocks): a thread keeps a row of Dh sums, and at 32 and 64 more
+# registers than 4 blocks leave; BLOCKS_PER_SM at the flagship's
+HEAD_BLOCKS_PER_SM = {8: 4, 16: 4, 32: 2, 64: 1}
+BLOCKS_PER_SM = HEAD_BLOCKS_PER_SM[HEAD_DIM]
+THREADS = 256         # threads a block (kThreads)
 H100_SMS = _build.H100_SMS
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
-def cluster_size(batch: int, num_heads: int, sms: int = H100_SMS) -> int:
+def cluster_size(batch: int, num_heads: int, sms: int = H100_SMS,
+                 head_dim: int = HEAD_DIM) -> int:
     """The blocks a cluster gives each (clip, head): the most of `CLUSTERS`
-    that keeps the grid within one wave of resident blocks, else the least
-    (8 at plain-layer serving's B = 2, 2 at the reference-mask step's B = 32)."""
-    slots = sms * BLOCKS_PER_SM
+    that keeps the grid within one wave of resident blocks at
+    ``head_dim``'s `HEAD_BLOCKS_PER_SM`, else the least (8 at plain-layer
+    serving's B = 2, 2 at the reference-mask step's B = 32)."""
+    slots = sms * HEAD_BLOCKS_PER_SM[head_dim]
     return next((s for s in CLUSTERS if batch * num_heads * s <= slots), CLUSTERS[-1])
+
+
+def plan(head_dim: int, q_dtype: torch.dtype, kv_dtype: torch.dtype) -> dict[str, int]:
+    """The launch's shape at ``head_dim`` for q and k / v of these dtypes,
+    as `csrc/linear_attention.cu` builds it (its `linear_attention_plan`
+    export gives the same): `THREADS` threads; dynamic shared bytes for a
+    chunk of k and v rows (``chunk`` = 4096 / Dh rows; after the last one,
+    the strips' partials) and the first `THREADS` q rows; static shared
+    bytes for the block's partial (m, s and the Dh x Dh sums) and KV; the
+    blocks an SM its launch bounds ask for.  The grid is (cluster, H, B)."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"linear_attention: the kernel takes head widths {HEAD_DIMS}, "
+                         f"got {head_dim}")
+    chunk, strips = 4096 // head_dim, THREADS // head_dim
+    stage = max(2 * chunk * head_dim * kv_dtype.itemsize, strips * head_dim * (2 + head_dim) * 4)
+    return {"threads": THREADS, "smem": stage + THREADS * head_dim * q_dtype.itemsize,
+            "static_smem": (2 * head_dim + 2 * head_dim * head_dim) * 4, "chunk": chunk,
+            "blocks_per_sm": HEAD_BLOCKS_PER_SM[head_dim]}
+
+
+def kernel_plan(head_dim: int, q_dtype: torch.dtype, kv_dtype: torch.dtype) -> dict[str, int]:
+    """`plan` as the built kernel reports it (`linear_attention_plan`)."""
+    out = (ctypes.c_int * 5)()
+    _build.check(_build.library().linear_attention_plan(
+        head_dim, int(q_dtype == torch.bfloat16), int(kv_dtype == torch.bfloat16), out),
+        "linear_attention_plan")
+    return dict(zip(plan(head_dim, q_dtype, kv_dtype), out))
 
 
 def rank_rows(t: int, ranks: int) -> list[tuple[int, int]]:
@@ -71,24 +108,26 @@ def linear_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """`linear_attention_plain`'s function; on a CUDA tensor the kernel,
     one launch, which takes contiguous, 16-byte aligned q (B, Tq, D) and
     k, v (B, Tk, D), each bf16 or float32 (k and v of one dtype), with
-    D / num_heads = 16, and raises on anything else."""
+    D / num_heads in `HEAD_DIMS`, and raises on anything else."""
     if not q.is_cuda:
         return linear_attention_plain(q, k, v, num_heads)
     b, tq, d = q.shape
     tk = k.shape[1]
+    dh = d // num_heads
     if (q.dtype not in _DTYPES or k.dtype not in _DTYPES or v.dtype != k.dtype
-            or d != num_heads * HEAD_DIM):
+            or d != num_heads * dh or dh not in HEAD_DIMS):
         raise ValueError(f"linear_attention: the kernel takes bf16 or float32 q and k = v dtypes "
-                         f"and D = {HEAD_DIM} * num_heads; got q {q.dtype}, k {k.dtype}, "
-                         f"v {v.dtype}, D {d}, {num_heads} heads")
+                         f"and D = Dh * num_heads with Dh in {HEAD_DIMS}; got q {q.dtype}, "
+                         f"k {k.dtype}, v {v.dtype}, D {d}, {num_heads} heads")
     _build.require(q, "q", q.dtype, (b, tq, d))
     _build.require(k, "k", k.dtype, (b, tk, d))
     _build.require(v, "v", k.dtype, (b, tk, d))
     _build.require_aligned(q=q, k=k, v=v)
     out = torch.empty_like(q)
     err = _build.library().linear_attention_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, tq, tk, num_heads,
-        cluster_size(b, num_heads, _build.sm_count(q.device.index)), int(q.dtype == torch.bfloat16),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, tq, tk, num_heads, dh,
+        cluster_size(b, num_heads, _build.sm_count(q.device.index), dh),
+        int(q.dtype == torch.bfloat16),
         int(k.dtype == torch.bfloat16), _build.stream())
     _build.check(err, "linear_attention_forward")
     linear_attention_kernel.launches += 1

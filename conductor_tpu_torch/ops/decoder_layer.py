@@ -29,7 +29,13 @@ import ctypes
 import torch
 
 from . import _build
-from .decoder_stack import ROWS_PER_TILE, _count_gemm, decoder_stack_plain
+from .decoder_stack import (
+    ROWS_PER_TILE,
+    WIDTHS,
+    _count_gemm,
+    decoder_stack_plain,
+    layer_widths_ok,
+)
 
 
 def decoder_layer_plain(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_heads, *,
@@ -45,12 +51,13 @@ def _check_kernel_args(x, emb_act, num_heads, mxu_dtype):
     b, t, d = x.shape
     e = emb_act.shape[-1]
     dh = d // num_heads
-    if (mxu_dtype not in (torch.bfloat16, torch.float32) or x.dtype != mxu_dtype or d != 128
-            or e % 64 or 32 % dh or dh * num_heads != d or t % ROWS_PER_TILE):
+    if (mxu_dtype not in (torch.bfloat16, torch.float32) or x.dtype != mxu_dtype
+            or not layer_widths_ok(d, num_heads) or e % 64 or t % ROWS_PER_TILE):
         raise ValueError(
-            f"the decoder-layer kernels take x and operands in one of bf16 and float32, D = "
-            f"128, E % 64 == 0, a head width dividing 32 and T a multiple of {ROWS_PER_TILE}; "
-            f"got {x.dtype} x, {mxu_dtype} operands, D={d}, E={e}, H={num_heads}, T={t}"
+            f"the decoder-layer kernels take x and operands in one of bf16 and float32, D in "
+            f"{WIDTHS}, E % 64 == 0, a head width dividing 32 and T a multiple of "
+            f"{ROWS_PER_TILE}; got {x.dtype} x, {mxu_dtype} operands, D={d}, E={e}, "
+            f"H={num_heads}, T={t}"
         )
     return b, t, d, e, dh
 
@@ -102,7 +109,7 @@ def fused_decoder_layer(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_
     kv_self = torch.empty((b, d, d), dtype=mxu_dtype, device=x.device)
     mod = torch.empty((b * t, 6 * d), dtype=f32, device=x.device)  # the AdaLN modulation
     gemm_launches = ctypes.c_int(0)
-    err = _build.library().decoder_layer_forward(
+    err = _build.width_entry("decoder_layer_forward", d)(
         x.data_ptr(), emb_act.data_ptr(), kv_cross.data_ptr(), ops["mats"].data_ptr(),
         ops["vecs"].data_ptr(), ops["adaln_w"].data_ptr(), ops["adaln_b"].data_ptr(),
         out.data_ptr(), partials.data_ptr(), kv_self.data_ptr(), mod.data_ptr(),

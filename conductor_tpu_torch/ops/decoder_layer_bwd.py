@@ -31,7 +31,32 @@ import torch
 
 from . import _build
 from .decoder_layer import decoder_layer_plain, fused_decoder_layer, kernel_operands
-from .decoder_stack import _count_gemm
+from .decoder_stack import ROWS_TILE_C, _count_gemm
+from .decoder_stack import plan as stack_plan
+
+GEMM_THREADS = 256       # the A^T B and d_emb launches' threads (csrc kGemmThreads)
+GEMM_SMEM = 3 * 32768    # their 3-stage ring of two 16-KB operand tiles (kGemmSmem)
+
+
+def plan(d: int, t: int, f32: bool = False) -> dict[str, int]:
+    """The launches of one K6 call at width ``d`` for clips of ``t`` rows
+    (a multiple of 64), bf16 or float32 (``f32``), as
+    `csrc/decoder_layer_bwd.cu` makes them (its
+    `decoder_layer_backward_plan_d<D>` export gives the same): the two row
+    passes 8 warps over 32-row tiles with pass C's shared layout, the A^T B
+    and d_emb launches 256 threads on a 96-KB ring (d_emb's float32 kernel
+    uses static shared memory)."""
+    c = stack_plan(d, t, f32=f32)
+    return {"rows_threads": c["c_threads"], "rows_tiles": t // ROWS_TILE_C,
+            "rows_smem": c["c_smem"], "gemm_threads": GEMM_THREADS, "gemm_smem": GEMM_SMEM}
+
+
+def kernel_plan(d: int, t: int, f32: bool = False) -> dict[str, int]:
+    """`plan` as the built kernel reports it."""
+    out = (ctypes.c_int * 5)()
+    _build.check(_build.width_entry("decoder_layer_backward_plan", d)(t, int(f32), out),
+                 "decoder_layer_backward_plan")
+    return dict(zip(plan(d, t, f32), out))
 
 
 def decoder_layer_bwd_plain(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, dy, num_heads, *,
@@ -61,8 +86,8 @@ def decoder_layer_bwd(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, dy, nu
     for name in ("x", "emb_act", "kv_cross", "mats", "adaln_w", "dy"):
         _build.require(ops[name], name, mxu_dtype, tuple(ops[name].shape))
     _build.require_aligned(**{k: ops[k] for k in ("x", "emb_act", "mats", "adaln_w", "dy")})
-    lib = _build.library()
-    ws_bytes = lib.decoder_layer_backward_workspace(b, t, d, e, num_heads, int(mode_f32))
+    ws_bytes = _build.width_entry("decoder_layer_backward_workspace", d)(
+        b, t, d, e, num_heads, int(mode_f32))
     if ws_bytes < 0:
         raise ValueError(f"decoder_layer_bwd: the kernel does not take D={d}, E={e}, H={num_heads}")
     workspace = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device)
@@ -72,7 +97,7 @@ def decoder_layer_bwd(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, dy, nu
     daw = torch.empty((e, 6 * d), dtype=f32, device=x.device)
     dab = torch.empty((6 * d,), dtype=f32, device=x.device)
     gemm_launches = ctypes.c_int(0)
-    err = lib.decoder_layer_backward(
+    err = _build.width_entry("decoder_layer_backward", d)(
         x.data_ptr(), emb_act.data_ptr(), kv_cross.data_ptr(), *(ops[k].data_ptr() for k in (
             "mats", "vecs", "adaln_w", "adaln_b", "dy")), dx.data_ptr(), demb.data_ptr(),
         dkvc.data_ptr(), dmats.data_ptr(), dvecs.data_ptr(), daw.data_ptr(), dab.data_ptr(),

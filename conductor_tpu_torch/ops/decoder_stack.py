@@ -40,7 +40,9 @@ B and C of each layer) and `csrc/adaln_gemm.cu` (every layer's AdaLN
 modulation, one tensor-core GEMM launched before the first layer;
 `adaln_modulation` runs it alone, `adaln_modulation_plain` is its plain
 version); in the float32 mode the passes and the GEMM run float32 FFMA on
-the CUDA cores.
+the CUDA cores.  The kernels take the model widths D in `WIDTHS` (32, 64,
+128; one build of the layer sources each) with a head width dividing 32
+(`layer_widths_ok`); `plan` and `adaln_plan` give their launches' shapes.
 """
 
 from __future__ import annotations
@@ -55,6 +57,71 @@ from . import _build
 from .conv_block import _q
 
 ROWS_PER_TILE = 64  # the kernel's row tile (csrc/decoder_stack.cu kTileRows)
+ROWS_TILE_C = 32    # pass C's (and K6's row passes') row tile (csrc/layer_common.cuh kRowsTile)
+WIDTHS = _build.WIDTHS  # the model widths D the decoder kernels (K1, K5, K6) are built for
+SMEM_LIMIT = 232_448    # the shared bytes a block can have on an H100
+
+
+def layer_widths_ok(d: int, num_heads: int) -> bool:
+    """Whether the decoder kernels (K1 / K5 / K6, and K2 / K3 beside K1)
+    take model width ``d`` with ``num_heads`` heads: D in `WIDTHS` and a
+    head width dividing 32 (the head sums are shuffles within a warp)."""
+    return (d in WIDTHS and 1 <= num_heads <= d and d % num_heads == 0
+            and 32 % (d // num_heads) == 0)
+
+
+def plan(d: int, t: int, t_valid: int | None = None, f32: bool = False) -> dict[str, int]:
+    """The launches of one K1 / K5 layer at width ``d`` for clips of ``t``
+    rows (``t_valid`` of them in the KV pass), bf16 or float32 (``f32``),
+    as `csrc/decoder_stack.cu` makes them (its `decoder_stack_plan_d<D>`
+    export gives the same): pass A a thread a column over 64-row tiles, its
+    operand, k and v tiles in shared memory (and in the float32 mode a
+    whole staged D x D matrix); pass B a block a row of KV; pass C 8 warps
+    over 32-row tiles beside a ring of two staged bf16 matrices or three
+    32-row float32 k-slabs."""
+    if d not in WIDTHS:
+        raise ValueError(f"the decoder kernels are built for D in {WIDTHS}, got {d}")
+    t_valid = t if t_valid is None else t_valid
+    ld_f, ld_a = d + 4, d + 8
+    op = ld_f * 4 if f32 else ld_a * 2
+    smem_a = ROWS_PER_TILE * (op + 2 * ld_f * 4) + (d * d * 4 if f32 else 0)
+    ring = 3 * 32 * d * 4 if f32 else 2 * d * d * 2
+    smem_c = ring + ROWS_TILE_C * (2 * ld_f * 4 + op)
+    return {"a_threads": d, "a_tiles": -(-t_valid // ROWS_PER_TILE), "a_smem": smem_a,
+            "b_threads": d, "b_blocks": d, "c_threads": 256,
+            "c_tiles": -(-t // ROWS_TILE_C), "c_smem": smem_c}
+
+
+def kernel_plan(d: int, t: int, t_valid: int | None = None, f32: bool = False) -> dict[str, int]:
+    """`plan` as the built kernel reports it (`decoder_stack_plan_d<D>`)."""
+    out = (ctypes.c_int * 8)()
+    _build.check(_build.width_entry("decoder_stack_plan", d)(
+        t, t if t_valid is None else t_valid, int(f32), out), "decoder_stack_plan")
+    return dict(zip(plan(d, t, t_valid, f32), out))
+
+
+def adaln_plan(m: int, n: int, layers: int, dtype: torch.dtype,
+               sms: int = _build.H100_SMS) -> dict[str, int]:
+    """The AdaLN GEMM's tiling for ``m`` rows and ``layers`` layers of ``n``
+    columns in operand ``dtype``, as `csrc/adaln_gemm.cu` `plan_of` picks
+    it: BM 128 while 128-row tiles give every SM one (else 64; float32
+    always 128), BN 128 where n is a multiple of 128, else 64 (N = 6D = 192
+    at D = 32); 4 warps (float32: 8) a tile, 3 stages of BM + 128 BN bytes
+    (float32: static shared memory)."""
+    bn = 128 if n % 128 == 0 else 64
+    f32 = dtype == torch.float32
+    bm = 128 if f32 or -(-m // 128) * (layers * n // bn) >= sms else 64
+    return {"bm": bm, "bn": bn, "threads": 256 if f32 else 128, "grid_x": layers * n // bn,
+            "grid_y": -(-m // bm), "smem": 0 if f32 else 3 * (bm * 128 + 128 * bn)}
+
+
+def kernel_adaln_plan(m: int, n: int, layers: int, dtype: torch.dtype) -> dict[str, int]:
+    """`adaln_plan` on the current card as the kernel reports it
+    (`adaln_gemm_plan`)."""
+    out = (ctypes.c_int * 6)()
+    _build.check(_build.library().adaln_gemm_plan(m, n, layers, _GEMM_OPERANDS[dtype], out),
+                 "adaln_gemm_plan")
+    return dict(zip(adaln_plan(m, n, layers, dtype), out))
 
 
 def quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -117,10 +184,10 @@ _GEMM_OPERANDS = {torch.bfloat16: 0, torch.int8: 1, torch.float32: 2}
 
 def _adaln_widths_ok(e: int, n: int, dtype: torch.dtype) -> bool:
     """The AdaLN GEMM's tiles for its operand ``dtype``: 128 bytes of E a
-    stage (64 bf16 or 128 int8 codes), or 8 float32 k-rows a slice; 128
-    columns a tile (csrc/adaln_gemm.cu)."""
+    stage (64 bf16 or 128 int8 codes), or 8 float32 k-rows a slice; 128 or
+    64 columns a tile (csrc/adaln_gemm.cu)."""
     step = {torch.bfloat16: 64, torch.int8: 128, torch.float32: 8}[dtype]
-    return e > 0 and e % step == 0 and n > 0 and n % 128 == 0
+    return e > 0 and e % step == 0 and n > 0 and n % 64 == 0
 
 
 def adaln_modulation(emb_act, adaln_w, adaln_b, *, mxu_dtype=torch.float32, emb_scale=None,
@@ -144,7 +211,7 @@ def adaln_modulation(emb_act, adaln_w, adaln_b, *, mxu_dtype=torch.float32, emb_
     dtype = torch.int8 if int8 else mxu_dtype
     if dtype not in _GEMM_OPERANDS or not _adaln_widths_ok(e, n, dtype) or m < 1:
         raise ValueError(f"the AdaLN kernel takes bf16 or float32 operands (or int8 codes), E a "
-                         f"multiple of 64, 8 or 128 and N of 128; got {dtype}, E={e}, N={n}")
+                         f"multiple of 64, 8 or 128 and N of 64; got {dtype}, E={e}, N={n}")
     _build.require(emb_act, "emb_act", dtype, (*lead, e))
     _build.require(adaln_w, "adaln_w", dtype, (n_layers, e, n))
     _build.require(adaln_b, "adaln_b", torch.float32, (n_layers, n))
@@ -257,11 +324,11 @@ def fused_decoder_stack(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_
     n_layers, e = mats.shape[0], emb_act.shape[-1]
     dh = d // num_heads
     emb_dtype = torch.int8 if int8 else mxu_dtype
-    if (mxu_dtype not in (torch.bfloat16, torch.float32) or d != 128
-            or not _adaln_widths_ok(e, 6 * d, emb_dtype) or 32 % dh or dh * num_heads != d):
+    if (mxu_dtype not in (torch.bfloat16, torch.float32) or not layer_widths_ok(d, num_heads)
+            or not _adaln_widths_ok(e, 6 * d, emb_dtype)):
         raise ValueError(
-            f"decoder_stack kernel takes bf16 or float32 operands, D = 128, E a multiple of "
-            f"64 (bf16), 8 (float32) or 128 (int8) and a head width dividing 32; got "
+            f"decoder_stack kernel takes bf16 or float32 operands, D in {WIDTHS}, E a multiple "
+            f"of 64 (bf16), 8 (float32) or 128 (int8) and a head width dividing 32; got "
             f"{mxu_dtype}, D={d}, E={e}, H={num_heads}"
         )
     bf, f32 = torch.bfloat16, torch.float32
@@ -283,7 +350,7 @@ def fused_decoder_stack(x, emb_act, kv_cross, mats, vecs, adaln_w, adaln_b, num_
     kv_self = torch.empty((b, d, d), dtype=mxu_dtype, device=x.device)
     mod = torch.empty((b * t, n_layers * 6 * d), dtype=f32, device=x.device)  # all layers' AdaLN
     gemm_launches = ctypes.c_int(0)
-    err = _build.library().decoder_stack_forward(
+    err = _build.width_entry("decoder_stack_forward", d)(
         x.data_ptr(), emb_act.data_ptr(), emb_scale.data_ptr() if int8 else None,
         kv_cross.data_ptr(), mats.data_ptr(), vecs.data_ptr(), adaln_w.data_ptr(),
         adaln_w_scale.data_ptr() if int8 else None, adaln_b.data_ptr(), out.data_ptr(),

@@ -43,7 +43,8 @@ from .conv_block import _q
 from .decoder_stack import quantize_rows
 
 # csrc/sampler_glue.cu's constants
-WIDTH = 128             # D, kWidth
+WIDTH = 128             # the flagship's D (the kernels' template width W: any of WIDTHS)
+WIDTHS = _build.WIDTHS  # the widths D of h the kernels are built for
 POSE = 26               # K3's column count (kPose), the pose width
 PRO_WARPS = 8           # K2's warps a block (kProWarps)
 PRO_BLOCKS_PER_SM = 3   # K2's launch bounds (kProBlocksPerSm)
@@ -59,10 +60,10 @@ EPI_STAGES = 2          # K3: a warp's ring of row groups (kEpiStages)
 KERNEL_PLAN_KEYS = ("rows", "blocks", "threads", "stages", "smem_bytes")
 
 
-def plan(b: int, t: int, which: str, *, c: int = POSE, e: int = 512,
+def plan(b: int, t: int, which: str, *, c: int = POSE, e: int = 512, d: int = WIDTH,
          sms: int = _build.H100_SMS) -> dict:
     """The tiling K2 (``which="prologue"``) or K3 (``"epilogue"``) picks for
-    B x T rows on a card of ``sms`` SMs: ``rows`` a block, ``blocks``,
+    B x T rows of width ``d`` on a card of ``sms`` SMs: ``rows`` a block, ``blocks``,
     ``threads`` a block, ``stages`` (K2: a warp's ring of row slots; K3
     stages its tile once) and ``smem_bytes`` a block.  K2 fills
     `PRO_BLOCKS_PER_SM` blocks an SM (fewer where a warp would have no row)
@@ -77,13 +78,13 @@ def plan(b: int, t: int, which: str, *, c: int = POSE, e: int = 512,
         rows = -(-n // blocks)
         return {"rows": rows, "blocks": -(-n // rows), "threads": PRO_WARPS * 32,
                 "stages": PRO_STAGES,
-                "smem_bytes": (c * WIDTH + PRO_WARPS * PRO_STAGES * (e + POSE_SLOT + WIDTH)) * 4}
+                "smem_bytes": (c * d + PRO_WARPS * PRO_STAGES * (e + POSE_SLOT + d)) * 4}
     if which == "epilogue":
         slots = sms * EPI_BLOCKS_PER_SM * EPI_WARPS
         rows = EPI_WARPS * EPI_GROUP * min(-(-n // (EPI_GROUP * slots)), EPI_MAX_GROUPS)
         return {"rows": rows, "blocks": -(-n // rows), "threads": EPI_WARPS * 32,
                 "stages": EPI_STAGES,
-                "smem_bytes": (WIDTH * c + EPI_WARPS * EPI_STAGES * EPI_GROUP * WIDTH) * 4}
+                "smem_bytes": (d * c + EPI_WARPS * EPI_STAGES * EPI_GROUP * d) * 4}
     raise ValueError(f"which is 'prologue' or 'epilogue', got {which!r}")
 
 
@@ -112,13 +113,14 @@ def epilogue_outputs(p: dict, n_rows: int, c: int = POSE):
                     yield k, w, lane, row, lane
 
 
-def kernel_plan(b: int, t: int, which: str, *, c: int = POSE, e: int = 512) -> dict:
-    """What K2's or K3's launch for B x T rows picks on the current card
-    (`csrc/sampler_glue.cu` `sampler_plan`, from the kernel's own
-    formulas), under `plan`'s names ``KERNEL_PLAN_KEYS``; needs the built
-    library."""
+def kernel_plan(b: int, t: int, which: str, *, c: int = POSE, e: int = 512,
+                d: int = WIDTH) -> dict:
+    """What K2's or K3's launch for B x T rows of width ``d`` picks on the
+    current card (`csrc/sampler_glue.cu` `sampler_plan`, from the kernel's
+    own formulas), under `plan`'s names ``KERNEL_PLAN_KEYS``; needs the
+    built library."""
     out = (ctypes.c_int * 5)()
-    err = _build.library().sampler_plan(b, t, c, e, ("prologue", "epilogue").index(which), out)
+    err = _build.library().sampler_plan(b, t, c, d, e, ("prologue", "epilogue").index(which), out)
     _build.check(err, "sampler_plan")
     return dict(zip(KERNEL_PLAN_KEYS, out))
 
@@ -162,9 +164,9 @@ def _check_prologue(x, temb, emb_base, w_joint, seq_bias, *, mxu_dtype, emb_dtyp
             torch.bfloat16, torch.float32):
         raise ValueError("sampler_prologue kernel writes bf16, float32 or int8 emb_act; mxu_dtype "
                          "bf16 or f32")
-    if d != WIDTH or not 1 <= c <= POSE_SLOT or e % 128 or not 128 <= e <= 128 * MAX_EV:
-        raise ValueError(f"sampler_prologue kernel takes D = {WIDTH}, C <= {POSE_SLOT} and E a "
-                         f"multiple of 128 up to {128 * MAX_EV}; got D={d}, C={c}, E={e}")
+    if d not in WIDTHS or not 1 <= c <= POSE_SLOT or e % 128 or not 128 <= e <= 128 * MAX_EV:
+        raise ValueError(f"sampler_prologue kernel takes D in {WIDTHS}, C <= {POSE_SLOT} and E "
+                         f"a multiple of 128 up to {128 * MAX_EV}; got D={d}, C={c}, E={e}")
     f32 = torch.float32
     _build.require(x, "x", f32, (b, t, c))
     _build.require(temb, "temb", f32, (e,))
@@ -180,9 +182,9 @@ def _prologue_launch(x, temb, emb_base, w_joint, seq_bias, rnd: int, quantize_em
                      emb_dtype: torch.dtype):
     """K2 on operands `_check_prologue` has passed: one launch."""
     b, t, c = x.shape
-    e = emb_base.shape[-1]
+    e, d = emb_base.shape[-1], w_joint.shape[-1]
     emb_f32 = not quantize_emb and emb_dtype == torch.float32
-    h = torch.empty((b, t, WIDTH), dtype=torch.float32, device=x.device)
+    h = torch.empty((b, t, d), dtype=torch.float32, device=x.device)
     emb_act = torch.empty((b, t, e), dtype=torch.int8 if quantize_emb else emb_dtype,
                           device=x.device)
     emb_scale = (torch.empty((b, t, 1), dtype=torch.float32, device=x.device) if quantize_emb
@@ -190,7 +192,7 @@ def _prologue_launch(x, temb, emb_base, w_joint, seq_bias, rnd: int, quantize_em
     err = _build.library().sampler_prologue_forward(
         x.data_ptr(), temb.data_ptr(), emb_base.data_ptr(), w_joint.data_ptr(),
         seq_bias.data_ptr(), h.data_ptr(), emb_act.data_ptr(),
-        emb_scale.data_ptr() if quantize_emb else None, b, t, c, WIDTH, e, rnd, int(emb_f32),
+        emb_scale.data_ptr() if quantize_emb else None, b, t, c, d, e, rnd, int(emb_f32),
         _build.stream(),
     )
     _build.check(err, "sampler_prologue_forward")
@@ -231,24 +233,26 @@ def _check_epilogue(x_t, w_out, b_out, *, mxu_dtype) -> None:
     """Raise unless K3 takes these CUDA operands beside an h of x_t's (B, T)
     (`sampler_epilogue` checks h itself)."""
     b, t, c = x_t.shape
+    d = w_out.shape[0]
     if mxu_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"sampler_epilogue kernel: mxu_dtype bf16 or f32, got {mxu_dtype}")
-    if c != POSE:
-        raise ValueError(f"sampler_epilogue kernel takes C = {POSE}; got C={c}")
+    if c != POSE or d not in WIDTHS:
+        raise ValueError(f"sampler_epilogue kernel takes C = {POSE} and D in {WIDTHS}; got "
+                         f"C={c}, D={d}")
     f32 = torch.float32
     _build.require(x_t, "x_t", f32, (b, t, c))
-    _build.require(w_out, "w_out", f32, (WIDTH, c))
+    _build.require(w_out, "w_out", f32, (d, c))
     _build.require(b_out, "b_out", f32, (c,))
     _build.require_aligned(w_out=w_out)
 
 
 def _epilogue_launch(h, x_t, w_out, b_out, alpha: float, beta: float, rnd: int):
     """K3 on operands `_check_epilogue` has passed: one launch."""
-    b, t, _ = h.shape
+    b, t, d = h.shape
     out = torch.empty_like(x_t)
     err = _build.library().sampler_epilogue_forward(
         h.data_ptr(), x_t.data_ptr(), w_out.data_ptr(), b_out.data_ptr(), out.data_ptr(),
-        alpha, beta, b, t, WIDTH, POSE, rnd, _build.stream(),
+        alpha, beta, b, t, d, POSE, rnd, _build.stream(),
     )
     _build.check(err, "sampler_epilogue_forward")
     if rnd:
@@ -266,7 +270,7 @@ def sampler_epilogue(h, x_t, w_out, b_out, alpha: float, beta: float, *,
     alpha, beta = float(alpha), float(beta)
     if not h.is_cuda:
         return sampler_epilogue_plain(h, x_t, w_out, b_out, alpha, beta, mxu_dtype=mxu_dtype)
-    _build.require(h, "h", torch.float32, (*x_t.shape[:2], WIDTH))
+    _build.require(h, "h", torch.float32, (*x_t.shape[:2], w_out.shape[0]))
     _build.require_aligned(h=h)
     _check_epilogue(x_t, w_out, b_out, mxu_dtype=mxu_dtype)
     return _epilogue_launch(h, x_t, w_out, b_out, alpha, beta, int(mxu_dtype == torch.bfloat16))

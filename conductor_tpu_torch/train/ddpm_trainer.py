@@ -76,6 +76,8 @@ from ..models.music_encoder import FusedMusicEncoder
 from ..models.precision import full_float32
 from ..models.stgcn import MotionEncoderSTGCN
 from ..models.transformer import MotionTransformer
+from ..ops.attention import HEAD_DIMS
+from ..ops.decoder_stack import WIDTHS, layer_widths_ok
 from ..ops.stgcn import fused_frozen_stgcn, pack_frozen_stgcn
 from .fused_denoiser import FusedDenoiser, fused_train_denoise
 from .optim import ClippedAdam
@@ -473,27 +475,43 @@ def _check_training_config(cfg: Config, device: torch.device | str) -> None:
         raise NotImplementedError(f"loss_type {cfg.diffusion.loss_type!r} is not ported")
 
 
-# the widths the decoder kernels are built for (csrc/layer_common.cuh D, the
-# K2 / K3 pose width, ops/attention.py HEAD_DIM)
-_KERNEL_D, _KERNEL_POSE, _K8_HEAD = 128, 26, 16
+# the widths the decoder kernels are built for (ops/_build.py WIDTHS, a head
+# width dividing 32), the K2 / K3 pose width and K8's head widths
+_KERNEL_POSE = 26
 
 
 def _check_kernel_widths(cfg: Config, device: torch.device | str) -> None:
-    """On CUDA the decoder kernels take the flagship's widths only: K1 /
-    K2 / K3 (``layer_impl="pallas_fused"``) and K5 / K6
-    (``train_layer_impl="pallas_fused"``) D = 128 and a head width dividing
-    32 (K3 also the 26-wide pose), K8 (``attention_impl="pallas"`` where a
-    plain-layer path runs: ``layer_impl`` or ``train_layer_impl`` "flax",
-    or ``replicate_reference_mask``) a head width of 16.  Raise at
-    construction, naming each kernel a config of other widths would reach
-    and the knobs that run it on the plain modules, rather than fail at the
-    first call; the CPU takes every width.  Porting the other widths is
-    ROADMAP P5f."""
+    """Refuse, where the trainer is built, a config whose widths a kernel
+    on its path does not take, rather than fail at the first call.
+
+    On every device: the fused layers (``layer_impl`` or
+    ``train_layer_impl`` "pallas_fused") pack the FFN into (D, D) banks and
+    so take ``ff_size <= latent_dim``, as JAX's `pack_layer_weights` does
+    (its `_pad_to` raises on a wider FFN).  On CUDA: K1 / K2 / K3
+    (``layer_impl="pallas_fused"``) and K5 / K6 (``train_layer_impl=
+    "pallas_fused"``) take D in `ops.decoder_stack.WIDTHS` (32, 64, 128)
+    with a head width dividing 32 (K3 also the 26-wide pose), and K8
+    (``attention_impl="pallas"`` where a plain-layer path runs:
+    ``layer_impl`` or ``train_layer_impl`` "flax", or
+    ``replicate_reference_mask``) a head width in
+    `ops.attention.HEAD_DIMS` (8-64).  The message names each kernel the
+    config would reach and the knobs that run it on the plain modules,
+    which take every width; the CPU runs the kernels' plain versions,
+    which take every model width.  D = 256 on K1-K6 is ROADMAP P5g."""
     d = cfg.denoiser
+    fused = [k for k in ("layer_impl", "train_layer_impl") if getattr(d, k) == "pallas_fused"]
+    if fused and d.ff_size > d.latent_dim:
+        raise ValueError(
+            f"ff_size={d.ff_size} > latent_dim={d.latent_dim}: the fused decoder layers ("
+            + ", ".join(f"{k}='pallas_fused'" for k in fused) + ") pack the FFN into D x D "
+            "banks, so they would fail at the first call (the JAX package's packing raises on "
+            "these shapes too).  The plain layers take every ff_size: pin layer_impl='flax' "
+            "and train_layer_impl='flax'")
     if torch.device(device).type != "cuda":
         return
     dh = d.latent_dim // d.num_heads
-    layers_ok = d.latent_dim == _KERNEL_D and dh * d.num_heads == d.latent_dim and 32 % dh == 0
+    heads_ok = d.num_heads >= 1 and dh * d.num_heads == d.latent_dim
+    layers_ok = layer_widths_ok(d.latent_dim, d.num_heads)
     plain_layers = (d.layer_impl == "flax" or d.train_layer_impl == "flax"
                     or cfg.train.replicate_reference_mask)
     refused = [name for name, used in (
@@ -502,14 +520,14 @@ def _check_kernel_widths(cfg: Config, device: torch.device | str) -> None:
         ("K5 / K6, the fused training layers (train_layer_impl='pallas_fused')",
          d.train_layer_impl == "pallas_fused" and not layers_ok),
         ("K8, the plain layers' linear attention (attention_impl='pallas')",
-         d.attention_impl == "pallas" and plain_layers and dh != _K8_HEAD),
+         d.attention_impl == "pallas" and plain_layers and not (heads_ok and dh in HEAD_DIMS)),
     ) if used]
     if refused:
         raise ValueError(
             f"latent_dim={d.latent_dim}, num_heads={d.num_heads} (head width {dh}), "
-            f"input_feats={d.input_feats} on CUDA: the kernels are built for D = {_KERNEL_D}, a "
-            f"head width dividing 32 ({_K8_HEAD} in the plain layers' attention) and a "
-            f"{_KERNEL_POSE}-wide pose, so " + "; ".join(refused) + " would fail at the first "
-            "call.  The "
-            "plain modules take every width: pin layer_impl='flax', train_layer_impl='flax' "
-            "and attention_impl='xla'")
+            f"input_feats={d.input_feats} on CUDA: the decoder kernels are built for D in "
+            f"{WIDTHS} with a head width dividing 32 and a {_KERNEL_POSE}-wide pose, the "
+            f"plain layers' attention kernel for head widths {HEAD_DIMS}, so "
+            + "; ".join(refused) + " would fail at the first call.  The plain modules take "
+            "every width: pin layer_impl='flax', train_layer_impl='flax' and "
+            "attention_impl='xla'")

@@ -51,7 +51,13 @@ def pack_layer_weights(model: MotionTransformer, layer: int):
     styls = (sa.proj_out, ca.proj_out, ff.proj_out)
 
     def pad_to(a, shape):
-        return F.pad(a, [p for n, s in zip(reversed(a.shape), reversed(shape)) for p in (0, s - n)])
+        # zero-pad W1 / W2 / b1 from ff_size to D; a wider FFN does not fit
+        # the (D, D) banks, and JAX's `_pad_to` raises on it too
+        pads = [p for n, s in zip(reversed(a.shape), reversed(shape)) for p in (0, s - n)]
+        if min(pads) < 0:
+            raise ValueError(f"pack_layer_weights: the FFN's {tuple(a.shape)} does not fit the "
+                             f"fused layers' {tuple(shape)} (ff_size > latent_dim)")
+        return F.pad(a, pads)
 
     mats = torch.stack([
         _wt(sa.query), _wt(sa.key), _wt(sa.value), _wt(sa.proj_out.out_layers[2]),

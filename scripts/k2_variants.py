@@ -64,7 +64,7 @@ VARIANTS = {
     "k3_no_stores": [("if (j < nr && lane < C)\n        out[",
                       "if (j < nr && lane < C && acc[j] != acc[j])\n        out[")],
     "k3_no_x_t": [("xv[j] = __ldg(x_t + (size_t)(r0 + j) * C + lane);", "xv[j] = 0.f;")],
-    "k3_d4_of_32": [("for (int d4 = 0; d4 < kWidth / 4; ++d4) {",
+    "k3_d4_of_32": [("for (int d4 = 0; d4 < W / 4; ++d4) {",
                      "for (int d4 = 0; d4 < 4; ++d4) {")],
 }
 T, D, E, C = 1800, 128, 512, 26

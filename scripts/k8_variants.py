@@ -124,8 +124,8 @@ def main() -> None:
             line, err = [], 0.0
             for cluster in CLUSTERS:
                 call = lambda: lib.linear_attention_forward(  # noqa: E731
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, t, 8, cluster,
-                    1, 0, stream)
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, t, 8, 16,
+                    cluster, 1, 0, stream)
                 assert call() == 0
                 torch.cuda.synchronize()
                 err = max(err, float((out.float() - want).abs().max() / want.abs().max()))

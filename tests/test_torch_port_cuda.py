@@ -26,7 +26,12 @@ generate through them against the plain float32 path; K5's and K6's
 float32 modes against their plain versions at a padded T with a partial
 last tile, repeating bit for bit and counted apart, and a float32 stage-2
 step on them against the plain float32 path with the caller's TF32 flags
-left on and restored.  Skips
+left on and restored; at the other model widths the decoder kernels take
+(D = 32 / 4 heads / ff 16, D = 64 / 8 heads, D = 128 / 4 heads), K1-K3,
+K5 and K6 in every mode against their plain versions with their plans the
+kernels' own, ddim5 in bf16, int8 AdaLN and float32 and 2 stage-2 steps
+in bf16 and float32 against the plain float32 path, and K8 at head widths
+8, 32 and 64 with each cluster size.  Skips
 without a CUDA card; on one, run it with
 ``python -m pytest --noconftest tests/test_torch_port_cuda.py``.
 ``chip_smoke.py`` makes the same checks at the flagship size."""
@@ -1427,3 +1432,135 @@ def test_train_cli_two_steps_launch_the_training_kernels(tmp_path):
     assert (counts["decoder_layer"], counts["decoder_layer_bwd"], counts["stgcn_forward"],
             counts["stgcn_backward"]) == (4, 4, 4, 2)
     assert os.listdir(run / "ckpt") == ["2.tar"]
+
+
+# the model widths beside the flagship's that the decoder kernels take
+# (chip_smoke.py phase 16's): JAX's test widths, D = 64 with the
+# flagship's 8 heads, and D = 128 with 4 heads (head width 32)
+WIDTH_CONFIGS = {"W32": dict(latent_dim=32, num_heads=4, ff_size=16),
+                 "W64": dict(latent_dim=64, num_heads=8, ff_size=64),
+                 "H4": dict(num_heads=4, ff_size=64)}
+
+
+@pytest.fixture(params=list(WIDTH_CONFIGS))
+def width_trainers(request):
+    """A bf16 kernel trainer ("auto"), a float32 one ("auto": every kernel
+    in its float32 mode) and the plain float32 path at one of
+    `WIDTH_CONFIGS`, 2 layers, T = 96, on one set of synthetic weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    den = dict(num_frames=96, num_layers=2, **WIDTH_CONFIGS[request.param])
+    cfg = Config(denoiser=DenoiserConfig(**den),
+                 diffusion=DiffusionConfig(steps=20, schedule="cosine"))
+    kernel = DDPMTrainer(cfg, device="cuda")
+    f32 = DDPMTrainer(cfg.replace(denoiser=DenoiserConfig(**den, compute_dtype="float32")),
+                      device="cuda")
+    plain = DDPMTrainer(cfg.replace(denoiser=DenoiserConfig(
+        **den, layer_impl="flax", music_encoder_impl="flax", train_layer_impl="flax",
+        attention_impl="xla", compute_dtype="float32"), train=TrainConfig(feat_impl="flax")),
+        device="cuda")
+    sd = synthetic_state_dict(kernel.model, seed=0)
+    feat_sd = synthetic_motion_encoder_state_dict(kernel.feat_model, seed=0)
+    for tr in (kernel, f32, plain):
+        tr.load_reference_state_dict(sd, motion_encoder=feat_sd)
+    rng = np.random.RandomState(0)
+    mel = torch.from_numpy(rng.uniform(0, 1, size=(2, 288, 128)).astype(np.float32)).cuda()
+    noise = torch.from_numpy(rng.normal(size=(2, 96, 26)).astype(np.float32)).cuda()
+    yield request.param, kernel, f32, plain, mel, noise
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def test_kernels_match_plain_versions_at_other_widths(width_trainers):
+    """At each of `WIDTH_CONFIGS`: K1 in its three modes and its AdaLN GEMM
+    (bf16, int8), K2 (both outputs), K3, K5 and K6 against their plain
+    versions on the trainer's own operands, then the float32 modes of each
+    (float32, with bf16 VPU, with int8 AdaLN; the float32 GEMM), each
+    within its bar, repeating bit for bit where checked, one launch a call
+    for K2 / K3, and each launch's plan the kernel's own export."""
+    name, kernel, f32, _, mel, noise = width_trainers
+    motion = torch.rand(2, 96, 13, 2, device="cuda")
+    with full_float32():
+        results = (check_kernels(kernel, mel, noise, reps=1)
+                   + check_train_kernels(kernel, mel, motion, reps=1)
+                   + check_kernels(f32, mel, noise, reps=1)
+                   + check_train_kernels(f32, mel, motion, reps=1))
+    names = {r["name"] for r in results}
+    assert {"decoder_stack", "decoder_stack_int8", "decoder_stack_vpu_bf16", "adaln_modulation",
+            "adaln_modulation_int8", "sampler_prologue", "sampler_prologue_int8",
+            "sampler_epilogue", "decoder_layer", "decoder_layer_bwd", "decoder_stack_f32",
+            "decoder_stack_f32_int8", "decoder_stack_f32_vpu_bf16", "adaln_modulation_f32",
+            "sampler_prologue_f32", "sampler_epilogue_f32", "decoder_layer_f32",
+            "decoder_layer_bwd_f32"} <= names, names
+    for r in results:
+        assert r["ok"], (name, r)
+
+
+def test_generate_at_other_widths_matches_plain_path(width_trainers):
+    """ddim5 at each of `WIDTH_CONFIGS` on the fused ladder in bf16, in
+    bench.py's int8-AdaLN config and in float32, against the plain float32
+    path: within 3 % of its largest value (float32 within 1e-3), each step
+    in the mode's counts."""
+    name, kernel, f32, plain, mel, noise = width_trainers
+    int8 = DDPMTrainer(kernel.cfg.replace(denoiser=dataclasses.replace(
+        kernel.cfg.denoiser, sampler_adaln_int8=True)), device="cuda")
+    int8.load_reference_state_dict(kernel.model.state_dict())
+    ref = plain.generate(mel, num_steps=5, noise=noise)
+    for tr, mode, tol in ((kernel, "decoder_stack", 0.03), (int8, "decoder_stack_int8", 0.03),
+                          (f32, "decoder_stack_f32", 1e-3)):
+        reset_launch_counts()
+        out = tr.generate(mel, num_steps=5, noise=noise)
+        torch.cuda.synchronize()
+        assert launch_counts()[mode] == 5, (name, mode, launch_counts())
+        assert out.shape == (2, 96, 26) and bool(torch.isfinite(out).all())
+        assert float((out - ref).abs().max()) <= tol * float(ref.abs().max()), (name, mode)
+
+
+def test_train_steps_at_other_widths_match_plain_path(width_trainers):
+    """Two stage-2 steps at each of `WIDTH_CONFIGS` through K5 / K6 / K7 in
+    bf16 and in float32 against the plain float32 path on the same weights
+    and random numbers: each loss within 3e-2 relative."""
+    name, kernel, f32, plain, mel, _ = width_trainers
+    rng = np.random.RandomState(1)
+    motion = torch.from_numpy(rng.uniform(0, 1, size=(2, 96, 13, 2)).astype(np.float32)).cuda()
+    for step in range(2):
+        drawn = {"t": rng.randint(0, 20, size=2), "noise": rng.normal(size=(2, 96, 26)),
+                 "cond_keep": (rng.uniform(size=(2, 96)) > 0.1).astype(np.float32)}
+        mp = plain.train_step(mel, motion, **drawn)
+        for tr, sfx in ((kernel, ""), (f32, "_f32")):
+            reset_launch_counts()
+            mk = tr.train_step(mel, motion, **drawn)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            assert (counts["decoder_layer" + sfx], counts["decoder_layer_bwd" + sfx]) == (2, 2)
+            assert abs(float(mk["loss"]) - float(mp["loss"])) <= 3e-2 * abs(float(mp["loss"])), (
+                name, sfx, step, mk, mp)
+
+
+@pytest.mark.parametrize("cluster", attention.CLUSTERS)
+@pytest.mark.parametrize("dh", [8, 32, 64])
+def test_linear_attention_head_widths(dh, cluster, monkeypatch):
+    """K8 at head widths 8, 32 and 64 (4 heads) with each cluster size, at
+    T below the cluster, Tq != Tk, the reference-mask step's shape with its
+    float32-promoted k and v, and bf16 k and v: within 2 % of the plain
+    version's largest value, a repeat bit-identical, one launch a call and
+    the plan the kernel's own export (`check_attention_kernel`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    monkeypatch.setattr(attention, "cluster_size", lambda *a: cluster)
+    gen = torch.Generator(device="cuda").manual_seed(dh + cluster)
+    d = 4 * dh
+    for b, tq, tk, lens in ((2, 5, 5, 5), (2, 33, 300, 171), (32, 900, 900, 60)):
+        q = _rand(b, tq, d, gen=gen).to(torch.bfloat16)
+        k, v = (_rand(b, tk, d, gen=gen).to(torch.bfloat16) for _ in range(2))
+        if tq == tk:
+            mask = (torch.arange(tk, device="cuda")[None] < lens).float()[..., None].expand(b, tk, 1)
+            r = check_attention_kernel(q, k, v, mask, 4, reps=1)
+            assert r["ok"] and r["kv_dtype"] == "torch.float32", r
+        got, want = linear_attention_kernel(q, k, v, 4), linear_attention_plain(q, k, v, 4)
+        assert float((got.float() - want.float()).abs().max()) <= REL_TOL * float(
+            want.float().abs().max())
+        assert torch.equal(got, linear_attention_kernel(q, k, v, 4))
+    with pytest.raises(ValueError, match="linear_attention"):
+        linear_attention_kernel(q, k, v, d // 4)  # head width 4: not built

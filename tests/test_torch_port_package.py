@@ -283,9 +283,9 @@ def test_m2snet_trainer_resolves_auto_and_defers():
     (dict(layer_impl="flax"), "flax", ()),
     # K7's float32 mode asked for beside the plain layers: builds
     (dict(layer_impl="flax", train_layer_impl="flax"), "pallas", ()),
-    # float32 at a width the decoder kernels do not take: K1-K3 and K5 / K6
-    # are named, K7 (which takes every denoiser width) is not
-    (dict(latent_dim=64, num_heads=4), "auto", ("K1 / K2 / K3", "K5 / K6")),
+    # float32 at a width the decoder kernels do not take (D = 256): K1-K3
+    # and K5 / K6 are named, K7 (which takes every denoiser width) is not
+    (dict(latent_dim=256, num_heads=8), "auto", ("K1 / K2 / K3", "K5 / K6")),
 ])
 def test_float32_config_on_unported_kernels_raises_at_construction(denoiser, feat_impl, names):
     """A float32 config that resolves on CUDA to a kernel that cannot take
@@ -372,21 +372,29 @@ def test_layer_kernel_operands_keep_the_mode_dtype(mxu):
         kernel_operands(*layer[:5], t(512, 640), layer[6], 8, mxu_dtype=mxu)
 
 
+_PLAIN = dict(layer_impl="flax", train_layer_impl="flax")
+
+
 @pytest.mark.parametrize("widths,extra,names", [
-    # D = 32, 4 heads, on "auto": the fused sampler and training layers
-    (dict(latent_dim=32, ff_size=16, num_heads=4), {}, ("K1 / K2 / K3", "K5 / K6")),
-    # D = 128, 4 heads (head width 32): K8 wherever the plain layers run
-    (dict(num_heads=4), dict(replicate_reference_mask=True), ("K8",)),
-    (dict(num_heads=4), dict(layer_impl="flax"), ("K8",)),
+    # D = 256, 8 heads, on "auto": the fused sampler and training layers
+    (dict(latent_dim=256, num_heads=8), {}, ("K1 / K2 / K3", "K5 / K6")),
+    # D = 128, 2 heads (head width 64): the same
+    (dict(num_heads=2), {}, ("K1 / K2 / K3", "K5 / K6")),
+    # D = 256, 2 heads (head width 128): K8 wherever the plain layers run
+    (dict(latent_dim=256, num_heads=2), dict(replicate_reference_mask=True, **_PLAIN), ("K8",)),
+    (dict(latent_dim=256, num_heads=2), _PLAIN, ("K8",)),
+    # an FFN wider than D on the fused layers (F13), which JAX refuses too
+    (dict(latent_dim=32, ff_size=64, num_heads=4), {}, ("ff_size=64 > latent_dim=32",)),
 ])
 def test_unported_widths_raise_at_construction(widths, extra, names):
     """A model width the port's kernels do not take is refused on CUDA where
     the trainer is built, naming the kernels the config would reach and the
     knobs that run it on the plain modules; the same config builds on the
-    CPU, and on CUDA with those knobs pinned."""
+    CPU, and on CUDA with those knobs pinned.  An FFN wider than D on the
+    fused layers names the two layer knobs."""
     from conductor_tpu_torch.train.ddpm_trainer import _check_training_config
 
-    layer = {k: v for k, v in extra.items() if k == "layer_impl"}
+    layer = {k: v for k, v in extra.items() if k in _PLAIN}
     train = {k: v for k, v in extra.items() if k == "replicate_reference_mask"}
     cfg = Config(denoiser=DenoiserConfig(**widths, **layer), train=TrainConfig(**train))
     with pytest.raises(ValueError, match="would fail at the first call") as err:
@@ -394,8 +402,10 @@ def test_unported_widths_raise_at_construction(widths, extra, names):
     msg = str(err.value)
     assert all(name in msg for name in names), msg
     assert all(name not in msg for name in {"K1 / K2 / K3", "K5 / K6", "K8"} - set(names)), msg
-    assert all(knob in msg for knob in ("layer_impl='flax'", "train_layer_impl='flax'",
-                                        "attention_impl='xla'")), msg
+    knobs = ("layer_impl='flax'", "train_layer_impl='flax'")
+    if "ff_size" not in names[0]:
+        knobs += ("attention_impl='xla'",)
+    assert all(knob in msg for knob in knobs), msg
     _check_training_config(resolve_auto(cfg, "cpu"), torch.device("cpu"))
     DDPMTrainer(cfg, device="cpu")
     plain = cfg.replace(denoiser=dataclasses.replace(
