@@ -282,7 +282,29 @@ Phases, one line each (the kernel checks one line per kernel):
      heads) K8 alone and a ddim50 on the bf16 plain layers (3 %, K8 400
      times); (e), in phase 12 on its root, `cli.train --latent_dim 64
      --num_heads 8 --ff_size 64`, 4 steps on K5 / K6 / K7.  Each width's
-     launches are counted apart (rows `<kernel>_w32`, ..., `_dh64`).
+     launches are counted apart (rows `<kernel>_w32`, ..., `_dh64`);
+ 17. (run after phase 10, the `[serve17]` lines, `serving_phase`) the rest
+     of serving at the flagship width, B = 2, on phase 4's mel and noise,
+     every trainer on phase 4's weights: `FusedDenoiser.__call__` against
+     its glue over `decoder_stack_plain` in bf16 and int8, on the music and
+     the null conditions (REL_TOL, one K1 launch a call); (a) guidance 2.5,
+     ddim50, in bf16 and bench.py's int8 config (K1 100 launches, K2 / K3
+     none); (b) the ancestral ladder, 50 respaced steps, one explicit
+     step noise; (c) "epsilon" and "previous_x" with "fixed_large" under it
+     (K1 50, K2 / K3 none: F9's gate); (d) `efficient_attention=False` on
+     the bf16 plain layers (K4 alone); each within 3 % of the plain float32
+     path's largest value, but two: the int8 mode under guidance, held
+     against the same ladder on K1's plain version (3 %) and within 4 % of
+     the float32 path (`GUIDED_INT8_REL_TOL`, above the serving bound), and
+     "epsilon", whose values leave unit scale, held element by element
+     (3 % of the element's value plus 3 % of the path's median value); the
+     ms of a call beside the plain path's; (e), in phase 12 on its default
+     run (`serving_cli_phase`), `cli.test_unseen` and `cli.visualize
+     --max_seconds 0 --steps 50 --save_npy` on a synthetic 150-s WAV: 3
+     windows, K4 21 and K1 / K2 / K3 150 launches each, the motion (4501,
+     13, 2) within 3 % of the plain float32 path's over the same checkpoint
+     and seed; `render_motion_video` is replaced by a recorder of that
+     motion and no video is rendered (a line says so).
 
 Every path runs at full depth; the run takes a few minutes of its 1200-s
 limit, so no path is cut.  Then one JSON line of per-kernel results (the
@@ -296,7 +318,8 @@ kernel paths added; the float32 rows with phase 15's: K4's serving mode
 K9, K10 and K11 those of (a), (b) and (c), K1's float32 modes, its float32
 GEMM, K2's float32 emb_act and K3's float32 mode (e)'s, K5's, K6's and
 K7's float32 modes those of (f) and of phase 12's float32 run; the
-width rows phase 16's, K5 / K6 at W64 with (e)'s added);
+width rows phase 16's, K5 / K6 at W64 with (e)'s added; phase 17's
+launches of K1 (bf16 and int8), its GEMM, K2, K3 and K4 added);
 each kernel's time, its
 plain version's, its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
@@ -494,6 +517,19 @@ GAN_EVAL_KEYS = ("SD_real", "SD_fake", "SDP", "wasserstein", "MSE", "RDE", "SCE"
                  "Diversity", "BC")
 
 
+# phase 17: the rest of serving; guidance at tests/test_train_e2e.py:139's
+# scale, and a track for the serving CLIs of three windows (60 + 60 + 30 s)
+SERVE_GUIDANCE = 2.5
+SERVE_CLI_SECONDS = 150
+# bench.py's int8 config under guidance 2.5 reads 3.21 % of the plain
+# float32 path's largest value on an H100 (700 W; unguided 1.74 %), above
+# GENERATE_REL_TOL: the int8 AdaLN's drift, which guidance's (1 - s) u + s c
+# enlarges.  The float32 comparison of that item is held just above the
+# reading; its kernel is held to GENERATE_REL_TOL against K1's plain version
+# in the same mode.
+GUIDED_INT8_REL_TOL = 0.04
+
+
 def _run(cmd: list[str]) -> str:
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
     if proc.returncode:
@@ -508,12 +544,14 @@ def _timed(fn):
     return out, time.perf_counter() - t0
 
 
-def cli_phase(smi: str, bare_step_s: float) -> tuple[dict[str, int], dict[str, int]]:
+def cli_phase(smi: str, bare_step_s: float) -> tuple[dict[str, int], dict[str, int],
+                                                     dict[str, int]]:
     """Phase 12: `python -m conductor_tpu_torch.cli.train` on a synthetic
     root, in process unless a signal is sent; returns the launches of K5 /
     K6 / K7 in its default run and of K5 / K6's float32 mode in its float32
-    run, and those of phase 16 (e), the CLI at ``WIDTH_CLI_ARGS`` on the
-    same root.  Raises SystemExit on any failed check."""
+    run, those of phase 16 (e), the CLI at ``WIDTH_CLI_ARGS`` on the same
+    root, and those of phase 17 (e), the serving CLIs on the default run
+    (`serving_cli_phase`).  Raises SystemExit on any failed check."""
     import os
     import shutil
     import signal
@@ -621,6 +659,7 @@ def cli_phase(smi: str, bare_step_s: float) -> tuple[dict[str, int], dict[str, i
                              f"{per_step}")
         if CheckpointManager(os.path.join(run_dir, "ckpt")).all_steps() != [2, 4, 6]:
             raise SystemExit("chip_smoke: the CLI's default run did not save steps 2, 4, 6")
+        serve_counts = serving_cli_phase(smi, run_dir, work)  # phase 17 (e)
 
         # (3) resume from an epoch boundary, cached features, cuDNN
         # deterministic: --epochs 1 then --continue --epochs 2 equals a
@@ -760,7 +799,7 @@ def cli_phase(smi: str, bare_step_s: float) -> tuple[dict[str, int], dict[str, i
                               "stgcn_backward": 4}):
             raise SystemExit(f"chip_smoke: the CLI at --latent_dim 64 did not run on K5 / K6 / "
                              f"K7: {w_recs} {w_impls} {w_step}")
-        return {k: per_step[k] + f32_step[k] for k in CLI_KERNELS}, w_step
+        return {k: per_step[k] + f32_step[k] for k in CLI_KERNELS}, w_step, serve_counts
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1313,6 +1352,264 @@ def widths_phase(smi, cfg, feat_sd, mel, noise, mel_train, motion_train, train, 
     del flax64, plain64
     print(f"[widths] launches by width: {width_counts}")
     return results, counts
+
+
+def serving_phase(smi, cfg, plain_cfg, sd, mel, noise, rng):
+    """Phase 17 (a)-(d): the rest of serving at the flagship width on phase
+    4's mel and noise, B = 2, each on the kernels against the plain float32
+    path on the same inputs (`GENERATE_REL_TOL` of its largest value):
+    `FusedDenoiser.__call__` once against its glue over
+    `decoder_stack_plain` in bf16 and int8; (a) guidance 2.5, ddim50, in
+    bf16 ("auto" on ``cfg``) and bench.py's int8 config; (b) the ancestral
+    ladder, 50 respaced steps, one explicit ``step_noise`` from ``rng``;
+    (c) "epsilon" and "previous_x" with "fixed_large" under it; (d)
+    ``efficient_attention=False`` in bf16 on the plain layers.  The int8
+    mode under guidance is held to `GUIDED_INT8_REL_TOL` of the float32
+    path and to `GENERATE_REL_TOL` of K1's plain version in the mode;
+    "epsilon", whose ladder on weights not trained for it leaves unit scale
+    (its values spread over orders of magnitude), element by element to
+    `GENERATE_REL_TOL` of the element's value plus that of the path's median
+    value.  Every trainer loads ``sd`` afresh (phase 6 trained phase 4's),
+    the plain float32 path on ``plain_cfg``.  On the
+    fused layers (a)-(c) must launch K1 alone through `__call__` (twice a
+    step under guidance) and K2 / K3 never: the F9 gate.  Returns the
+    launches of (a)-(d).  Raises SystemExit on any failed check."""
+    from conductor_tpu_torch import DDPMTrainer
+    from conductor_tpu_torch.kernel_checks import REL_TOL
+    from conductor_tpu_torch.ops import launch_counts, part_launch_counts, reset_launch_counts
+    from conductor_tpu_torch.ops.decoder_stack import decoder_stack_plain
+    from conductor_tpu_torch.train import fused_denoiser
+
+    t_phase = time.perf_counter()
+
+    def trainer(base, **diffusion):
+        tr = DDPMTrainer(base.replace(diffusion=dataclasses.replace(base.diffusion, **diffusion)),
+                         device="cuda")
+        tr.load_reference_state_dict(sd)
+        return tr
+
+    kernel_tr, plain_tr = trainer(cfg), trainer(plain_cfg)
+    bench_tr = trainer(cfg.replace(denoiser=dataclasses.replace(cfg.denoiser, **BENCH_DENOISER)))
+
+    # `__call__` once against the same glue over K1's plain version, on
+    # the music and the null conditions
+    t = torch.tensor([cfg.diffusion.steps - 1, 17], device="cuda")
+    for label, tr in (("bf16", kernel_tr), ("int8", bench_tr)):
+        model, fused = tr.model, tr.fused
+        with torch.no_grad():
+            music = model.cond_from_features(tr.fused_encoder(mel))
+            for cond_name, xf in (("music", music), ("null", model.encode_null(*noise.shape[:2]))):
+                cond = fused.prepare_cond(dict(model.precompute_cond(*xf),
+                                               temb_table=tr.temb_table))
+                reset_launch_counts()
+                out = fused(noise, t, cond)
+                torch.cuda.synchronize()
+                called = {k: n for k, n in launch_counts().items() if n}
+                saved = fused_denoiser.fused_decoder_stack
+                fused_denoiser.fused_decoder_stack = decoder_stack_plain
+                try:
+                    ref = fused(noise, t, cond)
+                finally:
+                    fused_denoiser.fused_decoder_stack = saved
+                err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+                name = "decoder_stack" if label == "bf16" else "decoder_stack_int8"
+                print(f"[serve17] FusedDenoiser.__call__ {label}, {cond_name} condition, t "
+                      f"{t.tolist()}: max_abs_err {err:.6g} against decoder_stack_plain's glue "
+                      f"(max {scale:.6g}, bound {REL_TOL} of it); launches {called}")
+                if called != {name: 1} or not err <= REL_TOL * scale:
+                    raise SystemExit(f"chip_smoke: FusedDenoiser.__call__ ({label}, {cond_name}) "
+                                     f"disagrees with its plain glue or launched {called}")
+
+    step_noise = torch.from_numpy(rng.normal(size=(50, *noise.shape)).astype(np.float32)).cuda()
+    f32_types = {}
+
+    def plain_for(**diffusion):
+        key = tuple(sorted(diffusion.items()))
+        if key not in f32_types:
+            f32_types[key] = trainer(plain_tr.cfg, **diffusion) if diffusion else plain_tr
+        return f32_types[key]
+
+    items = [  # (label, kernel trainer, plain trainer, generate kwargs, K1 mode, K1 calls)
+        ("(a) guidance 2.5, ddim50, bf16", kernel_tr, plain_for(),
+         dict(guidance_scale=SERVE_GUIDANCE), "decoder_stack", 100),
+        ("(a) guidance 2.5, ddim50, bench.py's int8 config", bench_tr, plain_for(),
+         dict(guidance_scale=SERVE_GUIDANCE), "decoder_stack_int8", 100),
+        ("(b) ancestral, 50 steps, bf16", kernel_tr, plain_for(),
+         dict(sampler="ancestral", step_noise=step_noise), "decoder_stack", 50),
+    ]
+    for mean_type in ("epsilon", "previous_x"):
+        types = dict(mean_type=mean_type, var_type="fixed_large")
+        items.append((f"(c) {mean_type} / fixed_large, ancestral, 50 steps, bf16",
+                      trainer(cfg, **types), plain_for(**types),
+                      dict(sampler="ancestral", step_noise=step_noise), "decoder_stack", 50))
+    quad_tr = DDPMTrainer(cfg.replace(denoiser=dataclasses.replace(
+        cfg.denoiser, efficient_attention=False, layer_impl="auto", train_layer_impl="auto")),
+        device="cuda")
+    qd = quad_tr.cfg.denoiser
+    if (qd.layer_impl, qd.compute_dtype, qd.music_encoder_impl, quad_tr.model.efficient) != (
+            "flax", "bfloat16", "pallas", False):
+        raise SystemExit(f"chip_smoke: 'auto' with efficient_attention=False resolved to {qd}")
+    quad_tr.load_reference_state_dict(sd)
+    quad_plain = DDPMTrainer(plain_tr.cfg.replace(denoiser=dataclasses.replace(
+        plain_tr.cfg.denoiser, efficient_attention=False)), device="cuda")
+    quad_plain.load_reference_state_dict(sd)
+    items.append(("(d) efficient_attention=False, ddim50, bf16 plain layers", quad_tr, quad_plain,
+                  {}, None, 0))
+
+    def plain_k1_ladder(tr, kwargs):
+        """``tr``'s call with K1's plain version in its place (the mode's
+        operands and glue alike): the int8 witness under guidance."""
+        saved = fused_denoiser.fused_decoder_stack
+        fused_denoiser.fused_decoder_stack = decoder_stack_plain
+        try:
+            return _timed(lambda: tr.generate(mel, num_steps=50, noise=noise, **kwargs))
+        finally:
+            fused_denoiser.fused_decoder_stack = saved
+
+    counts = {}
+    for label, tr, ref_tr, kwargs, k1, k1_calls in items:
+        reset_launch_counts()
+        out, ms = _timed(lambda: tr.generate(mel, num_steps=50, noise=noise, **kwargs))
+        c = {k: n for k, n in (launch_counts() | part_launch_counts()).items() if n}
+        out_ref, ms_ref = _timed(lambda: ref_tr.generate(mel, num_steps=50, noise=noise, **kwargs))
+        _, ms = _timed(lambda: tr.generate(mel, num_steps=50, noise=noise, **kwargs))
+        err, scale = float((out - out_ref).abs().max()), float(out_ref.abs().max())
+        f32_tol = GENERATE_REL_TOL
+        if k1 == "decoder_stack_int8" and "guidance_scale" in kwargs:
+            f32_tol = GUIDED_INT8_REL_TOL
+            out_w, ms_w = plain_k1_ladder(tr, kwargs)
+            err_w = float((out - out_w).abs().max())
+            print(f"[serve17] {label}: motion max_abs_err {err_w:.6g} against the same ladder on "
+                  f"K1's plain version in the int8 mode ({ms_w * 1e3:.1f} ms; of the float32 "
+                  f"path's max {scale:.6g}: {err_w / scale:.4%}, bound {GENERATE_REL_TOL})")
+            if not err_w <= GENERATE_REL_TOL * scale:
+                raise SystemExit(f"chip_smoke: {label} disagrees with K1's plain version")
+        if label.startswith("(c) epsilon"):
+            ref_abs = out_ref.abs()
+            median = float(ref_abs.median())
+            worst = float(((out - out_ref).abs()
+                           / (GENERATE_REL_TOL * (ref_abs + median))).max())
+            within = worst <= 1.0
+            print(f"[serve17] {label}: motion |err| against the plain float32 path's, element by "
+                  f"element, at most {worst:.4f} of the bound {GENERATE_REL_TOL} x (|value| + the "
+                  f"median {median:.6g}); max_abs_err {err:.6g} (max {scale:.6g}); launches {c}")
+        else:
+            within = err <= f32_tol * scale
+            print(f"[serve17] {label}: motion max_abs_err {err:.6g} against the plain float32 "
+                  f"path's (max {scale:.6g}: {err / scale:.4%}, bound {f32_tol:.4g} of it); "
+                  f"launches {c}")
+        print(f"[time] {label}, B=2: {ms * 1e3:.1f} ms, plain float32 path {ms_ref * 1e3:.1f} ms "
+              f"on {smi}")
+        gemm = "adaln_modulation_int8" if k1 == "decoder_stack_int8" else "adaln_modulation"
+        want = {"conv_block": 7} | ({k1: k1_calls, "adaln_modulation": k1_calls} if k1 else {})
+        if (tuple(out.shape) != (2, 1800, 26) or not bool(torch.isfinite(out).all())
+                or not within):
+            raise SystemExit(f"chip_smoke: {label} on the kernels disagrees with the plain path")
+        if c != want:
+            raise SystemExit(f"chip_smoke: {label} did not launch K1 alone through __call__ (and "
+                             f"K4 7 times), K2 / K3 never: {c}")
+        for k, n in c.items():
+            counts[gemm if k == "adaln_modulation" else k] = counts.get(
+                gemm if k == "adaln_modulation" else k, 0) + n
+    print(f"[serve17] (a)-(d) launches {counts}; phase 17 (a)-(d) took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def serving_cli_phase(smi: str, run_dir: str, work: str) -> dict[str, int]:
+    """Phase 17 (e), run inside phase 12 on its default run (bf16, the
+    kernels, the run's config and newest checkpoint): `cli.test_unseen`
+    and `cli.visualize --max_seconds 0 --steps 50 --save_npy`, in process,
+    on a synthetic 150-s 22.05-kHz WAV written with `wave`.  Each CLI: 3
+    windows (60 + 60 + 30 s), K4 21 launches and K1 / K2 / K3 150 each and
+    no other; the motion (4501, 13, 2), finite, the two CLIs' equal, and
+    within `GENERATE_REL_TOL` of the plain float32 path's `generate_long`
+    over the same checkpoint and seed.  `render_motion_video` is replaced
+    by a recorder of the motion it is handed: no video is rendered (the
+    CPU test of the CLIs covers the rendering call).  Returns the launches of the two CLIs.  Raises SystemExit on any failed
+    check."""
+    import os
+    import wave
+
+    from conductor_tpu_torch import DDPMTrainer
+    from conductor_tpu_torch.cli import test_unseen, visualize
+    from conductor_tpu_torch.config import Config, pin_faithful
+    from conductor_tpu_torch.data.mel import extract_mel_feature
+    from conductor_tpu_torch.ops import launch_counts, reset_launch_counts
+    from conductor_tpu_torch.prospective.unseen import generate_long
+    from conductor_tpu_torch.train.checkpoints import CheckpointManager
+    from conductor_tpu_torch.viz import motion as viz
+
+    music_dir = os.path.join(work, "music")
+    os.makedirs(music_dir)
+    wav = os.path.join(music_dir, "track.wav")
+    sr, seconds = 22050, SERVE_CLI_SECONDS
+    tt = np.arange(sr * seconds) / sr
+    y = 0.4 * np.sin(2 * np.pi * 220 * tt) * (1 + np.sin(2 * np.pi * 2 * tt)) / 2
+    y += 0.05 * np.random.RandomState(17).normal(size=tt.shape)
+    with wave.open(wav, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes((np.clip(y, -1, 1) * 32767).astype(np.int16).tobytes())
+
+    seen = []
+    render = viz.render_motion_video
+
+    def recorder(motions, save_path, name="motion", **kw):
+        """Keeps the motion in place of rendering it."""
+        seen.append(np.asarray(motions[0]))
+        return os.path.join(save_path, f"{name}.avi")
+
+    viz.render_motion_video = recorder
+    runs = {}
+    try:
+        for name, cli, argv in (
+                ("test_unseen", test_unseen.main,
+                 ["--music_dir", music_dir, "--out_dir", os.path.join(work, "unseen")]),
+                ("visualize", visualize.main,
+                 ["--music", wav, "--max_seconds", "0", "--save_npy", "--out_dir",
+                  os.path.join(work, "viz")])):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            cli(["--run_dir", run_dir, "--steps", "50", *argv])
+            torch.cuda.synchronize()
+            runs[name] = ({k: n for k, n in launch_counts().items() if n},
+                          time.perf_counter() - t0)
+    finally:
+        viz.render_motion_video = render
+    saved = np.load(os.path.join(work, "viz", "track.npy"))
+
+    # the plain float32 path: the same checkpoint, windows and seed
+    plain = DDPMTrainer(pin_faithful(Config.load(os.path.join(run_dir, "config.json"))),
+                        device="cuda")
+    plain.load_state_dict(CheckpointManager(os.path.join(run_dir, "ckpt")).restore())
+    t0 = time.perf_counter()
+    ref = generate_long(visualize.window_generator(plain, 0, num_steps=50),
+                        extract_mel_feature(wav))
+    plain_s = time.perf_counter() - t0
+    err, scale = float(np.abs(seen[1] - ref).max()), float(np.abs(ref).max())
+    same = float(np.abs(seen[0] - seen[1]).max())
+    want = {"conv_block": 21, "decoder_stack": 150, "sampler_prologue": 150,
+            "sampler_epilogue": 150}
+    for name, (c, wall) in runs.items():
+        print(f"[serve17] (e) cli.{name} --steps 50 on phase 12's default run, a {seconds}-s "
+              f"22.05-kHz WAV: launches {c}, wall {wall:.2f} s (mel included) on {smi}")
+    print(f"[serve17] (e) motion {[m.shape for m in seen]}, the CLIs' largest difference "
+          f"{same:.6g}; visualize's against the plain float32 path's generate_long (same "
+          f"checkpoint, windows and seed; {plain_s:.2f} s) max_abs_err {err:.6g} (max {scale:.6g}, "
+          f"bound {GENERATE_REL_TOL} of it); --save_npy equal to the recorded motion: "
+          f"{np.array_equal(saved, seen[1])}")
+    print("[serve17] (e) no video rendered: the motion is recorded in place of "
+          "render_motion_video")
+    if (len(seen) != 2 or any(m.shape != (4501, 13, 2) or not np.isfinite(m).all() for m in seen)
+            or not np.array_equal(saved, seen[1]) or not err <= GENERATE_REL_TOL * scale
+            or not same <= GENERATE_REL_TOL * scale):
+        raise SystemExit("chip_smoke: the serving CLIs went wrong on the card")
+    if any(c != want for c, _ in runs.values()):
+        raise SystemExit(f"chip_smoke: the serving CLIs did not launch K4 21 and K1 / K2 / K3 "
+                         f"150 times each: {runs}")
+    return {k: sum(c.get(k, 0) for c, _ in runs.values()) for k in want}
 
 
 def main() -> int:
@@ -1931,6 +2228,12 @@ def main() -> int:
           f"{fps_b:.1f} on the bf16 config (best of 3: {times_b} s; phase 5's one call: "
           f"{fps:.1f}), on {smi}")
 
+    # 17. the rest of serving (a)-(d) on phase 4's mel and noise; (e), the
+    # serving CLIs, runs in phase 12 on its default run
+    for k, n in serving_phase(smi, cfg, plain_cfg, sd, mel, noise,
+                              np.random.RandomState(17)).items():
+        counts[k] += n
+
     # 11. M2SGAN: 4 WGAN-GP steps at B = 55 on each path, (a) "auto" (K4
     # frozen encoder, K7 bf16) beside the plain float32 path, (b) (a) with
     # the features and real SyncLoss latents cached, (c) the encoder
@@ -2030,8 +2333,10 @@ def main() -> int:
 
     # 12. the stage-2 CLI on the card, beside phase 6's bare step (and phase
     # 16 (e), the CLI at --latent_dim 64, on its root)
-    cli_counts, w64_cli_counts = cli_phase(smi, float(np.median(times_k)))
+    cli_counts, w64_cli_counts, serve_cli_counts = cli_phase(smi, float(np.median(times_k)))
     for k, n in cli_counts.items():
+        counts[k] += n
+    for k, n in serve_cli_counts.items():  # phase 17 (e)
         counts[k] += n
 
     # 13. and 14. the stage-1 CLIs on one synthetic root, beside phase 7's

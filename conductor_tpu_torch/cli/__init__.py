@@ -1,5 +1,6 @@
 """Command-line entry points: `train` (stage 2), `train_m2snet` and
-`train_m2sgan` (stage 1)."""
+`train_m2sgan` (stage 1), and serving: `visualize` (one track) and
+`test_unseen` (a directory of tracks)."""
 
 from __future__ import annotations
 

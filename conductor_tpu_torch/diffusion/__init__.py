@@ -1,4 +1,5 @@
-"""Diffusion engine: schedules, Gaussian math and training losses, DDIM."""
+"""Diffusion engine: schedules, Gaussian math and training losses, the DDIM
+and ancestral samplers."""
 
 from .gaussian import (  # noqa: F401
     extract,
@@ -6,10 +7,12 @@ from .gaussian import (  # noqa: F401
     model_timesteps,
     p_mean_variance,
     predict_eps_from_xstart,
+    predict_xstart_from_eps,
+    predict_xstart_from_xprev,
     q_sample,
     training_losses,
 )
-from .sampling import ddim_sample_loop, ddim_step  # noqa: F401
+from .sampling import ancestral_step, ddim_sample_loop, ddim_step, p_sample_loop  # noqa: F401
 from .schedule import (  # noqa: F401
     DiffusionSchedule,
     get_named_beta_schedule,

@@ -1,11 +1,14 @@
 """Gaussian-diffusion math of the serving and training paths.
 
 Port of `conductor_tpu/diffusion/gaussian.py`: `extract`, `q_sample`,
-`q_posterior_mean_variance`, `predict_eps_from_xstart`, `model_timesteps`
-and `p_mean_variance` for the trainer's START_X / FIXED_SMALL setting with
-``clip_denoised=False``, and `mean_flat` / `training_losses` for the MSE
-family with the reference's hard-coded velocity channel groups.  The KL
-losses and the learned variances are not ported and raise.
+`q_posterior_mean_variance`, the x0 / eps conversions, `model_timesteps`
+and `p_mean_variance` for the mean types the trainer takes ("start_x",
+"epsilon", "previous_x") and the fixed variances ("fixed_small",
+"fixed_large"), without clipping the x0 prediction (the trainer's
+setting), and
+`mean_flat` / `training_losses` for the MSE family with the reference's
+hard-coded velocity channel groups.  The KL losses and the learned
+variances are not ported and raise.
 """
 
 from __future__ import annotations
@@ -54,11 +57,25 @@ def q_posterior_mean_variance(sched: DiffusionSchedule, x_start, x_t, t):
     return mean, variance, log_variance
 
 
+def predict_xstart_from_eps(sched: DiffusionSchedule, x_t, t, eps):
+    nd = x_t.ndim
+    return (
+        extract(sched.sqrt_recip_alphas_cumprod, t, nd) * x_t
+        - extract(sched.sqrt_recipm1_alphas_cumprod, t, nd) * eps
+    )
+
+
 def predict_eps_from_xstart(sched: DiffusionSchedule, x_t, t, pred_xstart):
     nd = x_t.ndim
     return (
         extract(sched.sqrt_recip_alphas_cumprod, t, nd) * x_t - pred_xstart
     ) / extract(sched.sqrt_recipm1_alphas_cumprod, t, nd)
+
+
+def predict_xstart_from_xprev(sched: DiffusionSchedule, x_t, t, xprev):
+    nd = x_t.ndim
+    coef1, coef2 = sched.posterior_mean_coef1, sched.posterior_mean_coef2
+    return extract(1.0 / coef1, t, nd) * xprev - extract(coef2 / coef1, t, nd) * x_t
 
 
 def model_timesteps(sched: DiffusionSchedule, t: torch.Tensor) -> torch.Tensor:
@@ -74,15 +91,52 @@ class PMeanVariance(NamedTuple):
     pred_xstart: torch.Tensor
 
 
+MEAN_TYPES = ("start_x", "epsilon", "previous_x")
+VAR_TYPES = ("fixed_small", "fixed_large")
+
+
+def check_types(mean_type: str, var_type: str) -> None:
+    """Raise on a mean or variance type the port does not sample with: the
+    learned variances need a 2x-wide denoiser head, which the JAX trainer
+    refuses too (`conductor_tpu/train/ddpm_trainer.py:115-118`)."""
+    if var_type in ("learned", "learned_range"):
+        raise NotImplementedError("learned variances are not ported (the trainer takes "
+                                  f"{VAR_TYPES})")
+    if mean_type not in MEAN_TYPES or var_type not in VAR_TYPES:
+        raise ValueError(f"unknown mean_type / var_type: {mean_type!r}, {var_type!r}")
+
+
 def p_mean_variance(
-    sched: DiffusionSchedule, model_fn: ModelFn, x: torch.Tensor, t: torch.Tensor
+    sched: DiffusionSchedule,
+    model_fn: ModelFn,
+    x: torch.Tensor,
+    t: torch.Tensor,
+    *,
+    mean_type: str = "start_x",
+    var_type: str = "fixed_small",
 ) -> PMeanVariance:
-    """p(x_{t-1} | x_t) moments plus the x0 prediction under START_X /
-    FIXED_SMALL, without clipping.  ``t`` indexes the (possibly respaced)
-    schedule; the model receives original-ladder timesteps through
-    ``timestep_map``."""
-    pred_xstart = model_fn(x, model_timesteps(sched, t))
-    return PMeanVariance(*q_posterior_mean_variance(sched, pred_xstart, x, t), pred_xstart)
+    """p(x_{t-1} | x_t) moments plus the x0 prediction (JAX
+    `p_mean_variance`, `conductor_tpu/diffusion/gaussian.py:137-196`).
+    ``t`` indexes the (possibly respaced) schedule; the model receives
+    original-ladder timesteps through ``timestep_map``.  The x0 prediction
+    is not clipped: JAX's trainer samples with ``clip_denoised=False``."""
+    check_types(mean_type, var_type)
+    nd = x.ndim
+    model_output = model_fn(x, model_timesteps(sched, t))
+    if var_type == "fixed_small":
+        variance = extract(sched.posterior_variance, t, nd)
+        log_variance = extract(sched.posterior_log_variance_clipped, t, nd)
+    else:
+        variance = extract(sched.fixed_large_variance, t, nd)
+        log_variance = extract(sched.fixed_large_log_variance, t, nd)
+    if mean_type == "previous_x":
+        pred_xstart = predict_xstart_from_xprev(sched, x, t, model_output)
+        mean = model_output
+    else:
+        pred_xstart = (predict_xstart_from_eps(sched, x, t, model_output)
+                       if mean_type == "epsilon" else model_output)
+        mean = q_posterior_mean_variance(sched, pred_xstart, x, t)[0]
+    return PMeanVariance(mean, variance, log_variance, pred_xstart)
 
 
 def mean_flat(x: torch.Tensor) -> torch.Tensor:
@@ -107,18 +161,15 @@ def training_losses(
     ``target`` / ``pred`` for the trainer's masked and feature losses."""
     if loss_type not in ("mse", "rescaled_mse"):
         raise NotImplementedError(f"loss_type {loss_type!r} is not ported (MSE family only)")
-    if var_type in ("learned", "learned_range"):
-        raise NotImplementedError("learned variances are not ported")
+    check_types(mean_type, var_type)
     x_t = q_sample(sched, x_start, t, noise)
     model_output = model_fn(x_t, model_timesteps(sched, t))
     if mean_type == "start_x":
         target = x_start
     elif mean_type == "epsilon":
         target = noise
-    elif mean_type == "previous_x":
-        target = q_posterior_mean_variance(sched, x_start, x_t, t)[0]
     else:
-        raise ValueError(f"unknown mean_type {mean_type!r}")
+        target = q_posterior_mean_variance(sched, x_start, x_t, t)[0]
     b, n = target.shape[:2]
     target = target.reshape(b, n, -1)
     model_output = model_output.reshape(b, n, -1)

@@ -1,12 +1,14 @@
 """MotionTransformer, the diffusion denoiser: the serving surface.
 
-Port of `conductor_tpu/models/transformer.py:44-467` (`timestep_embedding`,
+Port of `conductor_tpu/models/transformer.py:44-508` (`timestep_embedding`,
 `StylizationBlock`, `LinearSelfAttention`, `LinearCrossAttention` with its
-step-invariant `kv_state`, `FFN`, `DecoderLayer`, and `MotionTransformer`'s
-`encode_music`, `cond_from_features` with the training-time condition
-dropout, `precompute_cond`, `time_embed_table` and `denoise`), linear
-attention only.  The music encoder is frozen: it runs without gradients and
-in eval mode.
+step-invariant `kv_state`, the quadratic blocks of ``efficient=False``
+(the reference's ``--no_eff``), `FFN`, `DecoderLayer`, and
+`MotionTransformer`'s `encode_music`, `cond_from_features` with the
+training-time condition dropout, `encode_null`, `precompute_cond`,
+`time_embed_table` and `denoise`; and `guided_denoiser`, the
+classifier-free guidance of a serving call).  The music encoder is
+frozen: it runs without gradients and in eval mode.
 
 ``dtype`` is flax's ``dtype=`` (`models.precision`): parameters stay
 float32; every Linear and LayerNorm returns ``dtype`` (the AdaLN projection
@@ -14,16 +16,21 @@ float32; every Linear and LayerNorm returns ``dtype`` (the AdaLN projection
 in ``dtype``, the query softmaxes and the cross-attention product run in
 it, the cross-attention KV state takes its time softmax and contraction in
 float32 and is rounded to ``dtype`` (JAX `transformer.py:147-151`), the
-music encoder runs in ``dtype``, and the output is float32.
-``attention_impl`` picks the self-attention: "xla", the module math, or
-"pallas", the K8 kernel (`ops.attention`).
+music encoder runs in ``dtype``, and the output is float32.  The quadratic
+blocks round where JAX's do: the scores in ``dtype``, promoted to float32
+by the self-attention's float32 key mask (so its softmax and its product
+with v run in float32), the cross-attention's softmax and product in
+``dtype``.  ``attention_impl`` picks the linear self-attention: "xla", the
+module math, or "pallas", the K8 kernel (`ops.attention`); the quadratic
+blocks have no kernel.
 
 Parameter names are the reference state-dict keys
 (`Diffusion_Stage/models/transformer.py`), so a reference checkpoint loads
-with ``load_state_dict(strict=True)``.  Unlike the flax module, which packs
-all AdaLN projections into one shared kernel, every StylizationBlock keeps
-its own ``emb_layers.1`` Linear as in the reference; the fused path packs
-them into a per-layer (E, 6D) bank (`train/fused_denoiser.py`).
+with ``load_state_dict(strict=True)``; the quadratic and linear variants
+share them.  Unlike the flax module, which packs all AdaLN projections
+into one shared kernel, every StylizationBlock keeps its own
+``emb_layers.1`` Linear as in the reference; the fused path packs them
+into a per-layer (E, 6D) bank (`train/fused_denoiser.py`).
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.linear_attention import temporal_linear_attention
+from ..ops.linear_attention import _einsum, temporal_linear_attention
 from .music_encoder import MusicEncoder
 from .precision import layer_norm, linear
 
@@ -145,6 +152,82 @@ class LinearCrossAttention(nn.Module):
         return x + self.proj_out(y, emb)
 
 
+def quadratic_self_attention(q, k, v, num_heads: int, src_mask: torch.Tensor | None):
+    """O(T^2) softmax attention (JAX `ops/linear_attention.py:89-115`):
+    scores scaled by sqrt(D/H), the additive ``(1 - mask) * -1e5`` on KEY
+    positions (JAX's deliberate fix of the reference's query-side mask,
+    which is a no-op; with a full mask the two coincide), softmax over
+    keys.  In the inputs' dtype with JAX's promotion: a float32 mask makes
+    the scores, the softmax and the product with v float32.  The scores are
+    laid out (B, H, Tq, Tk), so that the softmax runs over the last axis."""
+    b, t, d = q.shape
+    h = num_heads
+    qh, kh, vh = q.reshape(b, t, h, d // h), k.reshape(b, -1, h, d // h), v.reshape(b, -1, h, d // h)
+    scores = torch.einsum("bnhd,bmhd->bhnm", qh, kh) / math.sqrt(d / h)
+    if src_mask is not None:
+        scores = scores + (1.0 - src_mask[:, None, None, :, 0]) * -100000.0
+    weights = torch.softmax(scores, dim=-1)
+    return _einsum("bhnm,bmhd->bnhd", weights, vh).reshape(b, t, d)
+
+
+class QuadraticSelfAttention(nn.Module):
+    """``efficient=False`` self-attention, O(T^2) (JAX
+    `QuadraticSelfAttention`, the reference's `transformer.py:198-229`),
+    under `LinearSelfAttention`'s parameter names."""
+
+    def __init__(self, latent_dim: int, num_heads: int, time_embed_dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads, self.dtype = num_heads, dtype
+        self.norm = nn.LayerNorm(latent_dim, eps=LN_EPS)
+        self.query = nn.Linear(latent_dim, latent_dim)
+        self.key = nn.Linear(latent_dim, latent_dim)
+        self.value = nn.Linear(latent_dim, latent_dim)
+        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dtype)
+
+    def forward(self, x, emb, src_mask):
+        dt = self.dtype
+        xn = layer_norm(self.norm, x, dt)
+        y = quadratic_self_attention(linear(self.query, xn, dt), linear(self.key, xn, dt),
+                                     linear(self.value, xn, dt), self.num_heads, src_mask)
+        return x + self.proj_out(y, emb)
+
+
+class QuadraticCrossAttention(nn.Module):
+    """``efficient=False`` cross-attention over the music tokens, O(T N),
+    without a mask (JAX `QuadraticCrossAttention`, the reference's
+    `transformer.py:231-264`), under `LinearCrossAttention`'s parameter
+    names.  `kv_state` is the step-invariant (K, V) of the tokens."""
+
+    def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int, time_embed_dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads, self.dtype = num_heads, dtype
+        self.norm = nn.LayerNorm(latent_dim, eps=LN_EPS)
+        self.text_norm = nn.LayerNorm(text_latent_dim, eps=LN_EPS)
+        self.query = nn.Linear(latent_dim, latent_dim)
+        self.key = nn.Linear(text_latent_dim, latent_dim)
+        self.value = nn.Linear(text_latent_dim, latent_dim)
+        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dtype)
+
+    def kv_state(self, xf: torch.Tensor, dtype: torch.dtype | None = None):
+        """(K, V), each (B, N, D) in ``dtype`` (the block's by default)."""
+        dt = dtype or self.dtype
+        fn = layer_norm(self.text_norm, xf, dt)
+        return linear(self.key, fn, dt), linear(self.value, fn, dt)
+
+    def forward(self, x, kv, emb):
+        k, v = kv
+        q = linear(self.query, layer_norm(self.norm, x, self.dtype), self.dtype)
+        b, t, d = q.shape
+        h = self.num_heads
+        scores = torch.einsum("bnhd,bmhd->bhnm", q.reshape(b, t, h, d // h),
+                              k.reshape(b, -1, h, d // h)) / math.sqrt(d / h)
+        weights = torch.softmax(scores, dim=-1)
+        y = _einsum("bhnm,bmhd->bnhd", weights, v.reshape(b, -1, h, d // h)).reshape(b, t, d)
+        return x + self.proj_out(y, emb)
+
+
 class FFN(nn.Module):
     """tanh-GELU FFN (the JAX package's `nn.gelu` is the tanh form)."""
 
@@ -163,15 +246,22 @@ class FFN(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    """self-attention -> cross-attention -> FFN."""
+    """self-attention -> cross-attention -> FFN; linear attention, or with
+    ``efficient=False`` the quadratic blocks."""
 
     def __init__(self, latent_dim, ffn_dim, num_heads, time_embed_dim,
-                 dtype: torch.dtype = torch.float32, attention_impl: str = "xla"):
+                 dtype: torch.dtype = torch.float32, attention_impl: str = "xla",
+                 efficient: bool = True):
         super().__init__()
-        self.sa_block = LinearSelfAttention(latent_dim, num_heads, time_embed_dim, dtype,
-                                            attention_impl)
-        self.ca_block = LinearCrossAttention(latent_dim, time_embed_dim, num_heads, time_embed_dim,
-                                             dtype)
+        if efficient:
+            self.sa_block = LinearSelfAttention(latent_dim, num_heads, time_embed_dim, dtype,
+                                                attention_impl)
+            self.ca_block = LinearCrossAttention(latent_dim, time_embed_dim, num_heads,
+                                                 time_embed_dim, dtype)
+        else:
+            self.sa_block = QuadraticSelfAttention(latent_dim, num_heads, time_embed_dim, dtype)
+            self.ca_block = QuadraticCrossAttention(latent_dim, time_embed_dim, num_heads,
+                                                    time_embed_dim, dtype)
         self.ffn = FFN(latent_dim, ffn_dim, time_embed_dim, dtype)
 
     def forward(self, x, cross_kv, emb, src_mask):
@@ -196,9 +286,12 @@ class MotionTransformer(nn.Module):
         cond_mask_prob: float = 0.1,
         dtype: torch.dtype = torch.float32,
         attention_impl: str = "xla",
+        efficient: bool = True,
     ):
         super().__init__()
         self.latent_dim = latent_dim
+        self.music_latent_dim = music_latent_dim
+        self.efficient = efficient
         self.num_heads = num_heads
         self.cond_mask_prob = cond_mask_prob
         self.dtype = dtype
@@ -215,18 +308,18 @@ class MotionTransformer(nn.Module):
             nn.Linear(time_embed_dim, time_embed_dim),
         )
         self.temporal_decoder_blocks = nn.ModuleList(
-            DecoderLayer(latent_dim, ff_size, num_heads, time_embed_dim, dtype, attention_impl)
+            DecoderLayer(latent_dim, ff_size, num_heads, time_embed_dim, dtype, attention_impl,
+                         efficient)
             for _ in range(num_layers)
         )
         self.out = nn.Linear(latent_dim, input_feats)
 
     @classmethod
     def from_config(cls, d) -> "MotionTransformer":
-        """Build from a `DenoiserConfig`, its compute dtype and attention
-        impl included; an unresolved "auto" takes the plain module's
-        float32 and "xla" (the trainers resolve first, `config.resolve_auto`)."""
-        if not d.efficient_attention:
-            raise NotImplementedError("the port implements linear attention only")
+        """Build from a `DenoiserConfig`, its compute dtype, attention impl
+        and ``efficient_attention`` included; an unresolved "auto" takes the
+        plain module's float32 and "xla" (the trainers resolve first,
+        `config.resolve_auto`)."""
         dtype = "float32" if d.compute_dtype == "auto" else d.compute_dtype
         return cls(
             input_feats=d.input_feats, num_frames=d.num_frames, latent_dim=d.latent_dim,
@@ -234,6 +327,7 @@ class MotionTransformer(nn.Module):
             music_latent_dim=d.music_latent_dim, cond_mask_prob=d.cond_mask_prob,
             dtype=getattr(torch, dtype),
             attention_impl="xla" if d.attention_impl == "auto" else d.attention_impl,
+            efficient=d.efficient_attention,
         )
 
     def encode_music(self, mel: torch.Tensor, train: bool = False, *,
@@ -260,9 +354,18 @@ class MotionTransformer(nn.Module):
             x = x * keep.to(x)[..., None]
         return linear(self.proj, x, self.dtype), x
 
+    def encode_null(self, batch: int, frames: int):
+        """The null condition of classifier-free guidance, as training's
+        condition dropout makes it: zeroed encoder tokens (B, T30, 64)
+        through ``proj`` (whose bias is not zero) -> (xf_proj, xf_out)."""
+        x = torch.zeros((batch, frames, self.music_latent_dim), dtype=self.dtype,
+                        device=self.sequence_embedding.device)
+        return linear(self.proj, x, self.dtype), x
+
     def precompute_cond(self, xf_proj: torch.Tensor, xf_out: torch.Tensor) -> dict:
         """The step-invariant conditioning: the music projection added to
-        the time embedding, and every layer's cross-attention KV state."""
+        the time embedding, and every layer's cross-attention state (the
+        K^T V of the linear blocks, the (K, V) of the quadratic ones)."""
         xf_o = linear(self.linear, xf_out, self.dtype)
         return {
             "emb_base": linear(self.linear, xf_proj, self.dtype),
@@ -299,3 +402,26 @@ class MotionTransformer(nn.Module):
 
     def forward(self, x, timesteps, xf_proj, xf_out, src_mask=None):
         return self.denoise(x, timesteps, self.precompute_cond(xf_proj, xf_out), src_mask)
+
+
+def guided_denoiser(denoise_fn, cond: dict, src_mask: torch.Tensor | None,
+                    guidance_scale: float = 1.0, null_cond: dict | None = None):
+    """A ``model_fn(x, t)`` for the samplers, with classifier-free guidance
+    when ``guidance_scale != 1`` (JAX `guided_denoiser`,
+    `conductor_tpu/models/transformer.py:482-508`): ``u + s * (c - u)`` of
+    two calls of ``denoise_fn(x, t, cond, src_mask)``, on ``cond`` and on
+    ``null_cond`` (from `MotionTransformer.encode_null`)."""
+    def cond_fn(x, t):
+        return denoise_fn(x, t, cond, src_mask)
+
+    if guidance_scale == 1.0:
+        return cond_fn
+    if null_cond is None:
+        raise ValueError("classifier-free guidance needs the null condition")
+
+    def guided_fn(x, t):
+        c = denoise_fn(x, t, cond, src_mask)
+        u = denoise_fn(x, t, null_cond, src_mask)
+        return u + guidance_scale * (c - u)
+
+    return guided_fn

@@ -23,14 +23,21 @@ music encoder runs in the compute dtype, as the JAX trainer's
 `MotionTransformer(dtype=compute_dtype)` runs it.
 
 `generate` (`:401-531`) encodes the music once, precomputes the
-step-invariant condition and the time-embedding table, then runs the
-(optionally respaced) eta=0 DDIM ladder.  With ``layer_impl ==
-"pallas_fused"`` the ladder runs on the sampler and decoder-stack kernels
-(`FusedDenoiser.ddim_sample`), in the int8-AdaLN mode with
-``sampler_adaln_int8`` (bench.py's serving config) and the bf16-VPU mode
-with ``sampler_vpu_dtype="bfloat16"``; otherwise the plain modules in the
-compute dtype run through the generic `ddim_sample_loop`, which ignores
-those two flags, as JAX's plain-layer path does.  With
+step-invariant condition and the time-embedding table (and with
+classifier-free guidance the null condition of `encode_null`), then runs
+the (optionally respaced) eta=0 DDIM ladder, or with any other
+``sampler`` the ancestral ladder, under the config's mean and variance
+types.  With ``layer_impl == "pallas_fused"`` the denoiser runs on the
+decoder-stack kernel, in the int8-AdaLN mode with ``sampler_adaln_int8``
+(bench.py's serving config) and the bf16-VPU mode with
+``sampler_vpu_dtype="bfloat16"``: a DDIM ladder without guidance under
+"start_x" runs wholly on the sampler kernels (`FusedDenoiser.ddim_sample`,
+K2 -> K1 -> K3 a step), and every other call runs the generic loop over
+`FusedDenoiser.__call__` (K1 a denoiser call, two a step with guidance).
+JAX takes its all-kernel ladder whatever the mean type, whose affine
+assumes "start_x" (F9 in ROADMAP.md); the port does not.  Otherwise the
+plain modules in the compute dtype run through the generic loop, which
+ignores those two flags, as JAX's plain-layer path does.  With
 ``music_encoder_impl == "pallas"`` the encoder runs on the conv-block
 kernel.
 
@@ -48,8 +55,7 @@ perceptual net; and `state_dict` / `load_state_dict` of the whole training
 state in the reference's stage-2 ``latest.tar`` layout
 (`train.checkpoints`).
 
-Not ported yet, raising NotImplementedError: denoiser dropout,
-classifier-free guidance, and the ancestral sampler.
+Not ported yet, raising NotImplementedError: denoiser dropout.
 """
 
 from __future__ import annotations
@@ -61,12 +67,14 @@ from ..config import Config, resolve_auto
 from ..diffusion import (
     ddim_sample_loop,
     make_schedule,
+    p_sample_loop,
     respaced_schedule,
     space_timesteps,
     training_losses,
     uniform_sample,
 )
 from ..diffusion import timestep_samplers as ts
+from ..diffusion.gaussian import check_types
 from ..interop.weights import (
     load_motion_encoder_state_dict,
     load_music_encoder_from_m2snet,
@@ -75,7 +83,7 @@ from ..interop.weights import (
 from ..models.music_encoder import FusedMusicEncoder
 from ..models.precision import full_float32
 from ..models.stgcn import MotionEncoderSTGCN
-from ..models.transformer import MotionTransformer
+from ..models.transformer import MotionTransformer, guided_denoiser
 from ..ops.attention import HEAD_DIMS
 from ..ops.decoder_stack import WIDTHS, layer_widths_ok
 from ..ops.stgcn import fused_frozen_stgcn, pack_frozen_stgcn
@@ -99,8 +107,6 @@ class DDPMTrainer:
             raise ValueError(f"unknown layer_impl / music_encoder_impl / attention_impl / "
                              f"compute_dtype: {d.layer_impl}, {d.music_encoder_impl}, "
                              f"{d.attention_impl}, {d.compute_dtype}")
-        if (cfg.diffusion.mean_type, cfg.diffusion.var_type) != ("start_x", "fixed_small"):
-            raise NotImplementedError("the port serves START_X / FIXED_SMALL only")
         _check_training_config(cfg, device)
         self.cfg = cfg
         self.device = device
@@ -255,24 +261,29 @@ class DDPMTrainer:
         *,
         num_steps: int | None = None,
         noise: torch.Tensor | None = None,
+        step_noise: torch.Tensor | None = None,
         generator: torch.Generator | None = None,
         guidance_scale: float = 1.0,
         sampler: str = "ddim",
     ) -> torch.Tensor:
-        """mel (B, T90, 128) -> motion (B, T30, 26).  x_T is ``noise`` if
-        given, else drawn from ``generator``."""
-        if guidance_scale != 1.0:
-            raise NotImplementedError("classifier-free guidance is not ported yet")
+        """mel (B, T90, 128) -> motion (B, T30, 26) (JAX `generate`,
+        `conductor_tpu/train/ddpm_trainer.py:401-531`).  ``sampler`` "ddim"
+        runs the eta=0 DDIM ladder, any other value the ancestral one, as
+        in JAX; ``guidance_scale != 1`` mixes a conditional and a null
+        denoiser call a step.  x_T is ``noise`` if given, else drawn from
+        ``generator``; the ancestral ladder's per-step noise is
+        ``step_noise`` (S, B, T30, 26) in ladder order, S the ladder's
+        steps, if given, else drawn from ``generator`` step by step."""
         if self._pack_stale:  # the weights moved since the pack was built
             self._build_sampling_pack()
-        if sampler != "ddim":
-            raise NotImplementedError(f"sampler {sampler!r} is not ported yet (ddim only)")
+        if sampler == "ddim" and step_noise is not None:
+            raise ValueError("step_noise is the ancestral sampler's; eta=0 DDIM draws none")
         ds = self.cfg.dataset
         mel = torch.as_tensor(mel, dtype=torch.float32, device=self.device)
         if mel.ndim != 3 or mel.shape[-1] != ds.mel_bins:
             raise ValueError(
                 f"mel must be (B, T90, {ds.mel_bins}) — got {tuple(mel.shape)}. "
-                "Extract features with conductor_tpu.data.mel.extract_mel_feature "
+                "Extract features with conductor_tpu_torch.data.mel.extract_mel_feature "
                 f"(n_mels={ds.mel_bins})."
             )
         steps = self.cfg.diffusion.steps
@@ -288,7 +299,12 @@ class DDPMTrainer:
         else:
             xf_proj, xf_out = self.model.encode_music(mel)
         cond = dict(self.model.precompute_cond(xf_proj, xf_out), temb_table=self.temb_table)
-        shape = (xf_proj.shape[0], xf_proj.shape[1], self.cfg.denoiser.input_feats)
+        b, n = xf_proj.shape[0], xf_proj.shape[1]
+        null_cond = None
+        if guidance_scale != 1.0:
+            null_cond = dict(self.model.precompute_cond(*self.model.encode_null(b, n)),
+                             temb_table=self.temb_table)
+        shape = (b, n, self.cfg.denoiser.input_feats)
         if noise is None:
             gen_device = generator.device if generator is not None else self.device
             noise = torch.randn(shape, generator=generator, device=gen_device)
@@ -296,13 +312,25 @@ class DDPMTrainer:
             raise ValueError(f"noise must have shape {shape}, got {tuple(noise.shape)}")
         noise = noise.to(self.device, torch.float32)
 
+        dc = self.cfg.diffusion
         if self.fused is not None:
-            return self.fused.ddim_sample(self.fused.prepare_cond(cond), sched, noise)
+            cond = self.fused.prepare_cond(cond)
+            if null_cond is not None:
+                null_cond = self.fused.prepare_cond(null_cond)
+            if sampler == "ddim" and guidance_scale == 1.0 and dc.mean_type == "start_x":
+                # the all-kernel ladder: its affine is START_X's (F9)
+                return self.fused.ddim_sample(cond, sched, noise)
 
-        def model_fn(x, t):
-            return self.model.denoise(x, t, cond)
-
-        return ddim_sample_loop(sched, model_fn, noise)
+            def denoise_fn(x, t, c, src_mask):
+                return self.fused(x, t, c)
+        else:
+            denoise_fn = self.model.denoise
+        model_fn = guided_denoiser(denoise_fn, cond, None, guidance_scale, null_cond)
+        kw = dict(mean_type=dc.mean_type, var_type=dc.var_type)
+        if sampler == "ddim":
+            return ddim_sample_loop(sched, model_fn, noise, **kw)
+        return p_sample_loop(sched, model_fn, noise, step_noise=step_noise, generator=generator,
+                             **kw)
 
     @torch.no_grad()
     @full_float32()
@@ -453,10 +481,16 @@ def require_device(device: torch.device | str) -> torch.device:
 def _check_training_config(cfg: Config, device: torch.device | str) -> None:
     """Raise on the training options the port does not run on ``device``:
     the gating of the fused layers (`conductor_tpu/train/ddpm_trainer.py:
-    119-125`), the model widths the kernels do not take on CUDA
-    (`_check_kernel_widths`), and the modes not ported yet (denoiser
-    dropout among them).  Every kernel takes both compute dtypes."""
+    119-125`; the serving layers too need linear attention, which is all
+    the kernels compute), the model widths the kernels do not take on CUDA
+    (`_check_kernel_widths`), the mean and variance types JAX's trainer
+    refuses (`:104-118`), and the modes not ported yet (denoiser dropout
+    among them).  Every kernel takes both compute dtypes."""
     d, tc = cfg.denoiser, cfg.train
+    check_types(cfg.diffusion.mean_type, cfg.diffusion.var_type)
+    if d.layer_impl == "pallas_fused" and not d.efficient_attention:
+        raise ValueError("layer_impl='pallas_fused' computes linear attention only: "
+                         "efficient_attention=False (--no_eff) serves on layer_impl='flax'")
     if d.train_layer_impl not in ("flax", "pallas_fused"):
         raise ValueError(f"unknown train_layer_impl: {d.train_layer_impl}")
     if d.train_layer_impl == "pallas_fused" and (

@@ -11,9 +11,13 @@ layer the way `conductor_tpu/interop/torch_import.py` packs them for flax.
 The packing is differentiable (stack, pad and slice are linear), so the
 training path's gradients reach the module's own parameters.
 
-`ddim_sample` is the kernel path of a serving call: per ladder step the
-prologue (K2), the decoder stack (K1) and the epilogue (K3), in the
-int8-AdaLN and bf16-VPU modes when the config turns them on.
+`ddim_sample` is the kernel path of a START_X DDIM ladder without
+guidance: per step the prologue (K2), the decoder stack (K1) and the
+epilogue (K3), in the int8-AdaLN and bf16-VPU modes when the config turns
+them on.  `__call__` is one denoiser call, plain glue around K1 in those
+modes: the ``denoise_fn`` of every other serving call (guidance, the
+ancestral sampler, the other mean types), which the generic samplers
+drive.
 `fused_train_denoise` is the training forward: every layer through
 `fused_decoder_layer_train`, K5 forward and K6 backward.
 """
@@ -147,7 +151,9 @@ class FusedDenoiser:
 
     @torch.no_grad()
     def __call__(self, x: torch.Tensor, t: torch.Tensor, cond: dict) -> torch.Tensor:
-        """One denoiser call: plain glue around the decoder-stack kernel."""
+        """One denoiser call on a `prepare_cond` condition at the
+        original-ladder timesteps ``t`` (B,): plain glue around the
+        decoder-stack kernel, one launch a call."""
         T = x.shape[1]
         if "temb_table" in cond:
             temb = cond["temb_table"][t]

@@ -583,6 +583,74 @@ def test_generate_bench_config_matches_plain_path(trainers, vpu):
     assert float((out - ref).abs().max()) <= 0.03 * float(ref.abs().max())
 
 
+@pytest.mark.parametrize("mode", ["bf16", "int8", "f32"])
+def test_fused_denoiser_call_matches_decoder_stack_plain(trainers, monkeypatch, mode):
+    """`FusedDenoiser.__call__`, the denoiser of guidance, the ancestral
+    sampler and the other mean types on the fused layers, in bf16,
+    bench.py's int8 AdaLN and float32, on the music and the null
+    conditions: one launch of K1's mode a call and no other (its glue's
+    operands pass the wrapper's dtype and alignment checks), within
+    REL_TOL (F32_REL_TOL in float32) of the largest value of the same glue
+    over `decoder_stack_plain` on the card."""
+    from conductor_tpu_torch.train import fused_denoiser
+
+    kernel, _, mel, noise = trainers
+    if mode == "f32":
+        tr = _float32_fused(kernel)
+    else:
+        tr = DDPMTrainer(kernel.cfg.replace(denoiser=dataclasses.replace(
+            kernel.cfg.denoiser, sampler_adaln_int8=mode == "int8")), device="cuda")
+        tr.load_reference_state_dict(kernel.model.state_dict())
+    name = {"bf16": "decoder_stack", "int8": "decoder_stack_int8", "f32": "decoder_stack_f32"}[mode]
+    tol = F32_REL_TOL if mode == "f32" else REL_TOL
+    model, fused = tr.model, tr.fused
+    t = torch.tensor([tr.cfg.diffusion.steps - 1, 3], device="cuda")
+    with torch.no_grad(), full_float32():
+        music = model.cond_from_features(tr.fused_encoder(mel))
+        for xf in (music, model.encode_null(*noise.shape[:2])):
+            cond = fused.prepare_cond(dict(model.precompute_cond(*xf), temb_table=tr.temb_table))
+            reset_launch_counts()
+            out = fused(noise, t, cond)
+            torch.cuda.synchronize()
+            assert {k: n for k, n in launch_counts().items() if n} == {name: 1}
+            with monkeypatch.context() as m:
+                m.setattr(fused_denoiser, "fused_decoder_stack", decoder_stack_plain)
+                ref = fused(noise, t, cond)
+            assert out.shape == ref.shape == noise.shape and bool(torch.isfinite(out).all())
+            assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("kwargs,types", [
+    (dict(guidance_scale=2.5), ("start_x", "fixed_small")),
+    (dict(sampler="ancestral"), ("start_x", "fixed_small")),
+    (dict(sampler="ancestral"), ("epsilon", "fixed_large")),
+    (dict(), ("previous_x", "fixed_small")),
+])
+def test_generate_off_the_kernel_ladder_launches_k1_alone(trainers, kwargs, types):
+    """The F9 gate on the card: guidance, the ancestral sampler and the
+    other mean types run K1 through `FusedDenoiser.__call__` (twice a step
+    with guidance) and K2 / K3 never, within 3 % of the plain float32 path
+    on the same x_T and step noise (ddim5, or 5 ancestral steps)."""
+    kernel, plain, mel, noise = trainers
+    diffusion = dataclasses.replace(kernel.cfg.diffusion, mean_type=types[0], var_type=types[1])
+    tr = DDPMTrainer(kernel.cfg.replace(diffusion=diffusion), device="cuda")
+    ref_tr = DDPMTrainer(plain.cfg.replace(diffusion=diffusion), device="cuda")
+    for t in (tr, ref_tr):
+        t.load_reference_state_dict(kernel.model.state_dict())
+    if kwargs.get("sampler") == "ancestral":
+        kwargs = dict(kwargs, step_noise=torch.randn(
+            (5, *noise.shape), generator=torch.Generator().manual_seed(1)).cuda())
+    reset_launch_counts()
+    out = tr.generate(mel, num_steps=5, noise=noise, **kwargs)
+    torch.cuda.synchronize()
+    calls = 10 if "guidance_scale" in kwargs else 5
+    assert {k: n for k, n in launch_counts().items() if n} == {"decoder_stack": calls,
+                                                                "conv_block": 7}
+    ref = ref_tr.generate(mel, num_steps=5, noise=noise, **kwargs)
+    assert out.shape == (2, 96, 26) and bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= 0.03 * float(ref.abs().max())
+
+
 def _stack_operands(t, gen, int8):
     """K1's operands at the flagship widths (D = 128, 8 heads, E = 512), two
     layers, B = 2; emb and adaln_w int8 with their scales, or bf16."""

@@ -78,6 +78,10 @@ tr = DDPMTrainer(cfg, device="cpu")
 tr.load_reference_state_dict(synthetic_state_dict(tr.model))
 out = tr.generate(torch.rand(1, 96, 128), generator=torch.Generator().manual_seed(0))
 assert out.shape == (1, 32, 26), out.shape
+out = tr.generate(torch.rand(1, 96, 128), guidance_scale=2.5, sampler="ancestral",
+                  generator=torch.Generator().manual_seed(0))
+assert out.shape == (1, 32, 26), out.shape
+import conductor_tpu_torch.cli.test_unseen, conductor_tpu_torch.cli.visualize
 cfg = cfg.replace(denoiser=dataclasses.replace(cfg.denoiser, train_layer_impl="pallas_fused"),
                   train=TrainConfig(feat_impl="pallas"))
 tr = DDPMTrainer(cfg, device="cpu")
@@ -112,7 +116,8 @@ print("no-jax-ok")
 def test_package_never_imports_jax():
     """In a fresh interpreter, with jax, flax and the JAX package
     (`conductor_tpu`, that top-level name alone) blocked, the package
-    imports, serves a clip, takes a stage-2 training step (K5 / K6 / K7
+    imports, serves a clip (also with guidance on the ancestral sampler),
+    imports the serving CLIs, takes a stage-2 training step (K5 / K6 / K7
     path) and one with the reference mask (bf16 modules, K8 path), a
     stage-1 M2SNet step (K4 / K9 / K10 / K11 path) and an M2SGAN step
     (SyncLoss on K7) on the CPU."""
@@ -433,11 +438,17 @@ def test_sampler_modes_generate(field, value):
         assert out.shape == (1, 32, 26) and bool(torch.isfinite(out).all())
 
 
-@pytest.mark.parametrize("kwargs", [{"guidance_scale": 2.5}, {"sampler": "ddpm"}])
+@pytest.mark.parametrize("kwargs", [{"denoiser": {"dropout": 0.1}},
+                                    {"diffusion": {"var_type": "learned_range"}}])
 def test_unported_generate_options_raise(kwargs):
-    tr = DDPMTrainer(TINY, device="cpu")
+    """What of serving is still not ported raises where the trainer is
+    built: denoiser dropout and the learned variances (guidance and the
+    ancestral sampler, once listed here, are ported:
+    tests/test_torch_port_serving_modes.py)."""
+    cfg = TINY.replace(**{sec: dataclasses.replace(getattr(TINY, sec), **kw)
+                          for sec, kw in kwargs.items()})
     with pytest.raises(NotImplementedError):
-        tr.generate(torch.zeros(1, 96, 128), **kwargs)
+        DDPMTrainer(cfg, device="cpu")
 
 
 def test_generate_rejects_wrong_mel_bins():

@@ -152,9 +152,18 @@ def test_loss_second_moment_sampler(root, tmp_path):
     assert cfg.train.timestep_sampler == "loss-second-moment"
 
 
-def test_no_eff_is_not_ported(root, tmp_path):
-    with pytest.raises(NotImplementedError, match="linear attention"):
-        _train(root, tmp_path, "quad", "--epochs", "1", "--no_eff")
+def test_no_eff_is_not_ported(root, tmp_path, capsys):
+    """``--no_eff`` trains on the quadratic blocks, on the plain layers
+    ("auto" leaves the fused ones, which compute linear attention only),
+    and config.json records it.  The name dates from when the port refused
+    ``--no_eff``; it is kept so that the test's history stays one line."""
+    run = _train(root, tmp_path, "quad", "--epochs", "1", "--no_eff")
+    assert "train_layer_impl flax" in capsys.readouterr().out
+    cfg = JaxConfig.load(os.path.join(run, "config.json"))
+    assert not cfg.denoiser.efficient_attention
+    assert (cfg.denoiser.layer_impl, cfg.denoiser.train_layer_impl) == ("flax", "flax")
+    records = _records(run)
+    assert [r["step"] for r in records] == [1] and np.isfinite(records[0]["loss"])
 
 
 def test_sigterm_saves_the_logged_step_and_exits_0(root, tmp_path):

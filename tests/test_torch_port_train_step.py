@@ -46,10 +46,11 @@ METRICS = ("loss", "loss_mot_rec", "loss_mot_feat", "loss_velocity", "loss_elbow
            "loss_body", "grad_norm")
 
 
-def make_cfg(train_layer_impl, cached=True, feat_impl="flax"):
+def make_cfg(train_layer_impl, cached=True, feat_impl="flax", types=("start_x", "fixed_small")):
     return Config(
         denoiser=DenoiserConfig(num_layers=2, num_frames=64, train_layer_impl=train_layer_impl),
-        diffusion=DiffusionConfig(steps=8, schedule="cosine"),
+        diffusion=DiffusionConfig(steps=8, schedule="cosine", mean_type=types[0],
+                                  var_type=types[1]),
         train=TrainConfig(cached_features=cached, sample_length=2, batch_size=2,
                           feat_impl=feat_impl),
     )
@@ -127,12 +128,18 @@ def _compare(port_tr, port_metrics, jax_metrics, jax_params):
                                    err_msg=name)
 
 
-@pytest.mark.parametrize("impl,feat_impl,t", [("flax", "flax", T), ("pallas_fused", "flax", T),
-                                              ("pallas_fused", "pallas", 64)],
-                         ids=["flax", "pallas_fused", "pallas_fused-feat_pallas"])
-def test_train_step_matches_jax(impl, feat_impl, t, weights):
+@pytest.mark.parametrize("impl,feat_impl,t,types", [
+    ("flax", "flax", T, ("start_x", "fixed_small")),
+    ("pallas_fused", "flax", T, ("start_x", "fixed_small")),
+    ("pallas_fused", "pallas", 64, ("start_x", "fixed_small")),
+    ("pallas_fused", "flax", T, ("epsilon", "fixed_large")),
+], ids=["flax", "pallas_fused", "pallas_fused-feat_pallas", "pallas_fused-epsilon-fixed_large"])
+def test_train_step_matches_jax(impl, feat_impl, t, types, weights):
+    """(a)-(c) of the module docstring, and (b) under the "epsilon" target
+    and the "fixed_large" variance, which the trainer takes since serving
+    samples under them (the variance does not enter the MSE objective)."""
     weights = (*weights[:2], *_batch(t))
-    cfg = make_cfg(impl, feat_impl=feat_impl)
+    cfg = make_cfg(impl, feat_impl=feat_impl, types=types)
     jax_metrics, jax_params, drawn = _jax_step(cfg, weights)
     _, _, feats, motion = weights
     port = _port_trainer(cfg, weights)
