@@ -304,7 +304,23 @@ Phases, one line each (the kernel checks one line per kernel):
      windows, K4 21 and K1 / K2 / K3 150 launches each, the motion (4501,
      13, 2) within 3 % of the plain float32 path's over the same checkpoint
      and seed; `render_motion_video` is replaced by a recorder of that
-     motion and no video is rendered (a line says so).
+     motion and no video is rendered (a line says so);
+ 18. (run after phase 14, the `[eval18]` lines, `eval_phase`) denoiser
+     dropout and stage-2 evaluation: (a) 4 stage-2 steps with dropout 0.1
+     at B = 32, T = 900, "auto" (bf16 plain layers, K8 8 and K7 2 + 1
+     launches a step, no K5 / K6), fixed keep masks from one generator,
+     each loss within 3e-2 of the plain float32 path's on the same
+     weights, masks and numbers, ms a step beside phase 6's; on phase 12's
+     default run and a 16-clip synthetic test split written into its root:
+     (b) `cli.evaluate` in bench.py's config at the full ladder (K4 7 and
+     K2 / K1 / K3 1000 launches a wave of 8), the bf16 config at ddim50
+     and the exact path (plain float32 layers, none of K1-K3), each report
+     finite with its wall seconds by part; (c) `cli.evaluate_protocol`
+     with phase 13's checkpoint (2 replications, MultiModality; K1-K3 50
+     and K4 7 a generate call); (d) `ProspectiveEvaluator` with bench.py's
+     config at ddim50; (e) `cli.serving_delta_ci`, 3 seeds x 16 clips at
+     ddim50, whose deltas check the pipeline only (a 6-step run's
+     weights).
 
 Every path runs at full depth; the run takes a few minutes of its 1200-s
 limit, so no path is cut.  Then one JSON line of per-kernel results (the
@@ -319,7 +335,8 @@ K9, K10 and K11 those of (a), (b) and (c), K1's float32 modes, its float32
 GEMM, K2's float32 emb_act and K3's float32 mode (e)'s, K5's, K6's and
 K7's float32 modes those of (f) and of phase 12's float32 run; the
 width rows phase 16's, K5 / K6 at W64 with (e)'s added; phase 17's
-launches of K1 (bf16 and int8), its GEMM, K2, K3 and K4 added);
+launches of K1 (bf16 and int8), its GEMM, K2, K3 and K4 added, and phase
+18's of K1-K4, K1's GEMM (bf16 and int8), K7 and K8);
 each kernel's time, its
 plain version's, its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
@@ -528,6 +545,13 @@ SERVE_CLI_SECONDS = 150
 # reading; its kernel is held to GENERATE_REL_TOL against K1's plain version
 # in the same mode.
 GUIDED_INT8_REL_TOL = 0.04
+# phase 18: denoiser dropout at the check's rate (not a documented default),
+# and the evaluation CLIs on phase 12's run: a 16-clip test split in waves of
+# 8 (`conductor_tpu/eval/evaluator.py:66-67`), the serving-delta sweep's seeds
+DROPOUT = 0.1
+EVAL_CLIPS = 16
+EVAL_WAVE = 8
+DELTA_SEEDS = 3
 
 
 def _run(cmd: list[str]) -> str:
@@ -545,13 +569,15 @@ def _timed(fn):
 
 
 def cli_phase(smi: str, bare_step_s: float) -> tuple[dict[str, int], dict[str, int],
-                                                     dict[str, int]]:
+                                                     dict[str, int], str]:
     """Phase 12: `python -m conductor_tpu_torch.cli.train` on a synthetic
     root, in process unless a signal is sent; returns the launches of K5 /
     K6 / K7 in its default run and of K5 / K6's float32 mode in its float32
     run, those of phase 16 (e), the CLI at ``WIDTH_CLI_ARGS`` on the same
     root, and those of phase 17 (e), the serving CLIs on the default run
-    (`serving_cli_phase`).  Raises SystemExit on any failed check."""
+    (`serving_cli_phase`), and its work directory, which phase 18 reads
+    (``work/data``, ``work/ConductorMotion100/defaults``) and the caller
+    removes.  Raises SystemExit on any failed check."""
     import os
     import shutil
     import signal
@@ -799,9 +825,10 @@ def cli_phase(smi: str, bare_step_s: float) -> tuple[dict[str, int], dict[str, i
                               "stgcn_backward": 4}):
             raise SystemExit(f"chip_smoke: the CLI at --latent_dim 64 did not run on K5 / K6 / "
                              f"K7: {w_recs} {w_impls} {w_step}")
-        return {k: per_step[k] + f32_step[k] for k in CLI_KERNELS}, w_step, serve_counts
-    finally:
+        return {k: per_step[k] + f32_step[k] for k in CLI_KERNELS}, w_step, serve_counts, work
+    except BaseException:
         shutil.rmtree(work, ignore_errors=True)
+        raise
 
 
 class StepRecorder:
@@ -1612,6 +1639,223 @@ def serving_cli_phase(smi: str, run_dir: str, work: str) -> dict[str, int]:
     return {k: sum(c.get(k, 0) for c, _ in runs.values()) for k in want}
 
 
+def eval_phase(smi: str, cfg, sd, feat_sd, mel_train, motion_train, drawn, bare_step_s: float,
+               run_dir: str, root: str, m2snet_ckpt: str) -> dict[str, int]:
+    """Phase 18 (the `[eval18]` lines), after phase 14: (a) 4 stage-2 steps
+    with denoiser dropout (`DROPOUT`) on phase 6's batch and random numbers
+    at "auto" on CUDA (bf16 plain layers, K8 in the self-attention, K7 in
+    the perceptual term, no K5 / K6), fixed keep masks drawn once from one
+    `torch.Generator`, against the plain float32 path on the same weights
+    (phase 4's ``sd``), masks and numbers: each loss within
+    `TRAIN_LOSS_REL_TOL`, K8 once a layer and K7 as phase 6 each step, ms a
+    step beside phase 6's ``bare_step_s``; then, on phase 12's default run
+    (``run_dir``) and a test split of `EVAL_CLIPS` synthetic 60-s clips
+    written into its ``root`` (two waves of 8): (b) `cli.evaluate` in
+    bench.py's config at the full 1000-step ladder (K4 7 and K2 / K1 / K3
+    and K1's int8 GEMM 1000 a wave), in the bf16 config at ``--steps 50``
+    (K4 7, K2 / K1 / K3 50 a wave) and on the exact path (``--layer_impl
+    flax --compute_dtype float32``, ``--steps 50``: none of K1-K3), each
+    report finite with its wall seconds by part; (c) `cli.evaluate_protocol`
+    with phase 13's checkpoint (``m2snet_ckpt``), ``--steps 50
+    --replications 2 --mm_samples 2`` (K2 / K1 / K3 50 and K4 7 a generate
+    call, 4 calls a replication); (d) `ProspectiveEvaluator` over the
+    split's batches of 8, bench.py's config generating at ddim50; (e)
+    `cli.serving_delta_ci` over `DELTA_SEEDS` seeds of one 16-clip wave at
+    ddim50.  Returns the phase's launches by kernels-line row.  Raises
+    SystemExit on any failed check."""
+    import os
+
+    from conductor_tpu_torch import DDPMTrainer
+    from conductor_tpu_torch.cli import evaluate, evaluate_protocol, serving_delta_ci
+    from conductor_tpu_torch.cli.visualize import load_run
+    from conductor_tpu_torch.config import DenoiserConfig, TrainConfig
+    from conductor_tpu_torch.data.dataset import (
+        BatchIterator,
+        ConductorMotionDataset,
+        make_synthetic_dataset,
+    )
+    from conductor_tpu_torch.eval import DiffusionEvaluator
+    from conductor_tpu_torch.ops import launch_counts, part_launch_counts, reset_launch_counts
+    from conductor_tpu_torch.prospective import ProspectiveEvaluator
+
+    t_phase = time.perf_counter()
+    counts: dict[str, int] = {}
+
+    def launched() -> dict[str, int]:
+        return {k: n for k, n in (launch_counts() | part_launch_counts()).items() if n}
+
+    def add(c: dict[str, int], gemm: str = "adaln_modulation") -> None:
+        """Adds launches under the kernels line's rows: K1's GEMM under
+        ``gemm`` (its int8 mode's row when K1 ran in that mode)."""
+        for k, n in c.items():
+            key = gemm if k == "adaln_modulation" else k
+            counts[key] = counts.get(key, 0) + n
+
+    # (a) dropout: "auto" against the plain float32 path, the same masks
+    drop_cfg = cfg.replace(denoiser=dataclasses.replace(cfg.denoiser, dropout=DROPOUT))
+    kernel = DDPMTrainer(drop_cfg, device="cuda")
+    kd = kernel.cfg.denoiser
+    if (kd.compute_dtype, kd.train_layer_impl, kd.attention_impl, kernel.cfg.train.feat_impl) != (
+            "bfloat16", "flax", "pallas", "pallas"):
+        raise SystemExit(f"chip_smoke: 'auto' with dropout resolved to {kd}")
+    plain = DDPMTrainer(drop_cfg.replace(
+        denoiser=DenoiserConfig(dropout=DROPOUT, layer_impl="flax", music_encoder_impl="flax",
+                                train_layer_impl="flax", attention_impl="xla",
+                                compute_dtype="float32"),
+        train=TrainConfig(feat_impl="flax")), device="cuda")
+    for tr in (kernel, plain):
+        tr.load_reference_state_dict(sd, motion_encoder=feat_sd)
+    n, t = motion_train.shape[0], motion_train.shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    masks = [{site: torch.rand((n, t, kd.ff_size if site.endswith("ffn.dropout")
+                                else kd.latent_dim), generator=gen, device="cuda") >= DROPOUT
+              for site in kernel.model.dropout_sites()} for _ in drawn]
+    kept = float(torch.stack([m.float().mean() for m in masks[0].values()]).mean())
+
+    def steps(tr):
+        losses, times, step_counts = [], [], []
+        for d, keep in zip(drawn, masks):
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = tr.train_step(mel_train, motion_train, **d, dropout_keep=keep)
+            losses.append(float(m["loss"]))  # host readback ends the step
+            times.append(time.perf_counter() - t0)
+            step_counts.append(launched())
+        return losses, times, step_counts
+
+    losses_k, times_k, counts_k = steps(kernel)
+    losses_p, times_p, _ = steps(plain)
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses_k, losses_p)]
+    want = {"linear_attention": kd.num_layers, "stgcn_forward": K7_PER_STEP[0],
+            "stgcn_backward": K7_PER_STEP[1]}
+    print(f"[eval18] (a) dropout {DROPOUT} ({len(masks[0])} sites a step, {kept:.4f} kept), "
+          f"B={n} T={t}, 'auto' (bf16 plain layers, K8, K7) against the plain float32 path on "
+          f"the same masks and numbers: losses {losses_k} against {losses_p}, rel diff "
+          f"{[f'{x:.3g}' for x in rel]} (each <= {TRAIN_LOSS_REL_TOL}); launches per step "
+          f"{counts_k}")
+    print(f"[time] (a) dropout step B={n} T={t}, median ms: 'auto' {np.median(times_k) * 1e3:.1f}, "
+          f"plain float32 {np.median(times_p) * 1e3:.1f}, phase 6's kernel step without dropout "
+          f"{bare_step_s * 1e3:.1f} (per step {[round(x * 1e3, 1) for x in times_k]}) on {smi}")
+    if not all(np.isfinite(losses_k)) or not max(rel) <= TRAIN_LOSS_REL_TOL:
+        raise SystemExit("chip_smoke: the dropout step disagrees with the plain float32 path")
+    if any(c != want for c in counts_k):
+        raise SystemExit(f"chip_smoke: the dropout step did not launch K8 once a layer and K7 as "
+                         f"phase 6, and no K5 / K6: {counts_k}")
+    for c in counts_k:
+        add(c)
+    del kernel, plain, masks
+    torch.cuda.empty_cache()
+
+    # (b) cli.evaluate in three configurations on a 16-clip test split
+    make_synthetic_dataset(root, "test", num_clips=EVAL_CLIPS, seed=18, correlated=True)
+    waves = -(-EVAL_CLIPS // EVAL_WAVE)
+    seconds: list[dict[str, float]] = []
+    evaluate_fn = DiffusionEvaluator.evaluate
+
+    def recording(self, *args, **kwargs):
+        """`DiffusionEvaluator.evaluate`, its seconds by part kept."""
+        out = evaluate_fn(self, *args, **kwargs)
+        seconds.append(dict(self.seconds))
+        return out
+
+    ladder = {"decoder_stack": 0, "sampler_prologue": 0, "sampler_epilogue": 0}
+    configs = (
+        ("bench.py's config, ddim1000", ["--layer_impl", "pallas_fused", "--adaln_int8"],
+         {"conv_block": 7 * waves, "decoder_stack_int8": 1000 * waves,
+          "sampler_prologue_int8": 1000 * waves, "sampler_epilogue": 1000 * waves,
+          "adaln_modulation": 1000 * waves}, "adaln_modulation_int8"),
+        ("bf16 fused, ddim50", ["--layer_impl", "pallas_fused", "--compute_dtype", "bfloat16",
+                                "--steps", "50"],
+         {"conv_block": 7 * waves, "decoder_stack": 50 * waves, "sampler_prologue": 50 * waves,
+          "sampler_epilogue": 50 * waves, "adaln_modulation": 50 * waves}, "adaln_modulation"),
+        ("exact (plain layers, float32), ddim50",
+         ["--layer_impl", "flax", "--compute_dtype", "float32", "--steps", "50"], None,
+         "adaln_modulation"),
+    )
+    DiffusionEvaluator.evaluate = recording
+    try:
+        for label, argv, want_c, gemm in configs:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            report = evaluate.main(["--run_dir", run_dir, "--data_root", root, "--out_suffix",
+                                    f"_{len(seconds)}", *argv])
+            torch.cuda.synchronize()
+            wall, c = time.perf_counter() - t0, launched()
+            part = ", ".join(f"{k} {v:.2f}" for k, v in seconds[-1].items())
+            print(f"[eval18] (b) cli.evaluate, {label}, {EVAL_CLIPS} clips in waves of "
+                  f"{EVAL_WAVE}: {report}; wall {wall:.2f} s ({part} s); launches {c} on {smi}")
+            if not all(np.isfinite(v) for v in report.values()):
+                raise SystemExit(f"chip_smoke: cli.evaluate ({label}) gave non-finite metrics")
+            if want_c is not None and c != want_c:
+                raise SystemExit(f"chip_smoke: cli.evaluate ({label}) launched {c}, not {want_c}")
+            if want_c is None and any(k.startswith(tuple(ladder)) for k in c):
+                raise SystemExit(f"chip_smoke: the exact path launched K1-K3: {c}")
+            add(c, gemm)
+    finally:
+        DiffusionEvaluator.evaluate = evaluate_fn
+
+    # (c) the retrieval protocol over phase 13's M2SNet
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    report = evaluate_protocol.main(["--run_dir", run_dir, "--data_root", root, "--m2snet_ckpt",
+                                     m2snet_ckpt, "--steps", "50", "--replications", "2",
+                                     "--mm_samples", "2"])
+    torch.cuda.synchronize()
+    wall, c = time.perf_counter() - t0, launched()
+    # each of the 2 replications: 2 batches of 8 and 2 MultiModality calls
+    calls = 2 * (EVAL_CLIPS // 8 + 2)
+    want_c = {"conv_block": 7 * calls, "decoder_stack": 50 * calls, "sampler_prologue": 50 * calls,
+              "sampler_epilogue": 50 * calls, "adaln_modulation": 50 * calls}
+    print(f"[eval18] (c) cli.evaluate_protocol --steps 50 --replications 2 --mm_samples 2: "
+          f"{json.dumps(report)}; wall {wall:.2f} s; launches {c} on {smi}")
+    if set(report) != {"MatchingScore", "R_precision", "FID", "Diversity", "MultiModality"} or (
+            not np.isfinite(report["FID"]["conductor_tpu"]["mean"])):
+        raise SystemExit("chip_smoke: cli.evaluate_protocol's report is incomplete")
+    if c != want_c:
+        raise SystemExit(f"chip_smoke: cli.evaluate_protocol launched {c}, not {want_c}")
+    add(c)
+
+    # (d) the Prospective Cup scorer, bench.py's config generating
+    bench = load_run(run_dir, None, "cuda", evaluate.run_config(run_dir, "cuda", "pallas_fused",
+                                                                adaln_int8=True))
+    batches = [(mel, motion) for mel, motion, _ in BatchIterator(
+        ConductorMotionDataset(root, "test", 60, "sequential"), 8, shuffle=False)]
+
+    def generate_fn(mel):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        return bench.generate(mel, num_steps=50, generator=gen).cpu().numpy()
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    pros = ProspectiveEvaluator(generate_fn).evaluate(batches).as_dict()
+    wall, c = time.perf_counter() - t0, launched()
+    print(f"[eval18] (d) ProspectiveEvaluator over {len(batches)} batches of 8, bench.py's config "
+          f"at ddim50: {pros}; wall {wall:.2f} s; launches {c} on {smi}")
+    if not all(np.isfinite(v) for v in pros.values()) or c.get("decoder_stack_int8") != 50 * len(
+            batches):
+        raise SystemExit(f"chip_smoke: the Prospective scorer went wrong: {pros} {c}")
+    add(c, "adaln_modulation_int8")
+    del bench
+
+    # (e) the serving-vs-exact sweep: its deltas check the pipeline only
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    quality = serving_delta_ci.sweep(run_dir, root, clips=EVAL_CLIPS, seeds=DELTA_SEEDS, steps=50)
+    wall, c = time.perf_counter() - t0, launched()
+    print(f"[eval18] (e) cli.serving_delta_ci, {DELTA_SEEDS} seeds x {EVAL_CLIPS} clips, ddim50 "
+          f"(exact: plain float32 layers; serving: bench.py's config): {json.dumps(quality)}; "
+          f"wall {wall:.2f} s; launches {c} on {smi}")
+    print("[eval18] (e) the weights are phase 12's 6-step run on synthetic data: the deltas "
+          "check the pipeline and say nothing of the serving path's quality")
+    if any(not np.isfinite(quality[k]["mean_pct"]) for k in serving_delta_ci.METRICS) or (
+            c.get("decoder_stack_int8") != 50 * DELTA_SEEDS or c.get("decoder_stack")):
+        raise SystemExit(f"chip_smoke: the serving-delta sweep went wrong: {quality} {c}")
+    add(c, "adaln_modulation_int8")
+    print(f"[eval18] launches {counts}; phase 18 took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2332,8 +2576,10 @@ def main() -> int:
         counts[k] += n
 
     # 12. the stage-2 CLI on the card, beside phase 6's bare step (and phase
-    # 16 (e), the CLI at --latent_dim 64, on its root)
-    cli_counts, w64_cli_counts, serve_cli_counts = cli_phase(smi, float(np.median(times_k)))
+    # 16 (e), the CLI at --latent_dim 64, on its root); its work directory
+    # stays for phase 18
+    cli_counts, w64_cli_counts, serve_cli_counts, cli_work = cli_phase(
+        smi, float(np.median(times_k)))
     for k, n in cli_counts.items():
         counts[k] += n
     for k, n in serve_cli_counts.items():  # phase 17 (e)
@@ -2358,8 +2604,16 @@ def main() -> int:
         for k, n in m2sgan_cli_phase(smi, work, m2snet_ckpt,
                                      float(np.median(gan_runs["a"][1]))).items():
             counts[k] += n
+        # 18. denoiser dropout, and stage-2 evaluation on phase 12's default
+        # run with phase 13's M2SNet checkpoint (its launches are added to
+        # the kernels line after phase 15's counts are set)
+        eval_counts = eval_phase(smi, cfg, sd, feat_sd, mel_train, motion_train, drawn,
+                                 float(np.median(times_k)),
+                                 os.path.join(cli_work, "ConductorMotion100", "defaults"),
+                                 os.path.join(cli_work, "data"), m2snet_ckpt)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(cli_work, ignore_errors=True)
 
     # 15. float32 on the kernels' float32 modes: (a) the stage-1 step, (b)
     # the M2SNet CLI (phase 13's (6)), (c) M2SGAN with the encoder training,
@@ -2579,6 +2833,8 @@ def main() -> int:
     counts["decoder_layer_w64"] += w64_cli_counts["decoder_layer"]
     counts["decoder_layer_bwd_w64"] += w64_cli_counts["decoder_layer_bwd"]
     print(f"[widths] (e)'s CLI run at D = 64 (phase 12): launches {w64_cli_counts}")
+    for k, n in eval_counts.items():  # phase 18
+        counts[k] = counts.get(k, 0) + n
 
     kernels = []
     for r in results:

@@ -51,11 +51,12 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def load_run(run_dir: str, step: int | None, device: str) -> DDPMTrainer:
-    """A trainer on ``device`` with the run's config and its checkpoint
-    ``step`` (the newest by default) loaded, as ``cli.train --continue``
-    loads it."""
-    cfg = Config.load(os.path.join(run_dir, "config.json"))
+def load_run(run_dir: str, step: int | None, device: str, cfg: Config | None = None) -> DDPMTrainer:
+    """A trainer on ``device`` with the run's config (or ``cfg``, the run's
+    with overrides) and its checkpoint ``step`` (the newest by default)
+    loaded, as ``cli.train --continue`` loads it."""
+    if cfg is None:
+        cfg = Config.load(os.path.join(run_dir, "config.json"))
     trainer = DDPMTrainer(cfg, device=device)
     trainer.load_state_dict(CheckpointManager(os.path.join(run_dir, "ckpt")).restore(step))
     d = trainer.cfg.denoiser

@@ -313,7 +313,9 @@ def calculate_frechet_distance(
     `utils/metrics.py:95-145`); `frechet_distance` above is the from-samples
     convenience wrapper."""
     diff = mu1 - mu2
-    covmean, _ = linalg.sqrtm(sigma1.dot(sigma2), disp=False)
+    # no ``disp=False``: SciPy 1.18 removed the argument (the same square
+    # root either way)
+    covmean = linalg.sqrtm(sigma1.dot(sigma2))
     if not np.isfinite(covmean).all():
         offset = np.eye(sigma1.shape[0]) * eps
         covmean = linalg.sqrtm((sigma1 + offset).dot(sigma2 + offset))

@@ -10,6 +10,15 @@ training-time condition dropout, `encode_null`, `precompute_cond`,
 classifier-free guidance of a serving call).  The music encoder is
 frozen: it runs without gradients and in eval mode.
 
+Denoiser dropout (``dropout > 0``) sits at JAX's four sites a layer
+(`conductor_tpu/models/transformer.py:84-85`, `:231-232`): after the SiLU
+of each of the three StylizationBlocks (index 1 of ``out_layers``, the
+reference's own slot) and after the FFN's GELU (``ffn.dropout``).  It
+follows flax's rule, ``select(keep, x / keep_prob, 0)`` with the division
+in x's dtype (`Dropout`), and runs only when a forward is called with
+``train=True``; the keep masks are handed over per site
+(`dropout_keep`) or drawn from a generator.
+
 ``dtype`` is flax's ``dtype=`` (`models.precision`): parameters stay
 float32; every Linear and LayerNorm returns ``dtype`` (the AdaLN projection
 ``silu(emb) @ W + b`` included, JAX `_adaln_mods`), the residual stream is
@@ -72,44 +81,70 @@ def cond_keep_mask(shape, prob: float, generator: torch.Generator | None,
     return (u >= prob).float().to(device)
 
 
-class StylizationBlock(nn.Module):
-    """AdaLN: h -> Linear(silu(LN(h) * (1 + scale) + shift)), with (scale,
-    shift) = Linear(silu(emb))."""
+class Dropout(nn.Module):
+    """flax's `nn.Dropout` rule (`flax.linen.Dropout.__call__`): each
+    element kept where ``keep`` is true and divided by ``keep_prob = 1 - p``
+    in x's dtype (in bf16 ``keep_prob`` is rounded to bf16 first and each
+    kept element after the division, as a weakly typed scalar divides in
+    JAX; a float32 scale would round otherwise), the rest zero; ``p = 1``
+    zeroes everything.  ``drop`` is the forward's keep-mask source,
+    ``drop(site, shape) -> bool mask``, None outside training; ``site`` is
+    the module's name in the `MotionTransformer`."""
 
-    def __init__(self, latent_dim: int, time_embed_dim: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+        self.site = ""
+
+    def forward(self, x: torch.Tensor, drop=None) -> torch.Tensor:
+        if drop is None or self.p == 0.0:
+            return x
+        if self.p == 1.0:
+            return torch.zeros_like(x)
+        keep = drop(self.site, tuple(x.shape)).to(device=x.device, dtype=torch.bool)
+        return torch.where(keep, x / x.new_full((), 1.0 - self.p), x.new_zeros(()))
+
+
+class StylizationBlock(nn.Module):
+    """AdaLN: h -> Linear(dropout(silu(LN(h) * (1 + scale) + shift))), with
+    (scale, shift) = Linear(silu(emb))."""
+
+    def __init__(self, latent_dim: int, time_embed_dim: int, dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.dtype = dtype
         self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(time_embed_dim, 2 * latent_dim))
         self.norm = nn.LayerNorm(latent_dim, eps=LN_EPS)
-        # index 1 is the reference's dropout, which serving runs at p=0
-        self.out_layers = nn.Sequential(nn.SiLU(), nn.Identity(), nn.Linear(latent_dim, latent_dim))
+        # index 1 is the reference's dropout
+        self.out_layers = nn.Sequential(nn.SiLU(), Dropout(dropout), nn.Linear(latent_dim, latent_dim))
 
-    def forward(self, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, emb: torch.Tensor, drop=None) -> torch.Tensor:
         dt = self.dtype
         scale, shift = linear(self.emb_layers[1], F.silu(emb), dt).chunk(2, dim=-1)
-        return linear(self.out_layers[2], F.silu(layer_norm(self.norm, h, dt) * (1 + scale) + shift),
-                      dt)
+        h = F.silu(layer_norm(self.norm, h, dt) * (1 + scale) + shift)
+        return linear(self.out_layers[2], self.out_layers[1](h, drop), dt)
 
 
 class LinearSelfAttention(nn.Module):
     def __init__(self, latent_dim: int, num_heads: int, time_embed_dim: int,
-                 dtype: torch.dtype = torch.float32, attention_impl: str = "xla"):
+                 dtype: torch.dtype = torch.float32, attention_impl: str = "xla",
+                 dropout: float = 0.0):
         super().__init__()
         self.num_heads, self.dtype, self.attention_impl = num_heads, dtype, attention_impl
         self.norm = nn.LayerNorm(latent_dim, eps=LN_EPS)
         self.query = nn.Linear(latent_dim, latent_dim)
         self.key = nn.Linear(latent_dim, latent_dim)
         self.value = nn.Linear(latent_dim, latent_dim)
-        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dtype)
+        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dtype, dropout)
 
-    def forward(self, x, emb, src_mask):
+    def forward(self, x, emb, src_mask, drop=None):
         dt = self.dtype
         xn = layer_norm(self.norm, x, dt)
         y = temporal_linear_attention(
             linear(self.query, xn, dt), linear(self.key, xn, dt), linear(self.value, xn, dt),
             self.num_heads, src_mask, impl=self.attention_impl,
         )
-        return x + self.proj_out(y, emb)
+        return x + self.proj_out(y, emb, drop)
 
 
 class LinearCrossAttention(nn.Module):
@@ -118,7 +153,7 @@ class LinearCrossAttention(nn.Module):
     time-softmaxed K^T V (B, H, Dh, Dh) once per clip."""
 
     def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int, time_embed_dim: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.num_heads, self.dtype = num_heads, dtype
         self.norm = nn.LayerNorm(latent_dim, eps=LN_EPS)
@@ -126,7 +161,7 @@ class LinearCrossAttention(nn.Module):
         self.query = nn.Linear(latent_dim, latent_dim)
         self.key = nn.Linear(text_latent_dim, latent_dim)
         self.value = nn.Linear(text_latent_dim, latent_dim)
-        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dtype)
+        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dtype, dropout)
 
     def kv_state(self, xf: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
         """(B, H, Dh, Dh), the time softmax and the contraction in float32
@@ -143,13 +178,13 @@ class LinearCrossAttention(nn.Module):
         kh = torch.softmax(k.float().transpose(1, 2), dim=-1).reshape(b, h, d // h, n)
         return (kh @ v.float().reshape(b, n, h, d // h).transpose(1, 2)).to(dt)
 
-    def forward(self, x, kv, emb):
+    def forward(self, x, kv, emb, drop=None):
         q = linear(self.query, layer_norm(self.norm, x, self.dtype), self.dtype)
         b, t, d = q.shape
         h = self.num_heads
         qh = torch.softmax(q.reshape(b, t, h, d // h), dim=-1)
         y = torch.einsum("bnhd,bhdl->bnhl", qh, kv).reshape(b, t, d)
-        return x + self.proj_out(y, emb)
+        return x + self.proj_out(y, emb, drop)
 
 
 def quadratic_self_attention(q, k, v, num_heads: int, src_mask: torch.Tensor | None):
@@ -176,21 +211,21 @@ class QuadraticSelfAttention(nn.Module):
     under `LinearSelfAttention`'s parameter names."""
 
     def __init__(self, latent_dim: int, num_heads: int, time_embed_dim: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.num_heads, self.dtype = num_heads, dtype
         self.norm = nn.LayerNorm(latent_dim, eps=LN_EPS)
         self.query = nn.Linear(latent_dim, latent_dim)
         self.key = nn.Linear(latent_dim, latent_dim)
         self.value = nn.Linear(latent_dim, latent_dim)
-        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dtype)
+        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dtype, dropout)
 
-    def forward(self, x, emb, src_mask):
+    def forward(self, x, emb, src_mask, drop=None):
         dt = self.dtype
         xn = layer_norm(self.norm, x, dt)
         y = quadratic_self_attention(linear(self.query, xn, dt), linear(self.key, xn, dt),
                                      linear(self.value, xn, dt), self.num_heads, src_mask)
-        return x + self.proj_out(y, emb)
+        return x + self.proj_out(y, emb, drop)
 
 
 class QuadraticCrossAttention(nn.Module):
@@ -200,7 +235,7 @@ class QuadraticCrossAttention(nn.Module):
     names.  `kv_state` is the step-invariant (K, V) of the tokens."""
 
     def __init__(self, latent_dim: int, text_latent_dim: int, num_heads: int, time_embed_dim: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.num_heads, self.dtype = num_heads, dtype
         self.norm = nn.LayerNorm(latent_dim, eps=LN_EPS)
@@ -208,7 +243,7 @@ class QuadraticCrossAttention(nn.Module):
         self.query = nn.Linear(latent_dim, latent_dim)
         self.key = nn.Linear(text_latent_dim, latent_dim)
         self.value = nn.Linear(text_latent_dim, latent_dim)
-        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dtype)
+        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dtype, dropout)
 
     def kv_state(self, xf: torch.Tensor, dtype: torch.dtype | None = None):
         """(K, V), each (B, N, D) in ``dtype`` (the block's by default)."""
@@ -216,7 +251,7 @@ class QuadraticCrossAttention(nn.Module):
         fn = layer_norm(self.text_norm, xf, dt)
         return linear(self.key, fn, dt), linear(self.value, fn, dt)
 
-    def forward(self, x, kv, emb):
+    def forward(self, x, kv, emb, drop=None):
         k, v = kv
         q = linear(self.query, layer_norm(self.norm, x, self.dtype), self.dtype)
         b, t, d = q.shape
@@ -225,24 +260,26 @@ class QuadraticCrossAttention(nn.Module):
                               k.reshape(b, -1, h, d // h)) / math.sqrt(d / h)
         weights = torch.softmax(scores, dim=-1)
         y = _einsum("bhnm,bmhd->bnhd", weights, v.reshape(b, -1, h, d // h)).reshape(b, t, d)
-        return x + self.proj_out(y, emb)
+        return x + self.proj_out(y, emb, drop)
 
 
 class FFN(nn.Module):
-    """tanh-GELU FFN (the JAX package's `nn.gelu` is the tanh form)."""
+    """tanh-GELU FFN (the JAX package's `nn.gelu` is the tanh form), with
+    dropout after the GELU."""
 
     def __init__(self, latent_dim: int, ffn_dim: int, time_embed_dim: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.dtype = dtype
         self.linear1 = nn.Linear(latent_dim, ffn_dim)
         self.linear2 = nn.Linear(ffn_dim, latent_dim)
-        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dtype)
+        self.dropout = Dropout(dropout)
+        self.proj_out = StylizationBlock(latent_dim, time_embed_dim, dtype, dropout)
 
-    def forward(self, x, emb):
+    def forward(self, x, emb, drop=None):
         dt = self.dtype
-        y = linear(self.linear2, F.gelu(linear(self.linear1, x, dt), approximate="tanh"), dt)
-        return x + self.proj_out(y, emb)
+        y = self.dropout(F.gelu(linear(self.linear1, x, dt), approximate="tanh"), drop)
+        return x + self.proj_out(linear(self.linear2, y, dt), emb, drop)
 
 
 class DecoderLayer(nn.Module):
@@ -251,23 +288,24 @@ class DecoderLayer(nn.Module):
 
     def __init__(self, latent_dim, ffn_dim, num_heads, time_embed_dim,
                  dtype: torch.dtype = torch.float32, attention_impl: str = "xla",
-                 efficient: bool = True):
+                 efficient: bool = True, dropout: float = 0.0):
         super().__init__()
         if efficient:
             self.sa_block = LinearSelfAttention(latent_dim, num_heads, time_embed_dim, dtype,
-                                                attention_impl)
+                                                attention_impl, dropout)
             self.ca_block = LinearCrossAttention(latent_dim, time_embed_dim, num_heads,
-                                                 time_embed_dim, dtype)
+                                                 time_embed_dim, dtype, dropout)
         else:
-            self.sa_block = QuadraticSelfAttention(latent_dim, num_heads, time_embed_dim, dtype)
+            self.sa_block = QuadraticSelfAttention(latent_dim, num_heads, time_embed_dim, dtype,
+                                                   dropout)
             self.ca_block = QuadraticCrossAttention(latent_dim, time_embed_dim, num_heads,
-                                                    time_embed_dim, dtype)
-        self.ffn = FFN(latent_dim, ffn_dim, time_embed_dim, dtype)
+                                                    time_embed_dim, dtype, dropout)
+        self.ffn = FFN(latent_dim, ffn_dim, time_embed_dim, dtype, dropout)
 
-    def forward(self, x, cross_kv, emb, src_mask):
-        x = self.sa_block(x, emb, src_mask)
-        x = self.ca_block(x, cross_kv, emb)
-        return self.ffn(x, emb)
+    def forward(self, x, cross_kv, emb, src_mask, drop=None):
+        x = self.sa_block(x, emb, src_mask, drop)
+        x = self.ca_block(x, cross_kv, emb, drop)
+        return self.ffn(x, emb, drop)
 
 
 class MotionTransformer(nn.Module):
@@ -287,9 +325,13 @@ class MotionTransformer(nn.Module):
         dtype: torch.dtype = torch.float32,
         attention_impl: str = "xla",
         efficient: bool = True,
+        dropout: float = 0.0,
     ):
         super().__init__()
+        if not 0.0 <= dropout <= 1.0:
+            raise ValueError(f"dropout must lie in [0, 1], got {dropout}")
         self.latent_dim = latent_dim
+        self.dropout = dropout
         self.music_latent_dim = music_latent_dim
         self.efficient = efficient
         self.num_heads = num_heads
@@ -309,15 +351,26 @@ class MotionTransformer(nn.Module):
         )
         self.temporal_decoder_blocks = nn.ModuleList(
             DecoderLayer(latent_dim, ff_size, num_heads, time_embed_dim, dtype, attention_impl,
-                         efficient)
+                         efficient, dropout)
             for _ in range(num_layers)
         )
         self.out = nn.Linear(latent_dim, input_feats)
+        for name, m in self.named_modules():
+            if isinstance(m, Dropout):
+                m.site = name
+
+    def dropout_sites(self) -> list[str]:
+        """The names of the denoiser's dropout modules, four a layer, in the
+        order a forward reaches them: each layer's self-attention, cross-
+        attention, FFN (after the GELU) and FFN StylizationBlock, e.g.
+        ``temporal_decoder_blocks.0.sa_block.proj_out.out_layers.1``,
+        ``temporal_decoder_blocks.0.ffn.dropout``."""
+        return [name for name, m in self.named_modules() if isinstance(m, Dropout)]
 
     @classmethod
     def from_config(cls, d) -> "MotionTransformer":
-        """Build from a `DenoiserConfig`, its compute dtype, attention impl
-        and ``efficient_attention`` included; an unresolved "auto" takes the
+        """Build from a `DenoiserConfig`, its compute dtype, attention impl,
+        ``efficient_attention`` and ``dropout`` included; an unresolved "auto" takes the
         plain module's float32 and "xla" (the trainers resolve first,
         `config.resolve_auto`)."""
         dtype = "float32" if d.compute_dtype == "auto" else d.compute_dtype
@@ -327,7 +380,7 @@ class MotionTransformer(nn.Module):
             music_latent_dim=d.music_latent_dim, cond_mask_prob=d.cond_mask_prob,
             dtype=getattr(torch, dtype),
             attention_impl="xla" if d.attention_impl == "auto" else d.attention_impl,
-            efficient=d.efficient_attention,
+            efficient=d.efficient_attention, dropout=d.dropout,
         )
 
     def encode_music(self, mel: torch.Tensor, train: bool = False, *,
@@ -381,10 +434,36 @@ class MotionTransformer(nn.Module):
         """All (num_timesteps, 4*latent) time embeddings in one batch."""
         return self._time_embed(torch.arange(num_timesteps, device=self.sequence_embedding.device))
 
-    def denoise(self, x, timesteps, cond: dict, src_mask: torch.Tensor | None = None):
+    def dropper(self, train: bool, dropout_keep=None, generator: torch.Generator | None = None):
+        """The keep-mask source of a forward, ``drop(site, shape) -> bool``,
+        or None where nothing drops (``train`` off or ``dropout == 0``).
+        ``dropout_keep`` is a mapping from `dropout_sites` names to (B, T,
+        width) masks (true keeps), or a callable ``(site, shape) -> mask``;
+        without it each site draws ``uniform < 1 - dropout`` from
+        ``generator`` (the default generator if None) in the order of
+        `dropout_sites`."""
+        if not train or self.dropout == 0.0:
+            return None
+        if dropout_keep is None:
+            keep_prob = 1.0 - self.dropout
+            device = self.sequence_embedding.device
+
+            def dropout_keep(site, shape):
+                gen_device = generator.device if generator is not None else device
+                return torch.rand(shape, generator=generator, device=gen_device) < keep_prob
+        elif not callable(dropout_keep):
+            masks = dropout_keep
+            dropout_keep = lambda site, shape: masks[site]  # noqa: E731
+        return dropout_keep
+
+    def denoise(self, x, timesteps, cond: dict, src_mask: torch.Tensor | None = None, *,
+                train: bool = False, dropout_keep=None, generator: torch.Generator | None = None):
         """One denoiser call on a `precompute_cond` condition; ``src_mask``
         (B, T, 1) is the self-attention's key mask, all ones by default (in
-        float32, as JAX makes it from the float32 x)."""
+        float32, as JAX makes it from the float32 x).  With ``train`` the
+        dropout modules drop by `dropper`'s masks; without it nothing
+        drops, as JAX's ``train=False``."""
+        drop = self.dropper(train, dropout_keep, generator)
         b, t = x.shape[0], x.shape[1]
         if x.ndim == 4:  # (B, T, J, 2) -> (B, T, 26)
             x = x.reshape(b, t, -1)
@@ -397,11 +476,13 @@ class MotionTransformer(nn.Module):
         emb = temb[:, None, :] + cond["emb_base"]
         h = linear(self.joint_embed, x, self.dtype) + self.sequence_embedding[None, :t].to(self.dtype)
         for blk, kv in zip(self.temporal_decoder_blocks, cond["cross"]):
-            h = blk(h, kv, emb, src_mask)
+            h = blk(h, kv, emb, src_mask, drop)
         return linear(self.out, h, self.dtype).float()
 
-    def forward(self, x, timesteps, xf_proj, xf_out, src_mask=None):
-        return self.denoise(x, timesteps, self.precompute_cond(xf_proj, xf_out), src_mask)
+    def forward(self, x, timesteps, xf_proj, xf_out, src_mask=None, *, train: bool = False,
+                dropout_keep=None, generator: torch.Generator | None = None):
+        return self.denoise(x, timesteps, self.precompute_cond(xf_proj, xf_out), src_mask,
+                            train=train, dropout_keep=dropout_keep, generator=generator)
 
 
 def guided_denoiser(denoise_fn, cond: dict, src_mask: torch.Tensor | None,

@@ -5,7 +5,9 @@ Port of `DDPMTrainer` (`conductor_tpu/train/ddpm_trainer.py`).
 `train_step` is one step of `_train_step_impl` / `_losses` (`:190-330`):
 the 5-term objective ``1 * masked MSE + 1e-6 * L1(frozen ST-GCN latents) +
 0.1 * velocity - 0.1 * clamp(elbow, +-2e-4) + 0.1 * head``, uniform
-timesteps, condition dropout, then optax's global-norm clip and Adam
+timesteps, condition dropout, denoiser dropout where ``dropout > 0`` (the
+flax module's ``train=True`` forward, its masks handed over or drawn from
+the step's generator), then optax's global-norm clip and Adam
 (`train/optim.py`).  The MSE's mask is the full window, or with
 ``replicate_reference_mask`` the reference's ``min(T, m_lens)`` frames,
 which the plain layers also take as the self-attention's key mask.  With
@@ -55,7 +57,12 @@ perceptual net; and `state_dict` / `load_state_dict` of the whole training
 state in the reference's stage-2 ``latest.tar`` layout
 (`train.checkpoints`).
 
-Not ported yet, raising NotImplementedError: denoiser dropout.
+Denoiser dropout trains on the plain layers only (the fused layers need
+``dropout == 0``, as in JAX, and "auto" resolves to the plain ones); every
+serving path ignores it, as JAX's ``generate`` runs with ``train=False``.
+JAX's own step cannot train with dropout (it hands the model no "dropout"
+random key, so flax raises): the port follows the flax module's
+``train=True`` forward.
 """
 
 from __future__ import annotations
@@ -345,18 +352,23 @@ class DDPMTrainer:
     # ------------------------------------------------------------ training
 
     def training_terms(self, xf_proj, xf_out, motion, t, noise,
-                       src_mask: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+                       src_mask: torch.Tensor | None = None, *, dropout_keep=None,
+                       generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
         """`training_losses` of the denoiser on this trainer's layer path,
         given the music condition: the loss terms and the flat ``pred`` /
         ``target`` (B, T, 26) that the perceptual term takes.  ``src_mask``
         (B, T, 1) float32 is the plain layers' key mask (all ones by
-        default); the fused layers take the full window only."""
+        default); the fused layers take the full window only.  The plain
+        layers run with ``train=True``: with ``dropout > 0`` they drop by
+        ``dropout_keep`` (`MotionTransformer.dropper`) or by masks drawn
+        from ``generator``."""
         if self.cfg.denoiser.train_layer_impl == "pallas_fused":
             def model_fn(x, tt):
                 return fused_train_denoise(self.model, self.cfg, x, tt, xf_proj, xf_out)
         else:
             def model_fn(x, tt):
-                return self.model(x, tt, xf_proj, xf_out, src_mask)
+                return self.model(x, tt, xf_proj, xf_out, src_mask, train=True,
+                                  dropout_keep=dropout_keep, generator=generator)
         d = self.cfg.diffusion
         return training_losses(self.train_sched, model_fn, motion, t, noise.reshape(motion.shape),
                                mean_type=d.mean_type, var_type=d.var_type, loss_type=d.loss_type)
@@ -374,7 +386,7 @@ class DDPMTrainer:
             feat_fake, feat_real = self.feat_model(pred), self.feat_model(target)
         return (feat_fake - feat_real).abs().mean()
 
-    def _losses(self, cond, motion, m_lens, t, noise, cond_keep, generator):
+    def _losses(self, cond, motion, m_lens, t, noise, cond_keep, generator, dropout_keep=None):
         """The 5-term objective (`conductor_tpu/train/ddpm_trainer.py:
         190-298`) and its metrics."""
         b, n = motion.shape[0], motion.shape[1]
@@ -384,7 +396,8 @@ class DDPMTrainer:
         # the reference's mask (`:206-210`): the first min(T, m_lens) frames
         cur_len = torch.clamp(m_lens, max=n) if tc.replicate_reference_mask else torch.full_like(m_lens, n)
         src_mask = (torch.arange(n, device=motion.device)[None] < cur_len[:, None]).float()[..., None]
-        terms = self.training_terms(xf_proj, xf_out, motion, t, noise, src_mask)
+        terms = self.training_terms(xf_proj, xf_out, motion, t, noise, src_mask,
+                                    dropout_keep=dropout_keep, generator=generator)
         target, pred = terms["target"], terms["pred"]
         mask2d = src_mask[..., 0]
         loss_rec = (((pred - target) ** 2).mean(dim=-1) * mask2d).sum() / mask2d.sum()
@@ -412,6 +425,7 @@ class DDPMTrainer:
 
     @full_float32()
     def train_step(self, mel_or_feats, motion, m_lens=None, *, t=None, noise=None, cond_keep=None,
+                   dropout_keep=None,
                    generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
         """One optimizer step on a batch: ``mel_or_feats`` is mel (B, T90,
         128), or frozen-encoder features (B, T30, 64) with
@@ -420,8 +434,13 @@ class DDPMTrainer:
         ignored without (the full window).  The timesteps ``t`` (B,), the
         noise (B, T30, J * 2) and the (B, T30) condition keep mask are drawn
         unless given, from ``generator`` or else from `_step_generator`; t
-        by the timestep sampler.  Returns the JAX metrics as 0-d tensors (no
-        host sync but the loss-second-moment sampler's update)."""
+        by the timestep sampler.  With ``dropout > 0`` the denoiser's keep
+        masks are ``dropout_keep`` (a mapping from
+        `MotionTransformer.dropout_sites` to (B, T30, width) masks, or a
+        callable ``(site, shape) -> mask``) or else drawn from the same
+        generator after the condition mask.  Returns the JAX metrics as 0-d
+        tensors (no host sync but the loss-second-moment sampler's
+        update)."""
         dev = self.device
         if generator is None:
             generator = self._step_generator()
@@ -448,7 +467,8 @@ class DDPMTrainer:
         noise = on_device(noise, torch.float32)
         if cond_keep is not None:
             cond_keep = on_device(cond_keep, torch.float32)
-        loss, metrics = self._losses(cond, motion, m_lens, t, noise, cond_keep, generator)
+        loss, metrics = self._losses(cond, motion, m_lens, t, noise, cond_keep, generator,
+                                     dropout_keep)
         loss.backward()
         metrics["grad_norm"] = self.optimizer.step()
         self._pack_stale = True
@@ -484,8 +504,9 @@ def _check_training_config(cfg: Config, device: torch.device | str) -> None:
     119-125`; the serving layers too need linear attention, which is all
     the kernels compute), the model widths the kernels do not take on CUDA
     (`_check_kernel_widths`), the mean and variance types JAX's trainer
-    refuses (`:104-118`), and the modes not ported yet (denoiser dropout
-    among them).  Every kernel takes both compute dtypes."""
+    refuses (`:104-118`), and the loss types not ported.  Dropout > 0
+    trains on the plain layers (the fused ones refuse it, as JAX's do) and
+    serves on every path.  Every kernel takes both compute dtypes."""
     d, tc = cfg.denoiser, cfg.train
     check_types(cfg.diffusion.mean_type, cfg.diffusion.var_type)
     if d.layer_impl == "pallas_fused" and not d.efficient_attention:
@@ -503,8 +524,6 @@ def _check_training_config(cfg: Config, device: torch.device | str) -> None:
     _check_kernel_widths(cfg, device)
     if tc.timestep_sampler not in ("uniform", "loss-second-moment"):
         raise ValueError(f"unknown timestep sampler: {tc.timestep_sampler}")
-    if d.dropout != 0.0:
-        raise NotImplementedError("denoiser dropout is not ported (the default is 0)")
     if cfg.diffusion.loss_type not in ("mse", "rescaled_mse"):
         raise NotImplementedError(f"loss_type {cfg.diffusion.loss_type!r} is not ported")
 

@@ -107,6 +107,18 @@ gan.load_reference_state_dict(m2snet=synthetic_m2snet_state_dict(s1.model))
 m = gan.train_step(torch.rand(2, 540, 128), torch.rand(2, 180, 13, 2),
                    generator=torch.Generator().manual_seed(0))
 assert all(bool(torch.isfinite(v)) for v in m.values()), m
+cfg = Config(denoiser=DenoiserConfig(num_frames=32, latent_dim=32, ff_size=16, num_layers=2,
+                                     num_heads=4, dropout=0.1),
+             diffusion=DiffusionConfig(steps=4, schedule="cosine"))
+tr = DDPMTrainer(cfg, device="cpu")
+m = tr.train_step(torch.rand(2, 96, 128), torch.rand(2, 32, 13, 2),
+                  generator=torch.Generator().manual_seed(0))
+assert torch.isfinite(m["loss"]), m
+import conductor_tpu_torch.cli.evaluate, conductor_tpu_torch.cli.evaluate_protocol
+import conductor_tpu_torch.cli.serving_delta_ci, conductor_tpu_torch.eval.protocol
+from conductor_tpu_torch.eval import DiffusionEvaluator
+from conductor_tpu_torch.prospective import ProspectiveEvaluator
+assert DiffusionEvaluator(tr).batch_size == 8
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("no-jax-ok")
@@ -119,8 +131,9 @@ def test_package_never_imports_jax():
     imports, serves a clip (also with guidance on the ancestral sampler),
     imports the serving CLIs, takes a stage-2 training step (K5 / K6 / K7
     path) and one with the reference mask (bf16 modules, K8 path), a
-    stage-1 M2SNet step (K4 / K9 / K10 / K11 path) and an M2SGAN step
-    (SyncLoss on K7) on the CPU."""
+    stage-1 M2SNet step (K4 / K9 / K10 / K11 path), an M2SGAN step
+    (SyncLoss on K7) and a stage-2 step with denoiser dropout on the CPU,
+    and imports the evaluation modules and CLIs."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], capture_output=True, text=True,
                           cwd=REPO, env=env, timeout=300)
@@ -246,6 +259,25 @@ def test_trainers_run_on_the_card_by_default(make):
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         make()
+
+
+@pytest.mark.parametrize("cli", ["evaluate", "evaluate_protocol", "serving_delta_ci"])
+def test_eval_entry_points_run_on_the_card_by_default(cli, tmp_path):
+    """The evaluation CLIs (and `serving_delta_ci.sweep`) take the card
+    unless ``--device cpu``: without one, the default raises where the
+    run's trainer is built."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    import importlib
+
+    TINY.save(str(tmp_path / "config.json"))
+    mod = importlib.import_module(f"conductor_tpu_torch.cli.{cli}")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if cli == "serving_delta_ci":
+            mod.sweep(str(tmp_path), str(tmp_path / "data"), clips=1, seeds=1)
+        else:
+            extra = ["--m2snet_ckpt", str(tmp_path)] if cli == "evaluate_protocol" else []
+            mod.main(["--run_dir", str(tmp_path), "--data_root", str(tmp_path), *extra])
 
 
 @pytest.mark.parametrize("kwargs,error", [
@@ -438,13 +470,13 @@ def test_sampler_modes_generate(field, value):
         assert out.shape == (1, 32, 26) and bool(torch.isfinite(out).all())
 
 
-@pytest.mark.parametrize("kwargs", [{"denoiser": {"dropout": 0.1}},
+@pytest.mark.parametrize("kwargs", [{"diffusion": {"loss_type": "kl"}},
                                     {"diffusion": {"var_type": "learned_range"}}])
 def test_unported_generate_options_raise(kwargs):
-    """What of serving is still not ported raises where the trainer is
-    built: denoiser dropout and the learned variances (guidance and the
-    ancestral sampler, once listed here, are ported:
-    tests/test_torch_port_serving_modes.py)."""
+    """What is still not ported raises where the trainer is built: the KL
+    loss and the learned variances (guidance, the ancestral sampler and
+    denoiser dropout, once listed here, are ported:
+    tests/test_torch_port_serving_modes.py, tests/test_torch_port_dropout.py)."""
     cfg = TINY.replace(**{sec: dataclasses.replace(getattr(TINY, sec), **kw)
                           for sec, kw in kwargs.items()})
     with pytest.raises(NotImplementedError):

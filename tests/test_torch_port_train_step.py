@@ -193,7 +193,7 @@ def test_drawn_randomness_and_sampling_pack_refresh(weights):
 
 @pytest.mark.parametrize("change,error,match", [
     (dict(denoiser=dict(train_layer_impl="pallas_fused", dropout=0.1)), ValueError, "dropout"),
-    (dict(denoiser=dict(dropout=0.1)), NotImplementedError, "dropout"),
+    (dict(denoiser=dict(dropout=-0.1)), ValueError, "dropout"),
     (dict(denoiser=dict(train_layer_impl="pallas_fused"),
           train=dict(replicate_reference_mask=True)), ValueError, "src_mask"),
     (dict(train=dict(feat_impl="bogus")), ValueError, "feat_impl"),
