@@ -320,9 +320,26 @@ Phases, one line each (the kernel checks one line per kernel):
      and K4 7 a generate call); (d) `ProspectiveEvaluator` with bench.py's
      config at ddim50; (e) `cli.serving_delta_ci`, 3 seeds x 16 clips at
      ddim50, whose deltas check the pipeline only (a 6-step run's
-     weights).
+     weights);
+ 19. (run after phase 18, the `[dp19]` lines, `dp_phase`) data
+     parallelism: (a) two ranks (`python chip_smoke.py --dp19-worker DIR`,
+     `dp_worker`) share the card over gloo, each running 4 stage-2 steps on
+     its 16 rows of phase 6's global batch of 32 with phase 6's weights
+     and random numbers, on "auto" (K5 / K6 / K7), with the reference mask
+     (K8 / K7; m_lens that differ between the ranks) and on the plain
+     float32 path, every loss and grad_norm within 1e-3 (float32 1e-5) of
+     the 1-process steps on the global batch, each rank's launches and ms
+     a step beside phase 6's; (b) `cli.train` under torchrun on phase 12's
+     root: 1 rank over NCCL (its 2 steps against phase 12's first two), 2
+     ranks over gloo with a SIGTERM to rank 1 (both stop at one step, rank
+     0 saves, rc 0), then `--continue`; (c) the sharded evaluator (8 clips
+     a rank) against the 1-process one on the same waves of 16, its motion
+     bit for bit or the gap printed, and `cli.evaluate` under torchrun on 2
+     ranks against the 1-process CLI; (d) `scripts/run_e2e_demo_torch.py`
+     at 8 / 4 clips, 2 + 2 epochs, 2 serving seeds (every stage's seconds,
+     the round trip exact) and `scripts/run_1000ladder_torch.py` at ddim50.
 
-Every path runs at full depth; the run takes a few minutes of its 1200-s
+Every path runs at full depth; the run takes about 9 minutes of its 1200-s
 limit, so no path is cut.  Then one JSON line of per-kernel results (the
 launch counts of K1-K4 and K1's AdaLN GEMM from phase 4, of K5 / K6 / K7
 from phase 6, of K9, K10 and K11 from phase 7, of K8 from phase 8, of K1's
@@ -336,7 +353,8 @@ GEMM, K2's float32 emb_act and K3's float32 mode (e)'s, K5's, K6's and
 K7's float32 modes those of (f) and of phase 12's float32 run; the
 width rows phase 16's, K5 / K6 at W64 with (e)'s added; phase 17's
 launches of K1 (bf16 and int8), its GEMM, K2, K3 and K4 added, and phase
-18's of K1-K4, K1's GEMM (bf16 and int8), K7 and K8);
+18's of K1-K4, K1's GEMM (bf16 and int8), K7 and K8, and phase 19's: the
+ranks' (a) and (c), and (d)'s demo and ladder in process);
 each kernel's time, its
 plain version's, its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
@@ -552,6 +570,18 @@ DROPOUT = 0.1
 EVAL_CLIPS = 16
 EVAL_WAVE = 8
 DELTA_SEEDS = 3
+# phase 19: data parallelism, two ranks sharing the card over gloo: the
+# bounds of the 2-rank steps against the 1-process steps on the global
+# batch (the bf16 kernel paths; the plain float32 path), the reference
+# mask's m_lens (rank 0's rows 60 frames, rank 1's 30 and 120), the demo's
+# small flags, and each torchrun call's time limit
+DP_WORLD = 2
+DP_REL_TOL = 1e-3
+DP_F32_REL_TOL = 1e-5
+DP_M_LENS = np.array([60] * 16 + [30, 120] * 8)
+DEMO_ARGS = ("--train_clips", "8", "--test_clips", "4", "--stage1_epochs", "2",
+             "--stage2_epochs", "2", "--serving_seeds", "2", "--serving_clips", "8")
+DP_TIMEOUT = 300
 
 
 def _run(cmd: list[str]) -> str:
@@ -1856,6 +1886,395 @@ def eval_phase(smi: str, cfg, sd, feat_sd, mel_train, motion_train, drawn, bare_
     return counts
 
 
+def dp_worker(tmp: str) -> int:
+    """One rank of phase 19 (a) and (c) (``python chip_smoke.py
+    --dp19-worker DIR`` with torchrun's environment): joins the group over
+    gloo on the card, runs 4 stage-2 steps of each configuration in
+    ``DIR/in.pt`` on its rows of the global batch, then the sharded
+    evaluator on phase 12's run in bench.py's config at ddim50, and writes
+    ``DIR/out<rank>.pt``: each step's loss, ``grad_norm``, seconds and
+    launches, the evaluation's motion (rank 0), seconds and launches."""
+    import os
+
+    from conductor_tpu_torch import DDPMTrainer
+    from conductor_tpu_torch.cli.evaluate import run_config
+    from conductor_tpu_torch.cli.visualize import load_run
+    from conductor_tpu_torch.eval import DiffusionEvaluator
+    from conductor_tpu_torch.ops import launch_counts, part_launch_counts, reset_launch_counts
+    from conductor_tpu_torch.parallel import init_from_env, shutdown
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh, dev = init_from_env("gloo", "cuda")
+    inp = torch.load(os.path.join(tmp, "in.pt"), weights_only=False)
+    out: dict = {"steps": {}}
+    mel, motion = mesh.local(inp["mel"]), mesh.local(inp["motion"])
+    for name, cfg in inp["configs"].items():
+        tr = DDPMTrainer(cfg, device=dev, mesh=mesh)
+        tr.load_reference_state_dict(inp["sd"], motion_encoder=inp["feat_sd"])
+        m_lens = mesh.local(inp["m_lens"]) if cfg.train.replicate_reference_mask else None
+        rec: dict[str, list] = {"loss": [], "grad_norm": [], "s": [], "launches": []}
+        for d in inp["drawn"]:
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = tr.train_step(mel, motion, m_lens, **d)
+            rec["loss"].append(float(m["loss"]))  # host readback ends the step
+            rec["s"].append(time.perf_counter() - t0)
+            rec["grad_norm"].append(float(m["grad_norm"]))
+            rec["launches"].append({k: n for k, n in launch_counts().items() if n})
+        out["steps"][name] = rec
+        del tr
+        torch.cuda.empty_cache()
+    run_dir, root = inp["run_dir"], inp["root"]
+    bench = load_run(run_dir, None, dev, run_config(run_dir, dev, "pallas_fused",
+                                                    adaln_int8=True))
+    ev = DiffusionEvaluator(bench, mesh=mesh)  # 8 clips a rank, JAX's default
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev.evaluate(root, num_steps=50, compute_beats=False)
+    torch.cuda.synchronize()
+    out["eval"] = {"s": time.perf_counter() - t0, "wave": ev.batch_size,
+                   "generated": getattr(ev, "generated", None),
+                   "launches": {k: n for k, n in (launch_counts() | part_launch_counts()).items()
+                                if n}}
+    torch.save(out, os.path.join(tmp, f"out{mesh.rank}.pt"))
+    shutdown(mesh)
+    return 0
+
+
+def dp_phase(smi: str, cfg, plain_cfg, sd, feat_sd, mel_train, motion_train, drawn,
+             bare_step_s: float, run_dir: str, root: str) -> dict[str, int]:
+    """Phase 19 (the `[dp19]` lines), after phase 18: data parallelism.
+    (a) `DP_WORLD` ranks share the card over gloo (`dp_worker`), each
+    running 4 stage-2 steps on its 16 rows of phase 6's global batch of 32
+    (T = 900) with phase 6's weights and random numbers: "auto" (K5 / K6 /
+    K7), the reference mask (bf16 plain layers, K8, K7; `DP_M_LENS`, so
+    the ranks' mask counts differ) and the plain float32 path, each against
+    the 1-process steps on the global batch: every loss and ``grad_norm``
+    within `DP_REL_TOL` (float32 `DP_F32_REL_TOL`); (b) `cli.train` under
+    torchrun on phase 12's root: ``--nproc_per_node 1`` over NCCL (its 2
+    steps against phase 12's default run's first 2), then 2 ranks over
+    gloo, a SIGTERM to rank 1 (both stop at one step, rank 0 saves, rc 0)
+    and ``--continue``; (c) `cli.evaluate` under torchrun on 2 ranks (gloo)
+    on phase 12's run, bench.py's config at ddim50, waves of 16 (8 a rank),
+    against the 1-process CLI on the same waves, and the ranks' motion
+    (from (a)'s workers) against the 1-process evaluator's, bit for bit or
+    the gap printed; (d) `scripts/run_e2e_demo_torch.py` at `DEMO_ARGS`,
+    every stage's seconds, then `scripts/run_1000ladder_torch.py` at ddim50.
+    Returns the launches by kernels-line row; raises SystemExit on any
+    failed check."""
+    import itertools
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import threading
+
+    from conductor_tpu_torch import DDPMTrainer
+    from conductor_tpu_torch.cli import evaluate
+    from conductor_tpu_torch.cli.visualize import load_run
+    from conductor_tpu_torch.eval import DiffusionEvaluator
+    from conductor_tpu_torch.ops import launch_counts, part_launch_counts, reset_launch_counts
+    from conductor_tpu_torch.parallel.mesh import free_port
+    from conductor_tpu_torch.train.checkpoints import CheckpointManager
+
+    t_phase = time.perf_counter()
+    counts: dict[str, int] = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    env0 = dict(os.environ, PYTHONUNBUFFERED="1",
+                PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        env0.pop(k, None)
+
+    def add(c: dict[str, int]) -> None:
+        for k, n in c.items():
+            counts[k] = counts.get(k, 0) + n
+
+    def wait(procs, what: str, timeout: float = DP_TIMEOUT) -> list[str]:
+        """Each process's output (a pipe, or the file ``p.log``); kills
+        them all and raises if one fails or outlasts ``timeout``."""
+        outs = []
+        deadline = time.time() + timeout
+        try:
+            for p in procs:
+                out = p.communicate(timeout=max(1.0, deadline - time.time()))[0]
+                if getattr(p, "log", None):
+                    with open(p.log) as f:
+                        out = f.read()
+                outs.append(out)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        if any(p.returncode for p in procs):
+            raise SystemExit(f"chip_smoke: {what} failed (rc {[p.returncode for p in procs]}):\n"
+                             + "\n".join(o[-3000:] for o in outs))
+        return outs
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp19_")
+    try:
+        # (a) the 1-process steps on the global batch, then the ranks
+        mask_cfg = cfg.replace(train=dataclasses.replace(cfg.train, replicate_reference_mask=True))
+        configs = {"auto": cfg, "mask": mask_cfg, "plain_f32": plain_cfg}
+        m_lens = torch.from_numpy(DP_M_LENS)
+        one: dict[str, dict] = {}
+        for name, c in configs.items():
+            tr = DDPMTrainer(c, device="cuda")
+            tr.load_reference_state_dict(sd, motion_encoder=feat_sd)
+            rec: dict[str, list] = {"loss": [], "grad_norm": [], "s": []}
+            for d in drawn:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = tr.train_step(mel_train, motion_train,
+                                  m_lens if c.train.replicate_reference_mask else None, **d)
+                rec["loss"].append(float(m["loss"]))
+                rec["s"].append(time.perf_counter() - t0)
+                rec["grad_norm"].append(float(m["grad_norm"]))
+            one[name] = rec
+            del tr
+            torch.cuda.empty_cache()
+        torch.save({"configs": configs, "sd": sd, "feat_sd": feat_sd, "mel": mel_train.cpu(),
+                    "motion": motion_train.cpu(), "drawn": drawn, "m_lens": m_lens,
+                    "run_dir": run_dir, "root": root}, os.path.join(work, "in.pt"))
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp19-worker", work],
+            env=dict(env0, RANK=str(r), WORLD_SIZE=str(DP_WORLD), LOCAL_RANK=str(r),
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(DP_WORLD)]
+        wait(procs, "phase 19 (a)'s ranks")
+        ranks = [torch.load(os.path.join(work, f"out{r}.pt"), weights_only=False)
+                 for r in range(DP_WORLD)]
+        print(f"[dp19] (a) {DP_WORLD} ranks over gloo on one card: {time.perf_counter() - t0:.1f} "
+              f"s for the ranks' processes (start-up, 3 x 4 steps, (c)'s evaluation) on {smi}")
+        want = {"auto": {"decoder_layer": cfg.denoiser.num_layers,
+                         "decoder_layer_bwd": cfg.denoiser.num_layers,
+                         "stgcn_forward": K7_PER_STEP[0], "stgcn_backward": K7_PER_STEP[1]},
+                "mask": {"linear_attention": cfg.denoiser.num_layers,
+                         "stgcn_forward": K7_PER_STEP[0], "stgcn_backward": K7_PER_STEP[1]},
+                "plain_f32": {}}
+        bad = []
+        for name in configs:
+            tol = DP_F32_REL_TOL if name == "plain_f32" else DP_REL_TOL
+            gaps = {}
+            for key in ("loss", "grad_norm"):
+                gaps[key] = max(abs(a - b) / abs(b) for r in ranks
+                                for a, b in zip(r["steps"][name][key], one[name][key]))
+                if not (np.isfinite(gaps[key]) and gaps[key] <= tol):
+                    bad.append((name, key, gaps[key]))
+            launches = [r["steps"][name]["launches"] for r in ranks]
+            if any(c != want[name] for per_rank in launches for c in per_rank):
+                bad.append((name, "launches", launches))
+            for per_rank in launches:
+                for c in per_rank:
+                    add(c)
+            ms = [round(float(np.median(r["steps"][name]["s"])) * 1e3, 1) for r in ranks]
+            print(f"[dp19] (a) {name}: B=32 global ({32 // DP_WORLD} a rank), T=900, 4 steps: "
+                  f"losses {ranks[0]['steps'][name]['loss']} against the 1-process steps' "
+                  f"{one[name]['loss']}; largest rel gap loss {gaps['loss']:.3g}, grad_norm "
+                  f"{gaps['grad_norm']:.3g} (bound {tol:g}); launches per step, each rank "
+                  f"{[r['steps'][name]['launches'][0] for r in ranks]}")
+            print(f"[time] (a) {name} data-parallel step, median ms a rank {ms} (two ranks "
+                  f"sharing the card, gradients summed over gloo through the host), 1-process "
+                  f"step on the global batch {np.median(one[name]['s']) * 1e3:.1f}; phase 6's "
+                  f"kernel step {bare_step_s * 1e3:.1f} on {smi}")
+        if bad:
+            raise SystemExit(f"chip_smoke: the data-parallel steps disagree with the 1-process "
+                             f"steps or launched other kernels: {bad}")
+
+        # (c) the ranks' motion against the 1-process evaluator's, same waves
+        bench_cfg = evaluate.run_config(run_dir, "cuda", "pallas_fused", adaln_int8=True)
+        bench = load_run(run_dir, None, "cuda", bench_cfg)
+        ev = DiffusionEvaluator(bench, batch_size=ranks[0]["eval"]["wave"])
+        t0 = time.perf_counter()
+        ev.evaluate(root, num_steps=50, compute_beats=False)
+        one_s = time.perf_counter() - t0
+        got, ref = ranks[0]["eval"]["generated"], ev.generated
+        gap = float(np.abs(got - ref).max())
+        print(f"[dp19] (c) the sharded evaluator (bench.py's config, ddim50, waves of "
+              f"{ranks[0]['eval']['wave']}, 8 a rank) against the 1-process evaluator on the same "
+              f"waves and x_T: motion {got.shape}, bit-equal {bool(np.array_equal(got, ref))}, "
+              f"largest gap {gap:.6g} (max {float(np.abs(ref).max()):.6g}); launches each rank "
+              f"{[r['eval']['launches'] for r in ranks]}; seconds {[round(r['eval']['s'], 2) for r in ranks]} "
+              f"against {one_s:.2f} on one process, on {smi}")
+        if got.shape != ref.shape or not gap <= GENERATE_REL_TOL * float(np.abs(ref).max()):
+            raise SystemExit("chip_smoke: the sharded evaluator's motion disagrees with the "
+                             "1-process evaluator's")
+        if not np.array_equal(got, ref):
+            print("[dp19] (c) not bit-equal: each rank generates 8 rows where one process "
+                  "generates 16, and a kernel's tiling over the batch changes its summation "
+                  "order; the gap is within the ladder's drift bound")
+        for r in ranks:
+            for k, n in r["eval"]["launches"].items():
+                add({"adaln_modulation_int8" if k == "adaln_modulation" else k: n})
+            if r["eval"]["launches"].get("decoder_stack_int8", 0) == 0:
+                raise SystemExit("chip_smoke: a rank's sharded evaluation launched no K1")
+        del bench, ev
+
+        def torchrun(nproc: int, module: str, *argv: str, backend: str | None = None,
+                     pipe: bool = False):
+            """A torchrun call, its output in a pipe or in a file of the
+            work directory (``p.log``)."""
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   "--nproc_per_node", str(nproc), "-m", module, *argv]
+            if backend:
+                cmd += ["--dist_backend", backend]
+            log = None if pipe else os.path.join(work, f"torchrun{next(call_ids)}.log")
+            with open(log or os.devnull, "w") as f:
+                p = subprocess.Popen(cmd, env=env0, cwd=here, stderr=subprocess.STDOUT, text=True,
+                                     stdout=subprocess.PIPE if pipe else f)
+            p.log = log
+            return p
+
+        call_ids = itertools.count()
+
+        def records(name):
+            with open(os.path.join(work, "ConductorMotion100", name, "metrics.jsonl")) as f:
+                return [json.loads(line) for line in f]
+
+        # (c)'s 1-process CLI run on the waves the ranks take (16, 8 a rank)
+        eval_argv = ("--run_dir", run_dir, "--data_root", root, "--steps", "50", "--layer_impl",
+                     "pallas_fused", "--adaln_int8")
+        t0 = time.perf_counter()
+        one_rep = evaluate.main([*eval_argv, "--batch_size", str(EVAL_WAVE * DP_WORLD),
+                                 "--out_suffix", "_dp19_one"])
+        t_one = time.perf_counter() - t0
+
+        # (b) and (c) under torchrun, three calls at once, since a torchrun
+        # call starts two interpreters before any work and importing torch
+        # can take seconds: the CLI on 1 rank over NCCL, on 2 ranks over
+        # gloo with a SIGTERM to rank 1, and cli.evaluate on 2 ranks
+        t0 = time.perf_counter()
+        train_argv = ("--data_root", root, "--checkpoints_dir", work, "--times", "4",
+                      "--log_every", "1")
+        nccl1 = torchrun(1, "conductor_tpu_torch.cli.train", *train_argv, "--name", "nccl1",
+                         "--epochs", "1")
+        eval2 = torchrun(DP_WORLD, "conductor_tpu_torch.cli.evaluate", *eval_argv,
+                         "--out_suffix", "_dp19", backend="gloo")
+        proc = torchrun(DP_WORLD, "conductor_tpu_torch.cli.train", *train_argv, "--name", "sig",
+                        "--epochs", "1000", "--save_latest", "100000", "--save_every_e",
+                        "100000", backend="gloo", pipe=True)
+        lines: list[str] = []
+        reader = threading.Thread(target=lambda: lines.extend(iter(proc.stdout.readline, "")))
+        reader.start()
+        jsonl = os.path.join(work, "ConductorMotion100", "sig", "metrics.jsonl")
+        deadline = time.time() + DP_TIMEOUT
+        pid = None
+        try:
+            while time.time() < deadline and proc.poll() is None:
+                pid = pid or next((int(ln.split("(pid ")[1].split(")")[0]) for ln in list(lines)
+                                   if ln.startswith("rank 1 of 2")), None)
+                if pid and os.path.exists(jsonl) and os.path.getsize(jsonl) > 0:
+                    break
+                time.sleep(0.05)
+            if pid is None or proc.poll() is not None:
+                raise SystemExit("chip_smoke: cli.train on 2 ranks did not start:\n"
+                                 + "".join(lines)[-3000:])
+            os.kill(pid, signal.SIGTERM)
+            rc = proc.wait(timeout=DP_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            reader.join(30)
+            outs = wait([nccl1, eval2], "cli.train on 1 rank (nccl) / cli.evaluate on 2 ranks")
+        t_calls = time.perf_counter() - t0
+        out = "".join(lines)
+        sig = records("sig")
+        last = sig[-1]["step"]
+        saved = CheckpointManager(os.path.join(work, "ConductorMotion100", "sig", "ckpt")
+                                  ).latest_step()
+        print(f"[dp19] (b) torchrun --nproc_per_node 2 --dist_backend gloo cli.train, SIGTERM to "
+              f"rank 1 (pid {pid}) after step {sig[0]['step']}: rc {rc}, {len(sig)} steps logged "
+              f"(losses {[r['loss'] for r in sig]}), rank 0 saved step {saved}")
+        if (rc != 0 or saved != last
+                or f"stop requested (signal on another rank): saved step {last}" not in out
+                or f"stop requested (signal {int(signal.SIGTERM)}): stopped at step {last}"
+                not in out):
+            raise SystemExit(f"chip_smoke: a SIGTERM on rank 1 did not stop both ranks at one "
+                             f"step where rank 0 saves:\n{out[-3000:]}")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            base = [json.loads(line) for line in f][:2]
+        got_r = records("nccl1")
+        gap = max(abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(got_r, base))
+        print(f"[dp19] (b) torchrun --nproc_per_node 1 (nccl) cli.train --times 4 --epochs 1: "
+              f"steps {[r['step'] for r in got_r]}, losses {[r['loss'] for r in got_r]} against "
+              f"phase 12's default run's first two {[r['loss'] for r in base]} (largest rel gap "
+              f"{gap:.3g}); '{next(ln for ln in outs[0].splitlines() if ln.startswith('rank 0 of 1'))}'")
+        if [r["step"] for r in got_r] != [1, 2] or "rank 0 of 1 (nccl)" not in outs[0] or not (
+                gap <= DP_REL_TOL):
+            raise SystemExit(f"chip_smoke: cli.train under torchrun (nccl) went wrong:\n"
+                             f"{outs[0][-3000:]}")
+        with open(os.path.join(run_dir, "eval_test_dp19.json")) as f:
+            dp_rep = json.load(f)
+        gaps = {k: abs(dp_rep[k] - v) for k, v in one_rep.items()}
+        print(f"[dp19] (c) torchrun --nproc_per_node 2 cli.evaluate (bench.py's config, ddim50, "
+              f"{EVAL_CLIPS} clips, waves of {EVAL_WAVE * DP_WORLD}): {dp_rep}; against one "
+              f"process: gaps {gaps}; {t_one:.1f} s in process; "
+              f"'{[ln for ln in outs[1].splitlines() if 'evaluating on' in ln]}'")
+        if set(dp_rep) != set(one_rep) or not all(np.isfinite(v) for v in dp_rep.values()) or any(
+                g > GENERATE_REL_TOL * max(abs(one_rep[k]), 1e-6) for k, g in gaps.items()):
+            raise SystemExit("chip_smoke: cli.evaluate on 2 ranks disagrees with one process")
+        print(f"[dp19] (b), (c) the three torchrun calls at once: {t_calls:.1f} s, process "
+              f"start-up included, on {smi}")
+        t0 = time.perf_counter()
+        epochs = last // 2 + 1  # 2 steps an epoch at --times 4
+        out = wait([torchrun(DP_WORLD, "conductor_tpu_torch.cli.train", *train_argv, "--name",
+                             "sig", "--epochs", str(epochs), "--continue", backend="gloo")],
+                   "cli.train --continue on 2 ranks")[0]
+        sig = records("sig")
+        print(f"[dp19] (b) --continue on 2 ranks: steps {[r['step'] for r in sig]} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if f"resumed from step {last}" not in out or sig[-1]["step"] != 2 * epochs:
+            raise SystemExit(f"chip_smoke: --continue on 2 ranks did not resume:\n{out[-3000:]}")
+
+        # (d) the demo and the 1000-step ladder at small flags, in process
+        sys.path.insert(0, os.path.join(here, "scripts"))
+        import run_1000ladder_torch
+        import run_e2e_demo_torch
+
+        demo_out, demo_work = os.path.join(work, "demo_out"), os.path.join(work, "demo")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_e2e_demo_torch.main(["--out", demo_out, "--work", demo_work, *DEMO_ARGS])
+        torch.cuda.synchronize()
+        c = {k: n for k, n in launch_counts().items() if n}
+        print(f"[dp19] (d) run_e2e_demo_torch.py {' '.join(DEMO_ARGS)}: "
+              f"{time.perf_counter() - t0:.1f} s, stages (s) "
+              f"{ {k: round(v, 2) for k, v in res['seconds'].items()} }; run_meta "
+              f"{json.dumps(res['meta'])}; launches {c} (K1's GEMM "
+              f"{part_launch_counts()}) on {smi}")
+        with open(os.path.join(demo_out, "run_meta.json")) as f:
+            meta = json.load(f)
+        need = ("conv_block", "decoder_layer", "decoder_layer_bwd", "stgcn_forward",
+                "stgcn_backward", "conv3x3_dkernel", "max_pool", "max_pool_bwd", "decoder_stack",
+                "decoder_stack_int8", "sampler_prologue", "sampler_epilogue")
+        if (not meta["torch_export_roundtrip"].startswith("exact")
+                or not meta["backend"].startswith(smi) or any(not c.get(k) for k in need)):
+            raise SystemExit(f"chip_smoke: the demo went wrong: {meta} {c}")
+        add(c)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        payload = run_1000ladder_torch.main(["--out", demo_out, "--work", demo_work,
+                                             "--stage2_epochs", "2", "--steps", "50"])
+        torch.cuda.synchronize()
+        c = {k: n for k, n in launch_counts().items() if n}
+        print(f"[dp19] (d) run_1000ladder_torch.py --steps 50: {time.perf_counter() - t0:.1f} s, "
+              f"{json.dumps(payload)}; launches {c}")
+        if not all(np.isfinite(v) for v in payload["sweep"]["50"].values()) or not c.get(
+                "decoder_stack"):
+            raise SystemExit(f"chip_smoke: the 1000-step ladder sweep went wrong: {payload} {c}")
+        add(c)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[dp19] launches {counts}; phase 19 took {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2611,6 +3030,12 @@ def main() -> int:
                                  float(np.median(times_k)),
                                  os.path.join(cli_work, "ConductorMotion100", "defaults"),
                                  os.path.join(cli_work, "data"), m2snet_ckpt)
+        # 19. data parallelism, on phase 12's root and run (its launches are
+        # added to the kernels line with phase 18's)
+        dp_counts = dp_phase(smi, cfg, plain_cfg, sd, feat_sd, mel_train, motion_train, drawn,
+                             float(np.median(times_k)),
+                             os.path.join(cli_work, "ConductorMotion100", "defaults"),
+                             os.path.join(cli_work, "data"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
         shutil.rmtree(cli_work, ignore_errors=True)
@@ -2833,7 +3258,7 @@ def main() -> int:
     counts["decoder_layer_w64"] += w64_cli_counts["decoder_layer"]
     counts["decoder_layer_bwd_w64"] += w64_cli_counts["decoder_layer_bwd"]
     print(f"[widths] (e)'s CLI run at D = 64 (phase 12): launches {w64_cli_counts}")
-    for k, n in eval_counts.items():  # phase 18
+    for k, n in (*eval_counts.items(), *dp_counts.items()):  # phases 18 and 19
         counts[k] = counts.get(k, 0) + n
 
     kernels = []
@@ -2857,4 +3282,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp19-worker"]:  # a rank of phase 19, started by dp_phase
+        sys.exit(dp_worker(sys.argv[2]))
     sys.exit(main())

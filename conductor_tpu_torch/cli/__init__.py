@@ -5,7 +5,13 @@
 
 from __future__ import annotations
 
+import os
+from contextlib import contextmanager
+
 import torch
+import torch.distributed as dist
+
+from ..parallel.mesh import ENV_KEYS, Mesh, init_from_env, shutdown
 
 
 def training_device(name: str, task: str = "training") -> torch.device:
@@ -17,3 +23,21 @@ def training_device(name: str, task: str = "training") -> torch.device:
         print(f"{torch.cuda.device_count()} CUDA devices: {task} on cuda:0 only "
               "(one device; no data parallelism)")
     return device
+
+
+@contextmanager
+def run_mesh(name: str, backend: str | None = None, task: str = "training"):
+    """(mesh, device) of a CLI run: under torchrun (its ``RANK`` /
+    ``WORLD_SIZE`` / ``LOCAL_RANK`` set) the group `parallel.init_from_env`
+    joins over ``backend`` and this rank's device, left on exit if this
+    call joined it; otherwise one process on `training_device`."""
+    if not any(k in os.environ for k in ENV_KEYS):
+        yield Mesh(), training_device(name, task)
+        return
+    joined = not dist.is_initialized()
+    mesh, device = init_from_env(backend, name)
+    try:
+        yield mesh, device
+    finally:
+        if joined:
+            shutdown(mesh)

@@ -12,10 +12,15 @@ of the JAX CLI keeps its name and default; the port adds ``--device``.
 ``--layer_impl``, ``--compute_dtype`` and ``--adaln_int8`` change how
 generation runs, not the model: they score a serving fast path against the
 exact one on the same checkpoint (`cli.serving_delta_ci`).
-``--single_device`` is accepted; the port evaluates on one device.
+Under ``torchrun`` (JAX's default mesh over every device) each wave holds
+8 clips a rank and is sharded over the ranks (`eval.DiffusionEvaluator`'s
+``mesh``); rank 0 writes the report.  ``--single_device`` is the
+one-process run; under a torchrun world above 1 it is refused.
 
     python -m conductor_tpu_torch.cli.evaluate --run_dir checkpoints/ConductorMotion100/my_run \\
         --data_root /data/cm100 [--steps 50] [--max_clips 100] [--device cuda]
+    torchrun --standalone --nproc_per_node 4 -m conductor_tpu_torch.cli.evaluate \\
+        --run_dir checkpoints/ConductorMotion100/my_run --data_root /data/cm100
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import os
 
 from ..config import Config, resolve_auto
 from ..eval import DiffusionEvaluator
-from . import training_device
+from . import run_mesh
 from .visualize import load_run
 
 
@@ -40,13 +45,14 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--split", default="test")
     p.add_argument("--steps", type=int, default=None, help="DDIM respacing (default: full ladder)")
     p.add_argument("--batch_size", type=int, default=None,
-                   help="clips per generation wave (default 8)")
+                   help="clips per generation wave (default 8 a rank under torchrun, 8 on one "
+                        "device)")
     p.add_argument("--max_clips", type=int, default=None)
     p.add_argument("--no_beats", action="store_true", help="skip beat-consistency (slow, host-side)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--single_device", action="store_true",
-                   help="accepted for the JAX CLI's command lines; the port evaluates on one "
-                        "device")
+                   help="one process on one device (refused under a torchrun world above 1; "
+                        "without torchrun the port evaluates on one device)")
     # how generation runs (default: the run's config.json), not the model
     p.add_argument("--layer_impl", default=None, choices=["flax", "pallas_fused"])
     p.add_argument("--compute_dtype", default=None, choices=["float32", "bfloat16"])
@@ -56,6 +62,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--out_suffix", default="",
                    help="suffix for the eval_<split><suffix>.json artifact")
     p.add_argument("--device", default="cuda", help="torch device to evaluate on (default cuda)")
+    p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                   help="torch.distributed backend under torchrun (default nccl on CUDA, gloo "
+                        "on the CPU or for ranks sharing a card)")
     return p
 
 
@@ -79,16 +88,26 @@ def run_config(run_dir: str, device, layer_impl: str | None = None,
     return cfg
 
 
-def main(argv=None) -> dict:
+def main(argv=None) -> dict | None:
+    """Returns the report (None on every rank but rank 0 under torchrun)."""
     args = build_argparser().parse_args(argv)
-    device = training_device(args.device, "evaluating")
-    cfg = run_config(args.run_dir, device, args.layer_impl, args.compute_dtype, args.adaln_int8)
-    trainer = load_run(args.run_dir, args.step, device, cfg)
-    evaluator = DiffusionEvaluator(trainer, batch_size=args.batch_size)
-    result = evaluator.evaluate(
-        args.data_root, split=args.split, num_steps=args.steps, max_clips=args.max_clips,
-        seed=args.seed, compute_beats=not args.no_beats,
-    )
+    with run_mesh(args.device, args.dist_backend, "evaluating") as (mesh, device):
+        if mesh.distributed and args.single_device:
+            raise SystemExit("--single_device asks for one process; this is rank "
+                             f"{mesh.rank} of {mesh.size} under torchrun")
+        cfg = run_config(args.run_dir, device, args.layer_impl, args.compute_dtype,
+                         args.adaln_int8)
+        trainer = load_run(args.run_dir, args.step, device, cfg)
+        evaluator = DiffusionEvaluator(trainer, batch_size=args.batch_size, mesh=mesh)
+        if mesh.distributed and mesh.is_main():
+            print(f"evaluating on {mesh.size} ranks ({mesh.backend}), waves of "
+                  f"{evaluator.batch_size}")
+        result = evaluator.evaluate(
+            args.data_root, split=args.split, num_steps=args.steps, max_clips=args.max_clips,
+            seed=args.seed, compute_beats=not args.no_beats,
+        )
+    if result is None:
+        return None
     report = result.as_dict()
     print(json.dumps(report, indent=2))
     print("seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in evaluator.seconds.items()))

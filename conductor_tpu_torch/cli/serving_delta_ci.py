@@ -10,10 +10,14 @@ generation seeds on the same checkpoint and split, exact then serving,
 and reports each metric's percentage delta as mean +- 95 % CI, in the JAX
 script's JSON layout (``device`` is the torch device's name).  A split
 that is missing is written first (``correlated`` synthetic clips).
+``--run_meta`` refreshes the ``serving_*`` keys of a demo's
+``run_meta.json`` (`update_run_meta`, JAX's `scripts/serving_delta_ci.py:
+121-163`).
 
     python -m conductor_tpu_torch.cli.serving_delta_ci \\
         --run_dir checkpoints/ConductorMotion100/my_run --data_root /data/cm100_synth \\
-        --seeds 10 --clips 24 [--out serving_quality.json] [--device cuda]
+        --seeds 10 --clips 24 [--out serving_quality.json] [--run_meta run_meta.json] \\
+        [--device cuda]
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 
 import numpy as np
 import torch
@@ -100,6 +105,40 @@ def sweep(
     return out
 
 
+def card_label(device: str | torch.device) -> str:
+    """The card as ``nvidia-smi --query-gpu=name,power.limit`` names it
+    (its name and power limit), or "cpu"; the torch device's name where
+    nvidia-smi does not answer."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    try:
+        lines = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                "--format=csv,noheader"], capture_output=True, text=True,
+                               check=True, timeout=60).stdout.strip().splitlines()
+        return lines[index].strip()
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return torch.cuda.get_device_name(dev)
+
+
+def update_run_meta(run_meta_path: str, quality: dict, device: str | torch.device = "cuda") -> None:
+    """Refresh the ``serving_*`` keys of ``run_meta_path`` from a `sweep`
+    (JAX's `update_run_meta`): the FGD and BC deltas' means and 95 % CIs
+    and ``serving_ci_provenance``, which names the card (`card_label`)."""
+    with open(run_meta_path) as f:
+        meta = json.load(f)
+    meta["serving_fgd_delta_pct"] = quality["fgd_delta"]["mean_pct"]
+    meta["serving_fgd_delta_ci95_pct"] = quality["fgd_delta"]["ci95_pct"]
+    meta["serving_bc_delta_pct"] = quality["bc_delta"]["mean_pct"]
+    meta["serving_bc_delta_ci95_pct"] = quality["bc_delta"]["ci95_pct"]
+    meta["serving_ci_provenance"] = (
+        f"{quality['n_seeds']} seeds x {quality['clips_per_seed']} clips ({quality['split']} "
+        f"split) on {card_label(device)} (conductor_tpu_torch.cli.serving_delta_ci)")
+    with open(run_meta_path, "w") as f:
+        json.dump(meta, f, indent=2)
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--run_dir", required=True)
@@ -112,6 +151,8 @@ def main(argv=None) -> dict:
     p.add_argument("--reuse", action="store_true",
                    help="reuse existing per-seed eval_<split>_*.json files (resume an "
                         "interrupted sweep)")
+    p.add_argument("--run_meta", default=None,
+                   help="run_meta.json whose serving_* keys to refresh")
     p.add_argument("--device", default="cuda", help="torch device to evaluate on (default cuda)")
     args = p.parse_args(argv)
     quality = sweep(args.run_dir, args.data_root, split=args.split, clips=args.clips,
@@ -120,6 +161,8 @@ def main(argv=None) -> dict:
     if args.out:
         with open(args.out, "w") as f:
             json.dump(quality, f, indent=2)
+    if args.run_meta:
+        update_run_meta(args.run_meta, quality, args.device)
     return quality
 
 

@@ -1,17 +1,32 @@
 """Stage-2 diffusion training CLI, the port's `conductor_tpu/cli/train.py`.
 
-Trains the denoiser on one device (the card unless ``--device cpu``) from
-a ConductorMotion100-shaped root: the data layer and the native loader
+Trains the denoiser on one device (the card unless ``--device cpu``), or
+data-parallel under ``torchrun`` (JAX's CLI trains over every device and
+host, `conductor_tpu/cli/train.py:171-178, 217-242`): rank r on
+``cuda:LOCAL_RANK`` over NCCL, or over gloo with ``--dist_backend gloo``
+(ranks sharing a card, or the CPU), each loading its rows of every global
+``--batch_size`` through the host-sharded loaders; a batch the world size
+does not divide is refused.  Rank 0 alone writes ``config.json``, the
+metrics, the checkpoints, the profile and the feature cache; the other
+ranks wait, then read the cache after checking its sidecar themselves.
+``--continue`` restores on every rank, and a SIGTERM / SIGINT on any rank
+stops every rank at the same step boundary (one all-reduce of the stop
+flag a step), where rank 0 saves.  Without a torchrun environment the CLI
+is the one-process one.
+
+From a ConductorMotion100-shaped root: the data layer and the native loader
 (`data`), the optional frozen-feature cache, a stage-1 graft
 (``--stage1_ckpt``), step-versioned checkpoints under ``<run>/ckpt`` with
 ``--continue``, and a checkpoint at the next step boundary on SIGTERM /
 SIGINT.  The resolved `Config` is saved as ``<run>/config.json``, which
 the JAX package's `Config.load` reads.  Every flag of the JAX CLI keeps its
 name and default, so a JAX command line runs unchanged; the port adds
-``--device``.
+``--device`` and ``--dist_backend``.
 
     python -m conductor_tpu_torch.cli.train --data_root /data/cm100 \\
         --name my_run [--batch_size 32] [--epochs 100] [--times 25] [--continue]
+    torchrun --standalone --nproc_per_node 4 -m conductor_tpu_torch.cli.train \\
+        --data_root /data/cm100 --name my_run --batch_size 128
 """
 
 from __future__ import annotations
@@ -23,15 +38,17 @@ import time
 
 import torch
 
-from . import training_device
+from . import run_mesh
 from ..config import Config, DenoiserConfig, DiffusionConfig, TrainConfig, pin_faithful, resolve_auto
 from ..data.dataset import ConductorMotionDataset
 from ..data.feature_cache import (
     FeatureCachedDataset,
+    check_cache_meta,
     precompute_music_features,
     state_dict_fingerprint,
 )
 from ..data.native_loader import make_batch_iterator
+from ..parallel.mesh import Mesh
 from ..train.checkpoints import CheckpointManager, restore_raw
 from ..train.ddpm_trainer import DDPMTrainer
 from ..utils.logging import MetricLogger
@@ -98,7 +115,11 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="a torch.profiler trace of the first N steps in <run_dir>/profile "
                         "(chrome trace)")
     p.add_argument("--device", default="cuda",
-                   help="torch device to train on (default cuda; cuda:0 when several cards)")
+                   help="torch device to train on (default cuda; cuda:0 when several cards, "
+                        "cuda:LOCAL_RANK under torchrun)")
+    p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                   help="torch.distributed backend under torchrun (default nccl on CUDA, one "
+                        "card a rank; gloo on the CPU, or for ranks sharing a card)")
     return p
 
 
@@ -151,24 +172,43 @@ def main(argv: list[str] | None = None) -> None:
 
 
 def _train(args: argparse.Namespace, stop_requested: list[int]) -> None:
-    device = training_device(args.device)
+    with run_mesh(args.device, args.dist_backend) as (mesh, device):
+        _train_on(args, stop_requested, mesh, device)
+
+
+def _train_on(args: argparse.Namespace, stop_requested: list[int], mesh: Mesh,
+              device: torch.device) -> None:
+    main = mesh.is_main()
+    if mesh.backend is not None:  # under torchrun
+        print(f"rank {mesh.rank} of {mesh.size} ({mesh.backend}) on {device} "
+              f"(pid {os.getpid()})", flush=True)
+        if args.batch_size % mesh.size:
+            raise SystemExit(f"--batch_size {args.batch_size} (the global batch) must divide "
+                             f"the world size {mesh.size}")
     cfg = config_from_args(args, device)
     run_dir = os.path.join(args.checkpoints_dir, cfg.dataset.name, args.name)
-    os.makedirs(run_dir, exist_ok=True)
-    cfg.save(os.path.join(run_dir, "config.json"))
+    if main:
+        os.makedirs(run_dir, exist_ok=True)
+        cfg.save(os.path.join(run_dir, "config.json"))
 
     torch.manual_seed(cfg.train.seed)  # the initial weights
-    trainer = DDPMTrainer(cfg, device=device)
+    trainer = DDPMTrainer(cfg, device=device, mesh=mesh)
     d = trainer.cfg.denoiser
-    print(f"device: {device}; train_layer_impl {d.train_layer_impl}, feat_impl "
-          f"{trainer.cfg.train.feat_impl}, compute_dtype {d.compute_dtype}")
+    if main:
+        print(f"device: {device}; train_layer_impl {d.train_layer_impl}, feat_impl "
+              f"{trainer.cfg.train.feat_impl}, compute_dtype {d.compute_dtype}")
     if args.stage1_ckpt:
         trainer.graft_stage1(restore_raw(args.stage1_ckpt))
 
     ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"))
     if args.is_continue and ckpt.latest_step() is not None:
         trainer.load_state_dict(ckpt.restore())  # then reset_caches()
-        print(f"resumed from step {trainer.step}")
+        if main:
+            print(f"resumed from step {trainer.step}")
+    if mesh.distributed:  # every rank starts from rank 0's weights
+        mesh.broadcast_([*trainer.model.state_dict().values(),
+                         *trainer.feat_model.state_dict().values()])
+        trainer.reset_caches()
 
     ds_kw = dict(sample_length=cfg.train.sample_length, mode="random",
                  limit_hours=args.limit_hours, spec=cfg.dataset)
@@ -178,23 +218,35 @@ def _train(args: argparse.Namespace, stop_requested: list[int]) -> None:
         # --compute_dtype has the same shapes
         meta = {"fingerprint": state_dict_fingerprint(trainer.model.music_encoder.state_dict()),
                 "compute_dtype": trainer.cfg.denoiser.compute_dtype}
-        n = precompute_music_features(trainer.music_features, args.data_root, "train",
-                                      overwrite=args.overwrite_cache, meta=meta)
-        print(f"feature cache: {n} clips precomputed")
+        failed = None
+        if main:  # rank 0 writes the cache; the others wait for it
+            try:
+                n = precompute_music_features(trainer.music_features, args.data_root, "train",
+                                              overwrite=args.overwrite_cache, meta=meta)
+                print(f"feature cache: {n} clips precomputed")
+            except ValueError as e:
+                failed = e
+        if mesh.any(failed is not None):
+            raise failed or SystemExit("rank 0 could not write the feature cache")
+        if not main:
+            check_cache_meta(args.data_root, "train", meta)
         ds = FeatureCachedDataset(args.data_root, "train", **ds_kw)
     else:
         ds = ConductorMotionDataset(args.data_root, "train", **ds_kw)
-    loader = make_batch_iterator(ds, cfg.train.batch_size, times=args.times, seed=cfg.train.seed)
+    loader = make_batch_iterator(ds, cfg.train.batch_size, times=args.times, seed=cfg.train.seed,
+                                 host_shard=mesh.distributed, process_index=mesh.rank,
+                                 process_count=mesh.size)
     why = getattr(loader, "fallback_reason", None)
-    print(f"loader: {loader.kind}" + (f" (native unavailable: {why})" if why else ""))
+    if main:
+        print(f"loader: {loader.kind}" + (f" (native unavailable: {why})" if why else ""))
     if len(loader) == 0:
         raise SystemExit(
             f"no training batches: batch_size={cfg.train.batch_size} exceeds the dataset "
             f"length ({len(loader.ds)} windows). Lower --batch_size or add data.")
-    logger = MetricLogger(run_dir, console_every=cfg.train.log_every)
+    logger = MetricLogger(run_dir, console_every=cfg.train.log_every) if main else None
 
     profiler = None
-    if args.profile_steps > 0:
+    if args.profile_steps > 0 and main:
         activities = [torch.profiler.ProfilerActivity.CPU]
         if device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -210,36 +262,48 @@ def _train(args: argparse.Namespace, stop_requested: list[int]) -> None:
             profiler = None
             print(f"profile written to {run_dir}/profile")
 
+    def save(step, epoch, wait=False):
+        if main:
+            ckpt.save(step, trainer.state_dict(epoch), wait=wait)
+
     it = trainer.step
     start_epoch = it // len(loader)  # an interrupted epoch restarts from its first batch
     t0 = time.perf_counter()
+    stop = False
     for epoch in range(start_epoch, cfg.train.num_epochs):
         loader.epoch = epoch
         for mel, motion, m_lens in loader:
             metrics = trainer.train_step(mel, motion, m_lens)
             it += 1
-            logger.log(it, metrics, epoch=epoch)
+            if main:
+                logger.log(it, metrics, epoch=epoch)
             if profiler is not None and it >= args.profile_steps:
                 stop_profiler()
             if it % cfg.train.save_latest == 0:
-                ckpt.save(it, trainer.state_dict(epoch))
-            if stop_requested:
+                save(it, epoch)
+            # a signal on any rank stops every rank at this boundary
+            stop = mesh.any(bool(stop_requested))
+            if stop:
                 break
-        if stop_requested:
+        if stop:
             stop_profiler()  # no truncated trace left open
-            ckpt.save(it, trainer.state_dict(epoch), wait=True)
-            print(f"stop requested (signal {stop_requested[0]}): saved step {it}; "
-                  "resume with --continue")
+            save(it, epoch, wait=True)
+            why = f"signal {stop_requested[0]}" if stop_requested else "signal on another rank"
+            print(f"stop requested ({why}): " + (f"saved step {it}; resume with --continue"
+                                                 if main else f"stopped at step {it}"))
             break
         if epoch % cfg.train.save_every_e == 0:
-            ckpt.save(it, trainer.state_dict(epoch), wait=True)
+            save(it, epoch, wait=True)
     else:
-        ckpt.save(it, trainer.state_dict(cfg.train.num_epochs - 1), wait=True)
+        save(it, cfg.train.num_epochs - 1, wait=True)
     stop_profiler()
     ckpt.close()
-    logger.close()
+    if main:
+        logger.close()
     getattr(loader, "close", lambda: None)()
-    print(f"done: {it} steps in {time.perf_counter() - t0:.1f} s; checkpoints in {run_dir}/ckpt")
+    if main:
+        print(f"done: {it} steps in {time.perf_counter() - t0:.1f} s; checkpoints in "
+              f"{run_dir}/ckpt")
 
 
 if __name__ == "__main__":

@@ -194,8 +194,17 @@ class BatchIterator:
     + DistributedSampler): the epoch's order is a permutation of
     ``times`` copies of the dataset drawn from ``(seed, epoch)``, cut into
     batches of ``batch_size``; ``drop_last`` drops the short tail.  Each
-    pass advances ``epoch``.  One process loads every batch (the JAX
-    iterator's ``host_shard`` waits for the port's multi-process training).
+    pass advances ``epoch``.
+
+    With ``host_shard`` (JAX's contract, `conductor_tpu/data/dataset.py:
+    188-280`) ``batch_size`` stays the global batch and this process loads
+    only its contiguous ``batch_size / process_count`` rows of each: every
+    process draws the same epoch permutation, so the slices are disjoint
+    and exhaustive (the reference's rank-strided `DistributedSampler`,
+    `datasets/dataloader.py:16-53`).  With ``drop_last=False`` the tail is
+    padded with wrapped indices to a multiple of the process count.
+    ``process_index`` / ``process_count`` default to the rank and world
+    size of the `torch.distributed` group (0 and 1 without one).
     """
 
     kind = "python"  # which loader `make_batch_iterator` chose
@@ -208,6 +217,9 @@ class BatchIterator:
         drop_last: bool = True,
         seed: int = 0,
         times: int = 1,
+        host_shard: bool = False,
+        process_index: int | None = None,
+        process_count: int | None = None,
     ):
         self.ds = dataset
         self.batch_size = batch_size
@@ -220,6 +232,12 @@ class BatchIterator:
         # here (the reference documents it but `Music2MotionDataset` ignores
         # it, SURVEY.md §7.4).
         self.times = times
+        self.pidx, self.pcount = (host_rank(batch_size, process_index, process_count)
+                                  if host_shard else (0, 1))
+
+    @property
+    def local_batch_size(self) -> int:
+        return self.batch_size // self.pcount
 
     def __len__(self):
         n = len(self.ds) * self.times
@@ -230,11 +248,21 @@ class BatchIterator:
         if self.shuffle:
             np.random.default_rng((self.seed, self.epoch)).shuffle(order)
         self.ds.set_epoch(self.epoch)
+        lo = self.pidx * self.local_batch_size
+        hi = lo + self.local_batch_size
         for b0 in range(0, len(order) - self.batch_size + 1, self.batch_size):
-            yield self._collate([self.ds[int(i)] for i in order[b0:b0 + self.batch_size]])
+            # only this process's rows of the global batch are loaded
+            yield self._collate([self.ds[int(i)] for i in order[b0 + lo:b0 + hi]])
         rem = len(order) % self.batch_size
         if rem and not self.drop_last:
-            yield self._collate([self.ds[int(i)] for i in order[-rem:]])
+            # pad the tail with wrapped indices to a multiple of the process
+            # count (nothing on one process), each process its share
+            tail = order[-rem:]
+            pad = (-rem) % self.pcount
+            if pad:
+                tail = np.concatenate([tail, order[:pad]])
+            per = len(tail) // self.pcount
+            yield self._collate([self.ds[int(i)] for i in tail[self.pidx * per:(self.pidx + 1) * per]])
         self.epoch += 1
 
     @staticmethod
@@ -243,3 +271,20 @@ class BatchIterator:
         return tuple(
             np.stack([s[k] for s in samples]) for k in range(len(samples[0]))
         )
+
+
+def host_rank(batch_size: int, process_index: int | None = None,
+              process_count: int | None = None) -> tuple[int, int]:
+    """(this process's index, the process count) for host-sharded loading:
+    the arguments, else the `torch.distributed` group's rank and size (0
+    and 1 without a group); raises where the count does not divide the
+    global ``batch_size`` (JAX's assert)."""
+    import torch.distributed as dist
+
+    group = dist.is_available() and dist.is_initialized()
+    pidx = process_index if process_index is not None else (dist.get_rank() if group else 0)
+    pcount = process_count if process_count is not None else (
+        dist.get_world_size() if group else 1)
+    if batch_size % pcount:
+        raise ValueError(f"global batch {batch_size} must divide process_count {pcount}")
+    return pidx, pcount

@@ -98,6 +98,19 @@ def _resolve_meta(
     return overwrite
 
 
+def check_cache_meta(root: str, split: str, meta: dict, filename: str = FEATURE_FILE) -> None:
+    """Raise ValueError unless the split's cache sidecar holds ``meta``:
+    what a rank that did not write the cache checks before it reads it."""
+    mp = _meta_path(root, split, filename)
+    old = None
+    if os.path.exists(mp):
+        with open(mp) as f:
+            old = json.load(f)
+    if old != meta:
+        raise ValueError(f"feature cache '{filename}' under {root}/{split} holds {old}, this "
+                         f"process's frozen encoder {meta}")
+
+
 def precompute_music_features(
     encode_fn: Callable[[np.ndarray], np.ndarray | torch.Tensor],
     root: str,

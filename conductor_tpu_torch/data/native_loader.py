@@ -29,7 +29,7 @@ from pathlib import Path
 import numpy as np
 
 from ..ops._build import BUILD_DIR
-from .dataset import BatchIterator, ConductorMotionDataset
+from .dataset import BatchIterator, ConductorMotionDataset, host_rank
 from .feature_cache import FeatureCachedDataset
 
 SOURCE = Path(__file__).resolve().parents[2] / "native" / "dataloader.cpp"
@@ -87,7 +87,15 @@ def load_library() -> ctypes.CDLL:
 
 
 class NativeBatchIterator:
-    """Drop-in counterpart of `BatchIterator` backed by the C++ loader."""
+    """Drop-in counterpart of `BatchIterator` backed by the C++ loader.
+
+    With ``host_shard`` (JAX's `native_loader.py:117-137`) ``batch_size``
+    is the global batch, as the Python iterator's, and this process gets
+    its contiguous rows of each; the C API takes the *local* batch (its
+    global batch is ``batch_size * host_count``,
+    `native/dataloader.cpp:137-141, 206-213, 319-327`), so ``batch_size``
+    here becomes the local one.  The C side requires ``drop_last`` under
+    sharding and slices its own permutation (not the Python iterator's)."""
 
     kind = "native"
 
@@ -99,10 +107,15 @@ class NativeBatchIterator:
         drop_last: bool = True,
         seed: int = 0,
         times: int = 1,
+        host_shard: bool = False,
+        process_index: int | None = None,
+        process_count: int | None = None,
     ):
         lib = load_library()
         self.ds = dataset
-        self.batch_size = batch_size
+        pidx, pcount = (host_rank(batch_size, process_index, process_count)
+                        if host_shard else (0, 1))
+        self.batch_size = batch_size // pcount  # the C side takes the local batch
         self.epoch = 0
         spec = dataset.spec
         # FeatureCachedDataset streams 30 Hz cached features as the
@@ -123,10 +136,10 @@ class NativeBatchIterator:
         self._handle = lib.cdl_create(
             paths(*(p.encode() for p in cond_paths)),
             paths(*(c.motion_path.encode() for c in dataset.clips)), len(cond_paths),
-            dataset.sample_length, batch_size,
+            dataset.sample_length, self.batch_size,
             0 if dataset.mode == "sequential" else 1,
             1 if shuffle else 0, 1 if drop_last else 0, times,
-            seed, THREADS, PREFETCH, cond_hz, 0, 1,
+            seed, THREADS, PREFETCH, cond_hz, pidx, pcount,
         )
         if not self._handle:
             raise RuntimeError("cdl_create failed (see stderr)")
@@ -165,12 +178,15 @@ class NativeBatchIterator:
 
 def make_batch_iterator(dataset: ConductorMotionDataset, batch_size: int, *,
                         shuffle: bool = True, drop_last: bool = True, seed: int = 0,
-                        times: int = 1):
+                        times: int = 1, host_shard: bool = False,
+                        process_index: int | None = None, process_count: int | None = None):
     """The native loader where it builds and loads, the Python iterator
     otherwise (JAX's rule, `conductor_tpu/data/native_loader.py:172-189`);
     the iterator's ``kind`` says which, and ``fallback_reason`` why the
-    native one was not taken."""
-    kw = dict(shuffle=shuffle, drop_last=drop_last, seed=seed, times=times)
+    native one was not taken.  ``host_shard`` routes to either iterator's
+    host sharding (``batch_size`` the global batch)."""
+    kw = dict(shuffle=shuffle, drop_last=drop_last, seed=seed, times=times,
+              host_shard=host_shard, process_index=process_index, process_count=process_count)
     try:
         return NativeBatchIterator(dataset, batch_size, **kw)
     except (OSError, RuntimeError) as e:

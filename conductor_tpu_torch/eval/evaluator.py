@@ -19,8 +19,16 @@ module, not K7.
 JAX draws wave ``i0``'s x_T from ``fold_in(rng, i0)``; its key streams
 cannot be replayed in torch, so the port seeds a `torch.Generator` for each
 wave from ``(seed, i0)`` (`eval.stage1.batch_seed`), or takes each wave's
-x_T from ``wave_noise``.  JAX's ``mesh`` (waves sharded over several
-devices) is not ported: the port evaluates on one device.
+x_T from ``wave_noise``.
+
+With a ``mesh`` of several ranks (JAX's ``mesh``, `conductor_tpu/eval/
+evaluator.py:44-56, 88-101`) a wave holds ``batch_size`` clips, 8 a rank
+by default, rounded up to a multiple of the ranks; each wave's x_T is drawn
+for the whole wave as one process draws it, the wave (mel and x_T) is
+padded by `pad_to_multiple`, each rank generates its rows, and the motion
+is gathered on rank 0, which takes the latents, beats and metrics; the
+other ranks return None.  For the same global waves and x_T the ranks
+generate what one process generates.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import torch
 from ..data.dataset import ConductorMotionDataset
 from ..models.precision import full_float32
 from ..models.stgcn import MotionEncoderSTGCN
+from ..parallel.mesh import Mesh, pad_to_multiple
 from . import metrics as M
 from .stage1 import batch_generator
 
@@ -60,17 +69,24 @@ class DiffusionEvaluator:
 
     ``trainer`` is a `DDPMTrainer` holding the weights to score (its
     denoiser, and the frozen ST-GCN the latents come from); ``batch_size``
-    clips a wave, 8 by default (JAX's single-device default).  After
-    `evaluate`, ``seconds`` holds its wall seconds by part: ``generate``
-    (the waves' `generate` calls, up to the host copy of their motion),
-    ``latents`` and ``beats``."""
+    clips a wave, 8 by default (JAX's single-device default), 8 a rank on
+    a ``mesh`` of several ranks.  After `evaluate`, ``seconds`` holds its
+    wall seconds by part: ``generate`` (the waves' `generate` calls, up to
+    the host copy of their motion, gathered on rank 0 on a mesh),
+    ``latents`` and ``beats``; ``generated`` the generated motion (on rank
+    0)."""
 
-    def __init__(self, trainer, batch_size: int | None = None):
+    def __init__(self, trainer, batch_size: int | None = None, mesh: Mesh | None = None):
         self.trainer = trainer
-        self.batch_size = 8 if batch_size is None else batch_size
+        self.mesh = mesh if mesh is not None else Mesh()
+        size = self.mesh.size
+        if batch_size is None:
+            batch_size = 8 * size  # 8 clips a device (JAX's measured serving sweet spot)
+        self.batch_size = -(-batch_size // size) * size  # every wave fills the ranks evenly
         self._feat_model = MotionEncoderSTGCN(n_joints=trainer.cfg.dataset.n_joints,
                                               dtype=torch.float32).to(trainer.device).freeze()
         self.seconds: dict[str, float] = {}
+        self.generated: np.ndarray | None = None
 
     @torch.no_grad()
     @full_float32()
@@ -90,7 +106,7 @@ class DiffusionEvaluator:
         seed: int = 0,
         compute_beats: bool = True,
         wave_noise: Callable[[int, tuple[int, ...]], torch.Tensor] | None = None,
-    ) -> EvalResult:
+    ) -> EvalResult | None:
         """Score the first ``max_clips`` windows (all by default) of
         ``split``'s clip-length windows, read in order.  Wave ``i0`` (its
         first window's index) generates with ``num_steps`` DDIM steps from
@@ -104,18 +120,24 @@ class DiffusionEvaluator:
 
         real_list, gen_list, real_lat, gen_lat, bc_real, bc_gen = [], [], [], [], [], []
         seconds = {"generate": 0.0, "latents": 0.0, "beats": 0.0}
+        mesh = self.mesh
         for i0 in range(0, n, self.batch_size):
             idxs = range(i0, min(i0 + self.batch_size, n))
             mel = np.stack([ds[i][0] for i in idxs])
             motion = np.stack([ds[i][1] for i in idxs])
             t0 = time.perf_counter()
-            if wave_noise is not None:
-                shape = (len(idxs), motion.shape[1], spec.n_joints * spec.joint_dim)
+            shape = (len(idxs), motion.shape[1], spec.n_joints * spec.joint_dim)
+            if mesh.distributed:
+                gen = self._generate_rows(mel, shape, num_steps, i0, seed, wave_noise)
+            elif wave_noise is not None:
                 gen = self.trainer.generate(mel, num_steps=num_steps, noise=wave_noise(i0, shape))
             else:
                 gen = self.trainer.generate(mel, num_steps=num_steps,
                                             generator=batch_generator(seed, i0))
             gen = gen.cpu().numpy()
+            if not mesh.is_main():
+                seconds["generate"] += time.perf_counter() - t0
+                continue
             b, t = gen.shape[0], gen.shape[1]
             gen = gen.reshape(b, t, spec.n_joints, spec.joint_dim)
             t1 = time.perf_counter()
@@ -132,9 +154,12 @@ class DiffusionEvaluator:
             seconds["latents"] += t2 - t1
             seconds["beats"] += time.perf_counter() - t2
         self.seconds = seconds
+        if not mesh.is_main():
+            return None
 
         real = np.concatenate(real_list)
         gen = np.concatenate(gen_list)
+        self.generated = gen
         real_lat_flat = np.concatenate([x.reshape(-1, x.shape[-1]) for x in real_lat])
         gen_lat_flat = np.concatenate([x.reshape(-1, x.shape[-1]) for x in gen_lat])
         per_clip_gen_lat = [x.reshape(-1, x.shape[-1]) for g in gen_lat for x in g]
@@ -149,3 +174,21 @@ class DiffusionEvaluator:
             beat_consistency_real=float(np.mean(bc_real)) if bc_real else float("nan"),
             beat_consistency_generated=float(np.mean(bc_gen)) if bc_gen else float("nan"),
         )
+
+    def _generate_rows(self, mel: np.ndarray, shape, num_steps, i0: int, seed: int,
+                       wave_noise) -> torch.Tensor:
+        """One wave on the mesh: x_T for the whole wave (as one process
+        draws it), mel and x_T padded to a multiple of the ranks, this
+        rank's rows generated, every rank's rows gathered and the padding
+        dropped."""
+        mesh = self.mesh
+        if wave_noise is not None:
+            noise = wave_noise(i0, shape)
+        else:
+            gen = batch_generator(seed, i0)
+            noise = torch.randn(shape, generator=gen, device=gen.device)
+        mel_p, n = pad_to_multiple(mel, mesh.size)
+        noise_p, _ = pad_to_multiple(torch.as_tensor(noise, dtype=torch.float32), mesh.size)
+        rows = self.trainer.generate(mesh.local(mel_p), num_steps=num_steps,
+                                     noise=mesh.local(noise_p).contiguous())
+        return mesh.gather_rows(rows)[:n]

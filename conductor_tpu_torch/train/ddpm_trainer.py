@@ -57,6 +57,19 @@ perceptual net; and `state_dict` / `load_state_dict` of the whole training
 state in the reference's stage-2 ``latest.tar`` layout
 (`train.checkpoints`).
 
+Data parallelism (``mesh``, a `parallel.Mesh` of several ranks, the
+counterpart of JAX's step over a batch sharded on the 'data' axis): each
+rank holds its contiguous rows of the global batch, and a step on R ranks
+is the one-process step on the global batch.  Every rank draws the step's
+t, noise, condition keep mask and dropout masks for the global batch from
+the same `_step_generator` and keeps its rows; the masked mean's
+denominator and the elbow term's batch mean, whose clamp is not linear,
+are the global batch's; the gradients are summed over the ranks before
+`ClippedAdam`'s global-norm clip, so the clip, ``grad_norm`` and every
+metric are the global batch's; the loss-second-moment sampler updates
+from every rank's t and per-sample MSE, gathered, so that its state stays
+the same on every rank.
+
 Denoiser dropout trains on the plain layers only (the fused layers need
 ``dropout == 0``, as in JAX, and "auto" resolves to the plain ones); every
 serving path ignores it, as JAX's ``generate`` runs with ``train=False``.
@@ -90,10 +103,11 @@ from ..interop.weights import (
 from ..models.music_encoder import FusedMusicEncoder
 from ..models.precision import full_float32
 from ..models.stgcn import MotionEncoderSTGCN
-from ..models.transformer import MotionTransformer, guided_denoiser
+from ..models.transformer import MotionTransformer, cond_keep_mask, guided_denoiser
 from ..ops.attention import HEAD_DIMS
 from ..ops.decoder_stack import WIDTHS, layer_widths_ok
 from ..ops.stgcn import fused_frozen_stgcn, pack_frozen_stgcn
+from ..parallel.mesh import Mesh
 from .fused_denoiser import FusedDenoiser, fused_train_denoise
 from .optim import ClippedAdam
 
@@ -101,9 +115,11 @@ from .optim import ClippedAdam
 class DDPMTrainer:
     """Owns the denoiser, the frozen perceptual ST-GCN and the optimizer on
     ``device`` (the card unless the caller asks for the CPU; raises without
-    one); serves `train_step` and `generate`."""
+    one); serves `train_step` and `generate`.  ``mesh`` makes `train_step`
+    a data-parallel step over its ranks (one process by default)."""
 
-    def __init__(self, cfg: Config, device: torch.device | str = "cuda"):
+    def __init__(self, cfg: Config, device: torch.device | str = "cuda", mesh: Mesh | None = None):
+        self.mesh = mesh if mesh is not None else Mesh()
         device = require_device(device)
         cfg = resolve_auto(cfg, device)
         d = cfg.denoiser
@@ -400,28 +416,72 @@ class DDPMTrainer:
                                     dropout_keep=dropout_keep, generator=generator)
         target, pred = terms["target"], terms["pred"]
         mask2d = src_mask[..., 0]
-        loss_rec = (((pred - target) ** 2).mean(dim=-1) * mask2d).sum() / mask2d.sum()
+        mesh, w = self.mesh, self.mesh.size
+        # each term is this rank's share of the global batch's: its rows'
+        # sum over the global mask count (which differs by rank under the
+        # reference mask), or its rows' mean over the world size; on one
+        # process the terms themselves
+        loss_rec = (((pred - target) ** 2).mean(dim=-1) * mask2d).sum() / mesh.all_reduce(mask2d.sum())
         if tc.lambda_feat == 0.0:
             loss_feat = torch.zeros((), device=pred.device)
         else:
             j = self.cfg.dataset.n_joints
-            loss_feat = self.perceptual_loss(pred.reshape(b, n, j, -1), target.reshape(b, n, j, -1))
-        loss_elbow = terms["velocity_elbow"].clamp(-tc.elbow_clamp, tc.elbow_clamp)
-        loss = (tc.lambda_rec * loss_rec + tc.lambda_feat * loss_feat
-                + tc.lambda_velocity * terms["velocity"] - tc.lambda_elbow * loss_elbow
-                + tc.lambda_head * terms["velocity_head"])
+            loss_feat = self.perceptual_loss(pred.reshape(b, n, j, -1),
+                                             target.reshape(b, n, j, -1)) / w
+        vel, elbow, head, body = (terms[k] / w for k in (
+            "velocity", "velocity_elbow", "velocity_head", "velocity_body"))
+        rec_g, feat_g, vel_g, elbow_g, head_g, body_g = mesh.all_reduce(
+            torch.stack([loss_rec, loss_feat, vel, elbow, head, body]).detach()).unbind()
+        # the clamp acts on the global batch's elbow term: its gradient
+        # passes where that mean lies inside (torch's `clamp` rule, bounds
+        # included), on every rank alike
+        inside = ((elbow_g >= -tc.elbow_clamp) & (elbow_g <= tc.elbow_clamp)).to(elbow)
+        loss = (tc.lambda_rec * loss_rec + tc.lambda_feat * loss_feat + tc.lambda_velocity * vel
+                - tc.lambda_elbow * (inside * elbow) + tc.lambda_head * head)
+        loss_elbow = elbow_g.clamp(-tc.elbow_clamp, tc.elbow_clamp)
         metrics = {
-            "loss": loss,
-            "loss_mot_rec": loss_rec,
+            "loss": (tc.lambda_rec * rec_g + tc.lambda_feat * feat_g + tc.lambda_velocity * vel_g
+                     - tc.lambda_elbow * loss_elbow + tc.lambda_head * head_g),
+            "loss_mot_rec": rec_g,
             # NaN, not a fake 0, when the term is skipped (as in JAX)
-            "loss_mot_feat": torch.full((), float("nan")) if tc.lambda_feat == 0.0 else loss_feat,
-            "loss_velocity": terms["velocity"],
+            "loss_mot_feat": torch.full((), float("nan")) if tc.lambda_feat == 0.0 else feat_g,
+            "loss_velocity": vel_g,
             "loss_elbow": loss_elbow,
-            "loss_head": terms["velocity_head"],
-            "loss_body": terms["velocity_body"],
+            "loss_head": head_g,
+            "loss_body": body_g,
             "mse_per_sample": terms["mse"],  # the sampler's input, not a metric
         }
         return loss, metrics
+
+    def _draws(self, shape, t, noise, cond_keep, dropout_keep, generator):
+        """The step's random numbers: t (by the timestep sampler), noise, the
+        condition keep mask and the dropout masks of the global batch
+        (``shape`` the rank's (B, T, C) noise, B rows a rank), each drawn
+        from ``generator`` in that order where not given (given ones hold
+        the global batch's rows), then this rank's rows of each."""
+        b, n, c = shape
+        mesh, big = self.mesh, b * self.mesh.size
+        if t is None and self.sampler_state is not None:
+            t, _ = ts.loss_aware_sample(self.sampler_state, big, generator=generator)
+        elif t is None:
+            t, _ = uniform_sample(self.sched.num_timesteps, big, generator=generator)
+        if noise is None:
+            noise = torch.randn((big, n, c), generator=generator,
+                                device=generator.device)
+        model = self.model
+        if cond_keep is None and model.cond_mask_prob > 0:
+            cond_keep = cond_keep_mask((big, n), model.cond_mask_prob, generator, self.device)
+        for name, x in (("t", t), ("noise", noise), ("cond_keep", cond_keep)):
+            if x is not None and x.shape[0] != big:
+                raise ValueError(f"{name} holds {x.shape[0]} rows, not the global batch's "
+                                 f"{big} (each rank keeps its own)")
+        if model.dropout > 0.0:
+            drop = model.dropper(True, dropout_keep, generator)
+
+            def dropout_keep(site, shape):  # the global batch's mask, this rank's rows
+                return mesh.local(drop(site, (big,) + tuple(shape[1:])))
+        return mesh.local(t), mesh.local(noise), (
+            None if cond_keep is None else mesh.local(cond_keep)), dropout_keep
 
     @full_float32()
     def train_step(self, mel_or_feats, motion, m_lens=None, *, t=None, noise=None, cond_keep=None,
@@ -438,9 +498,11 @@ class DDPMTrainer:
         masks are ``dropout_keep`` (a mapping from
         `MotionTransformer.dropout_sites` to (B, T30, width) masks, or a
         callable ``(site, shape) -> mask``) or else drawn from the same
-        generator after the condition mask.  Returns the JAX metrics as 0-d
-        tensors (no host sync but the loss-second-moment sampler's
-        update)."""
+        generator after the condition mask.  On a ``mesh`` of several ranks
+        the batch is this rank's rows of the global batch, and t, noise,
+        ``cond_keep`` and ``dropout_keep``, given or drawn, are the global
+        batch's (`_draws`).  Returns the JAX metrics as 0-d tensors
+        (no host sync but the loss-second-moment sampler's update)."""
         dev = self.device
         if generator is None:
             generator = self._step_generator()
@@ -456,13 +518,8 @@ class DDPMTrainer:
                 raise ValueError("replicate_reference_mask needs m_lens, the clips' lengths")
             m_lens = torch.full((b,), n)
         m_lens = on_device(m_lens, torch.long)
-        if t is None and self.sampler_state is not None:
-            t, _ = ts.loss_aware_sample(self.sampler_state, b, generator=generator)
-        elif t is None:
-            t, _ = uniform_sample(self.sched.num_timesteps, b, generator=generator)
-        if noise is None:
-            noise = torch.randn((b, n, motion[0, 0].numel()), generator=generator,
-                                device=generator.device)
+        t, noise, cond_keep, dropout_keep = self._draws(
+            (b, n, motion[0, 0].numel()), t, noise, cond_keep, dropout_keep, generator)
         t = on_device(t, torch.long)
         noise = on_device(noise, torch.float32)
         if cond_keep is not None:
@@ -470,11 +527,15 @@ class DDPMTrainer:
         loss, metrics = self._losses(cond, motion, m_lens, t, noise, cond_keep, generator,
                                      dropout_keep)
         loss.backward()
-        metrics["grad_norm"] = self.optimizer.step()
+        # the ranks' gradients summed before the clip: the global batch's
+        metrics["grad_norm"] = self.optimizer.step(reduce=self.mesh.all_reduce_)
         self._pack_stale = True
         self.step += 1
         mse = metrics.pop("mse_per_sample")
         if self.sampler_state is not None:
+            # every rank's t and losses, so that each rank's ring stays the
+            # same (the reference's `update_with_local_losses`)
+            t, mse = self.mesh.gather_rows(t), self.mesh.gather_rows(mse.detach())
             self.sampler_state = ts.update_state(self.sampler_state, t.cpu().numpy(),
                                                  mse.detach().cpu().numpy())
         return {k: v.detach() for k, v in metrics.items()}

@@ -36,13 +36,17 @@ class ClippedAdam:
         self.max_norm = max_norm
         self.adam = torch.optim.Adam(self.params, lr=lr)
 
-    def step(self) -> torch.Tensor:
+    def step(self, reduce=None) -> torch.Tensor:
         """Clip the parameters' ``.grad`` in place and take one Adam step;
         returns the unclipped global norm.  A parameter without a gradient
-        counts as a zero gradient, as in optax."""
+        counts as a zero gradient, as in optax.  ``reduce`` (the gradients,
+        in place) runs first: the data-parallel step's sum over the
+        ranks."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if reduce is not None:
+            reduce([p.grad for p in self.params])
         clipped, norm = clip_by_global_norm([p.grad for p in self.params], self.max_norm)
         for p, g in zip(self.params, clipped):
             p.grad = g

@@ -119,6 +119,11 @@ import conductor_tpu_torch.cli.serving_delta_ci, conductor_tpu_torch.eval.protoc
 from conductor_tpu_torch.eval import DiffusionEvaluator
 from conductor_tpu_torch.prospective import ProspectiveEvaluator
 assert DiffusionEvaluator(tr).batch_size == 8
+import conductor_tpu_torch.parallel
+from conductor_tpu_torch.parallel import Mesh, cp_linear_attention, init_from_env
+assert init_from_env(None, "cpu")[0] == Mesh()
+sys.path.insert(0, "scripts")
+import multiprocess_check_torch, run_1000ladder_torch, run_e2e_demo_torch
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("no-jax-ok")
@@ -133,7 +138,9 @@ def test_package_never_imports_jax():
     path) and one with the reference mask (bf16 modules, K8 path), a
     stage-1 M2SNet step (K4 / K9 / K10 / K11 path), an M2SGAN step
     (SyncLoss on K7) and a stage-2 step with denoiser dropout on the CPU,
-    and imports the evaluation modules and CLIs."""
+    and imports the evaluation modules and CLIs, the distributed layer
+    (`parallel`) and the port's scripts (the demo, the 1000-step ladder,
+    the multiprocess check)."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], capture_output=True, text=True,
                           cwd=REPO, env=env, timeout=300)
@@ -152,9 +159,12 @@ def _imported_modules(path: Path) -> list[str]:
 
 
 def test_no_source_imports_jax_or_the_jax_package():
-    """Every module of the port, and chip_smoke.py, read as source: no
-    import of jax, jaxlib, flax, optax or conductor_tpu, at any depth."""
+    """Every module of the port, chip_smoke.py and the port's scripts
+    (`scripts/*_torch.py`), read as source: no import of jax, jaxlib,
+    flax, optax or conductor_tpu, at any depth."""
     files = sorted(Path(REPO, "conductor_tpu_torch").rglob("*.py")) + [Path(REPO, "chip_smoke.py")]
+    files += sorted(Path(REPO, "scripts").glob("*_torch.py"))  # the port's scripts
+    assert len([f for f in files if f.parent.name == "scripts"]) >= 3
     assert len(files) > 20
     bad = [(str(f.relative_to(REPO)), name) for f in files for name in _imported_modules(f)
            if name.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "conductor_tpu")]
