@@ -335,9 +335,39 @@ Phases, one line each (the kernel checks one line per kernel):
      0 saves, rc 0), then `--continue`; (c) the sharded evaluator (8 clips
      a rank) against the 1-process one on the same waves of 16, its motion
      bit for bit or the gap printed, and `cli.evaluate` under torchrun on 2
-     ranks against the 1-process CLI; (d) `scripts/run_e2e_demo_torch.py`
+     ranks against the 1-process CLI; then the 4-rank wave shape (`python
+     chip_smoke.py --dp19-wave-worker DIR`, `dp_wave_worker`): 4 ranks
+     over gloo on the card, 2 clips each of waves of 8, against one
+     process of 8 on the same waves and x_T, bit for bit (the music
+     encoder's projection runs a GEMM a clip since the 4-rank report's
+     gap was traced to it); (d) `scripts/run_e2e_demo_torch.py`
      at 8 / 4 clips, 2 + 2 epochs, 2 serving seeds (every stage's seconds,
-     the round trip exact) and `scripts/run_1000ladder_torch.py` at ddim50.
+     the round trip exact) and `scripts/run_1000ladder_torch.py` at ddim50;
+ 20. (run after phase 19, the `[ref20]` lines, `reference_phase`) a
+     reference run directory in and out, at the flagship width: (a)
+     `cli.export_torch diffusion` of phase 12's default run into a
+     reference run directory (``model/latest.tar`` and an ``opt.txt`` in
+     the reference's layout from its config), `cli.export_torch m2snet` of
+     phase 13's run, then `cli.import_torch diffusion --stage1_pt` of them
+     into ``<checkpoints_dir>/ConductorMotion100/imported``: its checkpoint
+     phase 12's (weights and Adam moments bit for bit) with phase 13's
+     motion encoder as the perceptual ST-GCN; ddim50 at B = 2 on phase 4's
+     mel and noise in the bf16 and bench.py's int8 configs on the imported
+     run and on phase 12's, bit for bit (K4 7, K2 / K1 / K3 50 each a
+     call); (b) `cli.train --continue` for 2 steps on the imported run, at
+     the model flags its config.json records, and on a copy of phase 12's
+     run holding the same perceptual ST-GCN, cuDNN deterministic: the
+     losses equal; (c) `Generator(decoder_kind="bilstm")` as the M2SGAN
+     trainer builds it (the frozen encoder on K4), `GeneratorCVPRLSTM` and
+     `CNNLSTMGenerator` at B = 55, 30-s samples: cuDNN's LSTM against the
+     plain float32 recurrence (`lstm_plain`) on the same inputs within 1e-3
+     of the largest value, and the BiLSTM generator's whole path (K4 in
+     bf16) against the plain float32 one within the same bound, ms beside
+     each (a second call); (d) DDIM at eta = 1,
+     ddim50, B = 2 on the fused layers (K4, then K1 alone a step through
+     `FusedDenoiser.__call__`) against the plain float32 path with the same
+     step noise, within 3 %; (e) `utils.profiling.trace` around a ddim10
+     call, its Chrome trace holding K1's kernels and the `annotate` names.
 
 Every path runs at full depth; the run takes about 9 minutes of its 1200-s
 limit, so no path is cut.  Then one JSON line of per-kernel results (the
@@ -353,8 +383,9 @@ GEMM, K2's float32 emb_act and K3's float32 mode (e)'s, K5's, K6's and
 K7's float32 modes those of (f) and of phase 12's float32 run; the
 width rows phase 16's, K5 / K6 at W64 with (e)'s added; phase 17's
 launches of K1 (bf16 and int8), its GEMM, K2, K3 and K4 added, and phase
-18's of K1-K4, K1's GEMM (bf16 and int8), K7 and K8, and phase 19's: the
-ranks' (a) and (c), and (d)'s demo and ladder in process);
+18's of K1-K4, K1's GEMM (bf16 and int8), K7 and K8, phase 19's: the
+ranks' (a) and (c), and (d)'s demo and ladder in process, and phase 20's:
+(a)'s ladders, (b)'s steps, (c)'s encoder and (d)'s and (e)'s K1);
 each kernel's time, its
 plain version's, its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
@@ -582,6 +613,10 @@ DP_M_LENS = np.array([60] * 16 + [30, 120] * 8)
 DEMO_ARGS = ("--train_clips", "8", "--test_clips", "4", "--stage1_epochs", "2",
              "--stage2_epochs", "2", "--serving_seeds", "2", "--serving_clips", "8")
 DP_TIMEOUT = 300
+# the 4-rank wave shape of phase 19 (c): 4 ranks of 2 clips a wave of 8
+DP_WAVE_WORLD = 4
+# phase 20 (c): cuDNN's LSTM against the plain float32 recurrence
+LSTM_REL_TOL = 1e-3
 
 
 def _run(cmd: list[str]) -> str:
@@ -1944,6 +1979,39 @@ def dp_worker(tmp: str) -> int:
     return 0
 
 
+def dp_wave_worker(tmp: str) -> int:
+    """One rank of phase 19 (c)'s 4-rank wave shape (``python chip_smoke.py
+    --dp19-wave-worker DIR`` with torchrun's environment): joins the group
+    over gloo on the card and runs the sharded evaluator on phase 12's run
+    in bench.py's config at ddim50 in waves of ``EVAL_WAVE`` clips (2 a
+    rank on 4 ranks); writes ``DIR/wave<rank>.pt``: the motion (rank 0),
+    the seconds and the launches."""
+    import os
+
+    from conductor_tpu_torch.cli.evaluate import run_config
+    from conductor_tpu_torch.cli.visualize import load_run
+    from conductor_tpu_torch.eval import DiffusionEvaluator
+    from conductor_tpu_torch.ops import launch_counts, part_launch_counts, reset_launch_counts
+    from conductor_tpu_torch.parallel import init_from_env, shutdown
+
+    mesh, dev = init_from_env("gloo", "cuda")
+    inp = torch.load(os.path.join(tmp, "wave_in.pt"), weights_only=False)
+    bench = load_run(inp["run_dir"], None, dev, run_config(inp["run_dir"], dev, "pallas_fused",
+                                                           adaln_int8=True))
+    ev = DiffusionEvaluator(bench, batch_size=EVAL_WAVE, mesh=mesh)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev.evaluate(inp["root"], num_steps=50, compute_beats=False)
+    torch.cuda.synchronize()
+    torch.save({"s": time.perf_counter() - t0, "wave": ev.batch_size,
+                "generated": getattr(ev, "generated", None),
+                "launches": {k: n for k, n in (launch_counts() | part_launch_counts()).items()
+                             if n}}, os.path.join(tmp, f"wave{mesh.rank}.pt"))
+    shutdown(mesh)
+    return 0
+
+
 def dp_phase(smi: str, cfg, plain_cfg, sd, feat_sd, mel_train, motion_train, drawn,
              bare_step_s: float, run_dir: str, root: str) -> dict[str, int]:
     """Phase 19 (the `[dp19]` lines), after phase 18: data parallelism.
@@ -2114,7 +2182,55 @@ def dp_phase(smi: str, cfg, plain_cfg, sd, feat_sd, mel_train, motion_train, dra
                 add({"adaln_modulation_int8" if k == "adaln_modulation" else k: n})
             if r["eval"]["launches"].get("decoder_stack_int8", 0) == 0:
                 raise SystemExit("chip_smoke: a rank's sharded evaluation launched no K1")
-        del bench, ev
+
+        # (c) the 4-rank wave shape: 4 ranks of 2 clips against one process
+        # of 8 on the same waves and x_T
+        torch.save({"run_dir": run_dir, "root": root}, os.path.join(work, "wave_in.pt"))
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp19-wave-worker", work],
+            env=dict(env0, RANK=str(r), WORLD_SIZE=str(DP_WAVE_WORLD), LOCAL_RANK=str(r),
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(DP_WAVE_WORLD)]
+        wait(procs, "phase 19 (c)'s 4 ranks")
+        t_ranks = time.perf_counter() - t0
+        waves = [torch.load(os.path.join(work, f"wave{r}.pt"), weights_only=False)
+                 for r in range(DP_WAVE_WORLD)]
+        ev8 = DiffusionEvaluator(bench, batch_size=EVAL_WAVE)
+        t0 = time.perf_counter()
+        ev8.evaluate(root, num_steps=50, compute_beats=False)
+        one8_s = time.perf_counter() - t0
+        got, ref = waves[0]["generated"], ev8.generated
+        gap = float(np.abs(got - ref).max()) if got.shape == ref.shape else float("inf")
+        print(f"[dp19] (c) {DP_WAVE_WORLD} ranks over gloo on one card, waves of "
+              f"{waves[0]['wave']} ({EVAL_WAVE // DP_WAVE_WORLD} clips a rank), against one "
+              f"process of {ev8.batch_size} on the same waves and x_T (bench.py's config, "
+              f"ddim50): motion {got.shape}, bit-equal {bool(np.array_equal(got, ref))}, largest "
+              f"gap {gap:.6g}; launches each rank {[w['launches'] for w in waves]}; seconds "
+              f"{[round(w['s'], 2) for w in waves]} ({t_ranks:.1f} s with the ranks' start-up) "
+              f"against {one8_s:.2f} in one process, on {smi}")
+        if waves[0]["wave"] != EVAL_WAVE or not np.array_equal(got, ref):
+            # where it breaks: each clip's gap, and the music encoder (where a
+            # batch-dependent GEMM hid before) on a wave at once and 2 at a time
+            clips = (np.abs(got - ref).reshape(len(got), -1).max(1).tolist()
+                     if got.shape == ref.shape else None)
+            mel8 = torch.from_numpy(np.random.RandomState(19).uniform(
+                -1, 1, (EVAL_WAVE, 5400, 128)).astype(np.float32)).cuda()
+            with torch.no_grad():
+                f8 = bench.fused_encoder(mel8)
+                f2 = torch.cat([bench.fused_encoder(mel8[i:i + 2])
+                                for i in range(0, EVAL_WAVE, 2)])
+            raise SystemExit(f"chip_smoke: the 4-rank wave's motion is not the 1-process "
+                             f"wave's bit for bit (each clip's largest gap {clips}; the music "
+                             f"encoder at {EVAL_WAVE} clips against 2 at a time: bit-equal "
+                             f"{bool(torch.equal(f8, f2))}, gap "
+                             f"{float((f8 - f2).abs().max()):.6g})")
+        for w in waves:
+            for k, n in w["launches"].items():
+                add({"adaln_modulation_int8" if k == "adaln_modulation" else k: n})
+        del bench, ev, ev8
 
         def torchrun(nproc: int, module: str, *argv: str, backend: str | None = None,
                      pipe: bool = False):
@@ -2229,7 +2345,11 @@ def dp_phase(smi: str, cfg, plain_cfg, sd, feat_sd, mel_train, motion_train, dra
         sig = records("sig")
         print(f"[dp19] (b) --continue on 2 ranks: steps {[r['step'] for r in sig]} "
               f"({time.perf_counter() - t0:.1f} s)")
-        if f"resumed from step {last}" not in out or sig[-1]["step"] != 2 * epochs:
+        # the resumed run restarts the interrupted epoch (the signal may land
+        # mid-epoch, at an odd step) from its first batch: 2 steps an epoch
+        # from epoch last // 2 to the last
+        if f"resumed from step {last}" not in out or sig[-1]["step"] != last + 2 * (
+                epochs - last // 2):
             raise SystemExit(f"chip_smoke: --continue on 2 ranks did not resume:\n{out[-3000:]}")
 
         # (d) the demo and the 1000-step ladder at small flags, in process
@@ -2272,6 +2392,277 @@ def dp_phase(smi: str, cfg, plain_cfg, sd, feat_sd, mel_train, motion_train, dra
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(f"[dp19] launches {counts}; phase 19 took {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return counts
+
+
+def reference_phase(smi: str, mel, noise, run_dir: str, root: str, m2snet_ckpt: str
+                    ) -> dict[str, int]:
+    """Phase 20 (the `[ref20]` lines), after phase 19: a reference run
+    directory in and out on phase 12's default run (``run_dir``, its
+    ``--data_root`` ``root``) and phase 13's M2SNet checkpoint, at the
+    flagship width; (a)-(e) as the module docstring lists them.  Returns
+    the launches by kernels-line row; raises SystemExit on any failed
+    check."""
+    import os
+    import shutil
+    import tempfile
+
+    from conductor_tpu_torch.cli import export_torch, import_torch
+    from conductor_tpu_torch.cli.evaluate import run_config
+    from conductor_tpu_torch.cli.train import main as train_cli
+    from conductor_tpu_torch.cli.visualize import load_run
+    from conductor_tpu_torch.config import Config
+    from conductor_tpu_torch.interop import synthetic_generator_state_dict, synthetic_state_dict
+    from conductor_tpu_torch.interop.opt_txt import write_opt_txt
+    from conductor_tpu_torch.models.generator import (Generator, GeneratorCVPRLSTM, bilstm_plain,
+                                                      lstm_plain)
+    from conductor_tpu_torch.models.music_encoder import FusedMusicEncoder
+    from conductor_tpu_torch.ops import launch_counts, part_launch_counts, reset_launch_counts
+    from conductor_tpu_torch.prospective import CNNLSTMGenerator
+    from conductor_tpu_torch.train.checkpoints import CheckpointManager
+    from conductor_tpu_torch.utils.profiling import annotate, trace
+
+    t_phase = time.perf_counter()
+    counts: dict[str, int] = {}
+
+    def add(c: dict[str, int], int8: bool = False) -> None:
+        for k, n in c.items():
+            if n:
+                k = "adaln_modulation_int8" if int8 and k == "adaln_modulation" else k
+                counts[k] = counts.get(k, 0) + n
+
+    def launched() -> dict[str, int]:
+        torch.cuda.synchronize()
+        return {k: n for k, n in (launch_counts() | part_launch_counts()).items() if n}
+
+    checkpoints = os.path.dirname(os.path.dirname(run_dir))  # phase 12's --checkpoints_dir
+    cfg12 = Config.load(os.path.join(run_dir, "config.json"))
+    d, tc = cfg12.denoiser, cfg12.train
+    work = tempfile.mkdtemp(prefix="chip_smoke_ref20_")
+    try:
+        # (a) phase 12's run out as a reference run directory, phase 13's
+        # M2SNet out as a .pt, both back in as one imported run
+        ref = os.path.join(work, "ref")
+        os.makedirs(os.path.join(ref, "model"))
+        t0 = time.perf_counter()
+        export_torch.main(["diffusion", "--run_dir", run_dir,
+                           "--output", os.path.join(ref, "model", "latest.tar")])
+        write_opt_txt(os.path.join(ref, "opt.txt"), {
+            "name": "defaults", "dataset_name": cfg12.dataset.name,
+            "num_layers": d.num_layers, "latent_dim": d.latent_dim,
+            "diffusion_steps": cfg12.diffusion.steps, "lr": tc.lr, "batch_size": tc.batch_size,
+            "num_epochs": tc.num_epochs, "log_every": tc.log_every,
+            "save_latest": tc.save_latest, "save_every_e": tc.save_every_e,
+            "no_eff": not d.efficient_attention, "which_epoch": "latest", "is_train": True})
+        m2s_pt = os.path.join(work, "M2SNet_last.pt")
+        export_torch.main(["m2snet", "--run_dir", os.path.dirname(m2snet_ckpt),
+                           "--output", m2s_pt])
+        imported = os.path.join(checkpoints, cfg12.dataset.name, "imported")
+        import_torch.main(["diffusion", "--input", ref, "--output", imported,
+                           "--stage1_pt", m2s_pt])
+        t_io = time.perf_counter() - t0
+        a = CheckpointManager(os.path.join(run_dir, "ckpt")).restore()
+        b = CheckpointManager(os.path.join(imported, "ckpt")).restore()
+        m2s = torch.load(m2s_pt, weights_only=True)
+        same = (a["total_it"] == b["total_it"]
+                and all(torch.equal(v, b["encoder"][k]) for k, v in a["encoder"].items())
+                and all(torch.equal(v, b["opt_encoder"]["state"][i][key])
+                        for i, st in a["opt_encoder"]["state"].items() for key, v in st.items())
+                and all(torch.equal(v, m2s[f"motion_encoder.{k}"])
+                        for k, v in b["feat_encoder"].items()))
+        print(f"[ref20] (a) export_torch diffusion + m2snet, import_torch diffusion --stage1_pt: "
+              f"{t_io:.1f} s; the imported checkpoint (step {b['total_it']}) phase 12's weights and "
+              f"Adam moments, its perceptual ST-GCN phase 13's motion encoder, bit for bit: {same}")
+        if not same:
+            raise SystemExit("chip_smoke: the imported run is not phase 12's run")
+        trainers = {}
+        for label, int8 in (("bf16", False), ("bench_int8", True)):
+            outs = []
+            for name, rd in (("imported", imported), ("phase 12", run_dir)):
+                tr = load_run(rd, None, "cuda", run_config(rd, "cuda", "pallas_fused",
+                                                           adaln_int8=int8))
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                out = tr.generate(mel, num_steps=50, noise=noise)
+                c = launched()
+                outs.append((out, time.perf_counter() - t0, c))
+                add(c, int8)
+                if label == "bf16":
+                    trainers[name] = tr
+            (o_i, s_i, c_i), (o_p, s_p, _) = outs
+            mode = "_int8" if int8 else ""
+            want = {"conv_block": 7, f"decoder_stack{mode}": 50, f"sampler_prologue{mode}": 50,
+                    "sampler_epilogue": 50, "adaln_modulation": 50}
+            print(f"[ref20] (a) {label} ddim50 B=2 on phase 4's mel and noise: imported run "
+                  f"{s_i * 1e3:.1f} ms, phase 12's {s_p * 1e3:.1f} ms; motion bit-equal "
+                  f"{bool(torch.equal(o_i, o_p))}, finite {bool(torch.isfinite(o_i).all())}; "
+                  f"launches {c_i}")
+            if not torch.equal(o_i, o_p) or c_i != want:
+                raise SystemExit(f"chip_smoke: the imported run does not serve as phase 12's "
+                                 f"({label}): launches {c_i}")
+
+        # (b) --continue for 2 steps on the imported run and on a copy of
+        # phase 12's run holding the same perceptual ST-GCN
+        copy = os.path.join(checkpoints, cfg12.dataset.name, "p12_stgcn13")
+        shutil.copytree(run_dir, copy)
+        mgr = CheckpointManager(os.path.join(copy, "ckpt"))
+        st = mgr.restore()
+        st["feat_encoder"] = b["feat_encoder"]
+        mgr.save(st["total_it"], st, wait=True)
+        with open(os.path.join(imported, "config.json")) as f:
+            rec = json.load(f)
+        flags = ["--latent_dim", rec["denoiser"]["latent_dim"], "--num_layers",
+                 rec["denoiser"]["num_layers"], "--ff_size", rec["denoiser"]["ff_size"],
+                 "--num_heads", rec["denoiser"]["num_heads"], "--diffusion_steps",
+                 rec["diffusion"]["steps"], "--lr", rec["train"]["lr"], "--batch_size",
+                 rec["train"]["batch_size"], "--sample_length", rec["train"]["sample_length"],
+                 *([] if rec["denoiser"]["efficient_attention"] else ["--no_eff"])]
+        epochs = b["total_it"] // 2 + 1  # 2 steps an epoch at --times 4: 2 more steps
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        losses, walls = {}, {}
+        try:
+            for name in ("imported", "p12_stgcn13"):
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                train_cli(["--data_root", root, "--name", name, "--checkpoints_dir", checkpoints,
+                           *map(str, flags), "--times", "4", "--epochs", str(epochs),
+                           "--save_latest", "2", "--continue"])
+                torch.cuda.synchronize()
+                c = {k: n for k, n in launch_counts().items() if n}  # K5 / K6 / K7
+                walls[name] = time.perf_counter() - t0
+                add(c)
+                with open(os.path.join(checkpoints, cfg12.dataset.name, name,
+                                       "metrics.jsonl")) as f:
+                    losses[name] = [(r["step"], r["loss"]) for r in map(json.loads, f)][-2:]
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        print(f"[ref20] (b) cli.train --continue {' '.join(map(str, flags))} --times 4 --epochs "
+              f"{epochs}: (step, loss) imported {losses['imported']}, phase 12's copy "
+              f"{losses['p12_stgcn13']}; {walls['imported']:.1f} / {walls['p12_stgcn13']:.1f} s; "
+              f"launches of the last run {c}")
+        steps = [b["total_it"] + 1, b["total_it"] + 2]
+        if [s for s, _ in losses["imported"]] != steps or losses["imported"] != losses[
+                "p12_stgcn13"]:
+            raise SystemExit("chip_smoke: --continue on the imported run differs from phase 12's")
+
+        # (c) the BiLSTM generators and the CNN-LSTM baseline at B = 55, 30 s
+        rng = np.random.RandomState(20)
+        b55, s30 = GAN_B, GAN_S
+        gmel = torch.from_numpy(rng.uniform(0, 1, (b55, s30 * 90, 128)).astype(np.float32)).cuda()
+        gnoise = torch.from_numpy(rng.normal(size=(b55, s30, 8)).astype(np.float32)).cuda()
+
+        def timed(fn):
+            """fn's output and the ms of its second call (the first warms
+            cuDNN's plans and the allocator)."""
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3
+
+        def held(label, got, want, ms, plain_ms, tol):
+            err, scale = float((got - want).abs().max()), float(want.abs().max())
+            print(f"[ref20] (c) {label}: shape {tuple(got.shape)}, max_abs_err {err:.6g} (plain "
+                  f"max {scale:.6g}, bound {tol:g} of it), {ms:.1f} ms against the plain "
+                  f"version's {plain_ms:.1f} on {smi}")
+            if not bool(torch.isfinite(got).all()) or not err <= tol * scale:
+                raise SystemExit(f"chip_smoke: {label} disagrees with its plain version")
+
+        with torch.no_grad():
+            g = Generator(decoder_kind="bilstm").cuda()
+            g.load_state_dict({k: torch.from_numpy(v) for k, v in
+                               synthetic_generator_state_dict(g, seed=20).items()})
+            g.eval()
+            enc = FusedMusicEncoder(g.music_encoder)  # as the M2SGAN trainer's frozen encoder
+
+            def kernel_path():
+                hx = enc(gmel)
+                return hx, g.decode(hx, gnoise)
+
+            reset_launch_counts()
+            (hx, fake), ms = timed(kernel_path)
+            c = {k: n // 2 for k, n in launched().items()}  # a call's, of the two timed
+            add(c)
+            if c != {"conv_block": 7}:
+                raise SystemExit(f"chip_smoke: the BiLSTM generator's encoder is not K4: {c}")
+            h = g._hidden(hx, gnoise)
+            plain_dec, plain_ms = timed(lambda: bilstm_plain(g.lstm, h))
+            held("Generator(decoder_kind='bilstm') decoder, cuDNN LSTM vs lstm_plain on K4's "
+                 "features", g.lstm(h), plain_dec, ms, plain_ms, LSTM_REL_TOL)
+            plain_fake, plain_ms = timed(lambda: bilstm_plain(
+                g.lstm, g._hidden(g.music_encoder(gmel), gnoise)).reshape(fake.shape))
+            held("Generator(decoder_kind='bilstm') whole path, K4 (bf16) + cuDNN vs the plain "
+                 "float32 encoder + lstm_plain", fake, plain_fake, ms, plain_ms, LSTM_REL_TOL)
+            cv = GeneratorCVPRLSTM().cuda().eval()
+            cv.load_state_dict({k: torch.from_numpy(v) for k, v in
+                                synthetic_state_dict(cv, seed=21).items()})
+            feats20 = torch.from_numpy(rng.normal(size=(b55, s30 * 30, 20)).astype(
+                np.float32)).cuda()
+            got, ms = timed(lambda: cv(feats20))
+            want, plain_ms = timed(lambda: bilstm_plain(cv.lstm, feats20).reshape(got.shape))
+            held("GeneratorCVPRLSTM, 20-d features", got, want, ms, plain_ms, LSTM_REL_TOL)
+            cnn = CNNLSTMGenerator().cuda()
+            cnn.load_state_dict({k: torch.from_numpy(v) for k, v in
+                                 synthetic_state_dict(cnn, seed=22).items()})
+            got, ms = timed(lambda: cnn(gmel))  # eval mode, as the plain version below runs
+            want, plain_ms = timed(lambda: cnn.fc(lstm_plain(cnn.lstm, cnn.music_encoder(
+                gmel))).reshape(got.shape))
+            held("CNNLSTMGenerator", got, want, ms, plain_ms, LSTM_REL_TOL)
+            del g, enc, cv, cnn
+
+        # (d) DDIM at eta = 1 on the fused layers against the plain float32
+        # path, the same x_T and step noise
+        step_noise = torch.from_numpy(np.random.RandomState(21).normal(
+            size=(50, *noise.shape)).astype(np.float32)).cuda()
+        fused = trainers["imported"]
+        plain_cfg = Config.load(os.path.join(imported, "config.json"))
+        plain_cfg = plain_cfg.replace(denoiser=dataclasses.replace(
+            plain_cfg.denoiser, layer_impl="flax", music_encoder_impl="flax", attention_impl="xla",
+            compute_dtype="float32"))
+        plain = load_run(imported, b["total_it"], "cuda", plain_cfg)  # the fused one's step
+        reset_launch_counts()
+        got, ms = timed(lambda: fused.generate(mel, num_steps=50, noise=noise, eta=1.0,
+                                               step_noise=step_noise))
+        c = {k: n // 2 for k, n in launched().items()}  # a call's, of the two timed
+        add(c)
+        want, plain_ms = timed(lambda: plain.generate(mel, num_steps=50, noise=noise, eta=1.0,
+                                                      step_noise=step_noise))
+        eta0 = fused.generate(mel, num_steps=50, noise=noise)
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        print(f"[ref20] (d) DDIM eta=1 ddim50 B=2 on the fused layers: max_abs_err vs the plain "
+              f"float32 path {err:.6g} (plain max {scale:.6g}, bound {GENERATE_REL_TOL:g} of it); "
+              f"moved from eta=0 by {float((got - eta0).abs().max()):.6g}; {ms:.1f} ms against "
+              f"{plain_ms:.1f}; launches {c}")
+        if (not err <= GENERATE_REL_TOL * scale or c != {"conv_block": 7, "decoder_stack": 50,
+                                                         "adaln_modulation": 50}):
+            raise SystemExit("chip_smoke: DDIM at eta > 0 on the fused layers is wrong")
+        del plain
+
+        # (e) a torch.profiler trace of a ddim10 call, annotated
+        reset_launch_counts()
+        with trace(os.path.join(work, "trace")) as prof:
+            with annotate("ref20.generate"):
+                fused.generate(mel, num_steps=10, noise=noise)
+                torch.cuda.synchronize()
+        c = launched()
+        add(c)
+        with open(prof.trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        names = [e.get("name", "") for e in events]
+        k1 = [n for n in names if "layer_rows_kernel" in n or "kv_partials_kernel" in n]
+        print(f"[ref20] (e) utils.profiling.trace around a ddim10 call: {len(events)} events, "
+              f"{len(k1)} of K1's kernels, 'ref20.generate' in it "
+              f"{'ref20.generate' in names}; launches {c}")
+        if not k1 or "ref20.generate" not in names:
+            raise SystemExit("chip_smoke: the profiling trace lacks K1's kernels or the "
+                             "annotation")
+        del fused, trainers
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[ref20] launches {counts}; phase 20 took {time.perf_counter() - t_phase:.1f} s on "
+          f"{smi}")
     return counts
 
 
@@ -3036,6 +3427,11 @@ def main() -> int:
                              float(np.median(times_k)),
                              os.path.join(cli_work, "ConductorMotion100", "defaults"),
                              os.path.join(cli_work, "data"))
+        # 20. a reference run directory in and out, on phase 12's run and
+        # phase 13's checkpoint (its launches are added with phase 19's)
+        ref_counts = reference_phase(smi, mel, noise,
+                                     os.path.join(cli_work, "ConductorMotion100", "defaults"),
+                                     os.path.join(cli_work, "data"), m2snet_ckpt)
     finally:
         shutil.rmtree(work, ignore_errors=True)
         shutil.rmtree(cli_work, ignore_errors=True)
@@ -3258,7 +3654,7 @@ def main() -> int:
     counts["decoder_layer_w64"] += w64_cli_counts["decoder_layer"]
     counts["decoder_layer_bwd_w64"] += w64_cli_counts["decoder_layer_bwd"]
     print(f"[widths] (e)'s CLI run at D = 64 (phase 12): launches {w64_cli_counts}")
-    for k, n in (*eval_counts.items(), *dp_counts.items()):  # phases 18 and 19
+    for k, n in (*eval_counts.items(), *dp_counts.items(), *ref_counts.items()):  # 18-20
         counts[k] = counts.get(k, 0) + n
 
     kernels = []
@@ -3284,4 +3680,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp19-worker"]:  # a rank of phase 19, started by dp_phase
         sys.exit(dp_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--dp19-wave-worker"]:  # a rank of phase 19 (c)'s 4-rank wave
+        sys.exit(dp_wave_worker(sys.argv[2]))
     sys.exit(main())

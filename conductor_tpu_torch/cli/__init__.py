@@ -1,7 +1,8 @@
 """Command-line entry points: `train` (stage 2), `train_m2snet` and
 `train_m2sgan` (stage 1), serving: `visualize` (one track) and
-`test_unseen` (a directory of tracks), and evaluation: `evaluate`,
-`evaluate_protocol` and `serving_delta_ci`."""
+`test_unseen` (a directory of tracks), evaluation: `evaluate`,
+`evaluate_protocol` and `serving_delta_ci`, and the reference's
+checkpoints in and out: `import_torch` and `export_torch`."""
 
 from __future__ import annotations
 

@@ -194,4 +194,11 @@ class FusedMusicEncoder:
             x = fused_conv_block(x, mxu_dtype=self.mxu_dtype, **kw)
         b, t, f, c = x.shape
         h = x.permute(0, 1, 3, 2).reshape(b, t, c * f).float()
-        return (h @ self.proj_w) * self.proj_scale + self.proj_bias
+        # the projection one GEMM a clip: a GEMM library picks its kernel,
+        # and with it the summation order, by the row count, so one product
+        # over the batch's rows would make a clip's features depend on the
+        # batch it is served in (a sharded wave's rows on a rank against the
+        # whole wave in one process: 3.4e-6 of 3.06 on the card, 3e-3 of
+        # the motion after a ddim50 ladder)
+        proj = torch.stack([torch.matmul(h[i], self.proj_w) for i in range(b)])
+        return proj * self.proj_scale + self.proj_bias

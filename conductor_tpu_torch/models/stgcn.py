@@ -1,12 +1,16 @@
 """The ST-GCN motion encoder: trained in stage 1, frozen in stage 2's
 perceptual loss.
 
-Port of `conductor_tpu/models/stgcn.py:103-247` (`MotionEncoderSTGCN` in
-M2S mode): data BatchNorm over the flattened (V*C) frame, ten
-st_gcn blocks (graph conv with a learnable edge-importance mask on the
-adjacency, then BN -> ReLU -> 3x1 temporal conv -> BN, plus a residual that
-is none in block 0 and the identity after), and a 1x1 projection of the
-channel-major (C, V) flatten to 64 channels with BN.
+Port of `conductor_tpu/models/stgcn.py:103-247`: `STGCN`, data BatchNorm
+over the flattened (V*C) frame, then st_gcn blocks (graph conv with a
+learnable edge-importance mask on the adjacency, then BN -> ReLU -> 3x1
+temporal conv, strided in some blocks, -> BN, plus a residual: none, the
+identity, or a strided 1x1 conv with BN where the width or the stride
+changes), in the "M2S" mode (ten blocks of 32, stride 1: M2SNet, the
+perceptual loss and FGD) or the "AE" mode (eight blocks of 16 with
+temporal strides 3 and 2, the autoencoder variant, which nothing in either
+package builds); `MotionEncoderSTGCN`, the M2S ST-GCN and a 1x1 projection
+of the channel-major (C, V) flatten to 64 channels with BN.
 
 Plain PyTorch modules in the reference's own NCTV layout and key names
 (`st_gcn.st_gcn_networks.{i}.gcn.conv`, `.tcn.{0,2,3}`,
@@ -35,9 +39,14 @@ from .bn import BatchNorm
 from .graph import build_adjacency
 from .precision import conv
 
-# (out channels, temporal stride, residual) per block, M2S mode
-# (`conductor_tpu/models/stgcn.py:141-147`)
-M2S_BLOCKS = [(32, 1, False)] + [(32, 1, True)] * 9
+# (out channels, temporal stride, residual) per block of each mode
+# (`conductor_tpu/models/stgcn.py:141-148`)
+MODE_BLOCKS = {
+    "M2S": [(32, 1, False)] + [(32, 1, True)] * 9,
+    "AE": [(16, 1, False), (16, 1, True), (16, 3, True), (16, 1, True),
+           (16, 1, True), (16, 2, True), (16, 1, True), (16, 1, True)],
+}
+M2S_BLOCKS = MODE_BLOCKS["M2S"]
 
 
 class ConvTemporalGraphical(nn.Module):
@@ -59,35 +68,50 @@ class ConvTemporalGraphical(nn.Module):
 
 
 class STGCNBlock(nn.Module):
+    """One st_gcn block; its residual none, the identity, or (where the
+    width or the stride changes) a strided 1x1 conv and BN
+    (``residual.{0,1}``, registered after ``tcn`` as in the reference)."""
+
     def __init__(self, cin: int, cout: int, k: int, stride: int, residual: bool):
         super().__init__()
-        if residual and (cin != cout or stride != 1):
-            raise NotImplementedError("only the M2S blocks (no or identity residual) are ported")
-        self.residual = residual
+        self.res_mode = "none" if not residual else (
+            "identity" if cin == cout and stride == 1 else "conv")
         self.gcn = ConvTemporalGraphical(cin, cout, k)
         self.tcn = nn.Sequential(
             BatchNorm(cout), nn.ReLU(),
             nn.Conv2d(cout, cout, (3, 1), (stride, 1), (1, 0)),
             BatchNorm(cout), nn.Dropout(0.0),
         )
+        if self.res_mode == "conv":
+            self.residual = nn.Sequential(nn.Conv2d(cin, cout, 1, (stride, 1)), BatchNorm(cout))
 
     def forward(self, x: torch.Tensor, a: torch.Tensor,
                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
         bn1, _, tconv, bn2, _ = self.tcn
         y = torch.relu(bn1(self.gcn(x, a, dtype), dtype=dtype))
         y = bn2(conv(tconv, y, dtype, bias_dtype=torch.float32), dtype=dtype)
-        return torch.relu(y + x if self.residual else y)
+        if self.res_mode == "identity":
+            y = y + x
+        elif self.res_mode == "conv":
+            rconv, rbn = self.residual
+            y = y + rbn(conv(rconv, x, dtype), dtype=dtype)
+        return torch.relu(y)
 
 
 class STGCN(nn.Module):
-    def __init__(self, in_channels: int = 2, layout: str = "ConductorMotionX"):
+    """motion (B, T, V, C) -> (B, C_out, T', V): the blocks of ``mode``
+    ("M2S" or "AE")."""
+
+    def __init__(self, in_channels: int = 2, layout: str = "ConductorMotionX", mode: str = "M2S"):
         super().__init__()
+        if mode not in MODE_BLOCKS:
+            raise ValueError(f"mode is one of {sorted(MODE_BLOCKS)}, got {mode!r}")
         a = torch.from_numpy(build_adjacency(layout, "uniform"))
         self.register_buffer("A", a)
         k, v = a.shape[0], a.shape[1]
         self.data_bn = BatchNorm(in_channels * v)
         cin, blocks = in_channels, []
-        for cout, stride, residual in M2S_BLOCKS:
+        for cout, stride, residual in MODE_BLOCKS[mode]:
             blocks.append(STGCNBlock(cin, cout, k, stride, residual))
             cin = cout
         self.st_gcn_networks = nn.ModuleList(blocks)
@@ -103,7 +127,7 @@ class STGCN(nn.Module):
         b, t, v, c = motion.shape
         x = self.data_bn(motion.reshape(b, t, v * c).transpose(1, 2), dtype=dtype)
         x = x.reshape(b, v, c, t).permute(0, 2, 3, 1)
-        keep = (lambda h: feats.append(h.permute(0, 2, 1, 3).reshape(b, t, -1))
+        keep = (lambda h: feats.append(h.permute(0, 2, 1, 3).reshape(b, h.shape[2], -1))
                 if feats is not None else None)
         keep(x)
         for blk, imp in zip(self.st_gcn_networks, self.edge_importance):

@@ -105,6 +105,38 @@ class Dropout(nn.Module):
         return torch.where(keep, x / x.new_full((), 1.0 - self.p), x.new_zeros(()))
 
 
+def name_dropout_sites(module: nn.Module) -> None:
+    """Name each `Dropout`'s site after its path in ``module``."""
+    for name, m in module.named_modules():
+        if isinstance(m, Dropout):
+            m.site = name
+
+
+def dropout_sites(module: nn.Module) -> list[str]:
+    """The names of ``module``'s `Dropout` modules, in registration order."""
+    return [name for name, m in module.named_modules() if isinstance(m, Dropout)]
+
+
+def keep_mask_source(p: float, train: bool, dropout_keep=None,
+                     generator: torch.Generator | None = None, device=None):
+    """The keep-mask source of a forward, ``drop(site, shape) -> bool``,
+    or None where nothing drops (``train`` off or ``p == 0``).
+    ``dropout_keep`` is a mapping from site names to masks (true keeps),
+    or a callable ``(site, shape) -> mask``; without it each site draws
+    ``uniform < 1 - p`` from ``generator`` (the default generator, on
+    ``device``, if None) as the forward reaches it."""
+    if not train or p == 0.0:
+        return None
+    if dropout_keep is None:
+        def dropout_keep(site, shape):
+            gen_device = generator.device if generator is not None else device
+            return torch.rand(shape, generator=generator, device=gen_device) < 1.0 - p
+    elif not callable(dropout_keep):
+        masks = dropout_keep
+        dropout_keep = lambda site, shape: masks[site]  # noqa: E731
+    return dropout_keep
+
+
 class StylizationBlock(nn.Module):
     """AdaLN: h -> Linear(dropout(silu(LN(h) * (1 + scale) + shift))), with
     (scale, shift) = Linear(silu(emb))."""
@@ -355,9 +387,7 @@ class MotionTransformer(nn.Module):
             for _ in range(num_layers)
         )
         self.out = nn.Linear(latent_dim, input_feats)
-        for name, m in self.named_modules():
-            if isinstance(m, Dropout):
-                m.site = name
+        name_dropout_sites(self)
 
     def dropout_sites(self) -> list[str]:
         """The names of the denoiser's dropout modules, four a layer, in the
@@ -365,7 +395,7 @@ class MotionTransformer(nn.Module):
         attention, FFN (after the GELU) and FFN StylizationBlock, e.g.
         ``temporal_decoder_blocks.0.sa_block.proj_out.out_layers.1``,
         ``temporal_decoder_blocks.0.ffn.dropout``."""
-        return [name for name, m in self.named_modules() if isinstance(m, Dropout)]
+        return dropout_sites(self)
 
     @classmethod
     def from_config(cls, d) -> "MotionTransformer":
@@ -442,19 +472,8 @@ class MotionTransformer(nn.Module):
         without it each site draws ``uniform < 1 - dropout`` from
         ``generator`` (the default generator if None) in the order of
         `dropout_sites`."""
-        if not train or self.dropout == 0.0:
-            return None
-        if dropout_keep is None:
-            keep_prob = 1.0 - self.dropout
-            device = self.sequence_embedding.device
-
-            def dropout_keep(site, shape):
-                gen_device = generator.device if generator is not None else device
-                return torch.rand(shape, generator=generator, device=gen_device) < keep_prob
-        elif not callable(dropout_keep):
-            masks = dropout_keep
-            dropout_keep = lambda site, shape: masks[site]  # noqa: E731
-        return dropout_keep
+        return keep_mask_source(self.dropout, train, dropout_keep, generator,
+                                self.sequence_embedding.device)
 
     def denoise(self, x, timesteps, cond: dict, src_mask: torch.Tensor | None = None, *,
                 train: bool = False, dropout_keep=None, generator: torch.Generator | None = None):

@@ -31,6 +31,11 @@ import torch
 CHECKPOINT_SUFFIXES = (".pt", ".pth", ".tar", ".ckpt")
 
 
+def host_state_dict(sd) -> dict[str, torch.Tensor]:
+    """A host copy of a state dict's tensors, detached."""
+    return {k: v.detach().to("cpu", copy=True) for k, v in sd.items()}
+
+
 def restore_raw(path: str | os.PathLike) -> dict[str, torch.Tensor]:
     """The state dict in a file; in the latest ``<step>.tar`` of a
     `CheckpointManager` root; or in the one checkpoint file of another

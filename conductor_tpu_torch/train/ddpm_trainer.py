@@ -35,7 +35,8 @@ decoder-stack kernel, in the int8-AdaLN mode with ``sampler_adaln_int8``
 ``sampler_vpu_dtype="bfloat16"``: a DDIM ladder without guidance under
 "start_x" runs wholly on the sampler kernels (`FusedDenoiser.ddim_sample`,
 K2 -> K1 -> K3 a step), and every other call runs the generic loop over
-`FusedDenoiser.__call__` (K1 a denoiser call, two a step with guidance).
+`FusedDenoiser.__call__` (K1 a denoiser call, two a step with guidance;
+DDIM at eta > 0 too).
 JAX takes its all-kernel ladder whatever the mean type, whose affine
 assumes "start_x" (F9 in ROADMAP.md); the port does not.  Otherwise the
 plain modules in the compute dtype run through the generic loop, which
@@ -108,6 +109,7 @@ from ..ops.attention import HEAD_DIMS
 from ..ops.decoder_stack import WIDTHS, layer_widths_ok
 from ..ops.stgcn import fused_frozen_stgcn, pack_frozen_stgcn
 from ..parallel.mesh import Mesh
+from .checkpoints import host_state_dict
 from .fused_denoiser import FusedDenoiser, fused_train_denoise
 from .optim import ClippedAdam
 
@@ -200,18 +202,15 @@ class DDPMTrainer:
         frozen perceptual ST-GCN (``feat_encoder``, which JAX's
         `TrainState` carries as ``feat_variables``) and the
         loss-second-moment sampler's state (``sampler_state``, or None)."""
-        def host(sd):
-            return {k: v.detach().to("cpu", copy=True) for k, v in sd.items()}
-
         sampler = None
         if self.sampler_state is not None:
             sampler = {k: torch.from_numpy(v.copy()) for k, v in self.sampler_state._asdict().items()}
         return {
-            "encoder": host(self.model.state_dict()),
-            "opt_encoder": self._reference_adam_state(host),
+            "encoder": host_state_dict(self.model.state_dict()),
+            "opt_encoder": self._reference_adam_state(),
             "ep": int(epoch),
             "total_it": self.step,
-            "feat_encoder": host(self.feat_model.state_dict()),
+            "feat_encoder": host_state_dict(self.feat_model.state_dict()),
             "sampler_state": sampler,
         }
 
@@ -237,12 +236,12 @@ class DDPMTrainer:
         optimizer owns (`ClippedAdam` keeps them in that order)."""
         return [i for i, p in enumerate(self.model.parameters()) if p.requires_grad]
 
-    def _reference_adam_state(self, host) -> dict:
+    def _reference_adam_state(self) -> dict:
         sd = self.optimizer.adam.state_dict()
         pos = self._trainable_positions()
         n = sum(1 for _ in self.model.parameters())
         return {
-            "state": {pos[i]: host(st) for i, st in sd["state"].items()},
+            "state": {pos[i]: host_state_dict(st) for i, st in sd["state"].items()},
             "param_groups": [dict(g, params=list(range(n))) for g in sd["param_groups"]],
         }
 
@@ -288,19 +287,23 @@ class DDPMTrainer:
         generator: torch.Generator | None = None,
         guidance_scale: float = 1.0,
         sampler: str = "ddim",
+        eta: float = 0.0,
     ) -> torch.Tensor:
         """mel (B, T90, 128) -> motion (B, T30, 26) (JAX `generate`,
         `conductor_tpu/train/ddpm_trainer.py:401-531`).  ``sampler`` "ddim"
-        runs the eta=0 DDIM ladder, any other value the ancestral one, as
-        in JAX; ``guidance_scale != 1`` mixes a conditional and a null
-        denoiser call a step.  x_T is ``noise`` if given, else drawn from
-        ``generator``; the ancestral ladder's per-step noise is
+        runs the DDIM ladder (eta = 0 unless ``eta``, which JAX's
+        `generate` does not take: its engine's `ddim_sample_loop` does),
+        any other value the ancestral one, as in JAX; ``guidance_scale !=
+        1`` mixes a conditional and a null denoiser call a step.  x_T is
+        ``noise`` if given, else drawn from ``generator``; the per-step
+        noise of the ancestral ladder and of DDIM at eta > 0 is
         ``step_noise`` (S, B, T30, 26) in ladder order, S the ladder's
         steps, if given, else drawn from ``generator`` step by step."""
         if self._pack_stale:  # the weights moved since the pack was built
             self._build_sampling_pack()
-        if sampler == "ddim" and step_noise is not None:
-            raise ValueError("step_noise is the ancestral sampler's; eta=0 DDIM draws none")
+        if sampler == "ddim" and eta == 0.0 and step_noise is not None:
+            raise ValueError("step_noise is for the ancestral sampler or eta > 0; eta=0 DDIM "
+                             "draws none")
         ds = self.cfg.dataset
         mel = torch.as_tensor(mel, dtype=torch.float32, device=self.device)
         if mel.ndim != 3 or mel.shape[-1] != ds.mel_bins:
@@ -340,8 +343,9 @@ class DDPMTrainer:
             cond = self.fused.prepare_cond(cond)
             if null_cond is not None:
                 null_cond = self.fused.prepare_cond(null_cond)
-            if sampler == "ddim" and guidance_scale == 1.0 and dc.mean_type == "start_x":
-                # the all-kernel ladder: its affine is START_X's (F9)
+            if (sampler == "ddim" and eta == 0.0 and guidance_scale == 1.0
+                    and dc.mean_type == "start_x"):
+                # the all-kernel ladder: its affine is START_X's eta=0 DDIM (F9)
                 return self.fused.ddim_sample(cond, sched, noise)
 
             def denoise_fn(x, t, c, src_mask):
@@ -351,7 +355,8 @@ class DDPMTrainer:
         model_fn = guided_denoiser(denoise_fn, cond, None, guidance_scale, null_cond)
         kw = dict(mean_type=dc.mean_type, var_type=dc.var_type)
         if sampler == "ddim":
-            return ddim_sample_loop(sched, model_fn, noise, **kw)
+            return ddim_sample_loop(sched, model_fn, noise, eta=eta, step_noise=step_noise,
+                                    generator=generator, **kw)
         return p_sample_loop(sched, model_fn, noise, step_noise=step_noise, generator=generator,
                              **kw)
 
@@ -585,8 +590,17 @@ def _check_training_config(cfg: Config, device: torch.device | str) -> None:
     _check_kernel_widths(cfg, device)
     if tc.timestep_sampler not in ("uniform", "loss-second-moment"):
         raise ValueError(f"unknown timestep sampler: {tc.timestep_sampler}")
+    # the engine takes the KL losses and the learned variances
+    # (`diffusion.training_losses`); the 5-term objective is the MSE
+    # family's over a fixed variance, and JAX's trainer refuses them too
     if cfg.diffusion.loss_type not in ("mse", "rescaled_mse"):
-        raise NotImplementedError(f"loss_type {cfg.diffusion.loss_type!r} is not ported")
+        raise NotImplementedError(f"DDPMTrainer trains the MSE family (mse / rescaled_mse); "
+                                  f"loss_type {cfg.diffusion.loss_type!r} is "
+                                  "diffusion.training_losses's alone")
+    if cfg.diffusion.var_type in ("learned", "learned_range"):
+        raise NotImplementedError("learned variances need a 2x-wide denoiser head, which "
+                                  "DDPMTrainer does not build (JAX's refuses them too); "
+                                  "diffusion.p_mean_variance takes them")
 
 
 # the widths the decoder kernels are built for (ops/_build.py WIDTHS, a head

@@ -72,6 +72,7 @@ from ..models.music_encoder import FusedMusicEncoder
 from ..models.precision import full_float32
 from ..models.stgcn import MotionEncoderSTGCN
 from ..ops.stgcn import fused_frozen_stgcn, pack_frozen_stgcn
+from .checkpoints import host_state_dict
 from .ddpm_trainer import require_device
 from .losses import alpha_shape, draw_gp_alpha, gradient_penalty, sync_loss
 from .m2snet_trainer import resolve_impls
@@ -189,20 +190,26 @@ class M2SGANTrainer:
         ``g_opt`` / ``d_opt`` (RMSprop's second moments), ``sync_encoder``
         (the frozen SyncLoss ST-GCN) and ``step``."""
         def host(module):
-            return {k: v.detach().to("cpu", copy=True) for k, v in module.state_dict().items()}
+            return host_state_dict(module.state_dict())
 
         return {"G": host(self.G), "D": host(self.D), "g_opt": self.g_opt.state_dict(),
                 "d_opt": self.d_opt.state_dict(), "sync_encoder": host(self.sync_encoder),
                 "step": self.step}
 
     def load_state_dict(self, state: dict) -> None:
-        """Restore `state_dict`'s output, then `reset_caches`."""
+        """Restore `state_dict`'s output, or a `cli.import_torch m2sgan`
+        checkpoint (``G``, ``D`` if it was given, ``step``: what it lacks
+        stays as it is, the optimizer states start fresh); then
+        `reset_caches`."""
         load_reference_state_dict(self.G, state["G"])
-        load_reference_state_dict(self.D, state["D"])
-        load_motion_encoder_state_dict(self.sync_encoder, state["sync_encoder"])
+        if "D" in state:
+            load_reference_state_dict(self.D, state["D"])
+        if "sync_encoder" in state:
+            load_motion_encoder_state_dict(self.sync_encoder, state["sync_encoder"])
         self._new_optimizers()
-        self.g_opt.load_state_dict(state["g_opt"])
-        self.d_opt.load_state_dict(state["d_opt"])
+        if "g_opt" in state:
+            self.g_opt.load_state_dict(state["g_opt"])
+            self.d_opt.load_state_dict(state["d_opt"])
         self.step = int(state["step"])
         self.reset_caches()
 

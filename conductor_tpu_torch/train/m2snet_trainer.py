@@ -51,6 +51,7 @@ from ..interop.weights import load_m2snet_state_dict
 from ..models.bn import batch_statistics_only
 from ..models.m2snet import M2SNet
 from ..models.precision import full_float32
+from .checkpoints import host_state_dict
 from .ddpm_trainer import require_device
 
 
@@ -116,12 +117,9 @@ class M2SNetTrainer:
         """The training state on the host: ``model`` (the M2SNet under the
         reference's keys, which `load_m2snet_state_dict` and JAX's
         `import_m2snet` read), ``optimizer`` (Adam's state) and ``step``."""
-        def host(sd):
-            return {k: v.detach().to("cpu", copy=True) for k, v in sd.items()}
-
         opt = self.optimizer.state_dict()
-        return {"model": host(self.model.state_dict()),
-                "optimizer": {"state": {i: host(st) for i, st in opt["state"].items()},
+        return {"model": host_state_dict(self.model.state_dict()),
+                "optimizer": {"state": {i: host_state_dict(st) for i, st in opt["state"].items()},
                               "param_groups": opt["param_groups"]},
                 "step": self.step}
 

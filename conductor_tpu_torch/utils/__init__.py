@@ -1,1 +1,1 @@
-"""Training observability: metric logging."""
+"""Training observability: metric logging, profiling and FLOP counts."""

@@ -1632,3 +1632,48 @@ def test_linear_attention_head_widths(dh, cluster, monkeypatch):
         assert torch.equal(got, linear_attention_kernel(q, k, v, 4))
     with pytest.raises(ValueError, match="linear_attention"):
         linear_attention_kernel(q, k, v, d // 4)  # head width 4: not built
+
+
+def test_served_motion_does_not_depend_on_the_batch(trainers):
+    """A clip's motion is the same served with 3 others or alone: the
+    fused encoder (K4, then its projection a GEMM a clip), the condition
+    and the fused ladder (K2 -> K1 -> K3), bit for bit at B = 4 against 4
+    calls at B = 1 (the 4-rank evaluation wave's shape)."""
+    kernel, _, mel, noise = trainers
+    mel4, noise4 = mel.repeat(2, 1, 1).contiguous(), noise.flip(0).repeat(2, 1, 1).contiguous()
+    mel4[2:] += 0.25
+    whole = kernel.generate(mel4, num_steps=5, noise=noise4)
+    parts = torch.cat([kernel.generate(mel4[i:i + 1], num_steps=5, noise=noise4[i:i + 1])
+                       for i in range(4)])
+    assert torch.equal(whole, parts)
+    assert torch.equal(kernel.fused_encoder(mel4), torch.cat(
+        [kernel.fused_encoder(mel4[i:i + 1]) for i in range(4)]))
+
+
+def test_bilstm_decoders_match_their_plain_recurrence():
+    """cuDNN's LSTM in `PoseDecoderBiLSTM` (through `GeneratorCVPRLSTM`)
+    and `CNNLSTMGenerator` against `lstm_plain` on the card, float32,
+    within 1e-5 of the largest value; eval and train mode with given
+    dropout masks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from conductor_tpu_torch.models.generator import GeneratorCVPRLSTM, bilstm_plain, lstm_plain
+    from conductor_tpu_torch.prospective import CNNLSTMGenerator
+
+    rng = np.random.RandomState(3)
+    g = GeneratorCVPRLSTM().cuda()
+    g.load_state_dict({k: torch.from_numpy(v) for k, v in synthetic_state_dict(g, seed=1).items()})
+    x = torch.from_numpy(rng.normal(size=(3, 50, 20)).astype(np.float32)).cuda()
+    keep = torch.from_numpy(rng.uniform(size=(3, 50, 256)) < 0.5).cuda()
+    with torch.no_grad(), full_float32():
+        for drop in (None, lambda site, shape: keep):
+            got = g.lstm(x, drop)
+            want = bilstm_plain(g.lstm, x, drop)
+            assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+        cnn = CNNLSTMGenerator().cuda()
+        cnn.load_state_dict({k: torch.from_numpy(v)
+                             for k, v in synthetic_state_dict(cnn, seed=2).items()})
+        mel = torch.from_numpy(rng.uniform(size=(2, 180, 128)).astype(np.float32)).cuda()
+        got = cnn(mel)  # eval mode, as the plain version below runs
+        want = cnn.fc(lstm_plain(cnn.lstm, cnn.music_encoder(mel))).reshape(got.shape)
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())

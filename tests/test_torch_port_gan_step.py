@@ -49,7 +49,7 @@ from conductor_tpu_torch.interop import (
     synthetic_generator_state_dict,
     synthetic_m2snet_state_dict,
 )
-from conductor_tpu_torch.models.generator import Discriminator1DCNN, Generator, GeneratorCVPRLSTM
+from conductor_tpu_torch.models.generator import Discriminator1DCNN, Generator
 from conductor_tpu_torch.models.m2snet import M2SNet
 from conductor_tpu_torch.train.losses import sync_loss
 from conductor_tpu_torch.train.m2sgan_trainer import resolve_gan_impls
@@ -303,13 +303,13 @@ def test_generate_from_mel_and_from_features():
     (lambda: M2SGANTrainer(sample_length=S, sync_encoder_impl="xla", device="cpu"), ValueError),
     (lambda: resolve_gan_impls("auto", "float16", "pallas", "auto", "auto", False,
                                torch.device("cuda")), ValueError),
-    (lambda: Generator(decoder_kind="bilstm"), NotImplementedError),
-    (GeneratorCVPRLSTM, NotImplementedError),
+    (lambda: Generator(decoder_kind="gru"), ValueError),
 ])
 def test_refusals(make, error):
     """The JAX trainer's refusals (`m2sgan_trainer.py:110-115, 125-130`),
-    a SyncLoss dtype K7 has no mode for (float16), and the decoders not
-    ported yet."""
+    a SyncLoss dtype K7 has no mode for (float16), and a decoder kind that
+    is neither "tcn" nor "bilstm" (the BiLSTM decoders are ported:
+    tests/test_torch_port_generator_lstm.py)."""
     with pytest.raises(error):
         make()
 

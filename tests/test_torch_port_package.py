@@ -122,8 +122,24 @@ assert DiffusionEvaluator(tr).batch_size == 8
 import conductor_tpu_torch.parallel
 from conductor_tpu_torch.parallel import Mesh, cp_linear_attention, init_from_env
 assert init_from_env(None, "cpu")[0] == Mesh()
+import conductor_tpu_torch.cli.export_torch, conductor_tpu_torch.cli.import_torch
+from conductor_tpu_torch.models.generator import Generator, GeneratorCVPRLSTM
+from conductor_tpu_torch.models.stgcn import STGCN
+from conductor_tpu_torch.prospective import CNNLSTMGenerator
+from conductor_tpu_torch.utils import flops, profiling
+from conductor_tpu_torch.diffusion import make_schedule, training_losses
+x = torch.rand(1, 30, 26)
+g = Generator(decoder_kind="bilstm")
+assert g(torch.rand(1, 90, 128), torch.rand(1, 1, 8)).shape == (1, 30, 13, 2)
+assert GeneratorCVPRLSTM()(torch.rand(1, 30, 20)).shape == (1, 30, 13, 2)
+assert STGCN(mode="AE")(torch.rand(1, 30, 13, 2)).shape == (1, 16, 5, 13)
+assert CNNLSTMGenerator()(torch.rand(1, 90, 128)).shape == (1, 30, 13, 2)
+loss = training_losses(make_schedule("cosine", 4), lambda x, t: torch.cat([x, x], -1), x,
+                       torch.tensor([1]), torch.randn(1, 30, 26), loss_type="kl",
+                       var_type="learned_range")["loss"]
+assert bool(torch.isfinite(loss).all()), loss
 sys.path.insert(0, "scripts")
-import multiprocess_check_torch, run_1000ladder_torch, run_e2e_demo_torch
+import multiprocess_check_torch, music_encoder_batch_torch, run_1000ladder_torch, run_e2e_demo_torch
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("no-jax-ok")
@@ -140,7 +156,10 @@ def test_package_never_imports_jax():
     (SyncLoss on K7) and a stage-2 step with denoiser dropout on the CPU,
     and imports the evaluation modules and CLIs, the distributed layer
     (`parallel`) and the port's scripts (the demo, the 1000-step ladder,
-    the multiprocess check)."""
+    the multiprocess check, the batch-invariance probe); imports the
+    reference import / export CLIs, the profiling and FLOP modules, and
+    runs what once raised: the BiLSTM generators, the "AE" ST-GCN, the
+    CNN-LSTM baseline and the engine's KL loss under a learned variance."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], capture_output=True, text=True,
                           cwd=REPO, env=env, timeout=300)
@@ -483,10 +502,12 @@ def test_sampler_modes_generate(field, value):
 @pytest.mark.parametrize("kwargs", [{"diffusion": {"loss_type": "kl"}},
                                     {"diffusion": {"var_type": "learned_range"}}])
 def test_unported_generate_options_raise(kwargs):
-    """What is still not ported raises where the trainer is built: the KL
-    loss and the learned variances (guidance, the ancestral sampler and
-    denoiser dropout, once listed here, are ported:
-    tests/test_torch_port_serving_modes.py, tests/test_torch_port_dropout.py)."""
+    """The trainer refuses, where it is built, the KL loss and the learned
+    variances, as JAX's trainer does: its 5-term objective is the MSE
+    family's over a fixed variance.  The engine takes them
+    (tests/test_torch_port_engine.py); guidance, the ancestral sampler and
+    denoiser dropout, once listed here, are ported
+    (tests/test_torch_port_serving_modes.py, tests/test_torch_port_dropout.py)."""
     cfg = TINY.replace(**{sec: dataclasses.replace(getattr(TINY, sec), **kw)
                           for sec, kw in kwargs.items()})
     with pytest.raises(NotImplementedError):

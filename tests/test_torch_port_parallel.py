@@ -20,7 +20,10 @@ free port, a timeout on every rank).
     global batch mean and one rank's mean, denoiser dropout, and the
     loss-second-moment sampler, whose state is the same on both ranks and
     JAX's `update_state` over the global t and losses; (5) the 2-rank
-    evaluator against the one-process one on the same global waves and x_T.
+    evaluator against the one-process one on the same global waves and x_T;
+    (6) a sharded evaluation wave of 8 on 4 ranks (2 clips a rank) on the
+    fused paths' plain versions, bit for bit against one process of 8, with
+    every GEMM's summation order following its row count.
 """
 
 import dataclasses
@@ -398,6 +401,41 @@ def test_two_rank_evaluator_matches_one_process(dp):
     np.testing.assert_allclose(got["generated"], want["generated"], atol=1e-5)
     for k, v in want["report"].items():
         np.testing.assert_allclose(got["report"][k], v, rtol=1e-4, atol=1e-6, err_msg=k)
+
+
+def test_four_rank_wave_is_one_process_wave(root, tmp_path):
+    """4 ranks of 2 clips against one process of 8, on the same wave and
+    x_T, the music encoder and the ladder on the fused paths (their plain
+    versions here), bit for bit, while every ``torch.matmul`` sums in an
+    order that follows its row count, as a GEMM library on the card picks
+    its kernel by the shape.  The fused encoder's projection runs one GEMM
+    a clip (its frames, never the batch's rows): one product over the
+    batch made a clip's features, and so its motion, depend on the batch
+    it was served in (3.4e-6 of the features, 3e-3 of a ddim50 motion on
+    the card, the 4-rank `cli.evaluate` gap)."""
+    cfg = _cfg().replace(dataset=SPEC)
+    cfg = cfg.replace(denoiser=dataclasses.replace(cfg.denoiser, num_frames=180,
+                                                   layer_impl="pallas_fused",
+                                                   music_encoder_impl="pallas"))
+    ev = {"cfg": cfg, "root": root, "wave": 8, "num_steps": 3}
+    torch.save({"evaluate": ev}, os.path.join(tmp_path, "in.pt"))
+    result = {}
+    worker = threading.Thread(target=lambda: result.setdefault(
+        "ranks", R.launch("wave", 4, str(tmp_path), timeout=240)))
+    worker.start()
+    one = R.evaluate_wave(ev)
+    worker.join(270)
+    assert "ranks" in result, "the ranks did not finish"
+    got = result["ranks"][0]["eval"]
+    assert all(r["eval"]["report"] is None for r in result["ranks"][1:])
+    assert got["wave"] == one["wave"] == 8
+    assert got["generated"].shape == one["generated"].shape == (N_CLIPS, 180, 13, 2)
+    np.testing.assert_array_equal(got["generated"], one["generated"])
+    np.testing.assert_equal(got["report"], one["report"])  # NaN beats on both sides
+    # the projection: one GEMM a clip of 180 frames, 5 in one process, 2 a
+    # rank (the wave of 5 padded to 8 on the ranks)
+    assert one["matmul_rows"] == [180] * N_CLIPS
+    assert all(r["eval"]["matmul_rows"] == [180] * 2 for r in result["ranks"])
 
 
 # ------------------------------------------------------------------ the mesh

@@ -65,10 +65,30 @@ def test_training_losses_match_jax(mean_type):
 
 @pytest.mark.parametrize("kwargs", [{"loss_type": "kl"}, {"var_type": "learned"}])
 def test_unported_losses_raise(kwargs):
+    """The KL loss and the learned variances: the engine computes them
+    (held against JAX in tests/test_torch_port_engine.py), and the trainer,
+    whose objective is the MSE family's over a fixed variance, still
+    refuses them where it is built, as JAX's does."""
+    import dataclasses
+
+    from conductor_tpu_torch import DDPMTrainer
+    from conductor_tpu_torch.config import Config, DenoiserConfig, DiffusionConfig
+
     x0, noise, _ = _inputs()
+    flat = torch.from_numpy(x0).reshape(3, 20, 26)
+    model_fn = ((lambda x, t: torch.cat([x, torch.zeros_like(x)], -1))
+                if "var_type" in kwargs else (lambda x, t: x))
+    terms = training_losses(make_schedule("cosine", 8), model_fn, flat,
+                            torch.zeros(3, dtype=torch.long),
+                            torch.from_numpy(noise).reshape(3, 20, 26), **kwargs)
+    key = "loss" if "loss_type" in kwargs else "vb"
+    assert terms[key].shape == (3,) and bool(torch.isfinite(terms[key]).all())
+    cfg = Config(denoiser=DenoiserConfig(num_frames=32, latent_dim=32, ff_size=16, num_layers=2,
+                                         num_heads=4),
+                 diffusion=DiffusionConfig(steps=8, schedule="cosine"))
+    cfg = cfg.replace(diffusion=dataclasses.replace(cfg.diffusion, **kwargs))
     with pytest.raises(NotImplementedError):
-        training_losses(make_schedule("cosine", 8), lambda x, t: x, torch.from_numpy(x0),
-                        torch.zeros(3, dtype=torch.long), torch.from_numpy(noise), **kwargs)
+        DDPMTrainer(cfg, device="cpu")
 
 
 def test_uniform_sample_range_matches_jax():

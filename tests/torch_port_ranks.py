@@ -7,8 +7,8 @@ group through `conductor_tpu_torch.parallel.init_from_env` and runs
 ``task`` on ``tmp/in.pt``, writing ``tmp/out<rank>.pt``.  Each process is
 waited for with its own timeout and killed at it, so that a hang fails the
 test.  "all" runs `attention_rows`, `run_case` for each case and
-`evaluate_rows` on ``in.pt``'s inputs; these are also
-what the one-process side of each comparison calls, with ``Mesh()``.
+`evaluate_rows` on ``in.pt``'s inputs, "wave" `evaluate_wave`; these are
+also what the one-process side of each comparison calls, with ``Mesh()``.
 Imports torch and the port only.
 """
 
@@ -144,17 +144,42 @@ def evaluate_rows(inp: dict, mesh=None) -> dict:
     return {"report": res.as_dict(), "generated": ev.generated, "wave": ev.batch_size}
 
 
+def evaluate_wave(inp: dict, mesh=None) -> dict:
+    """`evaluate_rows` with every ``torch.matmul`` summing its K axis in
+    parts whose count follows its row count (as a GEMM library picks its
+    kernel, and with it the summation order, by the shape); also returns
+    each call's row count."""
+    real, rows = torch.matmul, []
+
+    def matmul(a, b):
+        m = a.numel() // a.shape[-1]
+        rows.append(m)
+        parts = [real(x, y) for x, y in zip(a.tensor_split(1 + (m // 60) % 4, -1),
+                                            b.tensor_split(1 + (m // 60) % 4, -2))]
+        return sum(parts[1:], parts[0])
+
+    torch.matmul = matmul
+    try:
+        out = evaluate_rows(inp, mesh)
+    finally:
+        torch.matmul = real
+    return dict(out, matmul_rows=rows)
+
+
 def main(task: str, tmp: str) -> None:
     from conductor_tpu_torch.parallel import init_from_env, shutdown
 
     torch.set_num_threads(2)
     mesh, _ = init_from_env("gloo", "cpu")
     inp = torch.load(os.path.join(tmp, "in.pt"), weights_only=False)
-    if task != "all":
+    if task == "all":
+        out = {"attention": attention_rows(inp["attention"], mesh),
+               "cases": {name: run_case(case, mesh) for name, case in inp["cases"].items()},
+               "eval": evaluate_rows(inp["evaluate"], mesh)}
+    elif task == "wave":
+        out = {"eval": evaluate_wave(inp["evaluate"], mesh)}
+    else:
         raise SystemExit(f"unknown task {task}")
-    out = {"attention": attention_rows(inp["attention"], mesh),
-           "cases": {name: run_case(case, mesh) for name, case in inp["cases"].items()},
-           "eval": evaluate_rows(inp["evaluate"], mesh)}
     torch.save(out, os.path.join(tmp, f"out{mesh.rank}.pt"))
     shutdown(mesh)
 
