@@ -367,7 +367,16 @@ Phases, one line each (the kernel checks one line per kernel):
      ddim50, B = 2 on the fused layers (K4, then K1 alone a step through
      `FusedDenoiser.__call__`) against the plain float32 path with the same
      step noise, within 3 %; (e) `utils.profiling.trace` around a ddim10
-     call, its Chrome trace holding K1's kernels and the `annotate` names.
+     call, its Chrome trace holding K1's kernels and the `annotate` names;
+ 21. (run after phase 20, the `[t2m21]` lines, `t2m_phase`) the
+     text-to-motion stack (`conductor_tpu_torch.t2m`), which runs none of
+     the kernels: a random BiGRU co-embedding evaluator out to a
+     `finest.tar`-layout file and back in strictly, its co-embeddings at
+     HumanML3D's evaluation batch (B = 32, 196 x 263 motions, 22 x (300 +
+     15) captions) against the CPU port, cuDNN's GRUs against `gru_plain`
+     (1e-5 of the largest value), and `recover_from_ric`, FK / IK and
+     `process_file` on a 196-frame, 22-joint motion against the CPU (1e-4),
+     with ms a call.
 
 Every path runs at full depth; the run takes about 9 minutes of its 1200-s
 limit, so no path is cut.  Then one JSON line of per-kernel results (the
@@ -398,6 +407,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -617,6 +627,15 @@ DP_TIMEOUT = 300
 DP_WAVE_WORLD = 4
 # phase 20 (c): cuDNN's LSTM against the plain float32 recurrence
 LSTM_REL_TOL = 1e-3
+# phase 21: the t2m stack at HumanML3D's evaluation batch (B = 32 motions of
+# 196 frames x 263 channels, unit-aligned lengths 40-196; captions of
+# max_text_len 20 tokens with sos / eos, 22 positions of 300 GloVe + 15 POS
+# channels), and its preprocessing on a 196-frame motion of 22 joints; the
+# bounds, of the largest value: the embeddings against the CPU port and
+# cuDNN's GRU against `gru_plain`, then the kinematics and features
+T2M_B, T2M_FRAMES, T2M_TOKENS, T2M_JOINTS = 32, 196, 22, 22
+T2M_EMB_REL_TOL = 1e-5
+T2M_MOTION_REL_TOL = 1e-4
 
 
 def _run(cmd: list[str]) -> str:
@@ -2283,8 +2302,11 @@ def dp_phase(smi: str, cfg, plain_cfg, sd, feat_sd, mel_train, motion_train, dra
         pid = None
         try:
             while time.time() < deadline and proc.poll() is None:
-                pid = pid or next((int(ln.split("(pid ")[1].split(")")[0]) for ln in list(lines)
-                                   if ln.startswith("rank 1 of 2")), None)
+                # the ranks share the pipe unbuffered, so rank 1's line can land
+                # inside one of rank 0's (print writes the text and the newline
+                # apart): look for it anywhere
+                banner = re.search(r"rank 1 of 2 \(\w+\) on \S+ \(pid (\d+)\)", "".join(lines))
+                pid = pid or (int(banner.group(1)) if banner else None)
                 if pid and os.path.exists(jsonl) and os.path.getsize(jsonl) > 0:
                     break
                 time.sleep(0.05)
@@ -2664,6 +2686,179 @@ def reference_phase(smi: str, mel, noise, run_dir: str, root: str, m2snet_ckpt: 
     print(f"[ref20] launches {counts}; phase 20 took {time.perf_counter() - t_phase:.1f} s on "
           f"{smi}")
     return counts
+
+
+def t2m_phase(smi: str) -> None:
+    """Phase 21 (the `[t2m21]` lines), after phase 20: the text-to-motion
+    stack on the card against the same work on the CPU port.  (1) A random
+    evaluator (`T2MEvaluatorWrapper.init` from a seeded generator) written
+    by `save_torch_checkpoint` as a `finest.tar`-layout file and re-loaded
+    strictly, bit for bit; (2) its co-embeddings at B = 32 against the CPU
+    port on the same weights and inputs, and the encoders' cuDNN GRUs
+    against `gru_plain` on the card (both within ``T2M_EMB_REL_TOL`` of the
+    largest value); (3) `recover_from_ric` on the batch's motions read as
+    features, FK and IK (smoothed) on a 196-frame walking motion and
+    `process_file` of it against the CPU (``T2M_MOTION_REL_TOL``), the foot
+    contacts equal (``feet_thre`` in the widest relative gap among the
+    middle half of the squared foot displacements).  ms a call, the median
+    of 2-10 calls after one not timed: the card, the CPU port and the plain
+    GRUs.  No kernel of the kernels line runs here.  Raises SystemExit on
+    any failed check."""
+    import os
+    import shutil
+    import tempfile
+
+    from conductor_tpu_torch.models.precision import full_float32
+    from conductor_tpu_torch.t2m import param_util
+    from conductor_tpu_torch.t2m.evaluator_models import (T2MEvaluatorWrapper, bigru_co_plain,
+                                                          load_torch_checkpoint,
+                                                          save_torch_checkpoint)
+    from conductor_tpu_torch.t2m.motion_process import (T2M_FACE_JOINTS, T2M_FID_L, T2M_FID_R,
+                                                        process_file, recover_from_ric)
+    from conductor_tpu_torch.t2m.quaternion import qnormalize
+    from conductor_tpu_torch.t2m.skeleton import Skeleton
+
+    t_phase = time.perf_counter()
+
+    def ms(fn, reps):
+        """The median wall ms of ``reps`` calls of ``fn`` up to the host
+        readback, after one call not timed."""
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    def held(label, got, want, tol):
+        got, want = np.asarray(got), np.asarray(want)
+        err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+        print(f"[t2m21] {label}: shape {got.shape}, max_abs_err {err:.6g} (max {scale:.6g}, "
+              f"bound {tol:g} of it)")
+        if got.shape != want.shape or not np.isfinite(got).all() or not err <= tol * scale:
+            raise SystemExit(f"chip_smoke: t2m {label} disagrees")
+
+    # (1) a finest.tar-layout file out and in
+    work = tempfile.mkdtemp(prefix="chip_smoke_t2m_")
+    try:
+        state = T2MEvaluatorWrapper("t2m", device="cuda").init(torch.Generator().manual_seed(21))
+        path = os.path.join(work, "finest.tar")
+        save_torch_checkpoint(path, state)
+        size = os.path.getsize(path)
+        loaded = load_torch_checkpoint(path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    card = T2MEvaluatorWrapper("t2m", loaded, device="cuda")
+    cpu = T2MEvaluatorWrapper("t2m", loaded, device="cpu")
+    equal = all(torch.equal(v.cpu(), state[key][name].cpu())
+                for key, sd in card.state_dict().items() for name, v in sd.items())
+    n_params = sum(v.numel() for sd in state.values() for v in sd.values())
+    print(f"[t2m21] (1) save_torch_checkpoint -> load_torch_checkpoint: {size} bytes, keys "
+          f"{sorted(loaded)}, {n_params} parameters, loaded strictly on the card and the CPU, "
+          f"bit-equal {equal}")
+    if not equal:
+        raise SystemExit("chip_smoke: the t2m evaluator's checkpoint did not round-trip")
+
+    # (2) the co-embeddings at HumanML3D's evaluation batch
+    rng = np.random.RandomState(21)
+    m_lens = rng.randint(10, T2M_FRAMES // 4 + 1, T2M_B) * 4
+    m_lens[[5, 17]] = T2M_FRAMES, 40
+    cap_lens = rng.randint(5, T2M_TOKENS + 1, T2M_B)
+    cap_lens[3] = T2M_TOKENS
+    words = rng.normal(size=(T2M_B, T2M_TOKENS, 300)).astype(np.float32)
+    pos = np.eye(15, dtype=np.float32)[rng.randint(0, 15, (T2M_B, T2M_TOKENS))]
+    motions = rng.normal(size=(T2M_B, T2M_FRAMES, 263)).astype(np.float32)
+    for i, n in enumerate(m_lens):  # zero past each length, as the dataset pads
+        motions[i, n:] = 0.0
+    batch = (words, pos, cap_lens, motions, m_lens)
+    text_card, mot_card = card.get_co_embeddings(*batch)
+    text_cpu, mot_cpu = cpu.get_co_embeddings(*batch)
+    held("(2) text embeddings, card against the CPU port", text_card, text_cpu, T2M_EMB_REL_TOL)
+    held("(2) motion embeddings, card against the CPU port", mot_card, mot_cpu, T2M_EMB_REL_TOL)
+    dev = {k: torch.from_numpy(np.asarray(v)).cuda() for k, v in zip(
+        ("words", "pos", "cap", "mot"), (words, pos, cap_lens, motions))}
+    mlen4 = torch.from_numpy(m_lens // card.UNIT_LENGTH)
+
+    te, me = card.text_enc, card.motion_enc
+
+    def text(plain):
+        if plain:
+            emb = te.input_emb(dev["words"] + te.pos_emb(dev["pos"]))
+            return bigru_co_plain(te, emb, dev["cap"]).cpu()
+        return te(dev["words"], dev["pos"], dev["cap"]).cpu()
+
+    def motion(plain):
+        if plain:
+            return bigru_co_plain(me, me.input_emb(movements), mlen4).cpu()
+        return me(movements, mlen4).cpu()
+
+    with torch.no_grad(), full_float32():
+        movements = card.movement_enc(dev["mot"][..., :-4])
+        held("(2) text encoder, cuDNN's GRU against gru_plain on the card", text(False),
+             text(True), T2M_EMB_REL_TOL)
+        held("(2) motion encoder, cuDNN's GRU against gru_plain on the card", motion(False),
+             motion(True), T2M_EMB_REL_TOL)
+        t_gru = {f"{name} {kind}": ms(lambda: fn(plain), 5)
+                 for name, fn in (("text", text), ("motion", motion))
+                 for kind, plain in (("cuDNN", False), ("gru_plain", True))}
+    t_card = ms(lambda: card.get_co_embeddings(*batch), 10)
+    t_cpu = ms(lambda: cpu.get_co_embeddings(*batch), 2)
+    print(f"[t2m21] (2) get_co_embeddings B={T2M_B}, {T2M_FRAMES} x 263 motions, "
+          f"{T2M_TOKENS} x (300 + 15) captions: {t_card:.3f} ms a call on the card, the CPU "
+          f"port {t_cpu:.1f} ms; encoders alone on the card, ms: "
+          f"{', '.join(f'{k} {v:.3f}' for k, v in t_gru.items())} on {smi}")
+
+    # (3) the kinematics and the features
+    with full_float32():
+        x = torch.from_numpy(motions)
+        held("(3) recover_from_ric of the batch, card against the CPU",
+             recover_from_ric(x.cuda(), T2M_JOINTS).cpu(), recover_from_ric(x, T2M_JOINTS),
+             T2M_MOTION_REL_TOL)
+        t_ric = ms(lambda: recover_from_ric(dev["mot"], T2M_JOINTS).cpu(), 10)
+        chain = (param_util.t2m_raw_offsets, param_util.t2m_kinematic_chain)
+        skel = Skeleton(*chain)
+        skel.set_offset(np.asarray(param_util.t2m_raw_offsets, np.float32) * 0.25)
+        q = np.concatenate([np.ones((T2M_FRAMES, T2M_JOINTS, 1)),
+                            0.03 * rng.normal(size=(T2M_FRAMES, T2M_JOINTS, 3))], -1)
+        q = qnormalize(torch.tensor(q, dtype=torch.float32))
+        root = torch.tensor(np.stack([np.linspace(0, 2.5, T2M_FRAMES), 0.9 + np.zeros(T2M_FRAMES),
+                                      0.5 * np.linspace(0, 1, T2M_FRAMES)], -1),
+                            dtype=torch.float32)
+        walk = skel.forward_kinematics(q, root)
+        held("(3) Skeleton.forward_kinematics, card against the CPU",
+             skel.forward_kinematics(q.cuda(), root.cuda()).cpu(), walk, T2M_MOTION_REL_TOL)
+        held("(3) Skeleton.inverse_kinematics (smoothed), card against the CPU",
+             skel.inverse_kinematics(walk.cuda(), T2M_FACE_JOINTS, smooth_forward=True).cpu(),
+             skel.inverse_kinematics(walk, T2M_FACE_JOINTS, smooth_forward=True),
+             T2M_MOTION_REL_TOL)
+    walk = walk.numpy()
+    tgt = np.asarray(param_util.t2m_raw_offsets, np.float32) * 0.4
+    glob = process_file(walk, 0.0, tgt, *chain, device="cpu")[1]
+    fid = list(T2M_FID_L) + list(T2M_FID_R)
+    d2 = np.sort(((glob[1:, fid] - glob[:-1, fid]) ** 2).sum(-1).ravel())
+    lo = len(d2) // 4  # the widest relative gap in the middle half
+    gap = lo + int(np.argmax(np.diff(d2[lo:3 * lo + 1]) / d2[lo + 1:3 * lo + 1]))
+    thre = float((d2[gap] + d2[gap + 1]) / 2)
+    want = process_file(walk, thre, tgt, *chain, device="cpu")
+    got = process_file(walk, thre, tgt, *chain, device="cuda")
+    for name, g, w in zip(("data", "global_positions", "local_positions", "l_velocity"), got,
+                          want):
+        held(f"(3) process_file {name}, card against the CPU", g, w, T2M_MOTION_REL_TOL)
+    contacts = got[0][:, -4:]
+    print(f"[t2m21] (3) foot contacts equal {np.array_equal(contacts, want[0][:, -4:])}, "
+          f"{int(contacts.sum())} of {contacts.size} set, feet_thre {thre:.6g} between "
+          f"{d2[gap]:.6g} and {d2[gap + 1]:.6g}")
+    if not np.array_equal(contacts, want[0][:, -4:]) or not 0 < contacts.sum() < contacts.size:
+        raise SystemExit("chip_smoke: t2m process_file's foot contacts differ on the card")
+    t_pf = ms(lambda: process_file(walk, thre, tgt, *chain, device="cuda"), 3)
+    t_pf_cpu = ms(lambda: process_file(walk, thre, tgt, *chain, device="cpu"), 3)
+    print(f"[t2m21] (3) recover_from_ric B={T2M_B} x {T2M_FRAMES} frames: {t_ric:.3f} ms a call "
+          f"on the card; process_file {T2M_FRAMES} frames x {T2M_JOINTS} joints: {t_pf:.1f} ms "
+          f"on the card, {t_pf_cpu:.1f} ms with device='cpu', on {smi}")
+    print(f"[t2m21] phase 21 took {time.perf_counter() - t_phase:.1f} s on {smi}")
 
 
 def main() -> int:
@@ -3432,6 +3627,8 @@ def main() -> int:
         ref_counts = reference_phase(smi, mel, noise,
                                      os.path.join(cli_work, "ConductorMotion100", "defaults"),
                                      os.path.join(cli_work, "data"), m2snet_ckpt)
+        # 21. the t2m stack (no kernel of the kernels line runs in it)
+        t2m_phase(smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
         shutil.rmtree(cli_work, ignore_errors=True)

@@ -276,6 +276,35 @@ def lstm_plain(layer: nn.LSTM, x: torch.Tensor) -> torch.Tensor:
     return torch.cat(outs, dim=-1)
 
 
+def gru_plain(layer: nn.GRU, x: torch.Tensor, lengths: torch.Tensor | None = None,
+              h0: torch.Tensor | None = None) -> torch.Tensor:
+    """A one-layer batch-first ``nn.GRU`` (one or two directions) as a
+    plain float32 recurrence over time, returning its last states
+    (directions, B, H) as ``nn.GRU``'s ``h_n``: gates ``x W_ih^T + b_ih``
+    and ``h W_hh^T + b_hh`` split (r, z, n), ``n = tanh(x_n + r h_n)``,
+    ``h = (1 - z) n + z h``, from ``h0`` (zeros if None).  With ``lengths``
+    a clip's state stops at its last valid frame and its backward
+    direction starts there, as over a packed sequence."""
+    B, T = x.shape[:2]
+    lengths = torch.full((B,), T) if lengths is None else torch.as_tensor(lengths)
+    valid = torch.arange(T, device=x.device) < lengths.to(x.device)[:, None]
+    last = []
+    for d, sfx in enumerate(("", "_reverse")[:1 + int(layer.bidirectional)]):
+        w_ih, w_hh = getattr(layer, "weight_ih_l0" + sfx), getattr(layer, "weight_hh_l0" + sfx)
+        b_ih, b_hh = getattr(layer, "bias_ih_l0" + sfx), getattr(layer, "bias_hh_l0" + sfx)
+        xw = x.float() @ w_ih.t() + b_ih
+        h = (x.new_zeros((B, layer.hidden_size), dtype=torch.float32) if h0 is None
+             else h0[d].float())
+        for t in (range(T - 1, -1, -1) if sfx else range(T)):
+            xr, xz, xn = xw[:, t].chunk(3, dim=-1)
+            hr, hz, hn = (h @ w_hh.t() + b_hh).chunk(3, dim=-1)
+            r, z = torch.sigmoid(xr + hr), torch.sigmoid(xz + hz)
+            h_new = (1 - z) * torch.tanh(xn + r * hn) + z * h
+            h = torch.where(valid[:, t, None], h_new, h)
+        last.append(h)
+    return torch.stack(last)
+
+
 def bilstm_plain(dec: PoseDecoderBiLSTM, x: torch.Tensor, drop=None) -> torch.Tensor:
     """`PoseDecoderBiLSTM` in float32 with `lstm_plain` in place of each
     ``nn.LSTM``: the version its cuDNN layers are held against."""

@@ -138,6 +138,22 @@ loss = training_losses(make_schedule("cosine", 4), lambda x, t: torch.cat([x, x]
                        torch.tensor([1]), torch.randn(1, 30, 26), loss_type="kl",
                        var_type="learned_range")["loss"]
 assert bool(torch.isfinite(loss).all()), loss
+import numpy as np
+import conductor_tpu_torch.t2m, conductor_tpu_torch.t2m.dataset, conductor_tpu_torch.t2m.plot_3d
+from conductor_tpu_torch.t2m import param_util
+from conductor_tpu_torch.t2m.evaluator_models import T2MEvaluatorWrapper
+from conductor_tpu_torch.t2m.motion_process import process_file
+from conductor_tpu_torch.t2m.skeleton import Skeleton
+ev = T2MEvaluatorWrapper("t2m", device="cpu")
+ev.init(torch.Generator().manual_seed(0))
+assert ev.get_motion_embeddings(torch.rand(1, 16, 263), [16]).shape == (1, 512)
+sk = Skeleton(param_util.t2m_raw_offsets, param_util.t2m_kinematic_chain)
+sk.set_offset(param_util.t2m_raw_offsets * 0.25)
+q = torch.nn.functional.normalize(torch.tensor([1.0, 0, 0, 0]) + 0.05 * torch.randn(6, 22, 4), dim=-1)
+data = process_file(sk.forward_kinematics(q, torch.rand(6, 3)).numpy(), 0.002,
+                    param_util.t2m_raw_offsets * 0.25, param_util.t2m_raw_offsets,
+                    param_util.t2m_kinematic_chain, device="cpu")[0]
+assert data.shape == (5, 263) and bool(np.isfinite(data).all()), data.shape
 sys.path.insert(0, "scripts")
 import multiprocess_check_torch, music_encoder_batch_torch, run_1000ladder_torch, run_e2e_demo_torch
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
